@@ -1,9 +1,116 @@
 """Plain PyTorch twins of the port's CUDA kernels: the CPU path, and the
 oracle each kernel is held against on the card."""
 
-from typing import Tuple
+from typing import Optional, NamedTuple, Sequence, Tuple
 
 import torch
+
+from fugue_tpu_torch.utils.validity import materialize_validity
+
+# a payload column and its null mask (True = valid; None: all valid)
+Payload = Tuple[torch.Tensor, Optional[torch.Tensor]]
+MAX_KEYS = 4  # key columns the fused kernel reads
+
+
+class BinKey(NamedTuple):
+    """One key column of the binned aggregate: its values (bool or an
+    integer type, read in its own type), its null mask (True = valid), the
+    smallest value ``kmin`` and the ``span`` of codes, the null bucket
+    ``span - 1`` included where the key is masked."""
+
+    data: torch.Tensor
+    mask: Optional[torch.Tensor]
+    kmin: int
+    span: int
+
+
+def bin_total(keys: Sequence[BinKey]) -> int:
+    """The segment count: the product of the spans, below 2^31."""
+    total = 1
+    for k in keys:
+        if int(k.span) < 1:
+            raise ValueError(f"span {k.span} must be at least 1")
+        total *= int(k.span)
+    if total >= 2**31:
+        raise ValueError(f"{total} segments: at most 2^31 - 1")
+    return total
+
+
+def bin_segments(keys: Sequence[BinKey], valid_rows: torch.Tensor) -> torch.Tensor:
+    """Mixed-radix segment id per row, the first key most significant:
+    the port's ``groupby.inline_seg`` (``fugue_tpu/jax_backend/groupby.py:120``).
+    Invalid rows get the out-of-range sentinel ``bin_total(keys)``."""
+    combined: Optional[torch.Tensor] = None
+    for k in keys:
+        key = k.data
+        if key.dtype in (torch.bool, torch.int8, torch.int16, torch.uint8):
+            # key - kmin may not fit the narrow type; it always fits int32
+            key = key.to(torch.int32)
+        # in the key's own type the difference may wrap in between, but
+        # its true value lies in [0, span) and so comes out right
+        code = (key - k.kmin).to(torch.int32)
+        if k.mask is not None:
+            code = torch.where(k.mask, code, k.span - 1)
+        combined = code if combined is None else combined * k.span + code
+    return torch.where(valid_rows, combined, bin_total(keys))  # type: ignore
+
+
+def binned_sums_reference(
+    keys: Sequence[BinKey],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    floats: Sequence[Payload] = (),
+    counts: Sequence[torch.Tensor] = (),
+    ints: Sequence[Payload] = (),
+    occupancy: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Segment ids, row validity and per-segment sums of a binned
+    aggregate: the twin of ``segment_sums.cu`` and of the per-row part of
+    the JAX package's ``_binned_packed_aggregate`` program
+    (``fugue_tpu/jax_backend/execution_engine.py:3500-3574``), built from
+    ``bin_segments`` (``groupby.inline_seg``) and
+    ``segment_sums_reference``.
+
+    ``keys``: 1-4 ``BinKey``; a row with any code (``key - kmin``, or
+    ``span - 1`` where null) outside ``[0, span)`` is dropped. Rows: pass
+    ``nrows`` for a prefix frame (rows ``>= nrows`` are dropped) or
+    ``row_valid`` for a masked frame (rows whose byte is zero are
+    dropped). ``floats``: float32/float64 payloads with optional masks,
+    summed in float64 if any is float64, else in float32; ``counts``:
+    bool/uint8 flags, the accepted rows whose byte is non-zero counted in
+    int32; ``ints``: integer payloads with optional masks, summed in
+    int64. A masked payload adds only where its mask holds. With
+    ``occupancy``, count row 0 counts every accepted row and the flags
+    follow it. Returns ``([F, total], [occupancy + C, total], [I,
+    total])``."""
+    if not 1 <= len(keys) <= MAX_KEYS:
+        raise ValueError(f"{len(keys)} keys: the kernel takes 1 to {MAX_KEYS}")
+    if (nrows is None) == (row_valid is None):
+        raise ValueError("pass exactly one of nrows (prefix rows) and row_valid")
+    n = int(keys[0].data.shape[0])
+    device = keys[0].data.device
+    valid = materialize_validity(row_valid, n, nrows, device)
+    for k in keys:
+        code = k.data.to(torch.int64) - int(k.kmin)
+        if k.mask is not None:
+            code = torch.where(k.mask, code, int(k.span) - 1)
+        valid = valid & (code >= 0) & (code < int(k.span))
+    seg = bin_segments(keys, valid)
+    fdtype = torch.float64 if any(v.dtype == torch.float64 for v, _ in floats) else torch.float32
+
+    def _pack(pays: Sequence[Payload], dtype: torch.dtype) -> torch.Tensor:
+        rows = [(v if m is None else torch.where(m, v, 0)).to(dtype) for v, m in pays]
+        if not rows:
+            return torch.empty((0, n), dtype=dtype, device=device)
+        return torch.stack(rows)
+
+    flags = [torch.ones((n,), dtype=torch.bool, device=device)] if occupancy else []
+    flags += [c != 0 for c in counts]
+    cpack = torch.stack(flags) if flags else torch.empty((0, n), dtype=torch.bool, device=device)
+    return segment_sums_reference(
+        seg, _pack(floats, fdtype), cpack, _pack(ints, torch.int64), bin_total(keys)
+    )
 
 
 def segment_sums_reference(
@@ -14,8 +121,9 @@ def segment_sums_reference(
     total: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-segment sums of packed payloads, with ``index_add_``; the twin
-    of ``segment_sums.cu`` and of ``groupby.segment_sums(strategy="scatter")``
-    in the JAX package (``fugue_tpu/jax_backend/groupby.py:219``).
+    of ``segment_sums.cu`` over precomputed segment ids and of
+    ``groupby.segment_sums(strategy="scatter")`` in the JAX package
+    (``fugue_tpu/jax_backend/groupby.py:219``).
 
     ``seg`` int32[n]; ``fpack`` [F, n] float32/float64, summed in its own
     dtype; ``cpack`` [C, n] bool or uint8, read as flags: the rows whose

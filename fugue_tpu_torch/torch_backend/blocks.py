@@ -28,6 +28,7 @@ import torch
 
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.utils.assertion import assert_or_throw
+from fugue_tpu_torch.utils.validity import materialize_validity
 
 _TORCH_DTYPES: Dict[pa.DataType, torch.dtype] = {
     pa.bool_(): torch.bool,
@@ -139,18 +140,6 @@ class TorchBlocks:
         return materialize_validity(
             self.row_valid, self.padded_nrows, self._nrows, self.device
         )
-
-
-def materialize_validity(
-    row_valid: Optional[torch.Tensor], pad_n: int, nrows: Optional[int],
-    device: torch.device,
-) -> torch.Tensor:
-    """The one validity convention (``jax_backend/groupby.py:40``): a
-    masked frame passes its mask; a prefix frame materializes
-    ``arange < nrows``."""
-    if row_valid is not None:
-        return row_valid
-    return torch.arange(pad_n, dtype=torch.int32, device=device) < nrows
 
 
 def device_nbytes(blocks: TorchBlocks) -> int:

@@ -4,7 +4,8 @@ A port of the main path of ``fugue_tpu/jax_backend/execution_engine.py``:
 ``to_df``/``persist`` upload a frame; ``TorchMapEngine`` runs a
 ``Dict[str, torch.Tensor]`` transformer over whole columns; ``aggregate``
 runs sum/avg/count by integer keys through the binned packed aggregate,
-whose per-row reduction is one launch of the CUDA segment-sum kernel.
+whose whole per-row part (segment ids, row validity, sums) is one launch
+of the fused CUDA kernel.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``, and
 then every kernel runs as its plain PyTorch twin. Paths the port does not
@@ -14,13 +15,15 @@ those refusals by operation, ``strategy_counts`` the segment-sum routes
 taken (``"cuda"`` or ``"reference"``).
 """
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from collections.abc import Mapping
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import pandas as pd
 import pyarrow as pa
 import torch
 
 from fugue_tpu_torch.collections.partition import PartitionSpec
+from fugue_tpu_torch.kernels.reference import MAX_KEYS, BinKey, Payload
 from fugue_tpu_torch.column.expressions import (
     ColumnExpr,
     _FuncExpr,
@@ -79,7 +82,8 @@ class TorchMapEngine:
 
         - each column ``name`` is a tensor over the padded rows, with
           ``_<name>_mask`` (True = valid) beside it when it has nulls;
-        - ``_row_valid`` bool[padded]: True = real row;
+        - ``_row_valid`` bool[padded]: True = real row, built on first
+          access only (XLA drops it from a program that never reads it);
         - ``_nrows``: the true row count as a 0-d int32 device tensor;
         - output columns of the input's padded length are row-aligned with
           it; to change the row count, return ``_nrows`` too (one readback).
@@ -90,14 +94,13 @@ class TorchMapEngine:
         blocks = df.blocks
         device = blocks.device
         pad_n = blocks.padded_nrows
-        args: Dict[str, Any] = {}
+        args: Dict[str, torch.Tensor] = {}
         for name, col in blocks.columns.items():
             args[name] = col.data
             if col.mask is not None:
                 args[f"_{name}_mask"] = col.mask
-        args["_row_valid"] = blocks.validity()
         args["_nrows"] = blocks.nrows_tensor()
-        out = fn(args)
+        out = fn(_TransformerArgs(args, blocks))
         assert_or_throw(
             isinstance(out, dict),
             ValueError("torch transformer must return a dict of tensors"),
@@ -160,6 +163,29 @@ class TorchMapEngine:
             ),
             output_schema,
         )
+
+
+class _TransformerArgs(Mapping):
+    """A transformer's input dict: the columns, their masks and ``_nrows``
+    as given, and ``_row_valid`` built from the frame the first time the
+    transformer reads it."""
+
+    def __init__(self, cols: Dict[str, torch.Tensor], blocks: TorchBlocks):
+        self._cols = cols
+        self._blocks = blocks
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        if key == "_row_valid" and key not in self._cols:
+            self._cols[key] = self._blocks.validity()
+        return self._cols[key]
+
+    def __iter__(self) -> Iterator[str]:
+        yield from self._cols
+        if "_row_valid" not in self._cols:
+            yield "_row_valid"
+
+    def __len__(self) -> int:
+        return len(self._cols) + ("_row_valid" not in self._cols)
 
 
 class TorchExecutionEngine:
@@ -301,37 +327,39 @@ class TorchExecutionEngine:
         typed_plans: List[Tuple[str, str, Optional[ColumnExpr], pa.DataType]],
         spec: groupby.BinSpec,
     ) -> TorchDataFrame:
-        """The group-by hot path (``:3463``): segment ids inline, every
-        sum/avg/count payload packed into ONE segment-sum launch, keys
-        decoded arithmetically from bin indices. The group count stays a
-        lazy device scalar; empty bins are dropped by the result's
+        """The group-by hot path (``:3463``): ONE launch of the fused kernel
+        reads the key and payload columns, computes segment ids and row
+        validity in registers and sums every sum/avg/count payload; keys
+        are decoded arithmetically from bin indices. The group count stays
+        a lazy device scalar; empty bins are dropped by the result's
         ``row_valid``."""
         blocks = tdf.blocks
         device = blocks.device
         pad_n = blocks.padded_nrows
-        total = spec.total
-        valid = blocks.validity()
-        seg = groupby.inline_seg(
-            spec,
-            {k: blocks.columns[k].data for k in keys},
-            {k: blocks.columns[k].mask for k in keys},
-            valid,
-        )
+        key_data = {k: blocks.columns[k].data for k in keys}
+        key_masks = {k: blocks.columns[k].mask for k in keys}
+        bkeys = groupby.bin_keys(spec, key_data, key_masks)
+        if len(bkeys) > MAX_KEYS:
+            # more keys than the kernel reads: their segment ids, with the
+            # invalid rows' sentinel, are its one key
+            seg = groupby.inline_seg(spec, key_data, key_masks, blocks.validity())
+            bkeys = [BinKey(seg, None, 0, spec.total)]
         mcols = expr_eval.blocks_to_masked(blocks)
-        float_payloads: List[torch.Tensor] = []
-        count_payloads: List[torch.Tensor] = [valid]  # occupancy rides along
-        int_payloads: List[torch.Tensor] = []
+        floats: List[Payload] = []
+        counts: List[torch.Tensor] = []
+        ints: List[Payload] = []
         # payload dedup: SUM(v)+AVG(v) share one float payload; COUNT(*)
-        # and any unmasked count ARE the occupancy vector (slot 0)
+        # and any unmasked count ARE the occupancy row (count slot 0),
+        # which the kernel counts from the rows it accepts
         fkeys: Dict[str, int] = {}
         ckeys: Dict[str, int] = {"__valid__": 0}
         ikeys: Dict[str, int] = {}
 
-        def _slot(keys_: Dict[str, int], pays: List[torch.Tensor], key: str,
-                  vec: torch.Tensor) -> int:
+        def _slot(keys_: Dict[str, int], pays: List[Any], key: str, item: Any,
+                  base: int = 0) -> int:
             if key not in keys_:
-                pays.append(vec)
-                keys_[key] = len(pays) - 1
+                pays.append(item)
+                keys_[key] = base + len(pays) - 1
             return keys_[key]
 
         slots: List[Tuple[str, Any]] = []
@@ -341,24 +369,28 @@ class TorchExecutionEngine:
                 continue
             akey = arg.__uuid__()
             values, mask = expr_eval.eval_expr(mcols, arg, pad_n, device)
+            # the kernel reads dense columns; a transformer may return views
+            values = values.contiguous()
+            mask = None if mask is None else mask.contiguous()
             eff_key = "__valid__" if mask is None else f"m:{akey}"
-            eff = valid if mask is None else (mask & valid)
-            ci = _slot(ckeys, count_payloads, eff_key, eff)
+            ci = 0 if mask is None else _slot(ckeys, counts, eff_key, mask, base=1)
             if func == "count":
                 slots.append(("c", ci))
                 continue
-            # rows outside ``valid`` carry the sentinel segment id and are
-            # dropped by the kernel, so only masked values need zeroing
-            payload = values if mask is None else torch.where(eff, values, 0)
+            # the kernel adds a masked payload only where its mask holds
             pkey = f"{akey}|{eff_key}"
             if _packed_agg_kind(tdf.schema, arg) == "int":
-                slots.append(("i", (_slot(ikeys, int_payloads, pkey, payload), ci)))
+                slots.append(("i", (_slot(ikeys, ints, pkey, (values, mask)), ci)))
             else:
-                slots.append(("f", (_slot(fkeys, float_payloads, pkey, payload), ci)))
-        f_sums, c_sums, i_sums = groupby.segment_sums(
-            float_payloads, count_payloads, seg, total, int_payloads=int_payloads
+                slots.append(("f", (_slot(fkeys, floats, pkey, (values, mask)), ci)))
+        rows: Dict[str, Any] = (
+            {"nrows": blocks.nrows} if blocks.row_valid is None
+            else {"row_valid": blocks.row_valid}
         )
-        self._count_strategy("cuda" if seg.is_cuda else "reference")
+        f_sums, c_sums, i_sums = groupby.binned_sums(
+            bkeys, floats=floats, counts=counts, ints=ints, **rows
+        )
+        self._count_strategy("cuda" if device.type == "cuda" else "reference")
         occupied = c_sums[0] > 0
         decoded = groupby.decode_bin_keys(
             spec, {k: blocks.columns[k].data.dtype for k in keys}, device

@@ -1,8 +1,9 @@
-"""Group-by on the card: static key binning + the packed segment sums.
+"""Group-by on the card: static key binning + the fused binned sums.
 
 The port of ``fugue_tpu/jax_backend/groupby.py``'s binned path. When
 every key is integer-like with host-known bounds, segment ids are a
-mixed-radix combination of ``key - min``: one elementwise pass, no sort,
+mixed-radix combination of ``key - min``, computed inside the fused
+kernel with the row validity and the sums: no sort, no segment-id tensor,
 and the segment count is the static bin count, so no output shape needs
 a readback. Empty bins are dropped lazily through an occupancy mask.
 
@@ -13,12 +14,17 @@ carried over: the port has one, the hand-written CUDA kernel
 no bin spec need the sort factorization, which is not ported yet.
 """
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from fugue_tpu_torch.kernels.reference import segment_sums_reference
-from fugue_tpu_torch.kernels.segment_sums import segment_sums_cuda
+from fugue_tpu_torch.kernels.reference import (
+    BinKey,
+    Payload,
+    bin_segments,
+    binned_sums_reference,
+)
+from fugue_tpu_torch.kernels.segment_sums import binned_sums_cuda
 from fugue_tpu_torch.torch_backend.blocks import TorchBlocks
 
 _MAX_BINS = 1 << 22  # static-binning cap (``groupby.py:451``)
@@ -85,6 +91,26 @@ def _fill_stats_from_device(blocks: TorchBlocks, names: List[str]) -> None:
         blocks.columns[k].stats = (int(b[0]), int(b[1]))
 
 
+def bin_keys(
+    spec: BinSpec,
+    key_data: Dict[str, torch.Tensor],
+    key_masks: Dict[str, Optional[torch.Tensor]],
+) -> List[BinKey]:
+    """The key columns of ``spec`` as the fused kernel takes them: dense
+    (a transformer may return views)."""
+    return [
+        BinKey(
+            key_data[name].contiguous(),
+            key_masks[name].contiguous() if has_mask else None,  # type: ignore[union-attr]
+            kmin,
+            span,
+        )
+        for name, kmin, span, has_mask in zip(
+            spec.names, spec.mins, spec.spans, spec.masked
+        )
+    ]
+
+
 def inline_seg(
     spec: BinSpec,
     key_data: Dict[str, torch.Tensor],
@@ -93,21 +119,7 @@ def inline_seg(
 ) -> torch.Tensor:
     """Mixed-radix segment id per row (``groupby.py:120``); invalid rows get
     the out-of-range sentinel ``spec.total``."""
-    combined: Optional[torch.Tensor] = None
-    for name, kmin, span, has_mask in zip(
-        spec.names, spec.mins, spec.spans, spec.masked
-    ):
-        key = key_data[name]
-        if key.dtype in (torch.bool, torch.int8, torch.int16, torch.uint8):
-            # key - kmin may not fit the narrow type; it always fits int32
-            key = key.to(torch.int32)
-        # in the key's own type the difference may wrap in between, but
-        # its true value lies in [0, span) and so comes out right
-        code = (key - kmin).to(torch.int32)
-        if has_mask:
-            code = torch.where(key_masks[name], code, span - 1)  # type: ignore
-        combined = code if combined is None else combined * span + code
-    return torch.where(valid_rows, combined, spec.total)  # type: ignore
+    return bin_segments(bin_keys(spec, key_data, key_masks), valid_rows)
 
 
 def decode_bin_keys(
@@ -131,14 +143,29 @@ def decode_bin_keys(
     return out
 
 
-def _pack(payloads: List[torch.Tensor], dtype: torch.dtype, n: int,
-          device: torch.device) -> torch.Tensor:
-    """``[P, n]`` contiguous operand; one payload is a view, no copy."""
-    if len(payloads) == 0:
-        return torch.empty((0, n), dtype=dtype, device=device)
-    if len(payloads) == 1:
-        return payloads[0].to(dtype).contiguous().unsqueeze(0)
-    return torch.stack([p.to(dtype) for p in payloads])
+def binned_sums(
+    keys: Sequence[BinKey],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    floats: Sequence[Payload] = (),
+    counts: Sequence[torch.Tensor] = (),
+    ints: Sequence[Payload] = (),
+    occupancy: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Segment ids, row validity and every sum-type reduction of an
+    aggregate in one pass, with the contract of
+    ``kernels.reference.binned_sums_reference``. CUDA keys go to the fused
+    kernel, CPU keys to its plain twin; there is no fallback between
+    them."""
+    args = dict(nrows=nrows, row_valid=row_valid, floats=floats, counts=counts,
+                ints=ints, occupancy=occupancy)
+    device = keys[0].data.device
+    if device.type == "cuda":
+        return binned_sums_cuda(keys, **args)  # type: ignore[arg-type]
+    if device.type == "cpu":
+        return binned_sums_reference(keys, **args)  # type: ignore[arg-type]
+    raise NotImplementedError(f"binned sums on {device}")
 
 
 def segment_sums(
@@ -148,26 +175,18 @@ def segment_sums(
     num_segments: int,
     int_payloads: Optional[List[torch.Tensor]] = None,
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
-    """Every sum-type reduction of an aggregate in one kernel launch
-    (``groupby.py:219``). ``float_payloads`` sum in the widest float dtype
-    present (float32 when all are float32); ``count_payloads`` (bool/0-1)
-    sum exactly in int32; ``int_payloads`` sum exactly in int64. Rows with
-    ``seg >= num_segments`` contribute nothing.
-
-    A CUDA ``seg`` goes to the CUDA kernel, a CPU one to its plain twin;
-    there is no fallback between them."""
-    ints = int_payloads or []
-    n, device = int(seg.shape[0]), seg.device
-    acc = torch.float32
-    if any(p.dtype == torch.float64 for p in float_payloads):
-        acc = torch.float64
-    fpack = _pack(float_payloads, acc, n, device)
-    cpack = _pack(count_payloads, torch.bool, n, device)
-    ipack = _pack(ints, torch.int64, n, device)
-    if seg.is_cuda:
-        f, c, i = segment_sums_cuda(seg, fpack, cpack, ipack, num_segments)
-    elif seg.device.type == "cpu":
-        f, c, i = segment_sums_reference(seg, fpack, cpack, ipack, num_segments)
-    else:
-        raise NotImplementedError(f"segment sums on {seg.device}")
+    """Per-segment sums over precomputed segment ids (``groupby.py:219``):
+    ``binned_sums`` with ``seg`` as its one key. ``float_payloads`` sum in
+    the widest float dtype present (float32 when all are float32);
+    ``count_payloads`` (bool/0-1) sum exactly in int32; ``int_payloads``
+    sum exactly in int64. Rows with ``seg < 0`` or ``seg >= num_segments``
+    contribute nothing."""
+    f, c, i = binned_sums(
+        [BinKey(seg, None, 0, num_segments)],
+        nrows=int(seg.shape[0]),
+        floats=[(p, None) for p in float_payloads],
+        counts=count_payloads,
+        ints=[(p, None) for p in int_payloads or []],
+        occupancy=False,
+    )
     return list(f), list(c), list(i)

@@ -61,6 +61,7 @@ def main() -> None:
         "rows": chip_smoke.ROWS,
         "runs": RUNS,
         "wall_secs_per_run": wall / RUNS,
+        "device_ms_per_run": busy_us / RUNS / 1e3,
         "device_busy_share": busy_us / 1e6 / wall,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "device_ms_per_run_by_op": [

@@ -155,4 +155,4 @@ def test_chip_smoke_main_path_on_cpu():
     (the card runs it at 100M rows); it checks itself against numpy."""
     stats = chip_smoke.main_path(torch.device("cpu"), N, GROUPS, 42, 1)
     assert stats["rows"] == N and stats["max_rel_err_s"] < 1e-5
-    assert stats["launches"] == {"segment_sums": 0}  # the CPU runs the twin
+    assert stats["launches"] == {"binned_sums": 0}  # the CPU runs the twin
