@@ -47,6 +47,7 @@ from typing import Any, Callable, Dict, List, Tuple
 
 ROWS = 100_000_000
 GROUPS = 1024
+CONFIG2_ROWS = 10_000_000  # BASELINE.json's second configuration
 SEED = 42
 WARM_RUNS = 5
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
@@ -154,14 +155,12 @@ def kernel_vs_twin(device: Any) -> float:
     return worst
 
 
-def binned_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
-    """The fused kernel's phase-3 cases at ``n`` rows: ``(label, keyword
-    arguments of binned_sums_cuda / binned_sums_reference)``. Keys reach
-    beyond their ``[kmin, kmin + span)`` on some rows, so the kernel must
-    drop those rows."""
+def _draws(device: Any, n: int, seed: int) -> Tuple[Callable[..., Any], ...]:
+    """Random columns of ``n`` rows from one seeded generator on
+    ``device``: ``ints(lo, hi, dtype)``, ``flags(p)`` (True with
+    probability p), ``floats(dtype)`` in [-1, 1) and ``big()``, int64 in
+    [-2^40, 2^40); each takes another row count as ``m``."""
     import torch
-
-    from fugue_tpu_torch.kernels.reference import BinKey
 
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -177,6 +176,19 @@ def binned_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, An
     def big(m: int = n) -> Any:
         return ints(-(2**40), 2**40, torch.int64, m)
 
+    return ints, flags, floats, big
+
+
+def binned_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """The fused kernel's phase-3 cases at ``n`` rows: ``(label, keyword
+    arguments of binned_sums_cuda / binned_sums_reference)``. Keys reach
+    beyond their ``[kmin, kmin + span)`` on some rows, so the kernel must
+    drop those rows."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import BinKey
+
+    ints, flags, floats, big = _draws(device, n, seed)
     one = [BinKey(ints(-9, 1020, torch.int32), None, -7, 1024)]
     cases: List[Tuple[str, Dict[str, Any]]] = [
         ("one int32 key, shared path at 1024 segments",
@@ -325,6 +337,377 @@ def binned_vs_twin(device: Any, kernel: Callable[..., Any]) -> float:
     return worst
 
 
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launch count."""
+    from fugue_tpu_torch.kernels.factorize import (
+        bin_factorize_cuda, sort_boundaries_cuda, sort_finish_cuda,
+    )
+    from fugue_tpu_torch.kernels.segment_sums import binned_sums_cuda
+
+    return {f.__name__[: -len("_cuda")]: f.launches for f in (
+        binned_sums_cuda, bin_factorize_cuda, sort_boundaries_cuda, sort_finish_cuda)}
+
+
+def zero_launches() -> None:
+    """Sets every kernel wrapper's launch count to 0."""
+    from fugue_tpu_torch.kernels import factorize, segment_sums
+
+    for f in (segment_sums.binned_sums_cuda, factorize.bin_factorize_cuda,
+              factorize.sort_boundaries_cuda, factorize.sort_finish_cuda):
+        f.launches = 0
+
+
+def bin_factorize_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """K1's cases at ``n`` rows: ``(label, keyword arguments of
+    bin_factorize_cuda / bin_factorize_reference)``. The first key reaches
+    past its span on some rows, which then have no bin."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import BinKey
+
+    ints, flags, _, _ = _draws(device, n, seed)
+    return [
+        ("one int32 key, 1024 bins, shared path", dict(
+            keys=[BinKey(ints(-3, 1027, torch.int32), None, 0, 1024)], nrows=n)),
+        ("four keys, one of them nullable", dict(
+            keys=[BinKey(ints(0, 3, torch.int8), None, 0, 3),
+                  BinKey(ints(-2, 3, torch.int16), flags(0.9), -2, 6),
+                  BinKey(ints(10, 17, torch.int32), None, 10, 7),
+                  BinKey(ints(2**35, 2**35 + 11, torch.int64), None, 2**35, 11)],
+            nrows=n)),
+        ("nullable key, prefix frame with nrows < n", dict(
+            keys=[BinKey(ints(0, 100, torch.int32), flags(0.8), 0, 101)], nrows=n // 2)),
+        ("masked frame", dict(
+            keys=[BinKey(ints(-50, 50, torch.int64), None, -50, 100)], row_valid=flags(0.6))),
+        ("2^22 bins, global path", dict(
+            keys=[BinKey(ints(0, 1 << 22, torch.int32), None, 0, 1 << 22)], nrows=n)),
+    ]
+
+
+def sort_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """The sort path's cases at ``n`` rows: ``(label, {"keys": [(values,
+    null mask)], and nrows or row_valid})``, keys as a frame holds them."""
+    import torch
+
+    ints, flags, _, big = _draws(device, n, seed)
+    table = torch.tensor([float("nan"), -0.0, 0.0, 1.5, -2.25, 3.0e38, float("-inf"), 7.0],
+                         device=device)
+    pool = big(max(1, n // 8))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return [
+        ("all rows in one group", dict(
+            keys=[(torch.full((n,), 7, dtype=torch.int32, device=device), None)], nrows=n)),
+        ("all rows distinct", dict(
+            keys=[(torch.randperm(n, generator=gen, device=device).to(torch.int32), None)],
+            nrows=n)),
+        ("float32 keys with NaN, -0.0 and +0.0", dict(
+            keys=[(table[ints(0, 8, torch.int64)], None)], nrows=n)),
+        ("nullable float64 keys", dict(
+            keys=[(table.double()[ints(0, 8, torch.int64)], flags(0.8))], nrows=n)),
+        ("nullable int32 keys", dict(
+            keys=[(ints(0, 50, torch.int32), flags(0.7))], nrows=n)),
+        ("int64 keys spanning +-2^40", dict(
+            keys=[(pool[ints(0, pool.shape[0], torch.int64)], None)], nrows=n)),
+        ("two keys, float32 and int64", dict(
+            keys=[(table[ints(0, 8, torch.int64)], None), (ints(-3, 3, torch.int64) * 2**33, None)],
+            nrows=n)),
+        ("masked frame", dict(keys=[(ints(0, 100, torch.int32), None)], row_valid=flags(0.6))),
+        ("prefix frame with nrows < n", dict(
+            keys=[(pool[ints(0, pool.shape[0], torch.int64)], None)], nrows=n // 2 + 1)),
+    ]
+
+
+def _rows_of(case: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: case[k] for k in ("nrows", "row_valid") if k in case}
+
+
+def bin_factorize_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
+    """K1 against ``bin_factorize_reference`` in every case of
+    ``bin_factorize_cases``: segment ids, first rows, occupied bins and
+    the count exactly, and the path the bin count calls for."""
+    import torch
+
+    from fugue_tpu_torch.kernels.factorize import bin_factorize_cuda
+    from fugue_tpu_torch.kernels.reference import bin_factorize_reference
+
+    for n in sizes:
+        for label, case in bin_factorize_cases(device, n, SEED):
+            got = bin_factorize_cuda(**case)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            want = bin_factorize_reference(**case)
+            for name, g, w in zip(("seg", "first_idx", "occupied", "count"), got, want):
+                if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+                    raise SystemExit(f"FAIL bin_factorize {label} n={n}: {name} differs")
+            path = "global" if label.startswith("2^22") else "shared"
+            if bin_factorize_cuda.last_path != path:
+                raise SystemExit(f"FAIL bin_factorize {label} n={n}: took the "
+                                 f"{bin_factorize_cuda.last_path} path, expected {path}")
+            print(f"ok bin_factorize {label} n={n} path={path} groups={int(want[3])}")
+
+
+def sort_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
+    """K2 and K3 against ``sort_boundaries_reference`` and
+    ``sort_finish_reference`` over the same codes and order (the port's
+    ``sort_codes`` and ``lex_order``) in every case of ``sort_cases`` at
+    each size: sorted ids, the count, ids in row order and first rows
+    exactly."""
+    import torch
+
+    from fugue_tpu_torch.kernels.factorize import sort_boundaries_cuda, sort_finish_cuda
+    from fugue_tpu_torch.kernels.reference import (
+        sort_boundaries_reference, sort_finish_reference,
+    )
+    from fugue_tpu_torch.torch_backend import groupby
+
+    for n in sizes:
+        for label, case in sort_cases(device, n, SEED):
+            rows = _rows_of(case)
+            codes = groupby.sort_codes(case["keys"])
+            order = groupby.lex_order(codes, **rows)
+            got = sort_boundaries_cuda(codes, order, **rows)
+            want = sort_boundaries_reference(codes, order, **rows)
+            num = int(want[1])
+            got2 = sort_finish_cuda(want[0], order, num)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            want2 = sort_finish_reference(want[0], order, num)
+            named = zip(("seg_sorted", "count", "seg", "first_idx"), got + got2, want + want2)
+            for name, g, w in named:
+                if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+                    raise SystemExit(f"FAIL sort {label} n={n}: {name} differs")
+            if label == "all rows in one group" and num != 1:
+                raise SystemExit(f"FAIL sort {label} n={n}: {num} groups")
+            if label == "all rows distinct" and num != n:
+                raise SystemExit(f"FAIL sort {label} n={n}: {num} groups")
+            print(f"ok sort_boundaries + sort_finish {label} n={n} groups={num}")
+            del codes, order, got, want, got2, want2
+
+
+def config2_frame(rows: int) -> Any:
+    """``BASELINE.json``'s second configuration (``bench.py:786-793``): an
+    int32 key uniform over 512 groups and a float32 value, seed 1."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(1)
+    return pd.DataFrame({
+        "k": rng.integers(0, 512, rows).astype(np.int32),
+        "v": rng.random(rows).astype(np.float32),
+    })
+
+
+def udfs() -> Dict[str, Callable[..., Any]]:
+    """The transformers of the new paths, annotated ``Dict[str,
+    torch.Tensor]`` as the port requires:
+
+    - ``demean``: the config-2 transformer (``bench.py:798-811``) in
+      torch, each value less its group's mean. The sentinel id
+      ``_num_segments`` of rows that are not real gets its own bucket, cut
+      off after the sums, and ids are clamped for the gather back to the
+      rows;
+    - ``float_key`` and ``int64_key``: the headline UDF (``v2 = v*2+1``)
+      with the key cast to float32, or mapped to ``k * 2^33 - 2^40`` as
+      int64, which has no bin spec."""
+    import torch
+
+    Cols = Dict[str, torch.Tensor]
+
+    def demean(a: Cols) -> Cols:
+        seg, num, valid = a["_segment_ids"], a["_num_segments"], a["_row_valid"]
+        v = torch.where(valid, a["v"], 0.0)
+        idx = seg.long()
+        zeros = torch.zeros(num + 1, dtype=v.dtype, device=v.device)
+        cnt = zeros.clone().index_add_(0, idx, valid.to(v.dtype))
+        tot = zeros.index_add_(0, idx, v)
+        mean = tot[:num] / torch.clamp(cnt[:num], min=1.0)
+        return {"k": a["k"], "v": a["v"], "z": a["v"] - mean[torch.clamp(seg, 0, num - 1).long()]}
+
+    def float_key(a: Cols) -> Cols:
+        return {"k": a["k"].float(), "v2": a["v"] * 2.0 + 1.0}
+
+    def int64_key(a: Cols) -> Cols:
+        return {"k": a["k"].to(torch.int64) * 2**33 - 2**40, "v2": a["v"] * 2.0 + 1.0}
+
+    return {"demean": demean, "float_key": float_key, "int64_key": int64_key}
+
+
+def build_partitioned_transform(
+    device: Any, rows: int
+) -> Tuple[Callable[[], Tuple[float, Dict[str, Any]]], Any]:
+    """Upload the config-2 frame and return ``(run_once, frame)``;
+    ``run_once()`` drives ``transform(partition={"by": ["k"]})`` of
+    ``udfs()["demean"]`` and brings every output column back to host
+    arrays, and returns ``(seconds, arrays)``."""
+    from fugue_tpu_torch import make_execution_engine, transform
+
+    pdf = config2_frame(rows)
+    engine = make_execution_engine("torch", device=device)
+    src = engine.persist(engine.to_df(pdf))
+
+    def run_once() -> Tuple[float, Dict[str, Any]]:
+        t = time.perf_counter()
+        out = transform(src, udfs()["demean"], schema="k:int,v:float,z:float",
+                        partition={"by": ["k"]}, engine=engine, as_fugue=True)
+        host = {name: c.data.cpu().numpy() for name, c in out.blocks.columns.items()}
+        return time.perf_counter() - t, host
+
+    return run_once, pdf
+
+
+def partitioned_transform(device: Any, rows: int, warm_runs: int) -> Dict[str, Any]:
+    """``transform(partition={"by": ["k"]})`` of ``udfs()["demean"]`` over the
+    config-2 frame, every output column brought back to the host (the
+    JAX bench's endpoint). ``z`` is held against float64 numpy: within
+    ``MAIN_PATH_RTOL`` of the group's mean (float32 sums of ~20k rows per
+    group at 10M rows) plus float32 rounding of ``v``. Reports cold and
+    best warm seconds, rows/s, peak memory and each kernel's launches in
+    the cold run and over the warm runs (the factorization is cached on
+    the frame, so warm runs launch none)."""
+    import numpy as np
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    run_once, pdf = build_partitioned_transform(device, rows)
+    zero_launches()
+    cold_secs, host = run_once()
+    cold_launches = launch_counts()
+    zero_launches()
+    warm = [run_once()[0] for _ in range(warm_runs)]
+    warm_launches = launch_counts()
+    k, v = pdf["k"].to_numpy(), pdf["v"].to_numpy()
+    if not (np.array_equal(host["k"], k) and np.array_equal(host["v"], v)):
+        raise SystemExit(f"FAIL partitioned transform n={rows}: k or v changed")
+    counts = np.bincount(k, minlength=512)
+    mean = np.bincount(k, weights=v.astype(np.float64), minlength=512) / np.maximum(counts, 1)
+    z_ref = v.astype(np.float64) - mean[k]
+    err = np.abs(host["z"].astype(np.float64) - z_ref)
+    bound = MAIN_PATH_RTOL * np.abs(mean[k]) + 2.0**-24 * np.abs(v)
+    if not (np.all(np.isfinite(host["z"])) and np.all(err <= bound)):
+        raise SystemExit(f"FAIL partitioned transform n={rows}: z off by up to {err.max()}")
+    best = min(warm) if warm else cold_secs
+    return {
+        "rows": rows,
+        "cold_secs": cold_secs,
+        "warm_secs": warm,
+        "best_warm_secs": best,
+        "rows_per_sec": rows / best,
+        "max_memory_allocated": (
+            torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+        ),
+        "launches": cold_launches,
+        "warm_launches": warm_launches,
+        "max_abs_err_z": float(err.max()),
+    }
+
+
+# the sort-path aggregates: (UDF of ``udfs``, its output schema, the key
+# in numpy)
+SORT_PATH_CASES = (
+    ("float_key", "k:float,v2:float", lambda k: k.astype("float32")),
+    ("int64_key", "k:long,v2:float", lambda k: k.astype("int64") * 2**33 - 2**40),
+)
+
+
+def build_sort_path(
+    device: Any, rows: int, groups: int, seed: int
+) -> Tuple[Callable[[str], Callable[[], Tuple[float, Any]]], Any, Any, Any]:
+    """Upload the headline frame and return ``(run_for, keys, values,
+    engine)``; ``run_for(name)`` is the ``run_once`` of the sort-path case
+    ``name`` of ``SORT_PATH_CASES``: the case's UDF, then sum/avg/count of
+    ``v2`` by key, through the entry points to pandas, returning
+    ``(seconds, result pandas)``."""
+    import numpy as np
+    import pandas as pd
+
+    from fugue_tpu_torch import aggregate, col, functions as ff
+    from fugue_tpu_torch import make_execution_engine, transform
+
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, groups, rows).astype(np.int32)
+    values = rng.random(rows).astype(np.float32)
+    engine = make_execution_engine("torch", device=device)
+    src = engine.persist(engine.to_df(pd.DataFrame({"k": keys, "v": values})))
+    schemas = {name: schema for name, schema, _ in SORT_PATH_CASES}
+
+    def run_for(name: str) -> Callable[[], Tuple[float, Any]]:
+        udf = udfs()[name]
+
+        def run_once() -> Tuple[float, Any]:
+            t = time.perf_counter()
+            tout = transform(src, udf, schema=schemas[name], engine=engine, as_fugue=True)
+            agg = aggregate(tout, partition_by="k", s=ff.sum(col("v2")), m=ff.avg(col("v2")),
+                            c=ff.count(col("v2")), engine=engine, as_fugue=True)
+            return time.perf_counter() - t, agg.as_pandas()
+
+        return run_once
+
+    return run_for, keys, values, engine
+
+
+def sort_path_aggregates(device: Any, rows: int, groups: int, seed: int,
+                         warm_runs: int) -> List[Dict[str, Any]]:
+    """The headline frame and UDF (``v2 = v*2+1``) with the key cast to
+    float32, or mapped to ``k * 2^33 - 2^40`` as int64 (no bin spec),
+    then sum/avg/count of ``v2`` by key through the sort path, through
+    the entry points to pandas. Keys (in the port's order, ascending
+    here) and counts must equal numpy, ``s`` and ``m`` be within
+    ``MAIN_PATH_RTOL`` of float64 numpy. Reports cold and best warm
+    seconds, peak memory and each kernel's launches per aggregate."""
+    import numpy as np
+    import torch
+
+    run_for, keys, values, engine = build_sort_path(device, rows, groups, seed)
+    v2 = values * np.float32(2.0) + np.float32(1.0)
+    c_ref = np.bincount(keys, minlength=groups)
+    s_ref = np.bincount(keys, weights=v2.astype(np.float64), minlength=groups)
+    occupied = np.nonzero(c_ref)[0]
+    out = []
+    for name, _, np_key in SORT_PATH_CASES:
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        run_once = run_for(name)
+        before = engine.strategy_counts.get("generic", 0)
+        zero_launches()
+        cold_secs, pdf = run_once()
+        cold_launches = launch_counts()
+        zero_launches()
+        warm = [run_once()[0] for _ in range(warm_runs)]
+        warm_launches = launch_counts()
+        if engine.strategy_counts.get("generic", 0) != before + 1 + warm_runs:
+            raise SystemExit(f"FAIL sort path {name}: the aggregate took the binned branch")
+        want_k = np_key(occupied)
+        if not np.array_equal(pdf["k"].to_numpy(), want_k):
+            raise SystemExit(f"FAIL sort path {name}: keys differ from numpy")
+        if not np.array_equal(pdf["c"].to_numpy(), c_ref[occupied]):
+            raise SystemExit(f"FAIL sort path {name}: counts differ from numpy")
+        rel = {}
+        for col_name, want in (("s", s_ref[occupied]), ("m", s_ref[occupied] / c_ref[occupied])):
+            got = pdf[col_name].to_numpy().astype(np.float64)
+            rel[col_name] = float(np.max(np.abs(got - want) / np.abs(want)))
+            if not (np.all(np.isfinite(got)) and rel[col_name] <= MAIN_PATH_RTOL):
+                raise SystemExit(f"FAIL sort path {name}: {col_name} off by rtol {rel[col_name]}")
+        best = min(warm) if warm else cold_secs
+        out.append({
+            "case": name,
+            "rows": rows,
+            "groups": int(occupied.shape[0]),
+            "cold_secs": cold_secs,
+            "warm_secs": warm,
+            "best_warm_secs": best,
+            "rows_per_sec": rows / best,
+            "max_memory_allocated": (
+                torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+            ),
+            "launches": cold_launches,
+            "warm_launches": warm_launches,
+            "max_rel_err": rel,
+        })
+    return out
+
+
 def build_main_path(
     device: Any, rows: int, groups: int, seed: int
 ) -> Tuple[Callable[[], Tuple[float, Any, Any]], Any, Any, float]:
@@ -379,7 +762,7 @@ def main_path(
         torch.cuda.reset_peak_memory_stats(device)
     run_once, keys, values, upload_secs = build_main_path(device, rows, groups, seed)
 
-    binned_sums_cuda.launches = 0
+    zero_launches()
     cold_secs, agg, pdf = run_once()
     launches = {"binned_sums": binned_sums_cuda.launches}
     if str(agg.schema) != "k:int,s:float,m:double,c:long":
@@ -512,6 +895,118 @@ def kernel_timing(device: Any, launches: int) -> Dict[str, Any]:
     }
 
 
+def _kernel_entry(name: str, replaces: str, launches: int, err: float, ms: float,
+                  plain_ms: float, nbytes: int, ops: int, library_ms: float) -> Dict[str, Any]:
+    """One kernel's entry of the ``kernels`` line; its bound is the larger
+    of its bytes over the HBM rate and its operations over the float32
+    rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "fugue_tpu_torch/kernels/factorize.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def _max_abs_diff(got: Tuple[Any, ...], want: Tuple[Any, ...]) -> float:
+    return max(float((g.to(w.dtype).double() - w.double()).abs().max()) if w.numel() else 0.0
+               for g, w in zip(got, want))
+
+
+def factorize_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """K1, K2 and K3 with CUDA events at the 100M-row shapes of their
+    paths, beside their plain twins, one PyTorch call each and their
+    bounds: K1 over the headline key (int32 over 1024 bins, a prefix frame
+    with nrows = n), K2 and K3 over the sort path's float32 key (codes: a
+    NaN flag and the value; 1024 groups). Bytes: each input read once,
+    each output written once; K2 and K3 read the int64 order."""
+    import torch
+
+    from fugue_tpu_torch.kernels.factorize import (
+        bin_factorize_cuda, sort_boundaries_cuda, sort_finish_cuda,
+    )
+    from fugue_tpu_torch.kernels.reference import (
+        BinKey, bin_factorize_reference, sort_boundaries_reference, sort_finish_reference,
+    )
+    from fugue_tpu_torch.torch_backend import groupby
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n, total = ROWS, GROUPS
+    key = torch.randint(0, total, (n,), generator=gen, device=device, dtype=torch.int32)
+    k1 = dict(keys=[BinKey(key, None, 0, total)], nrows=n)
+    want = bin_factorize_reference(**k1)
+    err = _max_abs_diff(bin_factorize_cuda(**k1), want)
+    ms = time_cuda(lambda: bin_factorize_cuda(**k1), 20)
+    plain_ms = time_cuda(lambda: bin_factorize_reference(**k1), 5)
+    # one PyTorch call for the first-row part: scatter_reduce_ "amin" of
+    # the row positions over precomputed segment ids
+    idx, pos = want[0].long(), torch.arange(n, dtype=torch.int32, device=device)
+    first = torch.full((total,), n, dtype=torch.int32, device=device)
+    library_ms = time_cuda(lambda: first.scatter_reduce_(0, idx, pos, "amin"), 5)
+    del idx, pos, want
+    entries = [_kernel_entry(
+        "bin_factorize", "fugue_tpu/jax_backend/groupby.py:481", launches["bin_factorize"],
+        err, ms, plain_ms, n * (4 + 4) + total * (4 + 1) + 4, n, library_ms)]
+
+    codes = groupby.sort_codes([(key.float(), None)])
+    order = groupby.lex_order(codes, nrows=n)
+    want2 = sort_boundaries_reference(codes, order, nrows=n)
+    err = _max_abs_diff(sort_boundaries_cuda(codes, order, nrows=n), want2)
+    ms = time_cuda(lambda: sort_boundaries_cuda(codes, order, nrows=n), 20)
+    plain_ms = time_cuda(lambda: sort_boundaries_reference(codes, order, nrows=n), 5)
+    # one PyTorch call: the inclusive scan of the boundary flags
+    opens = torch.zeros((n,), dtype=torch.bool, device=device)
+    opens[1:] = want2[0][1:] != want2[0][:-1]
+    opens[0] = True
+    library_ms = time_cuda(lambda: torch.cumsum(opens, 0, dtype=torch.int32), 5)
+    del opens
+    code_bytes = sum(int(c.shape[0]) * c.element_size() for c in codes)
+    entries.append(_kernel_entry(
+        "sort_boundaries", "fugue_tpu/jax_backend/groupby.py:554",
+        launches["sort_boundaries"], err, ms, plain_ms, 8 * n + code_bytes + 4 * n + 4,
+        n * len(codes), library_ms))
+
+    seg_sorted, num = want2[0], int(want2[1])
+    want3 = sort_finish_reference(seg_sorted, order, num)
+    err = _max_abs_diff(sort_finish_cuda(seg_sorted, order, num), want3)
+    ms = time_cuda(lambda: sort_finish_cuda(seg_sorted, order, num), 20)
+    plain_ms = time_cuda(lambda: sort_finish_reference(seg_sorted, order, num), 5)
+    # one PyTorch call: the scatter of the sorted ids back to row order
+    seg = torch.empty((n,), dtype=torch.int32, device=device)
+    library_ms = time_cuda(lambda: seg.scatter_(0, order, seg_sorted), 5)
+    entries.append(_kernel_entry(
+        "sort_finish", "fugue_tpu/jax_backend/groupby.py:582", launches["sort_finish"],
+        err, ms, plain_ms, 4 * n + 8 * n + 4 * n + 4 * num, n, library_ms))
+    return entries
+
+
+def stand_in_timing(device: Any) -> Dict[str, Any]:
+    """The two torch stand-ins of the headline path beside their bounds:
+    ``torch.aminmax`` over 100M int32 keys (``groupby._minmax_prog``'s
+    port; reads 4 B a row) and the UDF ``v*2+1`` over 100M float32 values
+    (``_compiled_map``; two passes, each reading and writing 4 B a row)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    key = torch.randint(0, GROUPS, (ROWS,), generator=gen, device=device, dtype=torch.int32)
+    value = torch.rand((ROWS,), generator=gen, device=device)
+    return {
+        "aminmax_ms": time_cuda(lambda: torch.aminmax(key), 20),
+        "aminmax_bound_ms": ROWS * 4 / HBM_BYTES_PER_S * 1e3,
+        "udf_ms": time_cuda(lambda: value * 2.0 + 1.0, 20),
+        "udf_bound_ms": 2 * ROWS * 8 / HBM_BYTES_PER_S * 1e3,
+    }
+
+
 def main() -> None:
     import torch
 
@@ -528,13 +1023,17 @@ def main() -> None:
     print(f"build: {sorted(reports)} built in {time.perf_counter() - t:.1f}s")
     for stem, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {stem}: {line.strip()}")
 
     from fugue_tpu_torch.kernels.segment_sums import binned_sums_cuda
 
     worst = max(kernel_vs_twin(device), binned_vs_twin(device, binned_sums_cuda))
     print(f"kernels checked against their twins: binned_sums (max_abs_err={worst})")
+    bin_factorize_vs_twin(device, (1, (1 << 20) + 37, 10_000_000))
+    sort_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
+    print("kernels checked against their twins: bin_factorize, sort_boundaries, sort_finish")
+    torch.cuda.empty_cache()
 
     stats = main_path(device, ROWS, GROUPS, SEED, WARM_RUNS)
     # one aggregate per run, one fused-kernel launch per aggregate
@@ -547,11 +1046,47 @@ def main() -> None:
     print("main_path: " + json.dumps(stats))
     torch.cuda.empty_cache()
 
-    entry = kernel_timing(device, stats["launches"]["binned_sums"])
-    if not all(math.isfinite(entry[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):
-        raise SystemExit("FAIL: a kernel time is not finite")
+    part = {}
+    for rows in (CONFIG2_ROWS, ROWS):
+        part[rows] = partitioned_transform(device, rows, WARM_RUNS)
+        # the factorization runs once per frame: K1 once in the cold run,
+        # then from the frame's cache
+        if part[rows]["launches"]["bin_factorize"] != 1 or any(part[rows]["warm_launches"].values()):
+            raise SystemExit(f"FAIL: the partitioned transform at {rows} rows launched "
+                             f"{part[rows]['launches']} (cold), {part[rows]['warm_launches']} (warm)")
+        part[rows]["card"] = card
+        print("partitioned_transform: " + json.dumps(part[rows]))
+        torch.cuda.empty_cache()
+
+    sort_stats = sort_path_aggregates(device, ROWS, GROUPS, SEED, WARM_RUNS)
+    for st in sort_stats:
+        want = {"binned_sums": 1, "bin_factorize": 0, "sort_boundaries": 1, "sort_finish": 1}
+        warm_want = {k: v * WARM_RUNS for k, v in want.items()}
+        if st["launches"] != want or st["warm_launches"] != warm_want:
+            raise SystemExit(f"FAIL: the sort-path aggregate {st['case']} launched "
+                             f"{st['launches']} (cold), {st['warm_launches']} (warm)")
+        st["card"] = card
+        print("sort_path_aggregate: " + json.dumps(st))
+    torch.cuda.empty_cache()
+
+    stand_ins = stand_in_timing(device)
+    stand_ins["card"] = card
+    print("stand_ins: " + json.dumps(stand_ins))
+    torch.cuda.empty_cache()
+    entries = [kernel_timing(device, stats["launches"]["binned_sums"])]
+    torch.cuda.empty_cache()
+    entries += factorize_timing(device, {
+        "bin_factorize": part[CONFIG2_ROWS]["launches"]["bin_factorize"],
+        "sort_boundaries": sort_stats[0]["launches"]["sort_boundaries"],
+        "sort_finish": sort_stats[0]["launches"]["sort_finish"],
+    })
+    for entry in entries:
+        if not all(math.isfinite(entry[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):
+            raise SystemExit(f"FAIL: a time of {entry['name']} is not finite")
+        if entry["max_abs_err"] != 0 and entry["name"] != "binned_sums":
+            raise SystemExit(f"FAIL: {entry['name']} differs from its twin at the timed shape")
     print(f"card: {card}")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -1,11 +1,12 @@
 """fugue_tpu_torch: the PyTorch/CUDA port of fugue_tpu for an NVIDIA H100.
 
 It imports nothing of ``fugue_tpu`` or of JAX; the JAX package stays
-beside it as the reference the port is tested against. The slice ported
-so far is the main path: ``transform`` of a ``Dict[str, torch.Tensor]``
-transformer, then ``aggregate`` with sum/avg/count by integer keys, whose
-per-row reduction is a hand-written CUDA kernel
-(``fugue_tpu_torch/kernels/segment_sums.cu``).
+beside it as the reference the port is tested against. The slices ported
+so far: ``transform`` of a ``Dict[str, torch.Tensor]`` transformer, with
+or without partition keys, then ``aggregate`` with sum/avg/count by
+numeric or bool keys. The per-row work is hand-written CUDA kernels: the
+fused binned sums (``fugue_tpu_torch/kernels/segment_sums.cu``) and the
+key factorization (``fugue_tpu_torch/kernels/factorize.cu``).
 """
 
 from fugue_tpu_torch.api import aggregate, transform

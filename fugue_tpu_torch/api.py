@@ -64,8 +64,11 @@ def transform(
     partition: Any = None,
 ) -> Any:
     """Run ``using`` over whole columns of ``df`` on the engine's device;
-    ``schema`` names and types the output columns. ``partition`` is
-    refused until the key factorization is ported."""
+    ``schema`` names and types the output columns. ``partition``
+    (``{"by": [...]}``, a key or a list of keys) hands ``using`` the
+    segment id of each row's group as ``_segment_ids`` and the size of the
+    id space as ``_num_segments`` (``TorchMapEngine._compiled_map`` says
+    how a torch transformer uses them)."""
     e = _engine(engine, df)
     _check_torch_transformer(using, e)
     res = e.map_engine.map_dataframe(

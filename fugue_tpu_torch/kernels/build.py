@@ -3,7 +3,8 @@ first use, and loads them with ``ctypes``.
 
 Each ``<stem>.cu`` in this directory has a plain C interface and is
 compiled alone for ``sm_90a`` into ``_build/<stem>-<hash>.so``, where the
-hash covers the source and the flags, so an edited source rebuilds.
+hash covers the source, the shared headers (``*.cuh``) and the flags, so
+an edited source or header rebuilds.
 ``build_all`` starts one ``nvcc`` per source that is not built yet, all at
 once, and waits for them. The build needs only the CUDA toolkit (no
 PyTorch headers, no ``ninja``). ``nvcc`` is ``$CUDA_HOME/bin/nvcc``, else
@@ -51,7 +52,11 @@ def nvcc() -> str:
 
 
 def library_path(stem: str) -> Path:
+    """Where ``<stem>.cu`` builds to: keyed by the source, every header of
+    this directory (``*.cuh``) and the flags."""
     digest = hashlib.sha256((KERNEL_DIR / f"{stem}.cu").read_bytes())
+    for header in sorted(KERNEL_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
 

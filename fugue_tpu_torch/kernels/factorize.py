@@ -1,0 +1,236 @@
+"""The wrappers of ``factorize.cu``: check their tensors, allocate the
+outputs and scratch, and launch the key-factorization kernels on
+PyTorch's current stream.
+
+- ``bin_factorize_cuda`` (K1): segment ids, first row per bin, occupied
+  bins and the group count of a binned key set;
+- ``sort_boundaries_cuda`` (K2): sorted segment ids and the group count
+  from the sort codes and the sort's order;
+- ``sort_finish_cuda`` (K3): segment ids in row order and the first row of
+  each group.
+
+Each has the contract of its twin in ``reference.py``. Each wrapper's
+``launches`` grows by one where it launches its kernel and nowhere else;
+``bin_factorize_cuda.last_path`` names the path of its last launch,
+``"shared"`` or ``"global"`` (where the bins' first rows were taken)."""
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from fugue_tpu_torch.kernels import build
+from fugue_tpu_torch.kernels.reference import MAX_KEYS, BinKey, bin_total
+
+MAX_CODES = 16  # sort codes per K2 launch
+_TILE = 4096  # K2 positions per block
+_PATHS = {1: "shared", 2: "global"}
+# dtype codes of bin_keys.cuh
+_CODES = {
+    torch.bool: 0, torch.uint8: 1, torch.int8: 2, torch.int16: 3,
+    torch.int32: 4, torch.int64: 5,
+}
+_CODE_DTYPES = {4: (torch.int32, torch.float32), 8: (torch.int64, torch.float64)}
+
+
+def _bind() -> ctypes.CDLL:
+    lib = build.load("factorize")
+    if lib.fugue_bin_factorize.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        pp, ip, llp = ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll)
+        lib.fugue_bin_factorize.argtypes = [
+            ll, ll, p, i,  # n, nrows, row_valid, nkeys
+            pp, pp, ip, llp, llp,  # key data, masks, codes, kmin, span
+            p, p, p, p,  # seg, first_idx, occupied, count
+            i, p, ip,  # device, stream, path
+        ]
+        lib.fugue_sort_boundaries.argtypes = [
+            ll, ll, p, p,  # n, nrows, row_valid, order
+            i, pp, llp, ip,  # ncodes, data, strides, widths
+            p, p, p, p,  # flags, block_sums, seg_sorted, count
+            i, p,  # device, stream
+        ]
+        lib.fugue_sort_finish.argtypes = [ll, p, p, i, p, p, i, p]
+        for fn in (lib.fugue_bin_factorize, lib.fugue_sort_boundaries, lib.fugue_sort_finish):
+            fn.restype = i
+        lib.fugue_factorize_error_string.argtypes = [i]
+        lib.fugue_factorize_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _require_cuda(t: torch.Tensor, fn: str) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{fn} takes CUDA tensors only")
+
+
+def _device_and_stream(device: torch.device) -> Tuple[int, int]:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(device).cuda_stream
+
+
+def _check(t: torch.Tensor, name: str, dtypes: Tuple[torch.dtype, ...], n: int,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != (n,) or (n > 1 and t.stride(0) != 1):
+        raise ValueError(f"{name} must be a dense 1-D tensor of {n} rows")
+    if t.data_ptr() % t.element_size() != 0:
+        raise ValueError(f"{name} is not aligned to its {t.element_size()}-byte elements")
+
+
+def _check_rows(n: int, nrows: Optional[int], row_valid: Optional[torch.Tensor],
+                device: torch.device) -> int:
+    """The ``nrows`` argument of a launch: a prefix frame's ``nrows``, -1
+    for a masked frame."""
+    if (nrows is None) == (row_valid is None):
+        raise ValueError("pass exactly one of nrows (prefix rows) and row_valid")
+    if not 1 <= n < 2**31:
+        raise ValueError(f"{n} rows: the kernels take 1 to 2^31 - 1")
+    if row_valid is not None:
+        _check(row_valid, "row_valid", (torch.bool, torch.uint8), n, device)
+        return -1
+    if not 0 <= int(nrows) <= n:  # type: ignore[arg-type]
+        raise ValueError(f"nrows {nrows} outside [0, {n}]")
+    return int(nrows)  # type: ignore[arg-type]
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.fugue_factorize_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def _ptrs(ts: Sequence[Optional[torch.Tensor]]) -> "ctypes.Array":
+    return (ctypes.c_void_p * max(len(ts), 1))(
+        *[None if t is None else t.data_ptr() for t in ts]
+    )
+
+
+def bin_factorize_cuda(
+    keys: Sequence[BinKey],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1, with the contract of ``reference.bin_factorize_reference``:
+    ``(seg int32[n], first_idx int32[total], occupied bool[total], count
+    int32 0-d)``. Keys are dense 1-D CUDA tensors of one device; raises on
+    anything else, on a failed build and on a refused launch."""
+    if len(keys) == 0:
+        raise ValueError("bin_factorize_cuda needs at least one key")
+    _require_cuda(keys[0].data, "bin_factorize_cuda")
+    if len(keys) > MAX_KEYS:
+        raise ValueError(f"{len(keys)} keys: the kernel takes 1 to {MAX_KEYS}")
+    device = keys[0].data.device
+    n = int(keys[0].data.shape[0])
+    nrows_arg = _check_rows(n, nrows, row_valid, device)
+    total = bin_total(keys)
+    for j, k in enumerate(keys):
+        _check(k.data, f"key {j}", tuple(_CODES), n, device)
+        if k.mask is not None:
+            _check(k.mask, f"key {j} mask", (torch.bool,), n, device)
+    seg = torch.empty((n,), dtype=torch.int32, device=device)
+    first_idx = torch.empty((total,), dtype=torch.int32, device=device)
+    occupied = torch.empty((total,), dtype=torch.bool, device=device)
+    count = torch.empty((), dtype=torch.int32, device=device)
+    lib = _bind()
+    index, stream = _device_and_stream(device)
+    path = ctypes.c_int(0)
+    err = lib.fugue_bin_factorize(
+        n, nrows_arg, None if row_valid is None else row_valid.data_ptr(), len(keys),
+        _ptrs([k.data for k in keys]), _ptrs([k.mask for k in keys]),
+        (ctypes.c_int * len(keys))(*[_CODES[k.data.dtype] for k in keys]),
+        (ctypes.c_longlong * len(keys))(*[int(k.kmin) for k in keys]),
+        (ctypes.c_longlong * len(keys))(*[int(k.span) for k in keys]),
+        seg.data_ptr(), first_idx.data_ptr(), occupied.data_ptr(), count.data_ptr(),
+        index, stream, ctypes.byref(path),
+    )
+    _raise_on(lib, err, "bin_factorize")
+    bin_factorize_cuda.launches += 1
+    bin_factorize_cuda.last_path = _PATHS[path.value]
+    return seg, first_idx, occupied, count
+
+
+bin_factorize_cuda.launches = 0  # type: ignore[attr-defined]
+bin_factorize_cuda.last_path = None  # type: ignore[attr-defined]
+
+
+def sort_boundaries_cuda(
+    codes: Sequence[torch.Tensor],
+    order: torch.Tensor,
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2, with the contract of ``reference.sort_boundaries_reference``:
+    ``(seg_sorted int32[n], count int32 0-d)``. ``codes`` are 1-D CUDA
+    tensors of n rows, int32/float32 or int64/float64, any stride (an
+    int64 key's two int32 words are views); ``order`` is the dense int64
+    permutation that ``torch.sort`` gives, real rows first."""
+    _require_cuda(order, "sort_boundaries_cuda")
+    if not 1 <= len(codes) <= MAX_CODES:
+        raise ValueError(f"{len(codes)} sort codes: the kernel takes 1 to {MAX_CODES}")
+    device = order.device
+    n = int(order.shape[0])
+    _check(order, "order", (torch.int64,), n, device)
+    nrows_arg = _check_rows(n, nrows, row_valid, device)
+    widths = []
+    for j, c in enumerate(codes):
+        width = c.element_size()
+        if c.device != device or c.dim() != 1 or int(c.shape[0]) != n:
+            raise ValueError(f"code {j} must be a 1-D tensor of {n} rows on {device}")
+        if c.dtype not in _CODE_DTYPES.get(width, ()):
+            raise ValueError(f"code {j} has dtype {c.dtype}: int32/float32 or int64/float64")
+        if c.data_ptr() % width != 0:
+            raise ValueError(f"code {j} is not aligned to its {width}-byte elements")
+        widths.append(width)
+    flags = torch.empty((n,), dtype=torch.uint8, device=device)
+    block_sums = torch.empty((-(-n // _TILE),), dtype=torch.int32, device=device)
+    seg_sorted = torch.empty((n,), dtype=torch.int32, device=device)
+    count = torch.empty((), dtype=torch.int32, device=device)
+    lib = _bind()
+    index, stream = _device_and_stream(device)
+    err = lib.fugue_sort_boundaries(
+        n, nrows_arg, None if row_valid is None else row_valid.data_ptr(), order.data_ptr(),
+        len(codes), _ptrs(list(codes)),
+        (ctypes.c_longlong * len(codes))(*[int(c.stride(0)) for c in codes]),
+        (ctypes.c_int * len(codes))(*widths),
+        flags.data_ptr(), block_sums.data_ptr(), seg_sorted.data_ptr(), count.data_ptr(),
+        index, stream,
+    )
+    _raise_on(lib, err, "sort_boundaries")
+    sort_boundaries_cuda.launches += 1
+    return seg_sorted, count
+
+
+sort_boundaries_cuda.launches = 0  # type: ignore[attr-defined]
+
+
+def sort_finish_cuda(
+    seg_sorted: torch.Tensor, order: torch.Tensor, num: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3, with the contract of ``reference.sort_finish_reference``:
+    ``(seg int32[n], first_idx int32[num])``."""
+    _require_cuda(order, "sort_finish_cuda")
+    device = order.device
+    n = int(order.shape[0])
+    _check(order, "order", (torch.int64,), n, device)
+    _check(seg_sorted, "seg_sorted", (torch.int32,), n, device)
+    if not 0 <= num <= n:
+        raise ValueError(f"num {num} outside [0, {n}]")
+    seg = torch.empty((n,), dtype=torch.int32, device=device)
+    first_idx = torch.empty((num,), dtype=torch.int32, device=device)
+    lib = _bind()
+    index, stream = _device_and_stream(device)
+    err = lib.fugue_sort_finish(
+        n, seg_sorted.data_ptr(), order.data_ptr(), num, seg.data_ptr(),
+        first_idx.data_ptr() if num > 0 else None, index, stream,
+    )
+    _raise_on(lib, err, "sort_finish")
+    sort_finish_cuda.launches += 1
+    return seg, first_idx
+
+
+sort_finish_cuda.launches = 0  # type: ignore[attr-defined]

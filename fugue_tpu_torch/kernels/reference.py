@@ -1,5 +1,6 @@
-"""Plain PyTorch twins of the port's CUDA kernels: the CPU path, and the
-oracle each kernel is held against on the card."""
+"""Plain PyTorch twins of the port's CUDA kernels (``segment_sums.cu``,
+``factorize.cu``): the CPU path, and the oracle each kernel is held
+against on the card."""
 
 from typing import Optional, NamedTuple, Sequence, Tuple
 
@@ -55,6 +56,26 @@ def bin_segments(keys: Sequence[BinKey], valid_rows: torch.Tensor) -> torch.Tens
     return torch.where(valid_rows, combined, bin_total(keys))  # type: ignore
 
 
+def _binned_rows(
+    keys: Sequence[BinKey], nrows: Optional[int], row_valid: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """The rows a binned kernel accepts: real rows (a prefix frame's first
+    ``nrows``, or a masked frame's non-zero ``row_valid`` bytes) whose
+    every key code lies in ``[0, span)``."""
+    if not 1 <= len(keys) <= MAX_KEYS:
+        raise ValueError(f"{len(keys)} keys: the kernel takes 1 to {MAX_KEYS}")
+    if (nrows is None) == (row_valid is None):
+        raise ValueError("pass exactly one of nrows (prefix rows) and row_valid")
+    n = int(keys[0].data.shape[0])
+    valid = materialize_validity(row_valid, n, nrows, keys[0].data.device)
+    for k in keys:
+        code = k.data.to(torch.int64) - int(k.kmin)
+        if k.mask is not None:
+            code = torch.where(k.mask, code, int(k.span) - 1)
+        valid = valid & (code >= 0) & (code < int(k.span))
+    return valid
+
+
 def binned_sums_reference(
     keys: Sequence[BinKey],
     *,
@@ -84,19 +105,9 @@ def binned_sums_reference(
     ``occupancy``, count row 0 counts every accepted row and the flags
     follow it. Returns ``([F, total], [occupancy + C, total], [I,
     total])``."""
-    if not 1 <= len(keys) <= MAX_KEYS:
-        raise ValueError(f"{len(keys)} keys: the kernel takes 1 to {MAX_KEYS}")
-    if (nrows is None) == (row_valid is None):
-        raise ValueError("pass exactly one of nrows (prefix rows) and row_valid")
     n = int(keys[0].data.shape[0])
     device = keys[0].data.device
-    valid = materialize_validity(row_valid, n, nrows, device)
-    for k in keys:
-        code = k.data.to(torch.int64) - int(k.kmin)
-        if k.mask is not None:
-            code = torch.where(k.mask, code, int(k.span) - 1)
-        valid = valid & (code >= 0) & (code < int(k.span))
-    seg = bin_segments(keys, valid)
+    seg = bin_segments(keys, _binned_rows(keys, nrows, row_valid))
     fdtype = torch.float64 if any(v.dtype == torch.float64 for v, _ in floats) else torch.float32
 
     def _pack(pays: Sequence[Payload], dtype: torch.dtype) -> torch.Tensor:
@@ -144,3 +155,115 @@ def segment_sums_reference(
         _sums(cpack != 0, torch.int32),
         _sums(ipack, torch.int64),
     )
+
+
+def bin_factorize_reference(
+    keys: Sequence[BinKey],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Binned key factorization: the twin of K1 in ``factorize.cu`` and of
+    the JAX package's ``_bin_core`` (``fugue_tpu/jax_backend/groupby.py:481``).
+
+    ``keys`` and the rows as for ``binned_sums_reference``: a row that is
+    not real, or has a key code outside ``[0, span)``, has no bin. Returns
+    ``(seg, first_idx, occupied, count)``: ``seg`` int32[n], the row's bin
+    (``bin_total(keys)`` where it has none); ``first_idx`` int32[total],
+    the first row of each bin, ``n - 1`` where the bin is empty;
+    ``occupied`` bool[total]; ``count`` the occupied bins, an int32 0-d
+    tensor."""
+    n = int(keys[0].data.shape[0])
+    device = keys[0].data.device
+    valid = _binned_rows(keys, nrows, row_valid)
+    seg = bin_segments(keys, valid)
+    total = bin_total(keys)
+    pos = torch.arange(n, dtype=torch.int32, device=device)
+    # rows with no bin land in one extra bin that is cut off at the end
+    first = torch.full((total + 1,), n, dtype=torch.int32, device=device)
+    first.scatter_reduce_(0, seg.long(), torch.where(valid, pos, n), "amin")
+    first = first[:total]
+    occupied = first < n
+    return seg, first.clamp(max=n - 1), occupied, occupied.sum(dtype=torch.int32)
+
+
+def _code_bits(c: torch.Tensor) -> torch.Tensor:
+    """A sort code as the integers the kernel compares: floats bit for bit
+    (they come canonical: no NaN, no -0.0)."""
+    if c.dtype == torch.float32:
+        return c.view(torch.int32)
+    if c.dtype == torch.float64:
+        return c.view(torch.int64)
+    return c
+
+
+def sort_boundaries_reference(
+    codes: Sequence[torch.Tensor],
+    order: torch.Tensor,
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group ids in sorted order: the twin of K2 in ``factorize.cu`` and of
+    the boundary-and-scan tail of the JAX package's
+    ``_sort_factorize_core`` (``fugue_tpu/jax_backend/groupby.py:554``).
+
+    ``order`` int64[n] is the sorted permutation of the rows, real rows
+    first (a prefix frame's rows below ``nrows``, or a masked frame's
+    non-zero ``row_valid`` bytes); a real position opens a group where any
+    of ``codes`` differs from the position before it, and the first real
+    position always does. Returns ``(seg_sorted, count)``: ``seg_sorted``
+    int32[n] the group of each sorted position, -1 where it is not real;
+    ``count`` the groups, an int32 0-d tensor."""
+    if (nrows is None) == (row_valid is None):
+        raise ValueError("pass exactly one of nrows (prefix rows) and row_valid")
+    n = int(order.shape[0])
+    real = row_valid[order] != 0 if row_valid is not None else order < nrows
+    opens = torch.zeros((n,), dtype=torch.bool, device=order.device)
+    opens[0] = True
+    for c in codes:
+        sc = _code_bits(c[order])
+        opens[1:] |= sc[1:] != sc[:-1]
+    opens &= real
+    seg_sorted = torch.cumsum(opens, 0, dtype=torch.int32) - 1
+    return torch.where(real, seg_sorted, -1), opens.sum(dtype=torch.int32)
+
+
+def sort_finish_reference(
+    seg_sorted: torch.Tensor, order: torch.Tensor, num: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group ids in row order and the first row of each group: the twin of
+    K3 in ``factorize.cu`` and of the JAX package's
+    ``_sort_factorize_finish`` (``fugue_tpu/jax_backend/groupby.py:582``).
+
+    ``seg_sorted`` and ``order`` as ``sort_boundaries_reference`` takes and
+    gives them, ``num`` the group count. Returns ``(seg, first_idx)``:
+    ``seg`` int32[n], ``num`` where the row is not real; ``first_idx``
+    int32[num], the row at each group's first sorted position."""
+    n = int(order.shape[0])
+    real = seg_sorted >= 0
+    seg = torch.empty((n,), dtype=torch.int32, device=order.device)
+    seg.scatter_(0, order, torch.where(real, seg_sorted, num))
+    opens = real.clone()
+    opens[1:] &= seg_sorted[1:] != seg_sorted[:-1]
+    first_idx = torch.empty((num,), dtype=torch.int32, device=order.device)
+    first_idx[seg_sorted[opens].long()] = order[opens].to(torch.int32)
+    return seg, first_idx
+
+
+def sort_factorize_reference(
+    codes: Sequence[torch.Tensor],
+    order: torch.Tensor,
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The sort path after the sorts, as the twins of K2 and K3 with the
+    one readback of the group count between them (``groupby.py:548``):
+    ``(seg, first_idx, num)``."""
+    seg_sorted, count = sort_boundaries_reference(
+        codes, order, nrows=nrows, row_valid=row_valid
+    )
+    num = int(count)
+    seg, first_idx = sort_finish_reference(seg_sorted, order, num)
+    return seg, first_idx, num

@@ -40,7 +40,8 @@
 //     per column and tile (16 bytes for a 4-byte column at R = 4), U tiles
 //     in flight per loop iteration, and a scalar tail for the ragged end;
 //     a column that is not aligned to its tile selects R = 1;
-//   - segment ids and validity live in registers only;
+//   - segment ids and validity live in registers only; the key binning
+//     is bin_keys.cuh's, shared with factorize.cu;
 //   - each block sums into replicas of its [payload][segment] accumulators
 //     in shared memory, one per warp or per group of warps, so that fewer
 //     lanes contend for one address; the block merges its replicas and
@@ -60,11 +61,14 @@
 #include <unordered_map>
 #include <vector>
 
+#include "bin_keys.cuh"
+
 namespace {
+
+using namespace fugue;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxKeys = 4;
 constexpr int kMaxPayloads = 8;  // of each kind, per launch
 // Defaults from the variant sweep at the headline shape (PERF.md, PR 2):
 // as many replicas as fit in 16 KB of shared memory per block (two at one
@@ -77,23 +81,10 @@ constexpr long long kReplicaBudget = 16 * 1024;
 constexpr int kDefaultUnroll = 1;
 constexpr int kTightBlocks = 2048 / kThreads;
 
-// dtype codes, as segment_sums.py passes them
-constexpr int kBool = 0, kU8 = 1, kI8 = 2, kI16 = 3, kI32 = 4, kI64 = 5,
-              kF32 = 6, kF64 = 7;
-
-struct Column {
-  const void* data;
-  const uint8_t* mask;  // null: every row valid
-  int code;
-};
-
 struct Params {
   long long n;
   const uint8_t* row_valid;  // null: every row in [0, n) is real
-  int nkeys;
-  Column key[kMaxKeys];
-  long long kmin[kMaxKeys];
-  long long span[kMaxKeys];
+  KeyBins keys;
   int total;
   int nf, nc, ni, occupancy;
   Column f[kMaxPayloads];
@@ -105,75 +96,6 @@ struct Params {
   int nrep;             // shared-memory replicas per block
   long long rep_words;  // one replica, in 8-byte words
 };
-
-__host__ __device__ inline int elem_size(int code) {
-  switch (code) {
-    case kBool: case kU8: case kI8: return 1;
-    case kI16: return 2;
-    case kI32: case kF32: return 4;
-    default: return 8;
-  }
-}
-
-// R consecutive flags from row r0. At R = 4, r0 % 4 == 0 and the column
-// is 4-byte aligned.
-template <int R>
-__device__ __forceinline__ void load_flags(const uint8_t* p, long long r0,
-                                           bool (&m)[R]) {
-  if constexpr (R == 1) {
-    m[0] = __ldg(p + r0) != 0;
-  } else {
-    const uchar4 x = __ldg(reinterpret_cast<const uchar4*>(p + r0));
-    m[0] = x.x != 0; m[1] = x.y != 0; m[2] = x.z != 0; m[3] = x.w != 0;
-  }
-}
-
-// R consecutive values of an integer column from row r0, widened to
-// int64. At R = 4, r0 % 4 == 0 and the column is aligned to 4 elements
-// (16 bytes at most).
-template <int R>
-__device__ __forceinline__ void load_int(const Column& col, long long r0,
-                                         long long (&v)[R]) {
-  const char* b = static_cast<const char*>(col.data);
-  if constexpr (R == 1) {
-    switch (col.code) {
-      case kBool: case kU8: v[0] = __ldg(reinterpret_cast<const unsigned char*>(b) + r0); break;
-      case kI8: v[0] = __ldg(reinterpret_cast<const signed char*>(b) + r0); break;
-      case kI16: v[0] = __ldg(reinterpret_cast<const short*>(b) + r0); break;
-      case kI32: v[0] = __ldg(reinterpret_cast<const int*>(b) + r0); break;
-      default: v[0] = __ldg(reinterpret_cast<const long long*>(b) + r0); break;
-    }
-  } else {
-    switch (col.code) {
-      case kBool: case kU8: {
-        const uchar4 x = __ldg(reinterpret_cast<const uchar4*>(b + r0));
-        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-        break;
-      }
-      case kI8: {
-        const char4 x = __ldg(reinterpret_cast<const char4*>(b + r0));
-        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-        break;
-      }
-      case kI16: {
-        const short4 x = __ldg(reinterpret_cast<const short4*>(b + 2 * r0));
-        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-        break;
-      }
-      case kI32: {
-        const int4 x = __ldg(reinterpret_cast<const int4*>(b + 4 * r0));
-        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-        break;
-      }
-      default: {
-        const longlong2* q = reinterpret_cast<const longlong2*>(b + 8 * r0);
-        const longlong2 x = __ldg(q), y = __ldg(q + 1);
-        v[0] = x.x; v[1] = x.y; v[2] = y.x; v[3] = y.y;
-        break;
-      }
-    }
-  }
-}
 
 // R consecutive values of a float column from row r0, in F.
 template <int R, typename F>
@@ -194,18 +116,16 @@ __device__ __forceinline__ void load_float(const Column& col, long long r0,
 }
 
 // Each row's segment id, or -1 for a row that is dropped: outside the
-// scanned tiles, not valid, or with a key code outside [0, span). The
-// codes are checked in int64 and combined in 32 bits, which is exact for
-// every accepted row since total < 2^31.
+// scanned tiles, not valid, or with a key code outside [0, span).
 template <int R>
 __device__ __forceinline__ void tile_segments(const Params& p, bool in,
                                               long long r0, int (&seg)[R]) {
   bool ok[R];
-  unsigned int acc[R];
+  unsigned int bin[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     ok[r] = in;
-    acc[r] = 0u;
+    bin[r] = 0u;
   }
   if (in) {
     if (p.row_valid != nullptr) {
@@ -214,26 +134,10 @@ __device__ __forceinline__ void tile_segments(const Params& p, bool in,
 #pragma unroll
       for (int r = 0; r < R; ++r) ok[r] = ok[r] && m[r];
     }
-#pragma unroll
-    for (int k = 0; k < kMaxKeys; ++k) {
-      if (k >= p.nkeys) break;
-      long long v[R];
-      load_int<R>(p.key[k], r0, v);
-      bool m[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) m[r] = true;
-      if (p.key[k].mask != nullptr) load_flags<R>(p.key[k].mask, r0, m);
-      const long long kmin = p.kmin[k], span = p.span[k];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const long long code = m[r] ? v[r] - kmin : span - 1;
-        ok[r] = ok[r] && (unsigned long long)code < (unsigned long long)span;
-        acc[r] = acc[r] * (unsigned int)span + (unsigned int)code;
-      }
-    }
+    bin_rows<R>(p.keys, r0, ok, bin);
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) seg[r] = ok[r] ? (int)acc[r] : -1;
+  for (int r = 0; r < R; ++r) seg[r] = ok[r] ? (int)bin[r] : -1;
 }
 
 // Adds the rows of tiles tile, tile + stride, ... (< ntiles) into the
@@ -414,8 +318,9 @@ bool aligned(const void* ptr, int code) {
 // Whether every column allows 4-row tiles.
 bool all_aligned(const Params& p) {
   bool ok = aligned(p.row_valid, kU8);
-  for (int k = 0; k < p.nkeys; ++k)
-    ok = ok && aligned(p.key[k].data, p.key[k].code) && aligned(p.key[k].mask, kU8);
+  for (int k = 0; k < p.keys.nkeys; ++k)
+    ok = ok && aligned(p.keys.key[k].data, p.keys.key[k].code) &&
+         aligned(p.keys.key[k].mask, kU8);
   for (int q = 0; q < p.nf; ++q)
     ok = ok && aligned(p.f[q].data, p.f[q].code) && aligned(p.f[q].mask, kU8);
   for (int q = 0; q < p.nc; ++q) ok = ok && aligned(p.c[q], kU8);
@@ -565,23 +470,16 @@ extern "C" int fugue_binned_sums(
     int occupancy, void* fout, void* cout, void* iout, int vec, int unroll,
     int replicas, int device, void* stream, int* info) {
   for (int j = 0; j < 5; ++j) info[j] = 0;
-  if (nkeys < 1 || nkeys > kMaxKeys || nf < 0 || nf > kMaxPayloads ||
-      nc < 0 || nc > kMaxPayloads || ni < 0 || ni > kMaxPayloads) {
+  if (nf < 0 || nf > kMaxPayloads || nc < 0 || nc > kMaxPayloads || ni < 0 ||
+      ni > kMaxPayloads) {
     return (int)cudaErrorInvalidValue;
   }
   Params p = {};
   p.n = n;
   p.row_valid = static_cast<const uint8_t*>(row_valid);
-  p.nkeys = nkeys;
-  long long total = 1;
-  for (int k = 0; k < nkeys; ++k) {
-    if (span[k] < 1) return (int)cudaErrorInvalidValue;
-    p.key[k] = {key_data[k], static_cast<const uint8_t*>(key_mask[k]), key_code[k]};
-    p.kmin[k] = kmin[k];
-    p.span[k] = span[k];
-    total *= span[k];
-    if (total >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  }
+  long long total = 0;
+  if (!make_key_bins(nkeys, key_data, key_mask, key_code, kmin, span, &p.keys, &total))
+    return (int)cudaErrorInvalidValue;
   p.total = (int)total;
   p.nf = nf;
   p.nc = nc;

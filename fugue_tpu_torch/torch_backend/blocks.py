@@ -106,6 +106,9 @@ class TorchBlocks:
         self.columns = columns
         self.device = device
         self.row_valid = row_valid
+        # key factorizations of this frame by key tuple
+        # (groupby.factorize_keys; jax_backend/blocks.py:281)
+        self.factorize_cache: Dict[Any, Any] = {}
 
     @property
     def nrows(self) -> int:

@@ -2,17 +2,20 @@
 
 A port of the main path of ``fugue_tpu/jax_backend/execution_engine.py``:
 ``to_df``/``persist`` upload a frame; ``TorchMapEngine`` runs a
-``Dict[str, torch.Tensor]`` transformer over whole columns; ``aggregate``
-runs sum/avg/count by integer keys through the binned packed aggregate,
-whose whole per-row part (segment ids, row validity, sums) is one launch
-of the fused CUDA kernel.
+``Dict[str, torch.Tensor]`` transformer over whole columns, with the
+segment ids of its partition keys when it has some; ``aggregate`` runs
+sum/avg/count by keys: keys with a bin spec through the binned packed
+aggregate, whose whole per-row part (segment ids, row validity, sums) is
+one launch of the fused CUDA kernel, and any other numeric or bool keys
+through the sort factorization and the same kernel over its segment ids.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``, and
 then every kernel runs as its plain PyTorch twin. Paths the port does not
 have yet raise ``NotImplementedError`` naming the ROADMAP.md item that
 ports them; nothing falls back to a host engine. ``fallbacks`` counts
 those refusals by operation, ``strategy_counts`` the segment-sum routes
-taken (``"cuda"`` or ``"reference"``).
+taken (``"cuda"`` or ``"reference"``) and the aggregates that took the
+generic (factorized) branch (``"generic"``).
 """
 
 from collections.abc import Mapping
@@ -23,7 +26,7 @@ import pyarrow as pa
 import torch
 
 from fugue_tpu_torch.collections.partition import PartitionSpec
-from fugue_tpu_torch.kernels.reference import MAX_KEYS, BinKey, Payload
+from fugue_tpu_torch.kernels.reference import BinKey, Payload
 from fugue_tpu_torch.column.expressions import (
     ColumnExpr,
     _FuncExpr,
@@ -59,22 +62,21 @@ class TorchMapEngine:
         output_schema: Any,
         partition_spec: Optional[PartitionSpec] = None,
     ) -> TorchDataFrame:
-        """``jax_backend/execution_engine.py:95``."""
-        engine = self.execution_engine
-        if partition_spec is not None and not partition_spec.empty:
-            engine._unported(
-                "map",
-                "a transform with partition keys (it needs the key "
-                "factorization groupby._bin_core)",
-                "ROADMAP.md queue 2 item 2",
-            )
-        return self._compiled_map(engine.to_df(df), map_func, Schema(output_schema))
+        """``jax_backend/execution_engine.py:95``. A partition key of
+        string type never gets here: ``to_df`` refuses string columns
+        (ROADMAP.md queue 1 item 1)."""
+        tdf = self.execution_engine.to_df(df)
+        keys = [] if partition_spec is None else partition_spec.partition_by
+        for k in keys:
+            assert_or_throw(k in tdf.blocks.columns, KeyError(f"{k} not in {tdf.schema}"))
+        return self._compiled_map(tdf, map_func, Schema(output_schema), keys)
 
     def _compiled_map(
         self,
         df: TorchDataFrame,
-        fn: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]],
+        fn: Callable[[Dict[str, Any]], Dict[str, torch.Tensor]],
         output_schema: Schema,
+        keys: List[str],
     ) -> TorchDataFrame:
         """Whole-column execution (``jax_backend/execution_engine.py:177``).
 
@@ -85,6 +87,18 @@ class TorchMapEngine:
         - ``_row_valid`` bool[padded]: True = real row, built on first
           access only (XLA drops it from a program that never reads it);
         - ``_nrows``: the true row count as a 0-d int32 device tensor;
+        - with partition keys: ``_segment_ids`` int32[padded], the group of
+          each row (``groupby.factorize_keys``), and ``_num_segments``, a
+          Python int, the segment-id space (the bin count when the keys
+          have a bin spec, so some segments may be empty; else the exact
+          group count). Rows that are not real carry the sentinel
+          ``_num_segments``. ``jax.ops.segment_sum`` drops it; torch's
+          ``index_add_``, ``scatter_add_`` and ``bincount`` do not (an id
+          equal to the size raises on the CPU and asserts on the card), so
+          a torch transformer sums into ``_num_segments + 1`` buckets and
+          slices the last off, and clamps the ids to
+          ``[0, _num_segments - 1]`` to gather per-segment values back to
+          the rows;
         - output columns of the input's padded length are row-aligned with
           it; to change the row count, return ``_nrows`` too (one readback).
 
@@ -94,12 +108,16 @@ class TorchMapEngine:
         blocks = df.blocks
         device = blocks.device
         pad_n = blocks.padded_nrows
-        args: Dict[str, torch.Tensor] = {}
+        args: Dict[str, Any] = {}
         for name, col in blocks.columns.items():
             args[name] = col.data
             if col.mask is not None:
                 args[f"_{name}_mask"] = col.mask
         args["_nrows"] = blocks.nrows_tensor()
+        if keys:
+            fr = groupby.factorize_keys(blocks, keys)
+            args["_segment_ids"] = fr.seg
+            args["_num_segments"] = fr.num_segments
         out = fn(_TransformerArgs(args, blocks))
         assert_or_throw(
             isinstance(out, dict),
@@ -166,15 +184,15 @@ class TorchMapEngine:
 
 
 class _TransformerArgs(Mapping):
-    """A transformer's input dict: the columns, their masks and ``_nrows``
-    as given, and ``_row_valid`` built from the frame the first time the
-    transformer reads it."""
+    """A transformer's input dict: the columns, their masks, ``_nrows`` and
+    the partition's segment ids as given, and ``_row_valid`` built from the
+    frame the first time the transformer reads it."""
 
-    def __init__(self, cols: Dict[str, torch.Tensor], blocks: TorchBlocks):
+    def __init__(self, cols: Dict[str, Any], blocks: TorchBlocks):
         self._cols = cols
         self._blocks = blocks
 
-    def __getitem__(self, key: str) -> torch.Tensor:
+    def __getitem__(self, key: str) -> Any:
         if key == "_row_valid" and key not in self._cols:
             self._cols[key] = self._blocks.validity()
         return self._cols[key]
@@ -268,8 +286,10 @@ class TorchExecutionEngine:
     def _device_aggregate(
         self, tdf: TorchDataFrame, keys: List[str], agg_cols: List[ColumnExpr]
     ) -> TorchDataFrame:
-        """The binned branch of ``_try_device_aggregate`` (``:2754``,
-        ``:2835-2864``); every other branch is refused."""
+        """``_try_device_aggregate`` (``:2754``) for sum/avg/count: the
+        binned branch (``:2835-2864``) where the keys have a bin spec, else
+        the generic branch (``:2866``); every other aggregation is
+        refused."""
         blocks = tdf.blocks
         for k in keys:
             assert_or_throw(k in blocks.columns, KeyError(f"{k} not in {tdf.schema}"))
@@ -312,13 +332,8 @@ class TorchExecutionEngine:
             )
         spec = groupby.bin_spec(blocks, keys)
         if spec is None:
-            self._unported(
-                "aggregate",
-                "group-by on keys with no bin spec (float keys, or more than "
-                f"{groupby._MAX_BINS} bins)",
-                "ROADMAP.md queue 2 item 5 (sort factorization)",
-            )
-        return self._binned_packed_aggregate(tdf, keys, typed_plans, spec)  # type: ignore
+            return self._generic_aggregate(tdf, keys, typed_plans)
+        return self._binned_packed_aggregate(tdf, keys, typed_plans, spec)
 
     def _binned_packed_aggregate(
         self,
@@ -335,15 +350,78 @@ class TorchExecutionEngine:
         ``row_valid``."""
         blocks = tdf.blocks
         device = blocks.device
+        occupancy, agg_cols = self._packed_sums(
+            tdf, typed_plans, groupby.kernel_keys(spec, blocks), groupby.frame_rows(blocks)
+        )
+        occupied = occupancy > 0
+        decoded = groupby.decode_bin_keys(
+            spec, {k: blocks.columns[k].data.dtype for k in keys}, device
+        )
+        out_cols: Dict[str, TorchColumn] = {}
+        for k in keys:
+            kv, km = decoded[k]
+            src = blocks.columns[k]
+            out_cols[k] = TorchColumn(src.pa_type, kv, km, src.stats)
+        out_cols.update(agg_cols)
+        return TorchDataFrame(
+            TorchBlocks(
+                None, out_cols, device, row_valid=occupied, nrows_dev=occupied.sum()
+            ),
+            _result_schema(tdf.schema, keys, typed_plans),
+        )
+
+    def _generic_aggregate(
+        self,
+        tdf: TorchDataFrame,
+        keys: List[str],
+        typed_plans: List[Tuple[str, str, Optional[ColumnExpr], pa.DataType]],
+    ) -> TorchDataFrame:
+        """The generic branch (``:2866``, ``_agg_program`` ``:2900``) for
+        sum/avg/count: ``groupby.factorize_keys`` (the sort path, since the
+        keys have no bin spec), the fused kernel over its segment ids as
+        the one key of span ``num_segments`` (the sentinel rows fall
+        outside it and are dropped), and each key gathered at its group's
+        first row. The result is a prefix frame of ``num_segments`` rows,
+        in the order of the key codes."""
+        blocks = tdf.blocks
+        fr = groupby.factorize_keys(blocks, keys)
+        num = fr.num_segments
+        # with no group at all the kernel reads no row of a one-bin key
+        rows = {"nrows": blocks.padded_nrows if num > 0 else 0}
+        _, agg_cols = self._packed_sums(
+            tdf, typed_plans, [BinKey(fr.seg, None, 0, max(num, 1))], rows
+        )
+        self._count_strategy("generic")
+        target = padded_len(num)
+        out_cols: Dict[str, TorchColumn] = {}
+        for k in keys:
+            src = blocks.columns[k]
+            mask = None if src.mask is None else _pad_to(
+                src.mask.index_select(0, fr.first_idx), target
+            )
+            out_cols[k] = TorchColumn(
+                src.pa_type, _pad_to(src.data.index_select(0, fr.first_idx), target),
+                mask, src.stats,
+            )
+        out_cols.update(agg_cols)
+        return TorchDataFrame(
+            TorchBlocks(num, out_cols, blocks.device),
+            _result_schema(tdf.schema, keys, typed_plans),
+        )
+
+    def _packed_sums(
+        self,
+        tdf: TorchDataFrame,
+        typed_plans: List[Tuple[str, str, Optional[ColumnExpr], pa.DataType]],
+        bkeys: List[BinKey],
+        rows: Dict[str, Any],
+    ) -> Tuple[torch.Tensor, Dict[str, TorchColumn]]:
+        """Every sum/avg/count of ``typed_plans`` by ``bkeys`` in one
+        ``groupby.binned_sums`` call. Returns the rows counted per segment
+        and the aggregate columns, one value per segment."""
+        blocks = tdf.blocks
+        device = blocks.device
         pad_n = blocks.padded_nrows
-        key_data = {k: blocks.columns[k].data for k in keys}
-        key_masks = {k: blocks.columns[k].mask for k in keys}
-        bkeys = groupby.bin_keys(spec, key_data, key_masks)
-        if len(bkeys) > MAX_KEYS:
-            # more keys than the kernel reads: their segment ids, with the
-            # invalid rows' sentinel, are its one key
-            seg = groupby.inline_seg(spec, key_data, key_masks, blocks.validity())
-            bkeys = [BinKey(seg, None, 0, spec.total)]
         mcols = expr_eval.blocks_to_masked(blocks)
         floats: List[Payload] = []
         counts: List[torch.Tensor] = []
@@ -383,27 +461,12 @@ class TorchExecutionEngine:
                 slots.append(("i", (_slot(ikeys, ints, pkey, (values, mask)), ci)))
             else:
                 slots.append(("f", (_slot(fkeys, floats, pkey, (values, mask)), ci)))
-        rows: Dict[str, Any] = (
-            {"nrows": blocks.nrows} if blocks.row_valid is None
-            else {"row_valid": blocks.row_valid}
-        )
         f_sums, c_sums, i_sums = groupby.binned_sums(
             bkeys, floats=floats, counts=counts, ints=ints, **rows
         )
         self._count_strategy("cuda" if device.type == "cuda" else "reference")
-        occupied = c_sums[0] > 0
-        decoded = groupby.decode_bin_keys(
-            spec, {k: blocks.columns[k].data.dtype for k in keys}, device
-        )
         out_cols: Dict[str, TorchColumn] = {}
-        fields: List[pa.Field] = []
-        for k in keys:
-            kv, km = decoded[k]
-            src = blocks.columns[k]
-            out_cols[k] = TorchColumn(src.pa_type, kv, km, src.stats)
-            fields.append(tdf.schema[k])
         for (name, func, _arg, tp), (kind, idx) in zip(typed_plans, slots):
-            fields.append(pa.field(name, tp))
             if kind == "c":
                 out_cols[name] = TorchColumn(tp, _cast_agg_result(c_sums[idx], tp))
                 continue
@@ -415,15 +478,21 @@ class TorchExecutionEngine:
             else:  # avg/mean; integer sums divide in float64 as in the JAX package
                 v = (tot.to(torch.float64) if kind == "i" else tot) / torch.clamp(cnt, min=1)
             out_cols[name] = TorchColumn(tp, _cast_agg_result(v, tp), cnt > 0)
-        return TorchDataFrame(
-            TorchBlocks(
-                None, out_cols, device, row_valid=occupied, nrows_dev=occupied.sum()
-            ),
-            Schema(fields),
-        )
+        return c_sums[0], out_cols
 
     def _count_strategy(self, name: str) -> None:
         self._strategy_counts[name] = self._strategy_counts.get(name, 0) + 1
+
+
+def _result_schema(
+    schema: Schema,
+    keys: List[str],
+    typed_plans: List[Tuple[str, str, Optional[ColumnExpr], pa.DataType]],
+) -> Schema:
+    """An aggregate's schema: the keys, then one field per aggregation."""
+    return Schema(
+        [schema[k] for k in keys] + [pa.field(name, tp) for name, _, _, tp in typed_plans]
+    )
 
 
 def _packed_agg_kind(schema: Schema, arg: ColumnExpr) -> Optional[str]:

@@ -1,28 +1,46 @@
-"""Group-by on the card: static key binning + the fused binned sums.
+"""Group-by on the card: key factorization and the fused binned sums.
 
-The port of ``fugue_tpu/jax_backend/groupby.py``'s binned path. When
-every key is integer-like with host-known bounds, segment ids are a
-mixed-radix combination of ``key - min``, computed inside the fused
-kernel with the row validity and the sums: no sort, no segment-id tensor,
-and the segment count is the static bin count, so no output shape needs
-a readback. Empty bins are dropped lazily through an occupancy mask.
+The port of ``fugue_tpu/jax_backend/groupby.py``. Two factorizations, as
+there:
+
+- **Static binning** (``bin_spec``): when every key is integer-like with
+  host-known bounds, segment ids are a mixed-radix combination of
+  ``key - min``, and the segment count is the static bin count, so no
+  output shape needs a readback. The aggregate computes the ids inside
+  the fused kernel (``kernels/segment_sums.cu``) with the row validity
+  and the sums; ``factorize_keys`` writes them out with the first row and
+  occupancy of each bin (kernel K1 of ``kernels/factorize.cu``). Empty
+  bins are dropped lazily through an occupancy mask.
+- **Sort** (``factorize_keys`` for float keys, int64 keys over more than
+  ``_MAX_BINS`` bins and the like): stable sorts of the key codes with
+  ``torch.sort``, then kernels K2 (group boundaries and their scan) and K3
+  (ids back to row order, first row per group), with one readback of the
+  group count.
 
 The JAX package's other segment-sum strategies (one-hot matmul, bf16
 matmul, sorted scatter) were built for the TPU's matrix unit and are not
-carried over: the port has one, the hand-written CUDA kernel
-(``kernels/segment_sums.cu``), with its plain twin on the CPU. Keys with
-no bin spec need the sort factorization, which is not ported yet.
+carried over. Every kernel has its plain twin in ``kernels/reference.py``,
+which runs where the tensors lie on the CPU; there is no fallback from the
+card to a twin.
 """
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from fugue_tpu_torch.kernels.factorize import (
+    bin_factorize_cuda,
+    sort_boundaries_cuda,
+    sort_finish_cuda,
+)
 from fugue_tpu_torch.kernels.reference import (
+    MAX_KEYS,
     BinKey,
     Payload,
+    bin_factorize_reference,
     bin_segments,
     binned_sums_reference,
+    sort_factorize_reference,
 )
 from fugue_tpu_torch.kernels.segment_sums import binned_sums_cuda
 from fugue_tpu_torch.torch_backend.blocks import TorchBlocks
@@ -111,6 +129,20 @@ def bin_keys(
     ]
 
 
+def kernel_keys(spec: BinSpec, blocks: TorchBlocks) -> List[BinKey]:
+    """The keys of ``spec`` as a binned kernel reads them. More keys than
+    the kernels read (``MAX_KEYS``) become one: their segment ids, with
+    the sentinel ``spec.total`` on rows that are not real, so the kernel
+    drops those rows however it is told the frame's rows."""
+    key_data = {k: blocks.columns[k].data for k in spec.names}
+    key_masks = {k: blocks.columns[k].mask for k in spec.names}
+    bkeys = bin_keys(spec, key_data, key_masks)
+    if len(bkeys) <= MAX_KEYS:
+        return bkeys
+    seg = inline_seg(spec, key_data, key_masks, blocks.validity())
+    return [BinKey(seg, None, 0, spec.total)]
+
+
 def inline_seg(
     spec: BinSpec,
     key_data: Dict[str, torch.Tensor],
@@ -190,3 +222,157 @@ def segment_sums(
         occupancy=False,
     )
     return list(f), list(c), list(i)
+
+
+def frame_rows(blocks: TorchBlocks) -> Dict[str, Any]:
+    """A frame's rows as the kernels take them (``groupby.py:472``): a
+    prefix frame's ``nrows``, or a masked frame's ``row_valid``."""
+    if blocks.row_valid is None:
+        return {"nrows": blocks.nrows}
+    return {"row_valid": blocks.row_valid}
+
+
+class Factorized(NamedTuple):
+    """Key factorization over a frame's padded rows (``groupby.py:415``).
+
+    - ``seg``: int32 segment id per padded row; rows that are not real
+      carry the out-of-range sentinel ``num_segments``.
+    - ``num_segments``: the segment-id space, a Python int: the bin count
+      on the binned path (some bins may be empty), the exact group count
+      on the sort path.
+    - ``first_idx``: int32[num_segments], the first real row of each
+      segment; ``padded_nrows - 1`` where a bin is empty.
+    - ``occupied``: bool[num_segments] marking non-empty bins, or None on
+      the sort path, where every segment is occupied.
+    - ``num_groups_dev``: the group count as an int32 0-d device tensor.
+    """
+
+    seg: torch.Tensor
+    num_segments: int
+    first_idx: torch.Tensor
+    occupied: Optional[torch.Tensor]
+    num_groups_dev: torch.Tensor
+
+
+def factorize_keys(blocks: TorchBlocks, keys: List[str]) -> Factorized:
+    """Factorize ``keys`` into segment ids (``groupby.py:437``). Null keys
+    form their own groups (SQL GROUP BY). The result is cached on the
+    frame, so a transform and an aggregate by the same keys of one frame
+    factorize once."""
+    cache_key = tuple(keys)
+    res = blocks.factorize_cache.get(cache_key)
+    if res is None:
+        res = _try_bin_factorize(blocks, keys)
+        if res is None:
+            res = _sort_factorize(blocks, keys)
+        blocks.factorize_cache[cache_key] = res
+    return res
+
+
+def _try_bin_factorize(blocks: TorchBlocks, keys: List[str]) -> Optional[Factorized]:
+    """The sort-free path for keys with a bin spec (``groupby.py:452``):
+    one launch of K1, no readback."""
+    spec = bin_spec(blocks, keys)
+    if spec is None:
+        return None
+    seg, first_idx, occupied, count = bin_factorize(
+        kernel_keys(spec, blocks), **frame_rows(blocks)
+    )
+    return Factorized(seg, spec.total, first_idx, occupied, count)
+
+
+def bin_factorize(
+    keys: Sequence[BinKey],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 on CUDA keys, its twin ``bin_factorize_reference`` on CPU keys."""
+    device = keys[0].data.device
+    if device.type == "cuda":
+        return bin_factorize_cuda(keys, nrows=nrows, row_valid=row_valid)
+    if device.type == "cpu":
+        return bin_factorize_reference(keys, nrows=nrows, row_valid=row_valid)
+    raise NotImplementedError(f"bin factorization on {device}")
+
+
+def sort_codes(
+    keys: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
+) -> List[torch.Tensor]:
+    """The sort codes of ``keys`` (each its values and null mask, True =
+    valid), most significant first, exactly as the
+    JAX package builds them (``groupby.py:507-546``), so group ids and
+    group order match it: bool and narrow integers as int32; a float key
+    canonical (-0.0 as +0.0, NaN as 0) behind an int32 NaN flag; an int64
+    key as its two int32 words, low word first (``bitcast_convert_type``'s
+    order); a nullable key behind an int32 null flag, with its codes
+    zeroed where it is null."""
+    codes: List[torch.Tensor] = []
+    for v, mask in keys:
+        if v.is_floating_point():
+            isnan = torch.isnan(v)
+            v = torch.where((v == 0) | isnan, torch.zeros_like(v), v)
+            pair = [isnan.to(torch.int32), v]
+        elif v.dtype == torch.int64:
+            words = v.view(torch.int32).view(-1, 2)
+            pair = [words[:, 0], words[:, 1]]
+        else:
+            pair = [v.to(torch.int32)]
+        if mask is not None:
+            codes.append((~mask).to(torch.int32))
+            pair = [torch.where(mask, p, torch.zeros_like(p)) for p in pair]
+        codes.extend(pair)
+    return codes
+
+
+def lex_order(
+    codes: Sequence[torch.Tensor],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The rows in the lexicographic order of ``codes``, real rows first:
+    one stable ``torch.sort`` per code, least significant first, then one
+    on validity (``groupby.py:562-568``). int64, as ``torch.sort`` gives
+    it. A prefix frame with no padding skips the validity sort, which
+    would keep the order as it is."""
+    order = torch.sort(codes[-1], stable=True).indices
+    for c in reversed(codes[:-1]):
+        order = order[torch.sort(c[order], stable=True).indices]
+    if row_valid is not None:
+        unreal = (row_valid[order] == 0).to(torch.uint8)
+    elif nrows is not None and nrows < int(order.shape[0]):
+        unreal = (order >= nrows).to(torch.uint8)
+    else:
+        return order
+    return order[torch.sort(unreal, stable=True).indices]
+
+
+def sort_factorize(
+    codes: Sequence[torch.Tensor],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``(seg, first_idx, num)`` of the sort path: ``lex_order``, then K2
+    and K3 with one readback of the group count between them (CUDA), or
+    their twins (CPU)."""
+    order = lex_order(codes, nrows=nrows, row_valid=row_valid)
+    if order.is_cuda:
+        seg_sorted, count = sort_boundaries_cuda(codes, order, nrows=nrows, row_valid=row_valid)
+        num = int(count)  # the sort path's one readback (groupby.py:548)
+        seg, first_idx = sort_finish_cuda(seg_sorted, order, num)
+        return seg, first_idx, num
+    if order.device.type == "cpu":
+        return sort_factorize_reference(codes, order, nrows=nrows, row_valid=row_valid)
+    raise NotImplementedError(f"sort factorization on {order.device}")
+
+
+def _sort_factorize(blocks: TorchBlocks, keys: List[str]) -> Factorized:
+    """``groupby.py:507``: the general path for keys with no bin spec."""
+    cols = [(blocks.columns[k].data, blocks.columns[k].mask) for k in keys]
+    seg, first_idx, num = sort_factorize(sort_codes(cols), **frame_rows(blocks))
+    return Factorized(
+        seg, num, first_idx, None,
+        torch.tensor(num, dtype=torch.int32, device=blocks.device),
+    )

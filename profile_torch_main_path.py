@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time of the port's main path goes on the card.
+"""Where the time of the port's paths goes on the card.
 
     python3 profile_torch_main_path.py
 
-Builds the headline frame of ``chip_smoke.py`` (100M rows, 1024 groups,
-seed 42), warms the path up with two runs, then runs it ``RUNS`` times
-under ``torch.profiler`` and prints one JSON object: the wall seconds per
-run, the device's busy and idle share of that wall time (busy = the
-summed time of the kernels and copies the card ran), and the device time
-of each kernel or copy, largest first. The profiler's full table goes to
-``profile_main_path.txt`` in the working directory. Needs a CUDA card.
+Builds each path of ``chip_smoke.py`` at 100M rows: the headline
+(transform, then the binned aggregate; 1024 groups, seed 42), the
+partitioned transform of ``BASELINE.json``'s second configuration (512
+groups, seed 1) and the sort-path aggregate on the float32 and on the
+wide int64 key. Each is warmed up with two runs, then run ``RUNS`` times
+under ``torch.profiler``; for each the script prints one JSON object: the
+wall seconds per run, the device's busy and idle share of that wall time
+(busy = the summed time of the kernels and copies the card ran), and the
+device time of each kernel or copy, largest first. The profiler's full
+tables go to ``profile_main_path.txt`` in the working directory. Needs a
+CUDA card.
 """
 
 import json
 import time
+from typing import Any, Callable
 
 import chip_smoke
 
@@ -21,17 +26,13 @@ RUNS = 3
 TABLE = "profile_main_path.txt"
 
 
-def main() -> None:
+def profile_path(name: str, run_once: Callable[[], Any], device: Any, table: Any) -> None:
+    """Profiles ``RUNS`` runs of ``run_once`` after two warm-up runs,
+    prints the path's JSON object and appends its table to ``table``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        raise SystemExit("FAIL: torch.cuda.is_available() is false")
-    device = torch.device("cuda", torch.cuda.current_device())
-    run_once, _, _, _ = chip_smoke.build_main_path(
-        device, chip_smoke.ROWS, chip_smoke.GROUPS, chip_smoke.SEED
-    )
     run_once()
     run_once()
     torch.cuda.synchronize(device)
@@ -54,9 +55,10 @@ def main() -> None:
         key=lambda r: -r[1],
     )
     busy_us = sum(r[1] for r in rows) * RUNS
-    with open(TABLE, "w") as f:
-        f.write(averages.table(sort_by="self_device_time_total", row_limit=60))
+    table.write(f"== {name}\n")
+    table.write(averages.table(sort_by="self_device_time_total", row_limit=60) + "\n")
     print(json.dumps({
+        "path": name,
         "card": chip_smoke.card_line(),
         "rows": chip_smoke.ROWS,
         "runs": RUNS,
@@ -68,6 +70,25 @@ def main() -> None:
             {"op": k[:120], "ms": us / 1e3, "calls": n} for k, us, n in rows[:25]
         ],
     }))
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("FAIL: torch.cuda.is_available() is false")
+    device = torch.device("cuda", torch.cuda.current_device())
+    rows, groups, seed = chip_smoke.ROWS, chip_smoke.GROUPS, chip_smoke.SEED
+    with open(TABLE, "w") as table:
+        run_once = chip_smoke.build_main_path(device, rows, groups, seed)[0]
+        profile_path("headline", run_once, device, table)
+        run_once = chip_smoke.build_partitioned_transform(device, rows)[0]
+        profile_path("config2_partitioned_transform", run_once, device, table)
+        del run_once
+        torch.cuda.empty_cache()
+        run_for = chip_smoke.build_sort_path(device, rows, groups, seed)[0]
+        for name, _, _ in chip_smoke.SORT_PATH_CASES:
+            profile_path(f"sort_path_{name}", run_for(name), device, table)
 
 
 if __name__ == "__main__":

@@ -96,13 +96,16 @@ def _df(key_dtype=np.int32) -> pd.DataFrame:
 
 
 _UNPORTED = {
-    "float_key": lambda e: ft.aggregate(_df(np.float32), "k", engine=e, s=ff.sum(ft.col("v"))),
+    "min_on_float_key": lambda e: ft.aggregate(
+        _df(np.float32), "k", engine=e, s=ff.min(ft.col("v"))
+    ),
     "min": lambda e: ft.aggregate(_df(), "k", engine=e, s=ff.min(ft.col("v"))),
     "max": lambda e: ft.aggregate(_df(), "k", engine=e, s=ff.max(ft.col("v"))),
     "distinct": lambda e: ft.aggregate(_df(), "k", engine=e, c=ff.count_distinct(ft.col("v"))),
     "no_keys": lambda e: ft.aggregate(_df(), None, engine=e, s=ff.sum(ft.col("v"))),
-    "partitioned_transform": lambda e: ft.transform(
-        _df(), _udf, "k:int,v:float", engine=e, partition="k"
+    "partitioned_transform_on_string_key": lambda e: ft.transform(
+        _df().assign(k=lambda d: d["k"].astype(str)), _udf, "k:str,v:float", engine=e,
+        partition="k",
     ),
     "pandas_transformer": lambda e: ft.transform(_df(), _pandas_udf, "k:int,v:float", engine=e),
     "string_column": lambda e: e.to_df(pd.DataFrame({"s": ["a", "b"]})),
@@ -120,6 +123,16 @@ def test_unported_paths_raise(case):
 def test_refusals_are_counted():
     engine = ft.make_execution_engine(device="cpu")
     with pytest.raises(NotImplementedError):
-        _UNPORTED["float_key"](engine)
+        _UNPORTED["min_on_float_key"](engine)
     assert engine.fallbacks == {"aggregate": 1}
     assert engine.strategy_counts == {}
+
+
+def test_float_keys_and_partitions_run_without_refusal():
+    """A partitioned transform and a group-by on a float key, both refused
+    before the key factorization was ported, now answer on the engine."""
+    engine = ft.make_execution_engine(device="cpu")
+    out = ft.transform(_df(), _udf, "k:int,v:float", engine=engine, partition={"by": ["k"]})
+    agg = ft.aggregate(_df(np.float32), "k", engine=engine, s=ff.sum(ft.col("v")))
+    assert len(out) == 50 and sorted(agg["k"]) == [0.0, 1.0, 2.0, 3.0, 4.0]
+    assert engine.fallbacks == {}
