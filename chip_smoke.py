@@ -10,30 +10,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
    gives them.
 2. build: compiles every CUDA source of the port with ``nvcc`` (one
    process per source, all at once).
-3. kernel vs twin: the fused binned-sum kernel against its plain PyTorch
-   twin on the same CUDA tensors. First in its one-key form over
-   precomputed segment ids (``segment_sums_cuda``), on both of its paths
-   (shared-memory replicas at 1024 segments, global atomics at 2^20), with
-   float32/float64, count (bool and uint8) and int64 payloads and rows
-   outside the segment range; then every case of ``binned_cases`` (one to
-   four keys of every width, nullable keys, wide spans, int64 keys near
-   -2^40, masked payloads, count(col), prefix and masked-layout frames,
-   offset views, one group, more payloads than one launch takes), and two
-   of them in every variant of the sweep. Each at n = 1 and n = 2^20 + 37.
-   Counts and int64 sums must match exactly; float sums within the bound
-   ``float_tolerance`` states.
-4. main path: 100M rows, an int32 key over 1024 groups and a float32
-   value made from seed 42 (the JAX package's headline shape,
-   ``bench.py:538-545``), through ``persist(to_df)`` -> ``transform`` ->
-   ``aggregate`` -> ``as_pandas``; checked against a float64 numpy
-   reference. Reports cold and best-of-5 warm seconds, rows/s and peak
-   device memory. The kernel launch count is zeroed just before the cold
-   run and read just after it: one fused-kernel launch per aggregate.
-5. kernel timing at the headline shape with CUDA events: the kernel, its
-   plain twin, one ``index_add_`` call computing the same sums, and the
-   kernel's bound from the bytes it must move; then the variant sweep
-   (rows per tile, tiles per iteration, replicas) and the time of the
-   all-rows-in-one-group shape, each on a line of its own.
+3. kernel vs twin: every hand kernel against its plain PyTorch twin on
+   the same CUDA tensors. The fused binned-sum kernel first in its one-key
+   form over precomputed segment ids (``segment_sums_cuda``), on both of
+   its paths, then every case of ``binned_cases`` (one to four keys of
+   every width, nullable keys, wide spans, masked payloads, prefix and
+   masked-layout frames, offset views, one group, more payloads than one
+   launch takes) and two of them in every variant of the sweep, at n = 1
+   and 2^20 + 37: counts and int64 sums exactly, float sums within
+   ``float_tolerance``. Then, exactly, K1 in every case of
+   ``bin_factorize_cases`` and the sort path's kernels in every case of
+   ``sort_cases`` (``sort_vs_twin``: KW, K2w, K3w and K3 on the word
+   route, K2 and K3 on the wide route), up to 100M rows, with each case's
+   route printed.
+4. paths through the entry points, each with every launch count zeroed
+   just before its cold run and read just after, checked against numpy:
+   the main path (100M rows, an int32 key over 1024 groups and a float32
+   value from seed 42, the JAX package's headline shape,
+   ``bench.py:538-545``: ``persist(to_df)`` -> ``transform`` ->
+   ``aggregate`` -> ``as_pandas``; one fused-kernel launch); the config-2
+   partitioned transform at 10M and 100M rows (K1 once, then cached); the
+   sort-path aggregate at 100M rows over 1024 groups on a float32 key and
+   an int64 key (the word route: KW, K2w, K3w once each), on the two as
+   one key pair (the wide route: K2, K3) and over 2^18 and 2^20 float32
+   groups (K3w with its table in global memory; K3's scatter), each cold
+   run split into stages (``StageTimer``). Each reports cold and best-of-5
+   warm seconds, rows/s, peak device memory and, on the sort path, its
+   route.
+5. timing with CUDA events at the paths' shapes: each kernel beside its
+   plain twin, one PyTorch call computing the same function where there
+   is one, and its bound from the bytes it must move; the fused kernel's
+   variant sweep and one-group shape; ``torch.sort`` of the int32 and
+   int64 sort words; and K3's two routes over 1024 to 10^8 groups
+   (``k3_routes``), each on a line of its own.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -43,7 +52,7 @@ import json
 import math
 import subprocess
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 ROWS = 100_000_000
 GROUPS = 1024
@@ -337,23 +346,24 @@ def binned_vs_twin(device: Any, kernel: Callable[..., Any]) -> float:
     return worst
 
 
+def _wrappers() -> List[Callable[..., Any]]:
+    """Every kernel wrapper, each with its launch count."""
+    from fugue_tpu_torch.kernels import factorize, segment_sums
+
+    return [segment_sums.binned_sums_cuda, factorize.bin_factorize_cuda,
+            factorize.sort_word_cuda, factorize.sort_word_boundaries_cuda,
+            factorize.sort_word_lookup_cuda, factorize.sort_boundaries_cuda,
+            factorize.sort_finish_cuda]
+
+
 def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch count."""
-    from fugue_tpu_torch.kernels.factorize import (
-        bin_factorize_cuda, sort_boundaries_cuda, sort_finish_cuda,
-    )
-    from fugue_tpu_torch.kernels.segment_sums import binned_sums_cuda
-
-    return {f.__name__[: -len("_cuda")]: f.launches for f in (
-        binned_sums_cuda, bin_factorize_cuda, sort_boundaries_cuda, sort_finish_cuda)}
+    return {f.__name__[: -len("_cuda")]: f.launches for f in _wrappers()}
 
 
 def zero_launches() -> None:
     """Sets every kernel wrapper's launch count to 0."""
-    from fugue_tpu_torch.kernels import factorize, segment_sums
-
-    for f in (segment_sums.binned_sums_cuda, factorize.bin_factorize_cuda,
-              factorize.sort_boundaries_cuda, factorize.sort_finish_cuda):
+    for f in _wrappers():
         f.launches = 0
 
 
@@ -446,42 +456,98 @@ def bin_factorize_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
             print(f"ok bin_factorize {label} n={n} path={path} groups={int(want[3])}")
 
 
-def sort_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
-    """K2 and K3 against ``sort_boundaries_reference`` and
-    ``sort_finish_reference`` over the same codes and order (the port's
-    ``sort_codes`` and ``lex_order``) in every case of ``sort_cases`` at
-    each size: sorted ids, the count, ids in row order and first rows
-    exactly."""
+def _equal(label: str, names: Tuple[str, ...], got: Tuple[Any, ...],
+           want: Tuple[Any, ...]) -> None:
     import torch
 
-    from fugue_tpu_torch.kernels.factorize import sort_boundaries_cuda, sort_finish_cuda
+    for name, g, w in zip(names, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise SystemExit(f"FAIL {label}: {name} differs")
+
+
+def sort_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
+    """The sort path's kernels against their twins in every case of
+    ``sort_cases`` at each size, exactly, on the route the case's key width
+    gives (``reference.word_bits``). Word route: KW against
+    ``sort_word_reference``; after ``torch.sort`` of the word, K2w against
+    ``sort_word_boundaries_reference`` (sorted ids, count, and each
+    group's word and first row), K3w against ``sort_word_lookup_reference``
+    (whatever the group count: in shared memory where the table fits, else
+    in global memory) and K3 over K2w's sorted ids against
+    ``sort_finish_reference``, and the two routes of K3 against each
+    other. Wide route: K2 and K3 against ``sort_boundaries_reference`` and
+    ``sort_finish_reference`` over the port's ``sort_codes`` and
+    ``lex_order``."""
+    import torch
+
+    from fugue_tpu_torch.kernels.factorize import (
+        sort_boundaries_cuda, sort_finish_cuda, sort_word_boundaries_cuda, sort_word_cuda,
+        sort_word_lookup_cuda,
+    )
     from fugue_tpu_torch.kernels.reference import (
-        sort_boundaries_reference, sort_finish_reference,
+        has_unreal_rows, sort_boundaries_reference, sort_finish_reference,
+        sort_word_boundaries_reference, sort_word_lookup_reference, sort_word_reference,
+        word_bits,
     )
     from fugue_tpu_torch.torch_backend import groupby
+
+    def sync() -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     for n in sizes:
         for label, case in sort_cases(device, n, SEED):
             rows = _rows_of(case)
-            codes = groupby.sort_codes(case["keys"])
-            order = groupby.lex_order(codes, **rows)
-            got = sort_boundaries_cuda(codes, order, **rows)
-            want = sort_boundaries_reference(codes, order, **rows)
-            num = int(want[1])
-            got2 = sort_finish_cuda(want[0], order, num)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            want2 = sort_finish_reference(want[0], order, num)
-            named = zip(("seg_sorted", "count", "seg", "first_idx"), got + got2, want + want2)
-            for name, g, w in named:
-                if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
-                    raise SystemExit(f"FAIL sort {label} n={n}: {name} differs")
+            full = f"sort {label} n={n}"
+            unreal = has_unreal_rows(n, rows.get("nrows"), rows.get("row_valid"))
+            if word_bits(case["keys"], unreal) > 64:
+                codes = groupby.sort_codes(case["keys"])
+                order = groupby.lex_order(codes, **rows)
+                got = sort_boundaries_cuda(codes, order, **rows)
+                want = sort_boundaries_reference(codes, order, **rows)
+                num = int(want[1])
+                got2 = sort_finish_cuda(want[0], order, num)
+                sync()
+                _equal(full, ("seg_sorted", "count", "seg", "first_idx"),
+                       got + got2, want + sort_finish_reference(want[0], order, num))
+                route = "wide"
+                del codes, got, want, got2
+            else:
+                sw = sort_word_cuda(case["keys"], **rows)
+                sync()
+                want_sw = sort_word_reference(case["keys"], **rows)
+                _equal(full, ("word",), (sw.word,), (want_sw.word,))
+                if sw.real_below != want_sw.real_below:
+                    raise SystemExit(f"FAIL {full}: real_below {sw.real_below} "
+                                     f"!= {want_sw.real_below}")
+                sorted_words, order = torch.sort(sw.word, stable=True)
+                got = sort_word_boundaries_cuda(sorted_words, order, real_below=sw.real_below)
+                sync()
+                want = sort_word_boundaries_reference(sorted_words, order,
+                                                      real_below=sw.real_below)
+                num = int(want[3])
+                _equal(full, ("seg_sorted", "count"), got[2:], want[2:])
+                _equal(full, ("uniq", "first_idx"), (got[0][:num], got[1][:num]),
+                       (want[0][:num], want[1][:num]))
+                seg = sort_word_lookup_cuda(sw.word, got[0], num, real_below=sw.real_below)
+                path = sort_word_lookup_cuda.last_path
+                scattered = sort_finish_cuda(got[2], order, num)
+                sync()
+                seg_want = sort_word_lookup_reference(sw.word, want[0], num,
+                                                      real_below=sw.real_below)
+                _equal(full, ("seg (lookup)",), (seg,), (seg_want,))
+                _equal(full, ("seg (scatter)", "first_idx (scatter)"), scattered,
+                       sort_finish_reference(want[2], order, num))
+                _equal(full, ("seg lookup vs scatter", "first_idx"),
+                       (seg, want[1][:num]), scattered)
+                route = f"word{8 * sw.word.element_size()}, K3w {path} table"
+                del sw, want_sw, sorted_words, got, want, seg, scattered, seg_want
             if label == "all rows in one group" and num != 1:
-                raise SystemExit(f"FAIL sort {label} n={n}: {num} groups")
+                raise SystemExit(f"FAIL {full}: {num} groups")
             if label == "all rows distinct" and num != n:
-                raise SystemExit(f"FAIL sort {label} n={n}: {num} groups")
-            print(f"ok sort_boundaries + sort_finish {label} n={n} groups={num}")
-            del codes, order, got, want, got2, want2
+                raise SystemExit(f"FAIL {full}: {num} groups")
+            print(f"ok {full} route={route} groups={num}")
+            del order
 
 
 def config2_frame(rows: int) -> Any:
@@ -508,7 +574,8 @@ def udfs() -> Dict[str, Callable[..., Any]]:
       rows;
     - ``float_key`` and ``int64_key``: the headline UDF (``v2 = v*2+1``)
       with the key cast to float32, or mapped to ``k * 2^33 - 2^40`` as
-      int64, which has no bin spec."""
+      int64, which has no bin spec; ``wide_key`` returns both, as ``k``
+      and ``j``, a key pair of 96 bits that no sort word holds."""
     import torch
 
     Cols = Dict[str, torch.Tensor]
@@ -529,7 +596,12 @@ def udfs() -> Dict[str, Callable[..., Any]]:
     def int64_key(a: Cols) -> Cols:
         return {"k": a["k"].to(torch.int64) * 2**33 - 2**40, "v2": a["v"] * 2.0 + 1.0}
 
-    return {"demean": demean, "float_key": float_key, "int64_key": int64_key}
+    def wide_key(a: Cols) -> Cols:
+        return {"k": a["k"].float(), "j": a["k"].to(torch.int64) * 2**33 - 2**40,
+                "v2": a["v"] * 2.0 + 1.0}
+
+    return {"demean": demean, "float_key": float_key, "int64_key": int64_key,
+            "wide_key": wide_key}
 
 
 def build_partitioned_transform(
@@ -602,12 +674,15 @@ def partitioned_transform(device: Any, rows: int, warm_runs: int) -> Dict[str, A
     }
 
 
-# the sort-path aggregates: (UDF of ``udfs``, its output schema, the key
-# in numpy)
-SORT_PATH_CASES = (
-    ("float_key", "k:float,v2:float", lambda k: k.astype("float32")),
-    ("int64_key", "k:long,v2:float", lambda k: k.astype("int64") * 2**33 - 2**40),
-)
+# the sort-path aggregates: UDF of ``udfs`` -> (its output schema, the
+# keys, the key columns in numpy from the occupied int32 keys)
+SORT_PATH_CASES: Dict[str, Tuple[str, List[str], Callable[[Any], Dict[str, Any]]]] = {
+    "float_key": ("k:float,v2:float", ["k"], lambda k: {"k": k.astype("float32")}),
+    "int64_key": ("k:long,v2:float", ["k"],
+                  lambda k: {"k": k.astype("int64") * 2**33 - 2**40}),
+    "wide_key": ("k:float,j:long,v2:float", ["k", "j"],
+                 lambda k: {"k": k.astype("float32"), "j": k.astype("int64") * 2**33 - 2**40}),
+}
 
 
 def build_sort_path(
@@ -616,7 +691,7 @@ def build_sort_path(
     """Upload the headline frame and return ``(run_for, keys, values,
     engine)``; ``run_for(name)`` is the ``run_once`` of the sort-path case
     ``name`` of ``SORT_PATH_CASES``: the case's UDF, then sum/avg/count of
-    ``v2`` by key, through the entry points to pandas, returning
+    ``v2`` by its keys, through the entry points to pandas, returning
     ``(seconds, result pandas)``."""
     import numpy as np
     import pandas as pd
@@ -629,15 +704,15 @@ def build_sort_path(
     values = rng.random(rows).astype(np.float32)
     engine = make_execution_engine("torch", device=device)
     src = engine.persist(engine.to_df(pd.DataFrame({"k": keys, "v": values})))
-    schemas = {name: schema for name, schema, _ in SORT_PATH_CASES}
 
     def run_for(name: str) -> Callable[[], Tuple[float, Any]]:
         udf = udfs()[name]
+        schema, by, _ = SORT_PATH_CASES[name]
 
         def run_once() -> Tuple[float, Any]:
             t = time.perf_counter()
-            tout = transform(src, udf, schema=schemas[name], engine=engine, as_fugue=True)
-            agg = aggregate(tout, partition_by="k", s=ff.sum(col("v2")), m=ff.avg(col("v2")),
+            tout = transform(src, udf, schema=schema, engine=engine, as_fugue=True)
+            agg = aggregate(tout, partition_by=by, s=ff.sum(col("v2")), m=ff.avg(col("v2")),
                             c=ff.count(col("v2")), engine=engine, as_fugue=True)
             return time.perf_counter() - t, agg.as_pandas()
 
@@ -646,17 +721,83 @@ def build_sort_path(
     return run_for, keys, values, engine
 
 
-def sort_path_aggregates(device: Any, rows: int, groups: int, seed: int,
-                         warm_runs: int) -> List[Dict[str, Any]]:
+class StageTimer:
+    """Times the stages of one run: while active, ``torch.sort`` and the
+    sort path's kernel wrappers as ``groupby`` calls them each run between
+    two ``torch.cuda.synchronize`` calls, and the first call of each is
+    recorded. The readback of the group count is the time from the end of
+    K2w (or K2) to the start of the K3 that follows it."""
+
+    STAGES = ("sort_word_cuda", "sort_word_boundaries_cuda", "sort_word_lookup_cuda",
+              "sort_boundaries_cuda", "sort_finish_cuda", "binned_sums_cuda")
+
+    def __init__(self, device: Any) -> None:
+        self.device = device
+        self.secs: Dict[str, float] = {}
+        self._saved: Dict[str, Any] = {}
+        self._k2_end: Any = None
+
+    def _timed(self, name: str, fn: Callable[..., Any]) -> Callable[..., Any]:
+        import torch
+
+        def run(*args: Any, **kwargs: Any) -> Any:
+            torch.cuda.synchronize(self.device)
+            t = time.perf_counter()
+            if name in ("sort_word_lookup_cuda", "sort_finish_cuda") and self._k2_end:
+                self.secs.setdefault("readback", t - self._k2_end)
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(self.device)
+            end = time.perf_counter()
+            self.secs.setdefault(name, end - t)
+            if name in ("sort_word_boundaries_cuda", "sort_boundaries_cuda"):
+                self._k2_end = end
+            return out
+
+        return run
+
+    def __enter__(self) -> "StageTimer":
+        import torch
+
+        from fugue_tpu_torch.torch_backend import groupby
+
+        self._saved = {name: getattr(groupby, name) for name in self.STAGES}
+        self._saved["torch.sort"] = torch.sort
+        for name in self.STAGES:
+            setattr(groupby, name, self._timed(name, self._saved[name]))
+        torch.sort = self._timed("torch.sort", self._saved["torch.sort"])
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        import torch
+
+        from fugue_tpu_torch.torch_backend import groupby
+
+        torch.sort = self._saved.pop("torch.sort")
+        for name, fn in self._saved.items():
+            setattr(groupby, name, fn)
+
+
+def sort_path_aggregates(device: Any, rows: int, groups: int, seed: int, warm_runs: int,
+                         cases: Tuple[str, ...] = ("float_key", "int64_key"),
+                         split_cold: bool = False) -> List[Dict[str, Any]]:
     """The headline frame and UDF (``v2 = v*2+1``) with the key cast to
-    float32, or mapped to ``k * 2^33 - 2^40`` as int64 (no bin spec),
-    then sum/avg/count of ``v2`` by key through the sort path, through
-    the entry points to pandas. Keys (in the port's order, ascending
+    float32, or mapped to ``k * 2^33 - 2^40`` as int64 (no bin spec), or
+    both as a key pair too wide for one sort word, then sum/avg/count of
+    ``v2`` by the keys through the sort path, through the entry points to
+    pandas, for each of ``cases``. Keys (in the port's order, ascending
     here) and counts must equal numpy, ``s`` and ``m`` be within
     ``MAIN_PATH_RTOL`` of float64 numpy. Reports cold and best warm
-    seconds, peak memory and each kernel's launches per aggregate."""
+    seconds, peak memory, each kernel's launches per aggregate and the
+    factorization's route (``groupby.sort_factorize.last_route``); with
+    ``split_cold``, each case's cold run is split into stages by a
+    ``StageTimer``."""
+    import contextlib
+
     import numpy as np
     import torch
+
+    from fugue_tpu_torch.kernels.factorize import sort_word_lookup_cuda
+    from fugue_tpu_torch.torch_backend import groupby
 
     run_for, keys, values, engine = build_sort_path(device, rows, groups, seed)
     v2 = values * np.float32(2.0) + np.float32(1.0)
@@ -664,23 +805,28 @@ def sort_path_aggregates(device: Any, rows: int, groups: int, seed: int,
     s_ref = np.bincount(keys, weights=v2.astype(np.float64), minlength=groups)
     occupied = np.nonzero(c_ref)[0]
     out = []
-    for name, _, np_key in SORT_PATH_CASES:
+    for name in cases:
         if device.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
         run_once = run_for(name)
         before = engine.strategy_counts.get("generic", 0)
+        timer = StageTimer(device) if split_cold else contextlib.nullcontext()
+        sort_word_lookup_cuda.last_path = None
         zero_launches()
-        cold_secs, pdf = run_once()
+        with timer:
+            cold_secs, pdf = run_once()
         cold_launches = launch_counts()
+        route = groupby.sort_factorize.last_route
+        lookup_path = sort_word_lookup_cuda.last_path
         zero_launches()
         warm = [run_once()[0] for _ in range(warm_runs)]
         warm_launches = launch_counts()
         if engine.strategy_counts.get("generic", 0) != before + 1 + warm_runs:
             raise SystemExit(f"FAIL sort path {name}: the aggregate took the binned branch")
-        want_k = np_key(occupied)
-        if not np.array_equal(pdf["k"].to_numpy(), want_k):
-            raise SystemExit(f"FAIL sort path {name}: keys differ from numpy")
+        for key, want_k in SORT_PATH_CASES[name][2](occupied).items():
+            if not np.array_equal(pdf[key].to_numpy(), want_k):
+                raise SystemExit(f"FAIL sort path {name}: keys {key} differ from numpy")
         if not np.array_equal(pdf["c"].to_numpy(), c_ref[occupied]):
             raise SystemExit(f"FAIL sort path {name}: counts differ from numpy")
         rel = {}
@@ -690,10 +836,12 @@ def sort_path_aggregates(device: Any, rows: int, groups: int, seed: int,
             if not (np.all(np.isfinite(got)) and rel[col_name] <= MAIN_PATH_RTOL):
                 raise SystemExit(f"FAIL sort path {name}: {col_name} off by rtol {rel[col_name]}")
         best = min(warm) if warm else cold_secs
-        out.append({
+        stats = {
             "case": name,
             "rows": rows,
             "groups": int(occupied.shape[0]),
+            "route": route,
+            "lookup_path": lookup_path,
             "cold_secs": cold_secs,
             "warm_secs": warm,
             "best_warm_secs": best,
@@ -704,7 +852,10 @@ def sort_path_aggregates(device: Any, rows: int, groups: int, seed: int,
             "launches": cold_launches,
             "warm_launches": warm_launches,
             "max_rel_err": rel,
-        })
+        }
+        if split_cold:
+            stats["cold_split_secs"] = timer.secs
+        out.append(stats)
     return out
 
 
@@ -896,7 +1047,8 @@ def kernel_timing(device: Any, launches: int) -> Dict[str, Any]:
 
 
 def _kernel_entry(name: str, replaces: str, launches: int, err: float, ms: float,
-                  plain_ms: float, nbytes: int, ops: int, library_ms: float) -> Dict[str, Any]:
+                  plain_ms: float, nbytes: int, ops: int,
+                  library_ms: Optional[float]) -> Dict[str, Any]:
     """One kernel's entry of the ``kernels`` line; its bound is the larger
     of its bytes over the HBM rate and its operations over the float32
     rate."""
@@ -923,12 +1075,15 @@ def _max_abs_diff(got: Tuple[Any, ...], want: Tuple[Any, ...]) -> float:
 
 
 def factorize_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
-    """K1, K2 and K3 with CUDA events at the 100M-row shapes of their
-    paths, beside their plain twins, one PyTorch call each and their
-    bounds: K1 over the headline key (int32 over 1024 bins, a prefix frame
-    with nrows = n), K2 and K3 over the sort path's float32 key (codes: a
-    NaN flag and the value; 1024 groups). Bytes: each input read once,
-    each output written once; K2 and K3 read the int64 order."""
+    """The factorization kernels with CUDA events at the 100M-row shapes
+    of their paths, beside their plain twins, one PyTorch call each where
+    there is one and their bounds: K1 over the headline key (int32 over
+    1024 bins, a prefix frame with nrows = n); K2 and K3 over the codes of
+    the sort path's float32 key (a NaN flag and the value; 1024 groups),
+    as a key too wide for one word would take them; then KW, K2w and K3w
+    (``word_timing``). Bytes: each input read once, each output written
+    once; K2 and K3 read the int64 order. ``launches`` holds each kernel's
+    launches on the path that runs it."""
     import torch
 
     from fugue_tpu_torch.kernels.factorize import (
@@ -963,17 +1118,19 @@ def factorize_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, An
     err = _max_abs_diff(sort_boundaries_cuda(codes, order, nrows=n), want2)
     ms = time_cuda(lambda: sort_boundaries_cuda(codes, order, nrows=n), 20)
     plain_ms = time_cuda(lambda: sort_boundaries_reference(codes, order, nrows=n), 5)
-    # one PyTorch call: the inclusive scan of the boundary flags
+    # no one PyTorch call computes K2 (boundaries over codes gathered at
+    # the order, then their scan); the scan alone, for scale
     opens = torch.zeros((n,), dtype=torch.bool, device=device)
     opens[1:] = want2[0][1:] != want2[0][:-1]
     opens[0] = True
-    library_ms = time_cuda(lambda: torch.cumsum(opens, 0, dtype=torch.int32), 5)
+    scan_ms = time_cuda(lambda: torch.cumsum(opens, 0, dtype=torch.int32), 5)
+    print("sort_boundaries scan alone: " + json.dumps({"cumsum_ms": scan_ms}))
     del opens
     code_bytes = sum(int(c.shape[0]) * c.element_size() for c in codes)
     entries.append(_kernel_entry(
         "sort_boundaries", "fugue_tpu/jax_backend/groupby.py:554",
         launches["sort_boundaries"], err, ms, plain_ms, 8 * n + code_bytes + 4 * n + 4,
-        n * len(codes), library_ms))
+        n * len(codes), None))
 
     seg_sorted, num = want2[0], int(want2[1])
     want3 = sort_finish_reference(seg_sorted, order, num)
@@ -986,7 +1143,144 @@ def factorize_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, An
     entries.append(_kernel_entry(
         "sort_finish", "fugue_tpu/jax_backend/groupby.py:582", launches["sort_finish"],
         err, ms, plain_ms, 4 * n + 8 * n + 4 * n + 4 * num, n, library_ms))
+    del codes, order, want2, seg_sorted, want3, seg
+    torch.cuda.empty_cache()
+    entries += word_timing(device, key.float(), launches)
     return entries
+
+
+def word_timing(device: Any, fkey: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """KW, K2w and K3w with CUDA events over the sort path's float32 key
+    (100M rows, 1024 groups, a prefix frame with nrows = n: an int32
+    word), beside their twins, one PyTorch call each where there is one
+    and their bounds; then ``torch.sort`` of that word and of the int64
+    key's word beside the bytes bound of a sort (the keys read once, the
+    sorted keys and the int64 order written once), on a line of its own.
+    Bytes: each input read once, each output written once; K2w reads the
+    order and writes each group's word and first row only where a group
+    opens."""
+    import math
+
+    import torch
+
+    from fugue_tpu_torch.kernels.factorize import (
+        sort_word_boundaries_cuda, sort_word_cuda, sort_word_lookup_cuda,
+    )
+    from fugue_tpu_torch.kernels.reference import (
+        sort_word_boundaries_reference, sort_word_lookup_reference, sort_word_reference,
+    )
+
+    n = int(fkey.shape[0])
+    keys = [(fkey, None)]
+    sw = sort_word_cuda(keys, nrows=n)
+    want = sort_word_reference(keys, nrows=n)
+    err = _max_abs_diff((sw.word,), (want.word,))
+    ms = time_cuda(lambda: sort_word_cuda(keys, nrows=n), 20)
+    plain_ms = time_cuda(lambda: sort_word_reference(keys, nrows=n), 5)
+    entries = [_kernel_entry(
+        "sort_word", "fugue_tpu/jax_backend/groupby.py:507", launches["sort_word"],
+        err, ms, plain_ms, 4 * n + 4 * n, n, None)]
+    del want
+
+    words = sw.word
+    sort_ms = time_cuda(lambda: torch.sort(words, stable=True), 5)
+    sorted_words, order = torch.sort(words, stable=True)
+    got = sort_word_boundaries_cuda(sorted_words, order)
+    want = sort_word_boundaries_reference(sorted_words, order)
+    num = int(want[3])
+    err = max(_max_abs_diff(got[2:], want[2:]),
+              _max_abs_diff((got[0][:num], got[1][:num]), (want[0][:num], want[1][:num])))
+    ms = time_cuda(lambda: sort_word_boundaries_cuda(sorted_words, order), 20)
+    plain_ms = time_cuda(lambda: sort_word_boundaries_reference(sorted_words, order), 5)
+    # one PyTorch call: the distinct words and their counts, which leaves
+    # out the first rows and the sorted ids
+    library_ms = time_cuda(lambda: torch.unique_consecutive(sorted_words, return_counts=True), 5)
+    entries.append(_kernel_entry(
+        "sort_word_boundaries", "fugue_tpu/jax_backend/groupby.py:554",
+        launches["sort_word_boundaries"], err, ms, plain_ms,
+        4 * n + 4 * n + num * (8 + 4 + 4) + 4, n, library_ms))
+
+    uniq = got[0]
+    seg = sort_word_lookup_cuda(words, uniq, num)
+    path = sort_word_lookup_cuda.last_path
+    err = _max_abs_diff((seg,), (sort_word_lookup_reference(words, want[0], num),))
+    ms = time_cuda(lambda: sort_word_lookup_cuda(words, uniq, num), 20)
+    plain_ms = time_cuda(lambda: sort_word_lookup_reference(words, uniq, num), 5)
+    table = uniq[:num].contiguous()
+    # one PyTorch call: the search of every row's word among the groups'
+    library_ms = time_cuda(lambda: torch.searchsorted(table, words), 5)
+    entries.append(_kernel_entry(
+        "sort_word_lookup", "fugue_tpu/jax_backend/groupby.py:582",
+        launches["sort_word_lookup"], err, ms, plain_ms, 4 * n + 4 * num + 4 * n,
+        n * max(1, math.ceil(math.log2(max(num, 1)))), library_ms))
+    print(f"sort_word_lookup timed shape: path={path} groups={num}")
+    del sorted_words, order, got, want, seg, table
+
+    wide_words = sort_word_cuda([(fkey.to(torch.int64) * 2**33 - 2**40, None)], nrows=n).word
+    sort64_ms = time_cuda(lambda: torch.sort(wide_words, stable=True), 5)
+    print("sorts: " + json.dumps({
+        "rows": n,
+        "int32_word_ms": sort_ms,
+        "int32_word_bound_ms": n * (4 + 4 + 8) / HBM_BYTES_PER_S * 1e3,
+        "int64_word_ms": sort64_ms,
+        "int64_word_bound_ms": n * (8 + 8 + 8) / HBM_BYTES_PER_S * 1e3,
+    }))
+    return entries
+
+
+def k3_routes(device: Any, rows: int) -> List[Dict[str, Any]]:
+    """K3's two routes on the word route at ``rows`` rows: an int32 key
+    (an int32 word) over 1024 to 2^21 groups and with every row distinct,
+    and the int64 key ``k * 2^33`` (an int64 word) over 1024 to 2^20
+    groups. K3w (its table in shared memory where it fits, else in global
+    memory) and the scatter of K2w's sorted ids (K3) are checked against
+    each other and timed with CUDA events. Prints and returns one line
+    each; the crossover sets ``groupby.LOOKUP_MAX_GROUPS``."""
+    import torch
+
+    from fugue_tpu_torch.kernels.factorize import (
+        sort_finish_cuda, sort_word_boundaries_cuda, sort_word_cuda, sort_word_lookup_cuda,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    sweeps = [(4, g) for g in (1024, 1 << 15, 1 << 16, 1 << 18, 1 << 19, 1 << 20, 1 << 21, rows)]
+    sweeps += [(8, g) for g in (1024, 1 << 14, 1 << 16, 1 << 18, 1 << 19, 1 << 20)]
+    out = []
+    for width, groups in sweeps:
+        if groups == rows:
+            key = torch.randperm(rows, generator=gen, device=device).to(torch.int32)
+        else:
+            key = torch.randint(0, groups, (rows,), generator=gen, device=device,
+                                dtype=torch.int32)
+        if width == 8:
+            key = key.to(torch.int64) * 2**33
+        words = sort_word_cuda([(key, None)], nrows=rows).word
+        del key
+        sorted_words, order = torch.sort(words, stable=True)
+        uniq, first_idx, seg_sorted, count = sort_word_boundaries_cuda(sorted_words, order)
+        num = int(count)
+        del sorted_words
+        seg = sort_word_lookup_cuda(words, uniq, num)
+        path = sort_word_lookup_cuda.last_path
+        scattered, _ = sort_finish_cuda(seg_sorted, order, num)
+        torch.cuda.synchronize(device)
+        if not torch.equal(seg, scattered):
+            raise SystemExit(f"FAIL k3 routes at {num} groups: lookup and scatter differ")
+        reps = 3 if num > (1 << 21) else 10
+        row = {
+            "rows": rows,
+            "word_bits": 8 * width,
+            "groups": num,
+            "table_bytes": num * width,
+            "lookup_path": path,
+            "lookup_ms": time_cuda(lambda: sort_word_lookup_cuda(words, uniq, num), reps),
+            "scatter_ms": time_cuda(lambda: sort_finish_cuda(seg_sorted, order, num), reps),
+        }
+        print("k3_route: " + json.dumps(row))
+        out.append(row)
+        del words, uniq, first_idx, seg_sorted, order, seg, scattered
+        torch.cuda.empty_cache()
+    return out
 
 
 def stand_in_timing(device: Any) -> Dict[str, Any]:
@@ -1032,7 +1326,8 @@ def main() -> None:
     print(f"kernels checked against their twins: binned_sums (max_abs_err={worst})")
     bin_factorize_vs_twin(device, (1, (1 << 20) + 37, 10_000_000))
     sort_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
-    print("kernels checked against their twins: bin_factorize, sort_boundaries, sort_finish")
+    print("kernels checked against their twins: bin_factorize, sort_word, "
+          "sort_word_boundaries, sort_word_lookup, sort_boundaries, sort_finish")
     torch.cuda.empty_cache()
 
     stats = main_path(device, ROWS, GROUPS, SEED, WARM_RUNS)
@@ -1058,10 +1353,37 @@ def main() -> None:
         print("partitioned_transform: " + json.dumps(part[rows]))
         torch.cuda.empty_cache()
 
-    sort_stats = sort_path_aggregates(device, ROWS, GROUPS, SEED, WARM_RUNS)
+    # 1024 groups: the float32 key takes an int32 word, the int64 key an
+    # int64 word, both K3w's shared-memory lookup; the key pair is too wide
+    # for one word (K2 and K3). Float32 keys over 2^18 groups: above the
+    # shared table's capacity (K3w in global memory); over 2^20: above the
+    # lookup's reach (K3's scatter).
+    sort_stats = sort_path_aggregates(device, ROWS, GROUPS, SEED, WARM_RUNS,
+                                      cases=("float_key", "int64_key", "wide_key"),
+                                      split_cold=True)
+    for groups in (1 << 18, 1 << 20):
+        torch.cuda.empty_cache()
+        sort_stats += sort_path_aggregates(device, ROWS, groups, SEED, WARM_RUNS,
+                                           cases=("float_key",), split_cold=True)
+    from fugue_tpu_torch.torch_backend import groupby
+
     for st in sort_stats:
-        want = {"binned_sums": 1, "bin_factorize": 0, "sort_boundaries": 1, "sort_finish": 1}
+        width = 4 if st["case"] == "float_key" else 8
+        want_route = "wide"
+        if st["case"] != "wide_key":
+            k3 = "lookup" if st["groups"] <= groupby.LOOKUP_MAX_GROUPS else "scatter"
+            want_route = f"word{8 * width}/{k3}"
+        want = dict.fromkeys(st["launches"], 0)
+        want["binned_sums"] = 1
+        if want_route == "wide":
+            want.update(sort_boundaries=1, sort_finish=1)
+        else:
+            want.update(sort_word=1, sort_word_boundaries=1)
+            want["sort_word_lookup" if k3 == "lookup" else "sort_finish"] = 1
         warm_want = {k: v * WARM_RUNS for k, v in want.items()}
+        if st["route"] != want_route:
+            raise SystemExit(f"FAIL: the sort-path aggregate {st['case']} over {st['groups']} "
+                             f"groups took the route {st['route']}, expected {want_route}")
         if st["launches"] != want or st["warm_launches"] != warm_want:
             raise SystemExit(f"FAIL: the sort-path aggregate {st['case']} launched "
                              f"{st['launches']} (cold), {st['warm_launches']} (warm)")
@@ -1077,11 +1399,18 @@ def main() -> None:
     torch.cuda.empty_cache()
     entries += factorize_timing(device, {
         "bin_factorize": part[CONFIG2_ROWS]["launches"]["bin_factorize"],
-        "sort_boundaries": sort_stats[0]["launches"]["sort_boundaries"],
-        "sort_finish": sort_stats[0]["launches"]["sort_finish"],
+        "sort_boundaries": sort_stats[2]["launches"]["sort_boundaries"],
+        "sort_finish": sort_stats[2]["launches"]["sort_finish"],
+        "sort_word": sort_stats[0]["launches"]["sort_word"],
+        "sort_word_boundaries": sort_stats[0]["launches"]["sort_word_boundaries"],
+        "sort_word_lookup": sort_stats[0]["launches"]["sort_word_lookup"],
     })
+    torch.cuda.empty_cache()
+    k3_routes(device, ROWS)
     for entry in entries:
-        if not all(math.isfinite(entry[k]) for k in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        times = [entry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")
+                 if entry[k] is not None]
+        if not all(math.isfinite(t) for t in times):
             raise SystemExit(f"FAIL: a time of {entry['name']} is not finite")
         if entry["max_abs_err"] != 0 and entry["name"] != "binned_sums":
             raise SystemExit(f"FAIL: {entry['name']} differs from its twin at the timed shape")

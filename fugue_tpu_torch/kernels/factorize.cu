@@ -1,30 +1,49 @@
-// Key factorization on the card: the binned path (K1) and the two passes
-// of the sort path that follow torch's stable sorts (K2, K3).
+// Key factorization on the card: the binned path (K1), the sort path over
+// one packed sort word (KW, K2w, K3w) and the sort path of keys too wide
+// for one word (K2, K3), which follow torch's stable sorts.
 //
 // Replaces, in the JAX package (fugue_tpu/jax_backend/groupby.py; none of
 // them is a Pallas kernel, each is a jitted XLA program):
-//   K1 bin_factorize   _bin_core (:481): segment ids, first valid row per
-//                      bin, occupied bins, group count;
-//   K2 sort_boundaries the tail of _sort_factorize_core (:554): group
-//                      boundaries over the sorted key codes, the inclusive
-//                      scan to sorted segment ids, the group count;
-//   K3 sort_finish     _sort_factorize_finish (:582): the sentinel on
-//                      invalid rows, the scatter of the ids back to row
-//                      order, the first row of each group.
-// Their twins are bin_factorize_reference, sort_boundaries_reference and
-// sort_finish_reference in reference.py.
+//   K1  bin_factorize        _bin_core (:481): segment ids, first valid row
+//                            per bin, occupied bins, group count;
+//   KW  sort_word            the sort codes of _sort_factorize (:507-546),
+//                            packed into one order-preserving int32/int64
+//                            word a row, "not real" as its top field;
+//   K2w sort_word_boundaries the tail of _sort_factorize_core (:554) over
+//                            the sorted words: group boundaries, their
+//                            scan, the distinct words, the first row of
+//                            each group, the group count;
+//   K3w sort_word_lookup     _sort_factorize_finish (:582) in row order:
+//                            each row's id by a binary search of its own
+//                            word among the distinct words;
+//   K2  sort_boundaries      the tail of _sort_factorize_core (:554) over
+//                            the codes of a wide key, gathered at the order;
+//   K3  sort_finish          _sort_factorize_finish (:582): the sentinel on
+//                            invalid rows, the scatter of the ids back to
+//                            row order, the first row of each group.
+// Their twins are bin_factorize_reference, sort_word_reference,
+// sort_word_boundaries_reference, sort_word_lookup_reference,
+// sort_boundaries_reference and sort_finish_reference in reference.py.
 //
 // What bounds them on an H100: bytes. K1 reads the keys once and writes
 // one id a row (8 bytes a row for one int32 key); the bins' first rows
 // are a shared-memory atomicMin (global when the bins do not fit in 48
 // KB), tried only when a plain read shows the row is earlier than the
 // bin's current first, so after the first rows of a bin almost no row
-// pays an atomic. K2 and K3 read the sort's int64 order (8 bytes a row)
-// as torch.sort returns it, with no conversion pass; K2 gathers each
-// key code at order[i] and order[i - 1] (random reads: the sort left the
-// codes in row order), writes one flag byte a row, then scans the flags
-// in a second pass, reduce-then-scan in three launches; K3 scatters one
-// id a row to row order (random writes). None of the three is tuned yet.
+// pays an atomic. KW reads each key once and writes the word, one row a
+// thread, coalesced. K2w reads the sorted words in sorted order with
+// 16-byte loads (twice: reduce-then-scan in three launches), writes one
+// id a position, and touches the order only where a group opens. K3w
+// reads each row's word in row order with 16-byte loads and writes its id
+// with 16-byte stores; the search runs in a copy of the distinct words in
+// shared memory, padded so its probes spread over the banks (global memory
+// through L2 when they do not fit), so no access is random in device
+// memory. K2 and K3, the route of keys wider
+// than 64 bits and of group counts above the lookup's reach, read the
+// sort's int64 order (8 bytes a row); K2 gathers each key code at order[i]
+// and order[i - 1] (random reads: the sort left the codes in row order),
+// writes one flag byte a row, then scans the flags; K3 scatters one id a
+// row to row order (random writes). Neither is tuned.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -237,22 +256,22 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Pass 2, one block: the tiles' counts become exclusive offsets, and their
-// sum is the group count.
+// sum is the group count. Shared by K2 and K2w.
 __global__ void __launch_bounds__(kThreads)
-    sort_offsets(const __grid_constant__ SortParams p) {
-  const int per = (p.tiles + kThreads - 1) / kThreads;
+    sort_offsets(int* block_sums, int tiles, int* count) {
+  const int per = (tiles + kThreads - 1) / kThreads;
   const int lo = threadIdx.x * per;
-  const int hi = lo + per < p.tiles ? lo + per : p.tiles;
+  const int hi = lo + per < tiles ? lo + per : tiles;
   int sum = 0;
-  for (int t = lo; t < hi; ++t) sum += p.block_sums[t];
+  for (int t = lo; t < hi; ++t) sum += block_sums[t];
   int total = 0;
   int run = block_scan(sum, &total) - sum;
   for (int t = lo; t < hi; ++t) {
-    const int c = p.block_sums[t];
-    p.block_sums[t] = run;
+    const int c = block_sums[t];
+    block_sums[t] = run;
     run += c;
   }
-  if (threadIdx.x == 0) *p.count = total;
+  if (threadIdx.x == 0) *count = total;
 }
 
 // Pass 3: the inclusive scan of the flags within each tile, from the
@@ -301,6 +320,397 @@ __global__ void __launch_bounds__(kThreads)
     p.seg[row] = s < 0 ? p.num : s;
     if (s >= 0 && (i == 0 || __ldg(p.seg_sorted + i - 1) != s)) p.first_idx[s] = (int)row;
   }
+}
+
+// ---- KW: the sort word ---------------------------------------------------
+
+constexpr int kMaxWordKeys = 16;  // key columns per KW launch
+
+struct WordKey {
+  const void* data;
+  const uint8_t* mask;  // null: every row valid (True = valid)
+  int code;             // a dtype code of bin_keys.cuh
+};
+
+struct WordParams {
+  long long n;
+  long long nrows;           // a prefix frame's real rows; ignored with row_valid
+  const uint8_t* row_valid;  // a masked frame's rows (non-zero = real)
+  int unreal;                // 1: the top field is the "not real" bit
+  int nkeys;
+  WordKey key[kMaxWordKeys];
+  int wide;                  // 0: int32 words, 1: int64 words
+  void* word;
+};
+
+__host__ __device__ inline int field_bits(int code) {
+  switch (code) {
+    case kBool: return 1;
+    case kU8: case kI8: return 8;
+    case kI16: return 16;
+    case kI32: case kF32: return 32;
+    default: return 64;
+  }
+}
+
+// A key's field: unsigned, in the order of the JAX package's sort codes.
+// Signed integers are offset by their minimum; an int64 is its two int32
+// words swapped, each offset, so the low word orders first as there
+// (bitcast_convert_type); a float is -0.0 as +0.0, its bits flipped so
+// that the unsigned order is the float order, and NaN the all-ones field
+// above +inf (the JAX package's isnan flag before the value).
+__device__ __forceinline__ unsigned long long key_field(int code, const void* data,
+                                                        long long r) {
+  switch (code) {
+    case kBool: return __ldg(static_cast<const unsigned char*>(data) + r) != 0;
+    case kU8: return __ldg(static_cast<const unsigned char*>(data) + r);
+    case kI8: return (unsigned long long)((int)__ldg(static_cast<const signed char*>(data) + r) + 128);
+    case kI16: return (unsigned long long)((int)__ldg(static_cast<const short*>(data) + r) + 32768);
+    case kI32: return (unsigned int)__ldg(static_cast<const int*>(data) + r) ^ 0x80000000u;
+    case kI64: {
+      const unsigned long long x = (unsigned long long)__ldg(static_cast<const long long*>(data) + r);
+      return ((x << 32) | (x >> 32)) ^ 0x8000000080000000ull;
+    }
+    case kF32: {
+      const float f = __ldg(static_cast<const float*>(data) + r);
+      if (isnan(f)) return 0xFFFFFFFFull;
+      const unsigned int b = f == 0.0f ? 0u : __float_as_uint(f);
+      return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+    }
+    default: {
+      const double f = __ldg(static_cast<const double*>(data) + r);
+      if (isnan(f)) return ~0ull;
+      const unsigned long long b = f == 0.0 ? 0ull : (unsigned long long)__double_as_longlong(f);
+      return (b >> 63) ? ~b : (b | (1ull << 63));
+    }
+  }
+}
+
+// One row a thread, grid-stride: the fields most significant first ("not
+// real", then per key its null flag and its field, zero where null), then
+// the word's top bit flipped so a signed sort orders it as unsigned.
+__global__ void __launch_bounds__(kThreads) sort_word_kernel(const __grid_constant__ WordParams p) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x; r < p.n; r += stride) {
+    unsigned long long u = 0;
+    if (p.unreal)
+      u = p.row_valid != nullptr ? __ldg(p.row_valid + r) == 0 : r >= p.nrows;
+    for (int k = 0; k < p.nkeys; ++k) {
+      const WordKey& key = p.key[k];
+      bool valid = true;
+      if (key.mask != nullptr) {
+        valid = __ldg(key.mask + r) != 0;
+        u = (u << 1) | (valid ? 0ull : 1ull);
+      }
+      const int bits = field_bits(key.code);
+      const unsigned long long f = valid ? key_field(key.code, key.data, r) : 0ull;
+      u = bits == 64 ? f : (u << bits) | f;
+    }
+    if (p.wide)
+      static_cast<long long*>(p.word)[r] = (long long)(u ^ (1ull << 63));
+    else
+      static_cast<int*>(p.word)[r] = (int)((unsigned int)u ^ 0x80000000u);
+  }
+}
+
+// ---- K2w: boundaries over the sorted words -------------------------------
+
+// words per 16-byte vector, and vectors per thread and tile
+template <typename W>
+constexpr int kVec = 16 / (int)sizeof(W);
+constexpr int kRounds = 4;
+template <typename W>
+constexpr int kWordTile = kThreads * kVec<W> * kRounds;
+
+template <typename W>
+struct WordBoundsParams {
+  long long n;
+  const W* sorted;          // the words in sorted order, 16-byte aligned
+  const long long* order;   // the sort's permutation
+  int has_limit;            // positions whose word is >= limit are not real
+  W limit;
+  int tiles;
+  int* block_sums;          // int32[tiles]: groups opened per tile, then offsets
+  W* uniq;                  // W[n]: the first count entries are the groups' words
+  int* first_idx;           // int32[n]: the first count entries, each group's first row
+  int* seg_sorted;          // int32[n]: group id in sorted order, -1 where not real
+  int* count;               // int32[1]
+};
+
+// V consecutive words from position i (a multiple of V): one 16-byte load,
+// or scalar loads at the ragged end. Returns how many lie below n.
+template <typename W>
+__device__ __forceinline__ int load_words(const W* p, long long i, long long n,
+                                          W (&w)[kVec<W>]) {
+  constexpr int V = kVec<W>;
+  if (i + V <= n) {
+    if constexpr (V == 4) {
+      const int4 x = __ldg(reinterpret_cast<const int4*>(p + i));
+      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+    } else {
+      const longlong2 x = __ldg(reinterpret_cast<const longlong2*>(p + i));
+      w[0] = x.x; w[1] = x.y;
+    }
+    return V;
+  }
+  const int m = i < n ? (int)(n - i) : 0;
+#pragma unroll
+  for (int j = 0; j < V; ++j) w[j] = j < m ? __ldg(p + i + j) : W(0);
+  return m;
+}
+
+// The group openings among the m words w from position i: a real position
+// opens a group where its word differs from the one before. Real positions
+// come first (the "not real" bit is the word's top field), so the one
+// before a real position is real too. Bit j of the result is position i+j.
+template <typename W>
+__device__ __forceinline__ unsigned int word_opens(const WordBoundsParams<W>& p, long long i,
+                                                   const W (&w)[kVec<W>], int m,
+                                                   unsigned int* real) {
+  unsigned int opens = 0, reals = 0;
+  W prev = i > 0 && m > 0 ? __ldg(p.sorted + i - 1) : W(0);
+#pragma unroll
+  for (int j = 0; j < kVec<W>; ++j) {
+    if (j >= m) break;
+    const bool is_real = !p.has_limit || w[j] < p.limit;
+    if (is_real) reals |= 1u << j;
+    if (is_real && (i + j == 0 || w[j] != prev)) opens |= 1u << j;
+    prev = w[j];
+  }
+  *real = reals;
+  return opens;
+}
+
+// Block-wide exclusive scan of one int a thread with warp shuffles; every
+// thread of the block must call it. *total is the block's sum.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
+  __shared__ int warp_sums[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int k = 0; k < kThreads / 32; ++k) {
+    const int s = warp_sums[k];
+    before += k < warp ? s : 0;
+    sum += s;
+  }
+  __syncthreads();  // warp_sums is written again by the next call
+  *total = sum;
+  return before + x - v;
+}
+
+// Pass 1: the groups each tile opens.
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+    word_count(const __grid_constant__ WordBoundsParams<W> p) {
+  constexpr int V = kVec<W>;
+  const long long base = (long long)blockIdx.x * kWordTile<W>;
+  int opened = 0;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const long long i = base + ((long long)r * kThreads + threadIdx.x) * V;
+    W w[V];
+    const int m = load_words(p.sorted, i, p.n, w);
+    unsigned int real = 0;
+    opened += __popc(word_opens(p, i, w, m, &real));
+  }
+  int total = 0;
+  block_exclusive_scan(opened, &total);
+  if (threadIdx.x == 0) p.block_sums[blockIdx.x] = total;
+}
+
+// Pass 3: the ids of the tile's positions from its offset, one vector a
+// thread and round; an opening position writes its group's word and
+// first row (the row at the group's first stable-sorted position, which is
+// the group's smallest row: the JAX package's segment_min over positions).
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+    word_scan(const __grid_constant__ WordBoundsParams<W> p) {
+  constexpr int V = kVec<W>;
+  const long long base = (long long)blockIdx.x * kWordTile<W>;
+  int run = p.block_sums[blockIdx.x];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const long long i = base + ((long long)r * kThreads + threadIdx.x) * V;
+    W w[V];
+    const int m = load_words(p.sorted, i, p.n, w);
+    unsigned int real = 0;
+    const unsigned int opens = word_opens(p, i, w, m, &real);
+    int total = 0;
+    int g = run + block_exclusive_scan(__popc(opens), &total);
+    int seg[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if ((opens >> j) & 1u) {
+        p.uniq[g] = w[j];
+        p.first_idx[g] = (int)__ldg(p.order + i + j);
+        ++g;
+      }
+      seg[j] = (real >> j) & 1u ? g - 1 : -1;
+    }
+    if (m == V) {
+      if constexpr (V == 4)
+        *reinterpret_cast<int4*>(p.seg_sorted + i) = make_int4(seg[0], seg[1], seg[2], seg[3]);
+      else
+        *reinterpret_cast<int2*>(p.seg_sorted + i) = make_int2(seg[0], seg[1]);
+    } else {
+      for (int j = 0; j < m; ++j) p.seg_sorted[i + j] = seg[j];
+    }
+    run += total;
+  }
+}
+
+// ---- K3w: row-order ids by lookup ----------------------------------------
+
+// the largest table a block takes in shared memory (227 KB), and what one
+// SM holds for its blocks (228 KB, 1 KB of it reserved per block)
+constexpr long long kMaxTableBytes = 227 * 1024;
+constexpr long long kSmBytes = 228 * 1024;
+
+template <typename W>
+struct LookupParams {
+  long long n;
+  const W* words;  // each row's word, row order, 16-byte aligned
+  const W* uniq;   // the num distinct words of the real rows, ascending
+  int num;
+  int has_limit;   // rows whose word is >= limit are not real
+  W limit;
+  int* seg;        // int32[n]: the row's group, num where it is not real
+};
+
+// words per row of the 32 4-byte banks; the shared copy of the table
+// skips one word after each row, so that the search's probes at strides
+// of a power of two (every level above the last five) fall in different
+// banks instead of all in one
+template <typename W>
+constexpr int kBankRow = 128 / (int)sizeof(W);
+template <typename W, bool kPadded>
+__device__ __forceinline__ int slot(int i) {
+  return kPadded ? i + i / kBankRow<W> : i;
+}
+// the words a padded table of num entries takes
+template <typename W>
+constexpr long long padded_words(long long num) {
+  return num + num / kBankRow<W>;
+}
+
+// V binary searches side by side (independent loads in flight): base[j]
+// becomes the last index whose word is <= w[j], which for a real row is
+// its own word's index. Every thread of a warp runs the same steps.
+template <typename W, int V, bool kPadded>
+__device__ __forceinline__ void search(const W* table, int num, const W (&w)[V], int (&base)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) base[j] = 0;
+  int len = num;
+  while (len > 1) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      base[j] = table[slot<W, kPadded>(base[j] + half)] <= w[j] ? base[j] + half : base[j];
+    len -= half;
+  }
+}
+
+// Persistent grid: each block copies the table into shared memory once
+// (kShared, padded), then strides over the rows a 16-byte vector a thread.
+template <typename W, bool kShared>
+__global__ void __launch_bounds__(kThreads)
+    word_lookup(const __grid_constant__ LookupParams<W> p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int V = kVec<W>;
+  const W* table = p.uniq;
+  if constexpr (kShared) {
+    W* t = reinterpret_cast<W*>(smem);
+    for (int g = threadIdx.x; g < p.num; g += kThreads) t[slot<W, true>(g)] = __ldg(p.uniq + g);
+    __syncthreads();
+    table = t;
+  }
+  const long long vecs = p.n / V;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long v = (long long)blockIdx.x * kThreads + threadIdx.x; v < vecs; v += stride) {
+    W w[V];
+    load_words(p.words, v * V, p.n, w);
+    int s[V];
+    search<W, V, kShared>(table, p.num, w, s);
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (p.has_limit && w[j] >= p.limit) s[j] = p.num;
+    if constexpr (V == 4)
+      *reinterpret_cast<int4*>(p.seg + v * V) = make_int4(s[0], s[1], s[2], s[3]);
+    else
+      *reinterpret_cast<int2*>(p.seg + v * V) = make_int2(s[0], s[1]);
+  }
+  // the ragged end, by the first threads of block 0
+  const long long r = vecs * V + threadIdx.x;
+  if (blockIdx.x == 0 && r < p.n) {
+    const W w[1] = {__ldg(p.words + r)};
+    int s[1];
+    search<W, 1, kShared>(table, p.num, w, s);
+    p.seg[r] = p.has_limit && w[0] >= p.limit ? p.num : s[0];
+  }
+}
+
+// The launches of K2w and K3w for one word type; the C entry points below
+// check their arguments.
+template <typename W>
+cudaError_t launch_word_boundaries(long long n, const void* sorted, const void* order,
+                                   int has_limit, long long limit, void* block_sums,
+                                   void* uniq, void* first_idx, void* seg_sorted,
+                                   void* count, cudaStream_t st) {
+  WordBoundsParams<W> p = {};
+  p.n = n;
+  p.sorted = static_cast<const W*>(sorted);
+  p.order = static_cast<const long long*>(order);
+  p.has_limit = has_limit;
+  p.limit = (W)limit;
+  p.tiles = (int)((n + kWordTile<W> - 1) / kWordTile<W>);
+  p.block_sums = static_cast<int*>(block_sums);
+  p.uniq = static_cast<W*>(uniq);
+  p.first_idx = static_cast<int*>(first_idx);
+  p.seg_sorted = static_cast<int*>(seg_sorted);
+  p.count = static_cast<int*>(count);
+  word_count<W><<<p.tiles, kThreads, 0, st>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sort_offsets<<<1, kThreads, 0, st>>>(p.block_sums, p.tiles, p.count);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  word_scan<W><<<p.tiles, kThreads, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename W>
+cudaError_t launch_word_lookup(long long n, const void* words, const void* uniq, int num,
+                               int has_limit, long long limit, void* seg, int sms,
+                               cudaStream_t st, int* path) {
+  const LookupParams<W> p = {n, static_cast<const W*>(words), static_cast<const W*>(uniq),
+                             num, has_limit, (W)limit, static_cast<int*>(seg)};
+  const long long threads = n / kVec<W> + 1;
+  const long long bytes = padded_words<W>(num) * (long long)sizeof(W);
+  if (bytes <= kMaxTableBytes) {
+    if (bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          word_lookup<W, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return err;
+    }
+    long long per_sm = kSmBytes / (bytes + 1024);
+    per_sm = per_sm < 1 ? 1 : per_sm > kMaxBlocksPerSm ? kMaxBlocksPerSm : per_sm;
+    word_lookup<W, true><<<grid_for(threads, kThreads, sms, (int)per_sm), kThreads,
+                           (size_t)bytes, st>>>(p);
+    *path = 1;
+  } else {
+    word_lookup<W, false><<<grid_for(threads, kThreads, sms, kMaxBlocksPerSm), kThreads, 0,
+                            st>>>(p);
+    *path = 2;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -396,7 +806,7 @@ extern "C" int fugue_sort_boundaries(
     sort_flags<<<p.tiles, kThreads, 0, st>>>(p);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    sort_offsets<<<1, kThreads, 0, st>>>(p);
+    sort_offsets<<<1, kThreads, 0, st>>>(p.block_sums, p.tiles, p.count);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     sort_scan<<<p.tiles, kThreads, 0, st>>>(p);
@@ -421,6 +831,97 @@ extern "C" int fugue_sort_finish(long long n, const void* seg_sorted,
     sort_finish<<<grid_for(n, kThreads, sms, kMaxBlocksPerSm), kThreads, 0, st>>>(p);
     return cudaGetLastError();
   });
+}
+
+// KW. Keys: nkeys columns of n rows, key_data[k] of dtype code
+// key_code[k] (bin_keys.cuh) with an optional bool mask key_mask[k]; rows
+// as for K1, and with unreal = 1 the word's top field marks the rows that
+// are not real. The fields (1 bit per mask and for unreal, 1 for bool, 8,
+// 16, 32 or 64 for the others) must fit the word: int32 (wide = 0) or
+// int64 (wide = 1). Writes word[n].
+extern "C" int fugue_sort_word(long long n, long long nrows, const void* row_valid,
+                               int unreal, int nkeys, const void* const* key_data,
+                               const void* const* key_mask, const int* key_code,
+                               int wide, void* word, int device, void* stream) {
+  if (n < 1 || n >= (1LL << 31) || nkeys < 1 || nkeys > kMaxWordKeys)
+    return (int)cudaErrorInvalidValue;
+  WordParams p = {};
+  int bits = unreal ? 1 : 0;
+  for (int k = 0; k < nkeys; ++k) {
+    if (key_code[k] < kBool || key_code[k] > kF64) return (int)cudaErrorInvalidValue;
+    p.key[k] = {key_data[k], static_cast<const uint8_t*>(key_mask[k]), key_code[k]};
+    bits += field_bits(key_code[k]) + (key_mask[k] != nullptr ? 1 : 0);
+  }
+  if (bits > (wide ? 64 : 32)) return (int)cudaErrorInvalidValue;
+  p.n = n;
+  p.nrows = nrows;
+  p.row_valid = static_cast<const uint8_t*>(row_valid);
+  p.unreal = unreal;
+  p.nkeys = nkeys;
+  p.wide = wide;
+  p.word = word;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&]() -> cudaError_t {
+    int sms = 0;
+    cudaError_t err = sm_count(device, &sms);
+    if (err != cudaSuccess) return err;
+    sort_word_kernel<<<grid_for(n, kThreads, sms, kMaxBlocksPerSm), kThreads, 0, st>>>(p);
+    return cudaGetLastError();
+  });
+}
+
+// K2w. sorted: the n words (width 4 or 8 bytes) in sorted order, 16-byte
+// aligned; order int64[n] the sort's permutation. With has_limit, the
+// positions whose word is >= limit are not real (they sort last). Scratch:
+// block_sums int32[ceil(n / 2048)]. Writes uniq[n] and first_idx int32[n]
+// (their first count entries: each group's word and first row),
+// seg_sorted int32[n] and count int32[1].
+extern "C" int fugue_sort_word_boundaries(long long n, int width, const void* sorted,
+                                          const void* order, int has_limit, long long limit,
+                                          void* block_sums, void* uniq, void* first_idx,
+                                          void* seg_sorted, void* count, int device,
+                                          void* stream) {
+  if (n < 1 || n >= (1LL << 31) || (width != 4 && width != 8) ||
+      reinterpret_cast<uintptr_t>(sorted) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(seg_sorted) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&]() -> cudaError_t {
+    if (width == 4)
+      return launch_word_boundaries<int>(n, sorted, order, has_limit, limit, block_sums,
+                                         uniq, first_idx, seg_sorted, count, st);
+    return launch_word_boundaries<long long>(n, sorted, order, has_limit, limit, block_sums,
+                                             uniq, first_idx, seg_sorted, count, st);
+  });
+}
+
+// K3w. words: each row's word (width 4 or 8 bytes), row order, 16-byte
+// aligned; uniq: the num distinct words of the real rows, ascending, as
+// K2w writes them; has_limit and limit as for K2w. Writes seg int32[n]
+// (16-byte aligned). *path is 1 when the table was searched in shared
+// memory, 2 in global memory.
+extern "C" int fugue_sort_word_lookup(long long n, int width, const void* words,
+                                      const void* uniq, int num, int has_limit,
+                                      long long limit, void* seg, int device,
+                                      void* stream, int* path) {
+  *path = 0;
+  if (n < 1 || n >= (1LL << 31) || (width != 4 && width != 8) || num < 0 || num > n ||
+      reinterpret_cast<uintptr_t>(words) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(seg) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int taken = 0;
+  const int err = on_device(device, [&]() -> cudaError_t {
+    int sms = 0;
+    cudaError_t e = sm_count(device, &sms);
+    if (e != cudaSuccess) return e;
+    if (width == 4)
+      return launch_word_lookup<int>(n, words, uniq, num, has_limit, limit, seg, sms, st, &taken);
+    return launch_word_lookup<long long>(n, words, uniq, num, has_limit, limit, seg, sms, st,
+                                         &taken);
+  });
+  if (err == 0) *path = taken;
+  return err;
 }
 
 // The message of a cudaError_t, for the wrappers' exceptions.

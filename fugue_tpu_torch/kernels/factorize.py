@@ -4,15 +4,23 @@ PyTorch's current stream.
 
 - ``bin_factorize_cuda`` (K1): segment ids, first row per bin, occupied
   bins and the group count of a binned key set;
+- ``sort_word_cuda`` (KW): one order-preserving sort word per row;
+- ``sort_word_boundaries_cuda`` (K2w): from the sorted words and the
+  sort's order, the sorted segment ids, each group's word and first row,
+  and the group count;
+- ``sort_word_lookup_cuda`` (K3w): segment ids in row order, by a search
+  of each row's word among the groups' words;
 - ``sort_boundaries_cuda`` (K2): sorted segment ids and the group count
-  from the sort codes and the sort's order;
-- ``sort_finish_cuda`` (K3): segment ids in row order and the first row of
-  each group.
+  from the sort codes of a key too wide for one word and the sort's order;
+- ``sort_finish_cuda`` (K3): segment ids in row order (a scatter) and the
+  first row of each group.
 
 Each has the contract of its twin in ``reference.py``. Each wrapper's
 ``launches`` grows by one where it launches its kernel and nowhere else;
 ``bin_factorize_cuda.last_path`` names the path of its last launch,
-``"shared"`` or ``"global"`` (where the bins' first rows were taken)."""
+``"shared"`` or ``"global"`` (where the bins' first rows were taken), and
+``sort_word_lookup_cuda.last_path`` likewise where the table was
+searched."""
 
 import ctypes
 from typing import Optional, Sequence, Tuple
@@ -20,9 +28,20 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from fugue_tpu_torch.kernels import build
-from fugue_tpu_torch.kernels.reference import MAX_KEYS, BinKey, bin_total
+from fugue_tpu_torch.kernels.reference import (
+    MAX_KEYS,
+    BinKey,
+    Payload,
+    SortWord,
+    bin_total,
+    has_unreal_rows,
+    real_below,
+    word_bits,
+)
 
 MAX_CODES = 16  # sort codes per K2 launch
+MAX_WORD_KEYS = 16  # key columns per KW launch
+_WORD_TILE = 2048  # the fewest K2w positions per block (int64 words)
 _TILE = 4096  # K2 positions per block
 _PATHS = {1: "shared", 2: "global"}
 # dtype codes of bin_keys.cuh
@@ -30,6 +49,8 @@ _CODES = {
     torch.bool: 0, torch.uint8: 1, torch.int8: 2, torch.int16: 3,
     torch.int32: 4, torch.int64: 5,
 }
+_WORD_CODES = {**_CODES, torch.float32: 6, torch.float64: 7}
+_WORD_DTYPES = (torch.int32, torch.int64)
 _CODE_DTYPES = {4: (torch.int32, torch.float32), 8: (torch.int64, torch.float64)}
 
 
@@ -51,7 +72,23 @@ def _bind() -> ctypes.CDLL:
             i, p,  # device, stream
         ]
         lib.fugue_sort_finish.argtypes = [ll, p, p, i, p, p, i, p]
-        for fn in (lib.fugue_bin_factorize, lib.fugue_sort_boundaries, lib.fugue_sort_finish):
+        lib.fugue_sort_word.argtypes = [
+            ll, ll, p, i,  # n, nrows, row_valid, unreal
+            i, pp, pp, ip,  # nkeys, key data, masks, codes
+            i, p, i, p,  # wide, word, device, stream
+        ]
+        lib.fugue_sort_word_boundaries.argtypes = [
+            ll, i, p, p, i, ll,  # n, width, sorted, order, has_limit, limit
+            p, p, p, p, p,  # block_sums, uniq, first_idx, seg_sorted, count
+            i, p,  # device, stream
+        ]
+        lib.fugue_sort_word_lookup.argtypes = [
+            ll, i, p, p, i, i, ll, p,  # n, width, words, uniq, num, has_limit, limit, seg
+            i, p, ip,  # device, stream, path
+        ]
+        for fn in (lib.fugue_bin_factorize, lib.fugue_sort_boundaries, lib.fugue_sort_finish,
+                   lib.fugue_sort_word, lib.fugue_sort_word_boundaries,
+                   lib.fugue_sort_word_lookup):
             fn.restype = i
         lib.fugue_factorize_error_string.argtypes = [i]
         lib.fugue_factorize_error_string.restype = ctypes.c_char_p
@@ -234,3 +271,141 @@ def sort_finish_cuda(
 
 
 sort_finish_cuda.launches = 0  # type: ignore[attr-defined]
+
+
+def _check_aligned16(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16 != 0:
+        raise ValueError(f"{name} is not 16-byte aligned: the kernel reads it in 16-byte vectors")
+
+
+def sort_word_cuda(
+    keys: Sequence[Payload],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> SortWord:
+    """KW, with the contract of ``reference.sort_word_reference``: the
+    sort word of ``keys`` (each dense 1-D CUDA values of bool, uint8,
+    int8-64 or float32/64 and an optional dense bool mask), int32 when
+    its fields fit 32 bits, int64 when they fit 64; raises over 64 bits."""
+    if not 1 <= len(keys) <= MAX_WORD_KEYS:
+        raise ValueError(f"{len(keys)} keys: the kernel takes 1 to {MAX_WORD_KEYS}")
+    _require_cuda(keys[0][0], "sort_word_cuda")
+    device = keys[0][0].device
+    n = int(keys[0][0].shape[0])
+    nrows_arg = _check_rows(n, nrows, row_valid, device)
+    for j, (v, mask) in enumerate(keys):
+        _check(v, f"key {j}", tuple(_WORD_CODES), n, device)
+        if mask is not None:
+            _check(mask, f"key {j} mask", (torch.bool,), n, device)
+    unreal = has_unreal_rows(n, nrows, row_valid)
+    bits = word_bits(keys, unreal)
+    if bits > 64:
+        raise ValueError(f"the keys take {bits} bits: a sort word holds 64")
+    wide = bits > 32
+    word = torch.empty((n,), dtype=torch.int64 if wide else torch.int32, device=device)
+    lib = _bind()
+    index, stream = _device_and_stream(device)
+    err = lib.fugue_sort_word(
+        n, max(nrows_arg, 0), None if row_valid is None else row_valid.data_ptr(), int(unreal),
+        len(keys), _ptrs([v for v, _ in keys]), _ptrs([m for _, m in keys]),
+        (ctypes.c_int * len(keys))(*[_WORD_CODES[v.dtype] for v, _ in keys]),
+        int(wide), word.data_ptr(), index, stream,
+    )
+    _raise_on(lib, err, "sort_word")
+    sort_word_cuda.launches += 1
+    return SortWord(word, real_below(bits) if unreal else None)
+
+
+sort_word_cuda.launches = 0  # type: ignore[attr-defined]
+
+
+def _limit_args(words: torch.Tensor, limit: Optional[int]) -> Tuple[int, int]:
+    """``(has_limit, limit)`` of a K2w/K3w launch, the limit within the
+    word's type."""
+    if limit is None:
+        return 0, 0
+    info = torch.iinfo(words.dtype)
+    if not info.min <= int(limit) <= info.max:
+        raise ValueError(f"real_below {limit} outside {words.dtype}")
+    return 1, int(limit)
+
+
+def sort_word_boundaries_cuda(
+    sorted_words: torch.Tensor,
+    order: torch.Tensor,
+    *,
+    real_below: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2w, with the contract of
+    ``reference.sort_word_boundaries_reference``: ``(uniq, first_idx,
+    seg_sorted, count)``. ``sorted_words`` is a dense, 16-byte aligned
+    int32/int64 CUDA tensor in sorted order (``torch.sort``'s values),
+    ``order`` the dense int64 permutation it came with."""
+    _require_cuda(sorted_words, "sort_word_boundaries_cuda")
+    device = sorted_words.device
+    n = int(sorted_words.shape[0])
+    if not 1 <= n < 2**31:
+        raise ValueError(f"{n} rows: the kernels take 1 to 2^31 - 1")
+    _check(sorted_words, "sorted_words", _WORD_DTYPES, n, device)
+    _check(order, "order", (torch.int64,), n, device)
+    _check_aligned16(sorted_words, "sorted_words")
+    has_limit, limit = _limit_args(sorted_words, real_below)
+    block_sums = torch.empty((-(-n // _WORD_TILE),), dtype=torch.int32, device=device)
+    uniq = torch.empty_like(sorted_words)
+    first_idx = torch.empty((n,), dtype=torch.int32, device=device)
+    seg_sorted = torch.empty((n,), dtype=torch.int32, device=device)
+    count = torch.empty((), dtype=torch.int32, device=device)
+    lib = _bind()
+    index, stream = _device_and_stream(device)
+    err = lib.fugue_sort_word_boundaries(
+        n, sorted_words.element_size(), sorted_words.data_ptr(), order.data_ptr(),
+        has_limit, limit, block_sums.data_ptr(), uniq.data_ptr(), first_idx.data_ptr(),
+        seg_sorted.data_ptr(), count.data_ptr(), index, stream,
+    )
+    _raise_on(lib, err, "sort_word_boundaries")
+    sort_word_boundaries_cuda.launches += 1
+    return uniq, first_idx, seg_sorted, count
+
+
+sort_word_boundaries_cuda.launches = 0  # type: ignore[attr-defined]
+
+
+def sort_word_lookup_cuda(
+    words: torch.Tensor,
+    uniq: torch.Tensor,
+    num: int,
+    *,
+    real_below: Optional[int] = None,
+) -> torch.Tensor:
+    """K3w, with the contract of ``reference.sort_word_lookup_reference``:
+    ``seg`` int32[n]. ``words`` is the dense, 16-byte aligned row-order
+    sort word, ``uniq`` K2w's distinct words (at least ``num`` of them,
+    dense, of the same dtype)."""
+    _require_cuda(words, "sort_word_lookup_cuda")
+    device = words.device
+    n = int(words.shape[0])
+    if not 1 <= n < 2**31:
+        raise ValueError(f"{n} rows: the kernels take 1 to 2^31 - 1")
+    _check(words, "words", _WORD_DTYPES, n, device)
+    _check_aligned16(words, "words")
+    if not 0 <= num <= min(n, int(uniq.shape[0])):
+        raise ValueError(f"num {num} outside [0, {min(n, int(uniq.shape[0]))}]")
+    _check(uniq, "uniq", (words.dtype,), int(uniq.shape[0]), device)
+    has_limit, limit = _limit_args(words, real_below)
+    seg = torch.empty((n,), dtype=torch.int32, device=device)
+    lib = _bind()
+    index, stream = _device_and_stream(device)
+    path = ctypes.c_int(0)
+    err = lib.fugue_sort_word_lookup(
+        n, words.element_size(), words.data_ptr(), uniq.data_ptr(), num, has_limit, limit,
+        seg.data_ptr(), index, stream, ctypes.byref(path),
+    )
+    _raise_on(lib, err, "sort_word_lookup")
+    sort_word_lookup_cuda.launches += 1
+    sort_word_lookup_cuda.last_path = _PATHS[path.value]
+    return seg
+
+
+sort_word_lookup_cuda.launches = 0  # type: ignore[attr-defined]
+sort_word_lookup_cuda.last_path = None  # type: ignore[attr-defined]

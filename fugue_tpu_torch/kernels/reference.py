@@ -267,3 +267,173 @@ def sort_factorize_reference(
     num = int(count)
     seg, first_idx = sort_finish_reference(seg_sorted, order, num)
     return seg, first_idx, num
+
+
+# the bits of each key dtype's field in the sort word
+_FIELD_BITS = {
+    torch.bool: 1, torch.uint8: 8, torch.int8: 8, torch.int16: 16, torch.int32: 32,
+    torch.float32: 32, torch.int64: 64, torch.float64: 64,
+}
+_INT64_TOP = -(2**63)
+_INT64_WORDS_TOP = -(2**63) + 2**31  # the top bit of both int32 words of an int64
+
+
+class SortWord(NamedTuple):
+    """One order-preserving sort word per row, and the rows it marks as
+    not real.
+
+    - ``word``: int32 or int64 per row; a signed sort of it orders the rows
+      as the JAX package's lexicographic sort of its key codes, real rows
+      first;
+    - ``real_below``: the rows whose word is ``>= real_below`` are not
+      real; None where every row is."""
+
+    word: torch.Tensor
+    real_below: Optional[int]
+
+
+def word_bits(keys: Sequence[Payload], unreal: bool) -> int:
+    """The bits of the sort word of ``keys`` (each its values and null
+    mask): 1 for ``unreal`` (the frame has rows that are not real), and
+    per key 1 for a null mask, 1 for bool, 8 for int8/uint8, 16 for int16,
+    32 for int32/float32, 64 for int64/float64."""
+    bits = int(unreal)
+    for v, mask in keys:
+        if v.dtype not in _FIELD_BITS:
+            raise ValueError(f"no sort word field for dtype {v.dtype}")
+        bits += _FIELD_BITS[v.dtype] + (mask is not None)
+    return bits
+
+
+def has_unreal_rows(n: int, nrows: Optional[int], row_valid: Optional[torch.Tensor]) -> bool:
+    """Whether a frame of ``n`` padded rows may hold rows that are not
+    real: a masked frame, or a prefix frame with ``nrows`` below ``n``."""
+    if (nrows is None) == (row_valid is None):
+        raise ValueError("pass exactly one of nrows (prefix rows) and row_valid")
+    return row_valid is not None or int(nrows) < n  # type: ignore[arg-type]
+
+
+def real_below(bits: int) -> int:
+    """The smallest signed word whose top field (of a ``bits``-bit word)
+    is set: the "not real" bit's threshold. Flipping the container's top
+    bit maps the unsigned field value ``u`` to ``u - 2^(C - 1)``."""
+    container = 32 if bits <= 32 else 64
+    return (1 << (bits - 1)) - (1 << (container - 1))
+
+
+def _word_field(v: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """A key's field of the sort word as the unsigned bits in an int64,
+    and its width: integers offset by their type's minimum; an int64 as its
+    two int32 words swapped, each offset (the low word orders first, as
+    ``bitcast_convert_type`` has it); a float with -0.0 as +0.0 and its
+    bits flipped to order as unsigned, NaN as all ones (above +inf)."""
+    width = _FIELD_BITS[v.dtype]
+    if v.dtype in (torch.bool, torch.uint8):
+        return v.to(torch.int64), width
+    if v.dtype in (torch.int8, torch.int16, torch.int32):
+        return v.to(torch.int64) + (1 << (width - 1)), width
+    if v.dtype == torch.int64:
+        return ((v << 32) | ((v >> 32) & 0xFFFFFFFF)) ^ _INT64_WORDS_TOP, width
+    canon = torch.where(v == 0, torch.zeros_like(v), v)
+    if v.dtype == torch.float32:
+        b = canon.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        f = torch.where(b >= 2**31, b ^ 0xFFFFFFFF, b | 2**31)
+        return torch.where(torch.isnan(v), 0xFFFFFFFF, f), width
+    b = canon.view(torch.int64)
+    f = torch.where(b < 0, ~b, b ^ _INT64_TOP)
+    return torch.where(torch.isnan(v), -1, f), width
+
+
+def sort_word_reference(
+    keys: Sequence[Payload],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> SortWord:
+    """The sort word of ``keys``: the twin of KW in ``factorize.cu``, in
+    the order of the JAX package's sort codes (``_sort_factorize``,
+    ``fugue_tpu/jax_backend/groupby.py:507-546``) and its validity sort.
+
+    ``keys``: each its values (bool, uint8, int8-64, float32/64) and null
+    mask (True = valid). The fields, most significant first: "not real"
+    where the frame may hold such rows (``has_unreal_rows``), then per key
+    its null flag (a masked key) and its field (``_word_field``), zero
+    where null. The word is an int32 when the fields take at most 32 bits,
+    an int64 at most 64, with its top bit flipped so that a signed sort
+    orders it as unsigned. Raises ``ValueError`` over 64 bits."""
+    n = int(keys[0][0].shape[0])
+    device = keys[0][0].device
+    unreal = has_unreal_rows(n, nrows, row_valid)
+    bits = word_bits(keys, unreal)
+    if bits > 64:
+        raise ValueError(f"the keys take {bits} bits: a sort word holds 64")
+    u = torch.zeros((n,), dtype=torch.int64, device=device)
+    if unreal:
+        u = (~materialize_validity(row_valid, n, nrows, device)).to(torch.int64)
+    for v, mask in keys:
+        f, width = _word_field(v)
+        if mask is not None:
+            u = (u << 1) | (~mask).to(torch.int64)
+            f = torch.where(mask, f, 0)
+        u = f if width == 64 else (u << width) | f
+    word = (u - 2**31).to(torch.int32) if bits <= 32 else u ^ _INT64_TOP
+    return SortWord(word, real_below(bits) if unreal else None)
+
+
+def sort_word_boundaries_reference(
+    sorted_words: torch.Tensor,
+    order: torch.Tensor,
+    *,
+    real_below: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Group boundaries over sorted words: the twin of K2w in
+    ``factorize.cu`` and of the boundary-and-scan tail of the JAX
+    package's ``_sort_factorize_core`` (``fugue_tpu/jax_backend/groupby.py:554``).
+
+    ``sorted_words`` int32/int64[n] is ``SortWord.word`` in its sorted
+    order, ``order`` int64[n] the sort's permutation; a position is real
+    where its word is below ``real_below`` (every position where None), and
+    a real position opens a group where its word differs from the one
+    before. Returns ``(uniq, first_idx, seg_sorted, count)``: ``uniq``
+    [n] and ``first_idx`` int32[n], whose first ``count`` entries are each
+    group's word and first row (the row at its first sorted position; the
+    rest is unspecified: zeros here); ``seg_sorted`` int32[n], the group
+    of each sorted position, -1 where it is not real; ``count`` the
+    groups, an int32 0-d tensor."""
+    n = int(sorted_words.shape[0])
+    if real_below is None:
+        real = torch.ones((n,), dtype=torch.bool, device=sorted_words.device)
+    else:
+        real = sorted_words < real_below
+    opens = real.clone()
+    opens[1:] &= sorted_words[1:] != sorted_words[:-1]
+    seg_sorted = torch.where(real, torch.cumsum(opens, 0, dtype=torch.int32) - 1, -1)
+    count = opens.sum(dtype=torch.int32)
+    num = int(count)
+    uniq = torch.zeros_like(sorted_words)
+    uniq[:num] = sorted_words[opens]
+    first_idx = torch.zeros((n,), dtype=torch.int32, device=sorted_words.device)
+    first_idx[:num] = order[opens].to(torch.int32)
+    return uniq, first_idx, seg_sorted.to(torch.int32), count
+
+
+def sort_word_lookup_reference(
+    words: torch.Tensor,
+    uniq: torch.Tensor,
+    num: int,
+    *,
+    real_below: Optional[int] = None,
+) -> torch.Tensor:
+    """Group ids in row order by lookup: the twin of K3w in
+    ``factorize.cu`` and, with ``first_idx`` from K2w, of the JAX
+    package's ``_sort_factorize_finish``
+    (``fugue_tpu/jax_backend/groupby.py:582``).
+
+    ``words`` is ``SortWord.word`` in row order, ``uniq`` K2w's distinct
+    words (the first ``num`` entries are read). Returns ``seg`` int32[n]:
+    each real row's index among them, ``num`` where the row is not real
+    (its word is at or above ``real_below``)."""
+    seg = torch.searchsorted(uniq[:num].contiguous(), words).to(torch.int32)
+    if real_below is not None:
+        seg = torch.where(words < real_below, seg, num)
+    return seg

@@ -12,10 +12,15 @@ there:
   occupancy of each bin (kernel K1 of ``kernels/factorize.cu``). Empty
   bins are dropped lazily through an occupancy mask.
 - **Sort** (``factorize_keys`` for float keys, int64 keys over more than
-  ``_MAX_BINS`` bins and the like): stable sorts of the key codes with
-  ``torch.sort``, then kernels K2 (group boundaries and their scan) and K3
-  (ids back to row order, first row per group), with one readback of the
-  group count.
+  ``_MAX_BINS`` bins and the like), with one readback of the group count.
+  Keys whose codes fit one 64-bit word take the *word route*: kernel KW
+  packs them into one order-preserving int32/int64 word a row, one stable
+  ``torch.sort`` orders it, K2w finds the group boundaries over the sorted
+  words and K3w gives each row its id by a search of its own word among
+  the groups' words (above ``LOOKUP_MAX_GROUPS`` groups, K3 scatters the
+  sorted ids instead). Wider keys take the *wide route*: one stable sort
+  per key code, K2 (boundaries over the codes gathered at the order) and
+  K3 (the scatter back to row order).
 
 The JAX package's other segment-sum strategies (one-hot matmul, bf16
 matmul, sorted scatter) were built for the TPU's matrix unit and are not
@@ -32,20 +37,50 @@ from fugue_tpu_torch.kernels.factorize import (
     bin_factorize_cuda,
     sort_boundaries_cuda,
     sort_finish_cuda,
+    sort_word_boundaries_cuda,
+    sort_word_cuda,
+    sort_word_lookup_cuda,
 )
 from fugue_tpu_torch.kernels.reference import (
     MAX_KEYS,
     BinKey,
     Payload,
+    SortWord,
     bin_factorize_reference,
     bin_segments,
     binned_sums_reference,
+    has_unreal_rows,
     sort_factorize_reference,
+    sort_finish_reference,
+    sort_word_boundaries_reference,
+    sort_word_lookup_reference,
+    sort_word_reference,
+    word_bits,
 )
 from fugue_tpu_torch.kernels.segment_sums import binned_sums_cuda
 from fugue_tpu_torch.torch_backend.blocks import TorchBlocks
 
 _MAX_BINS = 1 << 22  # static-binning cap (``groupby.py:451``)
+# K3's route on the word route, by the group count alone: up to this, K3w
+# searches each row's word among the groups' words (in shared memory while
+# they fit in 227 KB, else in global memory through L2); above it, K3
+# scatters K2w's sorted ids to row order. On an H100 at 100M rows
+# (``chip_smoke.k3_routes``, three runs; PERF.md) the lookup over int32
+# words takes 0.38 ms at 1024 groups, 3.9 at 2^16, 6.4-6.9 at 2^19,
+# 7.4-8.0 at 2^20, 8.4-8.9 at 2^21 and 32 at 10^8, the scatter 7.4-7.8 ms
+# at every count; int64 words cross at 2^20 too. The bound sits below the
+# tie at 2^20.
+LOOKUP_MAX_GROUPS = 1 << 19
+
+
+def _kernel(t: torch.Tensor, cuda: Any, twin: Any, what: str) -> Any:
+    """``cuda`` (the kernel's wrapper) for a CUDA tensor, ``twin`` (its
+    plain version) for a CPU tensor; there is no fallback between them."""
+    if t.device.type == "cuda":
+        return cuda
+    if t.device.type == "cpu":
+        return twin
+    raise NotImplementedError(f"{what} on {t.device}")
 
 
 class BinSpec(NamedTuple):
@@ -190,14 +225,9 @@ def binned_sums(
     ``kernels.reference.binned_sums_reference``. CUDA keys go to the fused
     kernel, CPU keys to its plain twin; there is no fallback between
     them."""
-    args = dict(nrows=nrows, row_valid=row_valid, floats=floats, counts=counts,
-                ints=ints, occupancy=occupancy)
-    device = keys[0].data.device
-    if device.type == "cuda":
-        return binned_sums_cuda(keys, **args)  # type: ignore[arg-type]
-    if device.type == "cpu":
-        return binned_sums_reference(keys, **args)  # type: ignore[arg-type]
-    raise NotImplementedError(f"binned sums on {device}")
+    run = _kernel(keys[0].data, binned_sums_cuda, binned_sums_reference, "binned sums")
+    return run(keys, nrows=nrows, row_valid=row_valid, floats=floats, counts=counts,
+               ints=ints, occupancy=occupancy)
 
 
 def segment_sums(
@@ -288,12 +318,9 @@ def bin_factorize(
     row_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 on CUDA keys, its twin ``bin_factorize_reference`` on CPU keys."""
-    device = keys[0].data.device
-    if device.type == "cuda":
-        return bin_factorize_cuda(keys, nrows=nrows, row_valid=row_valid)
-    if device.type == "cpu":
-        return bin_factorize_reference(keys, nrows=nrows, row_valid=row_valid)
-    raise NotImplementedError(f"bin factorization on {device}")
+    run = _kernel(keys[0].data, bin_factorize_cuda, bin_factorize_reference,
+                  "bin factorization")
+    return run(keys, nrows=nrows, row_valid=row_valid)
 
 
 def sort_codes(
@@ -348,13 +375,56 @@ def lex_order(
     return order[torch.sort(unreal, stable=True).indices]
 
 
-def sort_factorize(
+def sort_word(
+    keys: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> Optional[SortWord]:
+    """The keys (each its values and null mask) packed into one
+    order-preserving sort word per row (``reference.sort_word_reference``
+    has the layout): a signed sort of it orders the rows as the
+    lexicographic sort of ``sort_codes`` then validity (``lex_order``).
+    None when its fields take more than 64 bits, which depends on the
+    keys' dtypes and masks and the frame's layout alone. KW on CUDA keys,
+    its twin on CPU keys."""
+    n = int(keys[0][0].shape[0])
+    if word_bits(keys, has_unreal_rows(n, nrows, row_valid)) > 64:
+        return None
+    build = _kernel(keys[0][0], sort_word_cuda, sort_word_reference, "sort word")
+    return build(keys, nrows=nrows, row_valid=row_valid)
+
+
+def word_factorize(sw: SortWord) -> Tuple[torch.Tensor, torch.Tensor, int, str]:
+    """``(seg, first_idx, num, k3_route)`` of the word route: one stable
+    ``torch.sort`` of the word, K2w over the sorted words, the readback of
+    the group count, then, by the group count alone, K3w (``"lookup"``)
+    or K3 over K2w's sorted ids (``"scatter"``); the kernels on CUDA, the
+    twins on the CPU."""
+    sorted_words, order = torch.sort(sw.word, stable=True)
+    boundaries = _kernel(order, sort_word_boundaries_cuda, sort_word_boundaries_reference,
+                         "sort word boundaries")
+    uniq, first_idx, seg_sorted, count = boundaries(
+        sorted_words, order, real_below=sw.real_below
+    )
+    num = int(count)  # the sort path's one readback (groupby.py:548)
+    if num <= LOOKUP_MAX_GROUPS:
+        lookup = _kernel(order, sort_word_lookup_cuda, sort_word_lookup_reference,
+                         "sort word lookup")
+        seg = lookup(sw.word, uniq, num, real_below=sw.real_below)
+        return seg, first_idx[:num].clone(), num, "lookup"
+    finish = _kernel(order, sort_finish_cuda, sort_finish_reference, "sort finish")
+    seg, first_idx = finish(seg_sorted, order, num)
+    return seg, first_idx, num, "scatter"
+
+
+def wide_factorize(
     codes: Sequence[torch.Tensor],
     *,
     nrows: Optional[int] = None,
     row_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """``(seg, first_idx, num)`` of the sort path: ``lex_order``, then K2
+    """``(seg, first_idx, num)`` of the wide route: ``lex_order``, then K2
     and K3 with one readback of the group count between them (CUDA), or
     their twins (CPU)."""
     order = lex_order(codes, nrows=nrows, row_valid=row_valid)
@@ -368,10 +438,36 @@ def sort_factorize(
     raise NotImplementedError(f"sort factorization on {order.device}")
 
 
+def sort_factorize(
+    keys: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``(seg, first_idx, num)`` of the sort path over ``keys`` (each its
+    values and null mask): the word route where ``sort_word`` packs them,
+    else the wide route over ``sort_codes``. Both give the JAX package's
+    ids, first rows and group order. ``sort_factorize.last_route`` names
+    the route taken: ``"word32/lookup"``, ``"word32/scatter"``,
+    ``"word64/lookup"``, ``"word64/scatter"`` or ``"wide"``."""
+    sw = sort_word(keys, nrows=nrows, row_valid=row_valid)
+    if sw is None:
+        seg, first_idx, num = wide_factorize(sort_codes(keys), nrows=nrows, row_valid=row_valid)
+        route = "wide"
+    else:
+        seg, first_idx, num, k3 = word_factorize(sw)
+        route = f"word{8 * sw.word.element_size()}/{k3}"
+    sort_factorize.last_route = route  # type: ignore[attr-defined]
+    return seg, first_idx, num
+
+
+sort_factorize.last_route = None  # type: ignore[attr-defined]
+
+
 def _sort_factorize(blocks: TorchBlocks, keys: List[str]) -> Factorized:
     """``groupby.py:507``: the general path for keys with no bin spec."""
     cols = [(blocks.columns[k].data, blocks.columns[k].mask) for k in keys]
-    seg, first_idx, num = sort_factorize(sort_codes(cols), **frame_rows(blocks))
+    seg, first_idx, num = sort_factorize(cols, **frame_rows(blocks))
     return Factorized(
         seg, num, first_idx, None,
         torch.tensor(num, dtype=torch.int32, device=blocks.device),

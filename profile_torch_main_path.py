@@ -6,9 +6,11 @@
 Builds each path of ``chip_smoke.py`` at 100M rows: the headline
 (transform, then the binned aggregate; 1024 groups, seed 42), the
 partitioned transform of ``BASELINE.json``'s second configuration (512
-groups, seed 1) and the sort-path aggregate on the float32 and on the
-wide int64 key. Each is warmed up with two runs, then run ``RUNS`` times
-under ``torch.profiler``; for each the script prints one JSON object: the
+groups, seed 1) and the sort-path aggregate on the float32 key, the wide
+int64 key and the two as one key pair over 1024 groups, and on the
+float32 key over 2^18 and 2^20 groups. Each is warmed up with two runs,
+then run ``RUNS`` times under ``torch.profiler``; for each the script
+prints one JSON object: the
 wall seconds per run, the device's busy and idle share of that wall time
 (busy = the summed time of the kernels and copies the card ran), and the
 device time of each kernel or copy, largest first. The profiler's full
@@ -87,8 +89,14 @@ def main() -> None:
         del run_once
         torch.cuda.empty_cache()
         run_for = chip_smoke.build_sort_path(device, rows, groups, seed)[0]
-        for name, _, _ in chip_smoke.SORT_PATH_CASES:
+        for name in chip_smoke.SORT_PATH_CASES:
             profile_path(f"sort_path_{name}", run_for(name), device, table)
+        for many in (1 << 18, 1 << 20):
+            del run_for
+            torch.cuda.empty_cache()
+            run_for = chip_smoke.build_sort_path(device, rows, many, seed)[0]
+            profile_path(f"sort_path_float_key_{many}_groups", run_for("float_key"), device,
+                         table)
 
 
 if __name__ == "__main__":
