@@ -22,7 +22,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``bin_factorize_cases`` and the sort path's kernels in every case of
    ``sort_cases`` (``sort_vs_twin``: KW, K2w, K3w and K3 on the word
    route, K2 and K3 on the wide route), up to 100M rows, with each case's
-   route printed.
+   route printed. Then K4 ``segment_extrema`` bit for bit and K5
+   ``segment_sq_dev`` within rtol 1e-10 in every case of ``reduce_cases``
+   (every payload dtype, masked payloads, NaN, -0.0, +0.0 and infinities,
+   prefix and masked frames, one segment, 2^20 segments in global tables,
+   more payloads than one launch takes), up to 100M rows.
 4. paths through the entry points, each with every launch count zeroed
    just before its cold run and read just after, checked against numpy:
    the main path (100M rows, an int32 key over 1024 groups and a float32
@@ -33,16 +37,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    sort-path aggregate at 100M rows over 1024 groups on a float32 key and
    an int64 key (the word route: KW, K2w, K3w once each), on the two as
    one key pair (the wide route: K2, K3) and over 2^18 and 2^20 float32
-   groups (K3w with its table in global memory; K3's scatter), each cold
-   run split into stages (``StageTimer``). Each reports cold and best-of-5
-   warm seconds, rows/s, peak device memory and, on the sort path, its
-   route.
+   groups (K3w with its table in global memory; K3's scatter); the full
+   group-by at 100M rows (the headline frame and UDF with an int32 ``u``
+   over [0, 10000) passed through; sum, count(*), min, max, first, last,
+   stddev, var_pop, median of ``v2`` and count/sum DISTINCT of ``u``, by
+   ``k`` and with no key: K1, the word route of the (k, u) pairs, the fused
+   sums twice, K4, K5 and the median's sort word), checked against a
+   float64 numpy oracle at the full size. Each cold run is split into
+   stages (``StageTimer``). Each reports cold and best-of-5 warm seconds,
+   rows/s, peak device memory and, on the sort path, its route.
 5. timing with CUDA events at the paths' shapes: each kernel beside its
    plain twin, one PyTorch call computing the same function where there
    is one, and its bound from the bytes it must move; the fused kernel's
    variant sweep and one-group shape; ``torch.sort`` of the int32 and
    int64 sort words; and K3's two routes over 1024 to 10^8 groups
-   (``k3_routes``), each on a line of its own.
+   (``k3_routes``), each on a line of its own; K4 and K5 at the full
+   group-by's shapes, and the median's two routes (``median_timing``).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -63,6 +73,7 @@ WARM_RUNS = 5
 # tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores
 # the main path against float64 numpy: float32 accumulation over ~100k
 # rows per group
 MAIN_PATH_RTOL = 1e-3
@@ -348,12 +359,13 @@ def binned_vs_twin(device: Any, kernel: Callable[..., Any]) -> float:
 
 def _wrappers() -> List[Callable[..., Any]]:
     """Every kernel wrapper, each with its launch count."""
-    from fugue_tpu_torch.kernels import factorize, segment_sums
+    from fugue_tpu_torch.kernels import factorize, segment_reduce, segment_sums
 
     return [segment_sums.binned_sums_cuda, factorize.bin_factorize_cuda,
             factorize.sort_word_cuda, factorize.sort_word_boundaries_cuda,
             factorize.sort_word_lookup_cuda, factorize.sort_boundaries_cuda,
-            factorize.sort_finish_cuda]
+            factorize.sort_finish_cuda, segment_reduce.segment_extrema_cuda,
+            segment_reduce.segment_sq_dev_cuda]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -723,13 +735,14 @@ def build_sort_path(
 
 class StageTimer:
     """Times the stages of one run: while active, ``torch.sort`` and the
-    sort path's kernel wrappers as ``groupby`` calls them each run between
-    two ``torch.cuda.synchronize`` calls, and the first call of each is
-    recorded. The readback of the group count is the time from the end of
+    group-by's kernel wrappers as ``groupby`` calls them each run between
+    two ``torch.cuda.synchronize`` calls, and the calls of each are summed.
+    The readback of the group count is the time from the end of the first
     K2w (or K2) to the start of the K3 that follows it."""
 
-    STAGES = ("sort_word_cuda", "sort_word_boundaries_cuda", "sort_word_lookup_cuda",
-              "sort_boundaries_cuda", "sort_finish_cuda", "binned_sums_cuda")
+    STAGES = ("bin_factorize_cuda", "sort_word_cuda", "sort_word_boundaries_cuda",
+              "sort_word_lookup_cuda", "sort_boundaries_cuda", "sort_finish_cuda",
+              "binned_sums_cuda", "segment_extrema_cuda", "segment_sq_dev_cuda")
 
     def __init__(self, device: Any) -> None:
         self.device = device
@@ -748,7 +761,7 @@ class StageTimer:
             out = fn(*args, **kwargs)
             torch.cuda.synchronize(self.device)
             end = time.perf_counter()
-            self.secs.setdefault(name, end - t)
+            self.secs[name] = self.secs.get(name, 0.0) + end - t
             if name in ("sort_word_boundaries_cuda", "sort_boundaries_cuda"):
                 self._k2_end = end
             return out
@@ -849,6 +862,340 @@ def sort_path_aggregates(device: Any, rows: int, groups: int, seed: int, warm_ru
             "max_memory_allocated": (
                 torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
             ),
+            "launches": cold_launches,
+            "warm_launches": warm_launches,
+            "max_rel_err": rel,
+        }
+        if split_cold:
+            stats["cold_split_secs"] = timer.secs
+        out.append(stats)
+    return out
+
+
+def reduce_cases(device: Any, n: int, seed: int) -> List[Tuple[str, str, Dict[str, Any]]]:
+    """K4's and K5's cases at ``n`` rows: ``(label, "extrema" or "sq_dev",
+    keyword arguments of the kernel and its twin)``. Segment ids reach
+    outside ``[0, num)`` on some rows, which then count nowhere; float
+    payloads hold NaN, -0.0, +0.0 and infinities; int64 payloads their
+    type's extremes."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import Extremum
+
+    ints, flags, floats, big = _draws(device, n, seed)
+    table = torch.tensor([float("nan"), -0.0, 0.0, 1.5, -2.25, float("inf"), float("-inf"), 7.0],
+                         device=device)
+    extremes = torch.tensor([-(2**63), 2**63 - 1, -1, 0, 1], dtype=torch.int64, device=device)
+
+    def special(dtype: Any) -> Any:
+        return table.to(dtype)[ints(0, 8, torch.int64)]
+
+    def every_dtype() -> List[Any]:
+        return [
+            Extremum(special(torch.float32), flags(0.8), True, True),
+            Extremum(special(torch.float64), None, True, True),
+            Extremum(extremes[ints(0, 5, torch.int64)], None, True, True),
+            Extremum(big(), flags(0.5), True, False),
+            Extremum(ints(-(2**31), 2**31 - 1, torch.int32), None, False, True),
+            Extremum(ints(-(2**15), 2**15, torch.int16), None, True, True),
+            Extremum(ints(-128, 128, torch.int8), flags(0.7), True, True),
+            Extremum(ints(0, 256, torch.uint8), None, True, True),
+            Extremum(flags(0.5), flags(0.9), True, True),
+        ]
+
+    def means(p: int, num: int) -> Any:
+        return floats(torch.float64, m=p * num).view(p, num) * 2
+
+    seg1024 = ints(-2, 1026, torch.int32)
+    wide = 1 << 20
+    seg_wide = ints(0, wide, torch.int32)
+    zeros = torch.zeros((n,), dtype=torch.int32, device=device)
+    finite = [(floats() * 10, None), (floats(torch.float64), flags(0.6))]
+    # as the engine gives K5 its payloads: NaN (and here infinite) rows masked out
+    special32 = special(torch.float32)
+    not_nan = [(special32, flags(0.8) & torch.isfinite(special32))]
+    return [
+        ("every payload dtype, 1024 segments, prefix frame", "extrema", dict(
+            seg=seg1024, num=1024, payloads=every_dtype(), nrows=n - n // 7,
+            first=True, last=True)),
+        ("masked frame", "extrema", dict(
+            seg=seg1024, num=1024, payloads=every_dtype()[:3], row_valid=flags(0.6),
+            last=True)),
+        ("one segment", "extrema", dict(
+            seg=zeros, num=1, payloads=every_dtype()[1:4], nrows=n, first=True, last=True)),
+        ("2^20 segments, global tables", "extrema", dict(
+            seg=seg_wide, num=wide, payloads=every_dtype()[:2], nrows=n, first=True,
+            last=True)),
+        ("float32 and float64, 1024 segments, prefix frame", "sq_dev", dict(
+            seg=seg1024, num=1024, payloads=finite, means=means(2, 1024), nrows=n - n // 7)),
+        ("masked frame, NaN rows masked out", "sq_dev", dict(
+            seg=seg1024, num=1024, payloads=not_nan + finite, means=means(3, 1024),
+            row_valid=flags(0.6))),
+        ("one segment", "sq_dev", dict(seg=zeros, num=1, payloads=finite, means=means(2, 1),
+                                       nrows=n)),
+        ("2^20 segments, global tables", "sq_dev", dict(
+            seg=seg_wide, num=wide, payloads=finite, means=means(2, wide), nrows=n)),
+        ("more payloads than one launch takes", "sq_dev", dict(
+            seg=seg1024, num=1024, payloads=finite * 5, means=means(10, 1024), nrows=n)),
+    ]
+
+
+def _bits(t: Any) -> Any:
+    """A tensor as the integers of its bits, so that ``torch.equal``
+    compares floats bit for bit (NaN and the sign of zero included)."""
+    import torch
+
+    views = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return t.view(views[t.dtype]) if t.dtype in views else t
+
+
+def reduce_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
+    """K4 (``segment_extrema_cuda``) against ``segment_extrema_reference``
+    bit for bit, and K5 (``segment_sq_dev_cuda``) against
+    ``segment_sq_dev_reference`` within rtol 1e-10 (float64 atomics add in
+    no fixed order), in every case of ``reduce_cases`` at each size, with
+    the path each took. Returns K5's largest relative difference."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import (
+        segment_extrema_reference, segment_sq_dev_reference,
+    )
+    from fugue_tpu_torch.kernels.segment_reduce import (
+        segment_extrema_cuda, segment_sq_dev_cuda,
+    )
+
+    worst = 0.0
+    for n in sizes:
+        for label, kind, case in reduce_cases(device, n, SEED):
+            full = f"{kind} {label} n={n}"
+            if kind == "extrema":
+                got = segment_extrema_cuda(**case)
+                path = segment_extrema_cuda.last_path
+                want = segment_extrema_reference(**case)
+                torch.cuda.synchronize(device)
+                pairs = [("first", got.first, want.first), ("last", got.last, want.last)]
+                for q in range(len(case["payloads"])):
+                    pairs += [(f"min {q}", got.mins[q], want.mins[q]),
+                              (f"max {q}", got.maxs[q], want.maxs[q])]
+                for name, g, w in pairs:
+                    if (g is None) != (w is None):
+                        raise SystemExit(f"FAIL {full}: {name} given by one side only")
+                    if g is not None and (g.dtype != w.dtype or not torch.equal(_bits(g), _bits(w))):
+                        raise SystemExit(f"FAIL {full}: {name} differs from the twin")
+                err = 0.0
+            else:
+                got = segment_sq_dev_cuda(**case)
+                path = segment_sq_dev_cuda.last_path
+                want = segment_sq_dev_reference(**case)
+                torch.cuda.synchronize(device)
+                rel = ((got - want).abs() / want.abs().clamp(min=1e-300)).max()
+                err = float(rel)
+                if got.shape != want.shape or not err <= 1e-10:
+                    raise SystemExit(f"FAIL {full}: rel err {err}")
+                worst = max(worst, err)
+            want_path = "global" if label.startswith("2^20") else "shared"
+            if n > 1 and path != want_path:
+                raise SystemExit(f"FAIL {full}: took the {path} path, expected {want_path}")
+            print(f"ok {full} path={path} rel_err={err}")
+            del got, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+# the full group-by: every function by the headline key (and with no key)
+FULL_GROUPBY_SCHEMA = ("k:int,s:float,c:long,mn:float,mx:float,f:float,l:float,"
+                       "sd:double,vp:double,md:double,cu:long,su:long")
+DISTINCT_VALUES = 10_000  # u uniform over [0, 10000)
+VARIANCE_RTOL = 1e-9
+
+
+def full_groupby_frame(rows: int, groups: int, distinct: int, seed: int) -> Tuple[Any, Any, Any]:
+    """The headline frame (``k`` int32 over ``groups``, ``v`` float32) and
+    ``u`` int32 uniform over ``[0, distinct)``, from one generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, groups, rows).astype(np.int32)
+    values = rng.random(rows).astype(np.float32)
+    u = rng.integers(0, distinct, rows).astype(np.int32)
+    return keys, values, u
+
+
+def build_full_groupby(
+    device: Any, rows: int, groups: int, distinct: int, seed: int
+) -> Tuple[Callable[[bool], Callable[[], Tuple[float, Any, str]]], Tuple[Any, Any, Any],
+           Any]:
+    """Upload the full group-by frame and return ``(run_for, (k, v, u),
+    engine)``; ``run_for(keyed)`` is the ``run_once`` of the headline UDF
+    (``v2 = v*2+1``, ``u`` passed through) then sum, count(*), min, max,
+    first, last, stddev, var_pop, median of ``v2`` and count/sum DISTINCT
+    of ``u``, by ``k`` or with no key, through the entry points to pandas,
+    returning ``(seconds, result pandas, result schema)``."""
+    import pandas as pd
+    import torch
+
+    from fugue_tpu_torch import aggregate, col, functions as ff
+    from fugue_tpu_torch import make_execution_engine, transform
+    from fugue_tpu_torch.column.expressions import _FuncExpr
+
+    k, v, u = full_groupby_frame(rows, groups, distinct, seed)
+    engine = make_execution_engine("torch", device=device)
+    src = engine.persist(engine.to_df(pd.DataFrame({"k": k, "v": v, "u": u})))
+
+    def udf(a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {"k": a["k"], "v2": a["v"] * 2.0 + 1.0, "u": a["u"]}
+
+    def agg(func: str, name: str, distinct_: bool = False) -> Any:
+        return _FuncExpr(func, col(name), arg_distinct=distinct_, is_aggregation=True)
+
+    def run_for(keyed: bool) -> Callable[[], Tuple[float, Any, str]]:
+        def run_once() -> Tuple[float, Any, str]:
+            t = time.perf_counter()
+            tout = transform(src, udf, schema="k:int,v2:float,u:int", engine=engine,
+                             as_fugue=True)
+            res = aggregate(
+                tout, partition_by="k" if keyed else None, engine=engine, as_fugue=True,
+                s=ff.sum(col("v2")), c=ff.count(col("*")), mn=ff.min(col("v2")),
+                mx=ff.max(col("v2")), f=ff.first(col("v2")), l=ff.last(col("v2")),
+                sd=agg("stddev", "v2"), vp=agg("var_pop", "v2"), md=agg("median", "v2"),
+                cu=ff.count_distinct(col("u")), su=agg("sum", "u", True),
+            )
+            pdf = res.as_pandas()
+            return time.perf_counter() - t, pdf, str(res.schema)
+
+        return run_once
+
+    return run_for, (k, v, u), engine
+
+
+def full_groupby_oracle(k: Any, v2: Any, u: Any, groups: int, distinct: int,
+                        keyed: bool) -> Dict[str, Any]:
+    """The full group-by's result from numpy in float64, per occupied key
+    in ascending order (or one row with no key): min, max and median from
+    one sort of the rows by (key, value), first and last from each key's
+    first and last occurrence, the variance family in two passes, the
+    DISTINCT forms from a presence table of the (key, u) pairs. ``v2``
+    must be positive, so that its bits order as unsigned integers."""
+    import numpy as np
+
+    n = int(k.shape[0])
+    if not keyed:
+        k = np.zeros(n, dtype=np.int32)
+        groups = 1
+    if float(v2.min()) <= 0:
+        raise SystemExit("FAIL full group-by oracle: v2 must be positive")
+    c = np.bincount(k, minlength=groups)
+    occ = np.nonzero(c)[0]
+    v64 = v2.astype(np.float64)
+    s = np.bincount(k, weights=v64, minlength=groups)
+    mean = s / np.maximum(c, 1)
+    ss = np.bincount(k, weights=(v64 - mean[k]) ** 2, minlength=groups)
+    word = (k.astype(np.int64) << 32) | v2.view(np.uint32).astype(np.int64)
+    word.sort()
+    sv = (word & 0xFFFFFFFF).astype(np.uint32).view(np.float32)
+    del word
+    starts = np.cumsum(c) - c
+    lo, hi = starts + (c - 1) // 2, starts + c // 2
+    first = np.full(groups, -1, dtype=np.int64)
+    last = np.full(groups, -1, dtype=np.int64)
+    chunk = 1 << 20
+    for out, sl in ((first, lambda a: slice(a, a + chunk)),
+                    (last, lambda a: slice(max(n - a - chunk, 0), n - a))):
+        for a in range(0, n, chunk):
+            part = sl(a)
+            seen = k[part] if out is first else k[part][::-1]
+            uniq, idx = np.unique(seen, return_index=True)
+            rows_ = part.start + idx if out is first else part.stop - 1 - idx
+            new = out[uniq] < 0
+            out[uniq[new]] = rows_[new]
+            if (out[occ] >= 0).all():
+                break
+    present = (np.bincount(k.astype(np.int64) * distinct + u, minlength=groups * distinct)
+               > 0).reshape(groups, distinct)
+    res = {
+        "c": c[occ],
+        "s": s[occ],
+        "mn": sv[starts[occ]],
+        "mx": sv[starts[occ] + c[occ] - 1],
+        "f": v2[first[occ]],
+        "l": v2[last[occ]],
+        "sd": np.sqrt(ss / np.maximum(c - 1, 1))[occ],
+        "vp": (ss / np.maximum(c, 1))[occ],
+        "md": ((sv[lo].astype(np.float64) + sv[hi].astype(np.float64)) * 0.5)[occ],
+        "cu": present.sum(axis=1)[occ],
+        "su": (present * np.arange(distinct, dtype=np.int64)).sum(axis=1)[occ],
+    }
+    if keyed:
+        res["k"] = occ.astype(np.int32)
+    return res
+
+
+def check_full_groupby(pdf: Any, want: Dict[str, Any], label: str) -> Dict[str, float]:
+    """The result against ``full_groupby_oracle``: keys, counts, min, max,
+    first, last, median and the DISTINCT forms exactly; ``s`` within
+    ``MAIN_PATH_RTOL``; ``sd`` and ``vp`` within ``VARIANCE_RTOL``. Returns
+    the relative errors of the inexact columns."""
+    import numpy as np
+
+    if len(pdf) != len(want["c"]):
+        raise SystemExit(f"FAIL {label}: {len(pdf)} rows, expected {len(want['c'])}")
+    for name in ("k", "c", "mn", "mx", "f", "l", "md", "cu", "su"):
+        if name in want and not np.array_equal(pdf[name].to_numpy(), want[name]):
+            raise SystemExit(f"FAIL {label}: {name} differs from numpy")
+    rel = {}
+    for name, tol in (("s", MAIN_PATH_RTOL), ("sd", VARIANCE_RTOL), ("vp", VARIANCE_RTOL)):
+        got = pdf[name].to_numpy().astype(np.float64)
+        rel[name] = float(np.max(np.abs(got - want[name]) / np.abs(want[name])))
+        if not (np.all(np.isfinite(got)) and rel[name] <= tol):
+            raise SystemExit(f"FAIL {label}: {name} off by rtol {rel[name]}")
+    return rel
+
+
+def full_groupby(device: Any, rows: int, groups: int, distinct: int, seed: int,
+                 warm_runs: int, split_cold: bool = False) -> List[Dict[str, Any]]:
+    """The full group-by through the entry points to pandas
+    (``build_full_groupby``), by ``k`` and with no key, each checked
+    against ``full_groupby_oracle`` outside the timed runs. Reports cold
+    and best warm seconds, peak device memory, each kernel's launches in
+    the cold run and over the warm runs and, with ``split_cold``, the cold
+    run split into stages (``StageTimer``)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    run_for, (k, v, u), engine = build_full_groupby(device, rows, groups, distinct, seed)
+    v2 = v * np.float32(2.0) + np.float32(1.0)
+    out = []
+    for keyed in (True, False):
+        label = f"full group-by {'keyed' if keyed else 'keyless'}"
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        run_once = run_for(keyed)
+        timer = StageTimer(device) if split_cold else contextlib.nullcontext()
+        zero_launches()
+        with timer:
+            cold_secs, pdf, schema = run_once()
+        cold_launches = launch_counts()
+        zero_launches()
+        warm = [run_once()[0] for _ in range(warm_runs)]
+        warm_launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+        if schema != (FULL_GROUPBY_SCHEMA if keyed else FULL_GROUPBY_SCHEMA[len("k:int,"):]):
+            raise SystemExit(f"FAIL {label}: schema {schema}")
+        want = full_groupby_oracle(k, v2, u, groups, distinct, keyed)
+        rel = check_full_groupby(pdf, want, label)
+        best = min(warm) if warm else cold_secs
+        stats = {
+            "case": "keyed" if keyed else "keyless",
+            "rows": rows,
+            "groups": len(pdf),
+            "cold_secs": cold_secs,
+            "warm_secs": warm,
+            "best_warm_secs": best,
+            "rows_per_sec": rows / best,
+            "max_memory_allocated": peak,
             "launches": cold_launches,
             "warm_launches": warm_launches,
             "max_rel_err": rel,
@@ -1048,16 +1395,18 @@ def kernel_timing(device: Any, launches: int) -> Dict[str, Any]:
 
 def _kernel_entry(name: str, replaces: str, launches: int, err: float, ms: float,
                   plain_ms: float, nbytes: int, ops: int,
-                  library_ms: Optional[float]) -> Dict[str, Any]:
+                  library_ms: Optional[float], source: str = "factorize.cu",
+                  ops_per_s: float = FP32_OPS_PER_S) -> Dict[str, Any]:
     """One kernel's entry of the ``kernels`` line; its bound is the larger
-    of its bytes over the HBM rate and its operations over the float32
-    rate."""
+    of its bytes over the HBM rate and its operations over ``ops_per_s``
+    (the float32 rate unless given). ``source`` is a file of
+    ``fugue_tpu_torch/kernels/``."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return {
         "name": name,
         "route": "cuda",
-        "source": "fugue_tpu_torch/kernels/factorize.cu",
+        "source": f"fugue_tpu_torch/kernels/{source}",
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": err,
@@ -1301,6 +1650,110 @@ def stand_in_timing(device: Any) -> Dict[str, Any]:
     }
 
 
+def reduce_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """K4 and K5 with CUDA events at the keyed full group-by's shapes: 100M
+    rows of the headline key's segment ids (1024 segments, a prefix frame
+    with nrows = n) and ``v2 = v*2+1`` in float32; K4 takes its min and max
+    and each segment's last row, K5 its squared deviations under its
+    not-NaN mask from the segments' float64 means. Beside their twins, one
+    PyTorch call each (computing less: K4's ``scatter_reduce_("amin")``
+    takes the min alone, K5's ``index_add_`` adds squares computed before
+    it) and their bounds: each input read once, each output written once;
+    K5's float64 operations over the float64 rate. K4 must equal its twin
+    bit for bit, K5 within rtol 1e-10."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import (
+        Extremum, segment_extrema_reference, segment_sq_dev_reference,
+    )
+    from fugue_tpu_torch.kernels.segment_reduce import segment_extrema_cuda, segment_sq_dev_cuda
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n, num = ROWS, GROUPS
+    seg = torch.randint(0, num, (n,), generator=gen, device=device, dtype=torch.int32)
+    value = torch.rand((n,), generator=gen, device=device) * 2 + 1
+    k4 = dict(seg=seg, num=num, payloads=[Extremum(value, None, True, True)], nrows=n,
+              last=True)
+    got, want = segment_extrema_cuda(**k4), segment_extrema_reference(**k4)
+    pairs = [(got.mins[0], want.mins[0]), (got.maxs[0], want.maxs[0]), (got.last, want.last)]
+    if not all(torch.equal(_bits(g), _bits(w)) for g, w in pairs):
+        raise SystemExit("FAIL segment_extrema at the timed shape: differs from its twin")
+    ms = time_cuda(lambda: segment_extrema_cuda(**k4), 20)
+    plain_ms = time_cuda(lambda: segment_extrema_reference(**k4), 5)
+    idx = seg.long()
+    table = torch.empty((num,), dtype=torch.float32, device=device)
+    library_ms = time_cuda(
+        lambda: table.scatter_reduce_(0, idx, value, "amin", include_self=False), 5)
+    entries = [_kernel_entry(
+        "segment_extrema", "fugue_tpu/jax_backend/groupby.py:647", launches["segment_extrema"],
+        0.0, ms, plain_ms, n * (4 + 4) + num * (4 + 4 + 4), 3 * n, library_ms,
+        source="segment_reduce.cu")]
+    print(f"segment_extrema timed shape: path={segment_extrema_cuda.last_path}")
+
+    eff = ~torch.isnan(value)
+    cnt = torch.zeros((num,), dtype=torch.float64, device=device).index_add_(
+        0, idx, eff.to(torch.float64))
+    tot = torch.zeros((num,), dtype=torch.float64, device=device).index_add_(
+        0, idx, value.to(torch.float64))
+    means = (tot / cnt.clamp(min=1))[None]
+    k5 = dict(seg=seg, num=num, payloads=[(value, eff)], means=means, nrows=n)
+    got5, want5 = segment_sq_dev_cuda(**k5), segment_sq_dev_reference(**k5)
+    rel = float(((got5 - want5).abs() / want5.abs()).max())
+    if not rel <= 1e-10:
+        raise SystemExit(f"FAIL segment_sq_dev at the timed shape: rel err {rel}")
+    ms = time_cuda(lambda: segment_sq_dev_cuda(**k5), 20)
+    plain_ms = time_cuda(lambda: segment_sq_dev_reference(**k5), 5)
+    sq = (value.to(torch.float64) - means[0].index_select(0, idx)) ** 2
+    acc = torch.zeros((num,), dtype=torch.float64, device=device)
+    library_ms = time_cuda(lambda: acc.zero_().index_add_(0, idx, sq), 5)
+    entries.append(_kernel_entry(
+        "segment_sq_dev", "fugue_tpu/jax_backend/groupby.py:676", launches["segment_sq_dev"],
+        float((got5 - want5).abs().max()), ms, plain_ms, n * (4 + 4 + 1) + num * (8 + 8),
+        3 * n, library_ms, source="segment_reduce.cu", ops_per_s=FP64_OPS_PER_S))
+    print(f"segment_sq_dev timed shape: path={segment_sq_dev_cuda.last_path} rel_err={rel}")
+    return entries
+
+
+def median_timing(device: Any) -> Dict[str, Any]:
+    """``groupby.segment_median``'s two routes with CUDA events at the full
+    group-by's shape (100M rows, 1024 segments, ``v2`` in [1, 3)): one
+    sort of the (segment, value) int64 word (KW) for the float32 values,
+    and the JAX package's two stable sorts (by value, then by segment) for
+    the same values as float64. Both must give the same medians."""
+    import torch
+
+    from fugue_tpu_torch.torch_backend import groupby
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    seg = torch.randint(0, GROUPS, (ROWS,), generator=gen, device=device, dtype=torch.int32)
+    value = torch.rand((ROWS,), generator=gen, device=device) * 2 + 1
+    counts = torch.bincount(seg, minlength=GROUPS).to(torch.int32)
+    wide = value.to(torch.float64)
+    word = groupby.segment_median(value, None, seg, GROUPS, counts)
+    if not torch.equal(word, groupby.segment_median(wide, None, seg, GROUPS, counts)):
+        raise SystemExit("FAIL median: the two routes differ")
+    out = {
+        "rows": ROWS,
+        "segments": GROUPS,
+        "word_ms": time_cuda(lambda: groupby.segment_median(value, None, seg, GROUPS, counts), 5),
+        "two_sorts_ms": time_cuda(
+            lambda: groupby.segment_median(wide, None, seg, GROUPS, counts), 5),
+    }
+    print("median: " + json.dumps(out))
+    return out
+
+
+# each kernel's launches in one run of the full group-by: by the key, the
+# distinct (k, u) pairs take the word route and, above
+# LOOKUP_MAX_GROUPS pairs, K3's scatter
+FULL_GROUPBY_LAUNCHES = {
+    "keyed": dict(bin_factorize=1, sort_word=2, sort_word_boundaries=1, sort_finish=1,
+                  binned_sums=2, segment_extrema=1, segment_sq_dev=1),
+    "keyless": dict(bin_factorize=1, sort_word=1, binned_sums=2, segment_extrema=1,
+                    segment_sq_dev=1),
+}
+
+
 def main() -> None:
     import torch
 
@@ -1329,6 +1782,9 @@ def main() -> None:
     print("kernels checked against their twins: bin_factorize, sort_word, "
           "sort_word_boundaries, sort_word_lookup, sort_boundaries, sort_finish")
     torch.cuda.empty_cache()
+    worst = reduce_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
+    print(f"kernels checked against their twins: segment_extrema (bit-equal), "
+          f"segment_sq_dev (max rel err {worst})")
 
     stats = main_path(device, ROWS, GROUPS, SEED, WARM_RUNS)
     # one aggregate per run, one fused-kernel launch per aggregate
@@ -1391,6 +1847,18 @@ def main() -> None:
         print("sort_path_aggregate: " + json.dumps(st))
     torch.cuda.empty_cache()
 
+    full = full_groupby(device, ROWS, GROUPS, DISTINCT_VALUES, SEED, WARM_RUNS, split_cold=True)
+    for st in full:
+        want = dict.fromkeys(st["launches"], 0)
+        want.update(FULL_GROUPBY_LAUNCHES[st["case"]])
+        warm_want = {k: v * WARM_RUNS for k, v in want.items()}
+        if st["launches"] != want or st["warm_launches"] != warm_want:
+            raise SystemExit(f"FAIL: the full group-by {st['case']} launched "
+                             f"{st['launches']} (cold), {st['warm_launches']} (warm)")
+        st["card"] = card
+        print("full_groupby: " + json.dumps(st))
+    torch.cuda.empty_cache()
+
     stand_ins = stand_in_timing(device)
     stand_ins["card"] = card
     print("stand_ins: " + json.dumps(stand_ins))
@@ -1406,13 +1874,18 @@ def main() -> None:
         "sort_word_lookup": sort_stats[0]["launches"]["sort_word_lookup"],
     })
     torch.cuda.empty_cache()
+    entries += reduce_timing(device, {
+        name: full[0]["launches"][name] for name in ("segment_extrema", "segment_sq_dev")})
+    torch.cuda.empty_cache()
+    median_timing(device)
+    torch.cuda.empty_cache()
     k3_routes(device, ROWS)
     for entry in entries:
         times = [entry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")
                  if entry[k] is not None]
         if not all(math.isfinite(t) for t in times):
             raise SystemExit(f"FAIL: a time of {entry['name']} is not finite")
-        if entry["max_abs_err"] != 0 and entry["name"] != "binned_sums":
+        if entry["max_abs_err"] != 0 and entry["name"] not in ("binned_sums", "segment_sq_dev"):
             raise SystemExit(f"FAIL: {entry['name']} differs from its twin at the timed shape")
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))

@@ -3,10 +3,13 @@
 It imports nothing of ``fugue_tpu`` or of JAX; the JAX package stays
 beside it as the reference the port is tested against. The slices ported
 so far: ``transform`` of a ``Dict[str, torch.Tensor]`` transformer, with
-or without partition keys, then ``aggregate`` with sum/avg/count by
-numeric or bool keys. The per-row work is hand-written CUDA kernels: the
-fused binned sums (``fugue_tpu_torch/kernels/segment_sums.cu``) and the
-key factorization (``fugue_tpu_torch/kernels/factorize.cu``).
+or without partition keys, then ``aggregate`` with count, sum, avg, min,
+max, first, last, median and the variance family (and DISTINCT forms) by
+numeric or bool keys or with none. The per-row work is hand-written CUDA
+kernels: the fused binned sums (``fugue_tpu_torch/kernels/segment_sums.cu``),
+the key factorization (``fugue_tpu_torch/kernels/factorize.cu``) and the
+per-segment extrema and squared deviations
+(``fugue_tpu_torch/kernels/segment_reduce.cu``).
 """
 
 from fugue_tpu_torch.api import aggregate, transform

@@ -15,6 +15,13 @@ from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.utils.assertion import assert_or_throw
 from fugue_tpu_torch.utils.hash import to_uuid
 
+# the variance family (``fugue_tpu/column/functions.py:14``), here so that
+# ``infer_type`` and the aggregate's checks read one definition
+VARIANCE_FUNCS = (
+    "stddev", "stddev_samp", "stddev_pop",
+    "variance", "var_samp", "var_pop",
+)
+
 
 class ColumnExpr:
     """Base of all column expressions."""
@@ -244,14 +251,19 @@ class _FuncExpr(ColumnExpr):
         )
 
     def infer_type(self, schema: Schema) -> Optional[pa.DataType]:
+        """The aggregations' result types
+        (``fugue_tpu/column/expressions.py:395-425``): count is int64;
+        avg, median and the variance family float64; min, max, first and
+        last keep the argument's type, and so does sum except that an
+        integer sum is int64."""
         f = self._func.lower()
-        if f == "count":
+        if f in ("count", "count_distinct"):
             return pa.int64()
-        if f in ("avg", "mean"):
+        if f in ("avg", "mean", "median", *VARIANCE_FUNCS):
             return pa.float64()
-        if f == "sum" and len(self._args) == 1:
+        if f in ("min", "max", "sum", "first", "last") and len(self._args) == 1:
             t = self._args[0].infer_type(schema)
-            if t is not None and pa.types.is_integer(t):
+            if f == "sum" and t is not None and pa.types.is_integer(t):
                 return pa.int64()
             return t
         return None

@@ -1,11 +1,17 @@
-"""Aggregation constructors ``sum``, ``avg``/``mean``, ``count`` and the
-rest of the original's names (a trimmed copy of
-``fugue_tpu/column/functions.py:40``). Only sum/avg/count run in the port's
-slice; the engine refuses the others with ``NotImplementedError``."""
+"""Aggregation constructors: ``sum``, ``avg``/``mean``, ``count``,
+``count_distinct``, ``min``, ``max``, ``first`` and ``last`` (a trimmed
+copy of ``fugue_tpu/column/functions.py:14-64``), and ``VARIANCE_FUNCS``.
+As in the original, median and the variance family have no constructor:
+they are ``_FuncExpr(name, col, is_aggregation=True)``."""
 
 from typing import Any
 
-from fugue_tpu_torch.column.expressions import ColumnExpr, _FuncExpr, _to_col
+from fugue_tpu_torch.column.expressions import VARIANCE_FUNCS, ColumnExpr, _FuncExpr, _to_col
+
+__all__ = [
+    "VARIANCE_FUNCS", "avg", "count", "count_distinct", "first", "last", "max", "mean",
+    "min", "sum",
+]
 
 
 def _agg(name: str, col: Any, arg_distinct: bool = False) -> ColumnExpr:
@@ -39,3 +45,11 @@ def min(col: Any) -> ColumnExpr:  # noqa: A001
 
 def max(col: Any) -> ColumnExpr:  # noqa: A001
     return _agg("max", col)
+
+
+def first(col: Any) -> ColumnExpr:
+    return _agg("first", col)
+
+
+def last(col: Any) -> ColumnExpr:
+    return _agg("last", col)

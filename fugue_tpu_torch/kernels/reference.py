@@ -1,8 +1,8 @@
 """Plain PyTorch twins of the port's CUDA kernels (``segment_sums.cu``,
-``factorize.cu``): the CPU path, and the oracle each kernel is held
-against on the card."""
+``factorize.cu``, ``segment_reduce.cu``): the CPU path, and the oracle
+each kernel is held against on the card."""
 
-from typing import Optional, NamedTuple, Sequence, Tuple
+from typing import List, Optional, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -85,6 +85,7 @@ def binned_sums_reference(
     counts: Sequence[torch.Tensor] = (),
     ints: Sequence[Payload] = (),
     occupancy: bool = True,
+    f64: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Segment ids, row validity and per-segment sums of a binned
     aggregate: the twin of ``segment_sums.cu`` and of the per-row part of
@@ -98,7 +99,8 @@ def binned_sums_reference(
     ``nrows`` for a prefix frame (rows ``>= nrows`` are dropped) or
     ``row_valid`` for a masked frame (rows whose byte is zero are
     dropped). ``floats``: float32/float64 payloads with optional masks,
-    summed in float64 if any is float64, else in float32; ``counts``:
+    summed in float64 if any is float64 or ``f64`` is set, else in
+    float32; ``counts``:
     bool/uint8 flags, the accepted rows whose byte is non-zero counted in
     int32; ``ints``: integer payloads with optional masks, summed in
     int64. A masked payload adds only where its mask holds. With
@@ -108,7 +110,7 @@ def binned_sums_reference(
     n = int(keys[0].data.shape[0])
     device = keys[0].data.device
     seg = bin_segments(keys, _binned_rows(keys, nrows, row_valid))
-    fdtype = torch.float64 if any(v.dtype == torch.float64 for v, _ in floats) else torch.float32
+    fdtype = float_sum_dtype(floats, f64)
 
     def _pack(pays: Sequence[Payload], dtype: torch.dtype) -> torch.Tensor:
         rows = [(v if m is None else torch.where(m, v, 0)).to(dtype) for v, m in pays]
@@ -122,6 +124,14 @@ def binned_sums_reference(
     return segment_sums_reference(
         seg, _pack(floats, fdtype), cpack, _pack(ints, torch.int64), bin_total(keys)
     )
+
+
+def float_sum_dtype(floats: Sequence[Payload], f64: bool = False) -> torch.dtype:
+    """The dtype the fused kernel sums ``floats`` in: float64 where any is
+    float64 or the caller asks for it (``f64``), else float32."""
+    if f64 or any(v.dtype == torch.float64 for v, _ in floats):
+        return torch.float64
+    return torch.float32
 
 
 def segment_sums_reference(
@@ -437,3 +447,172 @@ def sort_word_lookup_reference(
     if real_below is not None:
         seg = torch.where(words < real_below, seg, num)
     return seg
+
+
+class Extremum(NamedTuple):
+    """A payload of ``segment_extrema``: its values (bool, uint8, int8-64,
+    float32/64), its null mask (True = valid; None: every row valid), and
+    whether its per-segment ``min`` and ``max`` are wanted."""
+
+    values: torch.Tensor
+    mask: Optional[torch.Tensor]
+    min: bool
+    max: bool
+
+
+class Extrema(NamedTuple):
+    """What ``segment_extrema`` gives: per payload its min and max over
+    each segment (None where not wanted), in the payload's dtype, and the
+    first and last counted row of each segment (int32, -1 where the
+    segment has none; None where not wanted)."""
+
+    mins: List[Optional[torch.Tensor]]
+    maxs: List[Optional[torch.Tensor]]
+    first: Optional[torch.Tensor]
+    last: Optional[torch.Tensor]
+
+
+def extremum_fill(dtype: torch.dtype, is_max: bool) -> float:
+    """An empty segment's min (``is_max`` False) or max: the type's largest
+    or smallest value, as the JAX package fills them (``_type_max`` and
+    ``_type_min``, ``fugue_tpu/jax_backend/groupby.py:729-743``)."""
+    if dtype.is_floating_point:
+        return float("-inf") if is_max else float("inf")
+    if dtype == torch.bool:
+        return not is_max
+    info = torch.iinfo(dtype)
+    return info.min if is_max else info.max
+
+
+_I64_MIN, _I64_MAX = -(2**63), 2**63 - 1
+_MAGNITUDE = {torch.float32: 0x7FFFFFFF, torch.float64: _I64_MAX}
+
+
+def _order_key(v: torch.Tensor) -> torch.Tensor:
+    """int64 whose signed order is the order of ``v``, with -0.0 below
+    +0.0 (a float's bits, the magnitude bits flipped where it is
+    negative). NaN is left to the caller."""
+    if v.dtype == torch.float32:
+        b = v.view(torch.int32).to(torch.int64)
+    elif v.dtype == torch.float64:
+        b = v.view(torch.int64)
+    else:
+        return v.to(torch.int64)
+    return torch.where(b < 0, b ^ _MAGNITUDE[v.dtype], b)
+
+
+def _from_order_key(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype == torch.float32:
+        return torch.where(k < 0, k ^ _MAGNITUDE[dtype], k).to(torch.int32).view(dtype)
+    if dtype == torch.float64:
+        return torch.where(k < 0, k ^ _MAGNITUDE[dtype], k).view(dtype)
+    return k.to(dtype)
+
+
+def _segment_rows(seg: torch.Tensor, num: int, nrows: Optional[int],
+                  row_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """The rows a segment reduction counts: real (a prefix frame's first
+    ``nrows``, or a masked frame's non-zero ``row_valid`` bytes) and with
+    ``seg`` in ``[0, num)``."""
+    if (nrows is None) == (row_valid is None):
+        raise ValueError("pass exactly one of nrows (prefix rows) and row_valid")
+    n = int(seg.shape[0])
+    valid = materialize_validity(row_valid, n, nrows, seg.device)
+    return valid & (seg >= 0) & (seg < num)
+
+
+def segment_extrema_reference(
+    seg: torch.Tensor,
+    num: int,
+    payloads: Sequence[Extremum],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    first: bool = False,
+    last: bool = False,
+) -> Extrema:
+    """Per-segment min and max of each payload, and the first and last row
+    of each segment: the twin of K4 in ``segment_reduce.cu`` and of the
+    scatter-min/max of the JAX package's ``_segment_agg_impl``
+    (``fugue_tpu/jax_backend/groupby.py:647-656``, ``:711-718``), with
+    ``scatter_reduce_(include_self=False)``.
+
+    ``seg`` int32[n]; a row counts where ``seg`` lies in ``[0, num)`` and
+    the row is real (``nrows`` or ``row_valid`` as for
+    ``binned_sums_reference``); a payload takes only the counted rows where
+    its mask holds. The rules of the JAX package on the CPU, made
+    explicit: NaN wins both the min and the max (it propagates, as
+    ``segment_min`` and ``jnp.min`` do), -0.0 is below +0.0, and a segment
+    with no row gets ``extremum_fill``. ``num`` is at least 1."""
+    if num < 1:
+        raise ValueError(f"num {num} must be at least 1")
+    n = int(seg.shape[0])
+    device = seg.device
+    real = _segment_rows(seg, num, nrows, row_valid)
+    mins: List[Optional[torch.Tensor]] = []
+    maxs: List[Optional[torch.Tensor]] = []
+    for p in payloads:
+        keep = real if p.mask is None else real & p.mask
+        # rows that are not kept land in one extra bucket, cut off below
+        idx = torch.where(keep, seg, num).long()
+        key = _order_key(p.values)
+        nan = torch.isnan(p.values) if p.values.dtype.is_floating_point else None
+        for want, is_max, out in ((p.min, False, mins), (p.max, True, maxs)):
+            if not want:
+                out.append(None)
+                continue
+            k = key
+            if nan is not None:
+                k = torch.where(nan, _I64_MAX if is_max else _I64_MIN, key)
+            fill = _order_key(torch.tensor([extremum_fill(p.values.dtype, is_max)],
+                                           dtype=p.values.dtype, device=device))
+            table = fill.expand(num + 1).clone()
+            table.scatter_reduce_(0, idx, k, "amax" if is_max else "amin", include_self=False)
+            res = _from_order_key(table[:num], p.values.dtype)
+            if nan is not None:
+                res = torch.where(table[:num] == (_I64_MAX if is_max else _I64_MIN),
+                                  float("nan"), res)
+            out.append(res)
+    rows_out: List[Optional[torch.Tensor]] = []
+    idx = torch.where(real, seg, num).long()
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    for want, how in ((first, "amin"), (last, "amax")):
+        if not want:
+            rows_out.append(None)
+            continue
+        table = torch.full((num + 1,), -1, dtype=torch.int64, device=device)
+        table.scatter_reduce_(0, idx, pos, how, include_self=False)
+        rows_out.append(table[:num].to(torch.int32))
+    return Extrema(mins, maxs, rows_out[0], rows_out[1])
+
+
+def segment_sq_dev_reference(
+    seg: torch.Tensor,
+    num: int,
+    payloads: Sequence[Payload],
+    means: torch.Tensor,
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-segment sums of squared deviations from the segment's mean in
+    float64: the twin of K5 in ``segment_reduce.cu`` and of the second
+    pass of the JAX package's two-pass variance
+    (``fugue_tpu/jax_backend/groupby.py:676-678``), with ``index_add_``.
+
+    ``seg`` and the rows as for ``segment_extrema_reference``;
+    ``payloads`` float32/float64 with optional masks (a payload adds only
+    the counted rows where its mask holds); ``means`` float64 [P, num].
+    Returns float64 [P, num]: the sum of ``(x - means[p, seg])^2``.
+    ``num`` is at least 1."""
+    if num < 1:
+        raise ValueError(f"num {num} must be at least 1")
+    device = seg.device
+    real = _segment_rows(seg, num, nrows, row_valid)
+    segc = seg.clamp(0, num - 1).long()
+    out = torch.zeros((len(payloads), num + 1), dtype=torch.float64, device=device)
+    for q, (v, m) in enumerate(payloads):
+        keep = real if m is None else real & m
+        d = v.to(torch.float64) - means[q].index_select(0, segc)
+        out[q].index_add_(0, torch.where(keep, seg, num).long(), torch.where(keep, d * d, 0.0))
+    return out[:, :num].contiguous()

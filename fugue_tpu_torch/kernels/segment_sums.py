@@ -17,7 +17,13 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from fugue_tpu_torch.kernels import build
-from fugue_tpu_torch.kernels.reference import MAX_KEYS, BinKey, Payload, bin_total
+from fugue_tpu_torch.kernels.reference import (
+    MAX_KEYS,
+    BinKey,
+    Payload,
+    bin_total,
+    float_sum_dtype,
+)
 
 MAX_PAYLOADS = 8  # of each kind per launch; more are split over launches
 _PATHS = {0: "none", 1: "shared", 2: "global"}
@@ -94,6 +100,7 @@ def binned_sums_cuda(
     counts: Sequence[torch.Tensor] = (),
     ints: Sequence[Payload] = (),
     occupancy: bool = True,
+    f64: bool = False,
     variant: Optional[Variant] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused kernel, with the contract of
@@ -131,7 +138,7 @@ def binned_sums_cuda(
         _check(v, f"int payload {j}", _INT_DTYPES, n, device)
         if m is not None:
             _check(m, f"int payload {j} mask", (torch.bool,), n, device)
-    fdtype = torch.float64 if any(v.dtype == torch.float64 for v, _ in floats) else torch.float32
+    fdtype = float_sum_dtype(floats, f64)
     occ = int(bool(occupancy))
     fout = torch.zeros((len(floats), total), dtype=fdtype, device=device)
     cout = torch.zeros((occ + len(counts), total), dtype=torch.int32, device=device)

@@ -4,18 +4,23 @@ A port of the main path of ``fugue_tpu/jax_backend/execution_engine.py``:
 ``to_df``/``persist`` upload a frame; ``TorchMapEngine`` runs a
 ``Dict[str, torch.Tensor]`` transformer over whole columns, with the
 segment ids of its partition keys when it has some; ``aggregate`` runs
-sum/avg/count by keys: keys with a bin spec through the binned packed
-aggregate, whose whole per-row part (segment ids, row validity, sums) is
-one launch of the fused CUDA kernel, and any other numeric or bool keys
-through the sort factorization and the same kernel over its segment ids.
+the JAX package's device aggregations (count, sum, avg/mean, min, max,
+first, last, median and the variance family, and their DISTINCT forms
+but FIRST/LAST) by keys or with none: count/sum/avg by keys with a bin
+spec through the binned packed aggregate, whose whole per-row part
+(segment ids, row validity, sums) is one launch of the fused CUDA kernel;
+any other plan through the key factorization and
+``groupby.segment_aggs`` over its segment ids; no keys through the same
+over one segment.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``, and
 then every kernel runs as its plain PyTorch twin. Paths the port does not
 have yet raise ``NotImplementedError`` naming the ROADMAP.md item that
 ports them; nothing falls back to a host engine. ``fallbacks`` counts
-those refusals by operation, ``strategy_counts`` the segment-sum routes
-taken (``"cuda"`` or ``"reference"``) and the aggregates that took the
-generic (factorized) branch (``"generic"``).
+those refusals by operation, ``strategy_counts`` the aggregates by the
+route of their kernels (``"cuda"`` or ``"reference"``) and the ones that
+took the generic (factorized) branch (``"generic"``) or had no keys
+(``"global"``).
 """
 
 from collections.abc import Mapping
@@ -26,8 +31,8 @@ import pyarrow as pa
 import torch
 
 from fugue_tpu_torch.collections.partition import PartitionSpec
-from fugue_tpu_torch.kernels.reference import BinKey, Payload
 from fugue_tpu_torch.column.expressions import (
+    VARIANCE_FUNCS,
     ColumnExpr,
     _FuncExpr,
     _NamedColumnExpr,
@@ -45,7 +50,15 @@ from fugue_tpu_torch.torch_backend.blocks import (
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.utils.assertion import assert_or_throw
 
-_PACKED_AGGS = ("sum", "avg", "mean", "count")
+# the aggregations the engine runs on its device (``:3739``)
+_DEVICE_AGGS = (
+    "min", "max", "sum", "avg", "mean", "count", "first", "last", "median", *VARIANCE_FUNCS,
+)
+# where the JAX package answers on its host engine instead
+_HOST_ENGINE = "ROADMAP.md queue 1 item 2 (the host engine)"
+# an aggregation of a plan: (output name, function, argument or None for
+# COUNT(*), result type)
+Plan = Tuple[str, str, Optional[ColumnExpr], pa.DataType]
 
 
 class TorchMapEngine:
@@ -234,7 +247,8 @@ class TorchExecutionEngine:
 
     @property
     def strategy_counts(self) -> Dict[str, int]:
-        """Segment-sum launches by route (``:909``)."""
+        """Aggregates by route (``:909``): ``"cuda"`` or ``"reference"``
+        (where their kernels ran), and ``"generic"`` or ``"global"``."""
         return dict(self._strategy_counts)
 
     @property
@@ -286,31 +300,34 @@ class TorchExecutionEngine:
     def _device_aggregate(
         self, tdf: TorchDataFrame, keys: List[str], agg_cols: List[ColumnExpr]
     ) -> TorchDataFrame:
-        """``_try_device_aggregate`` (``:2754``) for sum/avg/count: the
-        binned branch (``:2835-2864``) where the keys have a bin spec, else
-        the generic branch (``:2866``); every other aggregation is
-        refused."""
+        """``_try_device_aggregate`` (``:2754``): the plan checks
+        (``:2772-2834``), then the keyless aggregate (``_global_aggregate``),
+        the binned packed aggregate where the keys have a bin spec and every
+        aggregation is packable (``:2836-2864``), else the generic branch
+        (``:2866``). What the JAX package sends to its host engine raises
+        ``NotImplementedError`` here."""
         blocks = tdf.blocks
         for k in keys:
             assert_or_throw(k in blocks.columns, KeyError(f"{k} not in {tdf.schema}"))
-        typed_plans: List[Tuple[str, str, Optional[ColumnExpr], pa.DataType]] = []
+        typed_plans: List[Plan] = []
+        distinct_args: Dict[str, str] = {}
         for c in agg_cols:
             assert_or_throw(
                 isinstance(c, _FuncExpr) and c.is_aggregation and len(c.args) == 1,
                 ValueError(f"{c} is not a one-argument aggregation"),
             )
             fn = c.func.lower()  # type: ignore[attr-defined]
-            if fn not in _PACKED_AGGS:
-                self._unported(
-                    "aggregate", f"aggregation {fn}",
-                    "ROADMAP.md queue 2 item 6 (_segment_agg_impl)",
-                )
-            if c.arg_distinct:  # type: ignore[attr-defined]
-                self._unported(
-                    "aggregate", "DISTINCT aggregation", "ROADMAP.md queue 1 item 3"
-                )
+            if fn not in _DEVICE_AGGS:
+                self._unported("aggregate", f"aggregation {fn}", _HOST_ENGINE)
             arg = c.args[0]  # type: ignore[attr-defined]
-            if isinstance(arg, _NamedColumnExpr) and arg.wildcard:
+            wildcard = isinstance(arg, _NamedColumnExpr) and arg.wildcard
+            if c.arg_distinct and fn not in ("min", "max"):  # type: ignore[attr-defined]
+                # min/max DISTINCT are plain min/max; the rest count each
+                # (keys, value) once; first/last DISTINCT depend on order
+                if fn in ("first", "last") or not isinstance(arg, _NamedColumnExpr) or wildcard:
+                    self._unported("aggregate", f"{fn.upper()}(DISTINCT {arg})", _HOST_ENGINE)
+                distinct_args[c.output_name] = arg.name
+            if wildcard:
                 assert_or_throw(fn == "count", ValueError(f"{fn}(*) is invalid"))
                 typed_plans.append((c.output_name, "count", None, pa.int64()))
                 continue
@@ -319,39 +336,43 @@ class TorchExecutionEngine:
                     "aggregate", f"expression {arg}",
                     "ROADMAP.md queue 2 item 8 (expr_eval._eval)",
                 )
-            if fn != "count" and _packed_agg_kind(tdf.schema, arg) is None:
-                self._unported(
-                    "aggregate", f"{fn} of {arg} (not a float or integer column)",
-                    "ROADMAP.md queue 2 item 7 (_agg_program)",
-                )
-            typed_plans.append((c.output_name, fn, arg, c.infer_type(tdf.schema)))
+            atp = arg.infer_type(tdf.schema)
+            tp = c.infer_type(tdf.schema)
+            if tp is None or (
+                (fn == "median" or fn in VARIANCE_FUNCS) and not _is_numeric(atp)
+            ):
+                self._unported("aggregate", f"{fn} of {arg} ({atp})", _HOST_ENGINE)
+            typed_plans.append((c.output_name, fn, arg, tp))
         if len(keys) == 0:
-            self._unported(
-                "aggregate", "an aggregate with no keys",
-                "ROADMAP.md queue 2 item 7 (_global_aggregate)",
-            )
+            return self._global_aggregate(tdf, typed_plans, distinct_args)
         spec = groupby.bin_spec(blocks, keys)
-        if spec is None:
-            return self._generic_aggregate(tdf, keys, typed_plans)
-        return self._binned_packed_aggregate(tdf, keys, typed_plans, spec)
+        if spec is not None and all(
+            _packed_agg_kind(tdf.schema, func, arg) is not None
+            for _, func, arg, _ in typed_plans
+        ):
+            return self._binned_packed_aggregate(tdf, keys, typed_plans, spec, distinct_args)
+        return self._generic_aggregate(tdf, keys, typed_plans, distinct_args)
 
     def _binned_packed_aggregate(
         self,
         tdf: TorchDataFrame,
         keys: List[str],
-        typed_plans: List[Tuple[str, str, Optional[ColumnExpr], pa.DataType]],
+        typed_plans: List[Plan],
         spec: groupby.BinSpec,
+        distinct_args: Dict[str, str],
     ) -> TorchDataFrame:
         """The group-by hot path (``:3463``): ONE launch of the fused kernel
         reads the key and payload columns, computes segment ids and row
-        validity in registers and sums every sum/avg/count payload; keys
-        are decoded arithmetically from bin indices. The group count stays
-        a lazy device scalar; empty bins are dropped by the result's
+        validity in registers and sums every count/sum/avg payload,
+        DISTINCT ones with their first-occurrence masks; keys are decoded
+        arithmetically from bin indices. The group count stays a lazy
+        device scalar; empty bins are dropped by the result's
         ``row_valid``."""
         blocks = tdf.blocks
         device = blocks.device
-        occupancy, agg_cols = self._packed_sums(
-            tdf, typed_plans, groupby.kernel_keys(spec, blocks), groupby.frame_rows(blocks)
+        occupancy, agg_cols = self._segment_aggregates(
+            tdf, keys, typed_plans, distinct_args, spec.total, groupby.frame_rows(blocks),
+            keys=groupby.kernel_keys(spec, blocks),
         )
         occupied = occupancy > 0
         decoded = groupby.decode_bin_keys(
@@ -374,25 +395,28 @@ class TorchExecutionEngine:
         self,
         tdf: TorchDataFrame,
         keys: List[str],
-        typed_plans: List[Tuple[str, str, Optional[ColumnExpr], pa.DataType]],
+        typed_plans: List[Plan],
+        distinct_args: Dict[str, str],
     ) -> TorchDataFrame:
-        """The generic branch (``:2866``, ``_agg_program`` ``:2900``) for
-        sum/avg/count: ``groupby.factorize_keys`` (the sort path, since the
-        keys have no bin spec), the fused kernel over its segment ids as
-        the one key of span ``num_segments`` (the sentinel rows fall
-        outside it and are dropped), and each key gathered at its group's
-        first row. The result is a prefix frame of ``num_segments`` rows,
-        in the order of the key codes."""
+        """The generic branch (``:2866``, ``_agg_program`` ``:2900``):
+        ``groupby.factorize_keys`` (K1 where the keys have a bin spec, else
+        the sort path), every aggregation of the plan over its segment ids
+        (``groupby.segment_aggs``), and each key gathered at its group's
+        first row. On a binned factorization the result keeps every bin,
+        with ``row_valid`` = the occupied bins and the group count lazy
+        (``:3066-3080``); else it is a prefix frame of ``num_segments``
+        rows, in the order of the key codes."""
         blocks = tdf.blocks
         fr = groupby.factorize_keys(blocks, keys)
         num = fr.num_segments
-        # with no group at all the kernel reads no row of a one-bin key
-        rows = {"nrows": blocks.padded_nrows if num > 0 else 0}
-        _, agg_cols = self._packed_sums(
-            tdf, typed_plans, [BinKey(fr.seg, None, 0, max(num, 1))], rows
+        # with no group at all the kernels read no row
+        rows = groupby.frame_rows(blocks) if num > 0 else {"nrows": 0}
+        _, agg_cols = self._segment_aggregates(
+            tdf, keys, typed_plans, distinct_args, max(num, 1), rows, seg=fr.seg,
+            first_idx=fr.first_idx if num > 0 else None,
         )
         self._count_strategy("generic")
-        target = padded_len(num)
+        target = padded_len(num) if fr.occupied is None else num
         out_cols: Dict[str, TorchColumn] = {}
         for k in keys:
             src = blocks.columns[k]
@@ -404,108 +428,138 @@ class TorchExecutionEngine:
                 mask, src.stats,
             )
         out_cols.update(agg_cols)
-        return TorchDataFrame(
-            TorchBlocks(num, out_cols, blocks.device),
-            _result_schema(tdf.schema, keys, typed_plans),
-        )
+        schema = _result_schema(tdf.schema, keys, typed_plans)
+        if fr.occupied is not None:
+            return TorchDataFrame(
+                TorchBlocks(None, out_cols, blocks.device, row_valid=fr.occupied,
+                            nrows_dev=fr.num_groups_dev),
+                schema,
+            )
+        return TorchDataFrame(TorchBlocks(num, out_cols, blocks.device), schema)
 
-    def _packed_sums(
+    def _global_aggregate(
         self,
         tdf: TorchDataFrame,
-        typed_plans: List[Tuple[str, str, Optional[ColumnExpr], pa.DataType]],
-        bkeys: List[BinKey],
-        rows: Dict[str, Any],
-    ) -> Tuple[torch.Tensor, Dict[str, TorchColumn]]:
-        """Every sum/avg/count of ``typed_plans`` by ``bkeys`` in one
-        ``groupby.binned_sums`` call. Returns the rows counted per segment
-        and the aggregate columns, one value per segment."""
+        typed_plans: List[Plan],
+        distinct_args: Dict[str, str],
+    ) -> TorchDataFrame:
+        """Keyless aggregation (``:3311``): one result row, through the same
+        kernels and twins as the keyed aggregate over one segment that
+        holds every real row (``groupby.segment_aggs``). FIRST/LAST are the
+        first/last real row's value, NULL where the frame has no row
+        (``:3398-3411``)."""
         blocks = tdf.blocks
-        device = blocks.device
+        seg = (~blocks.validity()).to(torch.int32)  # 0 on real rows, the sentinel 1 else
+        _, agg_cols = self._segment_aggregates(
+            tdf, [], typed_plans, distinct_args, 1, groupby.frame_rows(blocks), seg=seg
+        )
+        self._count_strategy("global")
+        return TorchDataFrame(
+            TorchBlocks(1, agg_cols, blocks.device),
+            _result_schema(tdf.schema, [], typed_plans),
+        )
+
+    def _segment_aggregates(
+        self,
+        tdf: TorchDataFrame,
+        group_keys: List[str],
+        typed_plans: List[Plan],
+        distinct_args: Dict[str, str],
+        span: int,
+        rows: Dict[str, Any],
+        **where: Any,
+    ) -> Tuple[torch.Tensor, Dict[str, TorchColumn]]:
+        """Every aggregation of ``typed_plans`` in one
+        ``groupby.segment_aggs`` call over ``span`` segments (``where``:
+        its ``seg``, ``keys`` and ``first_idx``). Returns the rows counted
+        per segment and the aggregate columns, one value per segment.
+
+        Payload dedup (``:3520``): SUM(v) and AVG(v) share one payload;
+        COUNT(*) and any count of an unmasked column are the segment's row
+        count. A DISTINCT aggregation's mask also holds its
+        first-occurrence-of-(keys, value) mask, so its payload and count
+        are its own."""
+        blocks = tdf.blocks
         pad_n = blocks.padded_nrows
         mcols = expr_eval.blocks_to_masked(blocks)
-        floats: List[Payload] = []
-        counts: List[torch.Tensor] = []
-        ints: List[Payload] = []
-        # payload dedup: SUM(v)+AVG(v) share one float payload; COUNT(*)
-        # and any unmasked count ARE the occupancy row (count slot 0),
-        # which the kernel counts from the rows it accepts
-        fkeys: Dict[str, int] = {}
-        ckeys: Dict[str, int] = {"__valid__": 0}
-        ikeys: Dict[str, int] = {}
-
-        def _slot(keys_: Dict[str, int], pays: List[Any], key: str, item: Any,
-                  base: int = 0) -> int:
-            if key not in keys_:
-                pays.append(item)
-                keys_[key] = base + len(pays) - 1
-            return keys_[key]
-
-        slots: List[Tuple[str, Any]] = []
+        dmasks = _distinct_masks(blocks, group_keys, distinct_args)
+        requests: List[groupby.AggRequest] = []
         for name, func, arg, _tp in typed_plans:
             if arg is None:
-                slots.append(("c", 0))  # COUNT(*) == occupancy
+                requests.append(groupby.AggRequest("count", None, None, "", ""))
                 continue
             akey = arg.__uuid__()
-            values, mask = expr_eval.eval_expr(mcols, arg, pad_n, device)
-            # the kernel reads dense columns; a transformer may return views
+            values, mask = expr_eval.eval_expr(mcols, arg, pad_n, blocks.device)
+            # the kernels read dense columns; a transformer may return views
             values = values.contiguous()
+            mkey = "" if mask is None else f"m:{akey}"
             mask = None if mask is None else mask.contiguous()
-            eff_key = "__valid__" if mask is None else f"m:{akey}"
-            ci = 0 if mask is None else _slot(ckeys, counts, eff_key, mask, base=1)
-            if func == "count":
-                slots.append(("c", ci))
-                continue
-            # the kernel adds a masked payload only where its mask holds
-            pkey = f"{akey}|{eff_key}"
-            if _packed_agg_kind(tdf.schema, arg) == "int":
-                slots.append(("i", (_slot(ikeys, ints, pkey, (values, mask)), ci)))
-            else:
-                slots.append(("f", (_slot(fkeys, floats, pkey, (values, mask)), ci)))
-        f_sums, c_sums, i_sums = groupby.binned_sums(
-            bkeys, floats=floats, counts=counts, ints=ints, **rows
-        )
-        self._count_strategy("cuda" if device.type == "cuda" else "reference")
-        out_cols: Dict[str, TorchColumn] = {}
-        for (name, func, _arg, tp), (kind, idx) in zip(typed_plans, slots):
-            if kind == "c":
-                out_cols[name] = TorchColumn(tp, _cast_agg_result(c_sums[idx], tp))
-                continue
-            si, ci = idx
-            tot = i_sums[si] if kind == "i" else f_sums[si]
-            cnt = c_sums[ci]
-            if func == "sum":
-                v = tot
-            else:  # avg/mean; integer sums divide in float64 as in the JAX package
-                v = (tot.to(torch.float64) if kind == "i" else tot) / torch.clamp(cnt, min=1)
-            out_cols[name] = TorchColumn(tp, _cast_agg_result(v, tp), cnt > 0)
-        return c_sums[0], out_cols
+            if name in distinct_args:
+                dmask = dmasks[distinct_args[name]]
+                mask = dmask if mask is None else mask & dmask
+                mkey = "|".join(p for p in (mkey, f"d:{distinct_args[name]}") if p)
+            requests.append(groupby.AggRequest(func, values, mask, akey, mkey))
+        occupancy, results = groupby.segment_aggs(requests, span, rows, **where)
+        self._count_strategy("cuda" if blocks.device.type == "cuda" else "reference")
+        out_cols = {
+            name: TorchColumn(tp, _cast_agg_result(v, tp), m)
+            for (name, _, _, tp), (v, m) in zip(typed_plans, results)
+        }
+        return occupancy, out_cols
 
     def _count_strategy(self, name: str) -> None:
         self._strategy_counts[name] = self._strategy_counts.get(name, 0) + 1
 
 
-def _result_schema(
-    schema: Schema,
-    keys: List[str],
-    typed_plans: List[Tuple[str, str, Optional[ColumnExpr], pa.DataType]],
-) -> Schema:
+def _result_schema(schema: Schema, keys: List[str], typed_plans: List[Plan]) -> Schema:
     """An aggregate's schema: the keys, then one field per aggregation."""
     return Schema(
         [schema[k] for k in keys] + [pa.field(name, tp) for name, _, _, tp in typed_plans]
     )
 
 
-def _packed_agg_kind(schema: Schema, arg: ColumnExpr) -> Optional[str]:
-    """How a sum/avg payload rides the packed kernel (``:3288``):
-    ``"float"``, ``"int"`` (exact int64 sums) or None."""
-    tp = arg.infer_type(schema)
-    if tp is None:
+def _packed_agg_kind(schema: Schema, func: str, arg: Optional[ColumnExpr]) -> Optional[str]:
+    """How an aggregation rides the binned packed aggregate (``:3288``):
+    ``"count"``, ``"float"`` or ``"int"`` (exact int64 sums) for
+    count/sum/avg, else None (min/max/median and the rest, and the
+    sum/avg of a bool, take the generic branch)."""
+    if func == "count":
+        return "count"
+    tp = None if arg is None else arg.infer_type(schema)
+    if func not in ("sum", "avg", "mean") or tp is None:
         return None
     if pa.types.is_floating(tp):
         return "float"
     if pa.types.is_integer(tp):
         return "int"
     return None
+
+
+def _is_numeric(tp: Optional[pa.DataType]) -> bool:
+    return tp is not None and (
+        pa.types.is_integer(tp) or pa.types.is_floating(tp) or pa.types.is_boolean(tp)
+    )
+
+
+def _distinct_masks(
+    blocks: TorchBlocks, keys: List[str], distinct_args: Dict[str, str]
+) -> Dict[str, torch.Tensor]:
+    """Per DISTINCT argument, the first-occurrence mask of each (keys,
+    value) over the padded rows (``_distinct_factorize`` and
+    ``_apply_distinct_mask``, ``:3749-3776``): the factorization of the
+    keys and the argument (``groupby.factorize_keys``, cached on the
+    frame), then ``first_idx[seg] == row``. Rows that are not real carry
+    the sentinel id; clamped, it points at a real row, never at them."""
+    out: Dict[str, torch.Tensor] = {}
+    for argname in dict.fromkeys(distinct_args.values()):
+        fr = groupby.factorize_keys(blocks, keys + [argname])
+        pad_n = blocks.padded_nrows
+        if fr.num_segments == 0:
+            out[argname] = torch.zeros((pad_n,), dtype=torch.bool, device=blocks.device)
+            continue
+        first = fr.first_idx.index_select(0, fr.seg.clamp(max=fr.num_segments - 1))
+        out[argname] = first == torch.arange(pad_n, dtype=torch.int32, device=blocks.device)
+    return out
 
 
 def _pad_to(v: torch.Tensor, target: int) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Group-by on the card: key factorization and the fused binned sums.
+"""Group-by on the card: key factorization and the per-segment
+reductions.
 
 The port of ``fugue_tpu/jax_backend/groupby.py``. Two factorizations, as
 there:
@@ -22,6 +23,12 @@ there:
   per key code, K2 (boundaries over the codes gathered at the order) and
   K3 (the scatter back to row order).
 
+Over the segment ids, ``segment_aggs`` computes every aggregation of a
+plan (``_segment_agg_impl``): sums and counts in the fused kernel, min,
+max and each segment's last row in K4 (``kernels/segment_reduce.cu``),
+the variance's second pass in K5, the median by one sort of a
+(segment, value) word.
+
 The JAX package's other segment-sum strategies (one-hot matmul, bf16
 matmul, sorted scatter) were built for the TPU's matrix unit and are not
 carried over. Every kernel has its plain twin in ``kernels/reference.py``,
@@ -33,6 +40,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from fugue_tpu_torch.column.expressions import VARIANCE_FUNCS
 from fugue_tpu_torch.kernels.factorize import (
     bin_factorize_cuda,
     sort_boundaries_cuda,
@@ -44,12 +52,17 @@ from fugue_tpu_torch.kernels.factorize import (
 from fugue_tpu_torch.kernels.reference import (
     MAX_KEYS,
     BinKey,
+    Extrema,
+    Extremum,
     Payload,
     SortWord,
     bin_factorize_reference,
     bin_segments,
     binned_sums_reference,
+    float_sum_dtype,
     has_unreal_rows,
+    segment_extrema_reference,
+    segment_sq_dev_reference,
     sort_factorize_reference,
     sort_finish_reference,
     sort_word_boundaries_reference,
@@ -57,6 +70,7 @@ from fugue_tpu_torch.kernels.reference import (
     sort_word_reference,
     word_bits,
 )
+from fugue_tpu_torch.kernels.segment_reduce import segment_extrema_cuda, segment_sq_dev_cuda
 from fugue_tpu_torch.kernels.segment_sums import binned_sums_cuda
 from fugue_tpu_torch.torch_backend.blocks import TorchBlocks
 
@@ -219,6 +233,7 @@ def binned_sums(
     counts: Sequence[torch.Tensor] = (),
     ints: Sequence[Payload] = (),
     occupancy: bool = True,
+    f64: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Segment ids, row validity and every sum-type reduction of an
     aggregate in one pass, with the contract of
@@ -227,7 +242,7 @@ def binned_sums(
     them."""
     run = _kernel(keys[0].data, binned_sums_cuda, binned_sums_reference, "binned sums")
     return run(keys, nrows=nrows, row_valid=row_valid, floats=floats, counts=counts,
-               ints=ints, occupancy=occupancy)
+               ints=ints, occupancy=occupancy, f64=f64)
 
 
 def segment_sums(
@@ -472,3 +487,269 @@ def _sort_factorize(blocks: TorchBlocks, keys: List[str]) -> Factorized:
         seg, num, first_idx, None,
         torch.tensor(num, dtype=torch.int32, device=blocks.device),
     )
+
+
+def segment_extrema(
+    seg: torch.Tensor,
+    num: int,
+    payloads: Sequence[Extremum],
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    first: bool = False,
+    last: bool = False,
+) -> Extrema:
+    """K4 on a CUDA ``seg``, its twin ``segment_extrema_reference`` on a
+    CPU one: per payload its min and max over each segment, and each
+    segment's first and last row."""
+    run = _kernel(seg, segment_extrema_cuda, segment_extrema_reference, "segment extrema")
+    return run(seg, num, payloads, nrows=nrows, row_valid=row_valid, first=first, last=last)
+
+
+def segment_sq_dev(
+    seg: torch.Tensor,
+    num: int,
+    payloads: Sequence[Payload],
+    means: torch.Tensor,
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K5 on a CUDA ``seg``, its twin ``segment_sq_dev_reference`` on a CPU
+    one: per payload the float64 sum of squared deviations from each
+    segment's mean."""
+    run = _kernel(seg, segment_sq_dev_cuda, segment_sq_dev_reference, "segment sq dev")
+    return run(seg, num, payloads, means, nrows=nrows, row_valid=row_valid)
+
+
+def segment_median(
+    values: torch.Tensor,
+    eff: Optional[torch.Tensor],
+    seg: torch.Tensor,
+    num: int,
+    counts: torch.Tensor,
+) -> torch.Tensor:
+    """Per-segment median of ``values`` over the rows where ``eff`` holds
+    (None: every row), in float64 (``groupby.py:686-710``): the rows
+    sorted by (segment, value), ties in row order, then the mean of the
+    middle one or two of each segment's ``counts[s]`` positions. ``seg``
+    holds ``num`` on rows that are not real; ``counts`` are the rows per
+    segment where ``eff`` holds.
+
+    A value of up to 32 bits sorts with its segment as one int64 word
+    (``sort_word``: KW on the card), once; an int64 or float64 value takes
+    the JAX package's two stable sorts, by value and then by segment.
+    -0.0 ties with +0.0 in either, as it does there."""
+    n = int(values.shape[0])
+    seg_eff = seg if eff is None else torch.where(eff, seg, num)
+    pair = [(seg_eff, None), (values, None)]
+    if word_bits(pair, False) <= 64:
+        word = sort_word(pair, nrows=n)
+        order = torch.sort(word.word, stable=True).indices  # type: ignore[union-attr]
+    else:
+        key = values.to(torch.float64) + 0.0  # -0.0 + 0.0 is +0.0
+        if eff is not None:
+            key = torch.where(eff, key, float("inf"))
+        order = torch.sort(key, stable=True).indices
+        order = order[torch.sort(seg_eff[order], stable=True).indices]
+    cnt = counts.to(torch.int64)
+    starts = torch.cumsum(cnt, 0) - cnt
+    lo = (starts + torch.div(cnt - 1, 2, rounding_mode="floor")).clamp(0, n - 1)
+    hi = (starts + cnt // 2).clamp(0, n - 1)
+
+    def at(pos: torch.Tensor) -> torch.Tensor:
+        return values.index_select(0, order.index_select(0, pos)).to(torch.float64)
+
+    return (at(lo) + at(hi)) * 0.5
+
+
+class AggRequest(NamedTuple):
+    """One aggregation as ``segment_aggs`` takes it.
+
+    - ``func``: count, sum, avg/mean, min, max, first, last, median or one
+      of ``VARIANCE_FUNCS``, in lower case;
+    - ``values``: its argument over the frame's padded rows (None for
+      COUNT(*));
+    - ``mask``: True where the row's value takes part (False on its nulls
+      and, for a DISTINCT aggregation, on repeats); None: every value;
+    - ``vkey``, ``mkey``: identities of ``values`` and ``mask`` ("" for
+      None). Requests with equal keys share their payloads and counts."""
+
+    func: str
+    values: Optional[torch.Tensor]
+    mask: Optional[torch.Tensor]
+    vkey: str
+    mkey: str
+
+
+_SUM_AGGS = ("count", "sum", "avg", "mean")
+
+
+def segment_aggs(
+    requests: Sequence[AggRequest],
+    span: int,
+    rows: Dict[str, Any],
+    *,
+    seg: Optional[torch.Tensor] = None,
+    keys: Optional[List[BinKey]] = None,
+    first_idx: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, Optional[torch.Tensor]]]]:
+    """Every aggregation of a plan by segment (``_segment_agg_impl``,
+    ``groupby.py:602-726``), each function on its route:
+
+    - count, sum, avg: the fused kernel (``binned_sums``), one launch for
+      the whole plan, over ``keys`` (the binned aggregate's key columns)
+      or ``seg`` as the one key of span ``span``;
+    - min, max: K4 (``segment_extrema``), one launch for the plan; first
+      and last: the value at each segment's first row (``first_idx`` where
+      given, which is that row) or last row (K4);
+    - the variance family: the count and float64 sum of the rows that are
+      not NaN (the fused kernel in float64: in the plan's launch, or in a
+      second one where the plan also sums float32 payloads in float32),
+      then K5 (``segment_sq_dev``) over the means;
+    - median: ``segment_median``.
+
+    ``seg`` int32 holds each row's segment in ``[0, span)``, and ``span``
+    on rows that are not real; the binned aggregate passes ``keys`` and no
+    ``seg``, and then only count/sum/avg. ``rows`` are the frame's rows as
+    ``frame_rows`` gives them (``{"nrows": 0}`` to read none). Returns the
+    rows of each segment (int32[span]) and per request ``(values[span],
+    mask[span] or None)`` with the JAX package's masks: none for count,
+    ``count > 0`` for sum/avg/min/max/median, more than 0 (pop) or 1
+    (sample) rows that are not NaN for the variance family, and for
+    first/last the value's own mask at the row picked, and whether the
+    segment has a row."""
+    if seg is None and any(r.func not in _SUM_AGGS for r in requests):
+        raise ValueError("min/max/first/last/median/variance need the segment ids")
+    counts: List[torch.Tensor] = []
+    ckeys: Dict[str, int] = {"": 0}  # slot 0 counts every row of the segment
+    pays: Dict[str, List[Payload]] = {"f": [], "i": [], "v": []}
+    pkeys: Dict[str, Dict[str, int]] = {"f": {}, "i": {}, "v": {}}
+    var_counts: List[int] = []  # each variance payload's count slot
+    ext: List[List[Any]] = []  # [values, mask, min, max] per K4 payload
+    ext_keys: Dict[str, int] = {}
+    meds: List[Tuple[torch.Tensor, Optional[torch.Tensor], int]] = []
+    eff_cache: Dict[str, Tuple[Optional[torch.Tensor], str]] = {}
+    need_first = need_last = False
+
+    def count_slot(key: str, mask: Optional[torch.Tensor]) -> int:
+        if mask is None:
+            return 0
+        if key not in ckeys:
+            counts.append(mask)
+            ckeys[key] = len(counts)
+        return ckeys[key]
+
+    def payload_slot(kind: str, key: str, item: Payload) -> int:
+        if key not in pkeys[kind]:
+            pays[kind].append(item)
+            pkeys[kind][key] = len(pays[kind]) - 1
+        return pkeys[kind][key]
+
+    def not_nan(r: AggRequest) -> Tuple[Optional[torch.Tensor], str]:
+        """The request's mask without the NaN values (pandas skips them in
+        median and variance, ``groupby.py:665``), and its key."""
+        key = f"{r.mkey}|nan:{r.vkey}"
+        if key not in eff_cache:
+            v = r.values
+            if v.is_floating_point():  # type: ignore[union-attr]
+                ok = ~torch.isnan(v)  # type: ignore[arg-type]
+                eff_cache[key] = (ok if r.mask is None else r.mask & ok, key)
+            else:
+                eff_cache[key] = (r.mask, r.mkey)
+        return eff_cache[key]
+
+    plan: List[Tuple[Any, ...]] = []
+    for r in requests:
+        f = r.func
+        if f == "count":
+            plan.append((f, count_slot(r.mkey, r.mask)))
+        elif f in _SUM_AGGS:
+            kind = "f" if r.values.is_floating_point() else "i"  # type: ignore[union-attr]
+            si = payload_slot(kind, f"{r.vkey}|{r.mkey}", (r.values, r.mask))  # type: ignore
+            plan.append((f, kind, si, count_slot(r.mkey, r.mask)))
+        elif f in ("min", "max"):
+            key = f"{r.vkey}|{r.mkey}"
+            if key not in ext_keys:
+                ext_keys[key] = len(ext)
+                ext.append([r.values, r.mask, False, False])
+            ext[ext_keys[key]][2 if f == "min" else 3] = True
+            plan.append((f, ext_keys[key], count_slot(r.mkey, r.mask)))
+        elif f in ("first", "last"):
+            need_first |= f == "first" and first_idx is None
+            need_last |= f == "last"
+            plan.append((f, r))
+        elif f == "median" or f in VARIANCE_FUNCS:
+            eff, ekey = not_nan(r)
+            ci = count_slot(ekey, eff)
+            if f == "median":
+                meds.append((r.values, eff, ci))  # type: ignore[arg-type]
+                plan.append((f, len(meds) - 1, ci))
+                continue
+            v = r.values if r.values.is_floating_point() else r.values.to(torch.float64)  # type: ignore
+            vi = payload_slot("v", f"{r.vkey}|{ekey}", (v, eff))
+            if vi == len(var_counts):
+                var_counts.append(ci)
+            plan.append((f, vi, ci))
+        else:
+            raise ValueError(f"aggregation {f} has no segment route")
+
+    fkeys = keys if keys is not None else [BinKey(seg, None, 0, span)]  # type: ignore[arg-type]
+    floats, var = pays["f"], pays["v"]
+    # variance payloads sum in float64: with the plan's floats unless those
+    # sum in float32, then in a launch of their own
+    joined = not floats or float_sum_dtype(floats) == torch.float64
+    f_sums, c_sums, i_sums = binned_sums(
+        fkeys, **rows, floats=floats + var if joined else floats, counts=counts,
+        ints=pays["i"], f64=joined and bool(var),
+    )
+    v_sums = f_sums[len(floats):]
+    if var and not joined:
+        v_sums = binned_sums(fkeys, **rows, floats=var, occupancy=False, f64=True)[0]
+    extrema = None
+    if ext or need_first or need_last:
+        extrema = segment_extrema(seg, span, [Extremum(*e) for e in ext], **rows,  # type: ignore
+                                  first=need_first, last=need_last)
+    sq_dev = None
+    if var:
+        means = torch.stack([v_sums[j] / torch.clamp(c_sums[ci], min=1)
+                             for j, ci in enumerate(var_counts)])
+        sq_dev = segment_sq_dev(seg, span, var, means, **rows)  # type: ignore[arg-type]
+    med_vals = [segment_median(v, eff, seg, span, c_sums[ci])  # type: ignore[arg-type]
+                for v, eff, ci in meds]
+
+    occupancy = c_sums[0]
+    out: List[Tuple[torch.Tensor, Optional[torch.Tensor]]] = []
+    for item in plan:
+        f = item[0]
+        if f == "count":
+            out.append((c_sums[item[1]], None))
+        elif f in _SUM_AGGS:
+            _, kind, si, ci = item
+            tot, cnt = (i_sums if kind == "i" else f_sums)[si], c_sums[ci]
+            if f != "sum":  # integer sums divide in float64, as in the JAX package
+                tot = (tot.to(torch.float64) if kind == "i" else tot) / torch.clamp(cnt, min=1)
+            out.append((tot, cnt > 0))
+        elif f in ("min", "max"):
+            _, j, ci = item
+            out.append(((extrema.mins if f == "min" else extrema.maxs)[j],  # type: ignore
+                        c_sums[ci] > 0))
+        elif f in ("first", "last"):
+            r = item[1]
+            best = first_idx if f == "first" and first_idx is not None else (
+                extrema.first if f == "first" else extrema.last)  # type: ignore[union-attr]
+            best = best.clamp(0, int(r.values.shape[0]) - 1)  # type: ignore
+            has = occupancy > 0
+            out.append((r.values.index_select(0, best),  # type: ignore[union-attr]
+                        has if r.mask is None else has & r.mask.index_select(0, best)))
+        elif f == "median":
+            _, j, ci = item
+            out.append((med_vals[j], c_sums[ci] > 0))
+        else:  # the variance family
+            _, j, ci = item
+            cnt = c_sums[ci].to(torch.float64)
+            pop = f.endswith("_pop")
+            var_ = sq_dev[j] / torch.clamp(cnt if pop else cnt - 1, min=1)  # type: ignore
+            out.append((torch.sqrt(var_) if f.startswith("stddev") else var_,
+                        c_sums[ci] > (0 if pop else 1)))
+    return occupancy, out

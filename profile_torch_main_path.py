@@ -6,9 +6,11 @@
 Builds each path of ``chip_smoke.py`` at 100M rows: the headline
 (transform, then the binned aggregate; 1024 groups, seed 42), the
 partitioned transform of ``BASELINE.json``'s second configuration (512
-groups, seed 1) and the sort-path aggregate on the float32 key, the wide
+groups, seed 1), the sort-path aggregate on the float32 key, the wide
 int64 key and the two as one key pair over 1024 groups, and on the
-float32 key over 2^18 and 2^20 groups. Each is warmed up with two runs,
+float32 key over 2^18 and 2^20 groups, and the full group-by (every
+aggregate function and two DISTINCT ones, by the headline key and with no
+key). Each is warmed up with two runs,
 then run ``RUNS`` times under ``torch.profiler``; for each the script
 prints one JSON object: the
 wall seconds per run, the device's busy and idle share of that wall time
@@ -97,6 +99,13 @@ def main() -> None:
             run_for = chip_smoke.build_sort_path(device, rows, many, seed)[0]
             profile_path(f"sort_path_float_key_{many}_groups", run_for("float_key"), device,
                          table)
+        del run_for
+        torch.cuda.empty_cache()
+        run_full = chip_smoke.build_full_groupby(device, rows, groups,
+                                                 chip_smoke.DISTINCT_VALUES, seed)[0]
+        for keyed in (True, False):
+            profile_path(f"full_groupby_{'keyed' if keyed else 'keyless'}", run_full(keyed),
+                         device, table)
 
 
 if __name__ == "__main__":
