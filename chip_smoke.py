@@ -26,7 +26,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``segment_sq_dev`` within rtol 1e-10 in every case of ``reduce_cases``
    (every payload dtype, masked payloads, NaN, -0.0, +0.0 and infinities,
    prefix and masked frames, one segment, 2^20 segments in global tables,
-   more payloads than one launch takes), up to 100M rows.
+   more payloads than one launch takes), up to 100M rows. Then K6
+   ``expr_program`` against its twin (``expr_program_vs_twin``): every
+   program of ``k6_cases`` (every operator family over every dtype, with
+   nulls, NaN, -0.0, infinities and integer extremes, in columns mode, and
+   filter conditions over prefix rows and a ``row_valid``) at n = 1 and
+   2^20 + 37, and the paths' programs (``k6_path_programs``) at 1,
+   2^20 + 37, 10M and 100M rows: masks, filter flags and counts exactly,
+   values bit for bit, the float functions within ``K6_FUNC_RTOL``.
 4. paths through the entry points, each with every launch count zeroed
    just before its cold run and read just after, checked against numpy:
    the main path (100M rows, an int32 key over 1024 groups and a float32
@@ -44,7 +51,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``k`` and with no key: K1, the word route of the (k, u) pairs, the fused
    sums twice, K4, K5 and the median's sort word), checked against a
    float64 numpy oracle at the full size. Each cold run is split into
-   stages (``StageTimer``). Each reports cold and best-of-5 warm seconds,
+   stages (``StageTimer``). Then K6's paths (``filtered_paths``,
+   ``config3_select``): the filtered pipeline at 100M rows (the headline
+   UDF passing ``u`` and ``x`` through, a filter, an assign of a CASE
+   WHEN and a cast, the aggregate by ``k``: K6 twice, the fused sums
+   once, the filter's count still lazy after the run), the WHERE/HAVING
+   select at 100M rows (K6 three times) and BASELINE config 3's select at
+   10M rows (no K6), each against numpy, their launches asserted
+   (``K6_PATH_LAUNCHES``). Each reports cold and best-of-5 warm seconds,
    rows/s, peak device memory and, on the sort path, its route.
 5. timing with CUDA events at the paths' shapes: each kernel beside its
    plain twin, one PyTorch call computing the same function where there
@@ -52,7 +66,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    variant sweep and one-group shape; ``torch.sort`` of the int32 and
    int64 sort words; and K3's two routes over 1024 to 10^8 groups
    (``k3_routes``), each on a line of its own; K4 and K5 at the full
-   group-by's shapes, and the median's two routes (``median_timing``).
+   group-by's shapes, the median's two routes (``median_timing``) and the
+   DISTINCT mask (``distinct_mask_timing``), each beside its bound;
+   K6's path programs at 100M rows (``expr_timing``: time, twin time and
+   the kernels the twin launches, bytes bound) and programs of growing
+   size (``k6_scaling``).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -359,24 +377,32 @@ def binned_vs_twin(device: Any, kernel: Callable[..., Any]) -> float:
 
 def _wrappers() -> List[Callable[..., Any]]:
     """Every kernel wrapper, each with its launch count."""
-    from fugue_tpu_torch.kernels import factorize, segment_reduce, segment_sums
+    from fugue_tpu_torch.kernels import expr_program, factorize, segment_reduce, segment_sums
 
     return [segment_sums.binned_sums_cuda, factorize.bin_factorize_cuda,
             factorize.sort_word_cuda, factorize.sort_word_boundaries_cuda,
             factorize.sort_word_lookup_cuda, factorize.sort_boundaries_cuda,
             factorize.sort_finish_cuda, segment_reduce.segment_extrema_cuda,
-            segment_reduce.segment_sq_dev_cuda]
+            segment_reduce.segment_sq_dev_cuda, expr_program.expr_program_cuda]
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count."""
-    return {f.__name__[: -len("_cuda")]: f.launches for f in _wrappers()}
+    """Every kernel wrapper's launch count, and K6's filter-mode launches
+    (``expr_program_filter``, part of ``expr_program``'s)."""
+    from fugue_tpu_torch.kernels.expr_program import expr_program_cuda
+
+    counts = {f.__name__[: -len("_cuda")]: f.launches for f in _wrappers()}
+    counts["expr_program_filter"] = expr_program_cuda.filter_launches
+    return counts
 
 
 def zero_launches() -> None:
-    """Sets every kernel wrapper's launch count to 0."""
+    """Sets every kernel wrapper's launch counts to 0."""
+    from fugue_tpu_torch.kernels.expr_program import expr_program_cuda
+
     for f in _wrappers():
         f.launches = 0
+    expr_program_cuda.filter_launches = 0
 
 
 def bin_factorize_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
@@ -1738,9 +1764,638 @@ def median_timing(device: Any) -> Dict[str, Any]:
         "word_ms": time_cuda(lambda: groupby.segment_median(value, None, seg, GROUPS, counts), 5),
         "two_sorts_ms": time_cuda(
             lambda: groupby.segment_median(wide, None, seg, GROUPS, counts), 5),
+        # the values and segment ids read once, the medians written once
+        "bound_ms": (ROWS * (4 + 4) + GROUPS * 8) / HBM_BYTES_PER_S * 1e3,
     }
     print("median: " + json.dumps(out))
     return out
+
+
+def distinct_mask_timing(device: Any) -> Dict[str, Any]:
+    """The DISTINCT first-occurrence mask (the engine's ``_distinct_masks``:
+    ``first_idx[seg] == row``) with CUDA events at the keyed full
+    group-by's shape: 100M rows over the ~10.24M (k, u) pairs, beside its
+    bound (the ids and the gathered first rows read once, the mask
+    written once: 9 bytes a row)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    num = GROUPS * DISTINCT_VALUES
+    seg = torch.randint(0, num, (ROWS,), generator=gen, device=device, dtype=torch.int32)
+    first_idx = torch.randint(0, ROWS, (num,), generator=gen, device=device, dtype=torch.int32)
+
+    def mask() -> Any:
+        first = first_idx.index_select(0, seg.clamp(max=num - 1))
+        return first == torch.arange(ROWS, dtype=torch.int32, device=device)
+
+    out = {"rows": ROWS, "pairs": num, "ms": time_cuda(mask, 5),
+           "bound_ms": ROWS * (4 + 4 + 1) / HBM_BYTES_PER_S * 1e3}
+    print("distinct_mask: " + json.dumps(out))
+    return out
+
+
+# --- K6 expr_program: the kernel against its twin, the three paths, timing ---
+
+# float64 rtol of the float functions (sqrt, exp, the logarithms, sin,
+# cos, tan, power): CUDA's and torch's libraries agree to about 1 ulp
+K6_FUNC_RTOL = 1e-13
+K6_FUNCS = ("sqrt", "exp", "ln", "log2", "log10", "sin", "cos", "tan", "power")
+K6_TYPES = ("bool", "i8", "i32", "i64", "u8", "f32", "f64")
+HAVING_COUNT = 87_900  # SELECT ... HAVING COUNT(*) > this, at 100M rows
+CONFIG3_ROWS, CONFIG3_GROUPS, CONFIG3_SEED = 10_000_000, 256, 2  # bench.py:841-870
+FILTER_COND = "((v2 >= 1.2) & (u != 7)) | x IS NULL"
+
+
+def k6_frame(device: Any, n: int, seed: int) -> Any:
+    """A frame of ``n`` rows with a column of every dtype K6 reads, twice
+    (``<t>`` with nulls, ``<t>_b`` without): floats with NaN, -0.0, +0.0
+    and infinities, integers with their type's extremes."""
+    import torch
+
+    from fugue_tpu_torch.kernels.expr_program import _PA, CODES
+    from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, TorchColumn
+
+    ints, flags, floats, _ = _draws(device, n, seed)
+    dtypes = {"bool": torch.bool, "i8": torch.int8, "i32": torch.int32, "i64": torch.int64,
+              "u8": torch.uint8, "f32": torch.float32, "f64": torch.float64}
+    special = torch.tensor([float("nan"), -0.0, 0.0, float("inf"), -float("inf"), 1.5, -2.25,
+                            0.5, 3.0e7], dtype=torch.float64, device=device)
+    cols = {}
+    for t, dtype in dtypes.items():
+        for suffix, nulls in (("", 0.2), ("_b", 0.0)):
+            if t == "bool":
+                v = flags(0.5)
+            elif dtype.is_floating_point:
+                v = torch.where(flags(0.3), special[ints(0, len(special), torch.int64)],
+                                floats(torch.float64) * 200).to(dtype)
+            else:
+                info = torch.iinfo(dtype)
+                edge = torch.tensor([info.min, info.max, 0, 1], dtype=dtype, device=device)
+                lo = 0 if info.min == 0 else -50
+                v = torch.where(flags(0.1), edge[ints(0, 4, torch.int64)],
+                                ints(lo, 50, torch.int64).to(dtype))
+            mask = flags(1.0 - nulls) if nulls else None
+            cols[t + suffix] = TorchColumn(_PA[CODES[dtype]], v.contiguous(), mask)
+    return TorchBlocks(n, cols, device)
+
+
+def k6_cases() -> List[Tuple[str, List[Any], bool]]:
+    """K6's checked programs: ``(label, expressions, filter mode)``. Every
+    operator family over every dtype, several expressions a program
+    (columns mode), and filter conditions."""
+    import pyarrow as pa
+
+    from fugue_tpu_torch.column.expressions import _FuncExpr, col, lit, null
+    from fugue_tpu_torch.column.functions import case_when, coalesce
+
+    def fn(name: str, *args: Any) -> Any:
+        return _FuncExpr(name, *args)
+
+    cases: List[Tuple[str, List[Any], bool]] = []
+    for t in K6_TYPES:
+        a, b = col(t), col(t + "_b")
+        cases.append((f"logic_{t}", [a.is_null(), a.not_null(), ~a, a & col("bool"),
+                                     col("bool_b") | a, fn("abs", a),
+                                     fn("iif", col("bool"), a, b), fn("nullif", a, b)], False))
+        cases.append((f"compare_{t}", [a == b, a != b, a < b, a <= b, a > b, a >= b,
+                                       coalesce(a, b),
+                                       case_when(col("f64") > 0.0, a, col("i8").is_null(), b, a)],
+                      False))
+        cases.append((f"cast_{t}", [a.cast(to) for to in (pa.bool_(), pa.int8(), pa.int32(),
+                                                          pa.int64(), pa.uint8(), pa.float32(),
+                                                          pa.float64())], False))
+        if t != "bool":
+            arith = [a + b, a - b, a * b, -a, fn("sign", a), fn("floor", a), fn("ceil", a)]
+            if t != "u8":
+                arith.append(fn("mod", a, b))
+            cases.append((f"arith_{t}", arith, False))
+    f = col("f64")
+    cases += [
+        ("div_round_f64", [f / col("f64_b"), col("i64") / col("i32_b"), f / 3.0,
+                           fn("round", f, 2), fn("round", f, -1), fn("round", f),
+                           fn("mod", f, 2.5), col("i8") - col("bool")], False),
+        ("funcs_f64", [fn(name, f) for name in K6_FUNCS[:-1]] + [fn("power", f, col("f64_b"))],
+         False),
+        ("mixed", [col("i8") + col("f32"), col("i32") * col("i64"), col("u8") + col("u8_b"),
+                   col("i64") + 9223372036854775807, f * -0.0, col("f32") - 3,
+                   (col("i32") + null()).is_null(), coalesce(col("i64"), lit(5), col("i64_b"))],
+         False),
+        ("filter_pipeline", [((col("f32") >= 1.2) & (col("i32") != 7)) | f.is_null()], True),
+        ("filter_kleene", [(col("bool") & ~col("i8")) | col("f64").not_null()], True),
+        ("filter_float", [f], True),
+        ("filter_null", [null()], True),
+        ("filter_case", [case_when(col("f32") > 0.5, col("bool"), col("bool_b"))], True),
+        # 16 live outputs: more than 16 registers, one row a thread a step
+        ("wide", [col("i64") * i + col("i32") for i in range(16)], False),
+    ]
+    return cases
+
+
+def k6_path_programs() -> List[Tuple[str, List[Any], bool]]:
+    """The programs the three paths run, over ``k6_frame``'s columns."""
+    import pyarrow as pa
+
+    from fugue_tpu_torch.column.expressions import col
+    from fugue_tpu_torch.column.functions import case_when, coalesce
+
+    v2, u, x = col("f32"), col("i32"), col("f64")
+    return [
+        ("path_filter", [((v2 >= 1.2) & (u != 7)) | x.is_null()], True),
+        ("path_assign", [case_when(v2 > 2.0, v2 * 2 - 1, coalesce(x, 0.0)),
+                         u.cast(pa.float64()) / 3], False),
+        ("path_where", [col("f32_b") < 0.9], True),
+        ("path_agg_arg", [v2 * 2], False),
+    ]
+
+
+def _uses_func(expr: Any) -> bool:
+    text = str(expr).lower()
+    return any(f"{name}(" in text for name in K6_FUNCS)
+
+
+def _run_k6(blocks: Any, exprs: List[Any], filt: bool, rows: Dict[str, Any]) -> Tuple[Any, Any, Any]:
+    """``(program, kernel's result, twin's result)`` on the same tensors."""
+    import torch
+
+    from fugue_tpu_torch.kernels.expr_program import compile_program, expr_program_cuda
+    from fugue_tpu_torch.kernels.reference import expr_program_reference
+
+    cols = {n: (c.data.dtype, c.mask is not None) for n, c in blocks.columns.items()}
+    prog = compile_program(exprs, [torch.bool] if filt else [None] * len(exprs), cols)
+    inputs = [(blocks.columns[n].data, blocks.columns[n].mask) for n, _ in prog.inputs]
+    n = blocks.padded_nrows
+    kw = dict(filter=True, **rows) if filt else {}
+    got = expr_program_cuda(prog, inputs, n, device=blocks.device, **kw)
+    want = expr_program_reference(prog, inputs, n, device=blocks.device, **kw)
+    return prog, got, want
+
+
+def check_k6(label: str, exprs: List[Any], filt: bool, got: Any, want: Any) -> float:
+    """Filter mode: keep flags and count exactly. Columns mode: each
+    output's mask exactly and its values where valid bit for bit (NaN's
+    sign aside), or within ``K6_FUNC_RTOL`` where it calls a float
+    function. Returns the largest absolute difference."""
+    import torch
+
+    if filt:
+        if not torch.equal(got[0], want[0]) or int(got[1]) != int(want[1]):
+            raise SystemExit(f"FAIL expr_program {label}: keep or count differs from the twin "
+                             f"({int(got[1])} vs {int(want[1])})")
+        return 0.0
+    worst = 0.0
+    for e, (gv, gm), (wv, wm) in zip(exprs, got, want):
+        if (gm is None) != (wm is None) or (gm is not None and not torch.equal(gm, wm)):
+            raise SystemExit(f"FAIL expr_program {label}: the mask of {e} differs")
+        if gv.dtype != wv.dtype:
+            raise SystemExit(f"FAIL expr_program {label}: {e} is {gv.dtype}, twin {wv.dtype}")
+        valid = torch.ones_like(gv, dtype=torch.bool) if gm is None else gm
+        g, w = gv[valid], wv[valid]
+        if g.is_floating_point():
+            nan = torch.isnan(g)
+            if not torch.equal(nan, torch.isnan(w)):
+                raise SystemExit(f"FAIL expr_program {label}: NaNs of {e} differ")
+            g, w = g[~nan], w[~nan]
+            if _uses_func(e):
+                if not torch.allclose(g.double(), w.double(), rtol=K6_FUNC_RTOL, atol=0):
+                    raise SystemExit(f"FAIL expr_program {label}: {e} beyond rtol {K6_FUNC_RTOL}")
+            elif not torch.equal(g.view(torch.int64 if g.element_size() == 8 else torch.int32),
+                                 w.view(torch.int64 if w.element_size() == 8 else torch.int32)):
+                raise SystemExit(f"FAIL expr_program {label}: {e} differs from the twin")
+            finite = torch.isfinite(g) & torch.isfinite(w)
+            if bool(finite.any()):
+                worst = max(worst, float((g[finite].double() - w[finite].double()).abs().max()))
+        elif not torch.equal(g, w):
+            raise SystemExit(f"FAIL expr_program {label}: {e} differs from the twin")
+    return worst
+
+
+def expr_program_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
+    """K6 against its twin: every case of ``k6_cases`` at the sizes below
+    10M rows, the paths' programs (``k6_path_programs``) at every size;
+    filter programs over prefix rows (all, and all but 3) and a random
+    ``row_valid``."""
+    import torch
+
+    worst = 0.0
+    for n in sizes:
+        blocks = k6_frame(device, n, SEED + n % 97)
+        rows_variants = [{"nrows": n}, {"nrows": max(n - 3, 0)},
+                         {"row_valid": torch.rand((n,), device=device) < 0.6}]
+        cases = k6_path_programs() + (k6_cases() if n < 10_000_000 else [])
+        for label, exprs, filt in cases:
+            for rows in (rows_variants if filt else [{}]):
+                _, got, want = _run_k6(blocks, exprs, filt, rows)
+                worst = max(worst, check_k6(f"{label} n={n}", exprs, filt, got, want))
+        print(f"ok expr_program n={n}: {len(cases)} programs against the twin")
+        del blocks
+        torch.cuda.empty_cache()
+    return worst
+
+
+def filtered_frame(rows: int, groups: int, seed: int) -> Dict[str, Any]:
+    """The headline frame (``k`` int32 over ``groups``, ``v`` float32, from
+    seed 42's generator as ``bench.py:538-545``), ``u`` int32 uniform over
+    [0, 10000) and ``x`` float64 with about 5 % nulls."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, groups, rows).astype(np.int32)
+    v = rng.random(rows).astype(np.float32)
+    u = rng.integers(0, DISTINCT_VALUES, rows).astype(np.int32)
+    x = rng.standard_normal(rows)
+    xnull = rng.random(rows) < 0.05
+    return {"k": k, "v": v, "u": u, "x": x, "xnull": xnull}
+
+
+def build_filtered_paths(device: Any, rows: int, groups: int, seed: int
+                         ) -> Tuple[Dict[str, Callable[[], Tuple[float, Any, Any]]], Dict[str, Any]]:
+    """Upload ``filtered_frame`` and return ``(run_for, data)``:
+    ``run_for["filtered_pipeline"]`` runs the headline UDF (``v2 =
+    v*2+1``, ``k``, ``v``, ``u`` and ``x`` passed through), the filter
+    ``FILTER_COND``, ``assign(w=CASE WHEN v2 > 2.0 THEN v2*2-1 ELSE
+    COALESCE(x, 0.0) END, y=CAST(u AS double) / 3)`` and the aggregate by
+    ``k`` of sum/avg of ``w`` and ``y`` and the count to pandas;
+    ``run_for["where_having"]`` the UDF, then ``SELECT k, SUM(v2*2) AS s,
+    AVG(v) AS m, COUNT(*) AS c WHERE v < 0.9 GROUP BY k HAVING COUNT(*) >
+    t`` through ``fugue_tpu_torch.select``, ``t`` = ``HAVING_COUNT`` at
+    100M rows over 1024 groups and scaled with the rows a group. Each
+    returns ``(seconds, the filtered frame, result pandas)``."""
+    import pyarrow as pa
+    import torch
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch import aggregate, col, functions as ff
+    from fugue_tpu_torch import make_execution_engine, transform
+    from fugue_tpu_torch.column.functions import case_when, coalesce
+
+    d = filtered_frame(rows, groups, seed)
+    engine = make_execution_engine("torch", device=device)
+    table = pa.table({"k": d["k"], "v": d["v"], "u": d["u"],
+                      "x": pa.array(d["x"], mask=d["xnull"])})
+    src = engine.persist(engine.to_df(table))
+    del table
+    # near the median group count at every size: about half the groups stay
+    threshold = round(HAVING_COUNT * (rows / groups) / (ROWS / GROUPS))
+
+    def udf(a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {"k": a["k"], "v": a["v"], "v2": a["v"] * 2.0 + 1.0, "u": a["u"], "x": a["x"]}
+
+    def transformed() -> Any:
+        return transform(src, udf, schema="k:int,v:float,v2:float,u:int,x:double",
+                         engine=engine, as_fugue=True)
+
+    def pipeline() -> Tuple[float, Any, Any]:
+        t = time.perf_counter()
+        kept = ft.filter(transformed(),
+                         ((col("v2") >= 1.2) & (col("u") != 7)) | col("x").is_null(),
+                         engine=engine, as_fugue=True)
+        wy = ft.assign(kept, engine=engine, as_fugue=True,
+                       w=case_when(col("v2") > 2.0, col("v2") * 2 - 1, coalesce(col("x"), 0.0)),
+                       y=col("u").cast(pa.float64()) / 3)
+        res = aggregate(wy, partition_by="k", engine=engine, as_fugue=True,
+                        sw=ff.sum(col("w")), mw=ff.avg(col("w")), sy=ff.sum(col("y")),
+                        my=ff.avg(col("y")), c=ff.count(col("w")))
+        pdf = res.as_pandas()
+        return time.perf_counter() - t, kept, pdf
+
+    def where_having() -> Tuple[float, Any, Any]:
+        t = time.perf_counter()
+        res = ft.select(transformed(), col("k"), ff.sum(col("v2") * 2).alias("s"),
+                        ff.avg(col("v")).alias("m"), ff.count(col("*")).alias("c"),
+                        where=col("v") < 0.9, having=ff.count(col("*")) > threshold,
+                        engine=engine, as_fugue=True)
+        pdf = res.as_pandas()
+        return time.perf_counter() - t, res, pdf
+
+    d["threshold"] = threshold
+    return {"filtered_pipeline": pipeline, "where_having": where_having}, d
+
+
+def filtered_oracle(d: Dict[str, Any], groups: int) -> Dict[str, Dict[str, Any]]:
+    """Both filtered paths from numpy, in the declared types: ``v2`` and
+    ``v2*2-1`` and ``v2*2`` in float32, comparisons and ``w``, ``y`` in
+    float64; sums and means per group in float64."""
+    import numpy as np
+
+    k, v, u, x, xnull = d["k"], d["v"], d["u"], d["x"], d["xnull"]
+    v2 = v * np.float32(2.0) + np.float32(1.0)
+    v2d = v2.astype(np.float64)
+    keep = ((v2d >= 1.2) & (u != 7)) | xnull
+    w = np.where(v2d > 2.0, (v2 * np.float32(2.0) - np.float32(1.0)).astype(np.float64),
+                 np.where(xnull, 0.0, x))
+    y = u.astype(np.float64) / 3.0
+    kk = k[keep]
+    c = np.bincount(kk, minlength=groups)
+    occ = np.nonzero(c)[0]
+    sw = np.bincount(kk, weights=w[keep], minlength=groups)
+    sy = np.bincount(kk, weights=y[keep], minlength=groups)
+    pipeline = {"kept": int(keep.sum()), "k": occ.astype(np.int32), "c": c[occ],
+                "sw": sw[occ], "mw": sw[occ] / c[occ], "sy": sy[occ], "my": sy[occ] / c[occ]}
+    where = v.astype(np.float64) < 0.9
+    kk = k[where]
+    c = np.bincount(kk, minlength=groups)
+    s = np.bincount(kk, weights=(v2 * np.float32(2.0))[where].astype(np.float64),
+                    minlength=groups)
+    m = np.bincount(kk, weights=v[where].astype(np.float64), minlength=groups)
+    survive = np.nonzero(c > d["threshold"])[0]
+    having = {"kept": int(where.sum()), "k": survive.astype(np.int32), "c": c[survive],
+              "s": s[survive], "m": m[survive] / c[survive],
+              "groups_before_having": int((c > 0).sum())}
+    return {"filtered_pipeline": pipeline, "where_having": having}
+
+
+def _check_columns(pdf: Any, want: Dict[str, Any], exact: Tuple[str, ...],
+                   inexact: Dict[str, float], label: str) -> Dict[str, float]:
+    import numpy as np
+
+    pdf = pdf.sort_values("k").reset_index(drop=True)
+    if len(pdf) != len(want["k"]):
+        raise SystemExit(f"FAIL {label}: {len(pdf)} groups, expected {len(want['k'])}")
+    for name in exact:
+        if not np.array_equal(pdf[name].to_numpy(), want[name]):
+            raise SystemExit(f"FAIL {label}: {name} differs from numpy")
+    rel = {}
+    for name, tol in inexact.items():
+        got = pdf[name].to_numpy().astype(np.float64)
+        rel[name] = float(np.max(np.abs(got - want[name]) / np.abs(want[name]))) if len(got) else 0.0
+        if not (np.all(np.isfinite(got)) and rel[name] <= tol):
+            raise SystemExit(f"FAIL {label}: {name} off by rtol {rel[name]}")
+    return rel
+
+
+# each path's launches in one run: K6 once per filter, assign and
+# aggregate argument list that is more than bare columns
+K6_PATH_LAUNCHES = {
+    "filtered_pipeline": dict(expr_program=2, expr_program_filter=1, binned_sums=1),
+    "where_having": dict(expr_program=3, expr_program_filter=2, binned_sums=1),
+    "config3_select": dict(binned_sums=1),
+}
+FLOAT64_SUM_RTOL = 1e-9  # float64 sums of float64 values in another order
+
+
+def _path_stats(label: str, rows: int, run_once: Callable[[], Tuple[float, Any, Any]],
+                device: Any, warm_runs: int) -> Tuple[Dict[str, Any], Any, Any]:
+    """Cold and warm runs of one path with the launch counts of each,
+    held to ``K6_PATH_LAUNCHES`` on the card; returns the stats, the cold
+    run's frame and pandas."""
+    import torch
+
+    zero_launches()
+    cold_secs, frame, pdf = run_once()
+    cold = launch_counts()
+    lazy = frame.blocks._nrows is None
+    zero_launches()
+    warm = [run_once()[0] for _ in range(warm_runs)]
+    warm_launches = launch_counts()
+    best = min(warm) if warm else cold_secs
+    want = dict.fromkeys(cold, 0)
+    if device.type == "cuda":  # on the CPU every kernel runs as its twin
+        want.update(K6_PATH_LAUNCHES[label])
+    if cold != want or warm_launches != {k: v * warm_runs for k, v in want.items()}:
+        raise SystemExit(f"FAIL {label}: launched {cold} (cold), {warm_launches} (warm), "
+                         f"expected {want} a run")
+    return {
+        "case": label,
+        "rows": rows,
+        "cold_secs": cold_secs,
+        "warm_secs": warm,
+        "best_warm_secs": best,
+        "rows_per_sec": rows / best,
+        "max_memory_allocated": (
+            torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None),
+        "launches": cold,
+        "warm_launches": warm_launches,
+        "count_lazy_after_run": lazy,
+    }, frame, pdf
+
+
+def filtered_paths(device: Any, rows: int, groups: int, seed: int,
+                   warm_runs: int) -> List[Dict[str, Any]]:
+    """The filtered pipeline and the WHERE/HAVING select at ``rows`` rows
+    (``build_filtered_paths``), each against ``filtered_oracle``: keys,
+    counts, the filter's count and the HAVING survivors exactly, float64
+    sums and means within ``FLOAT64_SUM_RTOL``, float32-accumulated ones
+    within ``MAIN_PATH_RTOL``. The filter's count must still be lazy after
+    a run (no readback inside it)."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    run_for, d = build_filtered_paths(device, rows, groups, seed)
+    want = filtered_oracle(d, groups)
+    out = []
+    for label, inexact, exact in (
+        ("filtered_pipeline", {"sw": FLOAT64_SUM_RTOL, "mw": FLOAT64_SUM_RTOL,
+                               "sy": FLOAT64_SUM_RTOL, "my": FLOAT64_SUM_RTOL}, ("k", "c")),
+        ("where_having", {"s": MAIN_PATH_RTOL, "m": MAIN_PATH_RTOL}, ("k", "c")),
+    ):
+        stats, frame, pdf = _path_stats(label, rows, run_for[label], device, warm_runs)
+        if label == "filtered_pipeline":
+            if not stats["count_lazy_after_run"]:
+                raise SystemExit(f"FAIL {label}: the filter's count was read in the run")
+            got_kept = frame.count()
+            if got_kept != want[label]["kept"]:
+                raise SystemExit(f"FAIL {label}: the filter kept {got_kept}, numpy "
+                                 f"{want[label]['kept']}")
+            stats["kept_rows"] = got_kept
+            if list(pdf.columns) != ["k", "sw", "mw", "sy", "my", "c"]:
+                raise SystemExit(f"FAIL {label}: columns {list(pdf.columns)}")
+        else:
+            if list(pdf.columns) != ["k", "s", "m", "c"]:
+                raise SystemExit(f"FAIL {label}: columns {list(pdf.columns)}")
+            stats["groups_before_having"] = want[label]["groups_before_having"]
+            stats["having_survivors"] = len(pdf)
+            stats["having_threshold"] = d["threshold"]
+        stats["max_rel_err"] = _check_columns(pdf, want[label], exact, inexact, label)
+        out.append(stats)
+    return out
+
+
+def build_config3(device: Any, rows: int) -> Tuple[Callable[[], Tuple[float, Any, Any]],
+                                                  Tuple[Any, Any]]:
+    """Upload BASELINE config 3's frame (``bench.py:841-870``: ``rows``
+    rows of ``k`` int32 uniform over 256 and ``v`` float32 from seed 2)
+    and return ``(run_once, (k, v))``: ``SELECT k, SUM(v) AS s, AVG(v) AS
+    m, COUNT(*) AS c GROUP BY k`` built as ``SelectColumns`` (the SQL
+    parser is not ported) and run by the engine's ``select`` to pandas."""
+    import numpy as np
+    import pandas as pd
+
+    from fugue_tpu_torch import SelectColumns, col, functions as ff, make_execution_engine
+
+    rng = np.random.default_rng(CONFIG3_SEED)
+    k = rng.integers(0, CONFIG3_GROUPS, rows).astype(np.int32)
+    v = rng.random(rows).astype(np.float32)
+    engine = make_execution_engine("torch", device=device)
+    src = engine.persist(engine.to_df(pd.DataFrame({"k": k, "v": v})))
+    stmt = SelectColumns(col("k"), ff.sum(col("v")).alias("s"), ff.avg(col("v")).alias("m"),
+                         ff.count(col("*")).alias("c"))
+
+    def run_once() -> Tuple[float, Any, Any]:
+        t = time.perf_counter()
+        res = engine.select(src, stmt)
+        pdf = res.as_pandas()
+        return time.perf_counter() - t, res, pdf
+
+    return run_once, (k, v)
+
+
+def config3_select(device: Any, rows: int, warm_runs: int) -> Dict[str, Any]:
+    """``build_config3``'s select, checked against numpy: keys and counts
+    exactly, float32-accumulated sums and means within
+    ``MAIN_PATH_RTOL``."""
+    import numpy as np
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    run_once, (k, v) = build_config3(device, rows)
+    stats, _, pdf = _path_stats("config3_select", rows, run_once, device, warm_runs)
+    c = np.bincount(k, minlength=CONFIG3_GROUPS)
+    s = np.bincount(k, weights=v.astype(np.float64), minlength=CONFIG3_GROUPS)
+    occ = np.nonzero(c)[0]
+    want = {"k": occ.astype(np.int32), "c": c[occ], "s": s[occ], "m": s[occ] / c[occ]}
+    if list(pdf.columns) != ["k", "s", "m", "c"]:
+        raise SystemExit(f"FAIL config3_select: columns {list(pdf.columns)}")
+    stats["groups"] = len(pdf)
+    stats["max_rel_err"] = _check_columns(pdf, want, ("k", "c"),
+                                          {"s": MAIN_PATH_RTOL, "m": MAIN_PATH_RTOL},
+                                          "config3_select")
+    return stats
+
+
+def _twin_kernels(fn: Callable[[], Any]) -> Optional[int]:
+    """The CUDA kernels one call of ``fn`` launches, from the profiler
+    (None where it records none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def expr_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """K6 with CUDA events at the filtered paths' shapes (100M rows of a
+    float32 ``v2``, an int32 ``u`` and a float64 ``x`` with nulls, a
+    prefix frame): each path program of ``k6_path_programs`` beside its
+    twin (time and the CUDA kernels one call launches) and its bound, the
+    bytes it must move over the HBM rate (each input read once, only the
+    mask of an input read only for IS NULL, each output and mask written
+    once) against its instructions over the float64 rate. Returns the
+    ``kernels`` entries of the columns mode (the assign program) and of
+    the filter mode (the filter program); ``launches`` holds each mode's
+    launches in one run of the filtered pipeline."""
+    import torch
+
+    from fugue_tpu_torch.kernels.expr_program import DTYPES, compile_program, expr_program_cuda
+    from fugue_tpu_torch.kernels.reference import expr_program_reference
+
+    blocks = k6_frame(device, ROWS, SEED)
+    entries = []
+    for label, exprs, filt in k6_path_programs():
+        cols = {n: (c.data.dtype, c.mask is not None) for n, c in blocks.columns.items()}
+        prog = compile_program(exprs, [torch.bool] if filt else [None] * len(exprs), cols)
+        inputs = [(blocks.columns[n].data, blocks.columns[n].mask) for n, _ in prog.inputs]
+        kw = dict(filter=True, nrows=ROWS) if filt else {}
+        got = expr_program_cuda(prog, inputs, ROWS, device=device, **kw)
+        want = expr_program_reference(prog, inputs, ROWS, device=device, **kw)
+        err = check_k6(f"{label} timed", exprs, filt, got, want)
+        del got, want
+        ms = time_cuda(lambda: expr_program_cuda(prog, inputs, ROWS, device=device, **kw), 20)
+        plain_ms = time_cuda(
+            lambda: expr_program_reference(prog, inputs, ROWS, device=device, **kw), 5)
+        twin_kernels = _twin_kernels(
+            lambda: expr_program_reference(prog, inputs, ROWS, device=device, **kw))
+        per_row = 0
+        for (name, code), mask_only in zip(prog.inputs, prog.mask_only):
+            c = blocks.columns[name]
+            per_row += (0 if mask_only else c.data.element_size()) + (c.mask is not None)
+        if filt:
+            per_row += 1
+        else:
+            per_row += sum(torch.empty((), dtype=DTYPES[o.dtype]).element_size() + o.masked
+                           for o in prog.outputs)
+        entry = _kernel_entry(
+            "expr_program" if label == "path_assign" else f"expr_program[{label}]",
+            "fugue_tpu/jax_backend/expr_eval.py:109", 0, err, ms, plain_ms, per_row * ROWS,
+            len(prog.instrs) * ROWS, None, source="expr_program.cu", ops_per_s=FP64_OPS_PER_S)
+        entry["instrs"] = len(prog.instrs)
+        entry["bytes_per_row"] = per_row
+        entry["twin_cuda_kernels"] = twin_kernels
+        print("expr_program timed: " + json.dumps(entry))
+        if label == "path_assign":
+            entry["replaces"] = "fugue_tpu/jax_backend/execution_engine.py:1446"
+            entry["launches"] = launches["columns"]
+            entries.append({k: entry[k] for k in _ENTRY_KEYS})
+        elif label == "path_filter":
+            entry["name"] = "expr_program_filter"
+            entry["replaces"] = "fugue_tpu/jax_backend/execution_engine.py:1387"
+            entry["launches"] = launches["filter"]
+            entries.append({k: entry[k] for k in _ENTRY_KEYS})
+    del blocks
+    torch.cuda.empty_cache()
+    return entries
+
+
+def k6_scaling(device: Any) -> List[Dict[str, Any]]:
+    """Where K6's time goes, at 100M rows with CUDA events: programs from
+    none to 31 instructions over one float32 column (with a mask and
+    without), no input at all, several outputs, a filter; beside torch's
+    copy and multiply of the same column. Each on a line of its own."""
+    import torch
+
+    from fugue_tpu_torch.column.expressions import col, lit
+    from fugue_tpu_torch.kernels.expr_program import compile_program, expr_program_cuda
+
+    blocks = k6_frame(device, ROWS, SEED)
+    cols = {k: (c.data.dtype, c.mask is not None) for k, c in blocks.columns.items()}
+
+    def chain(name: str, k: int) -> Any:
+        e = col(name)
+        for _ in range(k):
+            e = e * 2
+        return e
+
+    cases = {
+        "mul_f32": ([chain("f32_b", 1)], False),
+        "mul_f32_masked": ([chain("f32", 1)], False),
+        "no_input": ([lit(1.5) + 0.0], False),
+        "chain8_f32": ([chain("f32_b", 8)], False),
+        "chain30_f32": ([chain("f32_b", 30)], False),
+        "chain8_i64": ([chain("i64_b", 8)], False),
+        "four_outputs": ([chain("f32_b", 1), col("i32_b") + 1, col("f64_b") * 3.0,
+                          col("i64_b") - 1], False),
+        "filter_lt": ([col("f32_b") < 0.9], True),
+        "filter_no_input": ([lit(True)], True),
+    }
+    out = []
+    for name, (exprs, filt) in cases.items():
+        prog = compile_program(exprs, [torch.bool] if filt else [None] * len(exprs), cols)
+        inputs = [(blocks.columns[k].data, blocks.columns[k].mask) for k, _ in prog.inputs]
+        kw = dict(filter=True, nrows=ROWS) if filt else {}
+        row = {"case": name, "instrs": len(prog.instrs), "inputs": len(prog.inputs),
+               "nregs": prog.nregs,
+               "ms": time_cuda(lambda: expr_program_cuda(prog, inputs, ROWS, device=device, **kw),
+                               20)}
+        print("k6_scaling: " + json.dumps(row))
+        out.append(row)
+    x = blocks.columns["f32_b"].data
+    for name, fn in (("torch_copy", x.clone), ("torch_mul", lambda: x * 2)):
+        row = {"case": name, "ms": time_cuda(fn, 20)}
+        print("k6_scaling: " + json.dumps(row))
+        out.append(row)
+    del blocks
+    torch.cuda.empty_cache()
+    return out
+
+
+_ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 # each kernel's launches in one run of the full group-by: by the key, the
@@ -1785,6 +2440,9 @@ def main() -> None:
     worst = reduce_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
     print(f"kernels checked against their twins: segment_extrema (bit-equal), "
           f"segment_sq_dev (max rel err {worst})")
+    torch.cuda.empty_cache()
+    worst = expr_program_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
+    print(f"kernels checked against their twins: expr_program (max_abs_err={worst})")
 
     stats = main_path(device, ROWS, GROUPS, SEED, WARM_RUNS)
     # one aggregate per run, one fused-kernel launch per aggregate
@@ -1859,6 +2517,13 @@ def main() -> None:
         print("full_groupby: " + json.dumps(st))
     torch.cuda.empty_cache()
 
+    k6_paths = filtered_paths(device, ROWS, GROUPS, SEED, WARM_RUNS)
+    k6_paths.append(config3_select(device, CONFIG3_ROWS, WARM_RUNS))
+    for st in k6_paths:
+        st["card"] = card
+        print("k6_path: " + json.dumps(st))
+    torch.cuda.empty_cache()
+
     stand_ins = stand_in_timing(device)
     stand_ins["card"] = card
     print("stand_ins: " + json.dumps(stand_ins))
@@ -1877,7 +2542,15 @@ def main() -> None:
     entries += reduce_timing(device, {
         name: full[0]["launches"][name] for name in ("segment_extrema", "segment_sq_dev")})
     torch.cuda.empty_cache()
+    pipeline = k6_paths[0]["launches"]
+    entries += expr_timing(device, {
+        "columns": pipeline["expr_program"] - pipeline["expr_program_filter"],
+        "filter": pipeline["expr_program_filter"]})
+    torch.cuda.empty_cache()
+    k6_scaling(device)
     median_timing(device)
+    torch.cuda.empty_cache()
+    distinct_mask_timing(device)
     torch.cuda.empty_cache()
     k3_routes(device, ROWS)
     for entry in entries:

@@ -9,11 +9,14 @@ numeric or bool keys or with none. The per-row work is hand-written CUDA
 kernels: the fused binned sums (``fugue_tpu_torch/kernels/segment_sums.cu``),
 the key factorization (``fugue_tpu_torch/kernels/factorize.cu``) and the
 per-segment extrema and squared deviations
-(``fugue_tpu_torch/kernels/segment_reduce.cu``).
+(``fugue_tpu_torch/kernels/segment_reduce.cu``); and ``select``,
+``filter`` and ``assign`` over the numeric column algebra, each call's
+expressions evaluated by one compiled program in one launch of the
+expression kernel (``fugue_tpu_torch/kernels/expr_program.cu``).
 """
 
-from fugue_tpu_torch.api import aggregate, transform
-from fugue_tpu_torch.column import col, lit
+from fugue_tpu_torch.api import aggregate, assign, filter, select, transform
+from fugue_tpu_torch.column import SelectColumns, col, function, lit, null
 from fugue_tpu_torch.column import functions
 from fugue_tpu_torch.execution import make_execution_engine
 from fugue_tpu_torch.schema import Schema
@@ -22,12 +25,18 @@ from fugue_tpu_torch.torch_backend.execution_engine import TorchExecutionEngine
 
 __all__ = [
     "Schema",
+    "SelectColumns",
     "TorchDataFrame",
     "TorchExecutionEngine",
     "aggregate",
+    "assign",
     "col",
+    "filter",
+    "function",
     "functions",
     "lit",
     "make_execution_engine",
+    "null",
+    "select",
     "transform",
 ]

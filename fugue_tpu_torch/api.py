@@ -1,22 +1,25 @@
-"""The port's entry points: ``transform`` and ``aggregate``, run straight
-on the engine with no workflow DAG (the DAG is not ported yet).
+"""The port's entry points: ``transform``, ``aggregate``, ``select``,
+``filter`` and ``assign``, run straight on the engine with no workflow
+DAG (the DAG is not ported yet).
 
 ``transform`` mirrors ``fugue_tpu/workflow/api.py:15`` for a transformer
 annotated ``Dict[str, torch.Tensor] -> Dict[str, torch.Tensor]``, the
 counterpart of the JAX package's ``Dict[str, jax.Array]`` parameter
-(code ``"j"``, ``fugue_tpu/jax_backend/registry.py:25-32``). ``aggregate``
-mirrors ``fugue_tpu/execution/api.py:351``. Both take pandas, arrow or a
+(code ``"j"``, ``fugue_tpu/jax_backend/registry.py:25-32``). ``select``,
+``filter``, ``assign`` and ``aggregate`` mirror
+``fugue_tpu/execution/api.py:306-351``. All take pandas, arrow or a
 ``TorchDataFrame``; they return pandas, or the ``TorchDataFrame`` when
 ``as_fugue=True`` or the input was one.
 """
 
 import typing
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
 from fugue_tpu_torch.collections.partition import PartitionSpec
-from fugue_tpu_torch.column.expressions import ColumnExpr
+from fugue_tpu_torch.column.expressions import ColumnExpr, col, lit
+from fugue_tpu_torch.column.sql import SelectColumns
 from fugue_tpu_torch.execution.factory import make_execution_engine
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.torch_backend.execution_engine import TorchExecutionEngine
@@ -90,3 +93,38 @@ def aggregate(
     cols = [v.alias(k) for k, v in agg_kwcols.items()]
     spec = None if partition_by is None else PartitionSpec(by=partition_by)
     return _result(e.aggregate(df, spec, cols), df, as_fugue)
+
+
+def select(
+    df: Any,
+    *columns: Union[str, ColumnExpr],
+    where: Optional[ColumnExpr] = None,
+    having: Optional[ColumnExpr] = None,
+    distinct: bool = False,
+    engine: Any = None,
+    as_fugue: bool = False,
+) -> Any:
+    """``SELECT columns FROM df [WHERE where] [GROUP BY the columns that
+    are not aggregations] [HAVING having]``:
+    ``select(df, "k", sum(col("v")).alias("s"), where=col("v") > 0)``."""
+    e = _engine(engine, df)
+    cols = SelectColumns(*[col(c) if isinstance(c, str) else c for c in columns],
+                         arg_distinct=distinct)
+    return _result(e.select(df, cols, where=where, having=having), df, as_fugue)
+
+
+def filter(  # noqa: A001
+    df: Any, condition: ColumnExpr, engine: Any = None, as_fugue: bool = False
+) -> Any:
+    """The rows of ``df`` where ``condition`` is true (not false, not
+    NULL)."""
+    e = _engine(engine, df)
+    return _result(e.filter(df, condition), df, as_fugue)
+
+
+def assign(df: Any, engine: Any = None, as_fugue: bool = False, **columns: Any) -> Any:
+    """``df`` with new or replaced columns: ``assign(df, w=col("v") * 2)``;
+    a value that is not an expression is a literal."""
+    e = _engine(engine, df)
+    cols = [(v if isinstance(v, ColumnExpr) else lit(v)).alias(k) for k, v in columns.items()]
+    return _result(e.assign(df, cols), df, as_fugue)

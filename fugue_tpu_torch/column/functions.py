@@ -1,16 +1,26 @@
 """Aggregation constructors: ``sum``, ``avg``/``mean``, ``count``,
-``count_distinct``, ``min``, ``max``, ``first`` and ``last`` (a trimmed
-copy of ``fugue_tpu/column/functions.py:14-64``), and ``VARIANCE_FUNCS``.
-As in the original, median and the variance family have no constructor:
-they are ``_FuncExpr(name, col, is_aggregation=True)``."""
+``count_distinct``, ``min``, ``max``, ``first`` and ``last``, the scalar
+``case_when`` and ``coalesce``, and ``is_agg`` (a trimmed copy of
+``fugue_tpu/column/functions.py:14-104``), and ``VARIANCE_FUNCS``. As in
+the original, median and the variance family have no constructor: they
+are ``_FuncExpr(name, col, is_aggregation=True)``."""
 
+import builtins
 from typing import Any
 
-from fugue_tpu_torch.column.expressions import VARIANCE_FUNCS, ColumnExpr, _FuncExpr, _to_col
+from fugue_tpu_torch.column.expressions import (
+    VARIANCE_FUNCS,
+    ColumnExpr,
+    _BinaryOpExpr,
+    _FuncExpr,
+    _to_col,
+    _UnaryOpExpr,
+)
+from fugue_tpu_torch.utils.assertion import assert_or_throw
 
 __all__ = [
-    "VARIANCE_FUNCS", "avg", "count", "count_distinct", "first", "last", "max", "mean",
-    "min", "sum",
+    "VARIANCE_FUNCS", "avg", "case_when", "coalesce", "count", "count_distinct", "first",
+    "is_agg", "last", "max", "mean", "min", "sum",
 ]
 
 
@@ -53,3 +63,32 @@ def first(col: Any) -> ColumnExpr:
 
 def last(col: Any) -> ColumnExpr:
     return _agg("last", col)
+
+
+def case_when(*args: Any) -> ColumnExpr:
+    """``CASE WHEN c1 THEN v1 [WHEN c2 THEN v2 ...] ELSE d END``: condition
+    and value pairs, then the default (``:75``)."""
+    assert_or_throw(
+        len(args) >= 3 and len(args) % 2 == 1,
+        ValueError("case_when takes cond/value pairs plus a default"),
+    )
+    return _FuncExpr("case_when", *[_to_col(a) for a in args])
+
+
+def coalesce(*args: Any) -> ColumnExpr:
+    """The first non-null argument of each row (``:88``)."""
+    assert_or_throw(len(args) > 0, ValueError("coalesce requires at least one arg"))
+    return _FuncExpr("coalesce", *[_to_col(a) for a in args])
+
+
+def is_agg(column: Any) -> bool:
+    """Whether the expression holds an aggregation at any level (``:93``)."""
+    if isinstance(column, _FuncExpr) and column.is_aggregation:
+        return True
+    if isinstance(column, _BinaryOpExpr):
+        return is_agg(column.left) or is_agg(column.right)
+    if isinstance(column, _UnaryOpExpr):
+        return is_agg(column.col)
+    if isinstance(column, _FuncExpr):
+        return builtins.any(is_agg(a) for a in column.args)
+    return False

@@ -1,11 +1,12 @@
 """Plain PyTorch twins of the port's CUDA kernels (``segment_sums.cu``,
-``factorize.cu``, ``segment_reduce.cu``): the CPU path, and the oracle
-each kernel is held against on the card."""
+``factorize.cu``, ``segment_reduce.cu``, ``expr_program.cu``): the CPU
+path, and the oracle each kernel is held against on the card."""
 
-from typing import List, Optional, NamedTuple, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from fugue_tpu_torch.kernels import expr_program as ep
 from fugue_tpu_torch.utils.validity import materialize_validity
 
 # a payload column and its null mask (True = valid; None: all valid)
@@ -616,3 +617,168 @@ def segment_sq_dev_reference(
         d = v.to(torch.float64) - means[q].index_select(0, segc)
         out[q].index_add_(0, torch.where(keep, seg, num).long(), torch.where(keep, d * d, 0.0))
     return out[:, :num].contiguous()
+
+
+# a register of K6's twin: values (rows, or 0-d for a constant) and
+# validity (None: every row valid)
+_Reg = Tuple[torch.Tensor, Optional[torch.Tensor]]
+
+
+def _valid_of(r: _Reg) -> torch.Tensor:
+    v, m = r
+    return torch.ones_like(v, dtype=torch.bool) if m is None else m
+
+
+def _and_valid(a: Optional[torch.Tensor], b: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return a & b
+
+
+def _cast_values(x: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+    """K6's cast rule: floats to integers by truncation with NaN as 0 and
+    saturation at the type's bounds; anything to bool as ``x != 0``; the
+    rest as torch converts (integers wrap, floats round to nearest)."""
+    dtype = ep.DTYPES[dst]
+    if dst == ep.B:
+        return x != 0
+    if src not in ep._FLOATS or dst in ep._FLOATS:
+        return x.to(dtype)
+    lo, hi = ep.int_bounds(dst)
+    nan, above, below = torch.isnan(x), x >= float(hi + 1), x < float(lo)
+    safe = torch.where(nan | above | below, torch.zeros_like(x), x).trunc()
+    out = safe.to(dtype)
+    out = torch.where(above, torch.tensor(hi, dtype=dtype, device=x.device), out)
+    return torch.where(below, torch.tensor(lo, dtype=dtype, device=x.device), out)
+
+
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    one = torch.ones_like(x)
+    return torch.where(x > 0, one, torch.where(x < 0, -one, x if x.is_floating_point()
+                                               else torch.zeros_like(x)))
+
+
+_FLOAT_OPS = {
+    "SQRT": torch.sqrt, "EXP": torch.exp, "LN": torch.log, "LOG2": torch.log2,
+    "LOG10": torch.log10, "SIN": torch.sin, "COS": torch.cos, "TAN": torch.tan,
+    "FLOOR": torch.floor, "CEIL": torch.ceil,
+}
+_CMP_OPS = {"EQ": torch.eq, "NE": torch.ne, "LT": torch.lt, "LE": torch.le, "GT": torch.gt,
+            "GE": torch.ge}
+
+
+def _step(ins: "ep.Instr", regs: List[_Reg], device: torch.device) -> _Reg:
+    op, dt = ep.OPS[ins.op], ins.dtype
+    a, b, c = (regs[r] if r < len(regs) else None for r in (ins.a, ins.b, ins.c))
+    if op == "CONST":
+        return torch.tensor(ins.imm, dtype=ep.DTYPES[dt], device=device), None
+    if op == "NULL":
+        return (torch.zeros((), dtype=ep.DTYPES[dt], device=device),
+                torch.tensor(False, device=device))
+    if op in ("ISNULL", "NOTNULL"):
+        valid = _valid_of(a)
+        return (~valid if op == "ISNULL" else valid), None
+    if op == "CAST":
+        return _cast_values(a[0], dt, ins.b), a[1]
+    if op == "SEL":
+        match = a[0] & _valid_of(a)
+        return (torch.where(match, b[0], c[0]),
+                torch.where(match, _valid_of(b), _valid_of(c)))
+    if op == "COAL":
+        av = _valid_of(a)
+        return torch.where(av, a[0], b[0]), av | _valid_of(b)
+    if op == "NULLIF":
+        return a[0], _valid_of(a) & ~(b[0] & _valid_of(b))
+    if op in ("AND", "OR"):
+        (x, _), (y, _) = a, b
+        xv, yv = _valid_of(a), _valid_of(b)
+        xf, yf = x & xv, y & yv  # NULL reads as False
+        if op == "AND":
+            return xf & yf, (xv & yv) | (xv & ~x) | (yv & ~y)
+        return xf | yf, (xv & yv) | (xv & x) | (yv & y)
+    if op == "NOT":
+        return ~a[0], a[1]
+    if op in _CMP_OPS:
+        return _CMP_OPS[op](a[0], b[0]), _and_valid(a[1], b[1])
+    if op in ("ADD", "SUB", "MUL", "DIV", "POW"):
+        x, y = a[0], b[0]
+        if dt == ep.B:
+            value = x | y if op == "ADD" else x & y
+        else:
+            value = {"ADD": torch.add, "SUB": torch.sub, "MUL": torch.mul,
+                     "DIV": torch.div, "POW": torch.pow}[op](x, y)
+        return value, _and_valid(a[1], b[1])
+    if op == "MOD":
+        x, y = a[0], b[0]
+        nonzero = y != 0
+        guard = ~nonzero if dt in (ep.U8,) + ep._FLOATS else ~nonzero | (y == -1)
+        value = torch.fmod(x, torch.where(guard, torch.ones_like(y), y))
+        return value, _and_valid(_and_valid(a[1], b[1]), nonzero)
+    if op == "NEG":
+        return -a[0], a[1]
+    if op == "ABS":
+        return (a[0] if dt == ep.B else torch.abs(a[0])), a[1]
+    if op == "SIGN":
+        return _sign(a[0]), a[1]
+    if op == "NANNULL":
+        nan = torch.isnan(a[0])
+        return torch.where(nan, torch.zeros_like(a[0]), a[0]), _and_valid(a[1], ~nan)
+    if op == "ROUND":
+        # a 0-d tensor, not a Python scalar: torch divides by a scalar on
+        # the card as a product with its reciprocal
+        x, f = a[0], torch.tensor(ins.imm, dtype=torch.float64, device=device)
+        if ins.b:
+            return torch.round(x / f) * f, a[1]
+        return torch.round(x * f) / f, a[1]
+    if op in _FLOAT_OPS:
+        return _FLOAT_OPS[op](a[0]), a[1]
+    raise ValueError(f"no twin for {ins}")  # pragma: no cover - compile_program checks
+
+
+def expr_program_reference(
+    program: "ep.Program",
+    inputs: Sequence[Payload],
+    n: int,
+    *,
+    filter: bool = False,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    device: Optional[torch.device] = None,
+) -> Any:
+    """The twin of K6 in ``expr_program.cu``: ``program`` interpreted over
+    ``n`` rows with torch ops, one instruction at a time, constants as
+    0-d tensors of their type. ``inputs`` are the program's input columns
+    (values and null mask) in its order.
+
+    Columns mode: a list of ``(values, mask)``, one per output, values in
+    the output's dtype and ``mask`` (True = valid) None where the output
+    has none. Filter mode (``filter=True``, the rows as ``nrows`` or
+    ``row_valid``): ``(keep bool[n], count int32 0-d)``, keep = the
+    condition's value and validity and the row's. ``device`` is where a
+    program with no input puts its outputs."""
+    if len(inputs) != len(program.inputs):
+        raise ValueError(f"{len(inputs)} inputs for a program of {len(program.inputs)}")
+    if device is None:
+        device = inputs[0][0].device if inputs else torch.device("cpu")
+    regs: List[_Reg] = [(torch.zeros((), device=device), None)] * program.nregs
+    for j, (v, m) in enumerate(inputs):
+        regs[j] = (v, m)
+    for ins in program.instrs:
+        regs[ins.dst] = _step(ins, regs, device)
+    outs = []
+    for o in program.outputs:
+        v, m = regs[o.reg]
+        v = v.to(device).expand(n).contiguous()
+        m = None if not o.masked else _valid_of((v, m)).to(device).expand(n).contiguous()
+        outs.append((v, m))
+    if not filter:
+        return outs
+    (value, mask), = outs
+    if (nrows is None) == (row_valid is None):
+        raise ValueError("pass exactly one of nrows (prefix rows) and row_valid")
+    keep = value & materialize_validity(row_valid, n, nrows, device)
+    if mask is not None:
+        keep = keep & mask
+    return keep, keep.sum().to(torch.int32)

@@ -145,6 +145,15 @@ class TorchBlocks:
         )
 
 
+def blocks_with_columns(blocks: TorchBlocks, columns: Dict[str, TorchColumn]) -> TorchBlocks:
+    """A new column set over the same rows, a lazy count included
+    (``jax_backend/execution_engine.py:3724``)."""
+    return TorchBlocks(
+        blocks._nrows, columns, blocks.device, row_valid=blocks.row_valid,
+        nrows_dev=blocks._nrows_dev,
+    )
+
+
 def device_nbytes(blocks: TorchBlocks) -> int:
     """A frame's device footprint in bytes: column data, masks and
     ``row_valid`` (``jax_backend/blocks.py:362``)."""

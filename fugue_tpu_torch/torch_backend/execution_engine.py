@@ -11,7 +11,12 @@ spec through the binned packed aggregate, whose whole per-row part
 (segment ids, row validity, sums) is one launch of the fused CUDA kernel;
 any other plan through the key factorization and
 ``groupby.segment_aggs`` over its segment ids; no keys through the same
-over one segment.
+over one segment. ``filter``, ``assign`` and ``select`` (a projection, or
+a group-by with computed keys, WHERE and HAVING) evaluate their column
+expressions with one launch of the K6 expression program per call
+(``torch_backend/expr_eval.py``), and so does an aggregate whose
+arguments are more than bare columns; a filter leaves the columns as
+they are and gives the frame a new ``row_valid`` with a lazy count.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``, and
 then every kernel runs as its plain PyTorch twin. Paths the port does not
@@ -37,11 +42,13 @@ from fugue_tpu_torch.column.expressions import (
     _FuncExpr,
     _NamedColumnExpr,
 )
+from fugue_tpu_torch.column.sql import SelectColumns, rewrite_having
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.torch_backend import expr_eval, groupby
 from fugue_tpu_torch.torch_backend.blocks import (
     TorchBlocks,
     TorchColumn,
+    blocks_with_columns,
     from_arrow,
     is_integer_like,
     padded_len,
@@ -55,7 +62,7 @@ _DEVICE_AGGS = (
     "min", "max", "sum", "avg", "mean", "count", "first", "last", "median", *VARIANCE_FUNCS,
 )
 # where the JAX package answers on its host engine instead
-_HOST_ENGINE = "ROADMAP.md queue 1 item 2 (the host engine)"
+_HOST_ENGINE = "ROADMAP.md queue 1 item 2(b) (the host engine)"
 # an aggregation of a plan: (output name, function, argument or None for
 # COUNT(*), result type)
 Plan = Tuple[str, str, Optional[ColumnExpr], pa.DataType]
@@ -244,6 +251,9 @@ class TorchExecutionEngine:
         self.map_engine = TorchMapEngine(self)
         self._strategy_counts: Dict[str, int] = {}
         self._fallbacks: Dict[str, int] = {}
+        # compiled K6 programs of this engine's filters, assigns,
+        # projections and aggregate arguments
+        self._programs = expr_eval.ProgramCache()
 
     @property
     def strategy_counts(self) -> Dict[str, int]:
@@ -261,6 +271,14 @@ class TorchExecutionEngine:
         raise NotImplementedError(
             f"{what} is not ported to the torch engine yet; see {roadmap}"
         )
+
+    def _require_device(self, op: str, expr: ColumnExpr, blocks: TorchBlocks) -> None:
+        """Refuses (``_unported``) an expression the card does not
+        evaluate, naming the ROADMAP.md item that ports it."""
+        try:
+            expr_eval.check(expr, blocks)
+        except expr_eval.Refused as r:
+            self._unported(op, r.what, r.item)
 
     def to_df(self, df: Any) -> TorchDataFrame:
         """pandas, arrow or a frame on this device -> ``TorchDataFrame``,
@@ -287,6 +305,66 @@ class TorchExecutionEngine:
             torch.cuda.synchronize(self.device)
         return res
 
+    def select(
+        self,
+        df: Any,
+        cols: SelectColumns,
+        where: Optional[ColumnExpr] = None,
+        having: Optional[ColumnExpr] = None,
+    ) -> TorchDataFrame:
+        """``:1345``: WHERE (``filter``), then the projection
+        (``_device_project``) or the group-by (``_device_groupby_select``)
+        with HAVING. What the JAX package answers on its host engine
+        (``_can_select_on_device``, ``:2174``) raises here."""
+        tdf = self.to_df(df)
+        resolved = cols.replace_wildcard(tdf.schema).assert_all_with_names()
+        self._check_select(tdf, resolved, where, having)
+        out_schema = resolved.infer_schema(tdf.schema)
+        filtered = tdf if where is None else self.filter(tdf, where)
+        if not resolved.has_agg:
+            return self._device_project(filtered, resolved, out_schema)
+        return self._device_groupby_select(filtered, resolved, having)
+
+    def filter(self, df: Any, condition: ColumnExpr) -> TorchDataFrame:
+        """``:1375``: one K6 launch flips row validity (the condition's value
+        AND its validity AND the row's); columns and their stats are
+        untouched, and the row count becomes a lazy device scalar. No
+        gather, no readback."""
+        tdf = self.to_df(df)
+        blocks = tdf.blocks
+        self._require_device("filter", condition, blocks)
+        keep, count = expr_eval.filter_rows(blocks, condition, self._programs)
+        return TorchDataFrame(
+            TorchBlocks(None, dict(blocks.columns), blocks.device, row_valid=keep,
+                        nrows_dev=count),
+            tdf.schema,
+        )
+
+    def assign(self, df: Any, columns: List[ColumnExpr]) -> TorchDataFrame:
+        """``:1426``: new or replaced columns, every expression in one K6
+        launch over the input's columns; a bare column reference keeps its
+        mask and stats."""
+        tdf = self.to_df(df)
+        blocks = tdf.blocks
+        schema = tdf.schema
+        plans: List[Tuple[str, pa.DataType, ColumnExpr]] = []
+        for c in columns:
+            self._require_device("assign", c, blocks)
+            name = c.output_name
+            tp = c.infer_type(schema) or (schema[name].type if name in schema else None)
+            assert_or_throw(tp is not None, ValueError(f"can't infer {c}"))
+            plans.append((name, tp, c))
+            fields = [f if f.name != name else pa.field(name, tp) for f in schema.fields]
+            schema = Schema(fields if name in schema else fields + [pa.field(name, tp)])
+        values = expr_eval.eval_exprs(
+            blocks, [c for _, _, c in plans], [torch_dtype(tp) for _, tp, _ in plans],
+            self._programs,
+        )
+        new_cols = dict(blocks.columns)
+        for (name, tp, c), (v, m) in zip(plans, values):
+            new_cols[name] = TorchColumn(tp, v, m, _source_stats(blocks, c))
+        return TorchDataFrame(blocks_with_columns(blocks, new_cols), schema)
+
     def aggregate(
         self,
         df: Any,
@@ -297,7 +375,109 @@ class TorchExecutionEngine:
         keys = partition_spec.partition_by if partition_spec is not None else []
         return self._device_aggregate(self.to_df(df), keys, agg_cols)
 
+    def _check_select(
+        self,
+        tdf: TorchDataFrame,
+        cols: SelectColumns,
+        where: Optional[ColumnExpr],
+        having: Optional[ColumnExpr],
+    ) -> None:
+        """``_can_select_on_device`` (``:2174``): what the JAX package sends
+        to its host engine is refused, naming the ROADMAP.md item."""
+        blocks = tdf.blocks
+        if having is not None and not cols.has_agg:
+            self._unported("select", "HAVING without an aggregation", _HOST_ENGINE)
+        if cols.is_distinct:
+            self._unported("select", "SELECT DISTINCT", _HOST_ENGINE)
+        if where is not None:
+            self._require_device("select", where, blocks)
+        if not cols.has_agg:
+            for c in cols.all_cols:
+                self._require_device("select", c, blocks)
+            return
+        for k in cols.group_keys:
+            if expr_eval.is_bare(k) and k.output_name == k.name:
+                assert_or_throw(k.name in blocks.columns, KeyError(f"{k.name} not in {tdf.schema}"))
+                continue
+            if k.output_name == "" or k.output_name in blocks.columns:
+                # unnamed, or shadowing a column an aggregation may read
+                self._unported("select", f"group key {k}", _HOST_ENGINE)
+            self._require_device("select", k, blocks)
+        # the aggregate refuses the functions and DISTINCT forms it lacks
+        for a in cols.agg_funcs:
+            if not isinstance(a, _FuncExpr) or len(a.args) != 1:
+                self._unported("select", f"aggregation expression {a}", _HOST_ENGINE)
+
+    def _device_project(
+        self, tdf: TorchDataFrame, cols: SelectColumns, out_schema: Schema
+    ) -> TorchDataFrame:
+        """``:2234``: every column of the projection in one K6 launch (bare
+        references pass through with their stats), over the input's rows."""
+        blocks = tdf.blocks
+        values = expr_eval.eval_exprs(
+            blocks, cols.all_cols, [torch_dtype(f.type) for f in out_schema.fields],
+            self._programs,
+        )
+        new_cols = {
+            f.name: TorchColumn(f.type, v, m, _source_stats(blocks, c))
+            for c, f, (v, m) in zip(cols.all_cols, out_schema.fields, values)
+        }
+        return TorchDataFrame(blocks_with_columns(blocks, new_cols), out_schema)
+
+    def _device_groupby_select(
+        self, tdf: TorchDataFrame, cols: SelectColumns, having: Optional[ColumnExpr]
+    ) -> TorchDataFrame:
+        """``:2293``: computed or renamed keys are assigned first (one K6
+        launch), then the aggregate runs; HAVING's aggregations become
+        references to output columns (hidden ones added where the select
+        lacks them) and a filter of the aggregate's output applies it."""
+        keys: List[str] = []
+        computed: List[ColumnExpr] = []
+        for k in cols.group_keys:
+            if expr_eval.is_bare(k) and k.output_name == k.name:
+                keys.append(k.name)
+            else:
+                computed.append(k)
+                keys.append(k.output_name)
+        if computed:
+            tdf = self.assign(tdf, computed)
+        agg_exprs = list(cols.agg_funcs)
+        visible = [c.output_name for c in cols.all_cols]
+        extra: Dict[str, ColumnExpr] = {}
+        having2: Optional[ColumnExpr] = None
+        if having is not None:
+            done = {c.alias("").__uuid__(): c.output_name for c in cols.agg_funcs}
+            having2 = rewrite_having(having, done, extra)
+            agg_exprs += list(extra.values())
+        res = self._device_aggregate(tdf, keys, agg_exprs, col_order=visible + list(extra))
+        if having2 is None:
+            return res
+        res = self.filter(res, having2)
+        if extra:
+            res = TorchDataFrame(
+                blocks_with_columns(res.blocks, {n: res.blocks.columns[n] for n in visible}),
+                res.schema.extract(visible),
+            )
+        return res
+
     def _device_aggregate(
+        self,
+        tdf: TorchDataFrame,
+        keys: List[str],
+        agg_cols: List[ColumnExpr],
+        col_order: Optional[List[str]] = None,
+    ) -> TorchDataFrame:
+        """The aggregate of ``_plan_aggregate``, its columns in ``col_order``
+        where given (``_try_device_aggregate``'s ``col_order``, ``:2760``)."""
+        res = self._plan_aggregate(tdf, keys, agg_cols)
+        if col_order is None:
+            return res
+        return TorchDataFrame(
+            blocks_with_columns(res.blocks, {n: res.blocks.columns[n] for n in col_order}),
+            res.schema.extract(col_order),
+        )
+
+    def _plan_aggregate(
         self, tdf: TorchDataFrame, keys: List[str], agg_cols: List[ColumnExpr]
     ) -> TorchDataFrame:
         """``_try_device_aggregate`` (``:2754``): the plan checks
@@ -331,11 +511,7 @@ class TorchExecutionEngine:
                 assert_or_throw(fn == "count", ValueError(f"{fn}(*) is invalid"))
                 typed_plans.append((c.output_name, "count", None, pa.int64()))
                 continue
-            if not expr_eval.can_eval_on_device(arg, blocks):
-                self._unported(
-                    "aggregate", f"expression {arg}",
-                    "ROADMAP.md queue 2 item 8 (expr_eval._eval)",
-                )
+            self._require_device("aggregate", arg, blocks)
             atp = arg.infer_type(tdf.schema)
             tp = c.infer_type(tdf.schema)
             if tp is None or (
@@ -480,16 +656,21 @@ class TorchExecutionEngine:
         first-occurrence-of-(keys, value) mask, so its payload and count
         are its own."""
         blocks = tdf.blocks
-        pad_n = blocks.padded_nrows
-        mcols = expr_eval.blocks_to_masked(blocks)
         dmasks = _distinct_masks(blocks, group_keys, distinct_args)
+        # every argument at once: the bare columns as they are, the rest in
+        # one K6 launch
+        args = {a.__uuid__(): a for _, _, a, _ in typed_plans if a is not None}
+        evaluated = dict(zip(args, expr_eval.eval_exprs(
+            blocks, list(args.values()),
+            [_arg_dtype(a.infer_type(tdf.schema)) for a in args.values()], self._programs,
+        )))
         requests: List[groupby.AggRequest] = []
         for name, func, arg, _tp in typed_plans:
             if arg is None:
                 requests.append(groupby.AggRequest("count", None, None, "", ""))
                 continue
             akey = arg.__uuid__()
-            values, mask = expr_eval.eval_expr(mcols, arg, pad_n, blocks.device)
+            values, mask = evaluated[akey]
             # the kernels read dense columns; a transformer may return views
             values = values.contiguous()
             mkey = "" if mask is None else f"m:{akey}"
@@ -509,6 +690,21 @@ class TorchExecutionEngine:
 
     def _count_strategy(self, name: str) -> None:
         self._strategy_counts[name] = self._strategy_counts.get(name, 0) + 1
+
+
+def _source_stats(blocks: TorchBlocks, c: ColumnExpr) -> Optional[Tuple[int, int]]:
+    """A bare column reference keeps its column's ``(min, max)``; a
+    computed column has none."""
+    return blocks.columns[c.name].stats if expr_eval.is_bare(c) else None
+
+
+def _arg_dtype(tp: Optional[pa.DataType]) -> Optional[torch.dtype]:
+    """An aggregate argument's dtype: its declared type's, or None (the
+    type it computes in) where it has no column type."""
+    try:
+        return None if tp is None else torch_dtype(tp)
+    except NotImplementedError:
+        return None
 
 
 def _result_schema(schema: Schema, keys: List[str], typed_plans: List[Plan]) -> Schema:

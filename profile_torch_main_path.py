@@ -8,9 +8,11 @@ Builds each path of ``chip_smoke.py`` at 100M rows: the headline
 partitioned transform of ``BASELINE.json``'s second configuration (512
 groups, seed 1), the sort-path aggregate on the float32 key, the wide
 int64 key and the two as one key pair over 1024 groups, and on the
-float32 key over 2^18 and 2^20 groups, and the full group-by (every
+float32 key over 2^18 and 2^20 groups, the full group-by (every
 aggregate function and two DISTINCT ones, by the headline key and with no
-key). Each is warmed up with two runs,
+key), and the paths of the K6 expression program: the filtered pipeline
+and the WHERE/HAVING select (100M rows) and BASELINE config 3's select
+(10M rows). Each is warmed up with two runs,
 then run ``RUNS`` times under ``torch.profiler``; for each the script
 prints one JSON object: the
 wall seconds per run, the device's busy and idle share of that wall time
@@ -30,7 +32,8 @@ RUNS = 3
 TABLE = "profile_main_path.txt"
 
 
-def profile_path(name: str, run_once: Callable[[], Any], device: Any, table: Any) -> None:
+def profile_path(name: str, run_once: Callable[[], Any], device: Any, table: Any,
+                 nrows: int = chip_smoke.ROWS) -> None:
     """Profiles ``RUNS`` runs of ``run_once`` after two warm-up runs,
     prints the path's JSON object and appends its table to ``table``."""
     import torch
@@ -64,7 +67,7 @@ def profile_path(name: str, run_once: Callable[[], Any], device: Any, table: Any
     print(json.dumps({
         "path": name,
         "card": chip_smoke.card_line(),
-        "rows": chip_smoke.ROWS,
+        "rows": nrows,
         "runs": RUNS,
         "wall_secs_per_run": wall / RUNS,
         "device_ms_per_run": busy_us / RUNS / 1e3,
@@ -106,6 +109,15 @@ def main() -> None:
         for keyed in (True, False):
             profile_path(f"full_groupby_{'keyed' if keyed else 'keyless'}", run_full(keyed),
                          device, table)
+        del run_full
+        torch.cuda.empty_cache()
+        run_for = chip_smoke.build_filtered_paths(device, rows, groups, seed)[0]
+        for name, run_once in run_for.items():
+            profile_path(name, run_once, device, table)
+        del run_for, run_once
+        torch.cuda.empty_cache()
+        run_once = chip_smoke.build_config3(device, chip_smoke.CONFIG3_ROWS)[0]
+        profile_path("config3_select", run_once, device, table, chip_smoke.CONFIG3_ROWS)
 
 
 if __name__ == "__main__":

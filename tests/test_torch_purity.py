@@ -107,7 +107,7 @@ _UNPORTED = {
         _df(), "k", engine=e, c=ff.count_distinct(ft.col("v") * 2)
     ),
     "min_of_a_function_expression": lambda e: ft.aggregate(
-        _df(), "k", engine=e, s=ff.min(_FuncExpr("abs", ft.col("v")))
+        _df(), "k", engine=e, s=ff.min(_FuncExpr("atan", ft.col("v")))
     ),
     "uint16_column": lambda e: e.to_df(pd.DataFrame({"u": np.arange(3, dtype=np.uint16)})),
     "partitioned_transform_on_string_key": lambda e: ft.transform(
