@@ -33,7 +33,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    filter conditions over prefix rows and a ``row_valid``) at n = 1 and
    2^20 + 37, and the paths' programs (``k6_path_programs``) at 1,
    2^20 + 37, 10M and 100M rows: masks, filter flags and counts exactly,
-   values bit for bit, the float functions within ``K6_FUNC_RTOL``.
+   values bit for bit, the float functions within ``K6_FUNC_RTOL``. Then
+   the join kernels exactly (``join_vs_twin``): K7 ``join_build`` (counts
+   and slots) and K8 ``join_probe`` (semi, anti, unique and expand, inner
+   and outer) over 1, 1024 and 2^24 segments with sentinel rows, null
+   keys, prefix, short-prefix and masked layouts, probe rows with no
+   match and one key with 10^6 build rows; K9 ``join_expand`` on pairs
+   (inner, outer), a cross join and a skewed key; K10 ``gather_rows`` over
+   every width, with and without masks, by indices with and without -1;
+   at 1, 2^20 + 37, 10M and 100M rows.
 4. paths through the entry points, each with every launch count zeroed
    just before its cold run and read just after, checked against numpy:
    the main path (100M rows, an int32 key over 1024 groups and a float32
@@ -58,8 +66,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    once, the filter's count still lazy after the run), the WHERE/HAVING
    select at 100M rows (K6 three times) and BASELINE config 3's select at
    10M rows (no K6), each against numpy, their launches asserted
-   (``K6_PATH_LAUNCHES``). Each reports cold and best-of-5 warm seconds,
-   rows/s, peak device memory and, on the sort path, its route.
+   (``K6_PATH_LAUNCHES``). Then the joins through ``ft.join``
+   (``JOIN_PATH_LAUNCHES``): config 3b (``join_3b``: facts joined to a
+   256-row dimension table on a unique key, then aggregated; 5M and 100M
+   facts; the unique-right route, no readback, the count still lazy when
+   the aggregate starts), config 10's join (``join_expand``: 100M left
+   rows, 2 right rows a key, 200M output rows, one readback; checked by an
+   aggregate of the output against numpy, and row for row at 10M), left,
+   right and full outer, semi and anti at 10M by 5M rows with null keys
+   and keys that miss, and a cross join of 10^4 by 10^3 rows, each row for
+   row against a numpy sort-merge (``numpy_join``). Each reports cold and
+   best-of-5 warm seconds, rows/s, peak device memory and its route.
 5. timing with CUDA events at the paths' shapes: each kernel beside its
    plain twin, one PyTorch call computing the same function where there
    is one, and its bound from the bytes it must move; the fused kernel's
@@ -70,7 +87,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    DISTINCT mask (``distinct_mask_timing``), each beside its bound;
    K6's path programs at 100M rows (``expr_timing``: time, twin time and
    the kernels the twin launches, bytes bound) and programs of growing
-   size (``k6_scaling``).
+   size (``k6_scaling``); K7-K10 at the expansion join's shapes
+   (``join_timing``), beside ``torch.sort`` of the right side's segment
+   ids, K8 in unique mode at 100M rows and K9 on a cross join and a
+   skewed key.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -377,13 +397,22 @@ def binned_vs_twin(device: Any, kernel: Callable[..., Any]) -> float:
 
 def _wrappers() -> List[Callable[..., Any]]:
     """Every kernel wrapper, each with its launch count."""
-    from fugue_tpu_torch.kernels import expr_program, factorize, segment_reduce, segment_sums
+    from fugue_tpu_torch.kernels import (
+        expr_program,
+        factorize,
+        gather,
+        join,
+        segment_reduce,
+        segment_sums,
+    )
 
     return [segment_sums.binned_sums_cuda, factorize.bin_factorize_cuda,
             factorize.sort_word_cuda, factorize.sort_word_boundaries_cuda,
             factorize.sort_word_lookup_cuda, factorize.sort_boundaries_cuda,
             factorize.sort_finish_cuda, segment_reduce.segment_extrema_cuda,
-            segment_reduce.segment_sq_dev_cuda, expr_program.expr_program_cuda]
+            segment_reduce.segment_sq_dev_cuda, expr_program.expr_program_cuda,
+            join.join_build_cuda, join.join_probe_cuda, join.join_expand_cuda,
+            gather.gather_rows_cuda]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -2136,8 +2165,8 @@ FLOAT64_SUM_RTOL = 1e-9  # float64 sums of float64 values in another order
 def _path_stats(label: str, rows: int, run_once: Callable[[], Tuple[float, Any, Any]],
                 device: Any, warm_runs: int) -> Tuple[Dict[str, Any], Any, Any]:
     """Cold and warm runs of one path with the launch counts of each,
-    held to ``K6_PATH_LAUNCHES`` on the card; returns the stats, the cold
-    run's frame and pandas."""
+    held to ``K6_PATH_LAUNCHES`` or ``JOIN_PATH_LAUNCHES`` on the card;
+    returns the stats, the cold run's frame and pandas."""
     import torch
 
     zero_launches()
@@ -2150,7 +2179,7 @@ def _path_stats(label: str, rows: int, run_once: Callable[[], Tuple[float, Any, 
     best = min(warm) if warm else cold_secs
     want = dict.fromkeys(cold, 0)
     if device.type == "cuda":  # on the CPU every kernel runs as its twin
-        want.update(K6_PATH_LAUNCHES[label])
+        want.update({**K6_PATH_LAUNCHES, **JOIN_PATH_LAUNCHES}[label])
     if cold != want or warm_launches != {k: v * warm_runs for k, v in want.items()}:
         raise SystemExit(f"FAIL {label}: launched {cold} (cold), {warm_launches} (warm), "
                          f"expected {want} a run")
@@ -2394,6 +2423,695 @@ def k6_scaling(device: Any) -> List[Dict[str, Any]]:
     return out
 
 
+# --- joins: K7-K10 against their twins, the join paths, timing ---
+
+JOIN3B_ROWS = 5_000_000  # config 3b's facts as published (bench.py:883)
+JOIN3B_GROUPS = 256
+JOIN3B_SEED = 5
+JOIN_EXPAND_ROWS = 100_000_000  # config 10's join at the headline's scale
+JOIN_CHECK_ROWS = 10_000_000  # where the expansion's output is compared row for row
+JOIN_KINDS_ROWS = (10_000_000, 5_000_000)  # left and right rows of the other kinds
+JOIN_CROSS_ROWS = (10_000, 1_000)
+JOIN_SKEW = 1_000_000  # the matches of the skewed key
+JOIN_KINDS = ("left_outer", "right_outer", "full_outer", "semi", "anti")
+
+
+def _same(label: str, got: Any, want: Any) -> None:
+    """Kernel output against its twin's, exactly: the same dtype, shape
+    and bits (None against None)."""
+    import torch
+
+    if (got is None) != (want is None):
+        raise SystemExit(f"FAIL {label}: one output is None")
+    if got is None:
+        return
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise SystemExit(f"FAIL {label}: {got.dtype}{tuple(got.shape)} against "
+                         f"{want.dtype}{tuple(want.shape)}")
+    if got.dtype.is_floating_point:
+        got, want = got.view(torch.uint8), want.view(torch.uint8)
+    if not torch.equal(got, want):
+        raise SystemExit(f"FAIL {label}: differs from its twin")
+
+
+def join_side_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """K7's and K8's cases at ``n`` rows: ``(label, {"build": seg, "probe":
+    seg, "num": S, rows...})``, the rows (``nrows`` or ``row_valid``) and
+    ``nulls`` shared by both sides. Segments: S = 1, 1024 and 2^24; the
+    build ids cover three quarters of them, so probe rows find no match;
+    a twentieth of the rows carry the sentinel S; prefix, short-prefix
+    and masked layouts, with and without null keys; one key with
+    ``JOIN_SKEW`` build rows."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def flags(p: float) -> Any:
+        return torch.rand((n,), generator=gen, device=device) < p
+
+    def ids(hi: int, num: int) -> Any:
+        seg = torch.randint(0, hi, (n,), generator=gen, device=device, dtype=torch.int32)
+        return torch.where(flags(0.05), num, seg)
+
+    out = []
+    for num in (1, 1024, 1 << 24):
+        sides = dict(build=ids(max(num * 3 // 4, 1), num), probe=ids(num, num), num=num)
+        nulls, row_valid = flags(0.1), flags(0.7)
+        out += [
+            (f"S={num} prefix", dict(sides, nrows=n)),
+            (f"S={num} short-prefix nulls", dict(sides, nrows=n // 2, nulls=nulls)),
+            (f"S={num} masked nulls", dict(sides, row_valid=row_valid, nulls=nulls)),
+            (f"S={num} masked bytes", dict(sides, row_valid=row_valid.to(torch.uint8))),
+        ]
+    build = torch.randint(0, 1024, (n,), generator=gen, device=device, dtype=torch.int32)
+    hot = torch.randperm(n, generator=gen, device=device)[:JOIN_SKEW]
+    build[hot] = 7
+    out.append(("skew", dict(build=build, probe=ids(1024, 1024), num=1024, nrows=n)))
+    return out
+
+
+def _expand_inputs(probe: Any, build: Any, num: int, outer: bool) -> Dict[str, Any]:
+    """K9's arguments for prefix sides with these segment ids (every row
+    real, none null), from the twins of K7 and K8."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import join_build_reference, join_probe_reference
+
+    counts = join_build_reference(build, num, nrows=int(build.shape[0]))
+    pr = join_probe_reference(probe, counts, "expand", nrows=int(probe.shape[0]), outer=outer)
+    order = torch.sort(build.clamp(max=num), stable=True).indices
+    return dict(start=torch.cumsum(pr.reps, 0, dtype=torch.int64) - pr.reps, m=pr.m,
+                seg1=probe, cstart2=torch.cumsum(counts, 0, dtype=torch.int64) - counts,
+                order2=order, total=int(pr.total))
+
+
+def expand_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """K9's cases at ``n`` probe rows: keys over n/2 segments with two
+    build rows each for nine tenths of them (about 1.8n outputs; inner and
+    outer); a cross join (S = 1) of up to 10^4 by 10^3 rows; one probe
+    row whose key has ``JOIN_SKEW`` build rows among one build row a key;
+    one probe row in 50 with a match (a block's outputs span more probe
+    rows than it stages, so it searches global memory)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    half = max(n // 2, 1)
+    probe = torch.randint(0, half, (n,), generator=gen, device=device, dtype=torch.int32)
+    keys = torch.arange(half * 9 // 10 + 1, dtype=torch.int32, device=device)
+    build = keys.repeat(2)[torch.randperm(2 * int(keys.shape[0]), generator=gen, device=device)]
+    cp, cb = min(n, JOIN_CROSS_ROWS[0]), JOIN_CROSS_ROWS[1]
+    zero = torch.zeros((cp,), dtype=torch.int32, device=device)
+    one_each = torch.randperm(n, generator=gen, device=device).to(torch.int32)
+    skewed = torch.cat([one_each, torch.zeros((JOIN_SKEW - 1,), dtype=torch.int32,
+                                              device=device)])
+    return [
+        ("pairs inner", _expand_inputs(probe, build, half, False)),
+        ("pairs outer", _expand_inputs(probe, build, half, True)),
+        ("cross", _expand_inputs(zero, torch.zeros((cb,), dtype=torch.int32, device=device),
+                                 1, False)),
+        ("skew", _expand_inputs(torch.arange(n, dtype=torch.int32, device=device), skewed, n,
+                                True)),
+        ("sparse", _expand_inputs(one_each, torch.arange(max(n // 50, 1), dtype=torch.int32,
+                                                         device=device), n, False)),
+    ]
+
+
+_GATHER_DTYPES = ("bool", "uint8", "int8", "int16", "int32", "int64", "float32", "float64")
+
+
+def gather_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """K10's cases at ``n`` rows: 16 columns (every dtype, with and
+    without a mask: two launches), gathered by an index with a tenth -1
+    (as an outer join's right side, and as not outer: -1 still writes 0)
+    and by one with no -1."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import GatherColumn
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cols = []
+    for masked in (False, True):
+        for name in _GATHER_DTYPES:
+            dtype = getattr(torch, name)
+            bits = torch.randint(-(2**62), 2**62, (n,), generator=gen, device=device)
+            if dtype == torch.bool:
+                values = bits > 0
+            elif dtype.is_floating_point:
+                values = bits.to(torch.int32 if dtype == torch.float32 else torch.int64)
+                values = values.view(dtype)  # every bit pattern, NaNs included
+            else:
+                values = bits.to(dtype)
+            mask = torch.rand((n,), generator=gen, device=device) < 0.8 if masked else None
+            cols.append(GatherColumn(values, mask))
+    idx = torch.randint(0, n, (n,), generator=gen, device=device, dtype=torch.int32)
+    holes = torch.where(torch.rand((n,), generator=gen, device=device) < 0.1, -1, idx)
+    return [
+        ("index with -1, outer", dict(columns=cols, idx=holes, outer=True)),
+        ("index with -1, not outer", dict(columns=cols, idx=holes, outer=False)),
+        ("index in range", dict(columns=cols, idx=idx, outer=False)),
+    ]
+
+
+def join_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
+    """K7, K8 in every mode, K9 and K10 against their twins, exactly, in
+    every case of ``join_side_cases``, ``expand_cases`` and
+    ``gather_cases`` at each size; prints K7's path of each case."""
+    import torch
+
+    from fugue_tpu_torch.kernels.gather import gather_rows_cuda
+    from fugue_tpu_torch.kernels.join import join_build_cuda, join_expand_cuda, join_probe_cuda
+    from fugue_tpu_torch.kernels.reference import (
+        gather_rows_reference,
+        join_build_reference,
+        join_expand_reference,
+        join_probe_reference,
+    )
+
+    for n in sizes:
+        for label, case in join_side_cases(device, n, SEED + n):
+            rows = {k: case[k] for k in ("nrows", "row_valid", "nulls") if k in case}
+            paths = []
+            for slots in (False, True):
+                args = (case["build"], case["num"])
+                got = join_build_cuda(*args, slots=slots, **rows)
+                paths.append(join_build_cuda.last_path)
+                want = join_build_reference(*args, slots=slots, **rows)
+                _same(f"join_build {label} n={n} slots={slots}", got, want)
+                for mode, outer in (("semi", False), ("anti", False), ("unique", False),
+                                    ("unique", True), ("expand", False), ("expand", True)):
+                    if (mode == "unique") != slots:
+                        continue
+                    pargs = (case["probe"], want, mode)
+                    g = join_probe_cuda(*pargs, outer=outer, **rows)
+                    w = join_probe_reference(*pargs, outer=outer, **rows)
+                    for field in w._fields:
+                        _same(f"join_probe {label} n={n} {mode} outer={outer} {field}",
+                              getattr(g, field), getattr(w, field))
+            print(f"join_build/join_probe n={n} {label}: equal (K7 path {paths[0]})")
+        torch.cuda.empty_cache()
+        for label, case in expand_cases(device, n, SEED + n):
+            got, want = join_expand_cuda(**case), join_expand_reference(**case)
+            for name, g, w in zip(("li", "ri"), got, want):
+                _same(f"join_expand {label} n={n} {name}", g, w)
+            print(f"join_expand n={n} {label}: {case['total']} output rows equal")
+        torch.cuda.empty_cache()
+        for label, case in gather_cases(device, n, SEED + n):
+            got, want = gather_rows_cuda(**case), gather_rows_reference(**case)
+            for j, ((gv, gm), (wv, wm)) in enumerate(zip(got, want)):
+                _same(f"gather_rows {label} n={n} column {j}", gv, wv)
+                _same(f"gather_rows {label} n={n} column {j} mask", gm, wm)
+            print(f"gather_rows n={n} {label}: 16 columns equal")
+        torch.cuda.empty_cache()
+
+
+# each join path's launches in one run
+JOIN_PATH_LAUNCHES = {
+    # the keys bin (K1); the unique right side (K7 slots, K8, K10 for w);
+    # the aggregate by the binned key (the fused sums)
+    "join_3b": dict(bin_factorize=1, join_build=1, join_probe=1, gather_rows=1, binned_sums=1),
+    # 150M int64 keys over 25M groups: the word route with K3's scatter;
+    # K7, K8, K9, then K10 once a side
+    "join_expand": dict(sort_word=1, sort_word_boundaries=1, sort_finish=1, join_build=1,
+                        join_probe=1, join_expand=1, gather_rows=2),
+    # the same at 10M left rows, whose 2.5M keys bin (K1)
+    "join_expand_binned": dict(bin_factorize=1, join_build=1, join_probe=1, join_expand=1,
+                               gather_rows=2),
+    # the other kinds: the keys bin (K1); semi/anti: K7 and K8 only
+    "left_outer": dict(bin_factorize=1, join_build=1, join_probe=1, join_expand=1,
+                       gather_rows=2),
+    "right_outer": dict(bin_factorize=1, join_build=1, join_probe=1, join_expand=1,
+                        gather_rows=2),
+    # plus the left side's counts, the right rows with no match, the tail
+    "full_outer": dict(bin_factorize=1, join_build=2, join_probe=2, join_expand=1,
+                       gather_rows=3),
+    "semi": dict(bin_factorize=1, join_build=1, join_probe=1),
+    "anti": dict(bin_factorize=1, join_build=1, join_probe=1),
+    "cross": dict(join_build=1, join_probe=1, join_expand=1, gather_rows=2),
+}
+# the join's own readbacks in a run (``relational.readbacks``)
+JOIN_READBACKS = {"join_3b": 0, "semi": 0, "anti": 0}
+
+
+def _syncs_in(fn: Callable[[], Any]) -> Optional[Dict[str, int]]:
+    """The synchronizing CUDA operations one call of ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: the count
+    of each source line that made one; None off the card."""
+    import warnings
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fn()
+        return None
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs: Dict[str, int] = {}
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            where = f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+            syncs[where] = syncs.get(where, 0) + 1
+    return syncs
+
+
+def _join_stats(label: str, rows: int, run_once: Callable[[], Tuple[float, Any, Any]],
+                join_once: Callable[[], Any], engine: Any, route: str, device: Any,
+                warm_runs: int) -> Tuple[Dict[str, Any], Any, Any]:
+    """``_path_stats`` for a join path, plus its route (each run counted
+    once in ``engine.strategy_counts[route]``), its own readbacks a run
+    and the synchronizing operations of one more join (``_syncs_in``)."""
+    from fugue_tpu_torch.torch_backend import relational
+
+    before, counted = relational.readbacks, engine.strategy_counts.get(route, 0)
+    stats, frame, pdf = _path_stats(label, rows, run_once, device, warm_runs)
+    runs = 1 + warm_runs
+    if engine.strategy_counts.get(route, 0) - counted != runs:
+        raise SystemExit(f"FAIL {label}: routes {engine.strategy_counts}, expected {route}")
+    readbacks = (relational.readbacks - before) / runs
+    if readbacks != JOIN_READBACKS.get(label, 1):
+        raise SystemExit(f"FAIL {label}: {readbacks} readbacks of the output size a run")
+    stats.update(route=route, join_readbacks_per_run=readbacks,
+                 syncs_in_one_join=_syncs_in(join_once))
+    return stats, frame, pdf
+
+
+def build_join_3b(device: Any, rows: int) -> Tuple[Callable[[], Tuple[float, Any, Any]],
+                                                   Callable[[], Any], Any, Dict[str, Any]]:
+    """Config 3b's frames (``bench.py:884-897``, seed 5: ``rows`` facts of
+    ``k`` int32 uniform over 256 and ``v`` float32; 256 dimension rows of
+    ``k = arange(256)`` int32 and ``w`` float32) uploaded, and
+    ``(run_once, join_once, engine, data)``: ``run_once`` joins the facts
+    to the dimensions on ``k`` (``ft.join``, inner), aggregates SUM(v),
+    AVG(w) and COUNT(*) by ``k`` and brings the result to pandas, noting
+    in ``data["lazy"]`` whether the join's row count was still on the card
+    when the aggregate started."""
+    import numpy as np
+    import pandas as pd
+
+    from fugue_tpu_torch import aggregate, col, functions as ff, join, make_execution_engine
+
+    rng = np.random.default_rng(JOIN3B_SEED)
+    k = rng.integers(0, JOIN3B_GROUPS, rows).astype(np.int32)
+    v = rng.random(rows).astype(np.float32)
+    w = rng.random(JOIN3B_GROUPS).astype(np.float32)
+    engine = make_execution_engine("torch", device=device)
+    facts = engine.persist(engine.to_df(pd.DataFrame({"k": k, "v": v})))
+    dims = engine.persist(engine.to_df(pd.DataFrame(
+        {"k": np.arange(JOIN3B_GROUPS, dtype=np.int32), "w": w})))
+    data: Dict[str, Any] = {"k": k, "v": v, "w": w, "lazy": []}
+
+    def join_once() -> Any:
+        return join(facts, dims, how="inner", on=["k"], engine=engine, as_fugue=True)
+
+    def run_once() -> Tuple[float, Any, Any]:
+        t = time.perf_counter()
+        joined = join_once()
+        data["lazy"].append(not joined.blocks.nrows_known)
+        agg = aggregate(joined, partition_by="k", s=ff.sum(col("v")), m=ff.avg(col("w")),
+                        c=ff.count(col("*")), engine=engine, as_fugue=True)
+        pdf = agg.as_pandas()
+        return time.perf_counter() - t, agg, pdf
+
+    return run_once, join_once, engine, data
+
+
+def join_3b(device: Any, rows: int, warm_runs: int) -> Dict[str, Any]:
+    """``build_join_3b``'s path, checked against float64 numpy: keys and
+    counts exactly, sums and means within ``MAIN_PATH_RTOL``; the unique
+    right route, no readback inside the join, its count lazy when the
+    aggregate starts."""
+    import numpy as np
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    run_once, join_once, engine, d = build_join_3b(device, rows)
+    stats, _, pdf = _join_stats("join_3b", rows, run_once, join_once, engine, "join_unique",
+                                device, warm_runs)
+    if not all(d["lazy"]):
+        raise SystemExit("FAIL join_3b: the join's count was read before the aggregate")
+    c = np.bincount(d["k"], minlength=JOIN3B_GROUPS)
+    s = np.bincount(d["k"], weights=d["v"].astype(np.float64), minlength=JOIN3B_GROUPS)
+    occ = np.nonzero(c)[0]
+    want = {"k": occ.astype(np.int32), "c": c[occ], "s": s[occ],
+            "m": d["w"].astype(np.float64)[occ]}
+    if list(pdf.columns) != ["k", "s", "m", "c"]:
+        raise SystemExit(f"FAIL join_3b: columns {list(pdf.columns)}")
+    stats["groups"] = len(pdf)
+    stats["max_rel_err"] = _check_columns(pdf, want, ("k", "c"),
+                                          {"s": MAIN_PATH_RTOL, "m": MAIN_PATH_RTOL}, "join_3b")
+    return stats
+
+
+def join_expand_frames(rows: int) -> Tuple[Any, Any]:
+    """Config 10's join frames (``bench.py:1533-1546``) at ``rows`` left
+    rows: ``k = permutation(arange(n) % (rows // 4))`` int64 and a float64
+    ``v`` from seed 4; the right side ``rows // 2`` rows the same way from
+    seed 9, ``w`` for ``v``: exactly 2 right rows a key, 4 left rows."""
+    import numpy as np
+    import pandas as pd
+
+    dom = max(rows // 4, 64)
+
+    def frame(seed: int, n: int, name: str) -> Any:
+        r = np.random.default_rng(seed)
+        return pd.DataFrame({"k": r.permutation(np.arange(n, dtype=np.int64) % dom),
+                             name: r.random(n)})
+
+    return frame(4, rows, "v"), frame(9, rows // 2, "w")
+
+
+def numpy_join(k1: Any, ok1: Any, k2: Any, ok2: Any, how: str, dom: int) -> Tuple[Any, Any]:
+    """A numpy sort-merge of two key columns (``ok``: not null) over keys
+    in ``[0, dom)``, in the reference's order: ``(li, ri)``, the left and
+    right row of each output row, -1 where a side has none. Inner and
+    outer: the left rows in order, each with its matches in right-row
+    order (one row with ``ri = -1`` under an outer join where it has none);
+    full outer then the right rows with no match in order; semi and anti
+    the left rows kept (``ri`` None); cross every pair, left-major."""
+    import numpy as np
+
+    n1, n2 = len(k1), len(k2)
+    if how == "cross":
+        return np.repeat(np.arange(n1), n2), np.tile(np.arange(n2), n1)
+    kk1 = np.where(ok1, k1, 0).astype(np.int64)
+    order2 = np.argsort(np.where(ok2, k2, dom), kind="stable")
+    cnt2 = np.bincount(k2[ok2].astype(np.int64), minlength=dom)
+    m = np.where(ok1, cnt2[kk1], 0)
+    if how in ("semi", "anti"):
+        return np.nonzero(m > 0 if how == "semi" else m == 0)[0], None
+    reps = np.maximum(m, 1) if how in ("left_outer", "full_outer") else m
+    li = np.repeat(np.arange(n1), reps)
+    j = np.arange(len(li)) - np.repeat(np.cumsum(reps) - reps, reps)
+    pos = np.minimum((np.cumsum(cnt2) - cnt2)[kk1[li]] + j, max(n2 - 1, 0))
+    ri = np.where(j < m[li], order2[pos] if n2 else -1, -1)
+    if how == "full_outer":
+        cnt1 = np.bincount(k1[ok1].astype(np.int64), minlength=dom)
+        tail = np.nonzero(~ok2 | (cnt1[np.where(ok2, k2, 0).astype(np.int64)] == 0))[0]
+        li = np.concatenate([li, np.full(len(tail), -1)])
+        ri = np.concatenate([ri, tail])
+    return li, ri
+
+
+def _pick(values: Any, valid: Any, idx: Any) -> Tuple[Any, Any]:
+    """``values`` and ``valid`` at ``idx``, invalid where ``idx`` is -1."""
+    import numpy as np
+
+    if idx is None:
+        return None, None
+    safe = np.maximum(idx, 0)
+    return values[safe], valid[safe] & (idx >= 0)
+
+
+def check_join_output(label: str, table: Any, want: Dict[str, Tuple[Any, Any]]) -> None:
+    """An arrow result against numpy, row for row: per column its nulls,
+    and its values where valid, bit for bit."""
+    import numpy as np
+
+    if table.column_names != list(want):
+        raise SystemExit(f"FAIL {label}: columns {table.column_names}, expected {list(want)}")
+    for name, (values, valid) in want.items():
+        col = table.column(name).combine_chunks()
+        if len(col) != len(values):
+            raise SystemExit(f"FAIL {label}: {len(col)} rows, numpy {len(values)}")
+        got_valid = np.asarray(col.is_valid())
+        if not np.array_equal(got_valid, valid):
+            raise SystemExit(f"FAIL {label}: the nulls of {name} differ")
+        got = col.fill_null(0).to_numpy(zero_copy_only=False)[valid]
+        exp = values[valid]
+        if got.dtype != exp.dtype or not np.array_equal(got.view(np.uint8), exp.view(np.uint8)):
+            raise SystemExit(f"FAIL {label}: the values of {name} differ")
+
+
+def build_join_expand(device: Any, rows: int) -> Tuple[Callable[[], Tuple[float, Any, Any]],
+                                                       Callable[[], Any], Any, Tuple[Any, Any]]:
+    """``join_expand_frames`` uploaded, and ``(run_once, join_once, engine,
+    (left, right))``: ``run_once`` is config 10's timed step, the inner
+    join on ``k`` (``ft.join``) and its row count."""
+    from fugue_tpu_torch import join, make_execution_engine
+
+    left, right = join_expand_frames(rows)
+    engine = make_execution_engine("torch", device=device)
+    tl, tr = engine.persist(engine.to_df(left)), engine.persist(engine.to_df(right))
+
+    def join_once() -> Any:
+        return join(tl, tr, how="inner", on=["k"], engine=engine, as_fugue=True)
+
+    def run_once() -> Tuple[float, Any, Any]:
+        t = time.perf_counter()
+        joined = join_once()
+        joined.count()
+        return time.perf_counter() - t, joined, None
+
+    return run_once, join_once, engine, (left, right)
+
+
+def join_expand(device: Any, rows: int, warm_runs: int, row_for_row: bool) -> Dict[str, Any]:
+    """``build_join_expand``'s path: the expansion route with one
+    readback a run, ``2 * rows`` output rows, and the aggregate of the
+    cold run's output by ``k`` (count, sum of v, sum of w) against numpy
+    ``bincount``: counts exactly, sums within ``FLOAT64_SUM_RTOL``. With
+    ``row_for_row``, the output also goes to the host and is held row for
+    row against ``numpy_join``."""
+    import numpy as np
+    import torch
+
+    from fugue_tpu_torch import aggregate, col, functions as ff
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    from fugue_tpu_torch.torch_backend.groupby import _MAX_BINS
+
+    run_once, join_once, engine, (left, right) = build_join_expand(device, rows)
+    label = "join_expand" if max(rows // 4, 64) > _MAX_BINS else "join_expand_binned"
+    stats, frame, _ = _join_stats(label, rows, run_once, join_once, engine, "join_expand",
+                                  device, warm_runs)
+    if frame.count() != 2 * rows:
+        raise SystemExit(f"FAIL {label}: {frame.count()} output rows, expected {2 * rows}")
+    kl, kr = left["k"].to_numpy(), right["k"].to_numpy()
+    dom = max(rows // 4, 64)
+    agg = aggregate(frame, partition_by="k", c=ff.count(col("*")), sv=ff.sum(col("v")),
+                    sw=ff.sum(col("w")), engine=engine, as_fugue=True).as_pandas()
+    cl, cr = np.bincount(kl, minlength=dom), np.bincount(kr, minlength=dom)
+    c = cl * cr
+    occ = np.nonzero(c)[0]
+    want = {"k": occ, "c": c[occ],
+            "sv": (np.bincount(kl, weights=left["v"].to_numpy(), minlength=dom) * cr)[occ],
+            "sw": (np.bincount(kr, weights=right["w"].to_numpy(), minlength=dom) * cl)[occ]}
+    stats["output_rows"] = frame.count()
+    stats["max_rel_err"] = _check_columns(agg.sort_values("k").reset_index(drop=True), want,
+                                          ("k", "c"), {"sv": FLOAT64_SUM_RTOL,
+                                                       "sw": FLOAT64_SUM_RTOL}, label)
+    if row_for_row:
+        li, ri = numpy_join(kl, np.ones(len(kl), bool), kr, np.ones(len(kr), bool), "inner", dom)
+        ones = np.ones(len(li), bool)
+        check_join_output(f"{label} at {rows} rows", frame.as_arrow(), {
+            "k": (kl[li], ones), "v": (left["v"].to_numpy()[li], ones),
+            "w": (right["w"].to_numpy()[ri], ones)})
+        stats["row_for_row"] = True
+    return stats
+
+
+def join_kind_frames(rows: Tuple[int, int], seed: int) -> Tuple[Any, Any, int]:
+    """The other kinds' frames: ``rows[0]`` left rows of ``k`` int32 uniform
+    over [0, 3M) and a float64 ``v``, ``rows[1]`` right rows of ``k`` over
+    [1M, 4M) and a float64 ``w``, both with a tenth of the keys null, so
+    keys miss on both sides (scaled down with the rows); and the key
+    domain."""
+    import numpy as np
+    import pandas as pd
+
+    dom = max(rows[0] * 2 // 5, 16)
+    r = np.random.default_rng(seed)
+
+    def frame(n: int, lo: int, name: str) -> Any:
+        k = pd.array(r.integers(lo, lo + dom * 3 // 4, n).astype(np.int32), dtype="Int32")
+        k[r.random(n) < 0.1] = pd.NA
+        return pd.DataFrame({"k": k, name: r.random(n)})
+
+    return frame(rows[0], 0, "v"), frame(rows[1], dom // 4, "w"), dom
+
+
+def join_kinds(device: Any, rows: Tuple[int, int], cross_rows: Tuple[int, int],
+               warm_runs: int) -> List[Dict[str, Any]]:
+    """Left, right and full outer, semi and anti of ``join_kind_frames``
+    through ``ft.join``, and a cross join of ``cross_rows``, each run
+    (join and its row count) cold and warm with its launches, route and
+    readbacks asserted, its cold output held row for row against
+    ``numpy_join``."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from fugue_tpu_torch import join, make_execution_engine
+
+    left, right, dom = join_kind_frames(rows, SEED)
+    engine = make_execution_engine("torch", device=device)
+    tl, tr = engine.persist(engine.to_df(left)), engine.persist(engine.to_df(right))
+    k1, ok1 = left["k"].to_numpy(np.int32, na_value=0), left["k"].notna().to_numpy()
+    k2, ok2 = right["k"].to_numpy(np.int32, na_value=0), right["k"].notna().to_numpy()
+    v, w = left["v"].to_numpy(), right["w"].to_numpy()
+    r = np.random.default_rng(SEED)
+    cl = pd.DataFrame({"a": r.integers(-5, 5, cross_rows[0]).astype(np.int64)})
+    cr = pd.DataFrame({"b": r.random(cross_rows[1]).astype(np.float32)})
+    tcl, tcr = engine.persist(engine.to_df(cl)), engine.persist(engine.to_df(cr))
+    out = []
+    for how in JOIN_KINDS + ("cross",):
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        a, b, on = (tcl, tcr, None) if how == "cross" else (tl, tr, ["k"])
+
+        def join_once() -> Any:
+            return join(a, b, how=how, on=on, engine=engine, as_fugue=True)  # noqa: B023
+
+        def run_once() -> Tuple[float, Any, Any]:
+            t = time.perf_counter()
+            res = join_once()
+            res.count()
+            return time.perf_counter() - t, res, None
+
+        route = {"semi": "join_mask", "anti": "join_mask"}.get(how, "join_expand")
+        stats, frame, _ = _join_stats(how, len(cl) if how == "cross" else rows[0], run_once,
+                                      join_once, engine, route, device, warm_runs)
+        got = frame.as_arrow()
+        if how == "cross":
+            li, ri = numpy_join(cl["a"].to_numpy(), None, cr["b"].to_numpy(), None, how, 0)
+            ones = np.ones(len(li), bool)
+            want = {"a": (cl["a"].to_numpy()[li], ones), "b": (cr["b"].to_numpy()[ri], ones)}
+        elif how == "right_outer":
+            ri, li = numpy_join(k2, ok2, k1, ok1, "left_outer", dom)
+            kv = _pick(k2, ok2, ri)
+            want = {"k": kv, "v": _pick(v, np.ones(len(v), bool), li),
+                    "w": _pick(w, np.ones(len(w), bool), ri)}
+        else:
+            li, ri = numpy_join(k1, ok1, k2, ok2, how, dom)
+            kv = _pick(k1, ok1, li)
+            if how == "full_outer":  # the tail's keys are the right side's
+                tk = _pick(k2, ok2, ri)
+                kv = (np.where(li >= 0, kv[0], tk[0]), np.where(li >= 0, kv[1], tk[1]))
+            want = {"k": kv, "v": _pick(v, np.ones(len(v), bool), li)}
+            if ri is not None:
+                want["w"] = _pick(w, np.ones(len(w), bool), ri)
+        check_join_output(how, got, want)
+        stats["output_rows"] = got.num_rows
+        out.append(stats)
+    return out
+
+
+def join_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """K7-K10 at the expansion path's shapes (``join_expand`` at 100M left
+    rows: 50M right rows over 25M segments, 200M output rows), each beside
+    its twin, one PyTorch call and its bound (bytes); ``torch.sort`` of
+    the right side's segment ids (``order2``); K8 in unique mode at
+    config 3b's 100M facts; K9 on a cross join and a skewed key."""
+    import torch
+
+    from fugue_tpu_torch.kernels.gather import gather_rows_cuda
+    from fugue_tpu_torch.kernels.join import join_build_cuda, join_expand_cuda, join_probe_cuda
+    from fugue_tpu_torch.kernels.reference import (
+        GatherColumn,
+        gather_rows_reference,
+        join_build_reference,
+        join_expand_reference,
+        join_probe_reference,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    p1, p2 = JOIN_EXPAND_ROWS, JOIN_EXPAND_ROWS // 2
+    num = p1 // 4
+    seg1 = (torch.randperm(p1, generator=gen, device=device) % num).to(torch.int32)
+    seg2 = (torch.randperm(p2, generator=gen, device=device) % num).to(torch.int32)
+    entries = []
+
+    counts = join_build_cuda(seg2, num, nrows=p2)
+    want = join_build_reference(seg2, num, nrows=p2)
+    err = float((counts - want).abs().max())
+    entries.append(_kernel_entry(
+        "join_build", "fugue_tpu/jax_backend/relational.py:466",
+        launches["join_build"], err,
+        time_cuda(lambda: join_build_cuda(seg2, num, nrows=p2), 20),
+        time_cuda(lambda: join_build_reference(seg2, num, nrows=p2), 5),
+        p2 * 4 + num * 4, 0,
+        time_cuda(lambda: torch.bincount(seg2, minlength=num), 5), source="join.cu"))
+
+    pr = join_probe_cuda(seg1, counts, "expand", nrows=p1)
+    pw = join_probe_reference(seg1, counts, "expand", nrows=p1)
+    err = max(float((pr.m - pw.m).abs().max()), float((pr.reps - pw.reps).abs().max()))
+    entries.append(_kernel_entry(
+        "join_probe", "fugue_tpu/jax_backend/relational.py:470",
+        launches["join_probe"], err,
+        time_cuda(lambda: join_probe_cuda(seg1, counts, "expand", nrows=p1), 20),
+        time_cuda(lambda: join_probe_reference(seg1, counts, "expand", nrows=p1), 5),
+        p1 * (4 + 4 + 4 + 4), 0,  # seg, the table entry, m, reps
+        time_cuda(lambda: counts.index_select(0, seg1), 5), source="join.cu"))
+    slots = join_build_cuda(torch.arange(JOIN3B_GROUPS, dtype=torch.int32, device=device),
+                            JOIN3B_GROUPS, nrows=JOIN3B_GROUPS, slots=True)
+    facts = torch.randint(0, JOIN3B_GROUPS, (ROWS,), generator=gen, device=device,
+                          dtype=torch.int32)
+    unique_ms = time_cuda(lambda: join_probe_cuda(facts, slots, "unique", nrows=ROWS), 20)
+    print("join_probe unique: " + json.dumps({
+        "rows": ROWS, "ms": unique_ms,
+        "bound_ms": ROWS * (4 + 4 + 4 + 1) / HBM_BYTES_PER_S * 1e3}))
+    del facts
+
+    order2 = torch.sort(seg2, stable=True).indices
+    sort_ms = time_cuda(lambda: torch.sort(seg2, stable=True), 5)
+    print("order2_sort: " + json.dumps({
+        "rows": p2, "ms": sort_ms,
+        "bound_ms": p2 * (4 + 4 + 8) / HBM_BYTES_PER_S * 1e3}))  # ids in, sorted ids and order out
+    start = torch.cumsum(pr.reps, 0, dtype=torch.int64) - pr.reps
+    cstart2 = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+    total = int(pr.total)
+    args = (start, pr.m, seg1, cstart2, order2, total)
+    li, ri = join_expand_cuda(*args)
+    wl, wr = join_expand_reference(*args)
+    err = max(float((li - wl).abs().max()), float((ri - wr).abs().max()))
+    del wl, wr
+    rows1 = torch.arange(p1, device=device)
+    entries.append(_kernel_entry(
+        "join_expand", "fugue_tpu/jax_backend/relational.py:568",
+        launches["join_expand"], err,
+        time_cuda(lambda: join_expand_cuda(*args), 20),
+        time_cuda(lambda: join_expand_reference(*args), 3),
+        total * (4 + 4) + p1 * 12, 0,
+        # computes li alone
+        time_cuda(lambda: torch.repeat_interleave(rows1, pr.reps, output_size=total), 5),
+        source="join.cu"))
+    del rows1
+    for label, case in expand_cases(device, JOIN_CROSS_ROWS[0] * 10, SEED):
+        if label not in ("cross", "skew"):
+            continue
+        print("join_expand_shape: " + json.dumps({
+            "case": label, "output_rows": case["total"],
+            "ms": time_cuda(lambda: join_expand_cuda(**case), 20),  # noqa: B023
+            "bound_ms": (case["total"] * 8 + int(case["start"].shape[0]) * 12)
+            / HBM_BYTES_PER_S * 1e3}))
+    torch.cuda.empty_cache()
+
+    gen_cols = [GatherColumn(torch.randint(0, num, (p1,), generator=gen, device=device), None),
+                GatherColumn(torch.rand((p1,), generator=gen, device=device,
+                                        dtype=torch.float64), None)]
+    got = gather_rows_cuda(gen_cols, li)
+    want = gather_rows_reference(gen_cols, li)
+    err = max(float((g - w).abs().max()) for (g, _), (w, _) in zip(got, want))
+    del got, want
+    idx64 = li.to(torch.int64)
+    entries.append(_kernel_entry(
+        "gather_rows", "fugue_tpu/jax_backend/relational.py:578",
+        launches["gather_rows"], err,
+        time_cuda(lambda: gather_rows_cuda(gen_cols, li), 20),
+        time_cuda(lambda: gather_rows_reference(gen_cols, li), 5),
+        total * (4 + 2 * (8 + 8)), 0,  # the index, each column's element read and written
+        time_cuda(lambda: [c.values.index_select(0, idx64) for c in gen_cols], 5),
+        source="gather.cu"))
+    return entries
+
+
 _ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2443,6 +3161,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     worst = expr_program_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
     print(f"kernels checked against their twins: expr_program (max_abs_err={worst})")
+    torch.cuda.empty_cache()
+    join_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
+    print("kernels checked against their twins: join_build, join_probe, join_expand, "
+          "gather_rows (equal)")
+    torch.cuda.empty_cache()
 
     stats = main_path(device, ROWS, GROUPS, SEED, WARM_RUNS)
     # one aggregate per run, one fused-kernel launch per aggregate
@@ -2524,6 +3247,18 @@ def main() -> None:
         print("k6_path: " + json.dumps(st))
     torch.cuda.empty_cache()
 
+    join_paths = [join_3b(device, rows, WARM_RUNS) for rows in (JOIN3B_ROWS, ROWS)]
+    torch.cuda.empty_cache()
+    join_paths.append(join_expand(device, JOIN_CHECK_ROWS, WARM_RUNS, row_for_row=True))
+    torch.cuda.empty_cache()
+    join_paths.append(join_expand(device, JOIN_EXPAND_ROWS, WARM_RUNS, row_for_row=False))
+    torch.cuda.empty_cache()
+    join_paths += join_kinds(device, JOIN_KINDS_ROWS, JOIN_CROSS_ROWS, WARM_RUNS)
+    for st in join_paths:
+        st["card"] = card
+        print("join_path: " + json.dumps(st))
+    torch.cuda.empty_cache()
+
     stand_ins = stand_in_timing(device)
     stand_ins["card"] = card
     print("stand_ins: " + json.dumps(stand_ins))
@@ -2546,6 +3281,8 @@ def main() -> None:
     entries += expr_timing(device, {
         "columns": pipeline["expr_program"] - pipeline["expr_program_filter"],
         "filter": pipeline["expr_program_filter"]})
+    torch.cuda.empty_cache()
+    entries += join_timing(device, join_paths[3]["launches"])
     torch.cuda.empty_cache()
     k6_scaling(device)
     median_timing(device)

@@ -12,10 +12,12 @@ per-segment extrema and squared deviations
 (``fugue_tpu_torch/kernels/segment_reduce.cu``); and ``select``,
 ``filter`` and ``assign`` over the numeric column algebra, each call's
 expressions evaluated by one compiled program in one launch of the
-expression kernel (``fugue_tpu_torch/kernels/expr_program.cu``).
+expression kernel (``fugue_tpu_torch/kernels/expr_program.cu``); and
+``join`` of every type, with hand-written build, probe, expand and gather
+kernels (``fugue_tpu_torch/kernels/join.cu``, ``gather.cu``).
 """
 
-from fugue_tpu_torch.api import aggregate, assign, filter, select, transform
+from fugue_tpu_torch.api import aggregate, assign, filter, join, select, transform
 from fugue_tpu_torch.column import SelectColumns, col, function, lit, null
 from fugue_tpu_torch.column import functions
 from fugue_tpu_torch.execution import make_execution_engine
@@ -34,6 +36,7 @@ __all__ = [
     "filter",
     "function",
     "functions",
+    "join",
     "lit",
     "make_execution_engine",
     "null",

@@ -1,19 +1,20 @@
 """The port's entry points: ``transform``, ``aggregate``, ``select``,
-``filter`` and ``assign``, run straight on the engine with no workflow
-DAG (the DAG is not ported yet).
+``filter``, ``assign`` and ``join``, run straight on the engine with no
+workflow DAG (the DAG is not ported yet).
 
 ``transform`` mirrors ``fugue_tpu/workflow/api.py:15`` for a transformer
 annotated ``Dict[str, torch.Tensor] -> Dict[str, torch.Tensor]``, the
 counterpart of the JAX package's ``Dict[str, jax.Array]`` parameter
 (code ``"j"``, ``fugue_tpu/jax_backend/registry.py:25-32``). ``select``,
 ``filter``, ``assign`` and ``aggregate`` mirror
-``fugue_tpu/execution/api.py:306-351``. All take pandas, arrow or a
+``fugue_tpu/execution/api.py:306-351``, ``join``
+``fugue_tpu/execution/api.py:129-150``. All take pandas, arrow or a
 ``TorchDataFrame``; they return pandas, or the ``TorchDataFrame`` when
 ``as_fugue=True`` or the input was one.
 """
 
 import typing
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -128,3 +129,23 @@ def assign(df: Any, engine: Any = None, as_fugue: bool = False, **columns: Any) 
     e = _engine(engine, df)
     cols = [(v if isinstance(v, ColumnExpr) else lit(v)).alias(k) for k, v in columns.items()]
     return _result(e.assign(df, cols), df, as_fugue)
+
+
+def join(
+    df1: Any,
+    df2: Any,
+    *dfs: Any,
+    how: str,
+    on: Optional[List[str]] = None,
+    engine: Any = None,
+    as_fugue: bool = False,
+) -> Any:
+    """``df1`` joined to ``df2``, then the result to each of ``dfs`` in
+    turn, all by ``how`` (inner, left_outer, right_outer, full_outer,
+    semi, anti or cross) on the keys ``on`` (default: the columns the two
+    frames share): ``join(facts, dims, how="inner", on=["k"])``."""
+    e = _engine(engine, df1)
+    res = e.join(df1, df2, how=how, on=on)
+    for df in dfs:
+        res = e.join(res, df, how=how, on=on)
+    return _result(res, df1, as_fugue)

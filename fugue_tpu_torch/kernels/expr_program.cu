@@ -50,6 +50,7 @@
 #include <stdint.h>
 
 #include "bin_keys.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -487,24 +488,6 @@ const void* kernel_for(int rows_per_thread) {
     case 2: return reinterpret_cast<const void*>(expr_program<kFilter, 2>);
     default: return reinterpret_cast<const void*>(expr_program<kFilter, 1>);
   }
-}
-
-// Runs launch() with `device` current, then restores the caller's device.
-template <typename F>
-cudaError_t on_device(int device, F launch) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return err;
-  if (prev != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-  }
-  err = launch();
-  if (prev != device) {
-    const cudaError_t back = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = back;
-  }
-  return err;
 }
 
 }  // namespace

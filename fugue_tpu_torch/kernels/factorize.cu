@@ -51,6 +51,7 @@
 #include <atomic>
 
 #include "bin_keys.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -86,25 +87,6 @@ int grid_for(long long items, int per_block, int sms, int per_sm) {
   const long long need = (items + per_block - 1) / per_block;
   const long long wave = (long long)sms * per_sm;
   return (int)(need < 1 ? 1 : need < wave ? need : wave);
-}
-
-// Runs launch(stream) with device current, then makes the caller's
-// current device current again.
-template <typename Launch>
-int on_device(int device, Launch launch) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return (int)err;
-  if (prev != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-  }
-  err = launch();
-  if (prev != device) {
-    const cudaError_t back = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = back;
-  }
-  return (int)err;
 }
 
 // ---- K1: bin factorization ----------------------------------------------

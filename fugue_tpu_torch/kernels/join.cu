@@ -1,0 +1,360 @@
+// Joins on the card: K7 join_build, K8 join_probe and K9 join_expand.
+//
+// They replace the one-device join programs of the JAX package's
+// relational.py, which XLA lowers to scatters, gathers and scans; none
+// of it is a Pallas kernel:
+//   - K7 join_build: the build side's per-segment table. Counts mode is
+//     the segment_count of semi_anti_join's _prog (:298-300) and of
+//     expand_join's _count_prog (:466, and the left side's counts of a
+//     full outer join, :484-489); slot mode is _unique_right_join's
+//     scatter-max of each right row's position into its segment (:674-678).
+//   - K8 join_probe: each probe row reads its segment's entry once and
+//     writes by mode: semi/anti keep flags (:301-306; the full outer
+//     join's right-unmatched mask is anti mode over the right side against
+//     the left side's counts, :490-493), the unique route's right row and
+//     keep flag (:679-682, :688), or the expansion's matches m and output
+//     rows reps (:470-474); in every mode it folds a total into one device
+//     counter, int32 for a lazy row count, int64 for the output size M.
+//   - K9 join_expand: each output row's probe row and build row, what
+//     _gather_prog computes by scatter marks, a cumsum, a clamp and two
+//     gathers (:568-577).
+// Contracts: join_build_reference, join_probe_reference and
+// join_expand_reference in reference.py.
+//
+// Rows of a side: rows [0, n) are read; a row is real where it is below
+// nrows (a prefix frame) or, with nrows = -1, where its row_valid byte is
+// non-zero; it is matchable where it is also free of null keys (nulls
+// byte zero, or no nulls array) and its segment lies in [0, num).
+//
+// What bounds them on an H100, and what the design does about it:
+//   - K7 reads 4 B of segment id and 1-2 B of flags a row and writes 4*num
+//     B. One row a thread a step over a persistent wave; up to 12288
+//     segments (48 KB) each block keeps its own table in shared memory and
+//     merges the entries its rows touched with one global atomic each,
+//     above that rows update the global table. A segment that every row
+//     shares (a cross join, a skewed key) then contends in shared memory,
+//     not in L2.
+//   - K8 reads the same per row plus one random 4 B read of the table, and
+//     writes its outputs. One row a thread a step; each thread sums its
+//     rows' total in a register, the block in shared memory, and one
+//     atomic a block adds it to the counter.
+//   - K9 writes 8 B an output row and reads 12 B a probe row, and reads
+//     each output's right row at a random place in order (and its probe
+//     row's cstart). Each block takes kTile consecutive output rows,
+//     whatever the runs that hold them: a first launch finds the probe
+//     row of every tile's first output (one binary search over start a
+//     thread, all tiles at once); the second stages the starts of a
+//     tile's probe rows in shared memory (kStage at most, else it searches
+//     global memory), and each thread finds each of its output rows'
+//     probe row by binary search there. Consecutive output rows go to consecutive threads, so
+//     stores coalesce, and a run of any length (a cross join's p2, a
+//     skewed key's 10^6) is split over as many blocks as it fills.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "launch.cuh"
+
+namespace {
+
+using namespace fugue;
+
+constexpr int kThreads = 256;
+constexpr int kSharedMax = 12288;  // segments of a block's own K7 table
+constexpr int kPerThread = 8;      // K9 output rows a thread
+constexpr long long kTile = (long long)kThreads * kPerThread;
+constexpr int kStage = 4096;       // K9 probe-row starts staged in shared memory
+
+// K8 modes, as the wrapper passes them
+constexpr int kSemi = 0, kAnti = 1, kUnique = 2, kExpand = 3;
+
+struct Side {
+  long long n;
+  long long nrows;           // rows [0, nrows) real; -1: by row_valid
+  const uint8_t* row_valid;  // bool/uint8 [n] where nrows is -1
+  const uint8_t* nulls;      // bool [n], true where a key is null; null: none
+  const int* seg;            // int32 [n]
+  int num;
+};
+
+// Whether row r is real; *s is its segment where it is also matchable,
+// else -1.
+__device__ __forceinline__ bool side_row(const Side& d, long long r, int* s) {
+  *s = -1;
+  const bool real = d.nrows >= 0 ? r < d.nrows : __ldg(d.row_valid + r) != 0;
+  if (!real) return false;
+  if (d.nulls != nullptr && __ldg(d.nulls + r) != 0) return true;
+  const int v = __ldg(d.seg + r);
+  if ((unsigned)v < (unsigned)d.num) *s = v;
+  return true;
+}
+
+struct BuildParams {
+  Side side;
+  int slots;   // slot mode: the highest row of each segment, else counts
+  int* table;  // int32 [num], filled by the caller with 0 (counts) or -1
+};
+
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads) join_build(const BuildParams p) {
+  __shared__ int local[kShared ? kSharedMax : 1];
+  const int num = p.side.num;
+  const int fill = p.slots ? -1 : 0;
+  int* table = kShared ? local : p.table;
+  if (kShared) {
+    for (int i = threadIdx.x; i < num; i += kThreads) local[i] = fill;
+    __syncthreads();
+  }
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x; r < p.side.n;
+       r += stride) {
+    int s;
+    side_row(p.side, r, &s);
+    if (s < 0) continue;
+    if (p.slots) {
+      atomicMax(table + s, (int)r);
+    } else {
+      atomicAdd(table + s, 1);
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < num; i += kThreads) {
+      const int v = local[i];
+      if (v == fill) continue;
+      if (p.slots) {
+        atomicMax(p.table + i, v);
+      } else {
+        atomicAdd(p.table + i, v);
+      }
+    }
+  }
+}
+
+struct ProbeParams {
+  Side side;
+  const int* table;  // int32 [num]: K7's counts, or its slots (unique)
+  int mode;
+  int outer;
+  uint8_t* keep;     // bool [n]: semi, anti, unique
+  int* ridx;         // int32 [n]: unique
+  int* m;            // int32 [n]: expand
+  int* reps;         // int32 [n]: expand
+  int* count;        // int32 0-d, zeroed by the caller: semi, anti, unique
+  unsigned long long* total;  // int64 0-d, zeroed by the caller: expand
+};
+
+__global__ void __launch_bounds__(kThreads) join_probe(const ProbeParams p) {
+  __shared__ long long part[kThreads];
+  long long acc = 0;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x; r < p.side.n;
+       r += stride) {
+    int s;
+    const bool real = side_row(p.side, r, &s);
+    const int entry = s >= 0 ? __ldg(p.table + s) : (p.mode == kUnique ? -1 : 0);
+    if (p.mode == kExpand) {
+      const int reps = real ? (p.outer && entry < 1 ? 1 : entry) : 0;
+      p.m[r] = entry;
+      p.reps[r] = reps;
+      acc += reps;
+      continue;
+    }
+    bool keep;
+    if (p.mode == kUnique) {
+      p.ridx[r] = entry;
+      keep = p.outer ? real : entry >= 0;
+    } else {
+      const bool hit = entry > 0;
+      keep = p.mode == kSemi ? hit : real && !hit;
+    }
+    p.keep[r] = keep;
+    acc += keep;
+  }
+  part[threadIdx.x] = acc;
+  __syncthreads();
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0 && part[0] != 0) {
+    if (p.mode == kExpand) {
+      atomicAdd(p.total, (unsigned long long)part[0]);
+    } else {
+      atomicAdd(p.count, (int)part[0]);
+    }
+  }
+}
+
+struct ExpandParams {
+  long long p1;
+  long long total;           // M, the output rows
+  const long long* start;    // int64 [p1]: exclusive prefix sum of reps
+  const int* m;              // int32 [p1]
+  const int* seg;            // int32 [p1]
+  int num;
+  const long long* cstart;   // int64 [num]: each segment's first position in order
+  const long long* order;    // int64 [p2]: build rows grouped by segment
+  long long p2;
+  long long* tiles;          // int64 [tiles + 1]: the probe row of each tile's first output
+  long long ntiles;
+  int* li;                   // int32 [total]
+  int* ri;                   // int32 [total]
+};
+
+// The last row i in [lo, hi] with start[i] <= t, given start[lo] <= t.
+__device__ __forceinline__ long long last_at_or_below(const long long* start, long long lo,
+                                                      long long hi, long long t) {
+  while (lo < hi) {
+    const long long mid = lo + (hi - lo + 1) / 2;
+    if (start[mid] <= t) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+// K9's first launch: the probe row that holds the first output row of
+// each tile (and, at index ntiles, of the last output row), one binary
+// search a thread, all tiles at once.
+__global__ void __launch_bounds__(kThreads) expand_tiles(const ExpandParams p) {
+  const long long b = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (b > p.ntiles) return;
+  const long long t = b < p.ntiles ? b * kTile : p.total - 1;
+  p.tiles[b] = last_at_or_below(p.start, 0, p.p1 - 1, t);
+}
+
+// K9's second launch: each block writes one tile of output rows, whose
+// probe rows lie in [tiles[b], tiles[b + 1]].
+__global__ void __launch_bounds__(kThreads) join_expand(const ExpandParams p) {
+  __shared__ long long staged[kStage];
+  const long long t0 = (long long)blockIdx.x * kTile;
+  const long long t1 = t0 + kTile < p.total ? t0 + kTile : p.total;  // exclusive
+  const long long i0 = p.tiles[blockIdx.x], i1 = p.tiles[blockIdx.x + 1];
+  const long long len = i1 - i0 + 1;
+  const bool shared = len <= kStage;
+  if (shared) {
+    for (long long k = threadIdx.x; k < len; k += kThreads) staged[k] = p.start[i0 + k];
+    __syncthreads();
+  }
+  for (long long t = t0 + threadIdx.x; t < t1; t += kThreads) {
+    const long long i = shared ? i0 + last_at_or_below(staged, 0, len - 1, t)
+                               : last_at_or_below(p.start, i0, i1, t);
+    const long long j = t - (shared ? staged[i - i0] : p.start[i]);
+    int r = -1;
+    if (j < __ldg(p.m + i)) {
+      int s = __ldg(p.seg + i);
+      s = s < 0 ? 0 : (s >= p.num ? p.num - 1 : s);
+      long long pos = __ldg(p.cstart + s) + j;
+      pos = pos < 0 ? 0 : (pos >= p.p2 ? p.p2 - 1 : pos);
+      r = (int)__ldg(p.order + pos);
+    }
+    p.li[t] = (int)i;
+    p.ri[t] = r;
+  }
+}
+
+}  // namespace
+
+// K7. The side is (n, nrows or -1 with row_valid, nulls or null, seg,
+// num); table is int32 [num], filled by the caller with 0 (counts) or -1
+// (slots). device is the CUDA ordinal of the tensors, stream a
+// cudaStream_t of it. Returns a cudaError_t; *path is 1 (per-block tables
+// in shared memory), 2 (the global table) or 0 (no row: nothing launched).
+extern "C" int fugue_join_build(long long n, long long nrows, const void* row_valid,
+                                const void* nulls, const void* seg, int num, int slots,
+                                void* table, int device, void* stream, int* path) {
+  *path = 0;
+  if (num < 1 || (nrows < 0 && row_valid == nullptr)) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;
+  BuildParams p = {};
+  p.side = {n, nrows, static_cast<const uint8_t*>(row_valid),
+            static_cast<const uint8_t*>(nulls), static_cast<const int*>(seg), num};
+  p.slots = slots;
+  p.table = static_cast<int*>(table);
+  const bool shared = num <= kSharedMax;
+  void (*kernel)(BuildParams) = shared ? join_build<true> : join_build<false>;
+  const cudaError_t err = on_device(device, [&] {
+    return launch_wave(kernel, n, kThreads, device, static_cast<cudaStream_t>(stream), p);
+  });
+  if (err == cudaSuccess) *path = shared ? 1 : 2;
+  return (int)err;
+}
+
+// K8. The side as for K7; table int32 [num]; mode 0 semi, 1 anti, 2
+// unique, 3 expand; the outputs the mode writes (see ProbeParams), the
+// counter zeroed by the caller. Returns a cudaError_t; *launched is 1
+// where the kernel was launched.
+extern "C" int fugue_join_probe(long long n, long long nrows, const void* row_valid,
+                                const void* nulls, const void* seg, int num, const void* table,
+                                int mode, int outer, void* keep, void* ridx, void* m,
+                                void* reps, void* count, void* total, int device,
+                                void* stream, int* launched) {
+  *launched = 0;
+  if (num < 1 || mode < kSemi || mode > kExpand || (nrows < 0 && row_valid == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((mode == kExpand && (m == nullptr || reps == nullptr || total == nullptr)) ||
+      (mode != kExpand && (keep == nullptr || count == nullptr)) ||
+      (mode == kUnique && ridx == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;
+  ProbeParams p = {};
+  p.side = {n, nrows, static_cast<const uint8_t*>(row_valid),
+            static_cast<const uint8_t*>(nulls), static_cast<const int*>(seg), num};
+  p.table = static_cast<const int*>(table);
+  p.mode = mode;
+  p.outer = outer;
+  p.keep = static_cast<uint8_t*>(keep);
+  p.ridx = static_cast<int*>(ridx);
+  p.m = static_cast<int*>(m);
+  p.reps = static_cast<int*>(reps);
+  p.count = static_cast<int*>(count);
+  p.total = static_cast<unsigned long long*>(total);
+  const cudaError_t err = on_device(device, [&] {
+    return launch_wave(join_probe, n, kThreads, device, static_cast<cudaStream_t>(stream), p);
+  });
+  if (err == cudaSuccess) *launched = 1;
+  return (int)err;
+}
+
+// K9. start int64 [p1], m and seg int32 [p1], cstart int64 [num], order
+// int64 [p2]; tiles int64 [ceil(total / kTile) + 1], scratch; li and ri
+// int32 [total]. Returns a cudaError_t; *launched is 1 where the kernel
+// was launched (total > 0).
+extern "C" int fugue_join_expand(long long p1, long long total, const void* start,
+                                 const void* m, const void* seg, int num, const void* cstart,
+                                 const void* order, long long p2, void* tiles, void* li,
+                                 void* ri, int device, void* stream, int* launched) {
+  *launched = 0;
+  if (p1 < 1 || p2 < 1 || num < 1 || total < 0) return (int)cudaErrorInvalidValue;
+  if (total == 0) return (int)cudaSuccess;
+  ExpandParams p = {};
+  p.p1 = p1;
+  p.total = total;
+  p.start = static_cast<const long long*>(start);
+  p.m = static_cast<const int*>(m);
+  p.seg = static_cast<const int*>(seg);
+  p.num = num;
+  p.cstart = static_cast<const long long*>(cstart);
+  p.order = static_cast<const long long*>(order);
+  p.p2 = p2;
+  p.tiles = static_cast<long long*>(tiles);
+  p.ntiles = (total + kTile - 1) / kTile;
+  p.li = static_cast<int*>(li);
+  p.ri = static_cast<int*>(ri);
+  const cudaError_t err = on_device(device, [&] {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t e = launch_params(expand_tiles, p.ntiles / kThreads + 1, kThreads, st, p);
+    if (e != cudaSuccess) return e;
+    return launch_params(join_expand, p.ntiles, kThreads, st, p);
+  });
+  if (err == cudaSuccess) *launched = 1;
+  return (int)err;
+}
+
+// The message of a cudaError_t, for the wrapper's exception.
+extern "C" const char* fugue_join_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

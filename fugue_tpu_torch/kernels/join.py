@@ -1,0 +1,207 @@
+"""The wrappers of ``join.cu``: check their tensors, allocate and fill
+the outputs and launch the join kernels on PyTorch's current stream.
+
+- ``join_build_cuda`` (K7): the build side's per-segment counts, or the
+  highest row of each segment (slot mode);
+- ``join_probe_cuda`` (K8): per probe row its segment's entry, written
+  by mode (semi/anti keep flags, the unique route's build row, the
+  expansion's matches and output rows) with a device total;
+- ``join_expand_cuda`` (K9, two launches: the probe row of each tile's
+  first output, then the tiles): each output row's probe row and build
+  row.
+
+Each has the contract of its twin in ``reference.py``. Each wrapper's
+``launches`` grows by one where it launches its kernel and nowhere else;
+``join_build_cuda.last_path`` names where its last launch kept its
+tables: ``"shared"`` (a copy per block) or ``"global"``."""
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from fugue_tpu_torch.kernels import build
+from fugue_tpu_torch.kernels.factorize import _check, _device_and_stream, _require_cuda
+from fugue_tpu_torch.kernels.reference import PROBE_MODES, Probe
+
+_PATHS = {1: "shared", 2: "global"}
+_FLAGS = (torch.bool, torch.uint8)
+_EXPAND_TILE = 2048  # K9's output rows a block (kTile in join.cu)
+
+
+def _bind() -> ctypes.CDLL:
+    lib = build.load("join")
+    if lib.fugue_join_build.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ip = ctypes.POINTER(i)
+        side = [ll, ll, p, p, p, i]  # n, nrows, row_valid, nulls, seg, num
+        lib.fugue_join_build.argtypes = side + [i, p, i, p, ip]  # slots, table, device, stream, path
+        lib.fugue_join_probe.argtypes = side + [
+            p, i, i,  # table, mode, outer
+            p, p, p, p, p, p,  # keep, ridx, m, reps, count, total
+            i, p, ip,  # device, stream, launched
+        ]
+        lib.fugue_join_expand.argtypes = [
+            ll, ll, p, p, p, i, p, p, ll,  # p1, total, start, m, seg, num, cstart, order, p2
+            p, p, p, i, p, ip,  # tiles, li, ri, device, stream, launched
+        ]
+        for fn in (lib.fugue_join_build, lib.fugue_join_probe, lib.fugue_join_expand):
+            fn.restype = i
+        lib.fugue_join_error_string.argtypes = [i]
+        lib.fugue_join_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.fugue_join_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def _side(seg: torch.Tensor, num: int, nrows: Optional[int],
+          row_valid: Optional[torch.Tensor], nulls: Optional[torch.Tensor],
+          fn: str) -> Tuple[int, int, Optional[int], Optional[int]]:
+    """A join side's ``(n, nrows or -1, row_valid pointer, nulls
+    pointer)`` after the checks."""
+    _require_cuda(seg, fn)
+    n = int(seg.shape[0])
+    if not 1 <= n < 2**31:
+        raise ValueError(f"{n} rows: the kernels take 1 to 2^31 - 1")
+    if not 1 <= num < 2**31:
+        raise ValueError(f"num {num} outside [1, 2^31 - 1]")
+    _check(seg, "seg", (torch.int32,), n, seg.device)
+    if (nrows is None) == (row_valid is None):
+        raise ValueError("pass exactly one of nrows (prefix rows) and row_valid")
+    if row_valid is not None:
+        _check(row_valid, "row_valid", _FLAGS, n, seg.device)
+    elif not 0 <= int(nrows) <= n:  # type: ignore[arg-type]
+        raise ValueError(f"nrows {nrows} outside [0, {n}]")
+    if nulls is not None:
+        _check(nulls, "nulls", (torch.bool,), n, seg.device)
+    return (n, -1 if nrows is None else int(nrows),
+            None if row_valid is None else row_valid.data_ptr(),
+            None if nulls is None else nulls.data_ptr())
+
+
+def join_build_cuda(
+    seg: torch.Tensor,
+    num: int,
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    nulls: Optional[torch.Tensor] = None,
+    slots: bool = False,
+) -> torch.Tensor:
+    """K7, with the contract of ``reference.join_build_reference``: int32
+    [num]. ``seg`` is a dense int32 CUDA tensor; ``row_valid`` and
+    ``nulls`` dense flags of its rows on its device. Raises on anything
+    else, on a failed build and on a refused launch."""
+    n, nrows_arg, rv, nl = _side(seg, num, nrows, row_valid, nulls, "join_build_cuda")
+    table = torch.full((num,), -1 if slots else 0, dtype=torch.int32, device=seg.device)
+    lib = _bind()
+    index, stream = _device_and_stream(seg.device)
+    path = ctypes.c_int(0)
+    err = lib.fugue_join_build(n, nrows_arg, rv, nl, seg.data_ptr(), num, int(slots),
+                               table.data_ptr(), index, stream, ctypes.byref(path))
+    _raise_on(lib, err, "join_build")
+    if path.value != 0:
+        join_build_cuda.launches += 1
+        join_build_cuda.last_path = _PATHS[path.value]
+    return table
+
+
+join_build_cuda.launches = 0  # type: ignore[attr-defined]
+join_build_cuda.last_path = None  # type: ignore[attr-defined]
+
+
+def join_probe_cuda(
+    seg: torch.Tensor,
+    table: torch.Tensor,
+    mode: str,
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    nulls: Optional[torch.Tensor] = None,
+    outer: bool = False,
+) -> Probe:
+    """K8, with the contract of ``reference.join_probe_reference``.
+    ``table`` is K7's int32 [num] output on ``seg``'s device."""
+    if mode not in PROBE_MODES:
+        raise ValueError(f"probe mode {mode!r}: one of {PROBE_MODES}")
+    num = int(table.shape[0])
+    n, nrows_arg, rv, nl = _side(seg, num, nrows, row_valid, nulls, "join_probe_cuda")
+    device = seg.device
+    _check(table, "table", (torch.int32,), num, device)
+
+    def out(dtype: torch.dtype, wanted: bool) -> Optional[torch.Tensor]:
+        return torch.empty((n,), dtype=dtype, device=device) if wanted else None
+
+    expand = mode == "expand"
+    keep, ridx = out(torch.bool, not expand), out(torch.int32, mode == "unique")
+    m, reps = out(torch.int32, expand), out(torch.int32, expand)
+    total = torch.zeros((), dtype=torch.int64 if expand else torch.int32, device=device)
+    lib = _bind()
+    index, stream = _device_and_stream(device)
+    launched = ctypes.c_int(0)
+
+    def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+        return None if t is None else t.data_ptr()
+
+    err = lib.fugue_join_probe(
+        n, nrows_arg, rv, nl, seg.data_ptr(), num, table.data_ptr(),
+        PROBE_MODES.index(mode), int(outer), ptr(keep), ptr(ridx), ptr(m), ptr(reps),
+        None if expand else total.data_ptr(), total.data_ptr() if expand else None,
+        index, stream, ctypes.byref(launched),
+    )
+    _raise_on(lib, err, "join_probe")
+    if launched.value:
+        join_probe_cuda.launches += 1
+    return Probe(keep, ridx, m, reps, total)
+
+
+join_probe_cuda.launches = 0  # type: ignore[attr-defined]
+
+
+def join_expand_cuda(
+    start: torch.Tensor,
+    m: torch.Tensor,
+    seg1: torch.Tensor,
+    cstart2: torch.Tensor,
+    order2: torch.Tensor,
+    total: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9, with the contract of ``reference.join_expand_reference``:
+    ``(li, ri)``, int32 [total]. ``start`` int64 and ``m``, ``seg1``
+    int32 over the probe rows, ``cstart2`` int64 [S], ``order2`` int64
+    over the build rows, all dense on one CUDA device."""
+    _require_cuda(start, "join_expand_cuda")
+    device = start.device
+    p1, num, p2 = int(start.shape[0]), int(cstart2.shape[0]), int(order2.shape[0])
+    if not 1 <= p1 < 2**31 or not 1 <= p2 < 2**31 or not 1 <= num < 2**31:
+        raise ValueError(f"sides of {p1} and {p2} rows over {num} segments: the kernel "
+                         "takes 1 to 2^31 - 1 of each")
+    if total < 0:
+        raise ValueError(f"total {total} is negative")
+    _check(start, "start", (torch.int64,), p1, device)
+    _check(m, "m", (torch.int32,), p1, device)
+    _check(seg1, "seg1", (torch.int32,), p1, device)
+    _check(cstart2, "cstart2", (torch.int64,), num, device)
+    _check(order2, "order2", (torch.int64,), p2, device)
+    li = torch.empty((total,), dtype=torch.int32, device=device)
+    ri = torch.empty((total,), dtype=torch.int32, device=device)
+    tiles = torch.empty((-(-total // _EXPAND_TILE) + 1,), dtype=torch.int64, device=device)
+    lib = _bind()
+    index, stream = _device_and_stream(device)
+    launched = ctypes.c_int(0)
+    err = lib.fugue_join_expand(
+        p1, total, start.data_ptr(), m.data_ptr(), seg1.data_ptr(), num,
+        cstart2.data_ptr(), order2.data_ptr(), p2, tiles.data_ptr(), li.data_ptr(),
+        ri.data_ptr(), index, stream, ctypes.byref(launched),
+    )
+    _raise_on(lib, err, "join_expand")
+    if launched.value:
+        join_expand_cuda.launches += 1
+    return li, ri
+
+
+join_expand_cuda.launches = 0  # type: ignore[attr-defined]

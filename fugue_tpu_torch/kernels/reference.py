@@ -1,6 +1,7 @@
 """Plain PyTorch twins of the port's CUDA kernels (``segment_sums.cu``,
-``factorize.cu``, ``segment_reduce.cu``, ``expr_program.cu``): the CPU
-path, and the oracle each kernel is held against on the card."""
+``factorize.cu``, ``segment_reduce.cu``, ``expr_program.cu``, ``join.cu``,
+``gather.cu``): the CPU path, and the oracle each kernel is held against
+on the card."""
 
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -782,3 +783,179 @@ def expr_program_reference(
     if mask is not None:
         keep = keep & mask
     return keep, keep.sum().to(torch.int32)
+
+
+# --- joins: K7 join_build, K8 join_probe, K9 join_expand, K10 gather_rows ---
+
+PROBE_MODES = ("semi", "anti", "unique", "expand")
+
+
+class Probe(NamedTuple):
+    """What K8 ``join_probe`` writes, by mode (None where the mode writes
+    nothing):
+
+    - ``keep``: bool [n], the probe rows the join keeps (semi, anti,
+      unique);
+    - ``ridx``: int32 [n], each probe row's build row, -1 where it has
+      none (unique);
+    - ``m``: int32 [n], each probe row's matches (expand);
+    - ``reps``: int32 [n], its output rows: ``m`` on a real row, at least
+      1 under an outer join, 0 on a row that is not real (expand);
+    - ``total``: 0-d, the kept rows (int32: semi, anti, unique) or the sum
+      of ``reps`` (int64: expand)."""
+
+    keep: Optional[torch.Tensor]
+    ridx: Optional[torch.Tensor]
+    m: Optional[torch.Tensor]
+    reps: Optional[torch.Tensor]
+    total: torch.Tensor
+
+
+def _join_rows(seg: torch.Tensor, num: int, nrows: Optional[int],
+               row_valid: Optional[torch.Tensor],
+               nulls: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(real, matchable)`` over a join side's padded rows: real rows (a
+    prefix frame's first ``nrows``, or a masked frame's non-zero
+    ``row_valid`` bytes), and those of them with no null key (``nulls``,
+    True where a key is null) and a segment in ``[0, num)``."""
+    if (nrows is None) == (row_valid is None):
+        raise ValueError("pass exactly one of nrows (prefix rows) and row_valid")
+    n = int(seg.shape[0])
+    real = materialize_validity(row_valid, n, nrows, seg.device)
+    matchable = real & (seg >= 0) & (seg < num)
+    if nulls is not None:
+        matchable = matchable & ~nulls
+    return real, matchable
+
+
+def join_build_reference(
+    seg: torch.Tensor,
+    num: int,
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    nulls: Optional[torch.Tensor] = None,
+    slots: bool = False,
+) -> torch.Tensor:
+    """The twin of K7 in ``join.cu``: the build side's table, int32
+    [num]. A row takes part where it is real, has no null key and its
+    segment lies in ``[0, num)`` (``_join_rows``). Counts mode: the rows
+    of each segment (``segment_count`` of the JAX package's join programs,
+    ``fugue_tpu/jax_backend/relational.py:298-300``, ``:466``). Slot
+    mode: the highest such row of each segment, -1 where there is none
+    (the scatter-max of ``_unique_right_join``, ``:674-678``)."""
+    _, take = _join_rows(seg, num, nrows, row_valid, nulls)
+    rows = seg[take].to(torch.int64)
+    if slots:
+        table = torch.full((num,), -1, dtype=torch.int32, device=seg.device)
+        pos = torch.arange(int(seg.shape[0]), dtype=torch.int32, device=seg.device)[take]
+        return table.scatter_reduce_(0, rows, pos, "amax")
+    return torch.bincount(rows, minlength=num).to(torch.int32)
+
+
+def join_probe_reference(
+    seg: torch.Tensor,
+    table: torch.Tensor,
+    mode: str,
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    nulls: Optional[torch.Tensor] = None,
+    outer: bool = False,
+) -> Probe:
+    """The twin of K8 in ``join.cu``: each probe row reads its segment's
+    entry of ``table`` (K7's counts, or its slots in ``"unique"`` mode); a
+    row that is not matchable (``_join_rows``) reads 0 (-1 in unique
+    mode). ``mode``:
+
+    - ``"semi"``: keep = matchable and the count above 0; ``"anti"``: keep
+      = real and not that (``semi_anti_join``,
+      ``fugue_tpu/jax_backend/relational.py:301-306``);
+    - ``"unique"``: ridx = the slot, keep = ridx >= 0, or every real row
+      under ``outer`` (``_unique_right_join``, ``:679-682``, ``:688``);
+    - ``"expand"``: m = the count, reps = m on a real row, ``max(m, 1)``
+      under ``outer``, total their sum in int64 (``expand_join``'s
+      ``_count_prog``, ``:470-474``)."""
+    if mode not in PROBE_MODES:
+        raise ValueError(f"probe mode {mode!r}: one of {PROBE_MODES}")
+    num = int(table.shape[0])
+    real, matchable = _join_rows(seg, num, nrows, row_valid, nulls)
+    entry = table[seg.clamp(0, num - 1).to(torch.int64)]
+    if mode == "unique":
+        ridx = torch.where(matchable, entry, -1)
+        keep = real if outer else ridx >= 0
+        return Probe(keep, ridx, None, None, keep.sum(dtype=torch.int32))
+    hit = matchable & (entry > 0)
+    if mode == "semi":
+        return Probe(hit, None, None, None, hit.sum(dtype=torch.int32))
+    if mode == "anti":
+        keep = real & ~hit
+        return Probe(keep, None, None, None, keep.sum(dtype=torch.int32))
+    m = torch.where(matchable, entry, 0)
+    reps = torch.where(real, m.clamp(min=1) if outer else m, 0)
+    return Probe(None, None, m, reps, reps.sum(dtype=torch.int64))
+
+
+def join_expand_reference(
+    start: torch.Tensor,
+    m: torch.Tensor,
+    seg1: torch.Tensor,
+    cstart2: torch.Tensor,
+    order2: torch.Tensor,
+    total: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The twin of K9 in ``join.cu``, by the JAX package's algorithm
+    (``expand_join``'s ``_gather_prog``,
+    ``fugue_tpu/jax_backend/relational.py:568-577``): a mark at each probe
+    row's ``start`` (int64, the exclusive prefix sum of K8's ``reps``), a
+    cumulative sum of the marks for each output row's probe row ``i``,
+    then its offset ``j`` in that row's run and, where ``j < m[i]``, its
+    build row ``order2[cstart2[seg1[i]] + j]``. ``cstart2`` (int64 [S]) is
+    each segment's first position in ``order2`` (int64 [p2], the build
+    rows grouped by segment). Returns ``(li, ri)``, int32 [total]; ``ri``
+    is -1 on an outer row with no match."""
+    device = start.device
+    p1, num, p2 = int(start.shape[0]), int(cstart2.shape[0]), int(order2.shape[0])
+    t = torch.arange(total, dtype=torch.int64, device=device)
+    marks = torch.zeros((total,), dtype=torch.int64, device=device)
+    inside = start < total
+    marks.index_add_(0, start[inside], torch.ones_like(start[inside]))
+    i = (torch.cumsum(marks, 0) - 1).clamp(0, p1 - 1)
+    j = t - start[i]
+    matched = j < m[i]
+    s = seg1[i].clamp(0, num - 1).to(torch.int64)
+    rpos = (cstart2[s] + j).clamp(0, p2 - 1)
+    ri = torch.where(matched, order2[rpos], -1)
+    return i.to(torch.int32), ri.to(torch.int32)
+
+
+class GatherColumn(NamedTuple):
+    """A column K10 ``gather_rows`` gathers: its values (any dtype of 1,
+    2, 4 or 8 bytes) and null mask (True = valid; None: every row valid)."""
+
+    values: torch.Tensor
+    mask: Optional[torch.Tensor]
+
+
+def gather_rows_reference(
+    columns: Sequence[GatherColumn], idx: torch.Tensor, *, outer: bool = False
+) -> List[Payload]:
+    """The twin of K10 in ``gather.cu``: per column ``out[t] =
+    values[idx[t]]``, 0 where ``idx[t]`` is -1 (an outer row with no
+    match), and the mask ``mask[idx[t]] and idx[t] >= 0``, given where the
+    column has a mask or under ``outer`` (the index may hold -1), else
+    None (``_gather_prog``, ``fugue_tpu/jax_backend/relational.py:578-585``;
+    ``_unique_right_join``, ``:683-687``)."""
+    hit = idx >= 0
+    safe = idx.clamp(min=0).to(torch.int64)
+    out: List[Payload] = []
+    for values, mask in columns:
+        v = values.index_select(0, safe)
+        v = torch.where(hit, v, torch.zeros_like(v))
+        om: Optional[torch.Tensor] = None
+        if mask is not None:
+            om = mask.index_select(0, safe) & hit
+        elif outer:
+            om = hit
+        out.append((v, om))
+    return out

@@ -47,6 +47,7 @@
 #include <stdint.h>
 
 #include "bin_keys.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -244,24 +245,6 @@ __global__ void __launch_bounds__(kThreads)
       if (v != 0.0) atomicAdd(p.out + i, v);
     }
   }
-}
-
-// Runs launch() with `device` current, then restores the caller's device.
-template <typename F>
-cudaError_t on_device(int device, F launch) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return err;
-  if (prev != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-  }
-  err = launch();
-  if (prev != device) {
-    const cudaError_t back = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = back;
-  }
-  return err;
 }
 
 // Launches fn over n rows with smem bytes of dynamic shared memory (the

@@ -183,6 +183,17 @@ class Schema:
             assert_or_throw(n in self._fields, KeyError(f"{n} not in {self}"))
         return Schema([self._fields[n] for n in names])
 
+    def intersect(self, names: Iterable[str]) -> "Schema":
+        """The fields whose names are in ``names``, in this schema's order
+        (``fugue_tpu/schema.py:374``, for names)."""
+        keep = set(names)
+        return Schema([f for f in self.fields if f.name in keep])
+
+    def __add__(self, other: Any) -> "Schema":
+        """Both schemas' fields, this one's first; a repeated name raises
+        (``fugue_tpu/schema.py:353``)."""
+        return Schema(self, other)
+
     def __eq__(self, other: Any) -> bool:
         if not isinstance(other, Schema):
             try:

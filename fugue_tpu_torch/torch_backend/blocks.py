@@ -12,7 +12,9 @@ the number.
 
 Integer-like columns carry host-known ``(min, max)`` ``stats`` captured at
 ingest and carried through passthrough map outputs, so the group-by can
-bin keys without reading bounds back from the card.
+bin keys without reading bounds back from the card. An integer column
+that ingest proves strictly increasing is ``unique``, which lets a join
+against it take the sync-free unique-right route.
 
 String, timestamp, date, uint16-64 and float16 columns are not ported
 yet (ROADMAP.md queue 1 item 1): ``from_arrow`` raises
@@ -59,7 +61,9 @@ def is_integer_like(tp: pa.DataType) -> bool:
 class TorchColumn:
     """One column: device data + optional mask (True = valid) + host-known
     ``(min, max)`` bounds of the VALID values of an integer-like column
-    (a superset bound is fine). Port of ``jax_backend/blocks.py:73``."""
+    (a superset bound is fine) + ``unique``: no two real rows hold the same
+    value, proven on the host at ingest. Port of
+    ``jax_backend/blocks.py:73``."""
 
     def __init__(
         self,
@@ -67,11 +71,13 @@ class TorchColumn:
         data: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
         stats: Optional[Tuple[int, int]] = None,
+        unique: bool = False,
     ):
         self.pa_type = pa_type
         self.data = data
         self.mask = mask
         self.stats = stats
+        self.unique = unique
 
 
 def padded_len(n: int) -> int:
@@ -176,6 +182,20 @@ def _int_like_stats(values: np.ndarray) -> Optional[Tuple[int, int]]:
     return None
 
 
+_UNIQUE_CHECK_MAX = 4_000_000  # the host check runs only up to dimension-table sizes
+
+
+def _proven_unique(tp: pa.DataType, values: np.ndarray, has_nulls: bool) -> bool:
+    """An integer column with no nulls and ``0 < n <= _UNIQUE_CHECK_MAX``
+    rows whose values strictly increase (``jax_backend/blocks.py:461-476``):
+    the surrogate key of a dimension table. By an element-wise compare, not
+    ``np.diff``, whose subtraction wraps for unsigned and extreme values."""
+    n = int(values.shape[0])
+    if has_nulls or not pa.types.is_integer(tp) or not 0 < n <= _UNIQUE_CHECK_MAX:
+        return False
+    return bool((values[1:] > values[:-1]).all())
+
+
 def _pad(arr: np.ndarray, target: int, fill: Any) -> np.ndarray:
     if arr.shape[0] == target:
         return arr
@@ -186,8 +206,9 @@ def _pad(arr: np.ndarray, target: int, fill: Any) -> np.ndarray:
 
 def from_arrow(table: pa.Table, schema: Schema, device: torch.device) -> TorchBlocks:
     """Arrow -> device blocks: pads rows, builds masks, captures host-side
-    key stats (``jax_backend/blocks.py:405``). Null slots are filled with 0
-    in the column's own type, so int64 values stay exact."""
+    key stats and the ``unique`` flag (``jax_backend/blocks.py:405``). Null
+    slots are filled with 0 in the column's own type, so int64 values stay
+    exact."""
     n = table.num_rows
     pad_n = padded_len(n)
     cols: Dict[str, TorchColumn] = {}
@@ -203,12 +224,13 @@ def from_arrow(table: pa.Table, schema: Schema, device: torch.device) -> TorchBl
             arr = pc.fill_null(arr, False if tdtype == torch.bool else 0)
         values = arr.to_numpy(zero_copy_only=False)
         stats = _int_like_stats(values)
+        unique = _proven_unique(field.type, values, mask is not None)
         data = _pad(np.ascontiguousarray(values), pad_n, 0)
         if not data.flags.writeable:
             # a zero-copy view of arrow memory: the frame gets its own copy
             data = data.copy()
         cols[field.name] = TorchColumn(
-            field.type, torch.from_numpy(data).to(device), mask, stats
+            field.type, torch.from_numpy(data).to(device), mask, stats, unique
         )
     return TorchBlocks(n, cols, device)
 

@@ -11,7 +11,8 @@ spec through the binned packed aggregate, whose whole per-row part
 (segment ids, row validity, sums) is one launch of the fused CUDA kernel;
 any other plan through the key factorization and
 ``groupby.segment_aggs`` over its segment ids; no keys through the same
-over one segment. ``filter``, ``assign`` and ``select`` (a projection, or
+over one segment. ``join`` runs every join type on the card
+(``torch_backend/relational.py``). ``filter``, ``assign`` and ``select`` (a projection, or
 a group-by with computed keys, WHERE and HAVING) evaluate their column
 expressions with one launch of the K6 expression program per call
 (``torch_backend/expr_eval.py``), and so does an aggregate whose
@@ -25,7 +26,8 @@ ports them; nothing falls back to a host engine. ``fallbacks`` counts
 those refusals by operation, ``strategy_counts`` the aggregates by the
 route of their kernels (``"cuda"`` or ``"reference"``) and the ones that
 took the generic (factorized) branch (``"generic"``) or had no keys
-(``"global"``).
+(``"global"``), and the joins by route (``"join_mask"``,
+``"join_unique"``, ``"join_expand"``).
 """
 
 from collections.abc import Mapping
@@ -43,8 +45,9 @@ from fugue_tpu_torch.column.expressions import (
     _NamedColumnExpr,
 )
 from fugue_tpu_torch.column.sql import SelectColumns, rewrite_having
+from fugue_tpu_torch.dataframe.utils import get_join_schemas, normalize_join_type
 from fugue_tpu_torch.schema import Schema
-from fugue_tpu_torch.torch_backend import expr_eval, groupby
+from fugue_tpu_torch.torch_backend import expr_eval, groupby, relational
 from fugue_tpu_torch.torch_backend.blocks import (
     TorchBlocks,
     TorchColumn,
@@ -258,7 +261,9 @@ class TorchExecutionEngine:
     @property
     def strategy_counts(self) -> Dict[str, int]:
         """Aggregates by route (``:909``): ``"cuda"`` or ``"reference"``
-        (where their kernels ran), and ``"generic"`` or ``"global"``."""
+        (where their kernels ran), and ``"generic"`` or ``"global"``; joins
+        by route: ``"join_mask"`` (semi, anti), ``"join_unique"`` (the
+        unique right side) or ``"join_expand"``."""
         return dict(self._strategy_counts)
 
     @property
@@ -364,6 +369,51 @@ class TorchExecutionEngine:
         for (name, tp, c), (v, m) in zip(plans, values):
             new_cols[name] = TorchColumn(tp, v, m, _source_stats(blocks, c))
         return TorchDataFrame(blocks_with_columns(blocks, new_cols), schema)
+
+    def join(
+        self, df1: Any, df2: Any, how: str, on: Optional[List[str]] = None
+    ) -> TorchDataFrame:
+        """``:1731``: semi and anti flip the left frame's validity (no
+        readback); inner, left, right and full outer and cross enumerate
+        their matches on the card with one readback of the output size, or
+        none where the right side's one key is unique (inner, left outer;
+        for right outer the left side's). Right outer is a left outer join
+        with the sides swapped and the columns reordered. Null keys never
+        match. A frame on another device or a column the card cannot hold
+        raises ``NotImplementedError`` and counts in ``fallbacks``."""
+        t1, t2 = self._join_input(df1), self._join_input(df2)
+        hownorm = normalize_join_type(how)
+        key_schema, output_schema = get_join_schemas(t1, t2, hownorm, on)
+        keys = list(key_schema.names)
+        b1, b2 = t1.blocks, t2.blocks
+        if hownorm in ("semi", "leftsemi", "anti", "leftanti"):
+            out = relational.semi_anti_join(b1, b2, keys, anti=hownorm in ("anti", "leftanti"))
+            self._count_strategy("join_mask")
+            return TorchDataFrame(out, output_schema)
+        if hownorm == "rightouter":
+            _, swapped = get_join_schemas(t2, t1, "leftouter", keys)
+            out, route = relational.expand_join(
+                b2, b1, keys, "leftouter", t2.schema, t1.schema, swapped)
+            out = blocks_with_columns(out, {n: out.columns[n] for n in output_schema.names})
+        else:
+            out, route = relational.expand_join(
+                b1, b2, keys, hownorm, t1.schema, t2.schema, output_schema)
+        self._count_strategy(route)
+        return TorchDataFrame(out, output_schema)
+
+    def _join_input(self, df: Any) -> TorchDataFrame:
+        """``to_df`` of a join side. A frame on another device (a join
+        across devices, ROADMAP.md queue 1 item 12) and a column type the
+        card does not hold (``to_df`` raises, queue 1 item 1) count in
+        ``fallbacks`` as a refused join."""
+        if isinstance(df, TorchDataFrame) and df.device != self.device:
+            self._unported("join", f"a join of a frame on {df.device} on an engine on "
+                           f"{self.device}", "ROADMAP.md queue 1 item 12")
+        try:
+            return self.to_df(df)
+        except NotImplementedError:
+            self._fallbacks["join"] = self._fallbacks.get("join", 0) + 1
+            raise
 
     def aggregate(
         self,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's paths goes on the card.
 
-    python3 profile_torch_main_path.py
+    python3 profile_torch_main_path.py [--only GROUP ...]
 
 Builds each path of ``chip_smoke.py`` at 100M rows: the headline
 (transform, then the binned aggregate; 1024 groups, seed 42), the
@@ -12,7 +12,10 @@ float32 key over 2^18 and 2^20 groups, the full group-by (every
 aggregate function and two DISTINCT ones, by the headline key and with no
 key), and the paths of the K6 expression program: the filtered pipeline
 and the WHERE/HAVING select (100M rows) and BASELINE config 3's select
-(10M rows). Each is warmed up with two runs,
+(10M rows), and the joins: config 3b (facts joined to a 256-row dimension
+table on a unique key, then aggregated; 5M and 100M facts) and config
+10's join (100M left rows, 200M output rows). Each is warmed up with two
+runs,
 then run ``RUNS`` times under ``torch.profiler``; for each the script
 prints one JSON object: the
 wall seconds per run, the device's busy and idle share of that wall time
@@ -22,9 +25,10 @@ tables go to ``profile_main_path.txt`` in the working directory. Needs a
 CUDA card.
 """
 
+import argparse
 import json
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Dict
 
 import chip_smoke
 
@@ -79,20 +83,21 @@ def profile_path(name: str, run_once: Callable[[], Any], device: Any, table: Any
     }))
 
 
-def main() -> None:
+def _groups(device: Any, table: Any) -> Dict[str, Callable[[], None]]:
+    """Each group of paths by name: building it and profiling its paths."""
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("FAIL: torch.cuda.is_available() is false")
-    device = torch.device("cuda", torch.cuda.current_device())
     rows, groups, seed = chip_smoke.ROWS, chip_smoke.GROUPS, chip_smoke.SEED
-    with open(TABLE, "w") as table:
+
+    def headline() -> None:
         run_once = chip_smoke.build_main_path(device, rows, groups, seed)[0]
         profile_path("headline", run_once, device, table)
+
+    def config2() -> None:
         run_once = chip_smoke.build_partitioned_transform(device, rows)[0]
         profile_path("config2_partitioned_transform", run_once, device, table)
-        del run_once
-        torch.cuda.empty_cache()
+
+    def sort_path() -> None:
         run_for = chip_smoke.build_sort_path(device, rows, groups, seed)[0]
         for name in chip_smoke.SORT_PATH_CASES:
             profile_path(f"sort_path_{name}", run_for(name), device, table)
@@ -102,15 +107,15 @@ def main() -> None:
             run_for = chip_smoke.build_sort_path(device, rows, many, seed)[0]
             profile_path(f"sort_path_float_key_{many}_groups", run_for("float_key"), device,
                          table)
-        del run_for
-        torch.cuda.empty_cache()
+
+    def full_groupby() -> None:
         run_full = chip_smoke.build_full_groupby(device, rows, groups,
                                                  chip_smoke.DISTINCT_VALUES, seed)[0]
         for keyed in (True, False):
             profile_path(f"full_groupby_{'keyed' if keyed else 'keyless'}", run_full(keyed),
                          device, table)
-        del run_full
-        torch.cuda.empty_cache()
+
+    def k6() -> None:
         run_for = chip_smoke.build_filtered_paths(device, rows, groups, seed)[0]
         for name, run_once in run_for.items():
             profile_path(name, run_once, device, table)
@@ -118,6 +123,37 @@ def main() -> None:
         torch.cuda.empty_cache()
         run_once = chip_smoke.build_config3(device, chip_smoke.CONFIG3_ROWS)[0]
         profile_path("config3_select", run_once, device, table, chip_smoke.CONFIG3_ROWS)
+
+    def joins() -> None:
+        for facts in (chip_smoke.JOIN3B_ROWS, rows):
+            run_once = chip_smoke.build_join_3b(device, facts)[0]
+            profile_path(f"join_3b_{facts}", run_once, device, table, facts)
+            del run_once
+            torch.cuda.empty_cache()
+        run_once = chip_smoke.build_join_expand(device, chip_smoke.JOIN_EXPAND_ROWS)[0]
+        profile_path("join_expand", run_once, device, table, chip_smoke.JOIN_EXPAND_ROWS)
+
+    return {"headline": headline, "config2": config2, "sort_path": sort_path,
+            "full_groupby": full_groupby, "k6": k6, "joins": joins}
+
+
+def main() -> None:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", nargs="*", metavar="GROUP",
+                        help="profile only these groups of paths: headline, config2, "
+                             "sort_path, full_groupby, k6, joins (default: all)")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("FAIL: torch.cuda.is_available() is false")
+    device = torch.device("cuda", torch.cuda.current_device())
+    with open(TABLE, "w") as table:
+        for name, run in _groups(device, table).items():
+            if args.only and name not in args.only:
+                continue
+            run()
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
