@@ -34,6 +34,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    2^20 + 37, and the paths' programs (``k6_path_programs``) at 1,
    2^20 + 37, 10M and 100M rows: masks, filter flags and counts exactly,
    values bit for bit, the float functions within ``K6_FUNC_RTOL``. Then
+   K6's LUT family exactly (``lut_vs_twin``): every program of
+   ``k6_string_cases`` over string codes with nulls (LIKE with ``%``,
+   ``_`` and regex characters; every compare against a literal in the
+   dictionary, one absent and one between entries; columns with
+   different dictionaries; IN lists; LENGTH; a canonicalising UPPER; a
+   two-column CONCAT; a LIKE by a pattern column; NULLIF; filters over
+   prefix rows and a ``row_valid``) and the harmonize re-coding of a join
+   key, at 1, 2^20 + 37 and 100M rows. Then
    the join kernels exactly (``join_vs_twin``): K7 ``join_build`` (counts
    and slots) and K8 ``join_probe`` (semi, anti, unique and expand, inner
    and outer) over 1, 1024 and 2^24 segments with sentinel rows, null
@@ -75,7 +83,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    aggregate of the output against numpy, and row for row at 10M), left,
    right and full outer, semi and anti at 10M by 5M rows with null keys
    and keys that miss, and a cross join of 10^4 by 10^3 rows, each row for
-   row against a numpy sort-merge (``numpy_join``). Each reports cold and
+   row against a numpy sort-merge (``numpy_join``). Then the string paths
+   (``string_paths``, ``STRING_PATH_LAUNCHES``), their columns built in
+   arrow from codes: BASELINE config 1 at 2M (as published) and 100M rows
+   (the ``_value_dict`` remap, schema ``"*"``, no launch); at 100M rows of
+   10,000 SKUs with 5 % nulls, the string predicates and group-by
+   (``SELECT s, SUM(v), COUNT(*) WHERE s LIKE 'sku-1%' AND s < 'sku-15000'
+   GROUP BY s``), a group-by on ``UPPER(SUBSTR(s, 1, 6))`` beside
+   ``LENGTH(s)``, the inner join to a 10,000-row dimension table whose
+   dictionary has another order and 10 % keys no fact holds (one
+   harmonize launch, one readback), then SUM/COUNT by ``s``; and the
+   date group-by (1,096 days, a timestamp with 3 % nulls: SUM, AVG, COUNT,
+   MIN and MAX by ``d``), each against numpy/pandas. Each reports cold and
    best-of-5 warm seconds, rows/s, peak device memory and its route.
 5. timing with CUDA events at the paths' shapes: each kernel beside its
    plain twin, one PyTorch call computing the same function where there
@@ -90,7 +109,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    size (``k6_scaling``); K7-K10 at the expansion join's shapes
    (``join_timing``), beside ``torch.sort`` of the right side's segment
    ids, K8 in unique mode at 100M rows and K9 on a cross join and a
-   skewed key.
+   skewed key; K6's LUT programs at 100M rows (``lut_timing``: LIKE, a
+   LIKE by a pattern column, a compare of two columns, LENGTH, the
+   canonicalising re-coding and the harmonize re-coding), each beside its
+   twin, ``index_select`` of its table and its bound.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1817,7 +1839,12 @@ def distinct_mask_timing(device: Any) -> Dict[str, Any]:
         first = first_idx.index_select(0, seg.clamp(max=num - 1))
         return first == torch.arange(ROWS, dtype=torch.int32, device=device)
 
+    # the nearest PyTorch form: two calls, index_select and eq, over ids
+    # already in range and a row index made beforehand
+    rows = torch.arange(ROWS, dtype=torch.int32, device=device)
     out = {"rows": ROWS, "pairs": num, "ms": time_cuda(mask, 5),
+           "library_ms": time_cuda(lambda: first_idx.index_select(0, seg) == rows, 5),
+           "library_calls": 2,
            "bound_ms": ROWS * (4 + 4 + 1) / HBM_BYTES_PER_S * 1e3}
     print("distinct_mask: " + json.dumps(out))
     return out
@@ -1950,7 +1977,9 @@ def _run_k6(blocks: Any, exprs: List[Any], filt: bool, rows: Dict[str, Any]) -> 
     from fugue_tpu_torch.kernels.reference import expr_program_reference
 
     cols = {n: (c.data.dtype, c.mask is not None) for n, c in blocks.columns.items()}
-    prog = compile_program(exprs, [torch.bool] if filt else [None] * len(exprs), cols)
+    dicts = {n: c.dictionary for n, c in blocks.columns.items() if c.is_string}
+    prog = compile_program(exprs, [torch.bool] if filt else [None] * len(exprs), cols, dicts,
+                           blocks.device)
     inputs = [(blocks.columns[n].data, blocks.columns[n].mask) for n, _ in prog.inputs]
     n = blocks.padded_nrows
     kw = dict(filter=True, **rows) if filt else {}
@@ -2179,8 +2208,10 @@ def _path_stats(label: str, rows: int, run_once: Callable[[], Tuple[float, Any, 
     best = min(warm) if warm else cold_secs
     want = dict.fromkeys(cold, 0)
     if device.type == "cuda":  # on the CPU every kernel runs as its twin
-        want.update({**K6_PATH_LAUNCHES, **JOIN_PATH_LAUNCHES}[label])
-    if cold != want or warm_launches != {k: v * warm_runs for k, v in want.items()}:
+        want.update({**K6_PATH_LAUNCHES, **JOIN_PATH_LAUNCHES, **STRING_PATH_LAUNCHES}[label])
+    warm_want = {k: 0 if k in CACHED_ON_FRAME.get(label, ()) else v * warm_runs
+                 for k, v in want.items()}
+    if cold != want or warm_launches != warm_want:
         raise SystemExit(f"FAIL {label}: launched {cold} (cold), {warm_launches} (warm), "
                          f"expected {want} a run")
     return {
@@ -3112,6 +3143,583 @@ def join_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
     return entries
 
 
+# --- strings: K6's LUT family against its twin, the string paths, timing ---
+
+SKUS = 10_000  # distinct SKUs of the string paths
+SKU_SPACE = 100_000  # their numbers: "sku-%05d", drawn without replacement
+STRING_SEED = 7
+STRING_NULLS = 0.05
+CONFIG1_ROWS = 2_000_000  # BASELINE config 1 as published (bench.py:709)
+CONFIG1_MAPPING = {"A": "Apple", "B": "Banana", "C": "Carrot"}
+JOIN_DIMS = 10_000  # the dimension table of the string-keyed join
+JOIN_DIMS_ABSENT = 0.1  # its share of keys no fact holds
+DATE_SEED = 11
+DATE_DAYS = 1_096  # 2020-01-01 to 2022-12-31
+DATE_EPOCH_DAY = 18_262  # 2020-01-01
+DATE_TS_NULLS = 0.03
+
+
+def sku_names(nums: Any) -> List[str]:
+    return [f"sku-{int(x):05d}" for x in nums]
+
+
+def k6_string_frame(device: Any, n: int, seed: int) -> Any:
+    """A frame of ``n`` rows of string codes on ``device``, each column
+    with its dictionary: ``s`` over 10,000 SKUs in shuffled order (5 %
+    nulls), ``t`` over 600 (500 of ``s``'s in another order, 100 that
+    ``s`` lacks; 10 % nulls), ``u`` over 300 colours, ``p`` over 20 LIKE
+    patterns (5 % nulls), and ``v`` float32."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, TorchColumn
+
+    rng = np.random.default_rng(seed)
+    nums = rng.choice(SKU_SPACE, SKUS, replace=False)
+    absent = np.setdiff1d(np.arange(SKU_SPACE), nums)
+    t_nums = np.concatenate([rng.choice(nums, 500, replace=False), rng.choice(absent, 100)])
+    rng.shuffle(t_nums)
+    dicts = {
+        "s": np.array(sku_names(nums), dtype=object),
+        "t": np.array(sku_names(t_nums), dtype=object),
+        "u": np.array([f"c{i:03d}" for i in rng.permutation(300)], dtype=object),
+        "p": np.array(["sku-1%", "%5_", "sku-0.%", "%7%", "sku-(1)%", "s_u%", "%", "_",
+                       "sku-12%", "%99", "sku-_____", "SKU%", "%-0%", "sku-5____", "%1%2%",
+                       "sku-0", "sku-00123", "%3", "x%", "sku-4%"], dtype=object),
+    }
+    ints, flags, floats, _ = _draws(device, n, seed)
+    cols = {}
+    for name, nulls in (("s", 0.05), ("t", 0.1), ("u", 0.0), ("p", 0.05)):
+        d = dicts[name]
+        codes = ints(0, len(d), torch.int32)
+        cols[name] = TorchColumn(pa.string(), codes, flags(1.0 - nulls) if nulls else None,
+                                 (0, len(d) - 1), dictionary=d)
+    cols["v"] = TorchColumn(pa.float32(), floats(torch.float32))
+    return TorchBlocks(n, cols, device)
+
+
+def k6_string_cases(frame: Any) -> List[Tuple[str, List[Any], bool]]:
+    """K6's LUT programs over ``k6_string_frame``'s columns: LIKE with
+    ``%``, ``_`` and regex characters, every compare against a literal in
+    the dictionary, one absent from it and one that sorts between its
+    entries, columns with different dictionaries against each other, IN
+    lists, LENGTH, a canonicalising UPPER, a two-column CONCAT, a LIKE by
+    a pattern column, NULLIF, and filter conditions."""
+    from fugue_tpu_torch.column.expressions import _FuncExpr, col, lit
+    from fugue_tpu_torch.column.functions import like
+
+    def fn(name: str, *args: Any) -> Any:
+        return _FuncExpr(name, *args)
+
+    s, t, u, p = col("s"), col("t"), col("u"), col("p")
+    d = frame.columns["s"].dictionary
+    present = str(d[len(d) // 2])
+    absent = "sku-99999z"  # not an SKU: sorts after every one
+    between = str(sorted(d)[len(d) // 3])[:-1] + "5x"  # between two SKUs
+    cases: List[Tuple[str, List[Any], bool]] = [
+        ("lut_like", [like(s, "sku-1%"), like(s, "%5_"), like(s, "sku-0.%"),
+                      like(s, "%7%", negated=True), like(s, "sku-(1)%"), like(t, "%0__")],
+         False),
+    ]
+    for label, x in (("present", present), ("absent", absent), ("between", between)):
+        cases.append((f"lut_compare_{label}", [s == x, s != x, s < x, s <= x, s > x, s >= x,
+                                               lit(x) < t], False))
+    cases += [
+        ("lut_columns", [s == t, s != t, s < t, s <= t, s > t, s >= t], False),
+        ("lut_in", [(s == present) | (s == str(d[0])) | (s == absent),
+                    ~((t == str(d[1])) | (t == present))], False),
+        ("lut_length", [fn("length", s), fn("length", fn("concat", t, "-x")),
+                        fn("length", s) + fn("length", t)], False),
+        ("lut_upper_canonical", [fn("upper", fn("substring", s, 1, 6)),
+                                 fn("trim", fn("replace", s, "sku-", " "))], False),
+        ("lut_concat", [fn("concat", t, "/", u), fn("concat", "<", u, ">")], False),
+        ("lut_dynamic_like", [_FuncExpr("like", s, p, False), _FuncExpr("like", t, p, True)],
+         False),
+        ("lut_nullif", [fn("nullif", t, present), fn("nullif", s, t)], False),
+        ("lut_filter", [like(s, "sku-1%") & (s < "sku-15000")], True),
+        ("lut_filter_columns", [(s == t) | (fn("length", u) > 3) | (col("v") > 0.5)], True),
+    ]
+    return cases
+
+
+def _remap_case(frame: Any) -> Tuple[Any, List[Any]]:
+    """The harmonize re-coding of ``t``'s codes into ``s``'s dictionary
+    extended (``strings.remap_table``), as a K6 program and its input."""
+    import torch
+
+    from fugue_tpu_torch.kernels.expr_program import remap_program
+    from fugue_tpu_torch.torch_backend import strings
+
+    s, t = frame.columns["s"], frame.columns["t"]
+    table, _ = strings.remap_table(s.dictionary, t.dictionary)
+    prog = remap_program(torch.from_numpy(table).to(t.data.device))
+    return prog, [(t.data, None)]
+
+
+def lut_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
+    """K6's LUT programs (``k6_string_cases`` and the harmonize re-coding)
+    against the twin at each size, filter programs over prefix rows (all,
+    and all but 3) and a random ``row_valid``: masks, codes, flags and
+    counts exactly."""
+    import torch
+
+    from fugue_tpu_torch.kernels.expr_program import OP, expr_program_cuda
+    from fugue_tpu_torch.kernels.reference import expr_program_reference
+
+    worst = 0.0
+    for n in sizes:
+        frame = k6_string_frame(device, n, STRING_SEED + n % 89)
+        rows_variants = [{"nrows": n}, {"nrows": max(n - 3, 0)},
+                         {"row_valid": torch.rand((n,), device=device) < 0.6}]
+        cases = k6_string_cases(frame)
+        for label, exprs, filt in cases:
+            for rows in (rows_variants if filt else [{}]):
+                prog, got, want = _run_k6(frame, exprs, filt, rows)
+                if not any(ins.op == OP["LUT"] for ins in prog.instrs) and label != "lut_concat":
+                    raise SystemExit(f"FAIL expr_program {label}: no LUT instruction")
+                worst = max(worst, check_k6(f"{label} n={n}", exprs, filt, got, want))
+        prog, inputs = _remap_case(frame)
+        got = expr_program_cuda(prog, inputs, n, device=device)
+        want = expr_program_reference(prog, inputs, n, device=device)
+        if not torch.equal(got[0][0], want[0][0]):
+            raise SystemExit(f"FAIL expr_program harmonize remap n={n} differs from the twin")
+        print(f"ok expr_program LUT n={n}: {len(cases) + 1} programs against the twin")
+        del frame, got, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+def sku_frame(rows: int, seed: int) -> Dict[str, Any]:
+    """The string paths' facts, from seed ``seed``: 10,000 SKU numbers
+    drawn from [0, 100000) without replacement (the dictionary's order in
+    the table is the draw's, so codes are not ranks), each row's SKU
+    index uniform, 5 % nulls, ``v`` float32 uniform over [0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nums = rng.choice(SKU_SPACE, SKUS, replace=False)
+    codes = rng.integers(0, SKUS, rows).astype(np.int32)
+    null = rng.random(rows) < STRING_NULLS
+    v = rng.random(rows).astype(np.float32)
+    return {"nums": nums, "codes": codes, "null": null, "v": v}
+
+
+def _string_array(codes: Any, null: Any, names: List[str]) -> Any:
+    """A string column built in arrow from dictionary codes."""
+    import pyarrow as pa
+
+    indices = pa.array(codes, type=pa.int32(), mask=null)
+    return pa.DictionaryArray.from_arrays(indices, pa.array(names, pa.string())).cast(pa.string())
+
+
+def sku_dims(d: Dict[str, Any], dims: int, seed: int) -> Dict[str, Any]:
+    """The join's dimension table: ``dims`` SKUs in another order, 90 % of
+    them held by the facts and 10 % by none; ``w`` int64 over [0, 1000)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    held = min(int(dims * (1 - JOIN_DIMS_ABSENT)), len(d["nums"]))
+    absent = np.setdiff1d(np.arange(SKU_SPACE), d["nums"])
+    nums = np.concatenate([rng.choice(d["nums"], held, replace=False),
+                           rng.choice(absent, dims - held, replace=False)])
+    rng.shuffle(nums)
+    return {"nums": nums, "w": rng.integers(0, 1000, dims).astype(np.int64)}
+
+
+def build_string_paths(device: Any, rows: int, seed: int, dims: int = JOIN_DIMS
+                       ) -> Tuple[Dict[str, Callable[[], Tuple[float, Any, Any]]], Dict[str, Any],
+                                  Any]:
+    """``sku_frame`` and ``sku_dims`` built in arrow from codes and
+    uploaded; returns ``(run_for, data, engine)``. ``run_for``:
+
+    - ``string_groupby``: ``SELECT s, SUM(v), COUNT(*) WHERE s LIKE
+      'sku-1%' AND s < 'sku-15000' GROUP BY s``;
+    - ``string_upper_groupby``: ``assign(u=UPPER(SUBSTR(s, 1, 6)),
+      n=LENGTH(s))``, then COUNT(*), SUM(n), SUM(v) by ``u`` (canonical
+      codes: ten prefixes and NULL);
+    - ``string_join``: the facts inner-joined to the dimension table on
+      ``s`` (``ft.join``), then SUM(v), SUM(w), COUNT(*) by ``s``;
+
+    each to pandas, returning ``(seconds, frame, pandas)``."""
+    import pyarrow as pa
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch import col, function, functions as ff, make_execution_engine
+
+    d = sku_frame(rows, seed)
+    dd = sku_dims(d, dims, seed)
+    engine = make_execution_engine("torch", device=device)
+    table = pa.table({"s": _string_array(d["codes"], d["null"], sku_names(d["nums"])),
+                      "v": d["v"]})
+    src = engine.persist(engine.to_df(table))
+    del table
+    dim_table = pa.table({"s": pa.array(sku_names(dd["nums"]), pa.string()), "w": dd["w"]})
+    dims_src = engine.persist(engine.to_df(dim_table))
+    d["dims"] = dd
+
+    def groupby() -> Tuple[float, Any, Any]:
+        t = time.perf_counter()
+        res = ft.select(src, "s", ff.sum(col("v")).alias("sv"), ff.count(col("*")).alias("c"),
+                        where=ff.like(col("s"), "sku-1%") & (col("s") < "sku-15000"),
+                        engine=engine, as_fugue=True)
+        pdf = res.as_pandas()
+        return time.perf_counter() - t, res, pdf
+
+    def upper_groupby() -> Tuple[float, Any, Any]:
+        t = time.perf_counter()
+        a = ft.assign(src, engine=engine, as_fugue=True,
+                      u=function("upper", function("substring", col("s"), 1, 6)),
+                      n=function("length", col("s")))
+        res = ft.aggregate(a, "u", engine=engine, as_fugue=True, c=ff.count(col("*")),
+                           sn=ff.sum(col("n")), sv=ff.sum(col("v")))
+        pdf = res.as_pandas()
+        return time.perf_counter() - t, res, pdf
+
+    def join() -> Tuple[float, Any, Any]:
+        t = time.perf_counter()
+        j = ft.join(src, dims_src, how="inner", on=["s"], engine=engine, as_fugue=True)
+        res = ft.select(j, "s", ff.sum(col("v")).alias("sv"), ff.sum(col("w")).alias("sw"),
+                        ff.count(col("*")).alias("c"), engine=engine, as_fugue=True)
+        pdf = res.as_pandas()
+        return time.perf_counter() - t, res, pdf
+
+    return ({"string_groupby": groupby, "string_upper_groupby": upper_groupby,
+             "string_join": join}, d, engine)
+
+
+def string_oracle(d: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """The three string paths from numpy: per SKU (a code of the facts'
+    dictionary) counts and float64 sums, in the order of the SKU names."""
+    import numpy as np
+
+    nums, codes, null, v = d["nums"], d["codes"], d["null"], d["v"]
+    num = nums[codes]
+    valid = ~null
+
+    def by_sku(keep: Any, weights: Any = None) -> Tuple[Any, Any]:
+        c = np.bincount(codes[keep], minlength=SKUS)
+        s = np.bincount(codes[keep], weights=None if weights is None else weights[keep],
+                        minlength=SKUS)
+        return c, s
+
+    keep = valid & (num >= 10_000) & (num < 15_000)  # LIKE 'sku-1%' AND s < 'sku-15000'
+    c, sv = by_sku(keep, v.astype(np.float64))
+    occ = np.nonzero(c)[0]
+    occ = occ[np.argsort(nums[occ])]
+    groupby = {"s": np.array(sku_names(nums[occ]), dtype=object), "c": c[occ], "sv": sv[occ],
+               "kept": int(keep.sum())}
+    prefix = np.where(valid, num // 1000, 100)  # UPPER(SUBSTR(s, 1, 6)): "SKU-" + 2 digits
+    cu = np.bincount(prefix, minlength=101)
+    svu = np.bincount(prefix, weights=v.astype(np.float64), minlength=101)
+    occ_u = np.nonzero(cu[:100])[0]
+    upper = {"u": np.array([f"SKU-{i:02d}" for i in occ_u] + [None], dtype=object),
+             "c": np.append(cu[occ_u], cu[100]), "sn": np.append(9 * cu[occ_u], 0),
+             "sv": np.append(svu[occ_u], svu[100])}
+    dd = d["dims"]
+    pos = np.full(SKU_SPACE, -1, dtype=np.int64)
+    pos[dd["nums"]] = np.arange(len(dd["nums"]))
+    matched = valid & (pos[num] >= 0)
+    cj, svj = by_sku(matched, v.astype(np.float64))
+    swj = np.bincount(codes[matched], weights=dd["w"][pos[num[matched]]].astype(np.float64),
+                      minlength=SKUS)
+    occ_j = np.nonzero(cj)[0]
+    occ_j = occ_j[np.argsort(nums[occ_j])]
+    join = {"s": np.array(sku_names(nums[occ_j]), dtype=object), "c": cj[occ_j],
+            "sv": svj[occ_j], "sw": swj[occ_j].astype(np.int64), "rows": int(matched.sum())}
+    return {"string_groupby": groupby, "string_upper_groupby": upper, "string_join": join}
+
+
+def _check_string_result(label: str, pdf: Any, want: Dict[str, Any], key: str,
+                         exact: Tuple[str, ...], inexact: Dict[str, float]) -> Dict[str, float]:
+    """``pdf`` sorted by its string key (NULL last) against ``want``:
+    keys and ``exact`` columns equal, ``inexact`` within their rtol."""
+    import numpy as np
+
+    pdf = pdf.sort_values(key, na_position="last").reset_index(drop=True)
+    if len(pdf) != len(want[key]):
+        raise SystemExit(f"FAIL {label}: {len(pdf)} groups, expected {len(want[key])}")
+    keys = [None if k is None or k != k else k for k in pdf[key].tolist()]
+    if keys != list(want[key]):
+        raise SystemExit(f"FAIL {label}: the keys differ from numpy")
+    for name in exact:
+        got = pdf[name].fillna(0).to_numpy().astype(np.int64)
+        if not np.array_equal(got, np.asarray(want[name], dtype=np.int64)):
+            raise SystemExit(f"FAIL {label}: {name} differs from numpy")
+    rel = {}
+    for name, tol in inexact.items():
+        got = pdf[name].to_numpy().astype(np.float64)
+        w = np.asarray(want[name], dtype=np.float64)
+        rel[name] = float(np.max(np.abs(got - w) / np.abs(w))) if len(got) else 0.0
+        if not (np.all(np.isfinite(got)) and rel[name] <= tol):
+            raise SystemExit(f"FAIL {label}: {name} off by rtol {rel[name]}")
+    return rel
+
+
+def config1_frame(rows: int) -> Tuple[Any, Any]:
+    """BASELINE config 1 (``bench.py:709-714``): ``id`` int64 and
+    ``value`` drawn from A, B and C with seed 0, built in arrow from the
+    draws' codes; returns the table and the codes."""
+    import numpy as np
+    import pyarrow as pa
+
+    codes = np.random.default_rng(0).choice(3, rows).astype(np.int32)
+    table = pa.table({"id": np.arange(rows, dtype=np.int64),
+                      "value": _string_array(codes, None, ["A", "B", "C"])})
+    return table, codes
+
+
+def build_config1(device: Any, rows: int) -> Tuple[Callable[[], Tuple[float, Any, Any]], Any]:
+    """Config 1 uploaded (``persist(to_df)``) and ``(run_once, codes)``:
+    ``transform`` with the ``_value_dict`` remap and schema ``"*"``, then
+    ``as_pandas``."""
+    import numpy as np
+    import torch
+
+    from fugue_tpu_torch import make_execution_engine, transform
+
+    table, codes = config1_frame(rows)
+    engine = make_execution_engine("torch", device=device)
+    src = engine.persist(engine.to_df(table))
+    del table
+
+    def map_letter_to_food(arrs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        d = arrs["_value_dict"]
+        remapped = np.array([CONFIG1_MAPPING.get(s, s) for s in d.tolist()], dtype=object)
+        return {"id": arrs["id"], "value": arrs["value"], "_value_dict": remapped}
+
+    def run_once() -> Tuple[float, Any, Any]:
+        t = time.perf_counter()
+        res = transform(src, map_letter_to_food, schema="*", engine=engine, as_fugue=True)
+        pdf = res.as_pandas()
+        return time.perf_counter() - t, res, pdf
+
+    return run_once, codes
+
+
+def date_frame(rows: int, seed: int) -> Dict[str, Any]:
+    """The date group-by's frame from seed ``seed``: ``d`` over 1,096 days
+    from 2020-01-01, ``ts`` a microsecond timestamp uniform over the same
+    three years with 3 % nulls, ``v`` float64 standard normal."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    days = (rng.integers(0, DATE_DAYS, rows) + DATE_EPOCH_DAY).astype(np.int32)
+    lo = DATE_EPOCH_DAY * 86_400_000_000
+    ts = rng.integers(lo, lo + DATE_DAYS * 86_400_000_000, rows)
+    null = rng.random(rows) < DATE_TS_NULLS
+    v = rng.standard_normal(rows)
+    return {"days": days, "ts": ts, "null": null, "v": v}
+
+
+def build_date_groupby(device: Any, rows: int, seed: int
+                       ) -> Tuple[Callable[[], Tuple[float, Any, Any]], Dict[str, Any]]:
+    """``date_frame`` uploaded and ``(run_once, data)``: SUM, AVG and COUNT
+    of ``v`` and MIN and MAX of ``ts`` by ``d``, to pandas."""
+    import pyarrow as pa
+
+    from fugue_tpu_torch import aggregate, col, functions as ff, make_execution_engine
+
+    d = date_frame(rows, seed)
+    engine = make_execution_engine("torch", device=device)
+    table = pa.table({
+        "d": pa.array(d["days"], pa.int32()).cast(pa.date32()),
+        "ts": pa.array(d["ts"], pa.int64(), mask=d["null"]).cast(pa.timestamp("us")),
+        "v": d["v"],
+    })
+    src = engine.persist(engine.to_df(table))
+    del table
+
+    def run_once() -> Tuple[float, Any, Any]:
+        t = time.perf_counter()
+        res = aggregate(src, partition_by="d", engine=engine, as_fugue=True,
+                        sv=ff.sum(col("v")), mv=ff.avg(col("v")), c=ff.count(col("v")),
+                        lo=ff.min(col("ts")), hi=ff.max(col("ts")))
+        pdf = res.as_pandas()
+        return time.perf_counter() - t, res, pdf
+
+    return run_once, d
+
+
+# each string path's launches in one run
+STRING_PATH_LAUNCHES = {
+    # the codes pass through, the dictionary is remapped on the host
+    "config1_map": {},
+    # the WHERE's LUTs (one filter launch), the fused sums by the binned
+    # string key
+    "string_groupby": dict(expr_program=1, expr_program_filter=1, binned_sums=1),
+    # the assign (a canonicalising LUT and LENGTH's LUT), the fused sums
+    "string_upper_groupby": dict(expr_program=1, binned_sums=1),
+    # one harmonize LUT, K1 over the stacked codes, K7, K8, K9, K10 a
+    # side, then the fused sums by the binned key
+    "string_join": dict(expr_program=1, bin_factorize=1, join_build=1, join_probe=1,
+                        join_expand=1, gather_rows=2, binned_sums=1),
+    # K1 over the binned date (cold only), the fused sums, K4 for MIN and
+    # MAX
+    "date_groupby": dict(bin_factorize=1, binned_sums=1, segment_extrema=1),
+}
+# the kernels a path launches in its cold run only: the factorization of
+# a frame's keys is cached on the frame (groupby.factorize_keys)
+CACHED_ON_FRAME = {"date_groupby": ("bin_factorize",)}
+
+
+def string_paths(device: Any, rows: int, warm_runs: int, dims: int = JOIN_DIMS,
+                 config1_rows: Tuple[int, ...] = ()) -> List[Dict[str, Any]]:
+    """Config 1 (at ``config1_rows``, else ``rows``), the string paths of
+    ``build_string_paths`` and the date group-by at ``rows`` rows, each
+    checked against numpy/pandas: keys, counts, integer sums, the filter's
+    kept rows and the join's rows exactly, float32-accumulated sums within
+    ``MAIN_PATH_RTOL``, float64 ones within ``FLOAT64_SUM_RTOL``; each
+    with its launches held to ``STRING_PATH_LAUNCHES`` on the card."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from fugue_tpu_torch.torch_backend import relational
+
+    out: List[Dict[str, Any]] = []
+    for n in config1_rows or (rows,):
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        run_once, codes = build_config1(device, n)
+        stats, _, pdf = _path_stats("config1_map", n, run_once, device, warm_runs)
+        want = np.array(["Apple", "Banana", "Carrot"], dtype=object)[codes]
+        if list(pdf.columns) != ["id", "value"] or not np.array_equal(
+                pdf["id"].to_numpy(), np.arange(n)) or not (pdf["value"].to_numpy() == want).all():
+            raise SystemExit(f"FAIL config1_map at {n} rows: differs from the mapped letters")
+        out.append(stats)
+        del run_once, codes, pdf, want
+        torch.cuda.empty_cache()
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    run_for, d, engine = build_string_paths(device, rows, STRING_SEED, dims)
+    want = string_oracle(d)
+    for label, exact, inexact in (
+        ("string_groupby", ("c",), {"sv": MAIN_PATH_RTOL}),
+        ("string_upper_groupby", ("c", "sn"), {"sv": MAIN_PATH_RTOL}),
+        ("string_join", ("c", "sw"), {"sv": MAIN_PATH_RTOL}),
+    ):
+        before = relational.readbacks
+        stats, frame, pdf = _path_stats(label, rows, run_for[label], device, warm_runs)
+        key = "u" if label == "string_upper_groupby" else "s"
+        stats["max_rel_err"] = _check_string_result(label, pdf, want[label], key, exact, inexact)
+        stats["groups"] = len(pdf)
+        stats["join_readbacks_per_run"] = (relational.readbacks - before) / (1 + warm_runs)
+        if label == "string_join":
+            if stats["join_readbacks_per_run"] != 1:
+                raise SystemExit(f"FAIL {label}: {stats['join_readbacks_per_run']} readbacks a run")
+            stats["join_rows"] = want[label]["rows"]
+            stats["route"] = "join_expand"
+        out.append(stats)
+    del run_for, d, engine
+    torch.cuda.empty_cache()
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    run_once, d = build_date_groupby(device, rows, DATE_SEED)
+    stats, _, pdf = _path_stats("date_groupby", rows, run_once, device, warm_runs)
+    day = d["days"] - DATE_EPOCH_DAY
+    c_all = np.bincount(day, minlength=DATE_DAYS)
+    sv = np.bincount(day, weights=d["v"], minlength=DATE_DAYS)
+    ok = ~d["null"]
+    ext = pd.DataFrame({"d": day[ok], "ts": d["ts"][ok]}).groupby("d")["ts"].agg(["min", "max"])
+    occ = np.nonzero(c_all)[0]
+    pdf = pdf.sort_values("d").reset_index(drop=True)
+    got_days = pdf["d"].to_numpy().astype("datetime64[D]").astype(np.int64) - DATE_EPOCH_DAY
+    lo = pdf["lo"].to_numpy().astype("datetime64[us]").astype(np.int64)
+    hi = pdf["hi"].to_numpy().astype("datetime64[us]").astype(np.int64)
+    if list(pdf.columns) != ["d", "sv", "mv", "c", "lo", "hi"] or not np.array_equal(
+            got_days, occ) or not np.array_equal(pdf["c"].to_numpy(), c_all[occ]) or \
+            not np.array_equal(lo, ext["min"].reindex(occ).to_numpy()) or \
+            not np.array_equal(hi, ext["max"].reindex(occ).to_numpy()):
+        raise SystemExit("FAIL date_groupby: keys, counts, MIN or MAX differ from numpy")
+    stats["max_rel_err"] = _check_columns(
+        pdf.assign(k=got_days), {"k": occ, "sv": sv[occ], "mv": sv[occ] / c_all[occ]}, (),
+        {"sv": FLOAT64_SUM_RTOL, "mv": FLOAT64_SUM_RTOL}, "date_groupby")
+    stats["groups"] = len(pdf)
+    out.append(stats)
+    del run_once, d
+    torch.cuda.empty_cache()
+    return out
+
+
+def lut_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """Each program of the JAX package's table gathers by dictionary code,
+    at 100M rows of ``k6_string_frame`` with CUDA events: K6, its twin and
+    the one PyTorch call for the gather alone (``index_select`` of the
+    table by the codes), beside the bound (each input's codes and mask
+    read once, each output and mask written once, over the HBM rate).
+    ``launches`` holds each program's launches in one run of its path.
+    Returns their ``kernels`` entries."""
+    import torch
+
+    from fugue_tpu_torch.column.expressions import _FuncExpr, col
+    from fugue_tpu_torch.column.functions import like
+    from fugue_tpu_torch.kernels.expr_program import compile_program, remap_program
+    from fugue_tpu_torch.torch_backend import strings
+
+    frame = k6_string_frame(device, ROWS, STRING_SEED)
+    cols = {n: (c.data.dtype, c.mask is not None) for n, c in frame.columns.items()}
+    dicts = {n: c.dictionary for n, c in frame.columns.items() if c.is_string}
+    s, t, p = col("s"), col("t"), col("p")
+    programs = [
+        ("like", "fugue_tpu/jax_backend/expr_eval.py:64", [like(s, "sku-1%")]),
+        ("like_pairs", "fugue_tpu/jax_backend/expr_eval.py:197",
+         [_FuncExpr("like", s, p, False)]),
+        ("compare", "fugue_tpu/jax_backend/expr_eval.py:477", [s < t]),
+        ("length", "fugue_tpu/jax_backend/expr_eval.py:303", [_FuncExpr("length", s)]),
+        ("canonicalize", "fugue_tpu/jax_backend/expr_eval.py:572",
+         [_FuncExpr("upper", _FuncExpr("substring", s, 1, 6))]),
+    ]
+    entries = []
+    for label, replaces, exprs in programs:
+        prog = compile_program(exprs, [None], cols, dicts, device)
+        inputs = [(frame.columns[n].data, frame.columns[n].mask) for n, _ in prog.inputs]
+        entries.append(_lut_entry(label, replaces, launches.get(label, 0), prog, inputs, exprs))
+    table, _ = strings.remap_table(frame.columns["s"].dictionary, frame.columns["t"].dictionary)
+    prog = remap_program(torch.from_numpy(table).to(device))
+    entries.append(_lut_entry("harmonize", "fugue_tpu/jax_backend/relational.py:69",
+                              launches.get("harmonize", 0), prog,
+                              [(frame.columns["t"].data, None)], None))
+    del frame
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _lut_entry(label: str, replaces: str, launches: int, prog: Any, inputs: List[Any],
+               exprs: Optional[List[Any]]) -> Dict[str, Any]:
+    """One LUT program timed: K6, its twin, ``index_select`` of its first
+    table by its first input's codes, and its bound."""
+    import torch
+
+    from fugue_tpu_torch.kernels.expr_program import DTYPES, expr_program_cuda
+    from fugue_tpu_torch.kernels.reference import expr_program_reference
+
+    device, n = inputs[0][0].device, ROWS
+    got = expr_program_cuda(prog, inputs, n, device=device)
+    want = expr_program_reference(prog, inputs, n, device=device)
+    err = check_k6(f"{label} timed", exprs or ["remap"], False, got, want) if exprs else 0.0
+    if not exprs and not torch.equal(got[0][0], want[0][0]):
+        raise SystemExit(f"FAIL expr_program {label} timed: differs from the twin")
+    del got, want
+    ms = time_cuda(lambda: expr_program_cuda(prog, inputs, n, device=device), 20)
+    plain_ms = time_cuda(lambda: expr_program_reference(prog, inputs, n, device=device), 5)
+    table, codes = prog.tables[0], inputs[0][0].long()
+    library_ms = time_cuda(lambda: torch.index_select(table, 0, codes), 20)
+    del codes
+    per_row = sum(v.element_size() + (m is not None) for v, m in inputs)
+    per_row += sum(torch.empty((), dtype=DTYPES[o.dtype]).element_size() + o.masked
+                   for o in prog.outputs)
+    entry = _kernel_entry(f"expr_program[LUT {label}]", replaces, launches, err, ms, plain_ms,
+                          per_row * n, 0, library_ms, source="expr_program.cu")
+    entry["instrs"] = [str(i) for i in prog.instrs]
+    entry["table_entries"] = [int(t.shape[0]) for t in prog.tables]
+    entry["bytes_per_row"] = per_row
+    print("expr_program LUT timed: " + json.dumps(entry))
+    return {k: entry[k] for k in _ENTRY_KEYS}
+
+
 _ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -3161,6 +3769,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     worst = expr_program_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
     print(f"kernels checked against their twins: expr_program (max_abs_err={worst})")
+    torch.cuda.empty_cache()
+    lut_vs_twin(device, (1, (1 << 20) + 37, ROWS))
+    print("kernels checked against their twins: expr_program's LUT family (equal)")
     torch.cuda.empty_cache()
     join_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
     print("kernels checked against their twins: join_build, join_probe, join_expand, "
@@ -3259,6 +3870,12 @@ def main() -> None:
         print("join_path: " + json.dumps(st))
     torch.cuda.empty_cache()
 
+    str_paths = string_paths(device, ROWS, WARM_RUNS, config1_rows=(CONFIG1_ROWS, ROWS))
+    for st in str_paths:
+        st["card"] = card
+        print("string_path: " + json.dumps(st))
+    torch.cuda.empty_cache()
+
     stand_ins = stand_in_timing(device)
     stand_ins["card"] = card
     print("stand_ins: " + json.dumps(stand_ins))
@@ -3283,6 +3900,14 @@ def main() -> None:
         "filter": pipeline["expr_program_filter"]})
     torch.cuda.empty_cache()
     entries += join_timing(device, join_paths[3]["launches"])
+    torch.cuda.empty_cache()
+    by_case = {st["case"]: st["launches"] for st in str_paths}
+    entries += lut_timing(device, {
+        "like": by_case["string_groupby"]["expr_program_filter"],
+        "length": by_case["string_upper_groupby"]["expr_program"],
+        "canonicalize": by_case["string_upper_groupby"]["expr_program"],
+        "harmonize": by_case["string_join"]["expr_program"],
+    })
     torch.cuda.empty_cache()
     k6_scaling(device)
     median_timing(device)

@@ -14,7 +14,11 @@ per-segment extrema and squared deviations
 expressions evaluated by one compiled program in one launch of the
 expression kernel (``fugue_tpu_torch/kernels/expr_program.cu``); and
 ``join`` of every type, with hand-written build, probe, expand and gather
-kernels (``fugue_tpu_torch/kernels/join.cu``, ``gather.cu``).
+kernels (``fugue_tpu_torch/kernels/join.cu``, ``gather.cu``); and string,
+timestamp and date columns on the card (dictionary codes, int64
+microseconds, int32 days) through all of these, string predicates and
+dictionary transforms running as table gathers inside the expression
+kernel.
 """
 
 from fugue_tpu_torch.api import aggregate, assign, filter, join, select, transform

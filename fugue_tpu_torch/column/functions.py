@@ -1,7 +1,7 @@
 """Aggregation constructors: ``sum``, ``avg``/``mean``, ``count``,
 ``count_distinct``, ``min``, ``max``, ``first`` and ``last``, the scalar
-``case_when`` and ``coalesce``, and ``is_agg`` (a trimmed copy of
-``fugue_tpu/column/functions.py:14-104``), and ``VARIANCE_FUNCS``. As in
+``like``, ``case_when`` and ``coalesce``, and ``is_agg`` (a trimmed copy
+of ``fugue_tpu/column/functions.py:14-104``), and ``VARIANCE_FUNCS``. As in
 the original, median and the variance family have no constructor: they
 are ``_FuncExpr(name, col, is_aggregation=True)``."""
 
@@ -20,7 +20,7 @@ from fugue_tpu_torch.utils.assertion import assert_or_throw
 
 __all__ = [
     "VARIANCE_FUNCS", "avg", "case_when", "coalesce", "count", "count_distinct", "first",
-    "is_agg", "last", "max", "mean", "min", "sum",
+    "is_agg", "last", "like", "max", "mean", "min", "sum",
 ]
 
 
@@ -63,6 +63,13 @@ def first(col: Any) -> ColumnExpr:
 
 def last(col: Any) -> ColumnExpr:
     return _agg("last", col)
+
+
+def like(col: Any, pattern: str, negated: bool = False) -> ColumnExpr:
+    """SQL ``LIKE`` with a literal pattern (``%`` and ``_`` wildcards;
+    ``:67``)."""
+    assert_or_throw(isinstance(pattern, str), ValueError("LIKE pattern must be a string"))
+    return _FuncExpr("like", _to_col(col), pattern, bool(negated))
 
 
 def case_when(*args: Any) -> ColumnExpr:

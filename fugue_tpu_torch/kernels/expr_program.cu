@@ -4,8 +4,13 @@
 // Replaces the JAX package's jitted elementwise programs over
 // expr_eval._eval (fugue_tpu/jax_backend/expr_eval.py:109; _binary :512,
 // _cast :552): filter's _filter_prog (execution_engine.py:1387), assign's
-// _assign_prog (:1446) and _device_project's _project_prog (:2242). XLA
-// fuses each into one elementwise pass; none is a Pallas kernel.
+// _assign_prog (:1446) and _device_project's _project_prog (:2242), and
+// the table gathers by dictionary code of expr_eval's string part: LIKE's
+// jnp.take of a match table (_like_literal :64, the pair table :197-216),
+// _str_compare's rank gathers (:477), LENGTH and the dictionary
+// transforms (:303, :417), canonicalize_string_column's take (:572) and
+// relational.harmonize_string_keys' remap (:69). XLA fuses each into one
+// elementwise pass; none is a Pallas kernel.
 // Contract: expr_program_reference in reference.py, which interprets the
 // same program with torch ops; the compiler and the numeric rules are in
 // expr_program.py.
@@ -20,6 +25,13 @@
 // parameters (__grid_constant__, at most kMaxInstrs instructions), and
 // every thread of the grid runs the same instruction at the same step,
 // so the dispatch never diverges.
+//
+// Tables: a program carries up to kMaxTables small device tables (bool,
+// int32 or int64), each a pointer and a length. LUT dst = table[t][clamp(a,
+// 0, len - 1)] with a's validity: a string register holds int32 codes and
+// the host compiler, not the kernel, knows which dictionary they index.
+// The tables are read through __ldg and left in global memory: they are
+// small (a dictionary's entries) and stay hot in L1 and L2.
 //
 // Epilogues: columns mode writes each output's values (and its mask
 // where it has one); filter mode writes keep = value AND valid AND the
@@ -61,13 +73,14 @@ constexpr int kMaxInstrs = 64;
 constexpr int kMaxRegs = 32;  // the validity word's bits
 constexpr int kMaxInputs = 16;
 constexpr int kMaxOutputs = 16;
+constexpr int kMaxTables = 8;
 
 // operation families, in expr_program.py's OPS order
 enum Family {
   CONST, NULLV, ADD, SUB, MUL, DIV, MOD, POW, NEG, ABS,
   EQ, NE, LT, LE, GT, GE, AND, OR, NOT, ISNULL, NOTNULL,
   CAST, SEL, COAL, NULLIF, FLOOR, CEIL, SIGN, NANNULL,
-  SQRT, EXP, LN, LOG2, LOG10, SIN, COS, TAN, ROUND, kFamilies
+  SQRT, EXP, LN, LOG2, LOG10, SIN, COS, TAN, ROUND, LUT, kFamilies
 };
 
 struct Instr {
@@ -89,10 +102,12 @@ struct Program {
   const uint8_t* row_valid;
   uint8_t* keep;              // filter mode: bool [n]
   int* count;                 // filter mode: kept rows are added here
-  int nin, ninstr, nout;
+  int nin, ninstr, nout, ntab;
   Column in[kMaxInputs];
   Instr ins[kMaxInstrs];
   Output out[kMaxOutputs];
+  Column tab[kMaxTables];     // LUT tables: data and dtype code
+  long long tab_len[kMaxTables];
 };
 
 __device__ __forceinline__ float as_f32(long long x) { return __uint_as_float((unsigned)x); }
@@ -374,10 +389,19 @@ __device__ __forceinline__ void typed(int fam, const Instr& in, File<R>& f) {
 
 // One instruction over the thread's R rows.
 template <int R>
-__device__ __forceinline__ void step(const Instr& in, File<R>& f) {
+__device__ __forceinline__ void step(const Program& p, const Instr& in, File<R>& f) {
   const int fam = in.op >> 3;
   const int a = in.a, b = in.b, c = in.c, d = in.dst;
   switch (fam) {
+    case LUT: {  // b: the table; an index outside it is clamped into it
+      const Column& t = p.tab[b];
+      const long long hi = p.tab_len[b] - 1;
+      rows<R>([&](int j) {
+        const long long i = f.at(a, j);
+        f.set(d, j, load(t, i < 0 ? 0 : (i > hi ? hi : i)), f.ok(a, j));
+      });
+      return;
+    }
     case CONST: rows<R>([&](int j) { f.set(d, j, in.imm, true); }); return;
     case NULLV: rows<R>([&](int j) { f.set(d, j, 0, false); }); return;
     case ISNULL: rows<R>([&](int j) { f.set(d, j, !f.ok(a, j), true); }); return;
@@ -451,7 +475,7 @@ __global__ void __launch_bounds__(kThreads) expr_program(const __grid_constant__
     });
     // rows past n compute on whatever their registers hold: no operation
     // traps, and nothing of them is stored
-    for (int k = 0; k < p.ninstr; ++k) step<R>(p.ins[k], f);
+    for (int k = 0; k < p.ninstr; ++k) step<R>(p, p.ins[k], f);
     rows<R>([&](int j) {
       const long long row = base + (long long)j * kThreads;
       if (row >= p.n) return;
@@ -497,7 +521,8 @@ const void* kernel_for(int rows_per_thread) {
 // k: ops[k] (family * 8 + dtype code), regs[4k .. 4k + 3] (dst, a, b, c)
 // and imms[k]; outputs o: out_data[o] and out_mask[o] or null, of dtype
 // out_code[o], from register out_reg[o]; the program has nregs registers.
-// With keep non-null the launch is
+// Table t: tab_data[t], tab_len[t] entries (at least 1) of dtype
+// tab_code[t] (bool, int32 or int64). With keep non-null the launch is
 // a filter: output 0 is the condition, keep (bool [n]) gets the kept rows
 // and count (int32, zeroed by the caller) their number; rows are real
 // below nrows, or where row_valid is non-zero when nrows is -1. device is
@@ -509,10 +534,13 @@ extern "C" int fugue_expr_program(long long n, long long nrows, const void* row_
                                   const int* regs, const long long* imms, int nout,
                                   void* const* out_data, void* const* out_mask,
                                   const int* out_code, const int* out_reg, int nregs,
+                                  int ntab, const void* const* tab_data,
+                                  const long long* tab_len, const int* tab_code,
                                   void* keep, void* count, int device, void* stream) {
   if (n < 1 || nin < 0 || nin > kMaxInputs || ninstr < 0 || ninstr > kMaxInstrs ||
       nregs < 1 || nregs > kMaxRegs || nin > nregs ||
-      nout < 1 || nout > kMaxOutputs || (keep != nullptr && (nout != 1 || count == nullptr)) ||
+      nout < 1 || nout > kMaxOutputs || ntab < 0 || ntab > kMaxTables ||
+      (keep != nullptr && (nout != 1 || count == nullptr)) ||
       (keep != nullptr && nrows < 0 && row_valid == nullptr))
     return (int)cudaErrorInvalidValue;
   Program p = {};
@@ -524,6 +552,14 @@ extern "C" int fugue_expr_program(long long n, long long nrows, const void* row_
   p.nin = nin;
   p.ninstr = ninstr;
   p.nout = nout;
+  p.ntab = ntab;
+  for (int t = 0; t < ntab; ++t) {
+    if (tab_data[t] == nullptr || tab_len[t] < 1 ||
+        (tab_code[t] != kBool && tab_code[t] != kI32 && tab_code[t] != kI64))
+      return (int)cudaErrorInvalidValue;
+    p.tab[t] = {tab_data[t], nullptr, tab_code[t]};
+    p.tab_len[t] = tab_len[t];
+  }
   for (int q = 0; q < nin; ++q) {
     if (in_code[q] < kBool || in_code[q] > kF64) return (int)cudaErrorInvalidValue;
     p.in[q] = {in_data[q], static_cast<const uint8_t*>(in_mask[q]), in_code[q]};
@@ -532,12 +568,15 @@ extern "C" int fugue_expr_program(long long n, long long nrows, const void* row_
     const int fam = ops[k] >> 3;
     if (ops[k] < 0 || fam >= kFamilies) return (int)cudaErrorInvalidValue;
     // every field read as a register names one of the program's; CAST's b
-    // is a dtype code and ROUND's a flag
+    // is a dtype code, ROUND's a flag and LUT's a table of the op's dtype
     for (int j = 0; j < 4; ++j) {
       const int reg = regs[4 * k + j];
       const bool code = j == 2 && (fam == CAST || fam == ROUND);
-      if (reg < 0 || reg >= (code ? 8 : nregs)) return (int)cudaErrorInvalidValue;
+      const int limit = j == 2 && fam == LUT ? ntab : code ? 8 : nregs;
+      if (reg < 0 || reg >= limit) return (int)cudaErrorInvalidValue;
     }
+    if (fam == LUT && tab_code[regs[4 * k + 2]] != (ops[k] & 7))
+      return (int)cudaErrorInvalidValue;
     p.ins[k] = {ops[k], (unsigned char)regs[4 * k], (unsigned char)regs[4 * k + 1],
                 (unsigned char)regs[4 * k + 2], (unsigned char)regs[4 * k + 3], imms[k]};
   }

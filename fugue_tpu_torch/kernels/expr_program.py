@@ -15,6 +15,19 @@ values and validity in registers, and writes either every output column
 with its mask (columns mode: ``assign``, a projection, an aggregate's
 arguments) or a filter's keep flags and kept count (filter mode).
 
+Strings: a string register is an I32 register holding dictionary codes;
+the compiler, not the kernel, tracks which dictionary it codes
+(``torch_backend/strings.py`` builds the tables). The ``LUT`` family,
+``dst = table[t][clamp(a, 0, len - 1)]`` with ``a``'s validity, gathers
+from one of the program's small device tables (bool, int32 or int64): a
+LIKE's match flags, a compare against a literal folded into flags, the
+ranks of a compare of two columns in their union vocabulary, LENGTH, the
+re-coding of a transformed dictionary onto its distinct entries and a
+join key's re-coding into the other side's dictionary. A dictionary
+transform (UPPER, TRIM, SUBSTRING, ...) costs no instruction: the codes
+pass and the dictionary changes; a CONCAT of several columns composes
+their codes with I32 arithmetic.
+
 Types: each node computes in its DECLARED type (``_promote`` and
 ``infer_type`` of ``column/expressions.py``): both operands of ``a op b``
 are cast to the promoted type first, a literal is an immediate of that
@@ -37,9 +50,13 @@ a bool as ``x != 0``; ``round(x, d)`` is ``rint(x * 10^d) / 10^d`` for
 of a float are int64 with NaN as NULL.
 
 A program over the caps (``MAX_INSTRS`` instructions, ``MAX_REGS``
-registers, ``MAX_INPUTS`` inputs, ``MAX_OUTPUTS`` outputs) raises
-``NotImplementedError`` naming ROADMAP.md queue 2 item 17, on the card
-and on the CPU alike.
+registers, ``MAX_INPUTS`` inputs, ``MAX_OUTPUTS`` outputs, ``MAX_TABLES``
+tables) raises ``NotImplementedError`` naming ROADMAP.md queue 2 item 17,
+on the card and on the CPU alike. A table over the string caps of
+``strings.py`` (a LIKE by a pattern column over more than
+``MAX_PAIR_LUT`` pairs, a CONCAT over more than ``MAX_COMPOSED_DICT``
+combinations), and what else the JAX package answers on its host engine,
+raises it naming queue 1 item 2(b).
 """
 
 import ctypes
@@ -61,13 +78,14 @@ from fugue_tpu_torch.column.expressions import (
     _UnaryOpExpr,
 )
 from fugue_tpu_torch.kernels import build
+from fugue_tpu_torch.torch_backend import strings
 
 MAX_INSTRS = 64
 MAX_REGS = 32
 MAX_INPUTS = 16
 MAX_OUTPUTS = 16
+MAX_TABLES = 8
 
-STRINGS = "ROADMAP.md queue 1 item 1 (string columns)"
 HOST_ENGINE = "ROADMAP.md queue 1 item 2(b) (the host engine)"
 OVER_CAPS = "ROADMAP.md queue 2 item 17 (K6 programs over the caps)"
 
@@ -93,7 +111,7 @@ OPS = (
     "CONST", "NULL", "ADD", "SUB", "MUL", "DIV", "MOD", "POW", "NEG", "ABS",
     "EQ", "NE", "LT", "LE", "GT", "GE", "AND", "OR", "NOT", "ISNULL", "NOTNULL",
     "CAST", "SEL", "COAL", "NULLIF", "FLOOR", "CEIL", "SIGN", "NANNULL",
-    "SQRT", "EXP", "LN", "LOG2", "LOG10", "SIN", "COS", "TAN", "ROUND",
+    "SQRT", "EXP", "LN", "LOG2", "LOG10", "SIN", "COS", "TAN", "ROUND", "LUT",
 )
 OP = {name: i for i, name in enumerate(OPS)}
 _CMP = {"==": "EQ", "!=": "NE", "<": "LT", "<=": "LE", ">": "GT", ">=": "GE"}
@@ -102,10 +120,7 @@ _FLOAT_FUNCS = {
     "sqrt": "SQRT", "exp": "EXP", "ln": "LN", "log": "LN", "log2": "LOG2",
     "log10": "LOG10", "sin": "SIN", "cos": "COS", "tan": "TAN",
 }
-_STRING_FUNCS = (
-    "like", "length", "len", "upper", "ucase", "lower", "lcase", "trim", "ltrim",
-    "rtrim", "reverse", "substring", "substr", "replace", "concat",
-)
+_TABLE_CODES = {np.dtype(bool): B, np.dtype(np.int32): I32, np.dtype(np.int64): I64}
 # the (family, dtype) pairs the kernel implements
 _ANY = tuple(range(8))
 _NUM = _INTS + _FLOATS
@@ -116,7 +131,7 @@ _VALID = {
     "AND": (B,), "OR": (B,), "NOT": (B,), "ISNULL": _ANY, "NOTNULL": _ANY,
     "CAST": _ANY, "SEL": _ANY, "COAL": _ANY, "NULLIF": _ANY,
     "FLOOR": _FLOATS, "CEIL": _FLOATS, "SIGN": _NUM, "NANNULL": _FLOATS,
-    **{c: (F64,) for c in _FLOAT_FUNCS.values()}, "ROUND": (F64,),
+    **{c: (F64,) for c in _FLOAT_FUNCS.values()}, "ROUND": (F64,), "LUT": (B, I32, I64),
 }
 
 
@@ -134,7 +149,8 @@ class Instr(NamedTuple):
     """``dst = op(a, b, c)`` over registers of the operands' ``dtype``.
     ``imm`` is a CONST's value (a Python scalar already in ``dtype``) or
     ROUND's factor; CAST's target dtype is ``b``; ROUND divides first
-    where ``b`` is 1."""
+    where ``b`` is 1; LUT gathers from table ``b``, of ``dtype``, at
+    register ``a``."""
 
     op: int
     dtype: int
@@ -166,6 +182,8 @@ class Instr(NamedTuple):
             return f"r{self.dst} = {name}->{_NAMES[self.b]} r{self.a}"
         if self.op == OP["ROUND"]:
             return f"r{self.dst} = {name} r{self.a} {'/' if self.b else '*'}{self.imm!r}"
+        if self.op == OP["LUT"]:
+            return f"r{self.dst} = {name} t{self.b}[r{self.a}]"
         return f"r{self.dst} = {name} " + " ".join(f"r{r}" for r in reads(self))
 
 
@@ -180,20 +198,27 @@ class Program(NamedTuple):
     input columns (``inputs``: their names and dtype codes), then
     ``instrs`` run in order; ``outputs`` are read at the end. A filter
     program has one bool output, the condition. ``mask_only`` flags the
-    inputs read only by IS [NOT] NULL, whose values are never loaded."""
+    inputs read only by IS [NOT] NULL, whose values are never loaded.
+    ``tables`` are the LUT instructions' tables (1-D tensors of bool,
+    int32 or int64, on the device the program runs on); ``dicts`` the
+    dictionary each output's codes index, None for an output that is not
+    a string."""
 
     inputs: Tuple[Tuple[str, int], ...]
     instrs: Tuple[Instr, ...]
     outputs: Tuple[Output, ...]
     nregs: int
     mask_only: Tuple[bool, ...]
+    tables: Tuple[torch.Tensor, ...] = ()
+    dicts: Tuple[Optional[np.ndarray], ...] = ()
 
     def __str__(self) -> str:
         ins = ", ".join(f"r{i}={n}:{_NAMES[c]}" for i, (n, c) in enumerate(self.inputs))
         outs = ", ".join(f"r{o.reg}:{_NAMES[o.dtype]}{'?' if o.masked else ''}"
                          for o in self.outputs)
         body = "\n".join(f"  {i}" for i in self.instrs)
-        return f"inputs {ins}\n{body}\noutputs {outs}"
+        tabs = "".join(f"\ntable t{i}: {t.dtype} [{t.shape[0]}]" for i, t in enumerate(self.tables))
+        return f"inputs {ins}\n{body}\noutputs {outs}{tabs}"
 
 
 _NP = {U8: np.uint8, I8: np.int8, I16: np.int16, I32: np.int32, I64: np.int64}
@@ -231,13 +256,25 @@ def cast_scalar(v: Any, src: int, dst: int) -> Any:
 
 class _Val(NamedTuple):
     """A compiled node: its virtual register and dtype code, whether it
-    has a mask, whether it is the NULL literal, and a constant's value."""
+    has a mask, whether it is the NULL literal, and a constant's value.
+    A string value is an I32 register of codes with the ``dictionary``
+    they index; a string literal has no register, only its ``text``."""
 
     reg: int
     dtype: int
     masked: bool
     null: bool = False
     const: Any = None
+    dictionary: Optional[np.ndarray] = None
+    text: Optional[str] = None
+
+    @property
+    def is_str(self) -> bool:
+        return self.dictionary is not None
+
+    @property
+    def stringish(self) -> bool:
+        return self.dictionary is not None or self.text is not None
 
 
 # registers each family reads, in the order a, b, c
@@ -247,7 +284,7 @@ _NARGS = {
                      "GE", "AND", "OR", "COAL", "NULLIF"), 2),
     **dict.fromkeys(("NEG", "ABS", "NOT", "ISNULL", "NOTNULL", "CAST", "FLOOR", "CEIL", "SIGN",
                      "NANNULL", "SQRT", "EXP", "LN", "LOG2", "LOG10", "SIN", "COS", "TAN",
-                     "ROUND"), 1),
+                     "ROUND", "LUT"), 1),
     "SEL": 3,
 }
 
@@ -262,15 +299,19 @@ def reads(ins: Instr) -> Tuple[int, ...]:
 
 class _Compiler:
     """Expression trees -> instructions over virtual registers (one per
-    value, common subexpressions and constants shared), then a linear-scan
-    allocation onto ``MAX_REGS`` registers."""
+    value, common subexpressions, constants and tables shared), then a
+    linear-scan allocation onto ``MAX_REGS`` registers."""
 
-    def __init__(self, columns: Dict[str, Tuple[int, bool]]):
+    def __init__(self, columns: Dict[str, Tuple[int, bool]],
+                 dicts: Dict[str, np.ndarray]):
         self.columns = columns  # name -> (dtype code, has a mask)
+        self.dicts = dicts  # name -> dictionary, for the string columns
         self.inputs: Dict[str, _Val] = {}
         self.code: List[Instr] = []
         self.nvirt = 0
         self.memo: Dict[Any, _Val] = {}
+        self.tables: List[np.ndarray] = []
+        self.table_index: Dict[Any, int] = {}
 
     def _emit(self, op: str, dtype: int, *args: int, imm: Any = 0, b: Optional[int] = None,
               masked: bool = False) -> _Val:
@@ -293,6 +334,16 @@ class _Compiler:
 
     def null(self, dtype: int) -> _Val:
         return self._emit("NULL", dtype, masked=True)._replace(null=True)
+
+    def lut(self, table: np.ndarray, v: _Val) -> _Val:
+        """``table[v]``: the table's entry at each code (clamped into the
+        table), with ``v``'s validity; equal tables are shared."""
+        key = (table.dtype.str, table.tobytes())
+        if key not in self.table_index:
+            self.table_index[key] = len(self.tables)
+            self.tables.append(table)
+        return self._emit("LUT", _TABLE_CODES[table.dtype], v.reg, b=self.table_index[key],
+                          masked=v.masked)
 
     def cast(self, v: _Val, dtype: int) -> _Val:
         if v.dtype == dtype:
@@ -319,9 +370,26 @@ class _Compiler:
     def node(self, e: ColumnExpr) -> _Val:
         v = self._node(e)
         if e.as_type is not None:
+            if v.stringish:
+                raise Refused(f"{e} (a cast of a string)", HOST_ENGINE)
             if e.as_type not in _FROM_PA:
-                raise Refused(f"cast to {e.as_type}", STRINGS)
+                raise Refused(f"cast to {e.as_type}", HOST_ENGINE)
             v = self.cast(v, _FROM_PA[e.as_type])
+        return v
+
+    def num(self, e: ColumnExpr, what: Any) -> _Val:
+        """A numeric operand of ``what``: strings are refused, as the JAX
+        package sends them to its host engine."""
+        v = self.node(e)
+        if v.stringish:
+            raise Refused(f"{what} (a string where a number is needed)", HOST_ENGINE)
+        return v
+
+    def string(self, e: ColumnExpr, what: Any) -> _Val:
+        """A string column's codes (or a transform of one) for ``what``."""
+        v = self.node(e)
+        if not v.is_str:
+            raise Refused(f"{what} (needs a string column)", HOST_ENGINE)
         return v
 
     def _node(self, e: ColumnExpr) -> _Val:
@@ -330,7 +398,8 @@ class _Compiler:
                 raise ValueError(f"{e.name} not available on device")
             if e.name not in self.inputs:
                 code, masked = self.columns[e.name]
-                self.inputs[e.name] = _Val(self.nvirt, code, masked)
+                self.inputs[e.name] = _Val(self.nvirt, code, masked,
+                                           dictionary=self.dicts.get(e.name))
                 self.nvirt += 1
             return self.inputs[e.name]
         if isinstance(e, _LitColumnExpr):
@@ -347,7 +416,7 @@ class _Compiler:
         if v is None:
             return self.null(F64)
         if isinstance(v, str):
-            raise Refused(f"string literal {v!r}", STRINGS)
+            return _Val(-1, I32, False, text=v)
         if isinstance(v, bool):
             return self.const(v, B)
         if isinstance(v, int):
@@ -357,9 +426,12 @@ class _Compiler:
         return self.const(float(v), F64)
 
     def _unary(self, e: _UnaryOpExpr) -> _Val:
-        x = self.node(e.col)
         if e.op in ("IS_NULL", "NOT_NULL"):
+            x = self.node(e.col)
+            if x.text is not None:
+                raise Refused(f"{e} (IS NULL of a string literal)", HOST_ENGINE)
             return self._emit("ISNULL" if e.op == "IS_NULL" else "NOTNULL", x.dtype, x.reg)
+        x = self.num(e.col, e)
         if e.op == "-":
             if x.dtype == B:
                 raise Refused(f"{e} (the negation of a bool, which the JAX package refuses too)",
@@ -371,6 +443,8 @@ class _Compiler:
 
     def _binary(self, e: _BinaryOpExpr) -> _Val:
         a, b = self.node(e.left), self.node(e.right)
+        if a.stringish or b.stringish:
+            return self._str_compare(e.op, a, b, e)
         if e.op in ("&", "|"):
             return self._emit("AND" if e.op == "&" else "OR", B, self.cast(a, B).reg,
                               self.cast(b, B).reg, masked=True)
@@ -384,13 +458,115 @@ class _Compiler:
         return self._emit(op, t, self.cast(a, t).reg, self.cast(b, t).reg,
                           masked=a.masked or b.masked)
 
+    def _str_compare(self, op: str, a: _Val, b: _Val, what: Any) -> _Val:
+        """A compare of strings (``_str_compare``, ``expr_eval.py:477``):
+        against a literal, one bool table over the column's dictionary;
+        of two columns, each side's rank in their union vocabulary (two
+        int32 tables), then an I32 compare."""
+        if op not in _CMP:
+            raise Refused(f"{what} (binary {op} on strings)", HOST_ENGINE)
+        if not (a.stringish and b.stringish) or (a.text is not None and b.text is not None):
+            raise Refused(f"{what} (a string compared with a non-string or two literals)",
+                          HOST_ENGINE)
+        if b.text is not None:
+            return self.lut(strings.compare_table(op, a.dictionary, b.text), a)
+        if a.text is not None:
+            return self.lut(strings.compare_table(strings.FLIPPED[op], b.dictionary, a.text), b)
+        vocab = strings.vocabulary([a.dictionary, b.dictionary])
+        ra = self.lut(strings.rank_table(vocab, a.dictionary), a)
+        rb = self.lut(strings.rank_table(vocab, b.dictionary), b)
+        return self._emit(_CMP[op], I32, ra.reg, rb.reg, masked=a.masked or b.masked)
+
+    def _literal_params(self, e: _FuncExpr) -> List[Any]:
+        """A string function's scalar parameters after its column: numeric
+        or string literals (``_check_scalar_lit``)."""
+        out = []
+        for p in e.args[1:]:
+            if not (isinstance(p, _LitColumnExpr) and isinstance(p.value, (int, float, str))
+                    and not isinstance(p.value, bool)):
+                raise Refused(f"{e} (its parameters must be literals)", HOST_ENGINE)
+            out.append(p.value)
+        return out
+
+    def _string_func(self, f: str, e: _FuncExpr) -> _Val:
+        args = e.args
+        if f == "like":
+            x = self.string(args[0], e)
+            neg = args[2] if len(args) > 2 else None
+            if not (neg is None or (isinstance(neg, _LitColumnExpr)
+                                    and isinstance(neg.value, bool))):
+                raise Refused(f"{e} (its negation must be a literal)", HOST_ENGINE)
+            negated = bool(neg.value) if neg is not None else False
+            pat = self.node(args[1])
+            if pat.text is not None:
+                return self.lut(strings.like_table(x.dictionary, pat.text, negated), x)
+            if not pat.is_str:
+                raise Refused(f"{e} (LIKE pattern must be a string)", HOST_ENGINE)
+            no, npat = max(len(x.dictionary), 1), max(len(pat.dictionary), 1)
+            if no * npat > strings.MAX_PAIR_LUT:
+                raise Refused(f"{e} (a LIKE by a pattern column over {no} x {npat} dictionary "
+                              f"pairs, more than {strings.MAX_PAIR_LUT})", HOST_ENGINE)
+            pair = self._emit("ADD", I32, self._emit("MUL", I32, x.reg, self.const(npat, I32).reg,
+                                                     masked=x.masked).reg,
+                              pat.reg, masked=x.masked or pat.masked)
+            return self.lut(strings.like_pair_table(x.dictionary, pat.dictionary, negated), pair)
+        if f in ("length", "len"):
+            x = self.string(args[0], e)
+            return self.lut(strings.length_table(x.dictionary), x)
+        if f in strings.DICT_TRANSFORMS or f in strings.SUBSTRING or f == "replace":
+            x = self.string(args[0], e)
+            params = self._literal_params(e)
+            return x._replace(dictionary=strings.transformed_dictionary(f, params, x.dictionary))
+        if f == "concat":
+            return self._concat(e)
+        if f == "nullif":  # a string NULLIF: a's codes, NULL where a = b
+            a = self.string(args[0], e)
+            eq = self._str_compare("==", a, self.node(args[1]), e)
+            return self._emit("NULLIF", I32, a.reg, eq.reg, masked=True)._replace(
+                dictionary=a.dictionary)
+        raise Refused(f"function {e.func}", HOST_ENGINE)
+
+    def _concat(self, e: _FuncExpr) -> _Val:
+        """CONCAT of literals and string columns: literals alone make a
+        literal; one column gets the literals around its dictionary's
+        entries; several compose their codes in mixed radix
+        (``((c1 * |d2|) + c2) * |d3| + c3 ...``, I32 arithmetic) over the
+        cross product of their dictionaries."""
+        parts = [self.node(a) for a in e.args]
+        if not all(p.stringish for p in parts):
+            raise Refused(f"{e} (CONCAT of non-strings)", HOST_ENGINE)
+        cols = [p for p in parts if p.is_str]
+        if not cols:
+            return _Val(-1, I32, False, text="".join(p.text for p in parts))  # type: ignore
+        if len(cols) == 1:
+            i = next(j for j, p in enumerate(parts) if p.is_str)
+            pre = "".join(p.text for p in parts[:i])  # type: ignore[misc]
+            post = "".join(p.text for p in parts[i + 1:])  # type: ignore[misc]
+            return cols[0]._replace(dictionary=strings.affixed_dictionary(
+                pre, cols[0].dictionary, post))
+        dicts = [p.dictionary for p in cols]
+        total = strings.concat_size(dicts)  # type: ignore[arg-type]
+        if total > strings.MAX_COMPOSED_DICT:
+            raise Refused(f"{e} (a CONCAT of {total} dictionary combinations, more than "
+                          f"{strings.MAX_COMPOSED_DICT})", HOST_ENGINE)
+        code = cols[0]
+        for p in cols[1:]:
+            size = self.const(max(len(p.dictionary), 1), I32)  # type: ignore[arg-type]
+            scaled = self._emit("MUL", I32, code.reg, size.reg, masked=code.masked)
+            code = self._emit("ADD", I32, scaled.reg, p.reg, masked=code.masked or p.masked)
+        template = [None if p.is_str else p.text for p in parts]
+        return code._replace(dictionary=strings.concat_dictionary(template, dicts))  # type: ignore
+
     def _func(self, e: _FuncExpr) -> _Val:
         f = e.func.lower()
-        if f in _STRING_FUNCS:
-            raise Refused(f.upper(), STRINGS)
         args = e.args
+        if f in ("like", "length", "len", "concat", "replace", *strings.SUBSTRING,
+                 *strings.DICT_TRANSFORMS):
+            return self._string_func(f, e)
+        if f == "nullif" and any(self.node(a).stringish for a in args[:2]):
+            return self._string_func(f, e)
         if f == "coalesce":
-            vals = [self.node(a) for a in args]
+            vals = [self.num(a, e) for a in args]
             t = next((v.dtype for v in vals if not v.null), F64)
             acc = self.cast(vals[0], t)
             for v in vals[1:]:
@@ -399,7 +575,7 @@ class _Compiler:
         if f == "case_when":
             if len(args) < 3 or len(args) % 2 == 0:
                 raise ValueError("case_when takes cond/value pairs plus a default")
-            vals = [self.node(a) for a in args]
+            vals = [self.num(a, e) for a in args]
             branches = [vals[i] for i in range(1, len(vals) - 1, 2)] + [vals[-1]]
             t = self._common_type([v for v in branches if not v.null], e)
             acc = self.cast(vals[-1], t)
@@ -411,28 +587,28 @@ class _Compiler:
         if f in ("if", "iif"):
             if len(args) != 3:
                 raise ValueError(f"{f} takes a condition and two values")
-            cond, yes, no = (self.node(a) for a in args)
+            cond, yes, no = (self.num(a, e) for a in args)
             t = no.dtype if yes.null else yes.dtype
             return self._emit("SEL", t, self.cast(cond, B).reg, self.cast(yes, t).reg,
                               self.cast(no, t).reg, masked=True)
         if f == "nullif":
-            a, b = self.node(args[0]), self.node(args[1])
+            a, b = self.num(args[0], e), self.num(args[1], e)
             t = self.promote(a, b, "+", e)
             eq = self._emit("EQ", t, self.cast(a, t).reg, self.cast(b, t).reg)
             return self._emit("NULLIF", a.dtype, a.reg, eq.reg, masked=True)
         if f == "mod":
-            a, b = self.node(args[0]), self.node(args[1])
+            a, b = self.num(args[0], e), self.num(args[1], e)
             t = self.promote(a, b, "+", e)
             if t == B:
                 raise Refused(f"{e} (mod of bools)", HOST_ENGINE)
             out = self._emit("MOD", t, self.cast(a, t).reg, self.cast(b, t).reg, masked=True)
             return self.cast(out, t if a.null else a.dtype)
         if f in ("power", "pow"):
-            a, b = self.node(args[0]), self.node(args[1])
+            a, b = self.num(args[0], e), self.num(args[1], e)
             return self._emit("POW", F64, self.cast(a, F64).reg, self.cast(b, F64).reg,
                               masked=a.masked or b.masked)
         if f == "round":
-            x = self.cast(self.node(args[0]), F64)
+            x = self.cast(self.num(args[0], e), F64)
             d = 0
             if len(args) > 1:
                 digits = args[1]
@@ -446,10 +622,10 @@ class _Compiler:
             return self._emit("ROUND", F64, x.reg, imm=10.0 ** abs(d), b=int(d < 0),
                               masked=x.masked)
         if f == "abs":
-            x = self.node(args[0])
+            x = self.num(args[0], e)
             return self._emit("ABS", x.dtype, x.reg, masked=x.masked)
         if f in ("floor", "ceil", "ceiling", "sign"):
-            x = self.node(args[0])
+            x = self.num(args[0], e)
             if f == "sign" and x.dtype == B:
                 raise Refused(f"{e} (the sign of a bool, which the JAX package refuses too)",
                               HOST_ENGINE)
@@ -462,7 +638,7 @@ class _Compiler:
                 y = self._emit("SIGN", x.dtype, x.reg, masked=x.masked)
             return self.cast(y, I64)._replace(masked=True)
         if f in _FLOAT_FUNCS:
-            x = self.cast(self.node(args[0]), F64)
+            x = self.cast(self.num(args[0], e), F64)
             return self._emit(_FLOAT_FUNCS[f], F64, x.reg, masked=x.masked)
         raise Refused(f"function {e.func}", HOST_ENGINE)
 
@@ -472,10 +648,31 @@ class _Compiler:
             t = self.promote(_Val(0, t, False), v, "+", what)
         return t
 
-    def finish(self, outs: List[_Val]) -> Program:
+    def output(self, e: ColumnExpr, v: _Val, dt: Optional[torch.dtype]) -> _Val:
+        """``v`` as an output of dtype ``dt`` (None: its own). A string
+        output is its codes, re-coded by a LUT onto the distinct entries
+        where its dictionary holds one twice (``finalize_string_result``,
+        ``expr_eval.py:588``)."""
+        if v.text is not None:
+            raise Refused(f"{e} (a string literal as a column)", HOST_ENGINE)
+        if v.is_str:
+            if dt not in (None, torch.int32):
+                raise Refused(f"{e} (a string as {dt})", HOST_ENGINE)
+            can = strings.canonical(v.dictionary)  # type: ignore[arg-type]
+            if can is not None:
+                v = self.lut(can[0], v)._replace(dictionary=can[1])
+            return v
+        if dt is not None:
+            if dt not in CODES:
+                raise Refused(f"{e} as {dt}", HOST_ENGINE)
+            v = self.cast(v, CODES[dt])
+        return v
+
+    def finish(self, outs: List[_Val], device: Optional[torch.device]) -> Program:
         """Allocates registers: the inputs take ``0 .. nin - 1``; a register
         is free again after the last instruction that reads its value,
-        unless that value is an output."""
+        unless that value is an output. The tables the live LUTs read go
+        to ``device``."""
         inputs = list(self.inputs.items())
         keep = {v.reg for v in outs}
         # dead code (constants whose casts were folded) goes first
@@ -486,6 +683,8 @@ class _Compiler:
                 code.append(ins)
                 needed.update(reads(ins))
         self.code = code[::-1]
+        used = sorted({ins.b for ins in self.code if ins.op == OP["LUT"]})
+        table_of = {old: new for new, old in enumerate(used)}
         last: Dict[int, int] = {}
         for k, ins in enumerate(self.code):
             for r in reads(ins):
@@ -506,13 +705,18 @@ class _Compiler:
             if ins.dst not in last and ins.dst not in keep:
                 free.append(dst)
             fields = dict(zip("abc", src))
+            if ins.op == OP["LUT"]:
+                fields["b"] = table_of[ins.b]
             instrs.append(ins._replace(dst=dst, **fields))
         value_reads = {r for ins in self.code if OPS[ins.op] not in ("ISNULL", "NOTNULL")
                        for r in reads(ins)} | keep
+        dev = torch.device("cpu") if device is None else device
         return Program(
             tuple((name, v.dtype) for name, v in inputs), tuple(instrs),
             tuple(Output(phys[v.reg], v.dtype, v.masked) for v in outs), max(nregs, 1),
             tuple(v.reg not in value_reads for _, v in inputs),
+            tuple(torch.from_numpy(self.tables[t]).to(dev) for t in used),
+            tuple(v.dictionary for v in outs),
         )
 
 
@@ -520,52 +724,69 @@ def compile_program(
     exprs: Sequence[ColumnExpr],
     out_dtypes: Sequence[Optional[torch.dtype]],
     columns: Dict[str, Tuple[torch.dtype, bool]],
+    dicts: Optional[Dict[str, np.ndarray]] = None,
+    device: Optional[torch.device] = None,
 ) -> Program:
     """``exprs`` over a frame whose ``columns`` are ``name -> (dtype, has
-    a mask)``, each output converted to its ``out_dtypes`` entry (None:
-    the type it computes in). Raises ``Refused`` for what K6 does not
-    evaluate and for a program over the caps."""
+    a mask)`` and whose string columns' codes index ``dicts``, each output
+    converted to its ``out_dtypes`` entry (None: the type it computes in;
+    a string output is int32 codes), its tables on ``device`` (default:
+    the CPU). Raises ``Refused`` for what K6 does not evaluate and for a
+    program over the caps."""
     if not 1 <= len(exprs) <= MAX_OUTPUTS:
         raise Refused(f"{len(exprs)} expressions in one program (at most {MAX_OUTPUTS})",
                       OVER_CAPS)
-    comp = _Compiler({n: (CODES[t], m) for n, (t, m) in columns.items() if t in CODES})
-    outs = []
-    for e, dt in zip(exprs, out_dtypes):
-        v = comp.node(e)
-        if dt is not None:
-            if dt not in CODES:
-                raise Refused(f"{e} as {dt}", STRINGS)
-            v = comp.cast(v, CODES[dt])
-        outs.append(v)
-    prog = comp.finish(outs)
-    if len(prog.inputs) > MAX_INPUTS or len(prog.instrs) > MAX_INSTRS or prog.nregs > MAX_REGS:
+    comp = _Compiler({n: (CODES[t], m) for n, (t, m) in columns.items() if t in CODES},
+                     dict(dicts or {}))
+    outs = [comp.output(e, comp.node(e), dt) for e, dt in zip(exprs, out_dtypes)]
+    prog = comp.finish(outs, device)
+    if len(prog.inputs) > MAX_INPUTS or len(prog.instrs) > MAX_INSTRS or \
+            prog.nregs > MAX_REGS or len(prog.tables) > MAX_TABLES:
         raise Refused(
-            f"a program of {len(prog.instrs)} instructions, {prog.nregs} registers and "
-            f"{len(prog.inputs)} inputs (caps {MAX_INSTRS}, {MAX_REGS}, {MAX_INPUTS})",
+            f"a program of {len(prog.instrs)} instructions, {prog.nregs} registers, "
+            f"{len(prog.inputs)} inputs and {len(prog.tables)} tables (caps {MAX_INSTRS}, "
+            f"{MAX_REGS}, {MAX_INPUTS}, {MAX_TABLES})",
             OVER_CAPS)
     for ins in prog.instrs:
         assert ins.dtype in _VALID[OPS[ins.op]], f"no kernel for {ins}"
     return prog
 
 
+def remap_program(table: torch.Tensor) -> Program:
+    """One LUT over one int32 column (its mask kept by the caller): a
+    string key's codes re-coded into another dictionary
+    (``harmonize_string_keys``). ``table`` is int32 on the device the
+    program runs on."""
+    return Program((("codes", I32),), (Instr(OP["LUT"], I32, 1, 0, 0),),
+                   (Output(1, I32, False),), 2, (False,), (table,), (None,))
+
+
 class ProgramCache:
     """Compiled programs by the expressions' ``__uuid__``, the wanted
-    output dtypes and the frame's column dtypes and masks."""
+    output dtypes, the frame's column dtypes and masks and its string
+    columns' dictionaries (by identity: an entry keeps them alive), on
+    the engine's device."""
 
     def __init__(self) -> None:
-        self._programs: Dict[Any, Program] = {}
+        self._programs: Dict[Any, Tuple[Program, Any]] = {}
 
     def get(self, exprs: Sequence[ColumnExpr], out_dtypes: Sequence[Optional[torch.dtype]],
-            columns: Dict[str, Tuple[torch.dtype, bool]]) -> Program:
+            columns: Dict[str, Tuple[torch.dtype, bool]],
+            dicts: Optional[Dict[str, np.ndarray]] = None,
+            device: Optional[torch.device] = None) -> Program:
+        dicts = dicts or {}
         key = (tuple(e.__uuid__() for e in exprs), tuple(out_dtypes),
-               tuple(sorted((n, str(t), m) for n, (t, m) in columns.items())))
-        prog = self._programs.get(key)
-        if prog is None:
-            prog = self._programs[key] = compile_program(exprs, out_dtypes, columns)
-        return prog
+               tuple(sorted((n, str(t), m) for n, (t, m) in columns.items())),
+               tuple(sorted((n, id(d)) for n, d in dicts.items())), str(device))
+        hit = self._programs.get(key)
+        if hit is None:
+            prog = compile_program(exprs, out_dtypes, columns, dicts, device)
+            hit = self._programs[key] = (prog, list(dicts.values()))
+        return hit[0]
 
     def __len__(self) -> int:
         return len(self._programs)
+
 
 
 Masked = Tuple[torch.Tensor, Optional[torch.Tensor]]
@@ -581,6 +802,7 @@ def _bind() -> ctypes.CDLL:
             i, pp, pp, ip,  # inputs: count, data, masks, codes
             i, ip, ip, llp,  # instructions: count, opcodes, registers, immediates
             i, pp, pp, ip, ip, i,  # outputs: count, data, masks, codes, registers; nregs
+            i, pp, llp, ip,  # tables: count, data, lengths, codes
             p, p,  # keep, count
             i, p,  # device, stream
         ]
@@ -594,6 +816,11 @@ def _check_inputs(program: Program, inputs: Sequence[Masked], n: int,
                   device: torch.device) -> None:
     if len(inputs) != len(program.inputs):
         raise ValueError(f"{len(inputs)} inputs for a program of {len(program.inputs)}")
+    for t in program.tables:
+        if t.device != device or t.dtype not in (torch.bool, torch.int32, torch.int64) \
+                or t.dim() != 1 or t.shape[0] < 1 or not t.is_contiguous():
+            raise ValueError(f"a table of {t.dtype} {tuple(t.shape)} on {t.device}: the kernel "
+                             f"takes dense, non-empty bool, int32 or int64 tables on {device}")
     for (name, code), (v, m) in zip(program.inputs, inputs):
         for t, what, dtype in ((v, name, DTYPES[code]), (m, f"{name} mask", torch.bool)):
             if t is None:
@@ -628,7 +855,11 @@ def launch(lib: ctypes.CDLL, program: Program, inputs: Sequence[Masked],
         (ctypes.c_longlong * max(len(instrs), 1))(*[i.imm_bits() for i in instrs]),
         len(outs), ptrs([v for v, _ in outs]), ptrs([m for _, m in outs]),
         ints([o.dtype for o in program.outputs]), ints([o.reg for o in program.outputs]),
-        program.nregs, None if keep is None else keep.data_ptr(), None if count is None else count.data_ptr(),
+        program.nregs,
+        len(program.tables), ptrs(list(program.tables)),
+        (ctypes.c_longlong * max(len(program.tables), 1))(*[t.shape[0] for t in program.tables]),
+        ints([CODES[t.dtype] for t in program.tables]),
+        None if keep is None else keep.data_ptr(), None if count is None else count.data_ptr(),
         device, stream,
     )
     if err != 0:

@@ -670,9 +670,14 @@ _CMP_OPS = {"EQ": torch.eq, "NE": torch.ne, "LT": torch.lt, "LE": torch.le, "GT"
             "GE": torch.ge}
 
 
-def _step(ins: "ep.Instr", regs: List[_Reg], device: torch.device) -> _Reg:
+def _step(ins: "ep.Instr", regs: List[_Reg], device: torch.device,
+          tables: Sequence[torch.Tensor]) -> _Reg:
     op, dt = ep.OPS[ins.op], ins.dtype
     a, b, c = (regs[r] if r < len(regs) else None for r in (ins.a, ins.b, ins.c))
+    if op == "LUT":  # an index_select of table b, the index clamped into it
+        table = tables[ins.b]
+        idx = a[0].to(torch.int64).clamp(0, int(table.shape[0]) - 1)
+        return torch.index_select(table, 0, idx.reshape(-1)).reshape(idx.shape), a[1]
     if op == "CONST":
         return torch.tensor(ins.imm, dtype=ep.DTYPES[dt], device=device), None
     if op == "NULL":
@@ -750,8 +755,9 @@ def expr_program_reference(
 ) -> Any:
     """The twin of K6 in ``expr_program.cu``: ``program`` interpreted over
     ``n`` rows with torch ops, one instruction at a time, constants as
-    0-d tensors of their type. ``inputs`` are the program's input columns
-    (values and null mask) in its order.
+    0-d tensors of their type, a LUT as an ``index_select`` of its table.
+    ``inputs`` are the program's input columns (values and null mask) in
+    its order.
 
     Columns mode: a list of ``(values, mask)``, one per output, values in
     the output's dtype and ``mask`` (True = valid) None where the output
@@ -767,7 +773,7 @@ def expr_program_reference(
     for j, (v, m) in enumerate(inputs):
         regs[j] = (v, m)
     for ins in program.instrs:
-        regs[ins.dst] = _step(ins, regs, device)
+        regs[ins.dst] = _step(ins, regs, device, program.tables)
     outs = []
     for o in program.outputs:
         v, m = regs[o.reg]

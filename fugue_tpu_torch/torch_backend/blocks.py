@@ -16,8 +16,13 @@ bin keys without reading bounds back from the card. An integer column
 that ingest proves strictly increasing is ``unique``, which lets a join
 against it take the sync-free unique-right route.
 
-String, timestamp, date, uint16-64 and float16 columns are not ported
-yet (ROADMAP.md queue 1 item 1): ``from_arrow`` raises
+String columns are dictionary-coded as in the original: int32 codes on
+the card (a null row holds code 0 and is flagged in the mask) and the
+decode table, ``dictionary``, on the host; their stats are ``(0,
+len(dictionary) - 1)``, so a string key bins with no readback. A
+timestamp is int64 microseconds since the epoch and a date32 int32 days,
+each with its ``(min, max)`` stats. uint16-64 and float16 columns are not
+ported yet (ROADMAP.md queue 1 item 1): ``from_arrow`` raises
 ``NotImplementedError`` for them rather than keeping them on the host.
 """
 
@@ -43,13 +48,32 @@ _TORCH_DTYPES: Dict[pa.DataType, torch.dtype] = {
     pa.float64(): torch.float64,
 }
 
+_US = pa.timestamp("us")
+
+
+def is_string_type(tp: pa.DataType) -> bool:
+    return pa.types.is_string(tp) or pa.types.is_large_string(tp)
+
+
+def is_temporal(tp: pa.DataType) -> bool:
+    """A timestamp (int64 microseconds on the card) or a date32 (int32
+    days)."""
+    return pa.types.is_timestamp(tp) or pa.types.is_date32(tp)
+
+
 def torch_dtype(tp: pa.DataType) -> torch.dtype:
-    """The tensor dtype of a device column of arrow type ``tp``; raises
-    ``NotImplementedError`` for the types the port does not hold yet."""
+    """The tensor dtype of a device column of arrow type ``tp``: int32 for
+    a string's codes and a date32's days, int64 for a timestamp's
+    microseconds. Raises ``NotImplementedError`` for the types the port
+    does not hold yet."""
+    if is_string_type(tp) or pa.types.is_date32(tp):
+        return torch.int32
+    if pa.types.is_timestamp(tp):
+        return torch.int64
     if tp not in _TORCH_DTYPES:
         raise NotImplementedError(
             f"column type {tp} is not ported to the card yet; see ROADMAP.md "
-            "queue 1 item 1 (strings, temporal and wide unsigned columns)"
+            "queue 1 item 1 (uint16-64 and float16 columns)"
         )
     return _TORCH_DTYPES[tp]
 
@@ -58,12 +82,20 @@ def is_integer_like(tp: pa.DataType) -> bool:
     return pa.types.is_integer(tp) or pa.types.is_boolean(tp)
 
 
+def keeps_stats(tp: pa.DataType) -> bool:
+    """Whether a column of type ``tp`` holds integer-like values whose
+    ``(min, max)`` the group-by bins by: integers, bools, temporal values
+    and string codes."""
+    return is_integer_like(tp) or is_temporal(tp) or is_string_type(tp)
+
+
 class TorchColumn:
     """One column: device data + optional mask (True = valid) + host-known
     ``(min, max)`` bounds of the VALID values of an integer-like column
     (a superset bound is fine) + ``unique``: no two real rows hold the same
-    value, proven on the host at ingest. Port of
-    ``jax_backend/blocks.py:73``."""
+    value, proven on the host at ingest + ``dictionary``, the host decode
+    table of a string column's int32 codes (an object ``np.ndarray``).
+    Port of ``jax_backend/blocks.py:73``."""
 
     def __init__(
         self,
@@ -72,12 +104,24 @@ class TorchColumn:
         mask: Optional[torch.Tensor] = None,
         stats: Optional[Tuple[int, int]] = None,
         unique: bool = False,
+        dictionary: Optional[np.ndarray] = None,
     ):
         self.pa_type = pa_type
         self.data = data
         self.mask = mask
         self.stats = stats
         self.unique = unique
+        self.dictionary = dictionary
+
+    @property
+    def is_string(self) -> bool:
+        return self.dictionary is not None
+
+    def with_data(self, data: torch.Tensor, mask: Optional[torch.Tensor]) -> "TorchColumn":
+        """The same logical column over other rows (a gather, a stack):
+        type, stats and dictionary kept, ``unique`` dropped
+        (``jax_backend/blocks.py:109``)."""
+        return TorchColumn(self.pa_type, data, mask, self.stats, dictionary=self.dictionary)
 
 
 def padded_len(n: int) -> int:
@@ -204,11 +248,41 @@ def _pad(arr: np.ndarray, target: int, fill: Any) -> np.ndarray:
     return out
 
 
+def _string_column(arr: pa.Array, pad_n: int, device: torch.device) -> TorchColumn:
+    """A string column as int32 codes of its ``dictionary_encode``, nulls
+    as code 0 with a mask, and ``(0, len(dictionary) - 1)`` stats
+    (``jax_backend/blocks.py:420-437``)."""
+    enc = arr.dictionary_encode()
+    indices = enc.indices
+    mask: Optional[torch.Tensor] = None
+    if indices.null_count > 0:
+        valid = pc.is_valid(indices).to_numpy(zero_copy_only=False)
+        mask = torch.from_numpy(_pad(valid, pad_n, False)).to(device)
+        indices = pc.fill_null(indices, 0)
+    codes = _pad(indices.to_numpy(zero_copy_only=False).astype(np.int32, copy=False), pad_n, 0)
+    if not codes.flags.writeable:
+        codes = codes.copy()
+    dictionary = np.asarray(enc.dictionary.to_pylist(), dtype=object)
+    return TorchColumn(arr.type, torch.from_numpy(codes).to(device), mask,
+                       (0, max(len(dictionary) - 1, 0)), dictionary=dictionary)
+
+
+def _device_values(arr: pa.Array, tp: pa.DataType) -> pa.Array:
+    """A temporal column as the integers the card holds (``decode_device_values``,
+    ``jax_backend/blocks.py:386-403``): a timestamp as int64 microseconds
+    since the epoch, a date32 as int32 days; other columns as they are."""
+    if pa.types.is_timestamp(tp):
+        return arr.cast(_US).view(pa.int64())
+    if pa.types.is_date32(tp):
+        return arr.view(pa.int32())
+    return arr
+
+
 def from_arrow(table: pa.Table, schema: Schema, device: torch.device) -> TorchBlocks:
-    """Arrow -> device blocks: pads rows, builds masks, captures host-side
-    key stats and the ``unique`` flag (``jax_backend/blocks.py:405``). Null
-    slots are filled with 0 in the column's own type, so int64 values stay
-    exact."""
+    """Arrow -> device blocks: pads rows, encodes strings, builds masks,
+    captures host-side key stats and the ``unique`` flag
+    (``jax_backend/blocks.py:405``). Null slots are filled with 0 in the
+    column's own type, so int64 values stay exact."""
     n = table.num_rows
     pad_n = padded_len(n)
     cols: Dict[str, TorchColumn] = {}
@@ -217,6 +291,10 @@ def from_arrow(table: pa.Table, schema: Schema, device: torch.device) -> TorchBl
         arr = table.column(field.name).combine_chunks()
         if arr.type != field.type:
             arr = arr.cast(field.type)
+        if is_string_type(field.type):
+            cols[field.name] = _string_column(arr, pad_n, device)
+            continue
+        arr = _device_values(arr, field.type)
         mask: Optional[torch.Tensor] = None
         if arr.null_count > 0:
             valid = pc.is_valid(arr).to_numpy(zero_copy_only=False)
@@ -235,10 +313,28 @@ def from_arrow(table: pa.Table, schema: Schema, device: torch.device) -> TorchBl
     return TorchBlocks(n, cols, device)
 
 
+def _host_array(values: np.ndarray, null_np: Optional[np.ndarray], col: TorchColumn,
+                tp: pa.DataType) -> pa.Array:
+    """One column's host values as arrow of type ``tp``: a string through
+    ``DictionaryArray.from_arrays(codes, dictionary).cast(tp)``
+    (``jax_backend/blocks.py:531-541``), a timestamp or date through its
+    integers' cast (``:543-560``)."""
+    if col.is_string:
+        indices = pa.array(values.astype(np.int32, copy=False), mask=null_np)
+        dictionary = pa.array(col.dictionary, type=pa.string())
+        return pa.DictionaryArray.from_arrays(indices, dictionary).cast(tp)
+    if pa.types.is_timestamp(tp):
+        return pa.array(values, type=pa.int64(), mask=null_np).cast(_US).cast(tp)
+    if pa.types.is_date32(tp):
+        return pa.array(values, type=pa.int32(), mask=null_np).cast(tp)
+    return pa.array(values, type=tp, mask=null_np)
+
+
 def to_arrow(blocks: TorchBlocks, schema: Schema) -> pa.Table:
     """Device blocks -> arrow (``jax_backend/blocks.py:491``). The host
     boundary: a masked frame is compacted here with one readback of its
-    validity mask, and its lazy row count materializes."""
+    validity mask, and its lazy row count materializes; string codes are
+    decoded by their dictionary."""
     take: Optional[np.ndarray] = None
     if blocks.row_valid is not None:
         take = np.nonzero(blocks.row_valid.cpu().numpy())[0]
@@ -255,5 +351,5 @@ def to_arrow(blocks: TorchBlocks, schema: Schema) -> pa.Table:
         if col.mask is not None:
             m_full = ~col.mask.cpu().numpy()
             null_np = m_full[take] if take is not None else m_full[:n]
-        arrays.append(pa.array(values, type=field.type, mask=null_np))
+        arrays.append(_host_array(values, null_np, col, field.type))
     return pa.Table.from_arrays(arrays, schema=schema.pa_schema)

@@ -18,6 +18,11 @@ expressions with one launch of the K6 expression program per call
 (``torch_backend/expr_eval.py``), and so does an aggregate whose
 arguments are more than bare columns; a filter leaves the columns as
 they are and gives the frame a new ``row_valid`` with a lazy count.
+String columns are int32 dictionary codes on the card with their
+decode table on the host: they pass through transformers (``_<name>_dict``
+beside the codes), group by code, join after one re-coding of the right
+side's key, and take part in expressions as table gathers; timestamps and
+dates are their int64 microseconds and int32 days.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``, and
 then every kernel runs as its plain PyTorch twin. Paths the port does not
@@ -33,6 +38,7 @@ took the generic (factorized) branch (``"generic"``) or had no keys
 from collections.abc import Mapping
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import pandas as pd
 import pyarrow as pa
 import torch
@@ -53,7 +59,8 @@ from fugue_tpu_torch.torch_backend.blocks import (
     TorchColumn,
     blocks_with_columns,
     from_arrow,
-    is_integer_like,
+    is_string_type,
+    keeps_stats,
     padded_len,
     torch_dtype,
 )
@@ -85,14 +92,15 @@ class TorchMapEngine:
         output_schema: Any,
         partition_spec: Optional[PartitionSpec] = None,
     ) -> TorchDataFrame:
-        """``jax_backend/execution_engine.py:95``. A partition key of
-        string type never gets here: ``to_df`` refuses string columns
-        (ROADMAP.md queue 1 item 1)."""
+        """``jax_backend/execution_engine.py:95``. A string partition key
+        bins by its codes, like any integer key. ``output_schema`` may
+        name the input's columns as ``"*"`` (``"*"`` alone, or
+        ``"*,w:double"``)."""
         tdf = self.execution_engine.to_df(df)
         keys = [] if partition_spec is None else partition_spec.partition_by
         for k in keys:
             assert_or_throw(k in tdf.blocks.columns, KeyError(f"{k} not in {tdf.schema}"))
-        return self._compiled_map(tdf, map_func, Schema(output_schema), keys)
+        return self._compiled_map(tdf, map_func, _output_schema(output_schema, tdf.schema), keys)
 
     def _compiled_map(
         self,
@@ -106,7 +114,11 @@ class TorchMapEngine:
         The transformer ABI, as in the JAX package:
 
         - each column ``name`` is a tensor over the padded rows, with
-          ``_<name>_mask`` (True = valid) beside it when it has nulls;
+          ``_<name>_mask`` (True = valid) beside it when it has nulls; a
+          string column is its int32 dictionary codes, with its decode
+          table ``_<name>_dict`` (an object ``np.ndarray`` on the host,
+          for host code, never for tensor math), a timestamp its int64
+          microseconds since the epoch, a date its int32 days;
         - ``_row_valid`` bool[padded]: True = real row, built on first
           access only (XLA drops it from a program that never reads it);
         - ``_nrows``: the true row count as a 0-d int32 device tensor;
@@ -123,11 +135,18 @@ class TorchMapEngine:
           ``[0, _num_segments - 1]`` to gather per-segment values back to
           the rows;
         - output columns of the input's padded length are row-aligned with
-          it; to change the row count, return ``_nrows`` too (one readback).
+          it; to change the row count, return ``_nrows`` too (one readback);
+        - a string output either passes an input's codes through (and
+          keeps its dictionary) or returns its decode table ``_<name>_dict``
+          beside its codes (``:164-231``, ``:335-353``): ``value.map(m)``
+          is host work over the dictionary and no work on the card. A
+          string output with neither is refused (the JAX package runs such
+          a transformer on its host engine).
 
         An output that IS an input column's tensor (passthrough) keeps that
         column's null mask and ``(min, max)`` stats, so a key passed
-        through a transform still bins with no readback."""
+        through a transform still bins with no readback; passed-through
+        codes keep their dictionary only on a string field."""
         blocks = df.blocks
         device = blocks.device
         pad_n = blocks.padded_nrows
@@ -136,6 +155,8 @@ class TorchMapEngine:
             args[name] = col.data
             if col.mask is not None:
                 args[f"_{name}_mask"] = col.mask
+            if col.is_string:
+                args[f"_{name}_dict"] = col.dictionary
         args["_nrows"] = blocks.nrows_tensor()
         if keys:
             fr = groupby.factorize_keys(blocks, keys)
@@ -187,12 +208,24 @@ class TorchMapEngine:
                 # passthrough values keep their nulls unless the fn
                 # returned an explicit mask
                 mask = src.mask
-            stats = src.stats if src is not None and is_integer_like(f.type) else None
+            stats = src.stats if src is not None and keeps_stats(f.type) else None
+            dictionary = None
+            if is_string_type(f.type):
+                given = out.get(f"_{f.name}_dict")
+                if given is not None:  # the transformer's decode table wins
+                    dictionary = np.asarray(given, dtype=object)
+                elif src is not None and src.is_string:
+                    dictionary = src.dictionary
+                else:
+                    self.execution_engine._unported(
+                        "map", f"string output {f.name!r} with neither passed-through codes nor "
+                        f"a '_{f.name}_dict'", _HOST_ENGINE)
             cols[f.name] = TorchColumn(
                 f.type,
                 _pad_to(data, target),
                 None if mask is None else _pad_to(mask.to(device), target),
                 stats,
+                dictionary=dictionary,
             )
         return TorchDataFrame(
             TorchBlocks(
@@ -255,8 +288,11 @@ class TorchExecutionEngine:
         self._strategy_counts: Dict[str, int] = {}
         self._fallbacks: Dict[str, int] = {}
         # compiled K6 programs of this engine's filters, assigns,
-        # projections and aggregate arguments
+        # projections and aggregate arguments; and of the single
+        # expressions its checks compiled (a string's tables are built
+        # once a frame, not once a call)
         self._programs = expr_eval.ProgramCache()
+        self._checked = expr_eval.ProgramCache()
 
     @property
     def strategy_counts(self) -> Dict[str, int]:
@@ -277,11 +313,13 @@ class TorchExecutionEngine:
             f"{what} is not ported to the torch engine yet; see {roadmap}"
         )
 
-    def _require_device(self, op: str, expr: ColumnExpr, blocks: TorchBlocks) -> None:
+    def _require_device(self, op: str, expr: ColumnExpr, blocks: TorchBlocks,
+                        out_dtype: Optional[torch.dtype] = None) -> None:
         """Refuses (``_unported``) an expression the card does not
-        evaluate, naming the ROADMAP.md item that ports it."""
+        evaluate (as ``out_dtype`` where given), naming the ROADMAP.md
+        item that ports it."""
         try:
-            expr_eval.check(expr, blocks)
+            expr_eval.check(expr, blocks, out_dtype, self._checked)
         except expr_eval.Refused as r:
             self._unported(op, r.what, r.item)
 
@@ -337,7 +375,7 @@ class TorchExecutionEngine:
         gather, no readback."""
         tdf = self.to_df(df)
         blocks = tdf.blocks
-        self._require_device("filter", condition, blocks)
+        self._require_device("filter", condition, blocks, torch.bool)
         keep, count = expr_eval.filter_rows(blocks, condition, self._programs)
         return TorchDataFrame(
             TorchBlocks(None, dict(blocks.columns), blocks.device, row_valid=keep,
@@ -348,7 +386,8 @@ class TorchExecutionEngine:
     def assign(self, df: Any, columns: List[ColumnExpr]) -> TorchDataFrame:
         """``:1426``: new or replaced columns, every expression in one K6
         launch over the input's columns; a bare column reference keeps its
-        mask and stats."""
+        mask, stats and dictionary; a computed string its codes and
+        dictionary (``:1463-1482``)."""
         tdf = self.to_df(df)
         blocks = tdf.blocks
         schema = tdf.schema
@@ -361,13 +400,13 @@ class TorchExecutionEngine:
             plans.append((name, tp, c))
             fields = [f if f.name != name else pa.field(name, tp) for f in schema.fields]
             schema = Schema(fields if name in schema else fields + [pa.field(name, tp)])
-        values = expr_eval.eval_exprs(
+        values = expr_eval.evaluate(
             blocks, [c for _, _, c in plans], [torch_dtype(tp) for _, tp, _ in plans],
             self._programs,
         )
         new_cols = dict(blocks.columns)
-        for (name, tp, c), (v, m) in zip(plans, values):
-            new_cols[name] = TorchColumn(tp, v, m, _source_stats(blocks, c))
+        for (name, tp, c), r in zip(plans, values):
+            new_cols[name] = _result_column(tp, r, blocks, c)
         return TorchDataFrame(blocks_with_columns(blocks, new_cols), schema)
 
     def join(
@@ -404,8 +443,8 @@ class TorchExecutionEngine:
     def _join_input(self, df: Any) -> TorchDataFrame:
         """``to_df`` of a join side. A frame on another device (a join
         across devices, ROADMAP.md queue 1 item 12) and a column type the
-        card does not hold (``to_df`` raises, queue 1 item 1) count in
-        ``fallbacks`` as a refused join."""
+        card does not hold (``to_df`` raises for uint16-64 and float16,
+        queue 1 item 1) count in ``fallbacks`` as a refused join."""
         if isinstance(df, TorchDataFrame) and df.device != self.device:
             self._unported("join", f"a join of a frame on {df.device} on an engine on "
                            f"{self.device}", "ROADMAP.md queue 1 item 12")
@@ -440,7 +479,7 @@ class TorchExecutionEngine:
         if cols.is_distinct:
             self._unported("select", "SELECT DISTINCT", _HOST_ENGINE)
         if where is not None:
-            self._require_device("select", where, blocks)
+            self._require_device("select", where, blocks, torch.bool)
         if not cols.has_agg:
             for c in cols.all_cols:
                 self._require_device("select", c, blocks)
@@ -462,15 +501,16 @@ class TorchExecutionEngine:
         self, tdf: TorchDataFrame, cols: SelectColumns, out_schema: Schema
     ) -> TorchDataFrame:
         """``:2234``: every column of the projection in one K6 launch (bare
-        references pass through with their stats), over the input's rows."""
+        references pass through with their stats and dictionaries; string
+        results keep theirs, ``:2259-2277``), over the input's rows."""
         blocks = tdf.blocks
-        values = expr_eval.eval_exprs(
+        values = expr_eval.evaluate(
             blocks, cols.all_cols, [torch_dtype(f.type) for f in out_schema.fields],
             self._programs,
         )
         new_cols = {
-            f.name: TorchColumn(f.type, v, m, _source_stats(blocks, c))
-            for c, f, (v, m) in zip(cols.all_cols, out_schema.fields, values)
+            f.name: _result_column(f.type, r, blocks, c)
+            for c, f, r in zip(cols.all_cols, out_schema.fields, values)
         }
         return TorchDataFrame(blocks_with_columns(blocks, new_cols), out_schema)
 
@@ -562,6 +602,10 @@ class TorchExecutionEngine:
                 typed_plans.append((c.output_name, "count", None, pa.int64()))
                 continue
             self._require_device("aggregate", arg, blocks)
+            if fn != "count" and expr_eval.is_string_result(arg, blocks, self._checked):
+                # the JAX package aggregates a string only by COUNT on its
+                # device (:2229, :2803-2812)
+                self._unported("aggregate", f"{fn}({arg}) of a string", _HOST_ENGINE)
             atp = arg.infer_type(tdf.schema)
             tp = c.infer_type(tdf.schema)
             if tp is None or (
@@ -607,8 +651,7 @@ class TorchExecutionEngine:
         out_cols: Dict[str, TorchColumn] = {}
         for k in keys:
             kv, km = decoded[k]
-            src = blocks.columns[k]
-            out_cols[k] = TorchColumn(src.pa_type, kv, km, src.stats)
+            out_cols[k] = blocks.columns[k].with_data(kv, km)
         out_cols.update(agg_cols)
         return TorchDataFrame(
             TorchBlocks(
@@ -649,10 +692,8 @@ class TorchExecutionEngine:
             mask = None if src.mask is None else _pad_to(
                 src.mask.index_select(0, fr.first_idx), target
             )
-            out_cols[k] = TorchColumn(
-                src.pa_type, _pad_to(src.data.index_select(0, fr.first_idx), target),
-                mask, src.stats,
-            )
+            out_cols[k] = src.with_data(
+                _pad_to(src.data.index_select(0, fr.first_idx), target), mask)
         out_cols.update(agg_cols)
         schema = _result_schema(tdf.schema, keys, typed_plans)
         if fr.occupied is not None:
@@ -742,10 +783,26 @@ class TorchExecutionEngine:
         self._strategy_counts[name] = self._strategy_counts.get(name, 0) + 1
 
 
-def _source_stats(blocks: TorchBlocks, c: ColumnExpr) -> Optional[Tuple[int, int]]:
-    """A bare column reference keeps its column's ``(min, max)``; a
-    computed column has none."""
-    return blocks.columns[c.name].stats if expr_eval.is_bare(c) else None
+def _result_column(tp: pa.DataType, r: expr_eval.Evaluated, blocks: TorchBlocks,
+                   c: ColumnExpr) -> TorchColumn:
+    """An evaluated column of type ``tp``: a bare column reference keeps
+    its column's ``(min, max)`` and dictionary; a computed string its
+    dictionary, with the codes' bounds as stats
+    (``finalize_string_result``); any other computed column has none."""
+    if expr_eval.is_bare(c):
+        src = blocks.columns[c.name]
+        return TorchColumn(tp, r.values, r.mask, src.stats, dictionary=src.dictionary)
+    stats = None if r.dictionary is None else (0, max(len(r.dictionary) - 1, 0))
+    return TorchColumn(tp, r.values, r.mask, stats, dictionary=r.dictionary)
+
+
+def _output_schema(spec: Any, schema: Schema) -> Schema:
+    """A transformer's output schema, ``"*"`` standing for the input's
+    columns (``"*"`` alone, or among other fields: ``"*,w:double"``)."""
+    if isinstance(spec, str) and "*" in spec:
+        parts = [p.strip() for p in spec.split(",") if p.strip() != ""]
+        return Schema(*[schema if p == "*" else p for p in parts])
+    return Schema(spec)
 
 
 def _arg_dtype(tp: Optional[pa.DataType]) -> Optional[torch.dtype]:

@@ -23,11 +23,14 @@ stacked), then:
 
 Null join keys never match (SQL): rows with any null key are not
 matchable on either side (``_null_any_mask``), though the factorization
-groups them. The kernels run where the tensors lie on CUDA, their plain
+groups them. A string key's two dictionaries become one before the keys
+are stacked (``harmonize_string_keys``): side 1 keeps its codes and side
+2's are re-coded by one K6 launch of a single table gather; other string
+columns ride through K10 as their int32 codes and keep their
+dictionaries. The kernels run where the tensors lie on CUDA, their plain
 twins (``kernels/reference.py``) where they lie on the CPU; there is no
-fallback between them. String keys (``harmonize_string_keys``) wait for
-the port's string columns (ROADMAP.md queue 1 item 1), ``not_in_join``
-for the SQL front end (item 4), the multi-device branches for item 12.
+fallback between them. ``not_in_join`` waits for the SQL front end
+(ROADMAP.md queue 1 item 4), the multi-device branches for item 12.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -45,7 +48,7 @@ from fugue_tpu_torch.kernels.reference import (
     join_probe_reference,
 )
 from fugue_tpu_torch.schema import Schema
-from fugue_tpu_torch.torch_backend import groupby
+from fugue_tpu_torch.torch_backend import expr_eval, groupby, strings
 from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, TorchColumn, padded_len, torch_dtype
 
 # the readbacks of the joins' own output sizes in this process (one a
@@ -64,23 +67,50 @@ def _merged_stats(c1: TorchColumn, c2: TorchColumn) -> Optional[Tuple[int, int]]
     return (min(c1.stats[0], c2.stats[0]), max(c1.stats[1], c2.stats[1]))
 
 
-def _stack(b1: TorchBlocks, b2: TorchBlocks, names: List[str]) -> TorchBlocks:
-    """The named columns of two frames stacked along the rows (side 1
-    first), their masks (all valid where a side has none), merged stats,
-    and the rows of both: a prefix frame where both sides are prefix
-    frames with no padding, else a masked frame with both validities
-    stacked (a lazy count where either side's is)."""
+def harmonize_string_keys(c1: TorchColumn, c2: TorchColumn) -> Tuple[TorchColumn, TorchColumn]:
+    """Two string columns re-coded into one dictionary
+    (``relational.py:69-104``): side 1 keeps its codes, and the union
+    dictionary extends side 1's; side 2's codes are re-coded by one K6
+    launch of a single LUT. Both get the union and its codes' bounds as
+    stats. Equal dictionaries are returned as they are, with no launch."""
+    remap = strings.remap_table(c1.dictionary, c2.dictionary)  # type: ignore[arg-type]
+    if remap is None:
+        return c1, c2
+    table, union = remap
+    stats = (0, max(len(union) - 1, 0))
+    return (TorchColumn(c1.pa_type, c1.data, c1.mask, stats, dictionary=union),
+            TorchColumn(c2.pa_type, expr_eval.remap_codes(c2.data, table), c2.mask, stats,
+                        dictionary=union))
+
+
+Pairs = Dict[str, Tuple[TorchColumn, TorchColumn]]
+
+
+def _harmonized(b1: TorchBlocks, b2: TorchBlocks, names: List[str]) -> Pairs:
+    """The named columns of both frames, string columns in one dictionary."""
+    pairs: Pairs = {}
+    for n in names:
+        c1, c2 = b1.columns[n], b2.columns[n]
+        pairs[n] = harmonize_string_keys(c1, c2) if c1.is_string else (c1, c2)
+    return pairs
+
+
+def _stack(b1: TorchBlocks, b2: TorchBlocks, pairs: Pairs) -> TorchBlocks:
+    """The columns of ``pairs`` (side 1's, side 2's) stacked along the rows
+    (side 1 first), their masks (all valid where a side has none), merged
+    stats, and the rows of both: a prefix frame where both sides are
+    prefix frames with no padding, else a masked frame with both
+    validities stacked (a lazy count where either side's is)."""
     device = b1.device
     p1, p2 = b1.padded_nrows, b2.padded_nrows
     cols: Dict[str, TorchColumn] = {}
-    for n in names:
-        c1, c2 = b1.columns[n], b2.columns[n]
+    for n, (c1, c2) in pairs.items():
         dt = torch.promote_types(c1.data.dtype, c2.data.dtype)
         mask = None
         if c1.mask is not None or c2.mask is not None:
             mask = torch.cat([_ones(c1.mask, p1, device), _ones(c2.mask, p2, device)])
         cols[n] = TorchColumn(c1.pa_type, torch.cat([c1.data.to(dt), c2.data.to(dt)]), mask,
-                              _merged_stats(c1, c2))
+                              _merged_stats(c1, c2), dictionary=c1.dictionary)
     full = all(b.row_valid is None and b.nrows == b.padded_nrows for b in (b1, b2))
     if full:
         return TorchBlocks(p1 + p2, cols, device)
@@ -90,34 +120,38 @@ def _stack(b1: TorchBlocks, b2: TorchBlocks, names: List[str]) -> TorchBlocks:
                        nrows_dev=nrows_dev)
 
 
-def concat_key_blocks(
-    b1: TorchBlocks, b2: TorchBlocks, keys: List[str]
-) -> Tuple[TorchBlocks, int, int]:
+def concat_key_blocks(b1: TorchBlocks, b2: TorchBlocks, keys: List[str]
+                      ) -> Tuple[TorchBlocks, Pairs]:
     """Both sides' key columns stacked along the rows, side 1 first
-    (``relational.py:116``): ``(combined, p1, p2)``, each side's padded
-    rows. A side's rows that are not real stay so in the combined frame,
-    so the factorization sees them as non-rows."""
-    return _stack(b1, b2, keys), b1.padded_nrows, b2.padded_nrows
+    (``relational.py:116``), string keys in one dictionary
+    (``harmonize_string_keys``, ``:133``): the combined frame and each
+    key's two columns. A side's rows that are not real stay so in the
+    combined frame, so the factorization sees them as non-rows."""
+    pairs = _harmonized(b1, b2, keys)
+    return _stack(b1, b2, pairs), pairs
 
 
 class SharedFactorization:
     """Both sides' keys in one segment space (``relational.py:207``):
     ``seg1`` int32 [p1] and ``seg2`` int32 [p2], each with the sentinel
-    ``num_segments`` on rows that are not real."""
+    ``num_segments`` on rows that are not real; ``keys`` each key's two
+    columns, string keys in one dictionary."""
 
-    def __init__(self, seg1: torch.Tensor, seg2: torch.Tensor, num_segments: int):
+    def __init__(self, seg1: torch.Tensor, seg2: torch.Tensor, num_segments: int, keys: Pairs):
         self.seg1 = seg1
         self.seg2 = seg2
         self.num_segments = num_segments
+        self.keys = keys
 
 
 def shared_factorize(b1: TorchBlocks, b2: TorchBlocks, keys: List[str]) -> SharedFactorization:
     """One factorization of the stacked keys (``groupby.factorize_keys``:
     K1 where they bin, else the sort path with its one readback of the
     group count), cut into the two sides (``relational.py:227-245``)."""
-    combined, p1, p2 = concat_key_blocks(b1, b2, keys)
+    combined, pairs = concat_key_blocks(b1, b2, keys)
     fr = groupby.factorize_keys(combined, keys)
-    return SharedFactorization(fr.seg[:p1], fr.seg[p1:], fr.num_segments)
+    p1 = b1.padded_nrows
+    return SharedFactorization(fr.seg[:p1], fr.seg[p1:], fr.num_segments, pairs)
 
 
 def _null_any_mask(b: TorchBlocks, keys: List[str]) -> Optional[torch.Tensor]:
@@ -150,8 +184,7 @@ def _gather(columns: Dict[str, TorchColumn], idx: torch.Tensor, outer: bool
     type and stats."""
     run = groupby._kernel(idx, gather_rows_cuda, gather_rows_reference, "gather rows")
     got = run([GatherColumn(c.data, c.mask) for c in columns.values()], idx, outer=outer)
-    return {n: TorchColumn(c.pa_type, v, m, c.stats)
-            for (n, c), (v, m) in zip(columns.items(), got)}
+    return {n: c.with_data(v, m) for (n, c), (v, m) in zip(columns.items(), got)}
 
 
 def _pad_index(idx: torch.Tensor, target: int, fill: int) -> torch.Tensor:
@@ -188,6 +221,7 @@ def expand_join(
     the route, ``"join_unique"`` or ``"join_expand"``."""
     device = b1.device
     p1, p2 = b1.padded_nrows, b2.padded_nrows
+    key_pairs: Pairs = {}
     if how == "cross":
         S = 1
         seg1 = torch.zeros((p1,), dtype=torch.int32, device=device)
@@ -195,7 +229,7 @@ def expand_join(
         null1 = null2 = None
     else:
         sf = shared_factorize(b1, b2, keys)
-        S, seg1, seg2 = max(sf.num_segments, 1), sf.seg1, sf.seg2
+        S, seg1, seg2, key_pairs = max(sf.num_segments, 1), sf.seg1, sf.seg2, sf.keys
         null1, null2 = _null_any_mask(b1, keys), _null_any_mask(b2, keys)
     if how in ("inner", "leftouter") and len(keys) == 1 and b2.columns[keys[0]].unique:
         return _unique_right_join(b1, b2, how, S, seg1, seg2, null1, null2, schema1, schema2,
@@ -222,11 +256,17 @@ def expand_join(
     out_pad = padded_len(M)
     li, ri = _pad_index(li, out_pad, 0), _pad_index(ri, out_pad, -1)
     d1 = {n: b1.columns[n] for n in schema1.names}
+    if un2 is not None:
+        # full outer: the keys in the shared dictionary, so that the right
+        # rows with no match append with no second re-coding (``:534``)
+        d1.update({k: c1 for k, (c1, _) in key_pairs.items()})
     d2 = {n: b2.columns[n] for n in schema2.names if n not in schema1}
     g = {**_gather(d1, li, outer=False), **_gather(d2, ri, outer=outer_left)}
     out = TorchBlocks(M, {f.name: g[f.name] for f in out_schema.fields}, device)
     if un2 is not None and R > 0:
-        tail = _gather_right_unmatched(b1, b2, keys, un2.keep, R, out_schema)  # type: ignore[arg-type]
+        right_keys = {k: c2 for k, (_, c2) in key_pairs.items()}
+        tail = _gather_right_unmatched(b1, b2, right_keys, un2.keep, R,  # type: ignore[arg-type]
+                                       out_schema)
         out = union_all_blocks(out, tail)
     return out, "join_expand"
 
@@ -272,17 +312,18 @@ def _compact(keep: torch.Tensor, count: int) -> torch.Tensor:
 
 
 def _gather_right_unmatched(
-    b1: TorchBlocks, b2: TorchBlocks, keys: List[str], unmatched: torch.Tensor, R: int,
-    out_schema: Schema,
+    b1: TorchBlocks, b2: TorchBlocks, keys: Dict[str, TorchColumn], unmatched: torch.Tensor,
+    R: int, out_schema: Schema,
 ) -> TorchBlocks:
     """The full outer join's tail (``relational.py:737``): the ``R`` right
-    rows with no left match (``unmatched``), in row order; the keys and the
-    right-only columns from the right side (K10), the left-only columns
-    all null."""
+    rows with no left match (``unmatched``), in row order; the keys (the
+    right side's ``keys`` columns) and the right-only columns from the
+    right side (K10), the left-only columns all null (a string one with
+    its left column's dictionary)."""
     device = b2.device
     out_pad = padded_len(R)
     idx = _pad_index(_compact(unmatched, R), out_pad, 0)
-    src = {n: b2.columns[n] for n in out_schema.names
+    src = {n: keys[n] if n in keys else b2.columns[n] for n in out_schema.names
            if n in keys or (n in b2.columns and n not in b1.columns)}
     g = _gather(src, idx, outer=False)
     cols: Dict[str, TorchColumn] = {}
@@ -292,13 +333,14 @@ def _gather_right_unmatched(
         else:
             cols[f.name] = TorchColumn(
                 f.type, torch.zeros((out_pad,), dtype=torch_dtype(f.type), device=device),
-                torch.zeros((out_pad,), dtype=torch.bool, device=device))
+                torch.zeros((out_pad,), dtype=torch.bool, device=device),
+                dictionary=b1.columns[f.name].dictionary)
     return TorchBlocks(R, cols, device)
 
 
 def union_all_blocks(b1: TorchBlocks, b2: TorchBlocks) -> TorchBlocks:
     """Two frames of the same columns stacked along the rows
     (``relational.py:935``): a masked frame (or a prefix one where both
-    have no padding) whose padding rows stay invalid. No compaction, no
-    readback."""
-    return _stack(b1, b2, list(b1.columns))
+    have no padding) whose padding rows stay invalid, string columns in
+    one dictionary (``:946``). No compaction, no readback."""
+    return _stack(b1, b2, _harmonized(b1, b2, list(b1.columns)))

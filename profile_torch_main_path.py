@@ -14,8 +14,11 @@ key), and the paths of the K6 expression program: the filtered pipeline
 and the WHERE/HAVING select (100M rows) and BASELINE config 3's select
 (10M rows), and the joins: config 3b (facts joined to a 256-row dimension
 table on a unique key, then aggregated; 5M and 100M facts) and config
-10's join (100M left rows, 200M output rows). Each is warmed up with two
-runs,
+10's join (100M left rows, 200M output rows), and the string paths
+(``--only strings``, 100M rows): the string predicates and group-by, the
+group-by on a canonicalised UPPER, the string-keyed join to a
+10,000-row dimension table and the date group-by. Each is warmed up with
+two runs,
 then run ``RUNS`` times under ``torch.profiler``; for each the script
 prints one JSON object: the
 wall seconds per run, the device's busy and idle share of that wall time
@@ -133,8 +136,17 @@ def _groups(device: Any, table: Any) -> Dict[str, Callable[[], None]]:
         run_once = chip_smoke.build_join_expand(device, chip_smoke.JOIN_EXPAND_ROWS)[0]
         profile_path("join_expand", run_once, device, table, chip_smoke.JOIN_EXPAND_ROWS)
 
+    def strings() -> None:
+        run_for = chip_smoke.build_string_paths(device, rows, chip_smoke.STRING_SEED)[0]
+        for name, run_once in run_for.items():
+            profile_path(name, run_once, device, table)
+        del run_for, run_once
+        torch.cuda.empty_cache()
+        run_once = chip_smoke.build_date_groupby(device, rows, chip_smoke.DATE_SEED)[0]
+        profile_path("date_groupby", run_once, device, table)
+
     return {"headline": headline, "config2": config2, "sort_path": sort_path,
-            "full_groupby": full_groupby, "k6": k6, "joins": joins}
+            "full_groupby": full_groupby, "k6": k6, "joins": joins, "strings": strings}
 
 
 def main() -> None:
@@ -143,7 +155,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", nargs="*", metavar="GROUP",
                         help="profile only these groups of paths: headline, config2, "
-                             "sort_path, full_groupby, k6, joins (default: all)")
+                             "sort_path, full_groupby, k6, joins, strings (default: all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch.cuda.is_available() is false")

@@ -97,14 +97,39 @@ def test_masked_layout_compacts_on_export():
 @pytest.mark.parametrize(
     "arr",
     [
-        pa.array(["x", None, "z"]),
-        pa.array([1, 2, 3], type=pa.timestamp("us")),
-        pa.array([1, 2, 3], type=pa.date32()),
         pa.array([1, 2, 3], type=pa.uint32()),
+        pa.array([1, 2, 3], type=pa.uint16()),
+        pa.array(np.array([1, 2, 3], dtype=np.float16)),
     ],
-    ids=["string", "timestamp", "date", "uint32"],
+    ids=["uint32", "uint16", "float16"],
 )
 def test_unported_types_raise(arr):
     table = pa.table({"a": arr})
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1"):
         tblocks.from_arrow(table, Schema(table.schema), CPU)
+
+
+@pytest.mark.parametrize(
+    "arr,codes",
+    [
+        (pa.array(["x", None, "z", "x"]), [0, 0, 1, 0]),
+        (pa.array([1, None, 3, -7], type=pa.timestamp("us")), [1, 0, 3, -7]),
+        (pa.array([1, None, 3, -7], type=pa.date32()), [1, 0, 3, -7]),
+    ],
+    ids=["string", "timestamp", "date"],
+)
+def test_string_and_temporal_columns_round_trip(arr, codes):
+    """A string column is int32 codes with a host dictionary and ``(0,
+    len - 1)`` stats; a timestamp int64 microseconds, a date int32 days,
+    each with its ``(min, max)``; nulls are 0 in a mask. All come back
+    as they went in."""
+    table = pa.table({"a": arr})
+    blocks = tblocks.from_arrow(table, Schema(table.schema), CPU)
+    col = blocks.columns["a"]
+    assert col.data.tolist() == codes and col.mask.tolist() == [True, False, True, True]
+    if pa.types.is_string(arr.type):
+        assert col.data.dtype == torch.int32 and list(col.dictionary) == ["x", "z"]
+        assert col.stats == (0, 1)
+    else:
+        assert not col.is_string and col.stats == (-7, 3)
+    assert tblocks.to_arrow(blocks, Schema(table.schema)).equals(table)

@@ -504,8 +504,10 @@ def test_program_over_the_caps_is_refused_naming_roadmap():
 
 
 @pytest.mark.parametrize("spec,item", [
-    (("bin", "==", C("i32"), L("x")), "queue 1 item 1"),
-    (("fn", "upper", C("i32")), "queue 1 item 1"),
+    # a string beside a number, a string function of a number: the JAX
+    # package answers both on its host engine
+    (("bin", "==", C("i32"), L("x")), "queue 1 item 2(b)"),
+    (("fn", "upper", C("i32")), "queue 1 item 2(b)"),
     (("fn", "atan", C("f64")), "queue 1 item 2(b)"),
     (("bin", "-", C("bool"), C("bool_b")), "queue 1 item 2(b)"),
     (("un", "-", C("bool")), "queue 1 item 2(b)"),

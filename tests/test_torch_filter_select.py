@@ -247,10 +247,12 @@ def test_program_cache_reuses_compiled_programs():
 _REFUSED = {
     "select_distinct": (lambda e, df: e.select(df, SelectColumns(tx.col("k"), arg_distinct=True)),
                         "select", "queue 1 item 2(b)"),
+    # an int column beside a string literal, a string function of an int
+    # column: the JAX package answers both on its host engine
     "string_literal": (lambda e, df: e.filter(df, tx.col("k") == "a"), "filter",
-                       "queue 1 item 1"),
+                       "queue 1 item 2(b)"),
     "string_function": (lambda e, df: e.assign(df, [tx.function("upper", tx.col("k")).alias("u")]),
-                        "assign", "queue 1 item 1"),
+                        "assign", "queue 1 item 2(b)"),
     "unknown_function": (lambda e, df: e.filter(df, tx.function("atan", tx.col("f64")) > 0),
                          "filter", "queue 1 item 2(b)"),
     "having_without_aggregation": (

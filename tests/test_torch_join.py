@@ -176,9 +176,14 @@ def test_unique_route_keeps_the_left_columns():
 
 def test_refused_joins_count_as_fallbacks():
     te = ft.make_execution_engine(device="cpu")
-    strings = pd.DataFrame({"k": [1, 2], "s": ["a", "b"]})
+    halves = pd.DataFrame({"k": [1, 2], "h": np.array([0.5, 1.5], dtype=np.float16)})
     with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        te.join(strings, pd.DataFrame({"k": [1]}), how="inner", on=["k"])
+        te.join(halves, pd.DataFrame({"k": [1]}), how="inner", on=["k"])
+    assert te.fallbacks == {"join": 1}
+    # a string column, refused here before strings were ported, now joins
+    strings = pd.DataFrame({"k": [1, 2], "s": ["a", "b"]})
+    res = te.join(strings, pd.DataFrame({"k": [1]}), how="inner", on=["k"])
+    assert res.as_pandas().to_dict("list") == {"k": [1], "s": ["a"]}
     assert te.fallbacks == {"join": 1}
     with pytest.raises(ValueError, match="invalid join type"):
         te.join(pd.DataFrame({"k": [1]}), pd.DataFrame({"k": [1]}), how="sideways")

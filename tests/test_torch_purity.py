@@ -110,12 +110,15 @@ _UNPORTED = {
         _df(), "k", engine=e, s=ff.min(_FuncExpr("atan", ft.col("v")))
     ),
     "uint16_column": lambda e: e.to_df(pd.DataFrame({"u": np.arange(3, dtype=np.uint16)})),
-    "partitioned_transform_on_string_key": lambda e: ft.transform(
-        _df().assign(k=lambda d: d["k"].astype(str)), _udf, "k:str,v:float", engine=e,
-        partition="k",
+    "float16_column": lambda e: e.to_df(pd.DataFrame({"h": np.arange(3, dtype=np.float16)})),
+    "min_of_a_string": lambda e: ft.aggregate(
+        _df().assign(s=lambda d: d["k"].astype(str)), "k", engine=e, m=ff.min(ft.col("s"))
+    ),
+    "dynamic_like_over_the_pair_cap": lambda e: ft.filter(
+        pd.DataFrame({"s": [f"s{i}" for i in range(1100)], "p": [f"p{i}" for i in range(1100)]}),
+        _FuncExpr("like", ft.col("s"), ft.col("p"), False), engine=e,
     ),
     "pandas_transformer": lambda e: ft.transform(_df(), _pandas_udf, "k:int,v:float", engine=e),
-    "string_column": lambda e: e.to_df(pd.DataFrame({"s": ["a", "b"]})),
     "other_engine": lambda e: ft.make_execution_engine("native"),
 }
 
@@ -125,6 +128,25 @@ def test_unported_paths_raise(case):
     engine = ft.make_execution_engine(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _UNPORTED[case](engine)
+
+
+def test_string_columns_and_string_partition_keys_answer():
+    """The two string cases this file once listed as unported: a string
+    column uploads and comes back, and a transform partitioned by a
+    string key sees each row's group (the partitions of the int key it
+    was made from)."""
+    engine = ft.make_execution_engine(device="cpu")
+    assert engine.to_df(pd.DataFrame({"s": ["a", "b"]})).as_pandas()["s"].tolist() == ["a", "b"]
+    pdf = _df().assign(k=lambda d: d["k"].astype(str))
+
+    def seg(a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {"k": a["k"], "v": a["v"], "g": a["_segment_ids"]}
+
+    out = ft.transform(pdf, seg, "k:str,v:float,g:int", engine=engine, partition="k")
+    assert out["k"].tolist() == pdf["k"].tolist() and out["v"].tolist() == pdf["v"].tolist()
+    # one segment per distinct key, the same for every row of a key
+    assert out.groupby("k")["g"].nunique().eq(1).all() and out["g"].nunique() == 5
+    assert engine.fallbacks == {}
 
 
 def test_refusals_are_counted():
