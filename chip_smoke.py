@@ -49,7 +49,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    match and one key with 10^6 build rows; K9 ``join_expand`` on pairs
    (inner, outer), a cross join and a skewed key; K10 ``gather_rows`` over
    every width, with and without masks, by indices with and without -1;
-   at 1, 2^20 + 37, 10M and 100M rows.
+   at 1, 2^20 + 37, 10M and 100M rows. Then the row-selection kernels
+   exactly (``row_select_vs_twin``): K11, KW's presort mode (float keys
+   with ties, -0.0, NaN and nulls, descending and nulls first, narrowed,
+   int64, uint8, bool and string-rank keys, a float64 key split over two
+   words, the "not real" bit alone), K12 ``rank_keep`` (one limit from a
+   device scalar, ``n = 0``, per-segment limits below and at least, the
+   sentinel segment), K13 ``first_row_mask`` (every, occupied, hit and
+   miss segments, first rows beyond the mask, no segment) and K14
+   ``null_count_keep`` (0, 1, 4 and 70 masks; any, all, thresh), at 1,
+   2^20 + 37 and 100M rows; and the order of a three-word presort against
+   ``numpy.lexsort`` up to 2^20 + 37 rows.
 4. paths through the entry points, each with every launch count zeroed
    just before its cold run and read just after, checked against numpy:
    the main path (100M rows, an int32 key over 1024 groups and a float32
@@ -94,7 +104,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    dictionary has another order and 10 % keys no fact holds (one
    harmonize launch, one readback), then SUM/COUNT by ``s``; and the
    date group-by (1,096 days, a timestamp with 3 % nulls: SUM, AVG, COUNT,
-   MIN and MAX by ``d``), each against numpy/pandas. Each reports cold and
+   MIN and MAX by ``d``), each against numpy/pandas. Then the relational
+   paths (``relational_paths``, ``RELATIONAL_PATH_LAUNCHES``) at 100M
+   rows: ``take(n=10, presort="v desc", partition="k")`` on the headline
+   frame; the global take ``presort="k asc, v desc"``, nulls first, with
+   5 % null ``v``; ``distinct`` of the full group-by's (k, u) pairs;
+   INTERSECT and EXCEPT, DISTINCT and ALL, in the shape of TPC-DS queries
+   38 and 87 (``last_name``, ``first_name``, ``d_date`` of two channels
+   of 100M and 50M rows over 10,000 and 1,000 names and 365 days, seed
+   13; ending in the count, as the queries do); dropna (any, all,
+   thresh) and fillna (a scalar, a dict, a string absent from the
+   dictionary) over four float64 columns with 5 % nulls and 1 % NaN and
+   a string; ``sample(frac=0.01)`` and ``sample(n=1_000_000)`` (exact
+   counts, the same rows for the same seed); ``repartition`` by hash of
+   ``k`` into 8 and at random; each against numpy, with the device time
+   of one warm run from ``torch.profiler``. Each reports cold and
    best-of-5 warm seconds, rows/s, peak device memory and its route.
 5. timing with CUDA events at the paths' shapes: each kernel beside its
    plain twin, one PyTorch call computing the same function where there
@@ -112,7 +136,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    skewed key; K6's LUT programs at 100M rows (``lut_timing``: LIKE, a
    LIKE by a pattern column, a compare of two columns, LENGTH, the
    canonicalising re-coding and the harmonize re-coding), each beside its
-   twin, ``index_select`` of its table and its bound.
+   twin, ``index_select`` of its table and its bound; K11-K14 and the
+   fillna program of K6 (``relational_timing``), each beside its twin, its
+   bound and, where one PyTorch call computes the same function,
+   ``index_fill_`` (K12 at ``sample``'s shape, K13) or ``torch.all`` (K14).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -424,17 +451,20 @@ def _wrappers() -> List[Callable[..., Any]]:
         factorize,
         gather,
         join,
+        row_select,
         segment_reduce,
         segment_sums,
     )
 
     return [segment_sums.binned_sums_cuda, factorize.bin_factorize_cuda,
-            factorize.sort_word_cuda, factorize.sort_word_boundaries_cuda,
+            factorize.sort_word_cuda, factorize.presort_word_cuda,
+            factorize.sort_word_boundaries_cuda,
             factorize.sort_word_lookup_cuda, factorize.sort_boundaries_cuda,
             factorize.sort_finish_cuda, segment_reduce.segment_extrema_cuda,
             segment_reduce.segment_sq_dev_cuda, expr_program.expr_program_cuda,
             join.join_build_cuda, join.join_probe_cuda, join.join_expand_cuda,
-            gather.gather_rows_cuda]
+            gather.gather_rows_cuda, row_select.rank_keep_cuda,
+            row_select.first_row_mask_cuda, row_select.null_count_keep_cuda]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -2194,7 +2224,8 @@ FLOAT64_SUM_RTOL = 1e-9  # float64 sums of float64 values in another order
 def _path_stats(label: str, rows: int, run_once: Callable[[], Tuple[float, Any, Any]],
                 device: Any, warm_runs: int) -> Tuple[Dict[str, Any], Any, Any]:
     """Cold and warm runs of one path with the launch counts of each,
-    held to ``K6_PATH_LAUNCHES`` or ``JOIN_PATH_LAUNCHES`` on the card;
+    held to ``K6_PATH_LAUNCHES``, ``JOIN_PATH_LAUNCHES``,
+    ``STRING_PATH_LAUNCHES`` or ``RELATIONAL_PATH_LAUNCHES`` on the card;
     returns the stats, the cold run's frame and pandas."""
     import torch
 
@@ -2208,7 +2239,8 @@ def _path_stats(label: str, rows: int, run_once: Callable[[], Tuple[float, Any, 
     best = min(warm) if warm else cold_secs
     want = dict.fromkeys(cold, 0)
     if device.type == "cuda":  # on the CPU every kernel runs as its twin
-        want.update({**K6_PATH_LAUNCHES, **JOIN_PATH_LAUNCHES, **STRING_PATH_LAUNCHES}[label])
+        want.update({**K6_PATH_LAUNCHES, **JOIN_PATH_LAUNCHES, **STRING_PATH_LAUNCHES,
+                     **RELATIONAL_PATH_LAUNCHES}[label])
     warm_want = {k: 0 if k in CACHED_ON_FRAME.get(label, ()) else v * warm_runs
                  for k, v in want.items()}
     if cold != want or warm_launches != warm_want:
@@ -3560,7 +3592,12 @@ STRING_PATH_LAUNCHES = {
 }
 # the kernels a path launches in its cold run only: the factorization of
 # a frame's keys is cached on the frame (groupby.factorize_keys)
-CACHED_ON_FRAME = {"date_groupby": ("bin_factorize",)}
+CACHED_ON_FRAME = {
+    "date_groupby": ("bin_factorize",),
+    "take_top_n": ("bin_factorize",),
+    "repartition_hash": ("bin_factorize",),
+    "distinct_pairs": ("sort_word", "sort_word_boundaries", "sort_finish"),
+}
 
 
 def string_paths(device: Any, rows: int, warm_runs: int, dims: int = JOIN_DIMS,
@@ -3720,6 +3757,706 @@ def _lut_entry(label: str, replaces: str, launches: int, prog: Any, inputs: List
     return {k: entry[k] for k in _ENTRY_KEYS}
 
 
+# --- set operations, distinct, dropna/fillna, take, sample, repartition ---
+
+TAKE_N = 10  # take(n=10, presort="v desc", partition="k") on the headline frame
+GLOBAL_TAKE_N = 1_000  # take(n, presort="k asc, v desc", na_position="first")
+TAKE_NULLS = 0.05  # the global take's null v
+TAKE_SEED = 43
+# TPC-DS queries 38 and 87: INTERSECT / EXCEPT of the (c_last_name,
+# c_first_name, d_date) rows of two sales channels
+Q_NAMES = (10_000, 1_000)  # last names, first names
+Q_DAYS, Q_EPOCH_DAY = 365, 18_993  # 2022-01-01
+Q_SEED = 13
+NA_SEED = 17
+NA_NULLS, NA_NANS = 0.05, 0.01  # dropna/fillna: four float64 columns
+NA_NAMES = 100  # and a string column over 100 names, 5 % null
+NA_THRESH = 3
+SAMPLE_N, SAMPLE_FRAC, SAMPLE_SEED = 1_000_000, 0.01, 5
+REPARTITION_NUM = 8
+
+# each path's launches in one run; the factorization of a frame's keys is
+# cached on the frame (CACHED_ON_FRAME), the set operations' shared one is
+# not (each call stacks its two frames anew)
+_Q_FACTORIZE = dict(expr_program=2, sort_boundaries=1, sort_finish=1, join_build=1)
+RELATIONAL_PATH_LAUNCHES = {
+    "take_top_n": dict(bin_factorize=1, presort_word=1, join_build=1, rank_keep=1),
+    "take_global": dict(presort_word=1, rank_keep=1),
+    "distinct_pairs": dict(sort_word=1, sort_word_boundaries=1, sort_finish=1,
+                           first_row_mask=1),
+    "intersect_distinct": dict(**_Q_FACTORIZE, first_row_mask=1),
+    "except_distinct": dict(**_Q_FACTORIZE, first_row_mask=1),
+    "intersect_all": {**_Q_FACTORIZE, "join_build": 2, "rank_keep": 1},
+    "except_all": {**_Q_FACTORIZE, "join_build": 2, "rank_keep": 1},
+    "dropna_any": dict(null_count_keep=1),
+    "dropna_all": dict(null_count_keep=1),
+    "dropna_thresh": dict(null_count_keep=1),
+    "fillna_scalar": dict(expr_program=1),
+    "fillna_dict": dict(expr_program=1),
+    "fillna_string": dict(expr_program=1),
+    "sample_frac": dict(rank_keep=1),
+    "sample_n": dict(rank_keep=1),
+    "repartition_hash": dict(bin_factorize=1, presort_word=1, gather_rows=1),
+    "repartition_rand": dict(gather_rows=1),
+}
+
+
+def presort_cases(device: Any, n: int, seed: int) -> List[Tuple[str, List[Any], Dict[str, Any]]]:
+    """K11's cases at ``n`` rows: ``(label, keys, keyword arguments)``.
+    Ties, -0.0 and +0.0, NaN and nulls in float keys; descending and nulls
+    first; narrowed, int64 and uint8 keys; a string's ranks; a float64
+    key split over two words (its flag ending one, its field the next);
+    a masked and a short prefix frame's "not real" bit, alone too."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import PresortKey
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand() -> Any:
+        return torch.rand((n,), generator=gen, device=device)
+
+    f32 = torch.round(torch.randn((n,), generator=gen, device=device) * 4) / 4
+    f32 = torch.where(rand() < 0.1, -0.0, torch.where(rand() < 0.05, float("nan"), f32))
+    f64 = torch.where(rand() < 0.05, float("nan"), f32.to(torch.float64) * 1e300)
+    mask = rand() > 0.1
+    i64 = torch.randint(-(2**62), 2**62, (n,), generator=gen, device=device)
+    i64 = torch.where(rand() < 0.3, torch.tensor(-(2**63), device=device), i64)
+    i32 = torch.randint(-50, 50, (n,), generator=gen, device=device, dtype=torch.int32)
+    seg = torch.randint(0, 1025, (n,), generator=gen, device=device, dtype=torch.int32)
+    u8 = torch.randint(0, 256, (n,), generator=gen, device=device, dtype=torch.uint8)
+    i8 = torch.randint(-128, 128, (n,), generator=gen, device=device, dtype=torch.int8)
+    b = rand() < 0.5
+    rank = torch.randint(0, 10_000, (n,), generator=gen, device=device, dtype=torch.int32)
+    row_valid = rand() < 0.9
+    short = dict(nrows=max(n - 3, 0)) if n > 3 else dict(row_valid=row_valid)
+    nan_key = PresortKey(f32, mask, desc=True, nulls_first=True, nan_is_null=True)
+    k64 = PresortKey(f64, mask, desc=True, nan_is_null=True)
+    return [
+        ("f32 desc nulls first, nan null", [nan_key], {}),
+        ("f32 asc nulls last, masked frame", [nan_key._replace(desc=False, nulls_first=False)],
+         dict(unreal=True, row_valid=row_valid)),
+        ("f32 no flag: NaN its own value", [PresortKey(f32)], {}),
+        ("top-n: segment then f32 desc", [PresortKey(seg, kmin=0, bits=11),
+                                         PresortKey(f32, None, desc=True, nan_is_null=True)], {}),
+        ("global take: narrowed i32 then f32 desc nulls first",
+         [PresortKey(i32, None, kmin=-50, bits=7), nan_key], dict(unreal=True, **short)),
+        ("i64 desc over its type's range, its flag in another word",
+         [PresortKey(i64, mask, desc=True, kmin=-(2**63), bits=64, flag=False)], {}),
+        ("bool desc, u8 desc, i8 nulls first", [PresortKey(b, None, desc=True),
+                                               PresortKey(u8, None, desc=True),
+                                               PresortKey(i8, mask, nulls_first=True)], {}),
+        ("string ranks desc nulls first", [PresortKey(rank, mask, desc=True, nulls_first=True,
+                                                      kmin=0, bits=14)], {}),
+        ("f64 flag ending a word", [PresortKey(i32, None, kmin=-50, bits=7),
+                                    k64._replace(value=False)], dict(unreal=True, **short)),
+        ("f64 field in the next word", [k64._replace(flag=False)], {}),
+        ("the not-real bit alone", [], dict(unreal=True, row_valid=row_valid)),
+    ]
+
+
+def multiword_order_check(device: Any, n: int, seed: int) -> None:
+    """``relational.presort_order`` over keys of more than 64 bits (three
+    words) against numpy's ``lexsort`` of the same keys: the float64's
+    flag and field split over two words, nulls and NaN first."""
+    import numpy as np
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import PresortKey
+    from fugue_tpu_torch.torch_backend import relational
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    i32 = torch.randint(-3, 3, (n,), generator=gen, device=device, dtype=torch.int32)
+    f64 = torch.round(torch.randn((n,), generator=gen, device=device, dtype=torch.float64) * 2)
+    f64 = torch.where(torch.rand((n,), generator=gen, device=device) < 0.05, float("nan"), f64)
+    i64 = torch.randint(-5, 5, (n,), generator=gen, device=device) * (2**60)
+    mask = torch.rand((n,), generator=gen, device=device) > 0.1
+    keys = [PresortKey(i32, None, desc=True, kmin=-(2**31), bits=32),
+            PresortKey(f64, mask, desc=True, nulls_first=True, nan_is_null=True),
+            PresortKey(i64, None, kmin=-(2**63), bits=64)]
+    order = relational.presort_order(keys, n, device, nrows=n).cpu().numpy()
+    a, f, c = (t.cpu().numpy() for t in (i32, f64, i64))
+    null = ~mask.cpu().numpy() | np.isnan(f)
+    want = np.lexsort((np.arange(n), c, -np.where(null, 0.0, f) + 0.0, ~null, -a.astype(np.int64)))
+    if not np.array_equal(order, want):
+        raise SystemExit(f"FAIL presort_order of three words at n={n}: differs from lexsort")
+
+
+def rank_keep_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """K12's cases at ``n`` rows: one limit from a device scalar (global,
+    ``n = 0``, a masked frame) and per segment, below and at least, with
+    the sentinel segment, empty segments and a short prefix frame."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    order = torch.randperm(n, generator=gen, device=device)
+    nseg = max(min(n // 50, 1 << 20), 1)
+    seg = torch.randint(0, nseg + 1, (n,), generator=gen, device=device, dtype=torch.int32)
+    starts = torch.randint(0, max(n, 1), (nseg,), generator=gen, device=device)
+    limits = torch.randint(0, 60, (nseg,), generator=gen, device=device, dtype=torch.int32)
+    row_valid = torch.rand((n,), generator=gen, device=device) < 0.8
+
+    def lim(v: int) -> Any:
+        return torch.full((), v, dtype=torch.int64, device=device)
+
+    return [
+        ("global, prefix", dict(order=order, nrows=n, limit=lim(n // 3))),
+        ("global, n = 0", dict(order=order, nrows=n, limit=lim(0))),
+        ("global, limit above the rows", dict(order=order, nrows=max(n - 1, 0), limit=lim(n + 5))),
+        ("global, masked", dict(order=order, row_valid=row_valid, limit=lim(n // 2 + 1))),
+        ("global ge, short prefix", dict(order=order, nrows=max(n - 2, 0), limit=lim(n // 4),
+                                         mode="ge")),
+        ("segments, one limit", dict(order=order, row_valid=row_valid, seg=seg, starts=starts,
+                                     limit=lim(7))),
+        ("segments, limits below", dict(order=order, nrows=n, seg=seg, starts=starts,
+                                        limits=limits)),
+        ("segments, limits at least", dict(order=order, row_valid=row_valid, seg=seg,
+                                           starts=starts, limits=limits, mode="ge")),
+    ]
+
+
+def first_row_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """K13's cases: every segment, occupied bins only, the hit and miss
+    predicates, first rows at or beyond ``n`` (a shared factorization's
+    side-2 segments), and no segment."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    num = max(n // 10, 1)
+    first = torch.randperm(n + n // 10 + 1, generator=gen, device=device)[:num].to(torch.int32)
+    occupied = torch.rand((num,), generator=gen, device=device) < 0.7
+    counts = torch.randint(0, 3, (num,), generator=gen, device=device, dtype=torch.int32)
+    empty = torch.empty((0,), dtype=torch.int32, device=device)
+    return [
+        ("all", dict(first_idx=first, n=n)),
+        ("all, occupied", dict(first_idx=first, n=n, occupied=occupied)),
+        ("hit", dict(first_idx=first, n=n, counts=counts, mode="hit")),
+        ("miss, occupied", dict(first_idx=first, n=n, occupied=occupied, counts=counts,
+                                mode="miss")),
+        ("no segment", dict(first_idx=empty, n=n)),
+    ]
+
+
+def null_count_cases(device: Any, n: int, seed: int, many: bool
+                     ) -> List[Tuple[str, Dict[str, Any]]]:
+    """K14's cases: no mask, one, four and (``many``) 70 masks, more than a
+    block stages; any, all and thresh; prefix and masked frames."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    masks = [torch.rand((n,), generator=gen, device=device) > 0.05 * (j + 1)
+             for j in range(70 if many else 4)]
+    row_valid = torch.rand((n,), generator=gen, device=device) < 0.9
+    cases = [
+        ("no mask", dict(masks=[], ncols=3, n=n, nrows=n)),
+        ("one mask, all", dict(masks=masks[:1], ncols=2, n=n, nrows=max(n - 1, 0), how="all")),
+        ("four masks, any, masked", dict(masks=masks[:4], ncols=4, n=n, row_valid=row_valid)),
+        ("four masks, thresh 3", dict(masks=masks[:4], ncols=5, n=n, nrows=n, thresh=3)),
+    ]
+    if many:
+        cases.append(("70 masks, thresh 66", dict(masks=masks, ncols=72, n=n,
+                                                  row_valid=row_valid, thresh=66)))
+    for _, kw in cases:
+        kw["device"] = device
+    return cases
+
+
+def row_select_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
+    """K11 (KW's presort mode), K12, K13 and K14 against their twins, bit
+    for bit, in every case above at each size; the multi-word presort
+    order against ``numpy.lexsort`` up to 2^20 + 37 rows."""
+    import torch
+
+    from fugue_tpu_torch.kernels.factorize import presort_word_cuda
+    from fugue_tpu_torch.kernels.reference import (
+        first_row_mask_reference,
+        null_count_keep_reference,
+        presort_word_reference,
+        rank_keep_reference,
+    )
+    from fugue_tpu_torch.kernels.row_select import (
+        first_row_mask_cuda,
+        null_count_keep_cuda,
+        rank_keep_cuda,
+    )
+
+    def same(label: str, got: Any, want: Any) -> None:
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+                raise SystemExit(f"FAIL {label}: differs from its twin")
+
+    for n in sizes:
+        for label, keys, kw in presort_cases(device, n, n + 1):
+            same(f"presort_word {label} n={n}", [presort_word_cuda(keys, **kw)],
+                 [presort_word_reference(keys, **kw)])
+        if n <= (1 << 20) + 37:
+            multiword_order_check(device, n, n + 2)
+        for label, kw in rank_keep_cases(device, n, n + 3):
+            same(f"rank_keep {label} n={n}", rank_keep_cuda(**kw), rank_keep_reference(**kw))
+        for label, kw in first_row_cases(device, n, n + 4):
+            same(f"first_row_mask {label} n={n}", first_row_mask_cuda(**kw),
+                 first_row_mask_reference(**kw))
+        for label, kw in null_count_cases(device, n, n + 5, many=n <= (1 << 20) + 37):
+            same(f"null_count_keep {label} n={n}", null_count_keep_cuda(**kw),
+                 null_count_keep_reference(**kw))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"row_select_vs_twin: n={n} equal")
+
+
+def q_channel(rows: int, rng: Any) -> Dict[str, Any]:
+    """One sales channel's rows of the TPC-DS Q38/Q87 shape: last and
+    first name indices and a day, each uniform."""
+    import numpy as np
+
+    return {"last": rng.integers(0, Q_NAMES[0], rows).astype(np.int32),
+            "first": rng.integers(0, Q_NAMES[1], rows).astype(np.int32),
+            "day": rng.integers(0, Q_DAYS, rows).astype(np.int32)}
+
+
+def q_table(ch: Dict[str, Any]) -> Any:
+    """A channel as arrow: the names as strings (``Lnnnnn``, ``Fnnnn``),
+    the day as a date32; the port's ingest encodes the strings again, so
+    each channel's dictionary is in its own order of first appearance."""
+    import pyarrow as pa
+
+    last = [f"L{i:05d}" for i in range(Q_NAMES[0])]
+    first = [f"F{i:04d}" for i in range(Q_NAMES[1])]
+    return pa.table({
+        "last_name": _string_array(ch["last"], None, last),
+        "first_name": _string_array(ch["first"], None, first),
+        "d_date": pa.array(ch["day"] + Q_EPOCH_DAY, type=pa.int32()).cast(pa.date32()),
+    })
+
+
+def q_oracle(c1: Dict[str, Any], c2: Dict[str, Any]) -> Dict[str, Any]:
+    """Numpy's keep masks of channel 1's rows: each row's ordinal among
+    its equal rows (one stable argsort) and channel 2's count of its row
+    (``np.unique`` and a search), then INTERSECT/EXCEPT DISTINCT (ordinal
+    0 and a count above 0, or 0) and ALL (ordinal below the count, or at
+    least it)."""
+    import numpy as np
+
+    def key(c: Dict[str, Any]) -> Any:
+        return ((c["last"].astype(np.int64) * Q_NAMES[1] + c["first"]) * Q_DAYS + c["day"])
+
+    k1, k2 = key(c1), key(c2)
+    n1 = len(k1)
+    # the row as the last digit makes every key distinct: numpy's default
+    # sort is then stable, and several times faster than its stable one
+    if int(k1.max(initial=0)) >= (2**63 - n1) // max(n1, 1):
+        raise SystemExit("FAIL q_oracle: the packed key overflows int64")
+    order = np.argsort(k1 * n1 + np.arange(n1))
+    s = k1[order]
+    opens = np.r_[True, s[1:] != s[:-1]]
+    run_start = np.nonzero(opens)[0]
+    ordinal = np.empty(len(k1), dtype=np.int64)
+    ordinal[order] = np.arange(len(k1)) - run_start[np.cumsum(opens) - 1]
+    u2, n2 = np.unique(k2, return_counts=True)
+    pos = np.minimum(np.searchsorted(u2, s), len(u2) - 1)
+    cnt = np.empty(len(k1), dtype=np.int64)
+    cnt[order] = np.where(u2[pos] == s, n2[pos], 0)
+    return {"intersect_distinct": (ordinal == 0) & (cnt > 0),
+            "except_distinct": (ordinal == 0) & (cnt == 0),
+            "intersect_all": ordinal < cnt, "except_all": ordinal >= cnt}
+
+
+def na_frame(rows: int, seed: int) -> Tuple[Dict[str, Any], Any]:
+    """Four float64 columns ``a``-``d`` with 5 % nulls and 1 % NaN and a
+    string ``s`` over 100 names with 5 % nulls, as numpy and as arrow."""
+    import numpy as np
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    d: Dict[str, Any] = {}
+    cols = {}
+    for name in "abcd":
+        x = rng.standard_normal(rows)
+        x[rng.random(rows) < NA_NANS] = np.nan
+        null = rng.random(rows) < NA_NULLS
+        d[name], d[f"{name}_null"] = x, null
+        cols[name] = pa.array(x, mask=null)
+    d["s"] = rng.integers(0, NA_NAMES, rows).astype(np.int32)
+    d["s_null"] = rng.random(rows) < NA_NULLS
+    cols["s"] = _string_array(d["s"], d["s_null"], [f"name{i:03d}" for i in range(NA_NAMES)])
+    return d, pa.table(cols)
+
+
+def build_relational_paths(device: Any, rows: int, q_rows: Tuple[int, int]
+                           ) -> Tuple[Dict[str, Callable[[], Tuple[float, Any, Any]]],
+                                      Dict[str, Any], Any]:
+    """Upload the slice's frames and return ``(run_for, data, engine)``:
+    each path's ``run_once`` through the entry points, returning
+    ``(seconds, result frame, what it read back)``. A take ends in
+    pandas; a selection with a large result in its row count, as Q38 and
+    Q87 do; fillna and repartition in the frame on the card."""
+    import numpy as np
+    import pandas as pd
+    import pyarrow as pa
+    import torch
+
+    import fugue_tpu_torch as ft
+
+    engine = ft.make_execution_engine("torch", device=device)
+    k, v, u = full_groupby_frame(rows, GROUPS, DISTINCT_VALUES, SEED)
+    headline = pd.DataFrame({"k": k, "v": v})
+    top_src = engine.persist(engine.to_df(headline))
+    part_src = engine.persist(engine.to_df(headline))
+    sample_src = engine.persist(engine.to_df(headline))
+    vnull = np.random.default_rng(TAKE_SEED).random(rows) < TAKE_NULLS
+    take_src = engine.persist(engine.to_df(pa.table({"k": k, "v": pa.array(v, mask=vnull)})))
+    pair_src = engine.persist(engine.to_df(pd.DataFrame({"k": k, "u": u})))
+    qrng = np.random.default_rng(Q_SEED)
+    c1, c2 = q_channel(q_rows[0], qrng), q_channel(q_rows[1], qrng)
+    q1 = engine.persist(engine.to_df(q_table(c1)))
+    q2 = engine.persist(engine.to_df(q_table(c2)))
+    nad, natable = na_frame(rows, NA_SEED)
+    na_src = engine.persist(engine.to_df(natable))
+    del natable
+    floats = ["a", "b", "c", "d"]
+
+    def timed(fn: Callable[[], Tuple[Any, Any]]) -> Callable[[], Tuple[float, Any, Any]]:
+        def run_once() -> Tuple[float, Any, Any]:
+            t = time.perf_counter()
+            frame, out = fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            return time.perf_counter() - t, frame, out
+        return run_once
+
+    def counted(frame: Any) -> Tuple[Any, Any]:
+        return frame, frame.count()
+
+    def taken(frame: Any) -> Tuple[Any, Any]:
+        return frame, frame.as_pandas()
+
+    def q_op(op: Callable[..., Any], distinct: bool) -> Callable[[], Tuple[Any, Any]]:
+        return lambda: counted(op(q1, q2, distinct=distinct, engine=engine))
+
+    run_for = {
+        "take_top_n": timed(lambda: taken(ft.take(top_src, TAKE_N, presort="v desc",
+                                                  partition="k", engine=engine))),
+        "take_global": timed(lambda: taken(ft.take(take_src, GLOBAL_TAKE_N,
+                                                   presort="k asc, v desc",
+                                                   na_position="first", engine=engine))),
+        "distinct_pairs": timed(lambda: counted(ft.distinct(pair_src, engine=engine))),
+        "intersect_distinct": timed(q_op(ft.intersect, True)),
+        "except_distinct": timed(q_op(ft.subtract, True)),
+        "intersect_all": timed(q_op(ft.intersect, False)),
+        "except_all": timed(q_op(ft.subtract, False)),
+        "dropna_any": timed(lambda: counted(ft.dropna(na_src, subset=floats, engine=engine))),
+        "dropna_all": timed(lambda: counted(ft.dropna(na_src, how="all", subset=floats,
+                                                      engine=engine))),
+        "dropna_thresh": timed(lambda: counted(ft.dropna(na_src, thresh=NA_THRESH,
+                                                         subset=floats, engine=engine))),
+        "fillna_scalar": timed(lambda: (ft.fillna(na_src, 0.0, subset=floats, engine=engine),
+                                        None)),
+        "fillna_dict": timed(lambda: (ft.fillna(na_src, {"a": 0.0, "b": 1.5, "c": -1.0,
+                                                         "d": 2.0}, engine=engine), None)),
+        "fillna_string": timed(lambda: (ft.fillna(na_src, {"s": "missing"}, engine=engine),
+                                        None)),
+        "sample_frac": timed(lambda: counted(ft.sample(sample_src, frac=SAMPLE_FRAC,
+                                                       seed=SAMPLE_SEED, engine=engine))),
+        "sample_n": timed(lambda: counted(ft.sample(sample_src, n=SAMPLE_N, seed=SAMPLE_SEED,
+                                                    engine=engine))),
+        "repartition_hash": timed(lambda: (ft.repartition(
+            part_src, {"algo": "hash", "num": REPARTITION_NUM, "by": ["k"]}, engine=engine),
+            None)),
+        "repartition_rand": timed(lambda: (ft.repartition(sample_src, "rand", engine=engine),
+                                           None)),
+    }
+    data = {"k": k, "v": v, "u": u, "vnull": vnull, "c1": c1, "c2": c2, "na": nad}
+    return run_for, data, engine
+
+
+def _keep(frame: Any) -> Any:
+    """A selection's keep mask on the host."""
+    return frame.blocks.validity().cpu().numpy()
+
+
+def check_relational(label: str, frame: Any, out: Any, d: Dict[str, Any],
+                     want: Dict[str, Any]) -> None:
+    """One path's result against numpy (``want`` holds the oracles already
+    computed)."""
+    import numpy as np
+
+    def fail(what: str) -> None:
+        raise SystemExit(f"FAIL {label}: {what}")
+
+    k, v = d["k"], d["v"]
+    if label.startswith("take"):
+        idx = want[label]
+        null = d["vnull"][idx] if label == "take_global" else np.zeros(len(idx), dtype=bool)
+        if not (np.array_equal(out["k"].to_numpy(), k[idx]) and np.array_equal(
+                out["v"].to_numpy(na_value=np.nan), np.where(null, np.nan, v[idx]),
+                equal_nan=True)):
+            fail("rows differ from numpy's")
+    elif label.startswith("repartition"):
+        idx = want[label]
+        got_k = frame.blocks.columns["k"].data[: len(k)].cpu().numpy()
+        got_v = frame.blocks.columns["v"].data[: len(k)].cpu().numpy()
+        if frame.count() != len(k) or not (np.array_equal(got_k, k[idx])
+                                           and np.array_equal(got_v, v[idx])):
+            fail("rows differ from numpy's order")
+    elif label.startswith("sample"):
+        want_n = int(round(len(k) * SAMPLE_FRAC))
+        if label == "sample_n":
+            want_n = min(SAMPLE_N, len(k))
+        keep = _keep(frame)
+        if out != want_n or int(keep.sum()) != want_n:
+            fail(f"kept {int(keep.sum())} rows ({out} counted), expected {want_n}")
+    elif label.startswith("fillna"):
+        na = d["na"]
+        fills = {"fillna_scalar": dict.fromkeys("abcd", 0.0),
+                 "fillna_dict": {"a": 0.0, "b": 1.5, "c": -1.0, "d": 2.0}}.get(label, {})
+        for name, fill in fills.items():
+            x = na[name]
+            exp = np.where(na[f"{name}_null"] | np.isnan(x), fill, x)
+            col = frame.blocks.columns[name]
+            if col.mask is not None or not np.array_equal(col.data.cpu().numpy(), exp):
+                fail(f"column {name} differs from numpy's fill")
+        if label == "fillna_string":
+            col = frame.blocks.columns["s"]
+            names = np.asarray(col.dictionary, dtype=object)
+            exp = np.where(na["s_null"], "missing", np.array(
+                [f"name{i:03d}" for i in range(NA_NAMES)], dtype=object)[na["s"]])
+            if col.mask is not None or not (names[col.data.cpu().numpy()] == exp).all():
+                fail("the filled strings differ from numpy's")
+    else:  # a selection: distinct, the set operations, dropna
+        keep = _keep(frame)
+        if not np.array_equal(keep, want[label]) or out != int(want[label].sum()):
+            fail(f"keeps {int(keep.sum())} rows ({out} counted), numpy {int(want[label].sum())}")
+
+
+def relational_oracle(d: Dict[str, Any]) -> Dict[str, Any]:
+    """Numpy's answers: the kept row indices of both takes, keep masks of
+    distinct, the Q38/Q87 set operations and dropna, and the row orders of
+    both repartitions."""
+    import numpy as np
+
+    k, v, u = d["k"], d["v"], d["u"]
+    n = len(k)
+    want: Dict[str, Any] = {}
+    # top-n per group: (k, v desc, row), sorted over the candidates, the
+    # rows at or above a threshold that leaves every group TAKE_N of them
+    # (or all its rows)
+    vbits = v.view(np.uint32).astype(np.int64)  # v >= 0: its bits order as v
+    sizes = np.bincount(k, minlength=GROUPS)
+    need = np.minimum(sizes, TAKE_N)
+    thresh = np.partition(v, max(n - 64 * GROUPS * TAKE_N, 0))[max(n - 64 * GROUPS * TAKE_N, 0)]
+    cand = np.nonzero(v >= thresh)[0]
+    if (np.bincount(k[cand], minlength=GROUPS) < need).any():
+        cand = np.arange(n)
+    ck = k[cand].astype(np.int64)
+    sub = np.argsort((ck << 32) | (0xFFFFFFFF - vbits[cand]), kind="stable")
+    order, ks = cand[sub], ck[sub]
+    rank = np.arange(len(order)) - np.searchsorted(ks, ks)
+    want["take_top_n"] = np.sort(order[rank < TAKE_N])
+    # the global take: k asc, nulls first, v desc, row; the n smallest keys
+    gkey = (k.astype(np.int64) << 33) | np.where(d["vnull"], 0, (1 << 32) | (0xFFFFFFFF - vbits))
+    kth = np.partition(gkey, GLOBAL_TAKE_N - 1)[GLOBAL_TAKE_N - 1]
+    cand = np.nonzero(gkey <= kth)[0]
+    want["take_global"] = np.sort(cand[np.argsort(gkey[cand], kind="stable")[:GLOBAL_TAKE_N]])
+    first = np.full(GROUPS * DISTINCT_VALUES, n, dtype=np.int64)
+    np.minimum.at(first, k.astype(np.int64) * DISTINCT_VALUES + u, np.arange(n))
+    keep = np.zeros(n, dtype=bool)
+    keep[first[first < n]] = True
+    want["distinct_pairs"] = keep
+    want.update(q_oracle(d["c1"], d["c2"]))
+    na = d["na"]
+    valid = sum((~na[f"{c}_null"]).astype(np.int32) for c in "abcd")
+    want["dropna_any"], want["dropna_all"] = valid == 4, valid > 0
+    want["dropna_thresh"] = valid >= NA_THRESH
+    # (partition, key) fits 16 bits here: numpy's stable sort is a radix sort
+    want["repartition_hash"] = np.argsort(
+        ((k % REPARTITION_NUM) * GROUPS + k).astype(np.int16), kind="stable")
+    want["repartition_rand"] = np.random.default_rng(42).permutation(n)
+    return want
+
+
+def relational_paths(device: Any, rows: int, warm_runs: int,
+                     q_rows: Optional[Tuple[int, int]] = None) -> List[Dict[str, Any]]:
+    """Every path of ``build_relational_paths`` at ``rows`` rows (the
+    Q38/Q87 channels at ``q_rows``, default ``rows`` and ``rows // 2``),
+    each held to numpy's answer (``relational_oracle``) and its launches to
+    ``RELATIONAL_PATH_LAUNCHES`` on the card, with its cold and best warm
+    seconds, peak memory and the device time of one warm run; both samples
+    also keep the same rows for the same seed."""
+    import numpy as np
+    import torch
+
+    q_rows = q_rows or (rows, rows // 2)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    run_for, d, engine = build_relational_paths(device, rows, q_rows)
+    build_secs = time.perf_counter() - t
+    t = time.perf_counter()
+    want = relational_oracle(d)
+    print(f"relational_paths: frames built and uploaded in {build_secs:.1f}s, numpy's "
+          f"answers in {time.perf_counter() - t:.1f}s")
+    out: List[Dict[str, Any]] = []
+    for label, run_once in run_for.items():
+        # the random repartition's host permutation takes seconds a run
+        stats, frame, got = _path_stats(label, q_rows[0] if label[:3] in ("int", "exc") else rows,
+                                        run_once, device,
+                                        min(warm_runs, 2) if label == "repartition_rand"
+                                        else warm_runs)
+        check_relational(label, frame, got, d, want)
+        if label.startswith("sample"):
+            again = run_once()[1]
+            if not np.array_equal(_keep(again), _keep(frame)):
+                raise SystemExit(f"FAIL {label}: another run of the same seed kept other rows")
+        stats["device_ms"] = device_busy_ms(run_once, device)
+        stats["kept_rows"] = got if isinstance(got, int) else (
+            len(got) if got is not None else frame.count())
+        out.append(stats)
+        del frame, got
+    del run_for, d, engine, want
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def device_busy_ms(run_once: Callable[[], Any], device: Any) -> Optional[float]:
+    """The summed device time of the kernels and copies of one run, from
+    ``torch.profiler``; None off the card, and where the trace holds no
+    device event."""
+    if device.type != "cuda":
+        return None
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_once()
+        torch.cuda.synchronize(device)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return busy if busy > 0 else None  # the trace lost the device's events: not measured
+
+
+def relational_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """K11, K12, K13, K14 and the fillna program of K6 at 100M rows with
+    CUDA events, each beside its twin, one PyTorch call where one computes
+    the same function, and its bound: K11 at the top-n take's word (the
+    segment and ``v`` desc, 16 bytes a row); K12 at ``sample(n=1M)``'s
+    shape (the first ``k`` positions of the order read, 8 bytes each, and
+    the keep flags written, 1 byte a row; ``index_fill_`` of the first
+    ``k`` positions into a zeroed mask) and, printed, at the top-n
+    take's; K13 at the (k, u) distinct's ~10M
+    groups (``index_fill_`` of the first rows); K14 over four masks, how
+    ``any`` (``torch.all`` of the stacked masks); the fillna program over
+    four float64 columns (no one call: ``where`` handles one column and
+    no NaN)."""
+    import torch
+
+    from fugue_tpu_torch.kernels.expr_program import expr_program_cuda
+    from fugue_tpu_torch.kernels.factorize import presort_word_cuda
+    from fugue_tpu_torch.kernels.reference import (
+        PresortKey,
+        expr_program_reference,
+        first_row_mask_reference,
+        null_count_keep_reference,
+        presort_word_reference,
+        rank_keep_reference,
+    )
+    from fugue_tpu_torch.kernels.row_select import (
+        first_row_mask_cuda,
+        null_count_keep_cuda,
+        rank_keep_cuda,
+    )
+    from fugue_tpu_torch.torch_backend import relational
+
+    n = ROWS
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    seg = torch.randint(0, GROUPS, (n,), generator=gen, device=device, dtype=torch.int32)
+    v = torch.rand((n,), generator=gen, device=device)
+    entries = []
+
+    def twin_err(got: Any, want: Any, label: str) -> float:
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise SystemExit(f"FAIL {label} timed: differs from its twin")
+        return 0.0
+
+    keys = [PresortKey(seg, kmin=0, bits=11), PresortKey(v, None, desc=True, nan_is_null=True)]
+    err = twin_err([presort_word_cuda(keys)], [presort_word_reference(keys)], "presort_word")
+    entries.append(_kernel_entry(
+        "presort_word", "fugue_tpu/jax_backend/relational.py:1234", launches["presort_word"], err,
+        time_cuda(lambda: presort_word_cuda(keys), 20),
+        time_cuda(lambda: presort_word_reference(keys), 5), n * (4 + 4 + 8), 0, None))
+
+    order = torch.sort(torch.randperm(n, generator=gen, device=device, dtype=torch.int32)).indices
+    k = min(SAMPLE_N, n)
+    limit = torch.full((), k, dtype=torch.int64, device=device)
+    kw = dict(nrows=n, limit=limit)
+    err = twin_err(rank_keep_cuda(order, **kw), rank_keep_reference(order, **kw), "rank_keep")
+    mask = torch.zeros((n,), dtype=torch.bool, device=device)
+    first_k = order[:k]
+    entries.append(_kernel_entry(
+        "rank_keep", "fugue_tpu/jax_backend/relational.py:2191", launches["rank_keep"], err,
+        time_cuda(lambda: rank_keep_cuda(order, **kw), 20),
+        time_cuda(lambda: rank_keep_reference(order, **kw), 5), k * 8 + n, 0,
+        time_cuda(lambda: mask.index_fill_(0, first_k, True), 20), source="row_select.cu"))
+    counts = torch.bincount(seg.long(), minlength=GROUPS).to(torch.int32)
+    take_kw = dict(nrows=n, seg=seg, starts=torch.cumsum(counts, 0, dtype=torch.int64) - counts,
+                   limit=torch.full((), TAKE_N, dtype=torch.int64, device=device))
+    top_order = relational.presort_order(keys, n, device, nrows=n)
+    twin_err(rank_keep_cuda(top_order, **take_kw), rank_keep_reference(top_order, **take_kw),
+             "rank_keep top-n")
+    print("rank_keep top-n shape: " + json.dumps({
+        "ms": time_cuda(lambda: rank_keep_cuda(top_order, **take_kw), 20),
+        "bound_ms": n * (8 + 4 + 1) / HBM_BYTES_PER_S * 1e3}))
+    del order, first_k, top_order
+
+    num = GROUPS * DISTINCT_VALUES
+    first_long = torch.randperm(n, generator=gen, device=device)[:num]
+    first = first_long.to(torch.int32)
+    err = twin_err(first_row_mask_cuda(first, n), first_row_mask_reference(first, n),
+                   "first_row_mask")
+    entries.append(_kernel_entry(
+        "first_row_mask", "fugue_tpu/jax_backend/execution_engine.py:1854",
+        launches["first_row_mask"], err, time_cuda(lambda: first_row_mask_cuda(first, n), 20),
+        time_cuda(lambda: first_row_mask_reference(first, n), 5), num * 4 + n, 0,
+        time_cuda(lambda: mask.index_fill_(0, first_long, True), 20), source="row_select.cu"))
+    del first, first_long
+
+    masks = [torch.rand((n,), generator=gen, device=device) > 0.05 for _ in range(4)]
+    nkw = dict(nrows=n)
+    err = twin_err(null_count_keep_cuda(masks, 4, n, **nkw),
+                   null_count_keep_reference(masks, 4, n, **nkw), "null_count_keep")
+    stacked = torch.stack(masks)
+    entries.append(_kernel_entry(
+        "null_count_keep", "fugue_tpu/jax_backend/execution_engine.py:1906",
+        launches["null_count_keep"], err,
+        time_cuda(lambda: null_count_keep_cuda(masks, 4, n, **nkw), 20),
+        time_cuda(lambda: null_count_keep_reference(masks, 4, n, **nkw), 5), n * 5, 0,
+        time_cuda(lambda: torch.all(stacked, 0), 20), source="row_select.cu"))
+    del stacked
+
+    cols = [torch.where(torch.rand((n,), generator=gen, device=device) < NA_NANS, float("nan"),
+                        torch.randn((n,), generator=gen, device=device, dtype=torch.float64))
+            for _ in range(4)]
+    prog = relational.fill_program([(f"c{j}", torch.float64) for j in range(4)],
+                                    [0.0, 1.5, -1.0, 2.0])
+    inputs = list(zip(cols, masks))
+    got = expr_program_cuda(prog, inputs, n, device=device)
+    want = expr_program_reference(prog, inputs, n, device=device)
+    err = twin_err([g for g, _ in got], [w for w, _ in want], "fillna program")
+    del got, want
+    entries.append(_kernel_entry(
+        "expr_program[fillna 4 float64]", "fugue_tpu/jax_backend/relational.py:1182",
+        launches["expr_program_fillna"], err,
+        time_cuda(lambda: expr_program_cuda(prog, inputs, n, device=device), 20),
+        time_cuda(lambda: expr_program_reference(prog, inputs, n, device=device), 5),
+        n * 4 * (8 + 1 + 8), 0, None, source="expr_program.cu"))
+    for e in entries:
+        print("relational timed: " + json.dumps(e))
+    return entries
+
+
 _ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -3776,6 +4513,10 @@ def main() -> None:
     join_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
     print("kernels checked against their twins: join_build, join_probe, join_expand, "
           "gather_rows (equal)")
+    torch.cuda.empty_cache()
+    row_select_vs_twin(device, (1, (1 << 20) + 37, ROWS))
+    print("kernels checked against their twins: presort_word, rank_keep, first_row_mask, "
+          "null_count_keep (equal)")
     torch.cuda.empty_cache()
 
     stats = main_path(device, ROWS, GROUPS, SEED, WARM_RUNS)
@@ -3876,6 +4617,12 @@ def main() -> None:
         print("string_path: " + json.dumps(st))
     torch.cuda.empty_cache()
 
+    rel_paths = relational_paths(device, ROWS, WARM_RUNS)
+    for st in rel_paths:
+        st["card"] = card
+        print("relational_path: " + json.dumps(st))
+    torch.cuda.empty_cache()
+
     stand_ins = stand_in_timing(device)
     stand_ins["card"] = card
     print("stand_ins: " + json.dumps(stand_ins))
@@ -3907,6 +4654,15 @@ def main() -> None:
         "length": by_case["string_upper_groupby"]["expr_program"],
         "canonicalize": by_case["string_upper_groupby"]["expr_program"],
         "harmonize": by_case["string_join"]["expr_program"],
+    })
+    torch.cuda.empty_cache()
+    rel = {st["case"]: st["launches"] for st in rel_paths}
+    entries += relational_timing(device, {
+        "presort_word": rel["take_top_n"]["presort_word"],
+        "rank_keep": rel["sample_n"]["rank_keep"],
+        "first_row_mask": rel["distinct_pairs"]["first_row_mask"],
+        "null_count_keep": rel["dropna_any"]["null_count_keep"],
+        "expr_program_fillna": rel["fillna_scalar"]["expr_program"],
     })
     torch.cuda.empty_cache()
     k6_scaling(device)

@@ -18,10 +18,29 @@ kernels (``fugue_tpu_torch/kernels/join.cu``, ``gather.cu``); and string,
 timestamp and date columns on the card (dictionary codes, int64
 microseconds, int32 days) through all of these, string predicates and
 dictionary transforms running as table gathers inside the expression
-kernel.
+kernel; and the set operations, ``distinct``, ``dropna``, ``fillna``,
+``take``, ``sample`` and ``repartition``, with hand-written presort-word,
+rank-keep, first-row and null-count kernels
+(``fugue_tpu_torch/kernels/factorize.cu``, ``row_select.cu``).
 """
 
-from fugue_tpu_torch.api import aggregate, assign, filter, join, select, transform
+from fugue_tpu_torch.api import (
+    aggregate,
+    assign,
+    distinct,
+    dropna,
+    fillna,
+    filter,
+    intersect,
+    join,
+    repartition,
+    sample,
+    select,
+    subtract,
+    take,
+    transform,
+    union,
+)
 from fugue_tpu_torch.column import SelectColumns, col, function, lit, null
 from fugue_tpu_torch.column import functions
 from fugue_tpu_torch.execution import make_execution_engine
@@ -37,13 +56,22 @@ __all__ = [
     "aggregate",
     "assign",
     "col",
+    "distinct",
+    "dropna",
+    "fillna",
     "filter",
     "function",
     "functions",
+    "intersect",
     "join",
     "lit",
     "make_execution_engine",
     "null",
+    "repartition",
+    "sample",
     "select",
+    "subtract",
+    "take",
     "transform",
+    "union",
 ]

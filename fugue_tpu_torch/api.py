@@ -1,6 +1,8 @@
 """The port's entry points: ``transform``, ``aggregate``, ``select``,
-``filter``, ``assign`` and ``join``, run straight on the engine with no
-workflow DAG (the DAG is not ported yet).
+``filter``, ``assign``, ``join``, ``union``, ``subtract``, ``intersect``,
+``distinct``, ``dropna``, ``fillna``, ``sample``, ``take`` and
+``repartition``, run straight on the engine with no workflow DAG (the DAG
+is not ported yet).
 
 ``transform`` mirrors ``fugue_tpu/workflow/api.py:15`` for a transformer
 annotated ``Dict[str, torch.Tensor] -> Dict[str, torch.Tensor]``, the
@@ -8,7 +10,9 @@ counterpart of the JAX package's ``Dict[str, jax.Array]`` parameter
 (code ``"j"``, ``fugue_tpu/jax_backend/registry.py:25-32``). ``select``,
 ``filter``, ``assign`` and ``aggregate`` mirror
 ``fugue_tpu/execution/api.py:306-351``, ``join``
-``fugue_tpu/execution/api.py:129-150``. All take pandas, arrow or a
+``fugue_tpu/execution/api.py:129-150``, the set operations, ``distinct``,
+``dropna``, ``fillna``, ``sample``, ``take`` and ``repartition``
+``fugue_tpu/execution/api.py:96-276``. All take pandas, arrow or a
 ``TorchDataFrame``; they return pandas, or the ``TorchDataFrame`` when
 ``as_fugue=True`` or the input was one.
 """
@@ -149,3 +153,88 @@ def join(
     for df in dfs:
         res = e.join(res, df, how=how, on=on)
     return _result(res, df1, as_fugue)
+
+
+def _fold(op: str, df1: Any, df2: Any, dfs: Any, distinct: bool, engine: Any,
+          as_fugue: bool) -> Any:
+    """``df1`` and ``df2`` through the engine's ``op``, then the result and
+    each of ``dfs`` in turn."""
+    e = _engine(engine, df1)
+    res = getattr(e, op)(df1, df2, distinct=distinct)
+    for df in dfs:
+        res = getattr(e, op)(res, df, distinct=distinct)
+    return _result(res, df1, as_fugue)
+
+
+def union(df1: Any, df2: Any, *dfs: Any, distinct: bool = True, engine: Any = None,
+          as_fugue: bool = False) -> Any:
+    """The rows of every frame (of one schema), each distinct row once
+    unless ``distinct=False``: ``union(a, b, c)``."""
+    return _fold("union", df1, df2, dfs, distinct, engine, as_fugue)
+
+
+def subtract(df1: Any, df2: Any, *dfs: Any, distinct: bool = True, engine: Any = None,
+             as_fugue: bool = False) -> Any:
+    """``df1 EXCEPT df2`` (then of each of ``dfs``), or ``EXCEPT ALL``
+    with ``distinct=False``."""
+    return _fold("subtract", df1, df2, dfs, distinct, engine, as_fugue)
+
+
+def intersect(df1: Any, df2: Any, *dfs: Any, distinct: bool = True, engine: Any = None,
+              as_fugue: bool = False) -> Any:
+    """``df1 INTERSECT df2`` (then with each of ``dfs``), or ``INTERSECT
+    ALL`` with ``distinct=False``."""
+    return _fold("intersect", df1, df2, dfs, distinct, engine, as_fugue)
+
+
+def distinct(df: Any, engine: Any = None, as_fugue: bool = False) -> Any:
+    """Each distinct row of ``df`` once, at its first occurrence."""
+    e = _engine(engine, df)
+    return _result(e.distinct(df), df, as_fugue)
+
+
+def dropna(df: Any, how: str = "any", thresh: Optional[int] = None,
+           subset: Optional[List[str]] = None, engine: Any = None, as_fugue: bool = False) -> Any:
+    """The rows of ``df`` without a null (``how="any"``), with a value
+    (``"all"``) or with at least ``thresh`` values in ``subset`` (default:
+    every column); a float NaN is a value here, as in the JAX package."""
+    e = _engine(engine, df)
+    return _result(e.dropna(df, how=how, thresh=thresh, subset=subset), df, as_fugue)
+
+
+def fillna(df: Any, value: Any, subset: Optional[List[str]] = None, engine: Any = None,
+           as_fugue: bool = False) -> Any:
+    """``df`` with the nulls (and a float's NaN) of ``subset`` (default:
+    every column) filled with ``value``, or of each column of a dict with
+    its value: ``fillna(df, {"a": 0, "s": "none"})``."""
+    e = _engine(engine, df)
+    return _result(e.fillna(df, value=value, subset=subset), df, as_fugue)
+
+
+def sample(df: Any, n: Optional[int] = None, frac: Optional[float] = None,
+           replace: bool = False, seed: Optional[int] = None, engine: Any = None,
+           as_fugue: bool = False) -> Any:
+    """``n`` rows, or a fraction ``frac`` of them, drawn at random (the
+    same ones for the same ``seed``), with or without replacement."""
+    e = _engine(engine, df)
+    return _result(e.sample(df, n=n, frac=frac, replace=replace, seed=seed), df, as_fugue)
+
+
+def take(df: Any, n: int, presort: str = "", na_position: str = "last", partition: Any = None,
+         engine: Any = None, as_fugue: bool = False) -> Any:
+    """The first ``n`` rows of ``df`` under ``presort`` (``"a asc, b
+    desc"``; none: row order), of each partition of ``partition`` where
+    given, nulls first or last by ``na_position``:
+    ``take(df, 10, presort="v desc", partition="k")``."""
+    e = _engine(engine, df)
+    spec = None if partition is None else PartitionSpec(partition)
+    return _result(e.take(df, n=n, presort=presort, na_position=na_position,
+                          partition_spec=spec), df, as_fugue)
+
+
+def repartition(df: Any, partition: Any, engine: Any = None, as_fugue: bool = False) -> Any:
+    """``df`` reordered into the partitions of ``partition``:
+    ``repartition(df, {"algo": "hash", "num": 8, "by": ["k"]})`` puts
+    equal keys together, ``"rand"`` shuffles the rows."""
+    e = _engine(engine, df)
+    return _result(e.repartition(df, PartitionSpec(partition)), df, as_fugue)

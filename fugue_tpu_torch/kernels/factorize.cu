@@ -9,6 +9,13 @@
 //   KW  sort_word            the sort codes of _sort_factorize (:507-546),
 //                            packed into one order-preserving int32/int64
 //                            word a row, "not real" as its top field;
+//   K11 KW's presort mode    relational.py's _sort_code_columns (:1234)
+//                            and _stable_sort_order (:1265): per key
+//                            descending, nulls first, NaN as null and a
+//                            field narrowed to its known range, so that
+//                            one stable ascending sort of the word (LSD
+//                            over several where the fields exceed 64
+//                            bits) gives that loop's order;
 //   K2w sort_word_boundaries the tail of _sort_factorize_core (:554) over
 //                            the sorted words: group boundaries, their
 //                            scan, the distinct words, the first row of
@@ -22,16 +29,17 @@
 //                            invalid rows, the scatter of the ids back to
 //                            row order, the first row of each group.
 // Their twins are bin_factorize_reference, sort_word_reference,
-// sort_word_boundaries_reference, sort_word_lookup_reference,
-// sort_boundaries_reference and sort_finish_reference in reference.py.
+// presort_word_reference, sort_word_boundaries_reference,
+// sort_word_lookup_reference, sort_boundaries_reference and
+// sort_finish_reference in reference.py.
 //
 // What bounds them on an H100: bytes. K1 reads the keys once and writes
 // one id a row (8 bytes a row for one int32 key); the bins' first rows
 // are a shared-memory atomicMin (global when the bins do not fit in 48
 // KB), tried only when a plain read shows the row is earlier than the
 // bin's current first, so after the first rows of a bin almost no row
-// pays an atomic. KW reads each key once and writes the word, one row a
-// thread, coalesced. K2w reads the sorted words in sorted order with
+// pays an atomic. KW (and K11) reads each key once and writes the word,
+// one row a thread, coalesced. K2w reads the sorted words in sorted order with
 // 16-byte loads (twice: reduce-then-scan in three launches), writes one
 // id a position, and touches the order only where a group opens. K3w
 // reads each row's word in row order with 16-byte loads and writes its id
@@ -308,10 +316,22 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kMaxWordKeys = 16;  // key columns per KW launch
 
+// A key's options (presort mode, K11); the factorize mode sets kFlag
+// where the key has a mask and nothing else.
+constexpr int kFlag = 1;        // the word holds the key's null flag
+constexpr int kNoValue = 2;     // the word does not hold the key's field
+constexpr int kDesc = 4;        // the field inverted: descending
+constexpr int kNullsFirst = 8;  // the null flag inverted: nulls first
+constexpr int kNanNull = 16;    // a float NaN is null (flag set, field 0)
+constexpr int kNarrow = 32;     // an integer field is value - kmin in width bits
+
 struct WordKey {
   const void* data;
   const uint8_t* mask;  // null: every row valid (True = valid)
   int code;             // a dtype code of bin_keys.cuh
+  int opts;             // kFlag | kNoValue | kDesc | kNullsFirst | kNanNull | kNarrow
+  int width;            // the field's bits
+  long long kmin;       // kNarrow's offset
 };
 
 struct WordParams {
@@ -368,9 +388,32 @@ __device__ __forceinline__ unsigned long long key_field(int code, const void* da
   }
 }
 
+// An integer key's value as a signed 64-bit integer (bool and uint8 as
+// their unsigned value).
+__device__ __forceinline__ long long key_int(int code, const void* data, long long r) {
+  switch (code) {
+    case kBool: case kU8: return __ldg(static_cast<const unsigned char*>(data) + r);
+    case kI8: return __ldg(static_cast<const signed char*>(data) + r);
+    case kI16: return __ldg(static_cast<const short*>(data) + r);
+    case kI32: return __ldg(static_cast<const int*>(data) + r);
+    default: return __ldg(static_cast<const long long*>(data) + r);
+  }
+}
+
+__device__ __forceinline__ bool key_isnan(int code, const void* data, long long r) {
+  if (code == kF32) return isnan(__ldg(static_cast<const float*>(data) + r));
+  if (code == kF64) return isnan(__ldg(static_cast<const double*>(data) + r));
+  return false;
+}
+
+__host__ __device__ inline unsigned long long low_mask(int width) {
+  return width >= 64 ? ~0ull : (1ull << width) - 1ull;
+}
+
 // One row a thread, grid-stride: the fields most significant first ("not
-// real", then per key its null flag and its field, zero where null), then
-// the word's top bit flipped so a signed sort orders it as unsigned.
+// real", then per key its null flag and its field, zero where null, each
+// as its options say), then the word's top bit flipped so a signed sort
+// orders it as unsigned.
 __global__ void __launch_bounds__(kThreads) sort_word_kernel(const __grid_constant__ WordParams p) {
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x; r < p.n; r += stride) {
@@ -379,14 +422,23 @@ __global__ void __launch_bounds__(kThreads) sort_word_kernel(const __grid_consta
       u = p.row_valid != nullptr ? __ldg(p.row_valid + r) == 0 : r >= p.nrows;
     for (int k = 0; k < p.nkeys; ++k) {
       const WordKey& key = p.key[k];
-      bool valid = true;
-      if (key.mask != nullptr) {
-        valid = __ldg(key.mask + r) != 0;
-        u = (u << 1) | (valid ? 0ull : 1ull);
+      const int opts = key.opts;
+      bool null = key.mask != nullptr && __ldg(key.mask + r) == 0;
+      unsigned long long f = 0;
+      if (!null) {
+        if (opts & kNarrow) {
+          f = ((unsigned long long)key_int(key.code, key.data, r) -
+               (unsigned long long)key.kmin) & low_mask(key.width);
+        } else if ((opts & kNanNull) && key_isnan(key.code, key.data, r)) {
+          null = true;
+        } else {
+          f = key_field(key.code, key.data, r);
+        }
       }
-      const int bits = field_bits(key.code);
-      const unsigned long long f = valid ? key_field(key.code, key.data, r) : 0ull;
-      u = bits == 64 ? f : (u << bits) | f;
+      if (opts & kDesc) f = ~f & low_mask(key.width);
+      if (null) f = 0;
+      if (opts & kFlag) u = (u << 1) | (null != ((opts & kNullsFirst) != 0) ? 1ull : 0ull);
+      if (!(opts & kNoValue)) u = key.width == 64 ? f : (u << key.width) | f;
     }
     if (p.wide)
       static_cast<long long*>(p.word)[r] = (long long)(u ^ (1ull << 63));
@@ -815,24 +867,36 @@ extern "C" int fugue_sort_finish(long long n, const void* seg_sorted,
   });
 }
 
-// KW. Keys: nkeys columns of n rows, key_data[k] of dtype code
-// key_code[k] (bin_keys.cuh) with an optional bool mask key_mask[k]; rows
-// as for K1, and with unreal = 1 the word's top field marks the rows that
-// are not real. The fields (1 bit per mask and for unreal, 1 for bool, 8,
-// 16, 32 or 64 for the others) must fit the word: int32 (wide = 0) or
-// int64 (wide = 1). Writes word[n].
+// KW, in its factorize mode and its presort mode (K11). Keys: nkeys
+// columns of n rows, key_data[k] of dtype code key_code[k] (bin_keys.cuh)
+// with an optional bool mask key_mask[k], its options key_opts[k]
+// (kFlag, kNoValue, kDesc, kNullsFirst, kNanNull, kNarrow), the width of
+// its field key_width[k] and kNarrow's offset key_kmin[k]; kNarrow takes
+// integer and bool keys only, and an unnarrowed field is the dtype's
+// (1 for bool, 8, 16, 32 or 64). The factorize mode is kFlag where a key
+// has a mask and nothing else. Rows as for K1, and with unreal = 1 the
+// word's top field marks the rows that are not real; no key at all
+// (nkeys = 0) takes unreal = 1: the word is then the "not real" bit
+// alone. The fields must fit the word: int32 (wide = 0) or int64 (wide =
+// 1). Writes word[n].
 extern "C" int fugue_sort_word(long long n, long long nrows, const void* row_valid,
                                int unreal, int nkeys, const void* const* key_data,
                                const void* const* key_mask, const int* key_code,
-                               int wide, void* word, int device, void* stream) {
-  if (n < 1 || n >= (1LL << 31) || nkeys < 1 || nkeys > kMaxWordKeys)
+                               const int* key_opts, const int* key_width,
+                               const long long* key_kmin, int wide, void* word, int device,
+                               void* stream) {
+  if (n < 1 || n >= (1LL << 31) || nkeys < 0 || nkeys > kMaxWordKeys || (nkeys == 0 && !unreal))
     return (int)cudaErrorInvalidValue;
   WordParams p = {};
   int bits = unreal ? 1 : 0;
   for (int k = 0; k < nkeys; ++k) {
-    if (key_code[k] < kBool || key_code[k] > kF64) return (int)cudaErrorInvalidValue;
-    p.key[k] = {key_data[k], static_cast<const uint8_t*>(key_mask[k]), key_code[k]};
-    bits += field_bits(key_code[k]) + (key_mask[k] != nullptr ? 1 : 0);
+    const int code = key_code[k], opts = key_opts[k], width = key_width[k];
+    if (code < kBool || code > kF64 || ((opts & kNarrow) && code > kI64) ||
+        (!(opts & kNarrow) && width != field_bits(code)) || width < 0 || width > 64)
+      return (int)cudaErrorInvalidValue;
+    p.key[k] = {key_data[k], static_cast<const uint8_t*>(key_mask[k]), code, opts, width,
+                key_kmin[k]};
+    bits += ((opts & kFlag) ? 1 : 0) + ((opts & kNoValue) ? 0 : width);
   }
   if (bits > (wide ? 64 : 32)) return (int)cudaErrorInvalidValue;
   p.n = n;

@@ -5,6 +5,9 @@ PyTorch's current stream.
 - ``bin_factorize_cuda`` (K1): segment ids, first row per bin, occupied
   bins and the group count of a binned key set;
 - ``sort_word_cuda`` (KW): one order-preserving sort word per row;
+- ``presort_word_cuda`` (K11, KW's presort mode): the same with keys
+  descending, nulls first, NaN as null and fields narrowed to a known
+  range, for ``take``'s presort and partitions;
 - ``sort_word_boundaries_cuda`` (K2w): from the sorted words and the
   sort's order, the sorted segment ids, each group's word and first row,
   and the group count;
@@ -32,9 +35,13 @@ from fugue_tpu_torch.kernels.reference import (
     MAX_KEYS,
     BinKey,
     Payload,
+    PresortKey,
     SortWord,
     bin_total,
     has_unreal_rows,
+    key_field_bits,
+    key_has_flag,
+    presort_bits,
     real_below,
     word_bits,
 )
@@ -51,6 +58,8 @@ _CODES = {
 }
 _WORD_CODES = {**_CODES, torch.float32: 6, torch.float64: 7}
 _WORD_DTYPES = (torch.int32, torch.int64)
+# K11's key options (factorize.cu)
+_FLAG, _NO_VALUE, _DESC, _NULLS_FIRST, _NAN_NULL, _NARROW = 1, 2, 4, 8, 16, 32
 _CODE_DTYPES = {4: (torch.int32, torch.float32), 8: (torch.int64, torch.float64)}
 
 
@@ -75,6 +84,7 @@ def _bind() -> ctypes.CDLL:
         lib.fugue_sort_word.argtypes = [
             ll, ll, p, i,  # n, nrows, row_valid, unreal
             i, pp, pp, ip,  # nkeys, key data, masks, codes
+            ip, ip, llp,  # options, widths, kmin
             i, p, i, p,  # wide, word, device, stream
         ]
         lib.fugue_sort_word_boundaries.argtypes = [
@@ -87,8 +97,7 @@ def _bind() -> ctypes.CDLL:
             i, p, ip,  # device, stream, path
         ]
         for fn in (lib.fugue_bin_factorize, lib.fugue_sort_boundaries, lib.fugue_sort_finish,
-                   lib.fugue_sort_word, lib.fugue_sort_word_boundaries,
-                   lib.fugue_sort_word_lookup):
+                   lib.fugue_sort_word, lib.fugue_sort_word_boundaries, lib.fugue_sort_word_lookup):
             fn.restype = i
         lib.fugue_factorize_error_string.argtypes = [i]
         lib.fugue_factorize_error_string.restype = ctypes.c_char_p
@@ -278,6 +287,30 @@ def _check_aligned16(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} is not 16-byte aligned: the kernel reads it in 16-byte vectors")
 
 
+def _launch_word(keys: Sequence[PresortKey], n: int, device: torch.device, unreal: bool,
+                 nrows_arg: int, row_valid: Optional[torch.Tensor], what: str) -> torch.Tensor:
+    """One KW launch over checked ``keys``: the int32 or int64 word."""
+    bits = presort_bits(keys, unreal)
+    if bits > 64:
+        raise ValueError(f"the keys take {bits} bits: a sort word holds 64")
+    wide = bits > 32
+    word = torch.empty((n,), dtype=torch.int64 if wide else torch.int32, device=device)
+    m = max(len(keys), 1)
+    lib = _bind()
+    index, stream = _device_and_stream(device)
+    err = lib.fugue_sort_word(
+        n, max(nrows_arg, 0), None if row_valid is None or not unreal else row_valid.data_ptr(),
+        int(unreal), len(keys), _ptrs([k.values for k in keys]), _ptrs([k.mask for k in keys]),
+        (ctypes.c_int * m)(*[_WORD_CODES[k.values.dtype] for k in keys]),
+        (ctypes.c_int * m)(*[_presort_opts(k) for k in keys]),
+        (ctypes.c_int * m)(*[key_field_bits(k) for k in keys]),
+        (ctypes.c_longlong * m)(*[int(k.kmin or 0) for k in keys]),
+        int(wide), word.data_ptr(), index, stream,
+    )
+    _raise_on(lib, err, what)
+    return word
+
+
 def sort_word_cuda(
     keys: Sequence[Payload],
     *,
@@ -287,7 +320,8 @@ def sort_word_cuda(
     """KW, with the contract of ``reference.sort_word_reference``: the
     sort word of ``keys`` (each dense 1-D CUDA values of bool, uint8,
     int8-64 or float32/64 and an optional dense bool mask), int32 when
-    its fields fit 32 bits, int64 when they fit 64; raises over 64 bits."""
+    its fields fit 32 bits, int64 when they fit 64; raises over 64 bits.
+    The presort mode with every option at its default."""
     if not 1 <= len(keys) <= MAX_WORD_KEYS:
         raise ValueError(f"{len(keys)} keys: the kernel takes 1 to {MAX_WORD_KEYS}")
     _require_cuda(keys[0][0], "sort_word_cuda")
@@ -300,24 +334,72 @@ def sort_word_cuda(
             _check(mask, f"key {j} mask", (torch.bool,), n, device)
     unreal = has_unreal_rows(n, nrows, row_valid)
     bits = word_bits(keys, unreal)
-    if bits > 64:
-        raise ValueError(f"the keys take {bits} bits: a sort word holds 64")
-    wide = bits > 32
-    word = torch.empty((n,), dtype=torch.int64 if wide else torch.int32, device=device)
-    lib = _bind()
-    index, stream = _device_and_stream(device)
-    err = lib.fugue_sort_word(
-        n, max(nrows_arg, 0), None if row_valid is None else row_valid.data_ptr(), int(unreal),
-        len(keys), _ptrs([v for v, _ in keys]), _ptrs([m for _, m in keys]),
-        (ctypes.c_int * len(keys))(*[_WORD_CODES[v.dtype] for v, _ in keys]),
-        int(wide), word.data_ptr(), index, stream,
-    )
-    _raise_on(lib, err, "sort_word")
+    word = _launch_word([PresortKey(v, mask) for v, mask in keys], n, device, unreal,
+                        nrows_arg, row_valid, "sort_word")
     sort_word_cuda.launches += 1
     return SortWord(word, real_below(bits) if unreal else None)
 
 
 sort_word_cuda.launches = 0  # type: ignore[attr-defined]
+
+
+def _presort_opts(k: PresortKey) -> int:
+    opts = 0
+    if k.flag and key_has_flag(k):
+        opts |= _FLAG
+    if not k.value:
+        opts |= _NO_VALUE
+    if k.desc:
+        opts |= _DESC
+    if k.nulls_first:
+        opts |= _NULLS_FIRST
+    if k.nan_is_null:
+        opts |= _NAN_NULL
+    if k.kmin is not None:
+        opts |= _NARROW
+    return opts
+
+
+def presort_word_cuda(
+    keys: Sequence[PresortKey],
+    *,
+    unreal: bool = False,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K11, KW's presort mode, with the contract of
+    ``reference.presort_word_reference``: the int32 or int64 word of
+    ``keys`` (each dense 1-D CUDA values, an optional dense bool mask, a
+    narrowed field only on an integer or bool key), the rows as ``nrows``
+    or ``row_valid`` where ``unreal``. Raises over 64 bits, on anything
+    else the kernel does not take, on a failed build and on a refused
+    launch."""
+    if len(keys) > MAX_WORD_KEYS or (not keys and not unreal):
+        raise ValueError(f"{len(keys)} keys: the kernel takes 0 to {MAX_WORD_KEYS}, "
+                         "and 0 only with the unreal flag")
+    first = keys[0].values if keys else row_valid
+    if first is None:
+        raise ValueError("a word of no key needs the rows as a row_valid tensor")
+    _require_cuda(first, "presort_word_cuda")
+    device = first.device
+    n = int(first.shape[0])
+    nrows_arg = 0
+    if unreal:
+        nrows_arg = _check_rows(n, nrows, row_valid, device)
+    elif not 1 <= n < 2**31:
+        raise ValueError(f"{n} rows: the kernels take 1 to 2^31 - 1")
+    for j, k in enumerate(keys):
+        _check(k.values, f"key {j}", tuple(_WORD_CODES), n, device)
+        if k.mask is not None:
+            _check(k.mask, f"key {j} mask", (torch.bool,), n, device)
+        if k.kmin is not None and (k.values.is_floating_point() or not 0 <= k.bits <= 64):
+            raise ValueError(f"key {j}: a narrowed field takes an integer key and 0 to 64 bits")
+    word = _launch_word(keys, n, device, unreal, nrows_arg, row_valid, "presort_word")
+    presort_word_cuda.launches += 1
+    return word
+
+
+presort_word_cuda.launches = 0  # type: ignore[attr-defined]
 
 
 def _limit_args(words: torch.Tensor, limit: Optional[int]) -> Tuple[int, int]:

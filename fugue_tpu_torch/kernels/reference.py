@@ -1,6 +1,6 @@
 """Plain PyTorch twins of the port's CUDA kernels (``segment_sums.cu``,
 ``factorize.cu``, ``segment_reduce.cu``, ``expr_program.cu``, ``join.cu``,
-``gather.cu``): the CPU path, and the oracle each kernel is held against
+``gather.cu``, ``row_select.cu``): the CPU path, and the oracle each kernel is held against
 on the card."""
 
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
@@ -356,6 +356,115 @@ def _word_field(v: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return torch.where(torch.isnan(v), -1, f), width
 
 
+class PresortKey(NamedTuple):
+    """One key of KW's presort mode (K11), and of its factorize mode with
+    every option at its default.
+
+    - ``values``, ``mask``: the key's values (bool, uint8, int8-64,
+      float32/64) and null mask (True = valid; None: every row valid);
+    - ``desc``: the field inverted, so that one ascending sort orders the
+      key descending with ties kept in the order of the less significant
+      fields;
+    - ``nulls_first``: the null flag inverted (nulls before the values);
+    - ``nan_is_null``: a float NaN is null (its flag set, its field 0), as
+      the JAX package's ``_sort_code_columns`` has it; else NaN is its own
+      value above +inf, as the group-by has it;
+    - ``kmin``: where given, an integer key's field is ``value - kmin`` in
+      ``bits`` bits (a range known from the column's stats, or the type's
+      own), else the dtype's natural field (``_word_field``, whose int64
+      field orders as the group-by's codes, low word first, not by value);
+    - ``flag``, ``value``: whether the word holds this key's null flag and
+      its field; a key wider than what is left of a word puts its flag at
+      the end of one word and its field in the next."""
+
+    values: torch.Tensor
+    mask: Optional[torch.Tensor] = None
+    desc: bool = False
+    nulls_first: bool = False
+    nan_is_null: bool = False
+    kmin: Optional[int] = None
+    bits: int = 0
+    flag: bool = True
+    value: bool = True
+
+
+def key_has_flag(k: PresortKey) -> bool:
+    """Whether the key has a null flag: a mask, or NaN read as null."""
+    return k.mask is not None or (k.nan_is_null and k.values.is_floating_point())
+
+
+def key_field_bits(k: PresortKey) -> int:
+    """The width of the key's value field: ``bits`` where narrowed, else
+    its dtype's (``_FIELD_BITS``)."""
+    if k.values.dtype not in _FIELD_BITS:
+        raise ValueError(f"no sort word field for dtype {k.values.dtype}")
+    return int(k.bits) if k.kmin is not None else _FIELD_BITS[k.values.dtype]
+
+
+def presort_bits(keys: Sequence[PresortKey], unreal: bool) -> int:
+    """The bits of the word of ``keys``: 1 for ``unreal``, and per key its
+    flag and its field where the word holds them."""
+    return int(unreal) + sum((k.flag and key_has_flag(k)) + (key_field_bits(k) if k.value else 0)
+                             for k in keys)
+
+
+def _low_mask(width: int) -> int:
+    return -1 if width >= 64 else (1 << width) - 1
+
+
+def presort_word_reference(
+    keys: Sequence[PresortKey],
+    *,
+    unreal: bool = False,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The sort word of ``keys``: the twin of KW's presort mode (K11) in
+    ``factorize.cu``, the order of the JAX package's ``_stable_sort_order``
+    (``fugue_tpu/jax_backend/relational.py:1265``) over the codes of
+    ``_sort_code_columns`` (``:1234``).
+
+    The fields, most significant first: "not real" where ``unreal`` (the
+    rows as ``nrows`` or ``row_valid``), then per key its null flag (where
+    it has one: set on a null, inverted under ``nulls_first``) and its
+    field (zero where null, inverted under ``desc``). A signed sort of the
+    word orders the rows by the fields as unsigned numbers, which is that
+    loop's order: each key ascending or descending, its nulls first or
+    last, ties in the order of the next key. Returns int32 words when the
+    fields take at most 32 bits, int64 at most 64; raises ``ValueError``
+    over 64."""
+    if keys:
+        n, device = int(keys[0].values.shape[0]), keys[0].values.device
+    elif unreal and row_valid is not None:
+        n, device = int(row_valid.shape[0]), row_valid.device
+    else:
+        raise ValueError("a sort word of no key takes the unreal flag and a row_valid tensor")
+    bits = presort_bits(keys, unreal)
+    if bits > 64:
+        raise ValueError(f"the keys take {bits} bits: a sort word holds 64")
+    u = torch.zeros((n,), dtype=torch.int64, device=device)
+    if unreal:
+        u = (~materialize_validity(row_valid, n, nrows, device)).to(torch.int64)
+    for k in keys:
+        v = k.values
+        null = torch.zeros((n,), dtype=torch.bool, device=device) if k.mask is None else ~k.mask
+        if k.nan_is_null and v.is_floating_point():
+            null = null | torch.isnan(v)
+        width = key_field_bits(k)
+        if k.kmin is not None:
+            f = (v.to(torch.int64) - int(k.kmin)) & _low_mask(width)
+        else:
+            f = _word_field(v)[0]
+        if k.desc:
+            f = ~f & _low_mask(width)
+        f = torch.where(null, 0, f)
+        if k.flag and key_has_flag(k):
+            u = (u << 1) | (null ^ k.nulls_first).to(torch.int64)
+        if k.value:
+            u = f if width == 64 else (u << width) | f
+    return (u - 2**31).to(torch.int32) if bits <= 32 else u ^ _INT64_TOP
+
+
 def sort_word_reference(
     keys: Sequence[Payload],
     *,
@@ -370,25 +479,17 @@ def sort_word_reference(
     mask (True = valid). The fields, most significant first: "not real"
     where the frame may hold such rows (``has_unreal_rows``), then per key
     its null flag (a masked key) and its field (``_word_field``), zero
-    where null. The word is an int32 when the fields take at most 32 bits,
-    an int64 at most 64, with its top bit flipped so that a signed sort
+    where null: ``presort_word_reference`` with every option at its
+    default. The word is an int32 when the fields take at most 32 bits, an
+    int64 at most 64, with its top bit flipped so that a signed sort
     orders it as unsigned. Raises ``ValueError`` over 64 bits."""
     n = int(keys[0][0].shape[0])
-    device = keys[0][0].device
     unreal = has_unreal_rows(n, nrows, row_valid)
     bits = word_bits(keys, unreal)
     if bits > 64:
         raise ValueError(f"the keys take {bits} bits: a sort word holds 64")
-    u = torch.zeros((n,), dtype=torch.int64, device=device)
-    if unreal:
-        u = (~materialize_validity(row_valid, n, nrows, device)).to(torch.int64)
-    for v, mask in keys:
-        f, width = _word_field(v)
-        if mask is not None:
-            u = (u << 1) | (~mask).to(torch.int64)
-            f = torch.where(mask, f, 0)
-        u = f if width == 64 else (u << width) | f
-    word = (u - 2**31).to(torch.int32) if bits <= 32 else u ^ _INT64_TOP
+    word = presort_word_reference([PresortKey(v, m) for v, m in keys], unreal=unreal,
+                                  nrows=nrows, row_valid=row_valid)
     return SortWord(word, real_below(bits) if unreal else None)
 
 
@@ -965,3 +1066,130 @@ def gather_rows_reference(
             om = hit
         out.append((v, om))
     return out
+
+
+# --- row selection: K12 rank_keep, K13 first_row_mask, K14 null_count_keep ---
+
+RANK_MODES = ("lt", "ge")
+FIRST_ROW_MODES = ("all", "hit", "miss")
+DROPNA_HOWS = ("any", "all")
+
+
+def rank_keep_reference(
+    order: torch.Tensor,
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    seg: Optional[torch.Tensor] = None,
+    starts: Optional[torch.Tensor] = None,
+    limit: Optional[torch.Tensor] = None,
+    limits: Optional[torch.Tensor] = None,
+    mode: str = "lt",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The twin of K12 in ``row_select.cu``: keep flags by rank.
+
+    ``order`` (int64 [n], a permutation of the rows, as ``torch.sort``
+    gives it) lists the rows in sorted order; the row at sorted position
+    ``i`` has rank ``i - starts[seg[row]]`` within its segment (``seg``
+    int32 [n] in row order, ``starts`` int64 [S] each segment's first
+    sorted position), or ``i`` where ``seg`` is None. It is kept where it is
+    real (``nrows`` or ``row_valid``), its segment lies in ``[0, S)``, and
+    its rank is below (``mode="lt"``) or at least (``"ge"``) its limit:
+    ``limits[seg[row]]`` (int32 [S]) or the one ``limit`` (a 0-d int64
+    device tensor). Returns ``(keep bool[n] in row order, count int32
+    0-d)``: ``device_take``'s ``local < n``
+    (``fugue_tpu/jax_backend/relational.py:1348-1361``), INTERSECT ALL's
+    and EXCEPT ALL's ordinal against ``c2[seg]`` (``:1072-1084``),
+    ``device_sample``'s k smallest priorities (``:2196-2206``)."""
+    if mode not in RANK_MODES:
+        raise ValueError(f"rank mode {mode!r}: one of {RANK_MODES}")
+    if (limit is None) == (limits is None):
+        raise ValueError("pass exactly one of limit (one scalar) and limits (one per segment)")
+    if (seg is None) != (starts is None) or (limits is not None and seg is None):
+        raise ValueError("seg and starts go together, and limits needs them")
+    n = int(order.shape[0])
+    device = order.device
+    real = materialize_validity(row_valid, n, nrows, device).index_select(0, order)
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    if seg is not None:
+        num = int(starts.shape[0])  # type: ignore[union-attr]
+        s = seg.index_select(0, order).to(torch.int64)
+        real = real & (s >= 0) & (s < num)
+        s = s.clamp(0, max(num - 1, 0))
+        pos = pos - starts.index_select(0, s)  # type: ignore[union-attr]
+        lim = (limits.index_select(0, s).to(torch.int64) if limits is not None
+               else limit.to(torch.int64))  # type: ignore[union-attr]
+    else:
+        lim = limit.to(torch.int64)  # type: ignore[union-attr]
+    kept = real & (pos >= lim if mode == "ge" else pos < lim)
+    keep = torch.zeros((n,), dtype=torch.bool, device=device)
+    keep[order] = kept
+    return keep, kept.sum(dtype=torch.int32)
+
+
+def first_row_mask_reference(
+    first_idx: torch.Tensor,
+    n: int,
+    *,
+    occupied: Optional[torch.Tensor] = None,
+    counts: Optional[torch.Tensor] = None,
+    mode: str = "all",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The twin of K13 in ``row_select.cu``: a mask over ``n`` rows with
+    each segment's first row set, where the segment is occupied
+    (``occupied`` bool [S]; None: every segment), its first row lies in
+    ``[0, n)`` (``first_idx`` int32 [S]) and its predicate holds:
+    ``"all"`` (``_distinct_prog``,
+    ``fugue_tpu/jax_backend/execution_engine.py:1854-1867``), ``"hit"``
+    (``counts[g] > 0``: INTERSECT DISTINCT) or ``"miss"`` (``counts[g] ==
+    0``: EXCEPT DISTINCT; ``relational.py:1061-1071``). Returns ``(keep
+    bool[n], count int32 0-d)``."""
+    if mode not in FIRST_ROW_MODES:
+        raise ValueError(f"first-row mode {mode!r}: one of {FIRST_ROW_MODES}")
+    if (mode == "all") != (counts is None):
+        raise ValueError("counts go with the hit and miss modes only")
+    f = first_idx.to(torch.int64)
+    ok = (f >= 0) & (f < n)
+    if occupied is not None:
+        ok = ok & occupied
+    if mode != "all":
+        ok = ok & ((counts > 0) if mode == "hit" else (counts == 0))  # type: ignore[operator]
+    keep = torch.zeros((n,), dtype=torch.bool, device=first_idx.device)
+    keep[f[ok]] = True
+    return keep, ok.sum(dtype=torch.int32)
+
+
+def null_count_keep_reference(
+    masks: Sequence[torch.Tensor],
+    ncols: int,
+    n: int,
+    *,
+    nrows: Optional[int] = None,
+    row_valid: Optional[torch.Tensor] = None,
+    how: str = "any",
+    thresh: Optional[int] = None,
+    device: Optional[torch.device] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The twin of K14 in ``row_select.cu`` (``_dropna_prog``,
+    ``fugue_tpu/jax_backend/execution_engine.py:1906-1925``): each row's
+    valid count over ``ncols`` columns, of which ``masks`` (bool [n]
+    each, True = valid) are the ones with nulls; keep the real rows whose
+    count is at least ``thresh`` where given, else all ``ncols``
+    (``how="any"``) or above 0 (``"all"``). Returns ``(keep bool[n],
+    count int32 0-d)``."""
+    if how not in DROPNA_HOWS:
+        raise ValueError(f"dropna how {how!r}: one of {DROPNA_HOWS}")
+    if device is None:
+        device = masks[0].device if masks else (
+            row_valid.device if row_valid is not None else torch.device("cpu"))
+    valid = torch.full((n,), ncols - len(masks), dtype=torch.int32, device=device)
+    for m in masks:
+        valid = valid + m.to(torch.int32)
+    if thresh is not None:
+        keep = valid >= thresh
+    elif how == "any":
+        keep = valid == ncols
+    else:
+        keep = valid > 0
+    keep = keep & materialize_validity(row_valid, n, nrows, device)
+    return keep, keep.sum(dtype=torch.int32)

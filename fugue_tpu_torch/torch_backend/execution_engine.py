@@ -22,7 +22,12 @@ String columns are int32 dictionary codes on the card with their
 decode table on the host: they pass through transformers (``_<name>_dict``
 beside the codes), group by code, join after one re-coding of the right
 side's key, and take part in expressions as table gathers; timestamps and
-dates are their int64 microseconds and int32 days.
+dates are their int64 microseconds and int32 days. ``union``,
+``intersect``, ``subtract``, ``distinct``, ``dropna``, ``fillna``,
+``take`` and ``sample`` (without replacement) flip a frame's row
+validity with a lazy count (``relational.py``: K12-K14 and the presort
+words of K11), or fill its columns in one K6 launch; ``repartition`` and
+``sample`` with replacement gather rows through K10 (``gather_indices``).
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``, and
 then every kernel runs as its plain PyTorch twin. Paths the port does not
@@ -43,7 +48,12 @@ import pandas as pd
 import pyarrow as pa
 import torch
 
-from fugue_tpu_torch.collections.partition import PartitionSpec
+from fugue_tpu_torch.collections.partition import (
+    KEYWORD_CONCURRENCY,
+    KEYWORD_ROWCOUNT,
+    PartitionSpec,
+    parse_presort_exp,
+)
 from fugue_tpu_torch.column.expressions import (
     VARIANCE_FUNCS,
     ColumnExpr,
@@ -59,6 +69,7 @@ from fugue_tpu_torch.torch_backend.blocks import (
     TorchColumn,
     blocks_with_columns,
     from_arrow,
+    gather_indices,
     is_string_type,
     keeps_stats,
     padded_len,
@@ -420,7 +431,7 @@ class TorchExecutionEngine:
         with the sides swapped and the columns reordered. Null keys never
         match. A frame on another device or a column the card cannot hold
         raises ``NotImplementedError`` and counts in ``fallbacks``."""
-        t1, t2 = self._join_input(df1), self._join_input(df2)
+        t1, t2 = self._input("join", df1), self._input("join", df2)
         hownorm = normalize_join_type(how)
         key_schema, output_schema = get_join_schemas(t1, t2, hownorm, on)
         keys = list(key_schema.names)
@@ -440,19 +451,177 @@ class TorchExecutionEngine:
         self._count_strategy(route)
         return TorchDataFrame(out, output_schema)
 
-    def _join_input(self, df: Any) -> TorchDataFrame:
-        """``to_df`` of a join side. A frame on another device (a join
+    def _input(self, op: str, df: Any) -> TorchDataFrame:
+        """``to_df`` of an input of ``op``. A frame on another device (work
         across devices, ROADMAP.md queue 1 item 12) and a column type the
         card does not hold (``to_df`` raises for uint16-64 and float16,
-        queue 1 item 1) count in ``fallbacks`` as a refused join."""
+        queue 1 item 1) count in ``fallbacks`` as a refused ``op``."""
         if isinstance(df, TorchDataFrame) and df.device != self.device:
-            self._unported("join", f"a join of a frame on {df.device} on an engine on "
+            self._unported(op, f"{op} of a frame on {df.device} on an engine on "
                            f"{self.device}", "ROADMAP.md queue 1 item 12")
         try:
             return self.to_df(df)
         except NotImplementedError:
-            self._fallbacks["join"] = self._fallbacks.get("join", 0) + 1
+            self._fallbacks[op] = self._fallbacks.get(op, 0) + 1
             raise
+
+    def union(self, df1: Any, df2: Any, distinct: bool = True) -> TorchDataFrame:
+        """``:1790``: the rows of both frames (string columns in one
+        dictionary, ``union_all_blocks``), then ``distinct`` unless
+        ``distinct=False``. The schemas must be equal."""
+        t1, t2 = self._input("union", df1), self._input("union", df2)
+        assert_or_throw(t1.schema == t2.schema,
+                        ValueError(f"union schema mismatch {t1.schema} vs {t2.schema}"))
+        out = TorchDataFrame(relational.union_all_blocks(t1.blocks, t2.blocks), t1.schema)
+        return self.distinct(out) if distinct else out
+
+    def subtract(self, df1: Any, df2: Any, distinct: bool = True) -> TorchDataFrame:
+        """``:1806``: EXCEPT [ALL] (``_set_op``)."""
+        return self._set_op(df1, df2, distinct, subtract=True)
+
+    def intersect(self, df1: Any, df2: Any, distinct: bool = True) -> TorchDataFrame:
+        """``:1811``: INTERSECT [ALL] (``_set_op``)."""
+        return self._set_op(df1, df2, distinct, subtract=False)
+
+    def _set_op(self, df1: Any, df2: Any, distinct: bool, subtract: bool) -> TorchDataFrame:
+        """``:1816``: the rows of ``df1`` whose whole row (nulls equal) is
+        (INTERSECT) or is not (EXCEPT) among ``df2``'s, each once where
+        ``distinct``, else as a multiset
+        (``relational.intersect_subtract``): ``df1``'s columns with their
+        validity flipped and the count lazy. The schemas must be equal."""
+        name = "subtract" if subtract else "intersect"
+        t1, t2 = self._input(name, df1), self._input(name, df2)
+        assert_or_throw(t1.schema == t2.schema,
+                        ValueError(f"{name} schema mismatch {t1.schema} vs {t2.schema}"))
+        out = relational.intersect_subtract(t1.blocks, t2.blocks, t1.schema.names, subtract,
+                                            distinct=distinct)
+        return TorchDataFrame(out, t1.schema)
+
+    def distinct(self, df: Any) -> TorchDataFrame:
+        """``:1843``: the factorization of every column
+        (``groupby.factorize_keys``: K1 where they bin, else the sort
+        path), then K13 keeps each group's first row: the frame's validity
+        flipped, the count lazy, no gather. A frame known to be empty is
+        returned as it is."""
+        tdf = self._input("distinct", df)
+        blocks = tdf.blocks
+        if blocks.nrows_known and blocks.nrows == 0:
+            return tdf
+        fr = groupby.factorize_keys(blocks, tdf.schema.names)
+        keep, count = relational.first_rows(fr.first_idx, blocks.padded_nrows,
+                                            occupied=fr.occupied)
+        return TorchDataFrame(relational.keep_rows(blocks, keep, count), tdf.schema)
+
+    def dropna(self, df: Any, how: str = "any", thresh: Optional[int] = None,
+               subset: Optional[List[str]] = None) -> TorchDataFrame:
+        """``:1886``: the rows with every (``how="any"``) or any
+        (``"all"``) column of ``subset`` (default: all) valid, or at least
+        ``thresh`` of them, by one launch of K14 over their masks; the
+        count lazy."""
+        tdf = self._input("dropna", df)
+        blocks = tdf.blocks
+        assert_or_throw(how in ("any", "all"), ValueError(f"invalid dropna how {how!r}"))
+        names = list(subset) if subset is not None else tdf.schema.names
+        for n in names:
+            assert_or_throw(n in blocks.columns, KeyError(f"{n} not in {tdf.schema}"))
+        masks = {n: blocks.columns[n].mask for n in names if blocks.columns[n].mask is not None}
+        keep, count = relational.null_count_keep(blocks, list(masks.values()), len(names), how,
+                                                 thresh)
+        return TorchDataFrame(relational.keep_rows(blocks, keep, count), tdf.schema)
+
+    def fillna(self, df: Any, value: Any, subset: Optional[List[str]] = None) -> TorchDataFrame:
+        """``:1948``: nulls (and a float column's NaN) filled with
+        ``value``, or per column with a dict's values, in one K6 launch
+        (``relational.device_fillna``); the filled columns drop their
+        masks. A value the column cannot hold exactly (2.5 into an
+        integer column), which the JAX package answers on its host engine,
+        raises naming ROADMAP.md queue 1 item 2(b)."""
+        assert_or_throw(
+            not isinstance(value, dict) or all(v is not None for v in value.values()),
+            ValueError("fillna dict can't contain None"),
+        )
+        assert_or_throw(value is not None, ValueError("fillna value can't be None"))
+        tdf = self._input("fillna", df)
+        blocks = tdf.blocks
+        if isinstance(value, dict):
+            fills: Dict[str, Any] = dict(value)
+        elif subset is not None:
+            fills = {c: value for c in subset}
+        else:
+            fills = {c: value for c in tdf.schema.names}
+        targets = {n: v for n, v in fills.items() if n in blocks.columns}
+        res = relational.device_fillna(blocks, targets)
+        if res is None:
+            self._unported("fillna", f"a fill value ({value!r}) that a column cannot hold "
+                           "exactly", _HOST_ENGINE)
+        return TorchDataFrame(res, tdf.schema)  # type: ignore[arg-type]
+
+    def sample(self, df: Any, n: Optional[int] = None, frac: Optional[float] = None,
+               replace: bool = False, seed: Optional[int] = None) -> TorchDataFrame:
+        """``:1982``: without replacement, exactly ``min(n, rows)`` or
+        ``min(round(rows * frac), rows)`` rows kept in their place, the
+        same rows for the same seed (``relational.device_sample``); with
+        replacement, the JAX package's host draw (``:2002-2015``: the real
+        rows' indices read back, ``np.random.default_rng(seed).choice``,
+        sorted), then ``gather_indices``."""
+        assert_or_throw((n is None) != (frac is None),
+                        ValueError("one and only one of n and frac must be set"))
+        tdf = self._input("sample", df)
+        blocks = tdf.blocks
+        if not replace:
+            return TorchDataFrame(relational.device_sample(blocks, n, frac, seed), tdf.schema)
+        if blocks.row_valid is not None:
+            valid_idx = np.nonzero(blocks.row_valid.cpu().numpy())[0]
+        else:
+            valid_idx = np.arange(blocks.nrows)
+        total = len(valid_idx)
+        rng = np.random.default_rng(seed)
+        count = n if n is not None else int(round(total * frac))  # type: ignore[operator]
+        idx = valid_idx[rng.choice(total, size=count, replace=True)]
+        return TorchDataFrame(gather_indices(blocks, torch.from_numpy(np.sort(idx))), tdf.schema)
+
+    def take(self, df: Any, n: int, presort: str, na_position: str = "last",
+             partition_spec: Optional[PartitionSpec] = None) -> TorchDataFrame:
+        """``:2017``: the first ``n`` rows of each partition of
+        ``partition_spec`` (or of the frame) under ``presort`` (default:
+        the spec's presort; none: row order), nulls and NaN first or last
+        by ``na_position``, kept in their place with the count lazy
+        (``relational.device_take``)."""
+        assert_or_throw(isinstance(n, int) and n >= 0,
+                        ValueError("n must be a non-negative int"))
+        assert_or_throw(na_position in ("first", "last"), ValueError("invalid na_position"))
+        tdf = self._input("take", df)
+        partition_spec = partition_spec or PartitionSpec()
+        sorts = parse_presort_exp(presort) if presort else partition_spec.presort
+        out = relational.device_take(tdf.blocks, n, sorts, na_position,
+                                     partition_spec.partition_by)
+        return TorchDataFrame(out, tdf.schema)
+
+    def repartition(self, df: Any, partition_spec: PartitionSpec) -> TorchDataFrame:
+        """``:1523``: one card holds a frame whole, so a repartition
+        reorders its rows so that contiguous even chunks are the requested
+        partitions. ``hash`` by the keys (default: every column) into
+        ``num`` partitions: the real rows ordered by ``(segment id % num,
+        segment id)``, one stable sort of a K11 word; ``rand``: the real
+        rows in a ``default_rng(42)`` permutation; both then gathered by
+        ``gather_indices``. Other algorithms, and ``hash`` into one
+        partition, return the frame as it is."""
+        tdf = self._input("repartition", df)
+        algo = partition_spec.algo
+        if algo not in ("hash", "rand"):
+            return tdf
+        blocks = tdf.blocks
+        by = [k for k in (partition_spec.partition_by or tdf.schema.names) if k in blocks.columns]
+        num = partition_spec.get_num_partitions(
+            **{KEYWORD_ROWCOUNT: lambda: blocks.nrows, KEYWORD_CONCURRENCY: lambda: 1})
+        if algo == "hash":
+            if num <= 1:
+                return tdf
+            idx = relational.hash_partition_order(blocks, by, num)
+        else:
+            vidx = np.nonzero(blocks.validity().cpu().numpy())[0]
+            idx = torch.from_numpy(vidx[np.random.default_rng(42).permutation(len(vidx))])
+        return TorchDataFrame(gather_indices(blocks, idx), tdf.schema)
 
     def aggregate(
         self,

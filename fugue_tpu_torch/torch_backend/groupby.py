@@ -41,6 +41,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from fugue_tpu_torch.column.expressions import VARIANCE_FUNCS
+from fugue_tpu_torch.kernels import kernel_for
 from fugue_tpu_torch.kernels.factorize import (
     bin_factorize_cuda,
     sort_boundaries_cuda,
@@ -85,16 +86,6 @@ _MAX_BINS = 1 << 22  # static-binning cap (``groupby.py:451``)
 # at every count; int64 words cross at 2^20 too. The bound sits below the
 # tie at 2^20.
 LOOKUP_MAX_GROUPS = 1 << 19
-
-
-def _kernel(t: torch.Tensor, cuda: Any, twin: Any, what: str) -> Any:
-    """``cuda`` (the kernel's wrapper) for a CUDA tensor, ``twin`` (its
-    plain version) for a CPU tensor; there is no fallback between them."""
-    if t.device.type == "cuda":
-        return cuda
-    if t.device.type == "cpu":
-        return twin
-    raise NotImplementedError(f"{what} on {t.device}")
 
 
 class BinSpec(NamedTuple):
@@ -240,7 +231,7 @@ def binned_sums(
     ``kernels.reference.binned_sums_reference``. CUDA keys go to the fused
     kernel, CPU keys to its plain twin; there is no fallback between
     them."""
-    run = _kernel(keys[0].data, binned_sums_cuda, binned_sums_reference, "binned sums")
+    run = kernel_for(keys[0].data, binned_sums_cuda, binned_sums_reference, "binned sums")
     return run(keys, nrows=nrows, row_valid=row_valid, floats=floats, counts=counts,
                ints=ints, occupancy=occupancy, f64=f64)
 
@@ -333,7 +324,7 @@ def bin_factorize(
     row_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 on CUDA keys, its twin ``bin_factorize_reference`` on CPU keys."""
-    run = _kernel(keys[0].data, bin_factorize_cuda, bin_factorize_reference,
+    run = kernel_for(keys[0].data, bin_factorize_cuda, bin_factorize_reference,
                   "bin factorization")
     return run(keys, nrows=nrows, row_valid=row_valid)
 
@@ -406,7 +397,7 @@ def sort_word(
     n = int(keys[0][0].shape[0])
     if word_bits(keys, has_unreal_rows(n, nrows, row_valid)) > 64:
         return None
-    build = _kernel(keys[0][0], sort_word_cuda, sort_word_reference, "sort word")
+    build = kernel_for(keys[0][0], sort_word_cuda, sort_word_reference, "sort word")
     return build(keys, nrows=nrows, row_valid=row_valid)
 
 
@@ -417,18 +408,18 @@ def word_factorize(sw: SortWord) -> Tuple[torch.Tensor, torch.Tensor, int, str]:
     or K3 over K2w's sorted ids (``"scatter"``); the kernels on CUDA, the
     twins on the CPU."""
     sorted_words, order = torch.sort(sw.word, stable=True)
-    boundaries = _kernel(order, sort_word_boundaries_cuda, sort_word_boundaries_reference,
+    boundaries = kernel_for(order, sort_word_boundaries_cuda, sort_word_boundaries_reference,
                          "sort word boundaries")
     uniq, first_idx, seg_sorted, count = boundaries(
         sorted_words, order, real_below=sw.real_below
     )
     num = int(count)  # the sort path's one readback (groupby.py:548)
     if num <= LOOKUP_MAX_GROUPS:
-        lookup = _kernel(order, sort_word_lookup_cuda, sort_word_lookup_reference,
+        lookup = kernel_for(order, sort_word_lookup_cuda, sort_word_lookup_reference,
                          "sort word lookup")
         seg = lookup(sw.word, uniq, num, real_below=sw.real_below)
         return seg, first_idx[:num].clone(), num, "lookup"
-    finish = _kernel(order, sort_finish_cuda, sort_finish_reference, "sort finish")
+    finish = kernel_for(order, sort_finish_cuda, sort_finish_reference, "sort finish")
     seg, first_idx = finish(seg_sorted, order, num)
     return seg, first_idx, num, "scatter"
 
@@ -502,7 +493,7 @@ def segment_extrema(
     """K4 on a CUDA ``seg``, its twin ``segment_extrema_reference`` on a
     CPU one: per payload its min and max over each segment, and each
     segment's first and last row."""
-    run = _kernel(seg, segment_extrema_cuda, segment_extrema_reference, "segment extrema")
+    run = kernel_for(seg, segment_extrema_cuda, segment_extrema_reference, "segment extrema")
     return run(seg, num, payloads, nrows=nrows, row_valid=row_valid, first=first, last=last)
 
 
@@ -518,7 +509,7 @@ def segment_sq_dev(
     """K5 on a CUDA ``seg``, its twin ``segment_sq_dev_reference`` on a CPU
     one: per payload the float64 sum of squared deviations from each
     segment's mean."""
-    run = _kernel(seg, segment_sq_dev_cuda, segment_sq_dev_reference, "segment sq dev")
+    run = kernel_for(seg, segment_sq_dev_cuda, segment_sq_dev_reference, "segment sq dev")
     return run(seg, num, payloads, means, nrows=nrows, row_valid=row_valid)
 
 

@@ -1,5 +1,5 @@
-"""Joins on the card: the port of the one-device join programs of
-``fugue_tpu/jax_backend/relational.py``.
+"""Joins, set operations, fillna, take and sample on the card: the port of
+the one-device programs of ``fugue_tpu/jax_backend/relational.py``.
 
 Both sides' key columns are factorized into one shared segment space
 (``shared_factorize``: the group-by's ``factorize_keys`` over the keys
@@ -27,29 +27,87 @@ groups them. A string key's two dictionaries become one before the keys
 are stacked (``harmonize_string_keys``): side 1 keeps its codes and side
 2's are re-coded by one K6 launch of a single table gather; other string
 columns ride through K10 as their int32 codes and keep their
-dictionaries. The kernels run where the tensors lie on CUDA, their plain
-twins (``kernels/reference.py``) where they lie on the CPU; there is no
-fallback between them. ``not_in_join`` waits for the SQL front end
-(ROADMAP.md queue 1 item 4), the multi-device branches for item 12.
+dictionaries.
+
+The row selections flip a frame's row validity and give it a lazy count,
+with no gather and no readback (the JAX package's mask-only programs):
+
+- **INTERSECT / EXCEPT** (``intersect_subtract``) over the shared
+  factorization of every column (nulls equal): K7 counts side 2's rows
+  a segment; DISTINCT keeps each segment's first row of side 1 where the
+  count is (INTERSECT) or is not (EXCEPT) above 0, by K13
+  ``first_row_mask``; ALL sorts side 1's segment ids (one stable
+  ``torch.sort``), counts side 1 by K7 for each segment's first sorted
+  position, and K12 ``rank_keep`` keeps the rows whose ordinal is below
+  (INTERSECT) or at least (EXCEPT) side 2's count.
+- **fillna** (``device_fillna``): every target column in one K6 launch,
+  ``COALESCE(x, v)`` with a float's NaN read as null first.
+- **take** (``device_take``): the presort's keys, and the partition's
+  segment id before them, packed into order-preserving sort words by
+  K11 (KW's presort mode), one stable ``torch.sort`` a word
+  (``presort_order``), K7's partition counts for each partition's first
+  sorted position, and K12 keeps the ranks below ``n``.
+- **sample** (``device_sample``): a seeded ``torch.randperm`` as each
+  row's priority (``len`` on rows that are not real), ``torch.sort``, and
+  K12 keeps the first ``k`` positions, ``k`` computed on the card.
+
+The kernels run where the tensors lie on CUDA, their plain twins
+(``kernels/reference.py``) where they lie on the CPU; there is no
+fallback between them. ``not_in_join``, ``device_sort`` and the window
+programs wait for the SQL front end (ROADMAP.md queue 1 item 4;
+``presort_order`` is what ``device_sort`` sorts by), the multi-device
+branches for item 12.
 """
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
+import pyarrow as pa
 import torch
 
+from fugue_tpu_torch.kernels import kernel_for
+from fugue_tpu_torch.kernels.expr_program import (
+    CODES,
+    MAX_INPUTS,
+    OP,
+    Instr,
+    Output,
+    Program,
+)
+from fugue_tpu_torch.kernels.factorize import MAX_WORD_KEYS, presort_word_cuda
 from fugue_tpu_torch.kernels.gather import gather_rows_cuda
 from fugue_tpu_torch.kernels.join import join_build_cuda, join_expand_cuda, join_probe_cuda
 from fugue_tpu_torch.kernels.reference import (
     GatherColumn,
+    PresortKey,
     Probe,
+    first_row_mask_reference,
     gather_rows_reference,
+    has_unreal_rows,
     join_build_reference,
     join_expand_reference,
     join_probe_reference,
+    key_field_bits,
+    key_has_flag,
+    null_count_keep_reference,
+    presort_word_reference,
+    rank_keep_reference,
+)
+from fugue_tpu_torch.kernels.row_select import (
+    first_row_mask_cuda,
+    null_count_keep_cuda,
+    rank_keep_cuda,
 )
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.torch_backend import expr_eval, groupby, strings
-from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, TorchColumn, padded_len, torch_dtype
+from fugue_tpu_torch.torch_backend.blocks import (
+    TorchBlocks,
+    TorchColumn,
+    keeps_stats,
+    padded_len,
+    torch_dtype,
+)
+from fugue_tpu_torch.utils.validity import materialize_validity
 
 # the readbacks of the joins' own output sizes in this process (one a
 # readback: M, or M and R together for full outer); the factorization's
@@ -134,14 +192,20 @@ def concat_key_blocks(b1: TorchBlocks, b2: TorchBlocks, keys: List[str]
 class SharedFactorization:
     """Both sides' keys in one segment space (``relational.py:207``):
     ``seg1`` int32 [p1] and ``seg2`` int32 [p2], each with the sentinel
-    ``num_segments`` on rows that are not real; ``keys`` each key's two
-    columns, string keys in one dictionary."""
+    ``num_segments`` on rows that are not real; ``first_idx`` and
+    ``occupied``, the stacked frame's (``groupby.Factorized``: side 1's
+    rows come first, so a segment's first row is side 1's where it has
+    one, and at or above ``p1`` where it has none); ``keys`` each key's
+    two columns, string keys in one dictionary."""
 
-    def __init__(self, seg1: torch.Tensor, seg2: torch.Tensor, num_segments: int, keys: Pairs):
+    def __init__(self, seg1: torch.Tensor, seg2: torch.Tensor, num_segments: int, keys: Pairs,
+                 first_idx: torch.Tensor, occupied: Optional[torch.Tensor]):
         self.seg1 = seg1
         self.seg2 = seg2
         self.num_segments = num_segments
         self.keys = keys
+        self.first_idx = first_idx
+        self.occupied = occupied
 
 
 def shared_factorize(b1: TorchBlocks, b2: TorchBlocks, keys: List[str]) -> SharedFactorization:
@@ -151,7 +215,8 @@ def shared_factorize(b1: TorchBlocks, b2: TorchBlocks, keys: List[str]) -> Share
     combined, pairs = concat_key_blocks(b1, b2, keys)
     fr = groupby.factorize_keys(combined, keys)
     p1 = b1.padded_nrows
-    return SharedFactorization(fr.seg[:p1], fr.seg[p1:], fr.num_segments, pairs)
+    return SharedFactorization(fr.seg[:p1], fr.seg[p1:], fr.num_segments, pairs, fr.first_idx,
+                               fr.occupied)
 
 
 def _null_any_mask(b: TorchBlocks, keys: List[str]) -> Optional[torch.Tensor]:
@@ -168,13 +233,13 @@ def _null_any_mask(b: TorchBlocks, keys: List[str]) -> Optional[torch.Tensor]:
 
 def _build(seg: torch.Tensor, num: int, b: TorchBlocks, nulls: Optional[torch.Tensor],
            slots: bool = False) -> torch.Tensor:
-    run = groupby._kernel(seg, join_build_cuda, join_build_reference, "join build")
+    run = kernel_for(seg, join_build_cuda, join_build_reference, "join build")
     return run(seg, num, nulls=nulls, slots=slots, **groupby.frame_rows(b))
 
 
 def _probe(seg: torch.Tensor, table: torch.Tensor, mode: str, b: TorchBlocks,
            nulls: Optional[torch.Tensor], outer: bool = False) -> Probe:
-    run = groupby._kernel(seg, join_probe_cuda, join_probe_reference, "join probe")
+    run = kernel_for(seg, join_probe_cuda, join_probe_reference, "join probe")
     return run(seg, table, mode, nulls=nulls, outer=outer, **groupby.frame_rows(b))
 
 
@@ -182,7 +247,7 @@ def _gather(columns: Dict[str, TorchColumn], idx: torch.Tensor, outer: bool
             ) -> Dict[str, TorchColumn]:
     """K10 over ``columns`` by ``idx``, each result with its source's
     type and stats."""
-    run = groupby._kernel(idx, gather_rows_cuda, gather_rows_reference, "gather rows")
+    run = kernel_for(idx, gather_rows_cuda, gather_rows_reference, "gather rows")
     got = run([GatherColumn(c.data, c.mask) for c in columns.values()], idx, outer=outer)
     return {n: c.with_data(v, m) for (n, c), (v, m) in zip(columns.items(), got)}
 
@@ -251,7 +316,7 @@ def expand_join(
     global readbacks
     readbacks += 1
     M, R = int(sizes[0]), int(sizes[1])  # the join's one readback: its output size(s)
-    expand = groupby._kernel(start, join_expand_cuda, join_expand_reference, "join expand")
+    expand = kernel_for(start, join_expand_cuda, join_expand_reference, "join expand")
     li, ri = expand(start, pr.m, seg1, cstart2, order2, M)
     out_pad = padded_len(M)
     li, ri = _pad_index(li, out_pad, 0), _pad_index(ri, out_pad, -1)
@@ -344,3 +409,314 @@ def union_all_blocks(b1: TorchBlocks, b2: TorchBlocks) -> TorchBlocks:
     have no padding) whose padding rows stay invalid, string columns in
     one dictionary (``:946``). No compaction, no readback."""
     return _stack(b1, b2, _harmonized(b1, b2, list(b1.columns)))
+
+
+# ---------------------------------------------------------------------------
+# set operations, fillna, take and sample: new row validity, no gather
+# ---------------------------------------------------------------------------
+
+
+def first_rows(first_idx: torch.Tensor, n: int, *, occupied: Optional[torch.Tensor] = None,
+               counts: Optional[torch.Tensor] = None, mode: str = "all"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K13 ``first_row_mask`` (its twin on the CPU): each segment's first
+    row among ``n`` rows where its predicate holds, and their count."""
+    run = kernel_for(first_idx, first_row_mask_cuda, first_row_mask_reference,
+                          "first row mask")
+    return run(first_idx, n, occupied=occupied, counts=counts, mode=mode)
+
+
+def rank_keep(order: torch.Tensor, b: TorchBlocks, **kw: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K12 ``rank_keep`` over the frame's rows (its twin on the CPU)."""
+    run = kernel_for(order, rank_keep_cuda, rank_keep_reference, "rank keep")
+    return run(order, **groupby.frame_rows(b), **kw)
+
+
+def null_count_keep(b: TorchBlocks, masks: List[torch.Tensor], ncols: int, how: str,
+                    thresh: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K14 ``null_count_keep`` over the frame's rows (its twin on the
+    CPU)."""
+    run = kernel_for(b.device, null_count_keep_cuda, null_count_keep_reference,
+                     "null count keep")
+    return run([m.contiguous() for m in masks], ncols, b.padded_nrows, how=how, thresh=thresh,
+               device=b.device, **groupby.frame_rows(b))
+
+
+def keep_rows(b: TorchBlocks, keep: torch.Tensor, count: torch.Tensor) -> TorchBlocks:
+    """The frame's columns over the rows ``keep``, the count lazy."""
+    return TorchBlocks(None, dict(b.columns), b.device, row_valid=keep, nrows_dev=count)
+
+
+def intersect_subtract(b1: TorchBlocks, b2: TorchBlocks, names: List[str], subtract: bool,
+                       distinct: bool = True) -> TorchBlocks:
+    """INTERSECT / EXCEPT (``relational.py:1030``): side 1's rows whose
+    whole row (``names``; nulls equal) is, or is not, among side 2's.
+    DISTINCT keeps each such row once, at its first occurrence; ALL keeps
+    the rows whose ordinal among equal rows of side 1 is below (INTERSECT)
+    or at least (EXCEPT) side 2's count of that row. Side 1's columns as
+    they are, its validity flipped, the count lazy: K7 for side 2's counts,
+    then K13, or the stable sort of side 1's segment ids, K7 and K12."""
+    sf = shared_factorize(b1, b2, names)
+    S = max(sf.num_segments, 1)
+    c2 = _build(sf.seg2, S, b2, None)
+    p1 = b1.padded_nrows
+    if distinct:
+        # the predicate depends on the segment alone, so the first kept row
+        # of a segment is its first row of side 1 (first_idx below p1)
+        num = int(sf.first_idx.shape[0])
+        keep, count = first_rows(sf.first_idx, p1, occupied=sf.occupied, counts=c2[:num],
+                                 mode="miss" if subtract else "hit")
+        return keep_rows(b1, keep, count)
+    c1 = _build(sf.seg1, S, b1, None)
+    starts = torch.cumsum(c1, 0, dtype=torch.int64) - c1
+    # rows that are not real carry the sentinel and sort last
+    order = torch.sort(sf.seg1, stable=True).indices
+    keep, count = rank_keep(order, b1, seg=sf.seg1, starts=starts, limits=c2,
+                            mode="ge" if subtract else "lt")
+    return keep_rows(b1, keep, count)
+
+
+def encode_fill_value(col: TorchColumn, value: Any) -> Optional[Tuple[Any, Optional[np.ndarray]]]:
+    """The fill ``value`` in the column's representation on the card, and
+    the dictionary of a string column that does not hold it yet (its own
+    extended by the value; else None): ``_encode_fill_value``
+    (``relational.py:1114-1152``), which extends the source column's
+    dictionary in place where the port gives the filled column a new one.
+    None where the value cannot be represented exactly (``2.5`` into an
+    integer column), which the JAX package answers on its host engine."""
+    tp = col.pa_type
+    try:
+        if col.is_string:
+            if not isinstance(value, str):
+                return None
+            hits = np.nonzero(col.dictionary == value)[0]
+            if len(hits) > 0:
+                return np.int32(hits[0]), None
+            extended = np.concatenate([col.dictionary, np.asarray([value], dtype=object)])
+            return np.int32(len(extended) - 1), extended
+        if pa.types.is_timestamp(tp):
+            ts = np.datetime64(value, "us")
+            return np.int64((ts - np.datetime64(0, "us")).astype(np.int64)), None
+        if pa.types.is_date32(tp):
+            d = np.datetime64(value, "D")
+            return np.int32((d - np.datetime64(0, "D")).astype(np.int64)), None
+        np_dtype = torch.empty((0,), dtype=col.data.dtype).numpy().dtype
+        v = np.asarray(value, dtype=np_dtype)[()]
+        if not np.issubdtype(np_dtype, np.floating) and v != value:
+            return None
+        return v, None
+    except (ValueError, TypeError):
+        return None
+
+
+def fill_program(columns: List[Tuple[str, torch.dtype]], fills: List[Any]) -> Program:
+    """One K6 program in columns mode that fills each column: register j
+    holds input j, ``NANNULL`` it where it is a float, then ``COAL`` it
+    with its fill (a constant in the one spare register); each output is
+    its register, with no mask."""
+    m = len(columns)
+    instrs: List[Instr] = []
+    for j, ((_, dtype), v) in enumerate(zip(columns, fills)):
+        code = CODES[dtype]
+        if dtype.is_floating_point:
+            instrs.append(Instr(OP["NANNULL"], code, j, j))
+        value = bool(v) if dtype == torch.bool else (float(v) if dtype.is_floating_point
+                                                     else int(v))
+        instrs.append(Instr(OP["CONST"], code, m, imm=value))
+        instrs.append(Instr(OP["COAL"], code, j, j, m))
+    return Program(
+        tuple((name, CODES[dtype]) for name, dtype in columns), tuple(instrs),
+        tuple(Output(j, CODES[dtype], False) for j, (_, dtype) in enumerate(columns)),
+        m + 1, (False,) * m, (), (None,) * m,
+    )
+
+
+def device_fillna(blocks: TorchBlocks, targets: Dict[str, Any]) -> Optional[TorchBlocks]:
+    """``relational.py:1154``: the nulls of each target column, and a
+    float column's NaN, filled with its value in one K6 launch (one per
+    ``MAX_INPUTS`` columns); the filled columns drop their masks. A column
+    with neither nulls nor a float type is left as it is. None where a
+    value cannot be represented in its column (``encode_fill_value``).
+    An integer-like column's stats take in its fill, and a string
+    column's dictionary the value it did not hold."""
+    enc: Dict[str, Tuple[Any, Optional[np.ndarray]]] = {}
+    for name, value in targets.items():
+        col = blocks.columns[name]
+        if col.mask is None and not col.data.is_floating_point():
+            continue  # nothing to fill
+        e = encode_fill_value(col, value)
+        if e is None:
+            return None
+        enc[name] = e
+    if not enc:
+        return blocks
+    names = sorted(enc)
+    new_cols = dict(blocks.columns)
+    for lo in range(0, len(names), MAX_INPUTS):
+        part = names[lo:lo + MAX_INPUTS]
+        prog = fill_program([(n, blocks.columns[n].data.dtype) for n in part],
+                             [enc[n][0] for n in part])
+        outs = expr_eval.run_program(prog, blocks)
+        for name, (values, _) in zip(part, outs):  # type: ignore[arg-type]
+            src = blocks.columns[name]
+            v, extended = enc[name]
+            dictionary = src.dictionary if extended is None else extended
+            stats = src.stats
+            if src.is_string:
+                stats = (0, max(len(dictionary) - 1, 0))  # type: ignore[arg-type]
+            elif stats is not None and keeps_stats(src.pa_type):
+                stats = (min(stats[0], int(v)), max(stats[1], int(v)))
+            new_cols[name] = TorchColumn(src.pa_type, values, None, stats, dictionary=dictionary)
+    return TorchBlocks(blocks._nrows, new_cols, blocks.device, row_valid=blocks.row_valid,
+                       nrows_dev=blocks._nrows_dev)
+
+
+def sort_code_columns(blocks: TorchBlocks, sorts: List[Tuple[str, bool]],
+                      nulls_first: bool) -> List[PresortKey]:
+    """Each sort item, in order, as a key of K11 (``_sort_code_columns``,
+    ``relational.py:1234``): descending where not ascending, nulls (and a
+    float's NaN) first or last, -0.0 tied with +0.0. A string column sorts
+    by its entries' rank in the sorted dictionary (one K6 LUT launch over
+    the rank table), not by its codes; an integer column takes a field of
+    ``value - min`` in the bits its range needs (its stats', else its
+    type's)."""
+    keys: List[PresortKey] = []
+    for name, asc in sorts:
+        if name not in blocks.columns:
+            raise KeyError(f"{name} is not a column of the frame")
+        col = blocks.columns[name]
+        values, kmin, bits = col.data, None, 0
+        if col.is_string:
+            table = strings.sort_rank_table(col.dictionary)  # type: ignore[arg-type]
+            values = expr_eval.remap_codes(col.data, table)
+            kmin, bits = 0, (len(table) - 1).bit_length()
+        elif values.dtype != torch.bool and not values.is_floating_point():
+            # an integer's field is value - kmin: numeric order (an int64's
+            # natural field orders as the group-by's codes, low word first)
+            kmin, bits = torch.iinfo(values.dtype).min, 8 * values.element_size()
+            if col.stats is not None and keeps_stats(col.pa_type):
+                span = int(col.stats[1]) - int(col.stats[0])
+                if span.bit_length() < bits:
+                    kmin, bits = int(col.stats[0]), span.bit_length()
+        mask = None if col.mask is None else col.mask.contiguous()
+        keys.append(PresortKey(values.contiguous(), mask, desc=not asc, nulls_first=nulls_first,
+                               nan_is_null=True, kmin=kmin, bits=bits))
+    return keys
+
+
+def _word_groups(keys: List[PresortKey], unreal: bool) -> List[List[PresortKey]]:
+    """``keys`` (most significant first) cut into the fields of words of
+    at most 64 bits and ``MAX_WORD_KEYS`` keys, most significant word
+    first; the first holds the "not real" bit where ``unreal``. A key that
+    does not fit what is left of a word ends it with its null flag and
+    puts its field in the next; a 64-bit field with a flag takes a word of
+    its own."""
+    groups: List[List[PresortKey]] = [[]]
+    used = int(unreal)
+    for k in keys:
+        flag, width = int(k.flag and key_has_flag(k)), key_field_bits(k)
+        if used + flag + width > 64 or len(groups[-1]) >= MAX_WORD_KEYS:
+            if flag and used < 64 and len(groups[-1]) < MAX_WORD_KEYS:
+                groups[-1].append(k._replace(value=False))
+                k, flag = k._replace(flag=False), 0
+            groups.append([])
+            used = 0
+            if flag + width > 64:
+                groups[-1].append(k._replace(value=False))
+                groups.append([])
+                k, flag = k._replace(flag=False), 0
+        groups[-1].append(k)
+        used += flag + width
+    return [g for i, g in enumerate(groups) if g or (i == 0 and unreal)]
+
+
+def presort_order(keys: List[PresortKey], n: int, device: torch.device, *,
+                  nrows: Optional[int] = None, row_valid: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """The rows (int64 [n]) in the order of ``keys``, real rows first,
+    ties in row order: ``_stable_sort_order`` (``relational.py:1265``).
+    The keys are packed into as few order-preserving words as fit their
+    fields (K11, KW's presort mode; ``_word_groups``), and one stable
+    ``torch.sort`` a word, least significant first, orders the rows
+    (the JAX package sorts once a key and once a null flag)."""
+    unreal = has_unreal_rows(n, nrows, row_valid)
+    groups = _word_groups(keys, unreal)
+    if not groups:
+        return torch.arange(n, dtype=torch.int64, device=device)
+    build = kernel_for(device, presort_word_cuda, presort_word_reference, "presort words")
+    rows = dict(nrows=nrows, row_valid=row_valid)
+    if not groups[0] and row_valid is None:  # the word of the "not real" bit alone
+        rows = dict(row_valid=materialize_validity(None, n, nrows, device))
+    words = [build(g, unreal=unreal and i == 0, **rows) for i, g in enumerate(groups)]
+    order = torch.sort(words[-1], stable=True).indices
+    for w in reversed(words[:-1]):
+        order = order.index_select(0, torch.sort(w.index_select(0, order), stable=True).indices)
+    return order
+
+
+def device_take(blocks: TorchBlocks, n: int, sorts: Dict[str, bool], na_position: str,
+                partition_by: List[str]) -> TorchBlocks:
+    """``relational.py:1301``: the first ``n`` rows of each partition (or
+    of the frame) under the presort, rows kept in their place with the
+    frame's validity flipped and the count lazy. The partition's segment
+    id leads the sort words (K11); K7 counts each partition's rows for its
+    first sorted position; K12 keeps the ranks below ``n``. No readback
+    but the sort path's group count where the partition keys take it."""
+    device = blocks.device
+    keys = sort_code_columns(blocks, list(sorts.items()), na_position == "first")
+    where: Dict[str, torch.Tensor] = {}
+    if partition_by:
+        for k in partition_by:
+            if k not in blocks.columns:
+                raise KeyError(f"{k} is not a column of the frame")
+        fr = groupby.factorize_keys(blocks, partition_by)
+        S = max(fr.num_segments, 1)
+        # the field covers the sentinel of the rows that are not real
+        keys = [PresortKey(fr.seg, kmin=0, bits=S.bit_length())] + keys
+        counts = _build(fr.seg, S, blocks, None)
+        where = dict(seg=fr.seg, starts=torch.cumsum(counts, 0, dtype=torch.int64) - counts)
+    order = presort_order(keys, blocks.padded_nrows, device, **groupby.frame_rows(blocks))
+    limit = torch.full((), n, dtype=torch.int64, device=device)
+    keep, count = rank_keep(order, blocks, limit=limit, mode="lt", **where)
+    return keep_rows(blocks, keep, count)
+
+
+def device_sample(blocks: TorchBlocks, n: Optional[int], frac: Optional[float],
+                  seed: Optional[int]) -> TorchBlocks:
+    """Sampling without replacement (``relational.py:2176``): each row
+    draws a distinct priority from one seeded ``torch.randperm`` (rows
+    that are not real the priority ``len``), one ``torch.sort`` orders
+    them, and K12 keeps the first ``k`` positions: ``k = min(n, nvalid)``
+    or ``min(round(nvalid * frac), nvalid)`` (half to even), computed on
+    the card, so a lazy count stays lazy. The same seed keeps the same
+    rows; no seed draws one."""
+    if seed is None:
+        seed = int(np.random.default_rng().integers(0, 2**31 - 1))
+    device = blocks.device
+    p = blocks.padded_nrows
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    pri = torch.randperm(p, generator=gen, device=device, dtype=torch.int32)
+    order = torch.sort(torch.where(blocks.validity(), pri, p)).indices
+    nvalid = blocks.nrows_tensor().to(torch.int64)
+    if n is not None:
+        k = torch.full((), int(n), dtype=torch.int64, device=device)
+    else:
+        k = torch.round(nvalid.to(torch.float64) * float(frac)).to(torch.int64)  # type: ignore
+    keep, count = rank_keep(order, blocks, limit=torch.minimum(k, nvalid), mode="lt")
+    return keep_rows(blocks, keep, count)
+
+
+def hash_partition_order(blocks: TorchBlocks, by: List[str], num: int) -> torch.Tensor:
+    """The real rows (int64, as many as the frame holds) ordered for
+    ``repartition`` by hash into ``num`` partitions
+    (``execution_engine.py:1551-1564``): by ``(segment id % num, segment
+    id)`` of the keys ``by``, so that equal keys stay together where
+    distinct keys share a partition, ties in row order. One K11 word of
+    the two narrowed fields, one stable ``torch.sort``; the row count is
+    read back."""
+    fr = groupby.factorize_keys(blocks, by)
+    S = max(fr.num_segments, 1)
+    keys = [PresortKey(torch.remainder(fr.seg, num), kmin=0, bits=(num - 1).bit_length()),
+            PresortKey(fr.seg, kmin=0, bits=S.bit_length())]
+    order = presort_order(keys, blocks.padded_nrows, blocks.device, **groupby.frame_rows(blocks))
+    return order[: blocks.nrows]

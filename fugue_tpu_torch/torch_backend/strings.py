@@ -15,6 +15,8 @@ O(|dictionary|) and gathered by code on the card:
   (``_str_compare``, ``:477-510``); against a literal, the compare is
   folded into one bool table over the dictionary;
 - LENGTH: an int64 table of the entries' lengths (``:303-318``);
+- a presort by a string column: each entry's rank in the sorted
+  dictionary (``sort_rank_table``, ``relational.py:1248-1251``);
 - UPPER, LOWER, the trims, REVERSE, SUBSTRING, REPLACE and CONCAT with
   literals: the codes pass through and the dictionary is transformed
   (``_transformed_dictionary``, ``:395-421``); CONCAT of several columns
@@ -103,6 +105,17 @@ def rank_table(vocab: np.ndarray, dictionary: np.ndarray) -> np.ndarray:
     """int32 [|dictionary|]: each entry's rank in ``vocab``."""
     ranks = np.searchsorted(vocab, np.asarray(dictionary, dtype=object).astype(str))
     return _nonempty(ranks.astype(np.int32), 0)
+
+
+def sort_rank_table(dictionary: np.ndarray) -> np.ndarray:
+    """int32 [|dictionary|]: each entry's rank in the dictionary sorted as
+    strings, a repeated entry ranked in dictionary order: the rank table by
+    which ``_sort_code_columns`` sorts a string column
+    (``relational.py:1248-1251``)."""
+    order = np.argsort(np.asarray(dictionary, dtype=object).astype(str), kind="stable")
+    rank = np.empty(len(order), dtype=np.int32)
+    rank[order] = np.arange(len(order), dtype=np.int32)
+    return _nonempty(rank, 0)
 
 
 def compare_table(op: str, dictionary: np.ndarray, literal: str) -> np.ndarray:

@@ -17,8 +17,11 @@ table on a unique key, then aggregated; 5M and 100M facts) and config
 10's join (100M left rows, 200M output rows), and the string paths
 (``--only strings``, 100M rows): the string predicates and group-by, the
 group-by on a canonicalised UPPER, the string-keyed join to a
-10,000-row dimension table and the date group-by. Each is warmed up with
-two runs,
+10,000-row dimension table and the date group-by, and the relational
+paths (``--only relational``, 100M rows; the Q38/Q87 channels 100M and
+50M rows): the top-n per group and the global take, distinct of the
+(k, u) pairs, INTERSECT and EXCEPT DISTINCT and ALL, dropna, fillna,
+sample and repartition. Each is warmed up with two runs,
 then run ``RUNS`` times under ``torch.profiler``; for each the script
 prints one JSON object: the
 wall seconds per run, the device's busy and idle share of that wall time
@@ -145,8 +148,16 @@ def _groups(device: Any, table: Any) -> Dict[str, Callable[[], None]]:
         run_once = chip_smoke.build_date_groupby(device, rows, chip_smoke.DATE_SEED)[0]
         profile_path("date_groupby", run_once, device, table)
 
+    def relational() -> None:
+        q_rows = (rows, rows // 2)
+        run_for = chip_smoke.build_relational_paths(device, rows, q_rows)[0]
+        for name, run_once in run_for.items():
+            profile_path(name, run_once, device, table,
+                         q_rows[0] if name[:3] in ("int", "exc") else rows)
+
     return {"headline": headline, "config2": config2, "sort_path": sort_path,
-            "full_groupby": full_groupby, "k6": k6, "joins": joins, "strings": strings}
+            "full_groupby": full_groupby, "k6": k6, "joins": joins, "strings": strings,
+            "relational": relational}
 
 
 def main() -> None:
@@ -155,7 +166,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", nargs="*", metavar="GROUP",
                         help="profile only these groups of paths: headline, config2, "
-                             "sort_path, full_groupby, k6, joins, strings (default: all)")
+                             "sort_path, full_groupby, k6, joins, strings, relational "
+                             "(default: all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch.cuda.is_available() is false")

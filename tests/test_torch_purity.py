@@ -118,6 +118,12 @@ _UNPORTED = {
         pd.DataFrame({"s": [f"s{i}" for i in range(1100)], "p": [f"p{i}" for i in range(1100)]}),
         _FuncExpr("like", ft.col("s"), ft.col("p"), False), engine=e,
     ),
+    "inexact_fillna": lambda e: ft.fillna(
+        pd.DataFrame({"c": pd.array([1, None, 3], dtype="Int64")}), 2.5, engine=e
+    ),
+    "take_by_a_uint16_presort": lambda e: ft.take(
+        _df().assign(u=np.arange(50, dtype=np.uint16)), 3, presort="u desc", engine=e
+    ),
     "pandas_transformer": lambda e: ft.transform(_df(), _pandas_udf, "k:int,v:float", engine=e),
     "other_engine": lambda e: ft.make_execution_engine("native"),
 }
@@ -128,6 +134,20 @@ def test_unported_paths_raise(case):
     engine = ft.make_execution_engine(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _UNPORTED[case](engine)
+
+
+@pytest.mark.parametrize("case,op,item", [
+    ("inexact_fillna", "fillna", r"queue 1 item 2\(b\)"),
+    ("take_by_a_uint16_presort", "take", "queue 1 item 1"),
+])
+def test_refused_fillna_and_take_count_as_fallbacks(case, op, item):
+    """A fill the column cannot hold exactly (the JAX package's host
+    engine answers it) and a take whose presort column the card does not
+    hold each name their ROADMAP.md item and count in ``fallbacks``."""
+    engine = ft.make_execution_engine(device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        _UNPORTED[case](engine)
+    assert engine.fallbacks == {op: 1}
 
 
 def test_string_columns_and_string_partition_keys_answer():
