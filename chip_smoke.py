@@ -59,7 +59,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    miss segments, first rows beyond the mask, no segment) and K14
    ``null_count_keep`` (0, 1, 4 and 70 masks; any, all, thresh), at 1,
    2^20 + 37 and 100M rows; and the order of a three-word presort against
-   ``numpy.lexsort`` up to 2^20 + 37 rows.
+   ``numpy.lexsort`` up to 2^20 + 37 rows. The join check also holds K7's
+   side counts and K8's NOT IN mode (``not_in_vs_twin``: as built, an
+   empty build side, a null on it). Then the window kernels
+   (``window_vs_twin``): K15 ``window_rank`` (every ranking function) and
+   K16 ``window_frame`` (count, COUNT(*), sum, avg, min, max, first, last
+   and nth value over the running frame, ROWS, GROUPS and RANGE frames of
+   ``WINDOW_FRAMES``, of a float and an int argument with nulls and NaN,
+   lag/lead with defaults) over a partitioned masked frame ordered by an
+   int key with ties and nulls, one partition holding every row ordered
+   by a float key with NaN and nulls descending, nulls first, and a
+   two-key order; every case at 1 and 2^20 + 37 rows, the SQL phase's
+   shapes and one frame of each unit at 100M; exactly but the float64
+   frame sums (``FRAME_SUM_RTOL`` and ``frame_sum_atol``).
 4. paths through the entry points, each with every launch count zeroed
    just before its cold run and read just after, checked against numpy:
    the main path (100M rows, an int32 key over 1024 groups and a float32
@@ -120,6 +132,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``k`` into 8 and at random; each against numpy, with the device time
    of one warm run from ``torch.profiler``. Each reports cold and
    best-of-5 warm seconds, rows/s, peak device memory and its route.
+   Then the SQL phase (``sql_paths``, ``SQL_PATH_LAUNCHES``) through
+   ``raw_sql`` on the headline frame at 100M rows with a day over 1,096
+   days: TPC-DS q67's ``RANK() OVER (PARTITION BY k ORDER BY v DESC)``
+   with ``WHERE rk <= 100`` in an outer SELECT, q51's running ``SUM(v)``
+   by day, q47/q89's ``AVG(v) OVER (PARTITION BY k)``, a 7-row moving
+   average with MIN and MAX, ``LAG(v, 1, 0)`` beside a RANGE 10 days sum,
+   ``ORDER BY v DESC, k LIMIT 100`` with and without ``OFFSET 1000000``,
+   and TPC-H Q16's NOT IN (80M partsupp rows against 500 of 1M
+   suppliers, and with a null on the right, which keeps no row); each
+   against numpy, with cold and best-of-5 warm seconds to the result
+   frame on the card and its count, launches, the synchronizing
+   operations of one run, peak memory and device time.
 5. timing with CUDA events at the paths' shapes: each kernel beside its
    plain twin, one PyTorch call computing the same function where there
    is one, and its bound from the bytes it must move; the fused kernel's
@@ -139,7 +163,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    twin, ``index_select`` of its table and its bound; K11-K14 and the
    fillna program of K6 (``relational_timing``), each beside its twin, its
    bound and, where one PyTorch call computes the same function,
-   ``index_fill_`` (K12 at ``sample``'s shape, K13) or ``torch.all`` (K14).
+   ``index_fill_`` (K12 at ``sample``'s shape, K13) or ``torch.all`` (K14);
+   K15, K16 and K8's NOT IN mode at the SQL phase's shapes
+   (``window_timing``), with K16's other routes, ``device_sort`` against
+   ``torch.sort`` and ``gather_indices`` against ``index_select``.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -454,6 +481,7 @@ def _wrappers() -> List[Callable[..., Any]]:
         row_select,
         segment_reduce,
         segment_sums,
+        window,
     )
 
     return [segment_sums.binned_sums_cuda, factorize.bin_factorize_cuda,
@@ -464,7 +492,8 @@ def _wrappers() -> List[Callable[..., Any]]:
             segment_reduce.segment_sq_dev_cuda, expr_program.expr_program_cuda,
             join.join_build_cuda, join.join_probe_cuda, join.join_expand_cuda,
             gather.gather_rows_cuda, row_select.rank_keep_cuda,
-            row_select.first_row_mask_cuda, row_select.null_count_keep_cuda]
+            row_select.first_row_mask_cuda, row_select.null_count_keep_cuda,
+            window.window_rank_cuda, window.window_frame_cuda]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -2635,10 +2664,38 @@ def gather_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, An
     ]
 
 
+def not_in_vs_twin(case: Dict[str, Any], rows: Dict[str, Any], label: str) -> None:
+    """K7's side counts and K8's NOT IN mode against their twins, exactly:
+    over the case's build side, and with side counts of an empty build
+    side and of one holding a null, so that each of NOT IN's three
+    answers is taken."""
+    import torch
+
+    from fugue_tpu_torch.kernels.join import join_build_cuda, join_probe_cuda
+    from fugue_tpu_torch.kernels.reference import join_build_reference, join_probe_reference
+
+    args = (case["build"], case["num"])
+    got, got_stats = join_build_cuda(*args, side_counts=True, **rows)
+    want, want_stats = join_build_reference(*args, side_counts=True, **rows)
+    _same(f"join_build {label} side counts table", got, want)
+    _same(f"join_build {label} side counts", got_stats, want_stats)
+    device = want.device
+    for what, stats in (("as built", want_stats),
+                        ("empty build side", torch.zeros((2,), dtype=torch.int32, device=device)),
+                        ("a null on the build side",
+                         torch.tensor([5, 1], dtype=torch.int32, device=device))):
+        g = join_probe_cuda(case["probe"], want, "not_in", stats=stats, **rows)
+        w = join_probe_reference(case["probe"], want, "not_in", stats=stats, **rows)
+        for field in w._fields:
+            _same(f"join_probe {label} not_in {what} {field}", getattr(g, field),
+                  getattr(w, field))
+
+
 def join_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
-    """K7, K8 in every mode, K9 and K10 against their twins, exactly, in
-    every case of ``join_side_cases``, ``expand_cases`` and
-    ``gather_cases`` at each size; prints K7's path of each case."""
+    """K7, K8 in every mode (NOT IN's too, ``not_in_vs_twin``), K9 and K10
+    against their twins, exactly, in every case of ``join_side_cases``,
+    ``expand_cases`` and ``gather_cases`` at each size; prints K7's path
+    of each case."""
     import torch
 
     from fugue_tpu_torch.kernels.gather import gather_rows_cuda
@@ -2670,6 +2727,7 @@ def join_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
                     for field in w._fields:
                         _same(f"join_probe {label} n={n} {mode} outer={outer} {field}",
                               getattr(g, field), getattr(w, field))
+            not_in_vs_twin(case, rows, f"{label} n={n}")
             print(f"join_build/join_probe n={n} {label}: equal (K7 path {paths[0]})")
         torch.cuda.empty_cache()
         for label, case in expand_cases(device, n, SEED + n):
@@ -4004,6 +4062,215 @@ def row_select_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
         print(f"row_select_vs_twin: n={n} equal")
 
 
+WINDOW_PARTS = 1000  # partitions of the window checks
+# K16's frames in the window checks: (unit, first bound, last bound)
+WINDOW_FRAMES = (
+    ("running", ("up", 0), ("c", 0)), ("rows", ("p", 3), ("c", 0)),
+    ("rows", ("up", 0), ("f", 1)), ("rows", ("c", 0), ("uf", 0)),
+    ("rows", ("p", 100), ("f", 100)), ("groups", ("p", 1), ("f", 1)),
+    ("groups", ("c", 0), ("uf", 0)), ("range", ("p", 2), ("c", 0)),
+    ("range", ("c", 0), ("f", 1.5)),
+)
+WINDOW_AGGS = ("count", "sum", "avg", "min", "max", "first_value", "last_value", "nth_value")
+# float64 frame sums and averages against the twin: rtol, and an atol of
+# this times the largest absolute prefix sum of the row's partition
+FRAME_SUM_RTOL, FRAME_SUM_ATOL = 1e-9, 1e-12
+
+
+def window_data(device: Any, n: int, seed: int) -> Dict[str, Any]:
+    """The window checks' columns at ``n`` rows: ``part`` over
+    ``WINDOW_PARTS`` partitions, a masked frame's ``row_valid``; order
+    keys ``a`` (int32 over 50 values, 10 % null: many ties) and ``b``
+    (float64 in halves, 5 % NaN, 5 % null); arguments ``fv`` (float64, 3 %
+    NaN, 5 % null) and ``iv`` (int64 over [-1000, 1000), 5 % null)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand() -> Any:
+        return torch.rand((n,), generator=gen, device=device)
+
+    b = torch.round(torch.randn((n,), generator=gen, device=device, dtype=torch.float64) * 4) / 2
+    fv = torch.randn((n,), generator=gen, device=device, dtype=torch.float64)
+    return dict(
+        part=torch.randint(0, WINDOW_PARTS, (n,), generator=gen, device=device,
+                           dtype=torch.int32),
+        row_valid=rand() < 0.9,
+        a=torch.randint(0, 50, (n,), generator=gen, device=device, dtype=torch.int32),
+        amask=rand() > 0.1,
+        b=torch.where(rand() < 0.05, float("nan"), b), bmask=rand() > 0.05,
+        fv=torch.where(rand() < 0.03, float("nan"), fv), fmask=rand() > 0.05,
+        iv=torch.randint(-1000, 1000, (n,), generator=gen, device=device), imask=rand() > 0.05,
+    )
+
+
+def window_orders(device: Any, d: Dict[str, Any], n: int) -> Dict[str, Any]:
+    """Three window orders of ``d``'s rows (``relational.presort_sorted``,
+    K11 on the card) and each one's RANGE key: ``by_a`` partitions a
+    masked frame by ``part`` and orders by ``a``, nulls last; ``one_b``
+    holds every row of a prefix frame in one partition ordered by ``b``
+    descending, NaN and nulls first; ``by_ab`` by ``a`` descending, then
+    ``b`` nulls first, in ``part``."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import PresortKey
+    from fugue_tpu_torch.torch_backend import relational
+
+    seg = torch.where(d["row_valid"], d["part"], WINDOW_PARTS)
+    by = PresortKey(seg, kmin=0, bits=WINDOW_PARTS.bit_length())
+    a = PresortKey(d["a"], d["amask"], kmin=0, bits=6)
+    b = PresortKey(d["b"], d["bmask"], nan_is_null=True)
+    one = PresortKey(torch.zeros((n,), dtype=torch.int32, device=device), kmin=0, bits=1)
+    masked = dict(row_valid=d["row_valid"])
+    return dict(
+        by_a=(relational.presort_sorted([by, a], n, device, **masked),
+              (d["a"].to(torch.float64), d["amask"], False)),
+        one_b=(relational.presort_sorted([one, b._replace(desc=True, nulls_first=True)], n,
+                                         device, nrows=n),
+               (d["b"], d["bmask"], True)),
+        by_ab=(relational.presort_sorted([by, a._replace(desc=True), b._replace(nulls_first=True)],
+                                         n, device, **masked), None),
+    )
+
+
+def window_cases(device: Any, n: int, seed: int, full: bool
+                 ) -> Tuple[List[Tuple[str, str, Any, Any]], Dict[str, Any]]:
+    """The cases ``(label, order, "rank" or "frame", (func, param) or
+    WindowFrame)`` and the orders (``window_orders``) they run over: with
+    ``full``, every rank function on each
+    order, and every aggregate and positional function of
+    ``WINDOW_AGGS`` over each frame of ``WINDOW_FRAMES`` (RANGE only on the
+    one-key orders) of the float and the int argument, COUNT(*), and
+    lag/lead with and without defaults; else the SQL phase's shapes (the
+    rank family, the running sum and min, a 7-row average, min and max,
+    ``LAG(v, 1, 0)``, a RANGE sum over ``a``) and one frame of each
+    unit for the table route."""
+    from fugue_tpu_torch.kernels.reference import WindowFrame, frame_route
+
+    d = window_data(device, n, seed)
+    orders = window_orders(device, d, n)
+    args = {"fv": (d["fv"], d["fmask"]), "iv": (d["iv"], d["imask"])}
+    out: List[Tuple[str, str, Any, Any]] = []
+
+    def frame(o: str, func: str, unit: str, lo: Any, hi: Any, arg: Optional[str],
+              param: int = 0, default: Any = None) -> None:
+        values, vmask = args[arg] if arg is not None else (None, None)
+        key = orders[o][1] if unit == "range" else None
+        fr = WindowFrame(func, param, unit, lo, hi, values, vmask, default,
+                         None if key is None else key[0], None if key is None else key[1],
+                         False if key is None else key[2], frame_route(func, unit, lo, hi))
+        out.append((f"{o} {func}({arg or '*'}) {unit} {lo[0]}{lo[1]}..{hi[0]}{hi[1]}", o,
+                    "frame", fr))
+
+    if full:
+        for o in orders:
+            for func in ("row_number", "rank", "dense_rank", "percent_rank", "cume_dist"):
+                out.append((f"{o} {func}", o, "rank", (func, 0)))
+            for buckets in (1, 7):
+                out.append((f"{o} ntile({buckets})", o, "rank", ("ntile", buckets)))
+        for o in ("by_a", "one_b"):
+            for unit, lo, hi in WINDOW_FRAMES:
+                frame(o, "count_star", unit, lo, hi, None)
+                for func in WINDOW_AGGS:
+                    for arg in args:
+                        frame(o, func, unit, lo, hi, arg, param=2 if func == "nth_value" else 0)
+            for func, off, default in (("lag", 1, None), ("lead", 3, None), ("lag", 2, 0),
+                                       ("lead", 1, -7)):
+                for arg in args:
+                    frame(o, func, "running", ("up", 0), ("c", 0), arg, off, default)
+        return out, orders
+    for func in ("row_number", "rank", "dense_rank", "percent_rank", "cume_dist"):
+        out.append((f"by_a {func}", "by_a", "rank", (func, 0)))
+    out.append(("by_ab ntile(7)", "by_ab", "rank", ("ntile", 7)))
+    running, seven = (("up", 0), ("c", 0)), (("p", 6), ("c", 0))
+    frame("by_a", "sum", "running", *running, "fv")
+    frame("one_b", "min", "rows", *running, "fv")
+    for func in ("avg", "min", "max"):
+        frame("by_a", func, "rows", *seven, "fv")
+    frame("by_a", "lag", "running", *running, "fv", 1, 0)
+    frame("by_a", "sum", "range", ("p", 10), ("c", 0), "iv")
+    frame("by_a", "max", "groups", ("p", 1), ("f", 1), "fv")
+    frame("by_a", "min", "range", ("p", 2), ("c", 0), "iv")
+    frame("by_a", "sum", "rows", ("p", 100), ("f", 100), "fv")
+    frame("by_a", "count_star", "groups", ("c", 0), ("uf", 0), None)
+    return out, orders
+
+
+def frame_sum_atol(sw: Any, values: Any, vmask: Any) -> Any:
+    """Per row, ``FRAME_SUM_ATOL`` times the largest absolute prefix sum
+    of its partition's valid values (in window order): the float64 frame
+    sums' absolute tolerance against the twin and the JAX package."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import _partition_prefix, window_positions
+
+    ps = window_positions(sw)["ps"]
+    v = values.index_select(0, sw.order)
+    ok = ~torch.isnan(v) if vmask is None else vmask.index_select(0, sw.order) & ~torch.isnan(v)
+    pre = _partition_prefix(torch.where(ok, v, 0.0), ps).abs()
+    best = torch.zeros_like(pre).scatter_reduce(0, ps, pre, "amax")
+    out = torch.empty_like(pre)
+    out[sw.order] = best[ps] * FRAME_SUM_ATOL
+    return out
+
+
+def check_frame_sums(label: str, got: Any, want: Any, atol: Any) -> float:
+    """Float64 frame sums within ``FRAME_SUM_RTOL`` and the per-row
+    ``atol``; returns the largest absolute difference."""
+    import torch
+
+    diff = (got - want).abs()
+    bad = diff > FRAME_SUM_RTOL * want.abs() + atol
+    if bool(bad.any()):
+        raise SystemExit(f"FAIL {label}: float sums differ by up to {float(diff.max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def window_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
+    """K15 and K16 against their twins in every case of ``window_cases``
+    (the full set up to 2^20 + 37 rows, the SQL phase's shapes above):
+    ranks, counts, integer sums, extrema, positional values and every mask
+    exactly, float64 sums and averages within ``FRAME_SUM_RTOL`` and
+    ``frame_sum_atol``. Prints each size's case count and the levels of
+    each table-route case's sparse table. Returns the largest float
+    difference."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import window_frame_reference, window_rank_reference
+    from fugue_tpu_torch.kernels.window import window_frame_cuda, window_rank_cuda
+
+    worst = 0.0
+    for n in sizes:
+        cases, orders = window_cases(device, n, SEED + n, full=n <= (1 << 20) + 37)
+        levels: Dict[str, int] = {}
+        for label, o, kind, payload in cases:
+            sw = orders[o][0]
+            label = f"{label} n={n}"
+            if kind == "rank":
+                _same(f"window_rank {label}", window_rank_cuda(sw, *payload),
+                      window_rank_reference(sw, *payload))
+                continue
+            got, want = window_frame_cuda(sw, payload), window_frame_reference(sw, payload)
+            if window_frame_cuda.last_levels:
+                levels[f"{o} {payload.unit} {payload.lo}..{payload.hi}"] = \
+                    window_frame_cuda.last_levels
+            _same(f"window_frame {label} mask", got[1], want[1])
+            if payload.func in ("sum", "avg") and got[0].is_floating_point() \
+                    and payload.route != "loop":
+                atol = frame_sum_atol(sw, payload.values, payload.vmask)
+                worst = max(worst, check_frame_sums(f"window_frame {label}", got[0], want[0],
+                                                    atol))
+            else:
+                _same(f"window_frame {label}", got[0], want[0])
+            del got, want
+        print(f"window_vs_twin: n={n} {len(cases)} cases equal (float sums within tolerance); "
+              f"table levels {levels}")
+        del cases, orders
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return worst
+
+
 def q_channel(rows: int, rng: Any) -> Dict[str, Any]:
     """One sales channel's rows of the TPC-DS Q38/Q87 shape: last and
     first name indices and a day, each uniform."""
@@ -4457,6 +4724,450 @@ def relational_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, A
     return entries
 
 
+# ---- the SQL phase -------------------------------------------------------
+
+SQL_RANK_LIMIT = 100  # TPC-DS q67's WHERE rk <= 100
+SQL_TOP, SQL_OFFSET = 100, 1_000_000  # ORDER BY v DESC, k LIMIT 100 [OFFSET 1M]
+SQL_RANGE_DAYS = 10  # RANGE BETWEEN 10 PRECEDING AND CURRENT ROW over the day number
+SQL_MOVING_ROWS = 7  # ROWS BETWEEN 6 PRECEDING AND CURRENT ROW
+# TPC-H Q16 at scale factor 100: partsupp's 80M rows over supplier's 1M
+# keys; the complaint filter keeps about 0.05 % of the suppliers
+NOT_IN_ROWS, NOT_IN_SUPPLIERS, NOT_IN_COMPLAINTS, NOT_IN_SEED = 80_000_000, 1_000_000, 500, 16
+SQL_STATEMENTS = {
+    "q67_rank_top100": (
+        "SELECT k, v, rk FROM (SELECT k, v, RANK() OVER (PARTITION BY k ORDER BY v DESC) AS rk"
+        f" FROM {{t}}) AS x WHERE rk <= {SQL_RANK_LIMIT}"),
+    "q51_running_sum": (
+        "SELECT k, d, v, SUM(v) OVER (PARTITION BY k ORDER BY d ROWS BETWEEN UNBOUNDED"
+        " PRECEDING AND CURRENT ROW) AS cume FROM {t}"),
+    "q47_avg_partition": "SELECT k, v, AVG(v) OVER (PARTITION BY k) AS av FROM {t}",
+    "moving_7": (
+        "SELECT k, d, v, AVG(v) OVER (PARTITION BY k ORDER BY d ROWS BETWEEN 6 PRECEDING AND"
+        " CURRENT ROW) AS ma, MIN(v) OVER (PARTITION BY k ORDER BY d ROWS BETWEEN 6 PRECEDING"
+        " AND CURRENT ROW) AS mn, MAX(v) OVER (PARTITION BY k ORDER BY d ROWS BETWEEN 6"
+        " PRECEDING AND CURRENT ROW) AS mx FROM {t}"),
+    "lag_range10": (
+        "SELECT k, di, v, LAG(v, 1, 0) OVER (PARTITION BY k ORDER BY di) AS lg, SUM(v) OVER"
+        " (PARTITION BY k ORDER BY di RANGE BETWEEN 10 PRECEDING AND CURRENT ROW) AS r10"
+        " FROM {t}"),
+    "order_limit": f"SELECT k, v FROM {{t}} ORDER BY v DESC, k LIMIT {SQL_TOP}",
+    "order_limit_offset": (
+        f"SELECT k, v FROM {{t}} ORDER BY v DESC, k LIMIT {SQL_TOP} OFFSET {SQL_OFFSET}"),
+    "q16_not_in": (
+        "SELECT ps_partkey, ps_suppkey FROM {ps} WHERE ps_suppkey NOT IN"
+        " (SELECT s_suppkey FROM {s})"),
+    "q16_not_in_null": (
+        "SELECT ps_partkey, ps_suppkey FROM {ps} WHERE ps_suppkey NOT IN"
+        " (SELECT s_suppkey FROM {sn})"),
+}
+# each statement's launches in one run: the partition key's K1 ran once at
+# upload and is cached on the frame; NOT IN factorizes both sides' keys
+# stacked, a new frame each run
+SQL_PATH_LAUNCHES = {
+    "q67_rank_top100": dict(presort_word=1, window_rank=1, expr_program=1,
+                            expr_program_filter=1),
+    "q51_running_sum": dict(presort_word=1, window_frame=1),
+    "q47_avg_partition": dict(binned_sums=1, gather_rows=1),
+    "moving_7": dict(presort_word=1, window_frame=3),
+    "lag_range10": dict(presort_word=1, window_frame=2),
+    "order_limit": dict(presort_word=1, gather_rows=1),
+    "order_limit_offset": dict(presort_word=1, gather_rows=1),
+    "q16_not_in": dict(bin_factorize=1, join_build=1, join_probe=1),
+    "q16_not_in_null": dict(bin_factorize=1, join_build=1, join_probe=1),
+}
+
+
+def sql_frames(rows: int, not_in_rows: int) -> Dict[str, Any]:
+    """The SQL phase's frames as arrow tables and their columns: the
+    headline frame (``k`` int32 over 1024 groups, ``v`` float32, seed 42,
+    ``bench.py:538-545``) with a day over 1,096 days from the date path's
+    seed (``d`` date32, ``di`` its int32 day number); and TPC-H Q16's
+    partsupp (``ps_partkey`` four suppliers a part, ``ps_suppkey`` uniform
+    over 1M suppliers) with the complaint filter's suppliers, and the same
+    with a null."""
+    import numpy as np
+    import pyarrow as pa
+
+    rng = np.random.default_rng(SEED)
+    k = rng.integers(0, GROUPS, rows).astype(np.int32)
+    v = rng.random(rows).astype(np.float32)
+    di = np.random.default_rng(DATE_SEED).integers(0, DATE_DAYS, rows).astype(np.int32)
+    t = pa.table({"k": k, "v": v, "d": pa.array(di + DATE_EPOCH_DAY, pa.int32()).cast(
+        pa.date32()), "di": di})
+    rng = np.random.default_rng(NOT_IN_SEED)
+    supp = rng.integers(1, NOT_IN_SUPPLIERS + 1, not_in_rows).astype(np.int64)
+    part = np.arange(not_in_rows, dtype=np.int64) // 4 + 1
+    bad = np.sort(rng.choice(NOT_IN_SUPPLIERS, NOT_IN_COMPLAINTS, replace=False) + 1)
+    ps = pa.table({"ps_partkey": part, "ps_suppkey": supp})
+    s = pa.table({"s_suppkey": bad.astype(np.int64)})
+    sn = pa.table({"s_suppkey": pa.array(list(bad[:-1]) + [None], pa.int64())})
+    return dict(t=t, ps=ps, s=s, sn=sn, k=k, v=v, di=di, supp=supp, part=part, bad=bad)
+
+
+def _group_runs(key_sorted: Any, groups: int) -> Any:
+    """The first sorted position of each row's group, for rows sorted by
+    a group key in ``[0, groups)``."""
+    import numpy as np
+
+    counts = np.bincount(key_sorted, minlength=groups)
+    return (np.cumsum(counts) - counts)[key_sorted]
+
+
+def _stable_order(key: Any) -> Any:
+    """``numpy.argsort(key, kind="stable")`` of non-negative keys below
+    2^32 as two passes of 16-bit digits, least significant first: each
+    pass a stable radix sort in numpy."""
+    import numpy as np
+
+    lo = (key & 0xFFFF).astype(np.uint16)
+    order = np.argsort(lo, kind="stable")
+    hi = (key[order] >> 16).astype(np.uint16)
+    return order[np.argsort(hi, kind="stable")]
+
+
+def sql_oracle(d: Dict[str, Any]) -> Dict[str, Any]:
+    """numpy's answers to ``SQL_STATEMENTS`` (float64 sums per partition in
+    window order, ties in row order): per statement the expected columns
+    (in row order, or the selected rows), and the float sums' per-row
+    absolute tolerances."""
+    import numpy as np
+
+    k, v, di = d["k"], d["v"], d["di"]
+    n = len(k)
+    pos = np.arange(n)
+    x = v.astype(np.float64)
+    want: Dict[str, Any] = {}
+    # q67: a row ranks at most 100 in its group where at most 99 of the
+    # group's values are above it: the candidates at or above the group's
+    # 100th value, ranked among themselves
+    by_k = _stable_order(k.astype(np.int64))
+    bounds = np.cumsum(np.bincount(k, minlength=GROUPS))
+    cut = np.array([np.partition(g, max(len(g) - SQL_RANK_LIMIT, 0))[max(len(g) - SQL_RANK_LIMIT, 0)]
+                    if len(g) else np.inf for g in np.split(v[by_k], bounds[:-1])])
+    cand = np.nonzero(v >= cut[k])[0]
+    srt = cand[np.lexsort((cand, -v[cand].astype(np.float64), k[cand]))]
+    ks, vs = k[srt], v[srt]
+    m = len(srt)
+    head = np.ones(m, dtype=bool)
+    head[1:] = (ks[1:] != ks[:-1]) | (vs[1:] != vs[:-1])
+    first = np.ones(m, dtype=bool)
+    first[1:] = ks[1:] != ks[:-1]
+    at = np.arange(m)
+    rank_sorted = (np.maximum.accumulate(np.where(head, at, 0))
+                   - np.maximum.accumulate(np.where(first, at, 0)) + 1)
+    keep = rank_sorted <= SQL_RANK_LIMIT
+    rows, ranks = srt[keep], rank_sorted[keep]
+    back = np.argsort(rows)
+    rows, ranks = rows[back], ranks[back]
+    want["q67_rank_top100"] = dict(k=k[rows], v=v[rows], rk=ranks)
+    del by_k, cand, srt, ks, vs
+    # the (k, day) order of the running, moving, lag and RANGE windows
+    order = _stable_order(k.astype(np.int64) * DATE_DAYS + di)
+    ks, xs = k[order], x[order]
+    start = _group_runs(ks, GROUPS)
+    bounds = np.cumsum(np.bincount(ks, minlength=GROUPS))
+    running = np.concatenate([np.cumsum(p) for p in np.split(xs, bounds[:-1])])
+    peak = np.zeros(GROUPS)
+    np.maximum.at(peak, ks, np.abs(running))
+
+    def to_rows(sorted_vals: Any) -> Any:
+        out = np.empty_like(sorted_vals)
+        out[order] = sorted_vals
+        return out
+
+    want["q51_running_sum"] = dict(k=k, d=di, v=v, cume=to_rows(running),
+                                   cume_atol=FRAME_SUM_ATOL * peak[k])
+    sums, counts = np.bincount(k, weights=x, minlength=GROUPS), np.bincount(k, minlength=GROUPS)
+    want["q47_avg_partition"] = dict(k=k, v=v, av=(sums / counts)[k])
+    local = pos - start  # each sorted row's place in its partition
+    total, at = np.zeros(n), np.zeros(n)
+    lo, hi = np.full(n, np.inf), np.full(n, -np.inf)
+    for off in range(SQL_MOVING_ROWS - 1, -1, -1):  # the frame's rows in order, as K16's loop
+        at[off:] = xs[:n - off]
+        inside = local >= off
+        np.add(total, at, out=total, where=inside)
+        np.minimum(lo, at, out=lo, where=inside)
+        np.maximum(hi, at, out=hi, where=inside)
+    count = np.minimum(local + 1, SQL_MOVING_ROWS)
+    want["moving_7"] = dict(k=k, d=di, v=v, ma=to_rows(total / count),
+                            mn=to_rows(lo).astype(np.float32), mx=to_rows(hi).astype(np.float32))
+    del total, count, lo, hi, at, inside
+    vs = v[order]
+    lag = np.zeros(n, dtype=np.float32)
+    lag[1:] = np.where(local[1:] >= 1, vs[:-1], np.float32(0))
+    table = np.bincount(k.astype(np.int64) * DATE_DAYS + di, weights=x,
+                        minlength=GROUPS * DATE_DAYS).reshape(GROUPS, DATE_DAYS)
+    cum = np.cumsum(table, axis=1)
+    before = np.where(di > SQL_RANGE_DAYS, cum[k, np.maximum(di - SQL_RANGE_DAYS - 1, 0)], 0.0)
+    want["lag_range10"] = dict(k=k, di=di, v=v, lg=to_rows(lag), r10=cum[k, di] - before,
+                               r10_atol=FRAME_SUM_ATOL * np.abs(cum).max(axis=1)[k])
+    del order, ks, xs, vs, start, running
+    # ORDER BY v DESC, k [LIMIT/OFFSET]: the candidates above the cut, sorted
+    m = min(SQL_OFFSET + SQL_TOP, n)
+    cut = np.partition(v, n - m)[n - m]
+    cand = np.nonzero(v >= cut)[0]
+    top = cand[np.lexsort((cand, k[cand], -v[cand].astype(np.float64)))]
+    for label, lo_ in (("order_limit", 0), ("order_limit_offset", SQL_OFFSET)):
+        sel = top[lo_:lo_ + SQL_TOP]
+        want[label] = dict(k=k[sel], v=v[sel])
+    listed = np.zeros(NOT_IN_SUPPLIERS + 1, dtype=bool)
+    listed[d["bad"]] = True
+    keep = ~listed[d["supp"]]
+    want["q16_not_in"] = dict(ps_partkey=d["part"][keep], ps_suppkey=d["supp"][keep])
+    want["q16_not_in_null"] = dict(ps_partkey=d["part"][:0], ps_suppkey=d["supp"][:0])
+    return want
+
+
+def check_sql(label: str, table: Any, want: Dict[str, Any]) -> None:
+    """A statement's arrow result against numpy's: every column exactly
+    but the float64 frame sums (within ``FRAME_SUM_RTOL`` and their
+    per-row atol) and the float32-accumulated average (``MAIN_PATH_RTOL``)."""
+    import numpy as np
+
+    cols = [c for c in want if not c.endswith("_atol")]
+    if table.column_names != cols:
+        raise SystemExit(f"FAIL {label}: columns {table.column_names}, expected {cols}")
+    for name in cols:
+        col = table.column(name).combine_chunks()
+        if col.null_count:
+            raise SystemExit(f"FAIL {label}: {name} has {col.null_count} nulls")
+        got = col.cast("int32").to_numpy() if name == "d" else col.to_numpy()
+        w = want[name]
+        if name == "d":
+            w = w + DATE_EPOCH_DAY
+        if len(got) != len(w):
+            raise SystemExit(f"FAIL {label}: {len(got)} rows of {name}, expected {len(w)}")
+        if name + "_atol" in want:
+            bad = np.abs(got - w) > FRAME_SUM_RTOL * np.abs(w) + want[name + "_atol"]
+        elif name == "av":
+            bad = np.abs(got - w) > MAIN_PATH_RTOL * np.abs(w)
+        else:
+            bad = got != w
+        if bad.any():
+            raise SystemExit(f"FAIL {label}: {int(bad.sum())} values of {name} differ")
+
+
+def build_sql_paths(device: Any, rows: int, not_in_rows: int
+                    ) -> Tuple[Dict[str, Callable[[], Tuple[float, Any, Any]]], Dict[str, Any]]:
+    """The SQL phase's frames uploaded once (the headline frame's key
+    factorized once, cached on it as a transform's is), and per statement
+    a ``run_once()``: ``raw_sql`` over them through the port's entry point,
+    its result left as a frame on the card with its row count read
+    (``count()``), then a synchronize; returns ``(seconds, frame,
+    None)``."""
+    import torch
+
+    import fugue_tpu_torch as ft
+
+    from fugue_tpu_torch.torch_backend import groupby
+
+    d = sql_frames(rows, not_in_rows)
+    engine = ft.make_execution_engine(device=device)
+    frames = {name: engine.persist(engine.to_df(d[name])) for name in ("t", "ps", "s", "sn")}
+    groupby.factorize_keys(frames["t"].blocks, ["k"])  # the partition key, as an upload's
+
+    def runner(statement: str) -> Callable[[], Tuple[float, Any, Any]]:
+        head, _, tail = statement.partition("{")
+        name, _, rest = tail.partition("}")
+        parts: List[Any] = [head, frames[name]]
+        while "{" in rest:
+            mid, _, tail = rest.partition("{")
+            name, _, rest = tail.partition("}")
+            parts += [mid, frames[name]]
+        parts.append(rest)
+
+        def run_once() -> Tuple[float, Any, Any]:
+            t = time.perf_counter()
+            out = ft.raw_sql(*parts, engine=engine, as_fugue=True)
+            out.count()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            return time.perf_counter() - t, out, None
+
+        return run_once
+
+    return {label: runner(stmt) for label, stmt in SQL_STATEMENTS.items()}, d
+
+
+def sql_paths(device: Any, rows: int, not_in_rows: int, warm_runs: int) -> List[Dict[str, Any]]:
+    """Every statement of ``SQL_STATEMENTS`` through ``raw_sql`` on the
+    card at ``rows`` rows (Q16's NOT IN at ``not_in_rows``): cold and
+    best-of-``warm_runs`` warm seconds, each kernel's launches (held to
+    ``SQL_PATH_LAUNCHES``), the synchronizing operations of one more run,
+    peak device memory, the result's rows, and the device time of one
+    warm run; each result held against numpy's (``sql_oracle``)."""
+    import torch
+
+    t = time.perf_counter()
+    run_for, d = build_sql_paths(device, rows, not_in_rows)
+    build_secs = time.perf_counter() - t
+    t = time.perf_counter()
+    want = sql_oracle(d)
+    print(f"sql_paths: frames built and uploaded in {build_secs:.1f}s, numpy's answers in "
+          f"{time.perf_counter() - t:.1f}s")
+    out: List[Dict[str, Any]] = []
+    for label, run_once in run_for.items():
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        zero_launches()
+        cold_secs, frame, _ = run_once()
+        cold = launch_counts()
+        zero_launches()
+        warm = [run_once()[0] for _ in range(warm_runs)]
+        warm_launches = launch_counts()
+        want_launches = dict.fromkeys(cold, 0)
+        if device.type == "cuda":  # on the CPU every kernel runs as its twin
+            want_launches.update(SQL_PATH_LAUNCHES[label])
+        warm_want = {kk: vv * warm_runs for kk, vv in want_launches.items()}
+        if cold != want_launches or warm_launches != warm_want:
+            raise SystemExit(f"FAIL {label}: launched {cold} (cold), {warm_launches} (warm), "
+                             f"expected {want_launches} a run")
+        check_sql(label, frame.as_arrow(), want[label])
+        stats = {
+            "case": label, "rows": not_in_rows if label.startswith("q16") else rows,
+            "result_rows": frame.count(), "cold_secs": cold_secs, "warm_secs": warm,
+            "best_warm_secs": min(warm), "launches": {kk: vv for kk, vv in cold.items() if vv},
+            "syncs_in_one_run": _syncs_in(run_once),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                     if device.type == "cuda" else None),
+            "device_ms": device_busy_ms(run_once, device),
+        }
+        print(f"sql_path {label}: " + json.dumps(stats))
+        out.append(stats)
+        del frame
+    del run_for, d, want
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def window_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """K15, K16 and K8's NOT IN mode at the SQL phase's shapes with CUDA
+    events, each beside its twin, one PyTorch call where one is near, and
+    its bound (bytes): K15 ranking 100M rows by (``k``, ``v`` desc), an
+    int64 word (order, word and output read or written once: 24 B a row;
+    no library call ranks); K16's running float64 sum by (``k``, day), an
+    int32 word (order, word, float64 argument, float64 output and mask:
+    29 B a row; ``torch.cumsum`` of the argument); K8's NOT IN mode over
+    Q16's 80M probe rows against 1M segments (segment id and keep flag, 5
+    B a row, and the table; ``index_select`` of the table). Printed
+    beside them: K15's other functions, K16's loop, span and table routes
+    and lag, ORDER BY's ``device_sort`` against ``torch.sort`` of the
+    column alone, and ``gather_indices`` against ``index_select``."""
+    import torch
+
+    from fugue_tpu_torch.kernels.join import join_build_cuda, join_probe_cuda
+    from fugue_tpu_torch.kernels.reference import (
+        PresortKey,
+        WindowFrame,
+        frame_route,
+        join_build_reference,
+        join_probe_reference,
+        window_frame_reference,
+        window_rank_reference,
+    )
+    from fugue_tpu_torch.kernels.window import window_frame_cuda, window_rank_cuda
+    from fugue_tpu_torch.torch_backend import relational
+    from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, TorchColumn, gather_indices
+    import pyarrow as pa
+
+    n = ROWS
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    k = torch.randint(0, GROUPS, (n,), generator=gen, device=device, dtype=torch.int32)
+    v = torch.rand((n,), generator=gen, device=device)
+    di = torch.randint(0, DATE_DAYS, (n,), generator=gen, device=device, dtype=torch.int32)
+    seg = PresortKey(k, kmin=0, bits=GROUPS.bit_length())
+    by_v = relational.presort_sorted(
+        [seg, PresortKey(v, None, desc=True, nan_is_null=True)], n, device, nrows=n)
+    by_d = relational.presort_sorted([seg, PresortKey(di, kmin=0, bits=11)], n, device,
+                                     nrows=n)
+    entries = []
+    got, want = window_rank_cuda(by_v, "rank"), window_rank_reference(by_v, "rank")
+    _same("window_rank timed", got, want)
+    entries.append(_kernel_entry(
+        "window_rank", "fugue_tpu/jax_backend/relational.py:1542", launches["window_rank"], 0.0,
+        time_cuda(lambda: window_rank_cuda(by_v, "rank"), 10),
+        time_cuda(lambda: window_rank_reference(by_v, "rank"), 3), n * (8 + 8 + 8), 0, None,
+        source="window.cu"))
+    for func in ("row_number", "dense_rank", "cume_dist"):
+        print("window timed: " + json.dumps({
+            "name": f"window_rank[{func}]",
+            "ms": time_cuda(lambda: window_rank_cuda(by_v, func), 10)}))
+    x = v.to(torch.float64)
+    running = WindowFrame("sum", 0, "running", ("up", 0), ("c", 0), x, route="prefix")
+    got, want = window_frame_cuda(by_d, running), window_frame_reference(by_d, running)
+    _same("window_frame timed mask", got[1], want[1])
+    err = check_frame_sums("window_frame timed", got[0], want[0],
+                           frame_sum_atol(by_d, x, None))
+    del got, want
+    entries.append(_kernel_entry(
+        "window_frame", "fugue_tpu/jax_backend/relational.py:1762", launches["window_frame"],
+        err, time_cuda(lambda: window_frame_cuda(by_d, running), 10),
+        time_cuda(lambda: window_frame_reference(by_d, running), 3), n * (8 + 4 + 8 + 8 + 1), 0,
+        time_cuda(lambda: torch.cumsum(x, 0), 10), source="window.cu"))
+    for label, func, unit, lo, hi, extra in (
+            ("moving avg 7 rows", "avg", "rows", ("p", 6), ("c", 0), {}),
+            ("min 7 rows", "min", "rows", ("p", 6), ("c", 0), {}),
+            ("range 10 sum", "sum", "range", ("p", SQL_RANGE_DAYS), ("c", 0),
+             dict(key=di.to(torch.float64))),
+            ("lag 1 default 0", "lag", "running", ("up", 0), ("c", 0), dict(param=1, default=0)),
+            ("groups 1 max (table)", "max", "groups", ("p", 1), ("f", 1), {})):
+        fr = WindowFrame(func, extra.get("param", 0), unit, lo, hi, x,
+                         default=extra.get("default"), key=extra.get("key"),
+                         route=frame_route(func, unit, lo, hi))
+        entry = {"name": f"window_frame[{label}]", "route": fr.route,
+                 "ms": time_cuda(lambda: window_frame_cuda(by_d, fr), 5),
+                 "levels": window_frame_cuda.last_levels}
+        if func == "lag":
+            idx = torch.arange(n, device=device) - 1
+            entry["index_select_ms"] = time_cuda(lambda: x.index_select(0, idx.clamp(min=0)), 10)
+        print("window timed: " + json.dumps(entry))
+    del by_v, by_d
+
+    pn = NOT_IN_ROWS
+    probe = torch.randint(0, NOT_IN_SUPPLIERS, (pn,), generator=gen, device=device,
+                          dtype=torch.int32)
+    build = torch.randperm(NOT_IN_SUPPLIERS, generator=gen, device=device)[:NOT_IN_COMPLAINTS]
+    build = build.to(torch.int32)
+    table, stats = join_build_reference(build, NOT_IN_SUPPLIERS, nrows=NOT_IN_COMPLAINTS,
+                                        side_counts=True)
+    kw = dict(nrows=pn, stats=stats)
+    got = join_probe_cuda(probe, table, "not_in", **kw)
+    want = join_probe_reference(probe, table, "not_in", **kw)
+    _same("join_probe not_in timed", got.keep, want.keep)
+    entries.append(_kernel_entry(
+        "join_probe[not_in]", "fugue_tpu/jax_backend/relational.py:368",
+        launches["join_probe_not_in"], 0.0,
+        time_cuda(lambda: join_probe_cuda(probe, table, "not_in", **kw), 20),
+        time_cuda(lambda: join_probe_reference(probe, table, "not_in", **kw), 5),
+        pn * 5 + NOT_IN_SUPPLIERS * 4, 0,
+        time_cuda(lambda: table.index_select(0, probe), 20), source="join.cu"))
+    print("window timed: " + json.dumps({
+        "name": "join_build[side counts]",
+        "ms": time_cuda(lambda: join_build_cuda(build, NOT_IN_SUPPLIERS,
+                                                nrows=NOT_IN_COMPLAINTS, side_counts=True),
+                        20)}))
+    del probe, got, want
+
+    blocks = TorchBlocks(n, {"k": TorchColumn(pa.int32(), k, stats=(0, GROUPS - 1)),
+                             "v": TorchColumn(pa.float32(), v)}, device)
+    sorts = [("v", False, None), ("k", True, None)]
+    print("window timed: " + json.dumps({
+        "name": "device_sort[ORDER BY v DESC, k LIMIT 100]",
+        "ms": time_cuda(lambda: relational.device_sort(blocks, sorts, limit=SQL_TOP), 5),
+        "torch_sort_ms": time_cuda(lambda: torch.sort(v, descending=True, stable=True), 5),
+        "bound_ms": n * 8 / HBM_BYTES_PER_S * 1e3}))
+    perm = torch.randperm(n, generator=gen, device=device)
+    print("window timed: " + json.dumps({
+        "name": "gather_indices[k, v by 100M permuted rows]",
+        "ms": time_cuda(lambda: gather_indices(blocks, perm), 5),
+        "index_select_one_column_ms": time_cuda(lambda: v.index_select(0, perm), 10),
+        "bound_ms": n * (8 + 4 + 4 + 4) / HBM_BYTES_PER_S * 1e3}))
+    for e in entries:
+        print("window timed: " + json.dumps(e))
+    return entries
+
+
 _ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -4517,6 +5228,10 @@ def main() -> None:
     row_select_vs_twin(device, (1, (1 << 20) + 37, ROWS))
     print("kernels checked against their twins: presort_word, rank_keep, first_row_mask, "
           "null_count_keep (equal)")
+    torch.cuda.empty_cache()
+    worst = window_vs_twin(device, (1, (1 << 20) + 37, ROWS))
+    print(f"kernels checked against their twins: window_rank, window_frame (equal; float64 "
+          f"frame sums max_abs_err={worst})")
     torch.cuda.empty_cache()
 
     stats = main_path(device, ROWS, GROUPS, SEED, WARM_RUNS)
@@ -4623,6 +5338,10 @@ def main() -> None:
         print("relational_path: " + json.dumps(st))
     torch.cuda.empty_cache()
 
+    sql = {st["case"]: st for st in sql_paths(device, ROWS, NOT_IN_ROWS, WARM_RUNS)}
+    print(f"sql_paths: {len(sql)} statements through raw_sql on {card}")
+    torch.cuda.empty_cache()
+
     stand_ins = stand_in_timing(device)
     stand_ins["card"] = card
     print("stand_ins: " + json.dumps(stand_ins))
@@ -4665,6 +5384,12 @@ def main() -> None:
         "expr_program_fillna": rel["fillna_scalar"]["expr_program"],
     })
     torch.cuda.empty_cache()
+    entries += window_timing(device, {
+        "window_rank": sql["q67_rank_top100"]["launches"]["window_rank"],
+        "window_frame": sql["q51_running_sum"]["launches"]["window_frame"],
+        "join_probe_not_in": sql["q16_not_in"]["launches"]["join_probe"],
+    })
+    torch.cuda.empty_cache()
     k6_scaling(device)
     median_timing(device)
     torch.cuda.empty_cache()
@@ -4676,7 +5401,8 @@ def main() -> None:
                  if entry[k] is not None]
         if not all(math.isfinite(t) for t in times):
             raise SystemExit(f"FAIL: a time of {entry['name']} is not finite")
-        if entry["max_abs_err"] != 0 and entry["name"] not in ("binned_sums", "segment_sq_dev"):
+        if entry["max_abs_err"] != 0 and entry["name"] not in ("binned_sums", "segment_sq_dev",
+                                                               "window_frame"):
             raise SystemExit(f"FAIL: {entry['name']} differs from its twin at the timed shape")
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))

@@ -21,7 +21,11 @@ dictionary transforms running as table gathers inside the expression
 kernel; and the set operations, ``distinct``, ``dropna``, ``fillna``,
 ``take``, ``sample`` and ``repartition``, with hand-written presort-word,
 rank-keep, first-row and null-count kernels
-(``fugue_tpu_torch/kernels/factorize.cu``, ``row_select.cu``).
+(``fugue_tpu_torch/kernels/factorize.cu``, ``row_select.cu``); and SQL
+SELECT through ``raw_sql`` (the port's tokenizer, parser and algebra
+bridge), with ORDER BY/LIMIT, NOT IN (a mode of the join kernels) and
+window functions on hand-written window-rank and window-frame kernels
+(``fugue_tpu_torch/kernels/window.cu``).
 """
 
 from fugue_tpu_torch.api import (
@@ -33,6 +37,7 @@ from fugue_tpu_torch.api import (
     filter,
     intersect,
     join,
+    raw_sql,
     repartition,
     sample,
     select,
@@ -67,6 +72,7 @@ __all__ = [
     "lit",
     "make_execution_engine",
     "null",
+    "raw_sql",
     "repartition",
     "sample",
     "select",

@@ -1,8 +1,8 @@
 """The port's entry points: ``transform``, ``aggregate``, ``select``,
 ``filter``, ``assign``, ``join``, ``union``, ``subtract``, ``intersect``,
-``distinct``, ``dropna``, ``fillna``, ``sample``, ``take`` and
-``repartition``, run straight on the engine with no workflow DAG (the DAG
-is not ported yet).
+``distinct``, ``dropna``, ``fillna``, ``sample``, ``take``,
+``repartition`` and ``raw_sql``, run straight on the engine with no
+workflow DAG (the DAG is not ported yet).
 
 ``transform`` mirrors ``fugue_tpu/workflow/api.py:15`` for a transformer
 annotated ``Dict[str, torch.Tensor] -> Dict[str, torch.Tensor]``, the
@@ -12,7 +12,8 @@ counterpart of the JAX package's ``Dict[str, jax.Array]`` parameter
 ``fugue_tpu/execution/api.py:306-351``, ``join``
 ``fugue_tpu/execution/api.py:129-150``, the set operations, ``distinct``,
 ``dropna``, ``fillna``, ``sample``, ``take`` and ``repartition``
-``fugue_tpu/execution/api.py:96-276``. All take pandas, arrow or a
+``fugue_tpu/execution/api.py:96-276``, ``raw_sql``
+``fugue_tpu/workflow/api.py:77``. All take pandas, arrow or a
 ``TorchDataFrame``; they return pandas, or the ``TorchDataFrame`` when
 ``as_fugue=True`` or the input was one.
 """
@@ -23,6 +24,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 
 from fugue_tpu_torch.collections.partition import PartitionSpec
+from fugue_tpu_torch.collections.sql import StructuredRawSQL, interleave_sql
 from fugue_tpu_torch.column.expressions import ColumnExpr, col, lit
 from fugue_tpu_torch.column.sql import SelectColumns
 from fugue_tpu_torch.execution.factory import make_execution_engine
@@ -238,3 +240,20 @@ def repartition(df: Any, partition: Any, engine: Any = None, as_fugue: bool = Fa
     equal keys together, ``"rand"`` shuffles the rows."""
     e = _engine(engine, df)
     return _result(e.repartition(df, PartitionSpec(partition)), df, as_fugue)
+
+
+def raw_sql(*statements: Any, engine: Any = None, as_fugue: bool = False) -> Any:
+    """A SQL SELECT mixing string fragments and frames, run on the
+    engine's SQL facet (``fugue_tpu/workflow/api.py:77``, without the
+    workflow DAG): ``raw_sql("SELECT k, SUM(v) AS s FROM", df, "GROUP BY
+    k ORDER BY s DESC LIMIT 10")``. Joins, set operations, DISTINCT,
+    subqueries, CTEs, window functions, NOT IN and ORDER BY/LIMIT/OFFSET
+    run on the card; a shape the algebra bridge does not lower raises
+    ``NotImplementedError`` naming ROADMAP.md queue 1 item 2(b)."""
+    parts, dfs = interleave_sql(statements)
+    frames = list(dfs.values())
+    e = _engine(engine, next((f for f in frames if isinstance(f, TorchDataFrame)), None))
+    res = e.sql_engine.select(dfs, StructuredRawSQL(parts))
+    if as_fugue or any(isinstance(f, TorchDataFrame) for f in frames):
+        return res
+    return res.as_pandas()

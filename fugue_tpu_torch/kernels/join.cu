@@ -8,13 +8,18 @@
 //     expand_join's _count_prog (:466, and the left side's counts of a
 //     full outer join, :484-489); slot mode is _unique_right_join's
 //     scatter-max of each right row's position into its segment (:674-678).
+//     For NOT IN (not_in_join's _prog, :356-367) it also counts, into two
+//     device ints, the side's real rows and its real rows with a null key.
 //   - K8 join_probe: each probe row reads its segment's entry once and
 //     writes by mode: semi/anti keep flags (:301-306; the full outer
 //     join's right-unmatched mask is anti mode over the right side against
 //     the left side's counts, :490-493), the unique route's right row and
 //     keep flag (:679-682, :688), or the expansion's matches m and output
-//     rows reps (:470-474); in every mode it folds a total into one device
-//     counter, int32 for a lazy row count, int64 for the output size M.
+//     rows reps (:470-474), or SQL's three-valued NOT IN (:368-369): keep =
+//     real & (empty2 | (notnull1 & !any_null2 & !hit)), empty2 and
+//     any_null2 read from K7's two side counts on the card; in every mode
+//     it folds a total into one device counter, int32 for a lazy row
+//     count, int64 for the output size M.
 //   - K9 join_expand: each output row's probe row and build row, what
 //     _gather_prog computes by scatter marks, a cumsum, a clamp and two
 //     gathers (:568-577).
@@ -66,7 +71,7 @@ constexpr long long kTile = (long long)kThreads * kPerThread;
 constexpr int kStage = 4096;       // K9 probe-row starts staged in shared memory
 
 // K8 modes, as the wrapper passes them
-constexpr int kSemi = 0, kAnti = 1, kUnique = 2, kExpand = 3;
+constexpr int kSemi = 0, kAnti = 1, kUnique = 2, kExpand = 3, kNotIn = 4;
 
 struct Side {
   long long n;
@@ -93,6 +98,7 @@ struct BuildParams {
   Side side;
   int slots;   // slot mode: the highest row of each segment, else counts
   int* table;  // int32 [num], filled by the caller with 0 (counts) or -1
+  int* stats;  // int32 [2], zeroed by the caller: real rows, real rows with a null key; or null
 };
 
 template <bool kShared>
@@ -106,15 +112,27 @@ __global__ void __launch_bounds__(kThreads) join_build(const BuildParams p) {
     __syncthreads();
   }
   const long long stride = (long long)gridDim.x * kThreads;
+  int real_rows = 0, null_rows = 0;
   for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x; r < p.side.n;
        r += stride) {
     int s;
-    side_row(p.side, r, &s);
+    if (side_row(p.side, r, &s)) {
+      ++real_rows;
+      null_rows += p.side.nulls != nullptr && __ldg(p.side.nulls + r) != 0;
+    }
     if (s < 0) continue;
     if (p.slots) {
       atomicMax(table + s, (int)r);
     } else {
       atomicAdd(table + s, 1);
+    }
+  }
+  if (p.stats != nullptr) {  // a warp's sums, one atomic each a warp
+    real_rows = (int)__reduce_add_sync(0xffffffffu, (unsigned)real_rows);
+    null_rows = (int)__reduce_add_sync(0xffffffffu, (unsigned)null_rows);
+    if ((threadIdx.x & 31) == 0) {
+      if (real_rows != 0) atomicAdd(p.stats, real_rows);
+      if (null_rows != 0) atomicAdd(p.stats + 1, null_rows);
     }
   }
   if (kShared) {
@@ -134,6 +152,7 @@ __global__ void __launch_bounds__(kThreads) join_build(const BuildParams p) {
 struct ProbeParams {
   Side side;
   const int* table;  // int32 [num]: K7's counts, or its slots (unique)
+  const int* stats;  // int32 [2]: K7's side counts of the build side (not_in)
   int mode;
   int outer;
   uint8_t* keep;     // bool [n]: semi, anti, unique
@@ -164,6 +183,11 @@ __global__ void __launch_bounds__(kThreads) join_probe(const ProbeParams p) {
     if (p.mode == kUnique) {
       p.ridx[r] = entry;
       keep = p.outer ? real : entry >= 0;
+    } else if (p.mode == kNotIn) {
+      // an empty build side keeps every row; a null on it keeps none
+      const bool null = p.side.nulls != nullptr && __ldg(p.side.nulls + r) != 0;
+      const bool empty2 = __ldg(p.stats) == 0, any_null2 = __ldg(p.stats + 1) > 0;
+      keep = real && (empty2 || (!null && !any_null2 && entry <= 0));
     } else {
       const bool hit = entry > 0;
       keep = p.mode == kSemi ? hit : real && !hit;
@@ -260,12 +284,14 @@ __global__ void __launch_bounds__(kThreads) join_expand(const ExpandParams p) {
 
 // K7. The side is (n, nrows or -1 with row_valid, nulls or null, seg,
 // num); table is int32 [num], filled by the caller with 0 (counts) or -1
-// (slots). device is the CUDA ordinal of the tensors, stream a
+// (slots); stats int32 [2] zeroed by the caller, or null (NOT IN's side
+// counts). device is the CUDA ordinal of the tensors, stream a
 // cudaStream_t of it. Returns a cudaError_t; *path is 1 (per-block tables
 // in shared memory), 2 (the global table) or 0 (no row: nothing launched).
 extern "C" int fugue_join_build(long long n, long long nrows, const void* row_valid,
                                 const void* nulls, const void* seg, int num, int slots,
-                                void* table, int device, void* stream, int* path) {
+                                void* table, void* stats, int device, void* stream,
+                                int* path) {
   *path = 0;
   if (num < 1 || (nrows < 0 && row_valid == nullptr)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
@@ -274,6 +300,7 @@ extern "C" int fugue_join_build(long long n, long long nrows, const void* row_va
             static_cast<const uint8_t*>(nulls), static_cast<const int*>(seg), num};
   p.slots = slots;
   p.table = static_cast<int*>(table);
+  p.stats = static_cast<int*>(stats);
   const bool shared = num <= kSharedMax;
   void (*kernel)(BuildParams) = shared ? join_build<true> : join_build<false>;
   const cudaError_t err = on_device(device, [&] {
@@ -283,17 +310,20 @@ extern "C" int fugue_join_build(long long n, long long nrows, const void* row_va
   return (int)err;
 }
 
-// K8. The side as for K7; table int32 [num]; mode 0 semi, 1 anti, 2
-// unique, 3 expand; the outputs the mode writes (see ProbeParams), the
-// counter zeroed by the caller. Returns a cudaError_t; *launched is 1
+// K8. The side as for K7; table int32 [num]; stats K7's int32 [2] side
+// counts (not_in), or null; mode 0 semi, 1 anti, 2 unique, 3 expand, 4
+// not_in; the outputs the mode writes (see ProbeParams), the counter
+// zeroed by the caller. Returns a cudaError_t; *launched is 1
 // where the kernel was launched.
 extern "C" int fugue_join_probe(long long n, long long nrows, const void* row_valid,
                                 const void* nulls, const void* seg, int num, const void* table,
-                                int mode, int outer, void* keep, void* ridx, void* m,
+                                const void* stats, int mode, int outer, void* keep, void* ridx,
+                                void* m,
                                 void* reps, void* count, void* total, int device,
                                 void* stream, int* launched) {
   *launched = 0;
-  if (num < 1 || mode < kSemi || mode > kExpand || (nrows < 0 && row_valid == nullptr))
+  if (num < 1 || mode < kSemi || mode > kNotIn || (nrows < 0 && row_valid == nullptr) ||
+      (mode == kNotIn && stats == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((mode == kExpand && (m == nullptr || reps == nullptr || total == nullptr)) ||
       (mode != kExpand && (keep == nullptr || count == nullptr)) ||
@@ -304,6 +334,7 @@ extern "C" int fugue_join_probe(long long n, long long nrows, const void* row_va
   p.side = {n, nrows, static_cast<const uint8_t*>(row_valid),
             static_cast<const uint8_t*>(nulls), static_cast<const int*>(seg), num};
   p.table = static_cast<const int*>(table);
+  p.stats = static_cast<const int*>(stats);
   p.mode = mode;
   p.outer = outer;
   p.keep = static_cast<uint8_t*>(keep);

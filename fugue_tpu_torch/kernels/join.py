@@ -2,9 +2,10 @@
 the outputs and launch the join kernels on PyTorch's current stream.
 
 - ``join_build_cuda`` (K7): the build side's per-segment counts, or the
-  highest row of each segment (slot mode);
+  highest row of each segment (slot mode), and for NOT IN the side's
+  real rows and real rows with a null key in two device ints;
 - ``join_probe_cuda`` (K8): per probe row its segment's entry, written
-  by mode (semi/anti keep flags, the unique route's build row, the
+  by mode (semi/anti/NOT IN keep flags, the unique route's build row, the
   expansion's matches and output rows) with a device total;
 - ``join_expand_cuda`` (K9, two launches: the probe row of each tile's
   first output, then the tiles): each output row's probe row and build
@@ -16,7 +17,7 @@ Each has the contract of its twin in ``reference.py``. Each wrapper's
 tables: ``"shared"`` (a copy per block) or ``"global"``."""
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -35,9 +36,10 @@ def _bind() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ip = ctypes.POINTER(i)
         side = [ll, ll, p, p, p, i]  # n, nrows, row_valid, nulls, seg, num
-        lib.fugue_join_build.argtypes = side + [i, p, i, p, ip]  # slots, table, device, stream, path
+        # slots, table, stats, device, stream, path
+        lib.fugue_join_build.argtypes = side + [i, p, p, i, p, ip]
         lib.fugue_join_probe.argtypes = side + [
-            p, i, i,  # table, mode, outer
+            p, p, i, i,  # table, stats, mode, outer
             p, p, p, p, p, p,  # keep, ridx, m, reps, count, total
             i, p, ip,  # device, stream, launched
         ]
@@ -91,23 +93,27 @@ def join_build_cuda(
     row_valid: Optional[torch.Tensor] = None,
     nulls: Optional[torch.Tensor] = None,
     slots: bool = False,
-) -> torch.Tensor:
+    side_counts: bool = False,
+) -> Any:
     """K7, with the contract of ``reference.join_build_reference``: int32
-    [num]. ``seg`` is a dense int32 CUDA tensor; ``row_valid`` and
-    ``nulls`` dense flags of its rows on its device. Raises on anything
-    else, on a failed build and on a refused launch."""
+    [num], and with ``side_counts`` also the int32 [2] side counts.
+    ``seg`` is a dense int32 CUDA tensor; ``row_valid`` and ``nulls``
+    dense flags of its rows on its device. Raises on anything else, on a
+    failed build and on a refused launch."""
     n, nrows_arg, rv, nl = _side(seg, num, nrows, row_valid, nulls, "join_build_cuda")
     table = torch.full((num,), -1 if slots else 0, dtype=torch.int32, device=seg.device)
+    stats = torch.zeros((2,), dtype=torch.int32, device=seg.device) if side_counts else None
     lib = _bind()
     index, stream = _device_and_stream(seg.device)
     path = ctypes.c_int(0)
     err = lib.fugue_join_build(n, nrows_arg, rv, nl, seg.data_ptr(), num, int(slots),
-                               table.data_ptr(), index, stream, ctypes.byref(path))
+                               table.data_ptr(), None if stats is None else stats.data_ptr(),
+                               index, stream, ctypes.byref(path))
     _raise_on(lib, err, "join_build")
     if path.value != 0:
         join_build_cuda.launches += 1
         join_build_cuda.last_path = _PATHS[path.value]
-    return table
+    return table if stats is None else (table, stats)
 
 
 join_build_cuda.launches = 0  # type: ignore[attr-defined]
@@ -123,15 +129,21 @@ def join_probe_cuda(
     row_valid: Optional[torch.Tensor] = None,
     nulls: Optional[torch.Tensor] = None,
     outer: bool = False,
+    stats: Optional[torch.Tensor] = None,
 ) -> Probe:
     """K8, with the contract of ``reference.join_probe_reference``.
-    ``table`` is K7's int32 [num] output on ``seg``'s device."""
+    ``table`` is K7's int32 [num] output on ``seg``'s device, ``stats``
+    its int32 [2] side counts (``"not_in"`` mode)."""
     if mode not in PROBE_MODES:
         raise ValueError(f"probe mode {mode!r}: one of {PROBE_MODES}")
     num = int(table.shape[0])
     n, nrows_arg, rv, nl = _side(seg, num, nrows, row_valid, nulls, "join_probe_cuda")
     device = seg.device
     _check(table, "table", (torch.int32,), num, device)
+    if (mode == "not_in") != (stats is not None):
+        raise ValueError("stats go with the not_in mode, and only with it")
+    if stats is not None:
+        _check(stats, "stats", (torch.int32,), 2, device)
 
     def out(dtype: torch.dtype, wanted: bool) -> Optional[torch.Tensor]:
         return torch.empty((n,), dtype=dtype, device=device) if wanted else None
@@ -149,7 +161,8 @@ def join_probe_cuda(
 
     err = lib.fugue_join_probe(
         n, nrows_arg, rv, nl, seg.data_ptr(), num, table.data_ptr(),
-        PROBE_MODES.index(mode), int(outer), ptr(keep), ptr(ridx), ptr(m), ptr(reps),
+        ptr(stats), PROBE_MODES.index(mode), int(outer), ptr(keep), ptr(ridx), ptr(m),
+        ptr(reps),
         None if expand else total.data_ptr(), total.data_ptr() if expand else None,
         index, stream, ctypes.byref(launched),
     )

@@ -3,7 +3,7 @@
 ``gather.cu``, ``row_select.cu``): the CPU path, and the oracle each kernel is held against
 on the card."""
 
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -894,7 +894,7 @@ def expr_program_reference(
 
 # --- joins: K7 join_build, K8 join_probe, K9 join_expand, K10 gather_rows ---
 
-PROBE_MODES = ("semi", "anti", "unique", "expand")
+PROBE_MODES = ("semi", "anti", "unique", "expand", "not_in")
 
 
 class Probe(NamedTuple):
@@ -902,14 +902,14 @@ class Probe(NamedTuple):
     nothing):
 
     - ``keep``: bool [n], the probe rows the join keeps (semi, anti,
-      unique);
+      unique, not_in);
     - ``ridx``: int32 [n], each probe row's build row, -1 where it has
       none (unique);
     - ``m``: int32 [n], each probe row's matches (expand);
     - ``reps``: int32 [n], its output rows: ``m`` on a real row, at least
       1 under an outer join, 0 on a row that is not real (expand);
-    - ``total``: 0-d, the kept rows (int32: semi, anti, unique) or the sum
-      of ``reps`` (int64: expand)."""
+    - ``total``: 0-d, the kept rows (int32: semi, anti, unique, not_in) or
+      the sum of ``reps`` (int64: expand)."""
 
     keep: Optional[torch.Tensor]
     ridx: Optional[torch.Tensor]
@@ -943,21 +943,33 @@ def join_build_reference(
     row_valid: Optional[torch.Tensor] = None,
     nulls: Optional[torch.Tensor] = None,
     slots: bool = False,
-) -> torch.Tensor:
+    side_counts: bool = False,
+) -> Any:
     """The twin of K7 in ``join.cu``: the build side's table, int32
     [num]. A row takes part where it is real, has no null key and its
     segment lies in ``[0, num)`` (``_join_rows``). Counts mode: the rows
     of each segment (``segment_count`` of the JAX package's join programs,
     ``fugue_tpu/jax_backend/relational.py:298-300``, ``:466``). Slot
     mode: the highest such row of each segment, -1 where there is none
-    (the scatter-max of ``_unique_right_join``, ``:674-678``)."""
-    _, take = _join_rows(seg, num, nrows, row_valid, nulls)
+    (the scatter-max of ``_unique_right_join``, ``:674-678``). With
+    ``side_counts``, ``(table, stats)``: stats int32 [2] holds the side's
+    real rows and its real rows with a null key (``not_in_join``'s
+    ``empty2`` and ``any_null2``, ``:356-362``)."""
+    real, take = _join_rows(seg, num, nrows, row_valid, nulls)
     rows = seg[take].to(torch.int64)
     if slots:
         table = torch.full((num,), -1, dtype=torch.int32, device=seg.device)
         pos = torch.arange(int(seg.shape[0]), dtype=torch.int32, device=seg.device)[take]
-        return table.scatter_reduce_(0, rows, pos, "amax")
-    return torch.bincount(rows, minlength=num).to(torch.int32)
+        table = table.scatter_reduce_(0, rows, pos, "amax")
+    else:
+        table = torch.bincount(rows, minlength=num).to(torch.int32)
+    if not side_counts:
+        return table
+    null_rows = real if nulls is None else real & nulls
+    stats = torch.stack([real.sum(dtype=torch.int32),
+                         null_rows.sum(dtype=torch.int32) if nulls is not None
+                         else torch.zeros((), dtype=torch.int32, device=seg.device)])
+    return table, stats
 
 
 def join_probe_reference(
@@ -969,6 +981,7 @@ def join_probe_reference(
     row_valid: Optional[torch.Tensor] = None,
     nulls: Optional[torch.Tensor] = None,
     outer: bool = False,
+    stats: Optional[torch.Tensor] = None,
 ) -> Probe:
     """The twin of K8 in ``join.cu``: each probe row reads its segment's
     entry of ``table`` (K7's counts, or its slots in ``"unique"`` mode); a
@@ -982,9 +995,15 @@ def join_probe_reference(
       under ``outer`` (``_unique_right_join``, ``:679-682``, ``:688``);
     - ``"expand"``: m = the count, reps = m on a real row, ``max(m, 1)``
       under ``outer``, total their sum in int64 (``expand_join``'s
-      ``_count_prog``, ``:470-474``)."""
+      ``_count_prog``, ``:470-474``);
+    - ``"not_in"``: SQL's three-valued NOT IN against the build side whose
+      K7 side counts are ``stats``: keep = real and (the build side has no
+      real row, or the probe key is not null, no build key is null and
+      the count is 0) (``not_in_join``, ``:368-369``)."""
     if mode not in PROBE_MODES:
         raise ValueError(f"probe mode {mode!r}: one of {PROBE_MODES}")
+    if (mode == "not_in") != (stats is not None):
+        raise ValueError("stats go with the not_in mode, and only with it")
     num = int(table.shape[0])
     real, matchable = _join_rows(seg, num, nrows, row_valid, nulls)
     entry = table[seg.clamp(0, num - 1).to(torch.int64)]
@@ -997,6 +1016,10 @@ def join_probe_reference(
         return Probe(hit, None, None, None, hit.sum(dtype=torch.int32))
     if mode == "anti":
         keep = real & ~hit
+        return Probe(keep, None, None, None, keep.sum(dtype=torch.int32))
+    if mode == "not_in":
+        notnull = real if nulls is None else real & ~nulls
+        keep = real & ((stats[0] == 0) | (notnull & (stats[1] == 0) & ~hit))  # type: ignore[index]
         return Probe(keep, None, None, None, keep.sum(dtype=torch.int32))
     m = torch.where(matchable, entry, 0)
     reps = torch.where(real, m.clamp(min=1) if outer else m, 0)
@@ -1193,3 +1216,353 @@ def null_count_keep_reference(
         keep = valid > 0
     keep = keep & materialize_validity(row_valid, n, nrows, device)
     return keep, keep.sum(dtype=torch.int32)
+
+
+# --- windows: K15 window_rank, K16 window_frame ---
+
+RANK_FUNCS = ("row_number", "rank", "dense_rank", "ntile", "percent_rank", "cume_dist")
+FRAME_FUNCS = ("count", "count_star", "sum", "avg", "min", "max", "lag", "lead",
+               "first_value", "last_value", "nth_value")
+FRAME_UNITS = ("running", "rows", "groups", "range")
+BOUND_KINDS = ("up", "p", "c", "f", "uf")
+AGG_ROUTES = ("prefix", "loop", "span")
+# the widest ROWS frame of literal offsets that K16 sums or extremises by a
+# loop over its rows
+LOOP_MAX = 64
+
+
+class SortedWords(NamedTuple):
+    """The rows in window order, as K15 and K16 take them: ``order`` (int64
+    [n], the row at each sorted position), ``words`` (each int32 or int64
+    [n] in sorted order: K11's words of the partition's segment id, then
+    the ORDER BY keys), ``part_shift``, the bits of ``words[0]`` below
+    the segment id's field, and ``real_below``: where the frame has rows
+    that are not real (sorted last, K11's "not real" bit above the
+    segment id), the smallest signed ``words[0]`` of such a row
+    (``real_below``); else None."""
+
+    order: torch.Tensor
+    words: List[torch.Tensor]
+    part_shift: int
+    real_below: Optional[int] = None
+
+
+class WindowFrame(NamedTuple):
+    """What K16 computes at each row:
+
+    - ``func``: one of ``FRAME_FUNCS`` (``count_star`` takes no argument);
+      ``param`` lag/lead's offset or nth_value's position;
+    - the frame: ``unit`` one of ``FRAME_UNITS`` (``"running"``: the
+      default, from the partition's start to the row's last peer) and its
+      bounds ``lo``, ``hi``, each ``(kind, n)`` with kind one of
+      ``BOUND_KINDS`` (``"p"``/``"f"``: ``n`` preceding or following);
+    - ``values`` (int64 or float64 [n], in row order: integer, bool, date,
+      timestamp and string-code arguments as int64, floats as float64, a
+      bool summed as float64) and ``vmask`` (True = valid; None: all); a
+      float NaN is not valid;
+    - ``default``: lag/lead's value where the offset leaves the partition;
+    - ``key`` (float64 [n]), ``kmask`` and ``key_desc``: RANGE's one
+      ORDER BY key where a bound is an offset;
+    - ``route``: one of ``AGG_ROUTES`` (``frame_route``)."""
+
+    func: str
+    param: int = 0
+    unit: str = "running"
+    lo: Tuple[str, float] = ("up", 0)
+    hi: Tuple[str, float] = ("c", 0)
+    values: Optional[torch.Tensor] = None
+    vmask: Optional[torch.Tensor] = None
+    default: Optional[Any] = None
+    key: Optional[torch.Tensor] = None
+    kmask: Optional[torch.Tensor] = None
+    key_desc: bool = False
+    route: str = "prefix"
+
+
+def frame_route(func: str, unit: str, lo: Tuple[str, float], hi: Tuple[str, float]) -> str:
+    """How K16 takes count/sum/avg/min/max over a frame: ``"prefix"`` where
+    it starts at the partition's start (the running frame's partition
+    prefix), ``"loop"`` over a ROWS frame of literal offsets at most
+    ``LOOP_MAX`` rows wide, else ``"span"``: a difference of partition
+    prefixes for count/sum/avg, a sparse table up to the longest frame for
+    min/max."""
+    if func not in ("count", "sum", "avg", "min", "max"):
+        return "prefix"
+    if unit == "running" or lo[0] == "up":
+        return "prefix"
+    if unit == "rows" and lo[0] in ("p", "c", "f") and hi[0] in ("p", "c", "f"):
+        def off(b: Tuple[str, float]) -> int:
+            return {"p": -1, "c": 0, "f": 1}[b[0]] * int(b[1] or 0)
+
+        if off(hi) - off(lo) + 1 <= LOOP_MAX:
+            return "loop"
+    return "span"
+
+
+def _shifted(x: torch.Tensor, first: Any) -> torch.Tensor:
+    """``x`` moved one position later, ``first`` in front."""
+    return torch.cat([torch.full((1,), first, dtype=x.dtype, device=x.device), x[:-1]])
+
+
+def window_positions(sw: SortedWords) -> Dict[str, torch.Tensor]:
+    """Per sorted position (int64 [n]): its partition's first and last
+    positions (``ps``, ``pe``), its peer group's (``gs``, ``ge``) and the
+    peer group starts up to it (``cnt``): the JAX package's cummax and
+    reversed cummin over adjacent-word comparisons
+    (``fugue_tpu/jax_backend/relational.py:1555-1632``)."""
+    w0 = sw.words[0]
+    n = int(w0.shape[0])
+    device = w0.device
+    raw = (w0.to(torch.int64) & 0xFFFFFFFF) if w0.dtype == torch.int32 else w0
+    pk = raw >> sw.part_shift
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    ph = pk != _shifted(pk, 0)
+    ph[0] = True
+    gh = ph.clone()
+    for w in sw.words:
+        gh |= w != _shifted(w, 0)
+    pend = torch.cat([ph[1:], torch.ones((1,), dtype=torch.bool, device=device)])
+    gend = torch.cat([gh[1:], torch.ones((1,), dtype=torch.bool, device=device)])
+
+    def last_at_or_before(flag: torch.Tensor) -> torch.Tensor:
+        return torch.cummax(torch.where(flag, pos, -1), 0).values
+
+    def first_at_or_after(flag: torch.Tensor) -> torch.Tensor:
+        return torch.flip(torch.cummin(torch.flip(torch.where(flag, pos, n), [0]), 0).values, [0])
+
+    return dict(ps=last_at_or_before(ph), pe=first_at_or_after(pend),
+                gs=last_at_or_before(gh), ge=first_at_or_after(gend),
+                cnt=torch.cumsum(gh, 0))
+
+
+def _to_rows(order: torch.Tensor, sorted_vals: torch.Tensor) -> torch.Tensor:
+    out = torch.empty_like(sorted_vals)
+    out[order] = sorted_vals
+    return out
+
+
+def window_rank_reference(sw: SortedWords, func: str, param: int = 0) -> torch.Tensor:
+    """The twin of K15 in ``window.cu`` (``_window_rank_family``,
+    ``fugue_tpu/jax_backend/relational.py:1542-1641``): each row's
+    row_number, rank, dense_rank or ntile(``param``) (int64), or
+    percent_rank or cume_dist (float64), in row order."""
+    if func not in RANK_FUNCS:
+        raise ValueError(f"rank function {func!r}: one of {RANK_FUNCS}")
+    if func == "ntile" and param < 1:
+        raise ValueError("ntile takes at least one bucket")
+    p = window_positions(sw)
+    ps, pe, gs, ge, cnt = p["ps"], p["pe"], p["gs"], p["ge"], p["cnt"]
+    n = int(ps.shape[0])
+    local = torch.arange(n, dtype=torch.int64, device=ps.device) - ps
+    psize = pe - ps + 1
+    if func == "row_number":
+        out = local + 1
+    elif func == "rank":
+        out = gs - ps + 1
+    elif func == "dense_rank":
+        out = cnt - cnt[ps] + 1
+    elif func == "ntile":
+        q, rem = psize // param, psize % param
+        cutoff = rem * (q + 1)
+        out = torch.where(local < cutoff, local // (q + 1) + 1,
+                          rem + (local - cutoff) // q.clamp(min=1) + 1)
+    elif func == "percent_rank":
+        out = torch.where(psize > 1, (gs - ps).to(torch.float64)
+                          / (psize - 1).clamp(min=1).to(torch.float64), 0.0)
+    else:
+        out = (ge - ps + 1).to(torch.float64) / psize.to(torch.float64)
+    return _to_rows(sw.order, out)
+
+
+def _search(skv: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, t: torch.Tensor,
+            upper: bool) -> torch.Tensor:
+    """Per position the first k in ``[lo, hi)`` with ``skv[k] >= t``
+    (``upper``: ``> t``), by a vectorised bisection."""
+    n = int(skv.shape[0])
+    for _ in range(max(1, n.bit_length()) + 1):
+        live = lo < hi
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        m = skv[mid.clamp(0, n - 1)]
+        go = live & ((m <= t) if upper else (m < t))
+        lo, hi = torch.where(go, mid + 1, lo), torch.where(live & ~go, mid, hi)
+    return lo
+
+
+def frame_bounds_reference(sw: SortedWords, frame: WindowFrame,
+                           p: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each sorted position's frame ``[lo, hi]`` (int64; empty where ``lo >
+    hi``), clamped to its partition (``relational.py:1830-1966``); a row
+    that is not real gets an empty frame, ``[j + 1, j]``."""
+    ps = p["ps"]
+    pos = torch.arange(int(ps.shape[0]), dtype=torch.int64, device=ps.device)
+    lo, hi = _frame_bounds(sw, frame, p, pos)
+    if sw.real_below is None:
+        return lo, hi
+    real = sw.words[0] < sw.real_below
+    return torch.where(real, lo, pos + 1), torch.where(real, hi, pos)
+
+
+def _frame_bounds(sw: SortedWords, frame: WindowFrame, p: Dict[str, torch.Tensor],
+                  pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    ps, pe, gs, ge, cnt = p["ps"], p["pe"], p["gs"], p["ge"], p["cnt"]
+    n = int(ps.shape[0])
+    if frame.unit == "running":
+        return ps, ge
+    skv = snull = None
+    if frame.unit == "range" and (frame.lo[0] in ("p", "f") or frame.hi[0] in ("p", "f")):
+        k = frame.key.index_select(0, sw.order)  # type: ignore[union-attr]
+        null = torch.isnan(k)
+        if frame.kmask is not None:
+            null |= ~frame.kmask.index_select(0, sw.order)
+        skv = torch.where(null, 0.0, -k if frame.key_desc else k)
+        snull = null
+
+    def bound(b: Tuple[str, float], is_start: bool) -> torch.Tensor:
+        kind, nv = b
+        if kind == "up":
+            return ps
+        if kind == "uf":
+            return pe
+        if frame.unit == "rows":
+            if kind == "c":
+                return pos
+            return pos + int(nv) if kind == "f" else pos - int(nv)
+        if kind == "c":
+            return gs if is_start else ge
+        if frame.unit == "groups":
+            g = cnt - 1
+            tg = g + int(nv) if kind == "f" else g - int(nv)
+            first, last = cnt[ps] - 1, cnt[pe] - 1
+            heads = torch.zeros((n + 1,), dtype=torch.int64, device=ps.device)
+            if is_start:
+                heads.scatter_(0, (cnt - 1)[gs == pos], pos[gs == pos])
+                got = heads[tg.clamp(0, n)]
+                return torch.where(tg < first, ps, torch.where(tg > last, pe + 1, got))
+            heads.scatter_(0, (cnt - 1)[ge == pos], pos[ge == pos])
+            got = heads[tg.clamp(0, n)]
+            return torch.where(tg > last, pe, torch.where(tg < first, ps - 1, got))
+        t = skv + (float(nv) if kind == "f" else -float(nv))  # type: ignore[operator]
+        s0 = torch.where(snull[ps], ge[ps] + 1, ps)  # type: ignore[index]
+        s1 = torch.where(snull[pe], gs[pe] - 1, pe)  # type: ignore[index]
+        got = _search(skv, s0, s1 + 1, t, upper=False) if is_start else \
+            _search(skv, s0, s1 + 1, t, upper=True) - 1  # type: ignore[arg-type]
+        return torch.where(snull, gs if is_start else ge, got)  # type: ignore[arg-type]
+
+    return torch.maximum(bound(frame.lo, True), ps), torch.minimum(bound(frame.hi, False), pe)
+
+
+def _partition_prefix(x: torch.Tensor, ps: torch.Tensor) -> torch.Tensor:
+    """Each position's sum of ``x`` from its partition's start, summed in
+    position order within each partition (an integer one exactly)."""
+    if not x.is_floating_point():
+        g = torch.cumsum(x, 0)
+        before = torch.where(ps > 0, g[(ps - 1).clamp(min=0)], 0)
+        return g - before
+    starts = torch.nonzero(ps == torch.arange(int(ps.shape[0]), device=ps.device)).flatten()
+    bounds = starts.tolist() + [int(ps.shape[0])]
+    return torch.cat([torch.cumsum(x[s:e], 0) for s, e in zip(bounds[:-1], bounds[1:])])
+
+
+def window_frame_reference(sw: SortedWords, frame: WindowFrame
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The twin of K16 in ``window.cu`` (``_window_frame_agg``,
+    ``fugue_tpu/jax_backend/relational.py:1762-2057``): each row's
+    function over its frame, in row order, and its mask (None for the
+    counts, which are never null). Values where the mask is False are 0.
+
+    Sums take the argument's type's accumulator (int64 exactly, float64
+    for the rest) per partition: from the partition's start (``"prefix"``
+    route), in row order over the frame (``"loop"``), or as a difference of
+    partition prefixes (``"span"``), as K16 does; float64 frame sums of
+    the two may differ in their last bits where K16's scan adds in another
+    order. Min and max are exact on every route (-0.0 below +0.0)."""
+    if frame.func not in FRAME_FUNCS:
+        raise ValueError(f"frame function {frame.func!r}: one of {FRAME_FUNCS}")
+    order = sw.order
+    p = window_positions(sw)
+    ps, pe = p["ps"], p["pe"]
+    n = int(ps.shape[0])
+    device = ps.device
+    func = frame.func
+    if func == "count_star":
+        lo, hi = frame_bounds_reference(sw, frame, p)
+        return _to_rows(order, torch.where(lo > hi, 0, hi - lo + 1)), None
+    v = frame.values.index_select(0, order)  # type: ignore[union-attr]
+    ok = torch.ones((n,), dtype=torch.bool, device=device) if frame.vmask is None \
+        else frame.vmask.index_select(0, order).clone()
+    if v.is_floating_point():
+        ok &= ~torch.isnan(v)
+    sv = torch.where(ok, v, torch.zeros((), dtype=v.dtype, device=device))
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    if func in ("lag", "lead"):
+        src = pos - frame.param if func == "lag" else pos + frame.param
+        inside = (src >= ps) & (src <= pe)
+        at = src.clamp(0, n - 1)
+        dflt = torch.zeros((), dtype=v.dtype, device=device)
+        if frame.default is not None:
+            dflt = torch.tensor(frame.default, device=device).to(v.dtype)
+        val = torch.where(inside, sv[at], dflt)
+        m = torch.where(inside, ok[at], frame.default is not None)
+        return _to_rows(order, torch.where(m, val, 0)), _to_rows(order, m)
+    lo, hi = frame_bounds_reference(sw, frame, p)
+    empty = lo > hi
+    if func in ("first_value", "last_value", "nth_value"):
+        at = lo if func == "first_value" else (hi if func == "last_value" else lo + frame.param - 1)
+        bad = empty | (at > hi)
+        m = ~bad & ok[at.clamp(0, n - 1)]
+        val = torch.where(m, sv[at.clamp(0, n - 1)], 0)
+        return _to_rows(order, val), _to_rows(order, m)
+    lo_c, hi_c = lo.clamp(0, n - 1), hi.clamp(0, n - 1)
+    if frame.route == "loop":
+        los = {"p": -1, "c": 0, "f": 1}
+        first = los[frame.lo[0]] * int(frame.lo[1] or 0)
+        last = los[frame.hi[0]] * int(frame.hi[1] or 0)
+        total = torch.zeros((n,), dtype=sv.dtype, device=device)
+        count = torch.zeros((n,), dtype=torch.int64, device=device)
+        for d in range(first, last + 1):
+            k = pos + d
+            take = (k >= lo) & (k <= hi) & ok[k.clamp(0, n - 1)]
+            total = torch.where(take, total + sv[k.clamp(0, n - 1)], total)
+            count += take
+    else:
+        c = _partition_prefix(ok.to(torch.int64), ps)
+        count = torch.where(empty, 0, c[hi_c] - torch.where(lo > ps, c[(lo_c - 1).clamp(min=0)], 0))
+        total = torch.zeros((n,), dtype=sv.dtype, device=device)
+        if func in ("sum", "avg"):
+            s = _partition_prefix(sv, ps)
+            total = torch.where(empty, 0, s[hi_c] - torch.where(lo > ps, s[(lo_c - 1).clamp(min=0)],
+                                                                0))
+    if func == "count":
+        return _to_rows(order, count), None
+    has = count > 0
+    if func == "sum":
+        return _to_rows(order, torch.where(has, total, 0)), _to_rows(order, has)
+    if func == "avg":
+        avg = total.to(torch.float64) / count.clamp(min=1).to(torch.float64)
+        return _to_rows(order, torch.where(has, avg, 0.0)), _to_rows(order, has)
+    # min/max: a sparse table up to the longest frame, by a total order
+    is_min = func == "min"
+    key = _order_key(sv)
+    fill = _I64_MAX if is_min else _I64_MIN
+    if sv.is_floating_point():
+        fill = int(_order_key(torch.tensor([float("inf") if is_min else float("-inf")],
+                                           dtype=torch.float64))[0])
+    op = torch.minimum if is_min else torch.maximum
+    level = torch.where(ok, key, fill)
+    length = torch.where(empty, 1, hi - lo + 1)
+    kq = torch.floor(torch.log2(length.to(torch.float64))).to(torch.int64)
+    best = torch.full((n,), fill, dtype=torch.int64, device=device)
+    longest = int(length.max()) if n else 1
+    w, k = 1, 0
+    while True:
+        at_k = kq == k
+        a = level[lo_c]
+        b = level[(hi_c - w + 1).clamp(0, n - 1)]
+        best = torch.where(at_k, op(a, b), best)
+        if 2 * w > longest:
+            break
+        shifted = torch.cat([level[w:], torch.full((w,), fill, dtype=torch.int64, device=device)])
+        level = op(level, shifted[:n])
+        w, k = 2 * w, k + 1
+    val = _from_order_key(best, sv.dtype)
+    return _to_rows(order, torch.where(has, val, 0)), _to_rows(order, has)

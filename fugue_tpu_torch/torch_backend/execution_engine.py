@@ -41,7 +41,7 @@ took the generic (factorized) branch (``"generic"``) or had no keys
 """
 
 from collections.abc import Mapping
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NoReturn, Optional, Tuple
 
 import numpy as np
 import pandas as pd
@@ -60,9 +60,13 @@ from fugue_tpu_torch.column.expressions import (
     _FuncExpr,
     _NamedColumnExpr,
 )
+from fugue_tpu_torch.collections.sql import StructuredRawSQL
 from fugue_tpu_torch.column.sql import SelectColumns, rewrite_having
 from fugue_tpu_torch.dataframe.utils import get_join_schemas, normalize_join_type
 from fugue_tpu_torch.schema import Schema
+from fugue_tpu_torch.sql_frontend import algebra_bridge as ab
+from fugue_tpu_torch.sql_frontend.algebra_bridge import inline_scalar_subqueries, translate_query
+from fugue_tpu_torch.sql_frontend.parser import parse_select
 from fugue_tpu_torch.torch_backend import expr_eval, groupby, relational
 from fugue_tpu_torch.torch_backend.blocks import (
     TorchBlocks,
@@ -76,6 +80,7 @@ from fugue_tpu_torch.torch_backend.blocks import (
     torch_dtype,
 )
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
+from fugue_tpu_torch.torch_backend.window import device_window
 from fugue_tpu_torch.utils.assertion import assert_or_throw
 
 # the aggregations the engine runs on its device (``:3739``)
@@ -84,6 +89,7 @@ _DEVICE_AGGS = (
 )
 # where the JAX package answers on its host engine instead
 _HOST_ENGINE = "ROADMAP.md queue 1 item 2(b) (the host engine)"
+_TABLE_CATALOG = "ROADMAP.md queue 1 item 16 (the device table catalog)"
 # an aggregation of a plan: (output name, function, argument or None for
 # COUNT(*), result type)
 Plan = Tuple[str, str, Optional[ColumnExpr], pa.DataType]
@@ -273,6 +279,114 @@ class _TransformerArgs(Mapping):
         return len(self._cols) + ("_row_valid" not in self._cols)
 
 
+class TorchSQLEngine:
+    """The SQL facet (``JaxSQLEngine``, ``jax_backend/execution_engine.py:
+    384-537``): parse a SELECT with the port's front end, inline its
+    uncorrelated scalar subqueries as literals the device computed, lower
+    it through the algebra bridge (``sql_frontend/algebra_bridge.py``)
+    and run the plan on the engine's device primitives: ``join``,
+    ``union``/``subtract``/``intersect``, ``select`` with WHERE and
+    HAVING, ``distinct``, NOT IN (``relational.not_in_join``), windows
+    (``torch_backend/window.py``: K15, K16) and ORDER BY/LIMIT/OFFSET
+    (``relational.device_sort``).
+
+    Where the JAX package answers on its host SELECT runner (a shape the
+    bridge does not lower), the port counts the request in ``fallbacks``
+    and raises ``NotImplementedError`` naming ROADMAP.md queue 1 item
+    2(b); a device plan that raises is not caught. ``save_table`` and
+    ``load_table``, the device table catalog (``:540-573``), wait for
+    queue 1 item 16."""
+
+    def __init__(self, execution_engine: "TorchExecutionEngine"):
+        self.execution_engine = execution_engine
+
+    def select(self, dfs: Dict[str, Any], statement: StructuredRawSQL) -> TorchDataFrame:
+        """``:399``: the SELECT ``statement`` over the frames ``dfs`` (by
+        the names the statement uses)."""
+        engine = self.execution_engine
+        sql = statement.construct()
+        dfs = {name: engine._input("sql_select", df) for name, df in dfs.items()}
+        schemas = {name: list(df.schema.names) for name, df in dfs.items()}
+        q = parse_select(sql)
+        # uncorrelated scalar subqueries run as device plans now and inline
+        # as literals (one scalar readback each)
+        inline_scalar_subqueries(q, schemas, lambda p: self._exec_plan(p, dfs, {}))
+        plan = translate_query(q, schemas)
+        if plan is None:
+            engine._unported("sql_select", "a SELECT the algebra bridge does not lower "
+                             f"({sql.strip()[:80]!r})", _HOST_ENGINE)
+        return self._exec_plan(plan, dfs, {})
+
+    def _exec_plan(self, plan: Any, dfs: Dict[str, Any], done: Dict[int, TorchDataFrame]
+                   ) -> TorchDataFrame:
+        """``:431``: memoized by plan identity, so that a CTE the query
+        reads twice runs once."""
+        if id(plan) not in done:
+            done[id(plan)] = self._exec_plan_uncached(plan, dfs, done)
+        return done[id(plan)]
+
+    def _exec_plan_uncached(self, plan: Any, dfs: Dict[str, Any],
+                            done: Dict[int, TorchDataFrame]) -> TorchDataFrame:
+        """``:442-513``."""
+        engine = self.execution_engine
+        if isinstance(plan, ab.ScanPlan):
+            lowered = {n.lower(): n for n in dfs}
+            return engine.to_df(dfs[lowered[plan.table]])
+        if isinstance(plan, ab.JoinPlan):
+            return engine.join(self._exec_plan(plan.left, dfs, done),
+                               self._exec_plan(plan.right, dfs, done), how=plan.how,
+                               on=list(plan.on))
+        if isinstance(plan, ab.NotInJoinPlan):
+            left = engine.to_df(self._exec_plan(plan.left, dfs, done))
+            right = engine.to_df(self._exec_plan(plan.right, dfs, done))
+            out = relational.not_in_join(left.blocks, right.blocks, [plan.key])
+            return TorchDataFrame(out, left.schema)
+        if isinstance(plan, ab.SetPlan):
+            left = self._exec_plan(plan.left, dfs, done)
+            right = self._exec_plan(plan.right, dfs, done)
+            if plan.op == "union":
+                return engine.union(left, right, distinct=plan.distinct)
+            if plan.op == "except":
+                return engine.subtract(left, right, distinct=plan.distinct)
+            return engine.intersect(left, right, distinct=plan.distinct)
+        if isinstance(plan, ab.WindowPlan):
+            src = engine.to_df(self._exec_plan(plan.source, dfs, done))
+            if plan.where is not None:
+                src = engine.filter(src, plan.where)
+            blocks, schema = device_window(
+                src.blocks, src.schema, plan.items,
+                lambda what: engine._unported("sql_select", what, _HOST_ENGINE))
+            return TorchDataFrame(blocks, schema)
+        assert_or_throw(isinstance(plan, ab.SelectPlan), ValueError(f"bad plan {plan}"))
+        out = self._exec_plan(plan.source, dfs, done)
+        if plan.cols is not None:
+            out = engine.select(out, plan.cols, where=plan.where, having=plan.having)
+        if plan.distinct:
+            out = engine.distinct(out)
+        if plan.order_by or plan.limit is not None or plan.offset is not None:
+            return self._exec_sort(out, plan)
+        return engine.to_df(out)
+
+    def _exec_sort(self, df: Any, plan: Any) -> TorchDataFrame:
+        """``:515``: ORDER BY/LIMIT/OFFSET (``relational.device_sort``);
+        an item's nulls last unless it says FIRST."""
+        tdf = self.execution_engine.to_df(df)
+        sorts = [(name, asc, None if nulls is None else nulls == "FIRST")
+                 for name, asc, nulls in plan.order_by]
+        return TorchDataFrame(relational.device_sort(tdf.blocks, sorts, limit=plan.limit,
+                                                     offset=plan.offset), tdf.schema)
+
+    def save_table(self, df: Any, table: str, mode: str = "overwrite", **kwargs: Any) -> None:
+        """``:540``: the device table catalog, not ported yet."""
+        self.execution_engine._unported("save_table", "the device table catalog",
+                                        _TABLE_CATALOG)
+
+    def load_table(self, table: str, **kwargs: Any) -> TorchDataFrame:
+        """``:564``: the device table catalog, not ported yet."""
+        self.execution_engine._unported("load_table", "the device table catalog",
+                                        _TABLE_CATALOG)
+
+
 class TorchExecutionEngine:
     """The port's engine (``jax_backend/execution_engine.py:575``).
 
@@ -304,6 +418,7 @@ class TorchExecutionEngine:
         # once a frame, not once a call)
         self._programs = expr_eval.ProgramCache()
         self._checked = expr_eval.ProgramCache()
+        self.sql_engine = TorchSQLEngine(self)
 
     @property
     def strategy_counts(self) -> Dict[str, int]:
@@ -318,7 +433,7 @@ class TorchExecutionEngine:
         """Refused (not yet ported) requests by operation (``:772``)."""
         return dict(self._fallbacks)
 
-    def _unported(self, op: str, what: str, roadmap: str) -> None:
+    def _unported(self, op: str, what: str, roadmap: str) -> NoReturn:
         self._fallbacks[op] = self._fallbacks.get(op, 0) + 1
         raise NotImplementedError(
             f"{what} is not ported to the torch engine yet; see {roadmap}"

@@ -51,12 +51,16 @@ with no gather and no readback (the JAX package's mask-only programs):
   row's priority (``len`` on rows that are not real), ``torch.sort``, and
   K12 keeps the first ``k`` positions, ``k`` computed on the card.
 
+The SQL front end adds three more: ``not_in_join`` (K7 with the right
+side's real and null-key rows counted on the card, K8's NOT IN mode),
+``device_sort`` (ORDER BY/LIMIT/OFFSET: ``presort_order`` and one K10
+gather) and ``presort_sorted``, the window order K15 and K16 read
+(``torch_backend/window.py``).
+
 The kernels run where the tensors lie on CUDA, their plain twins
 (``kernels/reference.py``) where they lie on the CPU; there is no
-fallback between them. ``not_in_join``, ``device_sort`` and the window
-programs wait for the SQL front end (ROADMAP.md queue 1 item 4;
-``presort_order`` is what ``device_sort`` sorts by), the multi-device
-branches for item 12.
+fallback between them. The multi-device branches wait for ROADMAP.md
+queue 1 item 12.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -81,6 +85,7 @@ from fugue_tpu_torch.kernels.reference import (
     GatherColumn,
     PresortKey,
     Probe,
+    SortedWords,
     first_row_mask_reference,
     gather_rows_reference,
     has_unreal_rows,
@@ -90,8 +95,10 @@ from fugue_tpu_torch.kernels.reference import (
     key_field_bits,
     key_has_flag,
     null_count_keep_reference,
+    presort_bits,
     presort_word_reference,
     rank_keep_reference,
+    real_below,
 )
 from fugue_tpu_torch.kernels.row_select import (
     first_row_mask_cuda,
@@ -103,6 +110,7 @@ from fugue_tpu_torch.torch_backend import expr_eval, groupby, strings
 from fugue_tpu_torch.torch_backend.blocks import (
     TorchBlocks,
     TorchColumn,
+    gather_indices,
     keeps_stats,
     padded_len,
     torch_dtype,
@@ -232,15 +240,15 @@ def _null_any_mask(b: TorchBlocks, keys: List[str]) -> Optional[torch.Tensor]:
 
 
 def _build(seg: torch.Tensor, num: int, b: TorchBlocks, nulls: Optional[torch.Tensor],
-           slots: bool = False) -> torch.Tensor:
+           **kw: Any) -> Any:
     run = kernel_for(seg, join_build_cuda, join_build_reference, "join build")
-    return run(seg, num, nulls=nulls, slots=slots, **groupby.frame_rows(b))
+    return run(seg, num, nulls=nulls, **kw, **groupby.frame_rows(b))
 
 
 def _probe(seg: torch.Tensor, table: torch.Tensor, mode: str, b: TorchBlocks,
-           nulls: Optional[torch.Tensor], outer: bool = False) -> Probe:
+           nulls: Optional[torch.Tensor], **kw: Any) -> Probe:
     run = kernel_for(seg, join_probe_cuda, join_probe_reference, "join probe")
-    return run(seg, table, mode, nulls=nulls, outer=outer, **groupby.frame_rows(b))
+    return run(seg, table, mode, nulls=nulls, **kw, **groupby.frame_rows(b))
 
 
 def _gather(columns: Dict[str, TorchColumn], idx: torch.Tensor, outer: bool
@@ -269,6 +277,22 @@ def semi_anti_join(b1: TorchBlocks, b2: TorchBlocks, keys: List[str], anti: bool
     S = max(sf.num_segments, 1)
     counts = _build(sf.seg2, S, b2, _null_any_mask(b2, keys))
     pr = _probe(sf.seg1, counts, "anti" if anti else "semi", b1, _null_any_mask(b1, keys))
+    return TorchBlocks(None, dict(b1.columns), b1.device, row_valid=pr.keep, nrows_dev=pr.total)
+
+
+def not_in_join(b1: TorchBlocks, b2: TorchBlocks, keys: List[str]) -> TorchBlocks:
+    """``WHERE x NOT IN (SELECT y ...)`` with SQL's three-valued semantics
+    (``relational.py:327``): an empty right side keeps every real left row
+    (a null ``x`` too), a null on the right keeps none, else the left rows
+    with a non-null key and no match. K7 counts the right side's real
+    non-null keys a segment and, in two device ints, its real rows and
+    real rows with a null key; K8's NOT IN mode reads them on the card.
+    The left frame's columns as they are, its validity flipped, the count
+    lazy; no readback."""
+    sf = shared_factorize(b1, b2, keys)
+    S = max(sf.num_segments, 1)
+    counts, stats = _build(sf.seg2, S, b2, _null_any_mask(b2, keys), side_counts=True)
+    pr = _probe(sf.seg1, counts, "not_in", b1, _null_any_mask(b1, keys), stats=stats)
     return TorchBlocks(None, dict(b1.columns), b1.device, row_valid=pr.keep, nrows_dev=pr.total)
 
 
@@ -630,6 +654,22 @@ def _word_groups(keys: List[PresortKey], unreal: bool) -> List[List[PresortKey]]
     return [g for i, g in enumerate(groups) if g or (i == 0 and unreal)]
 
 
+def _presort_words(keys: List[PresortKey], n: int, device: torch.device,
+                   nrows: Optional[int], row_valid: Optional[torch.Tensor]
+                   ) -> Tuple[List[torch.Tensor], List[List[PresortKey]]]:
+    """K11's words of ``keys`` (``_word_groups``) and the groups of keys
+    they hold, most significant first."""
+    unreal = has_unreal_rows(n, nrows, row_valid)
+    groups = _word_groups(keys, unreal)
+    if not groups:
+        return [], groups
+    build = kernel_for(device, presort_word_cuda, presort_word_reference, "presort words")
+    rows = dict(nrows=nrows, row_valid=row_valid)
+    if not groups[0] and row_valid is None:  # the word of the "not real" bit alone
+        rows = dict(row_valid=materialize_validity(None, n, nrows, device))
+    return [build(g, unreal=unreal and i == 0, **rows) for i, g in enumerate(groups)], groups
+
+
 def presort_order(keys: List[PresortKey], n: int, device: torch.device, *,
                   nrows: Optional[int] = None, row_valid: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
@@ -639,19 +679,62 @@ def presort_order(keys: List[PresortKey], n: int, device: torch.device, *,
     fields (K11, KW's presort mode; ``_word_groups``), and one stable
     ``torch.sort`` a word, least significant first, orders the rows
     (the JAX package sorts once a key and once a null flag)."""
-    unreal = has_unreal_rows(n, nrows, row_valid)
-    groups = _word_groups(keys, unreal)
-    if not groups:
+    words = _presort_words(keys, n, device, nrows, row_valid)[0]
+    if not words:
         return torch.arange(n, dtype=torch.int64, device=device)
-    build = kernel_for(device, presort_word_cuda, presort_word_reference, "presort words")
-    rows = dict(nrows=nrows, row_valid=row_valid)
-    if not groups[0] and row_valid is None:  # the word of the "not real" bit alone
-        rows = dict(row_valid=materialize_validity(None, n, nrows, device))
-    words = [build(g, unreal=unreal and i == 0, **rows) for i, g in enumerate(groups)]
+    return _lsd_order(words)
+
+
+def _lsd_order(words: List[torch.Tensor]) -> torch.Tensor:
+    """The order of ``words`` (most significant first): one stable sort a
+    word, least significant first."""
     order = torch.sort(words[-1], stable=True).indices
     for w in reversed(words[:-1]):
         order = order.index_select(0, torch.sort(w.index_select(0, order), stable=True).indices)
     return order
+
+
+def presort_sorted(keys: List[PresortKey], n: int, device: torch.device, *,
+                   nrows: Optional[int] = None, row_valid: Optional[torch.Tensor] = None
+                   ) -> SortedWords:
+    """The rows in window order, as K15 and K16 take them: ``keys[0]`` the
+    partition's segment id (a narrowed field: ``kmin`` 0), the rest the
+    ORDER BY keys. One group of K11 words, one stable ``torch.sort`` a
+    word as ``presort_order`` sorts them, and each word in sorted order;
+    ``part_shift`` counts the bits of word 0 below the segment id, and
+    ``real_below`` marks the rows that are not real (sorted last). The
+    JAX package sorts by the keys and then stably by the segment
+    (``relational.py:1548-1553``)."""
+    words, groups = _presort_words(keys, n, device, nrows, row_valid)
+    shift = presort_bits(groups[0][1:], False)
+    unreal = has_unreal_rows(n, nrows, row_valid)
+    below = real_below(presort_bits(groups[0], True)) if unreal else None
+    if len(words) == 1:
+        srt = torch.sort(words[0], stable=True)
+        return SortedWords(srt.indices, [srt.values], shift, below)
+    order = _lsd_order(words)
+    return SortedWords(order, [w.index_select(0, order) for w in words], shift, below)
+
+
+def device_sort(blocks: TorchBlocks, sorts: List[Tuple[str, bool, Optional[bool]]],
+                limit: Optional[int] = None, offset: Optional[int] = None) -> TorchBlocks:
+    """ORDER BY [LIMIT/OFFSET] (``relational.py:1389``): the rows of the
+    ``[offset, offset + limit)`` window of the order as a prefix frame.
+    Each sort item is ``(column, ascending, nulls first)``, nulls last
+    where that is None, as the JAX package's host runner has it
+    (``:1398``). The order is ``presort_order``'s (K11 words, one stable
+    ``torch.sort`` a word, real rows first); one readback of the row count
+    (the export boundary, as there), then one K10 gather of every column
+    (``blocks.gather_indices``). With no sort item, plain LIMIT/OFFSET in
+    row order."""
+    keys: List[PresortKey] = []
+    for name, asc, nulls_first in sorts:
+        keys += sort_code_columns(blocks, [(name, asc)], bool(nulls_first))
+    order = presort_order(keys, blocks.padded_nrows, blocks.device, **groupby.frame_rows(blocks))
+    n = blocks.nrows  # the one readback
+    start = min(offset or 0, n)
+    stop = n if limit is None else min(n, start + limit)
+    return gather_indices(blocks, order[start:stop])
 
 
 def device_take(blocks: TorchBlocks, n: int, sorts: Dict[str, bool], na_position: str,

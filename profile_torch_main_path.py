@@ -21,7 +21,12 @@ group-by on a canonicalised UPPER, the string-keyed join to a
 paths (``--only relational``, 100M rows; the Q38/Q87 channels 100M and
 50M rows): the top-n per group and the global take, distinct of the
 (k, u) pairs, INTERSECT and EXCEPT DISTINCT and ALL, dropna, fillna,
-sample and repartition. Each is warmed up with two runs,
+sample and repartition, and the SQL statements (``--only sql``, 100M
+rows; Q16's NOT IN over 80M): q67's rank with its top 100, q51's running
+sum, q47's partition average, the 7-row moving average with MIN and MAX,
+LAG beside a RANGE sum, ORDER BY ... LIMIT with and without OFFSET, and
+NOT IN with and without a null on the right. Each is warmed up with two
+runs,
 then run ``RUNS`` times under ``torch.profiler``; for each the script
 prints one JSON object: the
 wall seconds per run, the device's busy and idle share of that wall time
@@ -155,9 +160,15 @@ def _groups(device: Any, table: Any) -> Dict[str, Callable[[], None]]:
             profile_path(name, run_once, device, table,
                          q_rows[0] if name[:3] in ("int", "exc") else rows)
 
+    def sql() -> None:
+        run_for = chip_smoke.build_sql_paths(device, rows, chip_smoke.NOT_IN_ROWS)[0]
+        for name, run_once in run_for.items():
+            profile_path(f"sql_{name}", run_once, device, table,
+                         chip_smoke.NOT_IN_ROWS if name.startswith("q16") else rows)
+
     return {"headline": headline, "config2": config2, "sort_path": sort_path,
             "full_groupby": full_groupby, "k6": k6, "joins": joins, "strings": strings,
-            "relational": relational}
+            "relational": relational, "sql": sql}
 
 
 def main() -> None:
@@ -166,8 +177,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", nargs="*", metavar="GROUP",
                         help="profile only these groups of paths: headline, config2, "
-                             "sort_path, full_groupby, k6, joins, strings, relational "
-                             "(default: all)")
+                             "sort_path, full_groupby, k6, joins, strings, relational, "
+                             "sql (default: all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch.cuda.is_available() is false")

@@ -126,6 +126,10 @@ _UNPORTED = {
     ),
     "pandas_transformer": lambda e: ft.transform(_df(), _pandas_udf, "k:int,v:float", engine=e),
     "other_engine": lambda e: ft.make_execution_engine("native"),
+    "save_table": lambda e: e.sql_engine.save_table(_df(), "t"),
+    "load_table": lambda e: e.sql_engine.load_table("t"),
+    "non_lowerable_select": lambda e: ft.raw_sql(
+        "SELECT a.k FROM", _df(), "AS a JOIN", _df(), "AS b ON a.k < b.k", engine=e),
 }
 
 
@@ -144,6 +148,21 @@ def test_refused_fillna_and_take_count_as_fallbacks(case, op, item):
     """A fill the column cannot hold exactly (the JAX package's host
     engine answers it) and a take whose presort column the card does not
     hold each name their ROADMAP.md item and count in ``fallbacks``."""
+    engine = ft.make_execution_engine(device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        _UNPORTED[case](engine)
+    assert engine.fallbacks == {op: 1}
+
+
+@pytest.mark.parametrize("case,op,item", [
+    ("non_lowerable_select", "sql_select", r"queue 1 item 2\(b\)"),
+    ("save_table", "save_table", "queue 1 item 16"),
+    ("load_table", "load_table", "queue 1 item 16"),
+])
+def test_refused_sql_counts_as_fallbacks(case, op, item):
+    """A SELECT the algebra bridge does not lower (the JAX package runs
+    it on its host SELECT runner) and the device table catalog each name
+    their ROADMAP.md item and count in ``fallbacks``."""
     engine = ft.make_execution_engine(device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         _UNPORTED[case](engine)
