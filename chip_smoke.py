@@ -71,7 +71,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    by a float key with NaN and nulls descending, nulls first, and a
    two-key order; every case at 1 and 2^20 + 37 rows, the SQL phase's
    shapes and one frame of each unit at 100M; exactly but the float64
-   frame sums (``FRAME_SUM_RTOL`` and ``frame_sum_atol``).
+   frame sums (``FRAME_SUM_RTOL`` and ``frame_sum_atol``). Then K17
+   ``comap_presence`` and K18 ``comap_rows`` exactly (``comap_vs_twin``:
+   1, 2, 3 and 33 members, every zip type, prefix and masked layouts, a
+   member with no real row, sentinel ids, 1 and 2^24 segments; at 1,
+   2^20 + 37 and 100M rows) and K19 ``stream_fold``
+   (``stream_fold_vs_twin``: one and two keys, masked int64 and float64
+   payloads, int64 values beyond 2^53, folds before and after a rebase;
+   at 1, 2^20 + 37 and 10M rows; counts, int64 sums and extrema exactly,
+   float64 sums within ``FOLD_RTOL``).
 4. paths through the entry points, each with every launch count zeroed
    just before its cold run and read just after, checked against numpy:
    the main path (100M rows, an int32 key over 1024 groups and a float32
@@ -143,7 +151,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    suppliers, and with a null on the right, which keeps no row); each
    against numpy, with cold and best-of-5 warm seconds to the result
    frame on the card and its count, launches, the synchronizing
-   operations of one run, peak memory and device time.
+   operations of one run, peak memory and device time. Then the zip
+   paths through ``ft.zip`` + ``ft.transform`` (``zip_paths``,
+   ``COMAP_PATH_LAUNCHES``): BASELINE config 4 (``bench.py:921-998``,
+   seed 3) at 2,000 groups of 50 and at 100M rows (2M groups of 50, b 2M
+   rows), left, right and full outer zips of 10M by 5M rows whose keys
+   miss on each side, a three-member inner zip, a string key whose
+   dictionaries differ, a row-aligned output and a cross zip of 10^4 by
+   10^3 rows, each against pandas; then the streaming aggregate
+   (``stream_path``): 200M rows in 20 chunks of 10M through
+   ``ft.aggregate`` of a ``LocalDataFrameIterableDataFrame``, sum, count,
+   min, max and avg of an int64 and a float64 payload with 2 % nulls and
+   count(*) by (store, item), about 1M groups, at least one rebase, K19
+   once a chunk, against numpy accumulated chunk by chunk, its peak
+   memory held below the accumulators plus two chunks and printed beside
+   the whole frame's bytes.
 5. timing with CUDA events at the paths' shapes: each kernel beside its
    plain twin, one PyTorch call computing the same function where there
    is one, and its bound from the bytes it must move; the fused kernel's
@@ -166,7 +188,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``index_fill_`` (K12 at ``sample``'s shape, K13) or ``torch.all`` (K14);
    K15, K16 and K8's NOT IN mode at the SQL phase's shapes
    (``window_timing``), with K16's other routes, ``device_sort`` against
-   ``torch.sort`` and ``gather_indices`` against ``index_select``.
+   ``torch.sort`` and ``gather_indices`` against ``index_select``; K17
+   and K18 at config 4's 100M-row shape (``comap_timing``: K17 beside a
+   ``bincount`` a member) and K19 at a streaming chunk (``stream_timing``:
+   beside ``index_add_`` of one payload's sum).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -474,6 +499,7 @@ def binned_vs_twin(device: Any, kernel: Callable[..., Any]) -> float:
 def _wrappers() -> List[Callable[..., Any]]:
     """Every kernel wrapper, each with its launch count."""
     from fugue_tpu_torch.kernels import (
+        comap,
         expr_program,
         factorize,
         gather,
@@ -481,6 +507,7 @@ def _wrappers() -> List[Callable[..., Any]]:
         row_select,
         segment_reduce,
         segment_sums,
+        stream,
         window,
     )
 
@@ -493,7 +520,8 @@ def _wrappers() -> List[Callable[..., Any]]:
             join.join_build_cuda, join.join_probe_cuda, join.join_expand_cuda,
             gather.gather_rows_cuda, row_select.rank_keep_cuda,
             row_select.first_row_mask_cuda, row_select.null_count_keep_cuda,
-            window.window_rank_cuda, window.window_frame_cuda]
+            window.window_rank_cuda, window.window_frame_cuda, comap.comap_presence_cuda,
+            comap.comap_rows_cuda, stream.stream_fold_cuda]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -2251,10 +2279,12 @@ FLOAT64_SUM_RTOL = 1e-9  # float64 sums of float64 values in another order
 
 
 def _path_stats(label: str, rows: int, run_once: Callable[[], Tuple[float, Any, Any]],
-                device: Any, warm_runs: int) -> Tuple[Dict[str, Any], Any, Any]:
+                device: Any, warm_runs: int, launches: Optional[Dict[str, int]] = None
+                ) -> Tuple[Dict[str, Any], Any, Any]:
     """Cold and warm runs of one path with the launch counts of each,
     held to ``K6_PATH_LAUNCHES``, ``JOIN_PATH_LAUNCHES``,
-    ``STRING_PATH_LAUNCHES`` or ``RELATIONAL_PATH_LAUNCHES`` on the card;
+    ``STRING_PATH_LAUNCHES``, ``RELATIONAL_PATH_LAUNCHES``,
+    ``COMAP_PATH_LAUNCHES`` on the card, or to ``launches`` where given;
     returns the stats, the cold run's frame and pandas."""
     import torch
 
@@ -2268,8 +2298,9 @@ def _path_stats(label: str, rows: int, run_once: Callable[[], Tuple[float, Any, 
     best = min(warm) if warm else cold_secs
     want = dict.fromkeys(cold, 0)
     if device.type == "cuda":  # on the CPU every kernel runs as its twin
-        want.update({**K6_PATH_LAUNCHES, **JOIN_PATH_LAUNCHES, **STRING_PATH_LAUNCHES,
-                     **RELATIONAL_PATH_LAUNCHES}[label])
+        want.update(launches or {**K6_PATH_LAUNCHES, **JOIN_PATH_LAUNCHES,
+                                 **STRING_PATH_LAUNCHES, **RELATIONAL_PATH_LAUNCHES,
+                                 **COMAP_PATH_LAUNCHES}[label])
     warm_want = {k: 0 if k in CACHED_ON_FRAME.get(label, ()) else v * warm_runs
                  for k, v in want.items()}
     if cold != want or warm_launches != warm_want:
@@ -5168,6 +5199,763 @@ def window_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]
     return entries
 
 
+# ---- zip/co-map and streaming aggregation ---------------------------------
+
+CONFIG4_GROUPS, CONFIG4_PER, CONFIG4_SEED = 2_000, 50, 3  # bench.py:930-945
+CONFIG4_BIG_GROUPS = 2_000_000  # 100M rows of a, 2M of b
+ZIP_ROWS = (10_000_000, 5_000_000)  # the outer zips' members
+ZIP_KEYS = 2_000_000  # a's keys over [0, ZIP_KEYS), b's over [ZIP_KEYS / 2, 3 ZIP_KEYS / 2)
+ZIP_CROSS_ROWS = (10_000, 1_000)
+ZIP_SEED = 23
+STREAM_CHUNKS, STREAM_CHUNK_ROWS = 20, 10_000_000
+STREAM_STORES = 1_000  # store int32 over [0, 1000)
+STREAM_ITEMS = (800, 1_000)  # item int64 over [0, 800), from a quarter of the chunks [0, 1000)
+STREAM_NULLS = 0.02
+STREAM_SEED = 29
+FOLD_RTOL = 1e-9  # float64 sums, kernel against twin: atomics add in another order
+COMAP_RTOL = 1e-9  # float64 sums against pandas
+
+_ZIP_LAUNCHES = dict(bin_factorize=1, comap_presence=1, comap_rows=1)
+COMAP_PATH_LAUNCHES = {
+    "config4_inner": _ZIP_LAUNCHES,
+    "config4_inner_100m": _ZIP_LAUNCHES,
+    "zip_left_outer": _ZIP_LAUNCHES,
+    "zip_right_outer": _ZIP_LAUNCHES,
+    "zip_full_outer": _ZIP_LAUNCHES,
+    "zip_three_inner": _ZIP_LAUNCHES,
+    "zip_string_key": dict(_ZIP_LAUNCHES, expr_program=1),  # the harmonize re-coding
+    "zip_row_aligned": _ZIP_LAUNCHES,
+    "zip_cross": dict(comap_rows=1),
+}
+
+
+def comap_layout(device: Any, sizes: List[int], nrows: List[int]) -> Tuple[Any, Any]:
+    """``offsets`` and ``nrows`` (int64) of members of ``sizes`` rows."""
+    import numpy as np
+    import torch
+
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]), dtype=torch.int64,
+                           device=device)
+    return offsets, torch.tensor(nrows, dtype=torch.int64, device=device)
+
+
+def comap_cases(device: Any, n: int, seed: int, big_segments: int, full: bool
+                ) -> List[Tuple[str, Dict[str, Any]]]:
+    """K17's and K18's cases at ``n`` stacked rows: ``(label, keyword
+    arguments)``. 1, 2, 3 and 33 members (two presence words); every zip
+    type; a prefix layout (member 0 short by a few rows, adjacent rows of
+    one segment, as a co-partitioned frame has them) and a masked one
+    (70 % real, random segments); member 1 with no real row; 5 % sentinel
+    ids; 1 segment and ``big_segments``. Where not ``full``, 2 and 33
+    members and ``big_segments`` only."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import COMAP_HOWS
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cases = []
+    for members in (1, 2, 3, 33) if full else (2, 33):
+        if members > n:
+            continue
+        base = n // members
+        sizes = [base] * (members - 1) + [n - base * (members - 1)]
+        for layout in ("prefix", "masked"):
+            for num in (1, big_segments) if full else (big_segments,):
+                if layout == "prefix":
+                    per = max(n // num, 1)
+                    seg = (torch.arange(n, device=device) // per).clamp(max=num - 1)
+                    valid = None
+                    nrows = [max(s - (m % 3), 0) for m, s in enumerate(sizes)]
+                else:
+                    seg = torch.randint(0, num, (n,), generator=gen, device=device)
+                    valid = torch.rand((n,), generator=gen, device=device) < 0.7
+                    nrows = list(sizes)
+                seg = seg.to(torch.int32)
+                seg[torch.rand((n,), generator=gen, device=device) < 0.05] = num  # sentinels
+                if members > 1:  # member 1 without a real row
+                    if valid is None:
+                        nrows[1] = 0
+                    else:
+                        valid[sizes[0]: sizes[0] + sizes[1]] = False
+                offsets, nr = comap_layout(device, sizes, nrows)
+                for how in COMAP_HOWS:
+                    s, g = (torch.zeros_like(seg), 1) if how == "cross" else (seg, num)
+                    cases.append((f"{members} members {layout} S={g} {how}", dict(
+                        seg=s, num_segments=g, offsets=offsets, nrows=nr, how=how,
+                        valid=valid)))
+    return cases
+
+
+def comap_vs_twin(device: Any, sizes: Tuple[int, ...], big_segments: int = 1 << 24) -> None:
+    """K17 and K18 against their twins, exactly, at each size of ``sizes``
+    (all of ``comap_cases`` up to 2^21 rows, its large cases above)."""
+    import torch
+
+    from fugue_tpu_torch.kernels import comap
+    from fugue_tpu_torch.kernels.reference import (
+        comap_presence_reference,
+        comap_rows_reference,
+    )
+
+    checked = 0
+    for n in sizes:
+        for label, kw in comap_cases(device, n, SEED + n, big_segments, n <= (1 << 21)):
+            label = f"comap n={n} {label}"
+            how = kw.pop("how")
+            seg, num = kw.pop("seg"), kw.pop("num_segments")
+            presence = want_presence = None
+            if how != "cross":
+                presence = comap.comap_presence_cuda(seg, num, **kw)
+                want_presence = comap_presence_reference(seg, num, **kw)
+                _same(f"{label} presence", presence, want_presence)
+            got = comap.comap_rows_cuda(seg, presence, num, how=how, **kw)
+            want = comap_rows_reference(seg, want_presence, num, how=how, **kw)
+            for name, g, w in zip(got._fields, got, want):
+                _same(f"{label} {name}", g, w)
+            checked += 1
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+    print(f"comap_vs_twin: {checked} cases equal at {sizes} rows")
+
+
+def fold_ops() -> List[Any]:
+    """Every kind of K19's accumulator updates over an int64 payload (0)
+    and a float64 one (1), as ``StreamingAggregator`` lays them out."""
+    from fugue_tpu_torch.kernels.reference import FoldOp
+
+    kinds = [("rows", -1), ("count", 0), ("sum_i", 0), ("sum_if", 0), ("min_i", 0),
+             ("max_i", 0), ("count", 1), ("sum_f", 1), ("min_f", 1), ("max_f", 1)]
+    return [FoldOp(k, p, j) for j, (k, p) in enumerate(kinds)]
+
+
+def fold_store(ops: List[Any], slots: int, device: Any) -> Any:
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import fold_init
+
+    init = torch.tensor([fold_init(op.kind) for op in ops], dtype=torch.int64)
+    return init.to(device).unsqueeze(0).repeat(slots, 1)
+
+
+def fold_chunk(device: Any, n: int, bounds: List[Tuple[int, int]], gen: Any, huge: bool
+               ) -> Tuple[List[Any], List[Any]]:
+    """``n`` rows of keys within ``bounds`` and an int64 and a float64
+    payload, each with 5 % masked; ``huge``: int64 values beyond 2^53."""
+    import torch
+
+    keys = [torch.randint(lo, lo + span, (n,), generator=gen, device=device)
+            for lo, span in bounds]
+    if huge:
+        ints = (1 << 60) + torch.randint(-(1 << 40), 1 << 40, (n,), generator=gen, device=device)
+    else:
+        ints = torch.randint(-1000, 1000, (n,), generator=gen, device=device)
+    floats = torch.randn((n,), generator=gen, device=device, dtype=torch.float64)
+    payloads = [(v, torch.rand((n,), generator=gen, device=device) > 0.05)
+                for v in (ints, floats)]
+    return keys, payloads
+
+
+def check_fold(label: str, ops: List[Any], got: Any, want: Any) -> float:
+    """Counts, int64 sums and extrema exactly; float64 sums within
+    ``FOLD_RTOL``. Returns the largest relative float difference."""
+    import torch
+
+    worst = 0.0
+    for op in ops:
+        g, w = got[:, op.acc], want[:, op.acc]
+        if op.kind in ("sum_f", "sum_if"):
+            g, w = g.view(torch.float64), w.view(torch.float64)
+            diff = (g - w).abs()
+            tol = FOLD_RTOL * w.abs() + 1e-300
+            if bool((diff > tol).any()):
+                raise SystemExit(f"FAIL {label} {op.kind}: float sums differ by "
+                                 f"{float(diff.max())}")
+            rel = diff / w.abs().clamp(min=1e-300)
+            worst = max(worst, float(rel.max()) if rel.numel() else 0.0)
+        elif not torch.equal(g, w):
+            raise SystemExit(f"FAIL {label} {op.kind}: differs from its twin")
+    return worst
+
+
+def stream_fold_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
+    """K19 against its twin at each size of ``sizes``: one key and two
+    keys; int64 payloads small and beyond 2^53; two folds into one
+    store, then a rebase onto a wider space (the same ``index_copy_`` on
+    both stores) and a third fold over the new keys. Counts, int64 sums
+    and extrema exactly, float64 sums within ``FOLD_RTOL``."""
+    import torch
+
+    from fugue_tpu_torch.kernels import stream
+    from fugue_tpu_torch.kernels.reference import stream_fold_reference
+    from fugue_tpu_torch.torch_backend.streaming import _Space
+
+    ops = fold_ops()
+    worst = 0.0
+    for n in sizes:
+        gen = torch.Generator(device=device).manual_seed(SEED + n)
+        for nkeys in (1, 2):
+            for huge in (False, True):
+                label = f"stream_fold n={n} keys={nkeys} huge={huge}"
+                old = _Space([(0, 999), (-50, 49)][:nkeys])
+                new = _Space([(-20, 1099), (-50, 59)][:nkeys])
+                got, want = fold_store(ops, old.total, device), fold_store(ops, old.total, device)
+                for _ in range(2):
+                    keys, payloads = fold_chunk(device, n, old.spans, gen, huge)
+                    stream.stream_fold_cuda(keys, old.spans, payloads, ops, got)
+                    stream_fold_reference(keys, old.spans, payloads, ops, want)
+                worst = max(worst, check_fold(label, ops, got, want))
+                new_seg = new.seg(old.decode(torch.arange(old.total, device=device)))
+                got = fold_store(ops, new.total, device).index_copy_(0, new_seg, got)
+                want = fold_store(ops, new.total, device).index_copy_(0, new_seg, want)
+                keys, payloads = fold_chunk(device, n, new.spans, gen, huge)
+                stream.stream_fold_cuda(keys, new.spans, payloads, ops, got)
+                stream_fold_reference(keys, new.spans, payloads, ops, want)
+                worst = max(worst, check_fold(f"{label} rebased", ops, got, want))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    print(f"stream_fold_vs_twin: equal at {sizes} rows (float sums max rel err {worst})")
+    return worst
+
+
+def comap_udfs() -> Dict[str, Callable[..., Any]]:
+    """The cotransformers of the zip paths, annotated one ``Dict[str,
+    torch.Tensor]`` a member: per-key sums over ``_num_segments + 1``
+    buckets with ``index_add_`` (torch's scatter ops raise on the sentinel
+    id, so the last bucket takes it and is cut off):
+
+    - ``config4``: ``cm_jax`` of ``bench.py:958-976``, the key and
+      ``SUM(a.v) + SUM(b.w)``;
+    - ``outer``: the key present on either side and each side's sum and
+      row count;
+    - ``three``: ``SUM(a.v) + 2 SUM(b.w) + 3 SUM(c.x)`` by key;
+    - ``strings``: the string key (member a's codes and dictionary) and
+      ``SUM(a.v) + SUM(b.w)``;
+    - ``rows``: row-aligned with member a, each row's ``v`` plus its key's
+      ``SUM(b.w)`` (``cm_rows``, ``test_comap_compiled.py:73``);
+    - ``cross``: one row of both members' row counts and the product of
+      their sums."""
+    import torch
+
+    Cols = Dict[str, torch.Tensor]
+
+    def seg_sum(d: Cols, col: str) -> Any:
+        s = d["_num_segments"]
+        out = torch.zeros((s + 1,), dtype=d[col].dtype, device=d[col].device)
+        return out.index_add_(0, d["_segment_ids"], torch.where(d["_row_valid"], d[col], 0))[:s]
+
+    def seg_count(d: Cols) -> Any:
+        s = d["_num_segments"]
+        out = torch.zeros((s + 1,), dtype=torch.int64, device=d["_row_valid"].device)
+        return out.index_add_(0, d["_segment_ids"], d["_row_valid"].to(torch.int64))[:s]
+
+    def seg_key(d: Cols, col: str) -> Any:
+        s = d["_num_segments"]
+        key = d[col].to(torch.int64)
+        out = torch.full((s + 1,), -(2**31), dtype=torch.int64, device=key.device)
+        return out.scatter_reduce_(0, d["_segment_ids"].long(),
+                                   torch.where(d["_row_valid"], key, -(2**31)), "amax")[:s]
+
+    def config4(a: Cols, b: Cols) -> Cols:
+        return {"k": seg_key(a, "k"), "s": seg_sum(a, "v") + seg_sum(b, "w")}
+
+    def outer(a: Cols, b: Cols) -> Cols:
+        return {"k": torch.maximum(seg_key(a, "k"), seg_key(b, "k")), "sa": seg_sum(a, "v"),
+                "sb": seg_sum(b, "w"), "na": seg_count(a), "nb": seg_count(b)}
+
+    def three(a: Cols, b: Cols, c: Cols) -> Cols:
+        return {"k": seg_key(a, "k"),
+                "s": seg_sum(a, "v") + 2.0 * seg_sum(b, "w") + 3.0 * seg_sum(c, "x")}
+
+    def strings(a: Cols, b: Cols) -> Cols:
+        return {"s": seg_key(a, "s").to(torch.int32), "_s_dict": a["_s_dict"],
+                "t": seg_sum(a, "v") + seg_sum(b, "w")}
+
+    def rows(a: Cols, b: Cols) -> Cols:
+        s = a["_num_segments"]
+        sw = seg_sum(b, "w")
+        return {"k": a["k"], "d": a["v"] + sw[a["_segment_ids"].clamp(max=s - 1).long()]}
+
+    def cross(a: Cols, b: Cols) -> Cols:
+        n = torch.stack([a["_nrows"], b["_nrows"]]).to(torch.int64)
+        return {"na": n[:1], "nb": n[1:], "p": seg_sum(a, "v") * seg_sum(b, "w")}
+
+    return {"config4": config4, "outer": outer, "three": three, "strings": strings,
+            "rows": rows, "cross": cross}
+
+
+def config4_frames(groups: int) -> Tuple[Any, Any]:
+    """BASELINE config 4's frames (``bench.py:930-945``, seed 3): ``a``
+    holds ``groups`` keys of 50 rows each (``k`` int64 repeated, ``v``
+    float64 uniform), ``b`` one row a key (``w`` float64 uniform)."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(CONFIG4_SEED)
+    n = groups * CONFIG4_PER
+    a = pd.DataFrame({"k": np.repeat(np.arange(groups, dtype=np.int64), CONFIG4_PER),
+                      "v": rng.random(n)})
+    b = pd.DataFrame({"k": np.arange(groups, dtype=np.int64), "w": rng.random(groups)})
+    return a, b
+
+
+def zip_frames(rows: Tuple[int, int], seed: int) -> Dict[str, Any]:
+    """The other zip paths' frames: ``a`` of ``rows[0]`` rows with ``k``
+    int64 uniform over [0, ZIP_KEYS), ``b`` of ``rows[1]`` rows over
+    [ZIP_KEYS / 2, 3 ZIP_KEYS / 2) (keys missing on each side), ``c`` of
+    ``rows[1]`` rows over [ZIP_KEYS / 4, 5 ZIP_KEYS / 4); ``v``, ``w``,
+    ``x`` float64; ``rb``: one row a key over [1000, ZIP_KEYS / 2) (the
+    row-aligned path's other side); ``s``/``sd``: 10,000 names for ``a``'s
+    rows and a dimension table of them in another order with ``w``."""
+    import numpy as np
+    import pandas as pd
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    na, nb = rows
+    half = ZIP_KEYS // 2
+    a = pd.DataFrame({"k": rng.integers(0, ZIP_KEYS, na), "v": rng.random(na)})
+    b = pd.DataFrame({"k": rng.integers(half, half + ZIP_KEYS, nb), "w": rng.random(nb)})
+    c = pd.DataFrame({"k": rng.integers(half // 2, half // 2 + ZIP_KEYS, nb),
+                      "x": rng.random(nb)})
+    rb = pd.DataFrame({"k": np.arange(1000, half, dtype=np.int64),
+                       "w": rng.random(half - 1000)})
+    names = sku_names(rng.choice(SKU_SPACE, SKUS, replace=False))
+    codes = rng.integers(0, SKUS, na).astype(np.int32)
+    s = pa.table({"s": _string_array(codes, None, names), "v": pa.array(a.v.to_numpy())})
+    order = rng.permutation(SKUS)
+    sd = pa.table({"s": pa.array([names[i] for i in order], pa.string()),
+                   "w": pa.array(rng.random(SKUS))})
+    return {"a": a, "b": b, "c": c, "rb": rb, "s": s, "sd": sd, "codes": codes,
+            "names": names, "order": order}
+
+
+def _sum_by(keys: Any, vals: Any) -> Any:
+    import pandas as pd
+
+    return pd.Series(vals).groupby(keys).sum()
+
+
+def zip_oracle(label: str, d: Dict[str, Any]) -> Any:
+    """pandas' answer of a zip path: a frame sorted by its key."""
+    import pandas as pd
+
+    a, b = d["a"], d["b"]
+    how = {"zip_left_outer": "left", "zip_right_outer": "right",
+           "zip_full_outer": "outer"}.get(label)
+    if how is not None:
+        sa, sb = a.groupby("k").v.agg(["sum", "count"]), b.groupby("k").w.agg(["sum", "count"])
+        j = sa.join(sb, how=how, lsuffix="a", rsuffix="b").fillna(0)
+        return pd.DataFrame({"k": j.index.to_numpy(), "sa": j.suma.to_numpy(),
+                             "sb": j.sumb.to_numpy(), "na": j.counta.to_numpy(),
+                             "nb": j.countb.to_numpy()})
+    if label == "zip_three_inner":
+        s = pd.concat([a.groupby("k").v.sum(), 2.0 * b.groupby("k").w.sum(),
+                       3.0 * d["c"].groupby("k").x.sum()], axis=1, join="inner").sum(axis=1)
+        return pd.DataFrame({"k": s.index.to_numpy(), "s": s.to_numpy()})
+    if label == "zip_string_key":
+        sv = _sum_by(d["codes"], a.v.to_numpy())
+        sw = pd.Series(d["sd"].column("w").to_numpy(), index=d["order"])
+        t = (sv + sw).dropna()
+        return pd.DataFrame({"s": [d["names"][i] for i in t.index], "t": t.to_numpy()})
+    if label == "zip_row_aligned":
+        rb = d["rb"]
+        keep = a.k.isin(rb.k)
+        w = pd.Series(rb.w.to_numpy(), index=rb.k.to_numpy())
+        out = pd.DataFrame({"k": a.k[keep].to_numpy(),
+                            "d": a.v[keep].to_numpy() + w.reindex(a.k[keep]).to_numpy()})
+        return out
+    if label == "zip_cross":
+        return pd.DataFrame({"na": [len(d["xa"])], "nb": [len(d["xb"])],
+                             "p": [d["xa"].v.sum() * d["xb"].w.sum()]})
+    s = a.groupby("k").v.sum() + b.groupby("k").w.sum()  # config 4
+    return pd.DataFrame({"k": s.index.to_numpy(), "s": s.to_numpy()})
+
+
+def check_zip(label: str, got: Any, want: Any) -> None:
+    """The same columns and rows as pandas' answer, sorted by the key
+    (both sides' rows in a row-aligned output): keys and counts exactly,
+    float64 within ``COMAP_RTOL``."""
+    import numpy as np
+
+    key = [c for c in ("k", "s", "na") if c in want.columns][0]
+    by = [key, "d"] if "d" in want.columns else [key]
+    g = got.sort_values(by, kind="stable").reset_index(drop=True)
+    w = want.sort_values(by, kind="stable").reset_index(drop=True)
+    if list(g.columns) != list(w.columns) or len(g) != len(w):
+        raise SystemExit(f"FAIL {label}: {list(g.columns)} x {len(g)} rows against "
+                         f"{list(w.columns)} x {len(w)}")
+    for c in w.columns:
+        gv, wv = g[c].to_numpy(), w[c].to_numpy()
+        if wv.dtype.kind == "f" and c not in ("na", "nb"):
+            if not np.allclose(gv, wv, rtol=COMAP_RTOL, atol=0):
+                raise SystemExit(f"FAIL {label} {c}: max diff {np.abs(gv - wv).max()}")
+        elif not np.array_equal(gv.astype(wv.dtype) if wv.dtype.kind != "O" else gv, wv):
+            raise SystemExit(f"FAIL {label} {c}: differs from pandas")
+
+
+def build_zip_paths(device: Any, config4_groups: Tuple[int, ...], rows: Tuple[int, int],
+                    cross_rows: Tuple[int, int]
+                    ) -> Tuple[Dict[str, Callable[[], Tuple[float, Any, Any]]],
+                               Dict[str, Callable[[], Any]], Dict[str, Any], Any]:
+    """Every zip path's frames uploaded, and per path ``run_once`` (zip,
+    transform, the result to pandas: ``(seconds, frame, pandas)``) and
+    ``comap_once`` (zip and transform only), the data and the engine."""
+    import numpy as np
+    import pandas as pd
+
+    import fugue_tpu_torch as ft
+
+    e = ft.make_execution_engine(device=device)
+    cm = comap_udfs()
+    runs: Dict[str, Callable[[], Tuple[float, Any, Any]]] = {}
+    comaps: Dict[str, Callable[[], Any]] = {}
+    data: Dict[str, Any] = {}
+
+    def add(label: str, frames: List[Any], fn: Any, schema: str, how: str = "inner",
+            partition: Any = "k") -> None:
+        def comap_once() -> Any:
+            z = ft.zip(*frames, how=how, partition=partition, engine=e)
+            return ft.transform(z, fn, schema, engine=e, as_fugue=True)
+
+        def run_once() -> Tuple[float, Any, Any]:
+            sync(device)
+            t = time.perf_counter()
+            frame = comap_once()
+            pdf = frame.as_pandas()
+            return time.perf_counter() - t, frame, pdf
+
+        runs[label], comaps[label] = run_once, comap_once
+
+    for groups in config4_groups:
+        a, b = config4_frames(groups)
+        label = "config4_inner" if groups == CONFIG4_GROUPS else "config4_inner_100m"
+        data[label] = {"a": a, "b": b}
+        add(label, [e.persist(a), e.persist(b)], cm["config4"], "k:long,s:double")
+    d = zip_frames(rows, ZIP_SEED)
+    xa = pd.DataFrame({"i": np.arange(cross_rows[0]), "v": d["a"].v[: cross_rows[0]].to_numpy()})
+    xb = pd.DataFrame({"j": np.arange(cross_rows[1]), "w": d["b"].w[: cross_rows[1]].to_numpy()})
+    d.update(xa=xa, xb=xb)
+    ta, tb, tc = e.persist(d["a"]), e.persist(d["b"]), e.persist(d["c"])
+    for how in ("left_outer", "right_outer", "full_outer"):
+        data[f"zip_{how}"] = d
+        add(f"zip_{how}", [ta, tb], cm["outer"], "k:long,sa:double,sb:double,na:long,nb:long",
+            how=how)
+    data["zip_three_inner"] = d
+    add("zip_three_inner", [ta, tb, tc], cm["three"], "k:long,s:double")
+    data["zip_string_key"] = d
+    add("zip_string_key", [e.persist(d["s"]), e.persist(d["sd"])], cm["strings"],
+        "s:str,t:double", partition="s")
+    data["zip_row_aligned"] = d
+    add("zip_row_aligned", [ta, e.persist(d["rb"])], cm["rows"], "k:long,d:double")
+    data["zip_cross"] = d
+    add("zip_cross", [e.persist(xa), e.persist(xb)], cm["cross"], "na:long,nb:long,p:double",
+        how="cross", partition=None)
+    return runs, comaps, data, e
+
+
+def sync(device: Any) -> None:
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+
+
+def zip_paths(device: Any, config4_groups: Tuple[int, ...], rows: Tuple[int, int],
+              cross_rows: Tuple[int, int], warm_runs: int) -> List[Dict[str, Any]]:
+    """Every zip path through ``ft.zip`` + ``ft.transform``, each against
+    pandas (``zip_oracle``), its launches held to ``COMAP_PATH_LAUNCHES``
+    on the card, with cold and best warm seconds, rows/s, peak memory, the
+    synchronizing operations of one co-map (``_syncs_in``) and the device
+    time of one run."""
+    import torch
+
+    sync(device)  # CUDA up before its memory statistics are reset
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    runs, comaps, data, _ = build_zip_paths(device, config4_groups, rows, cross_rows)
+    print(f"zip_paths: frames built and uploaded in {time.perf_counter() - t:.1f}s")
+    out = []
+    for label, run_once in runs.items():
+        d = data[label]
+        n = sum(len(d[k]) for k in ("a", "b")) if label.startswith("config4") else rows[0]
+        stats, frame, got = _path_stats(label, n, run_once, device, warm_runs)
+        check_zip(label, got, zip_oracle(label, d))
+        stats["out_rows"] = len(got)
+        stats["syncs_in_one_comap"] = _syncs_in(comaps[label])
+        stats["device_ms"] = device_busy_ms(run_once, device)
+        out.append(stats)
+        del frame, got
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def stream_chunks(chunks: int, chunk_rows: int, seed: int) -> List[Any]:
+    """The streaming path's chunks as pandas frames: ``store`` int32 over
+    [0, STREAM_STORES), ``item`` int64 over [0, STREAM_ITEMS[0]) and, from
+    chunk ``chunks // 4`` on (5 of 20), [0, STREAM_ITEMS[1]); ``qty`` int64 over [1, 100]
+    and ``price`` float64 over [0, 100), each with STREAM_NULLS nulls (a
+    null ``qty`` is NaN, as pandas holds a nullable integer)."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(chunks):
+        items = STREAM_ITEMS[i >= max(chunks // 4, 1)]
+        qty = rng.integers(1, 101, chunk_rows).astype(np.float64)
+        qty[rng.random(chunk_rows) < STREAM_NULLS] = np.nan
+        price = rng.random(chunk_rows) * 100.0
+        price[rng.random(chunk_rows) < STREAM_NULLS] = np.nan
+        out.append(pd.DataFrame({
+            "store": rng.integers(0, STREAM_STORES, chunk_rows).astype(np.int32),
+            "item": rng.integers(0, items, chunk_rows).astype(np.int64),
+            "qty": qty, "price": price}))
+    return out
+
+
+STREAM_AGGS = ("sum", "count", "min", "max", "avg")
+
+
+def stream_oracle(chunks: List[Any]) -> Dict[str, Any]:
+    """numpy's answer, accumulated chunk by chunk over the final key space
+    (store x item): per group the rows, and per payload its valid count,
+    sum, min and max."""
+    import numpy as np
+
+    slots = STREAM_STORES * STREAM_ITEMS[1]
+    acc = {"rows": np.zeros(slots, dtype=np.int64)}
+    for c in ("qty", "price"):
+        acc[f"{c}_count"] = np.zeros(slots, dtype=np.int64)
+        acc[f"{c}_sum"] = np.zeros(slots, dtype=np.float64)
+        acc[f"{c}_min"] = np.full(slots, np.inf)
+        acc[f"{c}_max"] = np.full(slots, -np.inf)
+    for pdf in chunks:
+        g = pdf.store.to_numpy().astype(np.int64) * STREAM_ITEMS[1] + pdf.item.to_numpy()
+        acc["rows"] += np.bincount(g, minlength=slots)
+        for c in ("qty", "price"):
+            v = pdf[c].to_numpy()
+            ok = ~np.isnan(v)
+            gv, vv = g[ok], v[ok]
+            acc[f"{c}_count"] += np.bincount(gv, minlength=slots)
+            acc[f"{c}_sum"] += np.bincount(gv, weights=vv, minlength=slots)
+            np.minimum.at(acc[f"{c}_min"], gv, vv)
+            np.maximum.at(acc[f"{c}_max"], gv, vv)
+    return acc
+
+
+def check_stream(got: Any, want: Dict[str, Any]) -> float:
+    """The streaming aggregate against ``stream_oracle``: the occupied
+    groups in slot order, counts, the qty sums (exact in float64 at this
+    size) and extrema exactly, price sums and both averages within
+    ``COMAP_RTOL``. Returns the largest relative difference."""
+    import numpy as np
+
+    occ = np.flatnonzero(want["rows"])
+    if len(got) != len(occ):
+        raise SystemExit(f"FAIL stream_200m: {len(got)} groups, numpy has {len(occ)}")
+    if not (np.array_equal(got.store.to_numpy(), occ // STREAM_ITEMS[1])
+            and np.array_equal(got.item.to_numpy(), occ % STREAM_ITEMS[1])):
+        raise SystemExit("FAIL stream_200m: the groups' keys differ from numpy's")
+    if not np.array_equal(got.n.to_numpy(), want["rows"][occ]):
+        raise SystemExit("FAIL stream_200m: count(*) differs")
+    worst = 0.0
+    for c in ("qty", "price"):
+        cnt = want[f"{c}_count"][occ]
+        exact = {"count": cnt, "min": want[f"{c}_min"][occ], "max": want[f"{c}_max"][occ]}
+        near = {"avg": want[f"{c}_sum"][occ] / np.maximum(cnt, 1)}
+        (exact if c == "qty" else near)["sum"] = want[f"{c}_sum"][occ]
+        for f, w in exact.items():
+            g = got[f"{c}_{f}"].to_numpy(dtype=np.float64, na_value=np.nan)
+            w = np.where(cnt > 0, w, np.nan) if f != "count" else w
+            if not np.array_equal(g, w, equal_nan=True):
+                raise SystemExit(f"FAIL stream_200m: {c} {f} differs from numpy")
+        for f, w in near.items():
+            g = got[f"{c}_{f}"].to_numpy(dtype=np.float64, na_value=np.nan)
+            ok = cnt > 0
+            rel = np.abs(g[ok] - w[ok]) / np.maximum(np.abs(w[ok]), 1e-300)
+            if not (rel <= COMAP_RTOL).all() or not np.isnan(g[~ok]).all():
+                raise SystemExit(f"FAIL stream_200m: {c} {f} off by {rel.max()}")
+            worst = max(worst, float(rel.max()) if rel.size else 0.0)
+    return worst
+
+
+def stream_path(device: Any, chunks: int, chunk_rows: int, warm_runs: int) -> Dict[str, Any]:
+    """The streaming aggregate through ``ft.aggregate`` of a
+    ``LocalDataFrameIterableDataFrame`` of ``chunks`` chunks of
+    ``chunk_rows`` rows (``stream_chunks``): sum, count, min, max and avg
+    of ``qty`` and ``price`` and count(*) by (store, item), K19 once a
+    chunk, at least one rebase (the item range widens a quarter of the way
+    through), against numpy accumulated chunk by chunk. Peak device
+    memory above what the run found allocated must stay below the
+    accumulators plus two chunks on the card in every run; it is printed
+    beside the whole frame's bytes. The chunks are made once (set-up) and
+    each run streams them anew."""
+    import torch
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch import col
+    from fugue_tpu_torch.column import functions as ff
+
+    t = time.perf_counter()
+    data = stream_chunks(chunks, chunk_rows, STREAM_SEED)
+    gen_secs = time.perf_counter() - t
+    t = time.perf_counter()
+    want = stream_oracle(data)
+    oracle_secs = time.perf_counter() - t
+    e = ft.make_execution_engine(device=device)
+    aggs = {f"{c}_{f}": getattr(ff, f)(col(c)) for c in ("qty", "price") for f in STREAM_AGGS}
+    aggs["n"] = ff.count(col("*"))
+    schema = "store:int,item:long,qty:long,price:double"
+    rebases: List[int] = []
+    peaks: List[int] = []  # a run's peak device memory above what it found allocated
+
+    def run_once() -> Tuple[float, Any, Any]:
+        sync(device)
+        start = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        src = ft.LocalDataFrameIterableDataFrame(iter(data), schema)
+        frame = ft.aggregate(src, ["store", "item"], engine=e, as_fugue=True, **aggs)
+        pdf = frame.as_pandas()
+        secs = time.perf_counter() - t
+        rebases.append(e.stream_stats["rebases"])
+        if device.type == "cuda":
+            peaks.append(torch.cuda.max_memory_allocated(device) - start)
+        return secs, frame, pdf
+
+    # K19 once a chunk, nothing else
+    stats, frame, got = _path_stats("stream_200m", chunks * chunk_rows, run_once, device,
+                                    warm_runs, launches=dict(stream_fold=chunks))
+    if e.fallbacks:
+        raise SystemExit(f"FAIL stream_200m: fell back {e.fallbacks}")
+    if min(rebases) < 1:
+        raise SystemExit(f"FAIL stream_200m: rebases a run {rebases}, expected at least 1")
+    worst = check_stream(got, want)
+    slots = STREAM_STORES * STREAM_ITEMS[1]
+    acc_bytes = 20 * slots * 8  # the store's rows: _count, 9 a payload, count(*)
+    chunk_bytes = chunk_rows * (5 * 8 + 3)  # 2 keys and 3 payloads as int64, 3 masks
+    frame_bytes = sum(int(p.memory_usage(index=False).sum()) + 2 * len(p) for p in data)
+    peak = max(peaks) if peaks else None
+    if peak is not None and peak > acc_bytes + 2 * chunk_bytes:
+        raise SystemExit(f"FAIL stream_200m: peak {peak} B above the accumulators and two "
+                         f"chunks ({acc_bytes + 2 * chunk_bytes} B)")
+    stats.update(
+        groups=len(got), rebases_per_run=rebases[0], max_rel_err=worst,
+        peak_over_start_bytes=peak, accumulator_bytes=acc_bytes, chunk_device_bytes=chunk_bytes,
+        whole_frame_bytes=frame_bytes, generate_secs=gen_secs, numpy_secs=oracle_secs,
+        device_ms=device_busy_ms(run_once, device),
+        scale_cut="200M rows, not larger than memory: cut by host generation time and the "
+                  "script's time limit")
+    del frame, got, data
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return stats
+
+
+def comap_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """K17 and K18 at config 4's 100M-row shape (a: 100M rows, 50 a key in
+    order; b: 2M rows, one a key; 2M segments; prefix frames), beside
+    their twins; K17's bound is its 4 B of ``seg`` a row and the 4 B
+    presence word a segment written, its one PyTorch call a ``bincount``
+    a member; K18's bound ``seg`` read, ``row_alive`` and ``seg_out``
+    written a row (9 B) and the words read and ``alive`` written a
+    segment (5 B), with no one call."""
+    import torch
+
+    from fugue_tpu_torch.kernels import comap
+    from fugue_tpu_torch.kernels.reference import comap_presence_reference, comap_rows_reference
+
+    groups = CONFIG4_BIG_GROUPS
+    na, nb = groups * CONFIG4_PER, groups
+    seg = torch.cat([torch.arange(na, device=device) // CONFIG4_PER,
+                     torch.arange(nb, device=device)]).to(torch.int32)
+    offsets, nrows = comap_layout(device, [na, nb], [na, nb])
+    kw = dict(offsets=offsets, nrows=nrows)
+    presence = comap.comap_presence_cuda(seg, groups, **kw)
+    _same("comap_presence timed", presence, comap_presence_reference(seg, groups, **kw))
+    got = comap.comap_rows_cuda(seg, presence, groups, how="inner", **kw)
+    want = comap_rows_reference(seg, presence, groups, how="inner", **kw)
+    for name, g, w in zip(got._fields, got, want):
+        _same(f"comap_rows timed {name}", g, w)
+    sa, sb = seg[:na].long(), seg[na:].long()
+    n = na + nb
+    entries = [
+        _kernel_entry(
+            "comap_presence", "fugue_tpu/jax_backend/comap_compiled.py:335",
+            launches["comap_presence"], 0.0,
+            time_cuda(lambda: comap.comap_presence_cuda(seg, groups, **kw), 20),
+            time_cuda(lambda: comap_presence_reference(seg, groups, **kw), 5),
+            n * 4 + groups * 4, 0,
+            time_cuda(lambda: (torch.bincount(sa, minlength=groups),
+                               torch.bincount(sb, minlength=groups)), 20),
+            source="comap.cu"),
+        _kernel_entry(
+            "comap_rows", "fugue_tpu/jax_backend/comap_compiled.py:342",
+            launches["comap_rows"], 0.0,
+            time_cuda(lambda: comap.comap_rows_cuda(seg, presence, groups, how="inner", **kw),
+                      20),
+            time_cuda(lambda: comap_rows_reference(seg, presence, groups, how="inner", **kw), 5),
+            n * (4 + 1 + 4) + groups * (4 + 1), 0, None, source="comap.cu"),
+    ]
+    for e in entries:
+        print("comap timed: " + json.dumps(e))
+    return entries
+
+
+def stream_timing(device: Any, launches: int) -> Dict[str, Any]:
+    """K19 at the streaming path's shape: one chunk of STREAM_CHUNK_ROWS
+    rows, 2 keys, 3 payloads (qty int64, price float64 and the key's
+    count(*)) with masks, the 20 accumulators of its aggregate over
+    STREAM_STORES x STREAM_ITEMS[1] slots, beside its twin; its bound
+    reads 8 B a key and 9 B a payload a row and each touched slot's
+    accumulators once (8 B read and 8 B written each), its one PyTorch
+    call the ``index_add_`` of one payload's sum."""
+    import torch
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch import Schema
+    from fugue_tpu_torch.kernels import stream
+    from fugue_tpu_torch.kernels.reference import stream_fold_reference
+    from fugue_tpu_torch.torch_backend.streaming import StreamingAggregator
+
+    n = STREAM_CHUNK_ROWS
+    schema = Schema("store:int,item:long,qty:long,price:double")
+    plans = [(f"{c}_{f}", f, c) for c in ("qty", "price") for f in STREAM_AGGS]
+    plans.append(("n", "count", "store"))
+
+    agg = StreamingAggregator(ft.make_execution_engine(device=device), schema,
+                              ["store", "item"], plans)
+    ops = agg._ops
+    slots = STREAM_STORES * STREAM_ITEMS[1]
+    bounds = [(0, STREAM_STORES), (0, STREAM_ITEMS[1])]
+    gen = torch.Generator(device=device).manual_seed(STREAM_SEED)
+    keys = [torch.randint(0, span, (n,), generator=gen, device=device) for _, span in bounds]
+    qty = torch.randint(1, 101, (n,), generator=gen, device=device)
+    price = torch.rand((n,), generator=gen, device=device, dtype=torch.float64) * 100.0
+    masks = [torch.rand((n,), generator=gen, device=device) > STREAM_NULLS for _ in range(3)]
+    payloads = [(price, masks[0]), (qty, masks[1]), (keys[0], masks[2])]  # sorted names
+    got = stream.stream_fold_cuda(keys, bounds, payloads, ops, agg._make_init(slots))
+    want = stream_fold_reference(keys, bounds, payloads, ops, agg._make_init(slots))
+    err = check_fold("stream_fold timed", ops, got, want)
+    store = agg._make_init(slots)
+    seg = keys[0] * STREAM_ITEMS[1] + keys[1]
+    touched = int(torch.unique(seg).numel())
+    sums = torch.zeros((slots,), dtype=torch.float64, device=device)
+    entry = _kernel_entry(
+        "stream_fold", "fugue_tpu/jax_backend/streaming.py:295", launches, err,
+        time_cuda(lambda: stream.stream_fold_cuda(keys, bounds, payloads, ops, store), 20),
+        time_cuda(lambda: stream_fold_reference(keys, bounds, payloads, ops, store), 3),
+        n * (2 * 8 + 3 * 9) + touched * len(ops) * 16, 0,
+        time_cuda(lambda: sums.index_add_(0, seg, price), 20), source="stream.cu",
+        ops_per_s=FP64_OPS_PER_S)
+    print("stream timed: " + json.dumps(entry))
+    return entry
+
+
 _ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -5232,6 +6020,12 @@ def main() -> None:
     worst = window_vs_twin(device, (1, (1 << 20) + 37, ROWS))
     print(f"kernels checked against their twins: window_rank, window_frame (equal; float64 "
           f"frame sums max_abs_err={worst})")
+    torch.cuda.empty_cache()
+    comap_vs_twin(device, (1, (1 << 20) + 37, ROWS))
+    print("kernels checked against their twins: comap_presence, comap_rows (equal)")
+    worst = stream_fold_vs_twin(device, (1, (1 << 20) + 37, STREAM_CHUNK_ROWS))
+    print(f"kernels checked against their twins: stream_fold (equal; float64 sums max rel err "
+          f"{worst})")
     torch.cuda.empty_cache()
 
     stats = main_path(device, ROWS, GROUPS, SEED, WARM_RUNS)
@@ -5342,6 +6136,17 @@ def main() -> None:
     print(f"sql_paths: {len(sql)} statements through raw_sql on {card}")
     torch.cuda.empty_cache()
 
+    zips = {st["case"]: st for st in zip_paths(device, (CONFIG4_GROUPS, CONFIG4_BIG_GROUPS),
+                                               ZIP_ROWS, ZIP_CROSS_ROWS, WARM_RUNS)}
+    for st in zips.values():
+        st["card"] = card
+        print("zip_path: " + json.dumps(st))
+    torch.cuda.empty_cache()
+    streamed = stream_path(device, STREAM_CHUNKS, STREAM_CHUNK_ROWS, WARM_RUNS)
+    streamed["card"] = card
+    print("stream_path: " + json.dumps(streamed))
+    torch.cuda.empty_cache()
+
     stand_ins = stand_in_timing(device)
     stand_ins["card"] = card
     print("stand_ins: " + json.dumps(stand_ins))
@@ -5390,6 +6195,10 @@ def main() -> None:
         "join_probe_not_in": sql["q16_not_in"]["launches"]["join_probe"],
     })
     torch.cuda.empty_cache()
+    entries += comap_timing(device, zips["config4_inner_100m"]["launches"])
+    torch.cuda.empty_cache()
+    entries.append(stream_timing(device, streamed["launches"]["stream_fold"]))
+    torch.cuda.empty_cache()
     k6_scaling(device)
     median_timing(device)
     torch.cuda.empty_cache()
@@ -5402,7 +6211,7 @@ def main() -> None:
         if not all(math.isfinite(t) for t in times):
             raise SystemExit(f"FAIL: a time of {entry['name']} is not finite")
         if entry["max_abs_err"] != 0 and entry["name"] not in ("binned_sums", "segment_sq_dev",
-                                                               "window_frame"):
+                                                               "window_frame", "stream_fold"):
             raise SystemExit(f"FAIL: {entry['name']} differs from its twin at the timed shape")
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))

@@ -25,7 +25,11 @@ rank-keep, first-row and null-count kernels
 SELECT through ``raw_sql`` (the port's tokenizer, parser and algebra
 bridge), with ORDER BY/LIMIT, NOT IN (a mode of the join kernels) and
 window functions on hand-written window-rank and window-frame kernels
-(``fugue_tpu_torch/kernels/window.cu``).
+(``fugue_tpu_torch/kernels/window.cu``); and ``zip`` + ``transform``
+(co-transform over a shared segment space) with hand-written co-map
+presence and row kernels (``fugue_tpu_torch/kernels/comap.cu``), and
+``aggregate`` of a stream of frames folded chunk by chunk on the card by
+a hand-written stream-fold kernel (``fugue_tpu_torch/kernels/stream.cu``).
 """
 
 from fugue_tpu_torch.api import (
@@ -45,15 +49,18 @@ from fugue_tpu_torch.api import (
     take,
     transform,
     union,
+    zip,
 )
 from fugue_tpu_torch.column import SelectColumns, col, function, lit, null
 from fugue_tpu_torch.column import functions
+from fugue_tpu_torch.dataframe.dataframe_iterable_dataframe import LocalDataFrameIterableDataFrame
 from fugue_tpu_torch.execution import make_execution_engine
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.torch_backend.execution_engine import TorchExecutionEngine
 
 __all__ = [
+    "LocalDataFrameIterableDataFrame",
     "Schema",
     "SelectColumns",
     "TorchDataFrame",
@@ -80,4 +87,5 @@ __all__ = [
     "take",
     "transform",
     "union",
+    "zip",
 ]

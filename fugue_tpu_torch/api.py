@@ -1,8 +1,10 @@
 """The port's entry points: ``transform``, ``aggregate``, ``select``,
 ``filter``, ``assign``, ``join``, ``union``, ``subtract``, ``intersect``,
 ``distinct``, ``dropna``, ``fillna``, ``sample``, ``take``,
-``repartition`` and ``raw_sql``, run straight on the engine with no
-workflow DAG (the DAG is not ported yet).
+``repartition``, ``raw_sql`` and ``zip`` (``transform`` of a zip is a
+co-transform), run straight on the engine with no workflow DAG (the DAG
+is not ported yet). ``aggregate`` of a ``LocalDataFrameIterableDataFrame``
+streams it chunk by chunk.
 
 ``transform`` mirrors ``fugue_tpu/workflow/api.py:15`` for a transformer
 annotated ``Dict[str, torch.Tensor] -> Dict[str, torch.Tensor]``, the
@@ -30,6 +32,7 @@ from fugue_tpu_torch.column.sql import SelectColumns
 from fugue_tpu_torch.execution.factory import make_execution_engine
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.torch_backend.execution_engine import TorchExecutionEngine
+from fugue_tpu_torch.torch_backend.zipped import TorchZippedDataFrame
 
 def _engine(engine: Any, df: Any) -> TorchExecutionEngine:
     if engine is None and isinstance(df, TorchDataFrame):
@@ -42,20 +45,25 @@ def _is_tensor_dict(hint: Any) -> bool:
     return typing.get_origin(hint) is dict and typing.get_args(hint) == (str, torch.Tensor)
 
 
-def _check_torch_transformer(func: Callable, engine: TorchExecutionEngine) -> None:
+def _check_torch_transformer(func: Callable, engine: TorchExecutionEngine, n: int = 1,
+                             op: str = "map") -> None:
+    """Refuses (counted under ``op``) a function that is not annotated
+    with ``n`` ``Dict[str, torch.Tensor]`` parameters (one a zipped member
+    for a cotransformer) and a ``Dict[str, torch.Tensor]`` return."""
     try:
         hints = typing.get_type_hints(func)
     except (NameError, TypeError):
         hints = {}
     params = [h for k, h in hints.items() if k != "return"]
-    if not (params and _is_tensor_dict(params[0]) and _is_tensor_dict(hints.get("return"))):
+    if not (len(params) == n and all(_is_tensor_dict(p) for p in params)
+            and _is_tensor_dict(hints.get("return"))):
+        what = "transformer" if op == "map" else "cotransformer"
         engine._unported(
-            "map",
-            f"transformer {getattr(func, '__name__', func)!r} (the port runs "
-            "only functions annotated Dict[str, torch.Tensor] -> "
-            "Dict[str, torch.Tensor]; other transformers need the host map "
-            "engine)",
-            "ROADMAP.md queue 1 item 2",
+            op,
+            f"{what} {getattr(func, '__name__', func)!r} (the port runs only functions "
+            f"annotated with {n} Dict[str, torch.Tensor] parameter(s) -> "
+            f"Dict[str, torch.Tensor]; other {what}s need the host engine)",
+            "ROADMAP.md queue 1 item 2(b)" if op == "comap" else "ROADMAP.md queue 1 item 2",
         )
 
 
@@ -78,13 +86,35 @@ def transform(
     (``{"by": [...]}``, a key or a list of keys) hands ``using`` the
     segment id of each row's group as ``_segment_ids`` and the size of the
     id space as ``_num_segments`` (``TorchMapEngine._compiled_map`` says
-    how a torch transformer uses them)."""
+    how a torch transformer uses them). Where ``df`` is a zip (``zip``),
+    ``using`` is a cotransformer, one dict a member
+    (``TorchExecutionEngine.comap``), as ``dag.df(a).partition_by("k").
+    zip(b).transform(cm, schema=...)`` runs it in the JAX package."""
+    spec = None if partition is None else PartitionSpec(partition)
+    if isinstance(df, TorchZippedDataFrame):
+        e = _engine(engine, df.frames[0])
+        _check_torch_transformer(using, e, len(df.frames), "comap")
+        return _result(e.comap(df, using, schema, spec), df, as_fugue)
     e = _engine(engine, df)
     _check_torch_transformer(using, e)
-    res = e.map_engine.map_dataframe(
-        df, using, schema, None if partition is None else PartitionSpec(partition)
-    )
-    return _result(res, df, as_fugue)
+    return _result(e.map_engine.map_dataframe(df, using, schema, spec), df, as_fugue)
+
+
+def zip(*dfs: Any, how: str = "inner", partition: Any = None,  # noqa: A001
+        engine: Any = None) -> TorchZippedDataFrame:
+    """The frames ``dfs`` zipped by ``how`` (inner, left_outer,
+    right_outer, full_outer or cross) on ``partition``'s keys (default:
+    the columns they all have; none for cross), for ``transform`` to
+    co-transform: ``transform(zip(a, b, partition="k"), cm, schema)``
+    calls ``cm(a_dict, b_dict)`` once over every key, the dicts in the
+    members' order (``TorchExecutionEngine.comap`` gives their ABI). Pass
+    a dict ``{name: frame}`` as the one argument to name the members; the
+    names stay on the handle."""
+    frames: Any = dfs[0] if len(dfs) == 1 and isinstance(dfs[0], dict) else list(dfs)
+    first = next(iter(frames.values()) if isinstance(frames, dict) else iter(frames), None)
+    e = _engine(engine, first)
+    return e.zip(frames, how=how, partition_spec=None if partition is None
+                 else PartitionSpec(partition))
 
 
 def aggregate(

@@ -1,6 +1,7 @@
 """Plain PyTorch twins of the port's CUDA kernels (``segment_sums.cu``,
 ``factorize.cu``, ``segment_reduce.cu``, ``expr_program.cu``, ``join.cu``,
-``gather.cu``, ``row_select.cu``): the CPU path, and the oracle each kernel is held against
+``gather.cu``, ``row_select.cu``, ``window.cu``, ``comap.cu``,
+``stream.cu``): the CPU path, and the oracle each kernel is held against
 on the card."""
 
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -1566,3 +1567,209 @@ def window_frame_reference(sw: SortedWords, frame: WindowFrame
         w, k = 2 * w, k + 1
     val = _from_order_key(best, sv.dtype)
     return _to_rows(order, torch.where(has, val, 0)), _to_rows(order, has)
+
+
+# ---- co-map membership: comap.cu (K17 comap_presence, K18 comap_rows) ----
+
+COMAP_HOWS = ("inner", "left_outer", "right_outer", "full_outer", "cross")
+
+
+class ComapRows(NamedTuple):
+    """What K18 writes: per stacked row ``row_alive`` (bool) and
+    ``seg_out`` (int32: its segment where alive, else the sentinel
+    ``num_segments``); per segment ``alive`` (bool); per member the count
+    of its alive rows ``counts`` (int32 [N]); and the count of alive
+    segments ``alive_count`` (int32 0-d)."""
+
+    row_alive: torch.Tensor
+    seg_out: torch.Tensor
+    alive: torch.Tensor
+    counts: torch.Tensor
+    alive_count: torch.Tensor
+
+
+def presence_words(members: int) -> int:
+    """The ``uint32`` presence words a segment holds: one bit a member."""
+    return (members + 31) // 32
+
+
+def _comap_rows(n: int, offsets: torch.Tensor, nrows: torch.Tensor,
+                valid: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per stacked row its member (``offsets`` int64 [N + 1]: member
+    ``m`` holds rows ``[offsets[m], offsets[m + 1])``) and whether it is
+    real: below its member's ``nrows[m]`` and, where ``valid`` is given,
+    with a non-zero ``valid`` byte."""
+    if offsets.dim() != 1 or offsets.numel() < 2 or int(offsets[-1]) != n or int(offsets[0]) != 0:
+        raise ValueError(f"offsets must run from 0 to the {n} stacked rows")
+    rows = torch.arange(n, dtype=torch.int64, device=offsets.device)
+    member = torch.searchsorted(offsets[1:], rows, right=True)
+    real = (rows - offsets.index_select(0, member)) < nrows.index_select(0, member)
+    if valid is not None:
+        real = real & (valid != 0)
+    return member, real
+
+
+def comap_presence_reference(
+    seg: torch.Tensor,
+    num_segments: int,
+    offsets: torch.Tensor,
+    nrows: torch.Tensor,
+    *,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The twin of K17 in ``comap.cu``: which members have a real row in
+    each segment (``compiled_comap``'s ``segment_sum(valid) > 0`` per
+    member, ``fugue_tpu/jax_backend/comap_compiled.py:335-341``).
+
+    ``seg`` int32 [n] are the stacked members' segment ids, ``offsets``
+    and ``nrows`` (int64, on ``seg``'s device) their layout
+    (``_comap_rows``). Returns the presence words, int32 [S * W] with
+    ``W = presence_words(N)``: bit ``m % 32`` of word ``s * W + m // 32``
+    is set where member ``m`` has a real row with ``seg == s``; rows whose
+    ``seg`` lies outside ``[0, S)`` set nothing."""
+    n = int(seg.shape[0])
+    members = int(offsets.numel()) - 1
+    words = presence_words(members)
+    member, real = _comap_rows(n, offsets, nrows, valid)
+    s = seg.to(torch.int64)
+    ok = real & (s >= 0) & (s < num_segments)
+    marks = torch.zeros((num_segments * words * 32,), dtype=torch.bool, device=seg.device)
+    marks[((s * words + member // 32) * 32 + member % 32)[ok]] = True
+    bits = marks.view(num_segments * words, 32)
+    out = torch.zeros((num_segments * words,), dtype=torch.int32, device=seg.device)
+    for b in range(32):
+        out |= bits[:, b].to(torch.int32) << b
+    return out
+
+
+def comap_alive_reference(presence: Optional[torch.Tensor], num_segments: int, members: int,
+                          how: str) -> torch.Tensor:
+    """Each segment's liveness under the zip's rule (``_alive_rule``,
+    ``comap_compiled.py:197-213``): every member present (inner), the
+    first (left_outer), the last (right_outer), any (full_outer); a cross
+    zip's one segment is always alive."""
+    if how not in COMAP_HOWS:
+        raise ValueError(f"zip how {how!r}: one of {COMAP_HOWS}")
+    if how == "cross":
+        return torch.ones((num_segments,), dtype=torch.bool,
+                          device=None if presence is None else presence.device)
+    w = presence.view(num_segments, presence_words(members))  # type: ignore[union-attr]
+    if how == "left_outer":
+        return (w[:, 0] & 1) != 0
+    if how == "right_outer":
+        return ((w[:, (members - 1) // 32] >> ((members - 1) % 32)) & 1) != 0
+    if how == "full_outer":
+        return (w != 0).any(dim=1)
+    full = torch.full((w.shape[1],), -1, dtype=torch.int32, device=w.device)
+    if members % 32:
+        full[-1] = (1 << (members % 32)) - 1
+    return (w == full).all(dim=1)
+
+
+def comap_rows_reference(
+    seg: torch.Tensor,
+    presence: Optional[torch.Tensor],
+    num_segments: int,
+    offsets: torch.Tensor,
+    nrows: torch.Tensor,
+    how: str,
+    *,
+    valid: Optional[torch.Tensor] = None,
+) -> ComapRows:
+    """The twin of K18 in ``comap.cu``: the zip rule over K17's
+    ``presence`` (None for a cross zip), then per row ``valid & alive[seg]``
+    and the segment id re-pointed at the sentinel where not alive, the
+    members' alive rows and the alive segments counted
+    (``compiled_comap._wrapped``, ``comap_compiled.py:342-362``)."""
+    n = int(seg.shape[0])
+    members = int(offsets.numel()) - 1
+    member, real = _comap_rows(n, offsets, nrows, valid)
+    alive = comap_alive_reference(presence, num_segments, members, how).to(seg.device)
+    s = seg.to(torch.int64)
+    ok = real & (s >= 0) & (s < num_segments)
+    row_alive = ok & alive.index_select(0, s.clamp(0, num_segments - 1))
+    seg_out = torch.where(row_alive, seg, torch.full_like(seg, num_segments))
+    counts = torch.bincount(member[row_alive], minlength=members).to(torch.int32)
+    return ComapRows(row_alive, seg_out, alive, counts, alive.sum(dtype=torch.int32))
+
+
+# ---- streaming fold: stream.cu (K19 stream_fold) ----
+
+# an accumulator row's update, as K19 takes it: "rows" counts every row;
+# "count" the rows whose payload is valid; "sum_i" adds an int64 payload
+# into int64 (two's complement, exact), "sum_f" a float64 one into
+# float64, "sum_if" an int64 one converted to float64; "min_i"/"max_i"
+# keep an int64 extremum, "min_f"/"max_f" a float64 one as its order key
+# (``_order_key``: the int64 image whose signed order is the float's)
+FOLD_KINDS = ("rows", "count", "sum_i", "sum_f", "sum_if", "min_i", "max_i", "min_f", "max_f")
+
+
+class FoldOp(NamedTuple):
+    """One accumulator's update: its ``kind`` (``FOLD_KINDS``), the index
+    of the payload it reads (-1 for ``"rows"``) and its column of the
+    accumulator store."""
+
+    kind: str
+    payload: int
+    acc: int
+
+
+def fold_init(kind: str) -> int:
+    """The value an accumulator row of ``kind`` starts from, as int64."""
+    if kind in ("min_i", "max_i"):
+        return _I64_MAX if kind == "min_i" else _I64_MIN
+    if kind in ("min_f", "max_f"):
+        inf = float("inf") if kind == "min_f" else float("-inf")
+        return int(_order_key(torch.tensor([inf], dtype=torch.float64))[0])
+    return 0
+
+
+def fold_segments(keys: Sequence[torch.Tensor], bounds: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Each row's slot: the mixed radix of ``key - lo`` over the spans, the
+    first key most significant (``_Space.seg``,
+    ``fugue_tpu/jax_backend/streaming.py:125``), as int64."""
+    seg = torch.zeros_like(keys[0], dtype=torch.int64)
+    for k, (lo, span) in zip(keys, bounds):
+        seg = seg * int(span) + (k.to(torch.int64) - int(lo))
+    return seg
+
+
+def stream_fold_reference(
+    keys: Sequence[torch.Tensor],
+    bounds: Sequence[Tuple[int, int]],
+    payloads: Sequence[Payload],
+    ops: Sequence[FoldOp],
+    store: torch.Tensor,
+) -> torch.Tensor:
+    """The twin of K19 in ``stream.cu``: one chunk folded into the
+    accumulators in place (``StreamingAggregator._get_update``'s
+    ``_update``, ``fugue_tpu/jax_backend/streaming.py:295-350``).
+
+    ``keys`` are int64 [n], ``bounds`` each key's ``(lo, span)`` with every
+    key in ``[lo, lo + span)``; ``payloads`` int64 or float64 [n] values
+    with their masks (True = valid; None: all valid); ``store`` the int64
+    accumulators [T, A], slot-major (a slot's A accumulators are
+    adjacent; a float64 sum's column holds its bits), ``T`` the slots.
+    Each op adds the chunk's rows into its column at their slots.
+    Returns ``store``."""
+    seg = fold_segments(keys, bounds)
+    slots = int(store.shape[0])
+    for op in ops:
+        if op.kind not in FOLD_KINDS:
+            raise ValueError(f"fold kind {op.kind!r}: one of {FOLD_KINDS}")
+        row = store[:, op.acc]
+        if op.kind == "rows":
+            row += torch.bincount(seg, minlength=slots)
+            continue
+        values, mask = payloads[op.payload]
+        s, v = (seg, values) if mask is None else (seg[mask], values[mask])
+        if op.kind == "count":
+            row += torch.bincount(s, minlength=slots)
+        elif op.kind == "sum_i":
+            row.index_add_(0, s, v.to(torch.int64))
+        elif op.kind in ("sum_f", "sum_if"):
+            row.view(torch.float64).index_add_(0, s, v.to(torch.float64))
+        else:
+            key = _order_key(v) if op.kind in ("min_f", "max_f") else v.to(torch.int64)
+            row.scatter_reduce_(0, s, key, "amin" if op.kind.startswith("min") else "amax")
+    return store

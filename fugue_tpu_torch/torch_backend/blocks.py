@@ -133,6 +133,15 @@ def padded_len(n: int) -> int:
     return max(n, 1)
 
 
+def pad_rows(v: torch.Tensor, target: int) -> torch.Tensor:
+    """``v`` with its row axis zero-padded to ``target``
+    (``jax_backend/execution_engine.py:3814``)."""
+    n = int(v.shape[0])
+    if n == target:
+        return v
+    return torch.cat([v, torch.zeros((target - n,), dtype=v.dtype, device=v.device)])
+
+
 class TorchBlocks:
     """All columns of a frame + row membership. Port of
     ``jax_backend/blocks.py:255``.

@@ -62,12 +62,15 @@ from fugue_tpu_torch.column.expressions import (
 )
 from fugue_tpu_torch.collections.sql import StructuredRawSQL
 from fugue_tpu_torch.column.sql import SelectColumns, rewrite_having
+from fugue_tpu_torch.dataframe.dataframe_iterable_dataframe import LocalDataFrameIterableDataFrame
 from fugue_tpu_torch.dataframe.utils import get_join_schemas, normalize_join_type
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.sql_frontend import algebra_bridge as ab
 from fugue_tpu_torch.sql_frontend.algebra_bridge import inline_scalar_subqueries, translate_query
+from fugue_tpu_torch.sql_frontend.checks import check_statement
 from fugue_tpu_torch.sql_frontend.parser import parse_select
-from fugue_tpu_torch.torch_backend import expr_eval, groupby, relational
+from fugue_tpu_torch.torch_backend import expr_eval, groupby, relational, streaming
+from fugue_tpu_torch.torch_backend.comap_compiled import HostPathRequired, compiled_comap, zip_keys
 from fugue_tpu_torch.torch_backend.blocks import (
     TorchBlocks,
     TorchColumn,
@@ -76,11 +79,13 @@ from fugue_tpu_torch.torch_backend.blocks import (
     gather_indices,
     is_string_type,
     keeps_stats,
+    pad_rows,
     padded_len,
     torch_dtype,
 )
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.torch_backend.window import device_window
+from fugue_tpu_torch.torch_backend.zipped import TorchZippedDataFrame
 from fugue_tpu_torch.utils.assertion import assert_or_throw
 
 # the aggregations the engine runs on its device (``:3739``)
@@ -239,8 +244,8 @@ class TorchMapEngine:
                         f"a '_{f.name}_dict'", _HOST_ENGINE)
             cols[f.name] = TorchColumn(
                 f.type,
-                _pad_to(data, target),
-                None if mask is None else _pad_to(mask.to(device), target),
+                pad_rows(data, target),
+                None if mask is None else pad_rows(mask.to(device), target),
                 stats,
                 dictionary=dictionary,
             )
@@ -313,52 +318,61 @@ class TorchSQLEngine:
         inline_scalar_subqueries(q, schemas, lambda p: self._exec_plan(p, dfs, {}))
         plan = translate_query(q, schemas)
         if plan is None:
-            engine._unported("sql_select", "a SELECT the algebra bridge does not lower "
-                             f"({sql.strip()[:80]!r})", _HOST_ENGINE)
-        return self._exec_plan(plan, dfs, {})
+            self._refuse(q, dfs, "a SELECT the algebra bridge does not lower "
+                         f"({sql.strip()[:80]!r})")
+        return self._exec_plan(plan, dfs, {}, q)
 
-    def _exec_plan(self, plan: Any, dfs: Dict[str, Any], done: Dict[int, TorchDataFrame]
-                   ) -> TorchDataFrame:
+    def _refuse(self, q: Any, dfs: Dict[str, TorchDataFrame], what: str) -> NoReturn:
+        """Raises ``SQLExecutionError`` where ``q`` is invalid
+        (``check_statement``), else refuses it as not ported (counted in
+        ``fallbacks``), naming ROADMAP.md queue 1 item 2(b)."""
+        check_statement(q, {name: df.schema for name, df in dfs.items()})
+        self.execution_engine._unported("sql_select", what, _HOST_ENGINE)
+
+    def _exec_plan(self, plan: Any, dfs: Dict[str, Any], done: Dict[int, TorchDataFrame],
+                   q: Any = None) -> TorchDataFrame:
         """``:431``: memoized by plan identity, so that a CTE the query
-        reads twice runs once."""
+        reads twice runs once. ``q``, the statement, is checked before a
+        device plan that declines it is refused."""
         if id(plan) not in done:
-            done[id(plan)] = self._exec_plan_uncached(plan, dfs, done)
+            done[id(plan)] = self._exec_plan_uncached(plan, dfs, done, q)
         return done[id(plan)]
 
     def _exec_plan_uncached(self, plan: Any, dfs: Dict[str, Any],
-                            done: Dict[int, TorchDataFrame]) -> TorchDataFrame:
+                            done: Dict[int, TorchDataFrame], q: Any) -> TorchDataFrame:
         """``:442-513``."""
         engine = self.execution_engine
         if isinstance(plan, ab.ScanPlan):
             lowered = {n.lower(): n for n in dfs}
             return engine.to_df(dfs[lowered[plan.table]])
         if isinstance(plan, ab.JoinPlan):
-            return engine.join(self._exec_plan(plan.left, dfs, done),
-                               self._exec_plan(plan.right, dfs, done), how=plan.how,
+            return engine.join(self._exec_plan(plan.left, dfs, done, q),
+                               self._exec_plan(plan.right, dfs, done, q), how=plan.how,
                                on=list(plan.on))
         if isinstance(plan, ab.NotInJoinPlan):
-            left = engine.to_df(self._exec_plan(plan.left, dfs, done))
-            right = engine.to_df(self._exec_plan(plan.right, dfs, done))
+            left = engine.to_df(self._exec_plan(plan.left, dfs, done, q))
+            right = engine.to_df(self._exec_plan(plan.right, dfs, done, q))
             out = relational.not_in_join(left.blocks, right.blocks, [plan.key])
             return TorchDataFrame(out, left.schema)
         if isinstance(plan, ab.SetPlan):
-            left = self._exec_plan(plan.left, dfs, done)
-            right = self._exec_plan(plan.right, dfs, done)
+            left = self._exec_plan(plan.left, dfs, done, q)
+            right = self._exec_plan(plan.right, dfs, done, q)
             if plan.op == "union":
                 return engine.union(left, right, distinct=plan.distinct)
             if plan.op == "except":
                 return engine.subtract(left, right, distinct=plan.distinct)
             return engine.intersect(left, right, distinct=plan.distinct)
         if isinstance(plan, ab.WindowPlan):
-            src = engine.to_df(self._exec_plan(plan.source, dfs, done))
+            src = engine.to_df(self._exec_plan(plan.source, dfs, done, q))
             if plan.where is not None:
                 src = engine.filter(src, plan.where)
             blocks, schema = device_window(
                 src.blocks, src.schema, plan.items,
-                lambda what: engine._unported("sql_select", what, _HOST_ENGINE))
+                lambda what: self._refuse(q, dfs, what) if q is not None
+                else engine._unported("sql_select", what, _HOST_ENGINE))
             return TorchDataFrame(blocks, schema)
         assert_or_throw(isinstance(plan, ab.SelectPlan), ValueError(f"bad plan {plan}"))
-        out = self._exec_plan(plan.source, dfs, done)
+        out = self._exec_plan(plan.source, dfs, done, q)
         if plan.cols is not None:
             out = engine.select(out, plan.cols, where=plan.where, having=plan.having)
         if plan.distinct:
@@ -419,6 +433,9 @@ class TorchExecutionEngine:
         self._programs = expr_eval.ProgramCache()
         self._checked = expr_eval.ProgramCache()
         self.sql_engine = TorchSQLEngine(self)
+        # the last streaming aggregate's StreamingAggregator.stats()
+        # (chunks, rows, rebases, slots)
+        self.stream_stats: Dict[str, int] = {}
 
     @property
     def strategy_counts(self) -> Dict[str, int]:
@@ -462,6 +479,8 @@ class TorchExecutionEngine:
             table = pa.Table.from_pandas(df, preserve_index=False)
         elif isinstance(df, pa.Table):
             table = df
+        elif isinstance(df, LocalDataFrameIterableDataFrame):
+            table = df.as_arrow()  # the stream materialized
         else:
             raise ValueError(f"can't convert {type(df)} to a TorchDataFrame")
         schema = Schema(table.schema)
@@ -744,9 +763,91 @@ class TorchExecutionEngine:
         partition_spec: Optional[PartitionSpec],
         agg_cols: List[ColumnExpr],
     ) -> TorchDataFrame:
-        """``:1498``."""
+        """``:1498``: an iterable of frames streams chunk by chunk into
+        accumulators on the card (``_try_stream_aggregate``); any other
+        input, and a stream that cannot, takes the bounded aggregate."""
         keys = partition_spec.partition_by if partition_spec is not None else []
+        res = self._try_stream_aggregate(df, keys, agg_cols)
+        if res is not None:
+            return res
         return self._device_aggregate(self.to_df(df), keys, agg_cols)
+
+    def _try_stream_aggregate(self, df: Any, keys: List[str], agg_cols: List[ColumnExpr]
+                              ) -> Optional[TorchDataFrame]:
+        """``:3087-3150``: the streaming aggregate (``streaming.py``: K19 a
+        chunk) where the input is a ``LocalDataFrameIterableDataFrame``, it
+        has keys, each integer or bool, and every aggregation is one of
+        ``streaming._SUPPORTED`` of a bare column or ``*``; else None. A
+        stream the bounded path's semantics cannot stream (null keys, too
+        wide a key space, an empty stream) counts in ``fallbacks``, is
+        materialized and runs the bounded aggregate, which refuses what it
+        declines, naming ROADMAP.md queue 1 item 2(b)."""
+        if not isinstance(df, LocalDataFrameIterableDataFrame) or len(keys) == 0:
+            return None
+        schema = df.schema
+        for k in keys:
+            if k not in schema or not (pa.types.is_integer(schema[k].type)
+                                       or pa.types.is_boolean(schema[k].type)):
+                return None
+        plans: List[Tuple[str, str, str]] = []
+        for c in agg_cols:
+            if (not isinstance(c, _FuncExpr) or len(c.args) != 1 or c.arg_distinct
+                    or c.func.lower() not in streaming._SUPPORTED):
+                return None
+            arg = c.args[0]
+            if isinstance(arg, _NamedColumnExpr) and arg.wildcard:
+                src = keys[0]  # count(*): the key's occurrences
+            elif isinstance(arg, _NamedColumnExpr) and arg.as_type is None and arg.name in schema:
+                src = arg.name
+            else:
+                return None
+            plans.append((c.output_name, c.func.lower(), src))
+        try:
+            res, self.stream_stats = streaming.stream_aggregate(
+                self, df.as_pandas_chunks(), schema, list(keys), plans)
+            return res
+        except streaming.StreamFallback as fb:
+            self._fallbacks["aggregate"] = self._fallbacks.get("aggregate", 0) + 1
+            table = streaming.materialize_fallback(fb, schema)
+            return self._device_aggregate(self.to_df(table), list(keys), agg_cols)
+
+    def zip(self, dfs: Any, how: str = "inner",
+            partition_spec: Optional[PartitionSpec] = None) -> TorchZippedDataFrame:
+        """``:1616``: records the co-partition of ``dfs`` (a list of frames,
+        or a dict of them by name) in a ``TorchZippedDataFrame``, each
+        member uploaded; ``comap`` runs over it. Inner, left_outer,
+        right_outer, full_outer and cross; the keys are the spec's, else
+        the columns every member has (none for cross). The JAX package's
+        serialized zip of other types is host work: refused, naming
+        ROADMAP.md queue 1 item 2(b)."""
+        hownorm = how.lower().replace(" ", "_")
+        if hownorm not in ("inner", "left_outer", "right_outer", "full_outer", "cross"):
+            self._unported("zip", f"a {how} zip (the serialized zip)", _HOST_ENGINE)
+        assert_or_throw(len(dfs) > 0, ValueError("can't zip 0 dataframes"))
+        names = list(dfs.keys()) if isinstance(dfs, dict) else [""] * len(dfs)
+        members = [self._input("zip", f) for f in (dfs.values() if isinstance(dfs, dict) else dfs)]
+        spec = partition_spec or PartitionSpec()
+        keys, key_schema = zip_keys(members, hownorm, spec)
+        return TorchZippedDataFrame(members, names, hownorm, keys, key_schema, spec)
+
+    def comap(self, df: TorchZippedDataFrame, map_func: Callable[..., Dict[str, torch.Tensor]],
+              output_schema: Any, partition_spec: Optional[PartitionSpec] = None,
+              on_init: Optional[Callable[[int, Any], Any]] = None) -> TorchDataFrame:
+        """``:1669``: the cotransformer ``map_func`` (one
+        ``Dict[str, torch.Tensor]`` a member, positionally, to a
+        ``Dict[str, torch.Tensor]``) run once over the zip's shared segment
+        space (``comap_compiled.compiled_comap``: K17, K18). What the JAX
+        package answers on its host group loop (a presort, the ambiguous
+        output length, a string output without its decode table) is
+        refused, naming ROADMAP.md queue 1 item 2(b), and counted in
+        ``fallbacks["comap"]``."""
+        assert_or_throw(isinstance(df, TorchZippedDataFrame),
+                        ValueError("comap takes a zipped dataframe (zip)"))
+        try:
+            return compiled_comap(self, df, map_func, output_schema,
+                                  partition_spec or PartitionSpec(), on_init)
+        except HostPathRequired as e:
+            self._unported("comap", str(e), _HOST_ENGINE)
 
     def _check_select(
         self,
@@ -973,11 +1074,11 @@ class TorchExecutionEngine:
         out_cols: Dict[str, TorchColumn] = {}
         for k in keys:
             src = blocks.columns[k]
-            mask = None if src.mask is None else _pad_to(
+            mask = None if src.mask is None else pad_rows(
                 src.mask.index_select(0, fr.first_idx), target
             )
             out_cols[k] = src.with_data(
-                _pad_to(src.data.index_select(0, fr.first_idx), target), mask)
+                pad_rows(src.data.index_select(0, fr.first_idx), target), mask)
         out_cols.update(agg_cols)
         schema = _result_schema(tdf.schema, keys, typed_plans)
         if fr.occupied is not None:
@@ -1147,14 +1248,6 @@ def _distinct_masks(
         first = fr.first_idx.index_select(0, fr.seg.clamp(max=fr.num_segments - 1))
         out[argname] = first == torch.arange(pad_n, dtype=torch.int32, device=blocks.device)
     return out
-
-
-def _pad_to(v: torch.Tensor, target: int) -> torch.Tensor:
-    """``:3814``: zero-pad the row axis to ``target``."""
-    n = int(v.shape[0])
-    if n == target:
-        return v
-    return torch.cat([v, torch.zeros((target - n,), dtype=v.dtype, device=v.device)])
 
 
 def _cast_agg_result(v: torch.Tensor, tp: pa.DataType) -> torch.Tensor:

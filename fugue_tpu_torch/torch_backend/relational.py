@@ -127,12 +127,6 @@ def _ones(mask: Optional[torch.Tensor], n: int, device: torch.device) -> torch.T
     return mask if mask is not None else torch.ones((n,), dtype=torch.bool, device=device)
 
 
-def _merged_stats(c1: TorchColumn, c2: TorchColumn) -> Optional[Tuple[int, int]]:
-    if c1.stats is None or c2.stats is None:
-        return None
-    return (min(c1.stats[0], c2.stats[0]), max(c1.stats[1], c2.stats[1]))
-
-
 def harmonize_string_keys(c1: TorchColumn, c2: TorchColumn) -> Tuple[TorchColumn, TorchColumn]:
     """Two string columns re-coded into one dictionary
     (``relational.py:69-104``): side 1 keeps its codes, and the union
@@ -161,28 +155,40 @@ def _harmonized(b1: TorchBlocks, b2: TorchBlocks, names: List[str]) -> Pairs:
     return pairs
 
 
-def _stack(b1: TorchBlocks, b2: TorchBlocks, pairs: Pairs) -> TorchBlocks:
-    """The columns of ``pairs`` (side 1's, side 2's) stacked along the rows
-    (side 1 first), their masks (all valid where a side has none), merged
-    stats, and the rows of both: a prefix frame where both sides are
-    prefix frames with no padding, else a masked frame with both
-    validities stacked (a lazy count where either side's is)."""
-    device = b1.device
-    p1, p2 = b1.padded_nrows, b2.padded_nrows
+def stack_blocks(blocks: List[TorchBlocks], columns: Dict[str, List[TorchColumn]]
+                 ) -> TorchBlocks:
+    """Each entry of ``columns`` (one column a frame of ``blocks``, in
+    their order) stacked along the rows in one dtype, with its masks (all
+    valid where a frame has none), merged stats and the first frame's
+    dictionary, over the rows of every frame: a prefix frame where each
+    frame is a prefix frame with no padding, else a masked frame with the
+    validities stacked (a lazy count where any frame's is)."""
+    device = blocks[0].device
+    ps = [b.padded_nrows for b in blocks]
     cols: Dict[str, TorchColumn] = {}
-    for n, (c1, c2) in pairs.items():
-        dt = torch.promote_types(c1.data.dtype, c2.data.dtype)
+    for n, cs in columns.items():
+        dt = cs[0].data.dtype
+        for c in cs[1:]:
+            dt = torch.promote_types(dt, c.data.dtype)
         mask = None
-        if c1.mask is not None or c2.mask is not None:
-            mask = torch.cat([_ones(c1.mask, p1, device), _ones(c2.mask, p2, device)])
-        cols[n] = TorchColumn(c1.pa_type, torch.cat([c1.data.to(dt), c2.data.to(dt)]), mask,
-                              _merged_stats(c1, c2), dictionary=c1.dictionary)
-    full = all(b.row_valid is None and b.nrows == b.padded_nrows for b in (b1, b2))
-    if full:
-        return TorchBlocks(p1 + p2, cols, device)
-    nrows = b1._nrows + b2._nrows if b1.nrows_known and b2.nrows_known else None
-    nrows_dev = None if nrows is not None else b1.nrows_tensor() + b2.nrows_tensor()
-    return TorchBlocks(nrows, cols, device, row_valid=torch.cat([b1.validity(), b2.validity()]),
+        if any(c.mask is not None for c in cs):
+            mask = torch.cat([_ones(c.mask, p, device) for c, p in zip(cs, ps)])
+        stats = cs[0].stats
+        for c in cs[1:]:
+            stats = None if stats is None or c.stats is None else (
+                min(stats[0], c.stats[0]), max(stats[1], c.stats[1]))
+        cols[n] = TorchColumn(cs[0].pa_type, torch.cat([c.data.to(dt) for c in cs]), mask,
+                              stats, dictionary=cs[0].dictionary)
+    if all(b.row_valid is None and b.nrows == b.padded_nrows for b in blocks):
+        return TorchBlocks(sum(ps), cols, device)
+    known = all(b.nrows_known for b in blocks)
+    nrows = sum(b._nrows for b in blocks) if known else None  # type: ignore[misc]
+    nrows_dev = None
+    if not known:
+        nrows_dev = blocks[0].nrows_tensor()
+        for b in blocks[1:]:
+            nrows_dev = nrows_dev + b.nrows_tensor()
+    return TorchBlocks(nrows, cols, device, row_valid=torch.cat([b.validity() for b in blocks]),
                        nrows_dev=nrows_dev)
 
 
@@ -194,7 +200,7 @@ def concat_key_blocks(b1: TorchBlocks, b2: TorchBlocks, keys: List[str]
     key's two columns. A side's rows that are not real stay so in the
     combined frame, so the factorization sees them as non-rows."""
     pairs = _harmonized(b1, b2, keys)
-    return _stack(b1, b2, pairs), pairs
+    return stack_blocks([b1, b2], {n: list(p) for n, p in pairs.items()}), pairs
 
 
 class SharedFactorization:
@@ -432,7 +438,8 @@ def union_all_blocks(b1: TorchBlocks, b2: TorchBlocks) -> TorchBlocks:
     (``relational.py:935``): a masked frame (or a prefix one where both
     have no padding) whose padding rows stay invalid, string columns in
     one dictionary (``:946``). No compaction, no readback."""
-    return _stack(b1, b2, _harmonized(b1, b2, list(b1.columns)))
+    pairs = _harmonized(b1, b2, list(b1.columns))
+    return stack_blocks([b1, b2], {n: list(p) for n, p in pairs.items()})
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,276 @@
+"""Streaming aggregation on the port (``ft.aggregate`` of a
+``LocalDataFrameIterableDataFrame`` on ``device="cpu"``, K19's twin)
+against the JAX engine pinned to one CPU device aggregating the same
+chunks as an ``IterablePandasDataFrame``: the cases of
+``tests/fugue_tpu/jax_backend/test_streaming.py:56-243`` (the full frame
+matched, a growing key range and its rebases, null keys falling back
+(counted), an empty stream, int64 beyond 2^53 exactly, an all-null group
+as NULL, ragged chunks, two keys), with float sums within rtol 1e-9 and
+everything else exact; then K19's twin against numpy."""
+
+from typing import Any, Callable, List
+
+import numpy as np
+import pandas as pd
+import pyarrow as pa
+import pytest
+import torch
+
+import fugue_tpu_torch as ft
+from fugue_tpu.collections.partition import PartitionSpec as JPartitionSpec
+from fugue_tpu.column import col as jcol
+from fugue_tpu.column import functions as jff
+from fugue_tpu.dataframe import PandasDataFrame
+from fugue_tpu.dataframe.dataframe_iterable_dataframe import IterablePandasDataFrame
+from fugue_tpu_torch import col
+from fugue_tpu_torch.column import functions as ff
+from fugue_tpu_torch.kernels.reference import FoldOp, fold_init, stream_fold_reference
+from fugue_tpu_torch.torch_backend import streaming
+from test_torch_join import _jax_engine
+
+RTOL = 1e-9
+
+
+def run_both(make: Callable[[], List[pd.DataFrame]], schema: str, keys: List[str],
+             aggs: List[Any]) -> Any:
+    """The chunks of ``make()`` aggregated by ``keys`` on both engines
+    (``aggs``: ``(name, function name, column)``); returns both results as
+    arrow tables and the port's engine."""
+    je = _jax_engine()
+    src = IterablePandasDataFrame((PandasDataFrame(p, schema) for p in make()), schema)
+    want = je.aggregate(src, JPartitionSpec(by=keys),
+                        [getattr(jff, f)(jcol(c)).alias(n) for n, f, c in aggs])
+    te = ft.make_execution_engine(device="cpu")
+    got = ft.aggregate(ft.LocalDataFrameIterableDataFrame(iter(make()), schema), keys,
+                       engine=te, as_fugue=True,
+                       **{n: getattr(ff, f)(col(c)) for n, f, c in aggs})
+    return got.as_arrow(), want.as_arrow(), te, je
+
+
+def assert_same(got: pa.Table, want: pa.Table, keys: List[str]) -> None:
+    assert got.schema == want.schema, (got.schema, want.schema)
+    g = got.to_pandas().sort_values(keys).reset_index(drop=True)
+    w = want.to_pandas().sort_values(keys).reset_index(drop=True)
+    assert len(g) == len(w)
+    for c in g.columns:
+        gv, wv = g[c].to_numpy(), w[c].to_numpy()
+        assert np.array_equal(pd.isna(g[c]).to_numpy(), pd.isna(w[c]).to_numpy()), c
+        ok = ~pd.isna(w[c]).to_numpy()
+        if g[c].dtype.kind == "f":
+            np.testing.assert_allclose(gv[ok].astype(float), wv[ok].astype(float), rtol=RTOL)
+        else:
+            assert gv[ok].tolist() == wv[ok].tolist(), c
+
+
+def _chunks(n_chunks: int, rows: int, seed: int = 0) -> Callable[[], List[pd.DataFrame]]:
+    def make() -> List[pd.DataFrame]:
+        rng = np.random.default_rng(seed)
+        return [pd.DataFrame({"k": rng.integers(0, 32, rows).astype(np.int64),
+                              "v": rng.random(rows)}) for _ in range(n_chunks)]
+    return make
+
+
+FIVE = [("s", "sum", "v"), ("m", "avg", "v"), ("c", "count", "v"), ("lo", "min", "v"),
+        ("hi", "max", "v")]
+
+
+def test_stream_aggregate_matches_full() -> None:
+    got, want, te, je = run_both(_chunks(8, 500), "k:long,v:double", ["k"], FIVE)
+    assert_same(got, want, ["k"])
+    full = pd.concat(_chunks(8, 500)()).groupby("k").v.agg(["sum", "count", "min", "max"])
+    g = got.to_pandas().set_index("k")
+    np.testing.assert_allclose(g.s, full["sum"], rtol=RTOL)
+    assert g.c.tolist() == full["count"].tolist() and g.lo.tolist() == full["min"].tolist()
+    assert te.fallbacks == {} and te.stream_stats["chunks"] == 8
+
+
+def test_growing_key_range_rebases() -> None:
+    def make() -> List[pd.DataFrame]:
+        return [pd.DataFrame({"k": np.arange(b, b + 10, dtype=np.int64), "v": np.ones(10)})
+                for b in (0, 100, 50)]
+
+    got, want, te, _ = run_both(make, "k:long,v:double", ["k"], [("s", "sum", "v")])
+    assert_same(got, want, ["k"])
+    assert got.num_rows == 30
+    # [0, 9] -> [0, 109]; 50..59 lands inside
+    assert te.stream_stats["rebases"] == 1 and te.stream_stats["group_slots"] == 110
+
+
+def test_null_keys_fall_back_to_the_bounded_path() -> None:
+    def make() -> List[pd.DataFrame]:
+        return [pd.DataFrame({"k": [1.0, 2.0], "v": [1.0, 2.0]}),
+                pd.DataFrame({"k": [1.0, None], "v": [3.0, 4.0]})]
+
+    got, want, te, je = run_both(make, "k:long,v:double", ["k"], [("s", "sum", "v")])
+    assert_same(got, want, ["k"])
+    assert te.fallbacks == {"aggregate": 1} == je.fallbacks
+
+
+def test_empty_stream_gives_an_empty_result() -> None:
+    got, want, te, _ = run_both(lambda: [], "k:long,v:double", ["k"], [("s", "sum", "v")])
+    assert got.num_rows == want.num_rows == 0
+    assert got.schema == want.schema
+    assert te.fallbacks == {"aggregate": 1}
+
+
+def test_int64_beyond_2_53_is_exact() -> None:
+    big = (1 << 55) + 3
+
+    def make() -> List[pd.DataFrame]:
+        return [pd.DataFrame({"k": np.zeros(2, dtype=np.int64),
+                              "v": np.array([big, big + 1], dtype=np.int64)})
+                for _ in range(2)]
+
+    aggs = [("s", "sum", "v"), ("lo", "min", "v"), ("hi", "max", "v")]
+    got, want, _, _ = run_both(make, "k:long,v:long", ["k"], aggs)
+    assert str(got.schema) == str(want.schema)
+    assert got.to_pylist() == want.to_pylist() == [
+        {"k": 0, "s": 2 * (2 * big + 1), "lo": big, "hi": big + 1}]
+
+
+def test_all_null_group_is_null() -> None:
+    def make() -> List[pd.DataFrame]:
+        return [pd.DataFrame({"k": [0, 1], "v": [np.nan, 5.0]})]
+
+    got, want, _, _ = run_both(make, "k:long,v:double", ["k"],
+                               [("s", "sum", "v"), ("lo", "min", "v")])
+    assert_same(got, want, ["k"])
+    assert got.to_pylist()[0] == {"k": 0, "s": None, "lo": None}
+
+
+def test_ragged_chunks() -> None:
+    lens = [100, 150, 90, 201, 255, 130, 180]
+
+    def make() -> List[pd.DataFrame]:
+        rng = np.random.default_rng(1)
+        return [pd.DataFrame({"k": rng.integers(0, 4, n).astype(np.int64),
+                              "v": rng.random(n)}) for n in lens]
+
+    got, want, te, _ = run_both(make, "k:long,v:double", ["k"], [("c", "count", "v")])
+    assert_same(got, want, ["k"])
+    assert sum(got.column("c").to_pylist()) == sum(lens)
+    assert te.stream_stats["rows"] == sum(lens) and te.stream_stats["traces"] == 0
+
+
+def test_two_keys() -> None:
+    def make() -> List[pd.DataFrame]:
+        return [pd.DataFrame({"a": np.arange(20, dtype=np.int64) % 3,
+                              "b": (np.arange(20, dtype=np.int64) + i) % 2,
+                              "v": np.full(20, float(i))}) for i in range(4)]
+
+    got, want, _, _ = run_both(make, "a:long,b:long,v:double", ["a", "b"],
+                               [("s", "sum", "v"), ("c", "count", "v")])
+    assert_same(got, want, ["a", "b"])
+
+
+def test_nullable_int_payloads_and_count_star() -> None:
+    """int32 and bool keys, an int64 payload with nulls (pandas' NaN) and
+    a float one with NaN: every function, and COUNT(*)."""
+    def make() -> List[pd.DataFrame]:
+        rng = np.random.default_rng(3)
+        out = []
+        for _ in range(3):
+            q = rng.integers(-50, 50, 300).astype(np.float64)
+            q[rng.random(300) < 0.1] = np.nan
+            p = rng.random(300)
+            p[rng.random(300) < 0.1] = np.nan
+            out.append(pd.DataFrame({"s": rng.integers(-3, 4, 300).astype(np.int32),
+                                     "f": rng.random(300) < 0.5, "q": q, "p": p}))
+        return out
+
+    aggs = [(f"{c}_{f}", f, c) for c in ("q", "p") for f in ("sum", "count", "min", "max",
+                                                              "avg")]
+    aggs.append(("n", "count", "*"))
+    got, want, te, _ = run_both(make, "s:int,f:bool,q:long,p:double", ["s", "f"], aggs)
+    assert_same(got, want, ["s", "f"])
+    assert te.fallbacks == {}
+
+
+def test_float_keys_take_the_bounded_aggregate() -> None:
+    te = ft.make_execution_engine(device="cpu")
+    chunks = [pd.DataFrame({"k": [0.5, 1.5, 0.5], "v": [1.0, 2.0, 3.0]})]
+    got = ft.aggregate(ft.LocalDataFrameIterableDataFrame(iter(chunks)), "k", engine=te,
+                       s=ff.sum(col("v")))
+    assert sorted(got.itertuples(index=False)) == [(0.5, 4.0), (1.5, 2.0)]
+    assert te.stream_stats == {} and te.fallbacks == {}
+
+
+def test_stream_fold_twin_matches_numpy() -> None:
+    """K19's twin over two keys (mixed radix), an int64 payload beyond
+    2^53 and a float64 one, both masked, every op kind, folded twice."""
+    rng = np.random.default_rng(11)
+    bounds = [(-3, 5), (10, 7)]
+    slots = 35
+    kinds = [("rows", -1), ("count", 0), ("sum_i", 0), ("sum_if", 0), ("min_i", 0),
+             ("max_i", 0), ("count", 1), ("sum_f", 1), ("min_f", 1), ("max_f", 1)]
+    ops = [FoldOp(k, p, j) for j, (k, p) in enumerate(kinds)]
+    store = torch.tensor([fold_init(op.kind) for op in ops]).unsqueeze(0).repeat(slots, 1)
+    want = {k: [] for k in ("seg", "i", "im", "f", "fm")}
+    for _ in range(2):
+        n = 400
+        k1 = rng.integers(-3, 2, n)
+        k2 = rng.integers(10, 17, n)
+        ints = (1 << 58) + rng.integers(-1000, 1000, n)
+        floats = rng.standard_normal(n)
+        im, fm = rng.random(n) > 0.2, rng.random(n) > 0.2
+        stream_fold_reference(
+            [torch.from_numpy(k1), torch.from_numpy(k2)], bounds,
+            [(torch.from_numpy(ints), torch.from_numpy(im)),
+             (torch.from_numpy(floats), torch.from_numpy(fm))], ops, store)
+        for key, v in (("seg", (k1 + 3) * 7 + (k2 - 10)), ("i", ints), ("im", im),
+                       ("f", floats), ("fm", fm)):
+            want[key].append(v)
+    seg, ints, im, floats, fm = (np.concatenate(want[k]) for k in ("seg", "i", "im", "f", "fm"))
+    assert store[:, 0].tolist() == np.bincount(seg, minlength=slots).tolist()
+    assert store[:, 1].tolist() == np.bincount(seg[im], minlength=slots).tolist()
+    sums = np.zeros(slots, dtype=np.int64)
+    np.add.at(sums, seg[im], ints[im])
+    assert store[:, 2].tolist() == sums.tolist()
+    np.testing.assert_allclose(store[:, 3].view(torch.float64).numpy(),
+                               np.bincount(seg[im], ints[im].astype(float), slots), rtol=RTOL)
+    lo = np.full(slots, np.iinfo(np.int64).max)
+    np.minimum.at(lo, seg[im], ints[im])
+    assert store[:, 4].tolist() == lo.tolist()
+    np.testing.assert_allclose(store[:, 7].view(torch.float64).numpy(),
+                               np.bincount(seg[fm], floats[fm], slots), rtol=RTOL, atol=1e-12)
+    got_min = streaming._from_order_key(store[:, 8], torch.float64).numpy()
+    fmin = np.full(slots, np.inf)
+    np.minimum.at(fmin, seg[fm], floats[fm])
+    assert np.array_equal(got_min, fmin)
+
+
+def test_aggregator_stats_and_pad_spans() -> None:
+    """``pad_spans`` rounds each span up to a power of two, so growth
+    within it needs no rebase; ``stats()`` counts no traces or programs
+    (the port compiles none)."""
+    te = ft.make_execution_engine(device="cpu")
+    schema = ft.Schema("k:long,v:double")
+    agg = streaming.StreamingAggregator(te, schema, ["k"], [("s", "sum", "v")], pad_spans=True)
+    for base in (0, 3, 5):
+        agg.fold(pd.DataFrame({"k": np.arange(base, base + 3, dtype=np.int64),
+                               "v": np.ones(3)}))
+    assert agg.stats() == {"traces": 0, "programs": 0, "rebases": 1, "chunks": 3, "rows": 9,
+                           "group_slots": 8}
+    out = agg.finalize().as_pandas()
+    assert out.k.tolist() == list(range(8)) and out.s.tolist() == [1, 1, 1, 1, 1, 2, 1, 1]
+    with pytest.raises(streaming.StreamUnsupported, match="key space too large"):
+        agg.fold(pd.DataFrame({"k": np.array([0, 1 << 30]), "v": [1.0, 2.0]}))
+
+
+def test_chip_smoke_streaming_phases_on_cpu(monkeypatch: pytest.MonkeyPatch) -> None:
+    """``chip_smoke.stream_fold_vs_twin`` and ``stream_path`` at small
+    sizes with K19's twin standing in for the kernel."""
+    import chip_smoke
+    from fugue_tpu_torch.kernels import stream
+
+    def fold(*args: Any) -> Any:
+        fold.launches += 1  # type: ignore[attr-defined]
+        return stream_fold_reference(*args)
+
+    fold.launches = 0  # type: ignore[attr-defined]
+    monkeypatch.setattr(stream, "stream_fold_cuda", fold)
+    chip_smoke.stream_fold_vs_twin(torch.device("cpu"), (1, 2001))
+    monkeypatch.setattr(chip_smoke, "STREAM_STORES", 50)
+    monkeypatch.setattr(chip_smoke, "STREAM_ITEMS", (40, 60))
+    st = chip_smoke.stream_path(torch.device("cpu"), 8, 5000, 1)
+    assert 0 < st["groups"] <= 3000 and st["rebases_per_run"] == 1
