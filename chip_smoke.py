@@ -9,7 +9,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them.
 2. build: compiles every CUDA source of the port with ``nvcc`` (one
-   process per source, all at once).
+   process per source, all at once). K6's kernels are generated, one for
+   each program structure, and built at first use: each twin check below
+   builds its programs' kernels together first (``prebuild_k6``:
+   parallel ``nvcc -cubin``s), and the paths build theirs as they run
+   (``k6_builds_cold`` of each path's stats).
 3. kernel vs twin: every hand kernel against its plain PyTorch twin on
    the same CUDA tensors. The fused binned-sum kernel first in its one-key
    form over precomputed segment ids (``segment_sums_cuda``), on both of
@@ -30,8 +34,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``expr_program`` against its twin (``expr_program_vs_twin``): every
    program of ``k6_cases`` (every operator family over every dtype, with
    nulls, NaN, -0.0, infinities and integer extremes, in columns mode, and
-   filter conditions over prefix rows and a ``row_valid``) at n = 1 and
-   2^20 + 37, and the paths' programs (``k6_path_programs``) at 1,
+   filter conditions over prefix rows and a ``row_valid``; programs over
+   the interpreter's old caps: 140 instructions, 17 outputs, 40 live
+   values, 4,100 immediates whose parameters go through device memory)
+   at n = 1 and 2^20 + 37, and the paths' programs (``k6_path_programs``) at 1,
    2^20 + 37, 10M and 100M rows: masks, filter flags and counts exactly,
    values bit for bit, the float functions within ``K6_FUNC_RTOL``. Then
    K6's LUT family exactly (``lut_vs_twin``): every program of
@@ -40,8 +46,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    dictionary, one absent and one between entries; columns with
    different dictionaries; IN lists; LENGTH; a canonicalising UPPER; a
    two-column CONCAT; a LIKE by a pattern column; NULLIF; filters over
-   prefix rows and a ``row_valid``) and the harmonize re-coding of a join
-   key, at 1, 2^20 + 37 and 100M rows. Then
+   prefix rows and a ``row_valid``; nine tables) and the harmonize
+   re-coding of a join key, at 1, 2^20 + 37 and 100M rows; and one
+   binary a structure (``k6_build_once``: filters that differ in a
+   threshold, LIKEs over other dictionaries, each group built at most
+   once). Then
    the join kernels exactly (``join_vs_twin``): K7 ``join_build`` (counts
    and slots) and K8 ``join_probe`` (semi, anti, unique and expand, inner
    and outer) over 1, 1024 and 2^24 segments with sentinel rows, null
@@ -182,7 +191,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    skewed key; K6's LUT programs at 100M rows (``lut_timing``: LIKE, a
    LIKE by a pattern column, a compare of two columns, LENGTH, the
    canonicalising re-coding and the harmonize re-coding), each beside its
-   twin, ``index_select`` of its table and its bound; K11-K14 and the
+   twin, ``index_select`` of its table and its bound, and on ``shifted``
+   views (K6's scalar path); K11-K14 and the
    fillna program of K6 (``relational_timing``), each beside its twin, its
    bound and, where one PyTorch call computes the same function,
    ``index_fill_`` (K12 at ``sample``'s shape, K13) or ``torch.all`` (K14);
@@ -193,8 +203,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``bincount`` a member) and K19 at a streaming chunk (``stream_timing``:
    beside ``index_add_`` of one payload's sum).
 
-Before the last line it prints one JSON object ``{"kernels": [...]}``; the
-last line is ``{"ok": true, "device": {...}}``.
+Before the last lines it prints K6's builds, their seconds and the cold
+seconds of its first path (``k6_builds:``); before the last line one JSON
+object ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 import json
@@ -1944,6 +1956,7 @@ def distinct_mask_timing(device: Any) -> Dict[str, Any]:
 K6_FUNC_RTOL = 1e-13
 K6_FUNCS = ("sqrt", "exp", "ln", "log2", "log10", "sin", "cos", "tan", "power")
 K6_TYPES = ("bool", "i8", "i32", "i64", "u8", "f32", "f64")
+K6_MANY_IMMS = 4_100
 HAVING_COUNT = 87_900  # SELECT ... HAVING COUNT(*) > this, at 100M rows
 CONFIG3_ROWS, CONFIG3_GROUPS, CONFIG3_SEED = 10_000_000, 256, 2  # bench.py:841-870
 FILTER_COND = "((v2 >= 1.2) & (u != 7)) | x IS NULL"
@@ -2028,10 +2041,39 @@ def k6_cases() -> List[Tuple[str, List[Any], bool]]:
         ("filter_float", [f], True),
         ("filter_null", [null()], True),
         ("filter_case", [case_when(col("f32") > 0.5, col("bool"), col("bool_b"))], True),
-        # 16 live outputs: more than 16 registers, one row a thread a step
         ("wide", [col("i64") * i + col("i32") for i in range(16)], False),
     ]
+    # over the interpreter's old caps (64 instructions, 32 registers, 16
+    # outputs): a chain of 140 instructions, 17 outputs, and 40 terms all
+    # live at once (the second sum reads them in reverse)
+    chain = col("i64")
+    for i in range(70):
+        chain = chain + i
+    terms = [col("i32") * i for i in range(1, 41)]
+    cases += [
+        ("chain70", [chain], False),
+        ("outputs17", [col("i64") * i + col("i32") for i in range(17)], False),
+        ("live40", [_left_sum(terms), _left_sum(terms[::-1])], False),
+        # 4,100 immediates: parameters past a launch's 32,764 bytes, read
+        # from device memory
+        ("params_in_memory", [coalesce(col("i64"), *[lit(i) for i in range(K6_MANY_IMMS)])],
+         False),
+    ]
     return cases
+
+
+def _left_sum(terms: List[Any]) -> Any:
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
+
+
+def _or_all(conds: List[Any]) -> Any:
+    out = conds[0]
+    for c in conds[1:]:
+        out = out | c
+    return out
 
 
 def k6_path_programs() -> List[Tuple[str, List[Any], bool]]:
@@ -2056,8 +2098,10 @@ def _uses_func(expr: Any) -> bool:
     return any(f"{name}(" in text for name in K6_FUNCS)
 
 
-def _run_k6(blocks: Any, exprs: List[Any], filt: bool, rows: Dict[str, Any]) -> Tuple[Any, Any, Any]:
-    """``(program, kernel's result, twin's result)`` on the same tensors."""
+def _run_k6(blocks: Any, exprs: List[Any], filt: bool, rows: Dict[str, Any],
+            views: bool = False) -> Tuple[Any, Any, Any]:
+    """``(program, kernel's result, twin's result)`` on the same tensors;
+    with ``views``, on ``shifted`` copies (K6's scalar path)."""
     import torch
 
     from fugue_tpu_torch.kernels.expr_program import compile_program, expr_program_cuda
@@ -2068,6 +2112,8 @@ def _run_k6(blocks: Any, exprs: List[Any], filt: bool, rows: Dict[str, Any]) -> 
     prog = compile_program(exprs, [torch.bool] if filt else [None] * len(exprs), cols, dicts,
                            blocks.device)
     inputs = [(blocks.columns[n].data, blocks.columns[n].mask) for n, _ in prog.inputs]
+    if views:
+        inputs = shifted(inputs)
     n = blocks.padded_nrows
     kw = dict(filter=True, **rows) if filt else {}
     got = expr_program_cuda(prog, inputs, n, device=blocks.device, **kw)
@@ -2114,13 +2160,42 @@ def check_k6(label: str, exprs: List[Any], filt: bool, got: Any, want: Any) -> f
     return worst
 
 
+def prebuild_k6(blocks: Any, cases: List[Tuple[str, List[Any], bool]], label: str) -> None:
+    """Builds K6's kernels of ``cases`` over ``blocks``' columns, in each
+    mode a case runs in, all at once (``expr_program.build_kernels``:
+    parallel ``nvcc``s), and prints the builds and their seconds."""
+    import torch
+
+    from fugue_tpu_torch.kernels import expr_program as ep
+
+    cols = {n: (c.data.dtype, c.mask is not None) for n, c in blocks.columns.items()}
+    dicts = {n: c.dictionary for n, c in blocks.columns.items() if c.is_string}
+    specs = []
+    for _, exprs, filt in cases:
+        prog = ep.compile_program(exprs, [torch.bool] if filt else [None] * len(exprs), cols,
+                                  dicts, blocks.device)
+        masked = [blocks.columns[n].mask is not None for n, _ in prog.inputs]
+        specs += [(prog, masked, mode) for mode in (("prefix", "row_valid") if filt
+                                                    else ("columns",))]
+    builds, secs, t = ep.expr_program_cuda.builds, ep.expr_program_cuda.build_seconds, \
+        time.perf_counter()
+    kernels = ep.build_kernels(specs)
+    print(f"k6_prebuild {label}: " + json.dumps({
+        "programs": len(specs), "kernels": len({k.name for k in kernels}),
+        "built": ep.expr_program_cuda.builds - builds,
+        "build_secs": ep.expr_program_cuda.build_seconds - secs,
+        "wall_secs": time.perf_counter() - t}))
+
+
 def expr_program_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
     """K6 against its twin: every case of ``k6_cases`` at the sizes below
     10M rows, the paths' programs (``k6_path_programs``) at every size;
     filter programs over prefix rows (all, and all but 3) and a random
-    ``row_valid``."""
+    ``row_valid``; below 10M rows each on aligned columns (the vector
+    path) and on ``shifted`` views (the scalar path)."""
     import torch
 
+    prebuild_k6(k6_frame(device, 1, SEED), k6_path_programs() + k6_cases(), "k6_cases")
     worst = 0.0
     for n in sizes:
         blocks = k6_frame(device, n, SEED + n % 97)
@@ -2129,12 +2204,55 @@ def expr_program_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
         cases = k6_path_programs() + (k6_cases() if n < 10_000_000 else [])
         for label, exprs, filt in cases:
             for rows in (rows_variants if filt else [{}]):
-                _, got, want = _run_k6(blocks, exprs, filt, rows)
-                worst = max(worst, check_k6(f"{label} n={n}", exprs, filt, got, want))
+                # aligned columns take the vector path; views one element in, the scalar
+                for views in ((False, True) if n < 10_000_000 else (False,)):
+                    _, got, want = _run_k6(blocks, exprs, filt, rows, views)
+                    worst = max(worst, check_k6(f"{label} n={n} views={views}", exprs, filt,
+                                                got, want))
         print(f"ok expr_program n={n}: {len(cases)} programs against the twin")
         del blocks
         torch.cuda.empty_cache()
     return worst
+
+
+def k6_build_once(device: Any, n: int) -> Dict[str, Any]:
+    """One binary a program structure: filters that differ only in their
+    thresholds, and LIKEs by patterns over dictionaries of other entries
+    and lengths, each group built once (``expr_program_cuda.builds``)
+    and each program held against the twin."""
+    import numpy as np
+    import pyarrow as pa
+
+    from fugue_tpu_torch.column.expressions import col
+    from fugue_tpu_torch.column.functions import like
+    from fugue_tpu_torch.kernels.expr_program import expr_program_cuda
+    from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, TorchColumn
+
+    blocks = k6_frame(device, n, SEED)
+    strings = k6_string_frame(device, n, STRING_SEED)
+    s = strings.columns["s"]
+    small = dict(strings.columns)
+    small["s"] = TorchColumn(pa.string(), s.data % 7, s.mask, (0, 6),
+                             dictionary=np.array([f"sku-{i}x" for i in range(7)], dtype=object))
+    other = TorchBlocks(n, small, device)
+    groups = {
+        "thresholds": [(blocks, [(col("f64_b") > x) & (col("i32_b") != 3)], True)
+                       for x in (0.9, 0.5, -10.0)],
+        "like_patterns": [(frame, [like(col("s"), pat)], False)
+                          for frame, pat in ((strings, "sku-1%"), (strings, "%7_"),
+                                             (other, "sku-3%"))],
+    }
+    out = {}
+    for name, runs in groups.items():
+        before = expr_program_cuda.builds
+        for frame, exprs, filt in runs:
+            _, got, want = _run_k6(frame, exprs, filt, {"nrows": n} if filt else {})
+            check_k6(f"build_once {name}", exprs, filt, got, want)
+        out[name] = {"programs": len(runs), "builds": expr_program_cuda.builds - before}
+        if out[name]["builds"] > 1:
+            raise SystemExit(f"FAIL k6 {name}: {out[name]['builds']} builds for one structure")
+    print("k6_build_once: " + json.dumps(out))
+    return out
 
 
 def filtered_frame(rows: int, groups: int, seed: int) -> Dict[str, Any]:
@@ -2288,9 +2406,14 @@ def _path_stats(label: str, rows: int, run_once: Callable[[], Tuple[float, Any, 
     returns the stats, the cold run's frame and pandas."""
     import torch
 
+    from fugue_tpu_torch.kernels.expr_program import expr_program_cuda
+
     zero_launches()
+    builds, build_secs = expr_program_cuda.builds, expr_program_cuda.build_seconds
     cold_secs, frame, pdf = run_once()
     cold = launch_counts()
+    builds, build_secs = (expr_program_cuda.builds - builds,
+                          expr_program_cuda.build_seconds - build_secs)
     lazy = frame.blocks._nrows is None
     zero_launches()
     warm = [run_once()[0] for _ in range(warm_runs)]
@@ -2310,6 +2433,8 @@ def _path_stats(label: str, rows: int, run_once: Callable[[], Tuple[float, Any, 
         "case": label,
         "rows": rows,
         "cold_secs": cold_secs,
+        "k6_builds_cold": builds,
+        "k6_build_secs_cold": build_secs,
         "warm_secs": warm,
         "best_warm_secs": best,
         "rows_per_sec": rows / best,
@@ -2431,6 +2556,31 @@ def _twin_kernels(fn: Callable[[], Any]) -> Optional[int]:
     return n or None
 
 
+def _k6_kernel(prog: Any, inputs: List[Any], kw: Dict[str, Any]) -> Any:
+    """The generated kernel ``expr_program_cuda`` runs ``prog`` on (built
+    already by the call that checked it)."""
+    from fugue_tpu_torch.kernels import expr_program as ep
+
+    mode = ep._mode(bool(kw.get("filter")), kw.get("row_valid"))
+    return ep.build_kernels([(prog, [m is not None for _, m in inputs], mode)])[0]
+
+
+def shifted(inputs: List[Any]) -> List[Any]:
+    """Each input column and mask as a view one element into a copy one
+    row longer: the same rows at an address no vector load takes, so K6
+    runs its scalar path (as on a slice of a column)."""
+    import torch
+
+    def view(t: Any) -> Any:
+        if t is None:
+            return None
+        out = torch.empty((t.shape[0] + 1,), dtype=t.dtype, device=t.device)
+        out[1:] = t
+        return out[1:]
+
+    return [(view(v), view(m)) for v, m in inputs]
+
+
 def expr_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
     """K6 with CUDA events at the filtered paths' shapes (100M rows of a
     float32 ``v2``, an int32 ``u`` and a float64 ``x`` with nulls, a
@@ -2444,7 +2594,7 @@ def expr_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
     launches in one run of the filtered pipeline."""
     import torch
 
-    from fugue_tpu_torch.kernels.expr_program import DTYPES, compile_program, expr_program_cuda
+    from fugue_tpu_torch.kernels.expr_program import compile_program, expr_program_cuda
     from fugue_tpu_torch.kernels.reference import expr_program_reference
 
     blocks = k6_frame(device, ROWS, SEED)
@@ -2457,27 +2607,26 @@ def expr_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
         got = expr_program_cuda(prog, inputs, ROWS, device=device, **kw)
         want = expr_program_reference(prog, inputs, ROWS, device=device, **kw)
         err = check_k6(f"{label} timed", exprs, filt, got, want)
-        del got, want
+        del got
         ms = time_cuda(lambda: expr_program_cuda(prog, inputs, ROWS, device=device, **kw), 20)
+        views = shifted(inputs)
+        check_k6(f"{label} timed, scalar path", exprs, filt,
+                 expr_program_cuda(prog, views, ROWS, device=device, **kw), want)
+        ms_scalar = time_cuda(lambda: expr_program_cuda(prog, views, ROWS, device=device, **kw),
+                              20)
+        del views, want
         plain_ms = time_cuda(
             lambda: expr_program_reference(prog, inputs, ROWS, device=device, **kw), 5)
         twin_kernels = _twin_kernels(
             lambda: expr_program_reference(prog, inputs, ROWS, device=device, **kw))
-        per_row = 0
-        for (name, code), mask_only in zip(prog.inputs, prog.mask_only):
-            c = blocks.columns[name]
-            per_row += (0 if mask_only else c.data.element_size()) + (c.mask is not None)
-        if filt:
-            per_row += 1
-        else:
-            per_row += sum(torch.empty((), dtype=DTYPES[o.dtype]).element_size() + o.masked
-                           for o in prog.outputs)
+        per_row = _k6_kernel(prog, inputs, kw).bytes_per_row
         entry = _kernel_entry(
             "expr_program" if label == "path_assign" else f"expr_program[{label}]",
             "fugue_tpu/jax_backend/expr_eval.py:109", 0, err, ms, plain_ms, per_row * ROWS,
-            len(prog.instrs) * ROWS, None, source="expr_program.cu", ops_per_s=FP64_OPS_PER_S)
+            len(prog.instrs) * ROWS, None, source="expr_codegen.py", ops_per_s=FP64_OPS_PER_S)
         entry["instrs"] = len(prog.instrs)
         entry["bytes_per_row"] = per_row
+        entry["ms_scalar"] = ms_scalar
         entry["twin_cuda_kernels"] = twin_kernels
         print("expr_program timed: " + json.dumps(entry))
         if label == "path_assign":
@@ -2533,7 +2682,8 @@ def k6_scaling(device: Any) -> List[Dict[str, Any]]:
         row = {"case": name, "instrs": len(prog.instrs), "inputs": len(prog.inputs),
                "nregs": prog.nregs,
                "ms": time_cuda(lambda: expr_program_cuda(prog, inputs, ROWS, device=device, **kw),
-                               20)}
+                               20),
+               }
         print("k6_scaling: " + json.dumps(row))
         out.append(row)
     x = blocks.columns["f32_b"].data
@@ -3360,6 +3510,8 @@ def k6_string_cases(frame: Any) -> List[Tuple[str, List[Any], bool]]:
         ("lut_nullif", [fn("nullif", t, present), fn("nullif", s, t)], False),
         ("lut_filter", [like(s, "sku-1%") & (s < "sku-15000")], True),
         ("lut_filter_columns", [(s == t) | (fn("length", u) > 3) | (col("v") > 0.5)], True),
+        # nine tables, over the interpreter's old cap of eight
+        ("lut_nine_tables", [_or_all([like(s, f"sku-{i}%") for i in range(1, 10)])], True),
     ]
     return cases
 
@@ -3381,13 +3533,16 @@ def _remap_case(frame: Any) -> Tuple[Any, List[Any]]:
 def lut_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
     """K6's LUT programs (``k6_string_cases`` and the harmonize re-coding)
     against the twin at each size, filter programs over prefix rows (all,
-    and all but 3) and a random ``row_valid``: masks, codes, flags and
-    counts exactly."""
+    and all but 3) and a random ``row_valid``, below 100M rows also on
+    ``shifted`` views (the scalar path): masks, codes, flags and counts
+    exactly."""
     import torch
 
     from fugue_tpu_torch.kernels.expr_program import OP, expr_program_cuda
     from fugue_tpu_torch.kernels.reference import expr_program_reference
 
+    prebuild_k6(k6_string_frame(device, 1, STRING_SEED), k6_string_cases(
+        k6_string_frame(device, 1, STRING_SEED)), "k6_string_cases")
     worst = 0.0
     for n in sizes:
         frame = k6_string_frame(device, n, STRING_SEED + n % 89)
@@ -3396,10 +3551,13 @@ def lut_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
         cases = k6_string_cases(frame)
         for label, exprs, filt in cases:
             for rows in (rows_variants if filt else [{}]):
-                prog, got, want = _run_k6(frame, exprs, filt, rows)
-                if not any(ins.op == OP["LUT"] for ins in prog.instrs) and label != "lut_concat":
-                    raise SystemExit(f"FAIL expr_program {label}: no LUT instruction")
-                worst = max(worst, check_k6(f"{label} n={n}", exprs, filt, got, want))
+                for views in ((False, True) if n < ROWS else (False,)):
+                    prog, got, want = _run_k6(frame, exprs, filt, rows, views)
+                    if not any(ins.op == OP["LUT"] for ins in prog.instrs) \
+                            and label != "lut_concat":
+                        raise SystemExit(f"FAIL expr_program {label}: no LUT instruction")
+                    worst = max(worst, check_k6(f"{label} n={n} views={views}", exprs, filt,
+                                                got, want))
         prog, inputs = _remap_case(frame)
         got = expr_program_cuda(prog, inputs, n, device=device)
         want = expr_program_reference(prog, inputs, n, device=device)
@@ -3819,7 +3977,7 @@ def _lut_entry(label: str, replaces: str, launches: int, prog: Any, inputs: List
     table by its first input's codes, and its bound."""
     import torch
 
-    from fugue_tpu_torch.kernels.expr_program import DTYPES, expr_program_cuda
+    from fugue_tpu_torch.kernels.expr_program import expr_program_cuda
     from fugue_tpu_torch.kernels.reference import expr_program_reference
 
     device, n = inputs[0][0].device, ROWS
@@ -3834,13 +3992,14 @@ def _lut_entry(label: str, replaces: str, launches: int, prog: Any, inputs: List
     table, codes = prog.tables[0], inputs[0][0].long()
     library_ms = time_cuda(lambda: torch.index_select(table, 0, codes), 20)
     del codes
-    per_row = sum(v.element_size() + (m is not None) for v, m in inputs)
-    per_row += sum(torch.empty((), dtype=DTYPES[o.dtype]).element_size() + o.masked
-                   for o in prog.outputs)
+    per_row = _k6_kernel(prog, inputs, {}).bytes_per_row
     entry = _kernel_entry(f"expr_program[LUT {label}]", replaces, launches, err, ms, plain_ms,
-                          per_row * n, 0, library_ms, source="expr_program.cu")
+                          per_row * n, 0, library_ms, source="expr_codegen.py")
     entry["instrs"] = [str(i) for i in prog.instrs]
     entry["table_entries"] = [int(t.shape[0]) for t in prog.tables]
+    views = shifted(inputs)
+    entry["ms_scalar"] = time_cuda(lambda: expr_program_cuda(prog, views, n, device=device), 20)
+    del views
     entry["bytes_per_row"] = per_row
     print("expr_program LUT timed: " + json.dumps(entry))
     return {k: entry[k] for k in _ENTRY_KEYS}
@@ -4749,7 +4908,7 @@ def relational_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, A
         launches["expr_program_fillna"], err,
         time_cuda(lambda: expr_program_cuda(prog, inputs, n, device=device), 20),
         time_cuda(lambda: expr_program_reference(prog, inputs, n, device=device), 5),
-        n * 4 * (8 + 1 + 8), 0, None, source="expr_program.cu"))
+        n * 4 * (8 + 1 + 8), 0, None, source="expr_codegen.py"))
     for e in entries:
         print("relational timed: " + json.dumps(e))
     return entries
@@ -5953,6 +6112,18 @@ def stream_timing(device: Any, launches: int) -> Dict[str, Any]:
         time_cuda(lambda: sums.index_add_(0, seg, price), 20), source="stream.cu",
         ops_per_s=FP64_OPS_PER_S)
     print("stream timed: " + json.dumps(entry))
+    # the rebase of the run: the slots of 800 items widened to 1,000
+    from fugue_tpu_torch.torch_backend.streaming import _Space
+
+    old = _Space([(0, STREAM_STORES - 1), (0, STREAM_ITEMS[0] - 1)])
+    new = _Space([(0, STREAM_STORES - 1), (0, STREAM_ITEMS[1] - 1)])
+    before = agg._make_init(old.total)
+    nbytes = (before.numel() + new.total * before.shape[1]) * before.element_size()
+    print("rebase timed: " + json.dumps({
+        "name": "StreamingAggregator._rebase", "slots": [old.total, new.total],
+        "accumulators": int(before.shape[1]),
+        "ms": time_cuda(lambda: agg._rebase(old, new, before), 20),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "card": card_line()}))
     return entry
 
 
@@ -6008,6 +6179,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     lut_vs_twin(device, (1, (1 << 20) + 37, ROWS))
     print("kernels checked against their twins: expr_program's LUT family (equal)")
+    k6_once = k6_build_once(device, (1 << 20) + 37)
     torch.cuda.empty_cache()
     join_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
     print("kernels checked against their twins: join_build, join_probe, join_expand, "
@@ -6101,6 +6273,9 @@ def main() -> None:
         print("full_groupby: " + json.dumps(st))
     torch.cuda.empty_cache()
 
+    from fugue_tpu_torch.kernels.expr_program import expr_program_cuda
+
+    k6_twin_builds = (expr_program_cuda.builds, expr_program_cuda.build_seconds)
     k6_paths = filtered_paths(device, ROWS, GROUPS, SEED, WARM_RUNS)
     k6_paths.append(config3_select(device, CONFIG3_ROWS, WARM_RUNS))
     for st in k6_paths:
@@ -6213,6 +6388,14 @@ def main() -> None:
         if entry["max_abs_err"] != 0 and entry["name"] not in ("binned_sums", "segment_sq_dev",
                                                                "window_frame", "stream_fold"):
             raise SystemExit(f"FAIL: {entry['name']} differs from its twin at the timed shape")
+    print("k6_builds: " + json.dumps({
+        "builds": expr_program_cuda.builds, "build_secs": expr_program_cuda.build_seconds,
+        "twin_check_builds": k6_twin_builds[0], "twin_check_build_secs": k6_twin_builds[1],
+        "build_once": k6_once, "first_path": k6_paths[0]["case"],
+        "first_path_cold_secs": k6_paths[0]["cold_secs"],
+        "first_path_best_warm_secs": k6_paths[0]["best_warm_secs"],
+        "first_path_builds": k6_paths[0]["k6_builds_cold"],
+        "first_path_build_secs": k6_paths[0]["k6_build_secs_cold"], "card": card}))
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({

@@ -1,6 +1,7 @@
 """K6 ``expr_program``: column expressions compiled into one typed register
-program, and the wrapper that runs it over a frame's rows on the card
-(``expr_program.cu``).
+program, and the wrapper that runs it over a frame's rows on the card in
+one CUDA kernel generated for the program's structure
+(``expr_codegen.py``, semantics in ``expr_ops.cuh``).
 
 The JAX package evaluates an expression tree (``expr_eval._eval``,
 ``fugue_tpu/jax_backend/expr_eval.py:109``) inside a jitted program
@@ -9,11 +10,14 @@ The JAX package evaluates an expression tree (``expr_eval._eval``,
 elementwise pass. Here the host compiles the trees once into a program
 of instructions ``dst = op(a, b[, c])``, each with an opcode per
 operation and dtype (``ADD_F32``, ``LT_I64``, ``CAST_F64`` to a target,
-``AND_B`` in Kleene logic, ``SEL``, ...), and one launch of K6 runs it
-over every row: it reads each input column and its mask once, keeps
-values and validity in registers, and writes either every output column
-with its mask (columns mode: ``assign``, a projection, an aggregate's
-arguments) or a filter's keep flags and kept count (filter mode).
+``AND_B`` in Kleene logic, ``SEL``, ...); ``expr_codegen`` turns the
+program's structure into one CUDA kernel, built with ``nvcc`` at first
+use and cached by that structure (literals and tables are its
+parameters), and one launch of it runs over every row: it reads each
+input column and its mask once, keeps values and validity in hardware
+registers, and writes either every output column with its mask (columns
+mode: ``assign``, a projection, an aggregate's arguments) or a filter's
+keep flags and kept count (filter mode).
 
 Strings: a string register is an I32 register holding dictionary codes;
 the compiler, not the kernel, tracks which dictionary it codes
@@ -49,19 +53,19 @@ a bool as ``x != 0``; ``round(x, d)`` is ``rint(x * 10^d) / 10^d`` for
 ``sign`` keeps NaN and a zero's sign; ``floor``, ``ceil`` and ``sign``
 of a float are int64 with NaN as NULL.
 
-A program over the caps (``MAX_INSTRS`` instructions, ``MAX_REGS``
-registers, ``MAX_INPUTS`` inputs, ``MAX_OUTPUTS`` outputs, ``MAX_TABLES``
-tables) raises ``NotImplementedError`` naming ROADMAP.md queue 2 item 17,
-on the card and on the CPU alike. A table over the string caps of
-``strings.py`` (a LIKE by a pattern column over more than
+A program has no cap on its instructions, registers, inputs, outputs or
+tables: its kernel is generated to its size. A table over the string
+caps of ``strings.py`` (a LIKE by a pattern column over more than
 ``MAX_PAIR_LUT`` pairs, a CONCAT over more than ``MAX_COMPOSED_DICT``
 combinations), and what else the JAX package answers on its host engine,
 raises it naming queue 1 item 2(b).
 """
 
-import ctypes
 import math
+import os
 import struct
+import time
+from pathlib import Path
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -80,14 +84,7 @@ from fugue_tpu_torch.column.expressions import (
 from fugue_tpu_torch.kernels import build
 from fugue_tpu_torch.torch_backend import strings
 
-MAX_INSTRS = 64
-MAX_REGS = 32
-MAX_INPUTS = 16
-MAX_OUTPUTS = 16
-MAX_TABLES = 8
-
 HOST_ENGINE = "ROADMAP.md queue 1 item 2(b) (the host engine)"
-OVER_CAPS = "ROADMAP.md queue 2 item 17 (K6 programs over the caps)"
 
 # dtype codes of bin_keys.cuh
 B, U8, I8, I16, I32, I64, F32, F64 = range(8)
@@ -106,7 +103,7 @@ _INTS = (U8, I8, I16, I32, I64)
 _FLOATS = (F32, F64)
 
 # operation families; the opcode is family * 8 + the dtype code of the
-# operands (expr_program.cu reads the same numbers)
+# operands
 OPS = (
     "CONST", "NULL", "ADD", "SUB", "MUL", "DIV", "MOD", "POW", "NEG", "ABS",
     "EQ", "NE", "LT", "LE", "GT", "GE", "AND", "OR", "NOT", "ISNULL", "NOTNULL",
@@ -121,7 +118,7 @@ _FLOAT_FUNCS = {
     "log10": "LOG10", "sin": "SIN", "cos": "COS", "tan": "TAN",
 }
 _TABLE_CODES = {np.dtype(bool): B, np.dtype(np.int32): I32, np.dtype(np.int64): I64}
-# the (family, dtype) pairs the kernel implements
+# the (family, dtype) pairs the kernels implement
 _ANY = tuple(range(8))
 _NUM = _INTS + _FLOATS
 _VALID = {
@@ -300,7 +297,8 @@ def reads(ins: Instr) -> Tuple[int, ...]:
 class _Compiler:
     """Expression trees -> instructions over virtual registers (one per
     value, common subexpressions, constants and tables shared), then a
-    linear-scan allocation onto ``MAX_REGS`` registers."""
+    linear-scan allocation onto as few registers as the values live at once
+need."""
 
     def __init__(self, columns: Dict[str, Tuple[int, bool]],
                  dicts: Dict[str, np.ndarray]):
@@ -731,22 +729,13 @@ def compile_program(
     a mask)`` and whose string columns' codes index ``dicts``, each output
     converted to its ``out_dtypes`` entry (None: the type it computes in;
     a string output is int32 codes), its tables on ``device`` (default:
-    the CPU). Raises ``Refused`` for what K6 does not evaluate and for a
-    program over the caps."""
-    if not 1 <= len(exprs) <= MAX_OUTPUTS:
-        raise Refused(f"{len(exprs)} expressions in one program (at most {MAX_OUTPUTS})",
-                      OVER_CAPS)
+    the CPU). Raises ``Refused`` for what K6 does not evaluate."""
+    if not exprs:
+        raise ValueError("a program computes at least one expression")
     comp = _Compiler({n: (CODES[t], m) for n, (t, m) in columns.items() if t in CODES},
                      dict(dicts or {}))
     outs = [comp.output(e, comp.node(e), dt) for e, dt in zip(exprs, out_dtypes)]
     prog = comp.finish(outs, device)
-    if len(prog.inputs) > MAX_INPUTS or len(prog.instrs) > MAX_INSTRS or \
-            prog.nregs > MAX_REGS or len(prog.tables) > MAX_TABLES:
-        raise Refused(
-            f"a program of {len(prog.instrs)} instructions, {prog.nregs} registers, "
-            f"{len(prog.inputs)} inputs and {len(prog.tables)} tables (caps {MAX_INSTRS}, "
-            f"{MAX_REGS}, {MAX_INPUTS}, {MAX_TABLES})",
-            OVER_CAPS)
     for ins in prog.instrs:
         assert ins.dtype in _VALID[OPS[ins.op]], f"no kernel for {ins}"
     return prog
@@ -791,25 +780,120 @@ class ProgramCache:
 
 Masked = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
+_MASK64 = (1 << 64) - 1
+# structure -> generated kernel; (structure, device) -> its loaded function
+_KERNELS: Dict[Any, Any] = {}
+_FUNCTIONS: Dict[Tuple[Any, int], Tuple[Any, Tuple[Any, Any]]] = {}
+_SMS: Dict[int, int] = {}
 
-def _bind() -> ctypes.CDLL:
-    lib = build.load("expr_program")
-    if lib.fugue_expr_program.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        pp, ip, llp = ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll)
-        lib.fugue_expr_program.argtypes = [
-            ll, ll, p,  # n, nrows, row_valid
-            i, pp, pp, ip,  # inputs: count, data, masks, codes
-            i, ip, ip, llp,  # instructions: count, opcodes, registers, immediates
-            i, pp, pp, ip, ip, i,  # outputs: count, data, masks, codes, registers; nregs
-            i, pp, llp, ip,  # tables: count, data, lengths, codes
-            p, p,  # keep, count
-            i, p,  # device, stream
-        ]
-        lib.fugue_expr_program.restype = i
-        lib.fugue_expr_error_string.argtypes = [i]
-        lib.fugue_expr_error_string.restype = ctypes.c_char_p
-    return lib
+
+def kernel_dir() -> Path:
+    """Where generated sources and their cubins go (git-ignored)."""
+    return build.BUILD_DIR / "k6"
+
+
+def _mode(filter: bool, row_valid: Optional[torch.Tensor]) -> str:
+    return "columns" if not filter else "row_valid" if row_valid is not None else "prefix"
+
+
+def build_kernels(specs: Sequence[Tuple[Program, Sequence[bool], str]]) -> List[Any]:
+    """The generated kernels (``expr_codegen.Kernel``) of ``specs``, each
+    ``(program, which inputs come with a mask, mode)`` with ``mode`` one
+    of ``expr_codegen.MODES``: one ``nvcc -cubin`` for each that has no
+    cubin in ``kernel_dir()`` yet, at most one a CPU core at once. A
+    kernel is keyed by its source, which depends on the program's
+    structure only; a cubin's name covers its source, ``expr_ops.cuh``
+    and the flags. Counts the builds and their wall seconds on
+    ``expr_program_cuda``; raises ``RuntimeError`` with ``nvcc``'s output
+    where a build fails."""
+    from fugue_tpu_torch.kernels import expr_codegen
+
+    kernels = []
+    for program, masked, mode in specs:
+        key = expr_codegen.structure(program, masked, mode)
+        kernel = _KERNELS.get(key)
+        if kernel is None:
+            kernel = _KERNELS[key] = expr_codegen.generate(key)
+        kernels.append(kernel)
+    todo = {k.name: k for k in kernels if not (kernel_dir() / f"{k.name}.cubin").exists()}
+    if todo:
+        start = time.perf_counter()
+        jobs = []
+        for name, kernel in todo.items():
+            src = kernel_dir() / f"{name}.cu"
+            src.parent.mkdir(parents=True, exist_ok=True)
+            tmp = src.with_name(f"{src.name}.tmp{os.getpid()}")
+            tmp.write_text(kernel.source)
+            os.replace(tmp, src)
+            jobs.append((name, [*expr_codegen.CUBIN_FLAGS, f"-I{build.KERNEL_DIR}", str(src)],
+                         kernel_dir() / f"{name}.cubin"))
+        try:
+            build.compile_jobs(jobs, parallel=os.cpu_count())
+        finally:
+            expr_program_cuda.builds += len(todo)
+            expr_program_cuda.build_seconds += time.perf_counter() - start
+    return kernels
+
+
+def _function(program: Program, masked: Tuple[bool, ...], mode: str, device: int
+              ) -> Tuple[Any, Tuple[Any, Any]]:
+    """The kernel of ``program`` and its vector and scalar entry points
+    loaded on ``device``, built first where needed."""
+    from fugue_tpu_torch.kernels import cubin, expr_codegen
+
+    key = (expr_codegen.structure(program, masked, mode), device)
+    hit = _FUNCTIONS.get(key)
+    if hit is None:
+        kernel, = build_kernels([(program, masked, mode)])
+        module = cubin.Module((kernel_dir() / f"{kernel.name}.cubin").read_bytes(), device)
+        hit = _FUNCTIONS[key] = (kernel, (module.function(kernel.name),
+                                          module.function(kernel.name + expr_codegen.SCALAR)))
+    return hit
+
+
+def pack_params(kernel: Any, program: Program, inputs: Sequence[Masked], outs: Sequence[Masked],
+                n: int, nrows: int, row_valid: Optional[torch.Tensor],
+                keep: Optional[torch.Tensor], count: Optional[torch.Tensor]
+                ) -> Tuple[bytes, bool]:
+    """The generated kernel's ``Params`` struct, byte for byte (one 8-byte
+    field each of ``kernel.fields``), and whether every row pointer is
+    aligned for the kernel's vector path."""
+    vals: List[int] = []
+    aligned = True
+    for kind, i in kernel.fields:
+        if kind == "n":
+            vals.append(n)
+        elif kind == "nrows":
+            vals.append(nrows)
+        elif kind == "row_valid":
+            vals.append(row_valid.data_ptr())  # type: ignore[union-attr]
+        elif kind == "keep":
+            vals.append(keep.data_ptr())  # type: ignore[union-attr]
+        elif kind == "count":
+            vals.append(count.data_ptr())  # type: ignore[union-attr]
+        elif kind == "in":
+            vals.append(inputs[i][0].data_ptr())
+        elif kind == "inm":
+            vals.append(inputs[i][1].data_ptr())  # type: ignore[union-attr]
+        elif kind == "out":
+            vals.append(outs[i][0].data_ptr())
+        elif kind == "outm":
+            vals.append(outs[i][1].data_ptr())  # type: ignore[union-attr]
+        elif kind == "tab":
+            vals.append(program.tables[i].data_ptr())
+        elif kind == "tablen":
+            vals.append(int(program.tables[i].shape[0]))
+        else:  # "imm"
+            vals.append(program.instrs[i].imm_bits())
+        if kind in _ROW_POINTERS:
+            size = 1 if kind not in ("in", "out") else DTYPES[
+                program.inputs[i][1] if kind == "in" else program.outputs[i].dtype].itemsize
+            aligned = aligned and vals[-1] % (kernel.vec_width * size) == 0
+    return struct.pack(f"<{len(vals)}Q", *[v & _MASK64 for v in vals]), aligned
+
+
+# the pointers a row reads or writes, which the vector path needs aligned
+_ROW_POINTERS = frozenset(("row_valid", "keep", "in", "inm", "out", "outm"))
 
 
 def _check_inputs(program: Program, inputs: Sequence[Masked], n: int,
@@ -831,42 +915,6 @@ def _check_inputs(program: Program, inputs: Sequence[Masked], n: int,
                 raise ValueError(f"{what} must be a dense 1-D tensor of {n} rows")
 
 
-def launch(lib: ctypes.CDLL, program: Program, inputs: Sequence[Masked],
-           outs: Sequence[Masked], n: int, nrows: int, row_valid: Optional[torch.Tensor],
-           keep: Optional[torch.Tensor], count: Optional[torch.Tensor], device: int,
-           stream: int) -> None:
-    """One call of ``fugue_expr_program`` over checked, allocated tensors
-    (``nrows`` -1 with ``row_valid``); raises on a refused launch."""
-
-    def ptrs(ts: Sequence[Optional[torch.Tensor]]) -> "ctypes.Array":
-        return (ctypes.c_void_p * max(len(ts), 1))(
-            *[None if t is None else t.data_ptr() for t in ts])
-
-    def ints(xs: Sequence[int]) -> "ctypes.Array":
-        return (ctypes.c_int * max(len(xs), 1))(*xs)
-
-    instrs = program.instrs
-    err = lib.fugue_expr_program(
-        n, nrows, None if row_valid is None else row_valid.data_ptr(),
-        len(inputs), ptrs([None if skip else v for (v, _), skip in zip(inputs, program.mask_only)]),
-        ptrs([m for _, m in inputs]), ints([c for _, c in program.inputs]),
-        len(instrs), ints([i.opcode for i in instrs]),
-        ints([r for i in instrs for r in (i.dst, i.a, i.b, i.c)]),
-        (ctypes.c_longlong * max(len(instrs), 1))(*[i.imm_bits() for i in instrs]),
-        len(outs), ptrs([v for v, _ in outs]), ptrs([m for _, m in outs]),
-        ints([o.dtype for o in program.outputs]), ints([o.reg for o in program.outputs]),
-        program.nregs,
-        len(program.tables), ptrs(list(program.tables)),
-        (ctypes.c_longlong * max(len(program.tables), 1))(*[t.shape[0] for t in program.tables]),
-        ints([CODES[t.dtype] for t in program.tables]),
-        None if keep is None else keep.data_ptr(), None if count is None else count.data_ptr(),
-        device, stream,
-    )
-    if err != 0:
-        msg = lib.fugue_expr_error_string(err).decode()
-        raise RuntimeError(f"expr_program kernel launch failed: {msg} ({err})")
-
-
 def expr_program_cuda(
     program: Program,
     inputs: Sequence[Masked],
@@ -878,11 +926,17 @@ def expr_program_cuda(
     row_valid: Optional[torch.Tensor] = None,
 ) -> Any:
     """K6, with the contract of ``reference.expr_program_reference``: one
-    launch over ``n`` rows on ``device`` (a CUDA device), on PyTorch's
-    current stream. Raises on anything else, on a failed build and on a
-    refused launch; the filter's count stays on the card. ``launches``
-    grows by one where it launches, ``filter_launches`` too in filter
-    mode."""
+    launch of the kernel generated for ``program``'s structure
+    (``expr_codegen``) over ``n`` rows on ``device`` (a CUDA device), on
+    PyTorch's current stream, built at first use (``build_kernels``).
+    Raises on anything else, on a failed build and on a refused launch;
+    the filter's count stays on the card. ``launches`` grows by one where
+    it launches, ``filter_launches`` too in filter mode; ``builds`` and
+    ``build_seconds`` count the kernels built and the wall seconds it
+    took. An output whose validity is an input's mask unchanged gets that
+    mask tensor, as the twin's does."""
+    from fugue_tpu_torch.kernels.expr_codegen import THREADS
+
     if device.type != "cuda":
         raise ValueError("expr_program_cuda takes CUDA tensors only")
     if not 1 <= n < 2**62:
@@ -903,14 +957,32 @@ def expr_program_cuda(
             nrows_arg = int(nrows)  # type: ignore[arg-type]
         keep = torch.empty((n,), dtype=torch.bool, device=device)
         count = torch.zeros((), dtype=torch.int32, device=device)
-        outs: List[Masked] = [(keep, None)]
-    else:
-        outs = [(torch.empty((n,), dtype=DTYPES[o.dtype], device=device),
-                 torch.empty((n,), dtype=torch.bool, device=device) if o.masked else None)
-                for o in program.outputs]
+        outs: List[Masked] = []
     index = device.index if device.index is not None else torch.cuda.current_device()
-    launch(_bind(), program, inputs, outs, n, nrows_arg, row_valid, keep, count, index,
-           torch.cuda.current_stream(device).cuda_stream)
+    masked = tuple(m is not None for _, m in inputs)
+    kernel, fns = _function(program, masked, _mode(filter, row_valid), index)
+    if not filter:
+        outs = [(torch.empty((n,), dtype=DTYPES[o.dtype], device=device),
+                 None if not o.masked else inputs[q][1] if q is not None
+                 else torch.empty((n,), dtype=torch.bool, device=device))
+                for o, q in zip(program.outputs, kernel.mask_aliases)]
+    params, vec = pack_params(kernel, program, inputs, outs, n, nrows_arg, row_valid, keep,
+                              count)
+    fn = fns[0 if vec else 1]
+    if kernel.indirect:  # over a launch's parameter bytes: the struct from device memory
+        held = torch.frombuffer(bytearray(params), dtype=torch.uint8).to(device)
+        params = struct.pack("<Q", held.data_ptr())
+    # columns mode: one block a tile of rows, all at once (faster on the
+    # card than one resident wave looping over the rows). A filter block
+    # ends in two barriers and an atomic, so a filter takes one resident
+    # wave (8 blocks of 256 an SM) that loops over the tiles.
+    per_block = THREADS * (kernel.vec_width if vec else kernel.rows_per_thread)
+    grid = min(-(-n // per_block), 2**31 - 1)
+    if filter:
+        if index not in _SMS:
+            _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+        grid = min(grid, 8 * _SMS[index])
+    fn.launch(grid, THREADS, torch.cuda.current_stream(device).cuda_stream, params)
     expr_program_cuda.launches += 1
     expr_program_cuda.filter_launches += int(filter)
     return (keep, count) if filter else outs
@@ -918,3 +990,5 @@ def expr_program_cuda(
 
 expr_program_cuda.launches = 0  # type: ignore[attr-defined]
 expr_program_cuda.filter_launches = 0  # type: ignore[attr-defined]
+expr_program_cuda.builds = 0  # type: ignore[attr-defined]
+expr_program_cuda.build_seconds = 0.0  # type: ignore[attr-defined]

@@ -72,7 +72,6 @@ import torch
 from fugue_tpu_torch.kernels import kernel_for
 from fugue_tpu_torch.kernels.expr_program import (
     CODES,
-    MAX_INPUTS,
     OP,
     Instr,
     Output,
@@ -564,8 +563,8 @@ def fill_program(columns: List[Tuple[str, torch.dtype]], fills: List[Any]) -> Pr
 
 def device_fillna(blocks: TorchBlocks, targets: Dict[str, Any]) -> Optional[TorchBlocks]:
     """``relational.py:1154``: the nulls of each target column, and a
-    float column's NaN, filled with its value in one K6 launch (one per
-    ``MAX_INPUTS`` columns); the filled columns drop their masks. A column
+    float column's NaN, filled with its value in one K6 launch, however
+    many columns; the filled columns drop their masks. A column
     with neither nulls nor a float type is left as it is. None where a
     value cannot be represented in its column (``encode_fill_value``).
     An integer-like column's stats take in its fill, and a string
@@ -583,21 +582,19 @@ def device_fillna(blocks: TorchBlocks, targets: Dict[str, Any]) -> Optional[Torc
         return blocks
     names = sorted(enc)
     new_cols = dict(blocks.columns)
-    for lo in range(0, len(names), MAX_INPUTS):
-        part = names[lo:lo + MAX_INPUTS]
-        prog = fill_program([(n, blocks.columns[n].data.dtype) for n in part],
-                             [enc[n][0] for n in part])
-        outs = expr_eval.run_program(prog, blocks)
-        for name, (values, _) in zip(part, outs):  # type: ignore[arg-type]
-            src = blocks.columns[name]
-            v, extended = enc[name]
-            dictionary = src.dictionary if extended is None else extended
-            stats = src.stats
-            if src.is_string:
-                stats = (0, max(len(dictionary) - 1, 0))  # type: ignore[arg-type]
-            elif stats is not None and keeps_stats(src.pa_type):
-                stats = (min(stats[0], int(v)), max(stats[1], int(v)))
-            new_cols[name] = TorchColumn(src.pa_type, values, None, stats, dictionary=dictionary)
+    prog = fill_program([(n, blocks.columns[n].data.dtype) for n in names],
+                        [enc[n][0] for n in names])
+    outs = expr_eval.run_program(prog, blocks)
+    for name, (values, _) in zip(names, outs):  # type: ignore[arg-type]
+        src = blocks.columns[name]
+        v, extended = enc[name]
+        dictionary = src.dictionary if extended is None else extended
+        stats = src.stats
+        if src.is_string:
+            stats = (0, max(len(dictionary) - 1, 0))  # type: ignore[arg-type]
+        elif stats is not None and keeps_stats(src.pa_type):
+            stats = (min(stats[0], int(v)), max(stats[1], int(v)))
+        new_cols[name] = TorchColumn(src.pa_type, values, None, stats, dictionary=dictionary)
     return TorchBlocks(blocks._nrows, new_cols, blocks.device, row_valid=blocks.row_valid,
                        nrows_dev=blocks._nrows_dev)
 

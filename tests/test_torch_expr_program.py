@@ -490,17 +490,80 @@ def test_literals_are_immediates_and_values_are_shared():
     assert [name for name, _ in prog.inputs] == ["a", "b"]
 
 
-def test_program_over_the_caps_is_refused_naming_roadmap():
-    cols = {"a": (torch.int64, False)}
-    e = tx.col("a")
-    for i in range(70):
+def _chain(m: Any, k: int) -> Any:
+    e = m.col("g")
+    for i in range(k):
         e = e + i
-    with pytest.raises(NotImplementedError, match="queue 2 item 17"):
-        ep.compile_program([e], [None], cols)
-    blocks = _blocks({"i64": (np.arange(4, dtype=np.int64), None)}, 4)
-    with pytest.raises(NotImplementedError, match="queue 2 item 17"):
-        expr_eval.eval_exprs(blocks, [_build(("bin", "+", C("i64"), L(1)), tx)] * 17,
-                             [None] * 17, ep.ProgramCache())
+    return e
+
+
+def _sum(terms: list) -> Any:
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
+
+
+# programs over the interpreter's old caps (64 instructions, 32 registers,
+# 16 outputs), as assign columns of test_torch_filter_select's frame
+_OVER_CAPS = {
+    "chain70": lambda m: [_chain(m, 70).alias("c")],
+    "outputs17": lambda m: [(m.col("g") * i + m.col("i32")).alias(f"o{i}") for i in range(17)],
+    # 40 terms all live at once: the second sum reads them in reverse
+    "live40": lambda m: [_sum([m.col("g") * i for i in range(1, 41)]).alias("s"),
+                         _sum([m.col("g") * i for i in range(40, 0, -1)]).alias("r")],
+}
+
+
+def _over_caps_engines(layout: str) -> Any:
+    from test_torch_filter_select import _data, _engines
+    from test_torch_segment_aggs import _frames
+
+    te, je = _engines()
+    tin, jin = _frames(_data(), layout)
+    return te, je, tin, jin
+
+
+def test_program_over_the_caps_is_refused_naming_roadmap():
+    """The interpreter refused a program over its caps (ROADMAP.md queue 2
+    item 17, now retired): a kernel generated for the program has none.
+    A chain of 70 additions (140 instructions) and 17 outputs in one
+    ``assign`` compute and equal the JAX engine's, in one program each."""
+    from test_torch_segment_aggs import compare
+
+    cols = {"g": (torch.int64, False), "i32": (torch.int32, False)}
+    chain = ep.compile_program(_OVER_CAPS["chain70"](tx), [None], cols)
+    wide = ep.compile_program(_OVER_CAPS["outputs17"](tx), [None] * 17, cols)
+    assert len(chain.instrs) == 140 and len(wide.outputs) == 17
+    for case in ("chain70", "outputs17"):
+        te, je, tin, jin = _over_caps_engines("prefix")
+        compare(te.assign(tin, _OVER_CAPS[case](tx)), je.assign(jin, _OVER_CAPS[case](jx)), {})
+        assert te.fallbacks == {}
+
+
+@pytest.mark.parametrize("layout", ["prefix", "masked"])
+@pytest.mark.parametrize("case", sorted(_OVER_CAPS))
+def test_programs_over_the_old_caps_match_jax(case, layout):
+    from test_torch_segment_aggs import compare
+
+    te, je, tin, jin = _over_caps_engines(layout)
+    compare(te.assign(tin, _OVER_CAPS[case](tx)), je.assign(jin, _OVER_CAPS[case](jx)), {})
+    assert te.fallbacks == {}
+
+
+def test_program_with_more_than_32_live_registers():
+    cols = {"g": (torch.int64, False)}
+    prog = ep.compile_program(_OVER_CAPS["live40"](tx), [None] * 2, cols)
+    assert prog.nregs > 40
+
+
+def test_filter_by_a_chain_over_the_old_caps_matches_jax():
+    from test_torch_segment_aggs import compare
+
+    te, je, tin, jin = _over_caps_engines("masked")
+    tres, jres = te.filter(tin, _chain(tx, 70) > 2000), je.filter(jin, _chain(jx, 70) > 2000)
+    compare(tres, jres, {})
+    assert tres.count() == jres.count() and te.fallbacks == {}
 
 
 @pytest.mark.parametrize("spec,item", [

@@ -158,14 +158,24 @@ def test_fillna_string_gets_a_new_dictionary_and_the_source_keeps_its_own():
     assert_same_rows(t, j)  # the sources still decode as before
 
 
-def test_fillna_of_more_columns_than_one_program_takes():
-    """More fill columns than one K6 program takes (16): one program per
-    16 columns."""
+@pytest.mark.parametrize("ncols", [17, 20])
+def test_fillna_of_more_columns_than_one_program_takes(ncols, monkeypatch):
+    """More fill columns than the interpreter's program took (16, ROADMAP.md
+    queue 2 item 17, now retired): one K6 program fills them all, in one
+    launch."""
+    from fugue_tpu_torch.torch_backend import expr_eval
+
     rng = np.random.default_rng(8)
     pdf = pd.DataFrame({f"c{i}": np.where(rng.random(30) < 0.3, np.nan, rng.random(30))
-                        for i in range(20)})
+                        for i in range(ncols)})
     te, je, t, j = _engines(pdf)
-    assert_same_rows(te.fillna(t, 0.25), je.fillna(j, 0.25))
+    runs = []
+    real = expr_eval.run_program
+    monkeypatch.setattr(expr_eval, "run_program",
+                        lambda prog, blocks, **kw: runs.append(prog) or real(prog, blocks, **kw))
+    got = te.fillna(t, 0.25)
+    assert len(runs) == 1 and len(runs[0].outputs) == ncols
+    assert_same_rows(got, je.fillna(j, 0.25))
 
 
 def test_fillna_widens_the_stats_the_group_by_bins_by():

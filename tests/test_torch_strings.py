@@ -451,17 +451,20 @@ def test_refusals_name_queue_1_item_2b(case):
 
 def test_program_over_the_table_cap_is_refused():
     """Nine LIKE patterns that each match another entry need nine tables
-    (equal tables are shared), one more than ``MAX_TABLES``: refused
-    naming queue 2 item 17, K6's caps."""
-    te = ft.make_execution_engine(device="cpu")
-    df = pd.DataFrame({"s": [f"a{i}" for i in range(12)]})
-    cond = ff.like(tx.col("s"), "a0")
-    for i in range(1, ep.MAX_TABLES):
-        cond = cond | ff.like(tx.col("s"), f"a{i}")
-    assert te.filter(df, cond).count() == ep.MAX_TABLES
-    with pytest.raises(NotImplementedError, match="queue 2 item 17"):
-        te.filter(df, cond | ff.like(tx.col("s"), "a9"))
-    assert te.fallbacks == {"filter": 1}
+    (equal tables are shared), one more than the interpreter's cap of
+    eight (ROADMAP.md queue 2 item 17, now retired): the filter computes
+    in one program and equals the JAX engine's."""
+    te, je = engines()
+    df = pd.DataFrame({"s": [f"a{i}" for i in range(12)] + [None, "b"]})
+    tc, jc = both(lambda m, f: f.like(m.col("s"), "a0"))
+    for i in range(1, 9):
+        tc = tc | ff.like(tx.col("s"), f"a{i}")
+        jc = jc | jff.like(jx.col("s"), f"a{i}")
+    tres, jres = te.filter(te.to_df(df), tc), je.filter(_jax_df(je, df), jc)
+    compare_tables(tres.as_arrow(), jres.as_arrow())
+    assert tres.count() == 9 and te.fallbacks == {}
+    prog = _program(tc, df)
+    assert len(prog.tables) == 9
 
 
 def test_dynamic_like_over_the_pair_cap_is_refused(monkeypatch):
