@@ -62,10 +62,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    exactly (``row_select_vs_twin``): K11, KW's presort mode (float keys
    with ties, -0.0, NaN and nulls, descending and nulls first, narrowed,
    int64, uint8, bool and string-rank keys, a float64 key split over two
-   words, the "not real" bit alone), K12 ``rank_keep`` (one limit from a
-   device scalar, ``n = 0``, per-segment limits below and at least, the
-   sentinel segment), K13 ``first_row_mask`` (every, occupied, hit and
-   miss segments, first rows beyond the mask, no segment) and K14
+   words, the "not real" bit alone), K12 ``rank_keep`` over sorted
+   segments (no segment with limits from 0 past the rows; int32 ids with
+   the sentinel, per-segment limits below and at least, also of 0; one
+   limit walked by (segment, rank) pairs and over every position; the
+   first presort word, int64 and int32, and the "not real" bit alone;
+   one segment, none, rows in order), K13 ``first_row_mask`` (every,
+   occupied, hit and miss segments, first rows beyond the mask, adjacent
+   first rows, no segment) and K14
    ``null_count_keep`` (0, 1, 4 and 70 masks; any, all, thresh), at 1,
    2^20 + 37 and 100M rows; and the order of a three-word presort against
    ``numpy.lexsort`` up to 2^20 + 37 rows. The join check also holds K7's
@@ -182,7 +186,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    int64 sort words; and K3's two routes over 1024 to 10^8 groups
    (``k3_routes``), each on a line of its own; K4 and K5 at the full
    group-by's shapes, the median's two routes (``median_timing``) and the
-   DISTINCT mask (``distinct_mask_timing``), each beside its bound;
+   DISTINCT mask by K13 (``distinct_mask_timing``, beside the gather it
+   replaced and ``index_fill_``), each beside its bound;
    K6's path programs at 100M rows (``expr_timing``: time, twin time and
    the kernels the twin launches, bytes bound) and programs of growing
    size (``k6_scaling``); K7-K10 at the expansion join's shapes
@@ -195,7 +200,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    views (K6's scalar path); K11-K14 and the
    fillna program of K6 (``relational_timing``), each beside its twin, its
    bound and, where one PyTorch call computes the same function,
-   ``index_fill_`` (K12 at ``sample``'s shape, K13) or ``torch.all`` (K14);
+   ``index_fill_`` (K12 at ``sample``'s, the top-n take's and EXCEPT ALL's
+   shapes, K13; also after the ``zero_()`` the kernel's work includes) or
+   ``torch.all`` (K14); K3's ``scatter_`` also with its ``where``;
    K15, K16 and K8's NOT IN mode at the SQL phase's shapes
    (``window_timing``), with K16's other routes, ``device_sort`` against
    ``torch.sort`` and ``gather_indices`` against ``index_select``; K17
@@ -1662,9 +1669,14 @@ def factorize_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, An
     err = _max_abs_diff(sort_finish_cuda(seg_sorted, order, num), want3)
     ms = time_cuda(lambda: sort_finish_cuda(seg_sorted, order, num), 20)
     plain_ms = time_cuda(lambda: sort_finish_reference(seg_sorted, order, num), 5)
-    # one PyTorch call: the scatter of the sorted ids back to row order
+    # one PyTorch call: the scatter of the sorted ids back to row order;
+    # with its where (the rows that are not real to the sentinel), the
+    # twin's first call, which is the kernel's work for the ids
     seg = torch.empty((n,), dtype=torch.int32, device=device)
     library_ms = time_cuda(lambda: seg.scatter_(0, order, seg_sorted), 5)
+    print("sort_finish library calls: " + json.dumps({
+        "scatter_ms": library_ms, "where_and_scatter_ms": time_cuda(
+            lambda: seg.scatter_(0, order, torch.where(seg_sorted >= 0, seg_sorted, num)), 5)}))
     entries.append(_kernel_entry(
         "sort_finish", "fugue_tpu/jax_backend/groupby.py:582", launches["sort_finish"],
         err, ms, plain_ms, 4 * n + 8 * n + 4 * n + 4 * num, n, library_ms))
@@ -1922,29 +1934,47 @@ def median_timing(device: Any) -> Dict[str, Any]:
 
 
 def distinct_mask_timing(device: Any) -> Dict[str, Any]:
-    """The DISTINCT first-occurrence mask (the engine's ``_distinct_masks``:
-    ``first_idx[seg] == row``) with CUDA events at the keyed full
-    group-by's shape: 100M rows over the ~10.24M (k, u) pairs, beside its
-    bound (the ids and the gathered first rows read once, the mask
-    written once: 9 bytes a row)."""
+    """The DISTINCT first-occurrence mask (the engine's ``_distinct_masks``)
+    with CUDA events at the keyed full group-by's shape: 100M rows over the
+    ~10.24M (k, u) bins, binned with ``occupied``, by K13 (the first rows
+    and the occupancy read, 5 bytes a bin, the mask written, 1 byte a
+    row), beside its twin, the gather and compare it replaced
+    (``first_idx[seg] == row``, 9 bytes a row), and ``index_fill_`` of the
+    occupied bins' first rows as one call and after ``zero_()``."""
     import torch
+
+    from fugue_tpu_torch.kernels.reference import first_row_mask_reference
+    from fugue_tpu_torch.kernels.row_select import first_row_mask_cuda
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     num = GROUPS * DISTINCT_VALUES
     seg = torch.randint(0, num, (ROWS,), generator=gen, device=device, dtype=torch.int32)
-    first_idx = torch.randint(0, ROWS, (num,), generator=gen, device=device, dtype=torch.int32)
-
-    def mask() -> Any:
-        first = first_idx.index_select(0, seg.clamp(max=num - 1))
-        return first == torch.arange(ROWS, dtype=torch.int32, device=device)
-
-    # the nearest PyTorch form: two calls, index_select and eq, over ids
-    # already in range and a row index made beforehand
-    rows = torch.arange(ROWS, dtype=torch.int32, device=device)
-    out = {"rows": ROWS, "pairs": num, "ms": time_cuda(mask, 5),
-           "library_ms": time_cuda(lambda: first_idx.index_select(0, seg) == rows, 5),
-           "library_calls": 2,
-           "bound_ms": ROWS * (4 + 4 + 1) / HBM_BYTES_PER_S * 1e3}
+    # each bin's first row and whether it holds one, as K1 gives them
+    rows = torch.arange(ROWS, dtype=torch.int64, device=device)
+    first = torch.full((num,), ROWS, dtype=torch.int64, device=device)
+    first.scatter_reduce_(0, seg.long(), rows, "amin")
+    occupied = first < ROWS
+    first_idx = torch.where(occupied, first, ROWS - 1).to(torch.int32)
+    want = first_row_mask_reference(first_idx, ROWS, occupied=occupied)
+    got = first_row_mask_cuda(first_idx, ROWS, occupied=occupied)
+    gathered = first_idx.index_select(0, seg) == rows.to(torch.int32)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[0], gathered)):
+        raise SystemExit("FAIL distinct mask: K13 differs from its twin or from the gather")
+    kept = first[occupied]
+    mask = torch.zeros((ROWS,), dtype=torch.bool, device=device)
+    row32 = rows.to(torch.int32)
+    del rows, first
+    out = {"rows": ROWS, "pairs": num, "occupied": int(occupied.sum()),
+           "ms": time_cuda(lambda: first_row_mask_cuda(first_idx, ROWS, occupied=occupied), 20),
+           "plain_ms": time_cuda(lambda: first_row_mask_reference(first_idx, ROWS,
+                                                                  occupied=occupied), 5),
+           "gather_compare_ms": time_cuda(lambda: first_idx.index_select(0, seg) == row32, 5),
+           "index_fill_ms": time_cuda(lambda: mask.index_fill_(0, kept, True), 20),
+           "zero_and_index_fill_ms": time_cuda(lambda: mask.zero_().index_fill_(0, kept, True),
+                                               20),
+           "bound_ms": (num * (4 + 1) + ROWS) / HBM_BYTES_PER_S * 1e3,
+           "gather_bound_ms": ROWS * (4 + 4 + 1) / HBM_BYTES_PER_S * 1e3}
     print("distinct_mask: " + json.dumps(out))
     return out
 
@@ -4130,43 +4160,110 @@ def multiword_order_check(device: Any, n: int, seed: int) -> None:
         raise SystemExit(f"FAIL presort_order of three words at n={n}: differs from lexsort")
 
 
+def sorted_segment_frame(device: Any, n: int, nseg: int, seed: int, form: str,
+                         rows: str = "masked") -> Dict[str, Any]:
+    """A frame of ``n`` rows over ``nseg`` segments sorted as K12's callers
+    sort it, the rows that are not real last (``rows``: "full", "short" or
+    "masked"), as K12's keyword arguments ``order``, ``seg``,
+    ``word_shift`` and ``starts``: ``form`` "id" an int32 segment id with
+    the sentinel ``nseg`` (INTERSECT/EXCEPT ALL: one stable sort of the
+    ids), "word64" the first K11 word of the segment and a float32 key
+    desc (the top-n take), "word32" of the segment and a narrowed int8 key,
+    "real bit" the global take's word (a float32 key, the "not real" bit
+    its segment)."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import PresortKey, presort_bits
+    from fugue_tpu_torch.torch_backend import relational
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sid = torch.randint(0, nseg, (n,), generator=gen, device=device, dtype=torch.int32)
+    frame: Dict[str, Any] = dict(nrows=n)
+    real = torch.ones((n,), dtype=torch.bool, device=device)
+    if rows == "short":
+        frame = dict(nrows=n - n // 4)
+        real[n - n // 4:] = False
+    elif rows == "masked":
+        real = torch.rand((n,), generator=gen, device=device) < 0.8
+        frame = dict(row_valid=real)
+    sid = torch.where(real, sid, nseg)
+    counts = torch.bincount(sid.long(), minlength=nseg + 1)[:nseg]
+    starts = torch.cumsum(counts, 0) - counts
+    if form == "id":
+        srt = torch.sort(sid, stable=True)
+        return dict(order=srt.indices, seg=srt.values, starts=starts)
+    v = torch.rand((n,), generator=gen, device=device)
+    if form == "word32":
+        key = PresortKey(torch.randint(-3, 4, (n,), generator=gen, device=device,
+                                       dtype=torch.int8), kmin=-3, bits=3)
+    else:
+        key = PresortKey(v, None, desc=True, nan_is_null=True)
+    keys = [key] if form == "real bit" else [PresortKey(sid, kmin=0, bits=nseg.bit_length()), key]
+    words, groups = relational._presort_words(keys, n, device, frame.get("nrows"),
+                                              frame.get("row_valid"))
+    order, first = relational._lsd_order(words)
+    if form == "real bit":
+        return dict(order=order, seg=first, word_shift=presort_bits(groups[0], True) - 1,
+                    starts=torch.zeros((1,), dtype=torch.int64, device=device))
+    return dict(order=order, seg=first, word_shift=presort_bits(groups[0][1:], False),
+                starts=starts)
+
+
 def rank_keep_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
-    """K12's cases at ``n`` rows: one limit from a device scalar (global,
-    ``n = 0``, a masked frame) and per segment, below and at least, with
-    the sentinel segment, empty segments and a short prefix frame."""
+    """K12's cases at ``n`` rows, over the sorted segment forms its callers
+    pass: no segment (sample) with limits from 0 past the rows, rank at
+    least; an id with the sentinel (INTERSECT/EXCEPT ALL) by per-segment
+    limits, also of 0, and one limit both walked by (segment, rank) pairs
+    and over every position; the first K11 word, int64 and int32 (the
+    top-n take), and the "not real" bit alone (the global take) over
+    masked, short and full frames; one segment, none, and an order that is
+    the rows themselves, so a warp's kept rows share words."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
     order = torch.randperm(n, generator=gen, device=device)
     nseg = max(min(n // 50, 1 << 20), 1)
-    seg = torch.randint(0, nseg + 1, (n,), generator=gen, device=device, dtype=torch.int32)
-    starts = torch.randint(0, max(n, 1), (nseg,), generator=gen, device=device)
     limits = torch.randint(0, 60, (nseg,), generator=gen, device=device, dtype=torch.int32)
-    row_valid = torch.rand((n,), generator=gen, device=device) < 0.8
 
     def lim(v: int) -> Any:
         return torch.full((), v, dtype=torch.int64, device=device)
 
+    ids = sorted_segment_frame(device, n, nseg, seed, "id")
+    one = sorted_segment_frame(device, n, 1, seed + 1, "id", rows="short")
+    w64 = sorted_segment_frame(device, n, nseg, seed + 2, "word64")
+    w32 = sorted_segment_frame(device, n, nseg, seed + 3, "word32", rows="full")
+    rbit = sorted_segment_frame(device, n, 1, seed + 4, "real bit")
+    zeros = torch.zeros((nseg,), dtype=torch.int32, device=device)
+    arange = torch.arange(n, device=device)
+    clustered = dict(order=arange, seg=torch.div(arange, 40, rounding_mode="floor").to(
+        torch.int32), starts=torch.arange(0, n, 40, device=device))
     return [
-        ("global, prefix", dict(order=order, nrows=n, limit=lim(n // 3))),
-        ("global, n = 0", dict(order=order, nrows=n, limit=lim(0))),
-        ("global, limit above the rows", dict(order=order, nrows=max(n - 1, 0), limit=lim(n + 5))),
-        ("global, masked", dict(order=order, row_valid=row_valid, limit=lim(n // 2 + 1))),
-        ("global ge, short prefix", dict(order=order, nrows=max(n - 2, 0), limit=lim(n // 4),
-                                         mode="ge")),
-        ("segments, one limit", dict(order=order, row_valid=row_valid, seg=seg, starts=starts,
-                                     limit=lim(7))),
-        ("segments, limits below", dict(order=order, nrows=n, seg=seg, starts=starts,
-                                        limits=limits)),
-        ("segments, limits at least", dict(order=order, row_valid=row_valid, seg=seg,
-                                           starts=starts, limits=limits, mode="ge")),
+        ("no segment, limit n / 3", dict(order=order, limit=lim(n // 3))),
+        ("no segment, limit 0", dict(order=order, limit=lim(0))),
+        ("no segment, limit above the rows", dict(order=order, limit=lim(n + 5))),
+        ("no segment, rank at least n / 4", dict(order=order, limit=lim(n // 4), mode="ge")),
+        ("ids, limits below", dict(**ids, limits=limits)),
+        ("ids, limits at least", dict(**ids, limits=limits, mode="ge")),
+        ("ids, limits of 0 below", dict(**ids, limits=zeros)),
+        ("ids, limits of 0 at least", dict(**ids, limits=zeros, mode="ge")),
+        ("ids, one limit by pairs", dict(**ids, limit=lim(7))),
+        ("ids, one limit over every position", dict(**ids, limit=lim(n))),
+        ("one segment, short frame", dict(**one, limit=lim(n // 2 + 1))),
+        ("no segment at all", dict(**{**ids, "starts": ids["starts"][:0]}, mode="ge",
+                                   limits=limits[:0])),
+        ("int64 word, limit 10", dict(**w64, limit=lim(10))),
+        ("int64 word, limits at least", dict(**w64, limits=limits, mode="ge")),
+        ("int32 word, limit 3", dict(**w32, limit=lim(3))),
+        ("the not-real bit, limit n / 2", dict(**rbit, limit=lim(n // 2 + 1))),
+        ("rows in order, a warp's rows in one word", dict(**clustered, limit=lim(25))),
     ]
 
 
 def first_row_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
     """K13's cases: every segment, occupied bins only, the hit and miss
     predicates, first rows at or beyond ``n`` (a shared factorization's
-    side-2 segments), and no segment."""
+    side-2 segments), adjacent first rows (one slab's, in order), and no
+    segment."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -4175,12 +4272,14 @@ def first_row_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str,
     occupied = torch.rand((num,), generator=gen, device=device) < 0.7
     counts = torch.randint(0, 3, (num,), generator=gen, device=device, dtype=torch.int32)
     empty = torch.empty((0,), dtype=torch.int32, device=device)
+    adjacent = torch.arange(num, device=device, dtype=torch.int32)
     return [
         ("all", dict(first_idx=first, n=n)),
         ("all, occupied", dict(first_idx=first, n=n, occupied=occupied)),
         ("hit", dict(first_idx=first, n=n, counts=counts, mode="hit")),
         ("miss, occupied", dict(first_idx=first, n=n, occupied=occupied, counts=counts,
                                 mode="miss")),
+        ("adjacent first rows, occupied", dict(first_idx=adjacent, n=n, occupied=occupied)),
         ("no segment", dict(first_idx=empty, n=n)),
     ]
 
@@ -4799,14 +4898,17 @@ def relational_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, A
     CUDA events, each beside its twin, one PyTorch call where one computes
     the same function, and its bound: K11 at the top-n take's word (the
     segment and ``v`` desc, 16 bytes a row); K12 at ``sample(n=1M)``'s
-    shape (the first ``k`` positions of the order read, 8 bytes each, and
-    the keep flags written, 1 byte a row; ``index_fill_`` of the first
-    ``k`` positions into a zeroed mask) and, printed, at the top-n
-    take's; K13 at the (k, u) distinct's ~10M
-    groups (``index_fill_`` of the first rows); K14 over four masks, how
+    shape, at the top-n take's (10 of each of 1024 segments, the
+    segment read from the first word) and at EXCEPT ALL's (Q87's shape:
+    100M rows of side 1 against 50M, most rows kept); K13 at the (k, u)
+    distinct's ~10M groups; K12's and K13's one call is ``index_fill_`` of
+    the kept rows, timed also with the ``zero_()`` of the mask, the
+    kernel's work (``row_select library calls``); K14 over four masks, how
     ``any`` (``torch.all`` of the stacked masks); the fillna program over
     four float64 columns (no one call: ``where`` handles one column and
-    no NaN)."""
+    no NaN). ``launches``: each kernel's launches on its path, K12's at
+    the take's and EXCEPT ALL's shapes as ``rank_keep_take`` and
+    ``rank_keep_except_all``."""
     import torch
 
     from fugue_tpu_torch.kernels.expr_program import expr_program_cuda
@@ -4845,29 +4947,76 @@ def relational_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, A
         time_cuda(lambda: presort_word_cuda(keys), 20),
         time_cuda(lambda: presort_word_reference(keys), 5), n * (4 + 4 + 8), 0, None))
 
+    mask = torch.zeros((n,), dtype=torch.bool, device=device)
+    yardsticks: Dict[str, Dict[str, float]] = {}
+
+    def index_fill(label: str, rows: Any) -> float:
+        """``index_fill_`` of ``rows`` as one call into a mask zeroed
+        outside the timing, and as the kernel's work, ``zero_()`` and
+        ``index_fill_``; returns the one call's time."""
+        one = time_cuda(lambda: mask.index_fill_(0, rows, True), 20)
+        yardsticks[label] = {"index_fill_ms": one, "zero_and_index_fill_ms": time_cuda(
+            lambda: mask.zero_().index_fill_(0, rows, True), 20)}
+        return one
+
+    def rank_entry(name: str, launched: int, kw: Dict[str, Any], nbytes: int) -> None:
+        """K12 at one shape: twin, time, bound from ``nbytes`` and the
+        kept rows' ``index_fill_``."""
+        want = rank_keep_reference(**kw)
+        err = twin_err(rank_keep_cuda(**kw), want, name)
+        # the kept rows as the caller holds them: in sorted order
+        rows = kw["order"][want[0].index_select(0, kw["order"])]
+        entries.append(_kernel_entry(
+            name, "fugue_tpu/jax_backend/relational.py:2191", launched, err,
+            time_cuda(lambda: rank_keep_cuda(**kw), 20),
+            time_cuda(lambda: rank_keep_reference(**kw), 5), nbytes, 0,
+            index_fill(name, rows), source="row_select.cu"))
+
+    # sample(n=1M): the first k positions of a permutation; the kept
+    # positions' order read (8 B), the mask written (1 B a row)
     order = torch.sort(torch.randperm(n, generator=gen, device=device, dtype=torch.int32)).indices
     k = min(SAMPLE_N, n)
-    limit = torch.full((), k, dtype=torch.int64, device=device)
-    kw = dict(nrows=n, limit=limit)
-    err = twin_err(rank_keep_cuda(order, **kw), rank_keep_reference(order, **kw), "rank_keep")
-    mask = torch.zeros((n,), dtype=torch.bool, device=device)
-    first_k = order[:k]
-    entries.append(_kernel_entry(
-        "rank_keep", "fugue_tpu/jax_backend/relational.py:2191", launches["rank_keep"], err,
-        time_cuda(lambda: rank_keep_cuda(order, **kw), 20),
-        time_cuda(lambda: rank_keep_reference(order, **kw), 5), k * 8 + n, 0,
-        time_cuda(lambda: mask.index_fill_(0, first_k, True), 20), source="row_select.cu"))
-    counts = torch.bincount(seg.long(), minlength=GROUPS).to(torch.int32)
-    take_kw = dict(nrows=n, seg=seg, starts=torch.cumsum(counts, 0, dtype=torch.int64) - counts,
-                   limit=torch.full((), TAKE_N, dtype=torch.int64, device=device))
-    top_order = relational.presort_order(keys, n, device, nrows=n)
-    twin_err(rank_keep_cuda(top_order, **take_kw), rank_keep_reference(top_order, **take_kw),
-             "rank_keep top-n")
-    print("rank_keep top-n shape: " + json.dumps({
-        "ms": time_cuda(lambda: rank_keep_cuda(top_order, **take_kw), 20),
-        "bound_ms": n * (8 + 4 + 1) / HBM_BYTES_PER_S * 1e3}))
-    del order, first_k, top_order
+    rank_entry("rank_keep", launches["rank_keep"],
+               dict(order=order, limit=torch.full((), k, dtype=torch.int64, device=device)),
+               k * 8 + n)
+    del order
+    # the top-n take: the first TAKE_N positions of each of GROUPS
+    # segments read from the first word (order and word, 16 B a visited
+    # position), each segment's start, the mask written
+    take = sorted_segment_frame(device, n, GROUPS, SEED, "word64", rows="full")
+    take_limit = torch.full((), TAKE_N, dtype=torch.int64, device=device)
+    rank_entry("rank_keep[top-n take]", launches["rank_keep_take"],
+               dict(**take, limit=take_limit), GROUPS * TAKE_N * 16 + GROUPS * 8 + n)
+    del take
+    # EXCEPT ALL at Q87's shape: side 1's segment ids over the distinct
+    # rows of both channels, side 2's counts the limits; every position's
+    # id read (4 B), the start and limit of each segment side 1 holds
+    # (12 B), each kept position's order (8 B), the mask written
+    space = Q_NAMES[0] * Q_NAMES[1] * Q_DAYS
+    codes = torch.randint(0, space, (n + n // 2,), generator=gen, device=device)
+    uniq, inv = torch.unique(codes, return_inverse=True)
+    del codes
+    num = int(uniq.shape[0])
+    del uniq
+    seg1, seg2 = inv[:n].to(torch.int32), inv[n:].to(torch.int32)
+    del inv
+    c1 = torch.bincount(seg1.long(), minlength=num).to(torch.int32)
+    c2 = torch.bincount(seg2.long(), minlength=num).to(torch.int32)
+    del seg2
+    srt = torch.sort(seg1, stable=True)
+    del seg1
+    ekw = dict(order=srt.indices, seg=srt.values, starts=torch.cumsum(c1, 0) - c1, limits=c2,
+               mode="ge")
+    kept = int(rank_keep_reference(**ekw)[1])
+    rank_entry("rank_keep[except all]", launches["rank_keep_except_all"], ekw,
+               n * 4 + int((c1 > 0).sum()) * 12 + kept * 8 + n)
+    print("rank_keep except all shape: " + json.dumps({"rows": n, "segments": num,
+                                                        "kept": kept}))
+    del ekw, srt, c1, c2
+    torch.cuda.empty_cache()
 
+    # K13 at the (k, u) distinct's ~10M groups: the first rows read (4 B
+    # a group), the mask written
     num = GROUPS * DISTINCT_VALUES
     first_long = torch.randperm(n, generator=gen, device=device)[:num]
     first = first_long.to(torch.int32)
@@ -4877,8 +5026,9 @@ def relational_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, A
         "first_row_mask", "fugue_tpu/jax_backend/execution_engine.py:1854",
         launches["first_row_mask"], err, time_cuda(lambda: first_row_mask_cuda(first, n), 20),
         time_cuda(lambda: first_row_mask_reference(first, n), 5), num * 4 + n, 0,
-        time_cuda(lambda: mask.index_fill_(0, first_long, True), 20), source="row_select.cu"))
-    del first, first_long
+        index_fill("first_row_mask", first_long), source="row_select.cu"))
+    del first, first_long, mask
+    print("row_select library calls: " + json.dumps(yardsticks))
 
     masks = [torch.rand((n,), generator=gen, device=device) > 0.05 for _ in range(4)]
     nkw = dict(nrows=n)
@@ -6133,12 +6283,13 @@ _ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 
 # each kernel's launches in one run of the full group-by: by the key, the
 # distinct (k, u) pairs take the word route and, above
-# LOOKUP_MAX_GROUPS pairs, K3's scatter
+# LOOKUP_MAX_GROUPS pairs, K3's scatter; K13 sets the DISTINCT argument's
+# first-occurrence mask
 FULL_GROUPBY_LAUNCHES = {
     "keyed": dict(bin_factorize=1, sort_word=2, sort_word_boundaries=1, sort_finish=1,
-                  binned_sums=2, segment_extrema=1, segment_sq_dev=1),
+                  binned_sums=2, segment_extrema=1, segment_sq_dev=1, first_row_mask=1),
     "keyless": dict(bin_factorize=1, sort_word=1, binned_sums=2, segment_extrema=1,
-                    segment_sq_dev=1),
+                    segment_sq_dev=1, first_row_mask=1),
 }
 
 
@@ -6359,6 +6510,8 @@ def main() -> None:
     entries += relational_timing(device, {
         "presort_word": rel["take_top_n"]["presort_word"],
         "rank_keep": rel["sample_n"]["rank_keep"],
+        "rank_keep_take": rel["take_top_n"]["rank_keep"],
+        "rank_keep_except_all": rel["except_all"]["rank_keep"],
         "first_row_mask": rel["distinct_pairs"]["first_row_mask"],
         "null_count_keep": rel["dropna_any"]["null_count_keep"],
         "expr_program_fillna": rel["fillna_scalar"]["expr_program"],

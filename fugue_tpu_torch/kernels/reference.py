@@ -1099,53 +1099,89 @@ FIRST_ROW_MODES = ("all", "hit", "miss")
 DROPNA_HOWS = ("any", "all")
 
 
-def rank_keep_reference(
-    order: torch.Tensor,
-    *,
-    nrows: Optional[int] = None,
-    row_valid: Optional[torch.Tensor] = None,
-    seg: Optional[torch.Tensor] = None,
-    starts: Optional[torch.Tensor] = None,
-    limit: Optional[torch.Tensor] = None,
-    limits: Optional[torch.Tensor] = None,
-    mode: str = "lt",
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The twin of K12 in ``row_select.cu``: keep flags by rank.
-
-    ``order`` (int64 [n], a permutation of the rows, as ``torch.sort``
-    gives it) lists the rows in sorted order; the row at sorted position
-    ``i`` has rank ``i - starts[seg[row]]`` within its segment (``seg``
-    int32 [n] in row order, ``starts`` int64 [S] each segment's first
-    sorted position), or ``i`` where ``seg`` is None. It is kept where it is
-    real (``nrows`` or ``row_valid``), its segment lies in ``[0, S)``, and
-    its rank is below (``mode="lt"``) or at least (``"ge"``) its limit:
-    ``limits[seg[row]]`` (int32 [S]) or the one ``limit`` (a 0-d int64
-    device tensor). Returns ``(keep bool[n] in row order, count int32
-    0-d)``: ``device_take``'s ``local < n``
-    (``fugue_tpu/jax_backend/relational.py:1348-1361``), INTERSECT ALL's
-    and EXCEPT ALL's ordinal against ``c2[seg]`` (``:1072-1084``),
-    ``device_sample``'s k smallest priorities (``:2196-2206``)."""
+def check_rank_args(seg: Optional[torch.Tensor], word_shift: Optional[int],
+                    starts: Optional[torch.Tensor], limit: Optional[torch.Tensor],
+                    limits: Optional[torch.Tensor], mode: str) -> None:
+    """Raises on K12's arguments that do not go together."""
     if mode not in RANK_MODES:
         raise ValueError(f"rank mode {mode!r}: one of {RANK_MODES}")
     if (limit is None) == (limits is None):
         raise ValueError("pass exactly one of limit (one scalar) and limits (one per segment)")
     if (seg is None) != (starts is None) or (limits is not None and seg is None):
         raise ValueError("seg and starts go together, and limits needs them")
+    if seg is not None:
+        if seg.dtype not in ((torch.int32, torch.int64) if word_shift is not None
+                             else (torch.int32,)):
+            raise ValueError(f"seg has dtype {seg.dtype}: an int32 id or an int32/int64 word")
+        if word_shift is not None and not 0 <= word_shift < 8 * seg.element_size():
+            raise ValueError(f"word_shift {word_shift} outside the word's bits")
+    elif word_shift is not None:
+        raise ValueError("word_shift goes with seg")
+
+
+def sorted_segments(seg: torch.Tensor, word_shift: Optional[int]) -> torch.Tensor:
+    """K12's segment of each sorted position (int64): ``seg`` itself (an
+    int32 id), or a K11 word's unsigned field above ``word_shift`` bits
+    (its container's top bit flipped back)."""
+    if word_shift is None:
+        return seg.to(torch.int64)
+    if seg.dtype == torch.int32:
+        return ((seg.to(torch.int64) & 0xFFFFFFFF) ^ (1 << 31)) >> word_shift
+    u = seg ^ _INT64_TOP
+    if word_shift == 0:
+        return u  # a field of 64 bits: at or above 2^63 it is negative, out of range either way
+    return (u >> word_shift) & ((1 << (64 - word_shift)) - 1)
+
+
+def rank_keep_reference(
+    order: torch.Tensor,
+    *,
+    seg: Optional[torch.Tensor] = None,
+    word_shift: Optional[int] = None,
+    starts: Optional[torch.Tensor] = None,
+    limit: Optional[torch.Tensor] = None,
+    limits: Optional[torch.Tensor] = None,
+    mode: str = "lt",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The twin of K12 in ``row_select.cu``: keep flags by rank, the
+    decision taken in sorted order.
+
+    ``order`` (int64 [n], a permutation of the rows, as ``torch.sort``
+    gives it) lists the rows in sorted order. ``seg`` gives the segment
+    of each sorted position (``sorted_segments``): an int32 id, or, with
+    ``word_shift``, the first K11 presort word (int32 or int64) whose
+    field above ``word_shift`` bits is the segment (K11's "not real" bit
+    above it). A position whose segment lies outside ``[0, S)`` (the
+    sentinel; a row that is not real) is not kept; without ``seg`` there
+    is one segment of every position. The position ``i`` has rank ``i -
+    starts[s]`` within its segment ``s`` (``starts`` int64 [S] each
+    segment's first sorted position; 0 without ``seg``), and is kept where
+    that rank is at least 0 and below (``mode="lt"``) or at least
+    (``"ge"``) its limit: ``limits[s]`` (int32 [S]) or the one ``limit``
+    (a 0-d int64 device tensor). Returns ``(keep bool[n] in row order,
+    count int32 0-d)``: ``device_take``'s ``local < n``
+    (``fugue_tpu/jax_backend/relational.py:1348-1361``), INTERSECT ALL's
+    and EXCEPT ALL's ordinal against ``c2[seg]`` (``:1072-1084``),
+    ``device_sample``'s k smallest priorities (``:2196-2206``)."""
+    check_rank_args(seg, word_shift, starts, limit, limits, mode)
     n = int(order.shape[0])
     device = order.device
-    real = materialize_validity(row_valid, n, nrows, device).index_select(0, order)
-    pos = torch.arange(n, dtype=torch.int64, device=device)
+    rank = torch.arange(n, dtype=torch.int64, device=device)
     if seg is not None:
         num = int(starts.shape[0])  # type: ignore[union-attr]
-        s = seg.index_select(0, order).to(torch.int64)
-        real = real & (s >= 0) & (s < num)
-        s = s.clamp(0, max(num - 1, 0))
-        pos = pos - starts.index_select(0, s)  # type: ignore[union-attr]
+        s = sorted_segments(seg, word_shift)
+        inside = (s >= 0) & (s < num)
+        if num == 0:
+            return (torch.zeros((n,), dtype=torch.bool, device=device),
+                    torch.zeros((), dtype=torch.int32, device=device))
+        s = s.clamp(0, num - 1)
+        rank = rank - starts.index_select(0, s)  # type: ignore[union-attr]
         lim = (limits.index_select(0, s).to(torch.int64) if limits is not None
                else limit.to(torch.int64))  # type: ignore[union-attr]
     else:
+        inside = torch.ones((n,), dtype=torch.bool, device=device)
         lim = limit.to(torch.int64)  # type: ignore[union-attr]
-    kept = real & (pos >= lim if mode == "ge" else pos < lim)
+    kept = inside & (rank >= 0) & (rank >= lim if mode == "ge" else rank < lim)
     keep = torch.zeros((n,), dtype=torch.bool, device=device)
     keep[order] = kept
     return keep, kept.sum(dtype=torch.int32)
@@ -1164,10 +1200,13 @@ def first_row_mask_reference(
     (``occupied`` bool [S]; None: every segment), its first row lies in
     ``[0, n)`` (``first_idx`` int32 [S]) and its predicate holds:
     ``"all"`` (``_distinct_prog``,
-    ``fugue_tpu/jax_backend/execution_engine.py:1854-1867``), ``"hit"``
-    (``counts[g] > 0``: INTERSECT DISTINCT) or ``"miss"`` (``counts[g] ==
-    0``: EXCEPT DISTINCT; ``relational.py:1061-1071``). Returns ``(keep
-    bool[n], count int32 0-d)``."""
+    ``fugue_tpu/jax_backend/execution_engine.py:1854-1867``, and the
+    DISTINCT aggregates' first-occurrence mask, ``_apply_distinct_mask``
+    ``:3749-3776``), ``"hit"`` (``counts[g] > 0``: INTERSECT DISTINCT) or
+    ``"miss"`` (``counts[g] == 0``: EXCEPT DISTINCT;
+    ``relational.py:1061-1071``). The kept segments' first rows are
+    distinct, as a factorization's occupied segments' are. Returns
+    ``(keep bool[n], count int32 0-d)``."""
     if mode not in FIRST_ROW_MODES:
         raise ValueError(f"first-row mode {mode!r}: one of {FIRST_ROW_MODES}")
     if (mode == "all") != (counts is None):

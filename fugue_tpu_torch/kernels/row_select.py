@@ -1,13 +1,18 @@
 """The wrappers of ``row_select.cu``: check their tensors, allocate the
 outputs and launch the row-selection kernels on PyTorch's current stream.
 
-- ``rank_keep_cuda`` (K12): keep flags by each row's rank under a sort's
-  permutation, within its segment, against one limit (a device scalar)
-  or one per segment, with the kept count;
+- ``rank_keep_cuda`` (K12): keep flags by each sorted position's rank
+  within its segment (the segment read in sorted order), against one
+  limit (a device scalar) or one per segment, with the kept count;
 - ``first_row_mask_cuda`` (K13): each segment's first row where its
   predicate holds, with the count;
 - ``null_count_keep_cuda`` (K14): dropna's keep flags from the columns'
   null masks, with the count.
+
+K12 and K13 partition their kept rows by slab of 2^18 rows into scratch
+buckets, then build each slab's bits in shared memory and write its part
+of the keep mask once (``row_select.cu``); the wrapper allocates the
+scratch (4 bytes a row), the mask and the count.
 
 Each has the contract of its twin in ``reference.py``. Each wrapper's
 ``launches`` grows by one where it launches its kernel and nowhere
@@ -25,7 +30,7 @@ from fugue_tpu_torch.kernels.factorize import (
     _device_and_stream,
     _require_cuda,
 )
-from fugue_tpu_torch.kernels.reference import DROPNA_HOWS, FIRST_ROW_MODES, RANK_MODES
+from fugue_tpu_torch.kernels.reference import DROPNA_HOWS, FIRST_ROW_MODES, check_rank_args
 
 
 def _bind() -> ctypes.CDLL:
@@ -34,14 +39,14 @@ def _bind() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ip = ctypes.POINTER(i)
         lib.fugue_rank_keep.argtypes = [
-            ll, p, ll, p,  # n, order, nrows, row_valid
-            p, p, i,  # seg, starts, num
+            ll, p,  # n, order
+            p, i, i, i, p, ll,  # seg, seg_bytes, word, shift, starts, num
             p, p, i,  # limit, limits, ge
-            p, p, i, p, ip,  # keep, count, device, stream, launched
+            p, p, p, p, i, p, ip,  # slots, fill, keep, count, device, stream, launched
         ]
         lib.fugue_first_row_mask.argtypes = [
             ll, p, p, p, i,  # num, first_idx, occupied, counts, mode
-            ll, p, p, i, p, ip,  # n, keep, count, device, stream, launched
+            ll, p, p, p, p, i, p, ip,  # n, slots, fill, keep, count, device, stream, launched
         ]
         lib.fugue_null_count_keep.argtypes = [
             ll, ll, p,  # n, nrows, row_valid
@@ -65,12 +70,29 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+SLAB_ROWS = 1 << 18  # row_select.cu's kSlabRows
+
+
+def _outputs(n: int, device: torch.device) -> Tuple[int, int, torch.Tensor, torch.Tensor,
+                                                   torch.Tensor]:
+    """K12's and K13's scratch, keep mask and count, uninitialised (the
+    launch clears the fill counts and writes the rest): ``(slots, fill,
+    scratch, keep, count)``, ``slots`` and ``fill`` the addresses in
+    ``scratch`` of a bucket of ``SLAB_ROWS`` int32 offsets a slab of rows
+    (4 bytes a row) and of each bucket's fill count."""
+    nslabs = -(-n // SLAB_ROWS)
+    scratch = torch.empty((nslabs * (SLAB_ROWS + 1),), dtype=torch.int32, device=device)
+    slots = scratch.data_ptr()
+    return (slots, slots + 4 * nslabs * SLAB_ROWS, scratch,
+            torch.empty((n,), dtype=torch.bool, device=device),
+            torch.empty((), dtype=torch.int32, device=device))
+
+
 def rank_keep_cuda(
     order: torch.Tensor,
     *,
-    nrows: Optional[int] = None,
-    row_valid: Optional[torch.Tensor] = None,
     seg: Optional[torch.Tensor] = None,
+    word_shift: Optional[int] = None,
     starts: Optional[torch.Tensor] = None,
     limit: Optional[torch.Tensor] = None,
     limits: Optional[torch.Tensor] = None,
@@ -78,42 +100,39 @@ def rank_keep_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K12, with the contract of ``reference.rank_keep_reference``:
     ``(keep bool[n], count int32 0-d)``. ``order`` is the dense int64
-    permutation ``torch.sort`` gives; ``seg`` dense int32 [n], ``starts``
-    dense int64 [S], ``limit`` an int64 0-d tensor, ``limits`` dense
-    int32 [S], all on its CUDA device. Raises on anything else, on a
+    permutation ``torch.sort`` gives; ``seg`` dense [n] in sorted order
+    (an int32 id, or with ``word_shift`` an int32 or int64 K11 word),
+    ``starts`` dense int64 [S], ``limit`` an int64 0-d tensor, ``limits``
+    dense int32 [S], all on its CUDA device. Raises on anything else, on a
     failed build and on a refused launch."""
     _require_cuda(order, "rank_keep_cuda")
-    if mode not in RANK_MODES:
-        raise ValueError(f"rank mode {mode!r}: one of {RANK_MODES}")
-    if (limit is None) == (limits is None):
-        raise ValueError("pass exactly one of limit (one scalar) and limits (one per segment)")
-    if (seg is None) != (starts is None) or (limits is not None and seg is None):
-        raise ValueError("seg and starts go together, and limits needs them")
+    check_rank_args(seg, word_shift, starts, limit, limits, mode)
     device = order.device
     n = int(order.shape[0])
+    if not 1 <= n < 2**31:
+        raise ValueError(f"{n} rows: the kernel takes 1 to 2^31 - 1")
     _check(order, "order", (torch.int64,), n, device)
-    nrows_arg = _check_rows(n, nrows, row_valid, device)
     num = 0
     if seg is not None:
         num = int(starts.shape[0])  # type: ignore[union-attr]
-        if not 1 <= num < 2**31:
-            raise ValueError(f"{num} segments: the kernel takes 1 to 2^31 - 1")
-        _check(seg, "seg", (torch.int32,), n, device)
+        if num >= 2**31:
+            raise ValueError(f"{num} segments: the kernel takes at most 2^31 - 1")
+        _check(seg, "seg", (seg.dtype,), n, device)
         _check(starts, "starts", (torch.int64,), num, device)  # type: ignore[arg-type]
     if limits is not None:
         _check(limits, "limits", (torch.int32,), num, device)
     if limit is not None and (limit.device != device or limit.dtype != torch.int64
                               or limit.dim() != 0):
         raise ValueError(f"limit must be an int64 0-d tensor on {device}")
-    keep = torch.empty((n,), dtype=torch.bool, device=device)
-    count = torch.zeros((), dtype=torch.int32, device=device)
+    slots, fill, _scratch, keep, count = _outputs(n, device)
     lib = _bind()
     index, stream = _device_and_stream(device)
     launched = ctypes.c_int(0)
     err = lib.fugue_rank_keep(
-        n, order.data_ptr(), nrows_arg, _ptr(row_valid), _ptr(seg), _ptr(starts), num,
-        _ptr(limit), _ptr(limits), int(mode == "ge"), keep.data_ptr(), count.data_ptr(),
-        index, stream, ctypes.byref(launched),
+        n, order.data_ptr(), _ptr(seg), 0 if seg is None else seg.element_size(),
+        int(word_shift is not None), int(word_shift or 0), _ptr(starts) or None, num,
+        _ptr(limit), _ptr(limits) or None, int(mode == "ge"), slots, fill, keep.data_ptr(),
+        count.data_ptr(), index, stream, ctypes.byref(launched),
     )
     _raise_on(lib, err, "rank_keep")
     if launched.value:
@@ -135,8 +154,7 @@ def first_row_mask_cuda(
     """K13, with the contract of ``reference.first_row_mask_reference``:
     ``(keep bool[n], count int32 0-d)``. ``first_idx`` is dense int32
     [S] on a CUDA device, ``occupied`` dense bool [S] and ``counts`` dense
-    int32 [S] beside it. With no segment the mask is cleared and nothing
-    is launched."""
+    int32 [S] beside it. With no segment the launch clears the mask."""
     _require_cuda(first_idx, "first_row_mask_cuda")
     if mode not in FIRST_ROW_MODES:
         raise ValueError(f"first-row mode {mode!r}: one of {FIRST_ROW_MODES}")
@@ -151,15 +169,14 @@ def first_row_mask_cuda(
         _check(occupied, "occupied", (torch.bool,), num, device)
     if counts is not None:
         _check(counts, "counts", (torch.int32,), num, device)
-    keep = torch.empty((n,), dtype=torch.bool, device=device)
-    count = torch.empty((), dtype=torch.int32, device=device)
+    slots, fill, _scratch, keep, count = _outputs(n, device)
     lib = _bind()
     index, stream = _device_and_stream(device)
     launched = ctypes.c_int(0)
     err = lib.fugue_first_row_mask(
         num, first_idx.data_ptr() if num else None, _ptr(occupied), _ptr(counts),
-        FIRST_ROW_MODES.index(mode), n, keep.data_ptr(), count.data_ptr(), index, stream,
-        ctypes.byref(launched),
+        FIRST_ROW_MODES.index(mode), n, slots, fill, keep.data_ptr(), count.data_ptr(), index,
+        stream, ctypes.byref(launched),
     )
     _raise_on(lib, err, "first_row_mask")
     if launched.value:

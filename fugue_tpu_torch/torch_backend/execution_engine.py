@@ -1236,17 +1236,17 @@ def _distinct_masks(
     value) over the padded rows (``_distinct_factorize`` and
     ``_apply_distinct_mask``, ``:3749-3776``): the factorization of the
     keys and the argument (``groupby.factorize_keys``, cached on the
-    frame), then ``first_idx[seg] == row``. Rows that are not real carry
-    the sentinel id; clamped, it points at a real row, never at them."""
+    frame), then one K13 launch that sets each occupied segment's first
+    row. A row that is not real is no segment's first row, so its flag is
+    clear."""
     out: Dict[str, torch.Tensor] = {}
+    pad_n = blocks.padded_nrows
     for argname in dict.fromkeys(distinct_args.values()):
-        fr = groupby.factorize_keys(blocks, keys + [argname])
-        pad_n = blocks.padded_nrows
-        if fr.num_segments == 0:
-            out[argname] = torch.zeros((pad_n,), dtype=torch.bool, device=blocks.device)
+        if pad_n == 0:
+            out[argname] = torch.zeros((0,), dtype=torch.bool, device=blocks.device)
             continue
-        first = fr.first_idx.index_select(0, fr.seg.clamp(max=fr.num_segments - 1))
-        out[argname] = first == torch.arange(pad_n, dtype=torch.int32, device=blocks.device)
+        fr = groupby.factorize_keys(blocks, keys + [argname])
+        out[argname] = relational.first_rows(fr.first_idx, pad_n, occupied=fr.occupied)[0]
     return out
 
 

@@ -38,15 +38,16 @@ with no gather and no readback (the JAX package's mask-only programs):
   count is (INTERSECT) or is not (EXCEPT) above 0, by K13
   ``first_row_mask``; ALL sorts side 1's segment ids (one stable
   ``torch.sort``), counts side 1 by K7 for each segment's first sorted
-  position, and K12 ``rank_keep`` keeps the rows whose ordinal is below
-  (INTERSECT) or at least (EXCEPT) side 2's count.
+  position, and K12 ``rank_keep`` keeps, over the sorted ids, the rows
+  whose ordinal is below (INTERSECT) or at least (EXCEPT) side 2's count.
 - **fillna** (``device_fillna``): every target column in one K6 launch,
   ``COALESCE(x, v)`` with a float's NaN read as null first.
 - **take** (``device_take``): the presort's keys, and the partition's
   segment id before them, packed into order-preserving sort words by
   K11 (KW's presort mode), one stable ``torch.sort`` a word
   (``presort_order``), K7's partition counts for each partition's first
-  sorted position, and K12 keeps the ranks below ``n``.
+  sorted position, and K12 keeps the ranks below ``n``, the partition read
+  from the first word in sorted order.
 - **sample** (``device_sample``): a seeded ``torch.randperm`` as each
   row's priority (``len`` on rows that are not real), ``torch.sort``, and
   K12 keeps the first ``k`` positions, ``k`` computed on the card.
@@ -456,10 +457,10 @@ def first_rows(first_idx: torch.Tensor, n: int, *, occupied: Optional[torch.Tens
     return run(first_idx, n, occupied=occupied, counts=counts, mode=mode)
 
 
-def rank_keep(order: torch.Tensor, b: TorchBlocks, **kw: Any) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K12 ``rank_keep`` over the frame's rows (its twin on the CPU)."""
+def rank_keep(order: torch.Tensor, **kw: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K12 ``rank_keep`` over the sorted positions (its twin on the CPU)."""
     run = kernel_for(order, rank_keep_cuda, rank_keep_reference, "rank keep")
-    return run(order, **groupby.frame_rows(b), **kw)
+    return run(order, **kw)
 
 
 def null_count_keep(b: TorchBlocks, masks: List[torch.Tensor], ncols: int, how: str,
@@ -485,7 +486,9 @@ def intersect_subtract(b1: TorchBlocks, b2: TorchBlocks, names: List[str], subtr
     the rows whose ordinal among equal rows of side 1 is below (INTERSECT)
     or at least (EXCEPT) side 2's count of that row. Side 1's columns as
     they are, its validity flipped, the count lazy: K7 for side 2's counts,
-    then K13, or the stable sort of side 1's segment ids, K7 and K12."""
+    then K13, or the stable sort of side 1's segment ids, K7 and K12 over
+    the sorted ids (the sentinel of the rows that are not real sorts
+    last)."""
     sf = shared_factorize(b1, b2, names)
     S = max(sf.num_segments, 1)
     c2 = _build(sf.seg2, S, b2, None)
@@ -498,10 +501,10 @@ def intersect_subtract(b1: TorchBlocks, b2: TorchBlocks, names: List[str], subtr
                                  mode="miss" if subtract else "hit")
         return keep_rows(b1, keep, count)
     c1 = _build(sf.seg1, S, b1, None)
-    starts = torch.cumsum(c1, 0, dtype=torch.int64) - c1
-    # rows that are not real carry the sentinel and sort last
-    order = torch.sort(sf.seg1, stable=True).indices
-    keep, count = rank_keep(order, b1, seg=sf.seg1, starts=starts, limits=c2,
+    num = sf.num_segments  # the sentinel, which K12 keeps out
+    starts = (torch.cumsum(c1, 0, dtype=torch.int64) - c1)[:num]
+    srt = torch.sort(sf.seg1, stable=True)
+    keep, count = rank_keep(srt.indices, seg=srt.values, starts=starts, limits=c2[:num],
                             mode="ge" if subtract else "lt")
     return keep_rows(b1, keep, count)
 
@@ -686,16 +689,19 @@ def presort_order(keys: List[PresortKey], n: int, device: torch.device, *,
     words = _presort_words(keys, n, device, nrows, row_valid)[0]
     if not words:
         return torch.arange(n, dtype=torch.int64, device=device)
-    return _lsd_order(words)
+    return _lsd_order(words)[0]
 
 
-def _lsd_order(words: List[torch.Tensor]) -> torch.Tensor:
-    """The order of ``words`` (most significant first): one stable sort a
-    word, least significant first."""
-    order = torch.sort(words[-1], stable=True).indices
+def _lsd_order(words: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The order of ``words`` (most significant first), one stable sort a
+    word, least significant first; and ``words[0]`` in that order (the
+    values of the last sort)."""
+    srt = torch.sort(words[-1], stable=True)
+    order, first = srt.indices, srt.values
     for w in reversed(words[:-1]):
-        order = order.index_select(0, torch.sort(w.index_select(0, order), stable=True).indices)
-    return order
+        srt = torch.sort(w.index_select(0, order), stable=True)
+        order, first = order.index_select(0, srt.indices), srt.values
+    return order, first
 
 
 def presort_sorted(keys: List[PresortKey], n: int, device: torch.device, *,
@@ -713,11 +719,9 @@ def presort_sorted(keys: List[PresortKey], n: int, device: torch.device, *,
     shift = presort_bits(groups[0][1:], False)
     unreal = has_unreal_rows(n, nrows, row_valid)
     below = real_below(presort_bits(groups[0], True)) if unreal else None
-    if len(words) == 1:
-        srt = torch.sort(words[0], stable=True)
-        return SortedWords(srt.indices, [srt.values], shift, below)
-    order = _lsd_order(words)
-    return SortedWords(order, [w.index_select(0, order) for w in words], shift, below)
+    order, first = _lsd_order(words)
+    return SortedWords(order, [first] + [w.index_select(0, order) for w in words[1:]], shift,
+                       below)
 
 
 def device_sort(blocks: TorchBlocks, sorts: List[Tuple[str, bool, Optional[bool]]],
@@ -747,11 +751,15 @@ def device_take(blocks: TorchBlocks, n: int, sorts: Dict[str, bool], na_position
     of the frame) under the presort, rows kept in their place with the
     frame's validity flipped and the count lazy. The partition's segment
     id leads the sort words (K11); K7 counts each partition's rows for its
-    first sorted position; K12 keeps the ranks below ``n``. No readback
-    but the sort path's group count where the partition keys take it."""
+    first sorted position; K12 keeps the ranks below ``n``, reading each
+    position's partition from the first word in sorted order (the values
+    of its last sort), where the "not real" bit above it puts the rows
+    that are not real out of range; with no partition, that bit alone is
+    the segment. No readback but the sort path's group count where the
+    partition keys take it."""
     device = blocks.device
     keys = sort_code_columns(blocks, list(sorts.items()), na_position == "first")
-    where: Dict[str, torch.Tensor] = {}
+    starts: Optional[torch.Tensor] = None
     if partition_by:
         for k in partition_by:
             if k not in blocks.columns:
@@ -761,10 +769,22 @@ def device_take(blocks: TorchBlocks, n: int, sorts: Dict[str, bool], na_position
         # the field covers the sentinel of the rows that are not real
         keys = [PresortKey(fr.seg, kmin=0, bits=S.bit_length())] + keys
         counts = _build(fr.seg, S, blocks, None)
-        where = dict(seg=fr.seg, starts=torch.cumsum(counts, 0, dtype=torch.int64) - counts)
-    order = presort_order(keys, blocks.padded_nrows, device, **groupby.frame_rows(blocks))
+        starts = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+    p = blocks.padded_nrows
+    rows = groupby.frame_rows(blocks)
+    words, groups = _presort_words(keys, p, device, rows.get("nrows"), rows.get("row_valid"))
     limit = torch.full((), n, dtype=torch.int64, device=device)
-    keep, count = rank_keep(order, blocks, limit=limit, mode="lt", **where)
+    if not words:  # no key and every row real
+        keep, count = rank_keep(torch.arange(p, dtype=torch.int64, device=device), limit=limit)
+        return keep_rows(blocks, keep, count)
+    order, first = _lsd_order(words)
+    where: Dict[str, Any] = {}
+    if starts is not None:
+        where = dict(seg=first, word_shift=presort_bits(groups[0][1:], False), starts=starts)
+    elif has_unreal_rows(p, rows.get("nrows"), rows.get("row_valid")):
+        where = dict(seg=first, word_shift=presort_bits(groups[0], True) - 1,
+                     starts=torch.zeros((1,), dtype=torch.int64, device=device))
+    keep, count = rank_keep(order, limit=limit, mode="lt", **where)
     return keep_rows(blocks, keep, count)
 
 
@@ -789,7 +809,7 @@ def device_sample(blocks: TorchBlocks, n: Optional[int], frac: Optional[float],
         k = torch.full((), int(n), dtype=torch.int64, device=device)
     else:
         k = torch.round(nvalid.to(torch.float64) * float(frac)).to(torch.int64)  # type: ignore
-    keep, count = rank_keep(order, blocks, limit=torch.minimum(k, nvalid), mode="lt")
+    keep, count = rank_keep(order, limit=torch.minimum(k, nvalid), mode="lt")
     return keep_rows(blocks, keep, count)
 
 

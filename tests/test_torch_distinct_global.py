@@ -140,6 +140,29 @@ def test_first_last_distinct_raise(func):
     assert engine.fallbacks == {"aggregate": 1}
 
 
+@pytest.mark.parametrize("layout", ["prefix", "prefix_short", "masked"])
+@pytest.mark.parametrize("keys", [["k"], ["g"], []], ids=["binned", "sort", "keyless"])
+def test_distinct_masks_are_the_first_occurrences(keys, layout):
+    """``_distinct_masks`` (one K13 launch a DISTINCT argument, its twin
+    here) equals the gather it replaced, ``first_idx[seg] == row``, on
+    every real row, and sets no row that is not real, on frames with such
+    rows."""
+    from fugue_tpu_torch.torch_backend import groupby
+    from fugue_tpu_torch.torch_backend.execution_engine import _distinct_masks
+
+    blocks = _frames(_data(), layout)[0].blocks
+    masks = _distinct_masks(blocks, keys, {"cu": "u", "cf": "f", "su": "u", "cb": "b"})
+    assert list(masks) == ["u", "f", "b"]
+    real = blocks.validity()
+    rows = torch.arange(blocks.padded_nrows, dtype=torch.int32)
+    for arg, mask in masks.items():
+        fr = groupby.factorize_keys(blocks, keys + [arg])
+        first = fr.first_idx.index_select(0, fr.seg.clamp(max=fr.num_segments - 1).long())
+        assert torch.equal(mask & real, (first == rows) & real)
+        assert not (mask & ~real).any()
+        assert int(mask.sum()) == int(fr.num_groups_dev)
+
+
 def test_chip_smoke_full_groupby_on_cpu():
     """The full group-by phase of ``chip_smoke.py`` at a small size on the
     CPU (the card runs it at 100M rows): keyed and keyless, each checked
