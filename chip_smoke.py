@@ -83,8 +83,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    int key with ties and nulls, one partition holding every row ordered
    by a float key with NaN and nulls descending, nulls first, and a
    two-key order; every case at 1 and 2^20 + 37 rows, the SQL phase's
-   shapes and one frame of each unit at 100M; exactly but the float64
-   frame sums (``FRAME_SUM_RTOL`` and ``frame_sum_atol``). Then K17
+   shapes and one frame of each unit at 100M, and again below one of
+   K16's slabs and at one slab and a row (``window_slab_cases``); exactly
+   but the float64 frame sums (``FRAME_SUM_RTOL`` and
+   ``frame_sum_atol``), and each call's slab buckets holding their slabs'
+   rows (``check_fill``; K3 too, in ``sort_vs_twin`` and at its slabs'
+   edges over random permutations, ``sort_finish_slab_cases``). Then K17
    ``comap_presence`` and K18 ``comap_rows`` exactly (``comap_vs_twin``:
    1, 2, 3 and 33 members, every zip type, prefix and masked layouts, a
    member with no real row, sentinel ids, 1 and 2^24 segments; at 1,
@@ -102,8 +106,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    partitioned transform at 10M and 100M rows (K1 once, then cached); the
    sort-path aggregate at 100M rows over 1024 groups on a float32 key and
    an int64 key (the word route: KW, K2w, K3w once each), on the two as
-   one key pair (the wide route: K2, K3) and over 2^18 and 2^20 float32
-   groups (K3w with its table in global memory; K3's scatter); the full
+   one key pair (the wide route: K2, K3) and over 2^15 and 2^16 float32
+   groups, the two sides of ``groupby.lookup_limit`` (K3w; K3); the full
    group-by at 100M rows (the headline frame and UDF with an int32 ``u``
    over [0, 10000) passed through; sum, count(*), min, max, first, last,
    stddev, var_pop, median of ``v2`` and count/sum DISTINCT of ``u``, by
@@ -202,9 +206,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bound and, where one PyTorch call computes the same function,
    ``index_fill_`` (K12 at ``sample``'s, the top-n take's and EXCEPT ALL's
    shapes, K13; also after the ``zero_()`` the kernel's work includes) or
-   ``torch.all`` (K14); K3's ``scatter_`` also with its ``where``;
+   ``torch.all`` (K14); K3's ``scatter_`` also with its ``where``, and
+   K3 and K16's running sum with each launch's device time, K3 also over
+   a random permutation (``order_scatter_timing``);
    K15, K16 and K8's NOT IN mode at the SQL phase's shapes
-   (``window_timing``), with K16's other routes, ``device_sort`` against
+   (``window_timing``), with K16's other routes and its running sum's
+   equal work in three PyTorch calls (``index_select`` by the order,
+   ``cumsum``, ``scatter_`` back), ``device_sort`` against
    ``torch.sort`` and ``gather_indices`` against ``index_select``; K17
    and K18 at config 4's 100M-row shape (``comap_timing``: K17 beside a
    ``bincount`` a member) and K19 at a streaming chunk (``stream_timing``:
@@ -703,6 +711,7 @@ def sort_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
                 num = int(want[1])
                 got2 = sort_finish_cuda(want[0], order, num)
                 sync()
+                check_fill(full, sort_finish_cuda.last_fill, n, sort_finish_cuda.last_shift)
                 _equal(full, ("seg_sorted", "count", "seg", "first_idx"),
                        got + got2, want + sort_finish_reference(want[0], order, num))
                 route = "wide"
@@ -728,6 +737,7 @@ def sort_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
                 path = sort_word_lookup_cuda.last_path
                 scattered = sort_finish_cuda(got[2], order, num)
                 sync()
+                check_fill(full, sort_finish_cuda.last_fill, n, sort_finish_cuda.last_shift)
                 seg_want = sort_word_lookup_reference(sw.word, want[0], num,
                                                       real_below=sw.real_below)
                 _equal(full, ("seg (lookup)",), (seg,), (seg_want,))
@@ -743,6 +753,58 @@ def sort_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
                 raise SystemExit(f"FAIL {full}: {num} groups")
             print(f"ok {full} route={route} groups={num}")
             del order
+
+
+def check_fill(label: str, fill: Any, n: int, shift: int) -> None:
+    """A store through the order by slab (``order_scatter.cuh``) left each
+    slab's bucket holding exactly its slab's rows (the order is a
+    permutation)."""
+    import torch
+
+    slabs = -(-n >> shift)
+    want = torch.full((slabs,), 1 << shift, dtype=torch.int32, device=fill.device)
+    want[-1] = n - ((slabs - 1) << shift)
+    if fill.shape != want.shape or not torch.equal(fill, want):
+        raise SystemExit(f"FAIL {label}: bucket counts differ from the slabs' rows")
+
+
+def slab_sizes(shift: int) -> Tuple[int, ...]:
+    """The edges of slabs of 2^shift rows: below one slab, one slab, one
+    slab and a last slab of one row, three slabs and a short one."""
+    slab = 1 << shift
+    return (slab // 2 + 3, slab, slab + 1, 3 * slab + 17)
+
+
+def sort_finish_slab_cases(device: Any) -> None:
+    """K3 at the edges of its slabs (``slab_sizes``), against
+    ``sort_finish_reference`` bit for bit: a random permutation as the
+    order, sorted segment ids of groups of 1 to 8 positions with the rows
+    that are not real (-1) last; each bucket's count against its slab's
+    rows (``check_fill``)."""
+    import torch
+
+    from fugue_tpu_torch.kernels.factorize import sort_finish_cuda
+    from fugue_tpu_torch.kernels.reference import sort_finish_reference
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    sort_finish_cuda(torch.zeros((1,), dtype=torch.int32, device=device),
+                     torch.zeros((1,), dtype=torch.int64, device=device), 1)
+    shift = sort_finish_cuda.last_shift
+    for n in slab_sizes(shift):
+        order = torch.randperm(n, generator=gen, device=device)
+        opens = torch.randint(0, 8, (n,), generator=gen, device=device) == 0
+        opens[0] = True
+        seg_sorted = (torch.cumsum(opens, 0) - 1).to(torch.int32)
+        real = n - n // 10
+        seg_sorted[real:] = -1
+        num = int(seg_sorted[real - 1]) + 1
+        label = f"sort_finish n={n}"
+        got = sort_finish_cuda(seg_sorted, order, num)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        _equal(label, ("seg", "first_idx"), got, sort_finish_reference(seg_sorted, order, num))
+        check_fill(label, sort_finish_cuda.last_fill, n, shift)
+        print(f"ok {label} slabs of 2^{shift} rows, groups={num}")
 
 
 def config2_frame(rows: int) -> Any:
@@ -1768,11 +1830,11 @@ def word_timing(device: Any, fkey: Any, launches: Dict[str, int]) -> List[Dict[s
 def k3_routes(device: Any, rows: int) -> List[Dict[str, Any]]:
     """K3's two routes on the word route at ``rows`` rows: an int32 key
     (an int32 word) over 1024 to 2^21 groups and with every row distinct,
-    and the int64 key ``k * 2^33`` (an int64 word) over 1024 to 2^20
-    groups. K3w (its table in shared memory where it fits, else in global
+    and the int64 key ``k * 2^33`` (an int64 word) over 1024 to 2^18
+    groups, densest around the crossover. K3w (its table in shared memory where it fits, else in global
     memory) and the scatter of K2w's sorted ids (K3) are checked against
     each other and timed with CUDA events. Prints and returns one line
-    each; the crossover sets ``groupby.LOOKUP_MAX_GROUPS``."""
+    each; the crossover sets ``groupby.lookup_limit``."""
     import torch
 
     from fugue_tpu_torch.kernels.factorize import (
@@ -1780,8 +1842,8 @@ def k3_routes(device: Any, rows: int) -> List[Dict[str, Any]]:
     )
 
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    sweeps = [(4, g) for g in (1024, 1 << 15, 1 << 16, 1 << 18, 1 << 19, 1 << 20, 1 << 21, rows)]
-    sweeps += [(8, g) for g in (1024, 1 << 14, 1 << 16, 1 << 18, 1 << 19, 1 << 20)]
+    sweeps = [(4, g) for g in (1024, 1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 19, 1 << 21, rows)]
+    sweeps += [(8, g) for g in (1024, 1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16, 1 << 18)]
     out = []
     for width, groups in sweeps:
         if groups == rows:
@@ -1817,6 +1879,71 @@ def k3_routes(device: Any, rows: int) -> List[Dict[str, Any]]:
         out.append(row)
         del words, uniq, first_idx, seg_sorted, order, seg, scattered
         torch.cuda.empty_cache()
+    return out
+
+
+def device_split_ms(run_once: Callable[[], Any], device: Any) -> Optional[Dict[str, float]]:
+    """Each kernel's device milliseconds in one run, by name, from
+    ``torch.profiler``; None where the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_once()
+        torch.cuda.synchronize(device)
+    def name(key: str) -> str:
+        return key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+
+    split = {name(e.key): e.self_device_time_total / 1e3
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    return split or None
+
+
+def order_scatter_timing(device: Any, rows: int) -> Dict[str, Any]:
+    """The two kernels that store through an order by slab at ``rows``
+    rows with CUDA events and each launch's device time
+    (``device_split_ms``): K3 over K2's sorted ids of the sort path's
+    float32 key (1024 groups) with its lexicographic order (each group's
+    rows ascending) and with a random permutation as the order (any other
+    order), and K16's running float64 sum as ``window_timing`` takes it.
+    Prints one ``order_scatter:`` line and returns its numbers."""
+    import torch
+
+    from fugue_tpu_torch.kernels.factorize import sort_boundaries_cuda, sort_finish_cuda
+    from fugue_tpu_torch.kernels.reference import PresortKey, WindowFrame
+    from fugue_tpu_torch.kernels.window import window_frame_cuda
+    from fugue_tpu_torch.torch_backend import groupby, relational
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    key = torch.randint(0, GROUPS, (rows,), generator=gen, device=device, dtype=torch.int32)
+    codes = groupby.sort_codes([(key.float(), None)])
+    order = groupby.lex_order(codes, nrows=rows)
+    seg_sorted, count = sort_boundaries_cuda(codes, order, nrows=rows)
+    num = int(count)
+    del codes
+    out: Dict[str, Any] = {"rows": rows}
+    for label, o in (("sort_order", order),
+                     ("random_order", torch.randperm(rows, generator=gen, device=device))):
+        out[f"sort_finish_{label}"] = {
+            "ms": time_cuda(lambda: sort_finish_cuda(seg_sorted, o, num), 20),
+            "device_ms": device_split_ms(lambda: sort_finish_cuda(seg_sorted, o, num), device)}
+        del o
+    del seg_sorted, order
+    torch.cuda.empty_cache()
+    v = torch.rand((rows,), generator=gen, device=device).to(torch.float64)
+    di = torch.randint(0, DATE_DAYS, (rows,), generator=gen, device=device, dtype=torch.int32)
+    by_d = relational.presort_sorted([PresortKey(key, kmin=0, bits=GROUPS.bit_length()),
+                                      PresortKey(di, kmin=0, bits=11)], rows, device, nrows=rows)
+    running = WindowFrame("sum", 0, "running", ("up", 0), ("c", 0), v, route="prefix")
+    out["window_frame_running_sum"] = {
+        "ms": time_cuda(lambda: window_frame_cuda(by_d, running), 10),
+        "device_ms": device_split_ms(lambda: window_frame_cuda(by_d, running), device)}
+    print("order_scatter: " + json.dumps(out))
+    del by_d, v, di, key
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4515,22 +4642,25 @@ def check_frame_sums(label: str, got: Any, want: Any, atol: Any) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def window_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
+def window_vs_twin(device: Any, sizes: Tuple[int, ...], full_below: int = (1 << 20) + 38
+                   ) -> float:
     """K15 and K16 against their twins in every case of ``window_cases``
-    (the full set up to 2^20 + 37 rows, the SQL phase's shapes above):
-    ranks, counts, integer sums, extrema, positional values and every mask
-    exactly, float64 sums and averages within ``FRAME_SUM_RTOL`` and
-    ``frame_sum_atol``. Prints each size's case count and the levels of
-    each table-route case's sparse table. Returns the largest float
-    difference."""
+    (the full set below ``full_below`` rows, the SQL phase's shapes
+    above): ranks, counts, integer sums, extrema, positional values and
+    every mask exactly, float64 sums and averages within
+    ``FRAME_SUM_RTOL`` and ``frame_sum_atol``; on the card, each K16
+    call's bucket counts against its slabs' rows (``check_fill``). Prints
+    each size's case count and the levels of each table-route case's
+    sparse table. Returns the largest float difference."""
     import torch
 
     from fugue_tpu_torch.kernels.reference import window_frame_reference, window_rank_reference
     from fugue_tpu_torch.kernels.window import window_frame_cuda, window_rank_cuda
 
+    on_card = device.type == "cuda"
     worst = 0.0
     for n in sizes:
-        cases, orders = window_cases(device, n, SEED + n, full=n <= (1 << 20) + 37)
+        cases, orders = window_cases(device, n, SEED + n, full=n < full_below)
         levels: Dict[str, int] = {}
         for label, o, kind, payload in cases:
             sw = orders[o][0]
@@ -4540,6 +4670,9 @@ def window_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
                       window_rank_reference(sw, *payload))
                 continue
             got, want = window_frame_cuda(sw, payload), window_frame_reference(sw, payload)
+            if on_card:
+                check_fill(f"window_frame {label}", window_frame_cuda.last_fill, n,
+                           window_frame_cuda.last_shift)
             if window_frame_cuda.last_levels:
                 levels[f"{o} {payload.unit} {payload.lo}..{payload.hi}"] = \
                     window_frame_cuda.last_levels
@@ -4555,9 +4688,27 @@ def window_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
         print(f"window_vs_twin: n={n} {len(cases)} cases equal (float sums within tolerance); "
               f"table levels {levels}")
         del cases, orders
-        if device.type == "cuda":
+        if on_card:
             torch.cuda.empty_cache()
     return worst
+
+
+def window_slab_cases(device: Any) -> float:
+    """K16 at the edges of its slabs: below one slab and one slab plus a
+    last slab of one row, on the SQL phase's shapes of ``window_cases``
+    (masked frames, so rows that are not real sort last; every route and a
+    table), as ``window_vs_twin`` holds them. Returns the largest float
+    difference."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import SortedWords, WindowFrame
+    from fugue_tpu_torch.kernels.window import window_frame_cuda
+
+    one = SortedWords(torch.zeros((1,), dtype=torch.int64, device=device),
+                      [torch.zeros((1,), dtype=torch.int32, device=device)], 0)
+    window_frame_cuda(one, WindowFrame("count_star"))
+    shift = window_frame_cuda.last_shift
+    return window_vs_twin(device, ((1 << shift) - 3, (1 << shift) + 1), full_below=0)
 
 
 def q_channel(rows: int, rng: Any) -> Dict[str, Any]:
@@ -5445,6 +5596,16 @@ def window_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]
         err, time_cuda(lambda: window_frame_cuda(by_d, running), 10),
         time_cuda(lambda: window_frame_reference(by_d, running), 3), n * (8 + 4 + 8 + 8 + 1), 0,
         time_cuda(lambda: torch.cumsum(x, 0), 10), source="window.cu"))
+    # the same work in three PyTorch calls: the argument gathered to sorted
+    # order, its (unsegmented) running sum, the sums scattered back
+    summed = torch.empty_like(x)
+    print("window timed: " + json.dumps({
+        "name": "window_frame[running sum] equal work",
+        "index_select_cumsum_scatter_ms": time_cuda(lambda: summed.scatter_(
+            0, by_d.order, torch.cumsum(x.index_select(0, by_d.order), 0)), 10),
+        "index_select_ms": time_cuda(lambda: x.index_select(0, by_d.order), 10),
+        "scatter_ms": time_cuda(lambda: summed.scatter_(0, by_d.order, x), 10)}))
+    del summed
     for label, func, unit, lo, hi, extra in (
             ("moving avg 7 rows", "avg", "rows", ("p", 6), ("c", 0), {}),
             ("min 7 rows", "min", "rows", ("p", 6), ("c", 0), {}),
@@ -6283,7 +6444,8 @@ _ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 
 # each kernel's launches in one run of the full group-by: by the key, the
 # distinct (k, u) pairs take the word route and, above
-# LOOKUP_MAX_GROUPS pairs, K3's scatter; K13 sets the DISTINCT argument's
+# groupby.lookup_limit pairs, K3 (fewer pairs than that span fewer than
+# 2^22 bins and take K1); K13 sets the DISTINCT argument's
 # first-occurrence mask
 FULL_GROUPBY_LAUNCHES = {
     "keyed": dict(bin_factorize=1, sort_word=2, sort_word_boundaries=1, sort_finish=1,
@@ -6301,6 +6463,10 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}")
     device = torch.device("cuda", torch.cuda.current_device())
+    started = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        print(f"phase: {phase} done at {time.perf_counter() - started:.1f}s", flush=True)
 
     from fugue_tpu_torch.kernels import build
 
@@ -6316,10 +6482,14 @@ def main() -> None:
 
     worst = max(kernel_vs_twin(device), binned_vs_twin(device, binned_sums_cuda))
     print(f"kernels checked against their twins: binned_sums (max_abs_err={worst})")
+    lap("twins: binned_sums")
     bin_factorize_vs_twin(device, (1, (1 << 20) + 37, 10_000_000))
     sort_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
+    sort_finish_slab_cases(device)
     print("kernels checked against their twins: bin_factorize, sort_word, "
-          "sort_word_boundaries, sort_word_lookup, sort_boundaries, sort_finish")
+          "sort_word_boundaries, sort_word_lookup, sort_boundaries, sort_finish (also at its "
+          "slabs' edges)")
+    lap("twins: factorization")
     torch.cuda.empty_cache()
     worst = reduce_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
     print(f"kernels checked against their twins: segment_extrema (bit-equal), "
@@ -6327,28 +6497,35 @@ def main() -> None:
     torch.cuda.empty_cache()
     worst = expr_program_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
     print(f"kernels checked against their twins: expr_program (max_abs_err={worst})")
+    lap("twins: segment reductions, expr_program")
     torch.cuda.empty_cache()
     lut_vs_twin(device, (1, (1 << 20) + 37, ROWS))
     print("kernels checked against their twins: expr_program's LUT family (equal)")
     k6_once = k6_build_once(device, (1 << 20) + 37)
+    lap("twins: LUTs, K6 builds")
     torch.cuda.empty_cache()
     join_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
     print("kernels checked against their twins: join_build, join_probe, join_expand, "
           "gather_rows (equal)")
+    lap("twins: joins")
     torch.cuda.empty_cache()
     row_select_vs_twin(device, (1, (1 << 20) + 37, ROWS))
     print("kernels checked against their twins: presort_word, rank_keep, first_row_mask, "
           "null_count_keep (equal)")
+    lap("twins: row selection")
     torch.cuda.empty_cache()
     worst = window_vs_twin(device, (1, (1 << 20) + 37, ROWS))
-    print(f"kernels checked against their twins: window_rank, window_frame (equal; float64 "
-          f"frame sums max_abs_err={worst})")
+    worst = max(worst, window_slab_cases(device))
+    print(f"kernels checked against their twins: window_rank, window_frame (equal, also at "
+          f"its slabs' edges; float64 frame sums max_abs_err={worst})")
+    lap("twins: windows")
     torch.cuda.empty_cache()
     comap_vs_twin(device, (1, (1 << 20) + 37, ROWS))
     print("kernels checked against their twins: comap_presence, comap_rows (equal)")
     worst = stream_fold_vs_twin(device, (1, (1 << 20) + 37, STREAM_CHUNK_ROWS))
     print(f"kernels checked against their twins: stream_fold (equal; float64 sums max rel err "
           f"{worst})")
+    lap("twins: co-map, stream fold")
     torch.cuda.empty_cache()
 
     stats = main_path(device, ROWS, GROUPS, SEED, WARM_RUNS)
@@ -6360,6 +6537,7 @@ def main() -> None:
         )
     stats["card"] = card
     print("main_path: " + json.dumps(stats))
+    lap("main path")
     torch.cuda.empty_cache()
 
     part = {}
@@ -6374,25 +6552,26 @@ def main() -> None:
         print("partitioned_transform: " + json.dumps(part[rows]))
         torch.cuda.empty_cache()
 
+    lap("partitioned transform")
     # 1024 groups: the float32 key takes an int32 word, the int64 key an
     # int64 word, both K3w's shared-memory lookup; the key pair is too wide
-    # for one word (K2 and K3). Float32 keys over 2^18 groups: above the
-    # shared table's capacity (K3w in global memory); over 2^20: above the
-    # lookup's reach (K3's scatter).
+    # for one word (K2 and K3). Float32 keys over the lookup's last group
+    # count for int32 words (K3w, its table in shared memory) and twice it
+    # (K3): both sides of the crossover.
     sort_stats = sort_path_aggregates(device, ROWS, GROUPS, SEED, WARM_RUNS,
                                       cases=("float_key", "int64_key", "wide_key"),
                                       split_cold=True)
-    for groups in (1 << 18, 1 << 20):
+    from fugue_tpu_torch.torch_backend import groupby
+
+    for groups in (groupby.lookup_limit(4), 2 * groupby.lookup_limit(4)):
         torch.cuda.empty_cache()
         sort_stats += sort_path_aggregates(device, ROWS, groups, SEED, WARM_RUNS,
                                            cases=("float_key",), split_cold=True)
-    from fugue_tpu_torch.torch_backend import groupby
-
     for st in sort_stats:
         width = 4 if st["case"] == "float_key" else 8
         want_route = "wide"
         if st["case"] != "wide_key":
-            k3 = "lookup" if st["groups"] <= groupby.LOOKUP_MAX_GROUPS else "scatter"
+            k3 = "lookup" if st["groups"] <= groupby.lookup_limit(width) else "scatter"
             want_route = f"word{8 * width}/{k3}"
         want = dict.fromkeys(st["launches"], 0)
         want["binned_sums"] = 1
@@ -6410,6 +6589,7 @@ def main() -> None:
                              f"{st['launches']} (cold), {st['warm_launches']} (warm)")
         st["card"] = card
         print("sort_path_aggregate: " + json.dumps(st))
+    lap("sort-path aggregates")
     torch.cuda.empty_cache()
 
     full = full_groupby(device, ROWS, GROUPS, DISTINCT_VALUES, SEED, WARM_RUNS, split_cold=True)
@@ -6422,6 +6602,7 @@ def main() -> None:
                              f"{st['launches']} (cold), {st['warm_launches']} (warm)")
         st["card"] = card
         print("full_groupby: " + json.dumps(st))
+    lap("full group-by")
     torch.cuda.empty_cache()
 
     from fugue_tpu_torch.kernels.expr_program import expr_program_cuda
@@ -6432,6 +6613,7 @@ def main() -> None:
     for st in k6_paths:
         st["card"] = card
         print("k6_path: " + json.dumps(st))
+    lap("K6 paths")
     torch.cuda.empty_cache()
 
     join_paths = [join_3b(device, rows, WARM_RUNS) for rows in (JOIN3B_ROWS, ROWS)]
@@ -6444,22 +6626,26 @@ def main() -> None:
     for st in join_paths:
         st["card"] = card
         print("join_path: " + json.dumps(st))
+    lap("join paths")
     torch.cuda.empty_cache()
 
     str_paths = string_paths(device, ROWS, WARM_RUNS, config1_rows=(CONFIG1_ROWS, ROWS))
     for st in str_paths:
         st["card"] = card
         print("string_path: " + json.dumps(st))
+    lap("string paths")
     torch.cuda.empty_cache()
 
     rel_paths = relational_paths(device, ROWS, WARM_RUNS)
     for st in rel_paths:
         st["card"] = card
         print("relational_path: " + json.dumps(st))
+    lap("relational paths")
     torch.cuda.empty_cache()
 
     sql = {st["case"]: st for st in sql_paths(device, ROWS, NOT_IN_ROWS, WARM_RUNS)}
     print(f"sql_paths: {len(sql)} statements through raw_sql on {card}")
+    lap("SQL statements")
     torch.cuda.empty_cache()
 
     zips = {st["case"]: st for st in zip_paths(device, (CONFIG4_GROUPS, CONFIG4_BIG_GROUPS),
@@ -6471,6 +6657,7 @@ def main() -> None:
     streamed = stream_path(device, STREAM_CHUNKS, STREAM_CHUNK_ROWS, WARM_RUNS)
     streamed["card"] = card
     print("stream_path: " + json.dumps(streamed))
+    lap("zip paths, streaming")
     torch.cuda.empty_cache()
 
     stand_ins = stand_in_timing(device)
@@ -6532,7 +6719,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     distinct_mask_timing(device)
     torch.cuda.empty_cache()
+    order_scatter_timing(device, ROWS)
     k3_routes(device, ROWS)
+    lap("timing")
     for entry in entries:
         times = [entry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")
                  if entry[k] is not None]

@@ -50,8 +50,13 @@
 // than 64 bits and of group counts above the lookup's reach, read the
 // sort's int64 order (8 bytes a row); K2 gathers each key code at order[i]
 // and order[i - 1] (random reads: the sort left the codes in row order),
-// writes one flag byte a row, then scans the flags; K3 scatters one id a
-// row to row order (random writes). Neither is tuned.
+// writes one flag byte a row, then scans the flags (not tuned). K3 stores
+// one id a row through the order, which was a random 4-byte store a row
+// (7.45 ms at 100M rows on an H100 80GB HBM3 at 700 W against a 0.478 ms
+// bound); it now goes through order_scatter.cuh: the positions, read
+// coalesced, are grouped by slab of rows into scratch buckets (8 B a row
+// written and read back), and each slab's ids are placed in shared memory
+// and written once with 16-byte stores, about 32 B a row in all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,6 +65,7 @@
 
 #include "bin_keys.cuh"
 #include "launch.cuh"
+#include "order_scatter.cuh"
 
 namespace {
 
@@ -288,27 +294,44 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- K3: sort finish -----------------------------------------------------
 
+// One block of kFinishThreads takes kFinishItems positions a thread a tile.
+constexpr int kFinishThreads = 512;
+constexpr int kFinishItems = 16;
+constexpr long long kFinishTile = (long long)kFinishThreads * kFinishItems;
+
 struct FinishParams {
   long long n;
   const int* seg_sorted;
   const long long* order;
   int num;
-  int* seg;        // int32[n] in row order, num where the row is not real
   int* first_idx;  // int32[num]
 };
 
-// In sorted order a group's first position is the one that opens it, so
-// first_idx[seg_sorted[i]] = order[i] where position i opens a group:
-// the same value as the JAX package's segment_min over positions, with no
-// reduction.
-__global__ void __launch_bounds__(kThreads)
-    sort_finish(const __grid_constant__ FinishParams p) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < p.n; i += stride) {
-    const int s = __ldg(p.seg_sorted + i);
-    const long long row = __ldg(p.order + i);
-    p.seg[row] = s < 0 ? p.num : s;
-    if (s >= 0 && (i == 0 || __ldg(p.seg_sorted + i - 1) != s)) p.first_idx[s] = (int)row;
+// Step 1 of the store through the order (order_scatter.cuh), a persistent
+// wave over tiles: position i, read coalesced, gives row order[i] the id
+// seg_sorted[i] (num where it is not real). In sorted order a group's
+// first position is the one that opens it, so first_idx[seg_sorted[i]] =
+// order[i] where position i opens a group: the same value as the JAX
+// package's segment_min over positions, with no reduction; those stores
+// run in nondecreasing id.
+__global__ void __launch_bounds__(kFinishThreads, 2)
+    sort_finish_partition(const FinishParams p, const SlabOut so) {
+  extern __shared__ uint4 finish_smem[];
+  for (long long t0 = (long long)blockIdx.x * kFinishTile; t0 < p.n;
+       t0 += (long long)gridDim.x * kFinishTile) {
+    scatter_tile<kFinishThreads, kFinishItems, unsigned>(
+        so,
+        [&](int k, unsigned& value, bool& valid) -> int {
+          const long long i = t0 + (long long)k * kFinishThreads + threadIdx.x;
+          if (i >= p.n) return -1;
+          const int s = __ldg(p.seg_sorted + i);
+          const long long row = __ldg(p.order + i);
+          if (s >= 0 && (i == 0 || __ldg(p.seg_sorted + i - 1) != s)) p.first_idx[s] = (int)row;
+          value = (unsigned)(s < 0 ? p.num : s);
+          valid = true;
+          return (int)row;
+        },
+        reinterpret_cast<unsigned char*>(finish_smem));
   }
 }
 
@@ -848,24 +871,45 @@ extern "C" int fugue_sort_boundaries(
   });
 }
 
-// K3. seg_sorted as K2 writes it, order as K2 reads it, num the group
-// count. Writes seg int32[n] and first_idx int32[num].
-extern "C" int fugue_sort_finish(long long n, const void* seg_sorted,
-                                 const void* order, int num, void* seg,
-                                 void* first_idx, int device, void* stream) {
-  if (n < 1 || n >= (1LL << 31) || num < 0) return (int)cudaErrorInvalidValue;
-  FinishParams p = {n, static_cast<const int*>(seg_sorted),
-                    static_cast<const long long*>(order), num,
-                    static_cast<int*>(seg), static_cast<int*>(first_idx)};
+// K3. seg_sorted as K2 writes it, order as K2 reads it (a permutation of
+// [0, n)), num the group count. Writes seg int32[n] (16-byte aligned) and
+// first_idx int32[num] through the slabs of order_scatter.cuh; offs
+// uint32[n], vals uint32[n] and fill int32[ceil(n / 2^shift)] are scratch,
+// shift = fugue_sort_finish_shift(). fill keeps each bucket's count.
+extern "C" int fugue_sort_finish(long long n, const void* seg_sorted, const void* order, int num,
+                                 void* seg, void* first_idx, void* offs, void* vals, void* fill,
+                                 int device, void* stream) {
+  if (n < 1 || n >= (1LL << 31) || num < 0 || reinterpret_cast<uintptr_t>(seg) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int shift = slab_shift(4);
+  const long long nslabs = slab_count(n, shift);
+  const FinishParams p = {n, static_cast<const int*>(seg_sorted),
+                          static_cast<const long long*>(order), num, static_cast<int*>(first_idx)};
+  const SlabOut so = {n, shift, (int)nslabs, static_cast<unsigned*>(offs), vals,
+                      static_cast<int*>(fill)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() -> cudaError_t {
-    int sms = 0;
-    cudaError_t err = sm_count(device, &sms);
+    cudaError_t err = cudaMemsetAsync(fill, 0, (size_t)nslabs * sizeof(int), st);
     if (err != cudaSuccess) return err;
-    sort_finish<<<grid_for(n, kThreads, sms, kMaxBlocksPerSm), kThreads, 0, st>>>(p);
-    return cudaGetLastError();
+    const int smem = scatter_smem<kFinishThreads, kFinishItems, unsigned>((int)nslabs);
+    err = allow_smem<sort_finish_partition>(device, smem);
+    int sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = sm_count(device, &sms);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, reinterpret_cast<const void*>(sort_finish_partition), kFinishThreads, smem);
+    if (err != cudaSuccess) return err;
+    const int grid = grid_for(n, (int)kFinishTile, sms, per_sm > 0 ? per_sm : 1);
+    sort_finish_partition<<<grid, kFinishThreads, smem, st>>>(p, so);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const ImageParams ip = {n, shift, (int)nslabs, so.offs, vals, so.fill, seg, nullptr};
+    return build_image<unsigned, false>(ip, device, st);
   });
 }
+
+// log2 of K3's slab rows.
+extern "C" int fugue_sort_finish_shift() { return slab_shift(4); }
 
 // KW, in its factorize mode and its presort mode (K11). Keys: nkeys
 // columns of n rows, key_data[k] of dtype code key_code[k] (bin_keys.cuh)

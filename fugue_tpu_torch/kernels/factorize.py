@@ -15,8 +15,8 @@ PyTorch's current stream.
   of each row's word among the groups' words;
 - ``sort_boundaries_cuda`` (K2): sorted segment ids and the group count
   from the sort codes of a key too wide for one word and the sort's order;
-- ``sort_finish_cuda`` (K3): segment ids in row order (a scatter) and the
-  first row of each group.
+- ``sort_finish_cuda`` (K3): segment ids in row order (stored through the
+  order by slab, ``order_scatter.cuh``) and the first row of each group.
 
 Each has the contract of its twin in ``reference.py``. Each wrapper's
 ``launches`` grows by one where it launches its kernel and nowhere else;
@@ -80,7 +80,12 @@ def _bind() -> ctypes.CDLL:
             p, p, p, p,  # flags, block_sums, seg_sorted, count
             i, p,  # device, stream
         ]
-        lib.fugue_sort_finish.argtypes = [ll, p, p, i, p, p, i, p]
+        lib.fugue_sort_finish.argtypes = [
+            ll, p, p, i, p, p,  # n, seg_sorted, order, num, seg, first_idx
+            p, p, p, i, p,  # offs, vals, fill, device, stream
+        ]
+        lib.fugue_sort_finish_shift.argtypes = []
+        lib.fugue_sort_finish_shift.restype = i
         lib.fugue_sort_word.argtypes = [
             ll, ll, p, i,  # n, nrows, row_valid, unreal
             i, pp, pp, ip,  # nkeys, key data, masks, codes
@@ -258,7 +263,10 @@ def sort_finish_cuda(
     seg_sorted: torch.Tensor, order: torch.Tensor, num: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3, with the contract of ``reference.sort_finish_reference``:
-    ``(seg int32[n], first_idx int32[num])``."""
+    ``(seg int32[n], first_idx int32[num])``. ``order`` must be a
+    permutation of the rows. ``sort_finish_cuda.last_fill`` keeps each
+    slab's bucket count of its store through the order in the last launch
+    (int32, on the device) and ``.last_shift`` its slab's log2 rows."""
     _require_cuda(order, "sort_finish_cuda")
     device = order.device
     n = int(order.shape[0])
@@ -266,20 +274,30 @@ def sort_finish_cuda(
     _check(seg_sorted, "seg_sorted", (torch.int32,), n, device)
     if not 0 <= num <= n:
         raise ValueError(f"num {num} outside [0, {n}]")
-    seg = torch.empty((n,), dtype=torch.int32, device=device)
-    first_idx = torch.empty((num,), dtype=torch.int32, device=device)
     lib = _bind()
+    shift = lib.fugue_sort_finish_shift()
+    seg = torch.empty((n,), dtype=torch.int32, device=device)
+    _check_aligned16(seg, "seg")
+    first_idx = torch.empty((num,), dtype=torch.int32, device=device)
+    # the buckets' entries (offset, value) and each bucket's count
+    offs = torch.empty((n,), dtype=torch.int32, device=device)
+    vals = torch.empty((n,), dtype=torch.int32, device=device)
+    fill = torch.empty((-(-n >> shift),), dtype=torch.int32, device=device)
     index, stream = _device_and_stream(device)
     err = lib.fugue_sort_finish(
         n, seg_sorted.data_ptr(), order.data_ptr(), num, seg.data_ptr(),
-        first_idx.data_ptr() if num > 0 else None, index, stream,
+        first_idx.data_ptr() if num > 0 else None, offs.data_ptr(), vals.data_ptr(),
+        fill.data_ptr(), index, stream,
     )
     _raise_on(lib, err, "sort_finish")
     sort_finish_cuda.launches += 1
+    sort_finish_cuda.last_fill, sort_finish_cuda.last_shift = fill, shift
     return seg, first_idx
 
 
 sort_finish_cuda.launches = 0  # type: ignore[attr-defined]
+sort_finish_cuda.last_fill = None  # type: ignore[attr-defined]
+sort_finish_cuda.last_shift = 0  # type: ignore[attr-defined]
 
 
 def _check_aligned16(t: torch.Tensor, name: str) -> None:

@@ -19,22 +19,26 @@
 // words. A position starts a partition where word 0's bits above
 // part_shift change, and a peer group where any word changes: the words
 // hold every key with its nulls neutralised, as the JAX program compares
-// adjacent sorted codes (:1580-1590). Each output is written straight into
-// row order, out[order[j]], where the JAX program scatters (:1633-1641).
+// adjacent sorted codes (:1580-1590). The JAX program scatters each output
+// to row order (:1633-1641); K15 stores out[order[j]] directly, K16
+// through order_scatter.cuh's slabs.
 //
-// The positions of a partition and of a peer group are segmented scans
-// (the JAX program's cummax and reversed cummin). Each scan is three
-// launches: every block reduces its tile of kTile positions, one block
-// scans the tiles' aggregates into each tile's carry, and every block
-// scans its tile again from its carry and stores. A forward scan gives
-// each position its partition start ps, its peer group's start gs and the
-// peer heads up to it (cnt, dense_rank's and GROUPS' group ids); a reverse
-// scan the partition end pe and the peer group's end ge. K16 adds a
-// forward scan of the argument, reset at each partition start: its sum P
-// (int64 for integer arguments, float64 for the rest), the count C of its
-// valid values and, for a min/max whose frame starts at the partition
-// start, its running extremum M; it also stores the sorted argument sv/sm
-// that positional functions and loops read.
+// K15 (the next redesign) keeps three launches a scan: every block reduces
+// its tile of kTile positions, one block scans the tiles' aggregates into
+// each tile's carry, and every block scans its tile again from its carry
+// and stores. A forward scan gives each position its partition start ps,
+// its peer group's start gs and the peer heads up to it (cnt, dense_rank's
+// and GROUPS' group ids); a reverse scan the partition end pe and the peer
+// group's end ge; rank_final stores each rank through the order.
+//
+// K16 (redesigned): one single-pass launch a scan (decoupled look-back; see
+// its section). The forward scan reads the argument through the order
+// once, beside ps, gs and cnt: its sum P (int64 for integer arguments,
+// float64 for the rest), the count C of its valid values and, for a
+// min/max whose frame starts at the partition start, its running extremum
+// M, reset at each partition start, and the sorted argument sv/sm that
+// positional functions, loops and the table read. Each result is computed
+// in sorted order and stored through the order by slab: no random store.
 //
 // Frames and their routes (the caller picks agg_route):
 //   - sums and counts: over [ps, hi] the prefix P[hi] itself; over a ROWS
@@ -49,18 +53,21 @@
 //     between stage 1 and stage 2), never ceil(log2 n) + 1 copies of the
 //     argument as the JAX program builds (:2024-2046).
 //
-// What bounds them on an H100: each position reads its order entry and
-// its words twice (their neighbours are in cache), the scans write 4 B an
-// array a position, and the final launch reads them and scatters its
-// output through the order, a random 8-16 B store a row. The argument is
-// read through the order, a random 8 B read a row. This first version is
-// simple and right; it keeps every per-position array in device memory.
+// What bounds them on an H100: K15 reads its order entry and words twice a
+// scan and stores each rank through the order, a random 8 B store a row.
+// K16's running sum moves about 29 B a row at the bound (order, word,
+// argument, result and mask); its floor in this design is the one random
+// 8 B read of the argument through the order. It reads the words twice
+// (once a scan), writes and reads back P and C (16 B), and moves 12 B a
+// row of bucket entries each way.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "launch.cuh"
+#include "order_scatter.cuh"
 
 // Every field is 8 bytes, in the order of window.py's ctypes Structure. It
 // lies outside the anonymous namespace: the C entry points take it.
@@ -114,6 +121,15 @@ struct WindowArgs {
   long long nlevels;
   void* out;              // int64 or float64 [rows]
   uint8_t* outm;          // bool [rows] or null
+  // K16's single-pass scans and its store through the order
+  int* state;             // int32: 2 tile counters, the forward and reverse tiles' flags,
+                          // each slab's bucket count; zeroed by the call
+  void* fwd_part;         // 2 x forward tiles: each tile's aggregate, then its inclusive prefix
+  void* rev_part;         // 2 x reverse tiles, likewise
+  long long fuse;         // 1: the reverse scan computes the results (running and ROWS frames
+                          // but the table route); 0: frame_final does
+  unsigned* slab_offs;    // [rows]: bucket entries' offsets
+  void* slab_vals;        // [rows]: their 8-byte results
 };
 
 namespace {
@@ -260,44 +276,6 @@ struct RevPos {
   }
 };
 
-template <class V>
-struct ValT {
-  int start;   // a partition starts in the range
-  V sum;       // the valid values' sum since the last start
-  long long count;
-  V ext;       // their extremum
-};
-
-// The argument in sorted order, its sum, count and extremum reset at each
-// partition start. Loaded, an element holds the value (0 where not valid)
-// and 1 or 0 as its count.
-template <class V>
-struct FwdVal {
-  typedef ValT<V> T;
-  __device__ static bool is_min(const Args& a) { return a.func == kMin; }
-  __device__ static T identity(const Args& a) { return {0, (V)0, 0, extreme_fill<V>(is_min(a))}; }
-  __device__ static T combine(const Args& a, const T& x, const T& y) {
-    if (y.start) return y;
-    return {x.start, x.sum + y.sum, x.count + y.count, pick(is_min(a), x.ext, y.ext)};
-  }
-  __device__ static T load(const Args& a, long long j) {
-    const bool ph = j == 0 || !same_part(a, j - 1, j);
-    const long long row = __ldg(a.order + j);
-    const V v = __ldg(static_cast<const V*>(a.values) + row);
-    const bool ok = (a.vmask == nullptr || __ldg(a.vmask + row) != 0) && !is_nan(v);
-    return {ph ? 1 : 0, ok ? v : (V)0, ok ? 1 : 0, ok ? v : extreme_fill<V>(is_min(a))};
-  }
-  __device__ static void store(const Args& a, long long j, const T& e, const T& v) {
-    if (a.P != nullptr) static_cast<V*>(a.P)[j] = v.sum;
-    if (a.C != nullptr) a.C[j] = v.count;
-    if (a.M != nullptr) static_cast<V*>(a.M)[j] = v.ext;
-    if (a.sv != nullptr) {
-      static_cast<V*>(a.sv)[j] = e.sum;
-      a.sm[j] = e.count != 0;
-    }
-  }
-};
-
 // The inclusive scan of each thread's value in thread order; sh holds
 // every thread's on return.
 template <class Op>
@@ -427,6 +405,453 @@ __global__ void __launch_bounds__(kThreads) rank_final(const Args a) {
 }
 
 // ---- K16 ----------------------------------------------------------------
+//
+// Two single-pass scans (decoupled look-back), then the store through the
+// order by slab (order_scatter.cuh):
+//   A. frame_forward, over tiles of kFwdTile positions: each position's
+//      partition start ps, peer group start gs and peer heads cnt, and the
+//      argument read through the order once (its only read), with its sum
+//      P, valid count C and extremum M reset at each partition start; it
+//      writes only the arrays a later pass reads (the running sum: P, C).
+//   B. frame_reverse, over tiles of kRevTile positions from the end: the
+//      partition end pe and the peer group end ge. Where every input of a
+//      position's result is at hand (running and ROWS frames, but the
+//      table route's min/max), it computes the result in sorted order and
+//      hands (order[j], value, valid) to step 1 of the slab store (fuse);
+//      else it writes pe and ge, and frame_final (after the table's levels
+//      for the table route) computes the results and hands them over.
+//   build_image (order_scatter.cuh): each slab of the output and its mask
+//      written once.
+// A tile takes its id from a counter in launch order, so it waits only on
+// tiles already running; it publishes its aggregate (flag 1), then, from
+// the tiles before it (warp 0 looks back 32 tiles at a time), its
+// inclusive prefix (flag 2).
+
+constexpr int kFwdThreads = 256, kFwdItems = 8;
+constexpr long long kFwdTile = (long long)kFwdThreads * kFwdItems;
+constexpr int kRevThreads = 512, kRevItems = 16;
+constexpr long long kRevTile = (long long)kRevThreads * kRevItems;
+constexpr int kAggregate = 1, kInclusive = 2;  // a tile's published flags
+
+// The forward scan's element; without kPos (no position array is read
+// back) it drops the partition and peer group fields.
+template <class V, bool kPos>
+struct FwdT;
+template <class V>
+struct FwdT<V, true> {
+  int ps, gs, cnt;
+  int start;       // a partition starts in the range
+  V sum;           // the valid values' sum since the last start
+  long long count;
+  V ext;           // their extremum
+};
+template <class V>
+struct FwdT<V, false> {
+  int start, pad;
+  V sum;
+  long long count;
+  V ext;
+};
+
+template <class V, bool kPos>
+struct FwdOp {
+  typedef FwdT<V, kPos> T;
+  bool is_min;
+  __device__ T identity() const {
+    T r;
+    if constexpr (kPos) {
+      r.ps = r.gs = -1;
+      r.cnt = 0;
+    } else {
+      r.pad = 0;
+    }
+    r.start = 0;
+    r.sum = (V)0;
+    r.count = 0;
+    r.ext = extreme_fill<V>(is_min);
+    return r;
+  }
+  __device__ T operator()(const T& x, const T& y) const {
+    T r;
+    if constexpr (kPos) {
+      r.ps = x.ps > y.ps ? x.ps : y.ps;
+      r.gs = x.gs > y.gs ? x.gs : y.gs;
+      r.cnt = x.cnt + y.cnt;
+    } else {
+      r.pad = 0;
+    }
+    if (y.start) {
+      r.start = 1;
+      r.sum = y.sum;
+      r.count = y.count;
+      r.ext = y.ext;
+    } else {
+      r.start = x.start;
+      r.sum = x.sum + y.sum;
+      r.count = x.count + y.count;
+      r.ext = pick(is_min, x.ext, y.ext);
+    }
+    return r;
+  }
+};
+
+struct RevOp {
+  typedef EndT T;
+  __device__ T identity() const { return {kBig, kBig}; }
+  __device__ T operator()(const T& x, const T& y) const {
+    return {x.pe < y.pe ? x.pe : y.pe, x.ge < y.ge ? x.ge : y.ge};
+  }
+};
+
+template <class T>
+__device__ __forceinline__ T shfl_down_t(const T& v, int d) {
+  static_assert(sizeof(T) % 4 == 0, "a scan element is whole 32-bit words");
+  unsigned w[sizeof(T) / 4];
+  memcpy(w, &v, sizeof(T));
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 4); ++i) w[i] = __shfl_down_sync(0xffffffffu, w[i], d);
+  T out;
+  memcpy(&out, w, sizeof(T));
+  return out;
+}
+
+template <class T>
+__device__ __forceinline__ T shfl_t(const T& v, int lane) {
+  unsigned w[sizeof(T) / 4];
+  memcpy(w, &v, sizeof(T));
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 4); ++i) w[i] = __shfl_sync(0xffffffffu, w[i], lane);
+  T out;
+  memcpy(&out, w, sizeof(T));
+  return out;
+}
+
+// A published element, read from L2 (another SM wrote it).
+template <class T>
+__device__ __forceinline__ T load_published(const T* p) {
+  unsigned w[sizeof(T) / 4];
+  const unsigned* src = reinterpret_cast<const unsigned*>(p);
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 4); ++i) w[i] = __ldcg(src + i);
+  T out;
+  memcpy(&out, w, sizeof(T));
+  return out;
+}
+
+// part holds each tile's aggregate, then (from ntiles on) its inclusive
+// prefix; flags[t] says which of them tile t has published.
+template <class T>
+__device__ __forceinline__ void publish(T* part, int* flags, long long ntiles, long long t,
+                                        const T& v, int flag) {
+  part[(flag == kInclusive ? ntiles : 0) + t] = v;
+  __threadfence();
+  atomicExch(flags + t, flag);
+}
+
+// Warp 0 of tile t's block: the combination of every tile before t, from
+// the published aggregates back to the nearest inclusive prefix.
+template <class Op>
+__device__ typename Op::T look_back(const Op& op, const typename Op::T* part, int* flags,
+                                    long long ntiles, long long t) {
+  typedef typename Op::T T;
+  const int lane = threadIdx.x & 31;
+  T excl = op.identity();
+  for (long long end = t;; end -= 32) {
+    const long long u = end - 1 - lane;  // lane 0 the latest tile of the window
+    int f = kInclusive;
+    T v = op.identity();
+    if (u >= 0) {
+      const volatile int* fp = flags + u;
+      while ((f = *fp) == 0) {
+      }
+      __threadfence();
+      v = load_published(part + (f == kInclusive ? ntiles : 0) + u);
+    }
+    const unsigned inclusive = __ballot_sync(0xffffffffu, f == kInclusive);
+    const int stop = inclusive != 0 ? __ffs(inclusive) - 1 : 31;
+    if (lane > stop) v = op.identity();
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {  // earlier tiles (higher lanes) first
+      const T o = shfl_down_t(v, d);
+      if (lane + d < 32) v = op(o, v);
+    }
+    excl = op(shfl_t(v, 0), excl);
+    if (inclusive != 0) return excl;
+  }
+}
+
+template <class T>
+__device__ __forceinline__ T shfl_up_t(const T& v, int d) {
+  unsigned w[sizeof(T) / 4];
+  memcpy(w, &v, sizeof(T));
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 4); ++i) w[i] = __shfl_up_sync(0xffffffffu, w[i], d);
+  T out;
+  memcpy(&out, w, sizeof(T));
+  return out;
+}
+
+// The exclusive scan of each thread's value in thread order (the
+// identity for thread 0), by warp shuffles and one warp over the warps'
+// totals; *agg gets the block's total. warp_sh: Threads / 32 elements.
+template <int Threads, class Op>
+__device__ typename Op::T block_scan(const Op& op, const typename Op::T& v,
+                                     typename Op::T* warp_sh, typename Op::T* agg) {
+  typedef typename Op::T T;
+  constexpr int kWarps = Threads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T y = shfl_up_t(x, d);
+    if (lane >= d) x = op(y, x);
+  }
+  if (lane == 31) warp_sh[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    T w = lane < kWarps ? warp_sh[lane] : op.identity();
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const T y = shfl_up_t(w, d);
+      if (lane >= d) w = op(y, w);
+    }
+    if (lane < kWarps) warp_sh[lane] = w;
+  }
+  __syncthreads();
+  T before = shfl_up_t(x, 1);
+  if (lane == 0) before = op.identity();
+  if (warp > 0) before = op(warp_sh[warp - 1], before);
+  *agg = warp_sh[kWarps - 1];
+  return before;
+}
+
+// A tile's exclusive prefix from its aggregate: tile 0 publishes its
+// inclusive prefix at once, the others their aggregate, then look back and
+// publish the inclusive prefix. Every thread calls it.
+template <class Op>
+__device__ typename Op::T tile_prefix(const Op& op, const typename Op::T& agg,
+                                      typename Op::T* part, int* flags, long long ntiles,
+                                      long long tile, typename Op::T* excl_sh) {
+  typedef typename Op::T T;
+  if (threadIdx.x < 32) {
+    T excl = op.identity();
+    if (tile == 0) {
+      if (threadIdx.x == 0) publish(part, flags, ntiles, 0, agg, kInclusive);
+    } else {
+      if (threadIdx.x == 0) publish(part, flags, ntiles, tile, agg, kAggregate);
+      excl = look_back(op, part, flags, ntiles, tile);
+      if (threadIdx.x == 0) publish(part, flags, ntiles, tile, op(excl, agg), kInclusive);
+    }
+    if (threadIdx.x == 0) *excl_sh = excl;
+  }
+  __syncthreads();
+  return *excl_sh;
+}
+
+// The scratch counts of a call: the forward and reverse tiles and slabs.
+struct FrameLayout {
+  long long fwd_tiles, rev_tiles;
+  int shift, nslabs;
+};
+
+__host__ __device__ inline FrameLayout frame_layout(const Args& a) {
+  const int shift = slab_shift(8);
+  return {(a.n + kFwdTile - 1) / kFwdTile, (a.n + kRevTile - 1) / kRevTile, shift,
+          (int)slab_count(a.n, shift)};
+}
+
+__device__ __forceinline__ SlabOut slab_out(const Args& a, const FrameLayout& l) {
+  return {a.n, l.shift, l.nslabs, a.slab_offs, a.slab_vals,
+          a.state + 2 + l.fwd_tiles + l.rev_tiles};
+}
+
+// The inclusive scan of e across the warp's lanes.
+template <class Op>
+__device__ __forceinline__ typename Op::T warp_scan(const Op& op, typename Op::T e) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const typename Op::T y = shfl_up_t(e, d);
+    if (lane >= d) e = op(y, e);
+  }
+  return e;
+}
+
+// The prefix of every position before warp w's chunk of a warp-striped
+// tile (kWarps chunks of 32 * items positions, item k of lane l at
+// 32 k + l of its warp's chunk), from each warp's total: the warps'
+// totals scanned by warp 0, and the tile's look-back. Every thread calls
+// it.
+template <int kWarps, class Op>
+__device__ typename Op::T chunk_prefix(const Op& op, const typename Op::T& total,
+                                       typename Op::T* warp_sh, typename Op::T* excl_sh,
+                                       typename Op::T* part, int* flags, long long ntiles,
+                                       long long tile) {
+  typedef typename Op::T T;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sh[warp] = total;
+  __syncthreads();
+  if (warp == 0) {
+    T w = lane < kWarps ? warp_sh[lane] : op.identity();
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const T y = shfl_up_t(w, d);
+      if (lane >= d) w = op(y, w);
+    }
+    if (lane < kWarps) warp_sh[lane] = w;
+  }
+  __syncthreads();
+  T before = tile_prefix(op, warp_sh[kWarps - 1], part, flags, ntiles, tile, excl_sh);
+  if (warp > 0) before = op(before, warp_sh[warp - 1]);
+  return before;
+}
+
+__device__ __forceinline__ unsigned long long bits_of(long long v) {
+  return (unsigned long long)v;
+}
+__device__ __forceinline__ unsigned long long bits_of(double v) {
+  return (unsigned long long)__double_as_longlong(v);
+}
+template <class V>
+__device__ __forceinline__ V from_bits(unsigned long long b);
+template <>
+__device__ __forceinline__ long long from_bits<long long>(unsigned long long b) {
+  return (long long)b;
+}
+template <>
+__device__ __forceinline__ double from_bits<double>(unsigned long long b) {
+  return __longlong_as_double((long long)b);
+}
+
+// The forward scan over tiles of kFwdTile positions, kFwdItems consecutive
+// positions a thread (a blocked scan: one combine an item). Its per-position
+// outputs go out coalesced, one array a round through a shared-memory
+// transpose (a thread's row padded by one entry, off the banks' stride).
+template <class V, bool kPos>
+__global__ void __launch_bounds__(kFwdThreads) frame_forward(const Args a) {
+  typedef FwdT<V, kPos> T;
+  constexpr int kRow = kFwdItems + 1;
+  __shared__ T warp_sh[kFwdThreads / 32];
+  __shared__ T excl_sh;
+  __shared__ long long tile_sh;
+  __shared__ unsigned long long stage[kFwdThreads * kRow];
+  const FwdOp<V, kPos> op{a.func == kMin};
+  const FrameLayout l = frame_layout(a);
+  if (threadIdx.x == 0) tile_sh = atomicAdd(a.state, 1);
+  __syncthreads();
+  const long long tile = tile_sh;
+  const long long t0 = tile * kFwdTile;
+  const long long base = t0 + (long long)threadIdx.x * kFwdItems;
+  // each position's heads and value, read once; the argument through the order
+  V val[kFwdItems];
+  unsigned flag[kFwdItems];  // 1: partition head, 2: peer head, 4: a valid value
+  T acc = op.identity();
+#pragma unroll
+  for (int k = 0; k < kFwdItems; ++k) {
+    const long long j = base + k;
+    flag[k] = 0;
+    val[k] = (V)0;
+    if (j >= a.n) continue;
+    const bool ph = j == 0 || !same_part(a, j - 1, j);
+    const bool gh = kPos && (ph || !same_words(a, j - 1, j));
+    bool ok = false;
+    if (a.values != nullptr) {
+      const long long row = __ldg(a.order + j);
+      const V v = __ldg(static_cast<const V*>(a.values) + row);
+      ok = (a.vmask == nullptr || __ldg(a.vmask + row) != 0) && !is_nan(v);
+      val[k] = ok ? v : (V)0;
+    }
+    flag[k] = (ph ? 1u : 0u) | (gh ? 2u : 0u) | (ok ? 4u : 0u);
+  }
+  auto element = [&](long long j, int k) -> T {
+    const bool ph = flag[k] & 1u, ok = flag[k] & 4u;
+    T e;
+    if constexpr (kPos) {
+      const bool gh = flag[k] & 2u;
+      e.ps = ph ? (int)j : -1;
+      e.gs = gh ? (int)j : -1;
+      e.cnt = gh ? 1 : 0;
+    } else {
+      e.pad = 0;
+    }
+    e.start = ph ? 1 : 0;
+    e.sum = val[k];
+    e.count = ok ? 1 : 0;
+    e.ext = ok ? val[k] : extreme_fill<V>(op.is_min);
+    return e;
+  };
+#pragma unroll
+  for (int k = 0; k < kFwdItems; ++k) {
+    if (base + k < a.n) acc = op(acc, element(base + k, k));
+  }
+  T agg;
+  const T before = block_scan<kFwdThreads>(op, acc, warp_sh, &agg);
+  const T start = op(tile_prefix(op, agg, static_cast<T*>(a.fwd_part), a.state + 2,
+                                 l.fwd_tiles, tile, &excl_sh),
+                     before);
+  // one output array: field(e, v) of each position (its element and its
+  // inclusive prefix) staged by thread, then put(j, bits) coalesced
+  auto emit = [&](auto field, auto put) {
+    T run = start;
+#pragma unroll
+    for (int k = 0; k < kFwdItems; ++k) {
+      if (base + k >= a.n) break;
+      const T e = element(base + k, k);
+      run = op(run, e);
+      stage[threadIdx.x * kRow + k] = field(e, run);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kFwdItems; ++k) {
+      const int idx = k * kFwdThreads + threadIdx.x;
+      if (t0 + idx < a.n) put(t0 + idx, stage[(idx / kFwdItems) * kRow + idx % kFwdItems]);
+    }
+    __syncthreads();
+  };
+  if constexpr (kPos) {
+    if (a.ps != nullptr)
+      emit([](const T&, const T& v) { return (unsigned long long)v.ps; },
+           [&](long long j, unsigned long long b) { a.ps[j] = (int)b; });
+    if (a.gs != nullptr)
+      emit([](const T&, const T& v) { return (unsigned long long)v.gs; },
+           [&](long long j, unsigned long long b) { a.gs[j] = (int)b; });
+    if (a.cnt != nullptr)
+      emit([](const T& e, const T& v) { return (unsigned long long)v.cnt | (e.gs >= 0 ? 1ULL << 32 : 0); },
+           [&](long long j, unsigned long long b) {
+             a.cnt[j] = (int)(b & 0xFFFFFFFFu);
+             if (a.gstart != nullptr && (b >> 32)) a.gstart[(int)(b & 0xFFFFFFFFu) - 1] = (int)j;
+           });
+    if (a.skv != nullptr) {  // RANGE's key, read through the order
+#pragma unroll
+      for (int k = 0; k < kFwdItems; ++k) {
+        const long long j = t0 + k * kFwdThreads + threadIdx.x;
+        if (j >= a.n) break;
+        const long long row = __ldg(a.order + j);
+        const double kv = __ldg(a.key + row);
+        const bool null = (a.kmask != nullptr && __ldg(a.kmask + row) == 0) || isnan(kv);
+        a.skv[j] = null ? 0.0 : (a.key_desc ? -kv : kv);
+        a.snull[j] = null;
+      }
+    }
+  }
+  if (a.P != nullptr)
+    emit([](const T&, const T& v) { return bits_of(v.sum); },
+         [&](long long j, unsigned long long b) { static_cast<V*>(a.P)[j] = from_bits<V>(b); });
+  if (a.C != nullptr)
+    emit([](const T&, const T& v) { return (unsigned long long)v.count; },
+         [&](long long j, unsigned long long b) { a.C[j] = (long long)b; });
+  if (a.M != nullptr)
+    emit([](const T&, const T& v) { return bits_of(v.ext); },
+         [&](long long j, unsigned long long b) { static_cast<V*>(a.M)[j] = from_bits<V>(b); });
+  if (a.sv != nullptr)
+    emit([](const T& e, const T&) { return bits_of(e.sum) ; },
+         [&](long long j, unsigned long long b) {
+           static_cast<V*>(a.sv)[j] = from_bits<V>(b);
+         });
+  if (a.sm != nullptr)
+    emit([](const T& e, const T&) { return (unsigned long long)(e.count != 0); },
+         [&](long long j, unsigned long long b) { a.sm[j] = (uint8_t)b; });
+}
 
 // The first position k in [lo, hi) with skv[k] >= t (upper: > t).
 __device__ long long search(const double* skv, long long lo, long long hi, double t, bool upper) {
@@ -442,58 +867,71 @@ __device__ long long search(const double* skv, long long lo, long long hi, doubl
   return lo;
 }
 
+// A position's partition and peer group bounds, from registers or arrays
+// (gs and ge only where a GROUPS or RANGE bound reads them).
+struct Pos {
+  long long ps, pe, gs, ge;
+};
+
 // One bound of position j's frame (is_start: its first position, else its
-// last), before the clamp to the partition.
-__device__ long long frame_bound(const Args& a, long long j, bool is_start) {
+// last), before the clamp to the partition. kOwn: a running or ROWS frame,
+// whose bounds are the position's own (the fused reverse pass).
+template <bool kOwn>
+__device__ __forceinline__ long long frame_bound(const Args& a, long long j, const Pos& q,
+                                                 bool is_start) {
   const int kind = (int)(is_start ? a.lo_kind : a.hi_kind);
   const double nv = is_start ? a.lo_n : a.hi_n;
-  const long long ps = a.ps[j], pe = a.pe[j];
-  if (kind == kUp) return ps;
-  if (kind == kUf) return pe;
+  if (kind == kUp) return q.ps;
+  if (kind == kUf) return q.pe;
   if (a.unit == kRows) {
     if (kind == kCur) return j;
     return kind == kFol ? j + (long long)nv : j - (long long)nv;
   }
-  if (kind == kCur) return is_start ? a.gs[j] : a.ge[j];
+  if constexpr (kOwn) return j;  // not reached: the fused frames are running or ROWS
+  if (kind == kCur) return is_start ? q.gs : q.ge;
   if (a.unit == kGroups) {
     const long long g = (long long)a.cnt[j] - 1;
     const long long tg = kind == kFol ? g + (long long)nv : g - (long long)nv;
-    const long long first = (long long)a.cnt[ps] - 1, last = (long long)a.cnt[pe] - 1;
+    const long long first = (long long)a.cnt[q.ps] - 1, last = (long long)a.cnt[q.pe] - 1;
     if (is_start) {
-      if (tg < first) return ps;
-      if (tg > last) return pe + 1;
+      if (tg < first) return q.ps;
+      if (tg > last) return q.pe + 1;
       return a.gstart[tg];
     }
-    if (tg > last) return pe;
-    if (tg < first) return ps - 1;
+    if (tg > last) return q.pe;
+    if (tg < first) return q.ps - 1;
     return a.gend[tg];
   }
   // RANGE by the one key's value: a null key's bound is its peer group's
-  if (a.snull[j]) return is_start ? a.gs[j] : a.ge[j];
+  if (a.snull[j]) return is_start ? q.gs : q.ge;
   const double t = a.skv[j] + (kind == kFol ? nv : -nv);
   // the partition's non-null span: nulls are one peer group at one end
-  const long long s0 = a.snull[ps] ? (long long)a.ge[ps] + 1 : ps;
-  const long long s1 = a.snull[pe] ? (long long)a.gs[pe] - 1 : pe;
+  const long long s0 = a.snull[q.ps] ? (long long)a.ge[q.ps] + 1 : q.ps;
+  const long long s1 = a.snull[q.pe] ? (long long)a.gs[q.pe] - 1 : q.pe;
   if (is_start) return search(a.skv, s0, s1 + 1, t, false);
   return search(a.skv, s0, s1 + 1, t, true) - 1;
 }
 
-__device__ __forceinline__ void frame_of(const Args& a, long long j, long long* lo,
+template <bool kOwn>
+__device__ __forceinline__ void frame_of(const Args& a, long long j, const Pos& q, long long* lo,
                                          long long* hi) {
   if (!is_real(a, j)) {  // a row that is not real: an empty frame, so that
     *lo = j + 1;         // no table level is sized by it
     *hi = j;
     return;
   }
-  const long long ps = a.ps[j], pe = a.pe[j];
   if (a.unit == kRunning) {  // peers share their group's last row
-    *lo = ps;
-    *hi = a.ge[j];
+    *lo = q.ps;
+    *hi = q.ge;
     return;
   }
-  const long long s = frame_bound(a, j, true), e = frame_bound(a, j, false);
-  *lo = s > ps ? s : ps;
-  *hi = e < pe ? e : pe;
+  const long long s = frame_bound<kOwn>(a, j, q, true), e = frame_bound<kOwn>(a, j, q, false);
+  *lo = s > q.ps ? s : q.ps;
+  *hi = e < q.pe ? e : q.pe;
+}
+
+__device__ __forceinline__ Pos pos_of(const Args& a, long long j) {
+  return {a.ps[j], a.pe[j], a.gs[j], a.ge[j]};
 }
 
 // The table route's first stage: every position's frame, and the longest.
@@ -502,7 +940,7 @@ __global__ void __launch_bounds__(kThreads) frame_bounds(const Args a) {
   int longest = 0;
   for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < a.n; j += stride) {
     long long lo, hi;
-    frame_of(a, j, &lo, &hi);
+    frame_of<false>(a, j, pos_of(a, j), &lo, &hi);
     a.lo[j] = (int)lo;
     a.hi[j] = (int)hi;
     const long long len = hi - lo + 1;
@@ -529,88 +967,216 @@ __global__ void __launch_bounds__(kThreads) table_level(const Args a) {
   }
 }
 
-template <class V>
-__device__ __forceinline__ void put(const Args& a, long long row, V v, bool valid) {
-  static_cast<V*>(a.out)[row] = valid ? v : (V)0;
-  if (a.outm != nullptr) a.outm[row] = valid;
-}
-
-template <class V>
-__global__ void __launch_bounds__(kThreads) frame_final(const Args a) {
-  const long long stride = (long long)gridDim.x * kThreads;
+// Sorted position j's result, as the 8 bytes of its output (0 where not
+// valid), and whether it is valid (the output's mask). kFused: in the
+// reverse pass, where the frame is running or ROWS and no table is read.
+// kDivide: the function is avg, whose float64 division (a call to its slow
+// path) is compiled only into the kernels that take avg, so that the
+// others keep their registers.
+template <class V, bool kFused, bool kDivide>
+__device__ __forceinline__ bool frame_result(const Args& a, long long j, const Pos& q,
+                                             unsigned long long* bits) {
   const int fn = (int)a.func;
   const V* sv = static_cast<const V*>(a.sv);
-  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < a.n; j += stride) {
-    const long long row = __ldg(a.order + j);
-    const long long ps = a.ps[j], pe = a.pe[j];
-    if (fn == kLag || fn == kLead) {
-      const long long src = fn == kLag ? j - a.param : j + a.param;
-      const bool in = src >= ps && src <= pe;
-      if (in) {
-        put<V>(a, row, sv[src], a.sm[src] != 0);
-      } else {
-        const V d = a.is_float ? (V)a.default_f : (V)a.default_i;
-        put<V>(a, row, d, a.has_default != 0);
-      }
-      continue;
-    }
-    long long lo, hi;
-    if (a.stage == 2) {
-      lo = a.lo[j];
-      hi = a.hi[j];
+  if (fn == kLag || fn == kLead) {
+    const long long src = fn == kLag ? j - a.param : j + a.param;
+    V v;
+    bool valid;
+    if (src >= q.ps && src <= q.pe) {
+      v = sv[src];
+      valid = a.sm[src] != 0;
     } else {
-      frame_of(a, j, &lo, &hi);
+      v = a.is_float ? (V)a.default_f : (V)a.default_i;
+      valid = a.has_default != 0;
     }
-    const bool empty = lo > hi;
-    if (fn == kFirst || fn == kLast || fn == kNth) {
-      const long long at = fn == kFirst ? lo : (fn == kLast ? hi : lo + a.param - 1);
-      const bool bad = empty || at > hi;
-      put<V>(a, row, bad ? (V)0 : sv[at], !bad && a.sm[at] != 0);
-      continue;
-    }
-    if (fn == kCountStar) {
-      static_cast<long long*>(a.out)[row] = empty ? 0 : hi - lo + 1;
-      continue;
-    }
-    // count, sum, avg, min, max over the valid values of [lo, hi]
-    const bool is_min = fn == kMin;
-    long long count = 0;
-    V sum = 0, ext = extreme_fill<V>(is_min);
-    if (!empty) {
-      if (a.agg_route == kLoop) {
-        for (long long k = lo; k <= hi; ++k) {
-          if (!a.sm[k]) continue;
-          ++count;
-          sum += sv[k];
-          ext = pick(is_min, ext, sv[k]);
-        }
-      } else {
-        count = a.C[hi] - (lo > ps ? a.C[lo - 1] : 0);
-        if (fn == kSum || fn == kAvg) {
-          const V* P = static_cast<const V*>(a.P);
-          sum = lo > ps ? P[hi] - P[lo - 1] : P[hi];
-        } else if (fn == kMin || fn == kMax) {
-          if (a.agg_route == kPrefix) {
-            ext = static_cast<const V*>(a.M)[hi];
-          } else {
-            const long long len = hi - lo + 1;
-            int k = 0;
-            while ((2LL << k) <= len) ++k;
-            const V* lvl = static_cast<const V*>(a.levels) + (long long)k * a.n;
-            ext = pick(is_min, lvl[lo], lvl[hi - (1LL << k) + 1]);
-          }
+    *bits = bits_of(valid ? v : (V)0);
+    return valid;
+  }
+  long long lo, hi;
+  if (!kFused && a.stage == 2) {
+    lo = a.lo[j];
+    hi = a.hi[j];
+  } else {
+    frame_of<kFused>(a, j, q, &lo, &hi);
+  }
+  const bool empty = lo > hi;
+  if (fn == kFirst || fn == kLast || fn == kNth) {
+    const long long at = fn == kFirst ? lo : (fn == kLast ? hi : lo + a.param - 1);
+    const bool valid = !(empty || at > hi) && a.sm[at] != 0;
+    *bits = bits_of(valid ? sv[at] : (V)0);
+    return valid;
+  }
+  if (fn == kCountStar) {
+    *bits = (unsigned long long)(empty ? 0 : hi - lo + 1);
+    return true;
+  }
+  // count, sum, avg, min, max over the valid values of [lo, hi]
+  const bool is_min = fn == kMin;
+  long long count = 0;
+  V sum = 0, ext = extreme_fill<V>(is_min);
+  if (!empty) {
+    if (a.agg_route == kLoop) {
+      for (long long k = lo; k <= hi; ++k) {
+        if (!a.sm[k]) continue;
+        ++count;
+        sum += sv[k];
+        ext = pick(is_min, ext, sv[k]);
+      }
+    } else {
+      count = a.C[hi] - (lo > q.ps ? a.C[lo - 1] : 0);
+      if (fn == kSum || fn == kAvg) {
+        const V* P = static_cast<const V*>(a.P);
+        sum = lo > q.ps ? P[hi] - P[lo - 1] : P[hi];
+      } else if (fn == kMin || fn == kMax) {
+        if (kFused || a.agg_route == kPrefix) {
+          ext = static_cast<const V*>(a.M)[hi];
+        } else {
+          const long long len = hi - lo + 1;
+          int k = 0;
+          while ((2LL << k) <= len) ++k;
+          const V* lvl = static_cast<const V*>(a.levels) + (long long)k * a.n;
+          ext = pick(is_min, lvl[lo], lvl[hi - (1LL << k) + 1]);
         }
       }
-    }
-    if (fn == kCount) {
-      static_cast<long long*>(a.out)[row] = count;
-    } else if (fn == kAvg) {
-      static_cast<double*>(a.out)[row] = count > 0 ? (double)sum / (double)count : 0.0;
-      a.outm[row] = count > 0;
-    } else {
-      put<V>(a, row, fn == kSum ? sum : ext, count > 0);
     }
   }
+  if (fn == kCount) {
+    *bits = (unsigned long long)count;
+    return true;
+  }
+  if constexpr (kDivide) {
+    *bits = bits_of(count > 0 ? (double)sum / (double)count : 0.0);
+    return count > 0;
+  }
+  *bits = bits_of(count > 0 ? (fn == kSum ? sum : ext) : (V)0);
+  return count > 0;
+}
+
+// The results of a tile, computed in a rolled loop (one copy of
+// frame_result's code) into step 1's staging area, which is free until its
+// decisions are taken; step 1 then reads them from there.
+struct Results {
+  unsigned long long* bits;  // [kRevTile]
+  unsigned* rows;            // [kRevTile]: row | valid << 31, kNoRow where none
+};
+constexpr unsigned kNoRow = ~kValidBit;
+
+__device__ __forceinline__ Results results_in(uint4* smem) {
+  unsigned long long* bits = reinterpret_cast<unsigned long long*>(smem);
+  return {bits, reinterpret_cast<unsigned*>(bits + kRevTile)};
+}
+
+// Step 1 over a tile's results (any arrangement: item k of thread t reads
+// slot k * kRevThreads + t).
+__device__ __forceinline__ void scatter_results(const SlabOut& so, const Results& res,
+                                                uint4* smem) {
+  scatter_tile<kRevThreads, kRevItems, unsigned long long>(
+      so,
+      [&](int k, unsigned long long& v, bool& ok) -> int {
+        const int idx = k * kRevThreads + threadIdx.x;
+        const unsigned r = res.rows[idx];
+        if (r == kNoRow) return -1;
+        v = res.bits[idx];
+        ok = (r & kValidBit) != 0;
+        return (int)(r & ~kValidBit);
+      },
+      reinterpret_cast<unsigned char*>(smem));
+}
+
+// The reverse scan, warp-striped (see chunk_prefix; r = n - 1 - j). Where
+// fused, each position's result is computed as the second row-by-row scan
+// gives its ends, and the tile's results go to step 1.
+template <class V, bool kFuse, bool kDivide>
+__global__ void __launch_bounds__(kRevThreads, 2) frame_reverse(const Args a) {
+  typedef EndT T;
+  __shared__ T warp_sh[kRevThreads / 32];
+  __shared__ T excl_sh;
+  __shared__ long long tile_sh;
+  extern __shared__ uint4 reverse_smem[];  // step 1's, where fused
+  const RevOp op;
+  const FrameLayout l = frame_layout(a);
+  if (threadIdx.x == 0) tile_sh = atomicAdd(a.state + 1, 1);
+  __syncthreads();
+  const long long tile = tile_sh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = warp * 32 * kRevItems + lane;  // the lane's first slot in the tile
+  const long long chunk = tile * kRevTile + first;
+  // two bits an item: 1 a partition end, 2 a peer group end
+  unsigned ends = 0;
+#pragma unroll
+  for (int k = 0; k < kRevItems; ++k) {
+    const long long r = chunk + 32 * k;
+    if (r >= a.n) continue;
+    const long long j = a.n - 1 - r;
+    const bool pend = j == a.n - 1 || !same_part(a, j, j + 1);
+    const bool gend = pend || !same_words(a, j, j + 1);
+    ends |= ((pend ? 1u : 0u) | (gend ? 2u : 0u)) << (2 * k);
+  }
+  auto element = [&](long long r, int k) -> T {
+    if (r >= a.n) return op.identity();
+    const int j = (int)(a.n - 1 - r);
+    const unsigned h = ends >> (2 * k);
+    return {h & 1u ? j : kBig, h & 2u ? j : kBig};
+  };
+  T total = op.identity();
+#pragma unroll
+  for (int k = 0; k < kRevItems; ++k)
+    total = op(total, shfl_t(warp_scan(op, element(chunk + 32 * k, k)), 31));
+  T run = chunk_prefix<kRevThreads / 32>(op, total, warp_sh, &excl_sh,
+                                         static_cast<T*>(a.rev_part), a.state + 2 + l.fwd_tiles,
+                                         l.rev_tiles, tile);
+  const Results res = results_in(reverse_smem);
+#pragma unroll 1
+  for (int k = 0; k < kRevItems; ++k) {
+    const long long r = chunk + 32 * k;
+    const T x = warp_scan(op, element(r, k));
+    const T v = op(run, x);
+    run = op(run, shfl_t(x, 31));
+    if constexpr (kFuse) {
+      const int slot = first + 32 * k;
+      res.rows[slot] = kNoRow;
+      if (r >= a.n) continue;
+      const long long j = a.n - 1 - r;
+      const Pos q = {a.ps != nullptr ? a.ps[j] : -1, v.pe, -1, v.ge};
+      unsigned long long bits;
+      const bool ok = frame_result<V, true, kDivide>(a, j, q, &bits);
+      res.bits[slot] = bits;
+      res.rows[slot] = (unsigned)__ldg(a.order + j) | (ok ? kValidBit : 0u);
+    } else {
+      if (r >= a.n) continue;
+      const long long j = a.n - 1 - r;
+      a.pe[j] = v.pe;
+      a.ge[j] = v.ge;
+      if (a.gend != nullptr && v.ge == (int)j) a.gend[a.cnt[j] - 1] = (int)j;
+    }
+  }
+  if constexpr (kFuse) {
+    __syncthreads();
+    scatter_results(slab_out(a, l), res, reverse_smem);
+  }
+}
+
+// The results of the frames that read other positions' bounds (GROUPS,
+// RANGE) or the table's levels, in sorted order, handed to step 1.
+template <class V, bool kDivide>
+__global__ void __launch_bounds__(kRevThreads, 2) frame_final(const Args a) {
+  extern __shared__ uint4 final_smem[];
+  const FrameLayout l = frame_layout(a);
+  const long long t0 = (long long)blockIdx.x * kRevTile;
+  const Results res = results_in(final_smem);
+#pragma unroll 1
+  for (int k = 0; k < kRevItems; ++k) {
+    const int slot = k * kRevThreads + threadIdx.x;
+    const long long j = t0 + slot;
+    res.rows[slot] = kNoRow;
+    if (j >= a.n) continue;
+    unsigned long long bits;
+    const bool ok = frame_result<V, false, kDivide>(a, j, pos_of(a, j), &bits);
+    res.bits[slot] = bits;
+    res.rows[slot] = (unsigned)__ldg(a.order + j) | (ok ? kValidBit : 0u);
+  }
+  __syncthreads();
+  scatter_results(slab_out(a, l), res, final_smem);
 }
 
 cudaError_t launch_rows(void (*kernel)(Args), const Args& a, int device, cudaStream_t st) {
@@ -623,17 +1189,38 @@ cudaError_t position_scans(const Args& a, cudaStream_t st) {
   return run_scan<RevPos>(a, st);
 }
 
+// A launch of kernel over `grid` blocks of kRevThreads with step 1's
+// shared memory.
+template <auto Kernel>
+cudaError_t launch_step1(const Args& a, long long grid, int nslabs, int device,
+                         cudaStream_t st) {
+  const int smem = scatter_smem<kRevThreads, kRevItems, unsigned long long>(nslabs);
+  const cudaError_t err = allow_smem<Kernel>(device, smem);
+  if (err != cudaSuccess) return err;
+  return launch_cluster(Kernel, grid, kRevThreads, 1, smem, st, a);
+}
+
 template <class V>
 cudaError_t run_frame(const Args& a, int device, cudaStream_t st) {
+  const FrameLayout l = frame_layout(a);
   cudaError_t err;
   if (a.stage != 2) {
-    err = position_scans(a, st);
+    err = cudaMemsetAsync(a.state, 0,
+                          sizeof(int) * (2 + l.fwd_tiles + l.rev_tiles + (long long)l.nslabs), st);
+    const bool pos = a.ps != nullptr || a.gs != nullptr || a.cnt != nullptr;
+    if (err == cudaSuccess)
+      err = pos ? launch_params(frame_forward<V, true>, l.fwd_tiles, kFwdThreads, st, a)
+                : launch_params(frame_forward<V, false>, l.fwd_tiles, kFwdThreads, st, a);
     if (err != cudaSuccess) return err;
-    if (a.values != nullptr) {  // COUNT(*) reads no argument
-      err = run_scan<FwdVal<V>>(a, st);
-      if (err != cudaSuccess) return err;
+    if (a.fuse) {
+      err = a.func == kAvg
+                ? launch_step1<frame_reverse<V, true, true>>(a, l.rev_tiles, l.nslabs, device, st)
+                : launch_step1<frame_reverse<V, true, false>>(a, l.rev_tiles, l.nslabs, device, st);
+    } else {
+      err = launch_params(frame_reverse<V, false, false>, l.rev_tiles, kRevThreads, st, a);
+      if (err == cudaSuccess && a.stage == 1) return launch_rows(frame_bounds, a, device, st);
     }
-    if (a.stage == 1) return launch_rows(frame_bounds, a, device, st);
+    if (err != cudaSuccess) return err;
   } else {
     for (long long k = 0; k < a.nlevels; ++k) {
       Args b = a;
@@ -642,17 +1229,40 @@ cudaError_t run_frame(const Args& a, int device, cudaStream_t st) {
       if (err != cudaSuccess) return err;
     }
   }
-  return launch_rows(frame_final<V>, a, device, st);
+  if (!a.fuse) {
+    err = a.func == kAvg ? launch_step1<frame_final<V, true>>(a, l.rev_tiles, l.nslabs, device, st)
+                         : launch_step1<frame_final<V, false>>(a, l.rev_tiles, l.nslabs, device, st);
+    if (err != cudaSuccess) return err;
+  }
+  const ImageParams ip = {a.n, l.shift, l.nslabs, a.slab_offs, a.slab_vals,
+                          a.state + 2 + l.fwd_tiles + l.rev_tiles, a.out, a.outm};
+  return a.outm != nullptr ? build_image<unsigned long long, true>(ip, device, st)
+                           : build_image<unsigned long long, false>(ip, device, st);
 }
 
-bool bad_args(const Args* a) {
+bool bad_words(const Args* a) {
   if (a == nullptr || a->n < 1 || a->n >= kBig || a->nwords < 1 || a->nwords > kMaxWords)
     return true;
   for (int w = 0; w < a->nwords; ++w) {
     if (a->words[w] == nullptr) return true;
   }
-  return a->order == nullptr || a->agg == nullptr || a->out == nullptr || a->ps == nullptr ||
-         a->pe == nullptr || a->gs == nullptr || a->ge == nullptr || a->cnt == nullptr;
+  return a->order == nullptr || a->out == nullptr;
+}
+
+bool bad_args(const Args* a) {
+  return bad_words(a) || a->agg == nullptr || a->ps == nullptr || a->pe == nullptr ||
+         a->gs == nullptr || a->ge == nullptr || a->cnt == nullptr;
+}
+
+bool bad_frame_args(const Args* a) {
+  if (bad_words(a) || a->state == nullptr || a->fwd_part == nullptr || a->rev_part == nullptr ||
+      a->slab_offs == nullptr || a->slab_vals == nullptr ||
+      reinterpret_cast<uintptr_t>(a->out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a->outm) % 16 != 0)
+    return true;
+  // the final pass reads every position's bounds
+  return !a->fuse && (a->ps == nullptr || a->pe == nullptr || a->gs == nullptr ||
+                      a->ge == nullptr || a->cnt == nullptr);
 }
 
 }  // namespace
@@ -679,8 +1289,8 @@ extern "C" int fugue_window_rank(const WindowArgs* a, int device, void* stream, 
 // cudaError_t; *launched is 1 where the kernels were launched.
 extern "C" int fugue_window_frame(const WindowArgs* a, int device, void* stream, int* launched) {
   *launched = 0;
-  if (bad_args(a) || a->func < kCount || a->func > kNth || a->stage < 0 || a->stage > 2 ||
-      (a->func != kCountStar && a->values == nullptr))
+  if (bad_frame_args(a) || a->func < kCount || a->func > kNth || a->stage < 0 || a->stage > 2 ||
+      (a->func != kCountStar && a->values == nullptr) || (a->fuse && a->stage != 0))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = on_device(device, [&] {
@@ -690,13 +1300,22 @@ extern "C" int fugue_window_frame(const WindowArgs* a, int device, void* stream,
   return (int)err;
 }
 
-// The bytes of scan scratch a tile needs: the largest scan element.
+// K16's scratch shapes: out[0] and out[1] the forward and reverse tiles'
+// positions, out[2] and out[3] their scan elements' bytes, out[4] the
+// log2 of a slab's rows.
+extern "C" void fugue_window_frame_layout(long long* out) {
+  out[0] = kFwdTile;
+  out[1] = kRevTile;
+  out[2] = (long long)(sizeof(FwdT<double, true>) > sizeof(FwdT<long long, true>)
+                           ? sizeof(FwdT<double, true>)
+                           : sizeof(FwdT<long long, true>));
+  out[3] = (long long)sizeof(EndT);
+  out[4] = slab_shift(8);
+}
+
+// The bytes of K15's scan scratch a tile needs: the largest scan element.
 extern "C" long long fugue_window_tile_bytes() {
-  long long b = sizeof(PosT);
-  if ((long long)sizeof(EndT) > b) b = sizeof(EndT);
-  if ((long long)sizeof(ValT<double>) > b) b = sizeof(ValT<double>);
-  if ((long long)sizeof(ValT<long long>) > b) b = sizeof(ValT<long long>);
-  return b;
+  return (long long)(sizeof(PosT) > sizeof(EndT) ? sizeof(PosT) : sizeof(EndT));
 }
 
 extern "C" long long fugue_window_tile_rows() { return kTile; }

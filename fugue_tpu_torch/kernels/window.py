@@ -38,6 +38,7 @@ MAX_WORDS = 4  # kMaxWords in window.cu
 _RANK_CODES = {f: i for i, f in enumerate(RANK_FUNCS)}
 _FRAME_CODES = {f: 10 + i for i, f in enumerate(FRAME_FUNCS)}
 _L, _P, _D = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_double
+_POSITIONS = ("ps", "pe", "gs", "ge", "cnt")
 
 
 class _Args(ctypes.Structure):
@@ -56,6 +57,8 @@ class _Args(ctypes.Structure):
         ("P", _P), ("C", _P), ("M", _P), ("sv", _P), ("sm", _P),
         ("lo", _P), ("hi", _P), ("maxlen", _P), ("levels", _P), ("nlevels", _L),
         ("out", _P), ("outm", _P),
+        ("state", _P), ("fwd_part", _P), ("rev_part", _P), ("fuse", _L),
+        ("slab_offs", _P), ("slab_vals", _P),
     ]
 
 
@@ -66,6 +69,8 @@ def _bind() -> ctypes.CDLL:
         for fn in (lib.fugue_window_rank, lib.fugue_window_frame):
             fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, _P, ip]
             fn.restype = ctypes.c_int
+        lib.fugue_window_frame_layout.argtypes = [ctypes.POINTER(_L)]
+        lib.fugue_window_frame_layout.restype = None
         lib.fugue_window_tile_bytes.restype = _L
         lib.fugue_window_tile_rows.restype = _L
         lib.fugue_window_error_string.argtypes = [ctypes.c_int]
@@ -95,9 +100,8 @@ class _Scratch:
         return t
 
 
-def _positions(sw: SortedWords, what: str) -> Tuple[_Args, _Scratch, ctypes.CDLL]:
-    """The checked sorted words and order of a call, and its position
-    scratch: ps, pe, gs, ge, cnt and the scans' tiles."""
+def _sorted_args(sw: SortedWords, what: str) -> Tuple[_Args, _Scratch, ctypes.CDLL]:
+    """The checked sorted words and order of a call, in its ``_Args``."""
     order = sw.order
     _require_cuda(order, what)
     device = order.device
@@ -122,11 +126,12 @@ def _positions(sw: SortedWords, what: str) -> Tuple[_Args, _Scratch, ctypes.CDLL
         a.words[i] = w.data_ptr()
         a.wide[i] = int(w.dtype == torch.int64)
     a.order = order.data_ptr()
-    tiles = -(-n // lib.fugue_window_tile_rows())
-    a.agg = s.of(torch.uint8, tiles * lib.fugue_window_tile_bytes()).data_ptr()
-    for name in ("ps", "pe", "gs", "ge", "cnt"):
-        setattr(a, name, s.of(torch.int32).data_ptr())
     return a, s, lib
+
+
+def _position_arrays(a: _Args, s: _Scratch, names: Tuple[str, ...]) -> None:
+    for name in names:
+        setattr(a, name, s.of(torch.int32).data_ptr())
 
 
 def _call(lib: ctypes.CDLL, fn: Any, a: _Args, device: torch.device, what: str) -> bool:
@@ -145,7 +150,10 @@ def window_rank_cuda(sw: SortedWords, func: str, param: int = 0) -> torch.Tensor
         raise ValueError(f"rank function {func!r}: one of {RANK_FUNCS}")
     if func == "ntile" and param < 1:
         raise ValueError("ntile takes at least one bucket")
-    a, s, lib = _positions(sw, "window_rank_cuda")
+    a, s, lib = _sorted_args(sw, "window_rank_cuda")
+    tiles = -(-s.n // lib.fugue_window_tile_rows())
+    a.agg = s.of(torch.uint8, tiles * lib.fugue_window_tile_bytes()).data_ptr()
+    _position_arrays(a, s, _POSITIONS)
     a.func, a.param = _RANK_CODES[func], int(param)
     out = s.of(torch.float64 if func in ("percent_rank", "cume_dist") else torch.int64)
     a.out = out.data_ptr()
@@ -163,18 +171,37 @@ def _frame_output_float(frame: WindowFrame) -> bool:
     return frame.func == "avg" or frame.values.is_floating_point()  # type: ignore[union-attr]
 
 
+def frame_plan(frame: WindowFrame) -> Tuple[bool, Tuple[str, ...]]:
+    """How K16 takes ``frame``: whether its reverse scan computes the
+    results (running and ROWS frames, whose bounds are the position's own,
+    but the table route's min/max), and the per-position arrays its
+    passes write and read back. The running frame's sums, counts and
+    extrema read the prefix at the peer group's end alone, so they need
+    none; a fused frame reads its partition start; the rest every bound
+    (``frame_final``)."""
+    table = frame.func in ("min", "max") and frame.route == "span"
+    if frame.unit in ("running", "rows") and not table:
+        if frame.unit == "running" and frame.func in ("count", "sum", "avg", "min", "max"):
+            return True, ()
+        return True, ("ps",)
+    return False, _POSITIONS
+
+
 def window_frame_cuda(sw: SortedWords, frame: WindowFrame
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K16, with the contract of ``reference.window_frame_reference``:
     ``(out, mask)`` in row order. ``frame.values`` is a dense int64 or
     float64 CUDA tensor over the rows (None for ``count_star``), its
-    ``vmask`` and ``kmask`` dense bools, ``key`` dense float64."""
+    ``vmask`` and ``kmask`` dense bools, ``key`` dense float64; ``sw``'s
+    order a permutation of the rows. ``window_frame_cuda.last_fill`` keeps
+    each slab's bucket count of its store through the order in the last
+    call (int32, on the device) and ``.last_shift`` its slab's log2 rows."""
     f = frame
     if f.func not in FRAME_FUNCS or f.unit not in FRAME_UNITS or f.route not in AGG_ROUTES:
         raise ValueError(f"window frame {f.func!r} over {f.unit!r} by {f.route!r}")
     if f.lo[0] not in BOUND_KINDS or f.hi[0] not in BOUND_KINDS:
         raise ValueError(f"frame bounds {f.lo}, {f.hi}: kinds are {BOUND_KINDS}")
-    a, s, lib = _positions(sw, "window_frame_cuda")
+    a, s, lib = _sorted_args(sw, "window_frame_cuda")
     device, n = s.device, s.n
     a.func, a.param = _FRAME_CODES[f.func], int(f.param or 0)
     a.unit = FRAME_UNITS.index(f.unit)
@@ -193,6 +220,8 @@ def window_frame_cuda(sw: SortedWords, frame: WindowFrame
             a.vmask = f.vmask.data_ptr()
     if f.default is not None:
         a.has_default, a.default_i, a.default_f = 1, int(f.default), float(f.default)
+    fuse, positions = frame_plan(f)
+    _position_arrays(a, s, positions)
     offsets = f.lo[0] in ("p", "f") or f.hi[0] in ("p", "f")
     if f.unit == "groups" and offsets:
         a.gstart, a.gend = s.of(torch.int32).data_ptr(), s.of(torch.int32).data_ptr()
@@ -216,6 +245,15 @@ def window_frame_cuda(sw: SortedWords, frame: WindowFrame
             a.M = s.of(vt).data_ptr()
     if f.func != "count_star" and (not aggregate or f.route == "loop" or table):
         a.sv, a.sm = s.of(vt).data_ptr(), s.of(torch.bool).data_ptr()
+    # the scans' tiles and the store's slabs
+    fwd_rows, rev_rows, fwd_bytes, rev_bytes, shift = _layout(lib)
+    fwd_tiles, rev_tiles = -(-n // fwd_rows), -(-n // rev_rows)
+    state = s.of(torch.int32, 2 + fwd_tiles + rev_tiles + (-(-n >> shift)))
+    a.state = state.data_ptr()
+    a.fwd_part = s.of(torch.uint8, 2 * fwd_tiles * fwd_bytes).data_ptr()
+    a.rev_part = s.of(torch.uint8, 2 * rev_tiles * rev_bytes).data_ptr()
+    a.fuse = int(fuse)
+    a.slab_offs, a.slab_vals = s.of(torch.int32).data_ptr(), s.of(torch.int64).data_ptr()
     out = s.of(torch.float64 if _frame_output_float(f) else torch.int64)
     mask = None if f.func in ("count", "count_star") else s.of(torch.bool)
     a.out, a.outm = out.data_ptr(), _ptr(mask)
@@ -234,8 +272,20 @@ def window_frame_cuda(sw: SortedWords, frame: WindowFrame
         window_frame_cuda.last_levels = levels
     if launched:
         window_frame_cuda.launches += 1
+    window_frame_cuda.last_fill = state[2 + fwd_tiles + rev_tiles:]
+    window_frame_cuda.last_shift = shift
     return out, mask
+
+
+def _layout(lib: ctypes.CDLL) -> Tuple[int, ...]:
+    """``fugue_window_frame_layout``: the forward and reverse tiles'
+    positions and elements' bytes, and the log2 of a slab's rows."""
+    out = (_L * 5)()
+    lib.fugue_window_frame_layout(out)
+    return tuple(int(v) for v in out)
 
 
 window_frame_cuda.launches = 0  # type: ignore[attr-defined]
 window_frame_cuda.last_levels = 0  # type: ignore[attr-defined]
+window_frame_cuda.last_fill = None  # type: ignore[attr-defined]
+window_frame_cuda.last_shift = 0  # type: ignore[attr-defined]

@@ -18,7 +18,7 @@ there:
   packs them into one order-preserving int32/int64 word a row, one stable
   ``torch.sort`` orders it, K2w finds the group boundaries over the sorted
   words and K3w gives each row its id by a search of its own word among
-  the groups' words (above ``LOOKUP_MAX_GROUPS`` groups, K3 scatters the
+  the groups' words (above ``lookup_limit`` groups, K3 scatters the
   sorted ids instead). Wider keys take the *wide route*: one stable sort
   per key code, K2 (boundaries over the codes gathered at the order) and
   K3 (the scatter back to row order).
@@ -76,16 +76,25 @@ from fugue_tpu_torch.kernels.segment_sums import binned_sums_cuda
 from fugue_tpu_torch.torch_backend.blocks import TorchBlocks
 
 _MAX_BINS = 1 << 22  # static-binning cap (``groupby.py:451``)
-# K3's route on the word route, by the group count alone: up to this, K3w
-# searches each row's word among the groups' words (in shared memory while
-# they fit in 227 KB, else in global memory through L2); above it, K3
-# scatters K2w's sorted ids to row order. On an H100 at 100M rows
-# (``chip_smoke.k3_routes``, three runs; PERF.md) the lookup over int32
-# words takes 0.38 ms at 1024 groups, 3.9 at 2^16, 6.4-6.9 at 2^19,
-# 7.4-8.0 at 2^20, 8.4-8.9 at 2^21 and 32 at 10^8, the scatter 7.4-7.8 ms
-# at every count; int64 words cross at 2^20 too. The bound sits below the
-# tie at 2^20.
-LOOKUP_MAX_GROUPS = 1 << 19
+# K3's route on the word route, by the group count and the word's width:
+# up to lookup_limit(width) groups K3w searches each row's word among the
+# groups' words (in shared memory while they fit in 227 KB, else in global
+# memory through L2); above it, K3 stores K2w's sorted ids to row order
+# through its slabs (order_scatter.cuh). On an NVIDIA H100 80GB HBM3 at
+# 700 W at 100M rows (``chip_smoke.k3_routes``; PERF.md, PR 14) the
+# lookup over int32 words takes 0.38 ms at 1024 groups, 0.97 at 2^14, 1.56
+# at 2^15 (its table's last size in shared memory), 3.88 at 2^16, 6.44 at
+# 2^19 and 31.6 at 10^8; over int64 words 0.75 at 1024, 1.35 at 2^12, 1.66
+# at 2^13, 2.58 at 2^14 and 3.73 at 2^15; K3 takes 1.86-2.05 ms at every
+# count. So the lookup stays up to 2^15 int32 words and 2^13 int64 words.
+LOOKUP_MAX_GROUPS = 1 << 15
+LOOKUP_MAX_GROUPS_WIDE = 1 << 13  # int64 words: half as many fit in shared memory
+
+
+def lookup_limit(word_bytes: int) -> int:
+    """The most groups K3w takes for words of ``word_bytes`` (4 or 8)."""
+    return LOOKUP_MAX_GROUPS if word_bytes == 4 else min(LOOKUP_MAX_GROUPS,
+                                                         LOOKUP_MAX_GROUPS_WIDE)
 
 
 class BinSpec(NamedTuple):
@@ -414,7 +423,7 @@ def word_factorize(sw: SortWord) -> Tuple[torch.Tensor, torch.Tensor, int, str]:
         sorted_words, order, real_below=sw.real_below
     )
     num = int(count)  # the sort path's one readback (groupby.py:548)
-    if num <= LOOKUP_MAX_GROUPS:
+    if num <= lookup_limit(sw.word.element_size()):
         lookup = kernel_for(order, sort_word_lookup_cuda, sort_word_lookup_reference,
                          "sort word lookup")
         seg = lookup(sw.word, uniq, num, real_below=sw.real_below)

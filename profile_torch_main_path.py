@@ -98,6 +98,8 @@ def _groups(device: Any, table: Any) -> Dict[str, Callable[[], None]]:
     """Each group of paths by name: building it and profiling its paths."""
     import torch
 
+    from fugue_tpu_torch.torch_backend import groupby
+
     rows, groups, seed = chip_smoke.ROWS, chip_smoke.GROUPS, chip_smoke.SEED
 
     def headline() -> None:
@@ -112,7 +114,8 @@ def _groups(device: Any, table: Any) -> Dict[str, Callable[[], None]]:
         run_for = chip_smoke.build_sort_path(device, rows, groups, seed)[0]
         for name in chip_smoke.SORT_PATH_CASES:
             profile_path(f"sort_path_{name}", run_for(name), device, table)
-        for many in (1 << 18, 1 << 20):
+        # both sides of the word route's crossover between K3w and K3
+        for many in (groupby.lookup_limit(4), 2 * groupby.lookup_limit(4)):
             del run_for
             torch.cuda.empty_cache()
             run_for = chip_smoke.build_sort_path(device, rows, many, seed)[0]

@@ -6,9 +6,10 @@ frame found by its definition and each function taken over it. Ranks,
 counts, integer sums, extrema, positional values and masks exactly;
 float64 sums within rtol 1e-9 and an atol of 1e-12 times the partition's
 largest absolute prefix sum (the twin sums per partition in window order,
-the loop over each frame from its first row). Also rehearses
-``chip_smoke.window_vs_twin`` on the CPU at a small size with the twins
-standing in for the kernels."""
+the loop over each frame from its first row). Also holds ``window.
+frame_plan`` (which frames K16's reverse scan finishes) and rehearses
+``chip_smoke.window_vs_twin`` and ``window_slab_cases`` on the CPU at a
+small size with the twins standing in for the kernels."""
 
 import math
 from typing import Any, Dict, List, Optional, Tuple
@@ -278,6 +279,32 @@ def test_frame_routes():
     assert R.frame_route("lag", "running", ("up", 0), ("c", 0)) == "prefix"
 
 
+_SHIFT = 6  # slabs of 64 rows for the rehearsals
+
+
+def test_frame_plan_fuses_the_frames_whose_bounds_are_their_own():
+    """K16's reverse scan computes the results of running and ROWS frames
+    (but the table route's min/max), reading back only the partition
+    start, and none for the running frame's aggregates; GROUPS, RANGE and
+    the table route read every bound in ``frame_final``."""
+    def plan(func: str, unit: str, lo: Any, hi: Any) -> Any:
+        return window_kernels.frame_plan(
+            R.WindowFrame(func, 0, unit, lo, hi, route=R.frame_route(func, unit, lo, hi)))
+
+    running, every = (("up", 0), ("c", 0)), ("ps", "pe", "gs", "ge", "cnt")
+    for func in ("count", "sum", "avg", "min", "max"):
+        assert plan(func, "running", *running) == (True, ())
+    for func in ("count_star", "lag", "lead", "first_value", "nth_value"):
+        assert plan(func, "running", *running) == (True, ("ps",))
+    assert plan("avg", "rows", ("p", 6), ("c", 0)) == (True, ("ps",))  # loop
+    assert plan("sum", "rows", ("c", 0), ("uf", 0)) == (True, ("ps",))  # span: prefix sums
+    assert plan("min", "rows", ("up", 0), ("f", 2)) == (True, ("ps",))  # prefix
+    assert plan("max", "rows", ("c", 0), ("uf", 0)) == (False, every)  # the table
+    assert plan("sum", "groups", ("p", 1), ("c", 0)) == (False, every)
+    assert plan("count", "range", ("p", 1), ("c", 0)) == (False, every)
+    assert plan("first_value", "range", ("c", 0), ("uf", 0)) == (False, every)
+
+
 @pytest.fixture
 def twins_as_kernels(monkeypatch):
     """K15's and K16's wrappers replaced by their twins (with a launch
@@ -286,9 +313,14 @@ def twins_as_kernels(monkeypatch):
         rank.launches += 1
         return R.window_rank_reference(*a, **k)
 
-    def frame(*a: Any, **k: Any) -> Any:
+    def frame(sw: R.SortedWords, fr: R.WindowFrame) -> Any:
         frame.launches += 1
-        return R.window_frame_reference(*a, **k)
+        frame.last_shift = _SHIFT
+        n = int(sw.order.shape[0])
+        slabs = -(-n >> frame.last_shift)
+        frame.last_fill = torch.full((slabs,), 1 << frame.last_shift, dtype=torch.int32)
+        frame.last_fill[-1] = n - ((slabs - 1) << frame.last_shift)
+        return R.window_frame_reference(sw, fr)
 
     rank.launches = frame.launches = 0
     frame.last_levels = 0
@@ -301,3 +333,11 @@ def test_chip_smoke_window_phase_on_cpu(twins_as_kernels):
     worst = chip_smoke.window_vs_twin(torch.device("cpu"), (1, 300))
     assert math.isfinite(worst)
     assert twins_as_kernels[1].launches > 300
+
+
+def test_chip_smoke_window_slab_phase_on_cpu(twins_as_kernels):
+    """``chip_smoke.window_slab_cases`` at its slabs' edges (small slabs
+    here) with the twins as kernels."""
+    worst = chip_smoke.window_slab_cases(torch.device("cpu"))
+    assert math.isfinite(worst)
+    assert twins_as_kernels[1].launches == 1 + 2 * 11  # the probe, 11 frame cases a size
