@@ -4711,6 +4711,109 @@ def window_slab_cases(device: Any) -> float:
     return window_vs_twin(device, ((1 << shift) - 3, (1 << shift) + 1), full_below=0)
 
 
+RANK_CASES = (("row_number", 0), ("rank", 0), ("dense_rank", 0), ("ntile", 1), ("ntile", 7),
+              ("percent_rank", 0), ("cume_dist", 0))
+
+
+def rank_edge_orders(device: Any, n: int, seed: int) -> List[Tuple[str, Any]]:
+    """Window orders of ``n`` rows at K15's edges (``SortedWords`` built
+    directly): one partition of random peer groups, every row its own
+    partition, every row in one peer group, and random partitions of 1 to
+    64 rows; each with a random order and an ascending one."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import SortedWords
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    peers = torch.sort(torch.randint(0, 50, (n,), generator=gen, device=device,
+                                     dtype=torch.int32)).values
+    starts = torch.randint(0, 64, (n,), generator=gen, device=device) == 0
+    parts = (torch.cumsum(starts, 0) << 6) + torch.randint(0, 4, (n,), generator=gen,
+                                                           device=device)
+    shapes = [("one_partition", [peers], 31),
+              ("own_partitions", [torch.arange(n, dtype=torch.int32, device=device)], 0),
+              ("one_peer_group", [torch.zeros((n,), dtype=torch.int32, device=device)], 0),
+              ("random_partitions", [torch.sort(parts).values], 6)]
+    out = []
+    for name, words, shift in shapes:
+        for order_name, order in (("random", torch.randperm(n, generator=gen, device=device)),
+                                  ("ascending", torch.arange(n, device=device))):
+            out.append((f"{name} {order_name}", SortedWords(order, words, shift)))
+    return out
+
+
+def window_rank_edges(device: Any) -> None:
+    """K15 against ``window_rank_reference`` bit for bit in every function
+    of ``RANK_CASES`` on ``rank_edge_orders`` at sizes around a scan tile
+    and a slab: 1, 31, 33, a tile and one row either side, a slab less 3
+    and plus 1 row, three slabs and 17; on the card each slab's bucket
+    count against its rows (``check_fill``)."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import window_rank_reference
+    from fugue_tpu_torch.kernels.window import _bind, _layout, window_rank_cuda
+
+    on_card = device.type == "cuda"
+    # a scan tile's positions and a slab's log2 rows; where the twins stand
+    # in (on the CPU), small edges
+    tile, shift = (_layout(_bind())[5], _layout(_bind())[4]) if on_card else (128, 9)
+    slab = 1 << shift
+    sizes = (1, 31, 33, tile - 1, tile, tile + 1, slab - 3, slab + 1, 3 * slab + 17)
+    checked = 0
+    for n in sizes:
+        for label, sw in rank_edge_orders(device, n, SEED + n):
+            for func, param in RANK_CASES:
+                full = f"window_rank {func}({param}) {label} n={n}"
+                got = window_rank_cuda(sw, func, param)
+                if on_card:
+                    check_fill(full, window_rank_cuda.last_fill, n, window_rank_cuda.last_shift)
+                _same(full, got, window_rank_reference(sw, func, param))
+                checked += 1
+        if on_card:
+            torch.cuda.empty_cache()
+    print(f"window_rank_edges: {checked} cases equal at {sizes} rows")
+
+
+def rank_order(device: Any, n: int) -> Any:
+    """``window_timing``'s K15 order: ``n`` rows ranked by (``k``, ``v``
+    desc), ``k`` int32 over ``GROUPS``, ``v`` float32, one int64 word."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import PresortKey
+    from fugue_tpu_torch.torch_backend import relational
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    k = torch.randint(0, GROUPS, (n,), generator=gen, device=device, dtype=torch.int32)
+    v = torch.rand((n,), generator=gen, device=device)
+    return relational.presort_sorted(
+        [PresortKey(k, kmin=0, bits=GROUPS.bit_length()),
+         PresortKey(v, None, desc=True, nan_is_null=True)], n, device, nrows=n)
+
+
+def window_rank_timing(device: Any, n: int) -> None:
+    """Every function of ``RANK_CASES`` at ``n`` rows on ``rank_order``
+    with CUDA events, each launch's device ms (``device_split_ms``; early
+    in the run, where the profiler sees the card) and its buckets against
+    its slabs (``check_fill``). Prints one ``window timed:`` line a
+    function."""
+    import torch
+
+    from fugue_tpu_torch.kernels.window import window_rank_cuda
+
+    by_v = rank_order(device, n)
+    for func, param in RANK_CASES:
+        window_rank_cuda(by_v, func, param)
+        check_fill(f"window_rank[{func}({param})] timed", window_rank_cuda.last_fill, n,
+                   window_rank_cuda.last_shift)
+        print("window timed: " + json.dumps({
+            "name": f"window_rank[{func}({param})]",
+            "ms": time_cuda(lambda: window_rank_cuda(by_v, func, param), 10),
+            "device_ms": device_split_ms(lambda: window_rank_cuda(by_v, func, param), device),
+            "card": card_line()}))
+    del by_v
+    torch.cuda.empty_cache()
+
+
 def q_channel(rows: int, rng: Any) -> Dict[str, Any]:
     """One sales channel's rows of the TPC-DS Q38/Q87 shape: last and
     first name indices and a day, each uniform."""
@@ -5542,7 +5645,7 @@ def window_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]
     29 B a row; ``torch.cumsum`` of the argument); K8's NOT IN mode over
     Q16's 80M probe rows against 1M segments (segment id and keep flag, 5
     B a row, and the table; ``index_select`` of the table). Printed
-    beside them: K15's other functions, K16's loop, span and table routes
+    beside them: K16's loop, span and table routes
     and lag, ORDER BY's ``device_sort`` against ``torch.sort`` of the
     column alone, and ``gather_indices`` against ``index_select``."""
     import torch
@@ -5580,10 +5683,6 @@ def window_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]
         time_cuda(lambda: window_rank_cuda(by_v, "rank"), 10),
         time_cuda(lambda: window_rank_reference(by_v, "rank"), 3), n * (8 + 8 + 8), 0, None,
         source="window.cu"))
-    for func in ("row_number", "dense_rank", "cume_dist"):
-        print("window timed: " + json.dumps({
-            "name": f"window_rank[{func}]",
-            "ms": time_cuda(lambda: window_rank_cuda(by_v, func), 10)}))
     x = v.to(torch.float64)
     running = WindowFrame("sum", 0, "running", ("up", 0), ("c", 0), x, route="prefix")
     got, want = window_frame_cuda(by_d, running), window_frame_reference(by_d, running)
@@ -5826,9 +5925,24 @@ def fold_chunk(device: Any, n: int, bounds: List[Tuple[int, int]], gen: Any, hug
     return keys, payloads
 
 
-def check_fold(label: str, ops: List[Any], got: Any, want: Any) -> float:
+def twin_fold(keys: List[Any], bounds: List[Tuple[int, int]], payloads: List[Any],
+              ops: List[Any], want: Any, mag: Any) -> None:
+    """K19's twin folds the chunk into ``want``, and the payloads'
+    absolute values into ``mag``, whose float sums are then each slot's
+    sum of the magnitudes of its terms (``check_fold``'s scale)."""
+    from fugue_tpu_torch.kernels.reference import stream_fold_reference
+
+    stream_fold_reference(keys, bounds, payloads, ops, want)
+    stream_fold_reference(keys, bounds, [(v.abs(), m) for v, m in payloads], ops, mag)
+
+
+def check_fold(label: str, ops: List[Any], got: Any, want: Any, mag: Any) -> float:
     """Counts, int64 sums and extrema exactly; float64 sums within
-    ``FOLD_RTOL``. Returns the largest relative float difference."""
+    ``FOLD_RTOL`` of the larger of the sum and the sum of its terms'
+    magnitudes (``mag``, ``twin_fold``): two orders of adding round
+    apart by a share of the terms' magnitudes, which a slot whose terms
+    cancel can hold far above its sum. Returns the largest relative float
+    difference, against that scale."""
     import torch
 
     worst = 0.0
@@ -5836,12 +5950,12 @@ def check_fold(label: str, ops: List[Any], got: Any, want: Any) -> float:
         g, w = got[:, op.acc], want[:, op.acc]
         if op.kind in ("sum_f", "sum_if"):
             g, w = g.view(torch.float64), w.view(torch.float64)
+            scale = torch.maximum(w.abs(), mag[:, op.acc].view(torch.float64).abs())
             diff = (g - w).abs()
-            tol = FOLD_RTOL * w.abs() + 1e-300
-            if bool((diff > tol).any()):
+            if bool((diff > FOLD_RTOL * scale + 1e-300).any()):
                 raise SystemExit(f"FAIL {label} {op.kind}: float sums differ by "
                                  f"{float(diff.max())}")
-            rel = diff / w.abs().clamp(min=1e-300)
+            rel = diff / scale.clamp(min=1e-300)
             worst = max(worst, float(rel.max()) if rel.numel() else 0.0)
         elif not torch.equal(g, w):
             raise SystemExit(f"FAIL {label} {op.kind}: differs from its twin")
@@ -5857,7 +5971,6 @@ def stream_fold_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
     import torch
 
     from fugue_tpu_torch.kernels import stream
-    from fugue_tpu_torch.kernels.reference import stream_fold_reference
     from fugue_tpu_torch.torch_backend.streaming import _Space
 
     ops = fold_ops()
@@ -5869,19 +5982,19 @@ def stream_fold_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
                 label = f"stream_fold n={n} keys={nkeys} huge={huge}"
                 old = _Space([(0, 999), (-50, 49)][:nkeys])
                 new = _Space([(-20, 1099), (-50, 59)][:nkeys])
-                got, want = fold_store(ops, old.total, device), fold_store(ops, old.total, device)
+                got, want, mag = (fold_store(ops, old.total, device) for _ in range(3))
                 for _ in range(2):
                     keys, payloads = fold_chunk(device, n, old.spans, gen, huge)
                     stream.stream_fold_cuda(keys, old.spans, payloads, ops, got)
-                    stream_fold_reference(keys, old.spans, payloads, ops, want)
-                worst = max(worst, check_fold(label, ops, got, want))
+                    twin_fold(keys, old.spans, payloads, ops, want, mag)
+                worst = max(worst, check_fold(label, ops, got, want, mag))
                 new_seg = new.seg(old.decode(torch.arange(old.total, device=device)))
-                got = fold_store(ops, new.total, device).index_copy_(0, new_seg, got)
-                want = fold_store(ops, new.total, device).index_copy_(0, new_seg, want)
+                got, want, mag = (fold_store(ops, new.total, device).index_copy_(0, new_seg, t)
+                                  for t in (got, want, mag))
                 keys, payloads = fold_chunk(device, n, new.spans, gen, huge)
                 stream.stream_fold_cuda(keys, new.spans, payloads, ops, got)
-                stream_fold_reference(keys, new.spans, payloads, ops, want)
-                worst = max(worst, check_fold(f"{label} rebased", ops, got, want))
+                twin_fold(keys, new.spans, payloads, ops, want, mag)
+                worst = max(worst, check_fold(f"{label} rebased", ops, got, want, mag))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     print(f"stream_fold_vs_twin: equal at {sizes} rows (float sums max rel err {worst})")
@@ -6409,8 +6522,9 @@ def stream_timing(device: Any, launches: int) -> Dict[str, Any]:
     masks = [torch.rand((n,), generator=gen, device=device) > STREAM_NULLS for _ in range(3)]
     payloads = [(price, masks[0]), (qty, masks[1]), (keys[0], masks[2])]  # sorted names
     got = stream.stream_fold_cuda(keys, bounds, payloads, ops, agg._make_init(slots))
-    want = stream_fold_reference(keys, bounds, payloads, ops, agg._make_init(slots))
-    err = check_fold("stream_fold timed", ops, got, want)
+    want, mag = agg._make_init(slots), agg._make_init(slots)
+    twin_fold(keys, bounds, payloads, ops, want, mag)
+    err = check_fold("stream_fold timed", ops, got, want, mag)
     store = agg._make_init(slots)
     seg = keys[0] * STREAM_ITEMS[1] + keys[1]
     touched = int(torch.unique(seg).numel())
@@ -6436,6 +6550,138 @@ def stream_timing(device: Any, launches: int) -> Dict[str, Any]:
         "ms": time_cuda(lambda: agg._rebase(old, new, before), 20),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "card": card_line()}))
     return entry
+
+
+FOLD_ZIPF = 1.1  # the skewed case's Zipf exponent over the stream's slots
+
+
+def fold_edge_cases(device: Any, rows: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """K19's cases at its edges, each ``(label, {keys, bounds, payloads,
+    ops, slots})`` with ``rows`` rows: the stream's uniform 1M slots x 20
+    accumulators; one slot taking every row; a Zipf(``FOLD_ZIPF``) slot
+    drawn with numpy from ``seed``; a slot space within one slab, and one
+    of three slabs and 17 slots; 1 % of the rows outside the space; one
+    row; widths 1 and 48. Every payload is masked (5 % null)."""
+    import numpy as np
+    import torch
+
+    from fugue_tpu_torch.kernels import stream
+    from fugue_tpu_torch.kernels.reference import FoldOp
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    stores, items = STREAM_STORES, STREAM_ITEMS[1]
+    kinds = [("rows", -1), ("count", 0), ("sum_i", 0), ("min_i", 0), ("max_i", 0),
+             ("sum_if", 0)] + [(k, 1) for k in ("count", "sum_f", "min_f", "max_f")]
+    kinds += [("count", 2)] + [(k, 3) for k in ("count", "sum_f", "min_f", "max_f")]
+    kinds += [(k, 4) for k in ("count", "sum_i", "min_i", "max_i")] + [("count", 5)]  # 20
+
+    def payloads(n: int, count: int) -> List[Any]:
+        out = []
+        for j in range(count):
+            if j % 2 == 0:
+                v = torch.randint(-1000, 1000, (n,), generator=gen, device=device)
+            else:
+                v = torch.randn((n,), generator=gen, device=device, dtype=torch.float64)
+            out.append((v, torch.rand((n,), generator=gen, device=device) > STREAM_NULLS))
+        return out
+
+    def case(n: int, keys: List[Any], bounds: List[Tuple[int, int]], slots: int,
+             kind_list: List[Tuple[str, int]]) -> Dict[str, Any]:
+        ops = [FoldOp(k, p, j) for j, (k, p) in enumerate(kind_list)]
+        count = max(p for _, p in kind_list) + 1
+        return dict(keys=keys, bounds=bounds, payloads=payloads(n, count), ops=ops, slots=slots)
+
+    def uniform(n: int, spans: List[int], lo: int = 0) -> List[Any]:
+        return [torch.randint(lo, lo + s, (n,), generator=gen, device=device) for s in spans]
+
+    bounds = [(0, stores), (0, items)]
+    rng = np.random.default_rng(seed)
+    zipf = torch.from_numpy((rng.zipf(FOLD_ZIPF, rows) - 1) % (stores * items)).to(device)
+    slab = 1 << stream.fold_plan(len(kinds), stores * items, rows,
+                                 [FoldOp(k, p, j) for j, (k, p) in enumerate(kinds)], 6).shift
+    wide = [(k, p) for p in range(12) for k in (("count", "sum_i", "min_i", "max_i") if p % 2 == 0
+                                                else ("count", "sum_f", "min_f", "max_f"))]
+    zero = torch.zeros((rows,), dtype=torch.int64, device=device)
+    return [
+        ("uniform", case(rows, uniform(rows, [stores, items]), bounds, stores * items, kinds)),
+        ("one_slot", case(rows, [zero, zero.clone()], bounds, stores * items, kinds)),
+        (f"zipf_{FOLD_ZIPF}", case(rows, [zipf // items, zipf % items], bounds, stores * items,
+                                  kinds)),
+        ("within_one_slab", case(rows, uniform(rows, [slab // 2]), [(0, slab // 2)], slab // 2,
+                                 kinds)),
+        ("three_slabs_and_17", case(rows, uniform(rows, [3 * slab + 17]), [(0, 3 * slab + 17)],
+                                    3 * slab + 17, kinds)),
+        ("outside_rows", case(rows, uniform(rows, [stores * items + 20000], lo=-10000),
+                              [(0, stores * items)], stores * items, kinds)),
+        ("one_row", case(1, uniform(1, [stores, items]), bounds, stores * items, kinds)),
+        ("width_1", case(rows, uniform(rows, [stores, items]), bounds, stores * items,
+                         [("sum_f", 1)])),
+        ("width_48", case(rows, uniform(rows, [stores, items]), bounds, stores * items, wide)),
+    ]
+
+
+def check_fold_fill(label: str, plan: Any, fill: Any, keys: List[Any],
+                    bounds: List[Tuple[int, int]], slots: int) -> None:
+    """K19's buckets: each slab's entries, as ``fold_partition`` counted
+    them, against the rows whose slot lies in it."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import fold_segments
+
+    if plan.route == "direct":
+        return
+    seg = fold_segments(keys, bounds)
+    seg = seg[(seg >= 0) & (seg < slots)]
+    want = torch.bincount(seg >> plan.shift, minlength=plan.nslabs).to(torch.int32)
+    if fill is None or not torch.equal(fill, want):
+        raise SystemExit(f"FAIL {label}: bucket counts differ from the slabs' rows")
+
+
+def stream_fold_edges(device: Any, rows: int, fold: Optional[Callable[..., Any]] = None
+                      ) -> List[Dict[str, Any]]:
+    """K19 (``fold``: the wrapper unless given) against its twin in every
+    case of ``fold_edge_cases`` (``check_fold``); on the card each slab's
+    bucket count against its rows (``check_fold_fill``); each case's ms
+    (CUDA events) and each launch's device ms (``device_split_ms``).
+    Prints one ``stream_fold edge:`` line a case and returns them."""
+    import torch
+
+    from fugue_tpu_torch.kernels import stream
+    from fugue_tpu_torch.kernels.reference import fold_init
+
+    run = stream.stream_fold_cuda if fold is None else fold
+    on_card = device.type == "cuda"
+    out = []
+    for label, c in fold_edge_cases(device, rows, SEED + 19):
+        init = torch.tensor([fold_init(op.kind) for op in c["ops"]], dtype=torch.int64)
+        width = len(c["ops"])
+
+        def store() -> Any:
+            return init.to(device).unsqueeze(0).repeat(c["slots"], 1)
+
+        args = (c["keys"], c["bounds"], c["payloads"], c["ops"])
+        got, want, mag = run(*args, store()), store(), store()
+        twin_fold(*args, want, mag)
+        err = check_fold(f"stream_fold {label}", c["ops"], got, want, mag)
+        line: Dict[str, Any] = {"case": label, "rows": int(c["keys"][0].shape[0]),
+                                "slots": c["slots"], "accumulators": width, "max_rel_err": err}
+        if fold is None:
+            plan = stream.stream_fold_cuda.last_plan
+            if on_card:
+                check_fold_fill(f"stream_fold {label}", plan, stream.stream_fold_cuda.last_fill,
+                                c["keys"], c["bounds"], c["slots"])
+            line.update(route=plan.route, slab_slots=1 << plan.shift, slabs=plan.nslabs)
+        del got, want, mag
+        dst = store()
+        line["ms"] = time_cuda(lambda: run(*args, dst), 10)
+        line["device_ms"] = device_split_ms(lambda: run(*args, dst), device)
+        line["card"] = card_line()
+        print("stream_fold edge: " + json.dumps(line))
+        out.append(line)
+        del c, args
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
 
 
 _ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -6516,15 +6762,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     worst = window_vs_twin(device, (1, (1 << 20) + 37, ROWS))
     worst = max(worst, window_slab_cases(device))
+    window_rank_edges(device)
+    window_rank_timing(device, ROWS)
     print(f"kernels checked against their twins: window_rank, window_frame (equal, also at "
-          f"its slabs' edges; float64 frame sums max_abs_err={worst})")
+          f"their tiles' and slabs' edges; float64 frame sums max_abs_err={worst})")
     lap("twins: windows")
     torch.cuda.empty_cache()
     comap_vs_twin(device, (1, (1 << 20) + 37, ROWS))
     print("kernels checked against their twins: comap_presence, comap_rows (equal)")
     worst = stream_fold_vs_twin(device, (1, (1 << 20) + 37, STREAM_CHUNK_ROWS))
-    print(f"kernels checked against their twins: stream_fold (equal; float64 sums max rel err "
-          f"{worst})")
+    torch.cuda.empty_cache()
+    stream_fold_edges(device, STREAM_CHUNK_ROWS)
+    print(f"kernels checked against their twins: stream_fold (equal, also at its edges; float64 "
+          f"sums max rel err {worst})")
     lap("twins: co-map, stream fold")
     torch.cuda.empty_cache()
 

@@ -1789,10 +1789,14 @@ def stream_fold_reference(
     with their masks (True = valid; None: all valid); ``store`` the int64
     accumulators [T, A], slot-major (a slot's A accumulators are
     adjacent; a float64 sum's column holds its bits), ``T`` the slots.
-    Each op adds the chunk's rows into its column at their slots.
-    Returns ``store``."""
+    Each op adds the chunk's rows into its column at their slots; a row
+    whose slot is outside ``[0, T)`` is dropped. Returns ``store``."""
     seg = fold_segments(keys, bounds)
     slots = int(store.shape[0])
+    inside = (seg >= 0) & (seg < slots)
+    if not bool(inside.all()):
+        seg = seg[inside]
+        payloads = [(v[inside], None if m is None else m[inside]) for v, m in payloads]
     for op in ops:
         if op.kind not in FOLD_KINDS:
             raise ValueError(f"fold kind {op.kind!r}: one of {FOLD_KINDS}")

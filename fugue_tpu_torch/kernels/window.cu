@@ -20,18 +20,19 @@
 // part_shift change, and a peer group where any word changes: the words
 // hold every key with its nulls neutralised, as the JAX program compares
 // adjacent sorted codes (:1580-1590). The JAX program scatters each output
-// to row order (:1633-1641); K15 stores out[order[j]] directly, K16
-// through order_scatter.cuh's slabs.
+// to row order (:1633-1641); K15 and K16 store through order_scatter.cuh's
+// slabs.
 //
-// K15 (the next redesign) keeps three launches a scan: every block reduces
-// its tile of kTile positions, one block scans the tiles' aggregates into
-// each tile's carry, and every block scans its tile again from its carry
-// and stores. A forward scan gives each position its partition start ps,
-// its peer group's start gs and the peer heads up to it (cnt, dense_rank's
-// and GROUPS' group ids); a reverse scan the partition end pe and the peer
-// group's end ge; rank_final stores each rank through the order.
+// K15: single-pass scans (decoupled look-back; see
+// K16's section), each result computed in sorted order and handed to step
+// 1 of the slab store. rank_forward gives each position its partition
+// start ps, its peer group's start gs and its dense rank (the peer heads
+// since ps); row_number, rank and dense_rank are final there. ntile,
+// percent_rank and cume_dist need the partition's end or the peer group's
+// end: rank_forward writes ps (and gs), and frame_reverse's fused pass
+// computes them beside pe and ge.
 //
-// K16 (redesigned): one single-pass launch a scan (decoupled look-back; see
+// K16: one single-pass launch a scan (decoupled look-back; see
 // its section). The forward scan reads the argument through the order
 // once, beside ps, gs and cnt: its sum P (int64 for integer arguments,
 // float64 for the rest), the count C of its valid values and, for a
@@ -53,8 +54,9 @@
 //     between stage 1 and stage 2), never ceil(log2 n) + 1 copies of the
 //     argument as the JAX program builds (:2024-2046).
 //
-// What bounds them on an H100: K15 reads its order entry and words twice a
-// scan and stores each rank through the order, a random 8 B store a row.
+// What bounds them on an H100: K15 moves 24 B a row at the bound (order,
+// word, result); in this design it also writes and reads back 12 B a row of
+// bucket entries, and the reverse functions 4-8 B a row of ps (and gs).
 // K16's running sum moves about 29 B a row at the bound (order, word,
 // argument, result and mask); its floor in this design is the one random
 // 8 B read of the argument through the order. It reads the words twice
@@ -99,7 +101,6 @@ struct WindowArgs {
   const double* key;      // float64 [rows]: RANGE's order key
   const uint8_t* kmask;
   long long key_desc;
-  void* agg;              // scan scratch: a tile's aggregate, then its carry
   int* ps;
   int* pe;
   int* gs;
@@ -121,7 +122,7 @@ struct WindowArgs {
   long long nlevels;
   void* out;              // int64 or float64 [rows]
   uint8_t* outm;          // bool [rows] or null
-  // K16's single-pass scans and its store through the order
+  // the single-pass scans and the store through the order
   int* state;             // int32: 2 tile counters, the forward and reverse tiles' flags,
                           // each slab's bucket count; zeroed by the call
   void* fwd_part;         // 2 x forward tiles: each tile's aggregate, then its inclusive prefix
@@ -138,8 +139,6 @@ using namespace fugue;
 using Args = WindowArgs;
 
 constexpr int kThreads = 256;
-constexpr int kItems = 8;  // positions a thread in a scan
-constexpr long long kTile = (long long)kThreads * kItems;
 constexpr int kBig = 0x7FFFFFFF;
 
 // functions, as the wrappers pass them
@@ -216,193 +215,9 @@ __device__ __forceinline__ double extreme_fill<double>(bool is_min) {
   return is_min ? INFINITY : -INFINITY;
 }
 
-// ---- the scans ----------------------------------------------------------
-
-struct PosT {
-  int ps, gs, cnt;
-};
-
-// ps: the last partition start at or before j; gs: the last peer group
-// start; cnt: the peer group starts up to j.
-struct FwdPos {
-  typedef PosT T;
-  __device__ static T identity(const Args&) { return {-1, -1, 0}; }
-  __device__ static T combine(const Args&, const T& x, const T& y) {
-    return {x.ps > y.ps ? x.ps : y.ps, x.gs > y.gs ? x.gs : y.gs, x.cnt + y.cnt};
-  }
-  __device__ static T load(const Args& a, long long j) {
-    const bool ph = j == 0 || !same_part(a, j - 1, j);
-    const bool gh = ph || !same_words(a, j - 1, j);
-    return {ph ? (int)j : -1, gh ? (int)j : -1, gh ? 1 : 0};
-  }
-  __device__ static void store(const Args& a, long long j, const T& e, const T& v) {
-    a.ps[j] = v.ps;
-    a.gs[j] = v.gs;
-    a.cnt[j] = v.cnt;
-    if (a.gstart != nullptr && e.gs >= 0) a.gstart[v.cnt - 1] = (int)j;
-    if (a.skv != nullptr) {
-      const long long row = __ldg(a.order + j);
-      const double k = __ldg(a.key + row);
-      const bool null = (a.kmask != nullptr && __ldg(a.kmask + row) == 0) || isnan(k);
-      a.skv[j] = null ? 0.0 : (a.key_desc ? -k : k);
-      a.snull[j] = null;
-    }
-  }
-};
-
 struct EndT {
   int pe, ge;
 };
-
-// Scanned from the last position down (index r is position n - 1 - r):
-// pe, the first partition end at or after j; ge, the first peer group end.
-struct RevPos {
-  typedef EndT T;
-  __device__ static T identity(const Args&) { return {kBig, kBig}; }
-  __device__ static T combine(const Args&, const T& x, const T& y) {
-    return {x.pe < y.pe ? x.pe : y.pe, x.ge < y.ge ? x.ge : y.ge};
-  }
-  __device__ static T load(const Args& a, long long r) {
-    const long long j = a.n - 1 - r;
-    const bool pend = j == a.n - 1 || !same_part(a, j, j + 1);
-    const bool gend = pend || !same_words(a, j, j + 1);
-    return {pend ? (int)j : kBig, gend ? (int)j : kBig};
-  }
-  __device__ static void store(const Args& a, long long r, const T& e, const T& v) {
-    const long long j = a.n - 1 - r;
-    a.pe[j] = v.pe;
-    a.ge[j] = v.ge;
-    if (a.gend != nullptr && e.ge < kBig) a.gend[a.cnt[j] - 1] = (int)j;
-  }
-};
-
-// The inclusive scan of each thread's value in thread order; sh holds
-// every thread's on return.
-template <class Op>
-__device__ typename Op::T block_inclusive(const Args& a, typename Op::T v, typename Op::T* sh) {
-  const int t = threadIdx.x;
-  sh[t] = v;
-  __syncthreads();
-  for (int d = 1; d < kThreads; d <<= 1) {
-    const typename Op::T prev = sh[t >= d ? t - d : 0];
-    __syncthreads();
-    if (t >= d) {
-      v = Op::combine(a, prev, v);
-      sh[t] = v;
-    }
-    __syncthreads();
-  }
-  return v;
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads) scan_reduce(const Args a) {
-  typedef typename Op::T T;
-  __shared__ T sh[kThreads];
-  const long long base = (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
-  T acc = Op::identity(a);
-  for (int k = 0; k < kItems; ++k) {
-    if (base + k < a.n) acc = Op::combine(a, acc, Op::load(a, base + k));
-  }
-  acc = block_inclusive<Op>(a, acc, sh);
-  if (threadIdx.x == kThreads - 1) static_cast<T*>(a.agg)[blockIdx.x] = acc;
-}
-
-// One block: each tile's aggregate becomes the tiles' exclusive scan
-// before it, its carry.
-template <class Op>
-__global__ void __launch_bounds__(kThreads) scan_carry(const Args a) {
-  typedef typename Op::T T;
-  __shared__ T sh[kThreads];
-  T* agg = static_cast<T*>(a.agg);
-  const long long ntiles = (a.n + kTile - 1) / kTile;
-  const long long chunk = (ntiles + kThreads - 1) / kThreads;
-  const long long b0 = (long long)threadIdx.x * chunk;
-  const long long b1 = b0 + chunk < ntiles ? b0 + chunk : ntiles;
-  T acc = Op::identity(a);
-  for (long long b = b0; b < b1; ++b) acc = Op::combine(a, acc, agg[b]);
-  block_inclusive<Op>(a, acc, sh);
-  T run = threadIdx.x > 0 ? sh[threadIdx.x - 1] : Op::identity(a);
-  for (long long b = b0; b < b1; ++b) {
-    const T x = agg[b];
-    agg[b] = run;
-    run = Op::combine(a, run, x);
-  }
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads) scan_apply(const Args a) {
-  typedef typename Op::T T;
-  __shared__ T sh[kThreads];
-  const long long base = (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
-  T items[kItems];
-  T acc = Op::identity(a);
-  for (int k = 0; k < kItems; ++k) {
-    items[k] = base + k < a.n ? Op::load(a, base + k) : Op::identity(a);
-    acc = Op::combine(a, acc, items[k]);
-  }
-  block_inclusive<Op>(a, acc, sh);
-  T run = static_cast<const T*>(a.agg)[blockIdx.x];
-  if (threadIdx.x > 0) run = Op::combine(a, run, sh[threadIdx.x - 1]);
-  for (int k = 0; k < kItems; ++k) {
-    if (base + k >= a.n) break;
-    run = Op::combine(a, run, items[k]);
-    Op::store(a, base + k, items[k], run);
-  }
-}
-
-template <class Op>
-cudaError_t run_scan(const Args& a, cudaStream_t st) {
-  const long long ntiles = (a.n + kTile - 1) / kTile;
-  cudaError_t err = launch_params(scan_reduce<Op>, ntiles, kThreads, st, a);
-  if (err != cudaSuccess) return err;
-  err = launch_params(scan_carry<Op>, 1, kThreads, st, a);
-  if (err != cudaSuccess) return err;
-  return launch_params(scan_apply<Op>, ntiles, kThreads, st, a);
-}
-
-// ---- K15 ----------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads) rank_final(const Args a) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < a.n; j += stride) {
-    const long long ps = a.ps[j], pe = a.pe[j], gs = a.gs[j], ge = a.ge[j];
-    const long long local = j - ps, psize = pe - ps + 1;
-    const long long row = __ldg(a.order + j);
-    long long r = 0;
-    double f = 0.0;
-    switch ((int)a.func) {
-      case kRowNumber:
-        r = local + 1;
-        break;
-      case kRank:
-        r = gs - ps + 1;
-        break;
-      case kDenseRank:
-        r = (long long)a.cnt[j] - a.cnt[ps] + 1;
-        break;
-      case kNtile: {
-        // the first psize % n buckets take one row more (:1570-1577)
-        const long long q = psize / a.param, rem = psize % a.param;
-        const long long cutoff = rem * (q + 1);
-        r = local < cutoff ? local / (q + 1) + 1
-                           : rem + (local - cutoff) / (q > 1 ? q : 1) + 1;
-        break;
-      }
-      case kPercentRank:
-        f = psize > 1 ? (double)(gs - ps) / (double)(psize - 1) : 0.0;
-        break;
-      default:  // kCumeDist: peers share their group's last position
-        f = (double)(ge - ps + 1) / (double)psize;
-        break;
-    }
-    if (a.func == kPercentRank || a.func == kCumeDist) {
-      static_cast<double*>(a.out)[row] = f;
-    } else {
-      static_cast<long long*>(a.out)[row] = r;
-    }
-  }
-}
 
 // ---- K16 ----------------------------------------------------------------
 //
@@ -649,6 +464,7 @@ __device__ typename Op::T tile_prefix(const Op& op, const typename Op::T& agg,
 }
 
 // The scratch counts of a call: the forward and reverse tiles and slabs.
+// K15's forward scan (rank_forward) takes tiles of kRevTile positions.
 struct FrameLayout {
   long long fwd_tiles, rev_tiles;
   int shift, nslabs;
@@ -656,7 +472,8 @@ struct FrameLayout {
 
 __host__ __device__ inline FrameLayout frame_layout(const Args& a) {
   const int shift = slab_shift(8);
-  return {(a.n + kFwdTile - 1) / kFwdTile, (a.n + kRevTile - 1) / kRevTile, shift,
+  const long long fwd_tile = a.func <= kCumeDist ? kRevTile : kFwdTile;
+  return {(a.n + fwd_tile - 1) / fwd_tile, (a.n + kRevTile - 1) / kRevTile, shift,
           (int)slab_count(a.n, shift)};
 }
 
@@ -1052,6 +869,14 @@ __device__ __forceinline__ bool frame_result(const Args& a, long long j, const P
   return count > 0;
 }
 
+// K16's result in the fused reverse pass.
+template <class V, bool kDivide>
+struct FrameResult {
+  __device__ static bool of(const Args& a, long long j, const Pos& q, unsigned long long* bits) {
+    return frame_result<V, true, kDivide>(a, j, q, bits);
+  }
+};
+
 // The results of a tile, computed in a rolled loop (one copy of
 // frame_result's code) into step 1's staging area, which is free until its
 // decisions are taken; step 1 then reads them from there.
@@ -1084,9 +909,10 @@ __device__ __forceinline__ void scatter_results(const SlabOut& so, const Results
 }
 
 // The reverse scan, warp-striped (see chunk_prefix; r = n - 1 - j). Where
-// fused, each position's result is computed as the second row-by-row scan
-// gives its ends, and the tile's results go to step 1.
-template <class V, bool kFuse, bool kDivide>
+// fused, each position's result (R::of: K16's FrameResult, K15's
+// RankResult) is computed as the second row-by-row scan gives its ends,
+// and the tile's results go to step 1.
+template <bool kFuse, class R>
 __global__ void __launch_bounds__(kRevThreads, 2) frame_reverse(const Args a) {
   typedef EndT T;
   __shared__ T warp_sh[kRevThreads / 32];
@@ -1137,9 +963,9 @@ __global__ void __launch_bounds__(kRevThreads, 2) frame_reverse(const Args a) {
       res.rows[slot] = kNoRow;
       if (r >= a.n) continue;
       const long long j = a.n - 1 - r;
-      const Pos q = {a.ps != nullptr ? a.ps[j] : -1, v.pe, -1, v.ge};
+      const Pos q = {a.ps != nullptr ? a.ps[j] : -1, v.pe, a.gs != nullptr ? a.gs[j] : -1, v.ge};
       unsigned long long bits;
-      const bool ok = frame_result<V, true, kDivide>(a, j, q, &bits);
+      const bool ok = R::of(a, j, q, &bits);
       res.bits[slot] = bits;
       res.rows[slot] = (unsigned)__ldg(a.order + j) | (ok ? kValidBit : 0u);
     } else {
@@ -1179,14 +1005,128 @@ __global__ void __launch_bounds__(kRevThreads, 2) frame_final(const Args a) {
   scatter_results(slab_out(a, l), res, final_smem);
 }
 
-cudaError_t launch_rows(void (*kernel)(Args), const Args& a, int device, cudaStream_t st) {
-  return launch_wave(kernel, a.n, kThreads, device, st, a);
+// ---- K15 ----------------------------------------------------------------
+//
+// rank_forward: the forward scan over warp-striped tiles of kRevTile
+// positions (frame_reverse's layout, forward), with decoupled look-back.
+// Its element: the last partition and peer group starts, and the peer
+// heads since the last partition start (dense_rank), reset there. Where
+// kFinal (row_number, rank, dense_rank), each result goes to step 1; else
+// it writes ps (and gs for percent_rank) for frame_reverse<true,
+// RankResult>.
+
+struct RankT {
+  int ps, gs, dr, start;
+};
+
+struct RankOp {
+  typedef RankT T;
+  __device__ T identity() const { return {-1, -1, 0, 0}; }
+  __device__ T operator()(const T& x, const T& y) const {
+    return {x.ps > y.ps ? x.ps : y.ps, x.gs > y.gs ? x.gs : y.gs, y.start ? y.dr : x.dr + y.dr,
+            x.start | y.start};
+  }
+};
+
+// Sorted position j's rank as the 8 bytes of the output, from its
+// partition's start ps and end pe, its peer group's start gs and end ge
+// and its dense rank dr (each where the function reads it).
+__device__ __forceinline__ unsigned long long rank_bits(const Args& a, long long j, long long ps,
+                                                        long long pe, long long gs, long long ge,
+                                                        long long dr) {
+  const long long local = j - ps, psize = pe - ps + 1;
+  switch ((int)a.func) {
+    case kRowNumber:
+      return (unsigned long long)(local + 1);
+    case kRank:
+      return (unsigned long long)(gs - ps + 1);
+    case kDenseRank:
+      return (unsigned long long)dr;
+    case kNtile: {
+      // the first psize % n buckets take one row more (:1570-1577)
+      const long long q = psize / a.param, rem = psize % a.param;
+      const long long cutoff = rem * (q + 1);
+      return (unsigned long long)(local < cutoff ? local / (q + 1) + 1
+                                                 : rem + (local - cutoff) / (q > 1 ? q : 1) + 1);
+    }
+    case kPercentRank:
+      return bits_of(psize > 1 ? (double)(gs - ps) / (double)(psize - 1) : 0.0);
+    default:  // kCumeDist: peers share their group's last position
+      return bits_of((double)(ge - ps + 1) / (double)psize);
+  }
 }
 
-cudaError_t position_scans(const Args& a, cudaStream_t st) {
-  cudaError_t err = run_scan<FwdPos>(a, st);
-  if (err != cudaSuccess) return err;
-  return run_scan<RevPos>(a, st);
+struct RankResult {
+  __device__ static bool of(const Args& a, long long j, const Pos& q, unsigned long long* bits) {
+    *bits = rank_bits(a, j, q.ps, q.pe, q.gs, q.ge, 0);
+    return true;
+  }
+};
+
+template <bool kFinal>
+__global__ void __launch_bounds__(kRevThreads, 2) rank_forward(const Args a) {
+  typedef RankT T;
+  __shared__ T warp_sh[kRevThreads / 32];
+  __shared__ T excl_sh;
+  __shared__ long long tile_sh;
+  extern __shared__ uint4 rank_smem[];  // step 1's, where final
+  const RankOp op;
+  const FrameLayout l = frame_layout(a);
+  if (threadIdx.x == 0) tile_sh = atomicAdd(a.state, 1);
+  __syncthreads();
+  const long long tile = tile_sh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = warp * 32 * kRevItems + lane;  // the lane's first slot in the tile
+  const long long chunk = tile * kRevTile + first;
+  // two bits an item: 1 a partition head, 2 a peer group head
+  unsigned heads = 0;
+#pragma unroll
+  for (int k = 0; k < kRevItems; ++k) {
+    const long long j = chunk + 32 * k;
+    if (j >= a.n) continue;
+    const bool ph = j == 0 || !same_part(a, j - 1, j);
+    const bool gh = ph || !same_words(a, j - 1, j);
+    heads |= ((ph ? 1u : 0u) | (gh ? 2u : 0u)) << (2 * k);
+  }
+  auto element = [&](long long j, int k) -> T {
+    if (j >= a.n) return op.identity();
+    const unsigned h = heads >> (2 * k);
+    return {h & 1u ? (int)j : -1, h & 2u ? (int)j : -1, h & 2u ? 1 : 0, (int)(h & 1u)};
+  };
+  T total = op.identity();
+#pragma unroll
+  for (int k = 0; k < kRevItems; ++k)
+    total = op(total, shfl_t(warp_scan(op, element(chunk + 32 * k, k)), 31));
+  T run = chunk_prefix<kRevThreads / 32>(op, total, warp_sh, &excl_sh,
+                                         static_cast<T*>(a.fwd_part), a.state + 2, l.fwd_tiles,
+                                         tile);
+  const Results res = results_in(rank_smem);
+#pragma unroll 1
+  for (int k = 0; k < kRevItems; ++k) {
+    const long long j = chunk + 32 * k;
+    const T x = warp_scan(op, element(j, k));
+    const T v = op(run, x);
+    run = op(run, shfl_t(x, 31));
+    if constexpr (kFinal) {
+      const int slot = first + 32 * k;
+      res.rows[slot] = kNoRow;
+      if (j >= a.n) continue;
+      res.bits[slot] = rank_bits(a, j, v.ps, -1, v.gs, -1, v.dr);
+      res.rows[slot] = (unsigned)__ldg(a.order + j) | kValidBit;
+    } else {
+      if (j >= a.n) continue;
+      a.ps[j] = v.ps;
+      if (a.gs != nullptr) a.gs[j] = v.gs;
+    }
+  }
+  if constexpr (kFinal) {
+    __syncthreads();
+    scatter_results(slab_out(a, l), res, rank_smem);
+  }
+}
+
+cudaError_t launch_rows(void (*kernel)(Args), const Args& a, int device, cudaStream_t st) {
+  return launch_wave(kernel, a.n, kThreads, device, st, a);
 }
 
 // A launch of kernel over `grid` blocks of kRevThreads with step 1's
@@ -1200,13 +1140,41 @@ cudaError_t launch_step1(const Args& a, long long grid, int nslabs, int device,
   return launch_cluster(Kernel, grid, kRevThreads, 1, smem, st, a);
 }
 
+// The call's one memset: the scans' tile counters and flags, the buckets'
+// counts.
+cudaError_t clear_state(const Args& a, const FrameLayout& l, cudaStream_t st) {
+  return cudaMemsetAsync(a.state, 0,
+                         sizeof(int) * (2 + l.fwd_tiles + l.rev_tiles + (long long)l.nslabs), st);
+}
+
+// Step 2, after step 1 has filled the buckets: each slab of the output
+// (and its mask) written once.
+cudaError_t build_out(const Args& a, const FrameLayout& l, int device, cudaStream_t st) {
+  const ImageParams ip = {a.n, l.shift, l.nslabs, a.slab_offs, a.slab_vals,
+                          a.state + 2 + l.fwd_tiles + l.rev_tiles, a.out, a.outm};
+  return a.outm != nullptr ? build_image<unsigned long long, true>(ip, device, st)
+                           : build_image<unsigned long long, false>(ip, device, st);
+}
+
+cudaError_t run_rank(const Args& a, int device, cudaStream_t st) {
+  const FrameLayout l = frame_layout(a);
+  const bool forward_only = a.func <= kDenseRank;
+  cudaError_t err = clear_state(a, l, st);
+  if (err == cudaSuccess)
+    err = forward_only ? launch_step1<rank_forward<true>>(a, l.fwd_tiles, l.nslabs, device, st)
+                       : launch_params(rank_forward<false>, l.fwd_tiles, kRevThreads, st, a);
+  if (err == cudaSuccess && !forward_only)
+    err = launch_step1<frame_reverse<true, RankResult>>(a, l.rev_tiles, l.nslabs, device, st);
+  if (err != cudaSuccess) return err;
+  return build_out(a, l, device, st);
+}
+
 template <class V>
 cudaError_t run_frame(const Args& a, int device, cudaStream_t st) {
   const FrameLayout l = frame_layout(a);
   cudaError_t err;
   if (a.stage != 2) {
-    err = cudaMemsetAsync(a.state, 0,
-                          sizeof(int) * (2 + l.fwd_tiles + l.rev_tiles + (long long)l.nslabs), st);
+    err = clear_state(a, l, st);
     const bool pos = a.ps != nullptr || a.gs != nullptr || a.cnt != nullptr;
     if (err == cudaSuccess)
       err = pos ? launch_params(frame_forward<V, true>, l.fwd_tiles, kFwdThreads, st, a)
@@ -1214,10 +1182,13 @@ cudaError_t run_frame(const Args& a, int device, cudaStream_t st) {
     if (err != cudaSuccess) return err;
     if (a.fuse) {
       err = a.func == kAvg
-                ? launch_step1<frame_reverse<V, true, true>>(a, l.rev_tiles, l.nslabs, device, st)
-                : launch_step1<frame_reverse<V, true, false>>(a, l.rev_tiles, l.nslabs, device, st);
+                ? launch_step1<frame_reverse<true, FrameResult<V, true>>>(a, l.rev_tiles,
+                                                                          l.nslabs, device, st)
+                : launch_step1<frame_reverse<true, FrameResult<V, false>>>(a, l.rev_tiles,
+                                                                           l.nslabs, device, st);
     } else {
-      err = launch_params(frame_reverse<V, false, false>, l.rev_tiles, kRevThreads, st, a);
+      err = launch_params(frame_reverse<false, FrameResult<long long, false>>, l.rev_tiles,
+                          kRevThreads, st, a);
       if (err == cudaSuccess && a.stage == 1) return launch_rows(frame_bounds, a, device, st);
     }
     if (err != cudaSuccess) return err;
@@ -1234,10 +1205,7 @@ cudaError_t run_frame(const Args& a, int device, cudaStream_t st) {
                          : launch_step1<frame_final<V, false>>(a, l.rev_tiles, l.nslabs, device, st);
     if (err != cudaSuccess) return err;
   }
-  const ImageParams ip = {a.n, l.shift, l.nslabs, a.slab_offs, a.slab_vals,
-                          a.state + 2 + l.fwd_tiles + l.rev_tiles, a.out, a.outm};
-  return a.outm != nullptr ? build_image<unsigned long long, true>(ip, device, st)
-                           : build_image<unsigned long long, false>(ip, device, st);
+  return build_out(a, l, device, st);
 }
 
 bool bad_words(const Args* a) {
@@ -1249,17 +1217,24 @@ bool bad_words(const Args* a) {
   return a->order == nullptr || a->out == nullptr;
 }
 
-bool bad_args(const Args* a) {
-  return bad_words(a) || a->agg == nullptr || a->ps == nullptr || a->pe == nullptr ||
-         a->gs == nullptr || a->ge == nullptr || a->cnt == nullptr;
+// The scans' and the slab store's scratch.
+bool bad_scratch(const Args* a) {
+  return bad_words(a) || a->state == nullptr || a->fwd_part == nullptr ||
+         a->rev_part == nullptr || a->slab_offs == nullptr || a->slab_vals == nullptr ||
+         reinterpret_cast<uintptr_t>(a->out) % 16 != 0 ||
+         reinterpret_cast<uintptr_t>(a->outm) % 16 != 0;
+}
+
+bool bad_rank_args(const Args* a) {
+  if (bad_scratch(a) || a->func < kRowNumber || a->func > kCumeDist ||
+      (a->func == kNtile && a->param < 1) || a->outm != nullptr)
+    return true;
+  // the reverse pass reads ps (percent_rank also gs) from the forward scan
+  return (a->func > kDenseRank && a->ps == nullptr) || (a->func == kPercentRank && a->gs == nullptr);
 }
 
 bool bad_frame_args(const Args* a) {
-  if (bad_words(a) || a->state == nullptr || a->fwd_part == nullptr || a->rev_part == nullptr ||
-      a->slab_offs == nullptr || a->slab_vals == nullptr ||
-      reinterpret_cast<uintptr_t>(a->out) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(a->outm) % 16 != 0)
-    return true;
+  if (bad_scratch(a)) return true;
   // the final pass reads every position's bounds
   return !a->fuse && (a->ps == nullptr || a->pe == nullptr || a->gs == nullptr ||
                       a->ge == nullptr || a->cnt == nullptr);
@@ -1271,15 +1246,9 @@ bool bad_frame_args(const Args* a) {
 // launched.
 extern "C" int fugue_window_rank(const WindowArgs* a, int device, void* stream, int* launched) {
   *launched = 0;
-  if (bad_args(a) || a->func < kRowNumber || a->func > kCumeDist ||
-      (a->func == kNtile && a->param < 1))
-    return (int)cudaErrorInvalidValue;
+  if (bad_rank_args(a)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = on_device(device, [&] {
-    cudaError_t e = position_scans(*a, st);
-    if (e != cudaSuccess) return e;
-    return launch_rows(rank_final, *a, device, st);
-  });
+  const cudaError_t err = on_device(device, [&] { return run_rank(*a, device, st); });
   if (err == cudaSuccess) *launched = 1;
   return (int)err;
 }
@@ -1300,9 +1269,10 @@ extern "C" int fugue_window_frame(const WindowArgs* a, int device, void* stream,
   return (int)err;
 }
 
-// K16's scratch shapes: out[0] and out[1] the forward and reverse tiles'
-// positions, out[2] and out[3] their scan elements' bytes, out[4] the
-// log2 of a slab's rows.
+// The scratch shapes: out[0] and out[1] K16's forward and the reverse
+// tiles' positions, out[2] and out[3] their scan elements' bytes, out[4]
+// the log2 of a slab's rows, out[5] and out[6] K15's forward tiles'
+// positions and scan element's bytes.
 extern "C" void fugue_window_frame_layout(long long* out) {
   out[0] = kFwdTile;
   out[1] = kRevTile;
@@ -1311,14 +1281,9 @@ extern "C" void fugue_window_frame_layout(long long* out) {
                            : sizeof(FwdT<long long, true>));
   out[3] = (long long)sizeof(EndT);
   out[4] = slab_shift(8);
+  out[5] = kRevTile;
+  out[6] = (long long)sizeof(RankT);
 }
-
-// The bytes of K15's scan scratch a tile needs: the largest scan element.
-extern "C" long long fugue_window_tile_bytes() {
-  return (long long)(sizeof(PosT) > sizeof(EndT) ? sizeof(PosT) : sizeof(EndT));
-}
-
-extern "C" long long fugue_window_tile_rows() { return kTile; }
 
 // The message of a cudaError_t, for the wrapper's exception.
 extern "C" const char* fugue_window_error_string(int err) {

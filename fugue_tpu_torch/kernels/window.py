@@ -7,10 +7,13 @@ and the scratch and launch the window kernels on PyTorch's current stream.
   first/last/nth_value of every row over its frame.
 
 Both take the rows in window order (``reference.SortedWords``) and write
-their outputs in row order. Each has the contract of its twin in
+their outputs in row order, through the order by slab
+(``order_scatter.cuh``). Each has the contract of its twin in
 ``reference.py``. Each wrapper's ``launches`` grows by one where it
 launches its kernels (several launches of one C call, or two calls for
-K16's table route) and nowhere else. K16's min/max over a frame of the
+K16's table route) and nowhere else; its ``last_fill`` keeps each slab's
+bucket count of the last call (int32, on the device) and ``last_shift``
+a slab's log2 rows. K16's min/max over a frame of the
 ``"span"`` route reads back the longest frame between its two calls, and
 sizes its sparse table to it; ``window_frame_cuda.last_levels`` keeps
 that table's levels (0 where no table was built)."""
@@ -52,7 +55,7 @@ class _Args(ctypes.Structure):
         ("values", _P), ("vmask", _P), ("is_float", _L), ("has_default", _L),
         ("default_i", _L), ("default_f", _D),
         ("key", _P), ("kmask", _P), ("key_desc", _L),
-        ("agg", _P), ("ps", _P), ("pe", _P), ("gs", _P), ("ge", _P), ("cnt", _P),
+        ("ps", _P), ("pe", _P), ("gs", _P), ("ge", _P), ("cnt", _P),
         ("gstart", _P), ("gend", _P), ("skv", _P), ("snull", _P),
         ("P", _P), ("C", _P), ("M", _P), ("sv", _P), ("sm", _P),
         ("lo", _P), ("hi", _P), ("maxlen", _P), ("levels", _P), ("nlevels", _L),
@@ -71,8 +74,6 @@ def _bind() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.fugue_window_frame_layout.argtypes = [ctypes.POINTER(_L)]
         lib.fugue_window_frame_layout.restype = None
-        lib.fugue_window_tile_bytes.restype = _L
-        lib.fugue_window_tile_rows.restype = _L
         lib.fugue_window_error_string.argtypes = [ctypes.c_int]
         lib.fugue_window_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,18 +152,50 @@ def window_rank_cuda(sw: SortedWords, func: str, param: int = 0) -> torch.Tensor
     if func == "ntile" and param < 1:
         raise ValueError("ntile takes at least one bucket")
     a, s, lib = _sorted_args(sw, "window_rank_cuda")
-    tiles = -(-s.n // lib.fugue_window_tile_rows())
-    a.agg = s.of(torch.uint8, tiles * lib.fugue_window_tile_bytes()).data_ptr()
-    _position_arrays(a, s, _POSITIONS)
     a.func, a.param = _RANK_CODES[func], int(param)
+    _position_arrays(a, s, rank_positions(func))
+    fill, shift = _slab_scratch(a, s, lib, rank=True)
     out = s.of(torch.float64 if func in ("percent_rank", "cume_dist") else torch.int64)
     a.out = out.data_ptr()
     if _call(lib, lib.fugue_window_rank, a, s.device, "window_rank"):
         window_rank_cuda.launches += 1
+    window_rank_cuda.last_fill, window_rank_cuda.last_shift = fill, shift
     return out
 
 
+def rank_positions(func: str) -> Tuple[str, ...]:
+    """The per-position arrays K15's forward scan writes for its reverse
+    pass: none for row_number, rank and dense_rank (final in the forward
+    scan), the partition start for ntile and cume_dist, and the peer
+    group's start too for percent_rank."""
+    if func in ("row_number", "rank", "dense_rank"):
+        return ()
+    return ("ps", "gs") if func == "percent_rank" else ("ps",)
+
+
+def _slab_scratch(a: _Args, s: _Scratch, lib: ctypes.CDLL, rank: bool
+                  ) -> Tuple[torch.Tensor, int]:
+    """The single-pass scans' and the slab store's scratch in ``a``: the
+    int32 state (two tile counters, the forward and reverse tiles' flags,
+    each slab's bucket count; zeroed by the call), the tiles' published
+    elements and the bucket entries. Returns the buckets' counts and a
+    slab's log2 rows."""
+    fwd_rows, rev_rows, fwd_bytes, rev_bytes, shift, rank_rows, rank_bytes = _layout(lib)
+    if rank:
+        fwd_rows, fwd_bytes = rank_rows, rank_bytes
+    n = s.n
+    fwd_tiles, rev_tiles = -(-n // fwd_rows), -(-n // rev_rows)
+    state = s.of(torch.int32, 2 + fwd_tiles + rev_tiles + (-(-n >> shift)))
+    a.state = state.data_ptr()
+    a.fwd_part = s.of(torch.uint8, 2 * fwd_tiles * fwd_bytes).data_ptr()
+    a.rev_part = s.of(torch.uint8, 2 * rev_tiles * rev_bytes).data_ptr()
+    a.slab_offs, a.slab_vals = s.of(torch.int32).data_ptr(), s.of(torch.int64).data_ptr()
+    return state[2 + fwd_tiles + rev_tiles:], shift
+
+
 window_rank_cuda.launches = 0  # type: ignore[attr-defined]
+window_rank_cuda.last_fill = None  # type: ignore[attr-defined]
+window_rank_cuda.last_shift = 0  # type: ignore[attr-defined]
 
 
 def _frame_output_float(frame: WindowFrame) -> bool:
@@ -245,15 +278,8 @@ def window_frame_cuda(sw: SortedWords, frame: WindowFrame
             a.M = s.of(vt).data_ptr()
     if f.func != "count_star" and (not aggregate or f.route == "loop" or table):
         a.sv, a.sm = s.of(vt).data_ptr(), s.of(torch.bool).data_ptr()
-    # the scans' tiles and the store's slabs
-    fwd_rows, rev_rows, fwd_bytes, rev_bytes, shift = _layout(lib)
-    fwd_tiles, rev_tiles = -(-n // fwd_rows), -(-n // rev_rows)
-    state = s.of(torch.int32, 2 + fwd_tiles + rev_tiles + (-(-n >> shift)))
-    a.state = state.data_ptr()
-    a.fwd_part = s.of(torch.uint8, 2 * fwd_tiles * fwd_bytes).data_ptr()
-    a.rev_part = s.of(torch.uint8, 2 * rev_tiles * rev_bytes).data_ptr()
+    fill, shift = _slab_scratch(a, s, lib, rank=False)
     a.fuse = int(fuse)
-    a.slab_offs, a.slab_vals = s.of(torch.int32).data_ptr(), s.of(torch.int64).data_ptr()
     out = s.of(torch.float64 if _frame_output_float(f) else torch.int64)
     mask = None if f.func in ("count", "count_star") else s.of(torch.bool)
     a.out, a.outm = out.data_ptr(), _ptr(mask)
@@ -272,15 +298,15 @@ def window_frame_cuda(sw: SortedWords, frame: WindowFrame
         window_frame_cuda.last_levels = levels
     if launched:
         window_frame_cuda.launches += 1
-    window_frame_cuda.last_fill = state[2 + fwd_tiles + rev_tiles:]
-    window_frame_cuda.last_shift = shift
+    window_frame_cuda.last_fill, window_frame_cuda.last_shift = fill, shift
     return out, mask
 
 
 def _layout(lib: ctypes.CDLL) -> Tuple[int, ...]:
-    """``fugue_window_frame_layout``: the forward and reverse tiles'
-    positions and elements' bytes, and the log2 of a slab's rows."""
-    out = (_L * 5)()
+    """``fugue_window_frame_layout``: K16's forward and the reverse tiles'
+    positions and elements' bytes, the log2 of a slab's rows, and K15's
+    forward tiles' positions and element's bytes."""
+    out = (_L * 7)()
     lib.fugue_window_frame_layout(out)
     return tuple(int(v) for v in out)
 

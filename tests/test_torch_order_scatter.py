@@ -324,3 +324,89 @@ def test_chip_smoke_sort_finish_slab_phase_on_cpu(monkeypatch):
     monkeypatch.setattr(factorize_kernels, "sort_finish_cuda", finish)
     chip_smoke.sort_finish_slab_cases(torch.device("cpu"))
     assert sizes[1:] == list(chip_smoke.slab_sizes(SHIFT))
+
+
+# ---- K15 on the same machinery ------------------------------------------
+
+
+def rank_combine(x: Tuple, y: Tuple) -> Tuple:
+    """K15's forward element (ps, gs, dense rank, start): the dense rank
+    counts peer heads since the last partition start."""
+    return (max(x[0], y[0]), max(x[1], y[1]), y[2] if y[3] else x[2] + y[2], x[3] | y[3])
+
+
+def rank_model(sw: R.SortedWords, func: str, param: int, tile: int,
+               rng: np.random.Generator) -> np.ndarray:
+    """``window.cu``'s K15: ``rank_forward``'s look-back scan; for
+    row_number, rank and dense_rank each result from it, for ntile,
+    percent_rank and cume_dist from ps and gs and the reverse scan's pe
+    and ge; then the store through the order by slab (``scatter_model``)."""
+    order = sw.order.numpy()
+    n = len(order)
+    w = sw.words[0].numpy().astype(np.int64)
+    w = w & 0xFFFFFFFF if sw.words[0].dtype == torch.int32 else w
+    pk = w.astype(np.uint64) >> np.uint64(sw.part_shift)
+    head = np.ones(n, dtype=bool)
+    head[1:] = pk[1:] != pk[:-1]
+    peer = head.copy()
+    for word in sw.words:
+        x = word.numpy()
+        peer[1:] |= x[1:] != x[:-1]
+    fwd = [(j if head[j] else -1, j if peer[j] else -1, int(peer[j]), int(head[j]))
+           for j in range(n)]
+    got = lookback_scan(fwd, rank_combine, (-1, -1, 0, 0), tile, rng)
+    ps, gs, dr = (np.array([g[i] for g in got], dtype=np.int64) for i in range(3))
+    pend = np.ones(n, dtype=bool)
+    pend[:-1] = head[1:]
+    gend = np.ones(n, dtype=bool)
+    gend[:-1] = peer[1:]
+    big = 1 << 31
+    rev = [(j if pend[j] else big, j if gend[j] else big) for j in range(n - 1, -1, -1)]
+    ends = lookback_scan(rev, reverse_combine, (big, big), tile, rng)[::-1]
+    pe, ge = (np.array([e[i] for e in ends], dtype=np.int64) for i in range(2))
+    j = np.arange(n)
+    local, psize = j - ps, pe - ps + 1
+    if func == "row_number":
+        res = local + 1
+    elif func == "rank":
+        res = gs - ps + 1
+    elif func == "dense_rank":
+        res = dr
+    elif func == "ntile":
+        q, rem = psize // param, psize % param
+        cutoff = rem * (q + 1)
+        res = np.where(local < cutoff, local // (q + 1) + 1,
+                       rem + (local - cutoff) // np.maximum(q, 1) + 1)
+    elif func == "percent_rank":
+        res = np.where(psize > 1, (gs - ps) / np.maximum(psize - 1, 1), 0.0).view(np.int64)
+    else:
+        res = ((ge - ps + 1) / psize).view(np.int64)
+    out, _, fill = scatter_model(order, res.astype(np.int64), np.ones(n, dtype=bool), n, SHIFT,
+                                 tile, rng)
+    np.testing.assert_array_equal(fill, _slab_rows(n, SHIFT))
+    return out
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("func,param", chip_smoke.RANK_CASES, ids=str)
+def test_rank_model_matches_the_twin(n, func, param):
+    """K15's model against ``window_rank_reference`` bit for bit on every
+    edge order of ``chip_smoke.rank_edge_orders`` (one partition, a
+    partition a row, one peer group, random partitions; a random and an
+    ascending order) at the tiles' and slabs' edges."""
+    for label, sw in chip_smoke.rank_edge_orders(torch.device("cpu"), n, n):
+        want = R.window_rank_reference(sw, func, param).numpy().view(np.int64)
+        got = rank_model(sw, func, param, TILE, np.random.default_rng(n))
+        np.testing.assert_array_equal(got, want, err_msg=label)
+
+
+@pytest.mark.parametrize("parts", [1, 3, 10_000], ids=["one partition", "three", "1-row"])
+def test_rank_model_on_a_masked_frame(parts):
+    """K15's model on a masked frame's window order (rows that are not
+    real sort last, ranked as the twin ranks them), many tiles finishing
+    in random orders."""
+    sw = _sorted_words(_frame_data(300, parts, parts))
+    for func, param in chip_smoke.RANK_CASES:
+        want = R.window_rank_reference(sw, func, param).numpy().view(np.int64)
+        np.testing.assert_array_equal(rank_model(sw, func, param, 4,
+                                                 np.random.default_rng(parts)), want)

@@ -274,3 +274,249 @@ def test_chip_smoke_streaming_phases_on_cpu(monkeypatch: pytest.MonkeyPatch) -> 
     monkeypatch.setattr(chip_smoke, "STREAM_ITEMS", (40, 60))
     st = chip_smoke.stream_path(torch.device("cpu"), 8, 5000, 1)
     assert 0 < st["groups"] <= 3000 and st["rebases_per_run"] == 1
+
+
+# ---- K19's slab plan and a model of its four steps --------------------------
+
+from fugue_tpu_torch.kernels import stream as stream_kernels  # noqa: E402
+from fugue_tpu_torch.kernels.reference import fold_segments  # noqa: E402
+
+
+@pytest.mark.parametrize("width,slots,shift,nslabs", [
+    (1, 1_000_000, 14, 62), (20, 1_000_000, 10, 977), (20, 1024, 10, 1), (20, 1025, 10, 2),
+    (48, 1 << 22, 8, 1 << 14), (21, 5000, 9, 10), (3, 100, 12, 1)])
+def test_fold_plan_slab_slots_follow_the_width(width, slots, shift, nslabs):
+    """A slab is the most slots whose accumulators fit ``IMAGE_BYTES``
+    (a power of two); a store of one slab takes the direct route with no
+    scratch."""
+    ops = [FoldOp("count", j, j) for j in range(width)]  # distinct: one accumulator each
+    plan = stream_kernels.fold_plan(width, slots, 10_000_000, ops, width)
+    assert plan.accumulators == width
+    assert (plan.shift, plan.nslabs) == (shift, nslabs)
+    assert (width << plan.shift) * 8 <= stream_kernels.IMAGE_BYTES
+    assert (width << (plan.shift + 1)) * 8 > stream_kernels.IMAGE_BYTES or plan.shift == 16
+    assert plan.route == ("direct" if nslabs == 1 else "slabs")
+    if nslabs == 1:
+        assert plan.state_ints == plan.scratch_bytes == 0
+
+
+def test_fold_plan_scratch_sizing():
+    """An entry is 8 B a row (its slot in its slab with the payloads'
+    validity bits, and its row) whatever the payloads; the counters 4
+    ints a slab. A payload that is only counted has its values never
+    read. The stream's chunk: 10M rows, 80 MB."""
+    ops = [FoldOp("rows", -1, 0), FoldOp("count", 0, 1), FoldOp("sum_f", 0, 2),
+           FoldOp("count", 1, 3), FoldOp("min_i", 2, 4), FoldOp("max_i", 2, 5)]
+    plan = stream_kernels.fold_plan(20, 1_000_000, 10_000_000, ops, 3)
+    assert plan.reads == (True, False, True)
+    assert plan.state_ints == 4 * plan.nslabs + 2
+    assert plan.scratch_bytes == 4 * plan.state_ints + 10_000_000 * 8
+    assert 0.08e9 <= plan.scratch_bytes <= 0.081e9
+
+
+def test_fold_plan_refusals():
+    with pytest.raises(ValueError, match="accumulators a slot"):
+        stream_kernels.fold_plan(49, 10, 1, [], 0)
+    with pytest.raises(ValueError, match="slabs"):
+        stream_kernels.fold_plan(48, (1 << 22) + 1, 1, [FoldOp("count", j, j) for j in range(48)],
+                                 48)
+
+
+def test_fold_plan_repeated_columns_share_an_accumulator():
+    """The stream's 20 columns (two payloads' sum, count, min, max and avg,
+    the rows, a count(*)) are 11 distinct accumulators: an average's sum
+    beside a sum, and a payload's count beside each of its functions, fold
+    once. Their slab is 1,024 slots (88 B a slot)."""
+    schema = ft.Schema("store:int,item:long,qty:long,price:double")
+    plans = [(f"{c}_{f}", f, c) for c in ("qty", "price") for f in ("sum", "count", "min",
+                                                                     "max", "avg")]
+    plans.append(("n", "count", "store"))
+    agg = streaming.StreamingAggregator(ft.make_execution_engine(device="cpu"), schema,
+                                        ["store", "item"], plans)
+    plan = stream_kernels.fold_plan(len(agg._ops), 1_000_000, 10_000_000, agg._ops, 3)
+    assert (len(agg._ops), plan.accumulators, plan.shift, plan.nslabs) == (20, 11, 10, 977)
+
+
+_NEUTRAL = {"min_i": (1 << 63) - 1, "min_f": (1 << 63) - 1, "max_i": -(1 << 63),
+            "max_f": -(1 << 63)}
+
+
+def _merge(dst: torch.Tensor, image: torch.Tensor, ops: List[FoldOp]) -> None:
+    """A piece's image merged into the store, accumulator by accumulator
+    (the global atomics of ``image_finish``), skipping neutral values."""
+    for op in ops:
+        d, v = dst[:, op.acc], image[:, op.acc]
+        moved = v != _NEUTRAL.get(op.kind, 0)
+        if op.kind in ("sum_f", "sum_if"):
+            d.view(torch.float64)[moved] += v.view(torch.float64)[moved]
+        elif op.kind.startswith("min"):
+            d[moved] = torch.minimum(d[moved], v[moved])
+        elif op.kind.startswith("max"):
+            d[moved] = torch.maximum(d[moved], v[moved])
+        else:
+            d[moved] += v[moved]
+
+
+def _fold_image(image: torch.Tensor, off: torch.Tensor, payloads: List[Any],
+                ops: List[FoldOp]) -> None:
+    stream_fold_reference([off], [(0, int(image.shape[0]))], payloads, ops, image)
+
+
+def fold_model(keys: List[torch.Tensor], bounds: List[Any], payloads: List[Any],
+               ops: List[FoldOp], store: torch.Tensor, image_bytes: int, piece: int,
+               tile: int, blocks: int, rng: np.random.Generator) -> torch.Tensor:
+    """``stream.cu``'s steps in torch: the slab plan (``fold_plan`` at
+    ``image_bytes``); on the direct route ``blocks`` blocks over ranges
+    of the rows; else the slabs' rows, their buckets and pieces of at most
+    ``piece`` entries, tiles of ``tile`` rows partitioned by slab and
+    reserving their runs in a random order. Each block or piece folds into
+    an image of its slots that starts from the neutral values, and the
+    image goes into the store accumulator by accumulator (combined in
+    place where one block owns the slots, by atomics where several do:
+    the same values)."""
+    slots, width = store.shape
+    plan = stream_kernels.fold_plan(width, slots, len(keys[0]), ops, len(payloads), image_bytes)
+    seg = fold_segments(keys, bounds)
+    inside = (seg >= 0) & (seg < slots)
+    slab_slots = 1 << plan.shift
+    init = torch.tensor([_NEUTRAL.get(op.kind, 0) for op in ops])
+
+    def neutral_image(rows: int) -> torch.Tensor:
+        return init.unsqueeze(0).repeat(rows, 1)
+
+    if plan.route == "direct":
+        n = len(seg)
+        per = -(-n // blocks)
+        for b in range(blocks):
+            rows = torch.arange(b * per, min(n, (b + 1) * per))
+            rows = rows[inside[rows]]
+            pl = [(v[rows], None if m is None else m[rows]) for v, m in payloads]
+            image = neutral_image(slots)
+            _fold_image(image, seg[rows], pl, ops)
+            _merge(store, image, ops)
+        return store
+    slab = torch.where(inside, seg >> plan.shift, -1)
+    counts = torch.bincount(slab[inside], minlength=plan.nslabs)
+    start = torch.cumsum(counts, 0) - counts
+    pieces = (counts + piece - 1) // piece
+    pfirst = torch.cumsum(pieces, 0) - pieces
+    n = len(seg)
+    entries = torch.full((int(counts.sum()),), -1, dtype=torch.int64)  # the row of each entry
+    fill = torch.zeros(plan.nslabs, dtype=torch.int64)
+    for t in rng.permutation(-(-n // tile)):
+        rows = torch.arange(t * tile, min(n, (t + 1) * tile))
+        rows = rows[inside[rows]]
+        for s in torch.unique(slab[rows]).tolist():  # a run a slab, in row order
+            run = rows[slab[rows] == s]
+            at = int(start[s] + fill[s])
+            entries[at:at + len(run)] = run
+            fill[s] += len(run)
+    assert torch.equal(fill, counts) and bool((entries >= 0).all())
+    for b in range(int(pieces.sum())):
+        s = int(torch.searchsorted(pfirst, torch.tensor(b), right=True)) - 1
+        e0 = int(start[s]) + (b - int(pfirst[s])) * piece
+        e1 = min(e0 + piece, int(start[s] + counts[s]))
+        rows = entries[e0:e1]
+        pl = [(v[rows], None if m is None else m[rows]) for v, m in payloads]
+        lo = s * slab_slots
+        hi = min(slots, lo + slab_slots)
+        image = neutral_image(hi - lo)
+        _fold_image(image, seg[rows] - lo, pl, ops)
+        _merge(store[lo:hi], image, ops)
+    return store
+
+
+def _fold_case(kind: str, n: int, rng: np.random.Generator) -> Any:
+    slots = 3000 if kind != "within_one_slab" else 40
+    if kind == "one_slot":
+        seg = np.full(n, 7)
+    elif kind == "zipf":
+        seg = (rng.zipf(1.1, n) - 1) % slots
+    elif kind == "outside_rows":
+        seg = rng.integers(-50, slots + 50, n)
+    else:
+        seg = rng.integers(0, slots, n)
+    keys = [torch.from_numpy(seg // 100), torch.from_numpy(seg % 100)]
+    bounds = [(0, -(-slots // 100)), (0, 100)]
+    if kind in ("within_one_slab", "outside_rows"):
+        keys, bounds = [torch.from_numpy(seg)], [(0, slots)]
+    ints = torch.from_numpy(rng.integers(-1000, 1000, n))
+    floats = torch.from_numpy(rng.standard_normal(n))
+    payloads = [(ints, torch.from_numpy(rng.random(n) > 0.1)),
+                (floats, torch.from_numpy(rng.random(n) > 0.1)), (ints, None)]
+    kinds = [("rows", -1), ("count", 0), ("sum_i", 0), ("sum_if", 0), ("min_i", 0),
+             ("max_i", 0), ("count", 1), ("sum_f", 1), ("min_f", 1), ("max_f", 1), ("count", 2)]
+    if kind == "width_1":
+        kinds = [("sum_f", 1)]
+    ops = [FoldOp(k, p, j) for j, (k, p) in enumerate(kinds)]
+    store = torch.tensor([fold_init(op.kind) for op in ops]).unsqueeze(0).repeat(slots, 1)
+    return keys, bounds, payloads, ops, store
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one_slot", "zipf", "within_one_slab",
+                                  "outside_rows", "one_row", "width_1"])
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_fold_model_matches_the_twin(kind, blocks):
+    """The model of K19's steps, slabs of 64 or 128 slots (``image_bytes``
+    5,120), pieces of 50 entries and tiles of 96 rows, folded twice into
+    one store, against the twin: counts, integer sums and extrema exactly,
+    float sums within rtol 1e-9 (the pieces add in another order)."""
+    rng = np.random.default_rng(hash(kind) % 1000 + blocks)
+    n = 1 if kind == "one_row" else 2000
+    keys, bounds, payloads, ops, store = _fold_case(kind, n, rng)
+    want = store.clone()
+    for _ in range(2):
+        stream_fold_reference(keys, bounds, payloads, ops, want)
+        fold_model(keys, bounds, payloads, ops, store, 5120, 50, 96, blocks, rng)
+    for op in ops:
+        g, w = store[:, op.acc], want[:, op.acc]
+        if op.kind in ("sum_f", "sum_if"):
+            np.testing.assert_allclose(g.view(torch.float64).numpy(),
+                                       w.view(torch.float64).numpy(), rtol=1e-9, atol=1e-12)
+        else:
+            assert torch.equal(g, w), op
+
+
+@pytest.mark.parametrize("kind", ["one_slot", "zipf"])
+def test_skewed_chunk_twin_matches_numpy(kind):
+    """K19's twin on a skewed chunk (every row in one slot; a Zipf(1.1)
+    slot) against numpy: the rows, valid counts, sums and extrema."""
+    rng = np.random.default_rng(5)
+    n = 5000
+    keys, bounds, payloads, ops, store = _fold_case(kind, n, rng)
+    stream_fold_reference(keys, bounds, payloads, ops, store)
+    seg = fold_segments(keys, bounds).numpy()
+    slots = store.shape[0]
+    assert store[:, 0].tolist() == np.bincount(seg, minlength=slots).tolist()
+    ints, im = (t.numpy() for t in payloads[0])
+    floats, fm = (t.numpy() for t in payloads[1])
+    assert store[:, 1].tolist() == np.bincount(seg[im], minlength=slots).tolist()
+    sums = np.zeros(slots, dtype=np.int64)
+    np.add.at(sums, seg[im], ints[im])
+    assert store[:, 2].tolist() == sums.tolist()
+    hi = np.full(slots, np.iinfo(np.int64).min)
+    np.maximum.at(hi, seg[im], ints[im])
+    assert store[:, 5].tolist() == hi.tolist()
+    np.testing.assert_allclose(store[:, 7].view(torch.float64).numpy(),
+                               np.bincount(seg[fm], floats[fm], slots), rtol=1e-9, atol=1e-12)
+    fmax = np.full(slots, -np.inf)
+    np.maximum.at(fmax, seg[fm], floats[fm])
+    assert np.array_equal(streaming._from_order_key(store[:, 9], torch.float64).numpy(), fmax)
+    assert store[:, 10].tolist() == np.bincount(seg, minlength=slots).tolist()
+
+
+def test_chip_smoke_stream_fold_edges_on_cpu(monkeypatch: pytest.MonkeyPatch) -> None:
+    """``chip_smoke.stream_fold_edges`` (every edge case, timed) at a small
+    size, with K19's twin standing in for the kernel."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "STREAM_STORES", 50)
+    monkeypatch.setattr(chip_smoke, "STREAM_ITEMS", (40, 60))
+    monkeypatch.setattr(chip_smoke, "time_cuda", lambda fn, reps: (fn(), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, "device_split_ms", lambda fn, device: None)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "cpu")
+    out = chip_smoke.stream_fold_edges(torch.device("cpu"), 3000, fold=stream_fold_reference)
+    assert [c["case"] for c in out] == [
+        "uniform", "one_slot", f"zipf_{chip_smoke.FOLD_ZIPF}", "within_one_slab",
+        "three_slabs_and_17", "outside_rows", "one_row", "width_1", "width_48"]
+    assert [c["accumulators"] for c in out][-2:] == [1, 48] and out[6]["rows"] == 1

@@ -341,3 +341,20 @@ def test_chip_smoke_window_slab_phase_on_cpu(twins_as_kernels):
     worst = chip_smoke.window_slab_cases(torch.device("cpu"))
     assert math.isfinite(worst)
     assert twins_as_kernels[1].launches == 1 + 2 * 11  # the probe, 11 frame cases a size
+
+
+def test_rank_positions_of_the_reverse_functions():
+    """K15's forward scan writes no position for the functions it
+    finishes, ps for ntile and cume_dist, ps and gs for percent_rank."""
+    from fugue_tpu_torch.kernels.window import rank_positions
+
+    assert [rank_positions(f) for f in R.RANK_FUNCS] == [
+        (), (), (), ("ps",), ("ps", "gs"), ("ps",)]
+
+
+def test_chip_smoke_window_rank_edges_on_cpu(twins_as_kernels):
+    """``chip_smoke.window_rank_edges`` (every rank function on the edge
+    orders at a tile's and a slab's edges, small here) with the twin as
+    K15."""
+    chip_smoke.window_rank_edges(torch.device("cpu"))
+    assert twins_as_kernels[0].launches == 9 * 8 * len(chip_smoke.RANK_CASES)
