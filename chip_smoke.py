@@ -25,8 +25,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``float_tolerance``. Then, exactly, K1 in every case of
    ``bin_factorize_cases`` and the sort path's kernels in every case of
    ``sort_cases`` (``sort_vs_twin``: KW, K2w, K3w and K3 on the word
-   route, K2 and K3 on the wide route), up to 100M rows, with each case's
-   route printed. Then K4 ``segment_extrema`` bit for bit and K5
+   route, K2 and K3 on the wide route, K2 as the route calls it, over the
+   first code in sorted order where the sort gives it), up to 100M rows,
+   with each case's route printed, and K2 at its edges
+   (``sort_boundaries_edges``: one group, every row its own group, groups
+   across tile boundaries, masked frames, a short prefix, strided int64
+   words, an unaligned order, n = 1 and off the tile). Then K4 ``segment_extrema`` bit for bit and K5
    ``segment_sq_dev`` within rtol 1e-10 in every case of ``reduce_cases``
    (every payload dtype, masked payloads, NaN, -0.0, +0.0 and infinities,
    prefix and masked frames, one segment, 2^20 segments in global tables,
@@ -56,7 +60,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and outer) over 1, 1024 and 2^24 segments with sentinel rows, null
    keys, prefix, short-prefix and masked layouts, probe rows with no
    match and one key with 10^6 build rows; K9 ``join_expand`` on pairs
-   (inner, outer), a cross join and a skewed key; K10 ``gather_rows`` over
+   (inner, outer), a cross join, a skewed key at a tile's start and from
+   inside a tile, one probe row in 50 matching, one output, and an
+   unmatched probe row at a tile's first output (inner and outer); K10 ``gather_rows`` over
    every width, with and without masks, by indices with and without -1;
    at 1, 2^20 + 37, 10M and 100M rows. Then the row-selection kernels
    exactly (``row_select_vs_twin``): K11, KW's presort mode (float keys
@@ -182,7 +188,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    count(*) by (store, item), about 1M groups, at least one rebase, K19
    once a chunk, against numpy accumulated chunk by chunk, its peak
    memory held below the accumulators plus two chunks and printed beside
-   the whole frame's bytes.
+   the whole frame's bytes, and its host work a chunk timed alone
+   (``host_ms_a_chunk``).
 5. timing with CUDA events at the paths' shapes: each kernel beside its
    plain twin, one PyTorch call computing the same function where there
    is one, and its bound from the bytes it must move; the fused kernel's
@@ -206,7 +213,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bound and, where one PyTorch call computes the same function,
    ``index_fill_`` (K12 at ``sample``'s, the top-n take's and EXCEPT ALL's
    shapes, K13; also after the ``zero_()`` the kernel's work includes) or
-   ``torch.all`` (K14); K3's ``scatter_`` also with its ``where``, and
+   ``torch.all`` (K14); K2 at the set operations' shape
+   (``setop_boundaries_timing``: 150M stacked rows, three int32 codes) and
+   K2 and K9 with each launch's device time; K3's ``scatter_`` also with
+   its ``where``, and
    K3 and K16's running sum with each launch's device time, K3 also over
    a random permutation (``order_scatter_timing``);
    K15, K16 and K8's NOT IN mode at the SQL phase's shapes
@@ -227,6 +237,7 @@ object ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
 import json
 import math
 import subprocess
+import sys
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -680,7 +691,7 @@ def sort_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
     ``sort_finish_reference``, and the two routes of K3 against each
     other. Wide route: K2 and K3 against ``sort_boundaries_reference`` and
     ``sort_finish_reference`` over the port's ``sort_codes`` and
-    ``lex_order``."""
+    ``lex_sort``'s order."""
     import torch
 
     from fugue_tpu_torch.kernels.factorize import (
@@ -705,8 +716,8 @@ def sort_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
             unreal = has_unreal_rows(n, rows.get("nrows"), rows.get("row_valid"))
             if word_bits(case["keys"], unreal) > 64:
                 codes = groupby.sort_codes(case["keys"])
-                order = groupby.lex_order(codes, **rows)
-                got = sort_boundaries_cuda(codes, order, **rows)
+                order, first = groupby.lex_sort(codes, **rows)
+                got = sort_boundaries_cuda(codes, order, **rows, first_sorted=first)
                 want = sort_boundaries_reference(codes, order, **rows)
                 num = int(want[1])
                 got2 = sort_finish_cuda(want[0], order, num)
@@ -714,8 +725,8 @@ def sort_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
                 check_fill(full, sort_finish_cuda.last_fill, n, sort_finish_cuda.last_shift)
                 _equal(full, ("seg_sorted", "count", "seg", "first_idx"),
                        got + got2, want + sort_finish_reference(want[0], order, num))
-                route = "wide"
-                del codes, got, want, got2
+                route = "wide" if first is None else "wide, first code sorted"
+                del codes, got, want, got2, first
             else:
                 sw = sort_word_cuda(case["keys"], **rows)
                 sync()
@@ -753,6 +764,90 @@ def sort_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
                 raise SystemExit(f"FAIL {full}: {num} groups")
             print(f"ok {full} route={route} groups={num}")
             del order
+
+
+K2_TILE = 2048  # K2's positions a tile (kBoundTile in factorize.cu)
+
+
+def sort_boundaries_edge_cases(device: Any, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """K2's edge cases: ``(label, {"codes", "order", and nrows or
+    row_valid})``, each order ``lex_sort``'s over its codes. One group;
+    every row its own group (in row order and permuted); a group that
+    straddles each tile boundary (equal codes at positions ``K2_TILE * t -
+    1`` and ``K2_TILE * t``, three codes of which only the last changes
+    there); a masked frame whose real rows end inside a thread's positions
+    and one with no real row; a prefix frame with nrows < n; an int64 key
+    as two strided int32 word views and as an int64 view of stride 2; an
+    order that is not 16-byte aligned (a view one element in); n = 1, a
+    tile less one, a tile plus one, three tiles plus five and fifty tiles
+    plus seven. Where ``lex_sort`` gives the first code in sorted order (a
+    prefix frame with no padding), each case also runs with it, as the
+    wide route calls K2."""
+    import torch
+
+    from fugue_tpu_torch.torch_backend import groupby
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cases: List[Tuple[str, Dict[str, Any]]] = []
+
+    def add(label: str, codes: List[Any], **rows: Any) -> None:
+        order, first_sorted = groupby.lex_sort(codes, **rows)
+        cases.append((label, dict(codes=codes, order=order, **rows)))
+        if first_sorted is not None:  # the wide route's call: code 0 in sorted order
+            cases.append((f"{label}, first code sorted",
+                          dict(codes=codes, order=order, first_sorted=first_sorted, **rows)))
+
+    for n in (1, K2_TILE - 1, K2_TILE + 1, 3 * K2_TILE + 5, 50 * K2_TILE + 7):
+        i32 = torch.arange(n, dtype=torch.int32, device=device)
+        add(f"one group n={n}", [torch.zeros((n,), dtype=torch.int32, device=device)], nrows=n)
+        add(f"every row its own group n={n}", [i32], nrows=n)
+        perm = torch.randperm(n, generator=gen, device=device).to(torch.int32)
+        add(f"every row its own group, permuted n={n}", [perm], nrows=n)
+        # sorted position p holds (p + 1) // 2: positions 2k - 1 and 2k
+        # share a group, so every tile boundary falls inside one
+        pair = (perm + 1) // 2
+        add(f"groups across tile boundaries n={n}",
+            [torch.zeros_like(i32), pair // 1500, pair], nrows=n)
+        few = torch.randint(0, 5, (n,), generator=gen, device=device, dtype=torch.int32)
+        rv = torch.rand((n,), generator=gen, device=device) < 0.37
+        add(f"masked frame n={n}", [few, perm], row_valid=rv)
+        add(f"masked frame, no real row n={n}", [few],
+            row_valid=torch.zeros((n,), dtype=torch.bool, device=device))
+        add(f"prefix frame with nrows < n n={n}", [few, perm], nrows=n // 2 + 1)
+        wide = torch.randint(-(2**40), 2**40, (n,), generator=gen, device=device)
+        wide = wide[torch.randint(0, max(n // 3, 1), (n,), generator=gen, device=device)]
+        words = wide.view(torch.int32)
+        add(f"int64 key as strided int32 words n={n}", [words[1::2], words[0::2]], nrows=n)
+        pairs = torch.stack([wide, wide.flip(0)], dim=1)
+        add(f"int64 codes of stride 2 n={n}", [pairs[:, 0], pairs[:, 1]], nrows=n)
+        if n > 1:
+            buf = torch.empty((n + 1,), dtype=torch.int64, device=device)
+            label = f"order not 16-byte aligned n={n}"
+            add(label, [few, perm], nrows=n)
+            buf[1:] = cases[-1][1]["order"]
+            for _, case in cases[-2:]:
+                case["order"] = buf[1:]
+    return cases
+
+
+def sort_boundaries_edges(device: Any, seed: int = SEED) -> int:
+    """K2 against ``sort_boundaries_reference`` in every case of
+    ``sort_boundaries_edge_cases``, exactly (ids and count), with one
+    launch a call; returns the number of cases."""
+    from fugue_tpu_torch.kernels.factorize import sort_boundaries_cuda
+    from fugue_tpu_torch.kernels.reference import sort_boundaries_reference
+
+    cases = sort_boundaries_edge_cases(device, seed)
+    for label, case in cases:
+        before = sort_boundaries_cuda.launches
+        got = sort_boundaries_cuda(**case)
+        want = sort_boundaries_reference(**case)
+        _equal(f"sort_boundaries {label}", ("seg_sorted", "count"), got, want)
+        if sort_boundaries_cuda.launches != before + 1:
+            raise SystemExit(f"FAIL sort_boundaries {label}: launches counted "
+                             f"{sort_boundaries_cuda.launches - before}")
+    print(f"ok sort_boundaries edges: {len(cases)} cases equal")
+    return len(cases)
 
 
 def check_fill(label: str, fill: Any, n: int, shift: int) -> None:
@@ -1707,18 +1802,23 @@ def factorize_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, An
         err, ms, plain_ms, n * (4 + 4) + total * (4 + 1) + 4, n, library_ms)]
 
     codes = groupby.sort_codes([(key.float(), None)])
-    order = groupby.lex_order(codes, nrows=n)
-    want2 = sort_boundaries_reference(codes, order, nrows=n)
-    err = _max_abs_diff(sort_boundaries_cuda(codes, order, nrows=n), want2)
-    ms = time_cuda(lambda: sort_boundaries_cuda(codes, order, nrows=n), 20)
-    plain_ms = time_cuda(lambda: sort_boundaries_reference(codes, order, nrows=n), 5)
+    order, first = groupby.lex_sort(codes, nrows=n)
+    k2 = dict(nrows=n, first_sorted=first)  # as the wide route calls K2
+    want2 = sort_boundaries_reference(codes, order, **k2)
+    err = _max_abs_diff(sort_boundaries_cuda(codes, order, **k2), want2)
+    ms = time_cuda(lambda: sort_boundaries_cuda(codes, order, **k2), 20)
+    plain_ms = time_cuda(lambda: sort_boundaries_reference(codes, order, **k2), 5)
     # no one PyTorch call computes K2 (boundaries over codes gathered at
     # the order, then their scan); the scan alone, for scale
     opens = torch.zeros((n,), dtype=torch.bool, device=device)
     opens[1:] = want2[0][1:] != want2[0][:-1]
     opens[0] = True
     scan_ms = time_cuda(lambda: torch.cumsum(opens, 0, dtype=torch.int32), 5)
-    print("sort_boundaries scan alone: " + json.dumps({"cumsum_ms": scan_ms}))
+    print("sort_boundaries scan alone: " + json.dumps({
+        "cumsum_ms": scan_ms,
+        "device_ms": device_split_ms(lambda: sort_boundaries_cuda(codes, order, **k2), device),
+        "ms_gathering_every_code": time_cuda(lambda: sort_boundaries_cuda(codes, order, nrows=n),
+                                             20)}))
     del opens
     code_bytes = sum(int(c.shape[0]) * c.element_size() for c in codes)
     entries.append(_kernel_entry(
@@ -1742,10 +1842,58 @@ def factorize_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, An
     entries.append(_kernel_entry(
         "sort_finish", "fugue_tpu/jax_backend/groupby.py:582", launches["sort_finish"],
         err, ms, plain_ms, 4 * n + 8 * n + 4 * n + 4 * num, n, library_ms))
-    del codes, order, want2, seg_sorted, want3, seg
+    del codes, order, first, want2, seg_sorted, want3, seg
     torch.cuda.empty_cache()
     entries += word_timing(device, key.float(), launches)
     return entries
+
+
+def setop_codes(device: Any, rows: Optional[Tuple[int, int]] = None
+                ) -> Tuple[Any, Tuple[Any, Any]]:
+    """The set operations' factorization input (TPC-DS Q38/Q87's shape,
+    ``relational_paths``): the two channels' rows stacked (``ROWS`` and
+    half as many unless ``rows`` says), as three int32 codes (last name, first name, day: a name's
+    string code is a relabelling of its index, which leaves the groups as
+    they are), drawn on the card with ``q_channel``'s distributions; and
+    ``lex_sort``'s order over them (a prefix frame)."""
+    import torch
+
+    from fugue_tpu_torch.torch_backend import groupby
+
+    gen = torch.Generator(device=device).manual_seed(Q_SEED)
+    n = sum(rows or (ROWS, ROWS // 2))
+    codes = [torch.randint(0, hi, (n,), generator=gen, device=device, dtype=torch.int32)
+             for hi in (Q_NAMES[0], Q_NAMES[1], Q_DAYS)]
+    return codes, groupby.lex_sort(codes, nrows=n)
+
+
+def setop_boundaries_timing(device: Any, launches: int) -> Dict[str, Any]:
+    """K2 at the set operations' shape (``setop_codes``: 150M stacked rows,
+    three int32 codes, most rows a group of their own) with CUDA events,
+    beside its twin and its bound (the order and the codes read once, the
+    ids written once), and its device split (``device_split_ms``).
+    ``launches``: K2's launches in one set operation."""
+    from fugue_tpu_torch.kernels.factorize import sort_boundaries_cuda
+    from fugue_tpu_torch.kernels.reference import sort_boundaries_reference
+
+    codes, (order, first) = setop_codes(device)
+    n = int(order.shape[0])
+    args = dict(nrows=n, first_sorted=first)
+    want = sort_boundaries_reference(codes, order, **args)
+    err = _max_abs_diff(sort_boundaries_cuda(codes, order, **args), want)
+    print("sort_boundaries set operations: " + json.dumps({
+        "rows": n, "groups": int(want[1]),
+        "device_ms": device_split_ms(lambda: sort_boundaries_cuda(codes, order, **args), device),
+        "ms_gathering_every_code": time_cuda(lambda: sort_boundaries_cuda(codes, order, nrows=n),
+                                             20),
+        "card": card_line()}))
+    entry = _kernel_entry(
+        "sort_boundaries_set_ops", "fugue_tpu/jax_backend/groupby.py:554", launches, err,
+        time_cuda(lambda: sort_boundaries_cuda(codes, order, **args), 20),
+        time_cuda(lambda: sort_boundaries_reference(codes, order, **args), 3),
+        8 * n + 4 * n * len(codes) + 4 * n + 4, n * len(codes), None)
+    del codes, order, first, want
+    return entry
 
 
 def word_timing(device: Any, fkey: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
@@ -1920,7 +2068,7 @@ def order_scatter_timing(device: Any, rows: int) -> Dict[str, Any]:
     gen = torch.Generator(device=device).manual_seed(SEED)
     key = torch.randint(0, GROUPS, (rows,), generator=gen, device=device, dtype=torch.int32)
     codes = groupby.sort_codes([(key.float(), None)])
-    order = groupby.lex_order(codes, nrows=rows)
+    order = groupby.lex_sort(codes, nrows=rows)[0]
     seg_sorted, count = sort_boundaries_cuda(codes, order, nrows=rows)
     num = int(count)
     del codes
@@ -2863,6 +3011,7 @@ JOIN_CHECK_ROWS = 10_000_000  # where the expansion's output is compared row for
 JOIN_KINDS_ROWS = (10_000_000, 5_000_000)  # left and right rows of the other kinds
 JOIN_CROSS_ROWS = (10_000, 1_000)
 JOIN_SKEW = 1_000_000  # the matches of the skewed key
+K9_WALK = 64 * 2048  # K9's probe rows read by a tile, at most (kWalk in join.cu)
 JOIN_KINDS = ("left_outer", "right_outer", "full_outer", "semi", "anti")
 
 
@@ -2935,13 +3084,32 @@ def _expand_inputs(probe: Any, build: Any, num: int, outer: bool) -> Dict[str, A
                 order2=order, total=int(pr.total))
 
 
+def expand_timing_inputs(device: Any) -> Dict[str, Any]:
+    """K9's arguments at ``join_timing``'s expansion: ``JOIN_EXPAND_ROWS``
+    probe rows against half as many build rows over a quarter as many
+    segments, 200M output rows at the default."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    p1, p2 = JOIN_EXPAND_ROWS, JOIN_EXPAND_ROWS // 2
+    num = p1 // 4
+    seg1 = (torch.randperm(p1, generator=gen, device=device) % num).to(torch.int32)
+    seg2 = (torch.randperm(p2, generator=gen, device=device) % num).to(torch.int32)
+    return _expand_inputs(seg1, seg2, num, False)
+
+
 def expand_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
     """K9's cases at ``n`` probe rows: keys over n/2 segments with two
     build rows each for nine tenths of them (about 1.8n outputs; inner and
     outer); a cross join (S = 1) of up to 10^4 by 10^3 rows; one probe
-    row whose key has ``JOIN_SKEW`` build rows among one build row a key;
-    one probe row in 50 with a match (a block's outputs span more probe
-    rows than it stages, so it searches global memory)."""
+    row whose key has ``JOIN_SKEW`` build rows among one build row a key,
+    at a tile's first output and from inside a tile; one probe row in 50
+    and one in 50,000 with a match (a tile's outputs span many probe rows
+    with empty runs: past ``K9_WALK`` of them, K9's search an output); the
+    first half of the probe rows matched and one in 50,000 of the rest
+    (both of K9's branches in one launch); one output; a probe row with no match
+    at a tile's first output (inner: an empty run there; outer: its one
+    output row there)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -2954,7 +3122,20 @@ def expand_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, An
     one_each = torch.randperm(n, generator=gen, device=device).to(torch.int32)
     skewed = torch.cat([one_each, torch.zeros((JOIN_SKEW - 1,), dtype=torch.int32,
                                               device=device)])
+    # K9's tiles (kTile in join.cu): an unmatched probe row where a tile
+    # starts, and a run of JOIN_SKEW rows that starts inside a tile
+    tile, at = 2048, min(n - 1, 2048)
+    hole = torch.arange(n, dtype=torch.int32, device=device)
+    hole[at] = n  # a key with no build row
+    mid = (torch.arange(n, dtype=torch.int32, device=device) - min(n - 1, tile // 2 + 3)) % n
+    one = torch.zeros((1,), dtype=torch.int32, device=device)
     return [
+        ("total = 1", _expand_inputs(one, one, 1, False)),
+        ("m = 0 at a tile's first output, inner", _expand_inputs(
+            hole, torch.arange(n, dtype=torch.int32, device=device), n + 1, False)),
+        ("m = 0 at a tile's first output, outer", _expand_inputs(
+            hole, torch.arange(n, dtype=torch.int32, device=device), n + 1, True)),
+        ("a run from mid-tile over several tiles", _expand_inputs(mid, skewed, n, False)),
         ("pairs inner", _expand_inputs(probe, build, half, False)),
         ("pairs outer", _expand_inputs(probe, build, half, True)),
         ("cross", _expand_inputs(zero, torch.zeros((cb,), dtype=torch.int32, device=device),
@@ -2963,6 +3144,13 @@ def expand_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, An
                                 True)),
         ("sparse", _expand_inputs(one_each, torch.arange(max(n // 50, 1), dtype=torch.int32,
                                                          device=device), n, False)),
+        ("sparse, 1 in 50000", _expand_inputs(one_each, torch.arange(
+            max(n // 50_000, 1), dtype=torch.int32, device=device), n, False)),
+        ("dense, then 1 in 50000", _expand_inputs(
+            torch.arange(n, dtype=torch.int32, device=device),
+            torch.cat([torch.arange(n // 2, dtype=torch.int32, device=device),
+                       torch.arange(n // 2, n, 50_000, dtype=torch.int32, device=device)]),
+            n, False)),
     ]
 
 
@@ -3541,6 +3729,9 @@ def join_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
         # computes li alone
         time_cuda(lambda: torch.repeat_interleave(rows1, pr.reps, output_size=total), 5),
         source="join.cu"))
+    print("join_expand device: " + json.dumps({
+        "output_rows": total, "device_ms": device_split_ms(lambda: join_expand_cuda(*args),
+                                                           device)}))
     del rows1
     for label, case in expand_cases(device, JOIN_CROSS_ROWS[0] * 10, SEED):
         if label not in ("cross", "skew"):
@@ -6375,7 +6566,9 @@ def stream_path(device: Any, chunks: int, chunk_rows: int, warm_runs: int) -> Di
     memory above what the run found allocated must stay below the
     accumulators plus two chunks on the card in every run; it is printed
     beside the whole frame's bytes. The chunks are made once (set-up) and
-    each run streams them anew."""
+    each run streams them anew. ``host_ms_a_chunk`` (the median; and its
+    largest) times a chunk's host work alone: its arrow table
+    (``chunk_table``) and ``StreamingAggregator.host_arrays``."""
     import torch
 
     import fugue_tpu_torch as ft
@@ -6426,7 +6619,20 @@ def stream_path(device: Any, chunks: int, chunk_rows: int, warm_runs: int) -> Di
     if peak is not None and peak > acc_bytes + 2 * chunk_bytes:
         raise SystemExit(f"FAIL stream_200m: peak {peak} B above the accumulators and two "
                          f"chunks ({acc_bytes + 2 * chunk_bytes} B)")
+    # the host's part of a chunk: its arrow table and keys, payloads and
+    # masks as the arrays that go to the card (no pass through pandas)
+    from fugue_tpu_torch.dataframe.dataframe_iterable_dataframe import chunk_table
+    from fugue_tpu_torch.torch_backend.streaming import StreamingAggregator
+
+    plans = [(f"{c}_{f}", f, c) for c in ("qty", "price") for f in STREAM_AGGS]
+    agg = StreamingAggregator(e, ft.Schema(schema), ["store", "item"], plans)
+    host_ms = []
+    for chunk in data:
+        t = time.perf_counter()
+        agg.host_arrays(chunk_table(chunk, ft.Schema(schema)))
+        host_ms.append((time.perf_counter() - t) * 1e3)
     stats.update(
+        host_ms_a_chunk=sorted(host_ms)[len(host_ms) // 2], host_ms_a_chunk_max=max(host_ms),
         groups=len(got), rebases_per_run=rebases[0], max_rel_err=worst,
         peak_over_start_bytes=peak, accumulator_bytes=acc_bytes, chunk_device_bytes=chunk_bytes,
         whole_frame_bytes=frame_bytes, generate_secs=gen_secs, numpy_secs=oracle_secs,
@@ -6702,6 +6908,7 @@ FULL_GROUPBY_LAUNCHES = {
 
 
 def main() -> None:
+    """Runs every phase on the card."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6731,6 +6938,7 @@ def main() -> None:
     lap("twins: binned_sums")
     bin_factorize_vs_twin(device, (1, (1 << 20) + 37, 10_000_000))
     sort_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
+    sort_boundaries_edges(device)
     sort_finish_slab_cases(device)
     print("kernels checked against their twins: bin_factorize, sort_word, "
           "sort_word_boundaries, sort_word_lookup, sort_boundaries, sort_finish (also at its "
@@ -6953,6 +7161,8 @@ def main() -> None:
         "null_count_keep": rel["dropna_any"]["null_count_keep"],
         "expr_program_fillna": rel["fillna_scalar"]["expr_program"],
     })
+    torch.cuda.empty_cache()
+    entries.append(setop_boundaries_timing(device, rel["intersect_distinct"]["sort_boundaries"]))
     torch.cuda.empty_cache()
     entries += window_timing(device, {
         "window_rank": sql["q67_rank_top100"]["launches"]["window_rank"],

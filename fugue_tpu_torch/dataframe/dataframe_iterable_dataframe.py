@@ -28,7 +28,7 @@ class LocalDataFrameIterableDataFrame:
             first = self._peek()
             assert_or_throw(first is not None,
                             ValueError("schema can't be inferred from an empty stream"))
-            schema = _table(first, None).schema
+            schema = chunk_table(first, None).schema
         self._schema = Schema(schema)
 
     def _peek(self) -> Optional[Any]:
@@ -53,23 +53,29 @@ class LocalDataFrameIterableDataFrame:
             if len(chunk) > 0:
                 yield chunk
 
-    def as_pandas_chunks(self) -> Iterator[pd.DataFrame]:
-        """The chunks as pandas frames, each once."""
+    def arrow_chunks(self) -> Iterator[pa.Table]:
+        """The chunks as arrow tables of the schema (``chunk_table``), each
+        once."""
         for chunk in self.native:
-            yield chunk.to_pandas() if isinstance(chunk, pa.Table) else chunk
+            yield chunk_table(chunk, self._schema)
 
     def as_arrow(self) -> pa.Table:
         """Every remaining chunk in one arrow table of the schema."""
-        tables = [_table(c, self._schema) for c in self.native]
+        tables = [chunk_table(c, self._schema) for c in self.native]
         if not tables:
             return self._schema.pa_schema.empty_table()
         return pa.concat_tables(tables)
 
 
-def _table(chunk: Any, schema: Optional[Schema]) -> pa.Table:
-    """A chunk as an arrow table, cast to ``schema`` where given."""
+def chunk_table(chunk: Any, schema: Optional[Schema]) -> pa.Table:
+    """A chunk as an arrow table, typed by ``schema`` where given: an arrow
+    chunk as it comes (cast where its types differ), a pandas chunk through
+    ``pa.Table.from_pandas`` with the schema, so a nullable integer column
+    never passes through float64."""
     if isinstance(chunk, pd.DataFrame):
         return pa.Table.from_pandas(chunk, preserve_index=False,
                                     schema=None if schema is None else schema.pa_schema)
     assert_or_throw(isinstance(chunk, pa.Table), ValueError(f"can't stream {type(chunk)}"))
-    return chunk if schema is None else chunk.cast(schema.pa_schema)
+    if schema is None or chunk.schema == schema.pa_schema:
+        return chunk
+    return chunk.cast(schema.pa_schema)

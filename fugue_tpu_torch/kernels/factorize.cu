@@ -48,9 +48,16 @@
 // through L2 when they do not fit), so no access is random in device
 // memory. K2 and K3, the route of keys wider
 // than 64 bits and of group counts above the lookup's reach, read the
-// sort's int64 order (8 bytes a row); K2 gathers each key code at order[i]
-// and order[i - 1] (random reads: the sort left the codes in row order),
-// writes one flag byte a row, then scans the flags (not tuned). K3 stores
+// sort's int64 order (8 bytes a row). K2 is one launch: each position
+// gathers each key code of its row once (random 4-byte reads: the sort
+// left the codes in row order; the most significant code comes in sorted
+// order from the sort's own values where the frame needed no validity
+// sort, and is read in order), takes its predecessor's codes from the
+// lane or warp before, and scans the "opens a group" flags in one pass
+// with decoupled look-back, writing the ids with 16-byte stores. It is
+// bound by the random reads, which the card serves at about 27M a ms
+// (NVIDIA H100 80GB HBM3, 700 W: 10.85 ms for 150M positions and two
+// gathered codes, 3.86 ms for 100M and one). K3 stores
 // one id a row through the order, which was a random 4-byte store a row
 // (7.45 ms at 100M rows on an H100 80GB HBM3 at 700 W against a 0.478 ms
 // bound); it now goes through order_scatter.cuh: the positions, read
@@ -77,8 +84,6 @@ constexpr int kMaxBlocksPerSm = 2048 / kThreads;
 // limit, which needs no opt-in
 constexpr long long kSharedBins = 48 * 1024 / 4;
 constexpr int kMaxCodes = 16;  // sort codes per K2 launch
-constexpr int kItems = 16;     // K2 positions per thread and tile
-constexpr int kTile = kThreads * kItems;
 
 // the SM count of each device, asked once
 std::atomic<int> sm_counts[64];
@@ -182,16 +187,31 @@ struct Code {
   int width;         // 4 or 8 bytes
 };
 
+// One launch over tiles of kBoundTile sorted positions, kBoundItems
+// consecutive positions a thread. A tile takes its id from a counter in
+// launch order (so it waits only on tiles already running), publishes its
+// count of groups opened, looks back over the tiles before it for its
+// offset and publishes its inclusive count: one 64-bit word a tile, the
+// flag in its top bits and the count below (kBoundAggregate,
+// kBoundInclusive), so a reader sees both at once.
+constexpr int kBoundThreads = 256;
+constexpr int kBoundItems = 8;
+constexpr int kBoundTile = kBoundThreads * kBoundItems;
+constexpr unsigned long long kBoundAggregate = 1ULL << 62, kBoundInclusive = 2ULL << 62;
+constexpr unsigned long long kBoundValue = (1ULL << 62) - 1;
+
 struct SortParams {
   long long n;
   long long nrows;  // a prefix frame: position i is real iff order[i] < nrows
   const uint8_t* row_valid;  // a masked frame: real iff row_valid[order[i]]
   const long long* order;
+  bool order_vec;   // order is 16-byte aligned: read in 16-byte loads
   int ncodes;
   Code code[kMaxCodes];
-  uint8_t* flags;   // uint8[n]: 0 same group, 1 opens a group, 2 not real
-  int* block_sums;  // int32[tiles]: groups opened per tile, then offsets
-  int tiles;
+  bool first_sorted;  // code 0 is in sorted order (read at the position)
+  unsigned long long* state;  // [tiles]: each tile's published count
+  unsigned int* next_tile;    // the tile counter (state's last word)
+  long long tiles;
   int* seg_sorted;  // int32[n]: group id in sorted order, -1 where not real
   int* count;       // int32[1]: groups
 };
@@ -203,7 +223,7 @@ __device__ __forceinline__ unsigned long long code_at(const Code& c, long long r
 }
 
 // Block-wide inclusive scan of one int a thread (Hillis-Steele in shared
-// memory); returns the thread's inclusive sum, *total the block's.
+// memory); returns the thread's inclusive sum, *total the block's. K2w's.
 __device__ __forceinline__ int block_scan(int v, int* total) {
   __shared__ int s[kThreads];
   s[threadIdx.x] = v;
@@ -220,39 +240,8 @@ __device__ __forceinline__ int block_scan(int v, int* total) {
   return incl;
 }
 
-// Pass 1: each position's flag and each tile's count of groups opened.
-// Real positions come first in sorted order (validity is the sort's
-// primary key), so position i - 1 of a real position i is real too.
-__global__ void __launch_bounds__(kThreads)
-    sort_flags(const __grid_constant__ SortParams p) {
-  const long long base = (long long)blockIdx.x * kTile;
-  int opened = 0;
-  for (int j = 0; j < kItems; ++j) {
-    const long long i = base + (long long)j * kThreads + threadIdx.x;
-    if (i >= p.n) break;
-    const long long row = __ldg(p.order + i);
-    const bool real = p.row_valid != nullptr ? __ldg(p.row_valid + row) != 0 : row < p.nrows;
-    uint8_t f = 2;
-    if (real) {
-      f = 1;
-      if (i > 0) {
-        const long long prev = __ldg(p.order + i - 1);
-        bool differ = false;
-        for (int c = 0; c < p.ncodes; ++c)
-          differ = differ || code_at(p.code[c], row) != code_at(p.code[c], prev);
-        f = differ ? 1 : 0;
-      }
-    }
-    p.flags[i] = f;
-    opened += f == 1;
-  }
-  int total = 0;
-  block_scan(opened, &total);
-  if (threadIdx.x == 0) p.block_sums[blockIdx.x] = total;
-}
-
-// Pass 2, one block: the tiles' counts become exclusive offsets, and their
-// sum is the group count. Shared by K2 and K2w.
+// One block: the tiles' counts become exclusive offsets, and their sum is
+// the group count. K2w's second launch.
 __global__ void __launch_bounds__(kThreads)
     sort_offsets(int* block_sums, int tiles, int* count) {
   const int per = (tiles + kThreads - 1) / kThreads;
@@ -270,25 +259,158 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) *count = total;
 }
 
-// Pass 3: the inclusive scan of the flags within each tile, from the
-// tile's offset; kItems consecutive positions a thread.
-__global__ void __launch_bounds__(kThreads)
-    sort_scan(const __grid_constant__ SortParams p) {
-  const long long start = (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
-  uint8_t f[kItems];
-  int opened = 0;
+// Warp 0 of tile t's block: the groups opened in every tile before t, from
+// the published counts back to the nearest inclusive one (32 tiles a
+// step, lane 0 the latest).
+__device__ long long bound_look_back(unsigned long long* state, long long t) {
+  const int lane = threadIdx.x & 31;
+  long long excl = 0;
+  for (long long end = t;; end -= 32) {
+    const long long u = end - 1 - lane;
+    unsigned long long w = kBoundInclusive;  // before tile 0: nothing, inclusive
+    if (u >= 0) {
+      const volatile unsigned long long* sp = state + u;
+      while ((w = *sp) == 0) {
+      }
+    }
+    const unsigned inclusive = __ballot_sync(0xffffffffu, (w & kBoundInclusive) != 0);
+    const int stop = inclusive != 0 ? __ffs(inclusive) - 1 : 31;
+    long long v = lane <= stop ? (long long)(w & kBoundValue) : 0;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    f[j] = start + j < p.n ? p.flags[start + j] : 2;
-    opened += f[j] == 1;
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
+    excl += __shfl_sync(0xffffffffu, v, 0);
+    if (inclusive != 0) return excl;
   }
-  int total = 0;
-  int run = p.block_sums[blockIdx.x] + block_scan(opened, &total) - opened;
+}
+
+// K2. Each position gathers each code of its row once (or reads it at
+// the position, where the caller has it in sorted order: the sort's own
+// values of the most significant code); the code of the position before
+// it comes from the lane before (a shuffle), from the warp before (shared
+// memory), or, at a tile's first position, from its own read of
+// order[i - 1]. Real positions come first in sorted order
+// (validity is the sort's primary key), so a position's predecessor is
+// real where it is, unreal positions gather nothing, and with row_valid a
+// thread reads the flag of its last row, then of its first, and of the
+// others only where the two differ (one thread in the launch).
+__global__ void __launch_bounds__(kBoundThreads)
+    sort_boundaries_kernel(const __grid_constant__ SortParams p) {
+  constexpr int kWarps = kBoundThreads / 32;
+  __shared__ unsigned long long last_sh[kWarps];
+  __shared__ int warp_sh[kWarps];
+  __shared__ long long tile_sh, excl_sh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) tile_sh = atomicAdd(p.next_tile, 1u);
+  __syncthreads();
+  const long long tile = tile_sh;
+  const long long first = tile * kBoundTile;
+  const long long base = first + (long long)threadIdx.x * kBoundItems;
+  const int have = base >= p.n ? 0 : (p.n - base < kBoundItems ? (int)(p.n - base) : kBoundItems);
+
+  long long row[kBoundItems];
+  if (have == kBoundItems && p.order_vec) {
+    const longlong2* src = reinterpret_cast<const longlong2*>(p.order + base);
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    if (start + j >= p.n) break;
-    run += f[j] == 1;
-    p.seg_sorted[start + j] = f[j] == 2 ? -1 : run - 1;
+    for (int j = 0; j < kBoundItems / 2; ++j) {
+      const longlong2 v = __ldg(src + j);
+      row[2 * j] = v.x;
+      row[2 * j + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBoundItems; ++j) row[j] = j < have ? __ldg(p.order + base + j) : 0;
+  }
+  unsigned real = 0;  // bit j: position base + j is real
+  if (have > 0) {
+    const unsigned all = (1u << have) - 1;
+    if (p.row_valid == nullptr) {
+#pragma unroll
+      for (int j = 0; j < kBoundItems; ++j)
+        if (j < have && row[j] < p.nrows) real |= 1u << j;
+    } else if (__ldg(p.row_valid + row[have - 1]) != 0) {
+      real = all;
+    } else if (__ldg(p.row_valid + row[0]) != 0) {
+#pragma unroll
+      for (int j = 0; j < kBoundItems; ++j)
+        if (j < have && __ldg(p.row_valid + row[j]) != 0) real |= 1u << j;
+    }
+  }
+
+  unsigned differ = 0;  // bit j: a code differs from position base + j - 1
+  for (int c = 0; c < p.ncodes; ++c) {
+    const Code code = p.code[c];
+    const bool at_position = c == 0 && p.first_sorted;
+    unsigned long long v[kBoundItems];
+#pragma unroll
+    for (int j = 0; j < kBoundItems; ++j)
+      v[j] = (real >> j) & 1u ? code_at(code, at_position ? base + j : row[j]) : 0;
+    unsigned long long prev = __shfl_up_sync(0xffffffffu, v[kBoundItems - 1], 1);
+    if (lane == 31) last_sh[warp] = v[kBoundItems - 1];
+    __syncthreads();
+    if (lane == 0) {
+      if (warp > 0)
+        prev = last_sh[warp - 1];
+      else if (first > 0 && (real & 1u))
+        prev = code_at(code, at_position ? first - 1 : __ldg(p.order + first - 1));
+    }
+    differ |= (unsigned)(v[0] != prev);
+#pragma unroll
+    for (int j = 1; j < kBoundItems; ++j) differ |= (unsigned)(v[j] != v[j - 1]) << j;
+    __syncthreads();  // last_sh is rewritten by the next code
+  }
+  if (base == 0) differ |= 1u;  // the first position opens a group
+  const unsigned opens = real & differ;
+
+  // the block's exclusive scan of its threads' counts, by warp shuffles
+  const int mine = __popc(opens);
+  int incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += o;
+  }
+  if (lane == 31) warp_sh[warp] = incl;
+  __syncthreads();
+  int before = incl - mine, agg = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int s = warp_sh[w];
+    if (w < warp) before += s;
+    agg += s;
+  }
+  if (warp == 0) {
+    long long excl = 0;
+    if (tile == 0) {
+      if (lane == 0) atomicExch(p.state, kBoundInclusive | (unsigned long long)agg);
+    } else {
+      if (lane == 0) atomicExch(p.state + tile, kBoundAggregate | (unsigned long long)agg);
+      excl = bound_look_back(p.state, tile);
+      if (lane == 0)
+        atomicExch(p.state + tile, kBoundInclusive | (unsigned long long)(excl + agg));
+    }
+    if (lane == 0) {
+      excl_sh = excl;
+      if (tile == p.tiles - 1) *p.count = (int)(excl + agg);
+    }
+  }
+  __syncthreads();
+
+  int id = (int)excl_sh + before - 1;
+  int out[kBoundItems];
+#pragma unroll
+  for (int j = 0; j < kBoundItems; ++j) {
+    id += (opens >> j) & 1u;
+    out[j] = (real >> j) & 1u ? id : -1;
+  }
+  if (have == kBoundItems) {
+    int4* dst = reinterpret_cast<int4*>(p.seg_sorted + base);
+#pragma unroll
+    for (int j = 0; j < kBoundItems / 4; ++j)
+      dst[j] = make_int4(out[4 * j], out[4 * j + 1], out[4 * j + 2], out[4 * j + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBoundItems; ++j)
+      if (j < have) p.seg_sorted[base + j] = out[j];
   }
 }
 
@@ -833,40 +955,47 @@ extern "C" int fugue_bin_factorize(
 // K2. order int64[n] is the sorted permutation of the rows, real rows
 // first; code c is code_data[c] read every code_stride[c] elements of
 // code_width[c] (4 or 8) bytes, compared bit for bit (floats come
-// canonical: no NaN, no -0.0). Rows as for K1. Scratch: flags uint8[n]
-// and block_sums int32[ceil(n / 4096)]. Writes seg_sorted int32[n] and
-// count int32[1].
+// canonical: no NaN, no -0.0), in row order; first_sorted, where not
+// null, is code 0 in sorted order (code 0 at order[i] is its element i,
+// dense), read in its place. Rows as for K1. Scratch: state uint64[tiles
+// + 1], tiles = fugue_sort_boundaries_tiles(n), zeroed here (the tiles'
+// look-back state and the tile counter). Writes seg_sorted int32[n]
+// (16-byte aligned) and count int32[1]. One memset and one launch.
+extern "C" long long fugue_sort_boundaries_tiles(long long n) {
+  return (n + kBoundTile - 1) / kBoundTile;
+}
+
 extern "C" int fugue_sort_boundaries(
     long long n, long long nrows, const void* row_valid, const void* order,
     int ncodes, const void* const* code_data, const long long* code_stride,
-    const int* code_width, void* flags, void* block_sums, void* seg_sorted,
+    const int* code_width, const void* first_sorted, void* state, void* seg_sorted,
     void* count, int device, void* stream) {
-  if (n < 1 || n >= (1LL << 31) || ncodes < 1 || ncodes > kMaxCodes)
+  if (n < 1 || n >= (1LL << 31) || ncodes < 1 || ncodes > kMaxCodes ||
+      reinterpret_cast<uintptr_t>(seg_sorted) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   SortParams p = {};
   p.n = n;
   p.nrows = nrows;
   p.row_valid = static_cast<const uint8_t*>(row_valid);
   p.order = static_cast<const long long*>(order);
+  p.order_vec = reinterpret_cast<uintptr_t>(order) % 16 == 0;
   p.ncodes = ncodes;
   for (int c = 0; c < ncodes; ++c) {
     if (code_width[c] != 4 && code_width[c] != 8) return (int)cudaErrorInvalidValue;
     p.code[c] = {code_data[c], code_stride[c], code_width[c]};
   }
-  p.flags = static_cast<uint8_t*>(flags);
-  p.block_sums = static_cast<int*>(block_sums);
-  p.tiles = (int)((n + kTile - 1) / kTile);
+  p.first_sorted = first_sorted != nullptr;
+  if (p.first_sorted) p.code[0] = {first_sorted, 1, code_width[0]};
+  p.tiles = fugue_sort_boundaries_tiles(n);
+  p.state = static_cast<unsigned long long*>(state);
+  p.next_tile = reinterpret_cast<unsigned int*>(p.state + p.tiles);
   p.seg_sorted = static_cast<int*>(seg_sorted);
   p.count = static_cast<int*>(count);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() -> cudaError_t {
-    sort_flags<<<p.tiles, kThreads, 0, st>>>(p);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = cudaMemsetAsync(state, 0, (size_t)(p.tiles + 1) * 8, st);
     if (err != cudaSuccess) return err;
-    sort_offsets<<<1, kThreads, 0, st>>>(p.block_sums, p.tiles, p.count);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    sort_scan<<<p.tiles, kThreads, 0, st>>>(p);
+    sort_boundaries_kernel<<<(unsigned)p.tiles, kBoundThreads, 0, st>>>(p);
     return cudaGetLastError();
   });
 }

@@ -49,7 +49,6 @@ from fugue_tpu_torch.kernels.reference import (
 MAX_CODES = 16  # sort codes per K2 launch
 MAX_WORD_KEYS = 16  # key columns per KW launch
 _WORD_TILE = 2048  # the fewest K2w positions per block (int64 words)
-_TILE = 4096  # K2 positions per block
 _PATHS = {1: "shared", 2: "global"}
 # dtype codes of bin_keys.cuh
 _CODES = {
@@ -76,10 +75,12 @@ def _bind() -> ctypes.CDLL:
         ]
         lib.fugue_sort_boundaries.argtypes = [
             ll, ll, p, p,  # n, nrows, row_valid, order
-            i, pp, llp, ip,  # ncodes, data, strides, widths
-            p, p, p, p,  # flags, block_sums, seg_sorted, count
+            i, pp, llp, ip, p,  # ncodes, data, strides, widths, first_sorted
+            p, p, p,  # state, seg_sorted, count
             i, p,  # device, stream
         ]
+        lib.fugue_sort_boundaries_tiles.argtypes = [ll]
+        lib.fugue_sort_boundaries_tiles.restype = ll
         lib.fugue_sort_finish.argtypes = [
             ll, p, p, i, p, p,  # n, seg_sorted, order, num, seg, first_idx
             p, p, p, i, p,  # offs, vals, fill, device, stream
@@ -214,12 +215,15 @@ def sort_boundaries_cuda(
     *,
     nrows: Optional[int] = None,
     row_valid: Optional[torch.Tensor] = None,
+    first_sorted: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2, with the contract of ``reference.sort_boundaries_reference``:
     ``(seg_sorted int32[n], count int32 0-d)``. ``codes`` are 1-D CUDA
     tensors of n rows, int32/float32 or int64/float64, any stride (an
     int64 key's two int32 words are views); ``order`` is the dense int64
-    permutation that ``torch.sort`` gives, real rows first."""
+    permutation that ``torch.sort`` gives, real rows first;
+    ``first_sorted``, where given, is ``codes[0][order]`` (``lex_sort``'s
+    values), read in its place."""
     _require_cuda(order, "sort_boundaries_cuda")
     if not 1 <= len(codes) <= MAX_CODES:
         raise ValueError(f"{len(codes)} sort codes: the kernel takes 1 to {MAX_CODES}")
@@ -237,19 +241,26 @@ def sort_boundaries_cuda(
         if c.data_ptr() % width != 0:
             raise ValueError(f"code {j} is not aligned to its {width}-byte elements")
         widths.append(width)
-    flags = torch.empty((n,), dtype=torch.uint8, device=device)
-    block_sums = torch.empty((-(-n // _TILE),), dtype=torch.int32, device=device)
+    if first_sorted is not None:
+        if (first_sorted.device != device or first_sorted.dtype != codes[0].dtype
+                or first_sorted.dim() != 1 or int(first_sorted.shape[0]) != n
+                or not first_sorted.is_contiguous()):
+            raise ValueError(f"first_sorted must be a dense 1-D {codes[0].dtype} tensor of {n} "
+                             f"rows on {device}")
+    lib = _bind()
+    # the tiles' look-back state and the tile counter, zeroed by the call
+    state = torch.empty((int(lib.fugue_sort_boundaries_tiles(n)) + 1,), dtype=torch.int64,
+                        device=device)
     seg_sorted = torch.empty((n,), dtype=torch.int32, device=device)
     count = torch.empty((), dtype=torch.int32, device=device)
-    lib = _bind()
     index, stream = _device_and_stream(device)
     err = lib.fugue_sort_boundaries(
         n, nrows_arg, None if row_valid is None else row_valid.data_ptr(), order.data_ptr(),
         len(codes), _ptrs(list(codes)),
         (ctypes.c_longlong * len(codes))(*[int(c.stride(0)) for c in codes]),
         (ctypes.c_int * len(codes))(*widths),
-        flags.data_ptr(), block_sums.data_ptr(), seg_sorted.data_ptr(), count.data_ptr(),
-        index, stream,
+        None if first_sorted is None else first_sorted.data_ptr(),
+        state.data_ptr(), seg_sorted.data_ptr(), count.data_ptr(), index, stream,
     )
     _raise_on(lib, err, "sort_boundaries")
     sort_boundaries_cuda.launches += 1

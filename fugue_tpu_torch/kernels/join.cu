@@ -43,17 +43,27 @@
 //     writes its outputs. One row a thread a step; each thread sums its
 //     rows' total in a register, the block in shared memory, and one
 //     atomic a block adds it to the counter.
-//   - K9 writes 8 B an output row and reads 12 B a probe row, and reads
-//     each output's right row at a random place in order (and its probe
-//     row's cstart). Each block takes kTile consecutive output rows,
-//     whatever the runs that hold them: a first launch finds the probe
-//     row of every tile's first output (one binary search over start a
-//     thread, all tiles at once); the second stages the starts of a
-//     tile's probe rows in shared memory (kStage at most, else it searches
-//     global memory), and each thread finds each of its output rows'
-//     probe row by binary search there. Consecutive output rows go to consecutive threads, so
-//     stores coalesce, and a run of any length (a cross join's p2, a
-//     skewed key's 10^6) is split over as many blocks as it fills.
+//   - K9 writes 8 B an output row and reads 16 B a probe row (start, m,
+//     seg), and reads one cstart a probe row and each output's build row
+//     in order, at random places (one run of order a probe row). Each
+//     block takes kTile consecutive output rows, whatever the runs that
+//     hold them: a first launch finds the probe row of every tile's first
+//     output (one binary search over start a thread, all tiles at once);
+//     the second reads the tile's probe rows once, coalesced, and each
+//     row that owns outputs there writes its number, m, seg and cstart
+//     into shared memory at the slot its run starts; a block-wide max
+//     scan then gives every output its row, with no search an output.
+//     A tile whose outputs span more than kWalk probe rows (a selective
+//     inner join: most rows unmatched) would read them all; its block
+//     binary-searches start over the range for each output instead, so a
+//     block's work stays bounded by its kTile outputs. Each thread writes
+//     8 consecutive outputs of li and ri with 16-byte stores, and a run
+//     of any length (a cross join's p2, a skewed key's 10^6) is split
+//     over as many blocks as it fills. The random cstart
+//     and order reads bound it: at 200M outputs of 100M probe rows on an
+//     NVIDIA H100 80GB HBM3 at 700 W, 7.33 ms, of which 1.2 remain without
+//     them (a search an output took 9.12); what raised the rate of those
+//     reads was more blocks an SM, from 24 KB of shared memory a block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,9 +76,14 @@ using namespace fugue;
 
 constexpr int kThreads = 256;
 constexpr int kSharedMax = 12288;  // segments of a block's own K7 table
-constexpr int kPerThread = 8;      // K9 output rows a thread
+constexpr int kPerThread = 8;      // K9 output rows a thread (one 16-byte load of slots)
+constexpr int kRowsPer = 4;        // K9 probe rows a thread a step of its marks
 constexpr long long kTile = (long long)kThreads * kPerThread;
-constexpr int kStage = 4096;       // K9 probe-row starts staged in shared memory
+// K9: a tile's probe rows read, at most (2 MB of start). At 100M probe rows
+// with one match in 50 (about 50 tiles of rows a tile) reading them took
+// 0.54 ms on an NVIDIA H100 80GB HBM3 at 700 W, a search an output 0.74
+// (PERF.md §6)
+constexpr long long kWalk = 64 * kTile;
 
 // K8 modes, as the wrapper passes them
 constexpr int kSemi = 0, kAnti = 1, kUnique = 2, kExpand = 3, kNotIn = 4;
@@ -224,6 +239,7 @@ struct ExpandParams {
   long long ntiles;
   int* li;                   // int32 [total]
   int* ri;                   // int32 [total]
+  bool vec;                  // li and ri are 16-byte aligned: 16-byte stores
 };
 
 // The last row i in [lo, hi] with start[i] <= t, given start[lo] <= t.
@@ -250,33 +266,149 @@ __global__ void __launch_bounds__(kThreads) expand_tiles(const ExpandParams p) {
   p.tiles[b] = last_at_or_below(p.start, 0, p.p1 - 1, t);
 }
 
-// K9's second launch: each block writes one tile of output rows, whose
-// probe rows lie in [tiles[b], tiles[b + 1]].
+// K9's second launch: each block writes one tile of kTile output rows
+// (slots), whose probe rows lie in [tiles[b], tiles[b + 1]], with no
+// search an output. Row tiles[b] owns slot 0; each later row of the range
+// that owns outputs (its run is not empty: its start is below the next
+// row's) owns the slot where its run starts, and reads its m, seg and
+// cstart[seg] once into shared memory under that slot. A block-wide max
+// scan of the owned slots then gives every slot its row. Rows whose runs
+// are empty (an inner join's unmatched rows) are read and skipped, so a
+// tile's range may hold up to kWalk probe rows; past that, each slot's
+// row comes from a binary search over start in the range. A run longer
+// than a tile is row tiles[b] of every tile it covers.
 __global__ void __launch_bounds__(kThreads) join_expand(const ExpandParams p) {
-  __shared__ long long staged[kStage];
+  constexpr int kWarps = kThreads / 32;
+  // 24 KB a block: slots (< kTile) as 16-bit words, so more blocks fit an
+  // SM and more of the random reads are in flight (32 KB of 32-bit words
+  // took 9.59 ms at join_timing's 200M outputs, 24 KB 7.33; PERF.md §6)
+  __shared__ __align__(16) short owner[kTile];  // slot -> the slot its row's run starts at
+  __shared__ int srow[kTile];    // by first slot: the probe row
+  __shared__ short slim[kTile];  // by first slot: slots below it have a build row
+  __shared__ int soff[kTile];    // by first slot: order position of slot 0, clamped
+  __shared__ int warp_sh[kWarps];
   const long long t0 = (long long)blockIdx.x * kTile;
-  const long long t1 = t0 + kTile < p.total ? t0 + kTile : p.total;  // exclusive
+  const int width = (int)(p.total - t0 < kTile ? p.total - t0 : kTile);
   const long long i0 = p.tiles[blockIdx.x], i1 = p.tiles[blockIdx.x + 1];
-  const long long len = i1 - i0 + 1;
-  const bool shared = len <= kStage;
-  if (shared) {
-    for (long long k = threadIdx.x; k < len; k += kThreads) staged[k] = p.start[i0 + k];
-    __syncthreads();
-  }
-  for (long long t = t0 + threadIdx.x; t < t1; t += kThreads) {
-    const long long i = shared ? i0 + last_at_or_below(staged, 0, len - 1, t)
-                               : last_at_or_below(p.start, i0, i1, t);
-    const long long j = t - (shared ? staged[i - i0] : p.start[i]);
-    int r = -1;
-    if (j < __ldg(p.m + i)) {
-      int s = __ldg(p.seg + i);
-      s = s < 0 ? 0 : (s >= p.num ? p.num - 1 : s);
-      long long pos = __ldg(p.cstart + s) + j;
-      pos = pos < 0 ? 0 : (pos >= p.p2 ? p.p2 - 1 : pos);
-      r = (int)__ldg(p.order + pos);
+  const int q0 = threadIdx.x * kPerThread;
+  int li[kPerThread], ri[kPerThread];
+  if (i1 - i0 > kWalk) {
+    // a sparse tile: each slot's row by a search over the range (the
+    // branch is the block's: i0 and i1 are its own)
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) {
+      li[j] = 0;
+      ri[j] = -1;
+      if (q0 + j >= width) continue;
+      const long long t = t0 + q0 + j;
+      const long long i = last_at_or_below(p.start, i0, i1, t);
+      const long long k = t - __ldg(p.start + i);
+      li[j] = (int)i;
+      if (k < __ldg(p.m + i)) {
+        int sg = __ldg(p.seg + i);
+        sg = sg < 0 ? 0 : (sg >= p.num ? p.num - 1 : sg);
+        long long pos = __ldg(p.cstart + sg) + k;
+        pos = pos < 0 ? 0 : (pos >= p.p2 ? p.p2 - 1 : pos);
+        ri[j] = (int)__ldg(p.order + pos);
+      }
     }
-    p.li[t] = (int)i;
-    p.ri[t] = r;
+  } else {
+    for (int q = threadIdx.x; q < kTile; q += kThreads) owner[q] = -1;
+    __syncthreads();
+    // kRowsPer rows a thread a step, each read's loads issued together
+    for (long long step = i0; step <= i1; step += (long long)kThreads * kRowsPer) {
+      long long s[kRowsPer], cs[kRowsPer];
+      int mm[kRowsPer], q[kRowsPer];
+      bool owns[kRowsPer];
+#pragma unroll
+      for (int k = 0; k < kRowsPer; ++k) {
+        const long long i = step + (long long)k * kThreads + threadIdx.x;
+        owns[k] = i <= i1;
+        s[k] = owns[k] ? __ldg(p.start + i) : 0;
+        const long long next = owns[k] && i + 1 < p.p1 ? __ldg(p.start + i + 1) : p.total;
+        q[k] = (int)(s[k] - t0);
+        // row tiles[b] owns slot 0; a later row, the slot its run starts at,
+        // unless its run is empty or starts in the next tile (tiles[b + 1]
+        // is the row of the next tile's first output)
+        if (i == i0)
+          q[k] = 0;
+        else if (s[k] >= next || s[k] - t0 >= width)
+          owns[k] = false;
+      }
+#pragma unroll
+      for (int k = 0; k < kRowsPer; ++k) {
+        const long long i = step + (long long)k * kThreads + threadIdx.x;
+        int sg = owns[k] ? __ldg(p.seg + i) : 0;
+        mm[k] = owns[k] ? __ldg(p.m + i) : 0;
+        sg = sg < 0 ? 0 : (sg >= p.num ? p.num - 1 : sg);
+        cs[k] = owns[k] ? __ldg(p.cstart + sg) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kRowsPer; ++k) {
+        if (!owns[k]) continue;
+        const long long lim = s[k] + mm[k] - t0;
+        long long off = cs[k] - s[k] + t0;
+        off = off < -kTile ? -kTile : (off > p.p2 ? p.p2 : off);
+        srow[q[k]] = (int)(step + (long long)k * kThreads + threadIdx.x);
+        slim[q[k]] = (int)(lim < 0 ? 0 : (lim > kTile ? kTile : lim));
+        soff[q[k]] = (int)off;
+        owner[q[k]] = q[k];
+      }
+    }
+    __syncthreads();
+
+    // the max scan of the owned slots, kPerThread consecutive slots a thread
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int own[kPerThread];
+    {
+      const int4 v = *reinterpret_cast<const int4*>(owner + q0);  // kPerThread 16-bit slots
+      const short* h = reinterpret_cast<const short*>(&v);
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) own[j] = h[j];
+    }
+#pragma unroll
+    for (int j = 1; j < kPerThread; ++j) own[j] = own[j] > own[j - 1] ? own[j] : own[j - 1];
+    int incl = own[kPerThread - 1];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d && o > incl) incl = o;
+    }
+    if (lane == 31) warp_sh[warp] = incl;
+    int before = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) before = -1;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) before = warp_sh[w] > before ? warp_sh[w] : before;
+
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) {
+      const int r = q0 + j;
+      const int o = own[j] > before ? own[j] : before;  // slot 0 is owned: o >= 0
+      li[j] = srow[o];
+      ri[j] = -1;
+      if (r < width && r < slim[o]) {
+        long long pos = (long long)soff[o] + r;
+        pos = pos < 0 ? 0 : (pos >= p.p2 ? p.p2 - 1 : pos);
+        ri[j] = (int)__ldg(p.order + pos);
+      }
+    }
+  }
+  const long long t = t0 + q0;
+  if (q0 + kPerThread <= width && p.vec) {
+#pragma unroll
+    for (int k = 0; k < kPerThread / 4; ++k) {
+      reinterpret_cast<int4*>(p.li + t)[k] =
+          make_int4(li[4 * k], li[4 * k + 1], li[4 * k + 2], li[4 * k + 3]);
+      reinterpret_cast<int4*>(p.ri + t)[k] =
+          make_int4(ri[4 * k], ri[4 * k + 1], ri[4 * k + 2], ri[4 * k + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j)
+      if (q0 + j < width) {
+        p.li[t + j] = li[j];
+        p.ri[t + j] = ri[j];
+      }
   }
 }
 
@@ -375,6 +507,7 @@ extern "C" int fugue_join_expand(long long p1, long long total, const void* star
   p.ntiles = (total + kTile - 1) / kTile;
   p.li = static_cast<int*>(li);
   p.ri = static_cast<int*>(ri);
+  p.vec = reinterpret_cast<uintptr_t>(li) % 16 == 0 && reinterpret_cast<uintptr_t>(ri) % 16 == 0;
   const cudaError_t err = on_device(device, [&] {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t e = launch_params(expand_tiles, p.ntiles / kThreads + 1, kThreads, st, p);

@@ -216,6 +216,7 @@ def sort_boundaries_reference(
     *,
     nrows: Optional[int] = None,
     row_valid: Optional[torch.Tensor] = None,
+    first_sorted: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Group ids in sorted order: the twin of K2 in ``factorize.cu`` and of
     the boundary-and-scan tail of the JAX package's
@@ -225,17 +226,19 @@ def sort_boundaries_reference(
     first (a prefix frame's rows below ``nrows``, or a masked frame's
     non-zero ``row_valid`` bytes); a real position opens a group where any
     of ``codes`` differs from the position before it, and the first real
-    position always does. Returns ``(seg_sorted, count)``: ``seg_sorted``
-    int32[n] the group of each sorted position, -1 where it is not real;
-    ``count`` the groups, an int32 0-d tensor."""
+    position always does. ``first_sorted``, where given, is ``codes[0]``
+    in sorted order (``codes[0][order]``, as the sort's values give it),
+    taken in place of that gather. Returns ``(seg_sorted, count)``:
+    ``seg_sorted`` int32[n] the group of each sorted position, -1 where it
+    is not real; ``count`` the groups, an int32 0-d tensor."""
     if (nrows is None) == (row_valid is None):
         raise ValueError("pass exactly one of nrows (prefix rows) and row_valid")
     n = int(order.shape[0])
     real = row_valid[order] != 0 if row_valid is not None else order < nrows
     opens = torch.zeros((n,), dtype=torch.bool, device=order.device)
     opens[0] = True
-    for c in codes:
-        sc = _code_bits(c[order])
+    for j, c in enumerate(codes):
+        sc = _code_bits(first_sorted if j == 0 and first_sorted is not None else c[order])
         opens[1:] |= sc[1:] != sc[:-1]
     opens &= real
     seg_sorted = torch.cumsum(opens, 0, dtype=torch.int32) - 1

@@ -21,9 +21,10 @@ the card (a null row holds code 0 and is flagged in the mask) and the
 decode table, ``dictionary``, on the host; their stats are ``(0,
 len(dictionary) - 1)``, so a string key bins with no readback. A
 timestamp is int64 microseconds since the epoch and a date32 int32 days,
-each with its ``(min, max)`` stats. uint16-64 and float16 columns are not
-ported yet (ROADMAP.md queue 1 item 1): ``from_arrow`` raises
-``NotImplementedError`` for them rather than keeping them on the host.
+each with its ``(min, max)`` stats. uint16-64, float16, binary, nested
+and decimal columns are not ported yet (ROADMAP.md queue 1 item 1):
+``from_arrow`` raises ``NotImplementedError`` naming the type's case
+rather than keeping them on the host.
 """
 
 from typing import Any, Dict, Optional, Tuple
@@ -75,10 +76,26 @@ def torch_dtype(tp: pa.DataType) -> torch.dtype:
         return torch.int64
     if tp not in _TORCH_DTYPES:
         raise NotImplementedError(
-            f"column type {tp} is not ported to the card yet; see ROADMAP.md "
-            "queue 1 item 1 (uint16-64 and float16 columns)"
+            f"column type {tp} is not ported to the card yet ({_unported_case(tp)}); "
+            "see ROADMAP.md queue 1 item 1"
         )
     return _TORCH_DTYPES[tp]
+
+
+def _unported_case(tp: pa.DataType) -> str:
+    """Which of ROADMAP.md queue 1 item 1's cases a refused type is."""
+    if pa.types.is_unsigned_integer(tp) or pa.types.is_float16(tp):
+        return "a uint16-64 or float16 column"
+    if pa.types.is_binary(tp) or pa.types.is_large_binary(tp) or \
+            pa.types.is_fixed_size_binary(tp):
+        return "a binary column, which the reference keeps on the host"
+    if pa.types.is_nested(tp):
+        return "a nested (list, struct or map) column, which the reference keeps on the host"
+    if pa.types.is_decimal(tp):
+        return "a decimal column, which the reference keeps on the host"
+    if pa.types.is_null(tp):
+        return "a column of arrow's null type"
+    return f"a {tp} column"
 
 
 def is_integer_like(tp: pa.DataType) -> bool:

@@ -63,7 +63,12 @@ from fugue_tpu_torch.column.expressions import (
 from fugue_tpu_torch.collections.sql import StructuredRawSQL
 from fugue_tpu_torch.column.sql import SelectColumns, rewrite_having
 from fugue_tpu_torch.dataframe.dataframe_iterable_dataframe import LocalDataFrameIterableDataFrame
-from fugue_tpu_torch.dataframe.utils import get_join_schemas, normalize_join_type
+from fugue_tpu_torch.dataframe.utils import (
+    arrow_to_table,
+    get_join_schemas,
+    normalize_join_type,
+    pandas_to_table,
+)
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.sql_frontend import algebra_bridge as ab
 from fugue_tpu_torch.sql_frontend.algebra_bridge import inline_scalar_subqueries, translate_query
@@ -466,29 +471,35 @@ class TorchExecutionEngine:
         except expr_eval.Refused as r:
             self._unported(op, r.what, r.item)
 
-    def to_df(self, df: Any) -> TorchDataFrame:
+    def to_df(self, df: Any, schema: Any = None) -> TorchDataFrame:
         """pandas, arrow or a frame on this device -> ``TorchDataFrame``,
-        uploaded now (``:1297``)."""
+        uploaded now (``:1297``). A pandas frame is typed as the reference
+        types it (``dataframe.utils.pandas_to_table``: an empty or all-null
+        object column is ``str``); ``schema``, where given, names and types
+        the columns of a local frame, and must be None for a
+        ``TorchDataFrame``."""
         if isinstance(df, TorchDataFrame):
+            assert_or_throw(schema is None,
+                            ValueError("schema must be None for TorchDataFrame"))
             assert_or_throw(
                 df.device == self.device,
                 ValueError(f"frame is on {df.device}, engine on {self.device}"),
             )
             return df
         if isinstance(df, pd.DataFrame):
-            table = pa.Table.from_pandas(df, preserve_index=False)
+            table = pandas_to_table(df, schema)
         elif isinstance(df, pa.Table):
-            table = df
+            table = arrow_to_table(df, schema)
         elif isinstance(df, LocalDataFrameIterableDataFrame):
-            table = df.as_arrow()  # the stream materialized
+            table = arrow_to_table(df.as_arrow(), schema)  # the stream materialized
         else:
             raise ValueError(f"can't convert {type(df)} to a TorchDataFrame")
-        schema = Schema(table.schema)
-        return TorchDataFrame(from_arrow(table, schema, self.device), schema)
+        tschema = Schema(table.schema)
+        return TorchDataFrame(from_arrow(table, tschema, self.device), tschema)
 
-    def persist(self, df: Any) -> TorchDataFrame:
+    def persist(self, df: Any, schema: Any = None) -> TorchDataFrame:
         """``to_df``, then wait until the upload is on the card (``:1576``)."""
-        res = self.to_df(df)
+        res = self.to_df(df, schema)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return res
@@ -588,8 +599,8 @@ class TorchExecutionEngine:
     def _input(self, op: str, df: Any) -> TorchDataFrame:
         """``to_df`` of an input of ``op``. A frame on another device (work
         across devices, ROADMAP.md queue 1 item 12) and a column type the
-        card does not hold (``to_df`` raises for uint16-64 and float16,
-        queue 1 item 1) count in ``fallbacks`` as a refused ``op``."""
+        card does not hold (``to_df`` raises for uint16-64, float16, binary,
+        nested and decimal columns, queue 1 item 1) count in ``fallbacks`` as a refused ``op``."""
         if isinstance(df, TorchDataFrame) and df.device != self.device:
             self._unported(op, f"{op} of a frame on {df.device} on an engine on "
                            f"{self.device}", "ROADMAP.md queue 1 item 12")
@@ -804,7 +815,7 @@ class TorchExecutionEngine:
             plans.append((c.output_name, c.func.lower(), src))
         try:
             res, self.stream_stats = streaming.stream_aggregate(
-                self, df.as_pandas_chunks(), schema, list(keys), plans)
+                self, df.arrow_chunks(), schema, list(keys), plans)
             return res
         except streaming.StreamFallback as fb:
             self._fallbacks["aggregate"] = self._fallbacks.get("aggregate", 0) + 1

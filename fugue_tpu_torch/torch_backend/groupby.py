@@ -367,27 +367,40 @@ def sort_codes(
     return codes
 
 
-def lex_order(
+def lex_sort(
     codes: Sequence[torch.Tensor],
     *,
     nrows: Optional[int] = None,
     row_valid: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """The rows in the lexicographic order of ``codes``, real rows first:
-    one stable ``torch.sort`` per code, least significant first, then one
-    on validity (``groupby.py:562-568``). int64, as ``torch.sort`` gives
-    it. A prefix frame with no padding skips the validity sort, which
-    would keep the order as it is."""
-    order = torch.sort(codes[-1], stable=True).indices
-    for c in reversed(codes[:-1]):
-        order = order[torch.sort(c[order], stable=True).indices]
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(order, first_sorted)``: the rows in the lexicographic order of
+    ``codes``, real rows first: one stable ``torch.sort`` per code, least
+    significant first, then one on validity (``groupby.py:562-568``).
+    int64, as ``torch.sort`` gives it. A prefix frame with no padding
+    skips the validity sort, which would keep the order as it is; then the
+    last sort's values are ``codes[0][order]`` and come back as
+    ``first_sorted`` (K2 reads them in place of that code's gather), else
+    it is None. Only that last sort's values are kept."""
+    prefix = row_valid is None and (nrows is None or nrows >= int(codes[0].shape[0]))
+    order: Optional[torch.Tensor] = None
+    first_sorted = None
+    for j in range(len(codes) - 1, -1, -1):
+        c = codes[j] if order is None else codes[j][order]
+        if j == 0 and prefix:
+            first_sorted, idx = torch.sort(c, stable=True)
+        else:
+            idx = torch.sort(c, stable=True).indices
+        del c
+        order = idx if order is None else order[idx]
+        del idx  # not held through the next sort
+    assert order is not None
+    if prefix:
+        return order, first_sorted
     if row_valid is not None:
         unreal = (row_valid[order] == 0).to(torch.uint8)
-    elif nrows is not None and nrows < int(order.shape[0]):
-        unreal = (order >= nrows).to(torch.uint8)
     else:
-        return order
-    return order[torch.sort(unreal, stable=True).indices]
+        unreal = (order >= nrows).to(torch.uint8)
+    return order[torch.sort(unreal, stable=True).indices], None
 
 
 def sort_word(
@@ -399,7 +412,7 @@ def sort_word(
     """The keys (each its values and null mask) packed into one
     order-preserving sort word per row (``reference.sort_word_reference``
     has the layout): a signed sort of it orders the rows as the
-    lexicographic sort of ``sort_codes`` then validity (``lex_order``).
+    lexicographic sort of ``sort_codes`` then validity (``lex_sort``).
     None when its fields take more than 64 bits, which depends on the
     keys' dtypes and masks and the frame's layout alone. KW on CUDA keys,
     its twin on CPU keys."""
@@ -439,12 +452,15 @@ def wide_factorize(
     nrows: Optional[int] = None,
     row_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """``(seg, first_idx, num)`` of the wide route: ``lex_order``, then K2
-    and K3 with one readback of the group count between them (CUDA), or
-    their twins (CPU)."""
-    order = lex_order(codes, nrows=nrows, row_valid=row_valid)
+    """``(seg, first_idx, num)`` of the wide route: ``lex_sort``, then K2
+    (over the sort's values of the first code where it has them) and K3
+    with one readback of the group count between them (CUDA), or their
+    twins (CPU)."""
+    order, first_sorted = lex_sort(codes, nrows=nrows, row_valid=row_valid)
     if order.is_cuda:
-        seg_sorted, count = sort_boundaries_cuda(codes, order, nrows=nrows, row_valid=row_valid)
+        seg_sorted, count = sort_boundaries_cuda(codes, order, nrows=nrows, row_valid=row_valid,
+                                                 first_sorted=first_sorted)
+        del first_sorted  # K3's scratch needs the room
         num = int(count)  # the sort path's one readback (groupby.py:548)
         seg, first_idx = sort_finish_cuda(seg_sorted, order, num)
         return seg, first_idx, num

@@ -40,8 +40,10 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import pandas as pd
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
+from fugue_tpu_torch.dataframe.dataframe_iterable_dataframe import chunk_table
 from fugue_tpu_torch.kernels import kernel_for
 from fugue_tpu_torch.kernels.reference import (
     FoldOp,
@@ -71,7 +73,7 @@ class StreamFallback(Exception):
     the caller materializes ``consumed + rest`` and runs the bounded
     aggregate."""
 
-    def __init__(self, reason: str, consumed: List[pd.DataFrame], rest: Iterator[Any]):
+    def __init__(self, reason: str, consumed: List[Any], rest: Iterator[Any]):
         super().__init__(reason)
         self.consumed = consumed
         self.rest = rest
@@ -220,21 +222,44 @@ class StreamingAggregator:
         return fresh
 
     # ---- folding ---------------------------------------------------------
-    def fold(self, pdf: pd.DataFrame) -> int:
-        """Fold one host chunk into the accumulators; returns its row count.
-        An empty chunk is a no-op. Raises ``StreamUnsupported`` where the
+    def host_arrays(self, chunk: Any) -> Tuple[np.ndarray, np.ndarray]:
+        """A chunk's keys and payloads as one int64 array ``[keys +
+        payloads, n]`` (a float payload's float64 bits) and the payloads'
+        validity ``[payloads, n]``, read through arrow with no pass through
+        pandas (``blocks.from_arrow``'s way: ``fill_null``, then
+        ``to_numpy``), so an int64 is exact whatever its nulls; a float's
+        NaN is invalid, its slot 0 (``:421-450``). A pandas chunk is typed
+        by the stream's schema first. Raises ``StreamUnsupported`` for a
+        NULL key or a payload that is not a number or a bool."""
+        table = chunk_table(chunk, self._schema)
+        n = table.num_rows
+        values = np.empty((len(self._keys) + len(self._payloads), n), dtype=np.int64)
+        for j, k in enumerate(self._keys):
+            col = table.column(k)
+            if col.null_count > 0:
+                raise StreamUnsupported("NULL group keys")
+            values[j] = col.to_numpy()
+        valids = np.empty((len(self._payloads), n), dtype=np.bool_)
+        for j, c in enumerate(self._payloads):
+            values[len(self._keys) + j], valids[j] = _payload(table.column(c),
+                                                               self._src_types[c])
+        return values, valids
+
+    def fold(self, chunk: Any) -> int:
+        """Fold one host chunk (an arrow table or a pandas frame of the
+        stream's schema) into the accumulators; returns its row count. An
+        empty chunk is a no-op. Raises ``StreamUnsupported`` where the
         bounded path's semantics cannot be honored. The chunk's keys,
-        payloads and masks go to the card in one copy each; a float NaN is
-        masked as null (``:428-440``)."""
-        n = len(pdf)
+        payloads and masks (``host_arrays``) go to the card in one copy
+        each."""
+        n = len(chunk)
         if n == 0:
             return 0
-        if pdf[self._keys].isna().any().any():
-            raise StreamUnsupported("NULL group keys")
         if (len(self._keys) > MAX_KEYS or len(self._payloads) > MAX_PAYLOADS
                 or len(self._ops) > MAX_OPS):
             raise StreamUnsupported("more keys, payloads or accumulators than one fold takes")
-        keys = [np.asarray(pdf[k].to_numpy()).astype(np.int64, copy=False) for k in self._keys]
+        values, valids = self.host_arrays(chunk)
+        keys = values[: len(self._keys)]
         cb = [(int(k.min()), int(k.max())) for k in keys]
         space = self._space
         if space is not None and space.contains(cb):
@@ -251,12 +276,6 @@ class StreamingAggregator:
         elif cand is not space:
             self._store = self._rebase(space, cand, self._store)  # type: ignore[arg-type]
         self._space = cand
-        values = np.empty((len(keys) + len(self._payloads), n), dtype=np.int64)
-        for j, k in enumerate(keys):
-            values[j] = k
-        valids = np.empty((len(self._payloads), n), dtype=np.bool_)
-        for j, c in enumerate(self._payloads):
-            values[len(keys) + j], valids[j] = _payload(pdf[c], self._src_types[c])
         device = self._engine.device
         dev = torch.from_numpy(values).to(device)
         masks = torch.from_numpy(valids).to(device)
@@ -319,40 +338,39 @@ class StreamingAggregator:
         return TorchDataFrame(TorchBlocks(n, cols, device), Schema(fields))
 
 
-def _payload(series: pd.Series, tp: pa.DataType) -> Tuple[np.ndarray, np.ndarray]:
-    """A chunk's column as int64 bits (a float column's float64 bits) and
-    its validity; nulls and a float's NaN are invalid, their slots 0
-    (``:421-450``)."""
-    valid = ~pd.isna(series).to_numpy()
-    flt = pa.types.is_floating(tp)
-    npv = series.to_numpy()
-    if npv.dtype.kind == "f" and not flt:
-        # an integer column with nulls arrives as float (pandas' NaN)
-        npv = np.nan_to_num(npv).astype(np.int64)
-    elif npv.dtype.kind == "f":
-        npv = np.where(valid, npv, 0.0).astype(np.float64, copy=False)
-    elif npv.dtype.kind not in "iub":
-        want = np.float64 if flt else np.int64
-        npv = series.fillna(0).to_numpy(dtype=want) if not valid.all() else \
-            series.to_numpy(dtype=want)
-    npv = npv.astype(np.float64 if flt else np.int64, copy=False)
-    return (npv.view(np.int64) if flt else npv), valid
+def _payload(col: pa.ChunkedArray, tp: pa.DataType) -> Tuple[np.ndarray, np.ndarray]:
+    """A chunk's column as int64 (a float column's float64 bits) and its
+    validity; nulls and a float's NaN are invalid, their slots 0."""
+    if not (pa.types.is_integer(tp) or pa.types.is_floating(tp) or pa.types.is_boolean(tp)):
+        raise StreamUnsupported(f"a payload of type {tp}")
+    valid = col.is_valid().to_numpy(zero_copy_only=False) if col.null_count > 0 else \
+        np.ones(len(col), dtype=np.bool_)
+    if pa.types.is_floating(tp):
+        npv = pc.fill_null(col, 0.0).to_numpy().astype(np.float64, copy=False)
+        nan = np.isnan(npv)
+        if nan.any():
+            valid &= ~nan
+            npv = np.where(nan, 0.0, npv)
+        return npv.view(np.int64), valid
+    if col.null_count > 0:
+        col = pc.fill_null(col, False if pa.types.is_boolean(tp) else 0)
+    return col.to_numpy(zero_copy_only=False).astype(np.int64, copy=False), valid
 
 
-def stream_aggregate(engine: Any, chunks: Iterator[pd.DataFrame], schema: Schema,
+def stream_aggregate(engine: Any, chunks: Iterator[Any], schema: Schema,
                      keys: List[str], plans: List[Plan]
                      ) -> Tuple[TorchDataFrame, Dict[str, int]]:
-    """Fold a chunk stream into per-group accumulators on the card (the
-    engine's one-shot entry, ``:650``): the result and the aggregator's
-    ``stats()``. Raises ``StreamFallback`` where the bounded path's
-    semantics cannot stream."""
+    """Fold a stream of arrow or pandas chunks into per-group accumulators
+    on the card (the engine's one-shot entry, ``:650``): the result and the
+    aggregator's ``stats()``. Raises ``StreamFallback`` where the bounded
+    path's semantics cannot stream."""
     agg = StreamingAggregator(engine, schema, keys, plans)
-    consumed: List[pd.DataFrame] = []
+    consumed: List[Any] = []
     it = iter(chunks)
-    for pdf in it:
-        consumed.append(pdf)
+    for chunk in it:
+        consumed.append(chunk)
         try:
-            agg.fold(pdf)
+            agg.fold(chunk)
         except StreamUnsupported as ex:
             # the consumed chunks are the caller's, not copies
             raise StreamFallback(str(ex), consumed, it)
@@ -365,9 +383,9 @@ def stream_aggregate(engine: Any, chunks: Iterator[pd.DataFrame], schema: Schema
 
 def materialize_fallback(fb: StreamFallback, schema: Schema) -> pa.Table:
     """The consumed chunks and the rest of the stream as one arrow table of
-    ``schema``, for the bounded path (``:676``)."""
-    parts = [p for p in fb.consumed + list(fb.rest) if len(p) > 0]
+    ``schema``, for the bounded path (``:676``): each chunk typed by
+    ``chunk_table``, so int64 values stay exact."""
+    parts = [chunk_table(p, schema) for p in fb.consumed + list(fb.rest) if len(p) > 0]
     if not parts:
         return schema.pa_schema.empty_table()
-    return pa.Table.from_pandas(pd.concat(parts, ignore_index=True), preserve_index=False,
-                                schema=schema.pa_schema)
+    return pa.concat_tables(parts)

@@ -95,18 +95,25 @@ def test_masked_layout_compacts_on_export():
 
 
 @pytest.mark.parametrize(
-    "arr",
+    "arr,case",
     [
-        pa.array([1, 2, 3], type=pa.uint32()),
-        pa.array([1, 2, 3], type=pa.uint16()),
-        pa.array(np.array([1, 2, 3], dtype=np.float16)),
+        (pa.array([1, 2, 3], type=pa.uint32()), "uint16-64 or float16"),
+        (pa.array([1, 2, 3], type=pa.uint16()), "uint16-64 or float16"),
+        (pa.array(np.array([1, 2, 3], dtype=np.float16)), "uint16-64 or float16"),
+        (pa.array([b"x", None, b"yz"]), "a binary column"),
+        (pa.array([[1], None, [2, 3]]), "a nested"),
+        (pa.array([1, None, 3], type=pa.decimal128(10, 2)), "a decimal column"),
+        (pa.array([None, None, None]), "null type"),
     ],
-    ids=["uint32", "uint16", "float16"],
+    ids=["uint32", "uint16", "float16", "binary", "list", "decimal", "null"],
 )
-def test_unported_types_raise(arr):
+def test_unported_types_raise(arr, case):
+    """A type the card does not hold is refused, naming ROADMAP.md queue 1
+    item 1 and the type's own case."""
     table = pa.table({"a": arr})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1") as info:
         tblocks.from_arrow(table, Schema(table.schema), CPU)
+    assert case in str(info.value)
 
 
 @pytest.mark.parametrize(

@@ -237,7 +237,7 @@ def test_sort_factorize_reference_matches_jax_core(case):
     t = torch.from_numpy
     kwargs = {"nrows": rows} if layout == "prefix" else {"row_valid": t(rows)}
     tcodes = [t(c) for c in codes]
-    order = groupby.lex_order(tcodes, **kwargs)
+    order = groupby.lex_sort(tcodes, **kwargs)[0]
     seg, first_idx, num = sort_factorize_reference(tcodes, order, **kwargs)
     jseg_sorted, jorder, jvalid, jnum = jgroupby._sort_factorize_core(
         tuple(jnp.asarray(c) for c in codes),

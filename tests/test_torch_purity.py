@@ -48,6 +48,7 @@ def _port_sources() -> List[Path]:
     files = sorted((ROOT / "fugue_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py",
         ROOT / "profile_torch_main_path.py",
+        ROOT / "old_vs_new.py",
     ]
     assert len(files) > 10
     return files

@@ -3,7 +3,7 @@
 with the twins of KW, K2w and K3w (``sort_word_reference``,
 ``sort_word_boundaries_reference``, ``sort_word_lookup_reference`` in
 ``fugue_tpu_torch/kernels/reference.py``), against the lexicographic
-order of the port's sort codes (``sort_codes`` + ``lex_order``) and
+order of the port's sort codes (``sort_codes`` + ``lex_sort``) and
 against the JAX package's ``_sort_factorize`` on one CPU device. Frames
 are built with ``from_arrow`` on both sides from the same seeded numpy
 data; prefix frames with ``nrows`` below their padded rows and masked
@@ -269,7 +269,7 @@ def _column(draw: Any, dtype: str, n: int) -> np.ndarray:
           suppress_health_check=[HealthCheck.too_slow, HealthCheck.data_too_large])
 @given(st.data())
 def test_sort_word_orders_as_the_sort_codes(data):
-    """A stable sort of the word gives the permutation of ``lex_order`` over
+    """A stable sort of the word gives the permutation of ``lex_sort`` over
     ``sort_codes``, ties included, for one to three keys of any dtype,
     nullable or not, that fit 64 bits, on every frame layout; the word is an
     int32 exactly when its fields fit 32 bits, and ``real_below`` splits the
@@ -300,7 +300,7 @@ def test_sort_word_orders_as_the_sort_codes(data):
         return
     assert sw.word.dtype == (torch.int32 if bits <= 32 else torch.int64)
     order = torch.sort(sw.word, stable=True).indices
-    want = groupby.lex_order(groupby.sort_codes(keys), **rows)
+    want = groupby.lex_sort(groupby.sort_codes(keys), **rows)[0]
     assert torch.equal(order, want)
     if unreal:
         real = rows["row_valid"] if layout == "masked" else torch.arange(n) < rows["nrows"]

@@ -520,3 +520,71 @@ def test_chip_smoke_stream_fold_edges_on_cpu(monkeypatch: pytest.MonkeyPatch) ->
         "uniform", "one_slot", f"zipf_{chip_smoke.FOLD_ZIPF}", "within_one_slab",
         "three_slabs_and_17", "outside_rows", "one_row", "width_1", "width_48"]
     assert [c["accumulators"] for c in out][-2:] == [1, 48] and out[6]["rows"] == 1
+
+
+BEYOND = (1 << 53) + 1  # float64 holds 2^53 and 2^53 + 2, not this
+
+
+def _int64_chunk(kind: str, keys: List[Any], values: List[Any]) -> Any:
+    """One chunk of ``k:long,v:long`` as an arrow table or a pandas frame
+    of nullable ``Int64`` columns."""
+    if kind == "arrow":
+        return pa.table({"k": pa.array(keys, pa.int64()), "v": pa.array(values, pa.int64())})
+    return pd.DataFrame({"k": pd.array(keys, dtype="Int64"),
+                         "v": pd.array(values, dtype="Int64")})
+
+
+_EXACT = [("s", "sum", "v"), ("lo", "min", "v"), ("hi", "max", "v"), ("c", "count", "v")]
+
+
+@pytest.mark.parametrize("kind", ["arrow", "pandas_Int64"])
+def test_nullable_int64_beyond_2_53_streams_exactly(kind: str) -> None:
+    """A nullable int64 payload beyond 2^53 streams exactly: the chunk is
+    read through arrow, never through float64 (held against Python ints;
+    the JAX package loses the same bits, ``jax_backend/streaming.py:432-437``)."""
+    te = ft.make_execution_engine(device="cpu")
+    chunk = _int64_chunk(kind, [1, 1, 1], [BEYOND, None, 5])
+    got = ft.aggregate(ft.LocalDataFrameIterableDataFrame(iter([chunk]), "k:long,v:long"),
+                       ["k"], engine=te, as_fugue=True,
+                       **{n: getattr(ff, f)(col(c)) for n, f, c in _EXACT}).as_arrow()
+    assert te.stream_stats["chunks"] == 1 and "aggregate" not in te.fallbacks
+    assert got.to_pylist() == [{"k": 1, "s": BEYOND + 5, "lo": 5, "hi": BEYOND, "c": 2}]
+
+
+@pytest.mark.parametrize("kind", ["arrow", "pandas_Int64"])
+def test_fallback_keeps_int64_beyond_2_53(kind: str) -> None:
+    """A stream that falls back (a null key in a later chunk) materializes
+    its consumed chunks through arrow too: the bounded aggregate sees the
+    earlier chunk's int64 values beyond 2^53 exactly."""
+    te = ft.make_execution_engine(device="cpu")
+    chunks = [_int64_chunk(kind, [1, 1, 1], [BEYOND, None, 5]),
+              _int64_chunk(kind, [None, 2], [7, BEYOND + 2])]
+    got = ft.aggregate(ft.LocalDataFrameIterableDataFrame(iter(chunks), "k:long,v:long"),
+                       ["k"], engine=te, as_fugue=True,
+                       **{n: getattr(ff, f)(col(c)) for n, f, c in _EXACT}).as_arrow()
+    assert te.fallbacks["aggregate"] == 1
+    rows = {r["k"]: r for r in got.to_pylist()}
+    assert rows[1] == {"k": 1, "s": BEYOND + 5, "lo": 5, "hi": BEYOND, "c": 2}
+    assert rows[2] == {"k": 2, "s": BEYOND + 2, "lo": BEYOND + 2, "hi": BEYOND + 2, "c": 1}
+
+
+def test_host_arrays_read_through_arrow() -> None:
+    """``host_arrays`` of an arrow chunk and of the same pandas chunk: keys
+    and int64 payloads exact, a float payload's bits, nulls and NaN
+    invalid with slot 0; a NULL key is refused."""
+    te = ft.make_execution_engine(device="cpu")
+    schema = ft.Schema("k:int,v:long,x:double")
+    agg = streaming.StreamingAggregator(te, schema, ["k"], [("s", "sum", "v"),
+                                                             ("m", "max", "x")])
+    table = pa.table({"k": pa.array([3, 4, 5], pa.int32()),
+                      "v": pa.array([BEYOND, None, -2], pa.int64()),
+                      "x": pa.array([1.5, float("nan"), None], pa.float64())})
+    for chunk in (table, table.to_pandas(types_mapper={pa.int64(): pd.Int64Dtype()}.get)):
+        values, valids = agg.host_arrays(chunk)
+        assert values.dtype == np.int64 and values.shape == (3, 3)
+        assert values[0].tolist() == [3, 4, 5] and values[1].tolist() == [BEYOND, 0, -2]
+        assert values[2].view(np.float64).tolist() == [1.5, 0.0, 0.0]
+        assert valids.tolist() == [[True, False, True], [True, False, False]]
+    with pytest.raises(streaming.StreamUnsupported, match="NULL group keys"):
+        agg.host_arrays(pa.table({"k": pa.array([None], pa.int32()), "v": pa.array([1]),
+                                  "x": pa.array([1.0])}))
