@@ -31,10 +31,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (``sort_boundaries_edges``: one group, every row its own group, groups
    across tile boundaries, masked frames, a short prefix, strided int64
    words, an unaligned order, n = 1 and off the tile). Then K4 ``segment_extrema`` bit for bit and K5
-   ``segment_sq_dev`` within rtol 1e-10 in every case of ``reduce_cases``
-   (every payload dtype, masked payloads, NaN, -0.0, +0.0 and infinities,
-   prefix and masked frames, one segment, 2^20 segments in global tables,
-   more payloads than one launch takes), up to 100M rows. Then K6
+   ``segment_sq_dev`` within rtol 1e-10 of its twin summed by chunks
+   (``sq_dev_twin``) in every case of ``reduce_cases`` (every payload
+   dtype, masked payloads, NaN, -0.0, +0.0 and infinities, prefix and
+   masked frames, one segment with every payload dtype and with every
+   row NaN or masked, Zipf(1.1) over 1024 segments, sorted runs across a
+   thread's, a warp's and a block's rows, views at an unaligned offset,
+   2^20 segments in global tables, more payloads than one launch takes)
+   at n = 1, 31, 33, 2^20 + 37, 10M and 100M. Then K6
    ``expr_program`` against its twin (``expr_program_vs_twin``): every
    program of ``k6_cases`` (every operator family over every dtype, with
    nulls, NaN, -0.0, infinities and integer extremes, in columns mode, and
@@ -195,8 +199,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    is one, and its bound from the bytes it must move; the fused kernel's
    variant sweep and one-group shape; ``torch.sort`` of the int32 and
    int64 sort words; and K3's two routes over 1024 to 10^8 groups
-   (``k3_routes``), each on a line of its own; K4 and K5 at the full
-   group-by's shapes, the median's two routes (``median_timing``) and the
+   (``k3_routes``), each on a line of its own; K4 and K5 over one
+   segment (the keyless aggregate), 1024 uniform segments (the full
+   group-by's), Zipf(1.1) over 1024 and 2^20 segments (``reduce_timing``),
+   the median's two routes (``median_timing``) and the
    DISTINCT mask by K13 (``distinct_mask_timing``, beside the gather it
    replaced and ``index_fill_``), each beside its bound;
    K6's path programs at 100M rows (``expr_timing``: time, twin time and
@@ -239,7 +245,7 @@ import math
 import subprocess
 import sys
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 ROWS = 100_000_000
 GROUPS = 1024
@@ -1212,12 +1218,31 @@ def sort_path_aggregates(device: Any, rows: int, groups: int, seed: int, warm_ru
     return out
 
 
-def reduce_cases(device: Any, n: int, seed: int) -> List[Tuple[str, str, Dict[str, Any]]]:
+def zipf_ids(u: Any, num: int, exponent: float) -> Any:
+    """Segment ids over ``[0, num)`` drawn with probability proportional
+    to (id + 1)^-``exponent`` from uniforms ``u`` in [0, 1): a bounded
+    Zipf law, in the order of ``u`` (so a hot id is spread over the
+    rows)."""
+    import torch
+
+    p = torch.arange(1, num + 1, dtype=torch.float64, device=u.device) ** -exponent
+    cdf = torch.cumsum(p / p.sum(), 0)
+    return torch.searchsorted(cdf, u.to(torch.float64)).clamp(max=num - 1).to(torch.int32)
+
+
+def reduce_cases(device: Any, n: int, seed: int) -> Iterator[Tuple[str, str, Dict[str, Any]]]:
     """K4's and K5's cases at ``n`` rows: ``(label, "extrema" or "sq_dev",
     keyword arguments of the kernel and its twin)``. Segment ids reach
     outside ``[0, num)`` on some rows, which then count nowhere; float
     payloads hold NaN, -0.0, +0.0 and infinities; int64 payloads their
-    type's extremes."""
+    type's extremes. Beside 1024 uniform segments: one segment (prefix
+    and masked frames, every payload NaN or masked), Zipf(``FOLD_ZIPF``)
+    over 1024 segments, sorted runs of 37 and 5000 rows (across a
+    thread's run of 8 rows, a warp's 256 and a block's 2048), views at an
+    offset no 16-byte load takes, and 2^20 segments. Cases labelled
+    "global tables" take that route, the rest the shared one. Each case's
+    payloads are drawn as it is reached, so that one case's columns are
+    held at a time."""
     import torch
 
     from fugue_tpu_torch.kernels.reference import Extremum
@@ -1230,54 +1255,109 @@ def reduce_cases(device: Any, n: int, seed: int) -> List[Tuple[str, str, Dict[st
     def special(dtype: Any) -> Any:
         return table.to(dtype)[ints(0, 8, torch.int64)]
 
-    def every_dtype() -> List[Any]:
-        return [
-            Extremum(special(torch.float32), flags(0.8), True, True),
-            Extremum(special(torch.float64), None, True, True),
-            Extremum(extremes[ints(0, 5, torch.int64)], None, True, True),
-            Extremum(big(), flags(0.5), True, False),
-            Extremum(ints(-(2**31), 2**31 - 1, torch.int32), None, False, True),
-            Extremum(ints(-(2**15), 2**15, torch.int16), None, True, True),
-            Extremum(ints(-128, 128, torch.int8), flags(0.7), True, True),
-            Extremum(ints(0, 256, torch.uint8), None, True, True),
-            Extremum(flags(0.5), flags(0.9), True, True),
+    def every_dtype(lo: int = 0, hi: int = 9) -> List[Any]:
+        makers = [
+            lambda: Extremum(special(torch.float32), flags(0.8), True, True),
+            lambda: Extremum(special(torch.float64), None, True, True),
+            lambda: Extremum(extremes[ints(0, 5, torch.int64)], None, True, True),
+            lambda: Extremum(big(), flags(0.5), True, False),
+            lambda: Extremum(ints(-(2**31), 2**31 - 1, torch.int32), None, False, True),
+            lambda: Extremum(ints(-(2**15), 2**15, torch.int16), None, True, True),
+            lambda: Extremum(ints(-128, 128, torch.int8), flags(0.7), True, True),
+            lambda: Extremum(ints(0, 256, torch.uint8), None, True, True),
+            lambda: Extremum(flags(0.5), flags(0.9), True, True),
         ]
+        return [make() for make in makers[lo:hi]]
 
     def means(p: int, num: int) -> Any:
         return floats(torch.float64, m=p * num).view(p, num) * 2
+
+    def view(t: Any) -> Any:
+        return shifted([(t, None)])[0][0]
 
     seg1024 = ints(-2, 1026, torch.int32)
     wide = 1 << 20
     seg_wide = ints(0, wide, torch.int32)
     zeros = torch.zeros((n,), dtype=torch.int32, device=device)
+    zipf = zipf_ids((floats(torch.float64) + 1) / 2, 1024, FOLD_ZIPF)
+    row = torch.arange(n, dtype=torch.int32, device=device)
+    runs37, runs5000 = (row // 37) % 1024, (row // 5000) % 1024
     finite = [(floats() * 10, None), (floats(torch.float64), flags(0.6))]
-    # as the engine gives K5 its payloads: NaN (and here infinite) rows masked out
-    special32 = special(torch.float32)
-    not_nan = [(special32, flags(0.8) & torch.isfinite(special32))]
-    return [
-        ("every payload dtype, 1024 segments, prefix frame", "extrema", dict(
+    none = torch.zeros((n,), dtype=torch.bool, device=device)
+
+    def not_nan() -> List[Any]:
+        # as the engine gives K5 its payloads: NaN (and here infinite) rows masked out
+        special32 = special(torch.float32)
+        return [(special32, flags(0.8) & torch.isfinite(special32))]
+
+    def offset() -> List[Any]:
+        return [Extremum(view(special(torch.float32)), view(flags(0.8)), True, True),
+                Extremum(view(extremes[ints(0, 5, torch.int64)]), None, True, True),
+                Extremum(view(ints(-(2**15), 2**15, torch.int16)), None, True, True),
+                Extremum(view(ints(0, 256, torch.uint8)), view(flags(0.7)), True, True)]
+
+    cases: List[Tuple[str, str, Callable[[], Dict[str, Any]]]] = [
+        ("every payload dtype, 1024 segments, prefix frame", "extrema", lambda: dict(
             seg=seg1024, num=1024, payloads=every_dtype(), nrows=n - n // 7,
             first=True, last=True)),
-        ("masked frame", "extrema", dict(
-            seg=seg1024, num=1024, payloads=every_dtype()[:3], row_valid=flags(0.6),
+        ("masked frame", "extrema", lambda: dict(
+            seg=seg1024, num=1024, payloads=every_dtype(0, 3), row_valid=flags(0.6),
             last=True)),
-        ("one segment", "extrema", dict(
-            seg=zeros, num=1, payloads=every_dtype()[1:4], nrows=n, first=True, last=True)),
-        ("2^20 segments, global tables", "extrema", dict(
-            seg=seg_wide, num=wide, payloads=every_dtype()[:2], nrows=n, first=True,
+        ("one segment", "extrema", lambda: dict(
+            seg=zeros, num=1, payloads=every_dtype(1, 4), nrows=n, first=True, last=True)),
+        ("one segment, every payload dtype, masked frame", "extrema", lambda: dict(
+            seg=zeros, num=1, payloads=every_dtype(), row_valid=flags(0.6), first=True,
             last=True)),
-        ("float32 and float64, 1024 segments, prefix frame", "sq_dev", dict(
+        ("one segment, every row NaN or masked", "extrema", lambda: dict(
+            seg=zeros, num=1, nrows=n, first=True, last=True, payloads=[
+                Extremum(torch.full((n,), float("nan"), device=device), flags(0.5), True, True),
+                Extremum(special(torch.float64), none, True, True),
+                Extremum(big(), none, True, True)])),
+        ("zipf over 1024 segments", "extrema", lambda: dict(
+            seg=zipf, num=1024, payloads=every_dtype(0, 5), nrows=n, first=True, last=True)),
+        ("sorted runs of 37 rows", "extrema", lambda: dict(
+            seg=runs37, num=1024, payloads=every_dtype(0, 4), nrows=n - n // 7, first=True,
+            last=True)),
+        ("sorted runs of 5000 rows, masked frame", "extrema", lambda: dict(
+            seg=runs5000, num=1024, payloads=every_dtype(4), row_valid=flags(0.6),
+            first=True, last=True)),
+        ("views at an unaligned offset", "extrema", lambda: dict(
+            seg=view(seg1024), num=1024, payloads=offset(), row_valid=view(flags(0.7)),
+            first=True, last=True)),
+        ("2^20 segments, global tables", "extrema", lambda: dict(
+            seg=seg_wide, num=wide, payloads=every_dtype(0, 2), nrows=n, first=True,
+            last=True)),
+        ("float32 and float64, 1024 segments, prefix frame", "sq_dev", lambda: dict(
             seg=seg1024, num=1024, payloads=finite, means=means(2, 1024), nrows=n - n // 7)),
-        ("masked frame, NaN rows masked out", "sq_dev", dict(
-            seg=seg1024, num=1024, payloads=not_nan + finite, means=means(3, 1024),
+        ("masked frame, NaN rows masked out", "sq_dev", lambda: dict(
+            seg=seg1024, num=1024, payloads=not_nan() + finite, means=means(3, 1024),
             row_valid=flags(0.6))),
-        ("one segment", "sq_dev", dict(seg=zeros, num=1, payloads=finite, means=means(2, 1),
-                                       nrows=n)),
-        ("2^20 segments, global tables", "sq_dev", dict(
+        ("one segment", "sq_dev", lambda: dict(
+            seg=zeros, num=1, payloads=finite, means=means(2, 1), nrows=n)),
+        ("one segment, masked frame, a payload every row masked", "sq_dev", lambda: dict(
+            seg=zeros, num=1, payloads=not_nan() + finite + [(floats(), none)],
+            means=means(4, 1), row_valid=flags(0.6))),
+        ("zipf over 1024 segments", "sq_dev", lambda: dict(
+            seg=zipf, num=1024, payloads=finite, means=means(2, 1024), nrows=n)),
+        ("sorted runs of 37 rows", "sq_dev", lambda: dict(
+            seg=runs37, num=1024, payloads=finite, means=means(2, 1024), nrows=n)),
+        ("sorted runs of 5000 rows, masked frame", "sq_dev", lambda: dict(
+            seg=runs5000, num=1024, payloads=finite, means=means(2, 1024),
+            row_valid=flags(0.6))),
+        ("views at an unaligned offset", "sq_dev", lambda: dict(
+            seg=view(seg1024), num=1024, payloads=shifted([
+                (special(torch.float32).nan_to_num(0.0, 0.0, 0.0), flags(0.8)), finite[1]]),
+            means=means(2, 1024), nrows=n)),
+        ("2^20 segments, global tables", "sq_dev", lambda: dict(
             seg=seg_wide, num=wide, payloads=finite, means=means(2, wide), nrows=n)),
-        ("more payloads than one launch takes", "sq_dev", dict(
+        ("more payloads than one launch takes", "sq_dev", lambda: dict(
             seg=seg1024, num=1024, payloads=finite * 5, means=means(10, 1024), nrows=n)),
     ]
+    for label, kind, make in cases:
+        yield label, kind, make()
+
+
+REDUCE_SIZES = (1, 31, 33, (1 << 20) + 37, 10_000_000, ROWS)  # reduce_vs_twin's row counts
 
 
 def _bits(t: Any) -> Any:
@@ -1289,17 +1369,44 @@ def _bits(t: Any) -> Any:
     return t.view(views[t.dtype]) if t.dtype in views else t
 
 
+def sq_dev_twin(case: Dict[str, Any], chunk: int = 1 << 20) -> Any:
+    """``segment_sq_dev_reference`` of ``case`` (K5's keyword arguments)
+    as the sum of the twin over chunks of ``chunk`` rows. On the card the
+    twin's ``index_add_`` adds every row of a segment into one float64
+    word in turn: over tens of millions of rows of a few repeated values
+    that one accumulator drifts by some 2e-10 (a sum of 36M such squares
+    in row order is off by 2.4e-10, by numpy's cumsum against math.fsum),
+    while partial sums of 2^20 rows stay within 1e-12."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import segment_sq_dev_reference
+
+    seg, payloads = case["seg"], case["payloads"]
+    rows = case.get("nrows")
+    scan = int(seg.shape[0]) if rows is None else int(rows)
+    out = torch.zeros((len(payloads), case["num"]), dtype=torch.float64, device=seg.device)
+    for a in range(0, scan, chunk):
+        b = min(a + chunk, scan)
+        part = dict(seg=seg[a:b], num=case["num"], means=case["means"],
+                    payloads=[(v[a:b], None if m is None else m[a:b]) for v, m in payloads])
+        if rows is None:
+            part["row_valid"] = case["row_valid"][a:b]
+        else:
+            part["nrows"] = b - a
+        out += segment_sq_dev_reference(**part)
+    return out
+
+
 def reduce_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
     """K4 (``segment_extrema_cuda``) against ``segment_extrema_reference``
     bit for bit, and K5 (``segment_sq_dev_cuda``) against
-    ``segment_sq_dev_reference`` within rtol 1e-10 (float64 atomics add in
-    no fixed order), in every case of ``reduce_cases`` at each size, with
-    the path each took. Returns K5's largest relative difference."""
+    ``segment_sq_dev_reference`` (summed by chunks: ``sq_dev_twin``)
+    within rtol 1e-10 (float64 sums add in no fixed order), in every case
+    of ``reduce_cases`` at each size, with the path each took. Returns
+    K5's largest relative difference."""
     import torch
 
-    from fugue_tpu_torch.kernels.reference import (
-        segment_extrema_reference, segment_sq_dev_reference,
-    )
+    from fugue_tpu_torch.kernels.reference import segment_extrema_reference
     from fugue_tpu_torch.kernels.segment_reduce import (
         segment_extrema_cuda, segment_sq_dev_cuda,
     )
@@ -1326,18 +1433,18 @@ def reduce_vs_twin(device: Any, sizes: Tuple[int, ...]) -> float:
             else:
                 got = segment_sq_dev_cuda(**case)
                 path = segment_sq_dev_cuda.last_path
-                want = segment_sq_dev_reference(**case)
+                want = sq_dev_twin(case)
                 torch.cuda.synchronize(device)
                 rel = ((got - want).abs() / want.abs().clamp(min=1e-300)).max()
                 err = float(rel)
                 if got.shape != want.shape or not err <= 1e-10:
                     raise SystemExit(f"FAIL {full}: rel err {err}")
                 worst = max(worst, err)
-            want_path = "global" if label.startswith("2^20") else "shared"
+            want_path = "global" if "global tables" in label else "shared"
             if n > 1 and path != want_path:
                 raise SystemExit(f"FAIL {full}: took the {path} path, expected {want_path}")
             print(f"ok {full} path={path} rel_err={err}")
-            del got, want
+            del got, want, case
         torch.cuda.empty_cache()
     return worst
 
@@ -1641,13 +1748,13 @@ def main_path(
     }
 
 
-def time_cuda(fn: Callable[[], Any], reps: int) -> float:
+def time_cuda(fn: Callable[[], Any], reps: int, warm: int = 2) -> float:
     """Milliseconds per call, from CUDA events around ``reps`` calls after
-    two warm-up calls."""
+    ``warm`` warm-up calls."""
     import torch
 
-    fn()
-    fn()
+    for _ in range(warm):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2113,67 +2220,119 @@ def stand_in_timing(device: Any) -> Dict[str, Any]:
     }
 
 
-def reduce_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
-    """K4 and K5 with CUDA events at the keyed full group-by's shapes: 100M
-    rows of the headline key's segment ids (1024 segments, a prefix frame
-    with nrows = n) and ``v2 = v*2+1`` in float32; K4 takes its min and max
-    and each segment's last row, K5 its squared deviations under its
-    not-NaN mask from the segments' float64 means. Beside their twins, one
-    PyTorch call each (computing less: K4's ``scatter_reduce_("amin")``
-    takes the min alone, K5's ``index_add_`` adds squares computed before
-    it) and their bounds: each input read once, each output written once;
-    K5's float64 operations over the float64 rate. K4 must equal its twin
-    bit for bit, K5 within rtol 1e-10."""
+# K4's and K5's timing shapes: 100M rows of v2 in [1, 3) over one segment
+# (the keyless aggregate), 1024 uniform segments (the full group-by's),
+# Zipf(FOLD_ZIPF) over 1024 segments and 2^20 uniform segments (the
+# global route); each entry's name suffix
+REDUCE_SHAPES = {"keyless": "_keyless", "uniform": "", "zipf": "_zipf", "2^20": "_2p20"}
+
+
+def reduce_shape(device: Any, shape: str) -> Dict[str, Any]:
+    """K4's and K5's inputs at one of ``REDUCE_SHAPES`` (100M rows, a
+    prefix frame with nrows = n, ``v2 = v*2+1`` in float32): ``k4`` takes
+    the min and max of ``v2`` and each segment's last row, ``k5`` the
+    squared deviations of ``v2`` under its not-NaN mask from the
+    segments' float64 means; with ``library``, one PyTorch call each
+    (``torch.aminmax`` and ``torch.var(correction=0)`` over one segment,
+    else ``scatter_reduce_("amin")``, the min alone, and ``index_add_`` of
+    squares computed before it), and the bytes each reads and writes
+    once."""
     import torch
 
-    from fugue_tpu_torch.kernels.reference import (
-        Extremum, segment_extrema_reference, segment_sq_dev_reference,
-    )
-    from fugue_tpu_torch.kernels.segment_reduce import segment_extrema_cuda, segment_sq_dev_cuda
+    from fugue_tpu_torch.kernels.reference import Extremum
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    n, num = ROWS, GROUPS
-    seg = torch.randint(0, num, (n,), generator=gen, device=device, dtype=torch.int32)
+    n = ROWS
+    num = {"keyless": 1, "uniform": GROUPS, "zipf": GROUPS, "2^20": 1 << 20}[shape]
+    if shape == "keyless":
+        seg = torch.zeros((n,), dtype=torch.int32, device=device)
+    elif shape == "zipf":
+        seg = zipf_ids(torch.rand((n,), generator=gen, device=device, dtype=torch.float64),
+                       num, FOLD_ZIPF)
+    else:
+        seg = torch.randint(0, num, (n,), generator=gen, device=device, dtype=torch.int32)
     value = torch.rand((n,), generator=gen, device=device) * 2 + 1
-    k4 = dict(seg=seg, num=num, payloads=[Extremum(value, None, True, True)], nrows=n,
-              last=True)
-    got, want = segment_extrema_cuda(**k4), segment_extrema_reference(**k4)
-    pairs = [(got.mins[0], want.mins[0]), (got.maxs[0], want.maxs[0]), (got.last, want.last)]
-    if not all(torch.equal(_bits(g), _bits(w)) for g, w in pairs):
-        raise SystemExit("FAIL segment_extrema at the timed shape: differs from its twin")
-    ms = time_cuda(lambda: segment_extrema_cuda(**k4), 20)
-    plain_ms = time_cuda(lambda: segment_extrema_reference(**k4), 5)
-    idx = seg.long()
-    table = torch.empty((num,), dtype=torch.float32, device=device)
-    library_ms = time_cuda(
-        lambda: table.scatter_reduce_(0, idx, value, "amin", include_self=False), 5)
-    entries = [_kernel_entry(
-        "segment_extrema", "fugue_tpu/jax_backend/groupby.py:647", launches["segment_extrema"],
-        0.0, ms, plain_ms, n * (4 + 4) + num * (4 + 4 + 4), 3 * n, library_ms,
-        source="segment_reduce.cu")]
-    print(f"segment_extrema timed shape: path={segment_extrema_cuda.last_path}")
-
     eff = ~torch.isnan(value)
+    idx = seg.long()
     cnt = torch.zeros((num,), dtype=torch.float64, device=device).index_add_(
         0, idx, eff.to(torch.float64))
     tot = torch.zeros((num,), dtype=torch.float64, device=device).index_add_(
         0, idx, value.to(torch.float64))
     means = (tot / cnt.clamp(min=1))[None]
-    k5 = dict(seg=seg, num=num, payloads=[(value, eff)], means=means, nrows=n)
-    got5, want5 = segment_sq_dev_cuda(**k5), segment_sq_dev_reference(**k5)
-    rel = float(((got5 - want5).abs() / want5.abs()).max())
-    if not rel <= 1e-10:
-        raise SystemExit(f"FAIL segment_sq_dev at the timed shape: rel err {rel}")
-    ms = time_cuda(lambda: segment_sq_dev_cuda(**k5), 20)
-    plain_ms = time_cuda(lambda: segment_sq_dev_reference(**k5), 5)
-    sq = (value.to(torch.float64) - means[0].index_select(0, idx)) ** 2
-    acc = torch.zeros((num,), dtype=torch.float64, device=device)
-    library_ms = time_cuda(lambda: acc.zero_().index_add_(0, idx, sq), 5)
-    entries.append(_kernel_entry(
-        "segment_sq_dev", "fugue_tpu/jax_backend/groupby.py:676", launches["segment_sq_dev"],
-        float((got5 - want5).abs().max()), ms, plain_ms, n * (4 + 4 + 1) + num * (8 + 8),
-        3 * n, library_ms, source="segment_reduce.cu", ops_per_s=FP64_OPS_PER_S))
-    print(f"segment_sq_dev timed shape: path={segment_sq_dev_cuda.last_path} rel_err={rel}")
+    out: Dict[str, Any] = {
+        "num": num,
+        "k4": dict(seg=seg, num=num, payloads=[Extremum(value, None, True, True)], nrows=n,
+                   last=True),
+        "k5": dict(seg=seg, num=num, payloads=[(value, eff)], means=means, nrows=n),
+        # seg and v2 read, the min, max and last row written; seg, v2 and
+        # the mask read, the means read and the sums written
+        "k4_bytes": n * (4 + 4) + num * (4 + 4 + 4),
+        "k5_bytes": n * (4 + 4 + 1) + num * (8 + 8),
+    }
+    if shape == "keyless":
+        kept = value[eff]
+        out["k4_library"] = lambda: torch.aminmax(value)
+        out["k5_library"] = lambda: torch.var(kept, correction=0)
+    else:
+        table = torch.empty((num,), dtype=torch.float32, device=device)
+        sq = (value.to(torch.float64) - means[0].index_select(0, idx)) ** 2
+        acc = torch.zeros((num,), dtype=torch.float64, device=device)
+        out["k4_library"] = lambda: table.scatter_reduce_(0, idx, value, "amin",
+                                                          include_self=False)
+        out["k5_library"] = lambda: acc.zero_().index_add_(0, idx, sq)
+    return out
+
+
+def reduce_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """K4 and K5 with CUDA events at each of ``REDUCE_SHAPES``
+    (``reduce_shape``), beside their twins, one PyTorch call each and their
+    bounds: each input read once, each output written once; K5's float64
+    operations over the float64 rate. K4 must equal its twin bit for bit,
+    K5 within rtol 1e-10. The twins are timed by one call each, right
+    after the call that checks the kernel against them (K4's twin takes
+    seconds a call over one segment: ``scatter_reduce_`` into one
+    address). ``launches`` holds each entry's launches on its path: the
+    keyless full group-by's for the one-segment shape, the keyed one's for
+    the rest."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import (
+        segment_extrema_reference, segment_sq_dev_reference,
+    )
+    from fugue_tpu_torch.kernels.segment_reduce import segment_extrema_cuda, segment_sq_dev_cuda
+
+    entries = []
+    for shape, suffix in REDUCE_SHAPES.items():
+        c = reduce_shape(device, shape)
+        n = ROWS
+        got, want = segment_extrema_cuda(**c["k4"]), segment_extrema_reference(**c["k4"])
+        pairs = [(got.mins[0], want.mins[0]), (got.maxs[0], want.maxs[0]),
+                 (got.last, want.last)]
+        if not all(torch.equal(_bits(g), _bits(w)) for g, w in pairs):
+            raise SystemExit(f"FAIL segment_extrema at the {shape} shape: differs from its twin")
+        path = segment_extrema_cuda.last_path
+        entries.append(_kernel_entry(
+            f"segment_extrema{suffix}", "fugue_tpu/jax_backend/groupby.py:647",
+            launches[f"segment_extrema{suffix}"], 0.0,
+            time_cuda(lambda: segment_extrema_cuda(**c["k4"]), 20),  # noqa: B023
+            time_cuda(lambda: segment_extrema_reference(**c["k4"]), 1, warm=0),  # noqa: B023
+            c["k4_bytes"], 3 * n, time_cuda(c["k4_library"], 5), source="segment_reduce.cu"))
+        del got, want, pairs
+        got5, want5 = segment_sq_dev_cuda(**c["k5"]), sq_dev_twin(c["k5"])
+        rel = float(((got5 - want5).abs() / want5.abs().clamp(min=1e-300)).max())
+        if not rel <= 1e-10:
+            raise SystemExit(f"FAIL segment_sq_dev at the {shape} shape: rel err {rel}")
+        entries.append(_kernel_entry(
+            f"segment_sq_dev{suffix}", "fugue_tpu/jax_backend/groupby.py:676",
+            launches[f"segment_sq_dev{suffix}"], float((got5 - want5).abs().max()),
+            time_cuda(lambda: segment_sq_dev_cuda(**c["k5"]), 20),  # noqa: B023
+            time_cuda(lambda: segment_sq_dev_reference(**c["k5"]), 1, warm=0),  # noqa: B023
+            c["k5_bytes"], 3 * n, time_cuda(c["k5_library"], 5), source="segment_reduce.cu",
+            ops_per_s=FP64_OPS_PER_S))
+        print(f"segment reductions at the {shape} shape: K4 path={path}, K5 path="
+              f"{segment_sq_dev_cuda.last_path} rel_err={rel}")
+        del c, got5, want5
+        torch.cuda.empty_cache()
     return entries
 
 
@@ -6945,7 +7104,7 @@ def main() -> None:
           "slabs' edges)")
     lap("twins: factorization")
     torch.cuda.empty_cache()
-    worst = reduce_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
+    worst = reduce_vs_twin(device, REDUCE_SIZES)
     print(f"kernels checked against their twins: segment_extrema (bit-equal), "
           f"segment_sq_dev (max rel err {worst})")
     torch.cuda.empty_cache()
@@ -7134,7 +7293,9 @@ def main() -> None:
     })
     torch.cuda.empty_cache()
     entries += reduce_timing(device, {
-        name: full[0]["launches"][name] for name in ("segment_extrema", "segment_sq_dev")})
+        f"{name}{suffix}": full[shape == "keyless"]["launches"][name]
+        for name in ("segment_extrema", "segment_sq_dev")
+        for shape, suffix in REDUCE_SHAPES.items()})
     torch.cuda.empty_cache()
     pipeline = k6_paths[0]["launches"]
     entries += expr_timing(device, {
@@ -7187,8 +7348,8 @@ def main() -> None:
                  if entry[k] is not None]
         if not all(math.isfinite(t) for t in times):
             raise SystemExit(f"FAIL: a time of {entry['name']} is not finite")
-        if entry["max_abs_err"] != 0 and entry["name"] not in ("binned_sums", "segment_sq_dev",
-                                                               "window_frame", "stream_fold"):
+        if entry["max_abs_err"] != 0 and not entry["name"].startswith((
+                "binned_sums", "segment_sq_dev", "window_frame", "stream_fold")):
             raise SystemExit(f"FAIL: {entry['name']} differs from its twin at the timed shape")
     print("k6_builds: " + json.dumps({
         "builds": expr_program_cuda.builds, "build_secs": expr_program_cuda.build_seconds,

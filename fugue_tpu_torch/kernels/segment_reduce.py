@@ -11,7 +11,8 @@ Each has the contract of its twin in ``reference.py``. More than
 ``MAX_PAYLOADS`` payloads are split over launches. Each wrapper's
 ``launches`` grows by one where it launches its kernel and nowhere else;
 its ``last_path`` names where the last launch kept its tables:
-``"shared"`` (a copy per block in shared memory) or ``"global"``."""
+``"shared"`` (1-8 replicas per block in shared memory, merged into the
+global tables at the end) or ``"global"`` (updated in place)."""
 
 import ctypes
 from typing import List, Optional, Sequence, Tuple
@@ -20,9 +21,10 @@ import torch
 
 from fugue_tpu_torch.kernels import build
 from fugue_tpu_torch.kernels.factorize import _check, _device_and_stream, _ptrs, _require_cuda
-from fugue_tpu_torch.kernels.reference import Extrema, Extremum, Payload, extremum_fill
+from fugue_tpu_torch.kernels.reference import Extrema, Extremum, Payload
 
 MAX_PAYLOADS = 8  # per launch, as segment_reduce.cu takes them
+MAX_TABLES = 2 * MAX_PAYLOADS + 2  # per fill or decode launch
 _PATHS = {1: "shared", 2: "global"}
 # dtype codes of bin_keys.cuh
 _CODES = {
@@ -49,8 +51,15 @@ def _bind() -> ctypes.CDLL:
             p, p,  # mean, out
             i, p, ip,  # device, stream, path
         ]
-        lib.fugue_segment_extrema.restype = i
-        lib.fugue_segment_sq_dev.restype = i
+        lib.fugue_segment_extrema_fill.argtypes = [
+            i, pp, ip, ip, i, i, p,  # tables: count, codes, wide, is_max; num, device, stream
+        ]
+        lib.fugue_segment_extrema_decode.argtypes = [
+            i, pp, ip, ip, ip, pp, i, i, p,  # ... and each table's dtype code and output
+        ]
+        for fn in (lib.fugue_segment_extrema, lib.fugue_segment_sq_dev,
+                   lib.fugue_segment_extrema_fill, lib.fugue_segment_extrema_decode):
+            fn.restype = i
         lib.fugue_reduce_error_string.argtypes = [i]
         lib.fugue_reduce_error_string.restype = ctypes.c_char_p
     return lib
@@ -88,24 +97,25 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
-def _decode_extremum(code: torch.Tensor, dtype: torch.dtype, is_max: bool) -> torch.Tensor:
-    """A K4 table (the unsigned codes' bits in an int32 or int64 tensor)
-    as values of ``dtype``: the identity (all ones in a min table, 0 in a
-    max table) is an empty segment and takes ``extremum_fill``; a float's
-    NaN code (0 in a min table, all ones in a max table) is NaN."""
-    identity = 0 if is_max else -1
-    top = -(2 ** (8 * code.element_size() - 1))  # the code's top bit
-    if dtype in _FLOATS:
-        bits = torch.where(code < 0, code ^ top, ~code)
-        values = bits.view(dtype)  # int32 codes for float32, int64 for float64
-        values = torch.where(code == (-1 if is_max else 0), float("nan"), values)
-    elif dtype == torch.bool:
-        values = code != 0
-    elif dtype == torch.uint8:
-        values = (code & 0xFF).to(dtype)
-    else:
-        values = (code ^ top).to(dtype)
-    return torch.where(code == identity, extremum_fill(dtype, is_max), values)
+def _tables(lib: ctypes.CDLL, decode: bool, tables: List[Tuple[torch.Tensor, bool, int,
+                                                                Optional[torch.Tensor]]],
+            num: int, index: int, stream: int) -> None:
+    """Fill K4's code tables ``(codes, is_max, dtype code, output)`` with
+    their identities, or decode them into their outputs (dtype code -1:
+    a last row's table into int32 indexes), one launch a ``MAX_TABLES``."""
+    for lo in range(0, len(tables), MAX_TABLES):
+        part = tables[lo:lo + MAX_TABLES]
+        codes = _ptrs([c for c, _, _, _ in part])
+        wide = _ints([c.element_size() == 8 for c, _, _, _ in part])
+        is_max = _ints([int(m) for _, m, _, _ in part])
+        if decode:
+            err = lib.fugue_segment_extrema_decode(
+                len(part), codes, wide, is_max, _ints([d for _, _, d, _ in part]),
+                _ptrs([o for _, _, _, o in part]), num, index, stream)
+        else:
+            err = lib.fugue_segment_extrema_fill(len(part), codes, wide, is_max, num, index,
+                                                 stream)
+        _raise_on(lib, err, "segment_extrema's table")
 
 
 def segment_extrema_cuda(
@@ -121,7 +131,9 @@ def segment_extrema_cuda(
     """K4, with the contract of ``reference.segment_extrema_reference``.
     ``seg`` is a dense int32 CUDA tensor; payloads and masks dense 1-D
     tensors of its rows on its device. Raises on anything else, on a
-    failed build and on a refused launch."""
+    failed build and on a refused launch. The code tables are filled
+    before the launches and decoded into the payloads' dtypes after them,
+    each in one launch for every table."""
     n, scan = _check_seg(seg, num, nrows, row_valid, "segment_extrema_cuda")
     device = seg.device
     for j, p in enumerate(payloads):
@@ -131,24 +143,25 @@ def segment_extrema_cuda(
     # each table: (payload index or -1 for the row index, is_max)
     wanted = [(j, is_max) for j, p in enumerate(payloads)
               for is_max, want in ((False, p.min), (True, p.max)) if want]
-    codes = {}
-    for j, is_max in wanted:
-        wide = payloads[j].values.element_size() == 8
-        codes[(j, is_max)] = torch.full(
-            (num,), 0 if is_max else -1, dtype=torch.int64 if wide else torch.int32,
-            device=device)
+    codes = {key: torch.empty((num,), device=device, dtype=torch.int64
+                              if payloads[key[0]].values.element_size() == 8 else torch.int32)
+             for key in wanted}
+    outs = {key: torch.empty((num,), dtype=payloads[key[0]].values.dtype, device=device)
+            for key in wanted}
     rows = [(-1, False)] * first + [(-1, True)] * last
-    row_codes = {key: torch.full((num,), 0 if key[1] else -1, dtype=torch.int32,
-                                 device=device) for key in rows}
+    for key in rows:
+        codes[key] = torch.empty((num,), dtype=torch.int32, device=device)
     lib = _bind()
     index, stream = _device_and_stream(device)
+    keys = wanted + rows
+    _tables(lib, False, [(codes[k], k[1], 0, None) for k in keys], num, index, stream)
     used = sorted({j for j, _ in wanted})
     for c in range(0, max(len(used), 1), MAX_PAYLOADS):
         srcs = used[c:c + MAX_PAYLOADS]
         local = {j: q for q, j in enumerate(srcs)}
         tables = [(local[j], is_max, codes[(j, is_max)]) for j, is_max in wanted if j in local]
         if c == 0:  # the row tables ride with the first launch
-            tables += [(-1, key[1], row_codes[key]) for key in rows]
+            tables += [(-1, key[1], codes[key]) for key in rows]
         path = ctypes.c_int(0)
         err = lib.fugue_segment_extrema(
             scan, None if row_valid is None else row_valid.data_ptr(), seg.data_ptr(), num,
@@ -165,17 +178,16 @@ def segment_extrema_cuda(
         if path.value != 0:
             segment_extrema_cuda.launches += 1
             segment_extrema_cuda.last_path = _PATHS[path.value]
-    mins: List[Optional[torch.Tensor]] = []
-    maxs: List[Optional[torch.Tensor]] = []
-    for j, p in enumerate(payloads):
-        for is_max, out in ((False, mins), (True, maxs)):
-            code = codes.get((j, is_max))
-            out.append(None if code is None else _decode_extremum(code, p.values.dtype, is_max))
-    return Extrema(
-        mins, maxs,
-        row_codes[(-1, False)] if first else None,
-        row_codes[(-1, True)] - 1 if last else None,
-    )
+    if last:
+        outs[(-1, True)] = torch.empty((num,), dtype=torch.int32, device=device)
+    decoded = [(codes[k], k[1], _CODES[payloads[k[0]].values.dtype], outs[k]) for k in wanted]
+    if last:
+        decoded.append((codes[(-1, True)], True, -1, outs[(-1, True)]))
+    _tables(lib, True, decoded, num, index, stream)
+    mins = [outs.get((j, False)) for j in range(len(payloads))]
+    maxs = [outs.get((j, True)) for j in range(len(payloads))]
+    return Extrema(mins, maxs, codes[(-1, False)] if first else None,
+                   outs[(-1, True)] if last else None)
 
 
 segment_extrema_cuda.launches = 0  # type: ignore[attr-defined]

@@ -400,3 +400,78 @@ def test_fused_sums_run_once_unless_float32_sums_meet_variance(monkeypatch, func
                  **{f: _FuncExpr(f, ft.col("v"), is_aggregation=True) for f in funcs})
     assert len(seen) == calls
     assert seen[-1] == any(f in VARIANCE_FUNCS for f in funcs)
+
+
+@pytest.mark.parametrize("layout", ["prefix", "masked"])
+@pytest.mark.parametrize("group", ["extrema", "median", "variance"])
+def test_zipf_skewed_key_matches_jax(group, layout):
+    """A binned key drawn Zipf(1.1) over 64 values, so that one segment
+    holds about a fifth of the rows (the hot segment of K4's and K5's
+    Zipf shape): every function of the groups K4, K5 and the median
+    compute, over every payload dtype. (The sums of these payloads by
+    this key meet a fault of the reference:
+    ``test_float32_mean_beside_float64_matches_numpy``.)"""
+    rng = np.random.default_rng(17)
+    p = 1.0 / np.arange(1, 65) ** 1.1
+    key = rng.choice(64, N, p=p / p.sum()).astype(np.int32)
+    table = _data()
+    table = table.set_column(table.schema.get_field_index("k"), "k", pa.array(key))
+    aggs = _aggs(group)
+    tres, jres, te = run_both(_frames(table, layout), ["k"], aggs)
+    compare(tres, jres, inexact_of(aggs))
+    assert te.fallbacks == {}
+
+
+def _edge_table(kind: str) -> pa.Table:
+    """Payloads of one kind of edge: every value NaN (``all_nan``), every
+    value null (``all_null``), or one row (``one_row``)."""
+    n = 1 if kind == "one_row" else 50
+    rng = np.random.default_rng(23)
+    f64 = rng.standard_normal(n) * 100
+    i64 = rng.integers(-(2**40), 2**40, n)
+    mask = np.ones(n, bool) if kind == "all_null" else None
+    if kind == "all_nan":
+        f64 = np.full(n, np.nan)
+    return pa.table({
+        "f32": pa.array(f64.astype(np.float32), mask=mask),
+        "f64": pa.array(f64, mask=mask),
+        "i64": pa.array(i64, mask=mask),
+    })
+
+
+def test_float32_mean_beside_float64_matches_numpy():
+    """The generic branch (a bool's SUM sends the plan there) with a
+    float64 payload beside a float32 one: the port sums both in float64,
+    as both engines' binned branches do, so the float32 mean of a group
+    whose float32 sum overflows is still its mean; the JAX package's
+    generic branch sums the float32 payload in float32 and gives inf
+    (ROADMAP.md queue 3). Held against numpy at rtol 1e-12."""
+    v = np.float32([3e38, 3e38, 7.0, 1.5, 0, 0, 0, 0, 1, 2])
+    table = pa.table({"k": pa.array(np.int32([0] * 8 + [1] * 2)), "v": pa.array(v),
+                      "w": pa.array(v.astype(np.float64)), "b": pa.array(v > 1)})
+    aggs = {"m": ("avg", "v", False), "n": ("avg", "w", False), "c": ("sum", "b", False)}
+    tres, jres, te = run_both(table, ["k"], aggs)
+    assert te.strategy_counts["generic"] == 1
+    got = tres.blocks.columns["m"].data.numpy()[:2]
+    want = [v[:8].astype(np.float64).mean(), 1.5]
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    assert np.isinf(np.asarray(jres.native.columns["m"].data)[0])
+
+
+_EDGES = [("all_nan", "prefix"), ("all_nan", "masked"), ("all_null", "prefix"),
+          ("all_null", "masked"), ("one_row", "prefix")]
+
+
+@pytest.mark.parametrize("kind,layout", _EDGES)
+def test_keyless_edges_match_jax(kind, layout):
+    """The keyless aggregate (one segment: K4 and K5 fold every row into
+    one pending value) over payloads that are all NaN, all null or one
+    row: min, max, first, last, count, sum, the variance family and
+    median of each, and the mean of the floats (the JAX package rounds an
+    integer mean to float32, ROADMAP.md queue 3)."""
+    funcs = ("min", "max", "first", "last", "count", "sum", "median", *VARIANCE_FUNCS)
+    aggs = {f"{f}_{c}": (f, c, False) for f in funcs for c in ("f32", "f64", "i64")}
+    aggs.update({f"avg_{c}": ("avg", c, False) for c in ("f32", "f64")})
+    tres, jres, te = run_both(_frames(_edge_table(kind), layout), None, aggs)
+    compare(tres, jres, inexact_of(aggs))
+    assert te.strategy_counts["global"] == 1
