@@ -61,14 +61,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    once). Then
    the join kernels exactly (``join_vs_twin``): K7 ``join_build`` (counts
    and slots) and K8 ``join_probe`` (semi, anti, unique and expand, inner
-   and outer) over 1, 1024 and 2^24 segments with sentinel rows, null
-   keys, prefix, short-prefix and masked layouts, probe rows with no
-   match and one key with 10^6 build rows; K9 ``join_expand`` on pairs
+   and outer) over ``JOIN_SIDE_SEGMENTS`` (its shared, global and slab
+   routes, the slab buckets checked) with sentinel rows, null keys,
+   prefix, short-prefix and masked layouts, probe rows with no match, one
+   key with 10^6 build rows and one segment of 25M holding every row; K9
+   ``join_expand`` on pairs
    (inner, outer), a cross join, a skewed key at a tile's start and from
    inside a tile, one probe row in 50 matching, one output, and an
-   unmatched probe row at a tile's first output (inner and outer); K10 ``gather_rows`` over
-   every width, with and without masks, by indices with and without -1;
-   at 1, 2^20 + 37, 10M and 100M rows. Then the row-selection kernels
+   unmatched probe row at a tile's first output (inner and outer); K10
+   ``gather_rows`` over every width, with and without masks, by indices
+   with and without -1, with duplicates, a permutation, in order and over a
+   source under L2, each case's route printed and the slab route's buckets
+   checked; at 1, 2^20 + 37, 10M and 100M rows. Then the row-selection kernels
    exactly (``row_select_vs_twin``): K11, KW's presort mode (float keys
    with ties, -0.0, NaN and nulls, descending and nulls first, narrowed,
    int64, uint8, bool and string-rank keys, a float64 key split over two
@@ -229,7 +233,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (``window_timing``), with K16's other routes and its running sum's
    equal work in three PyTorch calls (``index_select`` by the order,
    ``cumsum``, ``scatter_`` back), ``device_sort`` against
-   ``torch.sort`` and ``gather_indices`` against ``index_select``; K17
+   ``torch.sort`` and ``gather_indices`` by a permutation (K10's slab
+   route, beside its direct route) against ``index_select``; K17
    and K18 at config 4's 100M-row shape (``comap_timing``: K17 beside a
    ``bincount`` a member) and K19 at a streaming chunk (``stream_timing``:
    beside ``index_add_`` of one payload's sum).
@@ -3171,6 +3176,11 @@ JOIN_KINDS_ROWS = (10_000_000, 5_000_000)  # left and right rows of the other ki
 JOIN_CROSS_ROWS = (10_000, 1_000)
 JOIN_SKEW = 1_000_000  # the matches of the skewed key
 K9_WALK = 64 * 2048  # K9's probe rows read by a tile, at most (kWalk in join.cu)
+# K7's segment counts in join_side_cases: its shared route, its global
+# route (from 12,289 to join.GLOBAL_MAX, 2^23), then its slab route (slabs
+# of 2^15 segments) from just past the global route's last, with a last
+# slab of one segment, to config 10's 25M
+JOIN_SIDE_SEGMENTS = (1, 1024, 12_289, (1 << 18) - 1, (1 << 18) + 1, (1 << 23) + 1, 25_000_000)
 JOIN_KINDS = ("left_outer", "right_outer", "full_outer", "semi", "anti")
 
 
@@ -3195,11 +3205,13 @@ def _same(label: str, got: Any, want: Any) -> None:
 def join_side_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
     """K7's and K8's cases at ``n`` rows: ``(label, {"build": seg, "probe":
     seg, "num": S, rows...})``, the rows (``nrows`` or ``row_valid``) and
-    ``nulls`` shared by both sides. Segments: S = 1, 1024 and 2^24; the
-    build ids cover three quarters of them, so probe rows find no match;
-    a twentieth of the rows carry the sentinel S; prefix, short-prefix
-    and masked layouts, with and without null keys; one key with
-    ``JOIN_SKEW`` build rows."""
+    ``nulls`` shared by both sides. Segments: each of
+    ``JOIN_SIDE_SEGMENTS`` (K7's shared route to 12,288, its global route
+    to 2^23, its slab route above); the build ids cover three
+    quarters of them, so probe rows find no match; a twentieth of the rows
+    carry the sentinel S; prefix, short-prefix and masked layouts, with
+    and without null keys; one key with ``JOIN_SKEW`` build rows; one
+    segment of 25M that every build row holds."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -3212,7 +3224,7 @@ def join_side_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str,
         return torch.where(flags(0.05), num, seg)
 
     out = []
-    for num in (1, 1024, 1 << 24):
+    for num in JOIN_SIDE_SEGMENTS:
         sides = dict(build=ids(max(num * 3 // 4, 1), num), probe=ids(num, num), num=num)
         nulls, row_valid = flags(0.1), flags(0.7)
         out += [
@@ -3225,6 +3237,10 @@ def join_side_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str,
     hot = torch.randperm(n, generator=gen, device=device)[:JOIN_SKEW]
     build[hot] = 7
     out.append(("skew", dict(build=build, probe=ids(1024, 1024), num=1024, nrows=n)))
+    many = JOIN_SIDE_SEGMENTS[-1]
+    out.append(("one segment of 25M holding every row", dict(
+        build=torch.full((n,), many // 3, dtype=torch.int32, device=device),
+        probe=ids(many, many), num=many, nrows=n)))
     return out
 
 
@@ -3318,9 +3334,13 @@ _GATHER_DTYPES = ("bool", "uint8", "int8", "int16", "int32", "int64", "float32",
 
 def gather_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
     """K10's cases at ``n`` rows: 16 columns (every dtype, with and
-    without a mask: two launches), gathered by an index with a tenth -1
-    (as an outer join's right side, and as not outer: -1 still writes 0)
-    and by one with no -1."""
+    without a mask: two launches, and on the slab route several column
+    groups), gathered by an index with a tenth -1 (as an outer join's
+    right side, and as not outer: -1 still writes 0), by one with
+    duplicates and no -1 (scattered, and as an index in order: the direct
+    route), by a random permutation (also as outer, on three columns with
+    no mask), and 2 columns of at most 65,536 rows (under L2: the direct
+    route, whatever the caller says) by a scattered index."""
     import torch
 
     from fugue_tpu_torch.kernels.reference import GatherColumn
@@ -3342,11 +3362,38 @@ def gather_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, An
             cols.append(GatherColumn(values, mask))
     idx = torch.randint(0, n, (n,), generator=gen, device=device, dtype=torch.int32)
     holes = torch.where(torch.rand((n,), generator=gen, device=device) < 0.1, -1, idx)
+    perm = torch.randperm(n, generator=gen, device=device).to(torch.int32)
+    few = min(n, 1 << 16)
+    small = [GatherColumn(torch.randint(-(2**62), 2**62, (few,), generator=gen, device=device),
+                          None),
+             GatherColumn(torch.rand((few,), generator=gen, device=device),
+                          torch.rand((few,), generator=gen, device=device) < 0.8)]
+    small_idx = torch.randint(0, few, (n,), generator=gen, device=device, dtype=torch.int32)
     return [
-        ("index with -1, outer", dict(columns=cols, idx=holes, outer=True)),
-        ("index with -1, not outer", dict(columns=cols, idx=holes, outer=False)),
-        ("index in range", dict(columns=cols, idx=idx, outer=False)),
+        ("index with -1, outer", dict(columns=cols, idx=holes, outer=True, scattered=True)),
+        ("index with -1, not outer", dict(columns=cols, idx=holes, outer=False,
+                                          scattered=True)),
+        ("index with duplicates", dict(columns=cols, idx=idx, outer=False, scattered=True)),
+        ("index in range, in order", dict(columns=cols, idx=idx, outer=False)),
+        ("a random permutation", dict(columns=cols, idx=perm, outer=False, scattered=True)),
+        ("a random permutation, outer, unmasked", dict(columns=cols[3:6], idx=perm, outer=True,
+                                                       scattered=True)),
+        ("a source under L2", dict(columns=small, idx=small_idx, outer=True, scattered=True)),
     ]
+
+
+def check_buckets(label: str, buckets: Any, total: Optional[int] = None) -> None:
+    """A partition of ``slab_partition.cuh`` (K7's and K10's slab routes)
+    left each bucket's cursor at the next bucket's start, and its counts
+    add to its entries (``total`` where the caller knows them)."""
+    import torch
+
+    counts, starts, cursor = (t.to(torch.int64) for t in buckets)
+    want = int(starts[-1]) if total is None else total
+    if (int(counts.sum()) != want or int(starts[-1]) != want
+            or not torch.equal(cursor, starts[1:])
+            or not torch.equal(starts[1:] - starts[:-1], counts)):
+        raise SystemExit(f"FAIL {label}: the partition's buckets disagree with their counts")
 
 
 def not_in_vs_twin(case: Dict[str, Any], rows: Dict[str, Any], label: str) -> None:
@@ -3380,10 +3427,11 @@ def join_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
     """K7, K8 in every mode (NOT IN's too, ``not_in_vs_twin``), K9 and K10
     against their twins, exactly, in every case of ``join_side_cases``,
     ``expand_cases`` and ``gather_cases`` at each size; prints K7's path
-    of each case."""
+    and K10's route of each case, and checks the buckets of their slab
+    routes (``check_buckets``, ``check_fill``)."""
     import torch
 
-    from fugue_tpu_torch.kernels.gather import gather_rows_cuda
+    from fugue_tpu_torch.kernels.gather import gather_route, gather_rows_cuda
     from fugue_tpu_torch.kernels.join import join_build_cuda, join_expand_cuda, join_probe_cuda
     from fugue_tpu_torch.kernels.reference import (
         gather_rows_reference,
@@ -3400,6 +3448,9 @@ def join_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
                 args = (case["build"], case["num"])
                 got = join_build_cuda(*args, slots=slots, **rows)
                 paths.append(join_build_cuda.last_path)
+                if join_build_cuda.last_path == "slab":
+                    check_buckets(f"join_build {label} n={n} slots={slots}",
+                                  join_build_cuda.last_slabs)
                 want = join_build_reference(*args, slots=slots, **rows)
                 _same(f"join_build {label} n={n} slots={slots}", got, want)
                 for mode, outer in (("semi", False), ("anti", False), ("unique", False),
@@ -3421,12 +3472,29 @@ def join_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
                 _same(f"join_expand {label} n={n} {name}", g, w)
             print(f"join_expand n={n} {label}: {case['total']} output rows equal")
         torch.cuda.empty_cache()
+        slab_cases = 0
         for label, case in gather_cases(device, n, SEED + n):
-            got, want = gather_rows_cuda(**case), gather_rows_reference(**case)
+            got = gather_rows_cuda(**case)
+            route = gather_rows_cuda.last_route
+            if route != gather_route(case["columns"], n, case.get("scattered", False),
+                                     case["outer"]):
+                raise SystemExit(f"FAIL gather_rows {label} n={n}: took the {route} route")
+            if route == "slab":
+                slab_cases += 1
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                check_fill(f"gather_rows {label} n={n}", gather_rows_cuda.last_fill, n,
+                           gather_rows_cuda.last_shift[1])
+                check_buckets(f"gather_rows {label} n={n} sources",
+                              gather_rows_cuda.last_sources, n)
+            want = gather_rows_reference(case["columns"], case["idx"], outer=case["outer"])
             for j, ((gv, gm), (wv, wm)) in enumerate(zip(got, want)):
                 _same(f"gather_rows {label} n={n} column {j}", gv, wv)
                 _same(f"gather_rows {label} n={n} column {j} mask", gm, wm)
-            print(f"gather_rows n={n} {label}: 16 columns equal")
+            print(f"gather_rows n={n} {label}: {len(got)} columns equal ({route} route)")
+            del got, want
+        if n >= 1 << 20 and slab_cases < 4:
+            raise SystemExit(f"FAIL gather_rows n={n}: {slab_cases} cases took the slab route")
         torch.cuda.empty_cache()
 
 
@@ -3817,6 +3885,7 @@ def join_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
     config 3b's 100M facts; K9 on a cross join and a skewed key."""
     import torch
 
+    from fugue_tpu_torch.kernels import gather
     from fugue_tpu_torch.kernels.gather import gather_rows_cuda
     from fugue_tpu_torch.kernels.join import join_build_cuda, join_expand_cuda, join_probe_cuda
     from fugue_tpu_torch.kernels.reference import (
@@ -3841,7 +3910,7 @@ def join_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
         "join_build", "fugue_tpu/jax_backend/relational.py:466",
         launches["join_build"], err,
         time_cuda(lambda: join_build_cuda(seg2, num, nrows=p2), 20),
-        time_cuda(lambda: join_build_reference(seg2, num, nrows=p2), 5),
+        time_cuda(lambda: join_build_reference(seg2, num, nrows=p2), 1, warm=0),
         p2 * 4 + num * 4, 0,
         time_cuda(lambda: torch.bincount(seg2, minlength=num), 5), source="join.cu"))
 
@@ -3852,7 +3921,7 @@ def join_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
         "join_probe", "fugue_tpu/jax_backend/relational.py:470",
         launches["join_probe"], err,
         time_cuda(lambda: join_probe_cuda(seg1, counts, "expand", nrows=p1), 20),
-        time_cuda(lambda: join_probe_reference(seg1, counts, "expand", nrows=p1), 5),
+        time_cuda(lambda: join_probe_reference(seg1, counts, "expand", nrows=p1), 1, warm=0),
         p1 * (4 + 4 + 4 + 4), 0,  # seg, the table entry, m, reps
         time_cuda(lambda: counts.index_select(0, seg1), 5), source="join.cu"))
     slots = join_build_cuda(torch.arange(JOIN3B_GROUPS, dtype=torch.int32, device=device),
@@ -3883,7 +3952,7 @@ def join_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
         "join_expand", "fugue_tpu/jax_backend/relational.py:568",
         launches["join_expand"], err,
         time_cuda(lambda: join_expand_cuda(*args), 20),
-        time_cuda(lambda: join_expand_reference(*args), 3),
+        time_cuda(lambda: join_expand_reference(*args), 1, warm=0),
         total * (4 + 4) + p1 * 12, 0,
         # computes li alone
         time_cuda(lambda: torch.repeat_interleave(rows1, pr.reps, output_size=total), 5),
@@ -3914,10 +3983,38 @@ def join_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
         "gather_rows", "fugue_tpu/jax_backend/relational.py:578",
         launches["gather_rows"], err,
         time_cuda(lambda: gather_rows_cuda(gen_cols, li), 20),
-        time_cuda(lambda: gather_rows_reference(gen_cols, li), 5),
+        time_cuda(lambda: gather_rows_reference(gen_cols, li), 1, warm=0),
         total * (4 + 2 * (8 + 8)), 0,  # the index, each column's element read and written
         time_cuda(lambda: [c.values.index_select(0, idx64) for c in gen_cols], 5),
         source="gather.cu"))
+    # the right side's gather: w by ri, which follows the right side's sort
+    # (random reads of 50M rows); one column, so K10 reads it directly
+    # (gather.gather_route), and its slab route is timed beside
+    del idx64
+    right = [GatherColumn(torch.rand((p2,), generator=gen, device=device, dtype=torch.float64),
+                          None)]
+
+    def slab_route(columns: Any, idx: Any) -> Any:
+        saved = gather.column_groups
+        gather.column_groups = lambda w, m: []  # as if the pass packed every column
+        try:
+            return gather_rows_cuda(columns, idx, scattered=True)
+        finally:
+            gather.column_groups = saved
+
+    got = gather_rows_cuda(right, ri, scattered=True)
+    route = gather_rows_cuda.last_route
+    _same("gather_rows right side", got[0][0], gather_rows_reference(right, ri)[0][0])
+    del got
+    ri64 = ri.to(torch.int64)
+    print("gather_rows right side: " + json.dumps({
+        "output_rows": total, "route": route,
+        "ms": time_cuda(lambda: gather_rows_cuda(right, ri, scattered=True), 10),
+        "slab_ms": time_cuda(lambda: slab_route(right, ri), 10),
+        "index_select_ms": time_cuda(lambda: right[0].values.index_select(0, ri64), 5),
+        "bound_ms": total * (4 + 8 + 8) / HBM_BYTES_PER_S * 1e3,
+        "device_ms": device_split_ms(lambda: gather_rows_cuda(right, ri, scattered=True),
+                                     device)}))
     return entries
 
 
@@ -6031,7 +6128,7 @@ def window_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]
     entries.append(_kernel_entry(
         "window_rank", "fugue_tpu/jax_backend/relational.py:1542", launches["window_rank"], 0.0,
         time_cuda(lambda: window_rank_cuda(by_v, "rank"), 10),
-        time_cuda(lambda: window_rank_reference(by_v, "rank"), 3), n * (8 + 8 + 8), 0, None,
+        time_cuda(lambda: window_rank_reference(by_v, "rank"), 1, warm=0), n * (8 + 8 + 8), 0, None,
         source="window.cu"))
     x = v.to(torch.float64)
     running = WindowFrame("sum", 0, "running", ("up", 0), ("c", 0), x, route="prefix")
@@ -6043,7 +6140,8 @@ def window_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]
     entries.append(_kernel_entry(
         "window_frame", "fugue_tpu/jax_backend/relational.py:1762", launches["window_frame"],
         err, time_cuda(lambda: window_frame_cuda(by_d, running), 10),
-        time_cuda(lambda: window_frame_reference(by_d, running), 3), n * (8 + 4 + 8 + 8 + 1), 0,
+        time_cuda(lambda: window_frame_reference(by_d, running), 1, warm=0),
+        n * (8 + 4 + 8 + 8 + 1), 0,
         time_cuda(lambda: torch.cumsum(x, 0), 10), source="window.cu"))
     # the same work in three PyTorch calls: the argument gathered to sorted
     # order, its (unsegmented) running sum, the sums scattered back
@@ -6108,9 +6206,13 @@ def window_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]
         "torch_sort_ms": time_cuda(lambda: torch.sort(v, descending=True, stable=True), 5),
         "bound_ms": n * 8 / HBM_BYTES_PER_S * 1e3}))
     perm = torch.randperm(n, generator=gen, device=device)
+    from fugue_tpu_torch.kernels.gather import gather_rows_cuda
+
     print("window timed: " + json.dumps({
         "name": "gather_indices[k, v by 100M permuted rows]",
-        "ms": time_cuda(lambda: gather_indices(blocks, perm), 5),
+        "ms": time_cuda(lambda: gather_indices(blocks, perm, scattered=True), 5),
+        "route": gather_rows_cuda.last_route,
+        "direct_ms": time_cuda(lambda: gather_indices(blocks, perm), 5),
         "index_select_one_column_ms": time_cuda(lambda: v.index_select(0, perm), 10),
         "bound_ms": n * (8 + 4 + 4 + 4) / HBM_BYTES_PER_S * 1e3}))
     for e in entries:

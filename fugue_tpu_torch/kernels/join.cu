@@ -33,12 +33,32 @@
 //
 // What bounds them on an H100, and what the design does about it:
 //   - K7 reads 4 B of segment id and 1-2 B of flags a row and writes 4*num
-//     B. One row a thread a step over a persistent wave; up to 12288
-//     segments (48 KB) each block keeps its own table in shared memory and
-//     merges the entries its rows touched with one global atomic each,
-//     above that rows update the global table. A segment that every row
-//     shares (a cross join, a skewed key) then contends in shared memory,
-//     not in L2.
+//     B. Up to 12288 segments (48 KB) each block of a persistent wave
+//     keeps its own table in shared memory and merges the entries its rows
+//     touched with one global atomic each (the shared route); a segment
+//     that every row shares (a cross join, a skewed key) then contends in
+//     shared memory, not in L2. Above that the table is larger than L2 at
+//     the sizes that matter (25M segments: 100 MB), where an atomic a row
+//     on it ran at 2.78 ms for 50M rows and 36.7 with one segment holding
+//     them all (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6). While the
+//     table stays in L2 (join.py's GLOBAL_MAX) the global route keeps an
+//     atomic a run of equal segments among a warp's lanes; above it the
+//     slab route counts by slab of 2^kSegShift segments:
+//       1. a count pass (each slab's entries, NOT IN's side counts), a
+//          one-block plan (each bucket's start, and its pieces of at most
+//          kPieceEntries entries) and a partition (slab_partition.cuh) of
+//          each matchable row's segment into its slab's bucket: 4 B (the
+//          offset in the slab and a run length), or 8 B with the row in
+//          slot mode. A warp's lanes hold consecutive rows, and a run of
+//          equal segments among them makes one entry;
+//       2. a block a piece holds the slab's table in shared memory (128
+//          KB), applies the entries with shared atomics (a warp whose
+//          entries are all one segment, one atomic), and writes the table
+//          once with 16-byte stores, fill values included; a slab of
+//          several pieces is filled first (in step 1) and its pieces
+//          merged with global atomics. A cluster's slab of 2^18 segments
+//          in distributed shared memory, whose atomics cross SMs, took
+//          0.80 ms for this step at 50M rows over 25M segments (PERF.md).
 //   - K8 reads the same per row plus one random 4 B read of the table, and
 //     writes its outputs. One row a thread a step; each thread sums its
 //     rows' total in a register, the block in shared memory, and one
@@ -69,6 +89,7 @@
 #include <stdint.h>
 
 #include "launch.cuh"
+#include "slab_partition.cuh"
 
 namespace {
 
@@ -116,16 +137,24 @@ struct BuildParams {
   int* stats;  // int32 [2], zeroed by the caller: real rows, real rows with a null key; or null
 };
 
-template <bool kShared>
+// NOT IN's side counts of a block: a warp's sums, one atomic each a warp.
+__device__ __forceinline__ void add_side_counts(int* stats, int real_rows, int null_rows) {
+  if (stats == nullptr) return;
+  real_rows = (int)__reduce_add_sync(0xffffffffu, (unsigned)real_rows);
+  null_rows = (int)__reduce_add_sync(0xffffffffu, (unsigned)null_rows);
+  if ((threadIdx.x & 31) == 0) {
+    if (real_rows != 0) atomicAdd(stats, real_rows);
+    if (null_rows != 0) atomicAdd(stats + 1, null_rows);
+  }
+}
+
+// The shared route (num <= kSharedMax).
 __global__ void __launch_bounds__(kThreads) join_build(const BuildParams p) {
-  __shared__ int local[kShared ? kSharedMax : 1];
+  __shared__ int local[kSharedMax];
   const int num = p.side.num;
   const int fill = p.slots ? -1 : 0;
-  int* table = kShared ? local : p.table;
-  if (kShared) {
-    for (int i = threadIdx.x; i < num; i += kThreads) local[i] = fill;
-    __syncthreads();
-  }
+  for (int i = threadIdx.x; i < num; i += kThreads) local[i] = fill;
+  __syncthreads();
   const long long stride = (long long)gridDim.x * kThreads;
   int real_rows = 0, null_rows = 0;
   for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x; r < p.side.n;
@@ -137,28 +166,308 @@ __global__ void __launch_bounds__(kThreads) join_build(const BuildParams p) {
     }
     if (s < 0) continue;
     if (p.slots) {
-      atomicMax(table + s, (int)r);
+      atomicMax(local + s, (int)r);
     } else {
-      atomicAdd(table + s, 1);
+      atomicAdd(local + s, 1);
     }
   }
-  if (p.stats != nullptr) {  // a warp's sums, one atomic each a warp
-    real_rows = (int)__reduce_add_sync(0xffffffffu, (unsigned)real_rows);
-    null_rows = (int)__reduce_add_sync(0xffffffffu, (unsigned)null_rows);
-    if ((threadIdx.x & 31) == 0) {
-      if (real_rows != 0) atomicAdd(p.stats, real_rows);
-      if (null_rows != 0) atomicAdd(p.stats + 1, null_rows);
+  add_side_counts(p.stats, real_rows, null_rows);
+  __syncthreads();
+  for (int i = threadIdx.x; i < num; i += kThreads) {
+    const int v = local[i];
+    if (v == fill) continue;
+    if (p.slots) {
+      atomicMax(p.table + i, v);
+    } else {
+      atomicAdd(p.table + i, v);
     }
   }
-  if (kShared) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < num; i += kThreads) {
-      const int v = local[i];
-      if (v == fill) continue;
+}
+
+// ---- K7's global and slab routes ----------------------------------------------
+
+constexpr int kSegShift = 15;  // segments a slab: a block's table, 128 KB of shared memory
+constexpr unsigned kSegMask = (1u << kSegShift) - 1u;
+constexpr int kPieceEntries = 1 << 18;  // a block's entries, at most (1-2 MB)
+constexpr int kBuildUnroll = 4;  // a lane's entries with their loads in flight together
+constexpr int kK7Threads = 512;
+constexpr int kK7Items = 8;
+constexpr long long kK7Tile = (long long)kK7Threads * kK7Items;
+constexpr int kPlanThreads = 1024;
+constexpr unsigned kNoSeg = 0xFFFFFFFFu;
+
+struct SlabBuildParams {
+  Side side;
+  int slots;
+  int* table;  // int32 [num]: written whole
+  int* stats;  // as BuildParams
+  int nslabs;
+  int* counts;      // [nslabs], zeroed: each bucket's entries
+  int* starts;      // [nslabs + 1]
+  int* cursor;      // [nslabs]: ends at starts[s + 1]
+  int* npieces;     // [1]
+  int* multi;       // [nslabs]: the bucket has several pieces
+  int* piece_slab;  // [max pieces]
+  int* piece_lo;    // [max pieces]: its first entry
+  unsigned* ent;             // counts: offset | (run - 1) << kSegShift
+  unsigned long long* ent8;  // slots: highest row << 32 | offset
+};
+
+// Row r's segment where it is matchable (-1 else), and whether it is
+// real, and real with a null key: side_row's answer with every load made
+// up front, so that the loads of a thread's rows are in flight together.
+__device__ __forceinline__ void read_row(const Side& d, long long r, int* s, bool* real,
+                                         bool* null_key) {
+  *s = -1;
+  *real = *null_key = false;
+  if (r >= d.n) return;
+  const int v = __ldg(d.seg + r);
+  const bool re = d.nrows >= 0 ? r < d.nrows : __ldg(d.row_valid + r) != 0;
+  const bool nk = d.nulls != nullptr && __ldg(d.nulls + r) != 0;
+  *real = re;
+  *null_key = re && nk;
+  if (re && !nk && (unsigned)v < (unsigned)d.num) *s = v;
+}
+
+// A lane's row's segment s (-1: none) in a warp whose lanes hold
+// consecutive rows: s where the row heads a run of equal segments among
+// the lanes (the run ending at a lane with another segment or none), -1
+// where it heads none; *len the run's lanes. Every lane of the warp calls
+// it.
+__device__ __forceinline__ int run_head(int s, int* len) {
+  const unsigned key = s >= 0 ? (unsigned)s : kNoSeg;
+  const unsigned prev = __shfl_up_sync(0xffffffffu, key, 1);
+  const int lane = threadIdx.x & 31;
+  const bool head = s >= 0 && (lane == 0 || prev != key);
+  const unsigned stop = __ballot_sync(0xffffffffu, head || s < 0);
+  const unsigned above = stop & ~((2u << lane) - 1u);
+  *len = (above != 0 ? __ffs((int)above) - 1 : 32) - lane;
+  return head ? s : -1;
+}
+
+constexpr int kGlobalRows = 4;  // the global route's rows a thread a step
+
+// The global route (kSharedMax < num, the table small enough to stay in
+// L2: join.py's GLOBAL_MAX): each run of equal segments among a warp's
+// lanes updates the table, filled by the caller, with one atomic.
+__global__ void __launch_bounds__(kThreads) join_build_global(const BuildParams p) {
+  constexpr long long kStep = (long long)kThreads * kGlobalRows;
+  int real_rows = 0, null_rows = 0;
+  // every lane of a warp takes the same steps (run_head)
+  for (long long t0 = (long long)blockIdx.x * kStep; t0 < p.side.n;
+       t0 += (long long)gridDim.x * kStep) {
+    int s[kGlobalRows];
+    bool real[kGlobalRows], null_key[kGlobalRows];
+#pragma unroll
+    for (int k = 0; k < kGlobalRows; ++k)
+      read_row(p.side, t0 + (long long)k * kThreads + threadIdx.x, &s[k], &real[k],
+               &null_key[k]);
+#pragma unroll
+    for (int k = 0; k < kGlobalRows; ++k) {
+      real_rows += real[k];
+      null_rows += null_key[k];
+      int len;
+      const int h = run_head(s[k], &len);
+      if (h < 0) continue;
       if (p.slots) {
-        atomicMax(p.table + i, v);
+        atomicMax(p.table + h, (int)(t0 + (long long)k * kThreads + threadIdx.x + len - 1));
       } else {
-        atomicAdd(p.table + i, v);
+        atomicAdd(p.table + h, len);
+      }
+    }
+  }
+  add_side_counts(p.stats, real_rows, null_rows);
+}
+
+// Step 1a: each slab's entries, and the side counts.
+__global__ void __launch_bounds__(kK7Threads) join_slab_count(const SlabBuildParams p) {
+  extern __shared__ int slab_counts[];
+  for (int s = threadIdx.x; s < p.nslabs; s += kK7Threads) slab_counts[s] = 0;
+  __syncthreads();
+  int real_rows = 0, null_rows = 0;
+  for (long long t0 = (long long)blockIdx.x * kK7Tile; t0 < p.side.n;
+       t0 += (long long)gridDim.x * kK7Tile) {
+    int s[kK7Items];
+    bool real[kK7Items], null_key[kK7Items];
+#pragma unroll
+    for (int k = 0; k < kK7Items; ++k)
+      read_row(p.side, t0 + (long long)k * kK7Threads + threadIdx.x, &s[k], &real[k],
+               &null_key[k]);
+#pragma unroll
+    for (int k = 0; k < kK7Items; ++k) {
+      real_rows += real[k];
+      null_rows += null_key[k];
+      int len;
+      const int h = run_head(s[k], &len);
+      warp_rank_add(slab_counts, h >= 0 ? h >> kSegShift : -1);
+    }
+  }
+  add_side_counts(p.stats, real_rows, null_rows);
+  __syncthreads();
+  for (int s = threadIdx.x; s < p.nslabs; s += kK7Threads) {
+    const int c = slab_counts[s];
+    if (c != 0) atomicAdd(p.counts + s, c);
+  }
+}
+
+__device__ __forceinline__ int pieces_of(int entries) {
+  return entries <= kPieceEntries ? 1 : (entries + kPieceEntries - 1) / kPieceEntries;
+}
+
+// Step 1b, one block: each bucket's start, and its pieces.
+__global__ void __launch_bounds__(kPlanThreads) join_slab_plan(const SlabBuildParams p) {
+  __shared__ int warp_tot[kPlanThreads / 32];
+  block_scan_counts<kPlanThreads>(p.counts, p.starts, p.cursor, p.nslabs, warp_tot);
+  const int per = (p.nslabs + kPlanThreads - 1) / kPlanThreads;
+  const int lo = min((int)threadIdx.x * per, p.nslabs), hi = min(lo + per, p.nslabs);
+  int mine = 0;
+  for (int j = lo; j < hi; ++j) mine += pieces_of(p.counts[j]);
+  int total = 0;
+  int at = block_exclusive_sum<kPlanThreads>(mine, warp_tot, &total);
+  for (int j = lo; j < hi; ++j) {
+    const int k = pieces_of(p.counts[j]);
+    p.multi[j] = k > 1;
+    for (int q = 0; q < k; ++q, ++at) {
+      p.piece_slab[at] = j;
+      p.piece_lo[at] = p.starts[j] + q * kPieceEntries;
+    }
+  }
+  if (threadIdx.x == 0) *p.npieces = total;
+}
+
+// Step 1c: the slabs of several pieces filled, then the entries partitioned
+// by slab, a persistent wave over tiles.
+__global__ void __launch_bounds__(kK7Threads) join_slab_partition(const SlabBuildParams p) {
+  extern __shared__ uint4 k7_smem[];
+  auto* stage = reinterpret_cast<unsigned long long*>(k7_smem);  // run << 32 | segment
+  int* hist = reinterpret_cast<int*>(stage + kK7Tile);
+  int* warp_tot = hist + p.nslabs + 1;
+  const int fill = p.slots ? -1 : 0;
+  for (int s = blockIdx.x; s < p.nslabs; s += gridDim.x) {
+    if (!p.multi[s]) continue;
+    const long long a = (long long)s << kSegShift;
+    const long long b = a + (1LL << kSegShift) < p.side.num ? a + (1LL << kSegShift) : p.side.num;
+    for (long long i = a + threadIdx.x; i < b; i += kK7Threads) p.table[i] = fill;
+  }
+  for (long long t0 = (long long)blockIdx.x * kK7Tile; t0 < p.side.n;
+       t0 += (long long)gridDim.x * kK7Tile) {
+    int b[kK7Items], pos[kK7Items];
+    unsigned long long v[kK7Items];
+#pragma unroll
+    for (int k = 0; k < kK7Items; ++k) {
+      bool real, null_key;
+      read_row(p.side, t0 + (long long)k * kK7Threads + threadIdx.x, &b[k], &real, &null_key);
+    }
+#pragma unroll
+    for (int k = 0; k < kK7Items; ++k) {
+      const long long r = t0 + (long long)k * kK7Threads + threadIdx.x;
+      int len;
+      const int s = run_head(b[k], &len);
+      b[k] = s >= 0 ? s >> kSegShift : -1;
+      // counts: the run's length; slots: its highest row (its last lane's)
+      const unsigned long long hi = p.slots ? (unsigned long long)(r + len - 1) : len;
+      v[k] = hi << 32 | (unsigned)s;
+    }
+    const int total = tile_slots<kK7Threads, kK7Items>(
+        p.nslabs, b, pos, hist, warp_tot, [&](int j, int c) { return atomicAdd(p.cursor + j, c); });
+#pragma unroll
+    for (int k = 0; k < kK7Items; ++k)
+      if (pos[k] >= 0) stage[pos[k]] = v[k];
+    __syncthreads();
+    for (int j = threadIdx.x; j < total; j += kK7Threads) {
+      const unsigned long long e = stage[j];
+      const unsigned s = (unsigned)e;
+      const int slab = (int)(s >> kSegShift);
+      const int at = hist[slab] + j;
+      if (at >= p.starts[slab + 1]) continue;
+      const unsigned hi = (unsigned)(e >> 32);
+      if (p.slots) {
+        p.ent8[at] = (unsigned long long)hi << 32 | (s & kSegMask);
+      } else {
+        p.ent[at] = (s & kSegMask) | (hi - 1u) << kSegShift;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Step 2: a block a piece, the slab's table in its shared memory.
+__global__ void __launch_bounds__(kImageThreads) join_slab_build(const SlabBuildParams p) {
+  extern __shared__ int seg_img[];
+  const int piece = blockIdx.x;
+  if (piece >= *p.npieces) return;
+  const int fill = p.slots ? -1 : 0;
+  for (int i = threadIdx.x; i < (1 << kSegShift); i += kImageThreads) seg_img[i] = fill;
+  __syncthreads();
+  const int slab = p.piece_slab[piece];
+  const long long lo = p.piece_lo[piece];
+  const long long end = p.starts[slab + 1];
+  const long long hi = lo + kPieceEntries < end ? lo + kPieceEntries : end;
+  const int lane = threadIdx.x & 31;
+  auto apply = [&](unsigned off, int v) {
+    if (p.slots) {
+      atomicMax(seg_img + off, v);
+    } else {
+      atomicAdd(seg_img + off, v);
+    }
+  };
+  // every lane of a warp takes the same steps: the warp's entries are
+  // base + u * kImageThreads + lane, kBuildUnroll of them loaded at once
+  for (long long base = lo + (threadIdx.x & ~31); base < hi;
+       base += (long long)kBuildUnroll * kImageThreads) {
+    unsigned off[kBuildUnroll];
+    int v[kBuildUnroll];
+#pragma unroll
+    for (int u = 0; u < kBuildUnroll; ++u) {
+      const long long e = base + u * kImageThreads + lane;
+      off[u] = kNoSeg;
+      v[u] = 0;
+      if (e >= hi) continue;
+      if (p.slots) {
+        const unsigned long long x = __ldcs(p.ent8 + e);
+        off[u] = (unsigned)x & kSegMask;
+        v[u] = (int)(x >> 32);
+      } else {
+        const unsigned x = __ldcs(p.ent + e);
+        off[u] = x & kSegMask;
+        v[u] = (int)(x >> kSegShift) + 1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBuildUnroll; ++u) {
+      const unsigned first = __shfl_sync(0xffffffffu, off[u], 0);
+      const bool uniform = __all_sync(0xffffffffu, off[u] == first);
+      const unsigned folded = p.slots ? __reduce_max_sync(0xffffffffu, (unsigned)v[u])
+                                      : __reduce_add_sync(0xffffffffu, (unsigned)v[u]);
+      if (uniform && first != kNoSeg) {
+        if (lane == 0) apply(first, (int)folded);
+      } else if (off[u] != kNoSeg) {
+        apply(off[u], v[u]);
+      }
+    }
+  }
+  __syncthreads();
+  // the slab's part of the table, 16 bytes a store (4 segments)
+  const long long s0 = (long long)slab << kSegShift;
+  const bool merge = p.multi[slab] != 0;
+  for (int q = threadIdx.x; q < (1 << kSegShift) / 4; q += kImageThreads) {
+    const long long g = s0 + 4LL * q;
+    if (g >= p.side.num) break;
+    const int* src = seg_img + 4 * q;
+    if (!merge && g + 4 <= p.side.num) {
+      *reinterpret_cast<int4*>(p.table + g) = *reinterpret_cast<const int4*>(src);
+      continue;
+    }
+    for (int k = 0; k < 4 && g + k < p.side.num; ++k) {
+      const int x = src[k];
+      if (!merge) {
+        p.table[g + k] = x;
+      } else if (x != fill) {
+        if (p.slots) {
+          atomicMax(p.table + g + k, x);
+        } else {
+          atomicAdd(p.table + g + k, x);
+        }
       }
     }
   }
@@ -414,12 +723,14 @@ __global__ void __launch_bounds__(kThreads) join_expand(const ExpandParams p) {
 
 }  // namespace
 
-// K7. The side is (n, nrows or -1 with row_valid, nulls or null, seg,
-// num); table is int32 [num], filled by the caller with 0 (counts) or -1
-// (slots); stats int32 [2] zeroed by the caller, or null (NOT IN's side
-// counts). device is the CUDA ordinal of the tensors, stream a
-// cudaStream_t of it. Returns a cudaError_t; *path is 1 (per-block tables
-// in shared memory), 2 (the global table) or 0 (no row: nothing launched).
+// K7, shared route (num at most kSharedMax, join.py's SHARED_MAX) or
+// global route (above). The side is (n, nrows or -1 with row_valid, nulls
+// or null, seg, num); table is int32 [num], filled by the caller with 0
+// (counts) or -1 (slots); stats int32 [2] zeroed by the caller, or null
+// (NOT IN's side counts). device is the CUDA ordinal of the tensors,
+// stream a cudaStream_t of it. Returns a cudaError_t; *path is 1
+// (per-block tables in shared memory), 2 (the global table) or 0 (no row:
+// nothing launched).
 extern "C" int fugue_join_build(long long n, long long nrows, const void* row_valid,
                                 const void* nulls, const void* seg, int num, int slots,
                                 void* table, void* stats, int device, void* stream,
@@ -434,11 +745,86 @@ extern "C" int fugue_join_build(long long n, long long nrows, const void* row_va
   p.table = static_cast<int*>(table);
   p.stats = static_cast<int*>(stats);
   const bool shared = num <= kSharedMax;
-  void (*kernel)(BuildParams) = shared ? join_build<true> : join_build<false>;
+  void (*kernel)(BuildParams) = shared ? join_build : join_build_global;
   const cudaError_t err = on_device(device, [&] {
     return launch_wave(kernel, n, kThreads, device, static_cast<cudaStream_t>(stream), p);
   });
   if (err == cudaSuccess) *path = shared ? 1 : 2;
+  return (int)err;
+}
+
+// The ints of K7's slab route's scratch (`meta`) for n rows over num
+// segments, and the bytes of its entries.
+extern "C" void fugue_join_slab_shape(long long n, int num, int slots, long long* meta_ints,
+                                      long long* entry_bytes) {
+  const long long nslabs = slab_count(num, kSegShift);
+  const long long pieces = nslabs + (n + kPieceEntries - 1) / kPieceEntries;
+  *meta_ints = 4 * nslabs + 2 + 2 * pieces;
+  *entry_bytes = n * (slots ? 8 : 4);
+}
+
+// K7, slab route (any num): the side, slots, stats, device and stream as
+// for fugue_join_build; table int32 [num], written whole (no fill);
+// meta and entries scratch as fugue_join_slab_shape sizes them. Returns a
+// cudaError_t; *launched is 1 where the kernels were launched (n > 0).
+extern "C" int fugue_join_build_slab(long long n, long long nrows, const void* row_valid,
+                                     const void* nulls, const void* seg, int num, int slots,
+                                     void* table, void* stats, void* meta, void* entries,
+                                     int device, void* stream, int* launched) {
+  *launched = 0;
+  if (num < 1 || n >= (1LL << 31) || (nrows < 0 && row_valid == nullptr) ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;
+  SlabBuildParams p = {};
+  p.side = {n, nrows, static_cast<const uint8_t*>(row_valid),
+            static_cast<const uint8_t*>(nulls), static_cast<const int*>(seg), num};
+  p.slots = slots;
+  p.table = static_cast<int*>(table);
+  p.stats = static_cast<int*>(stats);
+  p.nslabs = (int)slab_count(num, kSegShift);
+  const long long pieces = p.nslabs + (n + kPieceEntries - 1) / kPieceEntries;
+  p.counts = static_cast<int*>(meta);
+  p.starts = p.counts + p.nslabs;
+  p.cursor = p.starts + p.nslabs + 1;
+  p.npieces = p.cursor + p.nslabs;
+  p.multi = p.npieces + 1;
+  p.piece_slab = p.multi + p.nslabs;
+  p.piece_lo = p.piece_slab + pieces;
+  p.ent = static_cast<unsigned*>(entries);
+  p.ent8 = static_cast<unsigned long long*>(entries);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = on_device(device, [&]() -> cudaError_t {
+    cudaError_t e = cudaMemsetAsync(p.counts, 0, sizeof(int) * (size_t)p.nslabs, st);
+    if (e != cudaSuccess) return e;
+    const long long tiles = (n + kK7Tile - 1) / kK7Tile;
+    int grid = 0;
+    const int count_smem = 4 * p.nslabs;
+    e = allow_smem<join_slab_count>(device, count_smem);
+    if (e == cudaSuccess)
+      e = wave_blocks(join_slab_count, kK7Threads, count_smem, tiles, device, &grid);
+    if (e != cudaSuccess) return e;
+    join_slab_count<<<grid, kK7Threads, count_smem, st>>>(p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    join_slab_plan<<<1, kPlanThreads, 0, st>>>(p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const int smem = (int)(kK7Tile * 8) + 4 * (p.nslabs + 1 + kK7Threads / 32);
+    e = allow_smem<join_slab_partition>(device, smem);
+    if (e == cudaSuccess)
+      e = wave_blocks(join_slab_partition, kK7Threads, smem, tiles, device, &grid);
+    if (e != cudaSuccess) return e;
+    join_slab_partition<<<grid, kK7Threads, smem, st>>>(p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const int img = 4 << kSegShift;
+    e = allow_smem<join_slab_build>(device, img);
+    if (e != cudaSuccess) return e;
+    join_slab_build<<<pieces, kImageThreads, img, st>>>(p);
+    return cudaGetLastError();
+  });
+  if (err == cudaSuccess) *launched = 1;
   return (int)err;
 }
 

@@ -12,12 +12,18 @@ the outputs and launch the join kernels on PyTorch's current stream.
   row.
 
 Each has the contract of its twin in ``reference.py``. Each wrapper's
-``launches`` grows by one where it launches its kernel and nowhere else;
+``launches`` grows by one where it launches its kernel and nowhere else
+(K7's slab route: one a call, for its four launches);
 ``join_build_cuda.last_path`` names where its last launch kept its
-tables: ``"shared"`` (a copy per block) or ``"global"``."""
+tables: ``"shared"`` (a copy per block, up to ``SHARED_MAX`` segments),
+``"global"`` (the table itself, while it stays in L2: up to
+``GLOBAL_MAX`` segments) or ``"slab"`` (the rows partitioned by slab of
+``2^SEG_SHIFT`` segments, each slab's table built in a block's shared
+memory and written once); after a slab route, ``.last_slabs`` holds its
+buckets (``SlabBuckets``)."""
 
 import ctypes
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,6 +31,12 @@ from fugue_tpu_torch.kernels import build
 from fugue_tpu_torch.kernels.factorize import _check, _device_and_stream, _require_cuda
 from fugue_tpu_torch.kernels.reference import PROBE_MODES, Probe
 
+SHARED_MAX = 12288  # segments of K7's shared route (kSharedMax in join.cu)
+# segments of K7's global route, whose table (4 B a segment, 32 MB) stays
+# in L2: at 50M rows over 2^23 segments it took 0.86 ms against the slab
+# route's 1.20, over 2^24 2.29 against 1.25 (NVIDIA H100 80GB HBM3, 700 W;
+# old_vs_new.py's k7_routes, PERF.md §6)
+GLOBAL_MAX = 1 << 23
 _PATHS = {1: "shared", 2: "global"}
 _FLAGS = (torch.bool, torch.uint8)
 _EXPAND_TILE = 2048  # K9's output rows a block (kTile in join.cu)
@@ -38,6 +50,11 @@ def _bind() -> ctypes.CDLL:
         side = [ll, ll, p, p, p, i]  # n, nrows, row_valid, nulls, seg, num
         # slots, table, stats, device, stream, path
         lib.fugue_join_build.argtypes = side + [i, p, p, i, p, ip]
+        # slots, table, stats, meta, entries, device, stream, launched
+        lib.fugue_join_build_slab.argtypes = side + [i, p, p, p, p, i, p, ip]
+        lib.fugue_join_slab_shape.argtypes = [ll, i, i, ctypes.POINTER(ll),
+                                              ctypes.POINTER(ll)]
+        lib.fugue_join_slab_shape.restype = None
         lib.fugue_join_probe.argtypes = side + [
             p, p, i, i,  # table, stats, mode, outer
             p, p, p, p, p, p,  # keep, ridx, m, reps, count, total
@@ -47,7 +64,8 @@ def _bind() -> ctypes.CDLL:
             ll, ll, p, p, p, i, p, p, ll,  # p1, total, start, m, seg, num, cstart, order, p2
             p, p, p, i, p, ip,  # tiles, li, ri, device, stream, launched
         ]
-        for fn in (lib.fugue_join_build, lib.fugue_join_probe, lib.fugue_join_expand):
+        for fn in (lib.fugue_join_build, lib.fugue_join_build_slab, lib.fugue_join_probe,
+                   lib.fugue_join_expand):
             fn.restype = i
         lib.fugue_join_error_string.argtypes = [i]
         lib.fugue_join_error_string.restype = ctypes.c_char_p
@@ -101,23 +119,52 @@ def join_build_cuda(
     dense flags of its rows on its device. Raises on anything else, on a
     failed build and on a refused launch."""
     n, nrows_arg, rv, nl = _side(seg, num, nrows, row_valid, nulls, "join_build_cuda")
-    table = torch.full((num,), -1 if slots else 0, dtype=torch.int32, device=seg.device)
     stats = torch.zeros((2,), dtype=torch.int32, device=seg.device) if side_counts else None
     lib = _bind()
     index, stream = _device_and_stream(seg.device)
-    path = ctypes.c_int(0)
-    err = lib.fugue_join_build(n, nrows_arg, rv, nl, seg.data_ptr(), num, int(slots),
-                               table.data_ptr(), None if stats is None else stats.data_ptr(),
-                               index, stream, ctypes.byref(path))
+    done = ctypes.c_int(0)
+    if num <= GLOBAL_MAX:
+        table = torch.full((num,), -1 if slots else 0, dtype=torch.int32, device=seg.device)
+        err = lib.fugue_join_build(n, nrows_arg, rv, nl, seg.data_ptr(), num, int(slots),
+                                   table.data_ptr(), None if stats is None else stats.data_ptr(),
+                                   index, stream, ctypes.byref(done))
+        path = _PATHS.get(done.value)
+    else:
+        table = torch.empty((num,), dtype=torch.int32, device=seg.device)
+        meta_ints, entry_bytes = ctypes.c_longlong(), ctypes.c_longlong()
+        lib.fugue_join_slab_shape(n, num, int(slots), ctypes.byref(meta_ints),
+                                  ctypes.byref(entry_bytes))
+        meta = torch.empty((meta_ints.value,), dtype=torch.int32, device=seg.device)
+        entries = torch.empty((entry_bytes.value,), dtype=torch.uint8, device=seg.device)
+        err = lib.fugue_join_build_slab(
+            n, nrows_arg, rv, nl, seg.data_ptr(), num, int(slots), table.data_ptr(),
+            None if stats is None else stats.data_ptr(), meta.data_ptr(), entries.data_ptr(),
+            index, stream, ctypes.byref(done))
+        path = "slab"
+        nslabs = -(-num >> SEG_SHIFT)
+        join_build_cuda.last_slabs = SlabBuckets(meta[:nslabs], meta[nslabs:2 * nslabs + 1],
+                                                 meta[2 * nslabs + 1:3 * nslabs + 1])
     _raise_on(lib, err, "join_build")
-    if path.value != 0:
+    if done.value != 0:
         join_build_cuda.launches += 1
-        join_build_cuda.last_path = _PATHS[path.value]
+        join_build_cuda.last_path = path
     return table if stats is None else (table, stats)
 
 
+class SlabBuckets(NamedTuple):
+    """K7's slab route's buckets, one a slab of ``2^SEG_SHIFT`` segments:
+    the entries counted, each bucket's start (and the total) and where the
+    partition left its cursor, which must be the next bucket's start."""
+
+    counts: torch.Tensor
+    starts: torch.Tensor
+    cursor: torch.Tensor
+
+
+SEG_SHIFT = 15  # log2 of a slab's segments (kSegShift in join.cu)
 join_build_cuda.launches = 0  # type: ignore[attr-defined]
 join_build_cuda.last_path = None  # type: ignore[attr-defined]
+join_build_cuda.last_slabs = None  # type: ignore[attr-defined]
 
 
 def join_probe_cuda(

@@ -34,9 +34,8 @@ import pyarrow as pa
 import pyarrow.compute as pc
 import torch
 
-from fugue_tpu_torch.kernels import kernel_for
-from fugue_tpu_torch.kernels.gather import gather_rows_cuda
-from fugue_tpu_torch.kernels.reference import GatherColumn, gather_rows_reference
+from fugue_tpu_torch.kernels.gather import gather_rows
+from fugue_tpu_torch.kernels.reference import GatherColumn
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.utils.assertion import assert_or_throw
 from fugue_tpu_torch.utils.validity import materialize_validity
@@ -233,23 +232,26 @@ def blocks_with_columns(blocks: TorchBlocks, columns: Dict[str, TorchColumn]) ->
     )
 
 
-def gather_indices(blocks: TorchBlocks, idx: torch.Tensor) -> TorchBlocks:
+def gather_indices(blocks: TorchBlocks, idx: torch.Tensor, scattered: bool = False
+                   ) -> TorchBlocks:
     """Every column of the frame at the rows ``idx`` (an integer tensor of
     real rows), as a prefix frame of ``len(idx)`` rows
     (``jax_backend/blocks.py:620``, ``_gather_program`` ``:652``): all the
     columns and masks through K10 ``gather_rows`` (one launch for up to
     ``gather.MAX_COLUMNS`` columns; its twin on the CPU), types, stats and
-    dictionaries kept. Padding rows repeat index 0, as there."""
+    dictionaries kept. Padding rows repeat index 0, as there.
+    ``scattered``: ``idx`` reads the rows at random (a permutation, a hash
+    or sort order), which lets K10 take its slab route."""
     new_n = int(idx.shape[0])
     pad = padded_len(new_n)
     idx = idx.to(device=blocks.device, dtype=torch.int32)
     if pad != new_n:
         idx = torch.cat([idx, torch.zeros((pad - new_n,), dtype=torch.int32, device=idx.device)])
-    run = kernel_for(idx, gather_rows_cuda, gather_rows_reference, "gather rows")
     names = list(blocks.columns)
-    got = run([GatherColumn(blocks.columns[n].data.contiguous(),
-                            None if blocks.columns[n].mask is None
-                            else blocks.columns[n].mask.contiguous()) for n in names], idx)
+    got = gather_rows([GatherColumn(blocks.columns[n].data.contiguous(),
+                                    None if blocks.columns[n].mask is None
+                                    else blocks.columns[n].mask.contiguous()) for n in names],
+                      idx, scattered=scattered)
     cols = {n: blocks.columns[n].with_data(v, m) for n, (v, m) in zip(names, got)}
     return TorchBlocks(new_n, cols, blocks.device)
 

@@ -766,7 +766,7 @@ class TorchExecutionEngine:
         else:
             vidx = np.nonzero(blocks.validity().cpu().numpy())[0]
             idx = torch.from_numpy(vidx[np.random.default_rng(42).permutation(len(vidx))])
-        return TorchDataFrame(gather_indices(blocks, idx), tdf.schema)
+        return TorchDataFrame(gather_indices(blocks, idx, scattered=True), tdf.schema)
 
     def aggregate(
         self,

@@ -79,7 +79,7 @@ from fugue_tpu_torch.kernels.expr_program import (
     Program,
 )
 from fugue_tpu_torch.kernels.factorize import MAX_WORD_KEYS, presort_word_cuda
-from fugue_tpu_torch.kernels.gather import gather_rows_cuda
+from fugue_tpu_torch.kernels.gather import gather_rows
 from fugue_tpu_torch.kernels.join import join_build_cuda, join_expand_cuda, join_probe_cuda
 from fugue_tpu_torch.kernels.reference import (
     GatherColumn,
@@ -87,7 +87,6 @@ from fugue_tpu_torch.kernels.reference import (
     Probe,
     SortedWords,
     first_row_mask_reference,
-    gather_rows_reference,
     has_unreal_rows,
     join_build_reference,
     join_expand_reference,
@@ -257,12 +256,12 @@ def _probe(seg: torch.Tensor, table: torch.Tensor, mode: str, b: TorchBlocks,
     return run(seg, table, mode, nulls=nulls, **kw, **groupby.frame_rows(b))
 
 
-def _gather(columns: Dict[str, TorchColumn], idx: torch.Tensor, outer: bool
-            ) -> Dict[str, TorchColumn]:
+def _gather(columns: Dict[str, TorchColumn], idx: torch.Tensor, outer: bool,
+            scattered: bool = False) -> Dict[str, TorchColumn]:
     """K10 over ``columns`` by ``idx``, each result with its source's
-    type and stats."""
-    run = kernel_for(idx, gather_rows_cuda, gather_rows_reference, "gather rows")
-    got = run([GatherColumn(c.data, c.mask) for c in columns.values()], idx, outer=outer)
+    type and stats; ``scattered`` as ``gather.gather_rows`` takes it."""
+    got = gather_rows([GatherColumn(c.data, c.mask) for c in columns.values()], idx,
+                      outer=outer, scattered=scattered)
     return {n: c.with_data(v, m) for (n, c), (v, m) in zip(columns.items(), got)}
 
 
@@ -356,7 +355,9 @@ def expand_join(
         # rows with no match append with no second re-coding (``:534``)
         d1.update({k: c1 for k, (c1, _) in key_pairs.items()})
     d2 = {n: b2.columns[n] for n in schema2.names if n not in schema1}
-    g = {**_gather(d1, li, outer=False), **_gather(d2, ri, outer=outer_left)}
+    # li is in order; ri follows the right side's sort by segment: random
+    g = {**_gather(d1, li, outer=False),
+         **_gather(d2, ri, outer=outer_left, scattered=True)}
     out = TorchBlocks(M, {f.name: g[f.name] for f in out_schema.fields}, device)
     if un2 is not None and R > 0:
         right_keys = {k: c2 for k, (_, c2) in key_pairs.items()}
@@ -742,7 +743,7 @@ def device_sort(blocks: TorchBlocks, sorts: List[Tuple[str, bool, Optional[bool]
     n = blocks.nrows  # the one readback
     start = min(offset or 0, n)
     stop = n if limit is None else min(n, start + limit)
-    return gather_indices(blocks, order[start:stop])
+    return gather_indices(blocks, order[start:stop], scattered=True)
 
 
 def device_take(blocks: TorchBlocks, n: int, sorts: Dict[str, bool], na_position: str,

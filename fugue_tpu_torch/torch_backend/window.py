@@ -28,14 +28,13 @@ import pyarrow as pa
 import torch
 
 from fugue_tpu_torch.kernels import kernel_for
-from fugue_tpu_torch.kernels.gather import gather_rows_cuda
+from fugue_tpu_torch.kernels.gather import gather_rows
 from fugue_tpu_torch.kernels.reference import (
     GatherColumn,
     PresortKey,
     SortedWords,
     WindowFrame,
     frame_route,
-    gather_rows_reference,
     window_frame_reference,
     window_rank_reference,
 )
@@ -211,7 +210,6 @@ def _window_segment_agg(blocks: TorchBlocks, spec: Any, seg: torch.Tensor, num: 
         tp = arg_tp
     _, [(v, m)] = groupby.segment_aggs([request], num, groupby.frame_rows(blocks), seg=seg)
     idx = seg.clamp(0, num - 1).to(torch.int32).contiguous()
-    run = kernel_for(idx, gather_rows_cuda, gather_rows_reference, "gather rows")
-    [(out, outm)] = run([GatherColumn(v.to(torch_dtype(tp)).contiguous(),  # type: ignore[arg-type]
-                                      None if m is None else m.contiguous())], idx)
+    [(out, outm)] = gather_rows([GatherColumn(v.to(torch_dtype(tp)).contiguous(),  # type: ignore[arg-type]
+                                              None if m is None else m.contiguous())], idx)
     return TorchColumn(tp, out, outm)  # type: ignore[arg-type]

@@ -7,9 +7,9 @@ card.
 DIR holds files of the other tree (as a rule the parent commit's), for
 example unpacked with ``git archive`` into a git-ignored directory: any of
 ``factorize.cu``, ``factorize.py``, ``join.cu``, ``join.py``,
-``segment_reduce.cu``, ``segment_reduce.py`` (from
-``fugue_tpu_torch/kernels/``), ``groupby.py`` and ``streaming.py`` (from
-``fugue_tpu_torch/torch_backend/``). Its sources are built here with this
+``segment_reduce.cu``, ``segment_reduce.py``, ``gather.cu``, ``gather.py``
+(from ``fugue_tpu_torch/kernels/``), ``groupby.py`` and ``streaming.py``
+(from ``fugue_tpu_torch/torch_backend/``). Its sources are built here with this
 tree's headers and flags, and each wrapper module is bound to its own
 library. Each comparison runs where DIR holds its files.
 
@@ -45,9 +45,31 @@ the two versions' outputs are checked equal:
   ``chip_smoke.WARM_RUNS`` runs and the device time of one run
   (``torch.profiler``), in turns.
 
-With ``--old-only``, the ``segment_reduce`` comparisons time DIR's
-version alone (beside the library calls): a reading taken before this
-tree's kernels are timed.
+- with ``gather``: K10 gathering ``k`` int32 and ``v`` float32 by 100M
+  permuted rows, by a sorted draw with replacement (sample's index), 8
+  columns of 8 B by the permutation (this tree also on its direct route:
+  the per-column cost of both), and at the expansion join's shapes
+  (``chip_smoke.expand_timing_inputs``: the right side's float64 ``w`` by
+  ``ri``, 200M outputs from 50M rows; the left side's int64 ``k`` and
+  float64 ``v`` by ``li``), each beside its library call and bound; with
+  ``join`` too, K7 at ``chip_smoke.join_timing``'s shape (50M rows over
+  25M segments), in slot mode at config 3b's (256 dimension rows), at
+  12,289 segments and with one segment holding every row over 25M; with
+  both, the hash repartition of the headline frame (100M rows) and config
+  10's expansion join (``chip_smoke.build_join_expand``) with each tree's
+  K7 and K10 swapped in: the outputs alike, best warm, device time of one
+  run (``torch.profiler``) and peak device memory above what each run
+  found allocated; and this tree's K7 on its global and slab routes at 2^22
+  to 2^24 segments (``k7_routes``).
+
+With ``--old-only``, the ``segment_reduce``, ``gather`` and ``join``
+comparisons time DIR's version alone (beside the library calls): a
+reading taken before this tree's kernels are timed. With
+``--no-check``, K10 and K7 are timed without holding the two versions'
+outputs alike: for a DIR that holds a copy of this tree's ``gather.cu``
+and ``gather.py`` with a step cut out (its outputs wrong), to see what the
+step costs. The K10 and K7 lines carry this tree's kernels' device
+milliseconds each (``new_split``, ``torch.profiler``).
 
 Prints one ``old_vs_new:`` JSON line a shape, each with the card's name
 and power limit. Exits non-zero where the versions differ or there is no
@@ -55,6 +77,7 @@ card."""
 
 import ctypes
 import importlib.util
+import inspect
 import json
 import sys
 import time
@@ -77,13 +100,13 @@ def load_old(root: Path) -> Dict[str, Any]:
     from fugue_tpu_torch.kernels import build
 
     out = root / "_build"
-    sources = [stem for stem in ("factorize", "join", "segment_reduce")
+    sources = [stem for stem in ("factorize", "join", "segment_reduce", "gather")
                if (root / f"{stem}.cu").exists()]
     build.compile_jobs([(stem, [*build.NVCC_FLAGS, f"-I{build.KERNEL_DIR}",
                                 str(root / f"{stem}.cu")], out / f"{stem}.so")
                         for stem in sources])
     mods = {}
-    for stem in ("factorize", "join", "segment_reduce", "groupby", "streaming"):
+    for stem in ("factorize", "join", "segment_reduce", "gather", "groupby", "streaming"):
         if not (root / f"{stem}.py").exists():
             continue
         spec = importlib.util.spec_from_file_location(f"old_{stem}", root / f"{stem}.py")
@@ -364,11 +387,297 @@ def full_groupby(device: Any, old: Dict[str, Any], old_only: bool) -> None:
     finally:
         groupby.segment_extrema_cuda, groupby.segment_sq_dev_cuda = versions["new"]
 
+def same_columns(got: Any, want: Any) -> bool:
+    """Two gathers' ``(values, mask)`` pairs alike, bit for bit."""
+    import torch
+
+    for (gv, gm), (wv, wm) in zip(got, want):
+        if gv.dtype.is_floating_point:
+            gv, wv = gv.view(torch.uint8), wv.view(torch.uint8)
+        if not torch.equal(gv, wv) or (gm is None) != (wm is None):
+            return False
+        if gm is not None and not torch.equal(gm, wm):
+            return False
+    return True
+
+
+def old_gather_fn(old: Dict[str, Any]) -> Callable[..., Any]:
+    """The other tree's K10 wrapper with this tree's signature (the
+    parent's has no ``scattered``: one route)."""
+    fn = old["gather"].gather_rows_cuda
+    takes_route = "scattered" in inspect.signature(fn).parameters
+
+    def run(columns: Any, idx: Any, *, outer: bool = False, scattered: bool = False) -> Any:
+        if takes_route:  # a variant of this tree's wrapper
+            return fn(columns, idx, outer=outer, scattered=scattered)
+        return fn(columns, idx, outer=outer)
+
+    run.launches = 0  # type: ignore[attr-defined]
+    return run
+
+
+NO_CHECK = "--no-check" in sys.argv[1:]
+
+
+def timed_once(label: str, new_fn: Callable[[], Any], old_fn: Callable[[], Any],
+               old_only: bool, same: Callable[[Any, Any], bool], reps: int,
+               **extra: Any) -> None:
+    """``turns``, or with ``old_only`` the other tree's time alone (twice);
+    with ``--no-check`` the outputs are not held alike."""
+    if NO_CHECK:
+        same = lambda g, w: True  # noqa: E731
+    if old_only:
+        print("old_vs_new: " + json.dumps({
+            "case": label, "old_ms": [cs.time_cuda(old_fn, reps) for _ in range(2)], **extra,
+            "card": cs.card_line()}), flush=True)
+    else:
+        turns(label, new_fn, old_fn, reps, same=same, **extra)
+
+
+def k10(device: Any, old: Dict[str, Any], old_only: bool) -> None:
+    """K10 of each tree at the permutation, the sample's sorted index, 8
+    columns by the permutation and the expansion join's two gathers."""
+    import torch
+
+    from fugue_tpu_torch.kernels import gather
+    from fugue_tpu_torch.kernels.join import join_expand_cuda
+    from fugue_tpu_torch.kernels.reference import GatherColumn
+
+    og = old_gather_fn(old)
+    n = cs.ROWS
+    gen = torch.Generator(device=device).manual_seed(cs.SEED)
+
+    def run(label: str, cols: List[Any], idx: Any, scattered: bool, nbytes: int) -> None:
+        idx64 = idx.to(torch.int64)
+        extra: Dict[str, Any] = {
+            "output_rows": int(idx.shape[0]), "columns": len(cols),
+            "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3,
+            "library_ms": cs.time_cuda(lambda: [c.values.index_select(0, idx64)
+                                                for c in cols], 5),
+            "old_device_ms": kernel_ms(lambda: og(cols, idx, scattered=scattered), "gather",
+                                       device)}
+        del idx64
+        new_fn = lambda: gather.gather_rows_cuda(cols, idx, scattered=scattered)  # noqa: E731
+        if not old_only:
+            new_fn()
+            extra.update(route=getattr(gather.gather_rows_cuda, "last_route", None),
+                         new_device_ms=kernel_ms(new_fn, "", device),
+                         new_split=cs.device_split_ms(new_fn, device))
+            if scattered:
+                direct = lambda: gather.gather_rows_cuda(cols, idx)  # noqa: E731
+                extra["new_direct_ms"] = cs.time_cuda(direct, 10)
+                torch.cuda.synchronize(device)
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                out = new_fn()
+                torch.cuda.synchronize(device)
+                outputs = sum(v.numel() * v.element_size() for v, _ in out)
+                extra["new_scratch_bytes_a_row"] = (torch.cuda.max_memory_allocated(device)
+                                                    - base - outputs) / int(idx.shape[0])
+                del out
+        timed_once(f"gather_rows {label}", new_fn,
+                   lambda: og(cols, idx, scattered=scattered), old_only,
+                   lambda g, w: same_columns([g], [w]), 10, **extra)
+        torch.cuda.empty_cache()
+
+    k = torch.randint(0, cs.GROUPS, (n,), generator=gen, device=device, dtype=torch.int32)
+    v = torch.rand((n,), generator=gen, device=device)
+    kv = [GatherColumn(k, None), GatherColumn(v, None)]
+    perm = torch.randperm(n, generator=gen, device=device).to(torch.int32)
+    run("k, v by 100M permuted rows", kv, perm, True, n * (4 + 2 * (4 + 4)))
+    drawn = torch.sort(torch.randint(0, n, (n,), generator=gen, device=device,
+                                     dtype=torch.int32)).values
+    run("k, v by a sorted draw with replacement", kv, drawn, False, n * (4 + 2 * (4 + 4)))
+    del drawn, k, v, kv
+    wide = [GatherColumn(torch.randint(-(2**62), 2**62, (n,), generator=gen, device=device),
+                         None) for _ in range(8)]
+    run("8 int64 columns by 100M permuted rows", wide, perm, True, n * (4 + 8 * 16))
+    del wide, perm
+    torch.cuda.empty_cache()
+    case = cs.expand_timing_inputs(device)
+    li, ri = join_expand_cuda(**case)
+    del case
+    p1, p2 = cs.JOIN_EXPAND_ROWS, cs.JOIN_EXPAND_ROWS // 2
+    total = int(li.shape[0])
+    w = [GatherColumn(torch.rand((p2,), generator=gen, device=device, dtype=torch.float64),
+                      None)]
+    run("the expansion join's right side (w by ri)", w, ri, True, total * (4 + 16))
+    del w, ri
+    kv64 = [GatherColumn(torch.randint(0, p1 // 4, (p1,), generator=gen, device=device), None),
+            GatherColumn(torch.rand((p1,), generator=gen, device=device, dtype=torch.float64),
+                         None)]
+    run("the expansion join's left side (k, v by li)", kv64, li, False, total * (4 + 2 * 16))
+    del kv64, li
+    torch.cuda.empty_cache()
+
+
+def k7(device: Any, old: Dict[str, Any], old_only: bool) -> None:
+    """K7 of each tree at join_timing's shape, config 3b's slot mode,
+    12,289 segments and one segment holding every row."""
+    import torch
+
+    from fugue_tpu_torch.kernels.join import join_build_cuda
+
+    ob = old["join"].join_build_cuda
+    gen = torch.Generator(device=device).manual_seed(cs.SEED)
+    p2 = cs.JOIN_EXPAND_ROWS // 2
+    num = cs.JOIN_EXPAND_ROWS // 4
+    shapes = [
+        ("50M rows over 25M segments", lambda: dict(
+            seg=(torch.randperm(p2, generator=gen, device=device) % num).to(torch.int32),
+            num=num, nrows=p2)),
+        ("slots, 50M rows over 25M segments", lambda: dict(
+            seg=(torch.randperm(p2, generator=gen, device=device) % num).to(torch.int32),
+            num=num, nrows=p2, slots=True)),
+        ("slots, config 3b's 256 dimension rows", lambda: dict(
+            seg=torch.arange(cs.JOIN3B_GROUPS, dtype=torch.int32, device=device),
+            num=cs.JOIN3B_GROUPS, nrows=cs.JOIN3B_GROUPS, slots=True)),
+        ("50M rows over 12,289 segments", lambda: dict(
+            seg=torch.randint(0, 12_289, (p2,), generator=gen, device=device,
+                              dtype=torch.int32), num=12_289, nrows=p2)),
+        ("one segment of 25M holding 50M rows", lambda: dict(
+            seg=torch.full((p2,), num // 2, dtype=torch.int32, device=device), num=num,
+            nrows=p2)),
+    ]
+    for label, make in shapes:
+        case = make()
+        rows, segs = int(case["seg"].shape[0]), case["num"]
+        extra: Dict[str, Any] = {
+            "rows": rows, "segments": segs,
+            "bound_ms": (rows * 4 + segs * 4) / cs.HBM_BYTES_PER_S * 1e3,
+            "library_ms": None if case.get("slots") else cs.time_cuda(
+                lambda: torch.bincount(case["seg"], minlength=segs), 5),  # noqa: B023
+            "old_device_ms": kernel_ms(lambda: ob(**case), "join_build", device)}  # noqa: B023
+        if not old_only:
+            join_build_cuda(**case)
+            extra.update(path=join_build_cuda.last_path,
+                         new_device_ms=kernel_ms(lambda: join_build_cuda(**case),  # noqa: B023
+                                                 "", device),
+                         new_split=cs.device_split_ms(lambda: join_build_cuda(**case),  # noqa
+                                                      device))
+        timed_once(f"join_build {label}", lambda: [join_build_cuda(**case)],  # noqa: B023
+                   lambda: [ob(**case)], old_only, torch_equal, 20, **extra)  # noqa: B023
+        del case
+        torch.cuda.empty_cache()
+
+
+def k7_routes(device: Any) -> None:
+    """This tree's K7 on its global and slab routes (``join.GLOBAL_MAX``
+    moved) at 50M rows over 2^22, 2^23 and 2^24 segments: where the
+    global table stops fitting L2."""
+    import torch
+
+    from fugue_tpu_torch.kernels import join
+
+    gen = torch.Generator(device=device).manual_seed(cs.SEED)
+    p2, keep = cs.JOIN_EXPAND_ROWS // 2, join.GLOBAL_MAX
+    try:
+        for num in (1 << 22, 1 << 23, 1 << 24):
+            seg = (torch.randperm(p2, generator=gen, device=device) % num).to(torch.int32)
+            ms = {}
+            for route, limit in (("global", num), ("slab", 0)):
+                join.GLOBAL_MAX = limit
+                join.join_build_cuda(seg, num, nrows=p2)
+                assert join.join_build_cuda.last_path == route
+                ms[route] = [cs.time_cuda(lambda: join.join_build_cuda(seg, num, nrows=p2),  # noqa
+                                          20) for _ in range(2)]
+            print("old_vs_new: " + json.dumps({
+                "case": "join_build routes", "rows": p2, "segments": num,
+                "global_ms": ms["global"], "slab_ms": ms["slab"], "card": cs.card_line()}),
+                flush=True)
+            del seg
+    finally:
+        join.GLOBAL_MAX = keep
+
+
+def paths(device: Any, old: Dict[str, Any], old_only: bool) -> None:
+    """The hash repartition of the headline frame and config 10's
+    expansion join, with each tree's K7 and K10 in turn: outputs alike,
+    best warm, device ms of one run and peak memory above the run's
+    start."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch.kernels import gather
+    from fugue_tpu_torch.torch_backend import blocks, relational, window
+
+    mods = [m for m in (gather, blocks, relational, window) if hasattr(m, "gather_rows_cuda")]
+    versions = {"old": (old_gather_fn(old), old["join"].join_build_cuda),
+                "new": (gather.gather_rows_cuda, relational.join_build_cuda)}
+
+    def use(which: str) -> None:
+        g, b = versions[which]
+        for m in mods:
+            m.gather_rows_cuda = g
+        relational.join_build_cuda = b
+
+    engine = ft.make_execution_engine("torch", device=device)
+    k, v, _ = cs.full_groupby_frame(cs.ROWS, cs.GROUPS, cs.DISTINCT_VALUES, cs.SEED)
+    src = engine.persist(engine.to_df(pd.DataFrame({"k": k, "v": v})))
+    del k, v
+
+    def repartition() -> Any:
+        out = ft.repartition(src, {"algo": "hash", "num": cs.REPARTITION_NUM, "by": ["k"]},
+                             engine=engine, as_fugue=True)
+        torch.cuda.synchronize(device)
+        return out
+
+    join_once = cs.build_join_expand(device, cs.JOIN_EXPAND_ROWS)[1]
+
+    def expansion() -> Any:
+        out = join_once()
+        out.count()
+        return out
+
+    order = ("old", "old") if old_only else ("old", "new", "new", "old")
+    try:
+        for label, fn in (("repartition_hash", repartition), ("join_expand", expansion)):
+            got: Dict[str, Any] = {}
+            best: Dict[str, List[float]] = {"old": [], "new": []}
+            busy: Dict[str, List[Optional[float]]] = {"old": [], "new": []}
+            peak: Dict[str, List[int]] = {"old": [], "new": []}
+            for which in order:
+                use(which)
+                torch.cuda.synchronize(device)
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                out = fn()
+                torch.cuda.synchronize(device)
+                peak[which].append(torch.cuda.max_memory_allocated(device) - base)
+                if which not in got:
+                    b = out.blocks
+                    got[which] = {n: b.columns[n].data[:b.nrows].cpu().numpy()
+                                  for n in b.columns}
+                del out
+                secs = []
+                for _ in range(3):
+                    t = time.perf_counter()
+                    fn()
+                    secs.append(time.perf_counter() - t)
+                best[which].append(min(secs))
+                busy[which].append(cs.device_busy_ms(fn, device))
+            if not old_only and any(not np.array_equal(got["old"][n], got["new"][n])
+                                    for n in got["old"]):
+                raise SystemExit(f"FAIL old_vs_new {label}: the two versions differ")
+            del got
+            print("old_vs_new: " + json.dumps({
+                "case": f"path {label}", "old_best_warm_secs": best["old"],
+                "new_best_warm_secs": best["new"], "old_device_ms": busy["old"],
+                "new_device_ms": busy["new"], "old_peak_bytes": peak["old"],
+                "new_peak_bytes": peak["new"], "card": cs.card_line()}), flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        use("new")
+
 
 def main() -> None:
     import torch
 
-    args = [a for a in sys.argv[1:] if a != "--old-only"]
+    args = [a for a in sys.argv[1:] if a not in ("--old-only", "--no-check")]
     if len(args) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -380,13 +689,21 @@ def main() -> None:
     if "segment_reduce" in old:
         reduce(device, old, old_only)
         full_groupby(device, old, old_only)
-    if old_only:
+    if "gather" in old:
+        k10(device, old, old_only)
+    if "join" in old:
+        k7(device, old, old_only)
+        if not old_only:
+            k7_routes(device)
+    if "join" in old and "gather" in old and not NO_CHECK:
+        paths(device, old, old_only)
+    if old_only or NO_CHECK:
         return
     if "factorize" in old:
         k2(device, old)
         if "groupby" in old:
             wide_route(device, old)
-    if "join" in old:
+    if "join" in old and "gather" not in old:
         k9(device, old)
     if "streaming" in old:
         stream_host(device, old)
