@@ -61,10 +61,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    once). Then
    the join kernels exactly (``join_vs_twin``): K7 ``join_build`` (counts
    and slots) and K8 ``join_probe`` (semi, anti, unique and expand, inner
-   and outer) over ``JOIN_SIDE_SEGMENTS`` (its shared, global and slab
-   routes, the slab buckets checked) with sentinel rows, null keys,
+   and outer, and NOT IN; each case at the place of its table that
+   ``probe_place`` picks, ``last_path`` asserted, and each mode seen at
+   the places of its smallest and its largest table) over
+   ``JOIN_SIDE_SEGMENTS`` (K7's shared, global and slab routes, the slab
+   buckets checked) with sentinel rows, null keys,
    prefix, short-prefix and masked layouts, probe rows with no match, one
-   key with 10^6 build rows and one segment of 25M holding every row; K9
+   key with 10^6 build rows, counts of 254, 255 and 256 (K8's byte entry
+   and its escape) and one segment of 25M holding every row; K9
    ``join_expand`` on pairs
    (inner, outer), a cross join, a skewed key at a tile's start and from
    inside a tile, one probe row in 50 matching, one output, and an
@@ -105,8 +109,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    edges over random permutations, ``sort_finish_slab_cases``). Then K17
    ``comap_presence`` and K18 ``comap_rows`` exactly (``comap_vs_twin``:
    1, 2, 3 and 33 members, every zip type, prefix and masked layouts, a
-   member with no real row, sentinel ids, 1 and 2^24 segments; at 1,
-   2^20 + 37 and 100M rows) and K19 ``stream_fold``
+   member with no real row, sentinel ids, 1 and 2^24 segments; K18's
+   tile edges: a member boundary at a tile's edge and inside a tile, an
+   empty member, members of 1 and 3 rows, 65 members; at 1, 2^20 + 37 and
+   100M rows; K18 over 2^31 - 1 rows, whose top tile ends at 2^31,
+   ``comap_top_tile``) and K19 ``stream_fold``
    (``stream_fold_vs_twin``: one and two keys, masked int64 and float64
    payloads, int64 values beyond 2^53, folds before and after a rebase;
    at 1, 2^20 + 37 and 10M rows; counts, int64 sums and extrema exactly,
@@ -250,7 +257,7 @@ import math
 import subprocess
 import sys
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Set, Tuple
 
 ROWS = 100_000_000
 GROUPS = 1024
@@ -3210,7 +3217,8 @@ def join_side_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str,
     to 2^23, its slab route above); the build ids cover three
     quarters of them, so probe rows find no match; a twentieth of the rows
     carry the sentinel S; prefix, short-prefix and masked layouts, with
-    and without null keys; one key with ``JOIN_SKEW`` build rows; one
+    and without null keys; one key with ``JOIN_SKEW`` build rows; from
+    768 rows, three segments with 254, 255 and 256 build rows; one
     segment of 25M that every build row holds."""
     import torch
 
@@ -3237,6 +3245,15 @@ def join_side_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str,
     hot = torch.randperm(n, generator=gen, device=device)[:JOIN_SKEW]
     build[hot] = 7
     out.append(("skew", dict(build=build, probe=ids(1024, 1024), num=1024, nrows=n)))
+    if n >= 3 * 256:
+        # segments 0, 1 and 2 with 254, 255 and 256 build rows, the rest over
+        # [3, 1024): K8's byte entries below, at and above its escape
+        build = torch.randint(3, 1024, (n,), generator=gen, device=device, dtype=torch.int32)
+        build[torch.randperm(n, generator=gen, device=device)[:254 + 255 + 256]] = torch.cat([
+            torch.full((c,), j, dtype=torch.int32, device=device)
+            for j, c in enumerate((254, 255, 256))])
+        out.append(("counts 254, 255, 256", dict(build=build, probe=ids(1024, 1024), num=1024,
+                                                  nrows=n, nulls=flags(0.1))))
     many = JOIN_SIDE_SEGMENTS[-1]
     out.append(("one segment of 25M holding every row", dict(
         build=torch.full((n,), many // 3, dtype=torch.int32, device=device),
@@ -3396,15 +3413,38 @@ def check_buckets(label: str, buckets: Any, total: Optional[int] = None) -> None
         raise SystemExit(f"FAIL {label}: the partition's buckets disagree with their counts")
 
 
-def not_in_vs_twin(case: Dict[str, Any], rows: Dict[str, Any], label: str) -> None:
-    """K7's side counts and K8's NOT IN mode against their twins, exactly:
-    over the case's build side, and with side counts of an empty build
-    side and of one holding a null, so that each of NOT IN's three
-    answers is taken."""
+def probe_vs_twin(seg: Any, table: Any, mode: str, label: str, seen: Set[Tuple[str, str]],
+                  **kw: Any) -> None:
+    """K8 in ``mode`` against its twin, exactly, ``last_path`` asserted
+    to be ``join.probe_place``'s; ``seen`` gets the (mode, place)."""
+    from fugue_tpu_torch.kernels import join
+    from fugue_tpu_torch.kernels.reference import join_probe_reference
+
+    want = join_probe_reference(seg, table, mode, **kw)
+    place = join.probe_place(mode, int(table.shape[0]))
+    got = join.join_probe_cuda(seg, table, mode, **kw)
+    # a stand-in without a last_path (the twin, in a CPU rehearsal) is
+    # taken at its word
+    actual = getattr(join.join_probe_cuda, "last_path", place)
+    if actual != place:
+        raise SystemExit(f"FAIL join_probe {label} {mode}: read its table from {actual}, "
+                         f"not {place}")
+    seen.add((mode, place))
+    for field in want._fields:
+        _same(f"join_probe {label} {mode} {place} {field}", getattr(got, field),
+              getattr(want, field))
+
+
+def not_in_vs_twin(case: Dict[str, Any], rows: Dict[str, Any], label: str,
+                   seen: Set[Tuple[str, str]]) -> None:
+    """K7's side counts and K8's NOT IN mode against their twins, exactly
+    (``probe_vs_twin``): over the case's build
+    side, and with side counts of an empty build side and of one holding a
+    null, so that each of NOT IN's three answers is taken."""
     import torch
 
-    from fugue_tpu_torch.kernels.join import join_build_cuda, join_probe_cuda
-    from fugue_tpu_torch.kernels.reference import join_build_reference, join_probe_reference
+    from fugue_tpu_torch.kernels.join import join_build_cuda
+    from fugue_tpu_torch.kernels.reference import join_build_reference
 
     args = (case["build"], case["num"])
     got, got_stats = join_build_cuda(*args, side_counts=True, **rows)
@@ -3416,30 +3456,31 @@ def not_in_vs_twin(case: Dict[str, Any], rows: Dict[str, Any], label: str) -> No
                         ("empty build side", torch.zeros((2,), dtype=torch.int32, device=device)),
                         ("a null on the build side",
                          torch.tensor([5, 1], dtype=torch.int32, device=device))):
-        g = join_probe_cuda(case["probe"], want, "not_in", stats=stats, **rows)
-        w = join_probe_reference(case["probe"], want, "not_in", stats=stats, **rows)
-        for field in w._fields:
-            _same(f"join_probe {label} not_in {what} {field}", getattr(g, field),
-                  getattr(w, field))
+        probe_vs_twin(case["probe"], want, "not_in", f"{label} {what}", seen, stats=stats,
+                      **rows)
 
 
 def join_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
     """K7, K8 in every mode (NOT IN's too, ``not_in_vs_twin``), K9 and K10
     against their twins, exactly, in every case of ``join_side_cases``,
-    ``expand_cases`` and ``gather_cases`` at each size; prints K7's path
-    and K10's route of each case, and checks the buckets of their slab
-    routes (``check_buckets``, ``check_fill``)."""
+    ``expand_cases`` and ``gather_cases`` at each size; K8 at the place
+    of its table that ``join.probe_place`` picks (``probe_vs_twin``), each
+    mode at the places of its tables over the fewest and the most of
+    ``JOIN_SIDE_SEGMENTS`` (all of K8's places of that mode on the card);
+    prints K7's path and K10's route of each case, and checks the buckets
+    of their slab routes (``check_buckets``, ``check_fill``)."""
     import torch
 
     from fugue_tpu_torch.kernels.gather import gather_route, gather_rows_cuda
-    from fugue_tpu_torch.kernels.join import join_build_cuda, join_expand_cuda, join_probe_cuda
+    from fugue_tpu_torch.kernels.join import join_build_cuda, join_expand_cuda, probe_place
     from fugue_tpu_torch.kernels.reference import (
+        PROBE_MODES,
         gather_rows_reference,
         join_build_reference,
         join_expand_reference,
-        join_probe_reference,
     )
 
+    seen: Set[Tuple[str, str]] = set()
     for n in sizes:
         for label, case in join_side_cases(device, n, SEED + n):
             rows = {k: case[k] for k in ("nrows", "row_valid", "nulls") if k in case}
@@ -3457,13 +3498,9 @@ def join_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
                                     ("unique", True), ("expand", False), ("expand", True)):
                     if (mode == "unique") != slots:
                         continue
-                    pargs = (case["probe"], want, mode)
-                    g = join_probe_cuda(*pargs, outer=outer, **rows)
-                    w = join_probe_reference(*pargs, outer=outer, **rows)
-                    for field in w._fields:
-                        _same(f"join_probe {label} n={n} {mode} outer={outer} {field}",
-                              getattr(g, field), getattr(w, field))
-            not_in_vs_twin(case, rows, f"{label} n={n}")
+                    probe_vs_twin(case["probe"], want, mode, f"{label} n={n} outer={outer}",
+                                  seen, outer=outer, **rows)
+            not_in_vs_twin(case, rows, f"{label} n={n}", seen)
             print(f"join_build/join_probe n={n} {label}: equal (K7 path {paths[0]})")
         torch.cuda.empty_cache()
         for label, case in expand_cases(device, n, SEED + n):
@@ -3496,6 +3533,12 @@ def join_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
         if n >= 1 << 20 and slab_cases < 4:
             raise SystemExit(f"FAIL gather_rows n={n}: {slab_cases} cases took the slab route")
         torch.cuda.empty_cache()
+    ends = {(m, probe_place(m, num)) for m in PROBE_MODES
+            for num in (min(JOIN_SIDE_SEGMENTS), max(JOIN_SIDE_SEGMENTS))}
+    missed = sorted(ends - seen)
+    if missed:
+        raise SystemExit(f"FAIL join_probe: no case read its table at {missed}")
+    print(f"join_probe: every mode at each place of its table ({len(seen)} pairs)")
 
 
 # each join path's launches in one run
@@ -3915,6 +3958,7 @@ def join_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
         time_cuda(lambda: torch.bincount(seg2, minlength=num), 5), source="join.cu"))
 
     pr = join_probe_cuda(seg1, counts, "expand", nrows=p1)
+    path = join_probe_cuda.last_path
     pw = join_probe_reference(seg1, counts, "expand", nrows=p1)
     err = max(float((pr.m - pw.m).abs().max()), float((pr.reps - pw.reps).abs().max()))
     entries.append(_kernel_entry(
@@ -3922,16 +3966,18 @@ def join_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
         launches["join_probe"], err,
         time_cuda(lambda: join_probe_cuda(seg1, counts, "expand", nrows=p1), 20),
         time_cuda(lambda: join_probe_reference(seg1, counts, "expand", nrows=p1), 1, warm=0),
-        p1 * (4 + 4 + 4 + 4), 0,  # seg, the table entry, m, reps
+        p1 * (4 + 4 + 4) + num * 4, 0,  # seg read, m and reps written; the table read once
         time_cuda(lambda: counts.index_select(0, seg1), 5), source="join.cu"))
+    print("join_probe expand: " + json.dumps({"rows": p1, "segments": num, "path": path}))
     slots = join_build_cuda(torch.arange(JOIN3B_GROUPS, dtype=torch.int32, device=device),
                             JOIN3B_GROUPS, nrows=JOIN3B_GROUPS, slots=True)
     facts = torch.randint(0, JOIN3B_GROUPS, (ROWS,), generator=gen, device=device,
                           dtype=torch.int32)
     unique_ms = time_cuda(lambda: join_probe_cuda(facts, slots, "unique", nrows=ROWS), 20)
     print("join_probe unique: " + json.dumps({
-        "rows": ROWS, "ms": unique_ms,
-        "bound_ms": ROWS * (4 + 4 + 4 + 1) / HBM_BYTES_PER_S * 1e3}))
+        "rows": ROWS, "ms": unique_ms, "path": join_probe_cuda.last_path,
+        # seg read, ridx and keep written; 256 slots
+        "bound_ms": (ROWS * (4 + 4 + 1) + JOIN3B_GROUPS * 4) / HBM_BYTES_PER_S * 1e3}))
     del facts
 
     order2 = torch.sort(seg2, stable=True).indices
@@ -6181,6 +6227,8 @@ def window_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]
                                         side_counts=True)
     kw = dict(nrows=pn, stats=stats)
     got = join_probe_cuda(probe, table, "not_in", **kw)
+    print("window timed: " + json.dumps({"name": "join_probe[not_in] place",
+                                          "path": join_probe_cuda.last_path}))
     want = join_probe_reference(probe, table, "not_in", **kw)
     _same("join_probe not_in timed", got.keep, want.keep)
     entries.append(_kernel_entry(
@@ -6229,6 +6277,9 @@ ZIP_KEYS = 2_000_000  # a's keys over [0, ZIP_KEYS), b's over [ZIP_KEYS / 2, 3 Z
 ZIP_CROSS_ROWS = (10_000, 1_000)
 ZIP_SEED = 23
 STREAM_CHUNKS, STREAM_CHUNK_ROWS = 20, 10_000_000
+# warm runs of the 200M-row stream (about 11 s each on an H100's host): two,
+# as the random repartition, to keep the whole script near its time
+STREAM_WARM_RUNS = 2
 STREAM_STORES = 1_000  # store int32 over [0, 1000)
 STREAM_ITEMS = (800, 1_000)  # item int64 over [0, 800), from a quarter of the chunks [0, 1000)
 STREAM_NULLS = 0.02
@@ -6268,7 +6319,8 @@ def comap_cases(device: Any, n: int, seed: int, big_segments: int, full: bool
     one segment, as a co-partitioned frame has them) and a masked one
     (70 % real, random segments); member 1 with no real row; 5 % sentinel
     ids; 1 segment and ``big_segments``. Where not ``full``, 2 and 33
-    members and ``big_segments`` only."""
+    members and ``big_segments`` only. Then K18's tile edges
+    (``comap_tile_cases``)."""
     import torch
 
     from fugue_tpu_torch.kernels.reference import COMAP_HOWS
@@ -6304,12 +6356,86 @@ def comap_cases(device: Any, n: int, seed: int, big_segments: int, full: bool
                     cases.append((f"{members} members {layout} S={g} {how}", dict(
                         seg=s, num_segments=g, offsets=offsets, nrows=nr, how=how,
                         valid=valid)))
+    return cases + comap_tile_cases(device, n, seed)
+
+
+K18_TILE = 256 * 4  # K18's rows a tile (kRowTile in comap.cu)
+
+
+def comap_tile_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
+    """K18's tile edges at ``n`` stacked rows (from ``2 * K18_TILE + 64``):
+    26 members with a boundary at a tile's edge, an empty member, a
+    boundary inside a tile, members of 1 and 7 rows and 20 of 3 rows (a
+    tile over many members); 65 members, the first 40 of 3 rows, one
+    empty (more than the 64 whose layout a block keeps, counted by global
+    atomics; 3 presence words). Each in a prefix layout with ``nrows``
+    shorter than some members' rows, and a masked one; segments of 50
+    adjacent rows, 5 % sentinels; every zip type."""
+    import torch
+
+    from fugue_tpu_torch.kernels.reference import COMAP_HOWS
+
+    if n < 2 * K18_TILE + 64:
+        return []
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    edge = [K18_TILE, 0, K18_TILE // 2 + 3, 1, 7] + [3] * 20
+    tiny = [3] * 40 + [0]
+    layouts = [("tile edges", edge + [n - sum(edge)])]
+    rest = n - sum(tiny)
+    layouts.append(("65 members", tiny + [rest // 24] * 23 + [rest - 23 * (rest // 24)]))
+    cases = []
+    for name, sizes in layouts:
+        members = len(sizes)
+        num = max(n // 50, 1)
+        seg = (torch.arange(n, device=device) // 50).clamp(max=num - 1).to(torch.int32)
+        seg[torch.rand((n,), generator=gen, device=device) < 0.05] = num  # sentinels
+        for layout in ("prefix", "masked"):
+            if layout == "prefix":
+                valid = None
+                nrows = [max(sz - 5 * (m % 3), 0) for m, sz in enumerate(sizes)]
+            else:
+                valid = torch.rand((n,), generator=gen, device=device) < 0.8
+                nrows = list(sizes)
+            offsets, nr = comap_layout(device, sizes, nrows)
+            for how in COMAP_HOWS:
+                s, g = (torch.zeros_like(seg), 1) if how == "cross" else (seg, num)
+                cases.append((f"{name} ({members} members) {layout} S={g} {how}", dict(
+                    seg=s, num_segments=g, offsets=offsets, nrows=nr, how=how, valid=valid)))
     return cases
 
 
-def comap_vs_twin(device: Any, sizes: Tuple[int, ...], big_segments: int = 1 << 24) -> None:
+def comap_top_tile(device: Any, n: int) -> None:
+    """K18 over ``n`` stacked rows (2^31 - 1 on the card, the most it
+    takes, whose top tile ends at 2^31): a cross zip of two members, the
+    second's last 5 rows past its ``nrows``; every row's flag and segment,
+    the counts and the segment checked against what the rule gives."""
+    import torch
+
+    from fugue_tpu_torch.kernels import comap
+
+    first = min(1000, n // 2)
+    dead = min(5, n - first)
+    real = n - dead
+    offsets, nrows = comap_layout(device, [first, n - first], [first, n - first - dead])
+    seg = torch.zeros((n,), dtype=torch.int32, device=device)
+    got = comap.comap_rows_cuda(seg, None, 1, offsets, nrows, "cross")
+    del seg
+    ok = (bool(got.row_alive[:real].all()) and not bool(got.row_alive[real:].any())
+          and bool((got.seg_out[:real] == 0).all()) and bool((got.seg_out[real:] == 1).all())
+          and got.counts.tolist() == [first, n - first - dead] and int(got.alive_count) == 1
+          and bool(got.alive.all()))
+    del got
+    if not ok:
+        raise SystemExit(f"FAIL comap_rows over {n} rows: the top tile's rows are wrong")
+    print(f"comap_rows over {n} rows: every row as the rule gives it")
+
+
+def comap_vs_twin(device: Any, sizes: Tuple[int, ...], big_segments: int = 1 << 24,
+                  top_rows: Optional[int] = None) -> None:
     """K17 and K18 against their twins, exactly, at each size of ``sizes``
-    (all of ``comap_cases`` up to 2^21 rows, its large cases above)."""
+    (all of ``comap_cases`` up to 2^21 rows, its large cases above); then
+    K18 over ``top_rows`` (``comap_top_tile``; 2^31 - 1 on the card, four
+    tiles less one row in a CPU rehearsal)."""
     import torch
 
     from fugue_tpu_torch.kernels import comap
@@ -6337,6 +6463,11 @@ def comap_vs_twin(device: Any, sizes: Tuple[int, ...], big_segments: int = 1 << 
         if device.type == "cuda":
             torch.cuda.synchronize(device)
             torch.cuda.empty_cache()
+    if top_rows is None:
+        top_rows = 2**31 - 1 if device.type == "cuda" else 4 * K18_TILE - 1
+    comap_top_tile(device, top_rows)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     print(f"comap_vs_twin: {checked} cases equal at {sizes} rows")
 
 
@@ -7373,7 +7504,7 @@ def main() -> None:
         st["card"] = card
         print("zip_path: " + json.dumps(st))
     torch.cuda.empty_cache()
-    streamed = stream_path(device, STREAM_CHUNKS, STREAM_CHUNK_ROWS, WARM_RUNS)
+    streamed = stream_path(device, STREAM_CHUNKS, STREAM_CHUNK_ROWS, STREAM_WARM_RUNS)
     streamed["card"] = card
     print("stream_path: " + json.dumps(streamed))
     lap("zip paths, streaming")

@@ -59,10 +59,27 @@
 //          merged with global atomics. A cluster's slab of 2^18 segments
 //          in distributed shared memory, whose atomics cross SMs, took
 //          0.80 ms for this step at 50M rows over 25M segments (PERF.md).
-//   - K8 reads the same per row plus one random 4 B read of the table, and
-//     writes its outputs. One row a thread a step; each thread sums its
-//     rows' total in a register, the block in shared memory, and one
-//     atomic a block adds it to the counter.
+//   - K8 reads the same per row plus one random read of the table, and
+//     writes its outputs. The random reads bound it: at 25M segments K7's
+//     int32 table is 100 MB, twice the L2, and a read a row cost a 32 B
+//     sector of HBM (2.88 ms for 100M probe rows; 4 MB of table in L2 still
+//     0.67 ms for 80M). So the table is narrowed first: a launch reads it
+//     once, coalesced, and writes one bit a segment (count > 0: semi, anti,
+//     NOT IN) or one byte (expand: the count, 255 an escape to the int32
+//     entry); unique mode keeps the int32 slots it returns. The probe then
+//     reads its table from where join.py's probe_place puts it: byte
+//     entries and slots that fit kProbeSharedBytes from a copy in each
+//     block's shared memory; larger byte entries, and bits at every size
+//     (they read faster through L2 and L1 than from a shared copy), from
+//     the narrow copy in device memory under an L2 evict-last policy,
+//     with the streams read and written evict-first; larger slots from
+//     K7's table itself (the wide place). A last launch returns the narrow
+//     copy's lines to the normal eviction priority, so that they do not
+//     outlast the call ahead of the next kernels' data. Each thread takes
+//     groups of 4 consecutive rows (16-byte loads and stores where the
+//     side is aligned, 4 keep flags a store); each thread sums its rows'
+//     total in a register, the block by warp, and one atomic a block adds
+//     it to the counter.
 //   - K9 writes 8 B an output row and reads 16 B a probe row (start, m,
 //     seg), and reads one cstart a probe row and each output's build row
 //     in order, at random places (one run of order a probe row). Each
@@ -87,6 +104,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "launch.cuh"
 #include "slab_partition.cuh"
@@ -473,65 +492,319 @@ __global__ void __launch_bounds__(kImageThreads) join_slab_build(const SlabBuild
   }
 }
 
+// ---- K8 join_probe ------------------------------------------------------------
+
+// Where a probe reads its table (join.py's probe_place): a copy in each
+// block's shared memory (byte entries, slots), the narrow copy in device
+// memory read with an L2 evict-last policy (bits, byte entries), or K7's
+// int32 table itself (slots).
+constexpr int kPlaceShared = 0, kPlaceL2 = 1, kPlaceWide = 2;
+// a block's copy of the table, at most (join.py's PROBE_SHARED_BYTES)
+constexpr int kProbeSharedBytes = 200 * 1024;
+constexpr int kProbeThreads = 1024;
+constexpr int kProbeGroups = 4;  // groups of 4 consecutive rows a thread a step
+constexpr long long kProbeWarpRows = 32LL * kProbeGroups * 4;
+constexpr long long kProbeTile = (long long)kProbeThreads * kProbeGroups * 4;
+constexpr int kNarrowThreads = 256;
+constexpr unsigned kEscape = 255;  // a byte entry: the count is 255 or more, read the int32
+
 struct ProbeParams {
   Side side;
-  const int* table;  // int32 [num]: K7's counts, or its slots (unique)
+  const int* table;     // int32 [num]: K7's counts, or its slots (unique)
+  const void* narrow;   // bits (semi, anti, not_in: uint32 [ceil(num / 32)], bit s of word
+                        // s / 32 set where the count is above 0) or bytes (expand: uint8
+                        // [num], min(count, 255)); null in unique mode
+  long long narrow_bytes;  // its bytes, rounded up to 128 (the lines the last launch releases)
+  long long narrow_words;  // 4-byte words a block copies to shared memory (shared place)
   const int* stats;  // int32 [2]: K7's side counts of the build side (not_in)
   int mode;
   int outer;
-  uint8_t* keep;     // bool [n]: semi, anti, unique
+  bool vec;          // seg 16-byte aligned, row_valid and nulls 4-byte aligned
+  uint8_t* keep;     // bool [n]: semi, anti, unique, not_in
   int* ridx;         // int32 [n]: unique
   int* m;            // int32 [n]: expand
   int* reps;         // int32 [n]: expand
-  int* count;        // int32 0-d, zeroed by the caller: semi, anti, unique
+  int* count;        // int32 0-d, zeroed by the caller: every mode but expand
   unsigned long long* total;  // int64 0-d, zeroed by the caller: expand
 };
 
-__global__ void __launch_bounds__(kThreads) join_probe(const ProbeParams p) {
-  __shared__ long long part[kThreads];
-  long long acc = 0;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x; r < p.side.n;
-       r += stride) {
-    int s;
-    const bool real = side_row(p.side, r, &s);
-    const int entry = s >= 0 ? __ldg(p.table + s) : (p.mode == kUnique ? -1 : 0);
-    if (p.mode == kExpand) {
-      const int reps = real ? (p.outer && entry < 1 ? 1 : entry) : 0;
-      p.m[r] = entry;
-      p.reps[r] = reps;
-      acc += reps;
-      continue;
-    }
-    bool keep;
-    if (p.mode == kUnique) {
-      p.ridx[r] = entry;
-      keep = p.outer ? real : entry >= 0;
-    } else if (p.mode == kNotIn) {
-      // an empty build side keeps every row; a null on it keeps none
-      const bool null = p.side.nulls != nullptr && __ldg(p.side.nulls + r) != 0;
-      const bool empty2 = __ldg(p.stats) == 0, any_null2 = __ldg(p.stats + 1) > 0;
-      keep = real && (empty2 || (!null && !any_null2 && entry <= 0));
-    } else {
-      const bool hit = entry > 0;
-      keep = p.mode == kSemi ? hit : real && !hit;
-    }
-    p.keep[r] = keep;
-    acc += keep;
+// The narrowing launch: each warp reads 32 consecutive entries of K7's
+// table, coalesced, and writes their bits as one word.
+__global__ void __launch_bounds__(kNarrowThreads) join_probe_narrow_bits(const ProbeParams p) {
+  const int lane = threadIdx.x & 31;
+  const long long words = ((long long)p.side.num + 31) / 32;
+  const long long warps = (long long)gridDim.x * (kNarrowThreads / 32);
+  unsigned* bits = static_cast<unsigned*>(const_cast<void*>(p.narrow));
+  // w is the warp's own: every lane takes the same steps
+  for (long long w = ((long long)blockIdx.x * kNarrowThreads + threadIdx.x) >> 5; w < words;
+       w += warps) {
+    const long long i = w * 32 + lane;
+    const bool hit = i < p.side.num && __ldcs(p.table + i) > 0;
+    const unsigned word = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) bits[w] = word;
   }
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+}
+
+// The narrowing launch of expand mode: each thread reads 4 consecutive
+// entries (one 16-byte load where aligned) and writes their bytes.
+__global__ void __launch_bounds__(kNarrowThreads) join_probe_narrow_bytes(const ProbeParams p) {
+  uint8_t* bytes = static_cast<uint8_t*>(const_cast<void*>(p.narrow));
+  const long long num = p.side.num;
+  const bool aligned = reinterpret_cast<uintptr_t>(p.table) % 16 == 0;
+  auto narrow = [](int c) { return (unsigned)(c < (int)kEscape ? (c < 0 ? 0 : c) : kEscape); };
+  for (long long q = (long long)blockIdx.x * kNarrowThreads + threadIdx.x; q * 4 < num;
+       q += (long long)gridDim.x * kNarrowThreads) {
+    const long long i = q * 4;
+    if (aligned && i + 4 <= num) {
+      const int4 v = __ldcs(reinterpret_cast<const int4*>(p.table + i));
+      reinterpret_cast<unsigned*>(bytes)[q] =
+          narrow(v.x) | narrow(v.y) << 8 | narrow(v.z) << 16 | narrow(v.w) << 24;
+    } else {
+      for (long long k = i; k < num && k < i + 4; ++k)
+        bytes[k] = (uint8_t)narrow(__ldcs(p.table + k));
+    }
+  }
+}
+
+// An L2 evict-last policy for the narrow table's reads: the streams read
+// and written beside them are evict-first (__ldcs, __stcs), so the table
+// stays in L2 while they pass through.
+__device__ __forceinline__ unsigned long long evict_last_policy() {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ unsigned load_last_u32(const unsigned* at, unsigned long long policy) {
+  unsigned v;
+  asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;" : "=r"(v) : "l"(at), "l"(policy));
+  return v;
+}
+
+__device__ __forceinline__ unsigned load_last_u8(const uint8_t* at, unsigned long long policy) {
+  unsigned short v;
+  asm("ld.global.nc.L2::cache_hint.u8 %0, [%1], %2;" : "=h"(v) : "l"(at), "l"(policy));
+  return v;
+}
+
+// The last launch of the L2 place: each thread returns one 128-byte line
+// of the narrow table to the normal eviction priority.
+__global__ void __launch_bounds__(kNarrowThreads) join_probe_release(const ProbeParams p) {
+  const char* lines = static_cast<const char*>(p.narrow);
+  const long long step = (long long)gridDim.x * kNarrowThreads;
+  for (long long i = (long long)blockIdx.x * kNarrowThreads + threadIdx.x; i * 128 < p.narrow_bytes;
+       i += step)
+    asm volatile("applypriority.global.L2::evict_normal [%0], 128;" ::"l"(lines + i * 128)
+                 : "memory");
+}
+
+// Segment s's entry (s in [0, num)): hit 0/1 (semi, anti, not_in), the
+// count (expand) or the slot (unique), from where Place keeps it: slots in
+// shared memory or K7's table, byte entries in shared memory or the narrow
+// copy, bits in the narrow copy.
+template <int Mode, int Place>
+__device__ __forceinline__ int probe_entry(const ProbeParams& p, const void* sh, int s,
+                                           unsigned long long policy) {
+  if (Mode == kUnique)
+    return Place == kPlaceShared ? static_cast<const int*>(sh)[s] : __ldg(p.table + s);
+  if (Mode == kExpand) {
+    const unsigned b = Place == kPlaceShared
+                           ? static_cast<const uint8_t*>(sh)[s]
+                           : load_last_u8(static_cast<const uint8_t*>(p.narrow) + s, policy);
+    return b == kEscape ? __ldg(p.table + s) : (int)b;
+  }
+  const unsigned word = load_last_u32(static_cast<const unsigned*>(p.narrow) + (s >> 5), policy);
+  return (int)((word >> (s & 31)) & 1u);
+}
+
+// A group of 4 consecutive rows from `base`: each row's segment where it
+// is matchable (-1 else), whether it is real and whether its key is null.
+__device__ __forceinline__ void probe_group(const ProbeParams& p, long long base, int s[4],
+                                            unsigned* real, unsigned* null) {
+  const Side& d = p.side;
+  *real = *null = 0;
+  if (p.vec && base + 4 <= d.n) {
+    const int4 v = __ldcs(reinterpret_cast<const int4*>(d.seg + base));
+    s[0] = v.x, s[1] = v.y, s[2] = v.z, s[3] = v.w;
+    const unsigned rv =
+        d.nrows >= 0 ? 0u : __ldcs(reinterpret_cast<const unsigned*>(d.row_valid + base));
+    const unsigned nl =
+        d.nulls == nullptr ? 0u : __ldcs(reinterpret_cast<const unsigned*>(d.nulls + base));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool re = d.nrows >= 0 ? base + k < d.nrows : ((rv >> (8 * k)) & 0xffu) != 0u;
+      const bool nk = ((nl >> (8 * k)) & 0xffu) != 0u;
+      *real |= (unsigned)re << k;
+      *null |= (unsigned)nk << k;
+      if (!re || nk || (unsigned)s[k] >= (unsigned)d.num) s[k] = -1;
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long r = base + k;
+    s[k] = -1;
+    if (r >= d.n) continue;
+    const int v = __ldcs(d.seg + r);
+    const bool re = d.nrows >= 0 ? r < d.nrows : __ldcs(d.row_valid + r) != 0;
+    const bool nk = d.nulls != nullptr && __ldcs(d.nulls + r) != 0;
+    *real |= (unsigned)re << k;
+    *null |= (unsigned)nk << k;
+    if (re && !nk && (unsigned)v < (unsigned)d.num) s[k] = v;
+  }
+}
+
+// K8: each thread takes kProbeGroups groups of 4 consecutive rows a step
+// (a warp's groups side by side, so each load and store of the warp is one
+// coalesced run), loads all their streams, then reads all their entries,
+// then writes by mode: 4 keep flags in one 4-byte store, m, reps and ridx
+// in 16-byte stores. The block's total is one atomic.
+template <int Mode, int Place>
+__global__ void __launch_bounds__(kProbeThreads, 1) join_probe(const ProbeParams p) {
+  extern __shared__ uint4 probe_table[];
+  __shared__ long long warp_total[kProbeThreads / 32];
+  const void* sh = probe_table;
+  if (Place == kPlaceShared) {
+    // the block's copy of the narrow table (the slots themselves in unique mode)
+    const unsigned* src = Mode == kUnique ? reinterpret_cast<const unsigned*>(p.table)
+                                          : static_cast<const unsigned*>(p.narrow);
+    unsigned* dst = reinterpret_cast<unsigned*>(probe_table);
+    const long long vecs = reinterpret_cast<uintptr_t>(src) % 16 == 0 ? p.narrow_words / 4 : 0;
+    for (long long i = threadIdx.x; i < vecs; i += kProbeThreads)
+      probe_table[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+    for (long long i = vecs * 4 + threadIdx.x; i < p.narrow_words; i += kProbeThreads)
+      dst[i] = __ldg(src + i);
     __syncthreads();
   }
-  if (threadIdx.x == 0 && part[0] != 0) {
-    if (p.mode == kExpand) {
-      atomicAdd(p.total, (unsigned long long)part[0]);
-    } else {
-      atomicAdd(p.count, (int)part[0]);
+  const unsigned long long policy = Place == kPlaceL2 ? evict_last_policy() : 0ull;
+  const bool empty2 = Mode == kNotIn && __ldg(p.stats) == 0;
+  const bool any_null2 = Mode == kNotIn && __ldg(p.stats + 1) > 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long acc = 0;
+  for (long long t0 = (long long)blockIdx.x * kProbeTile; t0 < p.side.n;
+       t0 += (long long)gridDim.x * kProbeTile) {
+    const long long w0 = t0 + warp * kProbeWarpRows + lane * 4;
+    int s[kProbeGroups][4];
+    unsigned real[kProbeGroups], null[kProbeGroups];
+#pragma unroll
+    for (int g = 0; g < kProbeGroups; ++g) probe_group(p, w0 + g * 128, s[g], &real[g], &null[g]);
+    int e[kProbeGroups][4];
+#pragma unroll
+    for (int g = 0; g < kProbeGroups; ++g)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        e[g][k] = s[g][k] >= 0 ? probe_entry<Mode, Place>(p, sh, s[g][k], policy)
+                               : (Mode == kUnique ? -1 : 0);
+#pragma unroll
+    for (int g = 0; g < kProbeGroups; ++g) {
+      const long long base = w0 + g * 128;
+      if (base >= p.side.n) break;
+      const bool full = base + 4 <= p.side.n;
+      if (Mode == kExpand) {
+        int reps[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool re = (real[g] >> k) & 1u;
+          reps[k] = re ? (p.outer && e[g][k] < 1 ? 1 : e[g][k]) : 0;
+          acc += reps[k];
+        }
+        if (full) {
+          __stcs(reinterpret_cast<int4*>(p.m + base),
+                 make_int4(e[g][0], e[g][1], e[g][2], e[g][3]));
+          __stcs(reinterpret_cast<int4*>(p.reps + base),
+                 make_int4(reps[0], reps[1], reps[2], reps[3]));
+        } else {
+          for (int k = 0; k < 4 && base + k < p.side.n; ++k) {
+            p.m[base + k] = e[g][k];
+            p.reps[base + k] = reps[k];
+          }
+        }
+        continue;
+      }
+      unsigned flags = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool re = (real[g] >> k) & 1u;
+        bool keep;
+        if (Mode == kUnique) {
+          keep = p.outer ? re : e[g][k] >= 0;
+        } else if (Mode == kNotIn) {
+          // an empty build side keeps every row; a null on it keeps none
+          const bool nk = (null[g] >> k) & 1u;
+          keep = re && (empty2 || (!nk && !any_null2 && e[g][k] == 0));
+        } else if (Mode == kSemi) {
+          keep = e[g][k] != 0;
+        } else {
+          keep = re && e[g][k] == 0;
+        }
+        flags |= (unsigned)keep << (8 * k);
+        acc += keep;
+      }
+      if (full) {
+        __stcs(reinterpret_cast<unsigned*>(p.keep + base), flags);
+        if (Mode == kUnique)
+          __stcs(reinterpret_cast<int4*>(p.ridx + base),
+                 make_int4(e[g][0], e[g][1], e[g][2], e[g][3]));
+      } else {
+        for (int k = 0; k < 4 && base + k < p.side.n; ++k) {
+          p.keep[base + k] = (uint8_t)((flags >> (8 * k)) & 1u);
+          if (Mode == kUnique) p.ridx[base + k] = e[g][k];
+        }
+      }
     }
   }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, d);
+  if (lane == 0) warp_total[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long sum = 0;
+    for (int w = 0; w < kProbeThreads / 32; ++w) sum += warp_total[w];
+    if (sum != 0) {
+      if (Mode == kExpand) {
+        atomicAdd(p.total, (unsigned long long)sum);
+      } else {
+        atomicAdd(p.count, (int)sum);
+      }
+    }
+  }
+}
+
+using ProbeKernel = void (*)(ProbeParams);
+
+// The probe of a mode at a place, or null where join.py's probe_place never
+// puts that mode's table.
+ProbeKernel probe_kernel(int mode, int place) {
+  const bool shared = place == kPlaceShared;
+  switch (mode) {
+    case kSemi: return place == kPlaceL2 ? join_probe<kSemi, kPlaceL2> : nullptr;
+    case kAnti: return place == kPlaceL2 ? join_probe<kAnti, kPlaceL2> : nullptr;
+    case kNotIn: return place == kPlaceL2 ? join_probe<kNotIn, kPlaceL2> : nullptr;
+    case kExpand:
+      return shared ? join_probe<kExpand, kPlaceShared>
+             : place == kPlaceL2 ? join_probe<kExpand, kPlaceL2> : nullptr;
+    case kUnique:
+      return shared ? join_probe<kUnique, kPlaceShared>
+             : place == kPlaceWide ? join_probe<kUnique, kPlaceWide> : nullptr;
+    default: return nullptr;
+  }
+}
+
+// Lets the shared place's probes take kProbeSharedBytes of dynamic shared
+// memory, once a device (bit d of `allowed`: device d).
+cudaError_t allow_shared_table(int device) {
+  static std::atomic<unsigned long long> allowed{0};
+  const unsigned long long bit = 1ull << (device & 63);
+  if (allowed.load() & bit) return cudaSuccess;
+  const ProbeKernel shared[] = {join_probe<kExpand, kPlaceShared>,
+                                join_probe<kUnique, kPlaceShared>};
+  for (ProbeKernel k : shared) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kProbeSharedBytes);
+    if (e != cudaSuccess) return e;
+  }
+  allowed.fetch_or(bit);
+  return cudaSuccess;
 }
 
 struct ExpandParams {
@@ -830,28 +1103,42 @@ extern "C" int fugue_join_build_slab(long long n, long long nrows, const void* r
 
 // K8. The side as for K7; table int32 [num]; stats K7's int32 [2] side
 // counts (not_in), or null; mode 0 semi, 1 anti, 2 unique, 3 expand, 4
-// not_in; the outputs the mode writes (see ProbeParams), the counter
-// zeroed by the caller. Returns a cudaError_t; *launched is 1
-// where the kernel was launched.
+// not_in; place 0 shared, 1 L2, 2 wide (join.py's probe_place: semi, anti
+// and not_in take L2, expand shared or L2, unique shared or wide; the
+// shared place's table at most kProbeSharedBytes); narrow the narrow
+// table's scratch (bits or bytes, 128-byte aligned: join.py's
+// probe_table_bytes rounded up to 128), null in unique mode; the outputs
+// the mode writes (see ProbeParams), the counter zeroed by the caller.
+// Returns a cudaError_t; *launched is 1 where the kernels were launched
+// (the narrowing launch outside unique mode, the probe, and the release
+// of the L2 place).
 extern "C" int fugue_join_probe(long long n, long long nrows, const void* row_valid,
                                 const void* nulls, const void* seg, int num, const void* table,
-                                const void* stats, int mode, int outer, void* keep, void* ridx,
-                                void* m,
-                                void* reps, void* count, void* total, int device,
-                                void* stream, int* launched) {
+                                const void* stats, int mode, int outer, int place, void* narrow,
+                                void* keep, void* ridx, void* m, void* reps, void* count,
+                                void* total, int device, void* stream, int* launched) {
   *launched = 0;
-  if (num < 1 || mode < kSemi || mode > kNotIn || (nrows < 0 && row_valid == nullptr) ||
+  const ProbeKernel kernel = probe_kernel(mode, place);
+  if (num < 1 || kernel == nullptr || (nrows < 0 && row_valid == nullptr) ||
       (mode == kNotIn && stats == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((mode == kExpand && (m == nullptr || reps == nullptr || total == nullptr)) ||
       (mode != kExpand && (keep == nullptr || count == nullptr)) ||
       (mode == kUnique && ridx == nullptr))
     return (int)cudaErrorInvalidValue;
+  const bool narrowed = mode != kUnique;
+  if (narrowed && (narrow == nullptr || reinterpret_cast<uintptr_t>(narrow) % 128 != 0))
+    return (int)cudaErrorInvalidValue;
+  const bool bits = narrowed && mode != kExpand;
+  const long long entries = mode == kUnique ? 4LL * num : bits ? (num + 31LL) / 32 * 4 : num;
+  if (place == kPlaceShared && entries > kProbeSharedBytes) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   ProbeParams p = {};
   p.side = {n, nrows, static_cast<const uint8_t*>(row_valid),
             static_cast<const uint8_t*>(nulls), static_cast<const int*>(seg), num};
   p.table = static_cast<const int*>(table);
+  p.narrow = narrowed ? narrow : nullptr;
+  p.narrow_bytes = narrowed ? (entries + 127) / 128 * 128 : 0;
   p.stats = static_cast<const int*>(stats);
   p.mode = mode;
   p.outer = outer;
@@ -861,8 +1148,34 @@ extern "C" int fugue_join_probe(long long n, long long nrows, const void* row_va
   p.reps = static_cast<int*>(reps);
   p.count = static_cast<int*>(count);
   p.total = static_cast<unsigned long long*>(total);
-  const cudaError_t err = on_device(device, [&] {
-    return launch_wave(join_probe, n, kThreads, device, static_cast<cudaStream_t>(stream), p);
+  auto at = [](const void* q, unsigned a) { return reinterpret_cast<uintptr_t>(q) % a == 0; };
+  p.vec = at(seg, 16) && at(row_valid, 4) && at(nulls, 4) && at(keep, 4) && at(ridx, 16) &&
+          at(m, 16) && at(reps, 16);
+  int smem = 0;
+  if (place == kPlaceShared) {
+    p.narrow_words = (entries + 3) / 4;
+    smem = (int)((p.narrow_words * 4 + 15) / 16 * 16);
+  }
+  const cudaError_t err = on_device(device, [&]() -> cudaError_t {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t e = cudaSuccess;
+    if (narrowed) {
+      // a warp a word of bits, a thread 4 byte entries
+      const long long threads = bits ? (num + 31LL) / 32 * 32 : (num + 3LL) / 4;
+      e = launch_wave(bits ? join_probe_narrow_bits : join_probe_narrow_bytes, threads,
+                      kNarrowThreads, device, st, p);
+      if (e != cudaSuccess) return e;
+    }
+    if (place == kPlaceShared) {
+      e = allow_shared_table(device);
+      if (e != cudaSuccess) return e;
+    }
+    int grid = 0;
+    e = wave_blocks(kernel, kProbeThreads, smem, (n + kProbeTile - 1) / kProbeTile, device, &grid);
+    if (e != cudaSuccess) return e;
+    e = launch_cluster(kernel, grid, kProbeThreads, 1, smem, st, p);
+    if (e != cudaSuccess || place != kPlaceL2) return e;
+    return launch_wave(join_probe_release, p.narrow_bytes / 128, kNarrowThreads, device, st, p);
   });
   if (err == cudaSuccess) *launched = 1;
   return (int)err;

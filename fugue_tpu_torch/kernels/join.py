@@ -6,21 +6,26 @@ the outputs and launch the join kernels on PyTorch's current stream.
   real rows and real rows with a null key in two device ints;
 - ``join_probe_cuda`` (K8): per probe row its segment's entry, written
   by mode (semi/anti/NOT IN keep flags, the unique route's build row, the
-  expansion's matches and output rows) with a device total;
+  expansion's matches and output rows) with a device total, from a narrow
+  copy of K7's table (``probe_place``);
 - ``join_expand_cuda`` (K9, two launches: the probe row of each tile's
   first output, then the tiles): each output row's probe row and build
   row.
 
 Each has the contract of its twin in ``reference.py``. Each wrapper's
 ``launches`` grows by one where it launches its kernel and nowhere else
-(K7's slab route: one a call, for its four launches);
+(K7's slab route: one a call, for its four launches; K8: one a call,
+for its narrowing launch, its probe and, at the L2 place, the launch that
+releases its table's lines);
 ``join_build_cuda.last_path`` names where its last launch kept its
 tables: ``"shared"`` (a copy per block, up to ``SHARED_MAX`` segments),
 ``"global"`` (the table itself, while it stays in L2: up to
 ``GLOBAL_MAX`` segments) or ``"slab"`` (the rows partitioned by slab of
 ``2^SEG_SHIFT`` segments, each slab's table built in a block's shared
 memory and written once); after a slab route, ``.last_slabs`` holds its
-buckets (``SlabBuckets``)."""
+buckets (``SlabBuckets``). ``join_probe_cuda.last_path`` names where its
+last launch read its table: ``"shared"``, ``"l2"`` or ``"wide"``
+(``probe_place``)."""
 
 import ctypes
 from typing import Any, NamedTuple, Optional, Tuple
@@ -38,6 +43,18 @@ SHARED_MAX = 12288  # segments of K7's shared route (kSharedMax in join.cu)
 # old_vs_new.py's k7_routes, PERF.md §6)
 GLOBAL_MAX = 1 << 23
 _PATHS = {1: "shared", 2: "global"}
+# K8's places of its table (kPlace* in join.cu): a copy in each block's
+# shared memory, the narrow copy read under an L2 evict-last policy, or
+# K7's int32 table itself
+PROBE_PLACES = ("shared", "l2", "wide")
+# a block's copy of byte entries or int32 slots, at most (kProbeSharedBytes
+# in join.cu): expand over 200,000 segments took 0.464-0.466 ms from it
+# against 0.484-0.486 from L2, unique over 16,384 slots 0.344-0.346 against
+# 0.356; bits are never copied, as they ran faster through L2 and L1 at
+# every size (semi at 100M probe rows over 1024 to 10^6 segments
+# 0.207-0.224 against 0.215-0.33) (NVIDIA H100 80GB HBM3, 700 W;
+# old_vs_new.py, PERF.md §6)
+PROBE_SHARED_BYTES = 200 * 1024
 _FLAGS = (torch.bool, torch.uint8)
 _EXPAND_TILE = 2048  # K9's output rows a block (kTile in join.cu)
 
@@ -56,7 +73,7 @@ def _bind() -> ctypes.CDLL:
                                               ctypes.POINTER(ll)]
         lib.fugue_join_slab_shape.restype = None
         lib.fugue_join_probe.argtypes = side + [
-            p, p, i, i,  # table, stats, mode, outer
+            p, p, i, i, i, p,  # table, stats, mode, outer, place, narrow
             p, p, p, p, p, p,  # keep, ridx, m, reps, count, total
             i, p, ip,  # device, stream, launched
         ]
@@ -167,6 +184,30 @@ join_build_cuda.last_path = None  # type: ignore[attr-defined]
 join_build_cuda.last_slabs = None  # type: ignore[attr-defined]
 
 
+def probe_entry(mode: str) -> str:
+    """The entries of K8's narrow table: a bit a segment (semi, anti,
+    not_in: whether its count is above 0), a byte (expand: the count, 255
+    where it is 255 or more), or K7's int32 slots (unique)."""
+    return {"unique": "int32", "expand": "byte"}.get(mode, "bit")
+
+
+def probe_table_bytes(mode: str, num: int) -> int:
+    """The bytes of K8's narrow table over ``num`` segments."""
+    entry = probe_entry(mode)
+    return 4 * num if entry == "int32" else num if entry == "byte" else 4 * -(-num // 32)
+
+
+def probe_place(mode: str, num: int) -> str:
+    """Where K8 reads its table: ``"shared"`` where byte entries or slots
+    fit ``PROBE_SHARED_BYTES``; else bits and byte entries from their
+    narrow copy under L2 evict-last (``"l2"``), slots from K7's table
+    (``"wide"``)."""
+    entry = probe_entry(mode)
+    if entry != "bit" and probe_table_bytes(mode, num) <= PROBE_SHARED_BYTES:
+        return "shared"
+    return "wide" if entry == "int32" else "l2"
+
+
 def join_probe_cuda(
     seg: torch.Tensor,
     table: torch.Tensor,
@@ -180,7 +221,8 @@ def join_probe_cuda(
 ) -> Probe:
     """K8, with the contract of ``reference.join_probe_reference``.
     ``table`` is K7's int32 [num] output on ``seg``'s device, ``stats``
-    its int32 [2] side counts (``"not_in"`` mode)."""
+    its int32 [2] side counts (``"not_in"`` mode). The narrow table is
+    scratch of this call."""
     if mode not in PROBE_MODES:
         raise ValueError(f"probe mode {mode!r}: one of {PROBE_MODES}")
     num = int(table.shape[0])
@@ -199,6 +241,11 @@ def join_probe_cuda(
     keep, ridx = out(torch.bool, not expand), out(torch.int32, mode == "unique")
     m, reps = out(torch.int32, expand), out(torch.int32, expand)
     total = torch.zeros((), dtype=torch.int64 if expand else torch.int32, device=device)
+    place = probe_place(mode, num)
+    narrow = None
+    if mode != "unique":
+        narrow = torch.empty((-(-probe_table_bytes(mode, num) // 128) * 128,),
+                             dtype=torch.uint8, device=device)
     lib = _bind()
     index, stream = _device_and_stream(device)
     launched = ctypes.c_int(0)
@@ -208,18 +255,20 @@ def join_probe_cuda(
 
     err = lib.fugue_join_probe(
         n, nrows_arg, rv, nl, seg.data_ptr(), num, table.data_ptr(),
-        ptr(stats), PROBE_MODES.index(mode), int(outer), ptr(keep), ptr(ridx), ptr(m),
-        ptr(reps),
+        ptr(stats), PROBE_MODES.index(mode), int(outer), PROBE_PLACES.index(place), ptr(narrow),
+        ptr(keep), ptr(ridx), ptr(m), ptr(reps),
         None if expand else total.data_ptr(), total.data_ptr() if expand else None,
         index, stream, ctypes.byref(launched),
     )
     _raise_on(lib, err, "join_probe")
     if launched.value:
         join_probe_cuda.launches += 1
+        join_probe_cuda.last_path = place
     return Probe(keep, ridx, m, reps, total)
 
 
 join_probe_cuda.launches = 0  # type: ignore[attr-defined]
+join_probe_cuda.last_path = None  # type: ignore[attr-defined]
 
 
 def join_expand_cuda(

@@ -2,12 +2,13 @@
 """Time another tree's kernels and host work beside this tree's, on one
 card.
 
-    python3 old_vs_new.py DIR [--old-only]
+    python3 old_vs_new.py DIR [--old-only] [--no-check] [--only NAME,...]
 
 DIR holds files of the other tree (as a rule the parent commit's), for
 example unpacked with ``git archive`` into a git-ignored directory: any of
 ``factorize.cu``, ``factorize.py``, ``join.cu``, ``join.py``,
-``segment_reduce.cu``, ``segment_reduce.py``, ``gather.cu``, ``gather.py``
+``segment_reduce.cu``, ``segment_reduce.py``, ``gather.cu``, ``gather.py``,
+``comap.cu``, ``comap.py``
 (from ``fugue_tpu_torch/kernels/``), ``groupby.py`` and ``streaming.py``
 (from ``fugue_tpu_torch/torch_backend/``). Its sources are built here with this
 tree's headers and flags, and each wrapper module is bound to its own
@@ -62,9 +63,30 @@ the two versions' outputs are checked equal:
   found allocated; and this tree's K7 on its global and slab routes at 2^22
   to 2^24 segments (``k7_routes``).
 
-With ``--old-only``, the ``segment_reduce``, ``gather`` and ``join``
-comparisons time DIR's version alone (beside the library calls): a
-reading taken before this tree's kernels are timed. With
+- with ``join``: K8 in every mode (``k8``): expand, semi and anti at
+  ``chip_smoke.join_timing``'s shape (100M probe rows over 25M segments),
+  semi and anti also at 1024 and 2^18 + 1 segments, NOT IN at TPC-H
+  Q16's shape (80M probe rows against 1M segments) and unique at config
+  3b's (100M facts over 256 slots); expand over 200,000 and 250,000
+  segments and unique over 50,000 and 60,000 slots (each side of the
+  shared copy's limit), expand over 48M and 100M segments (byte tables
+  past L2), expand with three quarters of its rows escaping to the int32
+  count, and semi with 1M probe rows over 25M segments (a small probe
+  side against a large table); each beside ``index_select`` of the
+  table and its bound (each input read and each output written once),
+  with this tree's place of the table (``join_probe_cuda.last_path``);
+  and config 10's expansion join (``chip_smoke.build_join_expand``) and
+  Q16's NOT IN statement with each tree's K8 swapped in
+  (``probe_paths``): the results alike, best warm, device time of one run;
+- with ``comap``: K18 at ``chip_smoke.comap_timing``'s config 4 shape and
+  at 2^24 segments with 33 members (two presence words) (``k18``).
+
+``--only k8,k18,probe_paths`` (any of ``reduce``, ``full_groupby``,
+``k10``, ``k7``, ``k7_routes``, ``paths``, ``k2``, ``wide_route``,
+``k9``, ``stream_host``, ``k8``, ``k18``, ``probe_paths``) runs only
+those comparisons. With ``--old-only``, the ``segment_reduce``, ``gather``, ``join`` and ``comap``
+comparisons time DIR's version alone (beside the library calls): a reading
+taken before this tree's kernels are timed. With
 ``--no-check``, K10 and K7 are timed without holding the two versions'
 outputs alike: for a DIR that holds a copy of this tree's ``gather.cu``
 and ``gather.py`` with a step cut out (its outputs wrong), to see what the
@@ -100,13 +122,14 @@ def load_old(root: Path) -> Dict[str, Any]:
     from fugue_tpu_torch.kernels import build
 
     out = root / "_build"
-    sources = [stem for stem in ("factorize", "join", "segment_reduce", "gather")
+    sources = [stem for stem in ("factorize", "join", "segment_reduce", "gather", "comap")
                if (root / f"{stem}.cu").exists()]
     build.compile_jobs([(stem, [*build.NVCC_FLAGS, f"-I{build.KERNEL_DIR}",
                                 str(root / f"{stem}.cu")], out / f"{stem}.so")
                         for stem in sources])
     mods = {}
-    for stem in ("factorize", "join", "segment_reduce", "gather", "groupby", "streaming"):
+    for stem in ("factorize", "join", "segment_reduce", "gather", "comap", "groupby",
+                 "streaming"):
         if not (root / f"{stem}.py").exists():
             continue
         spec = importlib.util.spec_from_file_location(f"old_{stem}", root / f"{stem}.py")
@@ -674,10 +697,226 @@ def paths(device: Any, old: Dict[str, Any], old_only: bool) -> None:
         use("new")
 
 
+def probe_values(probe: Any) -> List[Any]:
+    """A K8 result's outputs, the fields its mode leaves None dropped."""
+    return [t for t in probe if t is not None]
+
+
+def k8(device: Any, old: Dict[str, Any], old_only: bool) -> None:
+    """K8 of each tree in every mode at the shapes of ``join_timing``
+    (expand, semi, anti), 1024 and 2^18 + 1 segments (semi, anti), Q16's
+    NOT IN and config 3b's unique lookup."""
+    import torch
+
+    from fugue_tpu_torch.kernels import join
+    from fugue_tpu_torch.kernels.reference import join_build_reference
+
+    op = old["join"].join_probe_cuda
+    gen = torch.Generator(device=device).manual_seed(cs.SEED)
+    p1, p2 = cs.JOIN_EXPAND_ROWS, cs.JOIN_EXPAND_ROWS // 2
+
+    def sides(num: int, build_rows: int, cover: int, probe_rows: int = p1) -> Any:
+        probe = (torch.randperm(probe_rows, generator=gen, device=device) % num).to(torch.int32)
+        build = (torch.randperm(build_rows, generator=gen, device=device) % cover)
+        counts = join_build_reference(build.to(torch.int32), num, nrows=build_rows)
+        return probe, counts
+
+    big = cs.JOIN_EXPAND_ROWS // 4
+    shapes: List[Any] = []
+    probe, counts = sides(big, p2, big)  # join_timing's: 2 build rows a segment
+    for mode in ("expand", "semi", "anti"):
+        shapes.append((f"{mode}, 100M probe rows over 25M segments", mode, probe, counts, {}))
+    for num in (1024, (1 << 18) + 1):
+        pr, ct = sides(num, p2, num * 3 // 4)  # a quarter of the segments unmatched
+        for mode in ("semi", "anti"):
+            shapes.append((f"{mode}, 100M probe rows over {num} segments", mode, pr, ct, {}))
+    # each side of the shared copy's limit (200 KB of byte entries), and
+    # tables of bytes past L2, whose narrowing reads K7's table whole
+    for num in (200_000, 250_000, 48_000_000, 100_000_000):
+        pr, ct = sides(num, min(2 * num, p2), num * 3 // 4)
+        shapes.append((f"expand, 100M probe rows over {num} segments", "expand", pr, ct, {}))
+    # 266 or 267 build rows in each of three quarters of the segments: those
+    # rows read the byte and, through its escape, the int32 count
+    pr, ct = sides(250_000, p2, 187_500)
+    shapes.append(("expand, 100M probe rows over 250000 segments, three quarters escaping",
+                   "expand", pr, ct, {}))
+    # a small probe side against a large table: the narrowing launch reads
+    # 25 times the probe's rows
+    pr, ct = sides(big, p2, big, probe_rows=1_000_000)
+    shapes.append(("semi, 1M probe rows over 25M segments", "semi", pr, ct, {}))
+    del pr, ct
+    q16 = torch.randint(0, cs.NOT_IN_SUPPLIERS, (cs.NOT_IN_ROWS,), generator=gen, device=device,
+                        dtype=torch.int32)
+    bad = torch.randperm(cs.NOT_IN_SUPPLIERS, generator=gen, device=device)[:cs.NOT_IN_COMPLAINTS]
+    table, stats = join_build_reference(bad.to(torch.int32), cs.NOT_IN_SUPPLIERS,
+                                        nrows=cs.NOT_IN_COMPLAINTS, side_counts=True)
+    shapes.append(("not_in, Q16's 80M probe rows against 1M segments", "not_in", q16, table,
+                   dict(stats=stats)))
+    slots = join_build_reference(torch.arange(cs.JOIN3B_GROUPS, dtype=torch.int32,
+                                              device=device),
+                                 cs.JOIN3B_GROUPS, nrows=cs.JOIN3B_GROUPS, slots=True)
+    facts = torch.randint(0, cs.JOIN3B_GROUPS, (cs.ROWS,), generator=gen, device=device,
+                          dtype=torch.int32)
+    shapes.append(("unique, config 3b's 100M facts over 256 slots", "unique", facts, slots, {}))
+    # each side of the shared copy's limit (200 KB of slots)
+    for num in (50_000, 60_000):
+        keys = torch.arange(num, dtype=torch.int32, device=device)
+        tab = join_build_reference(keys, num, nrows=num, slots=True)
+        ids = torch.randint(0, num, (cs.ROWS,), generator=gen, device=device, dtype=torch.int32)
+        shapes.append((f"unique, 100M facts over {num} slots", "unique", ids, tab, {}))
+    # bytes of each input read once and each output written once: the
+    # probe ids and the table, and by mode keep (1 B), ridx (4 B), m and
+    # reps (8 B)
+    out_bytes = {"semi": 1, "anti": 1, "not_in": 1, "unique": 5, "expand": 8}
+    for label, mode, seg, tab, kw in shapes:
+        n, num = int(seg.shape[0]), int(tab.shape[0])
+        new_fn = lambda: probe_values(join.join_probe_cuda(  # noqa: E731
+            seg, tab, mode, nrows=n, **kw))  # noqa: B023
+        old_fn = lambda: probe_values(op(seg, tab, mode, nrows=n, **kw))  # noqa: E731,B023
+        seg64 = seg.to(torch.int64)
+        extra: Dict[str, Any] = {
+            "mode": mode, "rows": n, "segments": num,
+            "bound_ms": (n * (4 + out_bytes[mode]) + num * 4) / cs.HBM_BYTES_PER_S * 1e3,
+            "library_ms": cs.time_cuda(lambda: tab.index_select(0, seg64), 5),  # noqa: B023
+            "old_device_ms": kernel_ms(old_fn, "join_probe", device)}
+        del seg64
+        if not old_only:
+            new_fn()
+            extra.update(path=join.join_probe_cuda.last_path,
+                         new_device_ms=kernel_ms(new_fn, "join_probe", device),
+                         new_split=cs.device_split_ms(new_fn, device))
+        timed_once(f"join_probe {label}", new_fn, old_fn, old_only, torch_equal, 20, **extra)
+        torch.cuda.empty_cache()
+
+
+def k18(device: Any, old: Dict[str, Any], old_only: bool) -> None:
+    """K18 of each tree at config 4's shape (``comap_timing``) and at 2^24
+    segments with 33 members, each member's rows in segment order (a
+    co-partitioned frame), inner rule."""
+    import torch
+
+    from fugue_tpu_torch.kernels import comap
+
+    oc = old["comap"]
+    gen = torch.Generator(device=device).manual_seed(cs.SEED)
+    groups = cs.CONFIG4_BIG_GROUPS
+    na, nb = groups * cs.CONFIG4_PER, groups
+    config4 = (torch.cat([torch.arange(na, device=device) // cs.CONFIG4_PER,
+                          torch.arange(nb, device=device)]).to(torch.int32), groups, [na, nb])
+    members, num = 33, 1 << 24
+    per = cs.ROWS // members
+    sizes = [per] * (members - 1) + [cs.ROWS - per * (members - 1)]
+    seg33 = torch.cat([torch.sort(torch.randint(0, num, (s,), generator=gen, device=device,
+                                                dtype=torch.int32)).values for s in sizes])
+    for label, (seg, segs, sz) in (("config 4 (102M rows, 2 members, 2M segments)", config4),
+                                   ("100M rows, 33 members, 2^24 segments", (seg33, num, sizes))):
+        offsets, nrows = cs.comap_layout(device, sz, sz)
+        kw = dict(offsets=offsets, nrows=nrows)
+        presence = oc.comap_presence_cuda(seg, segs, **kw)
+        n = int(seg.shape[0])
+        new_fn = lambda: list(comap.comap_rows_cuda(  # noqa: E731
+            seg, presence, segs, how="inner", **kw))  # noqa: B023
+        old_fn = lambda: list(oc.comap_rows_cuda(  # noqa: E731
+            seg, presence, segs, how="inner", **kw))  # noqa: B023
+        words = int(presence.shape[0]) // segs
+        extra: Dict[str, Any] = {
+            "rows": n, "members": len(sz), "segments": segs,
+            "bound_ms": (n * (4 + 1 + 4) + segs * (4 * words + 1)) / cs.HBM_BYTES_PER_S * 1e3,
+            "old_device_ms": kernel_ms(old_fn, "comap_rows", device)}
+        if not old_only:
+            extra["new_device_ms"] = kernel_ms(new_fn, "comap_rows", device)
+        timed_once(f"comap_rows {label}", new_fn, old_fn, old_only, torch_equal, 20, **extra)
+        del presence
+        torch.cuda.empty_cache()
+    del seg33, config4
+
+
+def frame_arrays(out: Any) -> List[Any]:
+    """A frame's rows on the card: its row count, and each column's values
+    and mask over its real rows."""
+    b = out.blocks
+    keep = None if b.row_valid is None else b.row_valid[:b.padded_nrows]
+    arrays: List[Any] = []
+    for c in b.columns.values():
+        for t in (c.data, c.mask):
+            if t is not None:
+                t = t[:b.padded_nrows]
+                arrays.append(t[keep] if keep is not None else t[:b.nrows])
+    return [b.nrows, *arrays]
+
+
+def probe_paths(device: Any, old: Dict[str, Any], old_only: bool) -> None:
+    """Config 10's expansion join and Q16's NOT IN statement with each
+    tree's K8 in turn: results alike, best warm of 3, device ms of one
+    run."""
+    import torch
+
+    from fugue_tpu_torch.torch_backend import relational
+
+    versions = {"old": old["join"].join_probe_cuda, "new": relational.join_probe_cuda}
+    join_once = cs.build_join_expand(device, cs.JOIN_EXPAND_ROWS)[1]
+
+    def expansion() -> Any:
+        out = join_once()
+        out.count()
+        return out
+
+    not_in_run = cs.build_sql_paths(device, 10_000, cs.NOT_IN_ROWS)[0]["q16_not_in"]
+
+    def not_in() -> Any:
+        return not_in_run()[1]
+
+    order = ("old", "old") if old_only else ("old", "new", "new", "old")
+    try:
+        for label, fn in (("join_expand", expansion), ("q16_not_in", not_in)):
+            got: Dict[str, Any] = {}
+            best: Dict[str, List[float]] = {"old": [], "new": []}
+            busy: Dict[str, List[Optional[float]]] = {"old": [], "new": []}
+            for which in order:
+                relational.join_probe_cuda = versions[which]
+                out = fn()
+                torch.cuda.synchronize(device)
+                if which not in got:
+                    got[which] = frame_arrays(out)
+                del out
+                secs = []
+                for _ in range(3):
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize(device)
+                    secs.append(time.perf_counter() - t)
+                best[which].append(min(secs))
+                busy[which].append(cs.device_busy_ms(fn, device))
+            if not old_only:
+                a, b = got["old"], got["new"]
+                if a[0] != b[0] or any(not torch_equal(x, y) for x, y in zip(a[1:], b[1:])):
+                    raise SystemExit(f"FAIL old_vs_new {label}: the two versions differ")
+            del got
+            print("old_vs_new: " + json.dumps({
+                "case": f"path {label}", "old_best_warm_secs": best["old"],
+                "new_best_warm_secs": best["new"], "old_device_ms": busy["old"],
+                "new_device_ms": busy["new"], "card": cs.card_line()}), flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        relational.join_probe_cuda = versions["new"]
+
+
+COMPARISONS = ("reduce", "full_groupby", "k10", "k7", "k7_routes", "paths", "k2", "wide_route",
+               "k9", "stream_host", "k8", "k18", "probe_paths")
+
+
 def main() -> None:
     import torch
 
-    args = [a for a in sys.argv[1:] if a not in ("--old-only", "--no-check")]
+    argv = sys.argv[1:]
+    only = set(COMPARISONS)
+    if "--only" in argv:
+        at = argv.index("--only")
+        only = set(argv[at + 1].split(","))
+        if not only <= set(COMPARISONS):
+            raise SystemExit(f"--only takes names of {COMPARISONS}")
+        argv = argv[:at] + argv[at + 2:]
+    args = [a for a in argv if a not in ("--old-only", "--no-check")]
     if len(args) != 1:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -685,27 +924,38 @@ def main() -> None:
     print(f"card: {cs.card_line()}", flush=True)
     device = torch.device("cuda", torch.cuda.current_device())
     old = load_old(Path(args[0]).resolve())
-    old_only = "--old-only" in sys.argv[1:]
-    if "segment_reduce" in old:
+    old_only = "--old-only" in argv
+
+    def want(name: str, *stems: str) -> bool:
+        return name in only and all(stem in old for stem in stems)
+
+    if want("reduce", "segment_reduce"):
         reduce(device, old, old_only)
+    if want("full_groupby", "segment_reduce"):
         full_groupby(device, old, old_only)
-    if "gather" in old:
+    if want("k10", "gather"):
         k10(device, old, old_only)
-    if "join" in old:
+    if want("k7", "join"):
         k7(device, old, old_only)
-        if not old_only:
-            k7_routes(device)
-    if "join" in old and "gather" in old and not NO_CHECK:
+    if want("k7_routes", "join") and not old_only:
+        k7_routes(device)
+    if want("k8", "join"):
+        k8(device, old, old_only)
+    if want("probe_paths", "join"):
+        probe_paths(device, old, old_only)
+    if want("k18", "comap"):
+        k18(device, old, old_only)
+    if want("paths", "join", "gather") and not NO_CHECK:
         paths(device, old, old_only)
     if old_only or NO_CHECK:
         return
-    if "factorize" in old:
+    if want("k2", "factorize"):
         k2(device, old)
-        if "groupby" in old:
-            wide_route(device, old)
-    if "join" in old and "gather" not in old:
+    if want("wide_route", "factorize", "groupby"):
+        wide_route(device, old)
+    if want("k9", "join") and "gather" not in old:
         k9(device, old)
-    if "streaming" in old:
+    if want("stream_host", "streaming"):
         stream_host(device, old)
 
 

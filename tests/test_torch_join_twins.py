@@ -1,7 +1,9 @@
 """The twins of the join kernels (``join_build_reference``,
 ``join_probe_reference``, ``join_expand_reference``) against the JAX
 package's own join program (``expand_join``'s count program and the
-expansion of ``relational.py:568-577``) on its segment ids; the ``unique``
+expansion of ``relational.py:568-577``) on its segment ids, also with a
+build key of more than 255 rows and a numpy model of K8 at each place of
+its table (with semi, anti and NOT IN against the JAX engine); the ``unique``
 flag of ``from_arrow`` against the JAX package's; joins on keys where the
 JAX package is wrong (ROADMAP.md queue 3: subnormal float keys merged with
 0.0, nullable int64 keys beyond 2^53 ingested through float64) and a
@@ -79,6 +81,13 @@ def test_twins_match_the_jax_programs_intermediates(how, filtered):
     k2[rng.random(50) < 0.15] = pd.NA
     left = pd.DataFrame({"k": k1, "v": rng.standard_normal(70), "lrow": np.arange(70)})
     right = pd.DataFrame({"k": k2, "w": rng.integers(0, 99, 50), "rrow": np.arange(50)})
+    _check_intermediates(left, right, how, filtered)
+
+
+def _check_intermediates(left: pd.DataFrame, right: pd.DataFrame, how: str,
+                         filtered: bool, probe: Any = join_probe_reference) -> None:
+    """The body of the test above for any frames: ``probe`` is K8's
+    twin, or a model of K8 with its signature."""
     je = _jax_engine()
     seen = _capture_count_program(je)
     jl, jr = _jax_df(je, left), _jax_df(je, right)
@@ -94,8 +103,7 @@ def test_twins_match_the_jax_programs_intermediates(how, filtered):
     match2 = v2 if null2 is None else v2 & ~null2
     order = torch.sort(torch.where(match2, seg2, S), stable=True).indices
     assert torch.equal(order, order2.to(torch.int64))
-    pr = join_probe_reference(seg1, counts2, "expand", nulls=null1,
-                              outer=how != "inner", **rows1)
+    pr = probe(seg1, counts2, "expand", nulls=null1, outer=how != "inner", **rows1)
     assert torch.equal(pr.m, m.to(torch.int32))
     assert int(pr.total) == int(total)
     mine_start = torch.cumsum(pr.reps, 0, dtype=torch.int64) - pr.reps
@@ -108,11 +116,71 @@ def test_twins_match_the_jax_programs_intermediates(how, filtered):
     np.testing.assert_array_equal(ri.numpy(), rrow)
     if how == "full_outer":
         counts1 = join_build_reference(seg1, S, nulls=null1, **rows1)
-        un = join_probe_reference(seg2, counts1, "anti", row_valid=v2, nulls=null2)
+        un = probe(seg2, counts1, "anti", row_valid=v2, nulls=null2)
         assert int(un.total) == int(r_total)
         R = int(r_total)
         assert torch.equal(relational._compact(un.keep, R).to(torch.int64),
                            order_un2[:R].to(torch.int64))
+
+
+def _wide_key_sides() -> Any:
+    """A left side of 90 rows over keys 0-9 with nulls, and a right side
+    whose key 5 holds 300 rows (past the 255 of K8's byte entry), the
+    others a few each, with nulls; row-number columns on both."""
+    rng = np.random.default_rng(31)
+    k1 = pd.array(rng.integers(0, 10, 90), dtype="Int64")
+    k1[rng.random(90) < 0.1] = pd.NA
+    k2 = pd.array(np.concatenate([np.full(300, 5), rng.integers(2, 12, 40)]), dtype="Int64")
+    k2[300:][rng.random(40) < 0.2] = pd.NA
+    n2 = len(k2)
+    left = pd.DataFrame({"k": k1, "v": rng.standard_normal(90), "lrow": np.arange(90)})
+    right = pd.DataFrame({"k": k2, "w": rng.integers(0, 99, n2), "rrow": np.arange(n2)})
+    return left, right
+
+
+@pytest.mark.parametrize("copy", ["copy", "none"])
+@pytest.mark.parametrize("how", ["inner", "left_outer", "full_outer", "semi", "anti",
+                                 "not_in"])
+def test_a_build_key_of_more_than_255_rows_matches_jax(how, copy, monkeypatch):
+    """A build key of 300 rows, which K8's byte entry escapes to its int32
+    count: semi and anti joins and SQL's NOT IN against the JAX engine's
+    (arrow tables row for row), and the expansions' intermediates against
+    its program's (``_check_intermediates``), with ``probe_model`` (a
+    numpy model of K8) as K8, with every table of bytes or slots copied to
+    shared memory and with none."""
+    from fugue_tpu_torch.kernels import join as kjoin
+    from test_torch_join_probe_model import SHARED_LIMITS, place_of, probe_model
+    from test_torch_sql_select import assert_sql_equal, run_both
+
+    monkeypatch.setattr(kjoin, "PROBE_SHARED_BYTES", SHARED_LIMITS[copy])
+    seen = []
+
+    def probe(seg: Any, table: Any, mode: str, **kw: Any) -> Any:
+        rec: Dict[str, Any] = {}
+        out = probe_model(seg, table, mode, record=rec, **kw)
+        assert rec["place"] == place_of(mode, SHARED_LIMITS[copy])
+        seen.append(mode)
+        return out
+
+    left, right = _wide_key_sides()
+    if how in ("inner", "left_outer", "full_outer"):
+        _check_intermediates(left, right, how, False, probe=probe)
+        assert "expand" in seen
+        return
+    # the port's joins with the model as K8 (the CPU's kernel_for picks the twin)
+    monkeypatch.setattr(relational, "join_probe_reference", probe)
+    if how == "not_in":
+        a = left[["k", "lrow"]]
+        got, want, _ = run_both("SELECT k, lrow FROM", a, "WHERE k NOT IN (SELECT k FROM",
+                                right[["k"]].dropna(), ") ORDER BY lrow")
+        assert_sql_equal(got, want)
+        assert got.count() == int((~a["k"].isin(right["k"].dropna()) & a["k"].notna()).sum())
+    else:
+        te, je = ft.make_execution_engine(device="cpu"), _jax_engine()
+        got = te.join(te.to_df(left), te.to_df(right[["k", "w"]]), how=how, on=["k"])
+        want = je.join(_jax_df(je, left), _jax_df(je, right[["k", "w"]]), how=how, on=["k"])
+        assert_tables_equal(got.as_arrow(), want.as_arrow())
+    assert set(seen) == {how}
 
 
 @pytest.mark.parametrize("name,values,nullable", [
