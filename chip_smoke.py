@@ -88,9 +88,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    one segment, none, rows in order), K13 ``first_row_mask`` (every,
    occupied, hit and miss segments, first rows beyond the mask, adjacent
    first rows, no segment) and K14
-   ``null_count_keep`` (0, 1, 4 and 70 masks; any, all, thresh), at 1,
-   2^20 + 37 and 100M rows; and the order of a three-word presort against
-   ``numpy.lexsort`` up to 2^20 + 37 rows. The join check also holds K7's
+   ``null_count_keep`` (0, 1, 4, 70 and 300 masks; any, all, thresh at
+   and beyond each end; ``nrows`` inside a group of 16 rows; masks and
+   ``row_valid`` one byte off, its scalar route; each case's route
+   checked), at 1, 2^14 + 7, 2^20 + 37 and 100M rows; and the order of a
+   three-word presort against ``numpy.lexsort`` up to 2^20 + 37 rows.
+   Then one dropna of 64 masked columns under ``torch.profiler``, which
+   must show K14's launch and no host-to-device copy
+   (``dropna_copies``). The join check also holds K7's
    side counts and K8's NOT IN mode (``not_in_vs_twin``: as built, an
    empty build side, a null on it). Then the window kernels
    (``window_vs_twin``): K15 ``window_rank`` (every ranking function) and
@@ -109,8 +114,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    edges over random permutations, ``sort_finish_slab_cases``). Then K17
    ``comap_presence`` and K18 ``comap_rows`` exactly (``comap_vs_twin``:
    1, 2, 3 and 33 members, every zip type, prefix and masked layouts, a
-   member with no real row, sentinel ids, 1 and 2^24 segments; K18's
-   tile edges: a member boundary at a tile's edge and inside a tile, an
+   member with no real row, sentinel ids, 1 and 2^24 segments; K17 on
+   its vector route and with ``seg`` one element off on its scalar one;
+   the tile edges: a member boundary at a tile's edge and inside a tile, an
    empty member, members of 1 and 3 rows, 65 members; at 1, 2^20 + 37 and
    100M rows; K18 over 2^31 - 1 rows, whose top tile ends at 2^31,
    ``comap_top_tile``) and K19 ``stream_fold``
@@ -230,7 +236,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bound and, where one PyTorch call computes the same function,
    ``index_fill_`` (K12 at ``sample``'s, the top-n take's and EXCEPT ALL's
    shapes, K13; also after the ``zero_()`` the kernel's work includes) or
-   ``torch.all`` (K14); K2 at the set operations' shape
+   ``torch.all`` (K14, also with a ``row_valid``, at one mask and at 70
+   masks with thresh: ``null_count_shapes``); K2 at the set operations' shape
    (``setop_boundaries_timing``: 150M stacked rows, three int32 codes) and
    K2 and K9 with each launch's device time; K3's ``scatter_`` also with
    its ``where``, and
@@ -243,7 +250,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``torch.sort`` and ``gather_indices`` by a permutation (K10's slab
    route, beside its direct route) against ``index_select``; K17
    and K18 at config 4's 100M-row shape (``comap_timing``: K17 beside a
-   ``bincount`` a member) and K19 at a streaming chunk (``stream_timing``:
+   ``bincount`` of its (segment, member) pairs, also at 33 members over
+   2^24 segments and a masked random layout, ``presence_shapes``) and
+   K19 at a streaming chunk (``stream_timing``:
    beside ``index_add_`` of one payload's sum).
 
 Before the last lines it prints K6's builds, their seconds and the cold
@@ -4904,34 +4913,115 @@ def first_row_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str,
     ]
 
 
+NULL_COUNT_EDGE_ROWS = 16 * 1024 + 7  # K14's groups of 16 rows and a tail of 7
+
+
 def null_count_cases(device: Any, n: int, seed: int, many: bool
                      ) -> List[Tuple[str, Dict[str, Any]]]:
-    """K14's cases: no mask, one, four and (``many``) 70 masks, more than a
-    block stages; any, all and thresh; prefix and masked frames."""
+    """K14's cases: no mask, one, four, and (``many``) 70 and 300 masks
+    (past the 64 passed by value, past the 255 a byte lane counts); any,
+    all and thresh, ``thresh`` at and beyond each end of the masks' range
+    (every real row kept without a mask read, or none); prefix frames,
+    ``nrows`` inside a group of 16 rows, masked frames; masks and
+    ``row_valid`` as views one byte off (the scalar route). Each case's
+    expected route is its label's last word."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
     masks = [torch.rand((n,), generator=gen, device=device) > 0.05 * (j + 1)
              for j in range(70 if many else 4)]
     row_valid = torch.rand((n,), generator=gen, device=device) < 0.9
+    off = shifted([(m, None) for m in masks[:4]] + [(row_valid, None)])
     cases = [
-        ("no mask", dict(masks=[], ncols=3, n=n, nrows=n)),
-        ("one mask, all", dict(masks=masks[:1], ncols=2, n=n, nrows=max(n - 1, 0), how="all")),
-        ("four masks, any, masked", dict(masks=masks[:4], ncols=4, n=n, row_valid=row_valid)),
-        ("four masks, thresh 3", dict(masks=masks[:4], ncols=5, n=n, nrows=n, thresh=3)),
+        ("no mask, vector", dict(masks=[], ncols=3, n=n, nrows=n)),
+        ("one mask, all, vector", dict(masks=masks[:1], ncols=2, n=n, nrows=max(n - 1, 0),
+                                       how="all")),
+        ("four masks, any, masked, vector", dict(masks=masks[:4], ncols=4, n=n,
+                                                 row_valid=row_valid)),
+        ("four masks, thresh 3, vector", dict(masks=masks[:4], ncols=5, n=n, nrows=n, thresh=3)),
+        ("four masks, nrows inside a group, vector", dict(masks=masks[:4], ncols=4, n=n,
+                                                          nrows=n // 2 + 5 if n > 10 else n)),
+        ("four masks, all, unaligned views, scalar", dict(
+            masks=[m for m, _ in off[:4]], ncols=4, n=n, row_valid=off[4][0], how="all")),
+        ("four masks, thresh 3, one view unaligned, scalar", dict(
+            masks=masks[:3] + [off[3][0]], ncols=5, n=n, nrows=n, thresh=3)),
     ]
+    # thresh over six columns, two without a mask: -1 and 0 and 2 (every
+    # real row, no mask read), 6 (every mask set), 7 (none, no mask read)
+    for thresh in (-1, 0, 2, 6, 7):
+        cases.append((f"four masks of six columns, thresh {thresh}, vector", dict(
+            masks=masks[:4], ncols=6, n=n, nrows=n, thresh=thresh)))
     if many:
-        cases.append(("70 masks, thresh 66", dict(masks=masks, ncols=72, n=n,
-                                                  row_valid=row_valid, thresh=66)))
+        cases.append(("70 masks, thresh 66, vector", dict(masks=masks, ncols=72, n=n,
+                                                          row_valid=row_valid, thresh=66)))
+        wide = [torch.rand((n,), generator=gen, device=device) > 0.002 for _ in range(300)]
+        cases.append(("300 masks, any, vector", dict(masks=wide, ncols=300, n=n, nrows=n)))
+        cases.append(("300 masks, thresh 298 of 301, masked, vector", dict(
+            masks=wide, ncols=301, n=n, row_valid=row_valid, thresh=298)))
     for _, kw in cases:
         kw["device"] = device
     return cases
 
 
+DROPNA_COPY_COLUMNS = 64  # the most masks K14 takes by value (kParamMasks)
+
+
+def dropna_copies(device: Any, rows: int, tries: int = 3) -> Dict[str, Any]:
+    """One dropna (``thresh``) over ``DROPNA_COPY_COLUMNS`` nullable float32
+    columns of ``rows`` rows on the card, under ``torch.profiler``: fails
+    where the trace holds a host-to-device copy, and where, in ``tries``
+    traces, it holds no launch of K14 (a trace without the kernel shows
+    nothing). Returns the trace's device events by name."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import fugue_tpu_torch as ft
+
+    engine = ft.make_execution_engine("torch", device=device)
+    rng = np.random.default_rng(SEED)
+    table = pa.table({f"c{j}": pa.array(rng.standard_normal(rows).astype(np.float32),
+                                        mask=rng.random(rows) < 0.01)
+                      for j in range(DROPNA_COPY_COLUMNS)})
+    src = engine.persist(engine.to_df(table))
+    del table
+    thresh = DROPNA_COPY_COLUMNS - 2
+
+    def dropna() -> Any:
+        return ft.dropna(src, thresh=thresh, engine=engine)
+
+    want = int(dropna().count())  # warm: the library loaded, the allocator primed
+    for _ in range(tries):
+        torch.cuda.synchronize(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = dropna()
+            torch.cuda.synchronize(device)
+        names: Dict[str, int] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                names[e.name] = names.get(e.name, 0) + 1
+        if any("null_count_keep" in name for name in names):
+            break
+    else:
+        raise SystemExit(f"FAIL dropna_copies: {tries} traces held no launch of null_count_keep "
+                         f"(device events {names})")
+    copies = [name for name in names if "HtoD" in name]
+    if copies:
+        raise SystemExit(f"FAIL dropna_copies: a dropna of {DROPNA_COPY_COLUMNS} masked columns "
+                         f"copied to the card: {copies}")
+    if int(out.count()) != want:
+        raise SystemExit("FAIL dropna_copies: the profiled dropna kept another count")
+    return {"columns": DROPNA_COPY_COLUMNS, "rows": rows, "device_events": names}
+
+
 def row_select_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
     """K11 (KW's presort mode), K12, K13 and K14 against their twins, bit
-    for bit, in every case above at each size; the multi-word presort
-    order against ``numpy.lexsort`` up to 2^20 + 37 rows."""
+    for bit, in every case above at each size, and K14 also at
+    ``NULL_COUNT_EDGE_ROWS`` with K14's route checked on the card; the
+    multi-word presort order against ``numpy.lexsort`` up to 2^20 + 37
+    rows."""
     import torch
 
     from fugue_tpu_torch.kernels.factorize import presort_word_cuda
@@ -4952,6 +5042,14 @@ def row_select_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
             if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
                 raise SystemExit(f"FAIL {label}: differs from its twin")
 
+    def null_count_vs_twin(n: int, cases: List[Tuple[str, Dict[str, Any]]]) -> None:
+        """K14 in each case, its route checked on the card."""
+        for label, kw in cases:
+            same(f"null_count_keep {label} n={n}", null_count_keep_cuda(**kw),
+                 null_count_keep_reference(**kw))
+            check_last_path(null_count_keep_cuda, f"null_count_keep {label} n={n}",
+                            label.rsplit(" ", 1)[1])
+
     for n in sizes:
         for label, keys, kw in presort_cases(device, n, n + 1):
             same(f"presort_word {label} n={n}", [presort_word_cuda(keys, **kw)],
@@ -4963,12 +5061,13 @@ def row_select_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
         for label, kw in first_row_cases(device, n, n + 4):
             same(f"first_row_mask {label} n={n}", first_row_mask_cuda(**kw),
                  first_row_mask_reference(**kw))
-        for label, kw in null_count_cases(device, n, n + 5, many=n <= (1 << 20) + 37):
-            same(f"null_count_keep {label} n={n}", null_count_keep_cuda(**kw),
-                 null_count_keep_reference(**kw))
+        null_count_vs_twin(n, null_count_cases(device, n, n + 5, many=n <= (1 << 20) + 37))
         if device.type == "cuda":
             torch.cuda.empty_cache()
         print(f"row_select_vs_twin: n={n} equal")
+    null_count_vs_twin(NULL_COUNT_EDGE_ROWS, null_count_cases(
+        device, NULL_COUNT_EDGE_ROWS, NULL_COUNT_EDGE_ROWS, many=True))
+    print(f"row_select_vs_twin: null_count_keep at n={NULL_COUNT_EDGE_ROWS} equal")
 
 
 WINDOW_PARTS = 1000  # partitions of the window checks
@@ -5651,7 +5750,9 @@ def relational_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, A
     distinct's ~10M groups; K12's and K13's one call is ``index_fill_`` of
     the kept rows, timed also with the ``zero_()`` of the mask, the
     kernel's work (``row_select library calls``); K14 over four masks, how
-    ``any`` (``torch.all`` of the stacked masks); the fillna program over
+    ``any`` (``torch.all`` of the stacked masks), and at the other
+    ``null_count_shapes`` (a ``null_count_keep shape:`` line each, with
+    its route); the fillna program over
     four float64 columns (no one call: ``where`` handles one column and
     no NaN). ``launches``: each kernel's launches on its path, K12's at
     the take's and EXCEPT ALL's shapes as ``rank_keep_take`` and
@@ -5777,18 +5878,28 @@ def relational_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, A
     del first, first_long, mask
     print("row_select library calls: " + json.dumps(yardsticks))
 
-    masks = [torch.rand((n,), generator=gen, device=device) > 0.05 for _ in range(4)]
-    nkw = dict(nrows=n)
-    err = twin_err(null_count_keep_cuda(masks, 4, n, **nkw),
-                   null_count_keep_reference(masks, 4, n, **nkw), "null_count_keep")
-    stacked = torch.stack(masks)
-    entries.append(_kernel_entry(
-        "null_count_keep", "fugue_tpu/jax_backend/execution_engine.py:1906",
-        launches["null_count_keep"], err,
-        time_cuda(lambda: null_count_keep_cuda(masks, 4, n, **nkw), 20),
-        time_cuda(lambda: null_count_keep_reference(masks, 4, n, **nkw), 5), n * 5, 0,
-        time_cuda(lambda: torch.all(stacked, 0), 20), source="row_select.cu"))
-    del stacked
+    for label, nkw, library, nbytes in null_count_shapes(device):
+        err = twin_err(null_count_keep_cuda(**nkw), null_count_keep_reference(**nkw),
+                       f"null_count_keep {label}")
+        path = getattr(null_count_keep_cuda, "last_path", None)
+        first = label == "four masks, prefix, any"
+        if first:
+            masks = nkw["masks"]  # the fillna program's masks below
+        entry = _kernel_entry(
+            "null_count_keep", "fugue_tpu/jax_backend/execution_engine.py:1906",
+            launches["null_count_keep"], err,
+            time_cuda(lambda: null_count_keep_cuda(**nkw), 20),  # noqa: B023
+            time_cuda(lambda: null_count_keep_reference(**nkw), 5 if first else 1),  # noqa: B023
+            nbytes, 0, time_cuda(library, 20 if first else 5), source="row_select.cu")
+        if first:
+            entries.append(entry)
+            print(f"null_count_keep route at four masks: {path}")
+        else:
+            print("null_count_keep shape: " + json.dumps({
+                "case": label, "path": path,
+                **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}))
+        del nkw, library
+    torch.cuda.empty_cache()
 
     cols = [torch.where(torch.rand((n,), generator=gen, device=device) < NA_NANS, float("nan"),
                         torch.randn((n,), generator=gen, device=device, dtype=torch.float64))
@@ -6360,6 +6471,7 @@ def comap_cases(device: Any, n: int, seed: int, big_segments: int, full: bool
 
 
 K18_TILE = 256 * 4  # K18's rows a tile (kRowTile in comap.cu)
+K17_TILE = 256 * 16  # K17's rows a tile (kPresenceTile in comap.cu), 16 a thread
 
 
 def comap_tile_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str, Any]]]:
@@ -6368,9 +6480,12 @@ def comap_tile_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str
     boundary inside a tile, members of 1 and 7 rows and 20 of 3 rows (a
     tile over many members); 65 members, the first 40 of 3 rows, one
     empty (more than the 64 whose layout a block keeps, counted by global
-    atomics; 3 presence words). Each in a prefix layout with ``nrows``
-    shorter than some members' rows, and a masked one; segments of 50
-    adjacent rows, 5 % sentinels; every zip type."""
+    atomics; 3 presence words); and, from ``2 * K17_TILE + 64`` rows,
+    K17's: a boundary at its tile's edge, an empty member, boundaries
+    inside a thread's 16 rows (members of 1, 9 and 17 rows). Each in a
+    prefix layout with ``nrows`` shorter than some members' rows, and a
+    masked one; segments of 50 adjacent rows, 5 % sentinels; every zip
+    type."""
     import torch
 
     from fugue_tpu_torch.kernels.reference import COMAP_HOWS
@@ -6383,6 +6498,9 @@ def comap_tile_cases(device: Any, n: int, seed: int) -> List[Tuple[str, Dict[str
     layouts = [("tile edges", edge + [n - sum(edge)])]
     rest = n - sum(tiny)
     layouts.append(("65 members", tiny + [rest // 24] * 23 + [rest - 23 * (rest // 24)]))
+    if n >= 2 * K17_TILE + 64:
+        k17 = [K17_TILE, 0, K17_TILE // 2 + 7, 1, 9, 17]
+        layouts.append(("K17 tile edges", k17 + [n - sum(k17)]))
     cases = []
     for name, sizes in layouts:
         members = len(sizes)
@@ -6430,10 +6548,20 @@ def comap_top_tile(device: Any, n: int) -> None:
     print(f"comap_rows over {n} rows: every row as the rule gives it")
 
 
+def check_last_path(kernel: Callable[..., Any], label: str, want: str) -> None:
+    """Fails where ``kernel``'s last launch on the card took another route
+    (``last_path``) than ``want``; a twin standing in has none."""
+    got = getattr(kernel, "last_path", want)
+    if got != want:
+        raise SystemExit(f"FAIL {label}: took the {got} route, expected {want}")
+
+
 def comap_vs_twin(device: Any, sizes: Tuple[int, ...], big_segments: int = 1 << 24,
                   top_rows: Optional[int] = None) -> None:
     """K17 and K18 against their twins, exactly, at each size of ``sizes``
-    (all of ``comap_cases`` up to 2^21 rows, its large cases above); then
+    (all of ``comap_cases`` up to 2^21 rows, its large cases above), K17
+    on its vector route and, up to 2^21 rows, with ``seg`` one element off
+    on its scalar route; then
     K18 over ``top_rows`` (``comap_top_tile``; 2^31 - 1 on the card, four
     tiles less one row in a CPU rehearsal)."""
     import torch
@@ -6455,6 +6583,12 @@ def comap_vs_twin(device: Any, sizes: Tuple[int, ...], big_segments: int = 1 << 
                 presence = comap.comap_presence_cuda(seg, num, **kw)
                 want_presence = comap_presence_reference(seg, num, **kw)
                 _same(f"{label} presence", presence, want_presence)
+                check_last_path(comap.comap_presence_cuda, label, "vector")
+                if n <= (1 << 21) and how == "inner":  # seg one element off: the scalar route
+                    (view, _), = shifted([(seg, None)])
+                    _same(f"{label} presence, seg unaligned",
+                          comap.comap_presence_cuda(view, num, **kw), want_presence)
+                    check_last_path(comap.comap_presence_cuda, label, "scalar")
             got = comap.comap_rows_cuda(seg, presence, num, how=how, **kw)
             want = comap_rows_reference(seg, want_presence, num, how=how, **kw)
             for name, g, w in zip(got._fields, got, want):
@@ -7037,51 +7171,161 @@ def stream_path(device: Any, chunks: int, chunk_rows: int, warm_runs: int) -> Di
     return stats
 
 
-def comap_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
-    """K17 and K18 at config 4's 100M-row shape (a: 100M rows, 50 a key in
-    order; b: 2M rows, one a key; 2M segments; prefix frames), beside
-    their twins; K17's bound is its 4 B of ``seg`` a row and the 4 B
-    presence word a segment written, its one PyTorch call a ``bincount``
-    a member; K18's bound ``seg`` read, ``row_alive`` and ``seg_out``
-    written a row (9 B) and the words read and ``alive`` written a
-    segment (5 B), with no one call."""
+def config4_stacked(device: Any) -> Tuple[Any, int, List[int]]:
+    """Config 4's stacked ids at 100M rows: ``(seg, segments, sizes)``, a
+    with 50 rows a key in order, b with one a key."""
     import torch
-
-    from fugue_tpu_torch.kernels import comap
-    from fugue_tpu_torch.kernels.reference import comap_presence_reference, comap_rows_reference
 
     groups = CONFIG4_BIG_GROUPS
     na, nb = groups * CONFIG4_PER, groups
     seg = torch.cat([torch.arange(na, device=device) // CONFIG4_PER,
                      torch.arange(nb, device=device)]).to(torch.int32)
-    offsets, nrows = comap_layout(device, [na, nb], [na, nb])
-    kw = dict(offsets=offsets, nrows=nrows)
-    presence = comap.comap_presence_cuda(seg, groups, **kw)
-    _same("comap_presence timed", presence, comap_presence_reference(seg, groups, **kw))
-    got = comap.comap_rows_cuda(seg, presence, groups, how="inner", **kw)
-    want = comap_rows_reference(seg, presence, groups, how="inner", **kw)
-    for name, g, w in zip(got._fields, got, want):
-        _same(f"comap_rows timed {name}", g, w)
-    sa, sb = seg[:na].long(), seg[na:].long()
-    n = na + nb
-    entries = [
-        _kernel_entry(
+    return seg, groups, [na, nb]
+
+
+def sorted_members(device: Any, n: int, members: int, num: int, seed: int) -> Tuple[Any, List[int]]:
+    """``n`` stacked rows of ``members`` equal members, each member's ids
+    drawn over ``num`` segments and sorted (a co-partitioned frame):
+    ``(seg, sizes)``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    per = n // members
+    sizes = [per] * (members - 1) + [n - per * (members - 1)]
+    return torch.cat([torch.sort(torch.randint(0, num, (s,), generator=gen, device=device,
+                                               dtype=torch.int32)).values for s in sizes]), sizes
+
+
+PRESENCE_WIDE_SEGMENTS = 1 << 24  # the 33-member shape's segments (two presence words)
+
+
+def presence_shapes(device: Any) -> Iterator[Tuple[str, Dict[str, Any], Callable[[], Any], int]]:
+    """K17's timed shapes, one at a time: ``(label, comap_presence_cuda's
+    arguments, its one PyTorch call, bytes of its bound)``. Config 4 at
+    100M rows; 100M rows of 33 members over 2^24 segments (two presence
+    words), each member's ids sorted; 100M rows of 2 members, random ids
+    over 2M segments, 70 % real (a ``valid`` mask), 5 % sentinels: every
+    row its own run. The bound reads ``seg`` (and ``valid``) once a row
+    and writes the words once; the one call is a ``bincount`` of each
+    real row's (segment, member) pair, precomputed: the counts whose
+    non-zero entries are the bits."""
+    import torch
+
+    def shape(label: str, seg: Any, num: int, sizes: List[int], valid: Any) -> Any:
+        offsets, nrows = comap_layout(device, sizes, sizes)
+        members = len(sizes)
+        member = torch.repeat_interleave(torch.arange(members, device=device),
+                                         torch.tensor(sizes, device=device))
+        real = (seg >= 0) & (seg < num)
+        if valid is not None:
+            real &= valid
+        pair = (seg.long() * members + member)[real]
+        del member, real
+        words = -(-members // 32)
+        n = int(seg.shape[0])
+        kw = dict(seg=seg, num_segments=num, offsets=offsets, nrows=nrows, valid=valid)
+        return (label, kw, lambda: torch.bincount(pair, minlength=num * members),
+                n * (4 + (valid is not None)) + num * words * 4)
+
+    seg, num, sizes = config4_stacked(device)
+    yield shape("config 4 (102M rows, 2 members, 2M segments)", seg, num, sizes, None)
+    del seg
+    seg, sizes = sorted_members(device, ROWS, 33, PRESENCE_WIDE_SEGMENTS, SEED)
+    yield shape("100M rows, 33 members, 2^24 segments", seg, PRESENCE_WIDE_SEGMENTS, sizes, None)
+    del seg
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    num = CONFIG4_BIG_GROUPS
+    seg = torch.randint(0, num, (ROWS,), generator=gen, device=device, dtype=torch.int32)
+    seg[torch.rand((ROWS,), generator=gen, device=device) < 0.05] = num  # sentinels
+    valid = torch.rand((ROWS,), generator=gen, device=device) < 0.7
+    yield shape("masked, 100M rows, 2 members, random over 2M segments, 70 % real", seg, num,
+                [ROWS // 2, ROWS - ROWS // 2], valid)
+
+
+def null_count_shapes(device: Any
+                      ) -> Iterator[Tuple[str, Dict[str, Any], Callable[[], Any], int]]:
+    """K14's timed shapes at 100M rows, one at a time: ``(label,
+    null_count_keep_cuda's arguments, its one PyTorch call, bytes of its
+    bound)``. Four masks of 5 % nulls, how any, in a prefix frame (the
+    dropna path's) and with a ``row_valid``; one mask; 70 masks with
+    ``thresh`` 66 of 72 columns. The bound reads each mask (and the
+    validity) once a row and writes the keep byte; the one call is
+    ``torch.all`` of the masks stacked beforehand, and at 70 masks their
+    byte sum (the counts alone)."""
+    import torch
+
+    n = ROWS
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+
+    def masks_of(k: int) -> List[Any]:
+        return [torch.rand((n,), generator=gen, device=device) > 0.05 for _ in range(k)]
+
+    masks = masks_of(4)
+    stacked = torch.stack(masks)
+    yield ("four masks, prefix, any", dict(masks=masks, ncols=4, n=n, nrows=n, device=device),
+           lambda: torch.all(stacked, 0), n * 5)
+    row_valid = torch.rand((n,), generator=gen, device=device) < 0.9
+    with_rows = torch.stack(masks + [row_valid])
+    yield ("four masks, row_valid, any", dict(masks=masks, ncols=4, n=n, row_valid=row_valid,
+                                              device=device),
+           lambda: torch.all(with_rows, 0), n * 6)
+    del with_rows, row_valid
+    yield ("one mask, prefix, any", dict(masks=masks[:1], ncols=1, n=n, nrows=n, device=device),
+           lambda: torch.all(stacked[:1], 0), n * 2)
+    del masks, stacked
+    masks = masks_of(70)
+    stacked = torch.stack(masks)
+    yield ("70 masks, prefix, thresh 66 of 72", dict(masks=masks, ncols=72, n=n, nrows=n,
+                                                     thresh=66, device=device),
+           lambda: stacked.sum(0, dtype=torch.uint8), n * 71)
+
+
+def comap_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """K17 and K18 at config 4's 100M-row shape (a: 100M rows, 50 a key in
+    order; b: 2M rows, one a key; 2M segments; prefix frames), beside
+    their twins, and K17 also at the other ``presence_shapes`` (a
+    ``comap_presence shape:`` line each, with its route); K17's bound and
+    one PyTorch call are the shape's; K18's bound ``seg`` read,
+    ``row_alive`` and ``seg_out`` written a row (9 B) and the words read
+    and ``alive`` written a segment (5 B), with no one call."""
+    from fugue_tpu_torch.kernels import comap
+    from fugue_tpu_torch.kernels.reference import comap_presence_reference, comap_rows_reference
+
+    entries = []
+    for label, kw, library, nbytes in presence_shapes(device):
+        want = comap_presence_reference(**kw)
+        _same(f"comap_presence timed {label}", comap.comap_presence_cuda(**kw), want)
+        path = getattr(comap.comap_presence_cuda, "last_path", None)
+        first = not entries
+        entry = _kernel_entry(
             "comap_presence", "fugue_tpu/jax_backend/comap_compiled.py:335",
             launches["comap_presence"], 0.0,
-            time_cuda(lambda: comap.comap_presence_cuda(seg, groups, **kw), 20),
-            time_cuda(lambda: comap_presence_reference(seg, groups, **kw), 5),
-            n * 4 + groups * 4, 0,
-            time_cuda(lambda: (torch.bincount(sa, minlength=groups),
-                               torch.bincount(sb, minlength=groups)), 20),
-            source="comap.cu"),
-        _kernel_entry(
+            time_cuda(lambda: comap.comap_presence_cuda(**kw), 20),  # noqa: B023
+            time_cuda(lambda: comap_presence_reference(**kw), 5 if first else 1),  # noqa: B023
+            nbytes, 0, time_cuda(library, 5), source="comap.cu")
+        if not first:
+            print("comap_presence shape: " + json.dumps({
+                "case": label, "path": path,
+                **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}))
+            continue
+        entries.append(entry)
+        seg, groups = kw["seg"], kw["num_segments"]
+        rkw = dict(offsets=kw["offsets"], nrows=kw["nrows"])
+        got = comap.comap_rows_cuda(seg, want, groups, how="inner", **rkw)
+        for name, g, w in zip(got._fields, got,
+                              comap_rows_reference(seg, want, groups, how="inner", **rkw)):
+            _same(f"comap_rows timed {name}", g, w)
+        n = int(seg.shape[0])
+        entries.append(_kernel_entry(
             "comap_rows", "fugue_tpu/jax_backend/comap_compiled.py:342",
             launches["comap_rows"], 0.0,
-            time_cuda(lambda: comap.comap_rows_cuda(seg, presence, groups, how="inner", **kw),
-                      20),
-            time_cuda(lambda: comap_rows_reference(seg, presence, groups, how="inner", **kw), 5),
-            n * (4 + 1 + 4) + groups * (4 + 1), 0, None, source="comap.cu"),
-    ]
+            time_cuda(lambda: comap.comap_rows_cuda(seg, want, groups, how="inner",  # noqa: B023
+                                                    **rkw), 20),  # noqa: B023
+            time_cuda(lambda: comap_rows_reference(seg, want, groups, how="inner",  # noqa: B023
+                                                   **rkw), 5),  # noqa: B023
+            n * (4 + 1 + 4) + groups * (4 + 1), 0, None, source="comap.cu"))
+        del got, seg, rkw
+        print(f"comap_presence route at config 4: {path}")
     for e in entries:
         print("comap timed: " + json.dumps(e))
     return entries
@@ -7358,6 +7602,7 @@ def main() -> None:
     row_select_vs_twin(device, (1, (1 << 20) + 37, ROWS))
     print("kernels checked against their twins: presort_word, rank_keep, first_row_mask, "
           "null_count_keep (equal)")
+    print("dropna_copies: " + json.dumps(dropna_copies(device, 1 << 20)))
     lap("twins: row selection")
     torch.cuda.empty_cache()
     worst = window_vs_twin(device, (1, (1 << 20) + 37, ROWS))

@@ -22,12 +22,26 @@
 //
 // What bounds them on an H100, and what the design does about it:
 //   - K17 reads 4 B (seg) and 1 B (validity) a row, coalesced, and sets
-//     bits in S * W words (4 B each) that the wrapper zeroed. Rows of one
-//     segment are adjacent in a co-partitioned frame (config 4: 50 rows
-//     a key), so a warp first groups its lanes by (segment, member)
-//     (__match_any_sync) and only each group's leader reads the word and,
-//     where its bit is not yet set, ORs it in: about one atomic a segment
-//     and member instead of one a row.
+//     bits in S * W words (4 B each) that the wrapper zeroed: 0.124 ms at
+//     config 4's 102M rows. A row a thread, with a binary search of
+//     `offsets`, two more loads of the layout and a warp's
+//     __match_any_sync a row, made it issue-bound (0.51 ms). So it walks
+//     the layout as K18 does, from the block's copy in shared memory, but
+//     with kPresenceRows consecutive rows a thread in a persistent wave of
+//     row tiles with no barrier between them (each thread finds its own
+//     first row's member): fewer threads' fixed work for the same rows,
+//     which measured faster at config 4 than K18's 4 rows a thread and
+//     its tile barrier (0.246-0.249 ms against 0.26-0.32). A run of equal
+//     (segment, member) among a thread's real rows gives one candidate
+//     bit, and a run that continues the lane before's last is dropped
+//     (__shfl_up_sync), so a co-partitioned frame (config 4: 50 rows a key)
+//     leaves about one candidate a segment and member; a candidate reads
+//     its word through L2 and ORs its bit in where it is clear. Rows of
+//     random segments (a masked frame) are each their own run: a word read
+//     in L2 a row. Where nearly every row is a new bit in a table of words
+//     larger than L2 (100M sorted rows of 33 members over 2^24 segments),
+//     each warp instruction's reads and atomics go to 32 rows 16 apart,
+//     and it is slower than a row a thread (PERF.md PR 21).
 //   - K18 reads seg, validity and the row's segment's words (adjacent rows
 //     share them, so mostly from L1) and writes 1 B (row_alive) and 4 B
 //     (seg_out) a row, coalesced; the segments' part reads the words and
@@ -45,9 +59,10 @@
 //     member at a time; a block's counts stay in shared memory for the
 //     first kSharedMembers members, one atomic a block and member. Segment
 //     tiles of kSegTile segments, kSegsPer a thread, follow the row tiles
-//     in the same persistent wave. K17's row's member comes from a binary
-//     search of `offsets` (read through the read-only cache; N + 1
-//     entries), as does K18's in a zip of more than kSharedMembers.
+//     in the same persistent wave. In a zip of more than kSharedMembers
+//     members a thread finds its first row's member by a binary search of
+//     `offsets` (read through the read-only cache), then walks, in both
+//     kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,6 +81,11 @@ constexpr int kInner = 0, kLeftOuter = 1, kRightOuter = 2, kFullOuter = 3, kCros
 // 1.40, 1.60 and 1.71 (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6)
 constexpr int kRowsPer = 4;
 constexpr int kRowTile = kThreads * kRowsPer;
+// K17: consecutive rows a thread. At config 4 16 took 0.246-0.249 ms, 12
+// 0.245, 8 0.255, 4 0.261, 24 0.308 (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md PR 21)
+constexpr int kPresenceRows = 16;
+constexpr int kPresenceTile = kThreads * kPresenceRows;
 constexpr int kSegsPer = 16;  // K18: consecutive segments a thread
 constexpr int kSegTile = kThreads * kSegsPer;
 constexpr int kNoRow = 0x7fffffff;  // the start past the last member (rows are below 2^31)
@@ -91,38 +111,162 @@ __device__ __forceinline__ int member_of(const Layout& l, long long r) {
   return lo;
 }
 
-__device__ __forceinline__ bool is_real(const Layout& l, int m, long long r) {
-  return r - __ldg(l.offsets + m) < __ldg(l.nrows + m) &&
-         (l.valid == nullptr || __ldg(l.valid + r) != 0);
+// The block's copy of the layout (a zip of at most kSharedMembers members):
+// each member's first row and the end of its real rows, as ints.
+struct SharedLayout {
+  int lo[kSharedMembers + 1];  // offsets
+  int end[kSharedMembers];     // offsets + nrows, at most kNoRow
+  int tile[4];                 // by tile parity: the first and the last member of the tile
+};
+
+__device__ __forceinline__ int real_end_of(const Layout& l, int m) {
+  const long long e = __ldg(l.offsets + m) + __ldg(l.nrows + m);
+  return e < kNoRow ? (int)e : kNoRow;
+}
+
+// The last member m with lo[m] <= r, in the block's copy.
+__device__ __forceinline__ int shared_member_of(const SharedLayout& sl, int members, int r) {
+  int lo = 0, hi = members - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (sl.lo[mid] <= r) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// A thread's kPresenceRows consecutive rows from r0 (rows past n read
+// nothing): their segment ids (-1 past n) and, bit j, whether row r0 + j
+// is below n with a non-zero valid byte. With vec (seg 16-byte and valid
+// 4-byte aligned) four rows a load: seg in 16-byte, valid in 4-byte loads.
+__device__ __forceinline__ unsigned load_rows(const Layout& l, bool vec, long long r0,
+                                              int (&s)[kPresenceRows]) {
+  unsigned ok = 0u;
+  if (vec && r0 + kPresenceRows <= l.n) {
+#pragma unroll
+    for (int q = 0; q < kPresenceRows / 4; ++q) {
+      const int4 x = __ldcs(reinterpret_cast<const int4*>(l.seg + r0) + q);
+      s[4 * q] = x.x, s[4 * q + 1] = x.y, s[4 * q + 2] = x.z, s[4 * q + 3] = x.w;
+      const unsigned y = l.valid == nullptr
+                             ? 0x01010101u
+                             : __ldcs(reinterpret_cast<const unsigned*>(l.valid + r0) + q);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) ok |= (unsigned)(((y >> (8 * k)) & 0xFFu) != 0u) << (4 * q + k);
+    }
+    return ok;
+  }
+#pragma unroll
+  for (int j = 0; j < kPresenceRows; ++j) {
+    const long long r = r0 + j;
+    s[j] = r < l.n ? __ldcs(l.seg + r) : -1;
+    if (r < l.n && (l.valid == nullptr || __ldcs(l.valid + r) != 0)) ok |= 1u << j;
+  }
+  return ok;
 }
 
 struct PresenceParams {
   Layout l;
   unsigned* presence;  // uint32 [num * words], zeroed by the caller
+  bool vec;            // seg 16-byte aligned, valid 4-byte aligned
+  int row_tiles;       // tiles of kPresenceTile rows
 };
 
+// The bits of a thread's rows (load_rows) from r0. The first row's member
+// comes from a search of the block's copy of the layout (of offsets, in a
+// zip of more than kSharedMembers members), each next row's from compares
+// with the next member's start; a row is real below its member's real-row
+// end, valid and with a segment in [0, num). A run of equal (segment,
+// member) among a thread's real rows gives one candidate; where every row
+// is valid and of one member only the segments are compared. A thread hands
+// its last run to the next lane, which drops its first run where it
+// continues it (that lane, or one before it, sets the bit). Each remaining
+// candidate reads its word through L2 (__ldcg: a stale word costs one
+// redundant atomic) and ORs its bit in where it is clear. Every lane of the
+// warp calls it.
+__device__ __forceinline__ void set_bits(const PresenceParams& p, const SharedLayout& sl,
+                                         long long r0, const int (&s)[kPresenceRows],
+                                         unsigned ok) {
+  const Layout& l = p.l;
+  const bool cached = l.members <= kSharedMembers;
+  int mj[kPresenceRows];
+  unsigned head = 0u;  // the first row of each run
+  int run_s = -1, run_m = -1, first_s = -1, first_m = -1;
+  if (ok != 0u) {
+    const int r = (int)r0;  // a row below n
+    int m = cached ? shared_member_of(sl, l.members, r) : member_of(l, r);
+    auto next_of = [&](int k) {
+      return k + 1 > l.members ? kNoRow : cached ? sl.lo[k + 1] : (int)__ldg(l.offsets + k + 1);
+    };
+    int next = next_of(m);
+    int real_end = cached ? sl.end[m] : real_end_of(l, m);
+    if (ok == (1u << kPresenceRows) - 1u && r + kPresenceRows <= min(next, real_end)) {
+      // every row valid and of member m: runs of equal segments
+#pragma unroll
+      for (int j = 0; j < kPresenceRows; ++j) {
+        mj[j] = m;
+        if ((unsigned)s[j] < (unsigned)l.num && s[j] != run_s) {
+          if (head == 0u) first_s = s[j];
+          head |= 1u << j;
+          run_s = s[j];
+        }
+      }
+      if (head != 0u) first_m = run_m = m;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPresenceRows; ++j) {
+        mj[j] = 0;
+        if (((ok >> j) & 1u) == 0u) continue;
+        const int rj = r + j;  // below n
+        while (rj >= next) {  // into the next member (past empty ones)
+          ++m;
+          next = next_of(m);
+          real_end = cached ? sl.end[m] : real_end_of(l, m);
+        }
+        mj[j] = m;
+        if (rj < real_end && (unsigned)s[j] < (unsigned)l.num && (s[j] != run_s || m != run_m)) {
+          if (head == 0u) first_s = s[j], first_m = m;
+          head |= 1u << j;
+          run_s = s[j], run_m = m;
+        }
+      }
+    }
+  }
+  // every lane, those without rows too, passes its last run on
+  const int before_s = __shfl_up_sync(0xffffffffu, run_s, 1);
+  const int before_m = __shfl_up_sync(0xffffffffu, run_m, 1);
+  if ((threadIdx.x & 31) != 0 && before_s >= 0 && first_s == before_s && first_m == before_m)
+    head &= head - 1u;
+  if (head == 0u) return;
+  unsigned w[kPresenceRows];
+#pragma unroll
+  for (int j = 0; j < kPresenceRows; ++j)
+    w[j] = ((head >> j) & 1u) ? __ldcg(p.presence + (long long)s[j] * l.words + (mj[j] >> 5)) : 0u;
+#pragma unroll
+  for (int j = 0; j < kPresenceRows; ++j) {
+    const unsigned mask = 1u << (mj[j] & 31);
+    if (((head >> j) & 1u) && (w[j] & mask) == 0u)
+      atomicOr(p.presence + (long long)s[j] * l.words + (mj[j] >> 5), mask);
+  }
+}
+
+// K17: a persistent wave over the row tiles of kPresenceTile rows, a
+// thread's kPresenceRows consecutive rows of each (load_rows, set_bits).
+// No barrier between tiles: a thread finds its own rows' members.
 __global__ void __launch_bounds__(kThreads)
     comap_presence(const __grid_constant__ PresenceParams p) {
+  __shared__ SharedLayout sl;
   const Layout& l = p.l;
-  const int lane = threadIdx.x & 31;
-  const long long warp = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const long long step = (long long)gridDim.x * kThreads;
-  // every lane of a warp runs every iteration, so the warp votes together
-  for (long long base = warp * 32; base < l.n; base += step) {
-    const long long r = base + lane;
-    long long bit = -1;  // (word index) * 32 + bit, or -1: nothing to set
-    if (r < l.n) {
-      const int m = member_of(l, r);
-      const int s = __ldg(l.seg + r);
-      if (s >= 0 && s < l.num && is_real(l, m, r))
-        bit = ((long long)s * l.words + (m >> 5)) * 32 + (m & 31);
-    }
-    const unsigned same = __match_any_sync(0xffffffffu, bit);
-    if (bit >= 0 && lane == __ffs(same) - 1) {
-      unsigned* word = p.presence + (bit >> 5);
-      const unsigned mask = 1u << (bit & 31);
-      if ((*word & mask) == 0u) atomicOr(word, mask);
-    }
+  if (l.members <= kSharedMembers) {
+    for (int j = threadIdx.x; j < l.members; j += kThreads) sl.end[j] = real_end_of(l, j);
+    for (int j = threadIdx.x; j <= l.members; j += kThreads) sl.lo[j] = (int)__ldg(l.offsets + j);
+  }
+  __syncthreads();
+  // the unit is the block's: every thread takes the same branches
+  for (long long u = blockIdx.x; u < p.row_tiles; u += gridDim.x) {
+    const long long r0 = u * kPresenceTile + (long long)threadIdx.x * kPresenceRows;
+    int s[kPresenceRows];
+    const unsigned ok = load_rows(l, p.vec, r0, s);
+    set_bits(p, sl, r0, s, ok);
   }
 }
 
@@ -189,30 +333,6 @@ __device__ __forceinline__ void add_count(const RowsParams& p, int* block_counts
   } else {
     atomicAdd(p.counts + m, c);
   }
-}
-
-// The block's copy of the layout (a zip of at most kSharedMembers members):
-// each member's first row and the end of its real rows, as ints.
-struct SharedLayout {
-  int lo[kSharedMembers + 1];  // offsets
-  int end[kSharedMembers];     // offsets + nrows, at most kNoRow
-  int tile[4];                 // by tile parity: the first and the last member of the tile
-};
-
-__device__ __forceinline__ int real_end_of(const Layout& l, int m) {
-  const long long e = __ldg(l.offsets + m) + __ldg(l.nrows + m);
-  return e < kNoRow ? (int)e : kNoRow;
-}
-
-// The last member m with lo[m] <= r, in the block's copy.
-__device__ __forceinline__ int shared_member_of(const SharedLayout& sl, int members, int r) {
-  int lo = 0, hi = members - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (sl.lo[mid] <= r) lo = mid;
-    else hi = mid - 1;
-  }
-  return lo;
 }
 
 // A tile of kRowTile consecutive rows, kRowsPer consecutive rows a thread.
@@ -457,7 +577,8 @@ Layout layout(long long n, const void* seg, const void* valid, const void* offse
 
 // K17: sets the presence bits (uint32 [num * ceil(members / 32)], zeroed
 // by the caller) of every real row whose seg (int32 [n]) lies in
-// [0, num).
+// [0, num). *launched is 1 on the vector route (seg 16-byte and valid
+// 4-byte aligned), 2 on the scalar one.
 extern "C" int fugue_comap_presence(long long n, const void* seg, const void* valid,
                                     const void* offsets, const void* nrows, int members,
                                     long long num, void* presence, int device, void* stream,
@@ -465,13 +586,16 @@ extern "C" int fugue_comap_presence(long long n, const void* seg, const void* va
   *launched = 0;
   if (bad_layout(n, seg, offsets, nrows, members, num) || presence == nullptr)
     return (int)cudaErrorInvalidValue;
+  const bool vec = reinterpret_cast<uintptr_t>(seg) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(valid) % 4 == 0;
   PresenceParams p = {layout(n, seg, valid, offsets, nrows, members, num),
-                      static_cast<unsigned*>(presence)};
+                      static_cast<unsigned*>(presence), vec,
+                      (int)((n + kPresenceTile - 1) / kPresenceTile)};
   const cudaError_t err = on_device(device, [&] {
-    return launch_wave(comap_presence, n, kThreads, device, static_cast<cudaStream_t>(stream),
-                       p);
+    return launch_wave(comap_presence, (long long)p.row_tiles * kThreads, kThreads, device,
+                       static_cast<cudaStream_t>(stream), p);
   });
-  if (err == cudaSuccess) *launched = 1;
+  if (err == cudaSuccess) *launched = vec ? 1 : 2;
   return (int)err;
 }
 

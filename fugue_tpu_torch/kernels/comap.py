@@ -9,7 +9,9 @@ and launch the co-map membership kernels on PyTorch's current stream.
 
 Each has the contract of its twin in ``reference.py``. Each wrapper's
 ``launches`` grows by one where it launches its kernel and nowhere
-else."""
+else. ``comap_presence_cuda.last_path`` names the route of its last
+launch: ``"vector"`` (``seg`` 16-byte and ``valid`` 4-byte aligned: four
+rows a load) or ``"scalar"``."""
 
 import ctypes
 from typing import Optional, Tuple
@@ -94,10 +96,13 @@ def comap_presence_cuda(
     _raise_on(lib, err, "comap_presence")
     if launched.value:
         comap_presence_cuda.launches += 1
+        comap_presence_cuda.last_path = _ROUTES[launched.value]
     return presence
 
 
+_ROUTES = {1: "vector", 2: "scalar"}  # the entry points' *launched
 comap_presence_cuda.launches = 0  # type: ignore[attr-defined]
+comap_presence_cuda.last_path = None  # type: ignore[attr-defined]
 
 
 def comap_rows_cuda(

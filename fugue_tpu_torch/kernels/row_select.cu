@@ -64,9 +64,26 @@
 //     row, occupancy and count (coalesced); its work is the segments and
 //     the 1 B a row of the mask.
 //   - K14 reads one byte a row of each of the M masks and of the row
-//     validity and writes one keep byte, all coalesced. The masks come as
-//     a device array of pointers (M has no cap), staged in shared memory
-//     up to kStagedMasks. Rows: rows [0, n) are read; a row is real where
+//     validity and writes one keep byte, all coalesced: at four masks
+//     0.149 ms at 100M rows. A row a thread, a byte load a mask, moved 32
+//     B a warp's load with at most four loads in flight a thread, too few
+//     bytes in flight to fill HBM (0.468 ms, 3.1x the bound), and the
+//     wrapper uploaded the masks' pointer array from pageable memory on
+//     every call. So each thread takes groups of 16 consecutive rows,
+//     kGroupsPer of them at a time: one 16-byte streaming load a mask a
+//     group (and of row_valid in a masked frame), the masks added in byte
+//     lanes (__vadd4; past kByteLanes masks widened into ints), the keep
+//     test one per-byte compare (__vcmpgeu4) against `need`, worked out
+//     once on the host from the mode, thresh and the columns without masks
+//     (need <= 0 keeps every real row and need > M none, without reading a
+//     mask), and one 16-byte streaming store of the flags; a prefix frame
+//     compares with nrows only in the group that straddles it and reads no
+//     mask past it. The count is __popc of the flag words, summed by warp,
+//     one atomic a block. Up to kParamMasks mask pointers go by value in
+//     the kernel's parameters, more through a device array the wrapper
+//     copies from pinned memory. The rows past the last whole group, and
+//     every row where a mask, row_valid or keep is not 16-byte aligned,
+//     take a row a thread. Rows: rows [0, n) are read; a row is real where
 //     it is below nrows (a prefix frame) or, with nrows = -1, where its
 //     row_valid byte is non-zero.
 
@@ -83,7 +100,13 @@ namespace {
 using namespace fugue;
 
 constexpr int kThreads = 256;
-constexpr int kStagedMasks = 64;  // K14 mask pointers a block keeps in shared memory
+// K14: mask pointers passed by value (more go through a device array); a
+// thread's groups of consecutive rows, one 16-byte load a mask each, and
+// how many it has in flight; the masks whose ones a byte lane can count
+constexpr int kParamMasks = 64;
+constexpr int kGroupRows = 16;
+constexpr int kGroupsPer = 2;
+constexpr int kByteLanes = 255;
 // K12 and K13: a slab of 2^18 rows (its bits, 32 KB, in the shared memory
 // of one block of kBuildThreads); at most 8192 slabs (n < 2^31); step 1's
 // blocks of kPartThreads take at most kItems candidates a thread a tile
@@ -382,33 +405,164 @@ __global__ void __launch_bounds__(kPartThreads)
 
 struct NullParams {
   long long n;
-  long long nrows;              // rows [0, nrows) real; -1: by row_valid
+  long long nrows;                   // rows [0, nrows) real; -1: by row_valid
   const uint8_t* row_valid;
-  const uint8_t* const* masks;  // device array of nmasks bool [n] pointers
+  const uint8_t* const* masks;       // device array of the nmasks pointers above kParamMasks
+  const uint8_t* mask[kParamMasks];  // the pointers themselves, up to kParamMasks
   int nmasks;
-  int ncols;                    // the columns tested; the others have no nulls
-  int mode;                     // kAny, kAllNull or kThresh
-  int thresh;
-  uint8_t* keep;                // bool [n]
-  int* count;                   // int32 0-d, zeroed by the caller
+  int need;                          // keep a real row where at least need masks are set
+  bool vec;                          // masks, row_valid and keep 16-byte aligned
+  uint8_t* keep;                     // bool [n]
+  int* count;                        // int32 0-d, zeroed by the caller
 };
 
-__global__ void __launch_bounds__(kThreads) null_count_keep(const NullParams p) {
-  __shared__ const uint8_t* staged[kStagedMasks];
-  const int nstaged = p.nmasks < kStagedMasks ? p.nmasks : kStagedMasks;
-  for (int j = threadIdx.x; j < nstaged; j += kThreads) staged[j] = p.masks[j];
-  __syncthreads();
-  int acc = 0;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long r = (long long)blockIdx.x * kThreads + threadIdx.x; r < p.n; r += stride) {
-    int valid = p.ncols - p.nmasks;
-    for (int j = 0; j < p.nmasks; ++j) {
-      const uint8_t* m = j < kStagedMasks ? staged[j] : p.masks[j];
-      valid += __ldg(m + r) != 0;
+__device__ __forceinline__ const uint8_t* mask_at(const NullParams& p, int j) {
+  if (p.masks == nullptr) return p.mask[j];
+  return reinterpret_cast<const uint8_t*>(
+      __ldg(reinterpret_cast<const unsigned long long*>(p.masks) + j));
+}
+
+__device__ __forceinline__ void add4(uint4& s, const uint4& x) {
+  s.x = __vadd4(s.x, x.x), s.y = __vadd4(s.y, x.y);
+  s.z = __vadd4(s.z, x.z), s.w = __vadd4(s.w, x.w);
+}
+
+// Masks [j0, j1) (at most kByteLanes of them) added into byte lanes over
+// each live group's 16 rows: one 16-byte streaming load a mask a group,
+// the loads of kGroupsPer groups and four masks issued together.
+__device__ __forceinline__ void add_masks(const NullParams& p, int j0, int j1,
+                                          const long long* g, const bool* live, uint4* sum) {
+#pragma unroll 4
+  for (int j = j0; j < j1; ++j) {
+    const uint4* m = reinterpret_cast<const uint4*>(mask_at(p, j));
+    uint4 x[kGroupsPer];
+#pragma unroll
+    for (int k = 0; k < kGroupsPer; ++k) x[k] = live[k] ? __ldcs(m + g[k]) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int k = 0; k < kGroupsPer; ++k) add4(sum[k], x[k]);
+  }
+}
+
+// Byte b of a group's four words.
+__device__ __forceinline__ unsigned byte_of(const uint4& v, int b) {
+  const unsigned w = b < 4 ? v.x : b < 8 ? v.y : b < 12 ? v.z : v.w;
+  return (w >> (8 * (b & 3))) & 0xFFu;
+}
+
+// The keep flags of kGroupsPer groups of kGroupRows rows, groups g0, g0 +
+// stride, ...: 0/1 bytes, real rows only; a group at or past `groups` is
+// left alone.
+__device__ __forceinline__ void keep_groups(const NullParams& p, long long g0, long long stride,
+                                            long long groups, bool read, uint4* keep) {
+  long long g[kGroupsPer];
+  bool live[kGroupsPer];
+  uint4 real[kGroupsPer];
+#pragma unroll
+  for (int k = 0; k < kGroupsPer; ++k) {
+    g[k] = g0 + k * stride;
+    const long long r0 = g[k] * kGroupRows;
+    const bool exists = g[k] < groups;
+    real[k] = make_uint4(0, 0, 0, 0);
+    if (p.nrows >= 0) {  // a prefix frame: only the group that straddles nrows compares
+      live[k] = exists && r0 < p.nrows;
+      if (live[k]) {
+        const long long left = p.nrows - r0;
+        unsigned w[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const long long in = left - 4 * q;  // real rows of this word
+          w[q] = in >= 4 ? 0x01010101u : in <= 0 ? 0u : 0x01010101u >> (8 * (4 - in));
+        }
+        real[k] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    } else {
+      live[k] = exists;
+      if (exists) {
+        const uint4 v = __ldcs(reinterpret_cast<const uint4*>(p.row_valid + r0));
+        real[k] = make_uint4(__vcmpne4(v.x, 0u) & 0x01010101u, __vcmpne4(v.y, 0u) & 0x01010101u,
+                             __vcmpne4(v.z, 0u) & 0x01010101u, __vcmpne4(v.w, 0u) & 0x01010101u);
+      }
     }
-    bool keep = p.mode == kThresh ? valid >= p.thresh
-                                  : (p.mode == kAny ? valid == p.ncols : valid > 0);
-    keep = keep && is_real(p.nrows, p.row_valid, r);
+  }
+  if (!read) {  // no mask decides: every real row (need <= 0) or none
+#pragma unroll
+    for (int k = 0; k < kGroupsPer; ++k) keep[k] = p.need <= 0 ? real[k] : make_uint4(0, 0, 0, 0);
+    return;
+  }
+  uint4 sum[kGroupsPer];
+#pragma unroll
+  for (int k = 0; k < kGroupsPer; ++k) sum[k] = make_uint4(0, 0, 0, 0);
+  if (p.nmasks <= kByteLanes) {  // at most 255 ones a byte lane: one compare a word
+    add_masks(p, 0, p.nmasks, g, live, sum);
+    const unsigned need4 = (unsigned)p.need * 0x01010101u;
+#pragma unroll
+    for (int k = 0; k < kGroupsPer; ++k)
+      keep[k] = make_uint4(__vcmpgeu4(sum[k].x, need4) & real[k].x,
+                           __vcmpgeu4(sum[k].y, need4) & real[k].y,
+                           __vcmpgeu4(sum[k].z, need4) & real[k].z,
+                           __vcmpgeu4(sum[k].w, need4) & real[k].w);
+    return;
+  }
+  // more masks: the byte lanes of each kByteLanes masks widened into ints
+  int cnt[kGroupsPer][kGroupRows] = {};
+  for (int j0 = 0; j0 < p.nmasks; j0 += kByteLanes) {
+#pragma unroll
+    for (int k = 0; k < kGroupsPer; ++k) sum[k] = make_uint4(0, 0, 0, 0);
+    add_masks(p, j0, min(j0 + kByteLanes, p.nmasks), g, live, sum);
+#pragma unroll
+    for (int k = 0; k < kGroupsPer; ++k)
+#pragma unroll
+      for (int b = 0; b < kGroupRows; ++b) cnt[k][b] += (int)byte_of(sum[k], b);
+  }
+#pragma unroll
+  for (int k = 0; k < kGroupsPer; ++k) {
+    unsigned w[4] = {};
+#pragma unroll
+    for (int b = 0; b < kGroupRows; ++b)
+      w[b >> 2] |= (unsigned)(cnt[k][b] >= p.need) << (8 * (b & 3));
+    keep[k] = make_uint4(w[0] & real[k].x, w[1] & real[k].y, w[2] & real[k].z, w[3] & real[k].w);
+  }
+}
+
+// K14: a persistent wave. On the vector route each thread takes kGroupsPer
+// groups of kGroupRows consecutive rows at a time (keep_groups) and stores
+// each group's flags with one 16-byte streaming store; the rows past the
+// last whole group, and every row on the scalar route, take a row a thread.
+// The kept rows are counted by __popc of the flag words, summed by warp,
+// one atomic a block.
+__global__ void __launch_bounds__(kThreads)
+    null_count_keep(const __grid_constant__ NullParams p) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const bool read = p.need >= 1 && p.need <= p.nmasks;  // else no mask decides
+  int acc = 0;
+  long long tail = 0;  // the first row of the scalar form
+  if (p.vec) {
+    const long long groups = p.n / kGroupRows;
+    tail = groups * kGroupRows;
+    for (long long g0 = tid; g0 < groups; g0 += kGroupsPer * stride) {
+      uint4 keep[kGroupsPer];
+      keep_groups(p, g0, stride, groups, read, keep);
+#pragma unroll
+      for (int k = 0; k < kGroupsPer; ++k) {
+        const long long g = g0 + k * stride;
+        if (g >= groups) continue;
+        __stcs(reinterpret_cast<uint4*>(p.keep) + g, keep[k]);
+        acc += __popc(keep[k].x) + __popc(keep[k].y) + __popc(keep[k].z) + __popc(keep[k].w);
+      }
+    }
+  }
+  for (long long r = tail + tid; r < p.n; r += stride) {
+    bool keep = false;
+    if (is_real(p.nrows, p.row_valid, r)) {
+      if (read) {
+        int valid = 0;
+        for (int j = 0; j < p.nmasks; ++j) valid += __ldcs(mask_at(p, j) + r);
+        keep = valid >= p.need;
+      } else {
+        keep = p.need <= 0;
+      }
+    }
     p.keep[r] = keep;
     acc += keep;
   }
@@ -562,27 +716,50 @@ extern "C" int fugue_first_row_mask(long long num, const void* first_idx, const 
   return (int)err;
 }
 
-// K14. masks: a device array of nmasks pointers to bool [n] (null when
-// nmasks is 0); ncols >= nmasks the columns tested; mode 0 (any: every
-// column valid), 1 (all: any column valid) or 2 (at least thresh valid);
-// rows as for K12. Writes keep bool [n]; adds the kept rows to count,
-// which the caller zeroed.
+// K14. masks: a host array of nmasks pointers to bool [n] (null when
+// nmasks is 0), read here; dev_masks: the same pointers in device memory,
+// read by the kernel above 64 masks (else null); ncols >= nmasks the
+// columns tested; mode 0 (any: every column valid), 1 (all: any column
+// valid) or 2 (at least thresh valid); rows as for K12. Writes keep bool
+// [n]; adds the kept rows to count, which the caller zeroed. *launched is
+// 1 on the vector route (every mask, row_valid and keep 16-byte aligned),
+// 2 on the scalar one.
 extern "C" int fugue_null_count_keep(long long n, long long nrows, const void* row_valid,
-                                     const void* masks, int nmasks, int ncols, int mode,
-                                     int thresh, void* keep, void* count, int device,
-                                     void* stream, int* launched) {
+                                     const void* const* masks, const void* dev_masks,
+                                     int nmasks, int ncols, int mode, int thresh, void* keep,
+                                     void* count, int device, void* stream, int* launched) {
   *launched = 0;
   if (n < 1 || n >= (1LL << 31) || (nrows < 0 && row_valid == nullptr) || nmasks < 0 ||
-      ncols < nmasks || (nmasks > 0 && masks == nullptr) || mode < kAny || mode > kThresh)
+      ncols < nmasks || (nmasks > 0 && masks == nullptr) ||
+      (nmasks > kParamMasks && dev_masks == nullptr) || mode < kAny || mode > kThresh)
     return (int)cudaErrorInvalidValue;
-  NullParams p = {n, nrows, static_cast<const uint8_t*>(row_valid),
-                  static_cast<const uint8_t* const*>(masks), nmasks, ncols, mode, thresh,
-                  static_cast<uint8_t*>(keep), static_cast<int*>(count)};
+  auto at16 = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  NullParams p = {};
+  p.n = n;
+  p.nrows = nrows;
+  p.row_valid = static_cast<const uint8_t*>(row_valid);
+  p.nmasks = nmasks;
+  p.vec = at16(keep) && (nrows >= 0 || at16(row_valid));
+  for (int j = 0; j < nmasks; ++j) {
+    if (masks[j] == nullptr) return (int)cudaErrorInvalidValue;
+    p.vec = p.vec && at16(masks[j]);
+    if (nmasks <= kParamMasks) p.mask[j] = static_cast<const uint8_t*>(masks[j]);
+  }
+  if (nmasks > kParamMasks) p.masks = static_cast<const uint8_t* const*>(dev_masks);
+  // a row's valid columns are (ncols - nmasks) + its set masks
+  const long long others = (long long)ncols - nmasks;
+  const long long need = mode == kThresh ? (long long)thresh - others
+                         : mode == kAny  ? (long long)nmasks
+                                         : 1 - others;
+  p.need = (int)(need < 0 ? 0 : need > nmasks ? (long long)nmasks + 1 : need);
+  p.keep = static_cast<uint8_t*>(keep);
+  p.count = static_cast<int*>(count);
+  const long long work = p.vec ? (n + kGroupRows * kGroupsPer - 1) / (kGroupRows * kGroupsPer) : n;
   const cudaError_t err = on_device(device, [&] {
-    return launch_wave(null_count_keep, n, kThreads, device, static_cast<cudaStream_t>(stream),
-                       p);
+    return launch_wave(null_count_keep, work, kThreads, device,
+                       static_cast<cudaStream_t>(stream), p);
   });
-  if (err == cudaSuccess) *launched = 1;
+  if (err == cudaSuccess) *launched = p.vec ? 1 : 2;
   return (int)err;
 }
 

@@ -7,7 +7,8 @@ outputs and launch the row-selection kernels on PyTorch's current stream.
 - ``first_row_mask_cuda`` (K13): each segment's first row where its
   predicate holds, with the count;
 - ``null_count_keep_cuda`` (K14): dropna's keep flags from the columns'
-  null masks, with the count.
+  null masks, with the count (16 rows a load a mask, the mask pointers by
+  value).
 
 K12 and K13 partition their kept rows by slab of 2^18 rows into scratch
 buckets, then build each slab's bits in shared memory and write its part
@@ -50,7 +51,7 @@ def _bind() -> ctypes.CDLL:
         ]
         lib.fugue_null_count_keep.argtypes = [
             ll, ll, p,  # n, nrows, row_valid
-            p, i, i, i, i,  # masks, nmasks, ncols, mode, thresh
+            ctypes.POINTER(p), p, i, i, i, i,  # masks, dev_masks, nmasks, ncols, mode, thresh
             p, p, i, p, ip,  # keep, count, device, stream, launched
         ]
         for fn in (lib.fugue_rank_keep, lib.fugue_first_row_mask, lib.fugue_null_count_keep):
@@ -187,6 +188,10 @@ def first_row_mask_cuda(
 first_row_mask_cuda.launches = 0  # type: ignore[attr-defined]
 
 
+PARAM_MASKS = 64  # row_select.cu's kParamMasks: mask pointers passed by value
+_ROUTES = {1: "vector", 2: "scalar"}  # fugue_null_count_keep's *launched
+
+
 def null_count_keep_cuda(
     masks: Sequence[torch.Tensor],
     ncols: int,
@@ -200,8 +205,12 @@ def null_count_keep_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K14, with the contract of ``reference.null_count_keep_reference``:
     ``(keep bool[n], count int32 0-d)``. ``masks`` are dense bool [n] on
-    ``device`` (a CUDA device), read through one device array of their
-    pointers, so their number has no cap."""
+    ``device`` (a CUDA device). Up to ``PARAM_MASKS`` of them go to the
+    kernel by value, so the call copies nothing to the card; more go
+    through a device array of their pointers, copied from pinned memory
+    without blocking. ``last_path`` names the route: ``"vector"`` (every
+    mask, ``row_valid`` and the output 16-byte aligned: 16 rows a load) or
+    ``"scalar"``."""
     if how not in DROPNA_HOWS:
         raise ValueError(f"dropna how {how!r}: one of {DROPNA_HOWS}")
     if device is None:
@@ -214,9 +223,11 @@ def null_count_keep_cuda(
     nrows_arg = _check_rows(n, nrows, row_valid, device)
     for j, m in enumerate(masks):
         _check(m, f"mask {j}", (torch.bool,), n, device)
-    ptrs = None
-    if masks:
-        ptrs = torch.tensor([m.data_ptr() for m in masks], dtype=torch.int64).to(device)
+    ptrs = [m.data_ptr() for m in masks]
+    dev_ptrs = None
+    if len(masks) > PARAM_MASKS:
+        dev_ptrs = torch.tensor(ptrs, dtype=torch.int64, pin_memory=True).to(device,
+                                                                             non_blocking=True)
     keep = torch.empty((n,), dtype=torch.bool, device=device)
     count = torch.zeros((), dtype=torch.int32, device=device)
     mode = 2 if thresh is not None else DROPNA_HOWS.index(how)
@@ -224,14 +235,16 @@ def null_count_keep_cuda(
     index, stream = _device_and_stream(device)
     launched = ctypes.c_int(0)
     err = lib.fugue_null_count_keep(
-        n, nrows_arg, _ptr(row_valid), _ptr(ptrs), len(masks), ncols, mode,
-        int(thresh or 0), keep.data_ptr(), count.data_ptr(), index, stream,
-        ctypes.byref(launched),
+        n, nrows_arg, _ptr(row_valid), (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs),
+        _ptr(dev_ptrs), len(masks), ncols, mode, int(thresh or 0), keep.data_ptr(),
+        count.data_ptr(), index, stream, ctypes.byref(launched),
     )
     _raise_on(lib, err, "null_count_keep")
     if launched.value:
         null_count_keep_cuda.launches += 1
+        null_count_keep_cuda.last_path = _ROUTES[launched.value]
     return keep, count
 
 
 null_count_keep_cuda.launches = 0  # type: ignore[attr-defined]
+null_count_keep_cuda.last_path = None  # type: ignore[attr-defined]

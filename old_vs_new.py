@@ -8,7 +8,7 @@ DIR holds files of the other tree (as a rule the parent commit's), for
 example unpacked with ``git archive`` into a git-ignored directory: any of
 ``factorize.cu``, ``factorize.py``, ``join.cu``, ``join.py``,
 ``segment_reduce.cu``, ``segment_reduce.py``, ``gather.cu``, ``gather.py``,
-``comap.cu``, ``comap.py``
+``comap.cu``, ``comap.py``, ``row_select.cu``, ``row_select.py``
 (from ``fugue_tpu_torch/kernels/``), ``groupby.py`` and ``streaming.py``
 (from ``fugue_tpu_torch/torch_backend/``). Its sources are built here with this
 tree's headers and flags, and each wrapper module is bound to its own
@@ -79,12 +79,20 @@ the two versions' outputs are checked equal:
   Q16's NOT IN statement with each tree's K8 swapped in
   (``probe_paths``): the results alike, best warm, device time of one run;
 - with ``comap``: K18 at ``chip_smoke.comap_timing``'s config 4 shape and
-  at 2^24 segments with 33 members (two presence words) (``k18``).
+  at 2^24 segments with 33 members (two presence words) (``k18``); K17 at
+  each of ``chip_smoke.presence_shapes`` (``k17``);
+- with ``row_select``: K14 at each of ``chip_smoke.null_count_shapes``
+  (``k14``); with ``comap`` too, config 4's zip at 100M rows and the
+  dropna of four masked columns over 100M rows with each tree's K17 and
+  K14 swapped in (``select_paths``): the results alike, best warm, device
+  time of one run. Each K17 and K14 line carries the shape's bound, its
+  one PyTorch call and, for this tree, the route taken (``last_path``).
 
 ``--only k8,k18,probe_paths`` (any of ``reduce``, ``full_groupby``,
 ``k10``, ``k7``, ``k7_routes``, ``paths``, ``k2``, ``wide_route``,
-``k9``, ``stream_host``, ``k8``, ``k18``, ``probe_paths``) runs only
-those comparisons. With ``--old-only``, the ``segment_reduce``, ``gather``, ``join`` and ``comap``
+``k9``, ``stream_host``, ``k8``, ``k18``, ``probe_paths``, ``k17``, ``k14``,
+``select_paths``) runs only those comparisons. With ``--old-only``, the
+``segment_reduce``, ``gather``, ``join``, ``comap`` and ``row_select``
 comparisons time DIR's version alone (beside the library calls): a reading
 taken before this tree's kernels are timed. With
 ``--no-check``, K10 and K7 are timed without holding the two versions'
@@ -122,14 +130,15 @@ def load_old(root: Path) -> Dict[str, Any]:
     from fugue_tpu_torch.kernels import build
 
     out = root / "_build"
-    sources = [stem for stem in ("factorize", "join", "segment_reduce", "gather", "comap")
+    sources = [stem for stem in ("factorize", "join", "segment_reduce", "gather", "comap",
+                                 "row_select")
                if (root / f"{stem}.cu").exists()]
     build.compile_jobs([(stem, [*build.NVCC_FLAGS, f"-I{build.KERNEL_DIR}",
                                 str(root / f"{stem}.cu")], out / f"{stem}.so")
                         for stem in sources])
     mods = {}
-    for stem in ("factorize", "join", "segment_reduce", "gather", "comap", "groupby",
-                 "streaming"):
+    for stem in ("factorize", "join", "segment_reduce", "gather", "comap", "row_select",
+                 "groupby", "streaming"):
         if not (root / f"{stem}.py").exists():
             continue
         spec = importlib.util.spec_from_file_location(f"old_{stem}", root / f"{stem}.py")
@@ -798,16 +807,9 @@ def k18(device: Any, old: Dict[str, Any], old_only: bool) -> None:
     from fugue_tpu_torch.kernels import comap
 
     oc = old["comap"]
-    gen = torch.Generator(device=device).manual_seed(cs.SEED)
-    groups = cs.CONFIG4_BIG_GROUPS
-    na, nb = groups * cs.CONFIG4_PER, groups
-    config4 = (torch.cat([torch.arange(na, device=device) // cs.CONFIG4_PER,
-                          torch.arange(nb, device=device)]).to(torch.int32), groups, [na, nb])
-    members, num = 33, 1 << 24
-    per = cs.ROWS // members
-    sizes = [per] * (members - 1) + [cs.ROWS - per * (members - 1)]
-    seg33 = torch.cat([torch.sort(torch.randint(0, num, (s,), generator=gen, device=device,
-                                                dtype=torch.int32)).values for s in sizes])
+    config4 = cs.config4_stacked(device)
+    num = cs.PRESENCE_WIDE_SEGMENTS
+    seg33, sizes = cs.sorted_members(device, cs.ROWS, 33, num, cs.SEED)
     for label, (seg, segs, sz) in (("config 4 (102M rows, 2 members, 2M segments)", config4),
                                    ("100M rows, 33 members, 2^24 segments", (seg33, num, sizes))):
         offsets, nrows = cs.comap_layout(device, sz, sz)
@@ -845,35 +847,23 @@ def frame_arrays(out: Any) -> List[Any]:
     return [b.nrows, *arrays]
 
 
-def probe_paths(device: Any, old: Dict[str, Any], old_only: bool) -> None:
-    """Config 10's expansion join and Q16's NOT IN statement with each
-    tree's K8 in turn: results alike, best warm of 3, device ms of one
-    run."""
+def path_turns(device: Any, paths: List[Any], install: Callable[[str], None],
+               old_only: bool, same: Callable[[Any, Any], bool]) -> None:
+    """Each ``(label, fn)`` of ``paths`` (``fn`` runs the path and returns
+    its frame) with each tree's kernels in turn (``install("old")`` or
+    ``"new"``; old, new, new, old): results alike (``same`` on each column
+    of ``frame_arrays``), best warm of 3, device ms of one run. Leaves the
+    new kernels installed."""
     import torch
-
-    from fugue_tpu_torch.torch_backend import relational
-
-    versions = {"old": old["join"].join_probe_cuda, "new": relational.join_probe_cuda}
-    join_once = cs.build_join_expand(device, cs.JOIN_EXPAND_ROWS)[1]
-
-    def expansion() -> Any:
-        out = join_once()
-        out.count()
-        return out
-
-    not_in_run = cs.build_sql_paths(device, 10_000, cs.NOT_IN_ROWS)[0]["q16_not_in"]
-
-    def not_in() -> Any:
-        return not_in_run()[1]
 
     order = ("old", "old") if old_only else ("old", "new", "new", "old")
     try:
-        for label, fn in (("join_expand", expansion), ("q16_not_in", not_in)):
+        for label, fn in paths:
             got: Dict[str, Any] = {}
             best: Dict[str, List[float]] = {"old": [], "new": []}
             busy: Dict[str, List[Optional[float]]] = {"old": [], "new": []}
             for which in order:
-                relational.join_probe_cuda = versions[which]
+                install(which)
                 out = fn()
                 torch.cuda.synchronize(device)
                 if which not in got:
@@ -889,7 +879,7 @@ def probe_paths(device: Any, old: Dict[str, Any], old_only: bool) -> None:
                 busy[which].append(cs.device_busy_ms(fn, device))
             if not old_only:
                 a, b = got["old"], got["new"]
-                if a[0] != b[0] or any(not torch_equal(x, y) for x, y in zip(a[1:], b[1:])):
+                if a[0] != b[0] or any(not same(x, y) for x, y in zip(a[1:], b[1:])):
                     raise SystemExit(f"FAIL old_vs_new {label}: the two versions differ")
             del got
             print("old_vs_new: " + json.dumps({
@@ -898,11 +888,134 @@ def probe_paths(device: Any, old: Dict[str, Any], old_only: bool) -> None:
                 "new_device_ms": busy["new"], "card": cs.card_line()}), flush=True)
             torch.cuda.empty_cache()
     finally:
-        relational.join_probe_cuda = versions["new"]
+        install("new")
+
+
+def probe_paths(device: Any, old: Dict[str, Any], old_only: bool) -> None:
+    """Config 10's expansion join and Q16's NOT IN statement with each
+    tree's K8 in turn (``path_turns``)."""
+    from fugue_tpu_torch.torch_backend import relational
+
+    versions = {"old": old["join"].join_probe_cuda, "new": relational.join_probe_cuda}
+    join_once = cs.build_join_expand(device, cs.JOIN_EXPAND_ROWS)[1]
+
+    def expansion() -> Any:
+        out = join_once()
+        out.count()
+        return out
+
+    not_in_run = cs.build_sql_paths(device, 10_000, cs.NOT_IN_ROWS)[0]["q16_not_in"]
+
+    def not_in() -> Any:
+        return not_in_run()[1]
+
+    def install(which: str) -> None:
+        relational.join_probe_cuda = versions[which]
+
+    path_turns(device, [("join_expand", expansion), ("q16_not_in", not_in)], install, old_only,
+               torch_equal)
+
+
+def k17(device: Any, old: Dict[str, Any], old_only: bool) -> None:
+    """K17 of each tree at each of ``chip_smoke.presence_shapes``."""
+    import torch
+
+    from fugue_tpu_torch.kernels import comap
+
+    op = old["comap"].comap_presence_cuda
+    for label, kw, library, nbytes in cs.presence_shapes(device):
+        new_fn = lambda: [comap.comap_presence_cuda(**kw)]  # noqa: E731,B023
+        old_fn = lambda: [op(**kw)]  # noqa: E731,B023
+        extra: Dict[str, Any] = {
+            "rows": int(kw["seg"].shape[0]), "members": int(kw["offsets"].shape[0]) - 1,
+            "segments": kw["num_segments"], "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3,
+            "library_ms": cs.time_cuda(library, 5),
+            "old_device_ms": kernel_ms(old_fn, "comap_presence", device)}
+        if not old_only:
+            new_fn()
+            extra.update(path=comap.comap_presence_cuda.last_path,
+                         new_device_ms=kernel_ms(new_fn, "comap_presence", device))
+        timed_once(f"comap_presence {label}", new_fn, old_fn, old_only, torch_equal, 20, **extra)
+        del kw, library
+        torch.cuda.empty_cache()
+
+
+def k14(device: Any, old: Dict[str, Any], old_only: bool) -> None:
+    """K14 of each tree at each of ``chip_smoke.null_count_shapes``."""
+    import torch
+
+    from fugue_tpu_torch.kernels import row_select
+
+    op = old["row_select"].null_count_keep_cuda
+    for label, kw, library, nbytes in cs.null_count_shapes(device):
+        new_fn = lambda: list(row_select.null_count_keep_cuda(**kw))  # noqa: E731,B023
+        old_fn = lambda: list(op(**kw))  # noqa: E731,B023
+        extra: Dict[str, Any] = {
+            "rows": kw["n"], "masks": len(kw["masks"]),
+            "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3,
+            "library_ms": cs.time_cuda(library, 5),
+            "old_device_ms": kernel_ms(old_fn, "null_count_keep", device)}
+        if not old_only:
+            new_fn()
+            extra.update(path=row_select.null_count_keep_cuda.last_path,
+                         new_device_ms=kernel_ms(new_fn, "null_count_keep", device))
+        timed_once(f"null_count_keep {label}", new_fn, old_fn, old_only, torch_equal, 20,
+                   **extra)
+        del kw, library
+        torch.cuda.empty_cache()
+
+
+def alike(a: Any, b: Any) -> bool:
+    """Two output columns alike: exactly, but floats (sums of float
+    columns, added by atomics in no fixed order) within
+    ``chip_smoke.COMAP_RTOL``, a NaN equal to a NaN."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        return torch.allclose(a, b, rtol=cs.COMAP_RTOL, atol=0.0, equal_nan=True)
+    return torch.equal(a, b)
+
+
+def select_paths(device: Any, old: Dict[str, Any], old_only: bool) -> None:
+    """Config 4's zip at 100M rows (``chip_smoke.build_zip_paths``: zip,
+    transform, the result to pandas) and the dropna of four masked float64
+    columns over 100M rows (``chip_smoke.na_frame``, its count read) with
+    each tree's K17 and K14 in turn (``path_turns``; floats ``alike``)."""
+    import fugue_tpu_torch as ft
+
+    from fugue_tpu_torch.torch_backend import comap_compiled, relational
+
+    versions = {
+        "old": (old["comap"].comap_presence_cuda, old["row_select"].null_count_keep_cuda),
+        "new": (comap_compiled.comap_presence_cuda, relational.null_count_keep_cuda)}
+    runs, _comaps, _data, _e = cs.build_zip_paths(device, (cs.CONFIG4_BIG_GROUPS,),
+                                                  (10_000, 5_000), cs.ZIP_CROSS_ROWS)
+    config4 = runs["config4_inner_100m"]
+    del runs, _comaps, _data
+    engine = ft.make_execution_engine("torch", device=device)
+    _nad, natable = cs.na_frame(cs.ROWS, cs.NA_SEED)
+    na_src = engine.persist(engine.to_df(natable))
+    del _nad, natable
+
+    def zip_config4() -> Any:
+        return config4()[1]
+
+    def dropna() -> Any:
+        out = ft.dropna(na_src, subset=["a", "b", "c", "d"], engine=engine)
+        out.count()
+        return out
+
+    def install(which: str) -> None:
+        comap_compiled.comap_presence_cuda, relational.null_count_keep_cuda = versions[which]
+
+    path_turns(device, [("zip_config4_100m", zip_config4), ("dropna_any", dropna)], install,
+               old_only, alike)
 
 
 COMPARISONS = ("reduce", "full_groupby", "k10", "k7", "k7_routes", "paths", "k2", "wide_route",
-               "k9", "stream_host", "k8", "k18", "probe_paths")
+               "k9", "stream_host", "k8", "k18", "probe_paths", "k17", "k14", "select_paths")
 
 
 def main() -> None:
@@ -929,6 +1042,8 @@ def main() -> None:
     def want(name: str, *stems: str) -> bool:
         return name in only and all(stem in old for stem in stems)
 
+    if want("select_paths", "comap", "row_select"):
+        select_paths(device, old, old_only)
     if want("reduce", "segment_reduce"):
         reduce(device, old, old_only)
     if want("full_groupby", "segment_reduce"):
@@ -945,6 +1060,10 @@ def main() -> None:
         probe_paths(device, old, old_only)
     if want("k18", "comap"):
         k18(device, old, old_only)
+    if want("k17", "comap"):
+        k17(device, old, old_only)
+    if want("k14", "row_select"):
+        k14(device, old, old_only)
     if want("paths", "join", "gather") and not NO_CHECK:
         paths(device, old, old_only)
     if old_only or NO_CHECK:

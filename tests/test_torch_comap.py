@@ -3,7 +3,8 @@
 CPU device (``FugueWorkflow`` zip + transform over frames on its mesh, as
 ``tests/fugue_tpu/jax_backend/test_comap_compiled.py:_run_both`` runs
 it), with inputs from numpy seeds: every zip type, three members, a
-string key whose dictionaries differ, per-segment, row-aligned and
+string key whose dictionaries differ, three members whose rows straddle
+the kernels' row tile, per-segment, row-aligned and
 explicit-``_nrows`` outputs, an over-reporting ``_nrows``, an empty
 intersection and BASELINE config 4 at its small shape (``bench.py:921``,
 100 groups of 50). Neither engine may fall back. Keys and counts are
@@ -275,6 +276,64 @@ def test_three_members() -> None:
     c = pd.DataFrame({"k": rng.integers(5, 45, 90).astype(np.int64), "x": rng.random(90)})
     got = both([a, b, c], j_three, t_three, "k:long,s:double,n:long")
     assert set(got.column("k").to_pylist()) == set(a.k) & set(b.k) & set(c.k)
+
+
+def j_three_counts(a: Dict[str, jax.Array], b: Dict[str, jax.Array],
+                   c: Dict[str, jax.Array]) -> Dict[str, jax.Array]:
+    k = jnp.maximum(jnp.maximum(j_seg_key(a, "k"), j_seg_key(b, "k")), j_seg_key(c, "k"))
+    return {"k": k, "na": j_seg_count(a), "nb": j_seg_count(b), "nc": j_seg_count(c),
+            "s": j_seg_sum(a, "v") + j_seg_sum(b, "w") * 2 + j_seg_sum(c, "x") * 3}
+
+
+def t_three_counts(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor],
+                   c: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    k = torch.maximum(torch.maximum(t_seg_key(a, "k"), t_seg_key(b, "k")), t_seg_key(c, "k"))
+    return {"k": k, "na": t_seg_count(a), "nb": t_seg_count(b), "nc": t_seg_count(c),
+            "s": t_seg_sum(a, "v") + t_seg_sum(b, "w") * 2 + t_seg_sum(c, "x") * 3}
+
+
+def j_three_cross(a: Dict[str, jax.Array], b: Dict[str, jax.Array],
+                  c: Dict[str, jax.Array]) -> Dict[str, jax.Array]:
+    return {"n": jnp.stack([a["_nrows"], b["_nrows"], c["_nrows"]]).astype(jnp.int64),
+            "s": jnp.stack([j_seg_sum(a, "v")[0], j_seg_sum(b, "w")[0], j_seg_sum(c, "x")[0]]),
+            "_nrows": jnp.int32(3)}
+
+
+def t_three_cross(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor],
+                  c: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {"n": torch.stack([a["_nrows"], b["_nrows"], c["_nrows"]]).to(torch.int64),
+            "s": torch.stack([t_seg_sum(a, "v")[0], t_seg_sum(b, "w")[0],
+                              t_seg_sum(c, "x")[0]]),
+            "_nrows": torch.tensor(3, dtype=torch.int32)}
+
+
+# K17's and K18's row tile (kRowTile in fugue_tpu_torch/kernels/comap.cu)
+TILE_ROWS = 1024
+
+
+@pytest.mark.parametrize("how", ["inner", "left_outer", "right_outer", "full_outer", "cross"])
+def test_three_members_straddling_the_row_tile(how: str) -> None:
+    """Three members of 1,023, 1 and 1,025 rows, so that the stacked rows'
+    member boundaries fall one row before a row tile's edge and one row
+    past it, with a member of one row between: every zip type."""
+    rng = np.random.default_rng(12)
+    na, nc = TILE_ROWS - 1, TILE_ROWS + 1
+    a = pd.DataFrame({"k": np.sort(rng.integers(0, 300, na)).astype(np.int64),
+                      "v": rng.random(na)})
+    b = pd.DataFrame({"k": np.array([int(a.k.iloc[na // 2])], dtype=np.int64), "w": [0.5]})
+    c = pd.DataFrame({"k": rng.integers(100, 400, nc).astype(np.int64), "x": rng.random(nc)})
+    if how == "cross":
+        frames = [a.rename(columns={"k": "ka"}), b.rename(columns={"k": "kb"}),
+                  c.rename(columns={"k": "kc"})]
+        got = both(frames, j_three_cross, t_three_cross, "n:long,s:double", how=how, sort=["n"])
+        assert sorted(got.column("n").to_pylist()) == [1, na, nc]
+        return
+    got = both([a, b, c], j_three_counts, t_three_counts,
+               "k:long,na:long,nb:long,nc:long,s:double", how=how)
+    ka, kb, kc = set(a.k), set(b.k), set(c.k)
+    want = {"inner": ka & kb & kc, "left_outer": ka, "right_outer": kc,
+            "full_outer": ka | kb | kc}[how]
+    assert set(got.column("k").to_pylist()) == want
 
 
 def test_string_key_with_different_dictionaries() -> None:

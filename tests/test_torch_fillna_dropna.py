@@ -209,6 +209,39 @@ def test_dropna_matches_jax(kw, filtered):
     assert te.fallbacks == {}
 
 
+def wide_nullable_frame(seed: int, n: int = 1_200, ncols: int = 70) -> pd.DataFrame:
+    """``ncols`` nullable Int32 columns (3 % nulls each; more than the 64
+    masks K14 takes by value) and a key ``k`` to filter by."""
+    rng = np.random.default_rng(seed)
+    cols = {"k": rng.integers(0, 10, n).astype(np.int64)}
+    for j in range(ncols):
+        a = pd.array(rng.integers(-50, 50, n), dtype="Int32")
+        a[rng.random(n) < 0.03] = pd.NA
+        cols[f"c{j}"] = a
+    return pd.DataFrame(cols)
+
+
+WIDE_DROPS = [dict(thresh=69), dict(thresh=60, subset=[f"c{j}" for j in range(0, 70, 1)]),
+              dict(thresh=64, subset=[f"c{j}" for j in range(3, 70)]),
+              dict(subset=[f"c{j}" for j in range(0, 70, 2)])]
+
+
+@pytest.mark.parametrize("kw", WIDE_DROPS, ids=["thresh 69", "thresh 60 of 70", "thresh 64 of 67",
+                                                "any of 35"])
+def test_dropna_of_70_nullable_columns_after_a_filter_matches_jax(kw):
+    """70 nullable columns over 1,200 rows, masked by a filter first:
+    ``thresh`` over every column and over a subset, and ``how="any"`` over
+    a subset."""
+    te, je, t, j = _engines(wide_nullable_frame(31))
+    t, j = te.filter(t, ft.col("k") != 3), je.filter(j, jcol("k") != 3)
+    got = te.dropna(t, **kw)
+    assert not got.blocks.nrows_known
+    want = je.dropna(j, **kw)
+    assert_same_rows(got, want)
+    assert 0 < got.count() < 1_200
+    assert te.fallbacks == {}
+
+
 def test_dropna_refusals_and_entry_points():
     te = ft.make_execution_engine(device="cpu")
     with pytest.raises(KeyError):
