@@ -988,8 +988,9 @@ def build_partitioned_transform(
 ) -> Tuple[Callable[[], Tuple[float, Dict[str, Any]]], Any]:
     """Upload the config-2 frame and return ``(run_once, frame)``;
     ``run_once()`` drives ``transform(partition={"by": ["k"]})`` of
-    ``udfs()["demean"]`` and brings every output column back to host
-    arrays, and returns ``(seconds, arrays)``."""
+    ``udfs()["demean"]`` and brings every output column back through the
+    host endpoint (``as_arrow``) as numpy arrays, and returns ``(seconds,
+    arrays)``."""
     from fugue_tpu_torch import make_execution_engine, transform
 
     pdf = config2_frame(rows)
@@ -1000,7 +1001,8 @@ def build_partitioned_transform(
         t = time.perf_counter()
         out = transform(src, udfs()["demean"], schema="k:int,v:float,z:float",
                         partition={"by": ["k"]}, engine=engine, as_fugue=True)
-        host = {name: c.data.cpu().numpy() for name, c in out.blocks.columns.items()}
+        table = out.as_arrow()  # the host endpoint: one wave of copies into pinned memory
+        host = {name: table.column(name).to_numpy() for name in table.column_names}
         return time.perf_counter() - t, host
 
     return run_once, pdf
@@ -2873,10 +2875,14 @@ def _check_columns(pdf: Any, want: Dict[str, Any], exact: Tuple[str, ...],
 
 # each path's launches in one run: K6 once per filter, assign and
 # aggregate argument list that is more than bare columns
+# an aggregate's result is a masked frame over its bins: its export to
+# pandas compacts it with one K10 launch (blocks.leading_rows), here and in
+# every path below that ends in a masked frame's as_pandas
 K6_PATH_LAUNCHES = {
-    "filtered_pipeline": dict(expr_program=2, expr_program_filter=1, binned_sums=1),
-    "where_having": dict(expr_program=3, expr_program_filter=2, binned_sums=1),
-    "config3_select": dict(binned_sums=1),
+    "filtered_pipeline": dict(expr_program=2, expr_program_filter=1, binned_sums=1,
+                              gather_rows=1),
+    "where_having": dict(expr_program=3, expr_program_filter=2, binned_sums=1, gather_rows=1),
+    "config3_select": dict(binned_sums=1, gather_rows=1),
 }
 FLOAT64_SUM_RTOL = 1e-9  # float64 sums of float64 values in another order
 
@@ -3553,8 +3559,8 @@ def join_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
 # each join path's launches in one run
 JOIN_PATH_LAUNCHES = {
     # the keys bin (K1); the unique right side (K7 slots, K8, K10 for w);
-    # the aggregate by the binned key (the fused sums)
-    "join_3b": dict(bin_factorize=1, join_build=1, join_probe=1, gather_rows=1, binned_sums=1),
+    # the aggregate by the binned key (the fused sums), K10 at its export
+    "join_3b": dict(bin_factorize=1, join_build=1, join_probe=1, gather_rows=2, binned_sums=1),
     # 150M int64 keys over 25M groups: the word route with K3's scatter;
     # K7, K8, K9, then K10 once a side
     "join_expand": dict(sort_word=1, sort_word_boundaries=1, sort_finish=1, join_build=1,
@@ -4484,17 +4490,18 @@ STRING_PATH_LAUNCHES = {
     # the codes pass through, the dictionary is remapped on the host
     "config1_map": {},
     # the WHERE's LUTs (one filter launch), the fused sums by the binned
-    # string key
-    "string_groupby": dict(expr_program=1, expr_program_filter=1, binned_sums=1),
+    # string key, K10 at the export
+    "string_groupby": dict(expr_program=1, expr_program_filter=1, binned_sums=1,
+                           gather_rows=1),
     # the assign (a canonicalising LUT and LENGTH's LUT), the fused sums
-    "string_upper_groupby": dict(expr_program=1, binned_sums=1),
+    "string_upper_groupby": dict(expr_program=1, binned_sums=1, gather_rows=1),
     # one harmonize LUT, K1 over the stacked codes, K7, K8, K9, K10 a
     # side, then the fused sums by the binned key
     "string_join": dict(expr_program=1, bin_factorize=1, join_build=1, join_probe=1,
-                        join_expand=1, gather_rows=2, binned_sums=1),
+                        join_expand=1, gather_rows=3, binned_sums=1),
     # K1 over the binned date (cold only), the fused sums, K4 for MIN and
     # MAX
-    "date_groupby": dict(bin_factorize=1, binned_sums=1, segment_extrema=1),
+    "date_groupby": dict(bin_factorize=1, binned_sums=1, segment_extrema=1, gather_rows=1),
 }
 # the kernels a path launches in its cold run only: the factorization of
 # a frame's keys is cached on the frame (groupby.factorize_keys)
@@ -4687,8 +4694,10 @@ REPARTITION_NUM = 8
 # not (each call stacks its two frames anew)
 _Q_FACTORIZE = dict(expr_program=2, sort_boundaries=1, sort_finish=1, join_build=1)
 RELATIONAL_PATH_LAUNCHES = {
-    "take_top_n": dict(bin_factorize=1, presort_word=1, join_build=1, rank_keep=1),
-    "take_global": dict(presort_word=1, rank_keep=1),
+    # a take's kept rows are a masked frame: K10 at its export
+    "take_top_n": dict(bin_factorize=1, presort_word=1, join_build=1, rank_keep=1,
+                       gather_rows=1),
+    "take_global": dict(presort_word=1, rank_keep=1, gather_rows=1),
     "distinct_pairs": dict(sort_word=1, sort_word_boundaries=1, sort_finish=1,
                            first_row_mask=1),
     "intersect_distinct": dict(**_Q_FACTORIZE, first_row_mask=1),
@@ -6398,7 +6407,8 @@ STREAM_SEED = 29
 FOLD_RTOL = 1e-9  # float64 sums, kernel against twin: atomics add in another order
 COMAP_RTOL = 1e-9  # float64 sums against pandas
 
-_ZIP_LAUNCHES = dict(bin_factorize=1, comap_presence=1, comap_rows=1)
+# K10 at the export of the co-map's masked output
+_ZIP_LAUNCHES = dict(bin_factorize=1, comap_presence=1, comap_rows=1, gather_rows=1)
 COMAP_PATH_LAUNCHES = {
     "config4_inner": _ZIP_LAUNCHES,
     "config4_inner_100m": _ZIP_LAUNCHES,
@@ -6408,7 +6418,7 @@ COMAP_PATH_LAUNCHES = {
     "zip_three_inner": _ZIP_LAUNCHES,
     "zip_string_key": dict(_ZIP_LAUNCHES, expr_program=1),  # the harmonize re-coding
     "zip_row_aligned": _ZIP_LAUNCHES,
-    "zip_cross": dict(comap_rows=1),
+    "zip_cross": dict(comap_rows=1, gather_rows=1),
 }
 
 
@@ -7526,6 +7536,358 @@ def stream_fold_edges(device: Any, rows: int, fold: Optional[Callable[..., Any]]
     return out
 
 
+# ---- the host boundary and file I/O (BASELINE config 5) ---------------------
+
+CONFIG5_ROWS = (5_000_000, 100_000_000)  # bench.py:1011's n, then the headline's rows
+CONFIG5_GROUPS, CONFIG5_SEED = 128, 4  # bench.py:1012-1018
+CONFIG5_WARM_RUNS = 3
+# the launches of one config 5 run: the fused sums once; K10 once, where
+# the aggregate's masked result is compacted for its save
+CONFIG5_LAUNCHES = dict(binned_sums=1, gather_rows=1)
+IO_CHECK_ROWS = 2_000_003  # the mixed-type load, save and export checks
+IO_CHECK_BATCH = 300_007  # their batch rows: no divisor of the rows, slabs reused
+PINNED_COPIES = ("Memcpy HtoD (Pinned -> Device)", "Memcpy DtoH (Device -> Pinned)")
+
+
+def config5_frame(rows: int) -> Any:
+    """BASELINE config 5's source (``bench.py:1011-1018``): ``k`` int32
+    uniform over [0, 128), ``v`` float32, from ``default_rng(4)``."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(CONFIG5_SEED)
+    return pd.DataFrame({"k": rng.integers(0, CONFIG5_GROUPS, rows).astype(np.int32),
+                         "v": rng.random(rows).astype(np.float32)})
+
+
+def config5_batch_rows(rows: int) -> int:
+    """The streamed engine's batch rows, as the bench sets them (``:1036``)."""
+    return max(rows // 16, 65_536)
+
+
+def build_config5(device: Any, src: str, out: str, batch_rows: int
+                  ) -> Tuple[Callable[[], Tuple[Dict[str, float], Any]], Any]:
+    """``(run_once, engine)``: ``run_once()`` drives BASELINE config 5
+    (``bench.py:1040-1050``) through the port's entry points: ``load_df`` of
+    the parquet file ``src`` (streamed with ``batch_rows`` > 0), the UDF
+    ``v2 = v * 0.5``, ``sum(v2)`` and ``count(v2)`` by ``k``, ``save_df`` to
+    ``out``; with the phases' boundaries forced (the load's columns on the
+    card, the aggregate done) as ``bench.py:1069-1086`` forces them. It
+    returns the load, compute and save seconds and the loaded frame."""
+    import torch
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch import col, functions as ff
+
+    engine = ft.make_execution_engine(device=device,
+                                      conf={"fugue.torch.io.batch_rows": batch_rows})
+
+    def udf(a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {"k": a["k"], "v2": a["v"] * 0.5}
+
+    def run_once() -> Tuple[Dict[str, float], Any]:
+        t0 = time.perf_counter()
+        df = engine.load_df(src, format_hint="parquet")
+        df.blocks
+        sync(device)
+        t1 = time.perf_counter()
+        tout = ft.transform(df, udf, schema="k:int,v2:float", engine=engine, as_fugue=True)
+        agg = ft.aggregate(tout, partition_by="k", s=ff.sum(col("v2")), c=ff.count(col("v2")),
+                           engine=engine, as_fugue=True)
+        sync(device)
+        t2 = time.perf_counter()
+        engine.save_df(agg, out, format_hint="parquet")
+        t3 = time.perf_counter()
+        return {"load_secs": t1 - t0, "compute_secs": t2 - t1, "save_secs": t3 - t2,
+                "total_secs": t3 - t0}, df
+
+    return run_once, engine
+
+
+def check_config5(label: str, out: str, want: Dict[str, Any]) -> float:
+    """The saved file against float64 numpy: keys and counts exactly, sums
+    within ``MAIN_PATH_RTOL``; returns the largest relative error."""
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    got = pq.read_table(out).to_pandas().sort_values("k")
+    if list(got.columns) != ["k", "s", "c"] or not np.array_equal(got["k"], want["k"]) \
+            or not np.array_equal(got["c"], want["c"]):
+        raise SystemExit(f"FAIL {label}: keys or counts differ from numpy's")
+    s = got["s"].to_numpy(np.float64)
+    rel = float(np.max(np.abs(s - want["s"]) / np.abs(want["s"])))
+    if not (np.all(np.isfinite(s)) and rel <= MAIN_PATH_RTOL):
+        raise SystemExit(f"FAIL {label}: sums off by rtol {rel}")
+    return rel
+
+
+def same_blocks(label: str, got: Any, want: Any) -> None:
+    """Two loads of one file alike bit for bit: rows, columns, masks,
+    stats, ``unique`` flags and dictionaries."""
+    import torch
+
+    if got.nrows != want.nrows or list(got.columns) != list(want.columns):
+        raise SystemExit(f"FAIL {label}: rows or columns differ")
+    for name, g in got.columns.items():
+        w = want.columns[name]
+        same = (g.pa_type == w.pa_type and torch.equal(g.data.view(torch.uint8),
+                                                       w.data.view(torch.uint8))
+                and (g.mask is None) == (w.mask is None)
+                and (g.mask is None or torch.equal(g.mask, w.mask))
+                and (g.stats, g.unique) == (w.stats, w.unique)
+                and (g.dictionary is None) == (w.dictionary is None)
+                and (g.dictionary is None or list(g.dictionary) == list(w.dictionary)))
+        if not same:
+            raise SystemExit(f"FAIL {label}: column {name} differs between the loads")
+
+
+def copy_kinds(run_once: Callable[[], Any], device: Any) -> Dict[str, Any]:
+    """One run under ``torch.profiler``: the copies between host and card
+    it traced (name: count), and its device milliseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_once()
+        sync(device)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"copies": {e.key: e.count for e in events if e.key.startswith("Memcpy")},
+            "device_ms": sum(e.self_device_time_total for e in events) / 1e3}
+
+
+def traced_config5(src: str, out: str, modes: Dict[str, int], tries: int = 3
+                   ) -> Dict[str, Dict[str, Any]]:
+    """``copy_kinds`` of a warm config 5 run (``build_config5``) of each
+    mode of ``modes`` (name: batch rows), in one fresh process: a trace
+    taken after other profiler sessions of one process can lose device
+    events. A trace that lacks either pinned kind is taken again, up to
+    ``tries`` times."""
+    import os
+
+    code = ("import json, torch, chip_smoke as cs\n"
+            "d = torch.device('cuda', torch.cuda.current_device())\n"
+            "traces = {}\n"
+            f"for mode, batch_rows in {modes!r}.items():\n"
+            f"    run = cs.build_config5(d, {src!r}, {out!r}, batch_rows)[0]\n"
+            "    run()\n"
+            f"    for _ in range({tries}):\n"
+            "        traces[mode] = cs.copy_kinds(run, d)\n"
+            "        if set(cs.PINNED_COPIES) <= set(traces[mode]['copies']):\n"
+            "            break\n"
+            "print(json.dumps(traces))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)), timeout=900)
+    if res.returncode != 0:
+        raise SystemExit(f"FAIL the traced config 5 runs: {res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def config5_path(device: Any, rows: int, warm_runs: int, tmp: str) -> List[Dict[str, Any]]:
+    """BASELINE config 5 at ``rows`` rows, eager and streamed
+    (``build_config5``): the source written as ``bench.py:1019-1021``
+    writes it, a cold and ``warm_runs`` warm runs of each with their phase
+    seconds, every saved file against numpy (``check_config5``), each
+    run's launches held to ``CONFIG5_LAUNCHES``, the streamed load's
+    frame against the eager load's bit for bit (``same_blocks``), and a
+    warm run's trace (``traced_config5``): on the card it must hold pinned
+    copies of both directions and no other copy between host and card."""
+    import os
+
+    import numpy as np
+
+    t = time.perf_counter()
+    pdf = config5_frame(rows)
+    src = os.path.join(tmp, f"src_{rows}.parquet")
+    pdf.to_parquet(src)
+    k = pdf["k"].to_numpy()
+    v2 = pdf["v"].to_numpy() * np.float32(0.5)
+    del pdf
+    c = np.bincount(k, minlength=CONFIG5_GROUPS)
+    s = np.bincount(k, weights=v2.astype(np.float64), minlength=CONFIG5_GROUPS)
+    occ = np.nonzero(c)[0]
+    want = {"k": occ.astype(np.int32), "c": c[occ], "s": s[occ]}
+    del k, v2
+    print(f"config5 {rows}: source written and numpy's answer in "
+          f"{time.perf_counter() - t:.1f}s", flush=True)
+    out_stats = []
+    loads = {}
+    for mode, batch_rows in (("eager", 0), ("streamed", config5_batch_rows(rows))):
+        out = os.path.join(tmp, f"out_{mode}_{rows}.parquet")
+        run_once, engine = build_config5(device, src, out, batch_rows)
+        zero_launches()
+        cold, frame = run_once()
+        cold_launches = launch_counts()
+        err = check_config5(f"config5 {mode} {rows}", out, want)
+        loads[mode] = frame.blocks
+        del frame
+        zero_launches()
+        warm = [run_once()[0] for _ in range(warm_runs)]
+        warm_launches = launch_counts()
+        err = max(err, check_config5(f"config5 {mode} {rows} warm", out, want))
+        want_launches = dict.fromkeys(cold_launches, 0)
+        if device.type == "cuda":  # on the CPU every kernel runs as its twin
+            want_launches.update(CONFIG5_LAUNCHES)
+        if cold_launches != want_launches or warm_launches != {
+                k: n * warm_runs for k, n in want_launches.items()}:
+            raise SystemExit(f"FAIL config5 {mode} {rows}: launched {cold_launches} (cold), "
+                             f"{warm_launches} (warm), expected {want_launches} a run")
+        if engine.fallbacks:
+            raise SystemExit(f"FAIL config5 {mode} {rows}: refused {engine.fallbacks}")
+        best = {p: min(w[p] for w in warm) for p in warm[0]}
+        st: Dict[str, Any] = {
+            "case": f"config5_{mode}", "rows": rows, "batch_rows": batch_rows,
+            "cold": cold, "warm": warm, "best_warm": best,
+            "rows_per_sec": rows / best["total_secs"], "max_rel_err_s": err,
+            "launches": {k: n for k, n in cold_launches.items() if n},
+        }
+        out_stats.append(st)
+        print(f"config5 {mode} {rows}: best warm {best}", flush=True)
+        del run_once, engine
+    same_blocks(f"config5 {rows}: the streamed load against the eager one", loads["streamed"],
+                loads["eager"])
+    del loads
+    if device.type == "cuda":
+        traces = traced_config5(src, os.path.join(tmp, f"out_traced_{rows}.parquet"),
+                                {st["case"][len("config5_"):]: st["batch_rows"]
+                                 for st in out_stats})
+        for st in out_stats:
+            trace = traces[st["case"][len("config5_"):]]
+            host_copies = [name for name in trace["copies"] if "Device -> Device" not in name]
+            if set(host_copies) != set(PINNED_COPIES):
+                raise SystemExit(f"FAIL {st['case']} {rows}: a run copied {trace['copies']}, "
+                                 f"expected only {PINNED_COPIES} between host and card")
+            st.update(trace_copies=trace["copies"], device_ms=trace["device_ms"])
+    os.remove(src)
+    return out_stats
+
+
+def mixed_io_table(rows: int) -> Any:
+    """Every type the card holds, with nulls: a strictly increasing int64,
+    an int32 key, a float64 with 5 % nulls, a string over values that first
+    appear late, with nulls, a nullable bool, a timestamp, a date, a uint8
+    and an int64 whose nulls are all in its last 1,000 rows (a mask first
+    needed in a late batch)."""
+    import numpy as np
+    import pyarrow as pa
+
+    rng = np.random.default_rng(CONFIG5_SEED)
+    idx = np.arange(rows, dtype=np.int64)
+    late = idx >= rows - 1_000
+    names = np.array([f"name-{j:05d}" for j in range(20_000)], dtype=object)
+    return pa.table({
+        "i": pa.array(idx * 3 - 7),
+        "k": pa.array(rng.integers(0, 1000, rows).astype(np.int32)),
+        "f": pa.array(rng.random(rows), mask=rng.random(rows) < 0.05),
+        "s": pa.array(names[np.minimum(idx // 100, 19_999)], mask=rng.random(rows) < 0.03,
+                      type=pa.string()),
+        "b": pa.array(rng.random(rows) < 0.5, mask=rng.random(rows) < 0.1),
+        "t": pa.array(1_577_836_800_000_000 + idx * 1_000_003, type=pa.timestamp("us")),
+        "d": pa.array((18_000 + idx % 3_000).astype(np.int32), type=pa.date32()),
+        "u": pa.array(rng.integers(0, 256, rows).astype(np.uint8)),
+        "li": pa.array(np.where(late, 0, idx), mask=late),
+    })
+
+
+def io_checks(device: Any, tmp: str) -> Dict[str, Any]:
+    """The host boundary on the card at ``IO_CHECK_ROWS`` rows of
+    ``mixed_io_table`` in parquet row groups of 250,000: the streamed load
+    (batches of ``IO_CHECK_BATCH`` rows through the pinned slabs and the
+    copy stream) against the eager load bit for bit; each load's export
+    against the file; a filtered (masked) frame's export against arrow's
+    filter of the file, with K10 launched once a ``gather.MAX_COLUMNS``
+    columns; a first export's table
+    unchanged after a second export of another frame; the
+    pipelined save (chunks of ``IO_CHECK_BATCH`` rows) against the one-shot
+    save, row groups at most ``IO_CHECK_BATCH``; and a ``head`` of the
+    masked frame."""
+    import os
+
+    import numpy as np
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch.kernels.gather import MAX_COLUMNS, gather_rows_cuda
+
+    table = mixed_io_table(IO_CHECK_ROWS)
+    src = os.path.join(tmp, "mixed.parquet")
+    pq.write_table(table, src, row_group_size=250_000)
+    eager = ft.make_execution_engine(device=device)
+    streamed = ft.make_execution_engine(device=device,
+                                        conf={"fugue.torch.io.batch_rows": IO_CHECK_BATCH})
+    lazy = streamed.load_df(src)
+    if not lazy.is_pending or lazy.count() != IO_CHECK_ROWS:
+        raise SystemExit("FAIL io_checks: the streamed load is not lazy or miscounts")
+    loaded = eager.load_df(src)
+    same_blocks("io_checks: the streamed load against the eager one", lazy.blocks,
+                loaded.blocks)
+    for label, frame in (("eager", loaded), ("streamed", lazy)):
+        if not frame.as_arrow().equals(table):
+            raise SystemExit(f"FAIL io_checks: the {label} load's export differs from the file")
+    masked = ft.filter(lazy, ft.col("k") < 300, engine=streamed, as_fugue=True)
+    gather_rows_cuda.launches = 0
+    first = masked.as_arrow()
+    launched = gather_rows_cuda.launches
+    want = table.filter(pc.less(table.column("k"), 300))
+    if not first.equals(want):
+        raise SystemExit("FAIL io_checks: the masked export differs from arrow's filter")
+    # one K10 launch takes up to gather.MAX_COLUMNS columns with their masks
+    launches = -(-table.num_columns // MAX_COLUMNS)
+    if device.type == "cuda" and launched != launches:
+        raise SystemExit(f"FAIL io_checks: the masked export launched K10 {launched} times, "
+                         f"expected {launches}")
+    kept = {name: np.array(first.column(name).to_numpy(zero_copy_only=False))
+            for name in ("i", "k", "f", "t")}
+    other = ft.filter(lazy, ft.col("k") >= 700, engine=streamed, as_fugue=True).as_arrow()
+    if other.num_rows == 0 or any(
+            not np.array_equal(first.column(n).to_numpy(zero_copy_only=False), v,
+                               equal_nan=n == "f") for n, v in kept.items()):
+        raise SystemExit("FAIL io_checks: a first export changed after a second export")
+    head = masked.head(1_000)
+    if not head.equals(want.slice(0, 1_000)):
+        raise SystemExit("FAIL io_checks: the masked frame's head differs")
+    piped, one_shot = os.path.join(tmp, "piped.parquet"), os.path.join(tmp, "one.parquet")
+    streamed.save_df(loaded, piped)
+    ft.make_execution_engine(device=device, conf={"fugue.torch.io.batch_rows": IO_CHECK_BATCH,
+                                                  "fugue.torch.io.pipeline": False}
+                             ).save_df(loaded, one_shot)
+    md = pq.ParquetFile(piped).metadata
+    groups = [md.row_group(g).num_rows for g in range(md.num_row_groups)]
+    if not pq.read_table(piped).equals(pq.read_table(one_shot)) or \
+            not pq.read_table(piped).equals(table) or max(groups) > IO_CHECK_BATCH:
+        raise SystemExit(f"FAIL io_checks: the pipelined save differs (row groups {groups})")
+    for f in (src, piped, one_shot):
+        os.remove(f)
+    return {"rows": IO_CHECK_ROWS, "batch_rows": IO_CHECK_BATCH, "masked_rows": first.num_rows,
+            "piped_row_groups": len(groups), "fallbacks": {**eager.fallbacks,
+                                                           **streamed.fallbacks}}
+
+
+def io_paths(device: Any, sizes: Tuple[int, ...], warm_runs: int) -> List[Dict[str, Any]]:
+    """``io_checks``, then ``config5_path`` at each of ``sizes``, in a
+    temporary directory on local disk that is removed afterwards."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="fugue_io_")
+    try:
+        t = time.perf_counter()
+        checks = io_checks(device, tmp)
+        checks["secs"] = time.perf_counter() - t
+        print("io_checks: " + json.dumps(checks), flush=True)
+        out: List[Dict[str, Any]] = []
+        for rows in sizes:
+            out += config5_path(device, rows, warm_runs, tmp)
+            if device.type == "cuda":
+                import torch
+
+                torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 _ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -7536,8 +7898,11 @@ _ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 # 2^22 bins and take K1); K13 sets the DISTINCT argument's
 # first-occurrence mask
 FULL_GROUPBY_LAUNCHES = {
+    # the keyed result's export: 12 columns, two K10 launches of up to
+    # gather.MAX_COLUMNS = 8
     "keyed": dict(bin_factorize=1, sort_word=2, sort_word_boundaries=1, sort_finish=1,
-                  binned_sums=2, segment_extrema=1, segment_sq_dev=1, first_row_mask=1),
+                  binned_sums=2, segment_extrema=1, segment_sq_dev=1, first_row_mask=1,
+                  gather_rows=2),
     "keyless": dict(bin_factorize=1, sort_word=1, binned_sums=2, segment_extrema=1,
                     segment_sq_dev=1, first_row_mask=1),
 }
@@ -7753,6 +8118,12 @@ def main() -> None:
     streamed["card"] = card
     print("stream_path: " + json.dumps(streamed))
     lap("zip paths, streaming")
+    torch.cuda.empty_cache()
+
+    for st in io_paths(device, CONFIG5_ROWS, CONFIG5_WARM_RUNS):
+        st["card"] = card
+        print("io_path: " + json.dumps(st))
+    lap("io paths")
     torch.cuda.empty_cache()
 
     stand_ins = stand_in_timing(device)

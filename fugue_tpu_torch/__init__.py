@@ -29,7 +29,11 @@ window functions on hand-written window-rank and window-frame kernels
 (co-transform over a shared segment space) with hand-written co-map
 presence and row kernels (``fugue_tpu_torch/kernels/comap.cu``), and
 ``aggregate`` of a stream of frames folded chunk by chunk on the card by
-a hand-written stream-fold kernel (``fugue_tpu_torch/kernels/stream.cu``).
+a hand-written stream-fold kernel (``fugue_tpu_torch/kernels/stream.cu``);
+and ``load`` and ``save`` of parquet, csv and json files, a parquet load
+streamed into pinned slabs on a copy stream (``fugue.torch.io.batch_rows``)
+and every export compacted on the card (the gather kernel) and read back
+in one wave of copies into pinned memory.
 """
 
 from fugue_tpu_torch.api import (
@@ -41,9 +45,11 @@ from fugue_tpu_torch.api import (
     filter,
     intersect,
     join,
+    load,
     raw_sql,
     repartition,
     sample,
+    save,
     select,
     subtract,
     take,
@@ -77,11 +83,13 @@ __all__ = [
     "intersect",
     "join",
     "lit",
+    "load",
     "make_execution_engine",
     "null",
     "raw_sql",
     "repartition",
     "sample",
+    "save",
     "select",
     "subtract",
     "take",

@@ -1,9 +1,9 @@
 """The port's entry points: ``transform``, ``aggregate``, ``select``,
 ``filter``, ``assign``, ``join``, ``union``, ``subtract``, ``intersect``,
 ``distinct``, ``dropna``, ``fillna``, ``sample``, ``take``,
-``repartition``, ``raw_sql`` and ``zip`` (``transform`` of a zip is a
-co-transform), run straight on the engine with no workflow DAG (the DAG
-is not ported yet). ``aggregate`` of a ``LocalDataFrameIterableDataFrame``
+``repartition``, ``raw_sql``, ``zip`` (``transform`` of a zip is a
+co-transform), ``load`` and ``save``, run straight on the engine with no
+workflow DAG (the DAG is not ported yet). ``aggregate`` of a ``LocalDataFrameIterableDataFrame``
 streams it chunk by chunk.
 
 ``transform`` mirrors ``fugue_tpu/workflow/api.py:15`` for a transformer
@@ -15,7 +15,8 @@ counterpart of the JAX package's ``Dict[str, jax.Array]`` parameter
 ``fugue_tpu/execution/api.py:129-150``, the set operations, ``distinct``,
 ``dropna``, ``fillna``, ``sample``, ``take`` and ``repartition``
 ``fugue_tpu/execution/api.py:96-276``, ``raw_sql``
-``fugue_tpu/workflow/api.py:77``. All take pandas, arrow or a
+``fugue_tpu/workflow/api.py:77``, ``load`` and ``save``
+``fugue_tpu/execution/api.py:278-300``. All take pandas, arrow or a
 ``TorchDataFrame``; they return pandas, or the ``TorchDataFrame`` when
 ``as_fugue=True`` or the input was one.
 """
@@ -34,10 +35,10 @@ from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.torch_backend.execution_engine import TorchExecutionEngine
 from fugue_tpu_torch.torch_backend.zipped import TorchZippedDataFrame
 
-def _engine(engine: Any, df: Any) -> TorchExecutionEngine:
+def _engine(engine: Any, df: Any, conf: Any = None) -> TorchExecutionEngine:
     if engine is None and isinstance(df, TorchDataFrame):
-        return make_execution_engine(device=df.device)
-    return make_execution_engine(engine)
+        return make_execution_engine(conf=conf, device=df.device)
+    return make_execution_engine(engine, conf)
 
 
 def _is_tensor_dict(hint: Any) -> bool:
@@ -287,3 +288,31 @@ def raw_sql(*statements: Any, engine: Any = None, as_fugue: bool = False) -> Any
     if as_fugue or any(isinstance(f, TorchDataFrame) for f in frames):
         return res
     return res.as_pandas()
+
+
+def load(path: Union[str, List[str]], format_hint: Any = None, columns: Any = None,
+         engine: Any = None, engine_conf: Any = None, as_fugue: bool = False,
+         **kwargs: Any) -> Any:
+    """The files at ``path`` (parquet, csv or json; a file, a folder of
+    part files or a hive folder) on the engine's device:
+    ``load("data.parquet", engine=e)``; with ``engine_conf``
+    ``{"fugue.torch.io.batch_rows": n}`` a parquet load streams and stays
+    in storage until a device operation needs it
+    (``TorchExecutionEngine.load_df``). Returns pandas, or the
+    ``TorchDataFrame`` with ``as_fugue=True``."""
+    e = _engine(engine, None, engine_conf)
+    return _result(e.load_df(path, format_hint=format_hint, columns=columns, **kwargs), None,
+                   as_fugue)
+
+
+def save(df: Any, path: str, format_hint: Any = None, mode: str = "overwrite",
+         partition: Any = None, force_single: bool = False, engine: Any = None,
+         engine_conf: Any = None, **kwargs: Any) -> None:
+    """Writes ``df`` to ``path`` (``mode`` overwrite, append or error;
+    ``partition``'s keys as a hive folder unless ``force_single``):
+    ``save(result, "out.parquet", engine=e)``
+    (``TorchExecutionEngine.save_df``)."""
+    e = _engine(engine, df, engine_conf)
+    e.save_df(df, path, format_hint=format_hint, mode=mode,
+              partition_spec=None if partition is None else PartitionSpec(partition),
+              force_single=force_single, **kwargs)

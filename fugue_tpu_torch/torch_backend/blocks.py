@@ -25,9 +25,20 @@ each with its ``(min, max)`` stats. uint16-64, float16, binary, nested
 and decimal columns are not ported yet (ROADMAP.md queue 1 item 1):
 ``from_arrow`` raises ``NotImplementedError`` naming the type's case
 rather than keeping them on the host.
+
+The host boundary: ``from_arrow`` writes each column once into a pinned
+buffer (padding included) and ships it with one non-blocking copy;
+``to_arrow`` compacts a masked frame on the card (``leading_rows``: one
+readback of the count, K10 over every column and mask), then reads every
+column back in one wave of non-blocking copies into one pinned buffer,
+exactly the frame's rows a column (``copy_to_host``), and builds the
+table over it after one synchronize (``host_table``). The table keeps
+that pinned buffer as its own memory, so no later export can reuse it
+while the table lives. On the CPU no pinned memory is used: the columns'
+own tensors are written and read.
 """
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -190,12 +201,10 @@ class TorchBlocks:
 
     @property
     def nrows(self) -> int:
-        """True row count; reads the card back if lazy."""
+        """True row count; reads the card back if lazy (``read_scalar``)."""
         if self._nrows is None:
-            if self._nrows_dev is not None:
-                self._nrows = int(self._nrows_dev)
-            else:
-                self._nrows = int(self.row_valid.sum())  # type: ignore
+            self._nrows = read_scalar(self._nrows_dev if self._nrows_dev is not None
+                                      else self.row_valid.sum())  # type: ignore[union-attr]
         return self._nrows
 
     @property
@@ -204,8 +213,8 @@ class TorchBlocks:
 
     def nrows_tensor(self) -> torch.Tensor:
         """The row count as a 0-d int32 device tensor, with no readback."""
-        if self._nrows is not None:
-            return torch.tensor(self._nrows, dtype=torch.int32, device=self.device)
+        if self._nrows is not None:  # a fill, not a copy from the host
+            return torch.full((), self._nrows, dtype=torch.int32, device=self.device)
         if self._nrows_dev is not None:
             return self._nrows_dev.to(torch.int32)
         return self.row_valid.sum().to(torch.int32)  # type: ignore
@@ -221,6 +230,18 @@ class TorchBlocks:
         return materialize_validity(
             self.row_valid, self.padded_nrows, self._nrows, self.device
         )
+
+
+def read_scalar(t: torch.Tensor) -> int:
+    """A 0-d integer tensor's value. On the card it is copied into a pinned
+    scalar and the current stream waited for (a copy to pageable memory,
+    as ``int(t)`` makes, is staged through the driver's own buffer)."""
+    if t.device.type != "cuda":
+        return int(t)
+    host = torch.empty((), dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return int(host)
 
 
 def blocks_with_columns(blocks: TorchBlocks, columns: Dict[str, TorchColumn]) -> TorchBlocks:
@@ -292,31 +313,13 @@ def _proven_unique(tp: pa.DataType, values: np.ndarray, has_nulls: bool) -> bool
     return bool((values[1:] > values[:-1]).all())
 
 
-def _pad(arr: np.ndarray, target: int, fill: Any) -> np.ndarray:
-    if arr.shape[0] == target:
-        return arr
-    out = np.full((target,), fill, dtype=arr.dtype)
-    out[: arr.shape[0]] = arr
-    return out
 
 
-def _string_column(arr: pa.Array, pad_n: int, device: torch.device) -> TorchColumn:
-    """A string column as int32 codes of its ``dictionary_encode``, nulls
-    as code 0 with a mask, and ``(0, len(dictionary) - 1)`` stats
-    (``jax_backend/blocks.py:420-437``)."""
-    enc = arr.dictionary_encode()
-    indices = enc.indices
-    mask: Optional[torch.Tensor] = None
-    if indices.null_count > 0:
-        valid = pc.is_valid(indices).to_numpy(zero_copy_only=False)
-        mask = torch.from_numpy(_pad(valid, pad_n, False)).to(device)
-        indices = pc.fill_null(indices, 0)
-    codes = _pad(indices.to_numpy(zero_copy_only=False).astype(np.int32, copy=False), pad_n, 0)
-    if not codes.flags.writeable:
-        codes = codes.copy()
-    dictionary = np.asarray(enc.dictionary.to_pylist(), dtype=object)
-    return TorchColumn(arr.type, torch.from_numpy(codes).to(device), mask,
-                       (0, max(len(dictionary) - 1, 0)), dictionary=dictionary)
+_NP_DTYPES: Dict[torch.dtype, Any] = {
+    torch.bool: np.bool_, torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32,
+    torch.int64: np.int64, torch.uint8: np.uint8, torch.float32: np.float32,
+    torch.float64: np.float64,
+}
 
 
 def _device_values(arr: pa.Array, tp: pa.DataType) -> pa.Array:
@@ -330,39 +333,155 @@ def _device_values(arr: pa.Array, tp: pa.DataType) -> pa.Array:
     return arr
 
 
+def device_values(arr: pa.Array, tp: pa.DataType) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """A column of arrow type ``tp`` (not a string) as the card holds it:
+    its values as a numpy array of the column's tensor dtype, and its
+    validity where it has nulls (``jax_backend/blocks.py:438-455``). The
+    values are a view of arrow's buffer where arrow's layout is the card's
+    (a bool's bits are unpacked); a null slot then holds whatever arrow
+    left there, and ``write_rows`` writes 0 in its place."""
+    arr = _device_values(arr, tp)
+    if arr.null_count == 0:
+        return arr.to_numpy(zero_copy_only=False), None
+    valid = pc.is_valid(arr).to_numpy(zero_copy_only=False)
+    if pa.types.is_boolean(arr.type):
+        return pc.fill_null(arr, False).to_numpy(zero_copy_only=False), valid
+    data = np.frombuffer(arr.buffers()[1], dtype=_NP_DTYPES[torch_dtype(tp)],
+                         count=arr.offset + len(arr))
+    return data[arr.offset:], valid
+
+
+def write_rows(dst: np.ndarray, values: np.ndarray, valid: Optional[np.ndarray]) -> None:
+    """``values`` into ``dst`` (as many rows), 0 where ``valid`` is False."""
+    dst[...] = values
+    if valid is not None:
+        dst[~valid] = 0
+
+
+def _host_rows(pad_n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A column's staging rows: pinned memory for the card, on the CPU the
+    column's own tensor."""
+    return torch.empty((pad_n,), dtype=dtype, pin_memory=device.type == "cuda")
+
+
+def _ship(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The staged rows on ``device``: on the card one non-blocking copy on
+    the current stream (PyTorch's pinned cache takes the buffer back once
+    the copy is done), on the CPU the tensor itself."""
+    if device.type != "cuda":
+        return host
+    data = torch.empty(host.shape, dtype=host.dtype, device=device)
+    data.copy_(host, non_blocking=True)
+    return data
+
+
 def from_arrow(table: pa.Table, schema: Schema, device: torch.device) -> TorchBlocks:
-    """Arrow -> device blocks: pads rows, encodes strings, builds masks,
-    captures host-side key stats and the ``unique`` flag
-    (``jax_backend/blocks.py:405``). Null slots are filled with 0 in the
-    column's own type, so int64 values stay exact."""
+    """Arrow -> device blocks (``jax_backend/blocks.py:405``): strings as
+    the codes of their ``dictionary_encode``, masks where a column has
+    nulls (a null slot holds 0 in the column's own type, so int64 values
+    stay exact), host-side key stats and the ``unique`` flag. Each column
+    and mask is written once, chunk by chunk, into its staging rows
+    (pinned memory for the card; the padding written there too) and
+    shipped with no wait; ``persist`` waits for the upload."""
     n = table.num_rows
     pad_n = padded_len(n)
     cols: Dict[str, TorchColumn] = {}
     for field in schema.fields:
-        tdtype = torch_dtype(field.type)
-        arr = table.column(field.name).combine_chunks()
-        if arr.type != field.type:
-            arr = arr.cast(field.type)
-        if is_string_type(field.type):
-            cols[field.name] = _string_column(arr, pad_n, device)
-            continue
-        arr = _device_values(arr, field.type)
-        mask: Optional[torch.Tensor] = None
-        if arr.null_count > 0:
-            valid = pc.is_valid(arr).to_numpy(zero_copy_only=False)
-            mask = torch.from_numpy(_pad(valid, pad_n, False)).to(device)
-            arr = pc.fill_null(arr, False if tdtype == torch.bool else 0)
-        values = arr.to_numpy(zero_copy_only=False)
-        stats = _int_like_stats(values)
-        unique = _proven_unique(field.type, values, mask is not None)
-        data = _pad(np.ascontiguousarray(values), pad_n, 0)
-        if not data.flags.writeable:
-            # a zero-copy view of arrow memory: the frame gets its own copy
-            data = data.copy()
-        cols[field.name] = TorchColumn(
-            field.type, torch.from_numpy(data).to(device), mask, stats, unique
-        )
+        tp = field.type
+        dtype = torch_dtype(tp)  # raises for a type the card does not hold
+        column = table.column(field.name)
+        if column.type != tp:
+            column = column.cast(tp)
+        dictionary: Optional[np.ndarray] = None
+        if is_string_type(tp):  # jax_backend/blocks.py:420-437
+            enc = column.combine_chunks().dictionary_encode()
+            parts = [device_values(enc.indices, pa.int32())]
+            dictionary = np.asarray(enc.dictionary.to_pylist(), dtype=object)
+        else:
+            parts = [device_values(chunk, tp) for chunk in column.chunks]
+        data = _host_rows(pad_n, dtype, device)
+        view = data.numpy()
+        mask = None
+        if any(valid is not None for _, valid in parts):
+            mask = _host_rows(pad_n, torch.bool, device)
+            mask.numpy()[n:] = False
+        at = 0
+        for values, valid in parts:
+            write_rows(view[at:at + len(values)], values, valid)
+            if mask is not None:
+                mask.numpy()[at:at + len(values)] = True if valid is None else valid
+            at += len(values)
+        view[n:] = 0
+        stats = (0, max(len(dictionary) - 1, 0)) if dictionary is not None else \
+            _int_like_stats(view[:n])
+        unique = dictionary is None and _proven_unique(tp, view[:n], mask is not None)
+        cols[field.name] = TorchColumn(tp, _ship(data, device),
+                                       None if mask is None else _ship(mask, device), stats,
+                                       unique, dictionary)
     return TorchBlocks(n, cols, device)
+
+
+def leading_rows(blocks: TorchBlocks, n: Optional[int] = None) -> TorchBlocks:
+    """The frame's first ``n`` real rows (all of them by default) as a
+    prefix frame, in order. A masked frame is compacted on its device: its
+    kept positions by ``torch.nonzero`` (one readback, the kept count,
+    which also materializes a lazy row count), then one K10 launch a
+    ``gather.MAX_COLUMNS`` columns with their masks (``gather_indices``,
+    direct route). A prefix frame's columns are not copied."""
+    if blocks.row_valid is None:
+        return TorchBlocks(blocks.nrows if n is None else min(n, blocks.nrows), blocks.columns,
+                           blocks.device)
+    idx = torch.nonzero(blocks.row_valid).flatten()
+    blocks._nrows = int(idx.shape[0])
+    if n is not None:
+        idx = idx[:n]
+    if not blocks.columns:
+        return TorchBlocks(int(idx.shape[0]), {}, blocks.device)
+    return gather_indices(blocks, idx)
+
+
+class HostRows(NamedTuple):
+    """Rows ``[0, nrows)`` of a prefix frame's columns in host memory:
+    ``columns[name]`` = (the column, its data, its mask or None); ``done``
+    is the CUDA event recorded after the copies (None on the CPU)."""
+
+    nrows: int
+    columns: Dict[str, Tuple[TorchColumn, torch.Tensor, Optional[torch.Tensor]]]
+    done: Optional[Any]
+
+
+def copy_to_host(blocks: TorchBlocks, names: List[str],
+                 stream: Optional[Any] = None) -> HostRows:
+    """Starts the read-back of a prefix frame's columns ``names``. On the
+    card each column and mask gets exactly ``nrows`` rows of one pinned
+    buffer, filled by one wave of non-blocking copies on ``stream`` (the
+    current stream by default), with one event after the wave; nothing
+    waits here. On the CPU the host rows are the columns' own."""
+    assert_or_throw(blocks.row_valid is None, ValueError("copy_to_host takes a prefix frame"))
+    n = blocks.nrows
+    cols = {name: blocks.columns[name] for name in names}
+    if blocks.device.type != "cuda":
+        return HostRows(n, {name: (c, c.data[:n], None if c.mask is None else c.mask[:n])
+                            for name, c in cols.items()}, None)
+    stream = stream or torch.cuda.current_stream(blocks.device)
+    # one pinned buffer for the wave: each tensor's rows at a 64-byte
+    # aligned offset
+    tensors = [t for c in cols.values() for t in (c.data, c.mask) if t is not None]
+    sizes = [-(-n * t.element_size() // 64) * 64 for t in tensors]
+    buf = torch.empty((max(sum(sizes), 1),), dtype=torch.uint8, pin_memory=True)
+    hosts: Dict[int, torch.Tensor] = {}
+    at = 0
+    with torch.cuda.stream(stream):
+        for t, size in zip(tensors, sizes):
+            host = buf[at:at + n * t.element_size()].view(t.dtype)
+            host.copy_(t[:n], non_blocking=True)
+            hosts[id(t)] = host
+            at += size
+        done = torch.cuda.Event()
+        done.record(stream)
+    return HostRows(n, {name: (c, hosts[id(c.data)],
+                               None if c.mask is None else hosts[id(c.mask)])
+                        for name, c in cols.items()}, done)
 
 
 def _host_array(values: np.ndarray, null_np: Optional[np.ndarray], col: TorchColumn,
@@ -382,26 +501,27 @@ def _host_array(values: np.ndarray, null_np: Optional[np.ndarray], col: TorchCol
     return pa.array(values, type=tp, mask=null_np)
 
 
-def to_arrow(blocks: TorchBlocks, schema: Schema) -> pa.Table:
-    """Device blocks -> arrow (``jax_backend/blocks.py:491``). The host
-    boundary: a masked frame is compacted here with one readback of its
-    validity mask, and its lazy row count materializes; string codes are
-    decoded by their dictionary."""
-    take: Optional[np.ndarray] = None
-    if blocks.row_valid is not None:
-        take = np.nonzero(blocks.row_valid.cpu().numpy())[0]
-        blocks._nrows = int(take.shape[0])
-        n = blocks._nrows
-    else:
-        n = blocks.nrows
+def host_table(rows: HostRows, schema: Schema) -> pa.Table:
+    """Waits for ``rows``' copies (one synchronize), then builds the arrow
+    table over the host tensors: numbers without a copy, a mask as nulls,
+    strings decoded by their dictionary, temporal columns from their
+    integers. The table owns the pinned tensors it was built on, so no
+    later export reuses them while it lives; dropping it gives them back
+    to PyTorch's pinned cache."""
+    if rows.done is not None:
+        rows.done.synchronize()
     arrays = []
     for field in schema.fields:
-        col = blocks.columns[field.name]
-        full = col.data.cpu().numpy()
-        values = full[take] if take is not None else full[:n]
-        null_np: Optional[np.ndarray] = None
-        if col.mask is not None:
-            m_full = ~col.mask.cpu().numpy()
-            null_np = m_full[take] if take is not None else m_full[:n]
-        arrays.append(_host_array(values, null_np, col, field.type))
+        col, data, mask = rows.columns[field.name]
+        null_np = None if mask is None else ~mask.numpy()
+        arrays.append(_host_array(data.numpy(), null_np, col, field.type))
     return pa.Table.from_arrays(arrays, schema=schema.pa_schema)
+
+
+def to_arrow(blocks: TorchBlocks, schema: Schema) -> pa.Table:
+    """Device blocks -> arrow, the host boundary (``jax_backend/blocks.py:491``):
+    a masked frame is compacted on its device first (``leading_rows``),
+    then every column and mask is read back in one wave of copies into
+    pinned memory and the table built after one synchronize
+    (``copy_to_host``, ``host_table``)."""
+    return host_table(copy_to_host(leading_rows(blocks), schema.names), schema)

@@ -69,12 +69,14 @@ from fugue_tpu_torch.dataframe.utils import (
     normalize_join_type,
     pandas_to_table,
 )
+from fugue_tpu_torch.constants import FUGUE_CONF_TORCH_IO_BATCH_ROWS, typed_conf_get
+from fugue_tpu_torch.fs.local import UNPORTED_IO, LocalFileSystem, unported_scheme
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.sql_frontend import algebra_bridge as ab
 from fugue_tpu_torch.sql_frontend.algebra_bridge import inline_scalar_subqueries, translate_query
 from fugue_tpu_torch.sql_frontend.checks import check_statement
 from fugue_tpu_torch.sql_frontend.parser import parse_select
-from fugue_tpu_torch.torch_backend import expr_eval, groupby, relational, streaming
+from fugue_tpu_torch.torch_backend import expr_eval, groupby, ingest, relational, streaming
 from fugue_tpu_torch.torch_backend.comap_compiled import HostPathRequired, compiled_comap, zip_keys
 from fugue_tpu_torch.torch_backend.blocks import (
     TorchBlocks,
@@ -91,6 +93,7 @@ from fugue_tpu_torch.torch_backend.blocks import (
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.torch_backend.window import device_window
 from fugue_tpu_torch.torch_backend.zipped import TorchZippedDataFrame
+from fugue_tpu_torch.utils import io
 from fugue_tpu_torch.utils.assertion import assert_or_throw
 
 # the aggregations the engine runs on its device (``:3739``)
@@ -429,6 +432,7 @@ class TorchExecutionEngine:
             ValueError(f"unsupported device {self.device}"),
         )
         self.map_engine = TorchMapEngine(self)
+        self.fs = LocalFileSystem()
         self._strategy_counts: Dict[str, int] = {}
         self._fallbacks: Dict[str, int] = {}
         # compiled K6 programs of this engine's filters, assigns,
@@ -498,11 +502,75 @@ class TorchExecutionEngine:
         return TorchDataFrame(from_arrow(table, tschema, self.device), tschema)
 
     def persist(self, df: Any, schema: Any = None) -> TorchDataFrame:
-        """``to_df``, then wait until the upload is on the card (``:1576``)."""
+        """``to_df``, then wait until the upload is on the card (``:1576``);
+        a frame still in storage is loaded first."""
         res = self.to_df(df, schema)
+        res.blocks
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return res
+
+    def load_df(self, path: Any, format_hint: Any = None, columns: Any = None,
+                **kwargs: Any) -> TorchDataFrame:
+        """The files at ``path`` as a frame on this device (``:2052``):
+        parquet, csv or json, one file, a folder of part files or a hive
+        folder; ``columns`` a list of names or a schema expression. With
+        ``fugue.torch.io.batch_rows`` > 0 a parquet load streams and stays
+        lazy until a device operation needs it (``ingest.try_stream_load``),
+        narrowed by a select of bare columns and by ``pruning`` (advisory
+        ``[col, op, literal]`` triples that skip row groups). Another URI
+        scheme than ``file`` (ROADMAP.md queue 1 item 13) and a column type
+        the card does not hold (item 1) raise and count in ``fallbacks``."""
+        pruning = kwargs.pop("pruning", None)
+        for p in [path] if isinstance(path, str) else list(path):
+            self._check_uri("load_df", p)
+        batch_rows = typed_conf_get(self.conf, FUGUE_CONF_TORCH_IO_BATCH_ROWS)
+        if batch_rows > 0:
+            res = ingest.try_stream_load(self, path, format_hint, columns, batch_rows,
+                                         pruning=pruning, **kwargs)
+            if res is not None:
+                return res
+        return self._input("load_df", io.load_df(path, format_hint, columns, fs=self.fs,
+                                                  **kwargs))
+
+    def save_df(self, df: Any, path: str, format_hint: Any = None, mode: str = "overwrite",
+                partition_spec: Optional[PartitionSpec] = None, force_single: bool = False,
+                **kwargs: Any) -> None:
+        """Writes ``df`` to ``path`` (``:2122``): modes ``overwrite``,
+        ``append`` and ``error``; ``partition_spec``'s keys as a hive
+        folder unless ``force_single``. Its export compacts a masked frame
+        on the card and reads every column back in one wave into pinned
+        memory (``blocks.to_arrow``). With ``fugue.torch.io.batch_rows`` > 0
+        row groups hold at most that many rows, and a prefix frame's save
+        copies its next chunk from the card while a chunk is encoded
+        (``ingest.try_pipelined_save``)."""
+        self._check_uri("save_df", path)
+        tdf = self.to_df(df)
+        batch_rows = typed_conf_get(self.conf, FUGUE_CONF_TORCH_IO_BATCH_ROWS)
+        partition_cols = io.spec_partition_cols(partition_spec, force_single)
+        if batch_rows > 0:
+            if ingest.try_pipelined_save(self, tdf, path, format_hint, mode, partition_cols,
+                                         batch_rows, dict(kwargs)):
+                return
+            kwargs.setdefault("batch_rows", batch_rows)
+        io.save_df(tdf.as_arrow, path, format_hint, mode, partition_cols=partition_cols,
+                   fs=self.fs, **kwargs)
+
+    def _check_uri(self, op: str, uri: str) -> None:
+        """Refuses (``_unported``) a URI of another scheme than ``file``."""
+        what = unported_scheme(uri)
+        if what is not None:
+            self._unported(op, what, UNPORTED_IO)
+
+    def _check_types(self, op: str, schema: Schema) -> None:
+        """Refuses a column type the card does not hold (``torch_dtype``
+        raises naming ROADMAP.md queue 1 item 1), counted under ``op``."""
+        try:
+            for f in schema.fields:
+                torch_dtype(f.type)
+        except NotImplementedError:
+            self._fallbacks[op] = self._fallbacks.get(op, 0) + 1
+            raise
 
     def select(
         self,
@@ -513,10 +581,16 @@ class TorchExecutionEngine:
     ) -> TorchDataFrame:
         """``:1345``: WHERE (``filter``), then the projection
         (``_device_project``) or the group-by (``_device_groupby_select``)
-        with HAVING. What the JAX package answers on its host engine
-        (``_can_select_on_device``, ``:2174``) raises here."""
+        with HAVING; bare columns of a frame still in storage narrow its
+        load (``TorchDataFrame._select_schema``). What the JAX package
+        answers on its host engine (``_can_select_on_device``, ``:2174``)
+        raises here."""
         tdf = self.to_df(df)
         resolved = cols.replace_wildcard(tdf.schema).assert_all_with_names()
+        if (tdf.is_pending and where is None and having is None and not resolved.is_distinct
+                and all(expr_eval.is_bare(c) and c.output_name == c.name
+                        for c in resolved.all_cols)):
+            return tdf._select_schema(tdf.schema.extract([c.name for c in resolved.all_cols]))
         self._check_select(tdf, resolved, where, having)
         out_schema = resolved.infer_schema(tdf.schema)
         filtered = tdf if where is None else self.filter(tdf, where)

@@ -9,8 +9,8 @@ example unpacked with ``git archive`` into a git-ignored directory: any of
 ``factorize.cu``, ``factorize.py``, ``join.cu``, ``join.py``,
 ``segment_reduce.cu``, ``segment_reduce.py``, ``gather.cu``, ``gather.py``,
 ``comap.cu``, ``comap.py``, ``row_select.cu``, ``row_select.py``
-(from ``fugue_tpu_torch/kernels/``), ``groupby.py`` and ``streaming.py``
-(from ``fugue_tpu_torch/torch_backend/``). Its sources are built here with this
+(from ``fugue_tpu_torch/kernels/``), ``groupby.py``, ``streaming.py`` and
+``blocks.py`` (from ``fugue_tpu_torch/torch_backend/``). Its sources are built here with this
 tree's headers and flags, and each wrapper module is bound to its own
 library. Each comparison runs where DIR holds its files.
 
@@ -87,12 +87,21 @@ the two versions' outputs are checked equal:
   K14 swapped in (``select_paths``): the results alike, best warm, device
   time of one run. Each K17 and K14 line carries the shape's bound, its
   one PyTorch call and, for this tree, the route taken (``last_path``).
+- with ``blocks``: the host endpoint (``blocks.to_arrow``) of each tree
+  (``endpoint``) at the headline (``chip_smoke.build_main_path``: its
+  1024-bin aggregate, a masked frame), at ``take(n=10, presort="v desc",
+  partition="k")`` of the headline frame (100M rows: a masked frame of
+  10,240 kept rows) and at config 2's partitioned transform (``chip_smoke.build_partitioned_transform``'s
+  path, 100M rows, three columns): the exported tables alike, the
+  endpoint alone on the path's result frame (best of 5, host clock to
+  the table) and the whole path to its table with each endpoint in turn
+  (``path_turns``: best warm, device time of one run).
 
 ``--only k8,k18,probe_paths`` (any of ``reduce``, ``full_groupby``,
 ``k10``, ``k7``, ``k7_routes``, ``paths``, ``k2``, ``wide_route``,
 ``k9``, ``stream_host``, ``k8``, ``k18``, ``probe_paths``, ``k17``, ``k14``,
-``select_paths``) runs only those comparisons. With ``--old-only``, the
-``segment_reduce``, ``gather``, ``join``, ``comap`` and ``row_select``
+``select_paths``, ``endpoint``) runs only those comparisons. With ``--old-only``, the
+``segment_reduce``, ``gather``, ``join``, ``comap``, ``row_select`` and ``blocks``
 comparisons time DIR's version alone (beside the library calls): a reading
 taken before this tree's kernels are timed. With
 ``--no-check``, K10 and K7 are timed without holding the two versions'
@@ -109,6 +118,7 @@ import ctypes
 import importlib.util
 import inspect
 import json
+import statistics
 import sys
 import time
 import types
@@ -138,7 +148,7 @@ def load_old(root: Path) -> Dict[str, Any]:
                         for stem in sources])
     mods = {}
     for stem in ("factorize", "join", "segment_reduce", "gather", "comap", "row_select",
-                 "groupby", "streaming"):
+                 "groupby", "streaming", "blocks"):
         if not (root / f"{stem}.py").exists():
             continue
         spec = importlib.util.spec_from_file_location(f"old_{stem}", root / f"{stem}.py")
@@ -1014,8 +1024,95 @@ def select_paths(device: Any, old: Dict[str, Any], old_only: bool) -> None:
                old_only, alike)
 
 
+def endpoint(device: Any, old: Dict[str, Any], old_only: bool) -> None:
+    """Each tree's ``blocks.to_arrow`` at the headline's result, the top-n
+    take's and config 2's (100M rows): the tables alike, the endpoint
+    alone (best of 5 on the host's clock, to the table) and each path with
+    each endpoint installed."""
+    import pandas as pd
+    import torch
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch.torch_backend import blocks, dataframe
+
+    versions = {"old": old["blocks"].to_arrow, "new": blocks.to_arrow}
+    engine = ft.make_execution_engine("torch", device=device)
+    k, v, _u = cs.full_groupby_frame(cs.ROWS, cs.GROUPS, cs.DISTINCT_VALUES, cs.SEED)
+    top_src = engine.persist(engine.to_df(pd.DataFrame({"k": k, "v": v})))
+    del k, v, _u
+    part_src = engine.persist(engine.to_df(cs.config2_frame(cs.ROWS)))
+
+    def take_top_n() -> Any:
+        return ft.take(top_src, cs.TAKE_N, presort="v desc", partition="k", engine=engine)
+
+    headline_run = cs.build_main_path(device, cs.ROWS, cs.GROUPS, cs.SEED)[0]
+
+    def headline() -> Any:
+        return headline_run()[1]
+
+    def config2() -> Any:
+        return ft.transform(part_src, cs.udfs()["demean"], schema="k:int,v:float,z:float",
+                            partition={"by": ["k"]}, engine=engine, as_fugue=True)
+
+    for label, path in (("headline", headline), ("take_top_n", take_top_n),
+                        ("config2_100m", config2)):
+        frame = path()
+        tables = {which: fn(frame.blocks, frame.schema) for which, fn in versions.items()}
+        if not old_only and not tables["old"].equals(tables["new"]):
+            raise SystemExit(f"FAIL old_vs_new endpoint {label}: the two tables differ")
+        del tables
+        secs: Dict[str, List[float]] = {"old": [], "new": []}
+        for which in ("old", "old") if old_only else ("old", "new", "new", "old"):
+            runs = []
+            for _ in range(5):
+                t = time.perf_counter()
+                versions[which](frame.blocks, frame.schema)
+                runs.append(time.perf_counter() - t)
+            secs[which].append(min(runs))
+        print("old_vs_new: " + json.dumps({
+            "case": f"endpoint {label}", "rows": frame.count(), "old_secs": secs["old"],
+            "new_secs": secs["new"], "card": cs.card_line()}), flush=True)
+        del frame
+
+    def ending(path: Callable[[], Any]) -> Callable[[], Any]:
+        def run() -> Any:
+            frame = path()
+            frame.as_arrow()
+            return frame
+        return run
+
+    # each path in turns (old, new, new, old) with that tree's endpoint:
+    # the median and least wall of ``reps`` warm runs, the device time of
+    # one; the headline's run ends in its own export (``as_pandas``)
+    for label, path, reps in (("headline", headline, 30), ("take_top_n", ending(take_top_n), 10),
+                              ("config2_100m", ending(config2), 10)):
+        walls: Dict[str, List[List[float]]] = {"old": [], "new": []}
+        busy: Dict[str, List[Optional[float]]] = {"old": [], "new": []}
+        try:
+            for which in ("old", "old") if old_only else ("old", "new", "new", "old"):
+                dataframe.to_arrow = versions[which]
+                for _ in range(2):
+                    path()
+                secs = []
+                for _ in range(reps):
+                    torch.cuda.synchronize(device)
+                    t = time.perf_counter()
+                    path()
+                    torch.cuda.synchronize(device)
+                    secs.append(time.perf_counter() - t)
+                walls[which].append([statistics.median(secs), min(secs)])
+                busy[which].append(cs.device_busy_ms(path, device))
+        finally:
+            dataframe.to_arrow = versions["new"]
+        print("old_vs_new: " + json.dumps({
+            "case": f"path {label}", "runs": reps, "old_median_min_secs": walls["old"],
+            "new_median_min_secs": walls["new"], "old_device_ms": busy["old"],
+            "new_device_ms": busy["new"], "card": cs.card_line()}), flush=True)
+
+
 COMPARISONS = ("reduce", "full_groupby", "k10", "k7", "k7_routes", "paths", "k2", "wide_route",
-               "k9", "stream_host", "k8", "k18", "probe_paths", "k17", "k14", "select_paths")
+               "k9", "stream_host", "k8", "k18", "probe_paths", "k17", "k14", "select_paths",
+               "endpoint")
 
 
 def main() -> None:
@@ -1042,6 +1139,8 @@ def main() -> None:
     def want(name: str, *stems: str) -> bool:
         return name in only and all(stem in old for stem in stems)
 
+    if want("endpoint", "blocks"):
+        endpoint(device, old, old_only)
     if want("select_paths", "comap", "row_select"):
         select_paths(device, old, old_only)
     if want("reduce", "segment_reduce"):

@@ -25,13 +25,17 @@ sample and repartition, and the SQL statements (``--only sql``, 100M
 rows; Q16's NOT IN over 80M): q67's rank with its top 100, q51's running
 sum, q47's partition average, the 7-row moving average with MIN and MAX,
 LAG beside a RANGE sum, ORDER BY ... LIMIT with and without OFFSET, and
-NOT IN with and without a null on the right. Each is warmed up with two
+NOT IN with and without a null on the right, and BASELINE config 5
+(``--only io``, 100M rows): parquet loaded, ``v2 = v * 0.5``, sum and count
+by ``k``, saved, eager and streamed (``chip_smoke.build_config5``, its
+files in a temporary directory removed afterwards). Each is warmed up with two
 runs,
 then run ``RUNS`` times under ``torch.profiler``; for each the script
 prints one JSON object: the
 wall seconds per run, the device's busy and idle share of that wall time
-(busy = the summed time of the kernels and copies the card ran), and the
-device time of each kernel or copy, largest first. The profiler's full
+(busy = the summed time of the kernels and copies the card ran), the
+device time of each kernel or copy, largest first, and the kinds of copy
+between host and card with their counts (``copy_kinds``). The profiler's full
 tables go to ``profile_main_path.txt`` in the working directory. Needs a
 CUDA card.
 """
@@ -91,6 +95,7 @@ def profile_path(name: str, run_once: Callable[[], Any], device: Any, table: Any
         "device_ms_per_run_by_op": [
             {"op": k[:120], "ms": us / 1e3, "calls": n} for k, us, n in rows[:25]
         ],
+        "copy_kinds": {k: n for k, _, n in rows if k.startswith("Memcpy")},
     }))
 
 
@@ -169,9 +174,29 @@ def _groups(device: Any, table: Any) -> Dict[str, Callable[[], None]]:
             profile_path(f"sql_{name}", run_once, device, table,
                          chip_smoke.NOT_IN_ROWS if name.startswith("q16") else rows)
 
+    def io() -> None:
+        import os
+        import shutil
+        import tempfile
+
+        tmp = tempfile.mkdtemp(prefix="fugue_io_")
+        try:
+            src = os.path.join(tmp, "src.parquet")
+            chip_smoke.config5_frame(rows).to_parquet(src)
+            for mode, batch_rows in (("eager", 0),
+                                     ("streamed", chip_smoke.config5_batch_rows(rows))):
+                run_once = chip_smoke.build_config5(device, src,
+                                                    os.path.join(tmp, "out.parquet"),
+                                                    batch_rows)[0]
+                profile_path(f"config5_{mode}", run_once, device, table)
+                del run_once
+                torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
     return {"headline": headline, "config2": config2, "sort_path": sort_path,
             "full_groupby": full_groupby, "k6": k6, "joins": joins, "strings": strings,
-            "relational": relational, "sql": sql}
+            "relational": relational, "sql": sql, "io": io}
 
 
 def main() -> None:
@@ -181,7 +206,7 @@ def main() -> None:
     parser.add_argument("--only", nargs="*", metavar="GROUP",
                         help="profile only these groups of paths: headline, config2, "
                              "sort_path, full_groupby, k6, joins, strings, relational, "
-                             "sql (default: all)")
+                             "sql, io (default: all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch.cuda.is_available() is false")

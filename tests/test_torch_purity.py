@@ -170,6 +170,27 @@ def test_refused_sql_counts_as_fallbacks(case, op, item):
     assert engine.fallbacks == {op: 1}
 
 
+@pytest.mark.parametrize("uri", ["memory://t/x.parquet", "lake://warehouse/t",
+                                 "gs://bucket/x.parquet"])
+@pytest.mark.parametrize("op", ["load_df", "save_df"])
+def test_unported_uris_raise_naming_item_13(uri, op):
+    """The in-memory filesystem, lake tables and fsspec's object stores
+    are not ported (ROADMAP.md queue 1 item 13): a load or a save of such a
+    URI raises, is counted in ``fallbacks`` and reads or writes nothing on
+    the host instead, through the engine and through ``ft.load``/``ft.save``."""
+    engine = ft.make_execution_engine(device="cpu")
+    run = {"load_df": lambda: engine.load_df(uri),
+           "save_df": lambda: engine.save_df(_df(), uri)}[op]
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        run()
+    assert engine.fallbacks == {op: 1}
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        if op == "load_df":
+            ft.load(uri, engine=engine)
+        else:
+            ft.save(_df(), uri, engine=engine)
+
+
 def test_string_columns_and_string_partition_keys_answer():
     """The two string cases this file once listed as unported: a string
     column uploads and comes back, and a transform partitioned by a
