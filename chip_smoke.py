@@ -209,8 +209,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    count(*) by (store, item), about 1M groups, at least one rebase, K19
    once a chunk, against numpy accumulated chunk by chunk, its peak
    memory held below the accumulators plus two chunks and printed beside
-   the whole frame's bytes, and its host work a chunk timed alone
-   (``host_ms_a_chunk``).
+   the whole frame's bytes, its host work a chunk timed alone
+   (``host_ms_a_chunk``) and a warm run traced in a fresh process
+   (``traced_stream``): its chunks' uploads pinned copies only, and their
+   device ms a chunk (``upload_ms_a_chunk``). Then the types phase
+   (``types_paths``, ``types_sku``, ``types_host``): 100M rows of a
+   uint32 key above 2^31, a uint64 column half above 2^63, float16 and
+   float32 through the binned group-by, a count by the uint64 (the word
+   route), a filter, a top-100 take, a join against 1M rows and
+   ``alter_columns``; config 1's SKU column as numeric text cast to int
+   and back on the card; 10M rows with binary, list and decimal host
+   columns through a filter, ``head``, the export and a save and load;
+   each against numpy or pyarrow, its launches held to
+   ``TYPES_PATH_LAUNCHES``; and, with the twins, the kernels at their new
+   dtype codes (``types_vs_twin``).
 5. timing with CUDA events at the paths' shapes: each kernel beside its
    plain twin, one PyTorch call computing the same function where there
    is one, and its bound from the bytes it must move; the fused kernel's
@@ -253,7 +265,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``bincount`` of its (segment, member) pairs, also at 33 members over
    2^24 segments and a masked random layout, ``presence_shapes``) and
    K19 at a streaming chunk (``stream_timing``:
-   beside ``index_add_`` of one payload's sum).
+   beside ``index_add_`` of one payload's sum); the fused kernel, K4 and
+   K6 over float16 beside float32 (``types_timing``).
 
 Before the last lines it prints K6's builds, their seconds and the cold
 seconds of its first path (``k6_builds:``); before the last line one JSON
@@ -5711,8 +5724,7 @@ def relational_paths(device: Any, rows: int, warm_runs: int,
         # the random repartition's host permutation takes seconds a run
         stats, frame, got = _path_stats(label, q_rows[0] if label[:3] in ("int", "exc") else rows,
                                         run_once, device,
-                                        min(warm_runs, 2) if label == "repartition_rand"
-                                        else warm_runs)
+                                        1 if label == "repartition_rand" else warm_runs)
         check_relational(label, frame, got, d, want)
         if label.startswith("sample"):
             again = run_once()[1]
@@ -6397,9 +6409,10 @@ ZIP_KEYS = 2_000_000  # a's keys over [0, ZIP_KEYS), b's over [ZIP_KEYS / 2, 3 Z
 ZIP_CROSS_ROWS = (10_000, 1_000)
 ZIP_SEED = 23
 STREAM_CHUNKS, STREAM_CHUNK_ROWS = 20, 10_000_000
-# warm runs of the 200M-row stream (about 11 s each on an H100's host): two,
-# as the random repartition, to keep the whole script near its time
-STREAM_WARM_RUNS = 2
+# warm runs of the 200M-row stream (about 8 s each on an H100's host since
+# its chunks go up pinned): one, as the random repartition, to keep the whole
+# script inside its time
+STREAM_WARM_RUNS = 1
 STREAM_STORES = 1_000  # store int32 over [0, 1000)
 STREAM_ITEMS = (800, 1_000)  # item int64 over [0, 800), from a quarter of the chunks [0, 1000)
 STREAM_NULLS = 0.02
@@ -7167,7 +7180,18 @@ def stream_path(device: Any, chunks: int, chunk_rows: int, warm_runs: int) -> Di
         t = time.perf_counter()
         agg.host_arrays(chunk_table(chunk, ft.Schema(schema)))
         host_ms.append((time.perf_counter() - t) * 1e3)
+    trace: Dict[str, Any] = {}
+    if device.type == "cuda":
+        # the chunks' upload: pinned copies only, timed from a trace
+        trace = traced_stream(TRACE_CHUNKS, chunk_rows)
+        kinds = set(trace["copies"])
+        if PINNED_COPIES[0] not in kinds or not kinds <= set(PINNED_COPIES) | {
+                "Memcpy DtoD (Device -> Device)"}:
+            raise SystemExit(f"FAIL stream_200m: the trace's copies are {trace['copies']}, "
+                             f"expected pinned copies only")
+        trace["upload_ms_a_chunk"] = trace["copy_ms"][PINNED_COPIES[0]] / TRACE_CHUNKS
     stats.update(
+        trace=trace, upload_ms_a_chunk=trace.get("upload_ms_a_chunk"),
         host_ms_a_chunk=sorted(host_ms)[len(host_ms) // 2], host_ms_a_chunk_max=max(host_ms),
         groups=len(got), rebases_per_run=rebases[0], max_rel_err=worst,
         peak_over_start_bytes=peak, accumulator_bytes=acc_bytes, chunk_device_bytes=chunk_bytes,
@@ -7179,6 +7203,50 @@ def stream_path(device: Any, chunks: int, chunk_rows: int, warm_runs: int) -> Di
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return stats
+
+
+TRACE_CHUNKS = 2  # the traced streaming run's chunks (of the phase's chunk rows)
+
+
+def build_stream_run(device: Any, chunks: int, chunk_rows: int) -> Callable[[], Any]:
+    """One streaming aggregate of ``stream_chunks`` (made once) through
+    ``ft.aggregate``, with its export, as ``stream_path`` runs it."""
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch import col
+    from fugue_tpu_torch.column import functions as ff
+
+    data = stream_chunks(chunks, chunk_rows, STREAM_SEED)
+    e = ft.make_execution_engine(device=device)
+    aggs = {f"{c}_{f}": getattr(ff, f)(col(c)) for c in ("qty", "price") for f in STREAM_AGGS}
+    schema = "store:int,item:long,qty:long,price:double"
+
+    def run() -> Any:
+        src = ft.LocalDataFrameIterableDataFrame(iter(data), schema)
+        return ft.aggregate(src, ["store", "item"], engine=e, as_fugue=True, **aggs).as_pandas()
+
+    return run
+
+
+def traced_stream(chunks: int, chunk_rows: int, tries: int = 3) -> Dict[str, Any]:
+    """``copy_kinds`` of a warm streaming aggregate (``build_stream_run``)
+    in a fresh process, as ``traced_config5`` takes its traces: the copies
+    between host and card by kind, and their device milliseconds."""
+    import os
+
+    code = ("import json, torch, chip_smoke as cs\n"
+            "d = torch.device('cuda', torch.cuda.current_device())\n"
+            f"run = cs.build_stream_run(d, {chunks}, {chunk_rows})\n"
+            "run()\n"
+            f"for _ in range({tries}):\n"
+            "    tr = cs.copy_kinds(run, d)\n"
+            "    if cs.PINNED_COPIES[0] in tr['copies']:\n"
+            "        break\n"
+            "print(json.dumps(tr))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)), timeout=900)
+    if res.returncode != 0:
+        raise SystemExit(f"FAIL the traced streaming run: {res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def config4_stacked(device: Any) -> Tuple[Any, int, List[int]]:
@@ -7653,6 +7721,8 @@ def copy_kinds(run_once: Callable[[], Any], device: Any) -> Dict[str, Any]:
         sync(device)
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return {"copies": {e.key: e.count for e in events if e.key.startswith("Memcpy")},
+            "copy_ms": {e.key: e.self_device_time_total / 1e3 for e in events
+                        if e.key.startswith("Memcpy")},
             "device_ms": sum(e.self_device_time_total for e in events) / 1e3}
 
 
@@ -7844,7 +7914,7 @@ def io_checks(device: Any, tmp: str) -> Dict[str, Any]:
             not np.array_equal(first.column(n).to_numpy(zero_copy_only=False), v,
                                equal_nan=n == "f") for n, v in kept.items()):
         raise SystemExit("FAIL io_checks: a first export changed after a second export")
-    head = masked.head(1_000)
+    head = masked.head(1_000).as_arrow()
     if not head.equals(want.slice(0, 1_000)):
         raise SystemExit("FAIL io_checks: the masked frame's head differs")
     piped, one_shot = os.path.join(tmp, "piped.parquet"), os.path.join(tmp, "one.parquet")
@@ -7908,6 +7978,598 @@ FULL_GROUPBY_LAUNCHES = {
 }
 
 
+# ---- the types phase: uint16-64 and float16 through the kernels, host columns beside them ----
+
+TYPES_GROUPS = 1024  # k: uint32 over 2^32 - 1024 .. 2^32 - 1
+TYPES_DISTINCT = 1 << 16  # u: uint64, half of the values above 2^63
+TYPES_JOIN_ROWS = 1_000_000  # the join's right side: unique u, every left value among them
+TYPES_TAKE = 100
+TYPES_HOST_ROWS = 10_000_000
+TYPES_HOST_BATCH = 1_000_003  # the streamed load's batch rows: no divisor of the rows
+TYPES_SIZES = (1, (1 << 20) + 37, ROWS)
+# the types paths' launches: the binned aggregate (K1, the fused kernel, K4;
+# its export adds K10), the sort-path count by u (the word route), the
+# filter, the take (the top rows' word, their rank, K10 of the kept rows),
+# the join (the right side's u factorized on the word route, K7, K8, K10 of
+# the joined rows), alter_columns (one K6 launch for both casts)
+TYPES_PATH_LAUNCHES = {
+    "agg_by_k": dict(bin_factorize=1, binned_sums=1, segment_extrema=1),
+    "count_by_u": dict(sort_word=1, sort_word_boundaries=1, sort_finish=1, binned_sums=1),
+    "filter_u": dict(expr_program=1, expr_program_filter=1),
+    "take_top_u": dict(presort_word=1, rank_keep=1, gather_rows=1),
+    "join_u": dict(sort_word=1, sort_word_boundaries=1, sort_finish=1, join_build=1,
+                   join_probe=1, gather_rows=1),
+    "alter": dict(expr_program=1),
+}
+
+
+def types_data(rows: int, seed: int) -> Dict[str, Any]:
+    """The types phase's facts from seed ``seed``: each row's group ``g``
+    uniform over ``TYPES_GROUPS`` (``k = 2^32 - 1024 + g``, uint32), its
+    index ``idx`` uniform over a table of ``TYPES_DISTINCT`` uint64 values,
+    half of them above 2^63 (``u = table[idx]``), ``h`` float16 and ``v``
+    float32 uniform over [0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    half = TYPES_DISTINCT // 2
+    low = np.unique(rng.integers(1, 2**62, 2 * half, dtype=np.uint64))[:half]
+    table = np.concatenate([low, rng.permutation(low) + np.uint64(2**63)])
+    rng.shuffle(table)
+    g = rng.integers(0, TYPES_GROUPS, rows).astype(np.uint16)
+    idx = rng.integers(0, TYPES_DISTINCT, rows).astype(np.int32)
+    return {"g": g, "k": g.astype(np.uint32) + np.uint32(2**32 - TYPES_GROUPS),
+            "idx": idx, "table": table, "u": table[idx],
+            "h": rng.random(rows, dtype=np.float32).astype(np.float16),
+            "v": rng.random(rows, dtype=np.float32)}
+
+
+def types_table(d: Dict[str, Any]) -> Any:
+    import pyarrow as pa
+
+    return pa.table({"k": pa.array(d["k"]), "u": pa.array(d["u"]), "h": pa.array(d["h"]),
+                     "v": pa.array(d["v"])})
+
+
+def types_oracle(d: Dict[str, Any]) -> Dict[str, Any]:
+    """numpy's answers: per group (a radix sort of the uint16 group ids)
+    its count, float64 sum of h, min and max of h and u, and u's int64
+    sum as it wraps; the count of each table value and its position in
+    the table's order."""
+    import numpy as np
+
+    g, h, u = d["g"], d["h"], d["u"]
+    n = np.bincount(g, minlength=TYPES_GROUPS)
+    order = np.argsort(g, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(n)[:-1]])
+    hs, us = h[order], u[order]
+    with np.errstate(over="ignore"):
+        usum = np.add.reduceat(us.view(np.int64), starts)
+    return {"n": n, "h_sum": np.bincount(g, weights=h.astype(np.float64), minlength=TYPES_GROUPS),
+            "h_min": np.minimum.reduceat(hs, starts), "h_max": np.maximum.reduceat(hs, starts),
+            "u_min": np.minimum.reduceat(us, starts), "u_max": np.maximum.reduceat(us, starts),
+            "u_sum": usum, "u_counts": np.bincount(d["idx"], minlength=TYPES_DISTINCT)}
+
+
+def half_ulp(x: Any) -> Any:
+    """The float16 spacing at each value of ``x`` (float16)."""
+    import numpy as np
+
+    return np.spacing(np.abs(x.astype(np.float16))).astype(np.float64)
+
+
+def _types_run(label: str, run: Callable[[], Any], want: Optional[Dict[str, int]]
+               ) -> Tuple[Any, Dict[str, Any]]:
+    """One types path: its result, seconds and launches (held to ``want``
+    on the card, where given)."""
+    zero_launches()
+    t = time.perf_counter()
+    out = run()
+    secs = time.perf_counter() - t
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if want is not None and counts != want:
+        raise SystemExit(f"FAIL types {label}: launched {counts}, expected {want}")
+    return out, {"case": label, "secs": secs, "launches": counts}
+
+
+def types_paths(device: Any, rows: int, seed: int, join_rows: int = TYPES_JOIN_ROWS
+                ) -> List[Dict[str, Any]]:
+    """The types phase at ``rows`` rows (``types_data``) through the
+    engine's entry points, each held against numpy: SUM/AVG/COUNT/MIN/MAX
+    of h and u by k (the binned route), COUNT by u (the sort path's word
+    route), a filter ``u > 2^63`` with its count, a top-100 take by u
+    descending, an inner join on u against a ``join_rows``-row side, and
+    ``alter_columns("k:long,h:float")``. Keys, counts, extrema and rows
+    exactly; float16 sums within one float16 ulp of numpy's float64 sum
+    rounded; AVG of h within ``MAIN_PATH_RTOL``."""
+    import numpy as np
+    import pyarrow as pa
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch import col
+    from fugue_tpu_torch.column import functions as ff
+    from fugue_tpu_torch.torch_backend import groupby
+
+    cuda = device.type == "cuda"
+    t = time.perf_counter()
+    d = types_data(rows, seed)
+    want = types_oracle(d)
+    print(f"types: {rows} rows made and numpy's answers in {time.perf_counter() - t:.1f}s",
+          flush=True)
+    e = ft.make_execution_engine(device=device)
+    frame, st = _types_run("upload", lambda: e.persist(types_table(d)), None)
+    stats = [st]
+
+    def agg() -> Any:
+        return ft.aggregate(frame, "k", engine=e, as_fugue=True, n=ff.count(col("h")),
+                            hs=ff.sum(col("h")), ha=ff.avg(col("h")), hmin=ff.min(col("h")),
+                            hmax=ff.max(col("h")), us=ff.sum(col("u")), ua=ff.avg(col("u")),
+                            umin=ff.min(col("u")), umax=ff.max(col("u"))).as_arrow()
+
+    from fugue_tpu_torch.kernels.gather import MAX_COLUMNS
+
+    # the masked result's export gathers its 10 columns (K10)
+    got, st = _types_run("agg_by_k", agg, dict(TYPES_PATH_LAUNCHES["agg_by_k"],
+                                               gather_rows=-(-10 // MAX_COLUMNS))
+                         if cuda else None)
+    occ = np.nonzero(want["n"])[0]
+    out = {c: got.column(c).to_numpy(zero_copy_only=False) for c in got.column_names}
+    if not np.array_equal(out["k"], (occ + (2**32 - TYPES_GROUPS)).astype(np.uint32)) or \
+            not np.array_equal(out["n"], want["n"][occ]):
+        raise SystemExit("FAIL types agg_by_k: keys or counts differ from numpy")
+    for c in ("hmin", "hmax", "umin", "umax"):
+        w = want[{"hmin": "h_min", "hmax": "h_max", "umin": "u_min", "umax": "u_max"}[c]][occ]
+        if out[c].dtype != w.dtype or not np.array_equal(out[c], w):
+            raise SystemExit(f"FAIL types agg_by_k: {c} differs from numpy")
+    if not np.array_equal(out["us"], want["u_sum"][occ]):
+        raise SystemExit("FAIL types agg_by_k: SUM(u) differs from numpy's wrapped int64 sum")
+    if not np.array_equal(out["ua"], want["u_sum"][occ].astype(np.float64) / want["n"][occ]):
+        raise SystemExit("FAIL types agg_by_k: AVG(u) differs from numpy")
+    h16 = want["h_sum"][occ].astype(np.float16)
+    h_err = np.abs(out["hs"].astype(np.float64) - h16.astype(np.float64))
+    if out["hs"].dtype != np.float16 or bool((h_err > half_ulp(h16)).any()):
+        raise SystemExit(f"FAIL types agg_by_k: SUM(h) off by {h_err.max()}")
+    avg_rel = np.abs(out["ha"] / (want["h_sum"][occ] / want["n"][occ]) - 1)
+    if bool((avg_rel > MAIN_PATH_RTOL).any()):
+        raise SystemExit(f"FAIL types agg_by_k: AVG(h) rel err {avg_rel.max()}")
+    st.update(groups=len(occ), h_sum_max_abs_err=float(h_err.max()),
+              h_avg_max_rel_err=float(avg_rel.max()))
+    stats.append(st)
+
+    def count_by_u() -> Any:
+        return ft.aggregate(frame, "u", engine=e, as_fugue=True, n=ff.count(col("*"))).as_arrow()
+
+    got, st = _types_run("count_by_u", count_by_u,
+                         TYPES_PATH_LAUNCHES["count_by_u"] if cuda else None)
+    # the groups come in the order of the key codes (an int64 word's low
+    # half first, as the JAX package orders them): compared by value
+    order, gu = np.argsort(d["table"]), got.column("u").to_numpy()
+    back = np.argsort(gu)
+    if not np.array_equal(gu[back], d["table"][order]) or \
+            not np.array_equal(got.column("n").to_numpy()[back], want["u_counts"][order]):
+        raise SystemExit("FAIL types count_by_u: keys or counts differ from numpy")
+    st["route"] = groupby.sort_factorize.last_route
+    if cuda and st["route"] != "word64/scatter":
+        raise SystemExit(f"FAIL types count_by_u: took the route {st['route']}")
+    stats.append(st)
+
+    above = int(want["u_counts"][d["table"] > np.uint64(2**63)].sum())
+    got, st = _types_run("filter_u", lambda: ft.filter(
+        frame, col("u") > 2**63, engine=e, as_fugue=True).count(),
+        TYPES_PATH_LAUNCHES["filter_u"] if cuda else None)
+    if got != above:
+        raise SystemExit(f"FAIL types filter_u: {got} rows, numpy {above}")
+    st["rows_kept"] = got
+    stats.append(st)
+
+    top = int(np.argmax(d["table"]))
+    rows_top = np.nonzero(d["idx"] == top)[0][:TYPES_TAKE]
+    if len(rows_top) < TYPES_TAKE:
+        raise SystemExit("FAIL types take: the largest u has fewer rows than the take")
+    got, st = _types_run("take_top_u", lambda: ft.take(
+        frame, TYPES_TAKE, presort="u desc", engine=e, as_fugue=True).as_arrow(),
+        TYPES_PATH_LAUNCHES["take_top_u"] if cuda else None)
+    for c in ("k", "u", "h", "v"):
+        if not np.array_equal(got.column(c).to_numpy(), d[c][rows_top]):
+            raise SystemExit(f"FAIL types take_top_u: column {c} differs from numpy's rows")
+    stats.append(st)
+
+    rng = np.random.default_rng(seed + 1)
+    extra = rng.integers(1, 2**64 - 1, 2 * join_rows, dtype=np.uint64)
+    side = np.unique(np.concatenate([d["table"], extra[~np.isin(extra, d["table"])]]))
+    side = np.sort(np.concatenate([d["table"], rng.choice(
+        np.setdiff1d(side, d["table"]), join_rows - TYPES_DISTINCT, replace=False)]))
+    right = pa.table({"u": pa.array(side), "r": pa.array(np.arange(len(side), dtype=np.int32))})
+    pos = np.searchsorted(side, d["table"])
+    want_r = int((want["u_counts"].astype(np.int64) * pos).sum())
+    got, st = _types_run("join_u", lambda: ft.join(
+        frame, right, how="inner", on=["u"], engine=e, as_fugue=True),
+        TYPES_PATH_LAUNCHES["join_u"] if cuda else None)
+    # every joined pair (u, r) is numpy's: r is u's position in the right
+    # side, and each position is joined as often as its value is on the left
+    pairs = got[["u", "r"]].as_arrow()
+    ju, jr = pairs.column("u").to_numpy(), pairs.column("r").to_numpy()
+    if len(jr) != rows or not np.array_equal(side[jr], ju) or not np.array_equal(
+            np.bincount(jr, minlength=len(side))[pos], want["u_counts"]) or \
+            int(jr.astype(np.int64).sum()) != want_r:
+        raise SystemExit(f"FAIL types join_u: {len(jr)} rows ({rows} in numpy), or a (u, r) "
+                         "pair or a position's count differs from numpy's")
+    st["strategy"] = e.strategy_counts
+    stats.append(st)
+    del got, pairs, ju, jr
+
+    got, st = _types_run("alter", lambda: frame.alter_columns("k:long,h:float"),
+                         TYPES_PATH_LAUNCHES["alter"] if cuda else None)
+    table = got[["k", "h"]].as_arrow()
+    if str(got.schema) != "k:long,u:uint64,h:float,v:float" or \
+            not np.array_equal(table.column("k").to_numpy(), d["k"].astype(np.int64)) or \
+            not np.array_equal(table.column("h").to_numpy(), d["h"].astype(np.float32)):
+        raise SystemExit(f"FAIL types alter: {got.schema} or its values differ from numpy")
+    stats.append(st)
+    if e.fallbacks:
+        raise SystemExit(f"FAIL types: fell back {e.fallbacks}")
+    return stats
+
+
+def types_sku(device: Any, rows: int, seed: int) -> Dict[str, Any]:
+    """Config 1's SKU column (``sku_frame``: 10,000 SKU numbers, 5 % nulls)
+    as numeric text at ``rows`` rows: ``alter_columns`` to int (the
+    dictionary parsed once on the host, one K6 LUT launch), then the int
+    column back to str (factorized by K1, its 10,000 values formatted on
+    the host, one K6 LUT launch), both against numpy."""
+    import numpy as np
+    import pyarrow as pa
+
+    import fugue_tpu_torch as ft
+
+    sk = sku_frame(rows, seed)
+    names = [str(int(x)) for x in sk["nums"]]
+    e = ft.make_execution_engine(device=device)
+    frame = e.persist(pa.table({"s": _string_array(sk["codes"], sk["null"], names),
+                                "v": sk["v"]}))
+    cuda = device.type == "cuda"
+    ints, st_int = _types_run("sku_to_int", lambda: frame.alter_columns("s:int"),
+                              dict(expr_program=1) if cuda else None)
+    got = ints[["s"]].as_arrow().column("s")
+    want = sk["nums"][sk["codes"]].astype(np.int32)
+    if got.null_count != int(sk["null"].sum()) or not np.array_equal(
+            got.fill_null(0).to_numpy(), np.where(sk["null"], 0, want)):
+        raise SystemExit("FAIL types sku_to_int: values differ from numpy")
+    back, st_str = _types_run("sku_back_to_str", lambda: ints.alter_columns("s:str"),
+                              dict(bin_factorize=1, expr_program=1) if cuda else None)
+    text = back[["s"]].as_arrow().column("s").combine_chunks().dictionary_encode()
+    table = np.asarray(text.dictionary.to_pylist(), dtype=object)
+    codes = text.indices.to_numpy(zero_copy_only=False)
+    valid = ~sk["null"]
+    expect = np.asarray([str(int(x)) for x in sk["nums"]], dtype=object)[sk["codes"][valid]]
+    if text.null_count != int(sk["null"].sum()) or \
+            not np.array_equal(table[codes[valid].astype(np.int64)], expect):
+        raise SystemExit("FAIL types sku_back_to_str: strings differ from numpy")
+    st_str["dictionary"] = len(table)
+    return {"case": "sku_alter", "rows": rows, "to_int": st_int, "back_to_str": st_str}
+
+
+# alter_columns' routes on the card, each against pyarrow's cast: a string's
+# dictionary cast into a LUT of each table dtype (float64, float16 through
+# float32, bool, a timestamp's int64, a date's int32), a float64 and a
+# uint64 stored as float16 (K6's HALF of an F64), a float16, a float64 and
+# a uint64 to strings (floats factorized by their bits), an int32 to uint32
+TYPES_ALTER = (("num", "double"), ("num", "float16"), ("flag", "bool"), ("ts", "datetime"),
+               ("day", "date"), ("g", "float16"), ("u", "float16"), ("h", "str"), ("g", "str"),
+               ("u", "str"), ("i", "uint32"))
+
+
+def types_alter(device: Any) -> Dict[str, Any]:
+    """Each of ``TYPES_ALTER`` over a few rows, on the card, against
+    ``arrow_utils.cast_array`` (pyarrow's cast by ``cast_table``'s rules)
+    value for value, NaN, -0.0 and nulls included; and a dictionary entry
+    that casts to null (its rows' mask cleared by a second LUT)."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch.dataframe.arrow_utils import cast_array
+    from fugue_tpu_torch.schema import Schema
+    from fugue_tpu_torch.torch_backend.alter import alter_blocks
+    from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, TorchColumn
+
+    sources = {
+        "num": pa.array(["1.5", "2", None, "65504", "-0.0", "1.00048828125000001", "nan"]),
+        "flag": pa.array(["true", "0", None, "FALSE", "1"]),
+        "ts": pa.array(["2020-01-01 03:04:05", None, "1969-12-31 23:00:00"]),
+        "day": pa.array(["2020-01-01", None, "2024-02-29"]),
+        "g": pa.array([1 + 2**-11 + 2**-30, -0.0, None, 70000.0, 1e-8, 0.0, 65519.0,
+                       float("nan")]),
+        "u": pa.array([1, 2**63 + 5, None, 2**64 - 1, 65504], pa.uint64()),
+        "h": pa.array([1.5, 60000, None, -0.0, 0.0, 6e-8, float("nan")], pa.float16()),
+        "i": pa.array([1, -2, None, 2**31 - 1], pa.int32()),
+    }
+    e = ft.make_execution_engine(device=device)
+    zero_launches()
+    t = time.perf_counter()
+    for src, dst in TYPES_ALTER:
+        arr = sources[src]
+        got = e.to_df(pa.table({"x": arr})).alter_columns(f"x:{dst}").as_arrow().column("x")
+        want = cast_array(arr, Schema(f"x:{dst}").fields[0].type)
+        if got.type != want.type or [str(v) for v in got.to_pylist()] != \
+                [str(v) for v in want.to_pylist()]:
+            raise SystemExit(f"FAIL types alter {src} -> {dst}: {got.to_pylist()}, pyarrow "
+                             f"{want.to_pylist()}")
+    codes = torch.tensor([0, 1, 2, 1, 0], dtype=torch.int32, device=device)
+    blocks = TorchBlocks(5, {"x": TorchColumn(pa.string(), codes, None, (0, 2),
+                                              dictionary=np.array(["1", None, "0"], object))},
+                         device)
+    out = alter_blocks(blocks, Schema("x:str"), Schema("x:double")).columns["x"]
+    if out.mask is None or out.mask.tolist() != [True, False, True, False, True] or \
+            out.data[out.mask].tolist() != [1.0, 0.0, 1.0]:
+        raise SystemExit("FAIL types alter: a dictionary entry that casts to null")
+    secs = time.perf_counter() - t
+    return {"case": "alter_routes", "casts": len(TYPES_ALTER) + 1, "secs": secs,
+            "launches": {k: v for k, v in launch_counts().items() if v}}
+
+
+def host_columns_table(rows: int, seed: int) -> Any:
+    """``TYPES_HOST_ROWS``-style frame: k uint32 and v float32 with a
+    16-byte binary column (1 % nulls), a list<int32> of 0-3 items and a
+    decimal(12,2), all built from buffers."""
+    import numpy as np
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    valid = rng.random(rows) >= 0.01
+    bits = pa.py_buffer(np.packbits(valid, bitorder="little"))
+    offs = pa.py_buffer(np.arange(0, 16 * (rows + 1), 16, dtype=np.int32))
+    blob = pa.Array.from_buffers(pa.binary(), rows, [bits, offs, pa.py_buffer(
+        rng.bytes(16 * rows))], null_count=int((~valid).sum()))
+    lens = rng.integers(0, 4, rows).astype(np.int32)
+    loffs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    items = pa.array(rng.integers(-1000, 1000, int(loffs[-1])).astype(np.int32))
+    lists = pa.ListArray.from_arrays(pa.array(loffs), items)
+    unscaled = rng.integers(-10**11, 10**11, rows).astype(np.int64)
+    words = np.stack([unscaled, unscaled >> 63], axis=1).reshape(-1)
+    dec = pa.Array.from_buffers(pa.decimal128(12, 2), rows, [None, pa.py_buffer(words)])
+    return pa.table({"k": pa.array(rng.integers(0, 2**32, rows, dtype=np.uint32)),
+                     "v": pa.array(rng.random(rows, dtype=np.float32)),
+                     "b": blob, "l": lists, "d": dec})
+
+
+def types_host(device: Any, rows: int, seed: int, tmp: str) -> Dict[str, Any]:
+    """Host columns beside device ones at ``rows`` rows: a filter on k,
+    ``head(100)`` of the filtered frame, its ``as_arrow`` and a
+    ``save_df``/``load_df`` round trip (eager, and streamed by
+    ``TYPES_HOST_BATCH``-row batches), each against pyarrow's own
+    ``filter`` and ``take`` of the source."""
+    import os
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch import col
+
+    table = host_columns_table(rows, seed)
+    e = ft.make_execution_engine(device=device)
+    frame = e.persist(table)
+    keep = pc.greater(table.column("k"), pa.scalar(2**31, pa.uint32()))
+    want = table.filter(keep)
+    out, st = _types_run("host_filter", lambda: ft.filter(
+        frame, col("k") > 2**31, engine=e, as_fugue=True), None)
+    t = time.perf_counter()
+    head = out.head(100).as_arrow()
+    head_secs = time.perf_counter() - t
+    if not head.equals(want.slice(0, 100)):
+        raise SystemExit("FAIL types host_head: the filtered head differs from pyarrow's")
+    t = time.perf_counter()
+    full = out.as_arrow()
+    export_secs = time.perf_counter() - t
+    if not full.equals(want):
+        raise SystemExit("FAIL types host_export: the filtered frame differs from pyarrow's")
+    taken = want.take(pa.array(np.arange(0, want.num_rows, 997)))
+    if not full.take(pa.array(np.arange(0, full.num_rows, 997))).equals(taken):
+        raise SystemExit("FAIL types host_take: rows differ from pyarrow's take")
+    path = os.path.join(tmp, "host_columns.parquet")
+    t = time.perf_counter()
+    e.save_df(out, path)
+    save_secs = time.perf_counter() - t
+    loads = {}
+    for mode, batch in (("eager", 0), ("streamed", TYPES_HOST_BATCH)):
+        le = ft.make_execution_engine(device=device, conf={"fugue.torch.io.batch_rows": batch})
+        t = time.perf_counter()
+        loaded = le.persist(le.load_df(path))
+        loads[mode] = time.perf_counter() - t
+        if not loaded.as_arrow().equals(want):
+            raise SystemExit(f"FAIL types host_load_{mode}: the loaded frame differs")
+    st.update(rows=rows, kept=want.num_rows, head_secs=head_secs, export_secs=export_secs,
+              save_secs=save_secs, load_secs=loads)
+    return st
+
+
+def types_vs_twin(device: Any, sizes: Tuple[int, ...]) -> None:
+    """Each kernel given a new dtype code against its twin at ``sizes``:
+    the fused kernel's float16 payloads (sums within ``check_binned``'s
+    bound), K4's float16 extrema bit for bit, K6's float16 loads, ``HALF``
+    rounding and float16 stores (``h * 2``, ``h + h``, ``h < 0.5``, the
+    uint64 compare and casts, and a float64 stored as float16, rounded
+    once) bit for bit; and K1 and KW over the stored
+    words of a uint32 key above 2^31 and a uint64 key above 2^63."""
+    import pyarrow as pa
+    import torch
+
+    from fugue_tpu_torch import col
+    from fugue_tpu_torch.kernels.factorize import bin_factorize_cuda, sort_word_cuda
+    from fugue_tpu_torch.kernels.reference import (
+        BinKey, Extremum, binned_sums_reference, bin_factorize_reference,
+        segment_extrema_reference, sort_word_reference,
+    )
+    from fugue_tpu_torch.kernels.segment_reduce import segment_extrema_cuda
+    from fugue_tpu_torch.kernels.segment_sums import binned_sums_cuda
+    from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, TorchColumn
+
+    for n in sizes:
+        gen = torch.Generator(device=device).manual_seed(SEED + n % 89)
+        g = torch.randint(0, TYPES_GROUPS, (n,), generator=gen, device=device, dtype=torch.int32)
+        h = torch.rand((n,), generator=gen, device=device).to(torch.float16)
+        m = torch.rand((n,), generator=gen, device=device) < 0.9
+        k = g.to(torch.int64) + (2**32 - TYPES_GROUPS)  # a uint32 as stored
+        u = torch.randint(-2**63, 2**63 - 1, (n,), generator=gen, device=device,
+                          dtype=torch.int64)  # uint64 words
+        case = dict(keys=[BinKey(k, None, 2**32 - TYPES_GROUPS, TYPES_GROUPS)], nrows=n,
+                    floats=[(h, None), (h, m)])
+        check_binned(binned_sums_cuda(**case), binned_sums_reference(**case), case,
+                     f"types binned_sums float16 n={n}")
+        ecase = dict(seg=g, num=TYPES_GROUPS, payloads=[Extremum(h, m, True, True),
+                                                         Extremum(u, None, True, True)], nrows=n)
+        got, want = segment_extrema_cuda(**ecase), segment_extrema_reference(**ecase)
+        for q in range(2):
+            for a, b in ((got.mins[q], want.mins[q]), (got.maxs[q], want.maxs[q])):
+                if a.dtype != b.dtype or not torch.equal(a.view(torch.int16) if
+                                                         a.dtype == torch.float16 else a,
+                                                         b.view(torch.int16) if
+                                                         b.dtype == torch.float16 else b):
+                    raise SystemExit(f"FAIL types segment_extrema payload {q} n={n}")
+        bk = dict(keys=[BinKey(k, None, 2**32 - TYPES_GROUPS, TYPES_GROUPS)], nrows=n)
+        for a, b in zip(bin_factorize_cuda(**bk), bin_factorize_reference(**bk)):
+            if not torch.equal(a, b):
+                raise SystemExit(f"FAIL types bin_factorize uint32 key n={n}")
+        words = dict(keys=[(u, None)], nrows=n)
+        a, b = sort_word_cuda(**words), sort_word_reference(**words)
+        if not torch.equal(a.word, b.word):
+            raise SystemExit(f"FAIL types sort_word uint64 key n={n}")
+        # doubles over float16's range and past it, stored as float16
+        # (rounded once: one in about 2^13 would round apart through float32)
+        d = torch.randn((n,), generator=gen, device=device, dtype=torch.float64) * torch.exp2(
+            torch.randint(-30, 18, (n,), generator=gen, device=device).to(torch.float64))
+        blocks = TorchBlocks(n, {
+            "h": TorchColumn(pa.float16(), h, m), "u": TorchColumn(pa.uint64(), u, None),
+            "d": TorchColumn(pa.float64(), d, None)}, device)
+        exprs = [(col("h") * 2).alias("x"), (col("h") + col("h")).alias("y"),
+                 (col("h") < 0.5).alias("z"), (col("u") > 2**63).alias("w"),
+                 col("u").cast("double").alias("f"), col("u").cast("long").alias("i")]
+        _types_k6(blocks, exprs, n)
+        _types_k6(blocks, [col("d").alias("q")], n, [torch.float16])
+        del g, h, m, k, u, d, blocks
+        print(f"ok types twins n={n}: binned_sums float16, segment_extrema float16 and uint64 "
+              f"words, bin_factorize uint32, sort_word uint64, expr_program float16/uint64/"
+              f"float64 to float16")
+    torch.cuda.empty_cache()
+
+
+def _types_k6(blocks: Any, exprs: List[Any], n: int, dts: Optional[List[Any]] = None) -> None:
+    """K6 against its twin over ``blocks`` (float16, uint64 and float64
+    columns) on ``exprs``, each output in its ``dts`` entry (default: its
+    declared type), bit for bit."""
+    import torch
+
+    from fugue_tpu_torch.kernels.expr_program import compile_program, expr_program_cuda
+    from fugue_tpu_torch.kernels.reference import expr_program_reference
+    from fugue_tpu_torch.schema import Schema
+    from fugue_tpu_torch.torch_backend.blocks import torch_dtype
+    from fugue_tpu_torch.torch_backend.expr_eval import _columns
+
+    schema = Schema([(name, c.pa_type) for name, c in blocks.columns.items()])
+    dts = dts or [torch_dtype(e.infer_type(schema)) for e in exprs]
+    prog = compile_program(exprs, dts, _columns(blocks), {}, blocks.device)
+    inputs = [(blocks.columns[nm].data, blocks.columns[nm].mask) for nm, _ in prog.inputs]
+    got = expr_program_cuda(prog, inputs, n, device=blocks.device)
+    want = expr_program_reference(prog, inputs, n, device=blocks.device)
+    for e, (gv, gm), (wv, wm) in zip(exprs, got, want):
+        same_mask = (gm is None) == (wm is None) and (gm is None or torch.equal(gm, wm))
+        bits = {torch.float16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
+        a = gv.view(bits[gv.dtype]) if gv.dtype in bits else gv
+        b = wv.view(bits[wv.dtype]) if wv.dtype in bits else wv
+        if gv.dtype != wv.dtype or not same_mask or not torch.equal(a, b):
+            raise SystemExit(f"FAIL types expr_program {e} n={n}: differs from the twin")
+
+
+def types_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
+    """The kernels given a new dtype code, timed at ``ROWS`` rows beside
+    their existing dtype in turns (CUDA events): the fused kernel summing
+    a float16 against a float32 payload by the headline key, K4's min and
+    max of float16 against float32, K6's ``h * 2`` (float16 in and out,
+    one ``HALF``) against ``v * 2`` (float32). Each entry's bound is its
+    own bytes: the float16 ones read 2 B a row where float32 reads 4."""
+    import pyarrow as pa
+    import torch
+
+    from fugue_tpu_torch import col
+    from fugue_tpu_torch.kernels.expr_program import compile_program, expr_program_cuda
+    from fugue_tpu_torch.kernels.reference import (
+        BinKey, Extremum, binned_sums_reference, expr_program_reference,
+        segment_extrema_reference,
+    )
+    from fugue_tpu_torch.kernels.segment_reduce import segment_extrema_cuda
+    from fugue_tpu_torch.kernels.segment_sums import binned_sums_cuda
+
+    n, total = ROWS, TYPES_GROUPS
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    key = torch.randint(0, total, (n,), generator=gen, device=device, dtype=torch.int32)
+    v = torch.rand((n,), generator=gen, device=device)
+    h = v.to(torch.float16)
+    out: List[Dict[str, Any]] = []
+    pair: Dict[str, Dict[str, float]] = {}
+    for name, payload in (("float16", h), ("float32", v)):
+        case = dict(keys=[BinKey(key, None, 0, total)], nrows=n, floats=[(payload, None)])
+        err = check_binned(binned_sums_cuda(**case), binned_sums_reference(**case), case,
+                           f"types timing binned_sums {name}")
+        ms = [time_cuda(lambda: binned_sums_cuda(**case), 20) for _ in range(2)]
+        pair.setdefault("binned_sums", {})[name] = min(ms)
+        if name == "float16":
+            plain = time_cuda(lambda: binned_sums_reference(**case), 3)
+            src = torch.stack([payload.float(), torch.ones_like(v)], dim=1)
+            acc = torch.zeros((total, 2), dtype=torch.float32, device=device)
+            lib = time_cuda(lambda: acc.zero_().index_add_(0, key, src), 5)
+            del src
+            out.append(_kernel_entry(
+                "binned_sums_float16", "fugue_tpu/jax_backend/execution_engine.py:3500",
+                launches.get("binned_sums_float16", 0), err, min(ms), plain,
+                n * (4 + 2) + total * 8, n * 2, lib, source="segment_sums.cu"))
+    seg = key
+    for name, payload in (("float16", h), ("float32", v)):
+        case = dict(seg=seg, num=total, payloads=[Extremum(payload, None, True, True)], nrows=n)
+        got, want = segment_extrema_cuda(**case), segment_extrema_reference(**case)
+        if not torch.equal(got.mins[0].float(), want.mins[0].float()) or \
+                not torch.equal(got.maxs[0].float(), want.maxs[0].float()):
+            raise SystemExit(f"FAIL types timing segment_extrema {name}")
+        ms = [time_cuda(lambda: segment_extrema_cuda(**case), 20) for _ in range(2)]
+        pair.setdefault("segment_extrema", {})[name] = min(ms)
+        if name == "float16":
+            plain = time_cuda(lambda: segment_extrema_reference(**case), 3)
+            lib = time_cuda(lambda: torch.zeros((total,), dtype=torch.float16, device=device)
+                            .scatter_reduce_(0, seg.long(), payload, "amin", include_self=False),
+                            5)
+            out.append(_kernel_entry(
+                "segment_extrema_float16", "fugue_tpu/jax_backend/groupby.py:647",
+                launches.get("segment_extrema_float16", 0), 0.0, min(ms), plain,
+                n * (4 + 2) + total * 4, n * 2, lib, source="segment_reduce.cu"))
+    from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, TorchColumn
+
+    blocks = TorchBlocks(n, {"h": TorchColumn(pa.float16(), h, None),
+                             "v": TorchColumn(pa.float32(), v, None)}, device)
+    for name, expr, dt in (("float16", col("h") * 2, torch.float16),
+                           ("float32", col("v") * 2, torch.float32)):
+        cols = {"h": (torch.float16, False), "v": (torch.float32, False)}
+        prog = compile_program([expr], [dt], cols, {}, device)
+        inputs = [(blocks.columns[nm].data, None) for nm, _ in prog.inputs]
+        got = expr_program_cuda(prog, inputs, n, device=device)[0][0]
+        want = expr_program_reference(prog, inputs, n, device=device)[0][0]
+        if not torch.equal(got.float(), want.float()):
+            raise SystemExit(f"FAIL types timing expr_program {name}")
+        ms = [time_cuda(lambda: expr_program_cuda(prog, inputs, n, device=device), 20)
+              for _ in range(2)]
+        pair.setdefault("expr_program", {})[name] = min(ms)
+        if name == "float16":
+            plain = time_cuda(lambda: expr_program_reference(prog, inputs, n, device=device), 3)
+            lib = time_cuda(lambda: h * 2, 5)
+            out.append(_kernel_entry(
+                "expr_program_float16", "fugue_tpu/jax_backend/expr_eval.py:109",
+                launches.get("expr_program_float16", 0), 0.0, min(ms), plain, n * (2 + 2),
+                n * 2, lib, source="expr_codegen.py"))
+    print("types_timing: " + json.dumps({"rows": n, "ms_by_dtype": pair, "card": card_line()}))
+    return out
+
+
 def main() -> None:
     """Runs every phase on the card."""
     import torch
@@ -7950,27 +8612,28 @@ def main() -> None:
     print(f"kernels checked against their twins: segment_extrema (bit-equal), "
           f"segment_sq_dev (max rel err {worst})")
     torch.cuda.empty_cache()
-    worst = expr_program_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
+    # at 100M rows each kernel is held against its twin where it is timed
+    worst = expr_program_vs_twin(device, (1, (1 << 20) + 37, 10_000_000))
     print(f"kernels checked against their twins: expr_program (max_abs_err={worst})")
     lap("twins: segment reductions, expr_program")
     torch.cuda.empty_cache()
-    lut_vs_twin(device, (1, (1 << 20) + 37, ROWS))
+    lut_vs_twin(device, (1, (1 << 20) + 37, 10_000_000))
     print("kernels checked against their twins: expr_program's LUT family (equal)")
     k6_once = k6_build_once(device, (1 << 20) + 37)
     lap("twins: LUTs, K6 builds")
     torch.cuda.empty_cache()
-    join_vs_twin(device, (1, (1 << 20) + 37, 10_000_000, ROWS))
+    join_vs_twin(device, (1, (1 << 20) + 37, 10_000_000))
     print("kernels checked against their twins: join_build, join_probe, join_expand, "
           "gather_rows (equal)")
     lap("twins: joins")
     torch.cuda.empty_cache()
-    row_select_vs_twin(device, (1, (1 << 20) + 37, ROWS))
+    row_select_vs_twin(device, (1, (1 << 20) + 37, 10_000_000))
     print("kernels checked against their twins: presort_word, rank_keep, first_row_mask, "
           "null_count_keep (equal)")
     print("dropna_copies: " + json.dumps(dropna_copies(device, 1 << 20)))
     lap("twins: row selection")
     torch.cuda.empty_cache()
-    worst = window_vs_twin(device, (1, (1 << 20) + 37, ROWS))
+    worst = window_vs_twin(device, (1, (1 << 20) + 37, 10_000_000))
     worst = max(worst, window_slab_cases(device))
     window_rank_edges(device)
     window_rank_timing(device, ROWS)
@@ -7978,7 +8641,7 @@ def main() -> None:
           f"their tiles' and slabs' edges; float64 frame sums max_abs_err={worst})")
     lap("twins: windows")
     torch.cuda.empty_cache()
-    comap_vs_twin(device, (1, (1 << 20) + 37, ROWS))
+    comap_vs_twin(device, (1, (1 << 20) + 37, 10_000_000))
     print("kernels checked against their twins: comap_presence, comap_rows (equal)")
     worst = stream_fold_vs_twin(device, (1, (1 << 20) + 37, STREAM_CHUNK_ROWS))
     torch.cuda.empty_cache()
@@ -7986,6 +8649,12 @@ def main() -> None:
     print(f"kernels checked against their twins: stream_fold (equal, also at its edges; float64 "
           f"sums max rel err {worst})")
     lap("twins: co-map, stream fold")
+    torch.cuda.empty_cache()
+    types_vs_twin(device, TYPES_SIZES)
+    print("kernels checked against their twins at their new dtypes: binned_sums (float16), "
+          "segment_extrema (float16), expr_program (float16, HALF, uint64 words), "
+          "bin_factorize (uint32 keys), sort_word (uint64 words)")
+    lap("twins: new dtypes")
     torch.cuda.empty_cache()
 
     stats = main_path(device, ROWS, GROUPS, SEED, WARM_RUNS)
@@ -8126,6 +8795,28 @@ def main() -> None:
     lap("io paths")
     torch.cuda.empty_cache()
 
+    types = types_paths(device, ROWS, SEED)
+    for st in types:
+        st["card"] = card
+        print("types_path: " + json.dumps(st))
+    torch.cuda.empty_cache()
+    sku = types_sku(device, ROWS, STRING_SEED)
+    sku["card"] = card
+    print("types_sku: " + json.dumps(sku))
+    alter = types_alter(device)
+    alter["card"] = card
+    print("types_alter: " + json.dumps(alter))
+    torch.cuda.empty_cache()
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        host = types_host(device, TYPES_HOST_ROWS, SEED, tmp)
+    host["card"] = card
+    print("types_host: " + json.dumps(host))
+    lap("types")
+    torch.cuda.empty_cache()
+
     stand_ins = stand_in_timing(device)
     stand_ins["card"] = card
     print("stand_ins: " + json.dumps(stand_ins))
@@ -8183,6 +8874,12 @@ def main() -> None:
     entries += comap_timing(device, zips["config4_inner_100m"]["launches"])
     torch.cuda.empty_cache()
     entries.append(stream_timing(device, streamed["launches"]["stream_fold"]))
+    torch.cuda.empty_cache()
+    by_types = {st["case"]: st["launches"] for st in types}
+    entries += types_timing(device, {
+        "binned_sums_float16": by_types["agg_by_k"].get("binned_sums", 0),
+        "segment_extrema_float16": by_types["agg_by_k"].get("segment_extrema", 0),
+        "expr_program_float16": by_types["alter"].get("expr_program", 0)})
     torch.cuda.empty_cache()
     k6_scaling(device)
     median_timing(device)

@@ -38,19 +38,29 @@ in one wave of copies into pinned memory.
 
 from fugue_tpu_torch.api import (
     aggregate,
+    alter_columns,
+    as_array,
+    as_array_iterable,
+    as_dict_iterable,
     assign,
     distinct,
+    drop_columns,
     dropna,
     fillna,
     filter,
+    head,
     intersect,
     join,
     load,
+    peek_array,
+    peek_dict,
     raw_sql,
+    rename,
     repartition,
     sample,
     save,
     select,
+    select_columns,
     subtract,
     take,
     transform,
@@ -59,6 +69,7 @@ from fugue_tpu_torch.api import (
 )
 from fugue_tpu_torch.column import SelectColumns, col, function, lit, null
 from fugue_tpu_torch.column import functions
+from fugue_tpu_torch.dataframe import ArrayDataFrame, ArrowDataFrame, DataFrame
 from fugue_tpu_torch.dataframe.dataframe_iterable_dataframe import LocalDataFrameIterableDataFrame
 from fugue_tpu_torch.execution import make_execution_engine
 from fugue_tpu_torch.schema import Schema
@@ -66,31 +77,44 @@ from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.torch_backend.execution_engine import TorchExecutionEngine
 
 __all__ = [
+    "ArrayDataFrame",
+    "ArrowDataFrame",
+    "DataFrame",
     "LocalDataFrameIterableDataFrame",
     "Schema",
     "SelectColumns",
     "TorchDataFrame",
     "TorchExecutionEngine",
     "aggregate",
+    "alter_columns",
+    "as_array",
+    "as_array_iterable",
+    "as_dict_iterable",
     "assign",
     "col",
     "distinct",
+    "drop_columns",
     "dropna",
     "fillna",
     "filter",
     "function",
     "functions",
+    "head",
     "intersect",
     "join",
     "lit",
     "load",
     "make_execution_engine",
     "null",
+    "peek_array",
+    "peek_dict",
     "raw_sql",
+    "rename",
     "repartition",
     "sample",
     "save",
     "select",
+    "select_columns",
     "subtract",
     "take",
     "transform",

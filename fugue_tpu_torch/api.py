@@ -3,7 +3,12 @@
 ``distinct``, ``dropna``, ``fillna``, ``sample``, ``take``,
 ``repartition``, ``raw_sql``, ``zip`` (``transform`` of a zip is a
 co-transform), ``load`` and ``save``, run straight on the engine with no
-workflow DAG (the DAG is not ported yet). ``aggregate`` of a ``LocalDataFrameIterableDataFrame``
+workflow DAG (the DAG is not ported yet); and the frame's own column
+operations and conversions (``rename``, ``drop_columns``,
+``select_columns``, ``alter_columns``, ``head``, ``peek_array``,
+``peek_dict``, ``as_array``, ``as_array_iterable``, ``as_dict_iterable``,
+``fugue_tpu/dataframe/api.py:70-128``), which take a frame of the port,
+pandas or arrow. ``aggregate`` of a ``LocalDataFrameIterableDataFrame``
 streams it chunk by chunk.
 
 ``transform`` mirrors ``fugue_tpu/workflow/api.py:15`` for a transformer
@@ -22,14 +27,18 @@ counterpart of the JAX package's ``Dict[str, jax.Array]`` parameter
 """
 
 import typing
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
+import pandas as pd
+import pyarrow as pa
 import torch
 
 from fugue_tpu_torch.collections.partition import PartitionSpec
 from fugue_tpu_torch.collections.sql import StructuredRawSQL, interleave_sql
 from fugue_tpu_torch.column.expressions import ColumnExpr, col, lit
 from fugue_tpu_torch.column.sql import SelectColumns
+from fugue_tpu_torch.dataframe import ArrowDataFrame, DataFrame
+from fugue_tpu_torch.dataframe.utils import pandas_to_table
 from fugue_tpu_torch.execution.factory import make_execution_engine
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.torch_backend.execution_engine import TorchExecutionEngine
@@ -316,3 +325,79 @@ def save(df: Any, path: str, format_hint: Any = None, mode: str = "overwrite",
     e.save_df(df, path, format_hint=format_hint, mode=mode,
               partition_spec=None if partition is None else PartitionSpec(partition),
               force_single=force_single, **kwargs)
+
+
+# ---- the frame's column operations and conversions (``fugue_tpu/dataframe/api.py:70-128``) ----
+
+def _as_frame(df: Any) -> DataFrame:
+    """``as_fugue_df``: a frame of the port as it is; pandas or arrow as an
+    ``ArrowDataFrame`` on the host (the reference's local frames), with no
+    upload."""
+    if isinstance(df, DataFrame):
+        return df
+    if isinstance(df, pd.DataFrame):
+        return ArrowDataFrame(pandas_to_table(df))
+    if isinstance(df, pa.Table):
+        return ArrowDataFrame(df)
+    raise NotImplementedError(f"no conversion from {type(df)} to a DataFrame")
+
+
+def _adjust(result: DataFrame, original: Any, as_fugue: bool) -> Any:
+    """The result as a frame of the port, or as the original's own kind
+    (pandas, arrow) where it was one and ``as_fugue`` is not set."""
+    if as_fugue or isinstance(original, DataFrame):
+        return result
+    if isinstance(original, pd.DataFrame):
+        return result.as_pandas()
+    if isinstance(original, pa.Table):
+        return result.as_arrow()
+    return result
+
+
+def rename(df: Any, columns: Dict[str, Any], as_fugue: bool = False) -> Any:
+    """``df`` with columns renamed ``{old: new}`` at once."""
+    if len(columns) == 0:
+        return df
+    return _adjust(_as_frame(df).rename(columns), df, as_fugue)
+
+
+def drop_columns(df: Any, columns: List[str], as_fugue: bool = False) -> Any:
+    return _adjust(_as_frame(df).drop(columns), df, as_fugue)
+
+
+def select_columns(df: Any, columns: List[Any], as_fugue: bool = False) -> Any:
+    return _adjust(_as_frame(df)[columns], df, as_fugue)
+
+
+def alter_columns(df: Any, columns: Any, as_fugue: bool = False) -> Any:
+    """``df`` with the columns of the schema expression ``columns`` cast to
+    their new types (on the card for a ``TorchDataFrame``)."""
+    return _adjust(_as_frame(df).alter_columns(columns), df, as_fugue)
+
+
+def head(df: Any, n: int, columns: Optional[List[str]] = None, as_fugue: bool = False) -> Any:
+    """The first ``n`` rows (of ``columns``): a local frame, or the
+    original's kind."""
+    return _adjust(_as_frame(df).head(n, columns), df, as_fugue)
+
+
+def peek_array(df: Any) -> List[Any]:
+    return _as_frame(df).peek_array()
+
+
+def peek_dict(df: Any) -> Dict[str, Any]:
+    return _as_frame(df).peek_dict()
+
+
+def as_array(df: Any, columns: Optional[List[str]] = None, type_safe: bool = False
+             ) -> List[Any]:
+    return _as_frame(df).as_array(columns, type_safe)
+
+
+def as_array_iterable(df: Any, columns: Optional[List[str]] = None, type_safe: bool = False
+                      ) -> Iterable[Any]:
+    return _as_frame(df).as_array_iterable(columns, type_safe)
+
+
+def as_dict_iterable(df: Any, columns: Optional[List[str]] = None) -> Iterable[Dict[str, Any]]:
+    return _as_frame(df).as_dict_iterable(columns)

@@ -6,6 +6,11 @@ from typing import Any, Union
 
 import torch
 
+# a uint64 column's words on the card: its values with the sign bit flipped,
+# so a signed order of the words is the unsigned order of the values
+# (``torch_backend/blocks.py``); one definition for the kernels and the frame
+U64_FLIP = -(1 << 63)
+
 
 def kernel_for(where: Union[torch.Tensor, torch.device], cuda: Any, twin: Any, what: str) -> Any:
     """``cuda`` (a kernel's wrapper) for a CUDA tensor or device, ``twin``

@@ -12,6 +12,7 @@
 
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -19,9 +20,10 @@ namespace fugue {
 
 constexpr int kMaxKeys = 4;
 
-// dtype codes, as the Python wrappers pass them
+// dtype codes, as the Python wrappers pass them (kF16: a float16 payload,
+// read as its bits and widened to float; never a key)
 constexpr int kBool = 0, kU8 = 1, kI8 = 2, kI16 = 3, kI32 = 4, kI64 = 5,
-              kF32 = 6, kF64 = 7;
+              kF32 = 6, kF64 = 7, kF16 = 8;
 
 struct Column {
   const void* data;
@@ -39,7 +41,7 @@ struct KeyBins {
 __host__ __device__ inline int elem_size(int code) {
   switch (code) {
     case kBool: case kU8: case kI8: return 1;
-    case kI16: return 2;
+    case kI16: case kF16: return 2;
     case kI32: case kF32: return 4;
     default: return 8;
   }
@@ -47,6 +49,11 @@ __host__ __device__ inline int elem_size(int code) {
 
 // R consecutive flags from row r0. At R = 4, r0 % 4 == 0 and the column
 // is 4-byte aligned.
+// a float16's value from its bits
+__device__ __forceinline__ float half_value(unsigned short bits) {
+  return __half2float(__ushort_as_half(bits));
+}
+
 template <int R>
 __device__ __forceinline__ void load_flags(const uint8_t* p, long long r0,
                                            bool (&m)[R]) {

@@ -78,14 +78,17 @@ CUBIN_FLAGS = ("-arch=sm_90a", "-cubin", "-O3", "-std=c++17")
 HEADER = Path(__file__).resolve().parent / "expr_ops.cuh"
 
 # each dtype code's C type, and how it lies in memory (a bool as a byte)
+# (float16 is stored as its bits and computed in a float register)
 _C = {ep.B: "bool", ep.U8: "unsigned char", ep.I8: "signed char", ep.I16: "short",
-      ep.I32: "int", ep.I64: "long long", ep.F32: "float", ep.F64: "double"}
-_MEM = {**_C, ep.B: "unsigned char"}
-_SIZE = {ep.B: 1, ep.U8: 1, ep.I8: 1, ep.I16: 2, ep.I32: 4, ep.I64: 8, ep.F32: 4, ep.F64: 8}
+      ep.I32: "int", ep.I64: "long long", ep.F32: "float", ep.F64: "double", ep.F16: "float"}
+_MEM = {**_C, ep.B: "unsigned char", ep.F16: "unsigned short"}
+_SIZE = {ep.B: 1, ep.U8: 1, ep.I8: 1, ep.I16: 2, ep.I32: 4, ep.I64: 8, ep.F32: 4, ep.F64: 8,
+         ep.F16: 2}
 
 _BINARY = {"ADD": "add", "SUB": "sub", "MUL": "mul", "DIV": "div", "POW": "pow_"}
 _COMPARE = {"EQ": "eq", "NE": "ne", "LT": "lt", "LE": "le", "GT": "gt", "GE": "ge"}
 _UNARY = {"NEG": "neg", "ABS": "abs_", "SIGN": "sign", "FLOOR": "floor_", "CEIL": "ceil_",
+          "HALF": "round_half",
           "SQRT": "sqrt_", "EXP": "exp_", "LN": "ln_", "LOG2": "log2_", "LOG10": "log10_",
           "SIN": "sin_", "COS": "cos_", "TAN": "tan_"}
 
@@ -292,7 +295,8 @@ class _Gen:
             return self.define(k, dst, d, f"{f}nannull({a})", _conj(va, f"{f}not_nan({a})"))
         if op in _UNARY:
             a, _, va = self.read(ra, d)
-            return self.define(k, dst, d, f"{f}{_UNARY[op]}({a})", va)
+            out = ep.F32 if op == "HALF" else d  # a float16's value in a float register
+            return self.define(k, dst, out, f"{f}{_UNARY[op]}({a})", va)
         raise ValueError(f"no code for {op}")  # pragma: no cover - OPS are all above
 
     def generate(self, param_limit: int) -> Kernel:
@@ -328,9 +332,9 @@ class _Gen:
                                                           self.mask_only)):
             value = f"({_C[code]})0"
             if not mask_only:
-                load(f"v{q}", self.field("in", q, f"const {_MEM[code]}*"), _C[code],
-                     code == ep.B, _SIZE[code])
-                value = f"x.v{q}"
+                load(f"v{q}", self.field("in", q, f"const {_MEM[code]}*"),
+                     _MEM[code] if code == ep.F16 else _C[code], code == ep.B, _SIZE[code])
+                value = f"{f}h2f(x.v{q})" if code == ep.F16 else f"x.v{q}"
             valid = "true"
             if masked:
                 load(f"m{q}", self.field("inm", q, "const unsigned char*"), "bool", True, 1)
@@ -339,7 +343,7 @@ class _Gen:
             if valid != "true":
                 self.body.append(f"  const bool ma{q} = {valid};")
                 valid = f"ma{q}"
-            self.regs[q] = (f"a{q}", code, valid)
+            self.regs[q] = (f"a{q}", ep.F32 if code == ep.F16 else code, valid)
         if self.mode == "row_valid":
             load("real", "p.row_valid", "bool", True, 1)
         out_members: List[str] = []
@@ -351,9 +355,10 @@ class _Gen:
             mem, ctype = _MEM[code], _C[code]
             store_bytes.append(_SIZE[code])
             out_members.append(f"  {ctype} {member};")
-            stores.append(f"  {ptr}[r] = ({mem})y.{member};")
+            conv = f"{f}f2h" if code == ep.F16 else f"({mem})"
+            stores.append(f"  {ptr}[r] = {conv}(y.{member});")
             storesv.append(f"  {{\n    const {mem} w[{W}] = {{"
-                           + ", ".join(f"({mem})y[{j}].{member}" for j in range(W))
+                           + ", ".join(f"{conv}(y[{j}].{member})" for j in range(W))
                            + f"}};\n    {f}stv<{W}>({ptr} + r, w);\n  }}")
 
         for t, code in enumerate(self.tab_codes):
@@ -373,7 +378,7 @@ class _Gen:
         else:
             inputs_masks = {f"ma{q}": q for q, m in enumerate(self.in_masked) if m}
             for o, (reg, dtype, masked) in enumerate(self.outputs):
-                v, _, valid = self.read(reg, dtype)
+                v, _, valid = self.read(reg, ep.F32 if dtype == ep.F16 else dtype)
                 store(f"v{o}", self.field("out", o, f"{_MEM[dtype]}*"), dtype)
                 self.body.append(f"  y.v{o} = {v};")
                 # an input's mask, unchanged, is the output's: not copied

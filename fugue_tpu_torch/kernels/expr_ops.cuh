@@ -21,6 +21,9 @@
 
 #include <math.h>
 #include <stdint.h>
+#if defined(__CUDACC__)
+#include <cuda_fp16.h>
+#endif
 
 namespace fugue {
 namespace k6 {
@@ -349,6 +352,34 @@ __device__ __forceinline__ long long lut_index(long long i, long long len) {
 template <class T>
 __device__ __forceinline__ T lut(const T* table, long long len, long long i) {
   return __ldg(table + lut_index(i, len));
+}
+
+// --- float16 ----------------------------------------------------------------
+// A float16 column is read and written as its bits; its values compute in
+// float registers. Both conversions are IEEE's, to nearest even; one
+// operation on float16 values is computed in float and rounded once
+// (round_half), which equals half arithmetic for + - * / and sqrt
+// (float's 24-bit significand holds 2 * 11 + 2 bits). The conversions
+// are the hardware's (cvt); a host build's header gives the same ones in
+// integer arithmetic.
+
+__device__ __forceinline__ float h2f(unsigned short h) {
+  return __half2float(__ushort_as_half(h));
+}
+__device__ __forceinline__ unsigned short f2h(float f) {
+  return __half_as_ushort(__float2half_rn(f));
+}
+
+__device__ __forceinline__ float round_half(float x) { return h2f(f2h(x)); }
+
+// a double rounded once to float16: to float rounded to odd (toward zero,
+// the last bit set where that was inexact), then to nearest; float holds
+// 2 bits more than twice float16's 11, so the second rounding is exact
+// where two to nearest would not be
+__device__ __forceinline__ float round_half(double x) {
+  float f = __double2float_rz(x);
+  if ((double)f != x && x == x) f = __uint_as_float(__float_as_uint(f) | 1u);
+  return round_half(f);
 }
 
 }  // namespace k6

@@ -23,7 +23,7 @@ Strings: a string register is an I32 register holding dictionary codes;
 the compiler, not the kernel, tracks which dictionary it codes
 (``torch_backend/strings.py`` builds the tables). The ``LUT`` family,
 ``dst = table[t][clamp(a, 0, len - 1)]`` with ``a``'s validity, gathers
-from one of the program's small device tables (bool, int32 or int64): a
+from one of the program's small device tables (any dtype K6 holds): a
 LIKE's match flags, a compare against a literal folded into flags, the
 ranks of a compare of two columns in their union vocabulary, LENGTH, the
 re-coding of a transformed dictionary onto its distinct entries and a
@@ -53,6 +53,22 @@ a bool as ``x != 0``; ``round(x, d)`` is ``rint(x * 10^d) / 10^d`` for
 ``sign`` keeps NaN and a zero's sign; ``floor``, ``ceil`` and ``sign``
 of a float are int64 with NaN as NULL.
 
+Unsigned and half columns (``blocks.torch_dtype``): a uint16 or uint32
+is its value in its int32 or int64 register; a uint64 is its word with
+the sign bit flipped, so a compare of two of them, or of one and a
+literal flipped the same way, is a signed compare, and ``plain`` reads
+its value out (a cast, a bool test, a float64 rounded once). A float16
+is loaded from its bits into an F32 register (input code ``F16``) and
+stored back the same way; each float16 operation computes in float32 and
+rounds to float16 (``HALF``), so ``h * 2`` overflows to inf as the JAX
+package's does. A float64 stored as float16 rounds once, straight to
+float16 (``HALF`` of an F64: float32 rounded to odd, then to nearest),
+as arrow's cast does; an integer reaches float16 exactly or overflows.
+Arithmetic that ``_promote`` declares unsigned wraps in the type and is
+reduced back into the column's word
+(``unsigned_result``); one it cannot type raises ``ValueError``, as type
+inference does.
+
 A program has no cap on its instructions, registers, inputs, outputs or
 tables: its kernel is generated to its size. A table over the string
 caps of ``strings.py`` (a LIKE by a pattern column over more than
@@ -81,24 +97,29 @@ from fugue_tpu_torch.column.expressions import (
     _promote,
     _UnaryOpExpr,
 )
-from fugue_tpu_torch.kernels import build
+from fugue_tpu_torch.kernels import U64_FLIP, build
 from fugue_tpu_torch.torch_backend import strings
 
 HOST_ENGINE = "ROADMAP.md queue 1 item 2(b) (the host engine)"
 
 # dtype codes of bin_keys.cuh
 B, U8, I8, I16, I32, I64, F32, F64 = range(8)
+# float16 in memory: an input loaded into an F32 register, an output
+# stored from one (a storage code, never an instruction's dtype)
+F16 = 8
 CODES = {
     torch.bool: B, torch.uint8: U8, torch.int8: I8, torch.int16: I16,
     torch.int32: I32, torch.int64: I64, torch.float32: F32, torch.float64: F64,
 }
 DTYPES = {c: t for t, c in CODES.items()}
-_NAMES = ("B", "U8", "I8", "I16", "I32", "I64", "F32", "F64")
+DTYPES[F16] = torch.float16
+_NAMES = ("B", "U8", "I8", "I16", "I32", "I64", "F32", "F64", "F16")
 _PA = {
     B: pa.bool_(), U8: pa.uint8(), I8: pa.int8(), I16: pa.int16(),
     I32: pa.int32(), I64: pa.int64(), F32: pa.float32(), F64: pa.float64(),
 }
 _FROM_PA = {t: c for c, t in _PA.items()}
+_U16, _U32, _U64 = pa.uint16(), pa.uint32(), pa.uint64()
 _INTS = (U8, I8, I16, I32, I64)
 _FLOATS = (F32, F64)
 
@@ -108,7 +129,7 @@ OPS = (
     "CONST", "NULL", "ADD", "SUB", "MUL", "DIV", "MOD", "POW", "NEG", "ABS",
     "EQ", "NE", "LT", "LE", "GT", "GE", "AND", "OR", "NOT", "ISNULL", "NOTNULL",
     "CAST", "SEL", "COAL", "NULLIF", "FLOOR", "CEIL", "SIGN", "NANNULL",
-    "SQRT", "EXP", "LN", "LOG2", "LOG10", "SIN", "COS", "TAN", "ROUND", "LUT",
+    "SQRT", "EXP", "LN", "LOG2", "LOG10", "SIN", "COS", "TAN", "ROUND", "LUT", "HALF",
 )
 OP = {name: i for i, name in enumerate(OPS)}
 _CMP = {"==": "EQ", "!=": "NE", "<": "LT", "<=": "LE", ">": "GT", ">=": "GE"}
@@ -117,7 +138,9 @@ _FLOAT_FUNCS = {
     "sqrt": "SQRT", "exp": "EXP", "ln": "LN", "log": "LN", "log2": "LOG2",
     "log10": "LOG10", "sin": "SIN", "cos": "COS", "tan": "TAN",
 }
-_TABLE_CODES = {np.dtype(bool): B, np.dtype(np.int32): I32, np.dtype(np.int64): I64}
+_TABLE_CODES = {np.dtype(bool): B, np.dtype(np.uint8): U8, np.dtype(np.int8): I8,
+                np.dtype(np.int16): I16, np.dtype(np.int32): I32, np.dtype(np.int64): I64,
+                np.dtype(np.float32): F32, np.dtype(np.float64): F64}
 # the (family, dtype) pairs the kernels implement
 _ANY = tuple(range(8))
 _NUM = _INTS + _FLOATS
@@ -128,7 +151,8 @@ _VALID = {
     "AND": (B,), "OR": (B,), "NOT": (B,), "ISNULL": _ANY, "NOTNULL": _ANY,
     "CAST": _ANY, "SEL": _ANY, "COAL": _ANY, "NULLIF": _ANY,
     "FLOOR": _FLOATS, "CEIL": _FLOATS, "SIGN": _NUM, "NANNULL": _FLOATS,
-    **{c: (F64,) for c in _FLOAT_FUNCS.values()}, "ROUND": (F64,), "LUT": (B, I32, I64),
+    **{c: (F64,) for c in _FLOAT_FUNCS.values()}, "ROUND": (F64,), "LUT": _ANY,
+    "HALF": _FLOATS,
 }
 
 
@@ -264,6 +288,8 @@ class _Val(NamedTuple):
     const: Any = None
     dictionary: Optional[np.ndarray] = None
     text: Optional[str] = None
+    kind: Optional[pa.DataType] = None  # declared uint16-64 or float16
+    big: Optional[int] = None  # an integer literal in [2^63, 2^64), no register
 
     @property
     def is_str(self) -> bool:
@@ -281,7 +307,7 @@ _NARGS = {
                      "GE", "AND", "OR", "COAL", "NULLIF"), 2),
     **dict.fromkeys(("NEG", "ABS", "NOT", "ISNULL", "NOTNULL", "CAST", "FLOOR", "CEIL", "SIGN",
                      "NANNULL", "SQRT", "EXP", "LN", "LOG2", "LOG10", "SIN", "COS", "TAN",
-                     "ROUND", "LUT"), 1),
+                     "ROUND", "LUT", "HALF"), 1),
     "SEL": 3,
 }
 
@@ -300,9 +326,11 @@ class _Compiler:
     linear-scan allocation onto as few registers as the values live at once
 need."""
 
-    def __init__(self, columns: Dict[str, Tuple[int, bool]],
-                 dicts: Dict[str, np.ndarray]):
-        self.columns = columns  # name -> (dtype code, has a mask)
+    def __init__(self, columns: Dict[str, Tuple[int, bool, Optional[pa.DataType]]],
+                 dicts: Dict[str, np.ndarray], host: Any = ()):
+        self.host = host  # the frame's host columns: refused
+        # name -> (dtype code, has a mask, declared uint16-64 / float16 type)
+        self.columns = columns
         self.dicts = dicts  # name -> dictionary, for the string columns
         self.inputs: Dict[str, _Val] = {}
         self.code: List[Instr] = []
@@ -314,14 +342,16 @@ need."""
     def _emit(self, op: str, dtype: int, *args: int, imm: Any = 0, b: Optional[int] = None,
               masked: bool = False) -> _Val:
         """``op`` over operands of ``dtype``; the value is of ``dtype`` too,
-        but bool for a comparison or a null test and ``b`` for a CAST."""
+        but bool for a comparison or a null test, ``b`` for a CAST and F32
+        for a HALF."""
         regs = list(args) + [0] * (3 - len(args))
         if b is not None:
             regs[1] = b
         ins = Instr(OP[op], dtype, self.nvirt, regs[0], regs[1], regs[2], imm)
         key = (ins.opcode, tuple(regs), ins.imm_bits())
         if key not in self.memo:
-            out = B if op in _BOOL_RESULTS else regs[1] if op == "CAST" else dtype
+            out = B if op in _BOOL_RESULTS else regs[1] if op == "CAST" else \
+                F32 if op == "HALF" else dtype
             self.nvirt += 1
             self.code.append(ins)
             self.memo[key] = _Val(ins.dst, out, masked, const=imm if op == "CONST" else None)
@@ -372,16 +402,107 @@ need."""
                 raise Refused(f"{e} (a cast of a string)", HOST_ENGINE)
             if e.as_type not in _FROM_PA:
                 raise Refused(f"cast to {e.as_type}", HOST_ENGINE)
-            v = self.cast(v, _FROM_PA[e.as_type])
+            v = self.cast(self.plain(v, _FROM_PA[e.as_type]), _FROM_PA[e.as_type])
         return v
+
+    def plain(self, v: _Val, dtype: int) -> _Val:
+        """A declared uint64 or float16 value as a plain register on its way
+        to ``dtype``: a uint64's flipped word unflipped into its int64 bits
+        for an integer, ``!= 0`` for a bool, and its value in float64,
+        rounded once, for a float; a float16 is already its value in F32; a
+        uint16 or uint32 is its value in its wider signed word."""
+        if v.kind != _U64:
+            return v._replace(kind=None)
+        if dtype == B:
+            return self._emit("NE", I64, v.reg, self.const(U64_FLIP, I64).reg, masked=v.masked)
+        if dtype not in _FLOATS:
+            return self._emit("ADD", I64, v.reg, self.const(U64_FLIP, I64).reg, masked=v.masked)
+        # the word w = value - 2^63 split as hi + lo, lo = w mod 2^32 in
+        # [0, 2^32): (hi + 2^63) and lo are exact float64s, so their sum
+        # rounds once, as a uint64's conversion does
+        span = self.const(1 << 32, I64)
+        r = self._emit("MOD", I64, v.reg, span.reg, masked=v.masked)
+        lo = self._emit("MOD", I64, self._emit("ADD", I64, r.reg, span.reg).reg, span.reg,
+                        masked=v.masked)
+        hi = self._emit("SUB", I64, v.reg, lo.reg, masked=v.masked)
+        top = self._emit("ADD", F64, self.cast(hi, F64).reg, self.const(2.0 ** 63, F64).reg,
+                         masked=v.masked)
+        return self._emit("ADD", F64, top.reg, self.cast(lo, F64).reg, masked=v.masked)
+
+    def declared(self, v: _Val) -> pa.DataType:
+        return v.kind if v.kind is not None else _PA[v.dtype]
+
+    def _kinded_binary(self, e: _BinaryOpExpr, a: _Val, b: _Val) -> _Val:
+        """``a op b`` where a side is a declared uint16-64 or float16
+        value. A compare: of two uint64 words, or of one and a literal in
+        ``[0, 2^64)`` flipped like the column, as signed words; of others
+        by value in the wider register. Arithmetic in the declared type
+        ``_promote`` gives (None raises, as type inference does): a float16
+        result in F32, rounded to float16 (``HALF``), so it equals IEEE half
+        arithmetic; a uint16-64 result in the integers' wrapping arithmetic
+        over the values, then reduced to its type (a uint64 flipped
+        again); any other result over the plain values."""
+        masked = a.masked or b.masked
+        if e.op in _CMP:
+            if _U64 in (a.kind, b.kind):
+                u, o = (a, b) if a.kind == _U64 else (b, a)
+                if o.kind != _U64 and not o.null:
+                    if not (o.const is not None and o.dtype == I64 and o.const >= 0) and \
+                            not (o.big is not None):
+                        raise Refused(f"{e} (a uint64 compared with {self.declared(o)})",
+                                      HOST_ENGINE)
+                    value = o.big if o.big is not None else o.const
+                    o = self.const(int(np.int64(np.uint64(value).view(np.int64))
+                                       ^ np.int64(U64_FLIP)), I64)
+                a, b = (u, o) if a.kind == _U64 else (o, u)
+                return self._emit(_CMP[e.op], I64, self.cast(a, I64).reg, self.cast(b, I64).reg,
+                                  masked=masked)
+            t = self.promote(a._replace(kind=None), b._replace(kind=None), "+", e)
+            return self._emit(_CMP[e.op], t, self.cast(a, t).reg, self.cast(b, t).reg,
+                              masked=masked)
+        ta = self.declared(b) if a.null else self.declared(a)
+        tb = self.declared(a) if b.null else self.declared(b)
+        tp = _promote(ta, tb, e.op)
+        if tp is None:
+            raise ValueError(f"can't infer type of {e}")
+        op = _ARITH[e.op]
+        if tp == pa.float16():
+            out = self._emit(op, F32, self.cast(a, F32).reg, self.cast(b, F32).reg,
+                             masked=masked)
+            return self._emit("HALF", F32, out.reg, masked=masked)._replace(kind=tp)
+        if tp in (_U16, _U32, _U64):
+            t = I32 if tp == _U16 else I64
+            raw = self._emit(op, t, self.cast(self.plain(a, I64), t).reg,
+                             self.cast(self.plain(b, I64), t).reg, masked=masked)
+            return self.unsigned_result(raw, tp)
+        t = _FROM_PA[tp]
+        return self._emit(op, t, self.cast(self.plain(a, t), t).reg,
+                          self.cast(self.plain(b, t), t).reg, masked=masked)
+
+    def unsigned_result(self, raw: _Val, tp: pa.DataType) -> _Val:
+        """An integer result declared ``tp`` in the column's storage: a
+        uint64's bits flipped; a uint16's or uint32's low 16 or 32 bits,
+        zero-extended into its int32 or int64 word."""
+        if tp == _U64:
+            out = self._emit("ADD", I64, raw.reg, self.const(U64_FLIP, I64).reg, masked=raw.masked)
+            return out._replace(kind=tp)
+        narrow, wide, span = (I16, I32, 1 << 16) if tp == _U16 else (I32, I64, 1 << 32)
+        low = self.cast(self.cast(raw, narrow), wide)
+        up = self._emit("ADD", wide, low.reg, self.const(span, wide).reg, masked=raw.masked)
+        out = self._emit("MOD", wide, up.reg, self.const(span, wide).reg, masked=raw.masked)
+        return out._replace(masked=raw.masked, kind=tp)
 
     def num(self, e: ColumnExpr, what: Any) -> _Val:
         """A numeric operand of ``what``: strings are refused, as the JAX
-        package sends them to its host engine."""
+        package sends them to its host engine; so is a uint64 (its words are
+        flipped) and an integer literal beyond int64. A uint16, uint32 or
+        float16 is its value in its register."""
         v = self.node(e)
         if v.stringish:
             raise Refused(f"{what} (a string where a number is needed)", HOST_ENGINE)
-        return v
+        if v.kind == _U64 or v.big is not None:
+            raise Refused(f"{what} (of a uint64 value)", HOST_ENGINE)
+        return v._replace(kind=None)
 
     def string(self, e: ColumnExpr, what: Any) -> _Val:
         """A string column's codes (or a transform of one) for ``what``."""
@@ -392,12 +513,14 @@ need."""
 
     def _node(self, e: ColumnExpr) -> _Val:
         if isinstance(e, _NamedColumnExpr):
+            if e.name in self.host:
+                raise Refused(f"an expression over the host column {e.name}", HOST_ENGINE)
             if e.name not in self.columns:
                 raise ValueError(f"{e.name} not available on device")
             if e.name not in self.inputs:
-                code, masked = self.columns[e.name]
+                code, masked, kind = self.columns[e.name]
                 self.inputs[e.name] = _Val(self.nvirt, code, masked,
-                                           dictionary=self.dicts.get(e.name))
+                                           dictionary=self.dicts.get(e.name), kind=kind)
                 self.nvirt += 1
             return self.inputs[e.name]
         if isinstance(e, _LitColumnExpr):
@@ -418,6 +541,8 @@ need."""
         if isinstance(v, bool):
             return self.const(v, B)
         if isinstance(v, int):
+            if 2**63 <= v < 2**64:  # only a uint64 compare takes it
+                return _Val(-1, I64, False, big=v)
             if not -(2**63) <= v < 2**63:
                 raise Refused(f"integer literal {v} beyond int64", HOST_ENGINE)
             return self.const(v, I64)
@@ -443,9 +568,14 @@ need."""
         a, b = self.node(e.left), self.node(e.right)
         if a.stringish or b.stringish:
             return self._str_compare(e.op, a, b, e)
+        if (a.kind is not None or b.kind is not None) and (e.op in _CMP or e.op in _ARITH):
+            return self._kinded_binary(e, a, b)
+        if a.big is not None or b.big is not None:
+            raise Refused(f"{e} (an integer literal beyond int64)", HOST_ENGINE)
         if e.op in ("&", "|"):
-            return self._emit("AND" if e.op == "&" else "OR", B, self.cast(a, B).reg,
-                              self.cast(b, B).reg, masked=True)
+            return self._emit("AND" if e.op == "&" else "OR", B,
+                              self.cast(self.plain(a, B), B).reg,
+                              self.cast(self.plain(b, B), B).reg, masked=True)
         if e.op not in _CMP and e.op not in _ARITH:
             raise Refused(f"binary {e.op}", HOST_ENGINE)
         t = self.promote(a, b, "+" if e.op in _CMP else e.op, e)
@@ -653,6 +783,15 @@ need."""
         ``expr_eval.py:588``)."""
         if v.text is not None:
             raise Refused(f"{e} (a string literal as a column)", HOST_ENGINE)
+        if v.big is not None:
+            raise Refused(f"{e} (an integer literal beyond int64 as a column)", HOST_ENGINE)
+        if dt == torch.float16:  # stored as float16 from its F32 register
+            v = self.plain(v, F32)
+            if v.dtype == F64:  # rounded once, not through float32's nearest
+                v = self._emit("HALF", F64, v.reg, masked=v.masked)
+            return self.cast(v, F32)._replace(dtype=F16, kind=pa.float16())
+        if v.kind is not None and dt is not None and CODES.get(dt) != v.dtype:
+            v = self.plain(v, CODES.get(dt, F64))
         if v.is_str:
             if dt not in (None, torch.int32):
                 raise Refused(f"{e} (a string as {dt})", HOST_ENGINE)
@@ -710,7 +849,8 @@ need."""
                        for r in reads(ins)} | keep
         dev = torch.device("cpu") if device is None else device
         return Program(
-            tuple((name, v.dtype) for name, v in inputs), tuple(instrs),
+            tuple((name, F16 if v.kind == pa.float16() else v.dtype) for name, v in inputs),
+            tuple(instrs),
             tuple(Output(phys[v.reg], v.dtype, v.masked) for v in outs), max(nregs, 1),
             tuple(v.reg not in value_reads for _, v in inputs),
             tuple(torch.from_numpy(self.tables[t]).to(dev) for t in used),
@@ -721,19 +861,25 @@ need."""
 def compile_program(
     exprs: Sequence[ColumnExpr],
     out_dtypes: Sequence[Optional[torch.dtype]],
-    columns: Dict[str, Tuple[torch.dtype, bool]],
+    columns: Dict[str, Tuple[Any, ...]],
     dicts: Optional[Dict[str, np.ndarray]] = None,
     device: Optional[torch.device] = None,
 ) -> Program:
     """``exprs`` over a frame whose ``columns`` are ``name -> (dtype, has
-    a mask)`` and whose string columns' codes index ``dicts``, each output
-    converted to its ``out_dtypes`` entry (None: the type it computes in;
-    a string output is int32 codes), its tables on ``device`` (default:
-    the CPU). Raises ``Refused`` for what K6 does not evaluate."""
+    a mask[, declared uint16-64 or float16 type])`` (a dtype of None: a
+    host column, which an expression may not read) and whose string
+    columns' codes index ``dicts``, each output converted to its
+    ``out_dtypes`` entry (None: the type it computes in; a string output
+    is int32 codes; float16 stored from an F32 register), its tables on
+    ``device`` (default: the CPU). Raises ``Refused`` for what K6 does
+    not evaluate."""
     if not exprs:
         raise ValueError("a program computes at least one expression")
-    comp = _Compiler({n: (CODES[t], m) for n, (t, m) in columns.items() if t in CODES},
-                     dict(dicts or {}))
+    comp = _Compiler({n: (F32 if c[0] == torch.float16 else CODES[c[0]], c[1],
+                          c[2] if len(c) > 2 else
+                          pa.float16() if c[0] == torch.float16 else None)
+                      for n, c in columns.items() if c[0] in CODES or c[0] == torch.float16},
+                     dict(dicts or {}), {n for n, c in columns.items() if c[0] is None})
     outs = [comp.output(e, comp.node(e), dt) for e, dt in zip(exprs, out_dtypes)]
     prog = comp.finish(outs, device)
     for ins in prog.instrs:
@@ -750,6 +896,20 @@ def remap_program(table: torch.Tensor) -> Program:
                    (Output(1, I32, False),), 2, (False,), (table,), (None,))
 
 
+def lut_program(table: torch.Tensor, masked: bool) -> Program:
+    """One LUT over one int32 column of codes, its mask kept where
+    ``masked``: each row's entry of ``table`` (any dtype K6 holds, or
+    float16: a float32 table stored back as float16, exactly) at its
+    code, as ``alter_columns`` casts a string's dictionary or re-codes
+    segment ids into a new dictionary."""
+    out = F16 if table.dtype == torch.float16 else CODES[table.dtype]
+    if out == F16:
+        table = table.to(torch.float32)
+    code = CODES[table.dtype]
+    return Program((("codes", I32),), (Instr(OP["LUT"], code, 1, 0, 0),),
+                   (Output(1, out, masked),), 2, (False,), (table,), (None,))
+
+
 class ProgramCache:
     """Compiled programs by the expressions' ``__uuid__``, the wanted
     output dtypes, the frame's column dtypes and masks and its string
@@ -760,12 +920,12 @@ class ProgramCache:
         self._programs: Dict[Any, Tuple[Program, Any]] = {}
 
     def get(self, exprs: Sequence[ColumnExpr], out_dtypes: Sequence[Optional[torch.dtype]],
-            columns: Dict[str, Tuple[torch.dtype, bool]],
+            columns: Dict[str, Tuple[Any, ...]],
             dicts: Optional[Dict[str, np.ndarray]] = None,
             device: Optional[torch.device] = None) -> Program:
         dicts = dicts or {}
         key = (tuple(e.__uuid__() for e in exprs), tuple(out_dtypes),
-               tuple(sorted((n, str(t), m) for n, (t, m) in columns.items())),
+               tuple(sorted((n, *map(str, c)) for n, c in columns.items())),
                tuple(sorted((n, id(d)) for n, d in dicts.items())), str(device))
         hit = self._programs.get(key)
         if hit is None:
@@ -901,10 +1061,10 @@ def _check_inputs(program: Program, inputs: Sequence[Masked], n: int,
     if len(inputs) != len(program.inputs):
         raise ValueError(f"{len(inputs)} inputs for a program of {len(program.inputs)}")
     for t in program.tables:
-        if t.device != device or t.dtype not in (torch.bool, torch.int32, torch.int64) \
+        if t.device != device or t.dtype not in CODES \
                 or t.dim() != 1 or t.shape[0] < 1 or not t.is_contiguous():
             raise ValueError(f"a table of {t.dtype} {tuple(t.shape)} on {t.device}: the kernel "
-                             f"takes dense, non-empty bool, int32 or int64 tables on {device}")
+                             f"takes dense, non-empty tables of a dtype it holds on {device}")
     for (name, code), (v, m) in zip(program.inputs, inputs):
         for t, what, dtype in ((v, name, DTYPES[code]), (m, f"{name} mask", torch.bool)):
             if t is None:

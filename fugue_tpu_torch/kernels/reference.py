@@ -598,7 +598,10 @@ _MAGNITUDE = {torch.float32: 0x7FFFFFFF, torch.float64: _I64_MAX}
 def _order_key(v: torch.Tensor) -> torch.Tensor:
     """int64 whose signed order is the order of ``v``, with -0.0 below
     +0.0 (a float's bits, the magnitude bits flipped where it is
-    negative). NaN is left to the caller."""
+    negative). NaN is left to the caller. A float16 orders by its float32
+    value, as K4 reads it."""
+    if v.dtype == torch.float16:
+        v = v.to(torch.float32)
     if v.dtype == torch.float32:
         b = v.view(torch.int32).to(torch.int64)
     elif v.dtype == torch.float64:
@@ -609,6 +612,8 @@ def _order_key(v: torch.Tensor) -> torch.Tensor:
 
 
 def _from_order_key(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype == torch.float16:
+        return _from_order_key(k, torch.float32).to(torch.float16)
     if dtype == torch.float32:
         return torch.where(k < 0, k ^ _MAGNITUDE[dtype], k).to(torch.int32).view(dtype)
     if dtype == torch.float64:
@@ -766,6 +771,20 @@ def _sign(x: torch.Tensor) -> torch.Tensor:
                                                else torch.zeros_like(x)))
 
 
+def round_half(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest float16, ties to even, as a float32: a
+    float64 rounded once, through float32 rounded to odd (toward zero, the
+    last bit set where that was inexact), since float32 holds 2 bits more
+    than float16's twice; torch's own float64 conversion rounds twice."""
+    if x.dtype == torch.float64:
+        f = x.to(torch.float32)
+        back = f.to(torch.float64)
+        f = torch.where(back.abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+        inexact = (f.to(torch.float64) != x) & ~torch.isnan(x)
+        x = torch.where(inexact, (f.view(torch.int32) | 1).view(torch.float32), f)
+    return x.to(torch.float16).to(torch.float32)
+
+
 _FLOAT_OPS = {
     "SQRT": torch.sqrt, "EXP": torch.exp, "LN": torch.log, "LOG2": torch.log2,
     "LOG10": torch.log10, "SIN": torch.sin, "COS": torch.cos, "TAN": torch.tan,
@@ -785,6 +804,8 @@ def _step(ins: "ep.Instr", regs: List[_Reg], device: torch.device,
         return torch.index_select(table, 0, idx.reshape(-1)).reshape(idx.shape), a[1]
     if op == "CONST":
         return torch.tensor(ins.imm, dtype=ep.DTYPES[dt], device=device), None
+    if op == "HALF":  # rounded to float16 and back
+        return round_half(a[0]), a[1]
     if op == "NULL":
         return (torch.zeros((), dtype=ep.DTYPES[dt], device=device),
                 torch.tensor(False, device=device))
@@ -876,12 +897,15 @@ def expr_program_reference(
         device = inputs[0][0].device if inputs else torch.device("cpu")
     regs: List[_Reg] = [(torch.zeros((), device=device), None)] * program.nregs
     for j, (v, m) in enumerate(inputs):
-        regs[j] = (v, m)
+        # a float16 input is read into a float32 register
+        regs[j] = (v.to(torch.float32) if program.inputs[j][1] == ep.F16 else v, m)
     for ins in program.instrs:
         regs[ins.dst] = _step(ins, regs, device, program.tables)
     outs = []
     for o in program.outputs:
         v, m = regs[o.reg]
+        if o.dtype == ep.F16:  # stored as float16, rounded to nearest even
+            v = v.to(torch.float16)
         v = v.to(device).expand(n).contiguous()
         m = None if not o.masked else _valid_of((v, m)).to(device).expand(n).contiguous()
         outs.append((v, m))

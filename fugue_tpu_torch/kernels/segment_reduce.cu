@@ -265,8 +265,9 @@ __device__ __forceinline__ void flush(const Dst<C>& d, int s, C lo, C hi) {
   }
 }
 
-// One run of a payload of dtype T into the pending fold (ps, plo, phi).
-template <typename C, typename T>
+// One run of a payload of dtype T into the pending fold (ps, plo, phi);
+// kHalf: T is a float16's bits, folded by its value as a float.
+template <typename C, typename T, bool kHalf = false>
 __device__ __forceinline__ void fold_payload(const Column& c, int vec, long long r0,
                                              long long n, const int (&s)[kRun],
                                              const Dst<C>& d, int& ps, C& plo, C& phi) {
@@ -279,7 +280,8 @@ __device__ __forceinline__ void fold_payload(const Column& c, int vec, long long
   for (int i = 0; i < kRun; ++i) {
     if (s[i] < 0 || !((mbits >> i) & 1u)) continue;
     C lo, hi;
-    code_of<C>(x[i], lo, hi);
+    if constexpr (kHalf) code_of<C>(half_value(x[i]), lo, hi);
+    else code_of<C>(x[i], lo, hi);
     if (s[i] != ps) {
       if (ps >= 0) flush(d, ps, plo, phi);
       ps = s[i];
@@ -397,6 +399,9 @@ __global__ void __launch_bounds__(kThreads)
           case kI16: fold_payload<C, int16_t>(c, vec, r0, p.rows.n, s, d, ps, lo, hi); break;
           case kI32: fold_payload<C, int32_t>(c, vec, r0, p.rows.n, s, d, ps, lo, hi); break;
           case kF32: fold_payload<C, float>(c, vec, r0, p.rows.n, s, d, ps, lo, hi); break;
+          case kF16:
+            fold_payload<C, unsigned short, true>(c, vec, r0, p.rows.n, s, d, ps, lo, hi);
+            break;
           default:
             if constexpr (sizeof(C) == 8) {
               if (c.code == kI64)
@@ -640,13 +645,17 @@ __global__ void __launch_bounds__(kTableThreads)
         put<long long>(dst, s, empty ? (is_max ? INT64_MIN : INT64_MAX)
                                      : (long long)(c ^ 0x8000000000000000ull));
         break;
-      case kF32: {
+      case kF32:
+      case kF16: {  // a float16's table holds its value's float code
         const unsigned k = (unsigned)c;
         const unsigned bits = (k & 0x80000000u) ? (k ^ 0x80000000u) : ~k;
         float v = empty ? __uint_as_float(is_max ? 0xFF800000u : 0x7F800000u)  // -inf, +inf
                         : __uint_as_float(bits);
         if (!empty && nan) v = __uint_as_float(0x7FC00000u);  // the NaN float("nan") gives
-        put<float>(dst, s, v);
+        if (p.dcode[t] == kF16)  // exact: the value came from a float16
+          put<unsigned short>(dst, s, __half_as_ushort(__float2half_rn(v)));
+        else
+          put<float>(dst, s, v);
         break;
       }
       default: {
@@ -753,7 +762,7 @@ extern "C" int fugue_segment_extrema(long long n, const void* row_valid, const v
   p.rows = make_rows(n, row_valid, seg, num);
   p.np = np;
   for (int q = 0; q < np; ++q) {
-    if (code[q] < kBool || code[q] > kF64) return (int)cudaErrorInvalidValue;
+    if (code[q] < kBool || code[q] > kF16) return (int)cudaErrorInvalidValue;
     p.pay[q] = {data[q], static_cast<const uint8_t*>(mask[q]), code[q]};
     p.vec[q] = aligned_runs(data[q], elem_size(code[q])) | (aligned_runs(mask[q], 1) << 1);
   }
@@ -854,7 +863,7 @@ static int table_launch(bool decode, int ntab, void* const* codes, const int* wi
     p.wide[t] = wide[t];
     p.is_max[t] = is_max[t];
     if (decode) {
-      if (dcode[t] < -1 || dcode[t] > kF64) return (int)cudaErrorInvalidValue;
+      if (dcode[t] < -1 || dcode[t] > kF16) return (int)cudaErrorInvalidValue;
       p.dst[t] = dst[t];
       p.dcode[t] = dcode[t];
     }

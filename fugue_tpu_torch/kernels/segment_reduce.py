@@ -29,7 +29,7 @@ _PATHS = {1: "shared", 2: "global"}
 # dtype codes of bin_keys.cuh
 _CODES = {
     torch.bool: 0, torch.uint8: 1, torch.int8: 2, torch.int16: 3,
-    torch.int32: 4, torch.int64: 5, torch.float32: 6, torch.float64: 7,
+    torch.int32: 4, torch.int64: 5, torch.float32: 6, torch.float64: 7, torch.float16: 8,
 }
 _FLOATS = (torch.float32, torch.float64)
 

@@ -97,12 +97,21 @@ struct Params {
   long long rep_words;  // one replica, in 8-byte words
 };
 
-// R consecutive values of a float column from row r0, in F.
+// R consecutive values of a float column (float16, float32 or float64)
+// from row r0, in F.
 template <int R, typename F>
 __device__ __forceinline__ void load_float(const Column& col, long long r0,
                                            F (&v)[R]) {
   const char* b = static_cast<const char*>(col.data);
-  if constexpr (R == 1) {
+  if (col.code == kF16) {  // float16: 2 bytes a row, widened to float
+    if constexpr (R == 1) {
+      v[0] = F(half_value(__ldg(reinterpret_cast<const unsigned short*>(b) + r0)));
+    } else {
+      const ushort4 x = __ldg(reinterpret_cast<const ushort4*>(b + 2 * r0));
+      v[0] = F(half_value(x.x)); v[1] = F(half_value(x.y));
+      v[2] = F(half_value(x.z)); v[3] = F(half_value(x.w));
+    }
+  } else if constexpr (R == 1) {
     v[0] = col.code == kF32 ? F(__ldg(reinterpret_cast<const float*>(b) + r0))
                             : F(__ldg(reinterpret_cast<const double*>(b) + r0));
   } else if (col.code == kF32) {

@@ -30,10 +30,10 @@ _PATHS = {0: "none", 1: "shared", 2: "global"}
 # dtype codes of segment_sums.cu
 _CODES = {
     torch.bool: 0, torch.uint8: 1, torch.int8: 2, torch.int16: 3,
-    torch.int32: 4, torch.int64: 5, torch.float32: 6, torch.float64: 7,
+    torch.int32: 4, torch.int64: 5, torch.float32: 6, torch.float64: 7, torch.float16: 8,
 }
 _INT_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
-_FLOAT_DTYPES = (torch.float32, torch.float64)
+_FLOAT_DTYPES = (torch.float16, torch.float32, torch.float64)
 _FLAG_DTYPES = (torch.bool, torch.uint8)
 
 

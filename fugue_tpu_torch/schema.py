@@ -1,15 +1,17 @@
 """Schema: an ordered column schema backed by pyarrow, parsed from the
-compact expression syntax ``"k:int,v2:float"``.
+compact expression syntax ``"k:int,v2:float,l:[int],s:{x:int},m:<str,int>"``.
 
 A trimmed copy of ``fugue_tpu/schema.py:206`` (``Schema``) holding what the
-port's slice uses: flat fields of the simple types (``int`` is int32,
-``long`` int64, ``float`` float32, ``double`` float64, ``datetime`` a
-microsecond timestamp), ``names``/``fields``/``pa_schema``/``extract``.
-Nested types are not parsed here.
+port uses: the simple types (``int`` is int32, ``long`` int64, ``float``
+float32, ``double`` float64, ``datetime`` a microsecond timestamp), ``[T]``
+lists, ``{a:T,...}`` structs, ``<K,V>`` maps, ``decimal(p,s)`` and
+``timestamp(unit[,tz])`` (``_parse_type``, ``:142``), and
+``names``/``fields``/``pa_schema``/``extract``/``exclude``/``rename``/
+``alter``.
 """
 
 import re
-from typing import Any, Dict, Iterable, List, Union
+from typing import Any, Dict, Iterable, List, Tuple, Union
 
 import pyarrow as pa
 
@@ -73,34 +75,115 @@ _NAME_RE = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
 
 
 def type_to_expr(tp: pa.DataType) -> str:
-    """Canonical string name of a pyarrow type."""
+    """Canonical string name of a pyarrow type, the inverse of
+    ``parse_type`` (``fugue_tpu/schema.py:98``)."""
     if tp in _TYPE_TO_NAME:
         return _TYPE_TO_NAME[tp]
-    if pa.types.is_timestamp(tp) and tp.tz is None and tp.unit == "us":
-        return "datetime"
+    if pa.types.is_timestamp(tp):
+        if tp.tz is None and tp.unit == "us":
+            return "datetime"
+        tz = f",{tp.tz}" if tp.tz is not None else ""
+        return f"timestamp({tp.unit}{tz})"
+    if pa.types.is_decimal(tp):
+        return f"decimal({tp.precision},{tp.scale})"
+    if pa.types.is_list(tp) or pa.types.is_large_list(tp):
+        return f"[{type_to_expr(tp.value_type)}]"
+    if pa.types.is_map(tp):
+        return f"<{type_to_expr(tp.key_type)},{type_to_expr(tp.item_type)}>"
+    if pa.types.is_struct(tp):
+        return "{" + ",".join(f"{f.name}:{type_to_expr(f.type)}" for f in tp) + "}"
     return str(tp)
 
 
-def _parse_fields(expr: str) -> List[pa.Field]:
+def parse_type(expr: str) -> pa.DataType:
+    """One type expression as a pyarrow type (``fugue_tpu/schema.py:90``)."""
+    tp, pos = _parse_type(expr, 0)
+    assert_or_throw(expr[pos:].strip() == "", ValueError(f"invalid type expression {expr!r}"))
+    return tp
+
+
+def _skip_ws(s: str, pos: int) -> int:
+    while pos < len(s) and s[pos].isspace():
+        pos += 1
+    return pos
+
+
+def _parse_name(s: str, pos: int) -> Tuple[str, int]:
+    pos = _skip_ws(s, pos)
+    if pos < len(s) and s[pos] == "`":
+        end = s.find("`", pos + 1)
+        assert_or_throw(end > pos, ValueError(f"unclosed backquote in {s.rstrip(chr(0))!r}"))
+        return s[pos + 1:end], end + 1
+    m = _NAME_RE.match(s, pos)
+    assert_or_throw(m is not None, ValueError(f"invalid name at {s[pos:].rstrip(chr(0))!r}"))
+    return m.group(0), m.end()  # type: ignore[union-attr]
+
+
+def _parse_type(s: str, pos: int) -> Tuple[pa.DataType, int]:
+    """A type from ``s[pos:]`` (``fugue_tpu/schema.py:142``): ``[T]`` a
+    list, ``<K,V>`` a map, ``{a:T,...}`` a struct, ``decimal(p,s)``,
+    ``timestamp(unit[,tz])`` or a simple name."""
+    pos = _skip_ws(s, pos)
+    assert_or_throw(pos < len(s), ValueError(f"empty type expression in {s.rstrip(chr(0))!r}"))
+    ch = s[pos]
+    if ch == "[":
+        inner, pos = _parse_type(s, pos + 1)
+        pos = _skip_ws(s, pos)
+        assert_or_throw(pos < len(s) and s[pos] == "]",
+                        ValueError(f"expect ] in {s.rstrip(chr(0))!r}"))
+        return pa.list_(inner), pos + 1
+    if ch == "<":
+        ktype, pos = _parse_type(s, pos + 1)
+        pos = _skip_ws(s, pos)
+        assert_or_throw(pos < len(s) and s[pos] == ",",
+                        ValueError(f"expect , in map {s.rstrip(chr(0))!r}"))
+        vtype, pos = _parse_type(s, pos + 1)
+        pos = _skip_ws(s, pos)
+        assert_or_throw(pos < len(s) and s[pos] == ">",
+                        ValueError(f"expect > in {s.rstrip(chr(0))!r}"))
+        return pa.map_(ktype, vtype), pos + 1
+    if ch == "{":
+        fields, pos = _parse_fields(s, pos + 1, "}")
+        return pa.struct(fields), pos
+    m = _NAME_RE.match(s, pos)
+    assert_or_throw(m is not None, ValueError(f"invalid type at {s[pos:].rstrip(chr(0))!r}"))
+    name = m.group(0).lower()  # type: ignore[union-attr]
+    pos = m.end()  # type: ignore[union-attr]
+    if name in ("decimal", "timestamp"):
+        at = _skip_ws(s, pos)
+        if at < len(s) and s[at] == "(":
+            end = s.find(")", at)
+            assert_or_throw(end > 0, ValueError(f"{name} needs a closing )"))
+            parts = [p.strip() for p in s[at + 1:end].split(",")]
+            if name == "decimal":
+                return pa.decimal128(int(parts[0]), int(parts[1]) if len(parts) > 1 else 0), \
+                    end + 1
+            return pa.timestamp(parts[0], parts[1] if len(parts) > 1 else None), end + 1
+        assert_or_throw(name == "timestamp", ValueError("decimal needs (p,s)"))
+    assert_or_throw(name in _SIMPLE_TYPES, ValueError(f"unknown type {name!r} in {s!r}"))
+    return _SIMPLE_TYPES[name], pos
+
+
+def _parse_fields(s: str, pos: int, closing: str) -> Tuple[List[pa.Field], int]:
+    """``name:type`` fields up to ``closing`` (``fugue_tpu/schema.py:189``)."""
     fields: List[pa.Field] = []
-    for part in expr.split(","):
-        assert_or_throw(
-            ":" in part, ValueError(f"invalid schema expression {expr!r}")
-        )
-        name, tp = (x.strip() for x in part.split(":", 1))
-        if name.startswith("`") and name.endswith("`") and len(name) > 1:
-            name = name[1:-1]
+    while True:
+        pos = _skip_ws(s, pos)
+        assert_or_throw(pos < len(s), ValueError(f"unclosed struct in {s.rstrip(chr(0))!r}"))
+        if s[pos] == closing:
+            return fields, pos + 1
+        name, pos = _parse_name(s, pos)
+        pos = _skip_ws(s, pos)
+        assert_or_throw(pos < len(s) and s[pos] == ":",
+                        ValueError(f"invalid schema expression {s.rstrip(chr(0))!r}"))
+        tp, pos = _parse_type(s, pos + 1)
+        fields.append(pa.field(name, tp))
+        pos = _skip_ws(s, pos)
+        if pos < len(s) and s[pos] == ",":
+            pos += 1
         else:
-            assert_or_throw(
-                _NAME_RE.fullmatch(name) is not None,
-                ValueError(f"invalid column name {name!r} in {expr!r}"),
-            )
-        assert_or_throw(
-            tp.lower() in _SIMPLE_TYPES,
-            ValueError(f"unknown type {tp!r} in {expr!r}"),
-        )
-        fields.append(pa.field(name, _SIMPLE_TYPES[tp.lower()]))
-    return fields
+            assert_or_throw(pos < len(s) and s[pos] == closing,
+                            ValueError(f"invalid schema expression {s.rstrip(chr(0))!r}"))
 
 
 class Schema:
@@ -118,7 +201,7 @@ class Schema:
             return
         if isinstance(obj, str):
             if obj.strip() != "":
-                for f in _parse_fields(obj):
+                for f in _parse_fields(obj.strip() + "\0", 0, "\0")[0]:
                     self._append_field(f)
         elif isinstance(obj, Schema):
             for f in obj.fields:
@@ -131,7 +214,7 @@ class Schema:
         elif isinstance(obj, tuple) and len(obj) == 2:
             tp = obj[1]
             if isinstance(tp, str):
-                tp = _SIMPLE_TYPES[tp.lower()]
+                tp = parse_type(tp)
             self._append_field(pa.field(obj[0], tp))
         elif isinstance(obj, Iterable):
             for x in obj:
@@ -160,6 +243,23 @@ class Schema:
         return list(self._fields.keys())
 
     @property
+    def types(self) -> List[pa.DataType]:
+        return [f.type for f in self._fields.values()]
+
+    def __len__(self) -> int:
+        return len(self._fields)
+
+    def index_of_key(self, key: str) -> int:
+        return self.names.index(key)
+
+    def assert_not_empty(self) -> "Schema":
+        assert_or_throw(len(self) > 0, ValueError("schema is empty"))
+        return self
+
+    def create_empty_arrow(self) -> pa.Table:
+        return self.pa_schema.empty_table()
+
+    @property
     def fields(self) -> List[pa.Field]:
         return list(self._fields.values())
 
@@ -182,6 +282,33 @@ class Schema:
         for n in names:
             assert_or_throw(n in self._fields, KeyError(f"{n} not in {self}"))
         return Schema([self._fields[n] for n in names])
+
+    def exclude(self, names: Union[str, List[str]]) -> "Schema":
+        """The schema without ``names`` (``fugue_tpu/schema.py:359``, for
+        names); each must be in it."""
+        if isinstance(names, str):
+            names = [names]
+        for n in names:
+            assert_or_throw(n in self._fields, KeyError(f"{n} not in {self}"))
+        return Schema([f for f in self.fields if f.name not in set(names)])
+
+    def rename(self, columns: Dict[str, str]) -> "Schema":
+        """Each ``old -> new`` at once (``fugue_tpu/schema.py:391``): every
+        old name must exist and the new names must be distinct."""
+        for k in columns:
+            assert_or_throw(k in self._fields, KeyError(f"{k} not in schema"))
+        new_names = [columns.get(n, n) for n in self.names]
+        assert_or_throw(len(set(new_names)) == len(new_names),
+                        ValueError(f"rename causes duplicated names {new_names}"))
+        return Schema([pa.field(nn, f.type) for nn, f in zip(new_names, self.fields)])
+
+    def alter(self, subschema: Any) -> "Schema":
+        """This schema with the types of ``subschema``'s columns, which it
+        must hold (``fugue_tpu/schema.py:402``)."""
+        sub = subschema if isinstance(subschema, Schema) else Schema(subschema)
+        for n in sub.names:
+            assert_or_throw(n in self._fields, KeyError(f"{n} not in schema"))
+        return Schema([sub[f.name] if f.name in sub else f for f in self.fields])
 
     def intersect(self, names: Iterable[str]) -> "Schema":
         """The fields whose names are in ``names``, in this schema's order

@@ -21,10 +21,27 @@ the card (a null row holds code 0 and is flagged in the mask) and the
 decode table, ``dictionary``, on the host; their stats are ``(0,
 len(dictionary) - 1)``, so a string key bins with no readback. A
 timestamp is int64 microseconds since the epoch and a date32 int32 days,
-each with its ``(min, max)`` stats. uint16-64, float16, binary, nested
-and decimal columns are not ported yet (ROADMAP.md queue 1 item 1):
-``from_arrow`` raises ``NotImplementedError`` naming the type's case
-rather than keeping them on the host.
+each with its ``(min, max)`` stats.
+
+Unsigned and half columns (``torch_dtype``): a uint16 is held widened to
+int32 and a uint32 to int64, each zero-extended, so every kernel reads
+them as the signed integers they already take (4 and 8 B a row where
+arrow has 2 and 4); a uint64 is held in int64 with its sign bit flipped
+(``U64_FLIP``), so a signed compare, sort, extremum or bin of the stored
+word orders the values as unsigned ones and equal values stay equal;
+``to_storage`` and ``from_storage`` convert at the host boundary, and
+``value_bits``/``stored_words``/``value_float64`` on the card, for every
+reader of a value rather than an order (see ``groupby.agg_input``). A
+float16 stays float16, 2 B a row. The column's arrow type stays the
+declared one.
+
+Binary, nested (list, struct, map), decimal and null columns are HOST
+columns, as in the reference (``jax_backend/blocks.py:102`` ``on_device``):
+``TorchColumn.host`` holds the arrow array over the frame's row positions
+and ``data`` is None. They ride through mask-only filters and pass-through
+selects and are taken at the boundary by the same kept positions as the
+device columns, or by index in a gather (``gather_indices``); what would
+compute on one is refused by the engine (ROADMAP.md queue 1 item 2(b)).
 
 The host boundary: ``from_arrow`` writes each column once into a pinned
 buffer (padding included) and ships it with one non-blocking copy;
@@ -45,6 +62,7 @@ import pyarrow as pa
 import pyarrow.compute as pc
 import torch
 
+from fugue_tpu_torch.kernels import U64_FLIP
 from fugue_tpu_torch.kernels.gather import gather_rows
 from fugue_tpu_torch.kernels.reference import GatherColumn
 from fugue_tpu_torch.schema import Schema
@@ -58,6 +76,10 @@ _TORCH_DTYPES: Dict[pa.DataType, torch.dtype] = {
     pa.int32(): torch.int32,
     pa.int64(): torch.int64,
     pa.uint8(): torch.uint8,
+    pa.uint16(): torch.int32,
+    pa.uint32(): torch.int64,
+    pa.uint64(): torch.int64,
+    pa.float16(): torch.float16,
     pa.float32(): torch.float32,
     pa.float64(): torch.float64,
 }
@@ -75,37 +97,75 @@ def is_temporal(tp: pa.DataType) -> bool:
     return pa.types.is_timestamp(tp) or pa.types.is_date32(tp)
 
 
-def torch_dtype(tp: pa.DataType) -> torch.dtype:
-    """The tensor dtype of a device column of arrow type ``tp``: int32 for
-    a string's codes and a date32's days, int64 for a timestamp's
-    microseconds. Raises ``NotImplementedError`` for the types the port
-    does not hold yet."""
+def torch_dtype(tp: pa.DataType) -> Optional[torch.dtype]:
+    """The tensor dtype a device column of arrow type ``tp`` is stored in:
+    int32 for a string's codes, a date32's days and a uint16, int64 for a
+    timestamp's microseconds, a uint32 and a (flipped) uint64, float16 for
+    a float16; None for a host column: binary, nested, decimal and null
+    columns, as ``jax_backend/blocks.py:124`` ``is_device_type`` leaves them
+    on the host."""
     if is_string_type(tp) or pa.types.is_date32(tp):
         return torch.int32
     if pa.types.is_timestamp(tp):
         return torch.int64
-    if tp not in _TORCH_DTYPES:
-        raise NotImplementedError(
-            f"column type {tp} is not ported to the card yet ({_unported_case(tp)}); "
-            "see ROADMAP.md queue 1 item 1"
-        )
-    return _TORCH_DTYPES[tp]
+    return _TORCH_DTYPES.get(tp)
 
 
-def _unported_case(tp: pa.DataType) -> str:
-    """Which of ROADMAP.md queue 1 item 1's cases a refused type is."""
-    if pa.types.is_unsigned_integer(tp) or pa.types.is_float16(tp):
-        return "a uint16-64 or float16 column"
-    if pa.types.is_binary(tp) or pa.types.is_large_binary(tp) or \
-            pa.types.is_fixed_size_binary(tp):
-        return "a binary column, which the reference keeps on the host"
-    if pa.types.is_nested(tp):
-        return "a nested (list, struct or map) column, which the reference keeps on the host"
-    if pa.types.is_decimal(tp):
-        return "a decimal column, which the reference keeps on the host"
-    if pa.types.is_null(tp):
-        return "a column of arrow's null type"
-    return f"a {tp} column"
+def is_unsigned_wide(tp: pa.DataType) -> bool:
+    """A uint16-64 column, stored in a wider or flipped signed word."""
+    return tp in (pa.uint16(), pa.uint32(), pa.uint64())
+
+
+def to_storage(values: np.ndarray, tp: pa.DataType) -> np.ndarray:
+    """Host values of arrow type ``tp`` as the card stores them: a uint64's
+    sign bit flipped (a copy); others as they are (a uint16 or uint32 is
+    widened where it is written into its int32 or int64 rows)."""
+    if tp == pa.uint64():
+        return values.view(np.int64) ^ np.int64(U64_FLIP)
+    return values
+
+
+def from_storage(values: np.ndarray, tp: pa.DataType) -> np.ndarray:
+    """Stored values back in the numpy dtype of arrow type ``tp``."""
+    if tp == pa.uint64():
+        return (values ^ np.int64(U64_FLIP)).view(np.uint64)
+    if tp == pa.uint32():
+        return values.astype(np.uint32)
+    if tp == pa.uint16():
+        return values.astype(np.uint16)
+    return values
+
+
+def storage_scalar(v: int, tp: pa.DataType) -> int:
+    """An integer value of arrow type ``tp`` as its column stores it."""
+    if tp == pa.uint64():
+        return int(np.int64(np.uint64(v).view(np.int64)) ^ np.int64(U64_FLIP))
+    return int(v)
+
+
+def value_bits(data: torch.Tensor, tp: pa.DataType) -> torch.Tensor:
+    """A device column's words as its values' bits: a uint64's int64 bits
+    (the stored flip undone, in a new tensor), any other column's data as
+    it is. User code (transformers, cotransformers) reads these, and an
+    int64 sum of them wraps as the JAX package's does."""
+    return data + U64_FLIP if tp == pa.uint64() else data
+
+
+def stored_words(bits: torch.Tensor, tp: pa.DataType) -> torch.Tensor:
+    """``value_bits``' inverse: values' bits of arrow type ``tp`` as its
+    column stores them."""
+    return bits + U64_FLIP if tp == pa.uint64() else bits
+
+
+def value_float64(data: torch.Tensor, tp: pa.DataType) -> torch.Tensor:
+    """A device column's values in float64, each rounded once: a uint64's
+    from the high and low 32 bits of its value (both exact in float64, so
+    only their sum rounds); any other column's converted."""
+    if tp != pa.uint64():
+        return data.to(torch.float64)
+    bits = data + U64_FLIP
+    hi, lo = (bits >> 32) & 0xFFFFFFFF, bits & 0xFFFFFFFF
+    return hi.to(torch.float64) * 4294967296.0 + lo.to(torch.float64)
 
 
 def is_integer_like(tp: pa.DataType) -> bool:
@@ -130,11 +190,12 @@ class TorchColumn:
     def __init__(
         self,
         pa_type: pa.DataType,
-        data: torch.Tensor,
+        data: Optional[torch.Tensor],
         mask: Optional[torch.Tensor] = None,
         stats: Optional[Tuple[int, int]] = None,
         unique: bool = False,
         dictionary: Optional[np.ndarray] = None,
+        host: Optional[pa.ChunkedArray] = None,
     ):
         self.pa_type = pa_type
         self.data = data
@@ -142,16 +203,41 @@ class TorchColumn:
         self.stats = stats
         self.unique = unique
         self.dictionary = dictionary
+        self.host = host  # a host column's values (``data`` is None)
+
+    @property
+    def on_device(self) -> bool:
+        return self.host is None
 
     @property
     def is_string(self) -> bool:
         return self.dictionary is not None
+
+    @staticmethod
+    def of_host(pa_type: pa.DataType, values: Any) -> "TorchColumn":
+        """A host column over arrow ``values`` (an array or a chunked
+        array), one value a row position."""
+        if isinstance(values, pa.Array):
+            values = pa.chunked_array([values], type=pa_type)
+        return TorchColumn(pa_type, None, host=values)
 
     def with_data(self, data: torch.Tensor, mask: Optional[torch.Tensor]) -> "TorchColumn":
         """The same logical column over other rows (a gather, a stack):
         type, stats and dictionary kept, ``unique`` dropped
         (``jax_backend/blocks.py:109``)."""
         return TorchColumn(self.pa_type, data, mask, self.stats, dictionary=self.dictionary)
+
+
+def key_data(col: TorchColumn) -> torch.Tensor:
+    """A key column's values as a sort reads them: a float16 as float32
+    (exact, the same order), the rest as stored."""
+    return col.data.float() if col.data.dtype == torch.float16 else col.data
+
+
+def host_names(blocks: "TorchBlocks", names: Optional[List[str]] = None) -> List[str]:
+    """The host columns among ``names`` (every column by default)."""
+    return [n for n in (blocks.columns if names is None else names)
+            if not blocks.columns[n].on_device]
 
 
 def padded_len(n: int) -> int:
@@ -222,7 +308,10 @@ class TorchBlocks:
     @property
     def padded_nrows(self) -> int:
         for c in self.columns.values():
-            return int(c.data.shape[0])
+            if c.on_device:
+                return int(c.data.shape[0])
+        if self.row_valid is not None:
+            return int(self.row_valid.shape[0])
         return padded_len(self.nrows)
 
     def validity(self) -> torch.Tensor:
@@ -266,22 +355,28 @@ def gather_indices(blocks: TorchBlocks, idx: torch.Tensor, scattered: bool = Fal
     new_n = int(idx.shape[0])
     pad = padded_len(new_n)
     idx = idx.to(device=blocks.device, dtype=torch.int32)
+    hosts = host_names(blocks)
+    # a host column is taken by the same rows (``jax_backend/blocks.py:636-638``)
+    host_idx = pa.array(idx.cpu().numpy()) if hosts else None
     if pad != new_n:
         idx = torch.cat([idx, torch.zeros((pad - new_n,), dtype=torch.int32, device=idx.device)])
-    names = list(blocks.columns)
+    names = [n for n in blocks.columns if n not in hosts]
     got = gather_rows([GatherColumn(blocks.columns[n].data.contiguous(),
                                     None if blocks.columns[n].mask is None
                                     else blocks.columns[n].mask.contiguous()) for n in names],
-                      idx, scattered=scattered)
-    cols = {n: blocks.columns[n].with_data(v, m) for n, (v, m) in zip(names, got)}
-    return TorchBlocks(new_n, cols, blocks.device)
+                      idx, scattered=scattered) if names else []
+    taken = {n: blocks.columns[n].with_data(v, m) for n, (v, m) in zip(names, got)}
+    for n in hosts:
+        c = blocks.columns[n]
+        taken[n] = TorchColumn.of_host(c.pa_type, c.host.take(host_idx))
+    return TorchBlocks(new_n, {n: taken[n] for n in blocks.columns}, blocks.device)
 
 
 def device_nbytes(blocks: TorchBlocks) -> int:
     """A frame's device footprint in bytes: column data, masks and
     ``row_valid`` (``jax_backend/blocks.py:362``)."""
     tensors = [blocks.row_valid] + [
-        t for c in blocks.columns.values() for t in (c.data, c.mask)
+        t for c in blocks.columns.values() if c.on_device for t in (c.data, c.mask)
     ]
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -317,8 +412,8 @@ def _proven_unique(tp: pa.DataType, values: np.ndarray, has_nulls: bool) -> bool
 
 _NP_DTYPES: Dict[torch.dtype, Any] = {
     torch.bool: np.bool_, torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32,
-    torch.int64: np.int64, torch.uint8: np.uint8, torch.float32: np.float32,
-    torch.float64: np.float64,
+    torch.int64: np.int64, torch.uint8: np.uint8, torch.float16: np.float16,
+    torch.float32: np.float32, torch.float64: np.float64,
 }
 
 
@@ -338,17 +433,19 @@ def device_values(arr: pa.Array, tp: pa.DataType) -> Tuple[np.ndarray, Optional[
     its values as a numpy array of the column's tensor dtype, and its
     validity where it has nulls (``jax_backend/blocks.py:438-455``). The
     values are a view of arrow's buffer where arrow's layout is the card's
-    (a bool's bits are unpacked); a null slot then holds whatever arrow
-    left there, and ``write_rows`` writes 0 in its place."""
+    (a bool's bits are unpacked; a uint64 is flipped into a copy, a uint16
+    or uint32 is widened where ``write_rows`` writes it); a null slot then
+    holds whatever arrow left there, and ``write_rows`` writes 0 in its
+    place."""
     arr = _device_values(arr, tp)
     if arr.null_count == 0:
-        return arr.to_numpy(zero_copy_only=False), None
+        return to_storage(arr.to_numpy(zero_copy_only=False), tp), None
     valid = pc.is_valid(arr).to_numpy(zero_copy_only=False)
     if pa.types.is_boolean(arr.type):
         return pc.fill_null(arr, False).to_numpy(zero_copy_only=False), valid
-    data = np.frombuffer(arr.buffers()[1], dtype=_NP_DTYPES[torch_dtype(tp)],
+    data = np.frombuffer(arr.buffers()[1], dtype=np.dtype(arr.type.to_pandas_dtype()),
                          count=arr.offset + len(arr))
-    return data[arr.offset:], valid
+    return to_storage(data[arr.offset:], tp), valid
 
 
 def write_rows(dst: np.ndarray, values: np.ndarray, valid: Optional[np.ndarray]) -> None:
@@ -376,8 +473,9 @@ def _ship(host: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 def from_arrow(table: pa.Table, schema: Schema, device: torch.device) -> TorchBlocks:
-    """Arrow -> device blocks (``jax_backend/blocks.py:405``): strings as
-    the codes of their ``dictionary_encode``, masks where a column has
+    """Arrow -> device blocks (``jax_backend/blocks.py:405``): host
+    columns kept as their arrow arrays, strings as the codes of their
+    ``dictionary_encode``, masks where a column has
     nulls (a null slot holds 0 in the column's own type, so int64 values
     stay exact), host-side key stats and the ``unique`` flag. Each column
     and mask is written once, chunk by chunk, into its staging rows
@@ -388,10 +486,13 @@ def from_arrow(table: pa.Table, schema: Schema, device: torch.device) -> TorchBl
     cols: Dict[str, TorchColumn] = {}
     for field in schema.fields:
         tp = field.type
-        dtype = torch_dtype(tp)  # raises for a type the card does not hold
         column = table.column(field.name)
         if column.type != tp:
             column = column.cast(tp)
+        dtype = torch_dtype(tp)
+        if dtype is None:  # a host column: kept as arrow
+            cols[field.name] = TorchColumn.of_host(tp, column)
+            continue
         dictionary: Optional[np.ndarray] = None
         if is_string_type(tp):  # jax_backend/blocks.py:420-437
             enc = column.combine_chunks().dictionary_encode()
@@ -437,7 +538,7 @@ def leading_rows(blocks: TorchBlocks, n: Optional[int] = None) -> TorchBlocks:
         idx = idx[:n]
     if not blocks.columns:
         return TorchBlocks(int(idx.shape[0]), {}, blocks.device)
-    return gather_indices(blocks, idx)
+    return gather_indices(blocks, idx)  # host columns taken by the same positions
 
 
 class HostRows(NamedTuple):
@@ -460,12 +561,17 @@ def copy_to_host(blocks: TorchBlocks, names: List[str],
     assert_or_throw(blocks.row_valid is None, ValueError("copy_to_host takes a prefix frame"))
     n = blocks.nrows
     cols = {name: blocks.columns[name] for name in names}
+    hosts = {name: (c, c.host.slice(0, n), None) for name, c in cols.items()
+             if not c.on_device}
+    cols = {name: c for name, c in cols.items() if c.on_device}
     if blocks.device.type != "cuda":
-        return HostRows(n, {name: (c, c.data[:n], None if c.mask is None else c.mask[:n])
-                            for name, c in cols.items()}, None)
+        return HostRows(n, {**hosts, **{
+            name: (c, c.data[:n], None if c.mask is None else c.mask[:n])
+            for name, c in cols.items()}}, None)
     stream = stream or torch.cuda.current_stream(blocks.device)
     # one pinned buffer for the wave: each tensor's rows at a 64-byte
     # aligned offset
+    host_cols = hosts
     tensors = [t for c in cols.values() for t in (c.data, c.mask) if t is not None]
     sizes = [-(-n * t.element_size() // 64) * 64 for t in tensors]
     buf = torch.empty((max(sum(sizes), 1),), dtype=torch.uint8, pin_memory=True)
@@ -479,9 +585,9 @@ def copy_to_host(blocks: TorchBlocks, names: List[str],
             at += size
         done = torch.cuda.Event()
         done.record(stream)
-    return HostRows(n, {name: (c, hosts[id(c.data)],
-                               None if c.mask is None else hosts[id(c.mask)])
-                        for name, c in cols.items()}, done)
+    return HostRows(n, {**host_cols, **{
+        name: (c, hosts[id(c.data)], None if c.mask is None else hosts[id(c.mask)])
+        for name, c in cols.items()}}, done)
 
 
 def _host_array(values: np.ndarray, null_np: Optional[np.ndarray], col: TorchColumn,
@@ -498,7 +604,7 @@ def _host_array(values: np.ndarray, null_np: Optional[np.ndarray], col: TorchCol
         return pa.array(values, type=pa.int64(), mask=null_np).cast(_US).cast(tp)
     if pa.types.is_date32(tp):
         return pa.array(values, type=pa.int32(), mask=null_np).cast(tp)
-    return pa.array(values, type=tp, mask=null_np)
+    return pa.array(from_storage(values, tp), type=tp, mask=null_np)
 
 
 def host_table(rows: HostRows, schema: Schema) -> pa.Table:
@@ -513,6 +619,9 @@ def host_table(rows: HostRows, schema: Schema) -> pa.Table:
     arrays = []
     for field in schema.fields:
         col, data, mask = rows.columns[field.name]
+        if not col.on_device:
+            arrays.append(data.combine_chunks())
+            continue
         null_np = None if mask is None else ~mask.numpy()
         arrays.append(_host_array(data.numpy(), null_np, col, field.type))
     return pa.Table.from_arrays(arrays, schema=schema.pa_schema)

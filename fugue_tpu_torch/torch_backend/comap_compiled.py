@@ -54,7 +54,9 @@ from fugue_tpu_torch.torch_backend.blocks import (
     is_string_type,
     pad_rows,
     padded_len,
+    stored_words,
     torch_dtype,
+    value_bits,
 )
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.utils.assertion import assert_or_throw
@@ -123,7 +125,7 @@ def _member_dicts(blocks_list: List[TorchBlocks], m: ComapRows, num: int) -> Lis
         p = b.padded_nrows
         d: Dict[str, Any] = {}
         for name, c in b.columns.items():
-            d[name] = c.data
+            d[name] = value_bits(c.data, c.pa_type)  # as the map path gives it
             if c.mask is not None:
                 d[f"_{name}_mask"] = c.mask
             if c.is_string:
@@ -226,7 +228,7 @@ def _output(out: Dict[str, Any], out_schema: Schema, m: ComapRows, num: int, p0:
             f"padded length ({p0}), or come with an explicit '_nrows' (got {first})")
     cols: Dict[str, TorchColumn] = {}
     for f in out_schema.fields:
-        data = out[f.name].to(device=device, dtype=torch_dtype(f.type))
+        data = stored_words(out[f.name].to(device=device, dtype=torch_dtype(f.type)), f.type)
         mask = out.get(f"_{f.name}_mask")
         dictionary = None
         if is_string_type(f.type):

@@ -41,7 +41,7 @@ took the generic (factorized) branch (``"generic"``) or had no keys
 """
 
 from collections.abc import Mapping
-from typing import Any, Callable, Dict, Iterator, List, NoReturn, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, NoReturn, Optional, Tuple
 
 import numpy as np
 import pandas as pd
@@ -62,6 +62,7 @@ from fugue_tpu_torch.column.expressions import (
 )
 from fugue_tpu_torch.collections.sql import StructuredRawSQL
 from fugue_tpu_torch.column.sql import SelectColumns, rewrite_having
+from fugue_tpu_torch.dataframe import ArrayDataFrame, DataFrame
 from fugue_tpu_torch.dataframe.dataframe_iterable_dataframe import LocalDataFrameIterableDataFrame
 from fugue_tpu_torch.dataframe.utils import (
     arrow_to_table,
@@ -84,11 +85,14 @@ from fugue_tpu_torch.torch_backend.blocks import (
     blocks_with_columns,
     from_arrow,
     gather_indices,
+    host_names,
     is_string_type,
     keeps_stats,
     pad_rows,
     padded_len,
+    stored_words,
     torch_dtype,
+    value_bits,
 )
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.torch_backend.window import device_window
@@ -126,7 +130,7 @@ class TorchMapEngine:
         bins by its codes, like any integer key. ``output_schema`` may
         name the input's columns as ``"*"`` (``"*"`` alone, or
         ``"*,w:double"``)."""
-        tdf = self.execution_engine.to_df(df)
+        tdf = self.execution_engine._input("map", df)
         keys = [] if partition_spec is None else partition_spec.partition_by
         for k in keys:
             assert_or_throw(k in tdf.blocks.columns, KeyError(f"{k} not in {tdf.schema}"))
@@ -148,7 +152,12 @@ class TorchMapEngine:
           string column is its int32 dictionary codes, with its decode
           table ``_<name>_dict`` (an object ``np.ndarray`` on the host,
           for host code, never for tensor math), a timestamp its int64
-          microseconds since the epoch, a date its int32 days;
+          microseconds since the epoch, a date its int32 days; a uint16
+          its values in int32, a uint32 in int64, a uint64 the int64
+          bits of its values (an output declared uint64 is taken as such
+          bits), a float16 as it is; a frame that holds a host column
+          (binary, nested, decimal) is refused, as the JAX package sends
+          it to its host engine;
         - ``_row_valid`` bool[padded]: True = real row, built on first
           access only (XLA drops it from a program that never reads it);
         - ``_nrows``: the true row count as a 0-d int32 device tensor;
@@ -181,8 +190,11 @@ class TorchMapEngine:
         device = blocks.device
         pad_n = blocks.padded_nrows
         args: Dict[str, Any] = {}
+        bits_of: Dict[int, TorchColumn] = {}  # a uint64 input's bits tensor -> its column
         for name, col in blocks.columns.items():
-            args[name] = col.data
+            args[name] = value_bits(col.data, col.pa_type)
+            if args[name] is not col.data:  # a uint64's bits, not its stored words
+                bits_of[id(args[name])] = col
             if col.mask is not None:
                 args[f"_{name}_mask"] = col.mask
             if col.is_string:
@@ -229,10 +241,18 @@ class TorchMapEngine:
             )
         cols: Dict[str, TorchColumn] = {}
         for f in output_schema.fields:
-            data = out[f.name].to(device=device, dtype=torch_dtype(f.type))
-            src = next(
-                (c for c in blocks.columns.values() if c.data is data), None
-            )
+            if torch_dtype(f.type) is None:
+                self.execution_engine._unported(
+                    "map", f"output {f.name!r} of the host type {f.type}", _HOST_ENGINE)
+            src = bits_of.get(id(out[f.name]))
+            if src is not None and f.type == pa.uint64():
+                data = src.data  # a uint64 input passed through: its stored words
+            else:
+                data = stored_words(out[f.name].to(device=device, dtype=torch_dtype(f.type)),
+                                    f.type)
+                src = next(
+                    (c for c in blocks.columns.values() if c.data is data), None
+                )
             mask = out.get(f"_{f.name}_mask")
             if mask is None and src is not None and src.mask is not None:
                 # passthrough values keep their nulls unless the fn
@@ -466,17 +486,18 @@ class TorchExecutionEngine:
         )
 
     def _require_device(self, op: str, expr: ColumnExpr, blocks: TorchBlocks,
-                        out_dtype: Optional[torch.dtype] = None) -> None:
+                        out_dtype: Optional[torch.dtype] = None, host_ok: bool = False) -> None:
         """Refuses (``_unported``) an expression the card does not
         evaluate (as ``out_dtype`` where given), naming the ROADMAP.md
-        item that ports it."""
+        item that ports it; a bare host column passes where ``host_ok``."""
         try:
-            expr_eval.check(expr, blocks, out_dtype, self._checked)
+            expr_eval.check(expr, blocks, out_dtype, self._checked, host_ok=host_ok)
         except expr_eval.Refused as r:
             self._unported(op, r.what, r.item)
 
     def to_df(self, df: Any, schema: Any = None) -> TorchDataFrame:
-        """pandas, arrow or a frame on this device -> ``TorchDataFrame``,
+        """pandas, arrow, rows with a ``schema``, a local frame (its
+        metadata kept) or a frame on this device -> ``TorchDataFrame``,
         uploaded now (``:1297``). A pandas frame is typed as the reference
         types it (``dataframe.utils.pandas_to_table``: an empty or all-null
         object column is ``str``); ``schema``, where given, names and types
@@ -490,16 +511,28 @@ class TorchExecutionEngine:
                 ValueError(f"frame is on {df.device}, engine on {self.device}"),
             )
             return df
+        metadata = None
         if isinstance(df, pd.DataFrame):
             table = pandas_to_table(df, schema)
         elif isinstance(df, pa.Table):
             table = arrow_to_table(df, schema)
         elif isinstance(df, LocalDataFrameIterableDataFrame):
             table = arrow_to_table(df.as_arrow(), schema)  # the stream materialized
+        elif isinstance(df, DataFrame):  # a local frame of the port's
+            assert_or_throw(schema is None, ValueError("schema must be None for a DataFrame"))
+            table = df.as_arrow()
+            metadata = df.metadata if df.has_metadata else None
+        elif isinstance(df, Iterable) and not isinstance(df, (str, bytes, dict)):
+            # rows with a schema (``native_execution_engine.py:294-297``)
+            assert_or_throw(schema is not None, ValueError("rows need a schema"))
+            table = ArrayDataFrame(df, schema).as_arrow()
         else:
             raise ValueError(f"can't convert {type(df)} to a TorchDataFrame")
         tschema = Schema(table.schema)
-        return TorchDataFrame(from_arrow(table, tschema, self.device), tschema)
+        res = TorchDataFrame(from_arrow(table, tschema, self.device), tschema)
+        if metadata is not None:
+            res.reset_metadata(metadata)
+        return res
 
     def persist(self, df: Any, schema: Any = None) -> TorchDataFrame:
         """``to_df``, then wait until the upload is on the card (``:1576``);
@@ -519,8 +552,9 @@ class TorchExecutionEngine:
         lazy until a device operation needs it (``ingest.try_stream_load``),
         narrowed by a select of bare columns and by ``pruning`` (advisory
         ``[col, op, literal]`` triples that skip row groups). Another URI
-        scheme than ``file`` (ROADMAP.md queue 1 item 13) and a column type
-        the card does not hold (item 1) raise and count in ``fallbacks``."""
+        scheme than ``file`` (ROADMAP.md queue 1 item 13) raises and counts
+        in ``fallbacks``; binary, nested, decimal and null columns are host
+        columns."""
         pruning = kwargs.pop("pruning", None)
         for p in [path] if isinstance(path, str) else list(path):
             self._check_uri("load_df", p)
@@ -561,16 +595,6 @@ class TorchExecutionEngine:
         what = unported_scheme(uri)
         if what is not None:
             self._unported(op, what, UNPORTED_IO)
-
-    def _check_types(self, op: str, schema: Schema) -> None:
-        """Refuses a column type the card does not hold (``torch_dtype``
-        raises naming ROADMAP.md queue 1 item 1), counted under ``op``."""
-        try:
-            for f in schema.fields:
-                torch_dtype(f.type)
-        except NotImplementedError:
-            self._fallbacks[op] = self._fallbacks.get(op, 0) + 1
-            raise
 
     def select(
         self,
@@ -623,7 +647,7 @@ class TorchExecutionEngine:
         schema = tdf.schema
         plans: List[Tuple[str, pa.DataType, ColumnExpr]] = []
         for c in columns:
-            self._require_device("assign", c, blocks)
+            self._require_device("assign", c, blocks, host_ok=True)
             name = c.output_name
             tp = c.infer_type(schema) or (schema[name].type if name in schema else None)
             assert_or_throw(tp is not None, ValueError(f"can't infer {c}"))
@@ -672,17 +696,33 @@ class TorchExecutionEngine:
 
     def _input(self, op: str, df: Any) -> TorchDataFrame:
         """``to_df`` of an input of ``op``. A frame on another device (work
-        across devices, ROADMAP.md queue 1 item 12) and a column type the
-        card does not hold (``to_df`` raises for uint16-64, float16, binary,
-        nested and decimal columns, queue 1 item 1) count in ``fallbacks`` as a refused ``op``."""
+        across devices, ROADMAP.md queue 1 item 12) counts in ``fallbacks``
+        as a refused ``op``, and so does a frame that holds a host column
+        where ``op`` is one the JAX package answers on its host engine then
+        (``_HOST_REFUSED``, item 2(b))."""
         if isinstance(df, TorchDataFrame) and df.device != self.device:
             self._unported(op, f"{op} of a frame on {df.device} on an engine on "
                            f"{self.device}", "ROADMAP.md queue 1 item 12")
-        try:
-            return self.to_df(df)
-        except NotImplementedError:
-            self._fallbacks[op] = self._fallbacks.get(op, 0) + 1
-            raise
+        tdf = self.to_df(df)
+        if op in _HOST_REFUSED:
+            self._no_host(op, tdf)
+        return tdf
+
+    def _no_host(self, op: str, tdf: TorchDataFrame, names: Optional[List[str]] = None) -> None:
+        """Refuses ``op`` (counted in ``fallbacks``, naming ROADMAP.md queue
+        1 item 2(b)) where any of ``names`` (every column by default) is a
+        host column: a binary, nested, decimal or null column, which the
+        JAX package keeps on the host and sends to its host engine
+        (``execution_engine.py:1798``, ``:1829``, ``:1849``;
+        ``relational.py:1408``, ``:1472``)."""
+        if tdf.is_pending:
+            hosts = [f.name for f in tdf.schema.fields
+                     if (names is None or f.name in names) and torch_dtype(f.type) is None]
+        else:
+            hosts = host_names(tdf.blocks, None if names is None
+                               else [n for n in names if n in tdf.blocks.columns])
+        if hosts:
+            self._unported(op, f"{op} over the host column(s) {hosts}", _HOST_ENGINE)
 
     def union(self, df1: Any, df2: Any, distinct: bool = True) -> TorchDataFrame:
         """``:1790``: the rows of both frames (string columns in one
@@ -743,6 +783,7 @@ class TorchExecutionEngine:
         names = list(subset) if subset is not None else tdf.schema.names
         for n in names:
             assert_or_throw(n in blocks.columns, KeyError(f"{n} not in {tdf.schema}"))
+        self._no_host("dropna", tdf, names)
         masks = {n: blocks.columns[n].mask for n in names if blocks.columns[n].mask is not None}
         keep, count = relational.null_count_keep(blocks, list(masks.values()), len(names), how,
                                                  thresh)
@@ -769,6 +810,7 @@ class TorchExecutionEngine:
         else:
             fills = {c: value for c in tdf.schema.names}
         targets = {n: v for n, v in fills.items() if n in blocks.columns}
+        self._no_host("fillna", tdf, list(targets))
         res = relational.device_fillna(blocks, targets)
         if res is None:
             self._unported("fillna", f"a fill value ({value!r}) that a column cannot hold "
@@ -831,6 +873,8 @@ class TorchExecutionEngine:
             return tdf
         blocks = tdf.blocks
         by = [k for k in (partition_spec.partition_by or tdf.schema.names) if k in blocks.columns]
+        if host_names(blocks, by):  # as the JAX package: a host key leaves it as it is
+            return tdf
         num = partition_spec.get_num_partitions(
             **{KEYWORD_ROWCOUNT: lambda: blocks.nrows, KEYWORD_CONCURRENCY: lambda: 1})
         if algo == "hash":
@@ -952,7 +996,7 @@ class TorchExecutionEngine:
             self._require_device("select", where, blocks, torch.bool)
         if not cols.has_agg:
             for c in cols.all_cols:
-                self._require_device("select", c, blocks)
+                self._require_device("select", c, blocks, host_ok=True)
             return
         for k in cols.group_keys:
             if expr_eval.is_bare(k) and k.output_name == k.name:
@@ -1049,6 +1093,7 @@ class TorchExecutionEngine:
         blocks = tdf.blocks
         for k in keys:
             assert_or_throw(k in blocks.columns, KeyError(f"{k} not in {tdf.schema}"))
+        self._no_host("aggregate", tdf, keys)
         typed_plans: List[Plan] = []
         distinct_args: Dict[str, str] = {}
         for c in agg_cols:
@@ -1226,21 +1271,27 @@ class TorchExecutionEngine:
             [_arg_dtype(a.infer_type(tdf.schema)) for a in args.values()], self._programs,
         )))
         requests: List[groupby.AggRequest] = []
+        inputs: Dict[str, torch.Tensor] = {}  # each argument as its aggregations read it
         for name, func, arg, _tp in typed_plans:
             if arg is None:
                 requests.append(groupby.AggRequest("count", None, None, "", ""))
                 continue
             akey = arg.__uuid__()
-            values, mask = evaluated[akey]
-            # the kernels read dense columns; a transformer may return views
-            values = values.contiguous()
+            raw, mask = evaluated[akey]
+            atp = arg.infer_type(tdf.schema)
+            form = groupby.agg_form(func, atp)
+            vkey = f"{akey}:{form}" if form else akey
+            if vkey not in inputs:
+                # the kernels read dense columns; a transformer may return views
+                inputs[vkey] = groupby.agg_input(func, raw.contiguous(), atp)
+            values = inputs[vkey]
             mkey = "" if mask is None else f"m:{akey}"
             mask = None if mask is None else mask.contiguous()
             if name in distinct_args:
                 dmask = dmasks[distinct_args[name]]
                 mask = dmask if mask is None else mask & dmask
                 mkey = "|".join(p for p in (mkey, f"d:{distinct_args[name]}") if p)
-            requests.append(groupby.AggRequest(func, values, mask, akey, mkey))
+            requests.append(groupby.AggRequest(func, values, mask, vkey, mkey))
         occupancy, results = groupby.segment_aggs(requests, span, rows, **where)
         self._count_strategy("cuda" if blocks.device.type == "cuda" else "reference")
         out_cols = {
@@ -1253,6 +1304,12 @@ class TorchExecutionEngine:
         self._strategy_counts[name] = self._strategy_counts.get(name, 0) + 1
 
 
+# operations the JAX package sends to its host engine whenever a frame holds
+# a host column
+_HOST_REFUSED = frozenset(("union", "subtract", "intersect", "join", "distinct", "take", "zip",
+                           "sql_select", "map"))
+
+
 def _result_column(tp: pa.DataType, r: expr_eval.Evaluated, blocks: TorchBlocks,
                    c: ColumnExpr) -> TorchColumn:
     """An evaluated column of type ``tp``: a bare column reference keeps
@@ -1261,6 +1318,8 @@ def _result_column(tp: pa.DataType, r: expr_eval.Evaluated, blocks: TorchBlocks,
     (``finalize_string_result``); any other computed column has none."""
     if expr_eval.is_bare(c):
         src = blocks.columns[c.name]
+        if not src.on_device:  # a host column passes through as it is
+            return src
         return TorchColumn(tp, r.values, r.mask, src.stats, dictionary=src.dictionary)
     stats = None if r.dictionary is None else (0, max(len(r.dictionary) - 1, 0))
     return TorchColumn(tp, r.values, r.mask, stats, dictionary=r.dictionary)

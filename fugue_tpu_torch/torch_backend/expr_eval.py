@@ -27,13 +27,15 @@ string, a table over the caps) raises ``NotImplementedError`` naming
 ROADMAP.md queue 1 item 2(b).
 """
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import pyarrow as pa
 import torch
 
 from fugue_tpu_torch.column.expressions import ColumnExpr, _NamedColumnExpr
 from fugue_tpu_torch.kernels.expr_program import (
+    HOST_ENGINE,
     Program,
     ProgramCache,
     Refused,
@@ -42,7 +44,7 @@ from fugue_tpu_torch.kernels.expr_program import (
     remap_program,
 )
 from fugue_tpu_torch.kernels.reference import expr_program_reference
-from fugue_tpu_torch.torch_backend.blocks import TorchBlocks
+from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, is_unsigned_wide
 
 # a masked value: (values, mask) — mask None means all-valid
 Masked = Tuple[torch.Tensor, Optional[torch.Tensor]]
@@ -50,7 +52,7 @@ Masked = Tuple[torch.Tensor, Optional[torch.Tensor]]
 __all__ = [
     "Evaluated", "Masked", "ProgramCache", "Refused", "can_eval_on_device", "check",
     "eval_exprs", "evaluate", "filter_rows", "is_bare", "is_string_result", "remap_codes",
-    "run_program",
+    "run_lut", "run_program",
 ]
 
 
@@ -63,8 +65,15 @@ class Evaluated(NamedTuple):
     dictionary: Optional[np.ndarray]
 
 
-def _columns(blocks: TorchBlocks) -> Dict[str, Tuple[torch.dtype, bool]]:
-    return {name: (c.data.dtype, c.mask is not None) for name, c in blocks.columns.items()}
+def _columns(blocks: TorchBlocks) -> Dict[str, Tuple[Any, ...]]:
+    """Each column's dtype, whether it has a mask, and its declared type
+    where that is a uint16-64 or float16 (stored in a wider, flipped or
+    half word); a host column's dtype is None."""
+    return {name: (None, False) if not c.on_device else
+            (c.data.dtype, c.mask is not None,
+             c.pa_type if is_unsigned_wide(c.pa_type) or pa.types.is_float16(c.pa_type)
+             else None)
+            for name, c in blocks.columns.items()}
 
 
 def _dicts(blocks: TorchBlocks) -> Dict[str, np.ndarray]:
@@ -82,16 +91,19 @@ def _compile(expr: ColumnExpr, blocks: TorchBlocks, out_dtype: Optional[torch.dt
 
 
 def check(expr: ColumnExpr, blocks: TorchBlocks, out_dtype: Optional[torch.dtype] = None,
-          programs: Optional[ProgramCache] = None) -> None:
+          programs: Optional[ProgramCache] = None, host_ok: bool = False) -> None:
     """Raises ``Refused`` (a ``NotImplementedError`` naming the ROADMAP.md
     item) where the card does not evaluate ``expr`` over ``blocks`` (as
     ``out_dtype`` where given: bool for a filter's condition), and
     ``ValueError`` where it names a column the frame lacks
-    (``jax_backend/expr_eval.py:766``, ``_check``). The program is kept in
-    ``programs`` where given."""
+    (``jax_backend/expr_eval.py:766``, ``_check``). A bare host column
+    passes where ``host_ok`` (a pass-through select), else it is refused.
+    The program is kept in ``programs`` where given."""
     if is_bare(expr) and out_dtype is None:
         if expr.name not in blocks.columns:
             raise ValueError(f"{expr.name} not available on device")
+        if not blocks.columns[expr.name].on_device and not host_ok:
+            raise Refused(f"the host column {expr.name}", HOST_ENGINE)
         return
     _compile(expr, blocks, out_dtype, programs)
 
@@ -154,6 +166,12 @@ def remap_codes(codes: torch.Tensor, table: np.ndarray) -> torch.Tensor:
     return values
 
 
+def run_lut(program: Program, codes: torch.Tensor, mask: Optional[torch.Tensor], n: int
+            ) -> List[Masked]:
+    """A ``lut_program`` over ``codes`` (and their mask): one launch."""
+    return _run(program, [(codes, mask)], n, codes.device)  # type: ignore[return-value]
+
+
 def evaluate(
     blocks: TorchBlocks,
     exprs: Sequence[ColumnExpr],
@@ -168,8 +186,9 @@ def evaluate(
     out: List[Optional[Evaluated]] = [None] * len(exprs)
     todo: List[int] = []
     for i, (e, dt) in enumerate(zip(exprs, out_dtypes)):
-        if is_bare(e) and e.name in blocks.columns and dt in (None, blocks.columns[e.name].data.dtype):
-            c = blocks.columns[e.name]
+        c = blocks.columns.get(e.name) if is_bare(e) else None
+        if c is not None and (not c.on_device or dt in (None, c.data.dtype)):
+            # a host column passes as it is (no values on the card)
             out[i] = Evaluated(c.data, c.mask, c.dictionary)
         else:
             todo.append(i)

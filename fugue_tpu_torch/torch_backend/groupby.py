@@ -38,6 +38,7 @@ card to a twin.
 
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import pyarrow as pa
 import torch
 
 from fugue_tpu_torch.column.expressions import VARIANCE_FUNCS
@@ -73,7 +74,12 @@ from fugue_tpu_torch.kernels.reference import (
 )
 from fugue_tpu_torch.kernels.segment_reduce import segment_extrema_cuda, segment_sq_dev_cuda
 from fugue_tpu_torch.kernels.segment_sums import binned_sums_cuda
-from fugue_tpu_torch.torch_backend.blocks import TorchBlocks
+from fugue_tpu_torch.torch_backend.blocks import (
+    TorchBlocks,
+    key_data,
+    value_bits,
+    value_float64,
+)
 
 _MAX_BINS = 1 << 22  # static-binning cap (``groupby.py:451``)
 # K3's route on the word route, by the group count and the word's width:
@@ -497,7 +503,7 @@ sort_factorize.last_route = None  # type: ignore[attr-defined]
 
 def _sort_factorize(blocks: TorchBlocks, keys: List[str]) -> Factorized:
     """``groupby.py:507``: the general path for keys with no bin spec."""
-    cols = [(blocks.columns[k].data, blocks.columns[k].mask) for k in keys]
+    cols = [(key_data(blocks.columns[k]), blocks.columns[k].mask) for k in keys]
     seg, first_idx, num = sort_factorize(cols, **frame_rows(blocks))
     return Factorized(
         seg, num, first_idx, None,
@@ -577,6 +583,31 @@ def segment_median(
         return values.index_select(0, order.index_select(0, pos)).to(torch.float64)
 
     return (at(lo) + at(hi)) * 0.5
+
+
+def agg_form(func: str, tp: pa.DataType) -> str:
+    """How aggregation ``func`` reads an argument of arrow type ``tp``
+    (``agg_input``): ``"bits"``, ``"f64"`` or ``""`` (as it is stored)."""
+    if tp != pa.uint64():
+        return ""
+    if func in ("sum", "avg", "mean"):
+        return "bits"
+    return "f64" if func == "median" or func in VARIANCE_FUNCS else ""
+
+
+def agg_input(func: str, data: torch.Tensor, tp: pa.DataType) -> torch.Tensor:
+    """An aggregation's argument, of arrow type ``tp``, as the kernels read
+    it. A uint64 is stored with its sign bit flipped (``U64_FLIP``): min,
+    max, first and last read the stored words, whose order is the values'
+    (and return words the column stores); sum and avg read the values'
+    bits (``value_bits``: an int64 sum that wraps as the JAX package's
+    does); median and the variance family read the values in float64
+    (``value_float64``); count reads no value. Any other type is read as
+    it is."""
+    form = agg_form(func, tp)
+    if form == "bits":
+        return value_bits(data, tp)
+    return value_float64(data, tp) if form == "f64" else data
 
 
 class AggRequest(NamedTuple):
@@ -702,7 +733,9 @@ def segment_aggs(
                 meds.append((r.values, eff, ci))  # type: ignore[arg-type]
                 plan.append((f, len(meds) - 1, ci))
                 continue
-            v = r.values if r.values.is_floating_point() else r.values.to(torch.float64)  # type: ignore
+            # K5 reads float32 or float64: other payloads (a float16 too) in float64
+            v = r.values if r.values.dtype in (torch.float32, torch.float64) \
+                else r.values.to(torch.float64)  # type: ignore
             vi = payload_slot("v", f"{r.vkey}|{ekey}", (v, eff))
             if vi == len(var_counts):
                 var_counts.append(ci)

@@ -101,8 +101,8 @@ def try_stream_load(engine: Any, path: Any, format_hint: Optional[str], columns:
     load needs the eager path. ``pruning`` (conjunctive ``[col, op,
     literal]`` triples) skips the row groups whose statistics refute it;
     it is advisory, a filter after the load applies the whole condition.
-    A column type the card does not hold raises ``NotImplementedError``
-    (counted in ``engine.fallbacks``) when the load is planned."""
+    A host column (binary, nested, decimal, null) is collected as the
+    batches' arrow chunks."""
     if batch_rows <= 0 or len(kwargs) > 0 or isinstance(columns, str):
         return None
     paths = [path] if isinstance(path, str) else list(path)
@@ -156,7 +156,6 @@ def try_stream_load(engine: Any, path: Any, format_hint: Optional[str], columns:
         the footers read once."""
         a_schema = base_schema if sel is None else pa.schema([base_schema.field(c) for c in sel])
         schema = Schema(a_schema)
-        engine._check_types("load_df", schema)
 
         def groups_of(f: str) -> Optional[List[int]]:
             return None if row_groups is None else row_groups[f]
@@ -236,23 +235,44 @@ class _Stager:
         self.k = 0  # the slab being filled
         self.lo = valid_rows  # the first row of slab k
 
+    def retarget(self, data: torch.Tensor) -> None:
+        """Fills ``data`` next (a tensor of at most the slabs' rows times
+        ``SLABS``), keeping the slabs and their events: a stream's next
+        chunk goes through the same pinned slabs."""
+        self.data = data
+        self.end = self.lo = 0
+        if self.stream is None:
+            self.view = data.numpy()
+            return
+        data.record_stream(self.stream)
+        self.stream.wait_stream(torch.cuda.current_stream(data.device))
+
+    def reserve(self, n: int) -> np.ndarray:
+        """The place of the next ``n`` rows, for the caller to fill in
+        place before ``advance(n)``: the slab being filled (``n`` must fit
+        in what is left of it), on the CPU the tensor's own rows."""
+        if self.stream is None:
+            return self.view[self.end:self.end + n]
+        fill = self.end - self.lo
+        assert fill + n <= int(self.slabs[0].shape[0]), "the rows do not fit the slab"
+        return self.slabs[self.k].numpy()[fill:fill + n]
+
+    def advance(self, n: int) -> None:
+        """``n`` rows written at ``reserve``'s place; a full slab ships."""
+        self.end += n
+        if self.stream is not None and self.end - self.lo == int(self.slabs[0].shape[0]):
+            self._ship()
+
     def write(self, values: np.ndarray) -> None:
         """The next ``len(values)`` rows."""
         n = len(values)
-        if self.stream is None:
-            self.view[self.end:self.end + n] = values
-            self.end += n
-            return
-        rows = int(self.slabs[0].shape[0])
+        rows = n if self.stream is None else int(self.slabs[0].shape[0])
         pos = 0
         while pos < n:
-            fill = self.end - self.lo
-            take = min(rows - fill, n - pos)
-            write_rows(self.slabs[self.k].numpy()[fill:fill + take], values[pos:pos + take], None)
+            take = min(rows - (self.end - self.lo), n - pos) if self.stream is not None else n
+            write_rows(self.reserve(take), values[pos:pos + take], None)
+            self.advance(take)
             pos += take
-            self.end += take
-            if self.end - self.lo == rows:
-                self._ship()
 
     def _ship(self) -> None:
         """Ships slab k's rows, then waits until the next slab's last copy
@@ -274,7 +294,7 @@ class _Stager:
 
     def finish(self) -> torch.Tensor:
         """Ships the last rows, writes 0 in the padding rows and returns
-        the column tensor."""
+        the column tensor, which the stager no longer holds."""
         if self.stream is None:
             self.view[self.end:] = 0
             return self.data
@@ -282,7 +302,8 @@ class _Stager:
         if self.end < int(self.data.shape[0]):
             with torch.cuda.stream(self.stream):
                 self.data[self.end:].zero_()
-        return self.data
+        data, self.data = self.data, None  # the caller's now: a retarget frees nothing early
+        return data
 
 
 def _stream_to_blocks(fs: Any, files: List[str], schema: Schema, device: torch.device,
@@ -294,7 +315,9 @@ def _stream_to_blocks(fs: Any, files: List[str], schema: Schema, device: torch.d
     pad_n = padded_len(nrows)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     stagers = {f.name: _Stager(pad_n, torch_dtype(f.type), device, batch_rows, stream)
-               for f in schema.fields}
+               for f in schema.fields if torch_dtype(f.type) is not None}
+    hosts: Dict[str, List[pa.Array]] = {f.name: [] for f in schema.fields
+                                        if torch_dtype(f.type) is None}
     masks: Dict[str, _Stager] = {}
     # a string column's running dictionary: value -> code, in first-seen order
     dicts: Dict[str, Dict[Any, int]] = {f.name: {} for f in schema.fields
@@ -330,6 +353,9 @@ def _stream_to_blocks(fs: Any, files: List[str], schema: Schema, device: torch.d
                     continue
                 for f in schema.fields:
                     arr = batch.column(batch.schema.get_field_index(f.name))
+                    if f.name in hosts:
+                        hosts[f.name].append(arr)
+                        continue
                     values, valid = _decode(f.name, f.type, arr, dicts, stats, monotonic)
                     stagers[f.name].write(values)
                     write_mask(f.name, valid, offset, n)
@@ -337,6 +363,9 @@ def _stream_to_blocks(fs: Any, files: List[str], schema: Schema, device: torch.d
 
     cols: Dict[str, TorchColumn] = {}
     for f in schema.fields:
+        if f.name in hosts:
+            cols[f.name] = TorchColumn.of_host(f.type, pa.chunked_array(hosts[f.name], f.type))
+            continue
         data = stagers[f.name].finish()
         mask = masks[f.name].finish() if f.name in masks else None
         if f.name in dicts:
@@ -395,8 +424,9 @@ def _chunk_view(blocks: TorchBlocks, lo: int, hi: int) -> TorchBlocks:
     """Rows ``[lo, hi)`` of a prefix frame as a prefix frame of views
     (``:438``)."""
     return TorchBlocks(hi - lo, {
-        name: TorchColumn(c.pa_type, c.data[lo:hi], None if c.mask is None else c.mask[lo:hi],
-                          c.stats, dictionary=c.dictionary)
+        name: TorchColumn.of_host(c.pa_type, c.host.slice(lo, hi - lo)) if not c.on_device else
+        TorchColumn(c.pa_type, c.data[lo:hi], None if c.mask is None else c.mask[lo:hi],
+                    c.stats, dictionary=c.dictionary)
         for name, c in blocks.columns.items()}, blocks.device)
 
 

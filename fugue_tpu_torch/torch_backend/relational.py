@@ -73,6 +73,8 @@ import torch
 from fugue_tpu_torch.kernels import kernel_for
 from fugue_tpu_torch.kernels.expr_program import (
     CODES,
+    F16,
+    F32,
     OP,
     Instr,
     Output,
@@ -110,8 +112,11 @@ from fugue_tpu_torch.torch_backend.blocks import (
     TorchBlocks,
     TorchColumn,
     gather_indices,
+    is_unsigned_wide,
+    key_data,
     keeps_stats,
     padded_len,
+    storage_scalar,
     torch_dtype,
 )
 from fugue_tpu_torch.utils.validity import materialize_validity
@@ -534,6 +539,13 @@ def encode_fill_value(col: TorchColumn, value: Any) -> Optional[Tuple[Any, Optio
         if pa.types.is_date32(tp):
             d = np.datetime64(value, "D")
             return np.int32((d - np.datetime64(0, "D")).astype(np.int64)), None
+        if is_unsigned_wide(tp):  # the value in its type, then as the column stores it
+            u = np.asarray(value, dtype=tp.to_pandas_dtype())[()]
+            if u != value:
+                return None
+            return np.asarray(storage_scalar(int(u), tp),
+                              dtype=torch.empty((0,), dtype=col.data.dtype).numpy().dtype)[()], \
+                None
         np_dtype = torch.empty((0,), dtype=col.data.dtype).numpy().dtype
         v = np.asarray(value, dtype=np_dtype)[()]
         if not np.issubdtype(np_dtype, np.floating) and v != value:
@@ -550,8 +562,11 @@ def fill_program(columns: List[Tuple[str, torch.dtype]], fills: List[Any]) -> Pr
     its register, with no mask."""
     m = len(columns)
     instrs: List[Instr] = []
+    # a float16 column is read into, filled in and stored from an F32 register
+    codes = [F32 if dtype == torch.float16 else CODES[dtype] for _, dtype in columns]
+    stored = [F16 if dtype == torch.float16 else CODES[dtype] for _, dtype in columns]
     for j, ((_, dtype), v) in enumerate(zip(columns, fills)):
-        code = CODES[dtype]
+        code = codes[j]
         if dtype.is_floating_point:
             instrs.append(Instr(OP["NANNULL"], code, j, j))
         value = bool(v) if dtype == torch.bool else (float(v) if dtype.is_floating_point
@@ -559,8 +574,8 @@ def fill_program(columns: List[Tuple[str, torch.dtype]], fills: List[Any]) -> Pr
         instrs.append(Instr(OP["CONST"], code, m, imm=value))
         instrs.append(Instr(OP["COAL"], code, j, j, m))
     return Program(
-        tuple((name, CODES[dtype]) for name, dtype in columns), tuple(instrs),
-        tuple(Output(j, CODES[dtype], False) for j, (_, dtype) in enumerate(columns)),
+        tuple((name, stored[j]) for j, (name, _) in enumerate(columns)), tuple(instrs),
+        tuple(Output(j, stored[j], False) for j in range(m)),
         m + 1, (False,) * m, (), (None,) * m,
     )
 
@@ -617,7 +632,7 @@ def sort_code_columns(blocks: TorchBlocks, sorts: List[Tuple[str, bool]],
         if name not in blocks.columns:
             raise KeyError(f"{name} is not a column of the frame")
         col = blocks.columns[name]
-        values, kmin, bits = col.data, None, 0
+        values, kmin, bits = key_data(col), None, 0
         if col.is_string:
             table = strings.sort_rank_table(col.dictionary)  # type: ignore[arg-type]
             values = expr_eval.remap_codes(col.data, table)

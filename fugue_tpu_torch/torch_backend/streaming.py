@@ -8,9 +8,13 @@ chunk by chunk into accumulators on the card (port of
 - Per-group accumulators (count, sum, min, max a plan, and each plan's
   count of valid values) live on the engine's device in one int64 store,
   slot-major (a float64 accumulator's column holds its bits, a float
-  extremum its order key). Each chunk is uploaded once and folded by one launch of K19
-  ``stream_fold`` over every plan (its twin on the CPU): peak residency is
-  the accumulators plus a chunk, whatever the row count.
+  extremum its order key). Each chunk's keys, payloads and validity are
+  written once into pinned slabs (two a kind, alternating from chunk to
+  chunk, ``ingest._Stager``) and shipped by non-blocking copies on a copy
+  stream, which the fold waits for on the card; then one launch of K19
+  ``stream_fold`` folds every plan (its twin on the CPU, where the rows
+  are written straight into the tensors): peak residency is the
+  accumulators plus a chunk, whatever the row count.
 - Group keys bin by the mixed radix of ``_Space`` (integer and bool keys,
   at most ``_MAX_BINS`` slots). When a chunk's keys leave the current
   space, the accumulators are re-based onto the wider one on the card
@@ -54,9 +58,16 @@ from fugue_tpu_torch.kernels.reference import (
 )
 from fugue_tpu_torch.kernels.stream import MAX_KEYS, MAX_OPS, MAX_PAYLOADS, stream_fold_cuda
 from fugue_tpu_torch.schema import Schema
-from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, TorchColumn, torch_dtype
+from fugue_tpu_torch.torch_backend.blocks import (
+    TorchBlocks,
+    TorchColumn,
+    storage_scalar,
+    to_storage,
+    torch_dtype,
+)
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.torch_backend.groupby import _MAX_BINS
+from fugue_tpu_torch.torch_backend.ingest import _Stager
 from fugue_tpu_torch.utils.assertion import assert_or_throw
 
 _SUPPORTED = ("sum", "count", "min", "max", "avg", "mean")
@@ -148,6 +159,11 @@ class StreamingAggregator:
         for _, func, _ in plans:
             assert_or_throw(func in _SUPPORTED,
                             NotImplementedError(f"streaming aggregation {func}"))
+        # a uint64 payload streams as its int64 bits: its sum and count are
+        # the bounded aggregate's (the sum wraps as there), its order and
+        # mean are not
+        self._unsigned_order = [f"{func}({src})" for _, func, src in plans
+                                if schema[src].type == pa.uint64() and func not in ("sum", "count")]
         self._engine = engine
         self._schema = schema
         self._keys = list(keys)
@@ -163,6 +179,9 @@ class StreamingAggregator:
         self.rebases = 0
         self.chunks_folded = 0
         self.rows_folded = 0
+        # the pinned upload of the chunks' values and validity
+        self._stagers: List[Optional[_Stager]] = [None, None]
+        self._copy_stream: Optional[Any] = None
 
     def _layout(self) -> None:
         """Each accumulator's store column and op, every op of a payload
@@ -207,8 +226,11 @@ class StreamingAggregator:
     def _make_init(self, total: int) -> torch.Tensor:
         """A fresh store of ``total`` slots, each accumulator at its op's
         start value (``fold_init``)."""
-        init = torch.tensor([fold_init(op.kind) for op in self._ops], dtype=torch.int64)
-        return init.to(self._engine.device).unsqueeze(0).repeat(total, 1)
+        store = torch.empty((total, len(self._ops)), dtype=torch.int64,
+                            device=self._engine.device)
+        for j, op in enumerate(self._ops):  # fills on the card: no copy from the host
+            store[:, j].fill_(fold_init(op.kind))
+        return store
 
     def _rebase(self, old_space: _Space, new_space: _Space, store: torch.Tensor
                 ) -> torch.Tensor:
@@ -222,45 +244,73 @@ class StreamingAggregator:
         return fresh
 
     # ---- folding ---------------------------------------------------------
-    def host_arrays(self, chunk: Any) -> Tuple[np.ndarray, np.ndarray]:
+    def host_arrays(self, chunk: Any, out: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
         """A chunk's keys and payloads as one int64 array ``[keys +
-        payloads, n]`` (a float payload's float64 bits) and the payloads'
-        validity ``[payloads, n]``, read through arrow with no pass through
-        pandas (``blocks.from_arrow``'s way: ``fill_null``, then
-        ``to_numpy``), so an int64 is exact whatever its nulls; a float's
-        NaN is invalid, its slot 0 (``:421-450``). A pandas chunk is typed
-        by the stream's schema first. Raises ``StreamUnsupported`` for a
-        NULL key or a payload that is not a number or a bool."""
+        payloads, n]`` (a float payload's float64 bits, a uint64 key's
+        word with its sign bit flipped as its column stores it, a uint64
+        payload's int64 bits) and the payloads' validity ``[payloads, n]``,
+        written into ``out`` where given (the pinned slabs the chunk ships
+        from), read through arrow with no pass through pandas
+        (``blocks.from_arrow``'s way: ``fill_null``, then ``to_numpy``), so
+        an int64 is exact whatever its nulls; a float's NaN is invalid, its
+        slot 0 (``:421-450``). A pandas chunk is typed by the stream's
+        schema first. Raises ``StreamUnsupported`` for a NULL key or a
+        payload that is not a number or a bool."""
         table = chunk_table(chunk, self._schema)
         n = table.num_rows
-        values = np.empty((len(self._keys) + len(self._payloads), n), dtype=np.int64)
+        if out is None:
+            out = (np.empty((len(self._keys) + len(self._payloads), n), dtype=np.int64),
+                   np.empty((len(self._payloads), n), dtype=np.bool_))
+        values, valids = out
         for j, k in enumerate(self._keys):
             col = table.column(k)
             if col.null_count > 0:
                 raise StreamUnsupported("NULL group keys")
-            values[j] = col.to_numpy()
-        valids = np.empty((len(self._payloads), n), dtype=np.bool_)
+            values[j] = to_storage(col.to_numpy(), col.type)
         for j, c in enumerate(self._payloads):
             values[len(self._keys) + j], valids[j] = _payload(table.column(c),
                                                                self._src_types[c])
         return values, valids
+
+    def _staged(self, k: int, shape: Tuple[int, int], dtype: torch.dtype) -> Any:
+        """Stager ``k`` (0: the values, 1: the validity), retargeted to a
+        new device tensor of ``shape``: its pinned slabs alternate from
+        chunk to chunk on one copy stream (``ingest._Stager``), made anew
+        only where a chunk outgrows them; on the CPU it writes the tensor
+        itself."""
+        device = self._engine.device
+        rows = shape[0] * shape[1]
+        st = self._stagers[k]
+        if st is None or (st.stream is not None and int(st.slabs[0].shape[0]) < rows):
+            if self._copy_stream is None and device.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(device)
+            st = self._stagers[k] = _Stager(rows, dtype, device, rows, self._copy_stream)
+        else:
+            st.retarget(torch.empty((rows,), dtype=dtype, device=device))
+        return st
 
     def fold(self, chunk: Any) -> int:
         """Fold one host chunk (an arrow table or a pandas frame of the
         stream's schema) into the accumulators; returns its row count. An
         empty chunk is a no-op. Raises ``StreamUnsupported`` where the
         bounded path's semantics cannot be honored. The chunk's keys,
-        payloads and masks (``host_arrays``) go to the card in one copy
-        each."""
+        payloads and masks (``host_arrays``) are written once into pinned
+        slabs and shipped on a copy stream (``_staged``); the fold waits
+        for the copies on the card, the host does not."""
         n = len(chunk)
         if n == 0:
             return 0
+        if self._unsigned_order:
+            raise StreamUnsupported(f"{self._unsigned_order[0]} of a uint64 payload")
         if (len(self._keys) > MAX_KEYS or len(self._payloads) > MAX_PAYLOADS
                 or len(self._ops) > MAX_OPS):
             raise StreamUnsupported("more keys, payloads or accumulators than one fold takes")
-        values, valids = self.host_arrays(chunk)
-        keys = values[: len(self._keys)]
-        cb = [(int(k.min()), int(k.max())) for k in keys]
+        nk, npay = len(self._keys), len(self._payloads)
+        table = chunk_table(chunk, self._schema)
+        # the keys' stored bounds first, so a rebase's stores and the
+        # chunk's rows are never on the card together
+        cb = [_key_bounds(table.column(k)) for k in self._keys]
         space = self._space
         if space is not None and space.contains(cb):
             cand = space
@@ -276,17 +326,24 @@ class StreamingAggregator:
         elif cand is not space:
             self._store = self._rebase(space, cand, self._store)  # type: ignore[arg-type]
         self._space = cand
-        device = self._engine.device
-        dev = torch.from_numpy(values).to(device)
-        masks = torch.from_numpy(valids).to(device)
+        vs = self._staged(0, (nk + npay, n), torch.int64)
+        ms = self._staged(1, (npay, n), torch.bool)
+        self.host_arrays(table, (vs.reserve((nk + npay) * n).reshape(nk + npay, n),
+                                 ms.reserve(npay * n).reshape(npay, n)))
+        vs.advance((nk + npay) * n)
+        ms.advance(npay * n)
+        dev = vs.finish().view(nk + npay, n)
+        masks = ms.finish().view(npay, n)
+        if self._copy_stream is not None:
+            torch.cuda.current_stream(dev.device).wait_stream(self._copy_stream)
         payloads: List[Payload] = []
         for j, c in enumerate(self._payloads):
-            v = dev[len(keys) + j]
+            v = dev[nk + j]
             if pa.types.is_floating(self._src_types[c]):
                 v = v.view(torch.float64)
             payloads.append((v, masks[j]))
         run = kernel_for(dev, stream_fold_cuda, stream_fold_reference, "stream fold")
-        run(list(dev[: len(keys)]), cand.spans, payloads, self._ops, self._store)
+        run(list(dev[:nk]), cand.spans, payloads, self._ops, self._store)
         self.chunks_folded += 1
         self.rows_folded += n
         return n
@@ -336,6 +393,19 @@ class StreamingAggregator:
                                    torch.zeros((1,), dtype=torch.bool, device=device))
                     for k, c in cols.items()}
         return TorchDataFrame(TorchBlocks(n, cols, device), Schema(fields))
+
+
+def _key_bounds(col: pa.ChunkedArray) -> Tuple[int, int]:
+    """A chunk's key column's ``(min, max)`` as the card stores it (a
+    uint64's words flipped: the same order); raises ``StreamUnsupported``
+    for a NULL key."""
+    if col.null_count > 0:
+        raise StreamUnsupported("NULL group keys")
+    mm = pc.min_max(col)
+    lo, hi = int(mm["min"].as_py()), int(mm["max"].as_py())
+    if col.type == pa.uint64():
+        return storage_scalar(lo, col.type), storage_scalar(hi, col.type)
+    return lo, hi
 
 
 def _payload(col: pa.ChunkedArray, tp: pa.DataType) -> Tuple[np.ndarray, np.ndarray]:

@@ -41,7 +41,12 @@ from fugue_tpu_torch.kernels.reference import (
 from fugue_tpu_torch.kernels.window import window_frame_cuda, window_rank_cuda
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.torch_backend import groupby, relational
-from fugue_tpu_torch.torch_backend.blocks import TorchBlocks, TorchColumn, torch_dtype
+from fugue_tpu_torch.torch_backend.blocks import (
+    TorchBlocks,
+    TorchColumn,
+    torch_dtype,
+    value_float64,
+)
 
 RANK_FUNCS = ("row_number", "rank", "dense_rank", "ntile", "percent_rank", "cume_dist")
 GATHER_FUNCS = ("lag", "lead", "first_value", "last_value", "nth_value")
@@ -161,12 +166,12 @@ def _window_frame_agg(blocks: TorchBlocks, spec: Any, order: Callable[[], Sorted
         kcol = blocks.columns[kname]
         if kcol.is_string or not _numeric(kcol.pa_type):
             refuse(f"a RANGE offset over the key {kname} ({kcol.pa_type})")
-        key, kmask, key_desc = kcol.data.to(torch.float64), kcol.mask, not asc
+        key, kmask, key_desc = value_float64(kcol.data, kcol.pa_type), kcol.mask, not asc
     values = vmask = None
     if vcol is not None:
-        as_float = vcol.data.is_floating_point() or (
-            func in ("sum", "avg") and vcol.data.dtype == torch.bool)
-        values = vcol.data.to(torch.float64 if as_float else torch.int64).contiguous()
+        data = groupby.agg_input(func, vcol.data, vcol.pa_type)
+        as_float = data.is_floating_point() or (func in ("sum", "avg") and data.dtype == torch.bool)
+        values = data.to(torch.float64 if as_float else torch.int64).contiguous()
         vmask = None if vcol.mask is None else vcol.mask.contiguous()
     frame = WindowFrame(
         "count_star" if func == "count" and vcol is None else func, int(spec.param or 0), unit,
@@ -195,7 +200,8 @@ def _window_segment_agg(blocks: TorchBlocks, spec: Any, seg: torch.Tensor, num: 
         if col.is_string:
             refuse(f"{func} of the string column {spec.arg} over a partition")
         mask = None if col.mask is None else col.mask.contiguous()
-        request = groupby.AggRequest(func, col.data.contiguous(), mask, spec.arg,
+        request = groupby.AggRequest(func, groupby.agg_input(func, col.data, col.pa_type)
+                                     .contiguous(), mask, spec.arg,
                                      "" if mask is None else f"m:{spec.arg}")
         arg_tp = col.pa_type
     if func == "count":

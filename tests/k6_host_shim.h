@@ -96,3 +96,49 @@ struct uint2 {
 inline uchar2 make_uchar2(unsigned char x, unsigned char y) { return {x, y}; }
 inline ushort2 make_ushort2(unsigned short x, unsigned short y) { return {x, y}; }
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
+
+// float16 as cuda_fp16.h gives it: IEEE's conversions, to nearest even, in
+// integer arithmetic
+struct __half {
+  unsigned short bits;
+};
+inline __half __ushort_as_half(unsigned short h) { return {h}; }
+inline unsigned short __half_as_ushort(__half h) { return h.bits; }
+
+inline float __half2float(__half x) {
+  const unsigned short h = x.bits;
+  const unsigned sign = (unsigned)(h & 0x8000u) << 16;
+  const unsigned e = (h >> 10) & 0x1Fu, m = h & 0x3FFu;
+  if (e == 0) {  // zero or subnormal: m * 2^-24, exact in float
+    const float f = (float)m * 5.9604644775390625e-8f;
+    return sign ? -f : f;
+  }
+  if (e == 0x1Fu) return __uint_as_float(sign | 0x7F800000u | (m << 13));  // inf, NaN
+  return __uint_as_float(sign | ((e + 112u) << 23) | (m << 13));
+}
+
+inline __half __float2half_rn(float f) {
+  const unsigned x = __float_as_uint(f);
+  const unsigned sign = (x >> 16) & 0x8000u;
+  const unsigned ax = x & 0x7FFFFFFFu;
+  if (ax > 0x7F800000u) return {(unsigned short)(sign | 0x7E00u)};  // NaN
+  if (ax >= 0x477FF000u) return {(unsigned short)(sign | 0x7C00u)};  // rounds to inf
+  if (ax >= 0x38800000u) {  // a normal half: rebias, round the 13 low bits
+    const unsigned r = ax - 0x38000000u;
+    return {(unsigned short)(sign | ((r + 0xFFFu + ((r >> 13) & 1u)) >> 13))};
+  }
+  if (ax < 0x33000000u) return {(unsigned short)sign};  // at most 2^-25: to zero
+  // a subnormal half: the significand shifted to units of 2^-24
+  const unsigned e = ax >> 23, mant = (ax & 0x7FFFFFu) | 0x800000u;
+  const unsigned s = 126u - e;  // 14 .. 24
+  const unsigned q = (mant + (1u << (s - 1)) - 1u + ((mant >> s) & 1u)) >> s;
+  return {(unsigned short)(sign | q)};
+}
+
+// a double to float toward zero: to nearest, then one step back where that
+// went outward
+inline float __double2float_rz(double x) {
+  float f = (float)x;
+  if (fabs((double)f) > fabs(x)) f = nextafterf(f, 0.0f);
+  return f;
+}

@@ -345,3 +345,30 @@ def test_headline_udf_builds_no_validity(monkeypatch):
                        s=ft.functions.sum(ft.col("v2")), c=ft.functions.count(ft.col("v2")))
     assert agg.as_pandas()["c"].sum() == N
     assert calls == []
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_twin_sums_float16_and_unsigned_payloads(masked):
+    """The fused kernel's twin over a float16 payload (summed in float32)
+    within float32's rounding of numpy's float64 sums, and over uint16 and
+    uint32 payloads as the card stores them (widened) exactly."""
+    rng = np.random.default_rng(31)
+    n, span = 5000, 37
+    key = torch.from_numpy(rng.integers(0, span, n).astype(np.int32))
+    h = rng.random(n).astype(np.float16)
+    a = rng.integers(0, 2**16, n).astype(np.uint16)
+    w = rng.integers(2**31, 2**32, n).astype(np.uint32)
+    mask = torch.from_numpy(rng.random(n) < 0.8) if masked else None
+    keep = np.ones(n, bool) if mask is None else mask.numpy()
+    fs, cs, ints = binned_sums_reference(
+        [BinKey(key, None, 0, span)], nrows=n, floats=[(torch.from_numpy(h), mask)],
+        counts=[] if mask is None else [mask],
+        ints=[(torch.from_numpy(a.astype(np.int32)), mask),
+              (torch.from_numpy(w.astype(np.int64)), mask)])
+    k = key.numpy()
+    want_h = np.bincount(k[keep], weights=h[keep].astype(np.float64), minlength=span)
+    assert fs.dtype == torch.float32
+    np.testing.assert_allclose(fs[0].numpy(), want_h, rtol=1e-5)
+    for row, vals in zip(ints, (a, w)):
+        want = np.bincount(k[keep], weights=vals[keep].astype(np.float64), minlength=span)
+        assert row.tolist() == want.astype(np.int64).tolist()

@@ -97,23 +97,38 @@ def test_masked_layout_compacts_on_export():
 @pytest.mark.parametrize(
     "arr,case",
     [
-        (pa.array([1, 2, 3], type=pa.uint32()), "uint16-64 or float16"),
-        (pa.array([1, 2, 3], type=pa.uint16()), "uint16-64 or float16"),
-        (pa.array(np.array([1, 2, 3], dtype=np.float16)), "uint16-64 or float16"),
-        (pa.array([b"x", None, b"yz"]), "a binary column"),
-        (pa.array([[1], None, [2, 3]]), "a nested"),
-        (pa.array([1, None, 3], type=pa.decimal128(10, 2)), "a decimal column"),
-        (pa.array([None, None, None]), "null type"),
+        (pa.array([1, 2**31 + 5, None, 2**32 - 1], type=pa.uint32()), "device"),
+        (pa.array([1, 65535, None, 2**15], type=pa.uint16()), "device"),
+        (pa.array(np.array([1, 60000, 0, -0.0], dtype=np.float16),
+                  mask=np.array([False, False, True, False])), "device"),
+        (pa.array([b"x", None, b"yz", b""]), "host"),
+        (pa.array([[1], None, [2, 3], []]), "host"),
+        (pa.array([1, None, 3, -4], type=pa.decimal128(10, 2)), "host"),
+        (pa.array([None, None, None, None]), "host"),
     ],
     ids=["uint32", "uint16", "float16", "binary", "list", "decimal", "null"],
 )
 def test_unported_types_raise(arr, case):
-    """A type the card does not hold is refused, naming ROADMAP.md queue 1
-    item 1 and the type's own case."""
-    table = pa.table({"a": arr})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1") as info:
-        tblocks.from_arrow(table, Schema(table.schema), CPU)
-    assert case in str(info.value)
+    """The types the port once refused (uint16-64, float16, binary,
+    nested, decimal, null) now round-trip: arrow -> blocks -> arrow gives
+    the table back exactly, as the JAX package's blocks do; the first three
+    are device columns, the rest host columns, as there
+    (``jax_backend/blocks.py:124``)."""
+    table = pa.table({"a": arr, "k": pa.array([4, 3, 2, 1], pa.int64())})
+    schema = Schema(table.schema)
+    blocks = tblocks.from_arrow(table, schema, CPU)
+    assert blocks.columns["a"].on_device == (case == "device")
+    got = tblocks.to_arrow(blocks, schema)
+    assert got.equals(table)
+    jblocks_ = jblocks.from_arrow(table, JSchema(table.schema),
+                                  jblocks.make_mesh([jax.devices()[0]]))
+    assert jblocks_.columns["a"].on_device == (case == "device")
+    assert got.equals(jblocks.to_arrow(jblocks_, JSchema(table.schema)))
+    # a masked frame takes its host and device columns at the same rows
+    masked = tblocks.TorchBlocks(None, blocks.columns, CPU,
+                                 row_valid=torch.tensor([False, True, False, True]),
+                                 nrows_dev=torch.tensor(2))
+    assert tblocks.to_arrow(masked, schema).equals(table.take([1, 3]))
 
 
 @pytest.mark.parametrize(

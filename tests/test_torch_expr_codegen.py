@@ -309,3 +309,50 @@ def test_many_immediates_take_the_device_memory_route():
     prog = _compile(blocks, exprs, False)
     kernel = _kernel(prog, [(None, blocks.columns["i64"].mask)], {})
     assert kernel.indirect and 8 * len(kernel.fields) > cg.PARAM_LIMIT
+
+
+# --- float16 on the host ------------------------------------------------------
+
+def _doubles_near_half_ties(n: int) -> np.ndarray:
+    """float64 values around float16's midpoints (a midpoint plus or minus
+    2^-30 of it, where float32's nearest would make a tie), random ones
+    over float16's whole range and past it, and the special values."""
+    rng = np.random.default_rng(29)
+    h = (rng.standard_normal(n) * np.exp2(rng.integers(-24, 16, n))).astype(np.float16)
+    up = np.nextafter(h, np.float16(np.inf)).astype(np.float64)
+    mid = (h.astype(np.float64) + up) / 2
+    near = mid * (1 + rng.choice([-1.0, 1.0], n) * 2.0**-30)
+    wide = rng.standard_normal(n) * np.exp2(rng.uniform(-30, 18, n))
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 65519.99, 65520.0, 1e300, 2.0**-25,
+                        2.0**-25 * (1 + 2.0**-40), 1 + 2.0**-11 + 2.0**-30])
+    return np.concatenate([near, mid, wide, special])
+
+
+def test_float16_programs_match_numpy_on_the_host(tmp_path):
+    """A host build of programs over float16 (under the shim's integer
+    float16 conversions): ``h * 2`` and ``h + h`` rounded once an
+    operation, and a float64 stored as float16 (``HALF`` of an F64: float32
+    rounded to odd, then to nearest), each on its scalar and vector path,
+    bit for bit against numpy's float16 and the twin."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the generated code for the host")
+    d = _doubles_near_half_ties(400)
+    n = len(d)
+    h = np.concatenate([d.astype(np.float16)[: n - 6],
+                        np.array([60000, -60000, 65504, 6e-8, -0.0, 0.0], np.float16)])
+    inputs = {"h": (torch.from_numpy(h), None), "d": (torch.from_numpy(d), None)}
+    cols = {"h": (torch.float16, False, pa.float16()), "d": (torch.float64, False)}
+    cases = [([col("h") * 2], h * np.float16(2)), ([col("h") + col("h")], h + h),
+             ([col("d")], d.astype(np.float16))]
+    progs = [ep.compile_program(exprs, [torch.float16], cols, {}, CPU) for exprs, _ in cases]
+    args = [[inputs[name] for name, _ in p.inputs] for p in progs]
+    kernels = [_kernel(p, a, {}) for p, a in zip(progs, args)]
+    lib = HostKernels(kernels, tmp_path)
+    for (exprs, want), prog, a, kernel in zip(cases, progs, args, kernels):
+        twin, = expr_program_reference(prog, a, n, device=CPU)
+        np.testing.assert_array_equal(twin[0].numpy().view(np.int16), want.view(np.int16))
+        for vec in (False, True):
+            (got, _), = lib.run(kernel, prog, a, n, vec=vec)
+            assert got.dtype == torch.float16
+            np.testing.assert_array_equal(got.numpy().view(np.int16), want.view(np.int16),
+                                          err_msg=f"{exprs[0]} vec={vec}")

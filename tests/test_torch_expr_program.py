@@ -594,3 +594,31 @@ def test_the_cuda_wrapper_refuses_cpu_tensors():
     prog = ep.compile_program([tx.col("a") + 1], [None], {"a": (torch.int64, False)})
     with pytest.raises(ValueError, match="CUDA"):
         ep.expr_program_cuda(prog, [(torch.arange(3), None)], 3, device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("op", ["+", "-", "*", "neg", "lit_mul", "cast"])
+def test_float16_ops_match_numpy_float16(op):
+    """K6's twin over float16 columns (an F16 input read into float32, the
+    result rounded to float16 once an operation, ``HALF``, and stored as
+    float16) against numpy's float16 arithmetic elementwise, bit for bit:
+    60000 * 2 overflows to inf as there."""
+    rng = np.random.default_rng(17)
+    n = 3000
+    x = np.concatenate([(rng.standard_normal(n) * 300).astype(np.float16),
+                        np.array([60000, -60000, 65504, 6e-8, -0.0, 0.0], np.float16)])
+    y = np.concatenate([(rng.standard_normal(n) * 300).astype(np.float16),
+                        np.array([2, 2, 1, 3e-5, 0.0, -0.0], np.float16)])
+    blocks = TorchBlocks(len(x), {
+        "x": TorchColumn(pa.float16(), torch.from_numpy(x), None),
+        "y": TorchColumn(pa.float16(), torch.from_numpy(y), None)}, torch.device("cpu"))
+    cx, cy = tx.col("x"), tx.col("y")
+    expr, want = {
+        "+": (cx + cy, x + y), "-": (cx - cy, x - y), "*": (cx * cy, x * y),
+        "neg": (-cx, -x), "lit_mul": (cx * 2, x * np.float16(2)),
+        "cast": (cx.cast("double"), x.astype(np.float64)),
+    }[op]
+    dt = torch.float64 if op == "cast" else torch.float16
+    (got, _), = expr_eval.eval_exprs(blocks, [expr], [dt], ep.ProgramCache())
+    assert got.dtype == dt
+    np.testing.assert_array_equal(got.numpy().view(np.int64 if op == "cast" else np.int16),
+                                  want.view(np.int64 if op == "cast" else np.int16))

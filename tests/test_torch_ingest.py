@@ -187,7 +187,7 @@ def test_head_reads_only_leading_batches(tmp_path: Any, monkeypatch: Any) -> Non
     frame = port(100).load_df(path)
     head = frame.head(5)
     assert frame.is_pending and sum(seen) <= 100
-    assert head.to_pylist() == mixed_table(ROWS).slice(0, 5).to_pylist()
+    assert head.as_arrow().to_pylist() == mixed_table(ROWS).slice(0, 5).to_pylist()
     narrow = frame.head(3, ["s", "i"])
     assert narrow.schema.names == ["s", "i"] and frame.is_pending
 
@@ -274,10 +274,17 @@ def test_host_read_of_a_lazy_frame_makes_no_device_copy(tmp_path: Any, monkeypat
 
 
 def test_unported_column_types_refuse_a_streamed_load(tmp_path: Any) -> None:
-    path = write(str(tmp_path / "u.parquet"), pa.table({"a": pa.array([1, 2], pa.uint32())}))
-    for batch_rows in (0, 16):
+    """A uint32 column (once refused) loads, eager and streamed, as the JAX
+    package loads it: values above 2^31 exact, no fallback counted."""
+    table = pa.table({"a": pa.array([1, 2**31 + 7, None, 2**32 - 1], pa.uint32()),
+                      "b": pa.array([b"x", None, b"yz", b""])})
+    path = write(str(tmp_path / "u.parquet"), table)
+    want = make_jax_engine("jax", {"fugue.jax.devices": "0"}).load_df(path).as_arrow()
+    for batch_rows in (0, 2):
         engine = port(batch_rows)
-        with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-            engine.load_df(path)
-        assert engine.fallbacks == {"load_df": 1}
+        got = engine.load_df(path)
+        assert got.blocks.columns["a"].on_device and not got.blocks.columns["b"].on_device
+        assert_tables_equal(got.as_arrow(), want)
+        assert got.as_arrow().equals(table)
+        assert engine.fallbacks == {}
     assert os.path.exists(path)

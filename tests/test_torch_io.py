@@ -167,7 +167,7 @@ def test_heads_and_empty_exports_match_the_reference() -> None:
     filt_j = je.filter(jf, jcol("a") > 200)
     for got, want in ((tf, jf), (filt_t, filt_j)):
         for n, cols in ((0, None), (7, None), (5, ["s", "a"]), (10_000, None)):
-            assert_tables_equal(got.head(n, cols), want.head(n, cols).as_arrow())
+            assert_tables_equal(got.head(n, cols).as_arrow(), want.head(n, cols).as_arrow())
     none_t = te.filter(tf, col("a") > 5_000)
     none_j = je.filter(jf, jcol("a") > 5_000)
     assert_tables_equal(none_t.as_arrow(), none_j.as_arrow())

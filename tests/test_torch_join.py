@@ -176,9 +176,15 @@ def test_unique_route_keeps_the_left_columns():
 
 def test_refused_joins_count_as_fallbacks():
     te = ft.make_execution_engine(device="cpu")
+    # a float16 column, refused here before it was ported, now joins; a
+    # frame that holds a host column (binary) goes to the JAX package's
+    # host engine, so the port refuses it
     halves = pd.DataFrame({"k": [1, 2], "h": np.array([0.5, 1.5], dtype=np.float16)})
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        te.join(halves, pd.DataFrame({"k": [1]}), how="inner", on=["k"])
+    res = te.join(halves, pd.DataFrame({"k": [1]}), how="inner", on=["k"])
+    assert res.as_pandas().to_dict("list") == {"k": [1], "h": [0.5]}
+    blobs = pd.DataFrame({"k": [1, 2], "b": [b"x", b"yz"]})
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 2\(b\)"):
+        te.join(blobs, pd.DataFrame({"k": [1]}), how="inner", on=["k"])
     assert te.fallbacks == {"join": 1}
     # a string column, refused here before strings were ported, now joins
     strings = pd.DataFrame({"k": [1, 2], "s": ["a", "b"]})

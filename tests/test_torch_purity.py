@@ -6,11 +6,13 @@ The import check reads the sources (an AST walk), not ``sys.modules``:
 this interpreter may load JAX at start-up whatever the port imports."""
 
 import ast
+import decimal
 from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
 import pandas as pd
+import pyarrow as pa
 import pytest
 import torch
 
@@ -110,8 +112,16 @@ _UNPORTED = {
     "min_of_a_function_expression": lambda e: ft.aggregate(
         _df(), "k", engine=e, s=ff.min(_FuncExpr("atan", ft.col("v")))
     ),
-    "uint16_column": lambda e: e.to_df(pd.DataFrame({"u": np.arange(3, dtype=np.uint16)})),
-    "float16_column": lambda e: e.to_df(pd.DataFrame({"h": np.arange(3, dtype=np.float16)})),
+    # uint16 and float16 columns are on the card now; a binary, nested or
+    # decimal column beside them is a host column, and a union or a join of
+    # such frames goes to the JAX package's host engine (queue 1 item 2(b))
+    "uint16_column": lambda e: ft.union(
+        pd.DataFrame({"u": np.arange(3, dtype=np.uint16), "b": [b"x", b"y", None]}),
+        pd.DataFrame({"u": np.arange(3, dtype=np.uint16), "b": [b"x", b"y", None]}), engine=e),
+    "float16_column": lambda e: ft.join(
+        pa.table({"k": [1, 2], "h": pa.array(np.arange(2, dtype=np.float16)),
+                  "l": pa.array([[1], [2, 3]])}),
+        pd.DataFrame({"k": [1]}), how="inner", on=["k"], engine=e),
     "min_of_a_string": lambda e: ft.aggregate(
         _df().assign(s=lambda d: d["k"].astype(str)), "k", engine=e, m=ff.min(ft.col("s"))
     ),
@@ -123,7 +133,10 @@ _UNPORTED = {
         pd.DataFrame({"c": pd.array([1, None, 3], dtype="Int64")}), 2.5, engine=e
     ),
     "take_by_a_uint16_presort": lambda e: ft.take(
-        _df().assign(u=np.arange(50, dtype=np.uint16)), 3, presort="u desc", engine=e
+        pa.Table.from_pandas(_df().assign(u=np.arange(50, dtype=np.uint16)),
+                             preserve_index=False).append_column(
+            "d", pa.array([decimal.Decimal(i) for i in range(50)], pa.decimal128(12, 2))),
+        3, presort="u desc", engine=e
     ),
     "pandas_transformer": lambda e: ft.transform(_df(), _pandas_udf, "k:int,v:float", engine=e),
     "other_engine": lambda e: ft.make_execution_engine("native"),
@@ -143,12 +156,13 @@ def test_unported_paths_raise(case):
 
 @pytest.mark.parametrize("case,op,item", [
     ("inexact_fillna", "fillna", r"queue 1 item 2\(b\)"),
-    ("take_by_a_uint16_presort", "take", "queue 1 item 1"),
+    ("take_by_a_uint16_presort", "take", r"queue 1 item 2\(b\)"),
 ])
 def test_refused_fillna_and_take_count_as_fallbacks(case, op, item):
-    """A fill the column cannot hold exactly (the JAX package's host
-    engine answers it) and a take whose presort column the card does not
-    hold each name their ROADMAP.md item and count in ``fallbacks``."""
+    """A fill the column cannot hold exactly and a take of a frame that
+    holds a host column (a decimal beside the uint16 presort column, which
+    the card now holds) go to the JAX package's host engine: each names
+    its ROADMAP.md item and counts in ``fallbacks``."""
     engine = ft.make_execution_engine(device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         _UNPORTED[case](engine)

@@ -476,3 +476,32 @@ def test_replicas_and_their_banks():
         stride = replica_stride(4 * 1024, nrep)
         banks = {(r * stride // 4) % 32 for r in range(nrep)}
         assert len(banks) == nrep
+
+
+def test_twin_extrema_of_float16_and_uint64_words():
+    """K4's twin over a float16 payload (folded by its float value, decoded
+    back to float16) and over a uint64 column's stored words (its values
+    with the sign bit flipped): unflipped, the extrema are numpy's unsigned
+    ones, values above 2^63 included."""
+    import pyarrow as pa
+
+    from fugue_tpu_torch.torch_backend.blocks import from_storage, to_storage
+
+    rng = np.random.default_rng(9)
+    n, num = 4000, 23
+    seg = torch.from_numpy(rng.integers(0, num, n).astype(np.int32))
+    h = (rng.standard_normal(n) * 100).astype(np.float16)
+    u = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+    mask = torch.from_numpy(rng.random(n) < 0.85)
+    got = segment_extrema_reference(
+        seg, num, [Extremum(torch.from_numpy(h), mask, True, True),
+                   Extremum(torch.from_numpy(to_storage(u, pa.uint64())), None, True, True)],
+        nrows=n)
+    s, m = seg.numpy(), mask.numpy()
+    for j in range(num):
+        hj, uj = h[(s == j) & m], u[s == j]
+        assert got.mins[0].dtype == torch.float16
+        assert float(got.mins[0][j]) == float(hj.min()) and float(got.maxs[0][j]) == float(hj.max())
+        lo, hi = (from_storage(t[j:j + 1].numpy(), pa.uint64())[0] for t in
+                  (got.mins[1], got.maxs[1]))
+        assert (lo, hi) == (uj.min(), uj.max())

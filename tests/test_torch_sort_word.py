@@ -334,3 +334,33 @@ def test_chip_smoke_sort_path_routes_on_cpu(case, lookup_groups, route, monkeypa
     assert stats["route"] == route and stats["groups"] == 64
     assert max(stats["max_rel_err"].values()) < 1e-5
     assert stats["launches"] == dict.fromkeys(stats["launches"], 0)  # the CPU runs the twins
+
+
+@pytest.mark.parametrize("extra", [0, 37])
+def test_uint64_words_above_2_63_order_as_numpy(extra):
+    """A uint64 column's stored words (its values with the sign bit flipped):
+    KW's twin gives equal values one word and distinct values distinct
+    words, as the group-by needs (its int64 field orders as the codes, low
+    word first, not by value); K11's twin, with the engine's field (``kmin``
+    the type's minimum, 64 bits), orders them as numpy's unsigned sort,
+    values above 2^63 included."""
+    from fugue_tpu_torch.kernels.reference import PresortKey, presort_word_reference
+
+    rng = np.random.default_rng(5)
+    values = np.concatenate([rng.integers(0, 2**63, 300, dtype=np.uint64),
+                             rng.integers(2**63, 2**64 - 1, 300, dtype=np.uint64),
+                             np.array([0, 2**63 - 1, 2**63, 2**64 - 1], dtype=np.uint64)])
+    values = np.concatenate([values, values[:100 + extra]])
+    rng.shuffle(values)
+    n = len(values)
+    words = torch.from_numpy(tblocks.to_storage(values, pa.uint64()))
+    mask = None  # a nullable 64-bit key takes 65 bits: the wide route, not a word
+    valid = np.ones(n, bool)
+    sw = sort_word_reference([(words, mask)], nrows=n).word.numpy()
+    pairs = set(zip(sw[valid].tolist(), values[valid].tolist()))
+    assert len(pairs) == len(set(values[valid].tolist())) == len(set(sw[valid].tolist()))
+    pk = presort_word_reference([PresortKey(words, mask, desc=True, nulls_first=False,
+                                            nan_is_null=True, kmin=-2**63, bits=64)], nrows=n)
+    down = torch.sort(pk, stable=True).indices.numpy()
+    assert np.array_equal(values[down][:int(valid.sum())], np.sort(values[valid])[::-1])
+    assert not valid[down][int(valid.sum()):].any()
