@@ -222,7 +222,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    columns through a filter, ``head``, the export and a save and load;
    each against numpy or pyarrow, its launches held to
    ``TYPES_PATH_LAUNCHES``; and, with the twins, the kernels at their new
-   dtype codes (``types_vs_twin``).
+   dtype codes (``types_vs_twin``). Then the workflow phase
+   (``workflow_paths``): the headline at 100M rows through ``ft.transform``
+   (the port's workflow DAG) then ``ft.aggregate``, a cold run and 5 warm
+   runs interleaved with the same work lowered straight to the engine's
+   map (``direct_transform``), keys and counts equal to the direct path's,
+   sums against float64 numpy, the same launches a warm run and no
+   synchronizing call added by the DAG, each run's wall and host ms;
+   BASELINE config 4 as ``bench.py:979-989`` builds it (``FugueWorkflow``,
+   ``dag.df``, ``partition_by("k").zip``, the cotransform,
+   ``yield_dataframe_as``) at 2,000 groups and at 100M rows against numpy,
+   launches held to ``COMAP_PATH_LAUNCHES``; a DAG over config 5's parquet
+   at 10M rows (load, filter, assign, join, subtract, take, a SELECT)
+   against numpy, run serially and with ``fugue.workflow.concurrency=2``
+   (equal); and a deterministic checkpoint whose second run launches no
+   kernel.
 5. timing with CUDA events at the paths' shapes: each kernel beside its
    plain twin, one PyTorch call computing the same function where there
    is one, and its bound from the bytes it must move; the fused kernel's
@@ -8570,6 +8584,382 @@ def types_timing(device: Any, launches: Dict[str, int]) -> List[Dict[str, Any]]:
     return out
 
 
+# ---- the workflow phase: the DAG's entry points over the card's kernels ----
+
+WORKFLOW_WARM_RUNS = 5
+WORKFLOW_LOAD_ROWS = 10_000_000  # the DAG of the rest: config 5's source at 10M rows
+WORKFLOW_DIMS = 100  # its join's dimension table: keys 0..99 of config 5's 128
+
+
+def direct_transform(engine: Any, df: Any, fn: Callable[..., Any], schema: str) -> Any:
+    """A transform's engine work without the workflow DAG: ``fn`` made a
+    transformer and lowered to the engine's map as the DAG's
+    ``RunTransformer`` lowers it (``extensions/builtins.py``)."""
+    from fugue_tpu_torch.collections.partition import PartitionSpec
+    from fugue_tpu_torch.extensions.builtins import _TransformerRunner
+    from fugue_tpu_torch.extensions.convert import _to_transformer
+    from fugue_tpu_torch.schema import Schema
+
+    tf = _to_transformer(fn, schema)
+    tf._output_schema = Schema(tf.get_output_schema(df))
+    runner = _TransformerRunner(df, tf, [])
+    return engine.map_engine.map_dataframe(df, runner.run, tf._output_schema, PartitionSpec(),
+                                           on_init=runner.on_init, map_func_format_hint="torch")
+
+
+def build_workflow_headline(device: Any, rows: int, groups: int, seed: int
+                            ) -> Tuple[Callable[[bool], Tuple[Dict[str, float], Any]], Any, Any,
+                                       Callable[[bool], Any]]:
+    """The headline's frame uploaded (``bench.py:573-600``) and ``(run,
+    keys, values, transform_only)``: ``run(dag)`` drives the transform
+    through ``ft.transform`` (the DAG) or ``direct_transform``, then
+    ``ft.aggregate`` of s, m and c by ``k`` and ``as_pandas``, and returns
+    ``({"wall_ms", "host_ms"}, pandas)``; ``host_ms`` is the transform
+    step's (the kernels it enqueues run on after it returns)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch import col, functions as ff
+
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, groups, rows).astype(np.int32)
+    values = rng.random(rows).astype(np.float32)
+    engine = ft.make_execution_engine("torch", device=device)
+    src = engine.persist(engine.to_df(pd.DataFrame({"k": keys, "v": values})))
+
+    def udf(arrs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {"k": arrs["k"], "v2": arrs["v"] * 2.0 + 1.0}
+
+    def transform_only(dag: bool) -> Any:
+        if dag:
+            return ft.transform(src, udf, schema="k:int,v2:float", engine=engine, as_fugue=True)
+        return direct_transform(engine, src, udf, "k:int,v2:float")
+
+    def run(dag: bool) -> Tuple[Dict[str, float], Any]:
+        sync(device)
+        t0 = time.perf_counter()
+        out = transform_only(dag)
+        t1 = time.perf_counter()
+        agg = ft.aggregate(out, partition_by="k", s=ff.sum(col("v2")), m=ff.avg(col("v2")),
+                           c=ff.count(col("v2")), engine=engine, as_fugue=True)
+        pdf = agg.as_pandas()
+        return {"wall_ms": (time.perf_counter() - t0) * 1e3, "host_ms": (t1 - t0) * 1e3}, pdf
+
+    return run, keys, values, transform_only
+
+
+def workflow_headline(device: Any, rows: int, groups: int, seed: int, warm_runs: int
+                      ) -> Dict[str, Any]:
+    """The headline through the DAG beside the direct call, interleaved
+    (one cold run each, then ``warm_runs`` of each, the order alternating):
+    the same keys and counts, sums against float64 numpy within
+    ``MAIN_PATH_RTOL``, the same kernel launches a run and no synchronizing
+    call of the transform step that the direct call does not make."""
+    import gc
+
+    import numpy as np
+
+    run, keys, values, transform_only = build_workflow_headline(device, rows, groups, seed)
+    times: Dict[str, List[Dict[str, float]]] = {"dag": [], "direct": []}
+    launches: Dict[str, List[Dict[str, int]]] = {"dag": [], "direct": []}
+    results: Dict[str, Any] = {}
+    for i in range(1 + warm_runs):
+        for mode in (("dag", "direct") if i % 2 == 0 else ("direct", "dag")):
+            zero_launches()
+            t, pdf = run(mode == "dag")
+            times[mode].append(t)
+            launches[mode].append({k: v for k, v in launch_counts().items() if v})
+            results[mode] = pdf.sort_values("k").reset_index(drop=True)
+    if launches["dag"] != launches["direct"]:
+        raise SystemExit(f"FAIL workflow headline: the DAG launched {launches['dag']}, the "
+                         f"direct call {launches['direct']}")
+    dag, direct = results["dag"], results["direct"]
+    for c in ("k", "c"):
+        if not np.array_equal(dag[c].to_numpy(), direct[c].to_numpy()):
+            raise SystemExit(f"FAIL workflow headline: {c} differs from the direct path's")
+    v2 = values * np.float32(2.0) + np.float32(1.0)
+    s_ref = np.bincount(keys, weights=v2.astype(np.float64), minlength=groups)
+    c_ref = np.bincount(keys, minlength=groups)
+    occupied = np.nonzero(c_ref)[0]
+    if not (np.array_equal(dag["k"].to_numpy(), occupied)
+            and np.array_equal(dag["c"].to_numpy(), c_ref[occupied])):
+        raise SystemExit("FAIL workflow headline: keys or counts differ from numpy")
+    for name, want in (("s", s_ref[occupied]), ("m", s_ref[occupied] / c_ref[occupied])):
+        got = dag[name].to_numpy().astype(np.float64)
+        if not np.allclose(got, want, rtol=MAIN_PATH_RTOL, atol=0):
+            raise SystemExit(f"FAIL workflow headline: {name} off by rtol "
+                             f"{float(np.max(np.abs(got - want) / np.abs(want)))}")
+    # the first sync-debug window of a process prints torch's once-only
+    # notice, whose text also says "synchroniz": an empty window takes it. A garbage
+    # collection inside the measured call would free other work's cyclic
+    # garbage there: collect first, and hold the DAG to leaving no cyclic
+    # garbage of its own
+    _syncs_in(lambda: None)
+    syncs = {}
+    for mode in ("dag", "direct"):
+        gc.collect()
+        syncs[mode] = _syncs_in(lambda: transform_only(mode == "dag"))
+    if syncs["dag"] is not None and sum(syncs["dag"].values()) > sum(syncs["direct"].values()):
+        raise SystemExit(f"FAIL workflow headline: the DAG synchronizes {syncs}")
+    gc.collect()
+    gc.disable()
+    try:
+        transform_only(True)
+        dag_garbage = gc.collect()
+    finally:
+        gc.enable()
+    if dag_garbage:
+        raise SystemExit(f"FAIL workflow headline: the DAG left {dag_garbage} cyclic objects")
+
+    def summary(mode: str) -> Dict[str, Any]:
+        warm = times[mode][1:]
+        return {"cold_wall_ms": times[mode][0]["wall_ms"],
+                "cold_host_ms": times[mode][0]["host_ms"],
+                "best_warm_wall_ms": min(t["wall_ms"] for t in warm),
+                "best_warm_host_ms": min(t["host_ms"] for t in warm),
+                "warm_wall_ms": [t["wall_ms"] for t in warm],
+                "warm_host_ms": [t["host_ms"] for t in warm],
+                "launches_a_warm_run": launches[mode][-1]}
+
+    out = {"case": "headline_dag", "rows": rows, "groups": groups, "tasks_a_run": 2,
+           "dag": summary("dag"), "direct": summary("direct"),
+           "syncs_in_the_transform_step": syncs, "dag_cyclic_garbage": dag_garbage}
+    out["dag_host_ms_over_direct"] = (out["dag"]["best_warm_host_ms"]
+                                      - out["direct"]["best_warm_host_ms"])
+    out["dag_wall_ms_over_direct"] = (out["dag"]["best_warm_wall_ms"]
+                                      - out["direct"]["best_warm_wall_ms"])
+    out.update(local_data_identity(keys, values))
+    return out
+
+
+def local_data_identity(keys: Any, values: Any) -> Dict[str, float]:
+    """What the headline's rows cost a task id as a pandas frame: its own
+    id (``to_uuid``, what every DAG run takes) and the hash of its rows
+    (``content_digest``, what a deterministic checkpoint over it takes),
+    each timed once on the host."""
+    import pandas as pd
+
+    from fugue_tpu_torch.utils.hash import content_digest, to_uuid
+
+    pdf = pd.DataFrame({"k": keys, "v": values})
+    t0 = time.perf_counter()
+    to_uuid(pdf)
+    t1 = time.perf_counter()
+    content_digest(pdf)
+    t2 = time.perf_counter()
+    return {"pandas_task_id_ms": (t1 - t0) * 1e3, "pandas_content_digest_ms": (t2 - t1) * 1e3}
+
+
+def workflow_config4(device: Any, groups: int) -> Dict[str, Any]:
+    """BASELINE config 4 as ``bench.py:979-989`` builds it: ``dag.df`` of
+    both frames (pandas with their schemas at 2,000 groups; at 100M rows
+    frames already on the card, as the zip phase holds them),
+    ``partition_by("k").zip``, the cotransform, ``yield_dataframe_as(
+    as_local=True)``; against numpy (a's 50 rows a key summed, plus b's
+    ``w``), launches held to ``COMAP_PATH_LAUNCHES``."""
+    import numpy as np
+    import pandas as pd
+
+    import fugue_tpu_torch as ft
+
+    a, b = config4_frames(groups)
+    engine = ft.make_execution_engine(device=device)
+    small = groups == CONFIG4_GROUPS
+    inputs = (a, b) if small else (engine.persist(a), engine.persist(b))
+    cm = comap_udfs()["config4"]
+
+    def run_once() -> Any:
+        dag = ft.FugueWorkflow()
+        za = dag.df(inputs[0], "k:long,v:double") if small else dag.df(inputs[0])
+        zb = dag.df(inputs[1], "k:long,w:double") if small else dag.df(inputs[1])
+        za.partition_by("k").zip(zb).transform(cm, schema="k:long,s:double").yield_dataframe_as(
+            "out", as_local=True)
+        dag.run(engine)
+        return dag.yields["out"].result.as_pandas()
+
+    zero_launches()
+    sync(device)
+    t = time.perf_counter()
+    got = run_once()
+    secs = time.perf_counter() - t
+    label = "config4_inner" if small else "config4_inner_100m"
+    cold = {k: v for k, v in launch_counts().items() if v}
+    if device.type == "cuda" and cold != COMAP_PATH_LAUNCHES[label]:
+        raise SystemExit(f"FAIL workflow {label}: launched {cold}")
+    sums = a.v.to_numpy().reshape(groups, CONFIG4_PER).sum(axis=1) + b.w.to_numpy()
+    check_zip(label, got, pd.DataFrame({"k": np.arange(groups, dtype=np.int64), "s": sums}))
+    return {"case": f"workflow_{label}", "rows": len(a) + len(b), "secs": secs,
+            "launches": cold, "fallbacks": engine.fallbacks}
+
+
+class ColdKernels:
+    """A block in which no kernel is built or loaded yet: the loaded
+    libraries and K6's kernels are forgotten and its cubins moved aside,
+    so that the block builds and loads each kernel it needs at first use
+    (``built``, ``loaded``). After it, what was there before is back."""
+
+    def __enter__(self) -> "ColdKernels":
+        import os
+
+        from fugue_tpu_torch.kernels import build, expr_program as ep
+
+        self.saved = (dict(build._LOADED), dict(ep._KERNELS), dict(ep._FUNCTIONS))
+        for cache in (build._LOADED, ep._KERNELS, ep._FUNCTIONS):
+            cache.clear()
+        self.kept = ep.kernel_dir().with_name("k6.kept")
+        if ep.kernel_dir().exists():
+            os.replace(ep.kernel_dir(), self.kept)
+        self.builds = ep.expr_program_cuda.builds
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        import os
+
+        from fugue_tpu_torch.kernels import build, expr_program as ep
+
+        self.built = ep.expr_program_cuda.builds - self.builds
+        self.loaded = sorted(build._LOADED)
+        if self.kept.exists():
+            ep.kernel_dir().mkdir(parents=True, exist_ok=True)
+            for f in self.kept.iterdir():
+                os.replace(f, ep.kernel_dir() / f.name)
+            self.kept.rmdir()
+        for cache, old in zip((build._LOADED, ep._KERNELS, ep._FUNCTIONS), self.saved):
+            cache.update({k: v for k, v in old.items() if k not in cache})
+
+
+def workflow_rest(device: Any, rows: int, tmp: str) -> List[Dict[str, Any]]:
+    """A DAG over config 5's parquet (``config5_frame``, ``rows`` rows):
+    ``load``, a filter and an assign, an inner join to ``WORKFLOW_DIMS``
+    keys, a subtract of the keys, and a top-5 take and a SELECT (the DAG's
+    ``select``, what ``raw_sql`` runs) each after one filter, against numpy.
+    First with ``fugue.workflow.concurrency=2`` (its three branches after
+    the join on runner threads at once), from cold kernels
+    (``ColdKernels``): the two branches' filters share one K6 kernel,
+    which both threads first need at once. Then serially, which must
+    agree. Then a deterministic checkpoint of the join: its second run
+    launches no kernel."""
+    import os
+
+    import numpy as np
+    import pandas as pd
+
+    import fugue_tpu_torch as ft
+    from fugue_tpu_torch import col, functions as ff
+
+    pdf = config5_frame(rows)
+    path = os.path.join(tmp, "config5.parquet")
+    pdf.to_parquet(path)
+    dims = pd.DataFrame({"k": np.arange(WORKFLOW_DIMS, dtype=np.int32),
+                         "w": np.arange(WORKFLOW_DIMS) * 0.5})
+
+    def rest(engine: Any) -> Tuple[float, Dict[str, Any]]:
+        dag = ft.FugueWorkflow()
+        x = dag.load(path, fmt="parquet")
+        j = x.filter(col("v") > 0.25).assign(v2=col("v") * 2.0).join(dag.df(dims), how="inner",
+                                                                      on=["k"])
+        x[["k"]].subtract(dag.df(dims)[["k"]]).yield_dataframe_as("keys", as_local=True)
+        j.filter(col("w") >= 0.0).take(5, presort="v2 desc").yield_dataframe_as(
+            "top", as_local=True)
+        dag.select("SELECT k, SUM(v2) AS s, COUNT(*) AS c, MAX(w) AS w FROM",
+                   j.filter(col("w") >= 0.5), "GROUP BY k").yield_dataframe_as(
+                       "sql", as_local=True)
+        sync(device)
+        t = time.perf_counter()
+        dag.run(engine)
+        secs = time.perf_counter() - t
+        return secs, {n: y.result.as_pandas() for n, y in dag.yields.items()}
+
+    k, v = pdf.k.to_numpy(), pdf.v.to_numpy()
+    keep = (v > np.float32(0.25)) & (k < WORKFLOW_DIMS)
+    v2 = v[keep].astype(np.float64) * 2.0  # a float literal makes v2 double
+    c_ref = np.bincount(k[keep], minlength=WORKFLOW_DIMS)
+    s_ref = np.bincount(k[keep], weights=v2, minlength=WORKFLOW_DIMS)
+    c_ref[0] = s_ref[0] = 0  # the SELECT's filter: w = k * 0.5 >= 0.5
+    out = []
+    answers = {}
+    for conc in (2, 1):
+        engine = ft.make_execution_engine(device=device,
+                                          conf={"fugue.workflow.concurrency": conc})
+        if conc == 2:
+            with ColdKernels() as cold:
+                secs, got = rest(engine)
+            if device.type == "cuda" and not (cold.built and cold.loaded):
+                raise SystemExit("FAIL workflow rest: the concurrent run built or loaded no "
+                                 f"kernel ({cold.built} K6 builds, {cold.loaded} loaded)")
+            first = {"k6_builds": cold.built, "libraries_loaded": cold.loaded}
+        else:
+            secs, got = rest(engine)
+            first = {}
+        sql = got["sql"].sort_values("k").reset_index(drop=True)
+        occupied = np.nonzero(c_ref)[0]
+        if not (np.array_equal(sql.k.to_numpy(), occupied)
+                and np.array_equal(sql.c.to_numpy(), c_ref[occupied])
+                and np.allclose(sql.s.to_numpy(), s_ref[occupied], rtol=MAIN_PATH_RTOL, atol=0)
+                and np.array_equal(sql.w.to_numpy(), occupied * 0.5)):
+            raise SystemExit(f"FAIL workflow rest (concurrency {conc}): the SELECT differs")
+        if sorted(got["keys"].k) != sorted(set(k.tolist()) - set(range(WORKFLOW_DIMS))):
+            raise SystemExit(f"FAIL workflow rest (concurrency {conc}): the subtract differs")
+        if not np.array_equal(np.sort(got["top"].v2.to_numpy()), np.sort(v2)[-5:]):
+            raise SystemExit(f"FAIL workflow rest (concurrency {conc}): the take differs")
+        answers[conc] = sql
+        out.append({"case": f"workflow_rest_concurrency{conc}", "rows": rows, "secs": secs,
+                    "fallbacks": engine.fallbacks, **first})
+    one, two = answers[1], answers[2]
+    if not (np.array_equal(one.c.to_numpy(), two.c.to_numpy())
+            and np.allclose(one.s.to_numpy(), two.s.to_numpy(), rtol=MAIN_PATH_RTOL, atol=0)):
+        raise SystemExit("FAIL workflow rest: the concurrency-2 run differs from the serial one")
+
+    engine = ft.make_execution_engine(device=device, conf={
+        "fugue.workflow.checkpoint.path": os.path.join(tmp, "checkpoints")})
+    runs = []
+    for _ in range(2):
+        dag = ft.FugueWorkflow()
+        dag.load(path, fmt="parquet").join(dag.df(dims), how="inner", on=["k"]
+                                           ).deterministic_checkpoint().yield_dataframe_as("j")
+        zero_launches()
+        sync(device)
+        t = time.perf_counter()
+        dag.run(engine)
+        secs = time.perf_counter() - t
+        launched = {n: c for n, c in launch_counts().items() if c}
+        res = ft.aggregate(dag.yields["j"].result, None, engine=engine, c=ff.count(col("w")),
+                           s=ff.sum(col("w"))).as_pandas()
+        runs.append({"secs": secs, "launches": launched, "count": int(res.c[0]),
+                     "sum_w": float(res.s[0])})
+    if device.type == "cuda" and not runs[0]["launches"]:
+        raise SystemExit("FAIL workflow checkpoint: the first run launched no kernel")
+    if runs[1]["launches"]:
+        raise SystemExit(f"FAIL workflow checkpoint: the second run launched {runs[1]}")
+    want_count = int(np.count_nonzero(k < WORKFLOW_DIMS))
+    want_w = float((k[k < WORKFLOW_DIMS] * 0.5).sum())
+    for r in runs:
+        if r["count"] != want_count or not np.isclose(r["sum_w"], want_w, rtol=1e-12):
+            raise SystemExit(f"FAIL workflow checkpoint: {r} against {want_count}, {want_w}")
+    out.append({"case": "workflow_deterministic_checkpoint", "rows": rows, "runs": runs})
+    return out
+
+
+def workflow_paths(device: Any, rows: int, warm_runs: int) -> List[Dict[str, Any]]:
+    """The workflow phase: ``workflow_headline``, ``workflow_config4`` at
+    2,000 groups and at 100M rows, ``workflow_rest``."""
+    import os
+    import tempfile
+
+    import torch
+
+    out = [workflow_headline(device, rows, GROUPS, SEED, warm_runs)]
+    for groups in (CONFIG4_GROUPS, CONFIG4_BIG_GROUPS):
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out.append(workflow_config4(device, groups))
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        out += workflow_rest(device, WORKFLOW_LOAD_ROWS if rows == ROWS else rows, tmp)
+    return out
+
+
 def main() -> None:
     """Runs every phase on the card."""
     import torch
@@ -8793,6 +9183,12 @@ def main() -> None:
         st["card"] = card
         print("io_path: " + json.dumps(st))
     lap("io paths")
+    torch.cuda.empty_cache()
+
+    for st in workflow_paths(device, ROWS, WORKFLOW_WARM_RUNS):
+        st["card"] = card
+        print("workflow_path: " + json.dumps(st))
+    lap("workflow")
     torch.cuda.empty_cache()
 
     types = types_paths(device, ROWS, SEED)

@@ -33,7 +33,10 @@ a hand-written stream-fold kernel (``fugue_tpu_torch/kernels/stream.cu``);
 and ``load`` and ``save`` of parquet, csv and json files, a parquet load
 streamed into pinned slabs on a copy stream (``fugue.torch.io.batch_rows``)
 and every export compacted on the card (the gather kernel) and read back
-in one wave of copies into pinned memory.
+in one wave of copies into pinned memory; and the workflow DAG
+(``FugueWorkflow``, ``fugue_tpu_torch/workflow/``), through which
+``transform``, ``out_transform`` and ``raw_sql`` run, with the port's own
+function wrapper, extensions, tasks, checkpoints and runner.
 """
 
 from fugue_tpu_torch.api import (
@@ -52,6 +55,7 @@ from fugue_tpu_torch.api import (
     intersect,
     join,
     load,
+    out_transform,
     peek_array,
     peek_dict,
     raw_sql,
@@ -75,16 +79,19 @@ from fugue_tpu_torch.execution import make_execution_engine
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
 from fugue_tpu_torch.torch_backend.execution_engine import TorchExecutionEngine
+from fugue_tpu_torch.workflow import FugueWorkflow, WorkflowDataFrame, module
 
 __all__ = [
     "ArrayDataFrame",
     "ArrowDataFrame",
     "DataFrame",
+    "FugueWorkflow",
     "LocalDataFrameIterableDataFrame",
     "Schema",
     "SelectColumns",
     "TorchDataFrame",
     "TorchExecutionEngine",
+    "WorkflowDataFrame",
     "aggregate",
     "alter_columns",
     "as_array",
@@ -105,7 +112,9 @@ __all__ = [
     "lit",
     "load",
     "make_execution_engine",
+    "module",
     "null",
+    "out_transform",
     "peek_array",
     "peek_dict",
     "raw_sql",

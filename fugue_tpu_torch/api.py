@@ -1,113 +1,56 @@
-"""The port's entry points: ``transform``, ``aggregate``, ``select``,
-``filter``, ``assign``, ``join``, ``union``, ``subtract``, ``intersect``,
-``distinct``, ``dropna``, ``fillna``, ``sample``, ``take``,
-``repartition``, ``raw_sql``, ``zip`` (``transform`` of a zip is a
-co-transform), ``load`` and ``save``, run straight on the engine with no
-workflow DAG (the DAG is not ported yet); and the frame's own column
-operations and conversions (``rename``, ``drop_columns``,
-``select_columns``, ``alter_columns``, ``head``, ``peek_array``,
-``peek_dict``, ``as_array``, ``as_array_iterable``, ``as_dict_iterable``,
-``fugue_tpu/dataframe/api.py:70-128``), which take a frame of the port,
-pandas or arrow. ``aggregate`` of a ``LocalDataFrameIterableDataFrame``
-streams it chunk by chunk.
+"""The port's entry points: ``transform``, ``out_transform`` and
+``raw_sql`` run a one-step workflow DAG (``fugue_tpu_torch/workflow/api.py``,
+``fugue_tpu/workflow/api.py:15-77``) through the port's own tasks,
+extensions and runner; ``aggregate``, ``select``, ``filter``, ``assign``,
+``join``, ``union``, ``subtract``, ``intersect``, ``distinct``,
+``dropna``, ``fillna``, ``sample``, ``take``, ``repartition``, ``zip``
+(``transform`` of a zip is a co-transform), ``load`` and ``save`` run
+straight on the engine, as ``fugue_tpu/execution/api.py`` does; and the
+frame's own column operations and conversions (``rename``,
+``drop_columns``, ``select_columns``, ``alter_columns``, ``head``,
+``peek_array``, ``peek_dict``, ``as_array``, ``as_array_iterable``,
+``as_dict_iterable``, ``fugue_tpu/dataframe/api.py:70-128``), which take a
+frame of the port, pandas or arrow. ``aggregate`` of a
+``LocalDataFrameIterableDataFrame`` streams it chunk by chunk.
 
-``transform`` mirrors ``fugue_tpu/workflow/api.py:15`` for a transformer
-annotated ``Dict[str, torch.Tensor] -> Dict[str, torch.Tensor]``, the
-counterpart of the JAX package's ``Dict[str, jax.Array]`` parameter
-(code ``"j"``, ``fugue_tpu/jax_backend/registry.py:25-32``). ``select``,
-``filter``, ``assign`` and ``aggregate`` mirror
+``transform`` runs a transformer annotated ``Dict[str, torch.Tensor] ->
+Dict[str, torch.Tensor]``, the counterpart of the JAX package's
+``Dict[str, jax.Array]`` parameter (code ``"j"``,
+``fugue_tpu/jax_backend/registry.py:25-32``), over whole columns on the
+card. ``select``, ``filter``, ``assign`` and ``aggregate`` mirror
 ``fugue_tpu/execution/api.py:306-351``, ``join``
 ``fugue_tpu/execution/api.py:129-150``, the set operations, ``distinct``,
 ``dropna``, ``fillna``, ``sample``, ``take`` and ``repartition``
-``fugue_tpu/execution/api.py:96-276``, ``raw_sql``
-``fugue_tpu/workflow/api.py:77``, ``load`` and ``save``
+``fugue_tpu/execution/api.py:96-276``, ``load`` and ``save``
 ``fugue_tpu/execution/api.py:278-300``. All take pandas, arrow or a
 ``TorchDataFrame``; they return pandas, or the ``TorchDataFrame`` when
 ``as_fugue=True`` or the input was one.
 """
 
-import typing
-from typing import Any, Callable, Dict, Iterable, List, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Union
 
 import pandas as pd
 import pyarrow as pa
-import torch
 
 from fugue_tpu_torch.collections.partition import PartitionSpec
-from fugue_tpu_torch.collections.sql import StructuredRawSQL, interleave_sql
 from fugue_tpu_torch.column.expressions import ColumnExpr, col, lit
 from fugue_tpu_torch.column.sql import SelectColumns
 from fugue_tpu_torch.dataframe import ArrowDataFrame, DataFrame
 from fugue_tpu_torch.dataframe.utils import pandas_to_table
 from fugue_tpu_torch.execution.factory import make_execution_engine
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
-from fugue_tpu_torch.torch_backend.execution_engine import TorchExecutionEngine
 from fugue_tpu_torch.torch_backend.zipped import TorchZippedDataFrame
-
-def _engine(engine: Any, df: Any, conf: Any = None) -> TorchExecutionEngine:
-    if engine is None and isinstance(df, TorchDataFrame):
-        return make_execution_engine(conf=conf, device=df.device)
-    return make_execution_engine(engine, conf)
+from fugue_tpu_torch.workflow.api import out_transform, raw_sql, transform  # noqa: F401
 
 
-def _is_tensor_dict(hint: Any) -> bool:
-    """``Dict[str, torch.Tensor]`` or ``dict[str, torch.Tensor]``."""
-    return typing.get_origin(hint) is dict and typing.get_args(hint) == (str, torch.Tensor)
-
-
-def _check_torch_transformer(func: Callable, engine: TorchExecutionEngine, n: int = 1,
-                             op: str = "map") -> None:
-    """Refuses (counted under ``op``) a function that is not annotated
-    with ``n`` ``Dict[str, torch.Tensor]`` parameters (one a zipped member
-    for a cotransformer) and a ``Dict[str, torch.Tensor]`` return."""
-    try:
-        hints = typing.get_type_hints(func)
-    except (NameError, TypeError):
-        hints = {}
-    params = [h for k, h in hints.items() if k != "return"]
-    if not (len(params) == n and all(_is_tensor_dict(p) for p in params)
-            and _is_tensor_dict(hints.get("return"))):
-        what = "transformer" if op == "map" else "cotransformer"
-        engine._unported(
-            op,
-            f"{what} {getattr(func, '__name__', func)!r} (the port runs only functions "
-            f"annotated with {n} Dict[str, torch.Tensor] parameter(s) -> "
-            f"Dict[str, torch.Tensor]; other {what}s need the host engine)",
-            "ROADMAP.md queue 1 item 2(b)" if op == "comap" else "ROADMAP.md queue 1 item 2",
-        )
+def _engine(engine: Any, df: Any, conf: Any = None) -> Any:
+    return make_execution_engine(engine, conf, infer_by=[df])
 
 
 def _result(res: TorchDataFrame, df: Any, as_fugue: bool) -> Any:
     if as_fugue or isinstance(df, TorchDataFrame):
         return res
     return res.as_pandas()
-
-
-def transform(
-    df: Any,
-    using: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]],
-    schema: Any,
-    engine: Any = None,
-    as_fugue: bool = False,
-    partition: Any = None,
-) -> Any:
-    """Run ``using`` over whole columns of ``df`` on the engine's device;
-    ``schema`` names and types the output columns. ``partition``
-    (``{"by": [...]}``, a key or a list of keys) hands ``using`` the
-    segment id of each row's group as ``_segment_ids`` and the size of the
-    id space as ``_num_segments`` (``TorchMapEngine._compiled_map`` says
-    how a torch transformer uses them). Where ``df`` is a zip (``zip``),
-    ``using`` is a cotransformer, one dict a member
-    (``TorchExecutionEngine.comap``), as ``dag.df(a).partition_by("k").
-    zip(b).transform(cm, schema=...)`` runs it in the JAX package."""
-    spec = None if partition is None else PartitionSpec(partition)
-    if isinstance(df, TorchZippedDataFrame):
-        e = _engine(engine, df.frames[0])
-        _check_torch_transformer(using, e, len(df.frames), "comap")
-        return _result(e.comap(df, using, schema, spec), df, as_fugue)
-    e = _engine(engine, df)
-    _check_torch_transformer(using, e)
-    return _result(e.map_engine.map_dataframe(df, using, schema, spec), df, as_fugue)
 
 
 def zip(*dfs: Any, how: str = "inner", partition: Any = None,  # noqa: A001
@@ -280,23 +223,6 @@ def repartition(df: Any, partition: Any, engine: Any = None, as_fugue: bool = Fa
     equal keys together, ``"rand"`` shuffles the rows."""
     e = _engine(engine, df)
     return _result(e.repartition(df, PartitionSpec(partition)), df, as_fugue)
-
-
-def raw_sql(*statements: Any, engine: Any = None, as_fugue: bool = False) -> Any:
-    """A SQL SELECT mixing string fragments and frames, run on the
-    engine's SQL facet (``fugue_tpu/workflow/api.py:77``, without the
-    workflow DAG): ``raw_sql("SELECT k, SUM(v) AS s FROM", df, "GROUP BY
-    k ORDER BY s DESC LIMIT 10")``. Joins, set operations, DISTINCT,
-    subqueries, CTEs, window functions, NOT IN and ORDER BY/LIMIT/OFFSET
-    run on the card; a shape the algebra bridge does not lower raises
-    ``NotImplementedError`` naming ROADMAP.md queue 1 item 2(b)."""
-    parts, dfs = interleave_sql(statements)
-    frames = list(dfs.values())
-    e = _engine(engine, next((f for f in frames if isinstance(f, TorchDataFrame)), None))
-    res = e.sql_engine.select(dfs, StructuredRawSQL(parts))
-    if as_fugue or any(isinstance(f, TorchDataFrame) for f in frames):
-        return res
-    return res.as_pandas()
 
 
 def load(path: Union[str, List[str]], format_hint: Any = None, columns: Any = None,

@@ -4,8 +4,9 @@ presort of a map, an aggregate, a take or a repartition.
 A trimmed copy of ``fugue_tpu/collections/partition.py``: the ``by``
 keys, ``algo`` (``default``, ``hash``, ``rand``, ``even``, ``coarse``),
 the ``num`` expression with its ``ROWCOUNT``/``CONCURRENCY`` keywords
-(``get_num_partitions``, ``:149-180``) and the ``presort``
-(``parse_presort_exp``, ``:25``).
+(``get_num_partitions``, ``:149-180``), the ``presort``
+(``parse_presort_exp``, ``:25``), ``per_row``, and the spec's identity
+(``jsondict``, ``__uuid__``, ``:214-230``), which task ids hash.
 """
 
 import json
@@ -13,6 +14,7 @@ import re
 from typing import Any, Callable, Dict, Iterable, List
 
 from fugue_tpu_torch.utils.assertion import assert_or_throw
+from fugue_tpu_torch.utils.hash import to_uuid
 
 KEYWORD_ROWCOUNT = "ROWCOUNT"
 KEYWORD_CONCURRENCY = "CONCURRENCY"
@@ -90,7 +92,9 @@ class PartitionSpec:
             s = obj.strip()
             if s == "":
                 return
-            if s.lower() in _ALGOS:
+            if s == "per_row":
+                self._update(dict(algo="even", num=KEYWORD_ROWCOUNT))
+            elif s.lower() in _ALGOS:
                 self._algo = "" if s.lower() == "default" else s.lower()
             elif s.startswith("{"):
                 self._update(json.loads(s))
@@ -163,6 +167,27 @@ class PartitionSpec:
             return int(eval(expr, env))  # noqa: S307 - validated charset
         except Exception as e:
             raise ValueError(f"can't evaluate num expression {expr!r}") from e
+
+    @property
+    def presort_expr(self) -> str:
+        return ",".join(f"{k} {'ASC' if v else 'DESC'}" for k, v in self._presort.items())
+
+    def get_key_schema(self, schema: Any) -> Any:
+        return schema.extract(self._partition_by)
+
+    @property
+    def jsondict(self) -> Dict[str, Any]:
+        return dict(algo=self._algo, num_partitions=self._num_partitions,
+                    partition_by=list(self._partition_by), presort=self.presort_expr)
+
+    def __uuid__(self) -> str:
+        return to_uuid(self.jsondict)
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, PartitionSpec) and self.jsondict == other.jsondict
+
+    def __hash__(self) -> int:
+        return hash(self.__uuid__())
 
     def __repr__(self) -> str:
         return (f"PartitionSpec(algo={self._algo!r}, num={self._num_partitions!r}, "

@@ -10,11 +10,15 @@ from uuid import uuid4
 
 
 def _is_dataframe_like(obj: Any) -> bool:
-    """A ``TorchDataFrame``, pandas or pyarrow input."""
-    from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
+    """A frame of the port, a yielded frame, a workflow's frame, pandas or
+    pyarrow (``:12``)."""
+    from fugue_tpu_torch.collections.yielded import Yielded
+    from fugue_tpu_torch.dataframe.dataframe import DataFrame
 
-    if isinstance(obj, TorchDataFrame):
+    if isinstance(obj, (DataFrame, Yielded)):
         return True
+    if hasattr(obj, "workflow") and hasattr(obj, "task"):
+        return True  # a WorkflowDataFrame (not imported: the workflow imports this module)
     mod = type(obj).__module__ or ""
     return mod.startswith("pandas") or mod.startswith("pyarrow")
 

@@ -7,14 +7,20 @@ A subclass implements ``count``, ``as_arrow``, ``peek_array``,
 ``alter_columns`` and ``head``; the rest is derived here: ``peek_dict``
 (``:106``), ``as_local`` (``:110``), ``as_array``/``as_array_iterable``
 and ``as_dict_iterable`` through the local frame, ``drop`` (``:133``),
-``__getitem__`` (``:144``) and ``show`` (``:228``)."""
+``__getitem__`` (``:144``) and ``show`` (``:228``). A frame's workflow
+identity (``__uuid__``) is its own, not its class and schema as in the
+reference (``:155-159``), where two frames of one schema share a task id
+(ROADMAP.md queue 3). ``YieldedDataFrame`` (``:206``) is the handle of a
+frame a workflow yields."""
 
 from abc import ABC, abstractmethod
 from typing import Any, Dict, Iterable, List, Optional
+from uuid import uuid4
 
 import pandas as pd
 import pyarrow as pa
 
+from fugue_tpu_torch.collections.yielded import Yielded
 from fugue_tpu_torch.schema import Schema, type_to_expr
 from fugue_tpu_torch.utils.assertion import assert_or_throw
 
@@ -156,6 +162,14 @@ class DataFrame(ABC):
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.schema})"
 
+    def __uuid__(self) -> str:
+        """This frame object's identity in a workflow's task ids: drawn
+        once, so that the same frame gives the same ids and two frames
+        never share one."""
+        if getattr(self, "_uuid", None) is None:
+            self._uuid = str(uuid4())
+        return self._uuid
+
 
 class LocalDataFrame(DataFrame):
     """A frame held wholly in host memory."""
@@ -186,3 +200,23 @@ def build_show_text(rows: List[List[Any]], schema: Schema, title: Optional[str],
     if count is not None:
         lines.append(f"Total count: {count}")
     return "\n".join(lines)
+
+
+class YieldedDataFrame(Yielded):
+    """The handle of a frame a workflow run yields (``:206``)."""
+
+    def __init__(self, yid: str):
+        super().__init__(yid)
+        self._df: Any = None
+
+    @property
+    def is_set(self) -> bool:
+        return self._df is not None
+
+    def set_value(self, df: DataFrame) -> None:
+        self._df = df
+
+    @property
+    def result(self) -> DataFrame:
+        assert_or_throw(self.is_set, ValueError("value is not set"))
+        return self._df

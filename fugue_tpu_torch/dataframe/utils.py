@@ -2,8 +2,11 @@
 ``fugue_tpu/dataframe/utils.py:175-215``, ``get_join_schemas``), and a
 local frame's arrow table as ``to_df`` types it (``pandas_to_table``,
 ``arrow_to_table``: the rules of ``fugue_tpu/dataframe/arrow_utils.py:108-141``
-and of ``PandasDataFrame`` / ``ArrowDataFrame`` with a schema)."""
+and of ``PandasDataFrame`` / ``ArrowDataFrame`` with a schema), and the
+frame comparison a workflow's ``assert_eq`` runs (``df_eq``, ``:22-118``)."""
 
+import math
+from datetime import date, datetime
 from typing import Any, Iterable, Optional, Tuple
 
 import pandas as pd
@@ -105,3 +108,89 @@ def arrow_to_table(table: pa.Table, schema: Any = None) -> pa.Table:
                     ValueError(f"schema {schema} doesn't match table columns"))
     table = table.select(schema.names)
     return table if table.schema == schema.pa_schema else table.cast(schema.pa_schema)
+
+
+def _comparable_key(v: Any) -> Any:
+    """A total order over nullable values of mixed types, to sort rows
+    (``fugue_tpu/dataframe/utils.py:22``)."""
+    if v is None:
+        return (0, "")
+    if isinstance(v, bool):
+        return (2, str(int(v)))
+    if isinstance(v, (int, float)):
+        if isinstance(v, float) and math.isnan(v):
+            return (1, "")
+        return (3, float(v))
+    if isinstance(v, (datetime, date)):
+        return (4, str(v))
+    if isinstance(v, bytes):
+        return (5, v.hex())
+    if isinstance(v, (list, tuple)):
+        return (6, str([_comparable_key(x) for x in v]))
+    if isinstance(v, dict):
+        return (7, str(sorted((k, _comparable_key(x)) for k, x in v.items())))
+    return (8, str(v))
+
+
+def _value_eq(a: Any, b: Any, digits: int) -> bool:
+    """``:47``: None and NaN equal; floats within ``10**-digits``,
+    relatively past 1."""
+    if a is None or b is None:
+        return ((a is None or (isinstance(a, float) and math.isnan(a)))
+                and (b is None or (isinstance(b, float) and math.isnan(b))))
+    if isinstance(a, float) or isinstance(b, float):
+        try:
+            af, bf = float(a), float(b)
+        except (TypeError, ValueError):
+            return str(a) == str(b)
+        if math.isnan(af) and math.isnan(bf):
+            return True
+        if math.isinf(af) or math.isinf(bf):
+            return af == bf
+        return abs(af - bf) < 10 ** (-digits) * max(1.0, abs(af), abs(bf))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return set(a) == set(b) and all(_value_eq(a[k], b[k], digits) for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_value_eq(x, y, digits) for x, y in zip(a, b))
+    return a == b
+
+
+def df_eq(df: Any, data: Any, schema: Any = None, digits: int = 8, check_order: bool = False,
+          check_schema: bool = True, check_content: bool = True, throw: bool = False) -> bool:
+    """Whether two frames (of the port, pandas or arrow; ``data`` may be
+    rows with ``schema``) hold the same rows, in any order unless
+    ``check_order`` (``fugue_tpu/dataframe/utils.py:72``)."""
+    from fugue_tpu_torch.dataframe.array_dataframe import ArrayDataFrame
+    from fugue_tpu_torch.dataframe.arrow_dataframe import ArrowDataFrame
+
+    def local(x: Any, sch: Any = None) -> DataFrame:
+        if isinstance(x, DataFrame):
+            return x.as_local_bounded()
+        if isinstance(x, pd.DataFrame):
+            return ArrowDataFrame(pandas_to_table(x, sch))
+        if isinstance(x, pa.Table):
+            return ArrowDataFrame(x, sch)
+        return ArrayDataFrame(x, sch)
+
+    try:
+        df1, df2 = local(df), local(data, schema)
+        if check_schema:
+            assert_or_throw(df1.schema == df2.schema,
+                            AssertionError(f"schema mismatch {df1.schema} vs {df2.schema}"))
+        if check_content:
+            rows1 = df1.as_array(type_safe=True)
+            rows2 = df2.as_array(df1.schema.names if not check_schema else None, type_safe=True)
+            assert_or_throw(len(rows1) == len(rows2),
+                            AssertionError(f"count mismatch {len(rows1)} vs {len(rows2)}"))
+            if not check_order:
+                rows1, rows2 = (sorted(r, key=lambda x: [str(_comparable_key(v)) for v in x])
+                                for r in (rows1, rows2))
+            for r1, r2 in zip(rows1, rows2):
+                assert_or_throw(
+                    len(r1) == len(r2) and all(_value_eq(a, b, digits) for a, b in zip(r1, r2)),
+                    AssertionError(f"row mismatch {r1} vs {r2}"))
+        return True
+    except AssertionError:
+        if throw:
+            raise
+        return False

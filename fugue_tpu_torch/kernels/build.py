@@ -17,8 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
@@ -30,6 +31,9 @@ NVCC_FLAGS = [
 BUILD_TIMEOUT = 900  # seconds one nvcc may take before the build fails
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# held while a kernel is built or loaded: a workflow's runner threads
+# (``fugue.workflow.concurrency``) may first need one kernel at once
+LOCK = threading.RLock()
 
 
 def sources() -> List[str]:
@@ -111,18 +115,25 @@ def build_all(stems: Optional[List[str]] = None) -> Dict[str, str]:
     source's compiler report (``-Xptxas=-v``: registers, shared memory and
     spills per kernel); raises ``RuntimeError`` with the compiler's output
     if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = [(stem, [*NVCC_FLAGS, str(KERNEL_DIR / f"{stem}.cu")], library_path(stem))
-            for stem in (stems if stems is not None else sources())
-            if not library_path(stem).exists()]
-    return compile_jobs(jobs)
+    with LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = [(stem, [*NVCC_FLAGS, str(KERNEL_DIR / f"{stem}.cu")], library_path(stem))
+                for stem in (stems if stems is not None else sources())
+                if not library_path(stem).exists()]
+        return compile_jobs(jobs)
 
 
-def load(stem: str) -> ctypes.CDLL:
-    """The built library of ``<stem>.cu``, building it first if needed."""
+def load(stem: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The built library of ``<stem>.cu``, building it first if needed;
+    ``declare`` sets its entry points' argument types once, before any
+    caller sees it. Thread-safe: one build and one load a process."""
     lib = _LOADED.get(stem)
     if lib is None:
-        build_all([stem])
-        lib = ctypes.CDLL(str(library_path(stem)))
-        _LOADED[stem] = lib
+        with LOCK:
+            lib = _LOADED.get(stem)
+            if lib is None:
+                build_all([stem])
+                lib = ctypes.CDLL(str(library_path(stem)))
+                declare(lib)
+                _LOADED[stem] = lib
     return lib

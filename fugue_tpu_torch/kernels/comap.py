@@ -24,22 +24,24 @@ from fugue_tpu_torch.kernels.reference import COMAP_HOWS, ComapRows, presence_wo
 
 
 def _bind() -> ctypes.CDLL:
-    lib = build.load("comap")
-    if lib.fugue_comap_presence.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        ip = ctypes.POINTER(i)
-        rows = [ll, p, p, p, p, i, ll]  # n, seg, valid, offsets, nrows, members, num
-        lib.fugue_comap_presence.argtypes = rows + [p, i, p, ip]
-        lib.fugue_comap_rows.argtypes = rows + [
-            p, i,  # presence, rule
-            p, p, p, p, p,  # row_alive, seg_out, alive, counts, alive_count
-            i, p, ip,  # device, stream, launched
-        ]
-        for fn in (lib.fugue_comap_presence, lib.fugue_comap_rows):
-            fn.restype = i
-        lib.fugue_comap_error_string.argtypes = [i]
-        lib.fugue_comap_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("comap", _declare)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """The library's argument types, set once as it loads."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ip = ctypes.POINTER(i)
+    rows = [ll, p, p, p, p, i, ll]  # n, seg, valid, offsets, nrows, members, num
+    lib.fugue_comap_presence.argtypes = rows + [p, i, p, ip]
+    lib.fugue_comap_rows.argtypes = rows + [
+        p, i,  # presence, rule
+        p, p, p, p, p,  # row_alive, seg_out, alive, counts, alive_count
+        i, p, ip,  # device, stream, launched
+    ]
+    for fn in (lib.fugue_comap_presence, lib.fugue_comap_rows):
+        fn.restype = i
+    lib.fugue_comap_error_string.argtypes = [i]
+    lib.fugue_comap_error_string.restype = ctypes.c_char_p
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -35,8 +35,9 @@ def driver() -> ctypes.CDLL:
         for name, args in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, i
+        err = lib.cuInit(0)  # before another thread can see the driver
         _DRIVER.append(lib)
-        check(lib.cuInit(0), "cuInit")
+        check(err, "cuInit")
     return _DRIVER[0]
 
 

@@ -965,34 +965,36 @@ def build_kernels(specs: Sequence[Tuple[Program, Sequence[bool], str]]) -> List[
     structure only; a cubin's name covers its source, ``expr_ops.cuh``
     and the flags. Counts the builds and their wall seconds on
     ``expr_program_cuda``; raises ``RuntimeError`` with ``nvcc``'s output
-    where a build fails."""
+    where a build fails. Holds ``build.LOCK``: runner threads that first
+    need one kernel at once build it once."""
     from fugue_tpu_torch.kernels import expr_codegen
 
-    kernels = []
-    for program, masked, mode in specs:
-        key = expr_codegen.structure(program, masked, mode)
-        kernel = _KERNELS.get(key)
-        if kernel is None:
-            kernel = _KERNELS[key] = expr_codegen.generate(key)
-        kernels.append(kernel)
-    todo = {k.name: k for k in kernels if not (kernel_dir() / f"{k.name}.cubin").exists()}
-    if todo:
-        start = time.perf_counter()
-        jobs = []
-        for name, kernel in todo.items():
-            src = kernel_dir() / f"{name}.cu"
-            src.parent.mkdir(parents=True, exist_ok=True)
-            tmp = src.with_name(f"{src.name}.tmp{os.getpid()}")
-            tmp.write_text(kernel.source)
-            os.replace(tmp, src)
-            jobs.append((name, [*expr_codegen.CUBIN_FLAGS, f"-I{build.KERNEL_DIR}", str(src)],
-                         kernel_dir() / f"{name}.cubin"))
-        try:
-            build.compile_jobs(jobs, parallel=os.cpu_count())
-        finally:
-            expr_program_cuda.builds += len(todo)
-            expr_program_cuda.build_seconds += time.perf_counter() - start
-    return kernels
+    with build.LOCK:
+        kernels = []
+        for program, masked, mode in specs:
+            key = expr_codegen.structure(program, masked, mode)
+            kernel = _KERNELS.get(key)
+            if kernel is None:
+                kernel = _KERNELS[key] = expr_codegen.generate(key)
+            kernels.append(kernel)
+        todo = {k.name: k for k in kernels if not (kernel_dir() / f"{k.name}.cubin").exists()}
+        if todo:
+            start = time.perf_counter()
+            jobs = []
+            for name, kernel in todo.items():
+                src = kernel_dir() / f"{name}.cu"
+                src.parent.mkdir(parents=True, exist_ok=True)
+                tmp = src.with_name(f"{src.name}.tmp{os.getpid()}")
+                tmp.write_text(kernel.source)
+                os.replace(tmp, src)
+                jobs.append((name, [*expr_codegen.CUBIN_FLAGS, f"-I{build.KERNEL_DIR}", str(src)],
+                             kernel_dir() / f"{name}.cubin"))
+            try:
+                build.compile_jobs(jobs, parallel=os.cpu_count())
+            finally:
+                expr_program_cuda.builds += len(todo)
+                expr_program_cuda.build_seconds += time.perf_counter() - start
+        return kernels
 
 
 def _function(program: Program, masked: Tuple[bool, ...], mode: str, device: int
@@ -1004,10 +1006,15 @@ def _function(program: Program, masked: Tuple[bool, ...], mode: str, device: int
     key = (expr_codegen.structure(program, masked, mode), device)
     hit = _FUNCTIONS.get(key)
     if hit is None:
-        kernel, = build_kernels([(program, masked, mode)])
-        module = cubin.Module((kernel_dir() / f"{kernel.name}.cubin").read_bytes(), device)
-        hit = _FUNCTIONS[key] = (kernel, (module.function(kernel.name),
-                                          module.function(kernel.name + expr_codegen.SCALAR)))
+        with build.LOCK:
+            hit = _FUNCTIONS.get(key)
+            if hit is None:
+                kernel, = build_kernels([(program, masked, mode)])
+                module = cubin.Module((kernel_dir() / f"{kernel.name}.cubin").read_bytes(),
+                                      device)
+                hit = _FUNCTIONS[key] = (kernel, (
+                    module.function(kernel.name),
+                    module.function(kernel.name + expr_codegen.SCALAR)))
     return hit
 
 

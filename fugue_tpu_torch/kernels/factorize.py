@@ -63,51 +63,53 @@ _CODE_DTYPES = {4: (torch.int32, torch.float32), 8: (torch.int64, torch.float64)
 
 
 def _bind() -> ctypes.CDLL:
-    lib = build.load("factorize")
-    if lib.fugue_bin_factorize.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        pp, ip, llp = ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll)
-        lib.fugue_bin_factorize.argtypes = [
-            ll, ll, p, i,  # n, nrows, row_valid, nkeys
-            pp, pp, ip, llp, llp,  # key data, masks, codes, kmin, span
-            p, p, p, p,  # seg, first_idx, occupied, count
-            i, p, ip,  # device, stream, path
-        ]
-        lib.fugue_sort_boundaries.argtypes = [
-            ll, ll, p, p,  # n, nrows, row_valid, order
-            i, pp, llp, ip, p,  # ncodes, data, strides, widths, first_sorted
-            p, p, p,  # state, seg_sorted, count
-            i, p,  # device, stream
-        ]
-        lib.fugue_sort_boundaries_tiles.argtypes = [ll]
-        lib.fugue_sort_boundaries_tiles.restype = ll
-        lib.fugue_sort_finish.argtypes = [
-            ll, p, p, i, p, p,  # n, seg_sorted, order, num, seg, first_idx
-            p, p, p, i, p,  # offs, vals, fill, device, stream
-        ]
-        lib.fugue_sort_finish_shift.argtypes = []
-        lib.fugue_sort_finish_shift.restype = i
-        lib.fugue_sort_word.argtypes = [
-            ll, ll, p, i,  # n, nrows, row_valid, unreal
-            i, pp, pp, ip,  # nkeys, key data, masks, codes
-            ip, ip, llp,  # options, widths, kmin
-            i, p, i, p,  # wide, word, device, stream
-        ]
-        lib.fugue_sort_word_boundaries.argtypes = [
-            ll, i, p, p, i, ll,  # n, width, sorted, order, has_limit, limit
-            p, p, p, p, p,  # block_sums, uniq, first_idx, seg_sorted, count
-            i, p,  # device, stream
-        ]
-        lib.fugue_sort_word_lookup.argtypes = [
-            ll, i, p, p, i, i, ll, p,  # n, width, words, uniq, num, has_limit, limit, seg
-            i, p, ip,  # device, stream, path
-        ]
-        for fn in (lib.fugue_bin_factorize, lib.fugue_sort_boundaries, lib.fugue_sort_finish,
-                   lib.fugue_sort_word, lib.fugue_sort_word_boundaries, lib.fugue_sort_word_lookup):
-            fn.restype = i
-        lib.fugue_factorize_error_string.argtypes = [i]
-        lib.fugue_factorize_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("factorize", _declare)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """The library's argument types, set once as it loads."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    pp, ip, llp = ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll)
+    lib.fugue_bin_factorize.argtypes = [
+        ll, ll, p, i,  # n, nrows, row_valid, nkeys
+        pp, pp, ip, llp, llp,  # key data, masks, codes, kmin, span
+        p, p, p, p,  # seg, first_idx, occupied, count
+        i, p, ip,  # device, stream, path
+    ]
+    lib.fugue_sort_boundaries.argtypes = [
+        ll, ll, p, p,  # n, nrows, row_valid, order
+        i, pp, llp, ip, p,  # ncodes, data, strides, widths, first_sorted
+        p, p, p,  # state, seg_sorted, count
+        i, p,  # device, stream
+    ]
+    lib.fugue_sort_boundaries_tiles.argtypes = [ll]
+    lib.fugue_sort_boundaries_tiles.restype = ll
+    lib.fugue_sort_finish.argtypes = [
+        ll, p, p, i, p, p,  # n, seg_sorted, order, num, seg, first_idx
+        p, p, p, i, p,  # offs, vals, fill, device, stream
+    ]
+    lib.fugue_sort_finish_shift.argtypes = []
+    lib.fugue_sort_finish_shift.restype = i
+    lib.fugue_sort_word.argtypes = [
+        ll, ll, p, i,  # n, nrows, row_valid, unreal
+        i, pp, pp, ip,  # nkeys, key data, masks, codes
+        ip, ip, llp,  # options, widths, kmin
+        i, p, i, p,  # wide, word, device, stream
+    ]
+    lib.fugue_sort_word_boundaries.argtypes = [
+        ll, i, p, p, i, ll,  # n, width, sorted, order, has_limit, limit
+        p, p, p, p, p,  # block_sums, uniq, first_idx, seg_sorted, count
+        i, p,  # device, stream
+    ]
+    lib.fugue_sort_word_lookup.argtypes = [
+        ll, i, p, p, i, i, ll, p,  # n, width, words, uniq, num, has_limit, limit, seg
+        i, p, ip,  # device, stream, path
+    ]
+    for fn in (lib.fugue_bin_factorize, lib.fugue_sort_boundaries, lib.fugue_sort_finish,
+               lib.fugue_sort_word, lib.fugue_sort_word_boundaries, lib.fugue_sort_word_lookup):
+        fn.restype = i
+    lib.fugue_factorize_error_string.argtypes = [i]
+    lib.fugue_factorize_error_string.restype = ctypes.c_char_p
 
 
 def _require_cuda(t: torch.Tensor, fn: str) -> None:

@@ -51,31 +51,33 @@ class SlabSources(NamedTuple):
 
 
 def _bind() -> ctypes.CDLL:
-    lib = build.load("gather")
-    if lib.fugue_gather_rows.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        pp, ip, llp = ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll)
-        lib.fugue_gather_rows.argtypes = [
-            ll, p, i,  # n, idx, ncols
-            pp, pp, pp, pp, ip,  # data, out, mask, out_mask, width
-            i, p, ip,  # device, stream, launched
-        ]
-        lib.fugue_gather_slab_shape.argtypes = [ll, ll, ip, ip, llp]
-        lib.fugue_gather_slab_shape.restype = None
-        lib.fugue_gather_slab_sources.argtypes = [ll, p, ll, p, p, i, p]
-        lib.fugue_gather_slab_columns.argtypes = [
-            ll, p, i,  # n, entries, ncols
-            pp, pp, pp, pp, ip, llp,  # data, out, mask, out_mask, width, rows
-            p, p, i, p, ip,  # rec, fill, device, stream, launched
-        ]
-        lib.fugue_gather_slab_record_bytes.argtypes = [i, ip, ip]
-        lib.fugue_gather_slab_record_bytes.restype = i
-        for fn in (lib.fugue_gather_rows, lib.fugue_gather_slab_sources,
-                   lib.fugue_gather_slab_columns):
-            fn.restype = i
-        lib.fugue_gather_error_string.argtypes = [i]
-        lib.fugue_gather_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("gather", _declare)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """The library's argument types, set once as it loads."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    pp, ip, llp = ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll)
+    lib.fugue_gather_rows.argtypes = [
+        ll, p, i,  # n, idx, ncols
+        pp, pp, pp, pp, ip,  # data, out, mask, out_mask, width
+        i, p, ip,  # device, stream, launched
+    ]
+    lib.fugue_gather_slab_shape.argtypes = [ll, ll, ip, ip, llp]
+    lib.fugue_gather_slab_shape.restype = None
+    lib.fugue_gather_slab_sources.argtypes = [ll, p, ll, p, p, i, p]
+    lib.fugue_gather_slab_columns.argtypes = [
+        ll, p, i,  # n, entries, ncols
+        pp, pp, pp, pp, ip, llp,  # data, out, mask, out_mask, width, rows
+        p, p, i, p, ip,  # rec, fill, device, stream, launched
+    ]
+    lib.fugue_gather_slab_record_bytes.argtypes = [i, ip, ip]
+    lib.fugue_gather_slab_record_bytes.restype = i
+    for fn in (lib.fugue_gather_rows, lib.fugue_gather_slab_sources,
+               lib.fugue_gather_slab_columns):
+        fn.restype = i
+    lib.fugue_gather_error_string.argtypes = [i]
+    lib.fugue_gather_error_string.restype = ctypes.c_char_p
 
 
 def _raise_on(lib: ctypes.CDLL, err: int) -> None:

@@ -60,33 +60,35 @@ _EXPAND_TILE = 2048  # K9's output rows a block (kTile in join.cu)
 
 
 def _bind() -> ctypes.CDLL:
-    lib = build.load("join")
-    if lib.fugue_join_build.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        ip = ctypes.POINTER(i)
-        side = [ll, ll, p, p, p, i]  # n, nrows, row_valid, nulls, seg, num
-        # slots, table, stats, device, stream, path
-        lib.fugue_join_build.argtypes = side + [i, p, p, i, p, ip]
-        # slots, table, stats, meta, entries, device, stream, launched
-        lib.fugue_join_build_slab.argtypes = side + [i, p, p, p, p, i, p, ip]
-        lib.fugue_join_slab_shape.argtypes = [ll, i, i, ctypes.POINTER(ll),
-                                              ctypes.POINTER(ll)]
-        lib.fugue_join_slab_shape.restype = None
-        lib.fugue_join_probe.argtypes = side + [
-            p, p, i, i, i, p,  # table, stats, mode, outer, place, narrow
-            p, p, p, p, p, p,  # keep, ridx, m, reps, count, total
-            i, p, ip,  # device, stream, launched
-        ]
-        lib.fugue_join_expand.argtypes = [
-            ll, ll, p, p, p, i, p, p, ll,  # p1, total, start, m, seg, num, cstart, order, p2
-            p, p, p, i, p, ip,  # tiles, li, ri, device, stream, launched
-        ]
-        for fn in (lib.fugue_join_build, lib.fugue_join_build_slab, lib.fugue_join_probe,
-                   lib.fugue_join_expand):
-            fn.restype = i
-        lib.fugue_join_error_string.argtypes = [i]
-        lib.fugue_join_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("join", _declare)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """The library's argument types, set once as it loads."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ip = ctypes.POINTER(i)
+    side = [ll, ll, p, p, p, i]  # n, nrows, row_valid, nulls, seg, num
+    # slots, table, stats, device, stream, path
+    lib.fugue_join_build.argtypes = side + [i, p, p, i, p, ip]
+    # slots, table, stats, meta, entries, device, stream, launched
+    lib.fugue_join_build_slab.argtypes = side + [i, p, p, p, p, i, p, ip]
+    lib.fugue_join_slab_shape.argtypes = [ll, i, i, ctypes.POINTER(ll),
+                                          ctypes.POINTER(ll)]
+    lib.fugue_join_slab_shape.restype = None
+    lib.fugue_join_probe.argtypes = side + [
+        p, p, i, i, i, p,  # table, stats, mode, outer, place, narrow
+        p, p, p, p, p, p,  # keep, ridx, m, reps, count, total
+        i, p, ip,  # device, stream, launched
+    ]
+    lib.fugue_join_expand.argtypes = [
+        ll, ll, p, p, p, i, p, p, ll,  # p1, total, start, m, seg, num, cstart, order, p2
+        p, p, p, i, p, ip,  # tiles, li, ri, device, stream, launched
+    ]
+    for fn in (lib.fugue_join_build, lib.fugue_join_build_slab, lib.fugue_join_probe,
+               lib.fugue_join_expand):
+        fn.restype = i
+    lib.fugue_join_error_string.argtypes = [i]
+    lib.fugue_join_error_string.restype = ctypes.c_char_p
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -35,30 +35,32 @@ from fugue_tpu_torch.kernels.reference import DROPNA_HOWS, FIRST_ROW_MODES, chec
 
 
 def _bind() -> ctypes.CDLL:
-    lib = build.load("row_select")
-    if lib.fugue_rank_keep.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        ip = ctypes.POINTER(i)
-        lib.fugue_rank_keep.argtypes = [
-            ll, p,  # n, order
-            p, i, i, i, p, ll,  # seg, seg_bytes, word, shift, starts, num
-            p, p, i,  # limit, limits, ge
-            p, p, p, p, i, p, ip,  # slots, fill, keep, count, device, stream, launched
-        ]
-        lib.fugue_first_row_mask.argtypes = [
-            ll, p, p, p, i,  # num, first_idx, occupied, counts, mode
-            ll, p, p, p, p, i, p, ip,  # n, slots, fill, keep, count, device, stream, launched
-        ]
-        lib.fugue_null_count_keep.argtypes = [
-            ll, ll, p,  # n, nrows, row_valid
-            ctypes.POINTER(p), p, i, i, i, i,  # masks, dev_masks, nmasks, ncols, mode, thresh
-            p, p, i, p, ip,  # keep, count, device, stream, launched
-        ]
-        for fn in (lib.fugue_rank_keep, lib.fugue_first_row_mask, lib.fugue_null_count_keep):
-            fn.restype = i
-        lib.fugue_row_select_error_string.argtypes = [i]
-        lib.fugue_row_select_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("row_select", _declare)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """The library's argument types, set once as it loads."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ip = ctypes.POINTER(i)
+    lib.fugue_rank_keep.argtypes = [
+        ll, p,  # n, order
+        p, i, i, i, p, ll,  # seg, seg_bytes, word, shift, starts, num
+        p, p, i,  # limit, limits, ge
+        p, p, p, p, i, p, ip,  # slots, fill, keep, count, device, stream, launched
+    ]
+    lib.fugue_first_row_mask.argtypes = [
+        ll, p, p, p, i,  # num, first_idx, occupied, counts, mode
+        ll, p, p, p, p, i, p, ip,  # n, slots, fill, keep, count, device, stream, launched
+    ]
+    lib.fugue_null_count_keep.argtypes = [
+        ll, ll, p,  # n, nrows, row_valid
+        ctypes.POINTER(p), p, i, i, i, i,  # masks, dev_masks, nmasks, ncols, mode, thresh
+        p, p, i, p, ip,  # keep, count, device, stream, launched
+    ]
+    for fn in (lib.fugue_rank_keep, lib.fugue_first_row_mask, lib.fugue_null_count_keep):
+        fn.restype = i
+    lib.fugue_row_select_error_string.argtypes = [i]
+    lib.fugue_row_select_error_string.restype = ctypes.c_char_p
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -35,34 +35,36 @@ _FLOATS = (torch.float32, torch.float64)
 
 
 def _bind() -> ctypes.CDLL:
-    lib = build.load("segment_reduce")
-    if lib.fugue_segment_extrema.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        pp, ip = ctypes.POINTER(p), ctypes.POINTER(i)
-        lib.fugue_segment_extrema.argtypes = [
-            ll, p, p, i,  # n, row_valid, seg, num
-            i, pp, pp, ip,  # payloads: count, data, masks, codes
-            i, pp, ip, ip, ip,  # tables: count, outs, wide, is_max, src
-            i, p, ip,  # device, stream, path
-        ]
-        lib.fugue_segment_sq_dev.argtypes = [
-            ll, p, p, i,  # n, row_valid, seg, num
-            i, pp, pp, ip,  # payloads: count, data, masks, codes
-            p, p,  # mean, out
-            i, p, ip,  # device, stream, path
-        ]
-        lib.fugue_segment_extrema_fill.argtypes = [
-            i, pp, ip, ip, i, i, p,  # tables: count, codes, wide, is_max; num, device, stream
-        ]
-        lib.fugue_segment_extrema_decode.argtypes = [
-            i, pp, ip, ip, ip, pp, i, i, p,  # ... and each table's dtype code and output
-        ]
-        for fn in (lib.fugue_segment_extrema, lib.fugue_segment_sq_dev,
-                   lib.fugue_segment_extrema_fill, lib.fugue_segment_extrema_decode):
-            fn.restype = i
-        lib.fugue_reduce_error_string.argtypes = [i]
-        lib.fugue_reduce_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("segment_reduce", _declare)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """The library's argument types, set once as it loads."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    pp, ip = ctypes.POINTER(p), ctypes.POINTER(i)
+    lib.fugue_segment_extrema.argtypes = [
+        ll, p, p, i,  # n, row_valid, seg, num
+        i, pp, pp, ip,  # payloads: count, data, masks, codes
+        i, pp, ip, ip, ip,  # tables: count, outs, wide, is_max, src
+        i, p, ip,  # device, stream, path
+    ]
+    lib.fugue_segment_sq_dev.argtypes = [
+        ll, p, p, i,  # n, row_valid, seg, num
+        i, pp, pp, ip,  # payloads: count, data, masks, codes
+        p, p,  # mean, out
+        i, p, ip,  # device, stream, path
+    ]
+    lib.fugue_segment_extrema_fill.argtypes = [
+        i, pp, ip, ip, i, i, p,  # tables: count, codes, wide, is_max; num, device, stream
+    ]
+    lib.fugue_segment_extrema_decode.argtypes = [
+        i, pp, ip, ip, ip, pp, i, i, p,  # ... and each table's dtype code and output
+    ]
+    for fn in (lib.fugue_segment_extrema, lib.fugue_segment_sq_dev,
+               lib.fugue_segment_extrema_fill, lib.fugue_segment_extrema_decode):
+        fn.restype = i
+    lib.fugue_reduce_error_string.argtypes = [i]
+    lib.fugue_reduce_error_string.restype = ctypes.c_char_p
 
 
 def _check_seg(seg: torch.Tensor, num: int, nrows: Optional[int],

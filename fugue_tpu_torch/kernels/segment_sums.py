@@ -50,25 +50,27 @@ class Variant(NamedTuple):
 
 
 def _bind() -> ctypes.CDLL:
-    lib = build.load("segment_sums")
+    return build.load("segment_sums", _declare)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """The library's argument types, set once as it loads."""
     fn = lib.fugue_binned_sums
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        pp, ip, llp = ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll)
-        fn.argtypes = [
-            ll, p, i,  # n, row_valid, nkeys
-            pp, pp, ip, llp, llp,  # key data, masks, codes, kmin, span
-            i, pp, pp, ip, i,  # nf, data, masks, codes, f64
-            i, pp,  # nc, flags
-            i, pp, pp, ip,  # ni, data, masks, codes
-            i, p, p, p,  # occupancy, fout, cout, iout
-            i, i, i,  # vec, unroll, replicas
-            i, p, ip,  # device, stream, info
-        ]
-        fn.restype = i
-        lib.fugue_cuda_error_string.argtypes = [i]
-        lib.fugue_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    pp, ip, llp = ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(ll)
+    fn.argtypes = [
+        ll, p, i,  # n, row_valid, nkeys
+        pp, pp, ip, llp, llp,  # key data, masks, codes, kmin, span
+        i, pp, pp, ip, i,  # nf, data, masks, codes, f64
+        i, pp,  # nc, flags
+        i, pp, pp, ip,  # ni, data, masks, codes
+        i, p, p, p,  # occupancy, fout, cout, iout
+        i, i, i,  # vec, unroll, replicas
+        i, p, ip,  # device, stream, info
+    ]
+    fn.restype = i
+    lib.fugue_cuda_error_string.argtypes = [i]
+    lib.fugue_cuda_error_string.restype = ctypes.c_char_p
 
 
 def _check(t: torch.Tensor, name: str, dtypes: Tuple[torch.dtype, ...], n: int,

@@ -71,15 +71,17 @@ def fold_plan(width: int, slots: int, rows: int, ops: Sequence[FoldOp], npayload
 
 
 def _bind() -> ctypes.CDLL:
-    lib = build.load("stream")
-    if lib.fugue_stream_fold.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fugue_stream_fold.argtypes = [ll, p, ll, ll, i, p, i, p, i, p, i, p, p, p, i, p,
-                                          ctypes.POINTER(i)]
-        lib.fugue_stream_fold.restype = i
-        lib.fugue_stream_error_string.argtypes = [i]
-        lib.fugue_stream_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("stream", _declare)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """The library's argument types, set once as it loads."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fugue_stream_fold.argtypes = [ll, p, ll, ll, i, p, i, p, i, p, i, p, p, p, i, p,
+                                      ctypes.POINTER(i)]
+    lib.fugue_stream_fold.restype = i
+    lib.fugue_stream_error_string.argtypes = [i]
+    lib.fugue_stream_error_string.restype = ctypes.c_char_p
 
 
 def _table(rows: Sequence[Sequence[int]]) -> "ctypes.Array":

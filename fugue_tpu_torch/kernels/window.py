@@ -66,17 +66,19 @@ class _Args(ctypes.Structure):
 
 
 def _bind() -> ctypes.CDLL:
-    lib = build.load("window")
-    if lib.fugue_window_rank.argtypes is None:
-        ip = ctypes.POINTER(ctypes.c_int)
-        for fn in (lib.fugue_window_rank, lib.fugue_window_frame):
-            fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, _P, ip]
-            fn.restype = ctypes.c_int
-        lib.fugue_window_frame_layout.argtypes = [ctypes.POINTER(_L)]
-        lib.fugue_window_frame_layout.restype = None
-        lib.fugue_window_error_string.argtypes = [ctypes.c_int]
-        lib.fugue_window_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("window", _declare)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """The library's argument types, set once as it loads."""
+    ip = ctypes.POINTER(ctypes.c_int)
+    for fn in (lib.fugue_window_rank, lib.fugue_window_frame):
+        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, _P, ip]
+        fn.restype = ctypes.c_int
+    lib.fugue_window_frame_layout.argtypes = [ctypes.POINTER(_L)]
+    lib.fugue_window_frame_layout.restype = None
+    lib.fugue_window_error_string.argtypes = [ctypes.c_int]
+    lib.fugue_window_error_string.restype = ctypes.c_char_p
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -40,6 +40,7 @@ took the generic (factorized) branch (``"generic"``) or had no keys
 ``"join_unique"``, ``"join_expand"``).
 """
 
+import threading
 from collections.abc import Mapping
 from typing import Any, Callable, Dict, Iterable, Iterator, List, NoReturn, Optional, Tuple
 
@@ -71,6 +72,7 @@ from fugue_tpu_torch.dataframe.utils import (
     pandas_to_table,
 )
 from fugue_tpu_torch.constants import FUGUE_CONF_TORCH_IO_BATCH_ROWS, typed_conf_get
+from fugue_tpu_torch.execution.execution_engine import ExecutionEngine, MapEngine, SQLEngine
 from fugue_tpu_torch.fs.local import UNPORTED_IO, LocalFileSystem, unported_scheme
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.sql_frontend import algebra_bridge as ab
@@ -112,29 +114,71 @@ _TABLE_CATALOG = "ROADMAP.md queue 1 item 16 (the device table catalog)"
 Plan = Tuple[str, str, Optional[ColumnExpr], pa.DataType]
 
 
-class TorchMapEngine:
+class TorchMapEngine(MapEngine):
     """The map primitive (``jax_backend/execution_engine.py:86``): a
     transformer over whole padded columns, on the engine's device."""
-
-    def __init__(self, execution_engine: "TorchExecutionEngine"):
-        self.execution_engine = execution_engine
 
     def map_dataframe(
         self,
         df: Any,
-        map_func: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]],
+        map_func: Callable[..., Any],
         output_schema: Any,
         partition_spec: Optional[PartitionSpec] = None,
+        on_init: Optional[Callable[[int, Any], Any]] = None,
+        map_func_format_hint: Optional[str] = None,
     ) -> TorchDataFrame:
-        """``jax_backend/execution_engine.py:95``. A string partition key
-        bins by its codes, like any integer key. ``output_schema`` may
-        name the input's columns as ``"*"`` (``"*"`` alone, or
-        ``"*,w:double"``)."""
-        tdf = self.execution_engine._input("map", df)
+        """``jax_backend/execution_engine.py:95``: ``map_func`` is a
+        workflow's transformer runner (``extensions/builtins.py``); with the
+        format hint ``"torch"`` its raw ``Dict[str, torch.Tensor]`` function
+        runs over whole columns (``_compiled_map``). Any other transformer,
+        and one with ``ignore_errors``, needs the JAX package's host
+        partition loop: refused, naming ROADMAP.md queue 1 item 2(b), and
+        counted in ``fallbacks["map"]``. A string partition key bins by its
+        codes, like any integer key. ``output_schema`` may name the input's
+        columns as ``"*"`` (``"*"`` alone, or ``"*,w:double"``)."""
+        engine: "TorchExecutionEngine" = self.execution_engine  # type: ignore[assignment]
+        raw = raw_function(map_func, "t") if map_func_format_hint == "torch" else None
+        if raw is None:
+            engine._unported("map", f"transformer {_runner_name(map_func)} (the port runs only "
+                             "functions annotated Dict[str, torch.Tensor] -> Dict[str, "
+                             "torch.Tensor]; other transformers need the host engine)",
+                             _HOST_ENGINE)
+        if map_func.__self__.ignore_errors:  # type: ignore[attr-defined]
+            engine._unported("map", "ignore_errors (the host partition loop)", _HOST_ENGINE)
+        tdf = engine._input("map", df)
         keys = [] if partition_spec is None else partition_spec.partition_by
         for k in keys:
             assert_or_throw(k in tdf.blocks.columns, KeyError(f"{k} not in {tdf.schema}"))
-        return self._compiled_map(tdf, map_func, _output_schema(output_schema, tdf.schema), keys)
+        if on_init is not None:
+            on_init(0, tdf)
+        if not map_func.__self__.returns_frame:  # type: ignore[attr-defined]
+            # an output transformer runs for its effects and returns nothing
+            # (the JAX package's compiled map refuses it, ROADMAP.md queue 3)
+            raw(self._map_args(tdf, keys)[0])
+            return engine.to_df(ArrayDataFrame([], _output_schema(output_schema, tdf.schema)))
+        return self._compiled_map(tdf, raw, _output_schema(output_schema, tdf.schema), keys)
+
+    def _map_args(self, df: TorchDataFrame, keys: List[str]
+                  ) -> Tuple["_TransformerArgs", Dict[int, TorchColumn]]:
+        """A transformer's argument (the ABI of ``_compiled_map``) and each
+        uint64 input's bits tensor by ``id``, to its column."""
+        blocks = df.blocks
+        args: Dict[str, Any] = {}
+        bits_of: Dict[int, TorchColumn] = {}  # a uint64 input's bits tensor -> its column
+        for name, col in blocks.columns.items():
+            args[name] = value_bits(col.data, col.pa_type)
+            if args[name] is not col.data:  # a uint64's bits, not its stored words
+                bits_of[id(args[name])] = col
+            if col.mask is not None:
+                args[f"_{name}_mask"] = col.mask
+            if col.is_string:
+                args[f"_{name}_dict"] = col.dictionary
+        args["_nrows"] = blocks.nrows_tensor()
+        if keys:
+            fr = groupby.factorize_keys(blocks, keys)
+            args["_segment_ids"] = fr.seg
+            args["_num_segments"] = fr.num_segments
+        return _TransformerArgs(args, blocks), bits_of
 
     def _compiled_map(
         self,
@@ -189,22 +233,8 @@ class TorchMapEngine:
         blocks = df.blocks
         device = blocks.device
         pad_n = blocks.padded_nrows
-        args: Dict[str, Any] = {}
-        bits_of: Dict[int, TorchColumn] = {}  # a uint64 input's bits tensor -> its column
-        for name, col in blocks.columns.items():
-            args[name] = value_bits(col.data, col.pa_type)
-            if args[name] is not col.data:  # a uint64's bits, not its stored words
-                bits_of[id(args[name])] = col
-            if col.mask is not None:
-                args[f"_{name}_mask"] = col.mask
-            if col.is_string:
-                args[f"_{name}_dict"] = col.dictionary
-        args["_nrows"] = blocks.nrows_tensor()
-        if keys:
-            fr = groupby.factorize_keys(blocks, keys)
-            args["_segment_ids"] = fr.seg
-            args["_num_segments"] = fr.num_segments
-        out = fn(_TransformerArgs(args, blocks))
+        args, bits_of = self._map_args(df, keys)
+        out = fn(args)
         assert_or_throw(
             isinstance(out, dict),
             ValueError("torch transformer must return a dict of tensors"),
@@ -312,7 +342,7 @@ class _TransformerArgs(Mapping):
         return len(self._cols) + ("_row_valid" not in self._cols)
 
 
-class TorchSQLEngine:
+class TorchSQLEngine(SQLEngine):
     """The SQL facet (``JaxSQLEngine``, ``jax_backend/execution_engine.py:
     384-537``): parse a SELECT with the port's front end, inline its
     uncorrelated scalar subqueries as literals the device computed, lower
@@ -329,9 +359,6 @@ class TorchSQLEngine:
     2(b); a device plan that raises is not caught. ``save_table`` and
     ``load_table``, the device table catalog (``:540-573``), wait for
     queue 1 item 16."""
-
-    def __init__(self, execution_engine: "TorchExecutionEngine"):
-        self.execution_engine = execution_engine
 
     def select(self, dfs: Dict[str, Any], statement: StructuredRawSQL) -> TorchDataFrame:
         """``:399``: the SELECT ``statement`` over the frames ``dfs`` (by
@@ -429,14 +456,14 @@ class TorchSQLEngine:
                                         _TABLE_CATALOG)
 
 
-class TorchExecutionEngine:
+class TorchExecutionEngine(ExecutionEngine):
     """The port's engine (``jax_backend/execution_engine.py:575``).
 
     ``device`` defaults to ``torch.device("cuda")``; without CUDA the
     constructor raises unless the caller asked for ``device="cpu"``."""
 
     def __init__(self, conf: Any = None, device: Any = None):
-        self.conf: Dict[str, Any] = dict(conf or {})
+        super().__init__(conf)
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -455,6 +482,9 @@ class TorchExecutionEngine:
         self.fs = LocalFileSystem()
         self._strategy_counts: Dict[str, int] = {}
         self._fallbacks: Dict[str, int] = {}
+        # a workflow's runner threads (``fugue.workflow.concurrency``) count
+        # into the same dicts
+        self._count_lock = threading.Lock()
         # compiled K6 programs of this engine's filters, assigns,
         # projections and aggregate arguments; and of the single
         # expressions its checks compiled (a string's tables are built
@@ -479,8 +509,12 @@ class TorchExecutionEngine:
         """Refused (not yet ported) requests by operation (``:772``)."""
         return dict(self._fallbacks)
 
+    def _count_fallback(self, op: str) -> None:
+        with self._count_lock:
+            self._fallbacks[op] = self._fallbacks.get(op, 0) + 1
+
     def _unported(self, op: str, what: str, roadmap: str) -> NoReturn:
-        self._fallbacks[op] = self._fallbacks.get(op, 0) + 1
+        self._count_fallback(op)
         raise NotImplementedError(
             f"{what} is not ported to the torch engine yet; see {roadmap}"
         )
@@ -495,7 +529,7 @@ class TorchExecutionEngine:
         except expr_eval.Refused as r:
             self._unported(op, r.what, r.item)
 
-    def to_df(self, df: Any, schema: Any = None) -> TorchDataFrame:
+    def to_df(self, df: Any, schema: Any = None) -> Any:
         """pandas, arrow, rows with a ``schema``, a local frame (its
         metadata kept) or a frame on this device -> ``TorchDataFrame``,
         uploaded now (``:1297``). A pandas frame is typed as the reference
@@ -503,6 +537,8 @@ class TorchExecutionEngine:
         object column is ``str``); ``schema``, where given, names and types
         the columns of a local frame, and must be None for a
         ``TorchDataFrame``."""
+        if isinstance(df, TorchZippedDataFrame):  # a zip is the cotransform's input
+            return df
         if isinstance(df, TorchDataFrame):
             assert_or_throw(schema is None,
                             ValueError("schema must be None for TorchDataFrame"))
@@ -534,10 +570,13 @@ class TorchExecutionEngine:
             res.reset_metadata(metadata)
         return res
 
-    def persist(self, df: Any, schema: Any = None) -> TorchDataFrame:
+    def persist(self, df: Any, schema: Any = None, lazy: bool = False, **kwargs: Any) -> Any:
         """``to_df``, then wait until the upload is on the card (``:1576``);
-        a frame still in storage is loaded first."""
+        a frame still in storage is loaded first, and a zip is returned as
+        it is. ``lazy`` (a workflow's weak checkpoint) skips the wait."""
         res = self.to_df(df, schema)
+        if isinstance(res, TorchZippedDataFrame) or lazy:
+            return res
         res.blocks
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -936,19 +975,25 @@ class TorchExecutionEngine:
                 self, df.arrow_chunks(), schema, list(keys), plans)
             return res
         except streaming.StreamFallback as fb:
-            self._fallbacks["aggregate"] = self._fallbacks.get("aggregate", 0) + 1
+            self._count_fallback("aggregate")
             table = streaming.materialize_fallback(fb, schema)
             return self._device_aggregate(self.to_df(table), list(keys), agg_cols)
 
-    def zip(self, dfs: Any, how: str = "inner",
-            partition_spec: Optional[PartitionSpec] = None) -> TorchZippedDataFrame:
+    def zip(self, dfs: Any, how: str = "inner", partition_spec: Optional[PartitionSpec] = None,
+            temp_path: Optional[str] = None, to_file_threshold: int = -1
+            ) -> TorchZippedDataFrame:
         """``:1616``: records the co-partition of ``dfs`` (a list of frames,
         or a dict of them by name) in a ``TorchZippedDataFrame``, each
         member uploaded; ``comap`` runs over it. Inner, left_outer,
         right_outer, full_outer and cross; the keys are the spec's, else
         the columns every member has (none for cross). The JAX package's
         serialized zip of other types is host work: refused, naming
-        ROADMAP.md queue 1 item 2(b)."""
+        ROADMAP.md queue 1 item 2(b). ``temp_path`` and
+        ``to_file_threshold`` belong to the serialized zip and are not read.
+        A workflow's ``DataFrames`` zips as a dict where named, else as a
+        list."""
+        if getattr(dfs, "has_dict", True) is False:
+            dfs = list(dfs.values())
         hownorm = how.lower().replace(" ", "_")
         if hownorm not in ("inner", "left_outer", "right_outer", "full_outer", "cross"):
             self._unported("zip", f"a {how} zip (the serialized zip)", _HOST_ENGINE)
@@ -969,11 +1014,24 @@ class TorchExecutionEngine:
         package answers on its host group loop (a presort, the ambiguous
         output length, a string output without its decode table) is
         refused, naming ROADMAP.md queue 1 item 2(b), and counted in
-        ``fallbacks["comap"]``."""
+        ``fallbacks["comap"]``. As in ``map_dataframe``, ``map_func`` is a
+        workflow's cotransformer runner, and its raw function runs: one
+        ``Dict[str, torch.Tensor]`` parameter a member and a
+        ``Dict[str, torch.Tensor]`` return; any other cotransformer, and
+        one with ``ignore_errors``, is refused the same way."""
         assert_or_throw(isinstance(df, TorchZippedDataFrame),
                         ValueError("comap takes a zipped dataframe (zip)"))
+        raw = raw_function(map_func, "t" * len(df.frames), "t")
+        if raw is None:
+            self._unported("comap", f"cotransformer {_runner_name(map_func)} (the port "
+                           f"runs only functions annotated with {len(df.frames)} "
+                           "Dict[str, torch.Tensor] parameter(s) -> Dict[str, "
+                           "torch.Tensor]; other cotransformers need the host engine)",
+                           _HOST_ENGINE)
+        if map_func.__self__.ignore_errors:  # type: ignore[attr-defined]
+            self._unported("comap", "ignore_errors (the host group loop)", _HOST_ENGINE)
         try:
-            return compiled_comap(self, df, map_func, output_schema,
+            return compiled_comap(self, df, raw, output_schema,
                                   partition_spec or PartitionSpec(), on_init)
         except HostPathRequired as e:
             self._unported("comap", str(e), _HOST_ENGINE)
@@ -1301,13 +1359,43 @@ class TorchExecutionEngine:
         return occupancy, out_cols
 
     def _count_strategy(self, name: str) -> None:
-        self._strategy_counts[name] = self._strategy_counts.get(name, 0) + 1
+        with self._count_lock:
+            self._strategy_counts[name] = self._strategy_counts.get(name, 0) + 1
 
 
 # operations the JAX package sends to its host engine whenever a frame holds
 # a host column
 _HOST_REFUSED = frozenset(("union", "subtract", "intersect", "join", "distinct", "take", "zip",
                            "sql_select", "map"))
+
+
+def raw_function(map_func: Callable[..., Any], input_code: str,
+                 output_code: Optional[str] = None) -> Optional[Callable[..., Any]]:
+    """The user's raw function behind a workflow's transformer runner
+    (``map_func`` is its bound ``run``), where its wrapper's input code
+    starts with ``input_code`` (a transformer, ``:151-158``) or is it
+    (a cotransformer, with ``output_code``, ``:1715-1730``); else None,
+    as for a function that is no runner's."""
+    from fugue_tpu_torch.extensions.builtins import _TransformerRunner
+
+    runner = getattr(map_func, "__self__", None)
+    if not isinstance(runner, _TransformerRunner):
+        return None
+    wrapper = getattr(runner.transformer, "wrapper", None)
+    if wrapper is None:
+        return None
+    if output_code is None:
+        return wrapper.func if wrapper.input_code.startswith(input_code) else None
+    ok = wrapper.input_code == input_code and wrapper.output_code == output_code
+    return wrapper.func if ok else None
+
+
+def _runner_name(map_func: Callable[..., Any]) -> str:
+    """The name of the user's function behind a transformer runner (or of
+    ``map_func`` where it is no runner's)."""
+    tf = getattr(getattr(map_func, "__self__", None), "transformer", map_func)
+    func = getattr(getattr(tf, "wrapper", None), "func", tf)
+    return repr(getattr(func, "__name__", func))
 
 
 def _result_column(tp: pa.DataType, r: expr_eval.Evaluated, blocks: TorchBlocks,

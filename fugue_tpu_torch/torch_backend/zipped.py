@@ -16,6 +16,7 @@ from typing import Any, Dict, List
 from fugue_tpu_torch.collections.partition import PartitionSpec
 from fugue_tpu_torch.schema import Schema
 from fugue_tpu_torch.torch_backend.dataframe import TorchDataFrame
+from fugue_tpu_torch.utils.hash import to_uuid
 
 _FUGUE_SER_NO = "_fugue_ser_no"  # ``fugue_tpu/execution/execution_engine.py:43``
 _ONLY_COMAP = "a zipped dataframe only supports comap/cotransform (transform of the zip)"
@@ -43,6 +44,12 @@ class TorchZippedDataFrame:
         self.how = how
         self.keys = keys
         self.zip_spec = zip_spec
+
+    def __uuid__(self) -> str:
+        """The zip's identity in a workflow's task ids: its members' own
+        (``DataFrame.__uuid__``), names, zip type, keys and partition spec."""
+        return to_uuid([f.__uuid__() for f in self.frames], self.names, self.how, self.keys,
+                       self.zip_spec.__uuid__())
 
     def count(self) -> int:
         raise NotImplementedError(_ONLY_COMAP)

@@ -28,7 +28,10 @@ LAG beside a RANGE sum, ORDER BY ... LIMIT with and without OFFSET, and
 NOT IN with and without a null on the right, and BASELINE config 5
 (``--only io``, 100M rows): parquet loaded, ``v2 = v * 0.5``, sum and count
 by ``k``, saved, eager and streamed (``chip_smoke.build_config5``, its
-files in a temporary directory removed afterwards). Each is warmed up with two
+files in a temporary directory removed afterwards), and the headline
+through the workflow DAG beside the same work lowered straight to the
+engine's map (``--only workflow``, 100M rows;
+``chip_smoke.build_workflow_headline``). Each is warmed up with two
 runs,
 then run ``RUNS`` times under ``torch.profiler``; for each the script
 prints one JSON object: the
@@ -194,9 +197,14 @@ def _groups(device: Any, table: Any) -> Dict[str, Callable[[], None]]:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
+    def workflow() -> None:
+        run = chip_smoke.build_workflow_headline(device, rows, groups, seed)[0]
+        for name, dag in (("headline_dag", True), ("headline_direct", False)):
+            profile_path(name, lambda: run(dag), device, table)
+
     return {"headline": headline, "config2": config2, "sort_path": sort_path,
             "full_groupby": full_groupby, "k6": k6, "joins": joins, "strings": strings,
-            "relational": relational, "sql": sql, "io": io}
+            "relational": relational, "sql": sql, "io": io, "workflow": workflow}
 
 
 def main() -> None:
@@ -206,7 +214,7 @@ def main() -> None:
     parser.add_argument("--only", nargs="*", metavar="GROUP",
                         help="profile only these groups of paths: headline, config2, "
                              "sort_path, full_groupby, k6, joins, strings, relational, "
-                             "sql, io (default: all)")
+                             "sql, io, workflow (default: all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch.cuda.is_available() is false")

@@ -423,10 +423,20 @@ def test_zip_errors_match_the_reference() -> None:
 
 
 def test_on_init_runs_once_with_the_members_empty_frames() -> None:
+    """``comap`` takes a workflow's cotransformer runner, as
+    ``map_dataframe`` takes a transformer's; a bare function is refused
+    (the JAX package sends it to its host group loop)."""
+    from fugue_tpu_torch.extensions.builtins import _TransformerRunner
+    from fugue_tpu_torch.extensions.convert import _to_transformer
+
     te = ft.make_execution_engine(device="cpu")
     seen: List[Any] = []
     z = ft.zip({"x": sides(3)[0], "y": sides(3)[1]}, partition="k", engine=te)
-    te.comap(z, t_sums, "k:long,s:double", on_init=lambda i, dfs: seen.append((i, dfs)))
+    with pytest.raises(NotImplementedError, match=r"'t_sums'.*queue 1 item 2\(b\)"):
+        te.comap(z, t_sums, "k:long,s:double")
+    assert te.fallbacks == {"comap": 1}
+    runner = _TransformerRunner(z, _to_transformer(t_sums, "k:long,s:double"), [])
+    te.comap(z, runner.run, "k:long,s:double", on_init=lambda i, dfs: seen.append((i, dfs)))
     assert len(seen) == 1 and seen[0][0] == 0
     assert sorted(seen[0][1]) == ["x", "y"]
     assert [f.count() for f in seen[0][1].values()] == [0, 0]

@@ -26,6 +26,7 @@ within its 1e-13. Skipped only where no ``g++`` is found."""
 import ctypes
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Any, Dict, List, Tuple
 
@@ -298,6 +299,72 @@ def test_a_failed_build_raises_with_the_compilers_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no such intrinsic"):
         ep.build_kernels([(prog, [True], "columns")])
     assert not list(ep.kernel_dir().glob("*.cubin"))
+
+
+def test_threads_that_first_need_one_kernel_build_it_once(tmp_path, monkeypatch):
+    """A workflow's runner threads (``fugue.workflow.concurrency``) may
+    first need one K6 kernel at once: it is built once (``build.LOCK``),
+    and every thread gets it, with no temporary file left."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    slow = tmp_path / "nvcc"
+    slow.write_text("#!/bin/sh\nsleep 0.2\n"
+                    'while [ "$#" -gt 0 ]; do if [ "$1" = "-o" ]; then : > "$2"; fi; shift; done\n')
+    slow.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc", lambda: str(slow))
+    monkeypatch.setattr(ep, "_KERNELS", {})
+    monkeypatch.setattr(ep.expr_program_cuda, "builds", 0)
+    monkeypatch.setattr(ep.expr_program_cuda, "build_seconds", 0.0)
+    prog = ep.compile_program([col("v") * 3], [None], COLS)
+    start = threading.Barrier(6)
+    names: List[str] = []
+    errors: List[BaseException] = []
+
+    def first_use() -> None:
+        start.wait()
+        try:
+            names.append(ep.build_kernels([(prog, [True], "columns")])[0].name)
+        except BaseException as e:  # noqa: B902 - handed to the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_use) for _ in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == [] and len(names) == 6 and len(set(names)) == 1
+    assert ep.expr_program_cuda.builds == 1
+    assert sorted(p.suffix for p in ep.kernel_dir().iterdir()) == [".cu", ".cubin"]
+
+
+def test_threads_that_first_need_one_library_load_it_once(tmp_path, monkeypatch):
+    """``build.load`` builds, loads and declares a library once, before any
+    thread sees it, however many threads first need it at once."""
+    built: List[str] = []
+    declared: List[Any] = []
+
+    def slow_build(stems: List[str]) -> Dict[str, str]:
+        built.extend(stems)
+        threading.Event().wait(0.1)
+        return {}
+
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build, "build_all", slow_build)
+    monkeypatch.setattr(build, "library_path", lambda stem: tmp_path / f"{stem}.so")
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
+    start = threading.Barrier(6)
+    got: List[Any] = []
+
+    def first_use() -> None:
+        start.wait()
+        got.append(build.load("stem", declared.append))
+
+    threads = [threading.Thread(target=first_use) for _ in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert built == ["stem"] and len(declared) == 1
+    assert len(got) == 6 and all(g is declared[0] for g in got)
 
 
 def test_many_immediates_take_the_device_memory_route():

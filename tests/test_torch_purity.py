@@ -139,6 +139,16 @@ _UNPORTED = {
         3, presort="u desc", engine=e
     ),
     "pandas_transformer": lambda e: ft.transform(_df(), _pandas_udf, "k:int,v:float", engine=e),
+    # the workflow DAG's left-out parts (tests/test_torch_workflow.py counts them)
+    "dag_ignore_errors": lambda e: ft.transform(_df(), _udf, "k:int,v:float",
+                                                ignore_errors=[KeyError], engine=e),
+    "dag_optimizer": lambda e: ft.transform(_df(), _udf, "k:int,v:float", engine=e,
+                                            engine_conf={"fugue.optimize": "on"}),
+    "dag_retries": lambda e: ft.transform(_df(), _udf, "k:int,v:float", engine=e,
+                                          engine_conf={"fugue.workflow.retry.max_attempts": 3}),
+    "dag_tracing": lambda e: ft.transform(_df(), _udf, "k:int,v:float", engine=e,
+                                          engine_conf={"fugue.obs.enabled": True}),
+    "dag_yield_table": lambda e: ft.FugueWorkflow().df(_df()).yield_table_as("t"),
     "other_engine": lambda e: ft.make_execution_engine("native"),
     "save_table": lambda e: e.sql_engine.save_table(_df(), "t"),
     "load_table": lambda e: e.sql_engine.load_table("t"),
